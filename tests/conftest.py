@@ -29,6 +29,9 @@ def pytest_configure(config):
         "markers", "interleave: DPOR-lite interleaving explorer smoke "
         "(tests/test_interleave.py, runs in tier-1); select with "
         "`-m interleave`")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips with its reason on CPU-only machines; select with `-m cuda`")
 
 
 @pytest.fixture
