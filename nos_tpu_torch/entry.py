@@ -1,6 +1,8 @@
 """Entry point of the port, the counterpart of ``__graft_entry__.entry``,
-and the one builder of the seeded BENCH_350M serving model that
-``entry``, ``chip_smoke.py`` and ``scripts/profile_torch_serve.py`` share."""
+and the builders that ``entry``, ``chip_smoke.py`` and the profile
+scripts share: the seeded BENCH_350M serving model (``bench_model``) and
+the BENCH_350M_TRAIN trainer with its synthetic batches
+(``bench_trainer``, ``train_loader``)."""
 
 from __future__ import annotations
 
@@ -10,11 +12,16 @@ from collections.abc import Callable
 import torch
 
 from nos_tpu_torch import resolve_device
-from nos_tpu_torch.models.llama import BENCH_350M, Llama, init_params
+from nos_tpu_torch.models.data import TokenLoader
+from nos_tpu_torch.models.llama import (BENCH_350M, BENCH_350M_TRAIN, Llama,
+                                        init_params)
+from nos_tpu_torch.models.train import Trainer
 
 # The serving run: 8 requests, 448 prompt tokens and 64 generated tokens
 # each, so the buffer that every step re-runs is 8 x 512.
 SERVE_BATCH, PROMPT_LEN, STEPS = 8, 448, 64
+# The training run: nos_tpu/cmd/train.py's defaults, batch 8 x seq 2048.
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 
 
 def bench_model(num_layers: int = BENCH_350M.num_layers,
@@ -55,3 +62,26 @@ def entry(device: str | torch.device = "cuda"
             return model(tokens)
 
     return fn, (model, tokens)
+
+
+def bench_trainer(device: str | torch.device = "cuda",
+                  num_layers: int = BENCH_350M_TRAIN.num_layers,
+                  **changes) -> Trainer:
+    """A ``Trainer`` for BENCH_350M_TRAIN (flash attention, "rots" remat,
+    fp32 parameters, bf16 activations) with parameters drawn from a
+    generator seeded 0 on ``device``.  ``num_layers`` cuts the depth;
+    ``changes`` replace other config fields (e.g. attn_impl)."""
+    cfg = dataclasses.replace(BENCH_350M_TRAIN, num_layers=num_layers,
+                              **changes)
+    trainer = Trainer(cfg, device=device)
+    trainer.init_state(0)
+    return trainer
+
+
+def train_loader() -> TokenLoader:
+    """The training run's batches, as nos_tpu/cmd/train.py builds them
+    without a data path: a synthetic stream seeded 0."""
+    return TokenLoader.synthetic(
+        BENCH_350M_TRAIN.vocab_size,
+        max(TRAIN_BATCH * TRAIN_SEQ * 8, 1 << 16), TRAIN_BATCH, TRAIN_SEQ,
+        seed=0)

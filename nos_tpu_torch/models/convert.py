@@ -7,7 +7,8 @@ dicts of numpy arrays, and returns a ``state_dict`` for
 layouts: the scanned one (one ``layers`` subtree whose leaves carry a
 leading layer axis) and the unrolled one (``layer_0`` ... from
 ``scan_layers=False``), the DenseGeneral kernel layouts (q/k/v
-[E, H, D], o_proj [H, D, E], MLP [E, I] / [I, E]) and the tied embed
+[E, H, D] or the fused qkv_proj [E, H+2Hkv, D], o_proj [H, D, E], MLP
+[E, I] / [I, E] or the fused gate_up_proj [E, 2I]) and the tied embed
 [V, E].  Tensors come out on the CPU in ``cfg.param_dtype`` (norm scales
 in fp32); move them with the module.
 """
@@ -45,10 +46,13 @@ def params_from_jax(tree: Mapping, cfg: LlamaConfig
         x = np.asarray(x)
         return x[n] if scanned else x
 
-    if "qkv_proj" in layer(0)["attn"] or "gate_up_proj" in layer(0)["mlp"]:
-        raise NotImplementedError(
-            "fused_qkv / fused_gate_up parameters are the training slice's "
-            "work")
+    fused_qkv = "qkv_proj" in layer(0)["attn"]
+    fused_gate_up = "gate_up_proj" in layer(0)["mlp"]
+    if (fused_qkv, fused_gate_up) != (cfg.fused_qkv, cfg.fused_gate_up):
+        raise ValueError(
+            f"the flax tree has fused_qkv={fused_qkv}, fused_gate_up="
+            f"{fused_gate_up}; the config asks for {cfg.fused_qkv}, "
+            f"{cfg.fused_gate_up}")
 
     pd = cfg.param_dtype
     sd = {"embed": _tensor(tree["embed"], pd)}
@@ -56,7 +60,8 @@ def params_from_jax(tree: Mapping, cfg: LlamaConfig
         p = f"layers.{n}."
         sd[p + "attn_norm.scale"] = _tensor(
             leaf(n, "attn_norm", "scale"), torch.float32)
-        for proj in ("q_proj", "k_proj", "v_proj"):
+        qkv = ("qkv_proj",) if fused_qkv else ("q_proj", "k_proj", "v_proj")
+        for proj in qkv:
             w = leaf(n, "attn", proj, "kernel")             # [E, H, D]
             sd[p + f"attn.{proj}.weight"] = _tensor(
                 w.reshape(w.shape[0], -1).T, pd)
@@ -65,7 +70,8 @@ def params_from_jax(tree: Mapping, cfg: LlamaConfig
             w.reshape(-1, w.shape[-1]).T, pd)
         sd[p + "mlp_norm.scale"] = _tensor(
             leaf(n, "mlp_norm", "scale"), torch.float32)
-        for proj in ("gate_proj", "up_proj", "down_proj"):
+        mlp = ("gate_up_proj",) if fused_gate_up else ("gate_proj", "up_proj")
+        for proj in (*mlp, "down_proj"):
             sd[p + f"mlp.{proj}.weight"] = _tensor(
                 leaf(n, "mlp", proj, "kernel").T, pd)
     sd["final_norm.scale"] = _tensor(tree["final_norm"]["scale"],

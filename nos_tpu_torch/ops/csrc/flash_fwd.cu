@@ -34,91 +34,15 @@
 // - ragged tails: rows past Sk or Sq are zero-filled by cp.async, keys past
 //   Sk are set to -1e30, rows past Sq are not stored.  Any length works.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;              // q rows per CTA
-constexpr int kBlockN = 64;              // keys per k/v tile
-constexpr int kHeadDim = 128;
-constexpr int kWarps = 4;                // 16 q rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kStride = kHeadDim + 8;    // padded shared row, in elements
-constexpr int kTileElems = kBlockM * kStride;
+using namespace nos_flash;
+
+constexpr int kBlockM = kTileRows;       // q rows per CTA
+constexpr int kBlockN = kTileRows;       // keys per k/v tile
 constexpr int kSmemBytes = 5 * kTileElems * 2;  // Q, K[2], V[2]
-constexpr int kChunks = kHeadDim / 8;    // 16-byte chunks per row
-constexpr float kNegInf = -1e30f;
-
-static_assert(kBlockM == kBlockN, "tiles share one shared-memory shape");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a . b for one 16x8x16 tile (a row-major 16x16, b col-major 16x8).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [row0, row0 + 64) of one (batch, head) slice into shared
-// memory; rows at or past `nrows` are zero-filled.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0,
-                                          int nrows) {
-#pragma unroll
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool valid = row0 + r < nrows;
-    const __nv_bfloat16* p = valid ? src + (row0 + r) * row_stride + c : src;
-    cp_async16(smem_addr(dst + r * kStride + c), p, valid);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -181,11 +105,8 @@ __global__ void __launch_bounds__(kThreads)
 
     if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(qf[kk], smem_addr(sQ + r * kStride + c));
-      }
+      for (int kk = 0; kk < kHeadDim / 16; ++kk)
+        frag_a(qf[kk], sQ, kStride, warp * 16, kk * 16, lane);
     }
 
     // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
@@ -199,10 +120,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int kk = 0; kk < kHeadDim / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < kBlockN / 16; ++np) {
-        const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int d = kk * 16 + ((lane >> 3) & 1) * 8;
         uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(sKb + key * kStride + d));
+        frag_b(bk, sKb, kStride, np * 16, kk * 16, lane);
         mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
         mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
       }
@@ -254,16 +173,12 @@ __global__ void __launch_bounds__(kThreads)
     const __nv_bfloat16* sVb = sV + buf * kTileElems;
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      pack_a(pa, s, kk);
 #pragma unroll
       for (int dp = 0; dp < kHeadDim / 16; ++dp) {
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int d = dp * 16 + (lane >> 4) * 8;
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(sVb + key * kStride + d));
+        frag_b_trans(bv, sVb, kStride, kk * 16, dp * 16, lane);
         mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
         mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
       }
@@ -298,15 +213,7 @@ __global__ void __launch_bounds__(kThreads)
         pack_bf16(acc[d][2] / l_fin[1], acc[d][3] / l_fin[1]);
   }
   __syncthreads();
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    if (row0 + r < seq_q)
-      *reinterpret_cast<uint4*>(ob + (row0 + r) * o_ss + c) =
-          *reinterpret_cast<const uint4*>(sQ + r * kStride + c);
-  }
+  store_tile(o + b * o_sb + h * o_sh, sQ, o_ss, row0, seq_q);
 }
 
 }  // namespace

@@ -26,7 +26,8 @@ def _forbidden(module: str) -> bool:
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
+        ROOT / "scripts" / "profile_torch_train.py"]
 
 
 _IMPORT_ALL = """
@@ -49,8 +50,9 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                          env=env, capture_output=True, text=True,
                          timeout=120, check=True).stdout
     result = json.loads(out.strip().splitlines()[-1])
-    assert "nos_tpu_torch.models.generate" in result["imported"]
-    assert "nos_tpu_torch.ops.attention" in result["imported"]
+    for module in ("models.generate", "models.train", "models.data",
+                   "ops.attention", "ops.roofline", "entry"):
+        assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad
 
@@ -108,7 +110,8 @@ def test_entry_on_cpu_when_asked():
 
 class TestBuild:
     def test_sources_are_the_repo_kernels(self):
-        assert _build.sources() == ["flash_fwd"]
+        assert _build.sources() == ["flash_bwd", "flash_bwd_split",
+                                    "flash_fwd"]
 
     def test_library_name_tracks_the_source(self, tmp_path, monkeypatch):
         path = _build.library_path("flash_fwd")
@@ -116,12 +119,27 @@ class TestBuild:
         assert path.name.startswith("libflash_fwd-")
         src = tmp_path / "csrc"
         src.mkdir()
+        for header in _build.CSRC.glob("*.cuh"):
+            (src / header.name).write_text(header.read_text())
         text = (_build.CSRC / "flash_fwd.cu").read_text()
         (src / "flash_fwd.cu").write_text(text)
         monkeypatch.setattr(_build, "CSRC", src)
         assert _build.library_path("flash_fwd").name == path.name
         (src / "flash_fwd.cu").write_text(text + "\n// edited\n")
         assert _build.library_path("flash_fwd").name != path.name
+
+    def test_library_name_tracks_the_shared_headers(self, tmp_path,
+                                                     monkeypatch):
+        path = _build.library_path("flash_bwd")
+        src = tmp_path / "csrc"
+        src.mkdir()
+        for f in _build.CSRC.iterdir():
+            (src / f.name).write_text(f.read_text())
+        monkeypatch.setattr(_build, "CSRC", src)
+        assert _build.library_path("flash_bwd").name == path.name
+        header = src / "flash_common.cuh"
+        header.write_text(header.read_text() + "\n// edited\n")
+        assert _build.library_path("flash_bwd").name != path.name
 
     def test_kernel_dir_is_ignored_by_git(self):
         ignored = (ROOT / ".gitignore").read_text().splitlines()

@@ -1,5 +1,6 @@
 """The port's Llama (nos_tpu_torch.models.llama, .convert) against the
-flax model, on the CPU and on the same converted parameters."""
+flax model, on the CPU and on the same converted parameters: logits, and
+the chunked loss and its gradients under every remat policy."""
 
 import dataclasses
 import functools
@@ -10,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from nos_tpu.models import llama as jl
 from nos_tpu_torch.models import llama as tl
@@ -102,10 +104,14 @@ class TestConvert:
             sd["layers.1.attn.o_proj.weight"].numpy()[7, 128 + 5], o[1, 5, 7])
 
     def test_fused_params_raise(self):
-        cfg = dataclasses.replace(TOY, fused_qkv=True)
-        params = flax_params(cfg)
-        with pytest.raises(NotImplementedError):
-            params_from_jax(params, port_cfg(dataclasses.replace(
+        # The fused qkv_proj [E, H+2Hkv, D] and gate_up_proj [E, 2I] trees,
+        # once refused, now convert and give the flax logits; a tree whose
+        # fusion disagrees with the config still raises.
+        cfg = dataclasses.replace(TOY, fused_qkv=True, fused_gate_up=True)
+        got, want = logits_pair(cfg)
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+        with pytest.raises(ValueError, match="fused"):
+            params_from_jax(flax_params(cfg), port_cfg(dataclasses.replace(
                 cfg, fused_qkv=False)))
 
 
@@ -167,21 +173,236 @@ class TestParts:
 
 
 class TestTrainingOnlyOptions:
+    """The options the port refused before its training slice."""
+
     @pytest.mark.parametrize("change", [
         {"fused_qkv": True}, {"fused_gate_up": True}, {"attn_impl": "ring"}])
     def test_refused(self, change):
-        with pytest.raises(NotImplementedError):
-            tl.Llama(dataclasses.replace(tl.TINY, **change), device="cpu")
+        # ring attention is still refused (a later slice); the fused
+        # projections now build and give the flax model's logits.
+        if change.get("attn_impl") == "ring":
+            with pytest.raises(NotImplementedError):
+                tl.Llama(dataclasses.replace(tl.TINY, **change), device="cpu")
+            return
+        got, want = logits_pair(dataclasses.replace(jl.TINY, **change))
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
     def test_targets_refused(self):
-        model = tl.Llama(tl.TINY, device="cpu")
-        tokens = torch.zeros(1, 4, dtype=torch.int32)
-        with pytest.raises(NotImplementedError):
-            model(tokens, targets=tokens)
+        # Llama(tokens, targets) now returns the chunked loss: the flax
+        # model's, from the same parameters.
+        got, want = loss_pair(jl.TINY)
+        assert abs(got[0] - want[0]) <= 1e-4 * abs(want[0])
 
     def test_remat_is_accepted(self):
-        cfg = dataclasses.replace(tl.TINY, remat=True, remat_policy="rots")
-        assert tl.Llama(cfg, device="meta").cfg.remat_policy == "rots"
+        # remat changes what the backward keeps, not what it computes
+        cfg = dataclasses.replace(TOY, remat_policy="rots")
+        params = flax_params(cfg)
+        tokens = torch.from_numpy(tokens_for(cfg, 3))
+        grads = []
+        for remat in (True, False):
+            model = port_model(dataclasses.replace(cfg, remat=remat), params)
+            loss = model(tokens, targets=tokens)
+            loss.backward()
+            grads.append((loss.detach(), [p.grad for p in model.parameters()]))
+        torch.testing.assert_close(grads[0][0], grads[1][0], atol=0, rtol=0)
+        for a, b in zip(grads[0][1], grads[1][1]):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+    def test_unknown_remat_policy_raises(self):
+        with pytest.raises(ValueError, match="remat_policy"):
+            tl.Llama(dataclasses.replace(tl.TINY, remat_policy="some"),
+                     device="meta")
+
+
+def loss_pair(cfg, seed=0):
+    """((loss, {name: grad}) of the port, (loss, {name: grad}) of flax's
+    value_and_grad of Llama(tokens, targets=tokens)), as numpy, with the
+    flax gradients carried into the port's layout by params_from_jax."""
+    tokens = tokens_for(cfg, seed + 1)
+    params = flax_params(cfg, seed)
+
+    def loss_fn(p):
+        return jl.Llama(cfg).apply({"params": p}, jnp.asarray(tokens),
+                                   targets=jnp.asarray(tokens))
+
+    loss, grads = jax.value_and_grad(loss_fn)(params["params"])
+    grads = params_from_jax(jax.tree_util.tree_map(np.asarray, grads),
+                            port_cfg(cfg))
+    model = port_model(cfg, params)
+    t = torch.from_numpy(tokens)
+    got = model(t, targets=t)
+    got.backward()
+    return ((got.item(), {n: p.grad.numpy()
+                          for n, p in model.named_parameters()}),
+            (float(loss), {n: g.numpy() for n, g in grads.items()}))
+
+
+def _fused(cfg):
+    return dataclasses.replace(cfg, fused_qkv=True, fused_gate_up=True)
+
+
+class TestLoss:
+    """Loss and gradients of Llama(tokens, targets) against
+    jax.value_and_grad of the flax model (fp32, 1e-4 relative; the flax
+    TOY runs dense attention on the CPU, the port its plain flash
+    backward)."""
+
+    @pytest.mark.parametrize("cfg", [
+        jl.TINY,
+        dataclasses.replace(jl.TINY, remat_policy="rots"),
+        TOY,
+        dataclasses.replace(TOY, remat_policy="rots"),
+        _fused(dataclasses.replace(TOY, remat_policy="rots")),
+        _fused(dataclasses.replace(TOY, remat_policy="all_mats")),
+    ], ids=["tiny-dense-nothing", "tiny-dense-rots", "toy-flash-nothing",
+            "toy-flash-rots", "toy-flash-fused-rots",
+            "toy-flash-fused-all_mats"])
+    def test_matches_flax_value_and_grad(self, cfg):
+        (loss, grads), (want_loss, want) = loss_pair(cfg)
+        assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+        assert grads.keys() == want.keys()
+        for name, g in grads.items():
+            scale = np.abs(want[name]).max()
+            assert np.abs(g - want[name]).max() <= 1e-4 * scale, name
+
+    @pytest.mark.parametrize("seq,chunk", [(24, 16), (24, 8), (24, 24),
+                                           (24, 0)])
+    def test_chunked_xent(self, seq, chunk):
+        # 24 % 16: one chunk; 24 / 8: three; one chunk; chunk 0 disables
+        rng = np.random.default_rng(9)
+        x = rng.standard_normal((2, seq, 16)).astype(np.float32)
+        embed = rng.standard_normal((40, 16)).astype(np.float32) * 0.3
+        tokens = rng.integers(0, 40, (2, seq), dtype=np.int32)
+
+        def jax_loss(x, e):
+            return jl._chunked_xent(x, e, jnp.asarray(tokens), chunk,
+                                    jnp.float32)
+
+        want, (gx, ge) = jax.value_and_grad(jax_loss, (0, 1))(
+            jnp.asarray(x), jnp.asarray(embed))
+        xt = torch.from_numpy(x).requires_grad_()
+        et = torch.from_numpy(embed).requires_grad_()
+        got = tl._chunked_xent(xt, et, torch.from_numpy(tokens), chunk,
+                               torch.float32)
+        got.backward()
+        assert abs(got.item() - float(want)) <= 1e-5 * abs(float(want))
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx),
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_allclose(et.grad.numpy(), np.asarray(ge),
+                                   atol=1e-6, rtol=0)
+
+    def test_chunked_xent_is_the_full_loss(self):
+        # the chunked loss equals cross_entropy_loss of the full logits
+        from nos_tpu_torch.models.train import cross_entropy_loss
+
+        model = port_model(TOY, flax_params(TOY))
+        tokens = torch.from_numpy(tokens_for(TOY, 4))
+        with torch.no_grad():
+            chunked = model(tokens, targets=tokens)
+            full = cross_entropy_loss(model(tokens), tokens)
+        torch.testing.assert_close(chunked, full, atol=1e-5, rtol=0)
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the matrix products (aten.mm and the port's named
+    projections) and the rope ops that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.matmuls = self.ropes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.matmuls += func in (torch.ops.aten.mm.default, tl.LINEAR_OP)
+        self.ropes += func is tl.ROPE_OP
+        return func(*args, **(kwargs or {}))
+
+
+class TestRemat:
+    """The seven remat policies: the same loss and gradients; the flash
+    forward rerun in backward only where attn_out is not kept; and the
+    projections and rotations whose outputs a policy keeps not
+    recomputed."""
+
+    @pytest.mark.parametrize("policy,reruns", [
+        ("nothing", True), ("dots", True), ("mlp", True), ("attn", False),
+        ("mats", False), ("all_mats", False), ("rots", False)])
+    def test_policy(self, policy, reruns, monkeypatch):
+        from nos_tpu_torch.ops import attention as tattn
+
+        calls = []
+        fwd = tattn.flash_attention_fwd
+        monkeypatch.setattr(tattn, "flash_attention_fwd",
+                            lambda *a: calls.append(1) or fwd(*a))
+        cfg = dataclasses.replace(TOY, remat_policy=policy)
+        params = flax_params(TOY)
+        tokens = torch.from_numpy(tokens_for(TOY, 5))
+        results = []
+        for remat in (True, False):
+            calls.clear()
+            model = port_model(dataclasses.replace(cfg, remat=remat), params)
+            loss = model(tokens, targets=tokens)
+            loss.backward()
+            results.append((loss.item(), len(calls),
+                            [p.grad for p in model.parameters()]))
+        (loss, n_calls, grads), (ref_loss, ref_calls, ref_grads) = results
+        assert ref_calls == TOY.num_layers
+        assert n_calls == TOY.num_layers * (2 if reruns else 1)
+        assert loss == ref_loss
+        for a, b in zip(grads, ref_grads):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+    @staticmethod
+    def _backward_ops(cfg, **change):
+        """(matrix products, rope ops) run in backward: recomputed ones
+        and, for the products, the gradient products."""
+        model = port_model(dataclasses.replace(cfg, **change),
+                           flax_params(cfg))
+        tokens = torch.from_numpy(tokens_for(cfg, 5))
+        loss = model(tokens, targets=tokens)
+        with _CountOps() as ops:
+            loss.backward()
+        return ops.matmuls, ops.ropes
+
+    def test_kept_projections_are_not_recomputed(self):
+        # Matrix products run in backward, less those of remat=False:
+        # none under "dots", which keeps every projection; fewer where a
+        # policy keeps more of them.  "rots" keeps the q/k projections
+        # with their rotations (_KEPT_WITH), so it reruns what
+        # "all_mats" reruns.
+        base = self._backward_ops(TOY, remat=False)[0]
+        n = {policy: self._backward_ops(TOY, remat_policy=policy)[0] - base
+             for policy in tl._REMAT_POLICIES}
+        assert n["dots"] == 0
+        assert n["rots"] == n["all_mats"] < n["mats"] == n["mlp"] \
+            < n["attn"] == n["nothing"]
+
+    @pytest.mark.parametrize("fused", [False, True],
+                             ids=["separate", "fused"])
+    def test_kept_rotations_are_not_recomputed(self, fused):
+        # "rots" keeps the rotated q and k, "all_mats" the q and k before
+        # rope: only the latter reruns rope (q and k, per layer) in
+        # backward, as the JAX policies differ.
+        cfg = _fused(TOY) if fused else TOY
+        ropes = {policy: self._backward_ops(cfg, remat_policy=policy)[1]
+                 for policy in ("rots", "all_mats", "nothing")}
+        assert self._backward_ops(cfg, remat=False)[1] == 0
+        assert ropes == {"rots": 0, "all_mats": 2 * TOY.num_layers,
+                         "nothing": 2 * TOY.num_layers}
+
+    def test_rope_op_gradient(self):
+        # the rope op's own backward (the transposed rotation) against
+        # autograd through the plain _rope
+        rng = np.random.default_rng(10)
+        x = torch.from_numpy(rng.standard_normal((2, 6, 3, 16))
+                             .astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal((2, 6, 3, 16))
+                             .astype(np.float32))
+        pos = torch.arange(6, dtype=torch.int32)[None].expand(2, 6)
+        cos, sin = tl.rope_tables(pos, 16, 10000.0)
+        a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (tl._rope(a, (cos, sin)) * g).sum().backward()
+        (tl.ROPE_OP(b, cos, sin, "attn_q_rot") * g).sum().backward()
+        torch.testing.assert_close(b.grad, a.grad, atol=1e-6, rtol=0)
 
 
 class TestInitParams:
@@ -210,3 +431,14 @@ class TestInitParams:
         c = tl.init_params(tl.TINY, torch.Generator().manual_seed(4), "cpu")
         assert all(torch.equal(a[k], b[k]) for k in a)
         assert not torch.equal(a["embed"], c["embed"])
+
+    def test_fused_layout(self):
+        # fused_qkv / fused_gate_up: the module's keys, and the fused
+        # weights lecun-normal over fan_in 256 (std 1/16)
+        cfg = _fused(dataclasses.replace(tl.TINY, hidden_size=256,
+                                         intermediate_size=512))
+        sd = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert sd.keys() == tl.Llama(cfg, device="meta").state_dict().keys()
+        for name in ("attn.qkv_proj", "mlp.gate_up_proj"):
+            w = sd[f"layers.0.{name}.weight"]
+            assert abs(w.std().item() - 1 / 16) < 3e-3, name
