@@ -7,12 +7,14 @@ Phases, one JSON line each; any failure exits non-zero with no result:
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 is switched off for fp32 matmuls and convolutions.
 2. build: nvcc builds every kernel in nos_tpu_torch/ops/csrc/ (all
-   sources at once) into nos_tpu_torch/_kernels/.
+   sources at once) into nos_tpu_torch/_kernels/, and reports each
+   kernel's ptxas registers and spill bytes.
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, with the stated tolerances: the forward (K1) at the serving
    shape, and the fused backward (K2), the dq kernel (K3) and the dk/dv
-   kernel (K4) at the training shape, at S 200 causal and not, and on
-   strided views.  Kernel, plain and library times (CUDA events, median
+   kernel (K4) at the training shape, at S 127, 128, 129 and 200 causal
+   and not (the edges of the 64- and 128-row tiles), and on strided
+   views.  Kernel, plain and library times (CUDA events, median
    of several samples of back-to-back launches) at the serving shape for
    K1 and at the training shape for all four, and each bound from the
    card's published peaks (nos_tpu_torch.ops.roofline).
@@ -113,13 +115,31 @@ def phase_env() -> str:
     return smi
 
 
-def phase_build() -> None:
+# name -> (source, kernel function, design).
+KERNELS = {
+    "flash_fwd": ("flash_fwd", "flash_fwd_kernel", "wgmma+tma"),
+    "flash_bwd_fused": ("flash_bwd", "flash_bwd_kernel", "wgmma+tma"),
+    "flash_dq": ("flash_bwd_split", "flash_dq_kernel", "mma.sync"),
+    "flash_dkv": ("flash_bwd_split", "flash_bwd_kv_kernel", "mma.sync"),
+}
+
+
+def phase_build() -> dict[str, dict]:
+    """Build every source; per kernel of KERNELS, ptxas's registers and
+    spill bytes (None where the library came from the cache)."""
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build()
+    resources = {}
+    for name, (source, function, _) in KERNELS.items():
+        found = [r for fn, r in _build.ptxas_resources(
+            report[source]["ptxas"]).items() if function in fn]
+        resources[name] = found[0] if len(found) == 1 else {
+            "registers": None, "spill_stores": None, "spill_loads": None}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": report})
+          "kernels": report, "resources": resources})
+    return resources
 
 
 def _qkv(gen, b, s, h, d=128):
@@ -214,7 +234,21 @@ def _sdpa_backward_ms(q, k, v, do) -> float:
                    inner=5, samples=10)
 
 
-def phase_kernels() -> list[dict]:
+# Sequence lengths around the tile edges (K1: 128 q rows and 128 keys;
+# K2: 128 keys and 64 q rows; K3, K4: 64 of each), and one ragged length.
+EDGE_SEQS = (127, 128, 129, 200)
+
+
+def _design(name: str, resources: dict) -> dict:
+    """The kernel's design and ptxas's registers (at entry, before any
+    setmaxnreg) and spill bytes from this run's build."""
+    return {"design": KERNELS[name][2],
+            "ptxas_registers": resources[name]["registers"],
+            "ptxas_spill_bytes": {"stores": resources[name]["spill_stores"],
+                                  "loads": resources[name]["spill_loads"]}}
+
+
+def phase_kernels(resources: dict) -> list[dict]:
     from nos_tpu_torch.ops import attention as A
     from nos_tpu_torch.ops.roofline import peaks_for
 
@@ -226,9 +260,10 @@ def phase_kernels() -> list[dict]:
     b, s, h, d = 8, 512, 8, 128          # the serving shape
     q, k, v = _qkv(gen, b, s, h, d)
     cases = [("serving B8 S512 H8 causal", (q, k, v), True)]
-    for causal in (True, False):
-        cases.append((f"ragged B2 S200 H4 causal={causal}",
-                      tuple(_qkv(gen, 2, 200, 4)), causal))
+    for seq in EDGE_SEQS:
+        for causal in (True, False):
+            cases.append((f"ragged B2 S{seq} H4 causal={causal}",
+                          tuple(_qkv(gen, 2, seq, 4)), causal))
     # strided: q/k/v are views into wider rows (row stride 2*H*D)
     wide = torch.randn(2, 130, 4, 256, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
@@ -274,9 +309,10 @@ def phase_kernels() -> list[dict]:
 
     bwd_cases = [("training B8 S2048 H8 causal",
                   (tq, tk, tv, tdo, tlse, tdelta), True)]
-    for causal in (True, False):
-        bwd_cases.append((f"ragged B2 S200 H4 causal={causal}",
-                          _bwd_inputs(gen, 2, 200, 4, causal), causal))
+    for seq in EDGE_SEQS:
+        for causal in (True, False):
+            bwd_cases.append((f"ragged B2 S{seq} H4 causal={causal}",
+                              _bwd_inputs(gen, 2, seq, 4, causal), causal))
     bwd_cases.append(("strided B2 S130 H3 causal=True",
                       _bwd_inputs(gen, 2, 130, 3, True, views=True), True))
     kernels = _bwd_kernels()
@@ -317,7 +353,7 @@ def phase_kernels() -> list[dict]:
         "name": "flash_fwd", "route": "cuda",
         "source": "nos_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "nos_tpu/ops/attention.py:171",
-        "launches": None,
+        "launches": None, **_design("flash_fwd", resources),
         "max_abs_err": max(c["o_max_abs_err"] for c in checks
                            if c["kernel"] == "flash_fwd"),
         "lse_max_abs_err": max(c["lse_max_abs_err"] for c in checks
@@ -334,6 +370,7 @@ def phase_kernels() -> list[dict]:
             "name": name, "route": "cuda",
             "source": f"nos_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": None,
+            **_design(name, resources),
             "max_abs_err": errs[name],
             "error_measure": "max |kernel - plain| / max |plain|",
             "ms": time_ms(lambda: fn(*targs), inner=5, samples=10),
@@ -448,16 +485,17 @@ LOSS0_TOL = 0.2
 CUT_LOSS_TOL = 1e-2
 CUT_GRAD_TOL = 5e-2
 # Two loss-and-gradient passes from one state on one batch, under each
-# backward.  The forward has no atomics, so the losses must repeat
+# backward.  The forward sums in a fixed order, so the losses must repeat
 # bitwise, and so must the split pair's gradients (K3 and K4 sum in a
-# fixed order).  The fused backward adds dq with fp32 atomics whose order
-# varies, so a dq entry may round to the neighbouring bf16 value, and the
-# difference grows through 24 layers of bf16 backward: two fused passes
-# are two computations that differ in rounding, as flash and dense do,
-# and are held to the same CUT_GRAD_TOL of each gradient's largest
-# |value|.  The reading is 1.6e-2, at layer 0's q projection, whose
-# gradient is small at init (attention near uniform); a race in the
-# kernel would move a gradient by O(1).
+# fixed order).  The fused backward adds dq by fp32 reductions from many
+# CTAs whose order may vary, so a dq entry may round to the neighbouring
+# bf16 value, and the difference grows through 24 layers of bf16
+# backward: two fused passes are two computations that may differ in
+# rounding, as flash and dense do, and are held to the same CUT_GRAD_TOL
+# of each gradient's largest |value|.  The earlier kernel (scalar atomics)
+# read 1.6e-2, at layer 0's q projection, whose gradient is small at init
+# (attention near uniform); a race in the kernel would move a gradient by
+# O(1).
 REPEAT_GRAD_TOL = CUT_GRAD_TOL
 CUT_LAYERS = 4
 TRAIN_UNTIMED, TRAIN_TIMED = 2, 10
@@ -648,8 +686,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke runs on the card only")
     smi = phase_env()
-    phase_build()
-    entries = phase_kernels()
+    resources = phase_build()
+    entries = phase_kernels(resources)
     serve = phase_serve()
     train = phase_train()
     for entry in entries:

@@ -15,6 +15,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+_PTXAS_KEEP = ("Compiling entry function", "registers", "spill", "warning")
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_REGISTERS = re.compile(r"Used (\d+) registers")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
 
 def sources() -> list[str]:
     """Names of the kernel sources in ``csrc/`` (``flash_fwd`` for
@@ -34,16 +40,21 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _digest(paths) -> str:
+    h = hashlib.sha256()
+    for path in paths:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
-    h = hashlib.sha256()
-    for path in (src, *sorted(CSRC.glob("*.cuh"))):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return KERNEL_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    digest = _digest([src, *sorted(CSRC.glob("*.cuh"))])
+    return KERNEL_DIR / f"lib{name}-{digest}.so"
 
 
 def _nvcc() -> str:
@@ -56,6 +67,29 @@ def _nvcc() -> str:
             "nvcc not found: set CUDA_HOME or put nvcc on PATH to build "
             "the CUDA kernels")
     return found
+
+
+def _start(src: Path, out: Path) -> tuple[Path, subprocess.Popen]:
+    """Start nvcc on ``src`` into a temporary file beside ``out``.  The
+    package's headers are found through ``-I csrc/``; a header beside
+    ``src`` comes first, as ``#include "..."`` searches there."""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    return tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(tmp: Path, proc: subprocess.Popen, out: Path) -> list[str]:
+    """Wait for ``_start``'s nvcc; on success move the library to ``out``
+    and return ptxas's lines.  Raises RuntimeError with the compiler
+    output if the build failed."""
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"(exit {proc.returncode}):\n{text}")
+    os.replace(tmp, out)
+    return [ln.strip() for ln in text.splitlines()
+            if any(key in ln for key in _PTXAS_KEEP)]
 
 
 def build(names: list[str] | None = None) -> dict[str, dict]:
@@ -75,34 +109,65 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
             if n not in todo:
                 report[n] = {"cached": True, "seconds": 0.0, "ptxas": []}
         if todo:
-            nvcc = _nvcc()
             t0 = time.perf_counter()
-            procs = {}
-            for n, path in todo.items():
-                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-                procs[n] = (tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
+            procs = {n: _start(CSRC / f"{n}.cu", path)
+                     for n, path in todo.items()}
             failures = []
             for n, (tmp, proc) in procs.items():
-                out, _ = proc.communicate()
-                if proc.returncode != 0:
-                    failures.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
-                    tmp.unlink(missing_ok=True)
-                    continue
-                os.replace(tmp, todo[n])
-                report[n] = {
-                    "cached": False,
-                    "ptxas": [ln.strip() for ln in out.splitlines()
-                              if "registers" in ln or "spill" in ln],
-                }
+                try:
+                    report[n] = {"cached": False,
+                                 "ptxas": _finish(tmp, proc, todo[n])}
+                except RuntimeError as e:
+                    failures.append(f"{n}.cu {e}")
             seconds = time.perf_counter() - t0
             if failures:
                 raise RuntimeError("nvcc failed for " + "\n".join(failures))
             for n in todo:
                 report[n]["seconds"] = seconds
     return report
+
+
+def build_file(src: Path) -> tuple[Path, list[str]]:
+    """Compile one source from outside ``csrc/`` (a changed copy of a
+    kernel, with any changed header beside it) as ``build`` compiles the
+    package's own.  Returns the library and ptxas's lines (empty where
+    the library was cached)."""
+    src = Path(src).resolve()
+    headers = sorted({p.name: p for p in (*CSRC.glob("*.cuh"),
+                                          *src.parent.glob("*.cuh"))}.values())
+    out = KERNEL_DIR / f"lib{src.stem}-file-{_digest([src, *headers])}.so"
+    KERNEL_DIR.mkdir(parents=True, exist_ok=True)
+    with open(KERNEL_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out, []
+        try:
+            return out, _finish(*_start(src, out), out)
+        except RuntimeError as e:
+            raise RuntimeError(f"nvcc failed for {src} {e}") from None
+
+
+def ptxas_resources(lines: list[str]) -> dict[str, dict]:
+    """Per kernel (its mangled name), the registers and spill bytes that
+    ``ptxas -v`` reported in ``lines`` (a build report's ``ptxas``)."""
+    kernels: dict[str, dict] = {}
+    current = None
+    for line in lines:
+        entry = _ENTRY.search(line)
+        if entry:
+            current = kernels.setdefault(entry.group(1), {
+                "registers": None, "spill_stores": None, "spill_loads": None})
+            continue
+        if current is None:
+            continue
+        regs = _REGISTERS.search(line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+        spills = _SPILLS.search(line)
+        if spills:
+            current["spill_stores"] = int(spills.group(1))
+            current["spill_loads"] = int(spills.group(2))
+    return kernels
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -30,7 +30,7 @@ Fused or split backward: ``set_backward_impl`` / ``NOS_TPU_FLASH_BWD``
 pick the default as in the JAX package, and a shape takes the split pair
 when the fused kernel's dq partials would exceed
 ``FUSED_PARTIAL_BUDGET``.  The fused CUDA kernel keeps no partials (it
-adds dq into one fp32 buffer with atomics), so the budget is read with
+adds dq into one fp32 buffer by reductions), so the budget is read with
 JAX's formula and JAX's default backward blocks (512/1024, shrunk for
 short sequences as ``_plan`` shrinks them), whatever tiles the CUDA
 kernels use: the same shapes take the same backward in both packages.
@@ -67,7 +67,7 @@ DEFAULT_BWD_BLOCK_Q = 512
 DEFAULT_BWD_BLOCK_K = 1024
 _LANES = 128
 
-# Backward implementation: "fused" (one kernel, dq added with atomics) or
+# Backward implementation: "fused" (one kernel, dq added by reductions) or
 # "split" (the deterministic dq and dk/dv pair).
 _BWD_IMPL = os.environ.get("NOS_TPU_FLASH_BWD", "fused")
 if _BWD_IMPL not in ("fused", "split"):

@@ -1,16 +1,14 @@
-// The flash-attention backward over one k/v tile: dk and dv for 64 keys,
-// and (with kDq) this tile's share of dq, added into an fp32 buffer.
-// Instantiated by flash_bwd.cu (kDq = true: the fused backward, the port
-// of `_fused_bwd_kernel`) and flash_bwd_split.cu (kDq = false: the port
-// of `_dkv_kernel`), both in nos_tpu/ops/attention.py.
+// The flash-attention backward over one k/v tile: dk and dv for 64 keys
+// (K4, the port of `_dkv_kernel` in nos_tpu/ops/attention.py), launched
+// by nos_flash_dkv in flash_bwd_split.cu.  The fused backward (K2) was
+// first built on this body and now has its own Hopper design in
+// flash_bwd.cu.
 //
-// The numerics are the TPU kernels': s = (q . k^T, fp32) * D^-1/2 with an
+// The numerics are the TPU kernel's: s = (q . k^T, fp32) * D^-1/2 with an
 // additive -1e30 causal mask; p = exp(s - lse) in fp32; dv += p^T . dO
 // with p rounded to bf16; dp = dO . v^T; ds = p * (dp - delta) rounded to
 // bf16; dk += ds^T . q; dk = D^-1/2 * dk and dv rounded to bf16 at the
-// end.  With kDq the tile's dq share D^-1/2 * (ds . k) is added to dq_acc
-// with fp32 atomics (the TPU kernel writes it as a bf16 partial per
-// k-block because the TPU has no atomics; see PERF.md for the choice).
+// end.
 //
 // Design: grid (ceil(Sk/64), H, B), 4 warps, 16 keys per warp.  The CTA
 // keeps its K and V tiles in shared memory and its dk/dv accumulators in
@@ -20,9 +18,8 @@
 // the TPU grid's sequential q axis and its VMEM scratch.  Each warp
 // computes S^T and dP^T for its keys directly (K and V as the A operand),
 // so p^T and ds^T are re-packed in registers as the A operand of the dv
-// and dk products.  For dq, ds^T is staged in shared memory and each warp
-// then owns 16 q rows of ds . k.  Ragged tails: rows past Sq or Sk are
-// zero-filled and their p is set to 0; keys past Sk are not stored.
+// and dk products.  Ragged tails: rows past Sq or Sk are zero-filled and
+// their p is set to 0; keys past Sk are not stored.
 
 #pragma once
 
@@ -30,16 +27,9 @@
 
 namespace nos_flash {
 
-constexpr int kDsStride = kTileRows + 8;  // padded ds^T row [key][q]
+// K, V, Q[2], dO[2] tiles, lse and delta rows.
+constexpr int kBwdKvSmemBytes = 6 * kTileElems * 2 + 2 * kTileRows * 4;
 
-template <bool kDq>
-constexpr int bwd_kv_smem_bytes() {
-  // K, V, Q[2], dO[2] tiles, lse and delta rows, and ds^T with kDq.
-  return 6 * kTileElems * 2 + 2 * kTileRows * 4 +
-         (kDq ? kTileRows * kDsStride * 2 : 0);
-}
-
-template <bool kDq>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -47,7 +37,6 @@ __global__ void __launch_bounds__(kThreads)
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq_acc,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int heads, int seq_q,
                         int seq_k, int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -62,7 +51,6 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* sdO = sQ + 2 * kTileElems;   // two buffers
   float* sLse = reinterpret_cast<float*>(sdO + 2 * kTileElems);
   float* sDelta = sLse + kTileRows;
-  __nv_bfloat16* sdS = reinterpret_cast<__nv_bfloat16*>(sDelta + kTileRows);
 
   // Under causal the first k tiles see the most q tiles: launch them first.
   const int key0 = blockIdx.x * kTileRows;
@@ -208,58 +196,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    if constexpr (kDq) {
-      // Stage dS^T as bf16 [key][q], then warp w adds rows
-      // q0 + 16w .. q0 + 16w + 15 of D^-1/2 * dS K into dq_acc, 32
-      // columns of D at a time.
-      const int r = warp * 16 + g;
-#pragma unroll
-      for (int n = 0; n < kTileRows / 8; ++n) {
-        const int c = n * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(sdS + r * kDsStride + c) =
-            pack_bf16(dpt[n][0], dpt[n][1]);
-        *reinterpret_cast<uint32_t*>(sdS + (r + 8) * kDsStride + c) =
-            pack_bf16(dpt[n][2], dpt[n][3]);
-      }
-      __syncthreads();
-      const int qa = q0 + warp * 16 + g;
-      float* dq_a = dq_acc + (static_cast<int64_t>(b) * seq_q + qa) *
-                                 heads * kHeadDim + h * kHeadDim;
-      float* dq_b = dq_a + 8 * static_cast<int64_t>(heads) * kHeadDim;
-#pragma unroll
-      for (int dc = 0; dc < kHeadDim / 32; ++dc) {
-        float acc[4][4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kTileRows / 16; ++kk) {
-          uint32_t a[4];
-          frag_a_trans(a, sdS, kDsStride, warp * 16, kk * 16, lane);
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t bk[4];
-            frag_b_trans(bk, sK, kStride, kk * 16, dc * 32 + np * 16, lane);
-            mma_bf16(acc[2 * np], a, bk[0], bk[1]);
-            mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int c = dc * 32 + n * 8 + 2 * t;
-          if (qa < seq_q) {
-            atomicAdd(dq_a + c, acc[n][0] * scale);
-            atomicAdd(dq_a + c + 1, acc[n][1] * scale);
-          }
-          if (qa + 8 < seq_q) {
-            atomicAdd(dq_b + c, acc[n][2] * scale);
-            atomicAdd(dq_b + c + 1, acc[n][3] * scale);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next iteration overwrites Q, dO, stats and dS^T
+    __syncthreads();  // the next iteration overwrites Q, dO and the stats
   }
 
   // Epilogue: dk = D^-1/2 * dk and dv, staged in the K and V tiles.
@@ -273,33 +210,30 @@ __global__ void __launch_bounds__(kThreads)
   store_tile(dv + slice, sV, row_stride, key0, seq_k);
 }
 
-// Launch over every k tile; dk and dv (and dq_acc with kDq) are
-// contiguous [B, S, H, D].
-template <bool kDq>
-int launch_bwd_kv(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dq_acc, void* dk, void* dv, int batch, int heads,
-                  int seq_q, int seq_k, int64_t q_sb, int64_t q_ss,
-                  int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                  int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
-                  int64_t o_ss, int64_t o_sh, float scale, int causal,
-                  void* stream) {
-  constexpr int smem = bwd_kv_smem_bytes<kDq>();
+// Launch over every k tile; dk and dv are contiguous [B, S, H, D].
+inline int launch_bwd_kv(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, int batch, int heads, int seq_q,
+                         int seq_k, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                         int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                         int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
+                         int causal, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBwdKvSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq_k + kTileRows - 1) / kTileRows, heads, batch);
-  flash_bwd_kv_kernel<kDq><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_kv_kernel<<<grid, kThreads, kBwdKvSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), heads, seq_q, seq_k, q_sb, q_ss, q_sh,
-      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), heads,
+      seq_q, seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
+      o_ss, o_sh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,8 +22,8 @@
 // shared memory and stored with 16-byte writes.  The TPU numerics: fp32
 // scores and statistics, p in fp32, ds rounded to bf16 before its product.
 //
-// The dk/dv kernel is flash_bwd_kv_kernel<false> in flash_bwd_kv.cuh, the
-// fused backward without its dq share.
+// The dk/dv kernel is flash_bwd_kv_kernel in flash_bwd_kv.cuh, the first
+// (mma.sync) fused backward without its dq share.
 
 #include "flash_bwd_kv.cuh"
 
@@ -212,8 +212,7 @@ extern "C" int nos_flash_dkv(const void* q, const void* k, const void* v,
                              int64_t v_sb, int64_t v_ss, int64_t v_sh,
                              int64_t o_sb, int64_t o_ss, int64_t o_sh,
                              float scale, int causal, void* stream) {
-  return launch_bwd_kv<false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                              batch, heads, seq_q, seq_k, q_sb, q_ss, q_sh,
-                              k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
-                              o_sh, scale, causal, stream);
+  return launch_bwd_kv(q, k, v, dout, lse, delta, dk, dv, batch, heads,
+                       seq_q, seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                       v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal, stream);
 }

@@ -27,7 +27,8 @@ def _forbidden(module: str) -> bool:
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
-        ROOT / "scripts" / "profile_torch_train.py"]
+        ROOT / "scripts" / "profile_torch_train.py",
+        ROOT / "scripts" / "ab_flash_kernel.py"]
 
 
 _IMPORT_ALL = """
@@ -152,3 +153,63 @@ class TestBuild:
         monkeypatch.setenv("PATH", str(tmp_path))
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build()
+
+    def test_build_file_without_nvcc_raises(self, tmp_path, monkeypatch):
+        monkeypatch.setattr(_build, "KERNEL_DIR", tmp_path / "k")
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+        monkeypatch.setenv("PATH", str(tmp_path))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.build_file(_build.CSRC / "flash_fwd.cu")
+
+    def test_build_file_is_keyed_on_the_file_and_its_headers(
+            self, tmp_path, monkeypatch):
+        # nvcc's stand-in writes the library and prints one ptxas line
+        monkeypatch.setattr(_build, "KERNEL_DIR", tmp_path / "k")
+        started = []
+
+        def start(src, out):
+            started.append(out)
+            tmp = out.with_name(out.name + ".tmp")
+            tmp.write_bytes(b"")
+            return tmp, subprocess.Popen(
+                [sys.executable, "-c",
+                 "print('ptxas info    : Used 7 registers')"],
+                stdout=subprocess.PIPE, text=True)
+
+        monkeypatch.setattr(_build, "_start", start)
+        src = tmp_path / "variant" / "flash_fwd.cu"
+        src.parent.mkdir()
+        src.write_text((_build.CSRC / "flash_fwd.cu").read_text())
+        lib, ptxas = _build.build_file(src)
+        assert lib.parent == tmp_path / "k" and lib.is_file()
+        assert lib.name.startswith("libflash_fwd-file-")
+        assert ptxas == ["ptxas info    : Used 7 registers"]
+        assert _build.build_file(src) == (lib, []) and len(started) == 1
+        src.write_text(src.read_text() + "\n// edited\n")
+        edited, _ = _build.build_file(src)
+        # a header beside the variant takes the place of the package's
+        (src.parent / "hopper_common.cuh").write_text("// changed\n")
+        header, _ = _build.build_file(src)
+        assert len({lib, edited, header}) == 3 and len(started) == 3
+
+    def test_ptxas_resources(self):
+        # the lines build() keeps from nvcc -Xptxas=-v, two kernels
+        lines = [
+            "ptxas info    : Compiling entry function '_Z9kernel_av' for "
+            "'sm_90a'",
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "ptxas info    : Used 168 registers, used 16 barriers",
+            "ptxas info    : Compiling entry function '_Z9kernel_bv' for "
+            "'sm_90a'",
+            "32 bytes stack frame, 28 bytes spill stores, 32 bytes spill "
+            "loads",
+            "ptxas info    : Used 255 registers, used 1 barriers, 32 bytes "
+            "cumulative stack size",
+        ]
+        assert _build.ptxas_resources(lines) == {
+            "_Z9kernel_av": {"registers": 168, "spill_stores": 0,
+                             "spill_loads": 0},
+            "_Z9kernel_bv": {"registers": 255, "spill_stores": 28,
+                             "spill_loads": 32},
+        }
+        assert _build.ptxas_resources([]) == {}

@@ -21,6 +21,12 @@ LSE_TOL = 1e-3    # fp32 row statistics
 # within 3e-2 (tests/test_compute.py).
 GRAD_TOL = 2e-2
 FUSED_SPLIT_TOL = 3e-2
+# Lengths around the kernels' tile edges: K1 takes 128 q rows and 128 keys
+# per step, K2 128 keys and 64 q rows, K3 and K4 64 of each.
+SEQS = [1, 63, 64, 65, 127, 128, 129, 200, 512, 2048]
+# (batch, heads, seq): a grid well under one wave of 132 SMs, and one of
+# several waves.
+GRIDS = [(1, 1, 128), (8, 16, 2048)]
 
 
 @pytest.fixture
@@ -74,7 +80,7 @@ class TestKernelOnCard:
     """The Hopper kernels against their plain versions (run on the card)."""
 
     @pytest.mark.parametrize("causal", [True, False])
-    @pytest.mark.parametrize("seq", [1, 64, 200, 512])
+    @pytest.mark.parametrize("seq", SEQS)
     def test_matches_plain(self, cuda, causal, seq):
         gen = torch.Generator(device=cuda).manual_seed(seq)
         q, k, v = (torch.randn(2, seq, 4, 128, generator=gen, device=cuda,
@@ -123,12 +129,34 @@ class TestKernelOnCard:
             assert got.dtype == torch.bfloat16
             assert _rel_err(got, ref) <= GRAD_TOL
 
-    def test_strided_views(self, cuda):
-        # q/k/v as views into wider rows: the kernel reads through strides
+    @pytest.mark.parametrize("v_start", [256, 64])
+    def test_strided_views(self, cuda, v_start):
+        # q/k/v as views into wider rows: the kernel reads through strides;
+        # v_start 64 puts v's rows 128 bytes into the wider row
         gen = torch.Generator(device=cuda).manual_seed(1)
         wide = torch.randn(2, 70, 3, 384, generator=gen, device=cuda,
                            dtype=torch.bfloat16)
-        q, k, v = wide[..., :128], wide[..., 128:256], wide[..., 256:]
+        q, k = wide[..., :128], wide[..., 128:256]
+        v = wide[..., v_start:v_start + 128]
+        o, lse = tattn.flash_attention_fwd(q, k, v, True)
+        o_ref, lse_ref = tattn.flash_attention_fwd_reference(q, k, v, True)
+        assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL
+        assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+    def test_noncausal_rectangle(self, cuda):
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        q = _bf16(gen, 2, 100, 4, 128, device=cuda)
+        k, v = (_bf16(gen, 2, 230, 4, 128, device=cuda) for _ in range(2))
+        o, lse = tattn.flash_attention_fwd(q, k, v, False)
+        o_ref, lse_ref = tattn.flash_attention_fwd_reference(q, k, v, False)
+        assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL
+        assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+    @pytest.mark.parametrize("batch,heads,seq", GRIDS)
+    def test_grid_sizes(self, cuda, batch, heads, seq):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        q, k, v = (_bf16(gen, batch, seq, heads, 128, device=cuda)
+                   for _ in range(3))
         o, lse = tattn.flash_attention_fwd(q, k, v, True)
         o_ref, lse_ref = tattn.flash_attention_fwd_reference(q, k, v, True)
         assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL
@@ -163,7 +191,7 @@ class TestBackwardKernelsOnCard:
 
     @pytest.mark.parametrize("kind", sorted(_KERNELS))
     @pytest.mark.parametrize("causal", [True, False])
-    @pytest.mark.parametrize("seq", [1, 64, 200, 512, 2048])
+    @pytest.mark.parametrize("seq", SEQS)
     def test_matches_plain(self, cuda, kind, causal, seq):
         kernel, plain, counter = _KERNELS[kind]
         args = (*_bwd_inputs(cuda, seq, causal, seed=seq), causal)
@@ -185,11 +213,14 @@ class TestBackwardKernelsOnCard:
             assert _rel_err(g, w) <= GRAD_TOL
 
     @pytest.mark.parametrize("kind", sorted(_KERNELS))
-    def test_strided_views(self, cuda, kind):
+    @pytest.mark.parametrize("start", [0, 64])
+    def test_strided_views(self, cuda, kind, start):
+        # views into wider rows; start 64 puts every row 128 bytes in
         kernel, plain, _ = _KERNELS[kind]
         gen = torch.Generator(device=cuda).manual_seed(2)
-        wide = _bf16(gen, 2, 130, 3, 512, device=cuda)
-        q, k, v, do = (wide[..., i * 128:(i + 1) * 128] for i in range(4))
+        wide = _bf16(gen, 2, 130, 3, 576, device=cuda)
+        q, k, v, do = (wide[..., start + i * 128:start + (i + 1) * 128]
+                       for i in range(4))
         _, lse = tattn.flash_attention_fwd_reference(q, k, v, True)
         o = tattn.flash_attention_fwd_reference(q, k, v, True)[0]
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -197,8 +228,19 @@ class TestBackwardKernelsOnCard:
         for g, w in zip(kernel(*args), plain(*args)):
             assert _rel_err(g, w) <= GRAD_TOL
 
-    def test_fused_matches_split(self, cuda):
-        args = (*_bwd_inputs(cuda, 512, True, seed=7), True)
+    @pytest.mark.parametrize("kind", sorted(_KERNELS))
+    @pytest.mark.parametrize("batch,heads,seq", GRIDS)
+    def test_grid_sizes(self, cuda, kind, batch, heads, seq):
+        kernel, plain, _ = _KERNELS[kind]
+        args = (*_bwd_inputs(cuda, seq, True, seed=9, batch=batch,
+                             heads=heads), True)
+        for g, w in zip(kernel(*args), plain(*args)):
+            assert _rel_err(g, w) <= GRAD_TOL
+
+    @pytest.mark.parametrize("seq,causal", [(512, True), (129, True),
+                                            (129, False)])
+    def test_fused_matches_split(self, cuda, seq, causal):
+        args = (*_bwd_inputs(cuda, seq, causal, seed=7), causal)
         fused = tattn.flash_attention_bwd_fused(*args)
         split = (tattn.flash_attention_dq(*args),
                  *tattn.flash_attention_dkv(*args))
