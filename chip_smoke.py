@@ -12,12 +12,17 @@ Phases, one JSON line each; any failure exits non-zero with no result:
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, with the stated tolerances: the forward (K1) at the serving
    shape, and the fused backward (K2), the dq kernel (K3) and the dk/dv
-   kernel (K4) at the training shape, at S 127, 128, 129 and 200 causal
-   and not (the edges of the 64- and 128-row tiles), and on strided
-   views.  Kernel, plain and library times (CUDA events, median
-   of several samples of back-to-back launches) at the serving shape for
-   K1 and at the training shape for all four, and each bound from the
-   card's published peaks (nos_tpu_torch.ops.roofline).
+   kernel (K4) at the training shape, at S 1, 65, 127, 128, 129 and 200
+   causal and not (the edges of the 64- and 128-row tiles), and on
+   strided views; two launches each of K3 and K4 at the training shape
+   must agree bitwise.  Kernel, plain and library times (CUDA events,
+   median of several samples of back-to-back launches) at the serving
+   shape for K1 and at the training shape for all four, and each bound
+   from the card's published peaks (nos_tpu_torch.ops.roofline).  Then a
+   timing-only long-context row, B1 S32768 H8 causal, where the split
+   pair is the backward ``backward_impl`` picks: K2, K3, K4 and the SDPA
+   backward timed, split held against fused (the plain versions would
+   need 34 GB of fp32 scores there).
 4. serve: BENCH_350M at full width and depth (24 layers), bf16
    parameters from a seed, flash attention, through ``generate`` for 8
    requests: 448 prompt tokens and 64 greedy steps each.  The launch
@@ -119,8 +124,8 @@ def phase_env() -> str:
 KERNELS = {
     "flash_fwd": ("flash_fwd", "flash_fwd_kernel", "wgmma+tma"),
     "flash_bwd_fused": ("flash_bwd", "flash_bwd_kernel", "wgmma+tma"),
-    "flash_dq": ("flash_bwd_split", "flash_dq_kernel", "mma.sync"),
-    "flash_dkv": ("flash_bwd_split", "flash_bwd_kv_kernel", "mma.sync"),
+    "flash_dq": ("flash_bwd_split", "flash_dq_kernel", "wgmma+tma"),
+    "flash_dkv": ("flash_bwd_split", "flash_bwd_kernel", "wgmma+tma"),
 }
 
 
@@ -235,8 +240,12 @@ def _sdpa_backward_ms(q, k, v, do) -> float:
 
 
 # Sequence lengths around the tile edges (K1: 128 q rows and 128 keys;
-# K2: 128 keys and 64 q rows; K3, K4: 64 of each), and one ragged length.
-EDGE_SEQS = (127, 128, 129, 200)
+# K2 and K4: 128 keys and 64 q rows; K3: 128 q rows and 64 keys), and one
+# ragged length.
+EDGE_SEQS = (1, 65, 127, 128, 129, 200)
+# The long-context row: at 8 heads and batch 1 the JAX rule's dq partials
+# are 2^31 bytes, past FUSED_PARTIAL_BUDGET, so the split pair runs.
+LONG_SHAPE = (1, 32768, 8)
 
 
 def _design(name: str, resources: dict) -> dict:
@@ -348,6 +357,16 @@ def phase_kernels(resources: dict) -> list[dict]:
     del outputs, fused, split
 
     targs = (tq, tk, tv, tdo, tlse, tdelta, True)
+    # The split pair writes every output row from one CTA after a loop in
+    # a fixed order: two launches on the same inputs agree bitwise.
+    repeat = {}
+    for name in ("flash_dq", "flash_dkv"):
+        first, second = kernels[name][0](*targs), kernels[name][0](*targs)
+        torch.cuda.synchronize()
+        repeat[name] = all(torch.equal(a, b) for a, b in zip(first, second))
+        if not repeat[name]:
+            fail(f"two {name} launches on the training inputs differ")
+        del first, second
     library_ms = _sdpa_backward_ms(tq, tk, tv, tdo)
     entries = [{
         "name": "flash_fwd", "route": "cuda",
@@ -380,15 +399,67 @@ def phase_kernels(resources: dict) -> list[dict]:
             "library": "SDPA backward (dq, dk and dv), torch.autograd.grad "
                        "on a retained graph",
             "shape": "training B8 S2048 H8 causal"})
+    del tq, tk, tv, tdo, tlse, tdelta, targs
+    long_rows = _long_context(gen, peaks, kernels)
+    for entry in entries[1:]:
+        entry["long_context"] = long_rows[entry["name"]]
     emit({"phase": "kernels", "checks": checks,
           "tolerance": {"o": O_TOL, "lse": LSE_TOL, "grad": GRAD_TOL,
                         "fused_vs_split": FUSED_SPLIT_TOL},
           "fused_vs_split_rel": fused_vs_split,
+          "split_repeat_bitwise": repeat,
           "serving_flash_fwd": serving, "train_flash_fwd": train_fwd,
           "train_backward": {e["name"]: {key: e[key] for key in (
               "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
               for e in entries[1:]}})
     return entries
+
+
+def _long_context(gen, peaks, kernels) -> dict[str, dict]:
+    """K2, K3 and K4 at LONG_SHAPE, causal: split against fused within
+    FUSED_SPLIT_TOL, then kernel and SDPA-backward times and each bound.
+    lse comes from K1 (the plain forward would need the fp32 scores)."""
+    from nos_tpu_torch.ops import attention as A
+
+    b, s, h = LONG_SHAPE
+    d = 128
+    q, k, v = _qkv(gen, b, s, h)
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    impl = A.backward_impl(q, k)
+    if impl != "split":
+        fail(f"backward_impl picks {impl!r} at B{b} S{s} H{h}, not 'split'")
+    o, lse = A.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    del o
+    args = (q, k, v, do, lse, delta, True)
+    fused = A.flash_attention_bwd_fused(*args)
+    split = (A.flash_attention_dq(*args), *A.flash_attention_dkv(*args))
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x).all() for x in (*fused, *split)):
+        fail(f"non-finite gradients at B{b} S{s} H{h}")
+    fused_vs_split = max(
+        ((f.float() - t.float()).abs().max()
+         / t.float().abs().max()).item() for f, t in zip(fused, split))
+    if not fused_vs_split <= FUSED_SPLIT_TOL:
+        fail(f"fused vs split backward at B{b} S{s} H{h}: {fused_vs_split} "
+             f"(tol {FUSED_SPLIT_TOL})")
+    del fused, split
+    library_ms = _sdpa_backward_ms(q, k, v, do)
+    bhs2d = b * h * s * s * d
+    act, stat = b * s * h * d * 2, b * h * s * 4
+    rows = {}
+    for name, (fn, _plain, _rep, _src, mats, outs) in kernels.items():
+        bound = _bound(mats * bhs2d, (4 + outs) * act + 2 * stat, peaks)
+        rows[name] = {
+            "ms": time_ms(lambda: fn(*args), inner=5, samples=10),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": library_ms,
+            "shape": f"B{b} S{s} H{h} causal"}
+    emit({"phase": "long_context", "shape": f"B{b} S{s} H{h} causal",
+          "backward_impl": impl, "fused_vs_split_rel": fused_vs_split,
+          "tolerance": FUSED_SPLIT_TOL, "kernels": rows})
+    return rows
 
 
 def _noncausal_logits(dense, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,180 +1,348 @@
-// Split flash-attention backward for Hopper (sm_90a): a dq kernel and a
-// dk/dv kernel, 3 + 4 = 7 matrix products per (q tile, k tile) pair and no
-// cross-CTA sum, so both are deterministic.
+// Split flash-attention backward for Hopper (sm_90a): a dq kernel (K3) and
+// a dk/dv kernel (K4), 3 + 4 = 7 matrix products per (q tile, k tile) pair
+// and no cross-CTA sum of any kind (no atomics, no reductions): every
+// output row is written by one CTA after a loop in a fixed order, so both
+// are bitwise deterministic.
 //
 // Replaces: the Pallas TPU kernels `_dq_kernel` (nos_flash_dq) and
 // `_dkv_kernel` (nos_flash_dkv) in nos_tpu/ops/attention.py, launched by
 // `_flash_backward`: the backward that NOS_TPU_FLASH_BWD=split selects
 // and that long sequences take when the fused backward's dq partials
-// would exceed FUSED_PARTIAL_BUDGET.
+// would exceed FUSED_PARTIAL_BUDGET.  The numerics are the TPU kernels':
+// s = (q . k^T, fp32) * D^-1/2 with an additive -1e30 causal mask;
+// p = exp(s - lse) in fp32; ds = p * (dp - delta) rounded to bf16 before
+// its product; dq = D^-1/2 * ds . k; dk = D^-1/2 * ds^T . q; dv = p^T . dO
+// with p rounded to bf16; fp32 accumulation throughout.
 //
-// What bounds them: operations.  At the training shape (B 8, S 2048, H 8,
-// D 128, causal, bf16) the dq kernel does 1.03e11 FLOP against ~169 MB
-// and the dk/dv kernel 1.37e11 FLOP against ~202 MB.
+// What bounds them on an H100 SXM: operations.  At the training shape
+// (B 8, S 2048, H 8, D 128, causal, bf16) K3 does 1.03e11 FLOP = 0.104 ms
+// at 989 TFLOP/s against ~169 MB of inputs and outputs (0.050 ms), K4
+// 1.37e11 FLOP = 0.139 ms against ~202 MB (0.060 ms).  p, dp and ds never
+// reach device memory.
 //
-// dq kernel design: grid (ceil(Sq/64), H, B), 4 warps, 16 q rows per warp,
-// the heaviest (last) q tiles first.  The CTA keeps Q and dO in shared
-// memory and streams the k/v tiles up to the diagonal through it,
-// double-buffered with cp.async, like the forward kernel.  Per k tile a
-// warp computes S = Q K^T and dP = dO V^T in registers, forms
-// dS = exp(scale * S + mask - lse) * (dP - delta), and re-packs dS (bf16)
-// as the A operand of dq += dS K.  dq = D^-1/2 * dq at the end, staged in
-// shared memory and stored with 16-byte writes.  The TPU numerics: fp32
-// scores and statistics, p in fp32, ds rounded to bf16 before its product.
+// K3 design (flash_dq_kernel, warp-specialised, wgmma + TMA on
+// hopper_common.cuh, shaped like K1 in flash_fwd.cu):
+// - grid (ceil(Sq/128), H, B) or (H, B, ceil(Sq/128)), 384 threads: two
+//   consumer warpgroups own 64 q rows each and keep their dQ accumulator
+//   (64 x 128 fp32) in registers; the producer warp loads the CTA's 128 Q
+//   and dO rows once (32 KB each), then streams 64-key K and V tiles by
+//   TMA into a kStages-deep ring on full/empty mbarriers (128B-swizzled,
+//   zero-filled past Sk), stopping at the diagonal under causal, where
+//   the first consumer stops one tile earlier than the second.  Each
+//   thread reads the lse (times log2 e) and delta of its two rows once.
+//   The heaviest (last) q tiles go first, with K1's L2 rule for the grid's
+//   order.
+// - Per K/V tile and consumer: S = Q K^T and dP = dO V^T are 8 SS wgmma
+//   m64n64k16 each (K-major operands, K1's Q K^T descriptors), started
+//   together with the previous tile's dQ product; P = exp2(S c - lse
+//   log2 e) is one FFMA and one ex2.approx.ftz per entry while dP runs
+//   (the mask is a second instance that only diagonal or ragged tiles
+//   run; it zeroes keys past Sk and rows past Sq, where the zero-filled
+//   tiles would give exp(-lse)); dS = P (dP - delta) is re-packed as bf16
+//   A fragments (16 keys per k-step, as K1 repacks P) and dQ += dS K is 4
+//   RS wgmma m64n128k16 with K MN-major (K1's P V layout).  A stage is
+//   released once the dQ product that reads its K is done.
+// - Epilogue: D^-1/2 dQ rounded to bf16 into the consumer's own Q tile
+//   (swizzled) and out by TMA store, which drops rows past Sq.
+// - setmaxnreg: producer 24 registers, consumers 240.
+// - Shared memory: Q, dO 32 KB each + 4 stages x (K, V 16 KB each) =
+//   192 KB, one CTA per SM.  The loop holds a stage until the next
+//   tile's dQ product has read its K, so 2 stages leave no tile in
+//   flight: 0.28 ms against 0.195 at the training shape.  128-key tiles
+//   (S and dP as m64n128 products, 2 stages) spilled 144 bytes at 240
+//   registers and took 0.300 ms against 0.192.  Measured on an H100 SXM
+//   at 700 W with scripts/ab_flash_kernel.py.
 //
-// The dk/dv kernel is flash_bwd_kv_kernel in flash_bwd_kv.cuh, the first
-// (mma.sync) fused backward without its dq share.
+// K4 design: flash_bwd_body.cuh's flash_bwd_kernel<kDq = false, 4>,
+// the fused backward's (K2's) body with its dq share compiled out: 128
+// keys per CTA, two 64-key consumer warpgroups holding dk and dv in
+// registers, 64-row Q and dO tiles streamed by TMA through a 4-stage ring
+// (0.6-1.4% faster than 2 stages in three A/B pairs; 3 stages no
+// different), 4 wgmma products per tile pair (S^T, dP^T as SS; dV, dK as
+// RS), dk and dv by TMA store.
+//
+// What held the previous (mma.sync) kernels back, and what this does
+// about it: mma.sync with every fragment reloaded by ldmatrix from padded
+// rows (now wgmma from swizzled tiles); 64-row CTAs of 4 warps, K3
+// re-streaming K/V per 64 q rows (now 128) and K4 holding dk, dv, S^T and
+// dP^T in 255 registers with a spill (now two 64-key warpgroups at 240
+// registers); a synchronous cp.async double buffer with two __syncthreads
+// per tile (now a TMA ring on mbarriers, loads overlapping both
+// consumers' products); expf with its denormal path per score (now exp2
+// with the scale folded into one FFMA).
+//
+// ptxas (sm_90a): both kernels 168 registers at entry (then 24 / 240 by
+// setmaxnreg), no spill.
 
-#include "flash_bwd_kv.cuh"
+#include "flash_bwd_body.cuh"
 
 namespace {
 
-using namespace nos_flash;
+using namespace nos_hopper;
 
-constexpr int kDqSmemBytes = 6 * kTileElems * 2;  // Q, dO, K[2], V[2]
+constexpr int kRows = 128;                     // q rows per CTA
+constexpr int kKeys = 64;                      // keys per K/V tile
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr uint32_t kTileBytes = 64 * kHeadDim * 2;   // 64 rows x 128, bf16
+constexpr uint32_t kTileHalf = 64 * 128;             // bytes per half
+constexpr uint32_t kQOff = 0;                        // one tile per consumer
+constexpr uint32_t kdOOff = kQOff + kConsumers * kTileBytes;
+constexpr uint32_t kKOff = kdOOff + kConsumers * kTileBytes;
+constexpr uint32_t kVOff = kKOff + kStages * kTileBytes;
+constexpr uint32_t kBarOff = kVOff + kStages * kTileBytes;
+constexpr int kNumBars = 1 + 2 * kStages;
+constexpr int kSmemBytes = kBarOff + kNumBars * 8 + 1024;   // + alignment
 
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
+// K4's Q/dO ring depth: without the dq share K2's body has the shared
+// memory for 4 stages (194 KB).
+constexpr int kDkvStages = 4;
+
+// P = exp(S D^-1/2 - lse) for one tile, in place, in the accumulator
+// layout (rows row_a and row_a + 8 of this thread, 64 keys from key0),
+// computed as exp2(s c - lse log2(e)) with c = D^-1/2 log2(e) (lse_c holds
+// the two rows' lse log2(e)).  With kMasked, keys above the diagonal
+// (causal) or past Sk, and rows past Sq, get p = 0.
+template <bool kMasked>
+__device__ __forceinline__ void p_tile(float (&s)[32],
+                                       const float (&lse_c)[2], float c,
+                                       int key0, int row_a, int t, int seq_q,
+                                       int seq_k, int causal) {
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_ftz(fmaf(s[4 * n + e], c, -lse_c[e >> 1]));
+      if (kMasked) {
+        const int key = key0 + 8 * n + 2 * t + (e & 1);
+        const int row = row_a + (e >> 1) * 8;
+        s[4 * n + e] =
+            (key < seq_k && row < seq_q && !(causal && key > row)) ? p : 0.f;
+      } else {
+        s[4 * n + e] = p;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap dq_map,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int heads, int seq_q,
-                    int seq_k, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                    int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                    int64_t o_sh, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = sQ + kTileElems;
-  __nv_bfloat16* sK = sdO + kTileElems;      // two buffers
-  __nv_bfloat16* sV = sK + 2 * kTileElems;   // two buffers
+                    const float* __restrict__ delta, int heads, int seq_q,
+                    int seq_k, float scale, int causal, int tiles_outer) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
 
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = q_tile * kTileRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  // Heaviest (last) q tiles first: of every (b, h) at once when the grid
+  // is (H, B, tiles), within each (b, h) when it is (tiles, H, B).
+  const int q_tile = tiles_outer ? gridDim.z - 1 - blockIdx.z
+                                 : gridDim.x - 1 - blockIdx.x;
+  const int h = tiles_outer ? blockIdx.x : blockIdx.y;
+  const int b = tiles_outer ? blockIdx.y : blockIdx.z;
+  const int m0 = q_tile * kRows;
+  int n_tiles = (seq_k + kKeys - 1) / kKeys;
+  if (causal) n_tiles = min(n_tiles, (m0 + kRows - 1) / kKeys + 1);
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const __nv_bfloat16* ob = dout + b * o_sb + h * o_sh;
-
-  int n_tiles = (seq_k + kTileRows - 1) / kTileRows;
-  if (causal) n_tiles = min(n_tiles, (row0 + kTileRows - 1) / kTileRows + 1);
-
-  load_tile(sQ, qb, q_ss, row0, seq_q);
-  load_tile(sdO, ob, o_ss, row0, seq_q);
-  load_tile(sK, kb, k_ss, 0, seq_k);
-  load_tile(sV, vb, v_ss, 0, seq_k);
-  cp_async_commit();
-
-  // This thread's rows: q_row (accumulator rows g) and q_row + 8.
-  const int q_row = row0 + warp * 16 + g;
-  const int64_t stat0 = (static_cast<int64_t>(b) * heads + h) * seq_q;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q_row + 8 * i;
-    lse_r[i] = r < seq_q ? lse[stat0 + r] : 0.f;
-    delta_r[i] = r < seq_q ? delta[stat0 + r] : 0.f;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrive per warp
+    }
+    fence_barrier_init();
   }
-  float acc[kHeadDim / 8][4];
-#pragma unroll
-  for (int d = 0; d < kHeadDim / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(sK + (buf ^ 1) * kTileElems, kb, k_ss, (j + 1) * kTileRows,
-                seq_k);
-      load_tile(sV + (buf ^ 1) * kTileElems, vb, v_ss, (j + 1) * kTileRows,
-                seq_k);
-    }
-    cp_async_commit();  // possibly empty: keeps wait_group 1 uniform
-    cp_async_wait_one();
-    __syncthreads();
-    const __nv_bfloat16* sKb = sK + buf * kTileElems;
-    const __nv_bfloat16* sVb = sV + buf * kTileElems;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp.
-    float s[kTileRows / 8][4], dp[kTileRows / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTileRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      frag_a(qa, sQ, kStride, warp * 16, kk * 16, lane);
-      frag_a(oa, sdO, kStride, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < kTileRows / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_b(bk, sKb, kStride, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-        frag_b(bv, sVb, kStride, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
-      }
-    }
-
-    // dS = P (dP - delta), P = exp(scale * S + mask - lse); kept in s.
-    const int key0 = j * kTileRows;
-#pragma unroll
-    for (int n = 0; n < kTileRows / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + n * 8 + 2 * t + (e & 1);
-        const int row = q_row + (e >> 1) * 8;
-        float x = s[n][e] * scale;
-        if (causal && key > row) x += kNegInf;
-        const float p = (key < seq_k && row < seq_q)
-                            ? __expf(x - lse_r[e >> 1])
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - delta_r[e >> 1]);
-      }
-    }
-
-    // dq += dS K (dS rounded to bf16 as the A operand).
-#pragma unroll
-    for (int kk = 0; kk < kTileRows / 16; ++kk) {
-      uint32_t da[4];
-      pack_a(da, s, kk);
-#pragma unroll
-      for (int dc = 0; dc < kHeadDim / 16; ++dc) {
-        uint32_t bk[4];
-        frag_b_trans(bk, sKb, kStride, kk * 16, dc * 16, lane);
-        mma_bf16(acc[2 * dc], da, bk[0], bk[1]);
-        mma_bf16(acc[2 * dc + 1], da, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's prefetch overwrites this buffer
-  }
-
-  // dq = D^-1/2 * acc, staged in sQ (each warp owns its 16 rows there).
-  stage_rows(sQ, warp * 16, acc, scale, lane);
   __syncthreads();
-  const int64_t row_stride = static_cast<int64_t>(heads) * kHeadDim;
-  store_tile(dq + static_cast<int64_t>(b) * seq_q * row_stride + h * kHeadDim,
-             sQ, row_stride, row0, seq_q);
+
+  if (wg == kConsumers) {
+    // ---- producer ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, 2 * kConsumers * kTileBytes);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int half = 0; half < 2; ++half) {
+          tma_load_4d(smem + kQOff + w * kTileBytes + half * kTileHalf,
+                      &q_map, q_full, half * kHalfCols, h, m0 + 64 * w, b);
+          tma_load_4d(smem + kdOOff + w * kTileBytes + half * kTileHalf,
+                      &do_map, q_full, half * kHalfCols, h, m0 + 64 * w, b);
+        }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[st], ((j / kStages) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        for (int half = 0; half < 2; ++half) {
+          tma_load_4d(smem + kKOff + st * kTileBytes + half * kTileHalf,
+                      &k_map, &full[st], half * kHalfCols, h, j * kKeys, b);
+          tma_load_4d(smem + kVOff + st * kTileBytes + half * kTileHalf,
+                      &v_map, &full[st], half * kHalfCols, h, j * kKeys, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows m0 + 64 wg .. + 63 ----
+    reg_alloc<240>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = m0 + 64 * wg;
+    const int row_a = row0 + 16 * warp + g;  // and row_a + 8
+    unsigned char* sq = smem + kQOff + wg * kTileBytes;
+    const uint32_t q_addr = smem_u32(sq);
+    const uint32_t do_addr = smem_u32(smem + kdOOff + wg * kTileBytes);
+    // Under causal this warpgroup's last key is row0 + 63: the first
+    // consumer needs one tile fewer than the second.  The tile it skips is
+    // the last the producer loads, so no load waits for its release.
+    const int my_tiles =
+        causal ? min(n_tiles, (row0 + 63) / kKeys + 1) : n_tiles;
+
+    // This thread's rows' statistics, fixed for the whole CTA.
+    const int64_t stat0 = (static_cast<int64_t>(b) * heads + h) * seq_q;
+    float lse_c[2], dlt[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row_a + 8 * i;
+      lse_c[i] = r < seq_q ? lse[stat0 + r] * kLog2e : 0.f;
+      dlt[i] = r < seq_q ? delta[stat0 + r] : 0.f;
+    }
+    const float c = scale * kLog2e;
+
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t da[kKeys / 16][4];
+
+    // S_j = Q K_j^T and dP_j = dO V_j^T (64 rows x 64 keys each), one
+    // commit group each.
+    auto start_s_dp = [&](int j) {
+      const int st = j % kStages;
+      const uint32_t k_addr = smem_u32(smem + kKOff + st * kTileBytes);
+      const uint32_t v_addr = smem_u32(smem + kVOff + st * kTileBytes);
+      mbar_wait(&full[st], (j / kStages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kTileHalf + (kk % 4) * 32;
+        wgmma_m64n64_ss<0, 0>(s, smem_desc(q_addr + off, 0, 1024),
+                              smem_desc(k_addr + off, 0, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kTileHalf + (kk % 4) * 32;
+        wgmma_m64n64_ss<0, 0>(dp, smem_desc(do_addr + off, 0, 1024),
+                              smem_desc(v_addr + off, 0, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // dQ += dS_j K_j, dS from registers, K MN-major (16 keys per k-step).
+    auto start_dq = [&](int j) {
+      const uint32_t k_addr =
+          smem_u32(smem + kKOff + (j % kStages) * kTileBytes);
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_m64n128_rs<1>(dq, da[kk],
+                            smem_desc(k_addr + kk * 16 * 128, kTileHalf, 1024),
+                            1);
+      wgmma_commit();
+    };
+    // P_j in s, in place; the mask only where a key can pass the diagonal
+    // or a tile edge is ragged.
+    auto p_of = [&](int j) {
+      const int key0 = j * kKeys;
+      if ((causal && key0 + kKeys - 1 > row0) || key0 + kKeys > seq_k ||
+          row0 + 64 > seq_q)
+        p_tile<true>(s, lse_c, c, key0, row_a, t, seq_q, seq_k, causal);
+      else
+        p_tile<false>(s, lse_c, c, key0, row_a, t, seq_q, seq_k, causal);
+    };
+    // dS_j = P_j (dP_j - delta) in dp, re-packed as bf16 A fragments.
+    auto ds_of = [&]() {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]);
+    };
+    auto pack_ds = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) pack_a_frag(da[kk], dp, kk);
+    };
+
+    // Tile 0, then per tile j: S_j, dP_j and dQ += dS_{j-1} K_{j-1} go to
+    // the tensor cores together; P_j is computed while dP_j and the dQ
+    // product run, dS_j while the dQ product runs.
+    mbar_wait(q_full, 0);
+    wgmma_fence();
+    start_s_dp(0);
+    wgmma_wait<1>();
+    fence_regs(s);
+    p_of(0);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    ds_of();
+    pack_ds();
+    for (int j = 1; j < my_tiles; ++j) {
+      fence_regs(dq);
+      wgmma_fence();
+      start_s_dp(j);
+      start_dq(j - 1);
+      wgmma_wait<2>();
+      fence_regs(s);
+      p_of(j);
+      wgmma_wait<1>();
+      fence_regs(dp);
+      ds_of();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (lane == 0) mbar_arrive(&empty[(j - 1) % kStages]);  // K, V read
+      pack_ds();
+    }
+    fence_regs(dq);
+    wgmma_fence();
+    start_dq(my_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    // Epilogue: D^-1/2 dq into this consumer's own Q tile (its S products
+    // are done), then out by TMA store, which drops rows past Sq.
+    const int r = 16 * warp + g;
+#pragma unroll
+    for (int n = 0; n < kHeadDim / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      *reinterpret_cast<uint32_t*>(sq + swizzled_offset(r, col, kTileHalf)) =
+          pack_bf16x2(dq[4 * n] * scale, dq[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(sq +
+                                   swizzled_offset(r + 8, col, kTileHalf)) =
+          pack_bf16x2(dq[4 * n + 2] * scale, dq[4 * n + 3] * scale);
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (tid == 0) {
+      for (int half = 0; half < 2; ++half)
+        tma_store_4d(&dq_map, sq + half * kTileHalf, half * kHalfCols, h,
+                     row0, b);
+      tma_store_commit_and_wait();
+    }
+  }
 }
 
 }  // namespace
 
 // Pointers are device pointers; q, k, v and dout are [B, S, H, D] with
-// unit stride over D (D must be 128, rows 16-byte aligned), strides in
-// elements.  lse and delta are contiguous fp32 [B, H, Sq]; dq is a
-// contiguous bf16 [B, Sq, H, D].  Causal requires seq_q == seq_k.
-// Returns cudaGetLastError() after the launch.
+// unit stride over D (D must be 128, strides multiples of 8 elements,
+// 16-byte aligned starts), strides in elements.  lse and delta are
+// contiguous fp32 [B, H, Sq]; dq is a contiguous bf16 [B, Sq, H, D].
+// Causal requires seq_q == seq_k.  Returns cudaErrorInvalidValue if a
+// tensor map is refused, else cudaGetLastError() after the launch.
 extern "C" int nos_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int batch,
@@ -184,20 +352,40 @@ extern "C" int nos_flash_dq(const void* q, const void* k, const void* v,
                             int64_t v_ss, int64_t v_sh, int64_t o_sb,
                             int64_t o_ss, int64_t o_sh, float scale,
                             int causal, void* stream) {
+  const int64_t row = static_cast<int64_t>(heads) * kHeadDim;
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map;
+  if (!make_bshd_map(&q_map, q, batch, seq_q, heads, q_sb, q_ss, q_sh, 64) ||
+      !make_bshd_map(&k_map, k, batch, seq_k, heads, k_sb, k_ss, k_sh,
+                     kKeys) ||
+      !make_bshd_map(&v_map, v, batch, seq_k, heads, v_sb, v_ss, v_sh,
+                     kKeys) ||
+      !make_bshd_map(&do_map, dout, batch, seq_q, heads, o_sb, o_ss, o_sh,
+                     64) ||
+      !make_bshd_map(&dq_map, dq, batch, seq_q, heads, seq_q * row, row,
+                     kHeadDim, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDqSmemBytes);
+      kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq_q + kTileRows - 1) / kTileRows, heads, batch);
-  flash_dq_kernel<<<grid, kThreads, kDqSmemBytes,
+  // Launch order, K1's rule (flash_fwd.cu): when K and V fit in the L2
+  // cache, every (b, h)'s heaviest q tiles go first; larger K/V keep each
+  // (b, h)'s tiles together so their K/V stay in L2.
+  int device = 0, l2_bytes = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (seq_q + kRows - 1) / kRows;
+  const double kv_bytes = 4.0 * batch * heads * seq_k * kHeadDim;
+  const int tiles_outer = kv_bytes <= l2_bytes && tiles <= 65535;
+  const dim3 grid = tiles_outer ? dim3(heads, batch, tiles)
+                                : dim3(tiles, heads, batch);
+  flash_dq_kernel<<<grid, kThreads, kSmemBytes,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), heads, seq_q, seq_k, q_sb, q_ss, q_sh,
-      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal);
+      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), heads, seq_q, seq_k, scale, causal,
+      tiles_outer);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -212,7 +400,8 @@ extern "C" int nos_flash_dkv(const void* q, const void* k, const void* v,
                              int64_t v_sb, int64_t v_ss, int64_t v_sh,
                              int64_t o_sb, int64_t o_ss, int64_t o_sh,
                              float scale, int causal, void* stream) {
-  return launch_bwd_kv(q, k, v, dout, lse, delta, dk, dv, batch, heads,
-                       seq_q, seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                       v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal, stream);
+  return bwd::launch_flash_bwd<false, kDkvStages>(
+      q, k, v, dout, lse, delta, nullptr, dk, dv, batch, heads, seq_q, seq_k,
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+      scale, causal, stream);
 }

@@ -1,5 +1,6 @@
-// Hopper machinery shared by the redesigned flash kernels (K1 in
-// flash_fwd.cu, K2 in flash_bwd.cu), sm_90a only: TMA tensor maps and
+// Hopper machinery shared by the flash kernels (K1 in flash_fwd.cu, K2
+// in flash_bwd.cu, K3 and K4 in flash_bwd_split.cu; K2 and K4 share
+// flash_bwd_body.cuh), sm_90a only: TMA tensor maps and
 // loads/stores, mbarriers, wgmma descriptors and products, register
 // rebalancing and named barriers.  Each piece follows the section of
 // cuda_guide.md named beside it.
@@ -23,8 +24,8 @@
 // the warpgroup rows 16w + g and 16w + g + 8 (lane = 4g + t), and in each
 // 8-column block n the columns 8n + 2t and 8n + 2t + 1:
 //   d[4n + 0..1] = C[16w + g][8n + 2t ..],  d[4n + 2..3] = C[16w + g + 8][..]
-// That is mma.sync m16n8k16's C layout per 16-row slab (flash_common.cuh),
-// so the masking and softmax code of the mma.sync kernels carries over, and
+// That is mma.sync m16n8k16's C layout per 16-row slab, so the masking
+// and softmax code of the earlier mma.sync kernels carried over, and
 // an accumulator re-packed to bf16 (pack_a_frag) is the A operand of an RS
 // wgmma with no data movement, as mma.sync's C becomes its A.
 //

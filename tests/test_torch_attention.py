@@ -274,8 +274,8 @@ class TestBackwardChoice:
 
     @pytest.mark.parametrize("b,s,h", [
         (8, 2048, 8),       # BENCH_350M_TRAIN: 67 MB of partials -> fused
-        (8, 8192, 8),       # 1.07 GB: just above the budget -> split
-        (1, 32768, 8),      # long context -> split
+        (8, 8192, 8),       # exactly 2^30 bytes, within the budget -> fused
+        (1, 32768, 8),      # 2^31 bytes: long context -> split
         (2, 1536, 4),       # 1024 does not divide: the forward's blocks
         (4, 512, 8),        # blocks shrunk to the sequence
     ])

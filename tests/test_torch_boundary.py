@@ -5,6 +5,7 @@ its kernel build is keyed on the sources."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,12 +13,28 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 import nos_tpu_torch
 from nos_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "nos_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nos_tpu")
+
+
+def _with_includes(path: Path, seen=None) -> str:
+    """A CUDA source and, in its place, every header it includes by a
+    quoted name from beside it, once each."""
+    seen = set() if seen is None else seen
+    seen.add(path.name)
+    parts = []
+    for line in path.read_text().splitlines():
+        m = re.match(r'\s*#include\s+"([^"]+)"', line)
+        if m and m.group(1) not in seen and (path.parent / m.group(1)).is_file():
+            parts.append(_with_includes(path.parent / m.group(1), seen))
+        else:
+            parts.append(line)
+    return "\n".join(parts)
 
 
 def _forbidden(module: str) -> bool:
@@ -131,16 +148,40 @@ class TestBuild:
 
     def test_library_name_tracks_the_shared_headers(self, tmp_path,
                                                      monkeypatch):
-        path = _build.library_path("flash_bwd")
+        # the Hopper machinery, and the backward body K2 and K4 share
+        names = ("flash_bwd", "flash_bwd_split")
+        paths = {n: _build.library_path(n).name for n in names}
         src = tmp_path / "csrc"
         src.mkdir()
         for f in _build.CSRC.iterdir():
             (src / f.name).write_text(f.read_text())
         monkeypatch.setattr(_build, "CSRC", src)
-        assert _build.library_path("flash_bwd").name == path.name
-        header = src / "flash_common.cuh"
-        header.write_text(header.read_text() + "\n// edited\n")
-        assert _build.library_path("flash_bwd").name != path.name
+        assert {n: _build.library_path(n).name for n in names} == paths
+        for name in ("hopper_common.cuh", "flash_bwd_body.cuh"):
+            header = src / name
+            header.write_text(header.read_text() + "\n// edited\n")
+            edited = {n: _build.library_path(n).name for n in names}
+            assert all(edited[n] != paths[n] for n in names), name
+            paths = edited
+
+    @pytest.mark.parametrize("name", sorted(chip_smoke.KERNELS))
+    def test_smoke_kernel_is_defined_in_its_source(self, name):
+        # chip_smoke.py reads each kernel's ptxas line by this function
+        # name: a rename would turn its registers and spills into None.
+        source, function, _design = chip_smoke.KERNELS[name]
+        assert source in _build.sources()
+        text = _with_includes(_build.CSRC / f"{source}.cu")
+        assert re.search(r"__global__\s+void\s+(__launch_bounds__\([^()]*\)"
+                         rf"\s+)?{function}\s*\(", text), (source, function)
+
+    def test_no_mma_sync_kernel_is_left(self):
+        # every flash kernel is a wgmma design on hopper_common.cuh: no
+        # source issues the mma.sync instruction
+        assert {d for _, _, d in chip_smoke.KERNELS.values()} == {"wgmma+tma"}
+        for source in _build.sources():
+            text = _with_includes(_build.CSRC / f"{source}.cu")
+            assert "wgmma.mma_async" in text, source
+            assert "mma.sync.aligned" not in text, source
 
     def test_kernel_dir_is_ignored_by_git(self):
         ignored = (ROOT / ".gitignore").read_text().splitlines()

@@ -22,8 +22,11 @@ LSE_TOL = 1e-3    # fp32 row statistics
 GRAD_TOL = 2e-2
 FUSED_SPLIT_TOL = 3e-2
 # Lengths around the kernels' tile edges: K1 takes 128 q rows and 128 keys
-# per step, K2 128 keys and 64 q rows, K3 and K4 64 of each.
-SEQS = [1, 63, 64, 65, 127, 128, 129, 200, 512, 2048]
+# per step, K2 and K4 128 keys and 64 q rows, K3 128 q rows (64 per
+# consumer warpgroup) and 64 keys; 191/192/193 straddle the consumers of
+# K3's second q tile, 256/257 the edge of its third.
+SEQS = [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 200, 256, 257, 512,
+        2048]
 # (batch, heads, seq): a grid well under one wave of 132 SMs, and one of
 # several waves.
 GRIDS = [(1, 1, 128), (8, 16, 2048)]
@@ -236,6 +239,19 @@ class TestBackwardKernelsOnCard:
                              heads=heads), True)
         for g, w in zip(kernel(*args), plain(*args)):
             assert _rel_err(g, w) <= GRAD_TOL
+
+    @pytest.mark.parametrize("kind", ["dq", "dkv"])
+    def test_split_repeats_bitwise(self, cuda, kind):
+        # No cross-CTA sum: two launches at a several-wave grid agree bit
+        # for bit.
+        batch, heads, seq = GRIDS[-1]
+        kernel, _, _ = _KERNELS[kind]
+        args = (*_bwd_inputs(cuda, seq, True, seed=11, batch=batch,
+                             heads=heads), True)
+        first, second = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
     @pytest.mark.parametrize("seq,causal", [(512, True), (129, True),
                                             (129, False)])
