@@ -41,6 +41,19 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    split backward, within a limit under the fused one); and, at a cut
    depth of 4 layers, that the flash path's loss and gradients agree
    with the dense path's and the fused backward's with the split one's.
+6. train_main: the training main, ``nos_tpu_torch.cmd.train.train``, on
+   BENCH_350M_TRAIN at full width and depth with its defaults (flash,
+   "rots", 8 x 2048 synthetic batches from seed 0) through a process
+   group of one rank (NCCL) and FSDP2: MAIN_STEPS steps logged each,
+   whose step-0 loss must match the train phase's Trainer and which must
+   launch 24 K1 + 24 K2 per step; then, under the split backward, 6
+   steps straight, 4 steps with a checkpoint at step 4 into a temporary
+   directory, and a restart into that directory to step 6, which must
+   resume at step 4 and end on the straight run's loss bitwise.  The
+   launch counts are zeroed before the first run and read after the
+   last.  It reports ms/step, tokens/s and MFU from the main's own log
+   records, save and restore times, the checkpoint's bytes and the peak
+   device memory, then leaves the process group.
 
 Then the kernel summary line, the card's ``name, power.limit`` and, last,
 ``{"ok": true, "device": {...}}``.
@@ -49,11 +62,15 @@ Then the kernel summary line, the card's ``name, power.limit`` and, last,
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import logging
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NoReturn
 
@@ -615,7 +632,7 @@ def _check_launches(label: str, got: dict, want: dict) -> None:
         fail(f"{label}: kernel launches {got}, expected {want}")
 
 
-def phase_train() -> dict[str, int]:
+def phase_train() -> tuple[dict[str, int], float]:
     from nos_tpu_torch.entry import (TRAIN_BATCH, TRAIN_SEQ, bench_trainer,
                                      train_loader)
     from nos_tpu_torch.ops import attention as A
@@ -748,6 +765,156 @@ def phase_train() -> dict[str, int]:
                   "grad_rel_fused_vs_split": fused_vs_split,
                   "loss_tol": CUT_LOSS_TOL, "grad_tol": CUT_GRAD_TOL,
                   "fused_vs_split_tol": FUSED_SPLIT_TOL}})
+    return launches, losses[0]
+
+
+# The main's steps, logged each; then the resume runs under the split
+# backward: straight to RESUME_STEPS, and to RESUME_AT with a checkpoint
+# there, then restarted to RESUME_STEPS.
+MAIN_STEPS = 6
+RESUME_STEPS, RESUME_AT = 6, 4
+# The main's step-0 loss against the Trainer's on the same seed and
+# batch: the same parameter draws and the same products (FSDP2 over one
+# rank gathers and reduces by copies), so they agree to rounding.
+MAIN_LOSS0_RTOL = 1e-4
+
+
+class _Records(logging.Handler):
+    """The structured fields (``extra=``) of the port's log records."""
+
+    FIELDS = ("train_step", "train_loss", "tokens_per_s", "mfu",
+              "start_step", "checkpoint_step", "checkpoint_save_s",
+              "checkpoint_restore_s")
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.records: list[dict] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        fields = {k: getattr(record, k) for k in self.FIELDS
+                  if hasattr(record, k)}
+        if fields:
+            self.records.append(fields)
+
+    def take(self, key: str) -> list:
+        out = [r for r in self.records if key in r]
+        self.records = [r for r in self.records if key not in r]
+        return out
+
+
+def _bytes_under(path: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_main(trainer_loss0: float) -> dict[str, int]:
+    import torch.distributed as dist
+
+    from nos_tpu_torch.cmd.train import TrainConfig, train
+    from nos_tpu_torch.entry import TRAIN_BATCH, TRAIN_SEQ
+    from nos_tpu_torch.models.llama import BENCH_350M_TRAIN
+    from nos_tpu_torch.ops import attention as A
+
+    layers = BENCH_350M_TRAIN.num_layers
+    port_log = logging.getLogger("nos_tpu_torch")
+    port_log.setLevel(logging.INFO)
+    records = _Records()
+    port_log.addHandler(records)
+    if A.set_backward_impl("fused") != "fused":
+        fail("the default flash backward is not the fused one")
+
+    def cfg(**kw) -> TrainConfig:
+        c = TrainConfig(model="bench350m", log_every=1, **kw)
+        c.validate()
+        return c
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    main_loss = train(cfg(steps=MAIN_STEPS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    main_launches = _launch_counts()
+    if not (dist.is_initialized() and dist.get_world_size() == 1
+            and dist.get_backend() == "nccl"):
+        fail("the main did not run in a one-rank NCCL group")
+    _check_launches("the main's run", main_launches, {
+        "flash_fwd": MAIN_STEPS * layers,
+        "flash_bwd_fused": MAIN_STEPS * layers, "flash_dq": 0,
+        "flash_dkv": 0})
+    steps = records.take("train_loss")
+    if [r["train_step"] for r in steps] != list(range(1, MAIN_STEPS + 1)):
+        fail(f"the main logged steps {[r['train_step'] for r in steps]}")
+    losses = [r["train_loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] != main_loss:
+        fail(f"the main's losses {losses}, returned {main_loss}")
+    loss0_rel = abs(losses[0] - trainer_loss0) / abs(trainer_loss0)
+    if not loss0_rel <= MAIN_LOSS0_RTOL:
+        fail(f"the main's step-0 loss {losses[0]} against the Trainer's "
+             f"{trainer_loss0}: {loss0_rel} relative (tol "
+             f"{MAIN_LOSS0_RTOL})")
+    step_ms = [TRAIN_BATCH * TRAIN_SEQ / r["tokens_per_s"] * 1e3
+               for r in steps]
+
+    # Resume under the deterministic (split) backward.
+    A.set_backward_impl("split")
+    _release()
+    try:
+        straight = train(cfg(steps=RESUME_STEPS))
+        _release()
+        with tempfile.TemporaryDirectory(prefix="nos-ck-") as tmp:
+            first = train(cfg(steps=RESUME_AT, checkpoint_every=RESUME_AT,
+                              checkpoint_dir=tmp))
+            ck_bytes = _bytes_under(pathlib.Path(tmp) / str(RESUME_AT))
+            _release()
+            resumed = train(cfg(steps=RESUME_STEPS,
+                                checkpoint_every=RESUME_AT,
+                                checkpoint_dir=tmp))
+    finally:
+        A.set_backward_impl("fused")
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    port_log.removeHandler(records)
+    _release()
+    split_steps = RESUME_STEPS + RESUME_AT + (RESUME_STEPS - RESUME_AT)
+    _check_launches("the train_main phase", launches, {
+        "flash_fwd": (MAIN_STEPS + split_steps) * layers,
+        "flash_bwd_fused": MAIN_STEPS * layers,
+        "flash_dq": split_steps * layers, "flash_dkv": split_steps * layers})
+    starts = [r["start_step"] for r in records.take("start_step")]
+    if starts != [RESUME_AT]:
+        fail(f"the restarted main resumed at {starts}, not [{RESUME_AT}]")
+    if resumed != straight:
+        fail(f"the resumed run ended on loss {resumed!r}, the straight run "
+             f"on {straight!r}: not bitwise equal")
+    saves = [r["checkpoint_save_s"]
+             for r in records.take("checkpoint_save_s")]
+    restores = [r["checkpoint_restore_s"]
+                for r in records.take("checkpoint_restore_s")]
+    mfu = [r["mfu"] for r in steps]
+    emit({"phase": "train_main", "model": "BENCH_350M_TRAIN",
+          "layers": layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "world_size": dist.get_world_size(),
+          "backend": dist.get_backend(), "steps": MAIN_STEPS,
+          "losses": losses, "trainer_loss0": trainer_loss0,
+          "loss0_rel_diff": loss0_rel, "loss0_rtol": MAIN_LOSS0_RTOL,
+          "ms_per_step": step_ms,
+          "ms_per_step_median": statistics.median(step_ms[1:]),
+          "tokens_per_s": [r["tokens_per_s"] for r in steps],
+          "mfu": mfu, "mfu_median": statistics.median(mfu[1:]),
+          "peak_mem_bytes": peak, "launches_main_run": main_launches,
+          "launches": launches,
+          "resume": {"backward": "split", "straight_loss": straight,
+                     "first_loss": first, "resumed_loss": resumed,
+                     "start_step": starts[0], "bitwise": True,
+                     "save_ms": [x * 1e3 for x in saves],
+                     "restore_ms": [x * 1e3 for x in restores],
+                     "checkpoint_bytes": ck_bytes}})
+    dist.destroy_process_group()
     return launches
 
 
@@ -760,12 +927,14 @@ def main() -> int:
     resources = phase_build()
     entries = phase_kernels(resources)
     serve = phase_serve()
-    train = phase_train()
+    train, loss0 = phase_train()
+    train_main = phase_train_main(loss0)
     for entry in entries:
         name = entry["name"]
-        entry["launches"] = serve[name] + train[name]
+        entry["launches"] = serve[name] + train[name] + train_main[name]
         entry["launches_by_path"] = {"serve": serve[name],
-                                     "train": train[name]}
+                                     "train": train[name],
+                                     "train_main": train_main[name]}
         if not entry["launches"] > 0:
             fail(f"{name} was not launched on the main path")
     emit({"kernels": entries})

@@ -1,21 +1,26 @@
-"""Entry point of the port, the counterpart of ``__graft_entry__.entry``,
-and the builders that ``entry``, ``chip_smoke.py`` and the profile
-scripts share: the seeded BENCH_350M serving model (``bench_model``) and
-the BENCH_350M_TRAIN trainer with its synthetic batches
-(``bench_trainer``, ``train_loader``)."""
+"""Entry points of the port, the counterparts of ``__graft_entry__.entry``
+and ``dryrun_multichip`` (``dryrun_multigpu``), and the builders that
+``entry``, ``chip_smoke.py`` and the profile scripts share: the seeded
+BENCH_350M serving model (``bench_model``) and the BENCH_350M_TRAIN
+trainer with its synthetic batches (``bench_trainer``,
+``train_loader``)."""
 
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
 
+import math
+
 import torch
 
 from nos_tpu_torch import resolve_device
 from nos_tpu_torch.models.data import TokenLoader
-from nos_tpu_torch.models.llama import (BENCH_350M, BENCH_350M_TRAIN, Llama,
-                                        init_params)
-from nos_tpu_torch.models.train import Trainer
+from nos_tpu_torch.models.llama import (BENCH_350M, BENCH_350M_TRAIN, TINY,
+                                        Llama, init_params)
+from nos_tpu_torch.models.train import ShardedTrainer, Trainer
+from nos_tpu_torch.parallel.mesh import (MeshSpec, local_block, make_mesh,
+                                         run_ranks)
 
 # The serving run: 8 requests, 448 prompt tokens and 64 generated tokens
 # each, so the buffer that every step re-runs is 8 x 512.
@@ -85,3 +90,39 @@ def train_loader() -> TokenLoader:
         BENCH_350M_TRAIN.vocab_size,
         max(TRAIN_BATCH * TRAIN_SEQ * 8, 1 << 16), TRAIN_BATCH, TRAIN_SEQ,
         seed=0)
+
+
+def dryrun_multigpu(n_devices: int, device: str = "cuda") -> float:
+    """One full sharded training step over an n-rank mesh on tiny shapes:
+    ``MeshSpec.for_device_count(n)``, TINY with ring attention when
+    sp > 1, a batch of at least 4 rows that splits over dp x fsdp, seq 64.
+    Runs n ranks (``run_ranks``: NCCL over n cards, or gloo processes on
+    the CPU with ``device="cpu"``), checks the loss is finite and returns
+    it.  The JAX dryrun's MoE and pipeline legs wait for the port's MoE
+    and pipeline (ROADMAP.md items 16-17)."""
+    loss, spec, attn = run_ranks(_dryrun_rank, n_devices, n_devices, device,
+                                 device_type=resolve_device(device).type)[0]
+    if not math.isfinite(loss):
+        raise RuntimeError(f"dryrun_multigpu({n_devices}): non-finite loss "
+                           f"{loss}")
+    print(f"dryrun_multigpu({n_devices}): mesh={spec} attn={attn} "
+          f"loss={loss:.4f}")
+    return loss
+
+
+def _dryrun_rank(n_devices: int, device: str) -> tuple[float, dict, str]:
+    spec = MeshSpec.for_device_count(n_devices)
+    dev = resolve_device(device)
+    mesh = make_mesh(spec, dev.type)
+    cfg = dataclasses.replace(
+        TINY, attn_impl="ring" if spec.sp > 1 else "dense")
+    per_replica = spec.dp * spec.fsdp
+    batch = per_replica * max(1, -(-4 // per_replica))  # >=4, divisible
+    trainer = ShardedTrainer(cfg, mesh, batch_size=batch, seq_len=64,
+                             device=dev)
+    state = trainer.init_state(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    _, loss = trainer.train_step()(
+        state, local_block(tokens.numpy(), mesh))
+    return loss.item(), spec.shape(), cfg.attn_impl

@@ -1,1 +1,2 @@
-"""The Llama model family: model, weight conversion, generation."""
+"""The Llama family: model, weight conversion, generation, training and
+checkpoints."""

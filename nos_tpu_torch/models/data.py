@@ -3,17 +3,22 @@
 ``TokenLoader`` is a copy of the JAX package's numpy loader: fixed-shape
 [batch, seq_len] int32 windows over a flat token stream (a numpy array
 or a memmapped token file), deterministic per seed and epoch, so the
-same seed gives the same batches in both packages.  The JAX loader's
-``device_iter`` (sharded, prefetched transfer) belongs to the multi-GPU
-slice; ``Trainer.train_step`` takes the numpy batch and copies it.
+same seed gives the same batches in both packages.  ``device_iter``
+feeds a mesh: each rank gets its block of every global batch, copied to
+its device one batch ahead of the consumer.
 """
 
 from __future__ import annotations
 
+import itertools
 import pathlib
 from typing import Iterator
 
 import numpy as np
+import torch
+
+from nos_tpu_torch import resolve_device
+from nos_tpu_torch.parallel.mesh import local_block
 
 
 class TokenLoader:
@@ -78,3 +83,34 @@ class TokenLoader:
         while True:
             yield self.batch_at(step)
             step += 1
+
+    # -- device feeding -----------------------------------------------------
+    def device_iter(self, mesh=None, start_step: int = 0,
+                    num_steps: int | None = None) -> Iterator[torch.Tensor]:
+        """int32 batches on the device from ``start_step`` on (``num_steps``
+        of them, or without end): this rank's block of each global batch
+        under ``mesh`` (``parallel.mesh.local_block``: rows over dp x fsdp,
+        the sequence over sp) on the mesh's device, or the whole batch on
+        ``cuda`` without a mesh.  The next batch's copy is issued before
+        the previous one is yielded; on the card it runs from pinned
+        memory without blocking, so it overlaps the step."""
+        device = resolve_device(None if mesh is None else mesh.device_type)
+
+        def put(arr: np.ndarray) -> torch.Tensor:
+            block = arr if mesh is None else local_block(arr, mesh)
+            host = torch.from_numpy(np.ascontiguousarray(block))
+            if device.type == "cuda":
+                return host.pin_memory().to(device, non_blocking=True)
+            return host.to(device)
+
+        it = self.batches(start_step)
+        if num_steps is not None:
+            it = itertools.islice(it, num_steps)
+        pending = None
+        for arr in it:
+            nxt = put(arr)     # issue the copy before yielding the previous
+            if pending is not None:
+                yield pending
+            pending = nxt
+        if pending is not None:
+            yield pending

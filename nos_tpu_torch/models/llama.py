@@ -8,11 +8,27 @@ cast to the activation dtype per matmul, fp32 norms, rope and softmax,
 and tied-embedding logits in fp32 from activation-dtype inputs.
 
 Attention is pluggable as in the JAX model: ``"dense"``
-(``nos_tpu_torch.parallel.ring.dense_attention``) or ``"flash"`` (the
-Hopper kernels behind ``nos_tpu_torch.ops.attention.flash_attention``);
-``"ring"`` is a later slice and raises NotImplementedError.
+(``nos_tpu_torch.parallel.ring.dense_attention``), ``"flash"`` (the
+Hopper kernels behind ``nos_tpu_torch.ops.attention.flash_attention``)
+or ``"ring"`` (``ring_attention_local`` over the mesh's sp group).
 ``fused_qkv`` / ``fused_gate_up`` run one [E, H+2Hkv, D] and one [E, 2I]
 projection, as in the JAX model.
+
+Over a mesh (``Llama(cfg, mesh=...)``, a ``parallel.mesh.make_mesh``
+DeviceMesh) each rank runs its own block of the work, where the JAX
+model's arrays are global:
+
+- sp: the rank holds a sequence shard; rope takes global positions, the
+  loss's last local position predicts the next shard's first token, and
+  the loss is the sp group's sum over the global ``bsz * (seq - 1)``.
+  Only ring attention sees the other shards, so sp > 1 needs
+  ``attn_impl="ring"`` (the kernels take no causal rectangle).
+- tp: Megatron-style by hand.  q/k/v and gate/up hold the rank's output
+  rows (its heads, its share of the MLP), o and down its input columns;
+  an all-reduce over tp follows o and down, and its conjugate (identity
+  forward, all-reduce backward) comes before q/k/v and gate/up.  The
+  embedding and norm scales stay whole (``tp_slice`` cuts a full
+  ``state_dict`` to a rank's share).
 
 ``forward(tokens, targets)`` returns the chunked next-token loss
 (``_chunked_xent``).  With ``remat`` each layer is a selective
@@ -35,6 +51,7 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -43,7 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from nos_tpu_torch import resolve_device
 from nos_tpu_torch.ops.attention import (FLASH_FWD_OP, flash_attention,
                                          repeat_kv)
-from nos_tpu_torch.parallel.ring import dense_attention
+from nos_tpu_torch.parallel.ring import dense_attention, ring_attention_local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +77,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16     # activation dtype
     param_dtype: torch.dtype = torch.float32
-    attn_impl: str = "dense"      # "dense" | "flash" ("ring": later slice)
+    attn_impl: str = "dense"      # "dense" | "flash" | "ring"
     loss_chunk: int = 512
     remat: bool = True
     remat_policy: str = "nothing"
@@ -189,6 +206,85 @@ def _remat_policy(saved: frozenset[str]):
     return policy
 
 
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """A rank's place on the model's mesh axes: the tp and sp process
+    groups, their sizes and the rank's index in each (no groups, sizes 1
+    without a mesh)."""
+
+    tp_group: object = None
+    tp: int = 1
+    tp_rank: int = 0
+    sp_group: object = None
+    sp: int = 1
+    sp_rank: int = 0
+
+    @classmethod
+    def of(cls, mesh) -> "Parallel":
+        if mesh is None:
+            return cls()
+        return cls(mesh.get_group("tp"), mesh["tp"].size(),
+                   mesh["tp"].get_local_rank(), mesh.get_group("sp"),
+                   mesh["sp"].size(), mesh["sp"].get_local_rank())
+
+
+class _ToTP(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient over tp backward:
+    the input of a column-split projection."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` forward, identity backward: the
+    output of a row-split projection over tp, and the loss over sp (each
+    rank's share of the sum depends on its own parameters only)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+# The dim of each weight that tp splits: the output rows of the
+# column-split projections, the input columns of the row-split ones.
+_TP_DIMS = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1,
+            "gate_proj": 0, "up_proj": 0, "down_proj": 1}
+
+
+def tp_dim(name: str) -> int | None:
+    """The dim of parameter ``name`` that tp splits, None if it is whole."""
+    parts = name.split(".")
+    return _TP_DIMS.get(parts[-2]) if len(parts) >= 2 else None
+
+
+def tp_slice(state_dict: dict[str, torch.Tensor], tp: int, rank: int
+             ) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s share of a full ``state_dict`` under tp: the
+    rank's contiguous block of each split dim (its heads, its share of
+    the MLP), the rest whole."""
+    out = {}
+    for name, t in state_dict.items():
+        dim = tp_dim(name)
+        out[name] = t if dim is None or tp == 1 else \
+            t.chunk(tp, dim=dim)[rank].contiguous()
+    return out
+
+
 def rope_tables(positions: torch.Tensor, dim: int, theta: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [B, S, 1, dim/2], computed once per forward and
@@ -247,11 +343,14 @@ class Dense(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device: torch.device | None = None):
+    def __init__(self, cfg: LlamaConfig, device: torch.device | None = None,
+                 par: Parallel = Parallel()):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.par = cfg, par
         e, hd = cfg.hidden_size, cfg.head_dim
-        nh, nkv = cfg.num_heads, cfg.num_kv_heads
+        # this rank's heads
+        self.nh, self.nkv = cfg.num_heads // par.tp, cfg.num_kv_heads // par.tp
+        nh, nkv = self.nh, self.nkv
         args = (cfg.dtype, cfg.param_dtype, device)
         if cfg.fused_qkv:
             self.qkv_proj = Dense(e, (nh + 2 * nkv) * hd, *args,
@@ -264,9 +363,11 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, par = self.cfg, self.par
         b, s, _ = x.shape
-        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        nh, nkv, hd = self.nh, self.nkv, cfg.head_dim
+        if par.tp > 1:
+            x = _ToTP.apply(x, par.tp_group)
         if cfg.fused_qkv:
             qkv = self.qkv_proj(x).view(b, s, nh + 2 * nkv, hd)
             q, k, v = qkv[:, :, :nh], qkv[:, :, nh:nh + nkv], \
@@ -281,17 +382,21 @@ class Attention(nn.Module):
         k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
         if cfg.attn_impl == "flash":
             out = flash_attention(q, k, v, True)
+        elif cfg.attn_impl == "ring":
+            out = ring_attention_local(q, k, v, par.sp_group, causal=True)
         else:
             out = dense_attention(q, k, v, causal=True)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        out = self.o_proj(out.reshape(b, s, nh * hd))
+        return _SumOver.apply(out, par.tp_group) if par.tp > 1 else out
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device: torch.device | None = None):
+    def __init__(self, cfg: LlamaConfig, device: torch.device | None = None,
+                 par: Parallel = Parallel()):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.par = cfg, par
         args = (cfg.dtype, cfg.param_dtype, device)
-        e, i = cfg.hidden_size, cfg.intermediate_size
+        e, i = cfg.hidden_size, cfg.intermediate_size // par.tp
         if cfg.fused_gate_up:
             self.gate_up_proj = Dense(e, 2 * i, *args, "mlp_gate_up")
         else:
@@ -300,25 +405,43 @@ class MLP(nn.Module):
         self.down_proj = Dense(i, e, *args, "mlp_down")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        par = self.par
+        if par.tp > 1:
+            x = _ToTP.apply(x, par.tp_group)
         if self.cfg.fused_gate_up:
             gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
         else:
             gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+        out = self.down_proj(F.silu(gate) * up)
+        return _SumOver.apply(out, par.tp_group) if par.tp > 1 else out
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device: torch.device | None = None):
+    """One layer.  With ``remat_context`` (a selective-checkpoint context
+    factory) its body is one checkpoint region under grad, taken inside
+    the module's call, so hooks on the module (FSDP2's unshard and
+    reshard) run outside the region."""
+
+    def __init__(self, cfg: LlamaConfig, device: torch.device | None = None,
+                 par: Parallel = Parallel(), remat_context=None):
         super().__init__()
+        self.remat_context = remat_context
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, par)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, par)
+
+    def _body(self, x: torch.Tensor,
+              rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), rope)
+        return x + self.mlp(self.mlp_norm(x))
 
     def forward(self, x: torch.Tensor,
                 rope: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), rope)
-        return x + self.mlp(self.mlp_norm(x))
+        if self.remat_context is not None and torch.is_grad_enabled():
+            return checkpoint(self._body, x, rope, use_reentrant=False,
+                              context_fn=self.remat_context)
+        return self._body(x, rope)
 
 
 def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -366,27 +489,67 @@ def _chunk_loss(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
     return ((lse - ll) * (pos < seq - 1)).sum()
 
 
+def _next_tokens(tokens: torch.Tensor, par: Parallel) -> torch.Tensor:
+    """The target of each position: the token after it in the global
+    sequence.  Under sp the last local position's is the next shard's
+    first token (the global last position's is masked out)."""
+    targets = torch.roll(tokens, -1, dims=1)
+    if par.sp > 1:
+        firsts = [torch.empty_like(tokens[:, :1]) for _ in range(par.sp)]
+        dist.all_gather(firsts, tokens[:, :1].contiguous(),
+                        group=par.sp_group)
+        targets[:, -1:] = firsts[(par.sp_rank + 1) % par.sp]
+    return targets
+
+
 def _chunked_xent(x: torch.Tensor, embed: torch.Tensor, tokens: torch.Tensor,
-                  chunk: int, dtype: torch.dtype) -> torch.Tensor:
+                  chunk: int, dtype: torch.dtype,
+                  par: Parallel = Parallel()) -> torch.Tensor:
     """Next-token cross entropy with the tied head fused into the loss
     over sequence chunks, so the [B, S, vocab] fp32 logits never exist at
     once.  Each chunk is a checkpoint region: its logits are recomputed
     from the [B, chunk, E] activations in backward.  Position i predicts
     tokens[i+1]; the last position is masked out; the sum is normalised
     by bsz*(seq-1).  One chunk when seq % chunk or when there would be
-    only one (``_chunked_xent`` in nos_tpu/models/llama.py)."""
+    only one (``_chunked_xent`` in nos_tpu/models/llama.py).  Under sp,
+    x and tokens are the rank's sequence shard, positions and the
+    normaliser are global, and the result is summed over the sp group."""
     bsz, seq, _ = x.shape
     nch = seq // chunk if chunk else 1
     if nch <= 1 or seq % chunk:
         nch, chunk = 1, seq
-    targets = torch.roll(tokens, -1, dims=1)
+    targets = _next_tokens(tokens, par)
+    start, total_seq = par.sp_rank * seq, par.sp * seq
     w = embed.to(dtype)
     total = x.new_zeros((), dtype=torch.float32)
     for c in range(nch):
         sl = slice(c * chunk, (c + 1) * chunk)
         total = total + checkpoint(_chunk_loss, x[:, sl], w, targets[:, sl],
-                                   c * chunk, seq, use_reentrant=False)
-    return total / (bsz * (seq - 1))
+                                   start + c * chunk, total_seq,
+                                   use_reentrant=False)
+    total = total / (bsz * (total_seq - 1))
+    return _SumOver.apply(total, par.sp_group) if par.sp > 1 else total
+
+
+def _check_parallel(cfg: LlamaConfig, par: Parallel, mesh) -> None:
+    if cfg.attn_impl == "ring" and mesh is None:
+        raise ValueError("ring attention needs a mesh")
+    if par.sp > 1 and cfg.attn_impl != "ring":
+        raise ValueError(
+            f"sp={par.sp} needs attn_impl='ring': each rank holds a "
+            f"sequence shard, and {cfg.attn_impl!r} attention would see "
+            f"only its own")
+    if par.tp > 1:
+        if cfg.fused_qkv or cfg.fused_gate_up:
+            raise ValueError(
+                "fused_qkv / fused_gate_up under tp > 1: the split points "
+                "are not shard boundaries (nos_tpu/models/llama.py)")
+        for what in ("num_heads", "num_kv_heads", "intermediate_size"):
+            if getattr(cfg, what) % par.tp:
+                raise ValueError(f"{what}={getattr(cfg, what)} does not "
+                                 f"divide over tp={par.tp}")
+    if mesh is not None and mesh["ep"].size() > 1:
+        raise ValueError("ep > 1 needs the MoE model, not in the port yet")
 
 
 class Llama(nn.Module):
@@ -395,49 +558,50 @@ class Llama(nn.Module):
     of ``targets`` (the JAX model's ``__call__``; its trainer passes the
     tokens themselves).  Parameters are created empty on ``device``
     (``cuda`` when None); fill them with ``init_params`` or
-    ``convert.params_from_jax``."""
+    ``convert.params_from_jax`` (through ``tp_slice`` under tp).  Over
+    ``mesh`` the rank runs its block of the batch, sequence and heads
+    (see the module docstring)."""
 
     def __init__(self, cfg: LlamaConfig,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         super().__init__()
-        if cfg.attn_impl not in ("dense", "flash"):
-            raise NotImplementedError(
-                f"attn_impl {cfg.attn_impl!r}: the port has 'dense' and "
-                f"'flash' (ring attention is a later slice)")
+        if cfg.attn_impl not in ("dense", "flash", "ring"):
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; one of "
+                             f"'dense', 'flash', 'ring'")
         if cfg.remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                              f"one of {sorted(_REMAT_POLICIES)}")
+        par = Parallel.of(mesh)
+        _check_parallel(cfg, par, mesh)
         dev = resolve_device(device)
-        self.cfg = cfg
-        self._remat_context = functools.partial(
+        self.cfg, self.par = cfg, par
+        remat_context = functools.partial(
             create_selective_checkpoint_contexts,
-            _remat_policy(_REMAT_POLICIES[cfg.remat_policy]))
+            _remat_policy(_REMAT_POLICIES[cfg.remat_policy])) \
+            if cfg.remat else None
         self.embed = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype,
             device=dev))
         self.layers = nn.ModuleList(
-            Block(cfg, dev) for _ in range(cfg.num_layers))
+            Block(cfg, dev, par, remat_context)
+            for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.norm_eps, dev)
 
     def forward(self, tokens: torch.Tensor,
                 targets: torch.Tensor | None = None) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, par = self.cfg, self.par
         x = self.embed[tokens].to(cfg.dtype)
+        seq = tokens.shape[1]
         positions = torch.arange(
-            tokens.shape[1], dtype=torch.int32,
+            par.sp_rank * seq, (par.sp_rank + 1) * seq, dtype=torch.int32,
             device=tokens.device)[None].expand(tokens.shape)
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, rope, use_reentrant=False,
-                               context_fn=self._remat_context)
-            else:
-                x = layer(x, rope)
+            x = layer(x, rope)
         x = self.final_norm(x)
         if targets is not None:
             return _chunked_xent(x, self.embed, targets, cfg.loss_chunk,
-                                 cfg.dtype)
+                                 cfg.dtype, par)
         # Tied embeddings: activation-dtype inputs, fp32 logits.
         return tied_logits(x, self.embed.to(cfg.dtype))
 

@@ -1,1 +1,1 @@
-"""Reference attention (ring attention is a later slice)."""
+"""Sequence attention (dense and ring) and the device mesh."""

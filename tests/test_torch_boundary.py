@@ -69,7 +69,10 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                          timeout=120, check=True).stdout
     result = json.loads(out.strip().splitlines()[-1])
     for module in ("models.generate", "models.train", "models.data",
-                   "ops.attention", "ops.roofline", "entry"):
+                   "models.checkpoint", "ops.attention", "ops.roofline",
+                   "parallel.mesh", "parallel.ring", "api.config",
+                   "exporter.metrics", "cmd.train", "testing.ranks",
+                   "entry"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad
@@ -107,6 +110,19 @@ class TestNoQuietCPU:
             Llama(TINY)
         with pytest.raises(RuntimeError, match="CUDA"):
             init_params(TINY, torch.Generator())
+
+    def test_training_entry_points_raise(self):
+        from nos_tpu_torch.cmd.train import TrainConfig, build
+        from nos_tpu_torch.entry import dryrun_multigpu
+        from nos_tpu_torch.models.llama import TINY
+        from nos_tpu_torch.models.train import ShardedTrainer
+
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(TrainConfig(model="tiny"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ShardedTrainer(TINY, mesh=None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dryrun_multigpu(2)
 
     def test_resolve_device(self):
         assert nos_tpu_torch.resolve_device("cpu") == torch.device("cpu")

@@ -178,10 +178,11 @@ class TestTrainingOnlyOptions:
     @pytest.mark.parametrize("change", [
         {"fused_qkv": True}, {"fused_gate_up": True}, {"attn_impl": "ring"}])
     def test_refused(self, change):
-        # ring attention is still refused (a later slice); the fused
+        # ring attention builds over a mesh only (as the JAX model's
+        # needs one; tests/test_torch_ring.py runs it); the fused
         # projections now build and give the flax model's logits.
         if change.get("attn_impl") == "ring":
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(ValueError, match="needs a mesh"):
                 tl.Llama(dataclasses.replace(tl.TINY, **change), device="cpu")
             return
         got, want = logits_pair(dataclasses.replace(jl.TINY, **change))
