@@ -54,6 +54,20 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    last.  It reports ms/step, tokens/s and MFU from the main's own log
    records, save and restore times, the checkpoint's bytes and the peak
    device memory, then leaves the process group.
+7. moe: the MoE family at BENCH_350M_TRAIN's widths and depth (24
+   layers of 8 experts, top-2, capacity 1.25; flash attention, fp32
+   parameters, bf16 activations, every block rematerialised) through
+   ``make_ep_trainer`` (optax adam(1e-3)) in a one-rank NCCL group
+   (ep = 1) on the train phase's 8 x 2048 batches: a forward without
+   grad on batch 0 for the step-0 loss terms and each layer's drop rate,
+   then MOE_UNTIMED untimed and MOE_TIMED timed steps with the counts zeroed
+   just before and read just after (48 K1 + 24 K2 per step: full remat
+   replays K1).  It checks every loss for finiteness, that the loss falls
+   over the timed steps, the step-0 xent, the launches per step, two
+   gradient passes from one state bitwise under the split backward, and,
+   at a 2-layer cut on a 2 x 2048 batch, the index dispatch against the
+   einsum reference (``moe_mlp_reference``) and flash against dense
+   attention, loss and gradients.
 
 Then the kernel summary line, the card's ``name, power.limit`` and, last,
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +76,7 @@ Then the kernel summary line, the card's ``name, power.limit`` and, last,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import logging
@@ -918,6 +933,303 @@ def phase_train_main(trainer_loss0: float) -> dict[str, int]:
     return launches
 
 
+# The moe phase: untimed and timed steps; the cut's depth and batch rows.
+# From random weights optax adam(1e-3) (no warm-up, no clip) overshoots:
+# on the H100 the loss rose over the first 3 steps, to 11.42 from 10.86,
+# then came down with a spread of ~0.1 from step to step (PERF.md §6).
+# The untimed steps cover the rise; the check holds the later half of the
+# timed steps' losses, on average, below the earlier half.
+MOE_UNTIMED, MOE_TIMED = 4, 8
+MOE_CUT_LAYERS, MOE_CUT_ROWS = 2, 2
+
+
+def _moe_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one MoE step, counting the k experts each token is
+    routed to and no capacity padding: the dense model's (one SwiGLU per
+    token, ``ops.roofline.model_flops_per_step``) plus k - 1 more SwiGLUs,
+    3 D F weights each at 6 FLOPs per weight and token (forward 2,
+    backward 4).  The router's 6 T D E per layer is left out, and remat's
+    recompute is not credited."""
+    from nos_tpu_torch.ops.roofline import model_flops_per_step
+
+    extra = 6 * batch * seq * (cfg.top_k - 1) * 3 * cfg.hidden_size \
+        * cfg.intermediate_size * cfg.num_layers
+    return model_flops_per_step(cfg, batch, seq) + extra
+
+
+def _full_grads(model) -> dict[str, torch.Tensor]:
+    from torch.distributed.tensor import DTensor
+
+    return {n: (p.grad.to_local() if isinstance(p.grad, DTensor)
+                else p.grad).detach().clone()
+            for n, p in model.named_parameters()}
+
+
+def _moe_pass(model, tokens, impl: str = "fused") -> tuple[float, dict]:
+    """One loss-and-gradient pass of ``moe_loss`` (no update)."""
+    from nos_tpu_torch.models.moe import moe_loss
+    from nos_tpu_torch.ops import attention as A
+
+    for p in model.parameters():
+        p.grad = None
+    prev = A.set_backward_impl(impl)
+    try:
+        loss = moe_loss(model, tokens)
+        loss.backward()
+    finally:
+        A.set_backward_impl(prev)
+    return loss.item(), _full_grads(model)
+
+
+# One MoE layer, index dispatch against the einsum reference on the same
+# input and output cotangent: the same routing and roundings but for the
+# order of fp32 sums (cuBLAS's bf16 products against fp32 einsums), so a
+# few bf16 ulps of each output's largest |value|.
+MOE_LAYER_TOL = 1e-2
+
+
+def _moe_layer_check(moe, x: torch.Tensor, dy: torch.Tensor) -> float:
+    """max over y, dx and the layer's parameter gradients of |index -
+    einsum| / max |einsum| for one MoE layer on input x, cotangent dy."""
+    from nos_tpu_torch.models.moe import MoEMLP, moe_mlp_reference
+
+    outs = []
+    for fn in (functools.partial(MoEMLP.forward, moe),
+               functools.partial(moe_mlp_reference, moe)):
+        moe.zero_grad(set_to_none=True)
+        xx = x.clone().requires_grad_()
+        y, aux = fn(xx)
+        ((y.float() * dy.float()).sum() + aux).backward()
+        outs.append([y.detach(), xx.grad] + [p.grad.clone()
+                                            for p in moe.parameters()])
+    return max(_rel_err(a, b) for a, b in zip(*outs))
+
+
+def _moe_cut(loader) -> dict:
+    """At MOE_CUT_LAYERS layers on MOE_CUT_ROWS x 2048 tokens, without a
+    mesh, on one set of parameters: the flash model's loss against the
+    einsum reference's, each layer's index dispatch against the reference
+    on the layer's own input and cotangent from that pass, and flash
+    against dense attention with the dense pass replaying the flash
+    pass's expert choices.  (A bf16 rounding in an early layer can flip
+    a near-tied choice in a later one, and a flipped token's output
+    changes wholly: end-to-end gradients of two MoE models differ by
+    routing, not by the numerics under test.)"""
+    from nos_tpu_torch.entry import bench_moe_config
+    from nos_tpu_torch.models.moe import (MoELlama, init_moe_params,
+                                          moe_mlp_reference)
+
+    cfg = bench_moe_config(MOE_CUT_LAYERS)
+    params = init_moe_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    tokens = torch.from_numpy(loader.batch_at(0)[:MOE_CUT_ROWS]).cuda()
+
+    def model(attn):
+        m = MoELlama(dataclasses.replace(cfg, attn_impl=attn), "cuda")
+        m.load_state_dict(params)
+        return m
+
+    # The flash pass, recording each layer's first (forward) routing,
+    # input and output cotangent; backward's recompute is not recorded.
+    flash, seen = model("flash"), [{} for _ in range(MOE_CUT_LAYERS)]
+    for layer, rec in zip(flash.layers, seen):
+        route, forward = layer.moe.route, layer.moe.forward
+
+        def recording_route(x, route=route, rec=rec):
+            r = route(x)
+            rec.setdefault("routing", dataclasses.replace(
+                r, probs=r.probs.detach(), gates=r.gates.detach()))
+            return r
+
+        def recording_forward(x, forward=forward, rec=rec):
+            y, aux = forward(x)
+            if "x" not in rec:
+                rec["x"] = x.detach()
+                y.register_hook(lambda g: rec.setdefault("dy", g))
+            return y, aux
+
+        layer.moe.route, layer.moe.forward = recording_route, recording_forward
+    loss_f, g_f = _moe_pass(flash, tokens)
+    del flash
+
+    einsum = model("flash")
+    for layer in einsum.layers:
+        layer.moe.forward = functools.partial(moe_mlp_reference, layer.moe)
+    loss_e = _moe_pass(einsum, tokens)[0]
+    layer_errs = [_moe_layer_check(layer.moe, rec["x"], rec["dy"])
+                  for layer, rec in zip(einsum.layers, seen)]
+    del einsum
+
+    dense = model("dense")
+    for layer, rec in zip(dense.layers, seen):
+        def replayed_route(x, moe=layer.moe, r=rec["routing"]):
+            # the recorded choices, gated by this model's own router
+            probs = torch.softmax(moe.router(x.reshape(-1, x.shape[-1])),
+                                  dim=-1)
+            vals = probs.gather(1, r.expert)
+            return dataclasses.replace(r, probs=probs, gates=vals / torch.clamp(
+                vals.sum(-1, keepdim=True), min=1e-9))
+
+        layer.moe.route = replayed_route
+    loss_d, g_d = _moe_pass(dense, tokens)
+    del dense
+    dense_err, dense_worst = _worst_grad_err(g_f, g_d)
+    out = {"layers": MOE_CUT_LAYERS, "rows": MOE_CUT_ROWS,
+           "loss_flash_index": loss_f, "loss_flash_einsum": loss_e,
+           "loss_dense_replayed": loss_d,
+           "layer_rel_index_vs_einsum": layer_errs,
+           "grad_rel_flash_vs_dense": dense_err,
+           "worst_param_flash_vs_dense": dense_worst,
+           "loss_tol": CUT_LOSS_TOL, "layer_tol": MOE_LAYER_TOL,
+           "grad_tol": CUT_GRAD_TOL}
+    if not (abs(loss_f - loss_e) <= CUT_LOSS_TOL
+            and max(layer_errs) <= MOE_LAYER_TOL):
+        fail(f"{MOE_CUT_LAYERS}-layer MoE index dispatch vs einsum: {out}")
+    if not (abs(loss_f - loss_d) <= CUT_LOSS_TOL
+            and dense_err <= CUT_GRAD_TOL):
+        fail(f"{MOE_CUT_LAYERS}-layer MoE flash vs dense: {out}")
+    return out
+
+
+def phase_moe() -> dict[str, int]:
+    import torch.distributed as dist
+
+    from nos_tpu_torch.entry import (TRAIN_BATCH, TRAIN_SEQ,
+                                     bench_moe_trainer, moe_launches_per_step,
+                                     train_loader)
+    from nos_tpu_torch.models.moe import capacity
+    from nos_tpu_torch.ops import attention as A
+    from nos_tpu_torch.ops.roofline import peaks_for
+
+    _release()
+    if A.set_backward_impl("fused") != "fused":
+        fail("the default flash backward is not the fused one")
+    state, step = bench_moe_trainer("cuda")
+    model, cfg = state.model, state.model.cfg
+    if not (dist.get_world_size() == 1 and dist.get_backend() == "nccl"):
+        fail("the MoE trainer did not run in a one-rank NCCL group")
+    per_step = moe_launches_per_step(cfg)
+    loader = train_loader()
+
+    # Step 0's loss terms, and each layer's share of (token, choice)
+    # pairs over capacity, from a forward without grad.
+    drops: list[float] = []
+
+    def record_drops(moe, args, _out):
+        drops.append(1.0 - moe.route(args[0]).kept.float().mean().item())
+
+    hooks = [layer.moe.register_forward_hook(record_drops)
+             for layer in model.layers]
+    batch0 = torch.from_numpy(loader.batch_at(0)).cuda()
+    with torch.no_grad():
+        xent0, aux0 = model.loss_terms(batch0, batch0)
+    for h in hooks:
+        h.remove()
+    xent0, aux0, drops0 = xent0.item(), aux0.tolist(), list(drops)
+    # The same random-weight argument as the train phase: the final norm
+    # and the tied embedding are the dense model's.
+    if not abs(xent0 - EXPECTED_LOSS0) <= LOSS0_TOL:
+        fail(f"MoE step-0 xent {xent0}, expected {EXPECTED_LOSS0} +- "
+             f"{LOSS0_TOL}")
+
+    losses, step_launches = [], []
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    for i in range(MOE_UNTIMED):
+        before = _launch_counts()
+        state, loss = step(state, loader.batch_at(i))
+        losses.append(loss.item())
+        step_launches.append({k: v - before[k]
+                              for k, v in _launch_counts().items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(MOE_TIMED + 1)]
+    timed = []
+    t0 = time.perf_counter()
+    marks[0].record()
+    for j in range(MOE_TIMED):
+        state, loss = step(state, loader.batch_at(MOE_UNTIMED + j))
+        timed.append(loss)
+        marks[j + 1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / MOE_TIMED * 1e3
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses += [x.item() for x in timed]
+    _check_launches("the moe run", launches, {
+        k: (MOE_UNTIMED + MOE_TIMED) * v for k, v in per_step.items()})
+    for i, got in enumerate(step_launches):
+        _check_launches(f"moe step {i}", got, per_step)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite MoE loss: {losses}")
+    # Training must make progress over the timed steps (a sign error or a
+    # dead gradient path would not): see MOE_UNTIMED.
+    half = MOE_TIMED // 2
+    early = statistics.mean(losses[MOE_UNTIMED:MOE_UNTIMED + half])
+    late = statistics.mean(losses[MOE_UNTIMED + half:])
+    if not late < early:
+        fail(f"the MoE loss did not fall over the timed steps: mean "
+             f"{early} then {late}; {losses}")
+    # The loss terms and drop rates after training, on batch 0.
+    drops.clear()
+    hooks = [layer.moe.register_forward_hook(record_drops)
+             for layer in model.layers]
+    with torch.no_grad():
+        xent_end, aux_end = model.loss_terms(batch0, batch0)
+    for h in hooks:
+        h.remove()
+    # shard FSDP2's root again before the next backward (as the step does)
+    model.reshard()
+    end = {"xent": xent_end.item(), "aux_per_layer": aux_end.tolist(),
+           "drop_rate_per_layer": list(drops)}
+
+    # Two passes from one state: the index path adds no atomics, so under
+    # the split backward the gradients repeat bitwise.
+    batch = torch.from_numpy(loader.batch_at(0)).cuda()
+    loss_a, g_a = _moe_pass(model, batch, "split")
+    loss_b, g_b = _moe_pass(model, batch, "split")
+    bitwise = loss_a == loss_b and all(torch.equal(g_a[n], g_b[n])
+                                       for n in g_a)
+    repeat_err, repeat_worst = _worst_grad_err(g_b, g_a)
+    del g_a, g_b
+    if not bitwise:
+        fail(f"two split MoE passes from one state differ: losses {loss_a}"
+             f", {loss_b}; gradients {repeat_err} at {repeat_worst}")
+    param_count = sum(p.numel() for p in model.parameters())
+    del state, step, model
+    _release()
+    cut = _moe_cut(loader)
+    dist.destroy_process_group()
+    _release()
+
+    ms = statistics.median(step_ms)
+    flops = _moe_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    peak_flops = peaks_for(torch.cuda.get_device_name(0))[0]
+    emit({"phase": "moe", "model": "MoE at BENCH_350M_TRAIN widths",
+          "layers": cfg.num_layers, "experts": cfg.num_experts,
+          "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+          "param_count": param_count, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ,
+          "steps": {"untimed": MOE_UNTIMED, "timed": MOE_TIMED},
+          "ms_per_step": ms, "stream_ms_per_step": step_ms,
+          "host_ms_per_step": host_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+          "active_flops_per_step": flops, "peak_flops": peak_flops,
+          "mfu": flops / (ms * 1e-3) / peak_flops,
+          "peak_mem_bytes": peak, "losses": losses,
+          "xent0": xent0, "expected_loss0": EXPECTED_LOSS0,
+          "loss0_tol": LOSS0_TOL, "aux0_per_layer": aux0,
+          "drop_rate_per_layer": drops0,
+          "loss_mean_early_late": [early, late], "after_training": end,
+          "capacity": capacity(cfg, TRAIN_BATCH * TRAIN_SEQ),
+          "launches": launches, "launches_per_step": per_step,
+          "repeat_split": {"losses": [loss_a, loss_b], "bitwise": bitwise},
+          "cut": cut})
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -929,12 +1241,14 @@ def main() -> int:
     serve = phase_serve()
     train, loss0 = phase_train()
     train_main = phase_train_main(loss0)
+    moe = phase_moe()
     for entry in entries:
         name = entry["name"]
-        entry["launches"] = serve[name] + train[name] + train_main[name]
         entry["launches_by_path"] = {"serve": serve[name],
                                      "train": train[name],
-                                     "train_main": train_main[name]}
+                                     "train_main": train_main[name],
+                                     "moe": moe[name]}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         if not entry["launches"] > 0:
             fail(f"{name} was not launched on the main path")
     emit({"kernels": entries})

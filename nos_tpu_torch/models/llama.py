@@ -208,7 +208,7 @@ def _remat_policy(saved: frozenset[str]):
 
 @dataclasses.dataclass(frozen=True)
 class Parallel:
-    """A rank's place on the model's mesh axes: the tp and sp process
+    """A rank's place on the model's mesh axes: the tp, sp and ep process
     groups, their sizes and the rank's index in each (no groups, sizes 1
     without a mesh)."""
 
@@ -218,14 +218,16 @@ class Parallel:
     sp_group: object = None
     sp: int = 1
     sp_rank: int = 0
+    ep_group: object = None
+    ep: int = 1
+    ep_rank: int = 0
 
     @classmethod
     def of(cls, mesh) -> "Parallel":
         if mesh is None:
             return cls()
-        return cls(mesh.get_group("tp"), mesh["tp"].size(),
-                   mesh["tp"].get_local_rank(), mesh.get_group("sp"),
-                   mesh["sp"].size(), mesh["sp"].get_local_rank())
+        return cls(*(x for ax in ("tp", "sp", "ep") for x in (
+            mesh.get_group(ax), mesh[ax].size(), mesh[ax].get_local_rank())))
 
 
 class _ToTP(torch.autograd.Function):
@@ -261,14 +263,25 @@ class _SumOver(torch.autograd.Function):
 
 
 # The dim of each weight that tp splits: the output rows of the
-# column-split projections, the input columns of the row-split ones.
+# column-split projections, the input columns of the row-split ones, and
+# the MLP dim of the MoE experts' stacked [E, D, F] / [E, F, D] weights.
 _TP_DIMS = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1,
             "gate_proj": 0, "up_proj": 0, "down_proj": 1}
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+_TP_EXPERT_DIMS = dict(zip(EXPERT_WEIGHTS, (2, 2, 1)))
+
+
+def is_expert(name: str) -> bool:
+    """Whether parameter ``name`` is an MoE layer's stacked expert
+    weight (split over ep on dim 0)."""
+    return name.rsplit(".", 1)[-1] in EXPERT_WEIGHTS
 
 
 def tp_dim(name: str) -> int | None:
     """The dim of parameter ``name`` that tp splits, None if it is whole."""
     parts = name.split(".")
+    if parts[-1] in _TP_EXPERT_DIMS:
+        return _TP_EXPERT_DIMS[parts[-1]]
     return _TP_DIMS.get(parts[-2]) if len(parts) >= 2 else None
 
 
@@ -282,6 +295,18 @@ def tp_slice(state_dict: dict[str, torch.Tensor], tp: int, rank: int
         dim = tp_dim(name)
         out[name] = t if dim is None or tp == 1 else \
             t.chunk(tp, dim=dim)[rank].contiguous()
+    return out
+
+
+def ep_slice(state_dict: dict[str, torch.Tensor], ep: int, rank: int
+             ) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s share of a full MoE ``state_dict`` under ep: its
+    contiguous block of the experts (dim 0 of the stacked expert
+    weights), the rest whole."""
+    out = {}
+    for name, t in state_dict.items():
+        out[name] = t.chunk(ep, dim=0)[rank].contiguous() \
+            if is_expert(name) and ep > 1 else t
     return out
 
 
@@ -532,6 +557,9 @@ def _chunked_xent(x: torch.Tensor, embed: torch.Tensor, tokens: torch.Tensor,
 
 
 def _check_parallel(cfg: LlamaConfig, par: Parallel, mesh) -> None:
+    if cfg.attn_impl not in ("dense", "flash", "ring"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; one of "
+                         f"'dense', 'flash', 'ring'")
     if cfg.attn_impl == "ring" and mesh is None:
         raise ValueError("ring attention needs a mesh")
     if par.sp > 1 and cfg.attn_impl != "ring":
@@ -548,8 +576,6 @@ def _check_parallel(cfg: LlamaConfig, par: Parallel, mesh) -> None:
             if getattr(cfg, what) % par.tp:
                 raise ValueError(f"{what}={getattr(cfg, what)} does not "
                                  f"divide over tp={par.tp}")
-    if mesh is not None and mesh["ep"].size() > 1:
-        raise ValueError("ep > 1 needs the MoE model, not in the port yet")
 
 
 class Llama(nn.Module):
@@ -565,14 +591,15 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig,
                  device: str | torch.device | None = None, mesh=None):
         super().__init__()
-        if cfg.attn_impl not in ("dense", "flash", "ring"):
-            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; one of "
-                             f"'dense', 'flash', 'ring'")
         if cfg.remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                              f"one of {sorted(_REMAT_POLICIES)}")
         par = Parallel.of(mesh)
         _check_parallel(cfg, par, mesh)
+        if par.ep > 1:
+            raise ValueError(
+                f"ep={par.ep} shards experts, and a Llama has none: use "
+                f"models.moe.MoELlama")
         dev = resolve_device(device)
         self.cfg, self.par = cfg, par
         remat_context = functools.partial(
@@ -618,6 +645,52 @@ class Llama(nn.Module):
                 + cfg.num_layers * per_layer + cfg.hidden_size)
 
 
+class Draws:
+    """flax's initializer distributions on an explicit generator: values
+    drawn in fp32 on the generator's device, then cast on ``device``."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device):
+        self.generator, self.device = generator, device
+
+    def _draw(self, shape, fill, dtype: torch.dtype) -> torch.Tensor:
+        t = torch.empty(shape, dtype=torch.float32,
+                        device=self.generator.device)
+        fill(t)
+        return t.to(device=self.device, dtype=dtype)
+
+    def normal(self, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+        return self._draw(shape, lambda t: t.normal_(
+            0.0, std, generator=self.generator), dtype)
+
+    def lecun(self, shape, fan_in: int, dtype: torch.dtype) -> torch.Tensor:
+        """flax lecun_normal: a truncated normal on [-2, 2] std, rescaled
+        so the truncated draw keeps variance 1/fan_in."""
+        std = math.sqrt(1.0 / fan_in) / .87962566103423978
+        return self._draw(shape, lambda t: nn.init.trunc_normal_(
+            t, 0.0, std, -2 * std, 2 * std, generator=self.generator), dtype)
+
+    def ones(self, dim: int) -> torch.Tensor:
+        return torch.ones(dim, dtype=torch.float32, device=self.device)
+
+
+def init_attention(sd: dict[str, torch.Tensor], prefix: str,
+                   cfg: LlamaConfig, draws: Draws) -> None:
+    """One layer's attention norm and projections into ``sd``."""
+    e, hd, pd = cfg.hidden_size, cfg.head_dim, cfg.param_dtype
+    sd[prefix + "attn_norm.scale"] = draws.ones(e)
+    if cfg.fused_qkv:
+        sd[prefix + "attn.qkv_proj.weight"] = draws.lecun(
+            ((cfg.num_heads + 2 * cfg.num_kv_heads) * hd, e), e, pd)
+    else:
+        sd[prefix + "attn.q_proj.weight"] = draws.lecun(
+            (cfg.num_heads * hd, e), e, pd)
+        for proj in ("k_proj", "v_proj"):
+            sd[prefix + f"attn.{proj}.weight"] = draws.lecun(
+                (cfg.num_kv_heads * hd, e), e, pd)
+    sd[prefix + "attn.o_proj.weight"] = draws.lecun(
+        (e, cfg.num_heads * hd), cfg.num_heads * hd, pd)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: str | torch.device | None = None
                 ) -> dict[str, torch.Tensor]:
@@ -627,44 +700,18 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     drawn in fp32 on the generator's device, then cast to the parameter
     dtype on ``device`` (``cuda`` when None).  The bits do not match
     flax's."""
-    dev = resolve_device(device)
-    gen_dev = generator.device
-
-    def draw(shape, fill):
-        t = torch.empty(shape, dtype=torch.float32, device=gen_dev)
-        fill(t)
-        return t.to(device=dev, dtype=cfg.param_dtype)
-
-    def lecun(out_f, in_f):
-        # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so
-        # the truncated draw keeps variance 1/fan_in.
-        std = math.sqrt(1.0 / in_f) / .87962566103423978
-        return draw((out_f, in_f), lambda t: nn.init.trunc_normal_(
-            t, 0.0, std, -2 * std, 2 * std, generator=generator))
-
-    def ones():
-        return torch.ones(cfg.hidden_size, dtype=torch.float32, device=dev)
-
-    e, hd, i = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
-    sd = {"embed": draw((cfg.vocab_size, e), lambda t: t.normal_(
-        0.0, 0.02, generator=generator))}
+    draws = Draws(generator, resolve_device(device))
+    e, i, pd = cfg.hidden_size, cfg.intermediate_size, cfg.param_dtype
+    sd = {"embed": draws.normal((cfg.vocab_size, e), 0.02, pd)}
     for n in range(cfg.num_layers):
         p = f"layers.{n}."
-        sd[p + "attn_norm.scale"] = ones()
-        if cfg.fused_qkv:
-            sd[p + "attn.qkv_proj.weight"] = lecun(
-                (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, e)
-        else:
-            sd[p + "attn.q_proj.weight"] = lecun(cfg.num_heads * hd, e)
-            sd[p + "attn.k_proj.weight"] = lecun(cfg.num_kv_heads * hd, e)
-            sd[p + "attn.v_proj.weight"] = lecun(cfg.num_kv_heads * hd, e)
-        sd[p + "attn.o_proj.weight"] = lecun(e, cfg.num_heads * hd)
-        sd[p + "mlp_norm.scale"] = ones()
+        init_attention(sd, p, cfg, draws)
+        sd[p + "mlp_norm.scale"] = draws.ones(e)
         if cfg.fused_gate_up:
-            sd[p + "mlp.gate_up_proj.weight"] = lecun(2 * i, e)
+            sd[p + "mlp.gate_up_proj.weight"] = draws.lecun((2 * i, e), e, pd)
         else:
-            sd[p + "mlp.gate_proj.weight"] = lecun(i, e)
-            sd[p + "mlp.up_proj.weight"] = lecun(i, e)
-        sd[p + "mlp.down_proj.weight"] = lecun(e, i)
-    sd["final_norm.scale"] = ones()
+            sd[p + "mlp.gate_proj.weight"] = draws.lecun((i, e), e, pd)
+            sd[p + "mlp.up_proj.weight"] = draws.lecun((i, e), e, pd)
+        sd[p + "mlp.down_proj.weight"] = draws.lecun((e, i), i, pd)
+    sd["final_norm.scale"] = draws.ones(e)
     return sd

@@ -313,6 +313,10 @@ class ShardedTrainer:
     def _step(self, state: TrainState, tokens) -> tuple[TrainState,
                                                          torch.Tensor]:
         model = state.model
+        # A forward without grad (``forward()``) leaves FSDP2's root
+        # parameters unsharded, and the next backward then reduces the
+        # root's gradients (embed, final_norm) wrong: start sharded.
+        model.reshard()
         for p in model.parameters():
             p.grad = None
         tokens = _on_device(tokens, self.device)

@@ -8,7 +8,8 @@ The same five named axes as the JAX package:
 - ``fsdp`` — data parallelism with sharded parameters and optimizer state
 - ``tp``   — tensor parallelism, Megatron-style within attention and MLP
 - ``sp``   — sequence parallelism (ring attention, ``parallel/ring.py``)
-- ``ep``   — expert parallelism (MoE; not in the port yet, so ep = 1)
+- ``ep``   — expert parallelism (MoE experts split across ranks,
+  ``models/moe.py``)
 
 ``MeshSpec``, ``AXES`` and ``factorize_pow2`` are copies of the JAX
 module's.  ``make_mesh`` builds a ``DeviceMesh`` over the ranks of the
@@ -54,6 +55,11 @@ DEFAULT_RULES = (
     ("embed [vocab, embed]", "whole over tp (the JAX rules split vocab "
      "over tp: the same loss, more memory)"),
     ("norm scales, head_dim, layers", "whole"),
+    ("MoE experts w_gate, w_up [E, D, F], w_down [E, F, D]",
+     "E over ep, F over tp; dim 0 of each rank's share over (fsdp, sp) by "
+     "FSDP2 (not over ep), replicated over dp"),
+    ("MoE router [E, D]", "whole over tp and ep (every ep rank routes "
+     "the same tokens)"),
 )
 
 

@@ -17,9 +17,11 @@ from torch.distributed.tensor import DTensor
 
 from nos_tpu_torch.models.checkpoint import TrainCheckpointer
 from nos_tpu_torch.models.data import TokenLoader
+from nos_tpu_torch.models.moe import make_ep_trainer
 from nos_tpu_torch.models.train import DefaultOptimizer, ShardedTrainer
 from nos_tpu_torch.parallel.mesh import (MeshSpec, local_block, make_mesh,
                                          mesh_spec)
+from nos_tpu_torch.parallel.pipeline import pipeline_apply
 from nos_tpu_torch.parallel.ring import ring_attention_local
 
 
@@ -254,3 +256,121 @@ def train_main_scenarios(directory: str, base: dict) -> dict:
         out[name] = {"loss": loss, "progress": fracs,
                      "latest": TrainCheckpointer(d).latest_step()}
     return out
+
+
+def forward_between_steps(which: str, spec_text: str, cfg) -> bool:
+    """Whether two steps on one batch leave the same parameters with and
+    without a forward without grad between them, for ``which`` trainer
+    ("sharded": ``ShardedTrainer``, "ep": ``make_ep_trainer``)."""
+    mesh = make_mesh(MeshSpec.parse(spec_text), "cpu")
+    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 32),
+                                              dtype=np.int32)
+    block = local_block(batch, mesh)
+    params = []
+    for forward in (False, True):
+        if which == "sharded":
+            trainer = ShardedTrainer(cfg, mesh, batch_size=4, seq_len=32,
+                                     device="cpu")
+            state, step = trainer.init_state(0), trainer.train_step()
+            for i in range(2):
+                if forward and i:
+                    trainer.forward()(state, block)
+                state, _ = step(state, block)
+            params.append(trainer.full_params(state))
+        else:
+            state, step = make_ep_trainer(cfg, mesh, batch, device="cpu")
+            for i in range(2):
+                if forward and i:
+                    with torch.no_grad():
+                        state.model(torch.from_numpy(block))
+                state, _ = step(state, batch)
+            params.append(state.full())
+    return all(torch.equal(params[0][n], params[1][n]) for n in params[0])
+
+
+# -- mixture of experts --------------------------------------------------------
+
+def ep_trainer_steps(cases) -> list[dict]:
+    """``make_ep_trainer`` on each mesh of ``cases`` ((spec_text, cfg,
+    state_dict, batches) each, world-size meshes of the default group),
+    from the full ``state_dict``: the loss of each global batch, the
+    gradients of the first step and the parameters after the last, all
+    whole."""
+    out = []
+    for spec_text, cfg, state_dict, batches in cases:
+        mesh = make_mesh(MeshSpec.parse(spec_text), "cpu")
+        state, step = make_ep_trainer(cfg, mesh, batches[0], device="cpu",
+                                      params=state_dict)
+        losses, grads0 = [], None
+        for b in batches:
+            state, loss = step(state, b)
+            losses.append(loss.item())
+            if grads0 is None:
+                grads0 = _numpy(state.full(grads=True))
+        out.append({"losses": losses, "step": state.step, "grads0": grads0,
+                    "params": _numpy(state.full())})
+    return out
+
+
+# -- pipeline ------------------------------------------------------------------
+
+def mlp_stage(params, x):
+    """``tests/test_pipeline.py``'s stage: tanh(x w1 + b1) w2 + b2."""
+    h = torch.tanh(x @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
+
+
+def _stage(stacked, i: int):
+    return torch.utils._pytree.tree_map(lambda p: p[i].clone(), stacked)
+
+
+def pipeline_cases(stacked, x: np.ndarray, counts, grad_count: int | None,
+                   indivisible: int | None) -> dict:
+    """``pipeline_apply`` of ``mlp_stage`` over the default group as pp,
+    each rank taking its stage of ``stacked``: the output for each
+    microbatch count of ``counts``; with ``grad_count``, the gradients
+    of sum(y^2) with respect to this rank's stage and to x; with
+    ``indivisible``, the error for that microbatch count."""
+    stage = _stage(stacked, dist.get_rank())
+    xt = torch.from_numpy(x)
+    out = {"y": {m: pipeline_apply(dist.group.WORLD, mlp_stage, stage, xt, m
+                                   ).numpy() for m in counts}}
+    if grad_count is not None:
+        params = {k: v.requires_grad_() for k, v in stage.items()}
+        xg = xt.clone().requires_grad_()
+        y = pipeline_apply(dist.group.WORLD, mlp_stage, params, xg,
+                           grad_count)
+        (y ** 2).sum().backward()
+        out["grads"] = {k: v.grad.numpy() for k, v in params.items()}
+        out["dx"] = xg.grad.numpy()
+    if indivisible is not None:
+        try:
+            pipeline_apply(dist.group.WORLD, mlp_stage, stage, xt,
+                           indivisible)
+            out["indivisible"] = None
+        except ValueError as e:
+            out["indivisible"] = str(e)
+    return out
+
+
+def pipeline_blocks(cfg, stacked, x: np.ndarray, microbatches: int
+                    ) -> np.ndarray:
+    """Llama ``Block``s over the default group as pp: ``stacked`` holds
+    each stage's layers' state dicts (a leading stage axis, then one
+    entry per layer); every rank returns the pipeline's output."""
+    from nos_tpu_torch.models.llama import Block, rope_tables
+
+    block = Block(cfg, "cpu")
+    xt = torch.from_numpy(x)
+    positions = torch.arange(x.shape[1], dtype=torch.int32)[None]
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    def stage_fn(params, act):
+        for layer in params:
+            act = torch.func.functional_call(block, layer, (act, rope))
+        return act
+
+    with torch.no_grad():
+        return pipeline_apply(dist.group.WORLD, stage_fn,
+                              _stage(stacked, dist.get_rank()), xt,
+                              microbatches).numpy()

@@ -45,6 +45,7 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
         ROOT / "scripts" / "profile_torch_train.py",
+        ROOT / "scripts" / "profile_torch_moe.py",
         ROOT / "scripts" / "ab_flash_kernel.py"]
 
 
@@ -69,10 +70,10 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                          timeout=120, check=True).stdout
     result = json.loads(out.strip().splitlines()[-1])
     for module in ("models.generate", "models.train", "models.data",
-                   "models.checkpoint", "ops.attention", "ops.roofline",
-                   "parallel.mesh", "parallel.ring", "api.config",
-                   "exporter.metrics", "cmd.train", "testing.ranks",
-                   "entry"):
+                   "models.checkpoint", "models.moe", "ops.attention",
+                   "ops.roofline", "parallel.mesh", "parallel.ring",
+                   "parallel.pipeline", "api.config", "exporter.metrics",
+                   "cmd.train", "testing.ranks", "entry"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad
@@ -123,6 +124,21 @@ class TestNoQuietCPU:
             ShardedTrainer(TINY, mesh=None)
         with pytest.raises(RuntimeError, match="CUDA"):
             dryrun_multigpu(2)
+
+    def test_moe_entry_points_raise(self):
+        from nos_tpu_torch.entry import bench_moe_trainer
+        from nos_tpu_torch.models.moe import (TINY_MOE, MoELlama,
+                                              init_moe_params,
+                                              make_ep_trainer)
+
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MoELlama(TINY_MOE)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_moe_params(TINY_MOE, torch.Generator())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_ep_trainer(TINY_MOE, mesh=None, example_tokens=None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench_moe_trainer()
 
     def test_resolve_device(self):
         assert nos_tpu_torch.resolve_device("cpu") == torch.device("cpu")

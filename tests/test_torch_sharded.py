@@ -160,3 +160,13 @@ class TestDeviceIter:
         with pytest.raises(RuntimeError, match="CUDA"):
             next(loader.device_iter())
 
+
+
+@pytest.mark.parametrize("spec_text", ["fsdp=1", "fsdp=2"])
+def test_a_forward_between_steps_changes_nothing(spec_text):
+    # FSDP2 leaves the root's parameters unsharded after a forward
+    # without grad; the step reshards first, or the next backward would
+    # reduce the root's gradients (embed, final_norm) wrong
+    assert all(run_ranks(ranks.forward_between_steps, TMeshSpec.parse(
+        spec_text).size, "sharded", spec_text, port_cfg(jl.TINY),
+        timeout=120))

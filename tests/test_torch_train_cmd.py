@@ -206,12 +206,18 @@ class TestConfigAndGauges:
 
 @pytest.mark.parametrize("n,mesh", [
     (2, "'tp': 2, 'sp': 1"), (4, "'tp': 2, 'sp': 2"),
-    (6, "'dp': 3, 'fsdp': 1, 'tp': 1, 'sp': 2")])   # 6: the dp >= 2 leg
+    (6, "'dp': 3, 'fsdp': 1, 'tp': 1, 'sp': 2"),    # 6: the dp >= 2 leg
+    (8, "'dp': 1, 'fsdp': 2, 'tp': 2, 'sp': 2")])   # 8: the MoE, pp legs
 def test_dryrun_multigpu(n, mesh, capsys):
     loss = dryrun_multigpu(n, device="cpu")
     assert math.isfinite(loss)
     out = capsys.readouterr().out
     assert f"dryrun_multigpu({n})" in out and mesh in out
+    # the MoE and pipeline legs run when n is a multiple of 8
+    legs = (f"dryrun_multigpu({n}): moe mesh={{'dp': 1, 'fsdp': 2, "
+            f"'tp': 1, 'sp': 2, 'ep': 2}} experts=4",
+            "dryrun_multigpu: pipeline pp=4 microbatches=4")
+    assert all((leg in out) == (n == 8) for leg in legs), out
 
 
 def test_dryrun_multigpu_needs_the_card_unless_asked(monkeypatch):
