@@ -8,21 +8,30 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    versions; TF32 is switched off for fp32 matmuls and convolutions.
 2. build: nvcc builds every kernel in nos_tpu_torch/ops/csrc/ (all
    sources at once) into nos_tpu_torch/_kernels/, and reports each
-   kernel's ptxas registers and spill bytes.
-3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, with the stated tolerances: the forward (K1) at the serving
-   shape, and the fused backward (K2), the dq kernel (K3) and the dk/dv
-   kernel (K4) at the training shape, at S 1, 65, 127, 128, 129 and 200
-   causal and not (the edges of the 64- and 128-row tiles), and on
-   strided views; two launches each of K3 and K4 at the training shape
-   must agree bitwise.  Kernel, plain and library times (CUDA events,
-   median of several samples of back-to-back launches) at the serving
-   shape for K1 and at the training shape for all four, and each bound
-   from the card's published peaks (nos_tpu_torch.ops.roofline).  Then a
-   timing-only long-context row, B1 S32768 H8 causal, where the split
-   pair is the backward ``backward_impl`` picks: K2, K3, K4 and the SDPA
-   backward timed, split held against fused (the plain versions would
-   need 34 GB of fp32 scores there).
+   compiled tile's ptxas registers and spill bytes.
+3. kernels: each kernel's wrapper at every tile it is compiled for
+   (``ops.attention.KERNEL_TILES``; TILES below) against its plain
+   PyTorch version on the card, with the stated tolerances: the forward
+   (K1) at the serving shape, and the fused backward (K2), the dq kernel
+   (K3) and the dk/dv kernel (K4) at the training shape, at S 1, 63, 64,
+   65, 127, 128, 129 and 200 causal and not (the edges of the 64- and
+   128-row tiles), and on strided views; two launches of each tile of K3
+   and K4 at the training shape must agree bitwise.  Kernel, plain and
+   library times (CUDA events, median of several samples of
+   back-to-back launches) of every tile at the serving and the training
+   shape, and each bound from the card's published peaks
+   (nos_tpu_torch.ops.roofline).  Then a timing-only long-context row,
+   B1 S32768 H8 causal, where the split pair is the backward
+   ``backward_impl`` picks: every tile of K2, K3, K4 and the SDPA
+   backward timed, split held against fused and each tile against the
+   default (the plain versions would need 34 GB of fp32 scores there).
+   The autotune phase follows: ``autotune.tune_and_record`` at B8 S512
+   H8 and B8 S2048 H8 causal into a cache in a temporary directory,
+   every candidate's ms, ``lookup`` returning the recorded winners, the
+   split backward's candidates searched, and an explicit tile that no
+   kernel is compiled for refused by the op and by the C entry point.
+   Every later phase sees the committed ``PRETUNED`` table and no
+   measured cache, and reports its launches by tile.
 4. serve: BENCH_350M at full width and depth (24 layers), bf16
    parameters from a seed, flash attention, through ``generate`` for 8
    requests: 448 prompt tokens and 64 greedy steps each.  The launch
@@ -69,7 +78,9 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    einsum reference (``moe_mlp_reference``) and flash against dense
    attention, loss and gradients.
 
-Then the kernel summary line, the card's ``name, power.limit`` and, last,
+Then the kernel summary line (one entry per compiled tile, with its
+launches by path; a tile no path ran must have run in the autotune
+phase), the card's ``name, power.limit`` and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -152,26 +163,47 @@ def phase_env() -> str:
     return smi
 
 
-# name -> (source, kernel function, design).
+# name -> (source, kernel function, design): one name per compiled tile,
+# the default tile's under the kernel's own name.
 KERNELS = {
     "flash_fwd": ("flash_fwd", "flash_fwd_kernel", "wgmma+tma"),
+    "flash_fwd_64x64": ("flash_fwd", "flash_fwd_kernel", "wgmma+tma"),
     "flash_bwd_fused": ("flash_bwd", "flash_bwd_kernel", "wgmma+tma"),
+    "flash_bwd_fused_64x64": ("flash_bwd", "flash_bwd_kernel", "wgmma+tma"),
     "flash_dq": ("flash_bwd_split", "flash_dq_kernel", "wgmma+tma"),
+    "flash_dq_64x64": ("flash_bwd_split", "flash_dq_kernel", "wgmma+tma"),
     "flash_dkv": ("flash_bwd_split", "flash_bwd_kernel", "wgmma+tma"),
+    "flash_dkv_64x64": ("flash_bwd_split", "flash_bwd_kernel", "wgmma+tma"),
+}
+# name -> (the wrapper's kernel in ops.attention.KERNEL_TILES, its tile
+# (block_q, block_k), the template arguments of the compiled instance as
+# ptxas's mangled entry name spells them).
+TILES = {
+    "flash_fwd": ("flash_fwd", (128, 128), "ILi2ELi128EE"),
+    "flash_fwd_64x64": ("flash_fwd", (64, 64), "ILi1ELi64EE"),
+    "flash_bwd_fused": ("flash_bwd_fused", (64, 128), "ILb1ELi2ELi2EE"),
+    "flash_bwd_fused_64x64": ("flash_bwd_fused", (64, 64),
+                              "ILb1ELi2ELi1EE"),
+    "flash_dq": ("flash_dq", (128, 64), "ILi2ELi4EE"),
+    "flash_dq_64x64": ("flash_dq", (64, 64), "ILi1ELi2EE"),
+    "flash_dkv": ("flash_dkv", (64, 128), "ILb0ELi4ELi2EE"),
+    "flash_dkv_64x64": ("flash_dkv", (64, 64), "ILb0ELi2ELi1EE"),
 }
 
 
 def phase_build() -> dict[str, dict]:
-    """Build every source; per kernel of KERNELS, ptxas's registers and
-    spill bytes (None where the library came from the cache)."""
+    """Build every source; per compiled tile of KERNELS, ptxas's
+    registers (at entry) and spill bytes (None where the library came
+    from the cache)."""
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build()
     resources = {}
     for name, (source, function, _) in KERNELS.items():
+        entry = function + TILES[name][2]
         found = [r for fn, r in _build.ptxas_resources(
-            report[source]["ptxas"]).items() if function in fn]
+            report[source]["ptxas"]).items() if entry in fn]
         resources[name] = found[0] if len(found) == 1 else {
             "registers": None, "spill_stores": None, "spill_loads": None}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -184,11 +216,15 @@ def _qkv(gen, b, s, h, d=128):
                         dtype=torch.bfloat16) for _ in range(3)]
 
 
-def _errors(q, k, v, causal):
+def _errors(q, k, v, causal, tile=None, ref=None):
+    """(max |o - plain o|, max |lse - plain lse|) of K1 at ``tile`` (None:
+    its default); ``ref`` is the plain version's (o, lse) where the
+    caller has it."""
     from nos_tpu_torch.ops import attention as A
 
-    o, lse = A.flash_attention_fwd(q, k, v, causal)
-    o_ref, lse_ref = A.flash_attention_fwd_reference(q, k, v, causal)
+    o, lse = A.flash_attention_fwd(q, k, v, causal, tile)
+    o_ref, lse_ref = (A.flash_attention_fwd_reference(q, k, v, causal)
+                      if ref is None else ref)
     torch.cuda.synchronize()
     if o.shape != o_ref.shape or lse.shape != lse_ref.shape:
         fail(f"flash_fwd shapes {tuple(o.shape)}/{tuple(lse.shape)}")
@@ -271,10 +307,10 @@ def _sdpa_backward_ms(q, k, v, do) -> float:
                    inner=5, samples=10)
 
 
-# Sequence lengths around the tile edges (K1: 128 q rows and 128 keys;
-# K2 and K4: 128 keys and 64 q rows; K3: 128 q rows and 64 keys), and one
-# ragged length.
-EDGE_SEQS = (1, 65, 127, 128, 129, 200)
+# Sequence lengths around the tile edges (K1: 128 or 64 q rows and 128 or
+# 64 keys; K2 and K4: 128 or 64 keys and 64 q rows; K3: 128 or 64 q rows
+# and 64 keys), and one ragged length.
+EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 200)
 # The long-context row: at 8 heads and batch 1 the JAX rule's dq partials
 # are 2^31 bytes, past FUSED_PARTIAL_BUDGET, so the split pair runs.
 LONG_SHAPE = (1, 32768, 8)
@@ -289,14 +325,22 @@ def _design(name: str, resources: dict) -> dict:
                                   "loads": resources[name]["spill_loads"]}}
 
 
+def _tiles_of(kernel: str) -> list[tuple[str, tuple[int, int]]]:
+    """(name, tile) of every compiled tile of ``kernel``, default first."""
+    return [(name, tile) for name, (k, tile, _) in TILES.items()
+            if k == kernel]
+
+
 def phase_kernels(resources: dict) -> list[dict]:
     from nos_tpu_torch.ops import attention as A
     from nos_tpu_torch.ops.roofline import peaks_for
 
     peaks = peaks_for(torch.cuda.get_device_name(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    fwd_tiles = _tiles_of("flash_fwd")
 
-    # K1, the forward: the serving shape, ragged and strided cases.
+    # K1, the forward, at every tile: the serving shape, ragged and
+    # strided cases.
     checks = []
     b, s, h, d = 8, 512, 8, 128          # the serving shape
     q, k, v = _qkv(gen, b, s, h, d)
@@ -310,21 +354,27 @@ def phase_kernels(resources: dict) -> list[dict]:
                        dtype=torch.bfloat16)
     cases.append(("strided B2 S130 H4 causal=True",
                   (wide[..., :128], wide[..., 128:], wide[..., 64:192]), True))
-    for name, (cq, ck, cv), causal in cases:
-        o_err, lse_err = _errors(cq, ck, cv, causal)
-        checks.append({"kernel": "flash_fwd", "case": name,
-                       "o_max_abs_err": o_err, "lse_max_abs_err": lse_err})
-        if not (o_err <= O_TOL and lse_err <= LSE_TOL):
-            fail(f"flash_fwd vs plain at {name}: o {o_err} (tol {O_TOL}), "
-                 f"lse {lse_err} (tol {LSE_TOL})")
+    for case, (cq, ck, cv), causal in cases:
+        ref = A.flash_attention_fwd_reference(cq, ck, cv, causal)
+        for name, tile in fwd_tiles:
+            o_err, lse_err = _errors(cq, ck, cv, causal, tile, ref)
+            checks.append({"kernel": name, "case": case,
+                           "o_max_abs_err": o_err, "lse_max_abs_err": lse_err})
+            if not (o_err <= O_TOL and lse_err <= LSE_TOL):
+                fail(f"{name} vs plain at {case}: o {o_err} (tol {O_TOL}), "
+                     f"lse {lse_err} (tol {LSE_TOL})")
 
-    serving = {
-        "ms": time_ms(lambda: A.flash_attention_fwd(q, k, v, True)),
-        "plain_ms": time_ms(
-            lambda: A.flash_attention_fwd_reference(q, k, v, True)),
-        "library_ms": _sdpa_ms(q, k, v),
-        **_bound(2 * b * h * s * s * d,          # causal: half of 4*BHS^2D
-                 4 * b * s * h * d * 2 + b * h * s * 4, peaks)}
+    serving_plain = time_ms(
+        lambda: A.flash_attention_fwd_reference(q, k, v, True))
+    serving_sdpa = _sdpa_ms(q, k, v)
+    serving_bound = _bound(2 * b * h * s * s * d,   # causal: half of 4BHS^2D
+                           4 * b * s * h * d * 2 + b * h * s * 4, peaks)
+    serving = {name: {
+        "ms": time_ms(lambda t=tile: A.flash_attention_fwd(q, k, v, True, t)),
+        "plain_ms": serving_plain, "library_ms": serving_sdpa,
+        **serving_bound} for name, tile in fwd_tiles}
+    # the backward kernels at the serving shape, for the tile comparison
+    sq, sk, sv, sdo, slse, sdelta = _bwd_inputs(gen, b, s, h, True)
     del q, k, v
 
     # The training shape: K1 and the three backward kernels.
@@ -333,20 +383,26 @@ def phase_kernels(resources: dict) -> list[dict]:
     act = b * s * h * d * 2                     # one bf16 [B, S, H, D]
     stat = b * h * s * 4                        # one fp32 [B, H, S]
     tq, tk, tv, tdo, tlse, tdelta = _bwd_inputs(gen, b, s, h, True)
-    train_fwd = {
-        "ms": time_ms(lambda: A.flash_attention_fwd(tq, tk, tv, True)),
-        "plain_ms": time_ms(
-            lambda: A.flash_attention_fwd_reference(tq, tk, tv, True),
-            inner=2, samples=5),
-        "library_ms": _sdpa_ms(tq, tk, tv),
-        **_bound(2 * bhs2d, 4 * act + stat, peaks)}
-    o_err, lse_err = _errors(tq, tk, tv, True)
-    checks.append({"kernel": "flash_fwd", "case": "training B8 S2048 H8 "
-                   "causal", "o_max_abs_err": o_err,
-                   "lse_max_abs_err": lse_err})
-    if not (o_err <= O_TOL and lse_err <= LSE_TOL):
-        fail(f"flash_fwd vs plain at the training shape: o {o_err}, "
-             f"lse {lse_err}")
+    train_plain = time_ms(
+        lambda: A.flash_attention_fwd_reference(tq, tk, tv, True),
+        inner=2, samples=5)
+    train_sdpa = _sdpa_ms(tq, tk, tv)
+    train_bound = _bound(2 * bhs2d, 4 * act + stat, peaks)
+    train_fwd = {name: {
+        "ms": time_ms(lambda t=tile: A.flash_attention_fwd(
+            tq, tk, tv, True, t)),
+        "plain_ms": train_plain, "library_ms": train_sdpa,
+        **train_bound} for name, tile in fwd_tiles}
+    ref = A.flash_attention_fwd_reference(tq, tk, tv, True)
+    for name, tile in fwd_tiles:
+        o_err, lse_err = _errors(tq, tk, tv, True, tile, ref)
+        checks.append({"kernel": name, "case": "training B8 S2048 H8 "
+                       "causal", "o_max_abs_err": o_err,
+                       "lse_max_abs_err": lse_err})
+        if not (o_err <= O_TOL and lse_err <= LSE_TOL):
+            fail(f"{name} vs plain at the training shape: o {o_err}, "
+                 f"lse {lse_err}")
+    del ref
 
     bwd_cases = [("training B8 S2048 H8 causal",
                   (tq, tk, tv, tdo, tlse, tdelta), True)]
@@ -357,27 +413,29 @@ def phase_kernels(resources: dict) -> list[dict]:
     bwd_cases.append(("strided B2 S130 H3 causal=True",
                       _bwd_inputs(gen, 2, 130, 3, True, views=True), True))
     kernels = _bwd_kernels()
-    errs = {name: 0.0 for name in kernels}
+    errs = {name: 0.0 for name in TILES}
     outputs = {}
     for case, args, causal in bwd_cases:
-        for name, (fn, plain, *_rest) in kernels.items():
-            got = fn(*args, causal)
+        for kernel, (fn, plain, *_rest) in kernels.items():
             want = plain(*args, causal)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if g.shape != w.shape or not torch.isfinite(g).all():
-                    fail(f"{name} at {case}: shape {tuple(g.shape)} or "
-                         f"non-finite values")
-            err = max(_rel_err(g, w) for g, w in zip(got, want))
-            checks.append({"kernel": name, "case": case,
-                           "max_rel_err": err})
-            if not err <= GRAD_TOL:
-                fail(f"{name} vs plain at {case}: {err} of max |ref| "
-                     f"(tol {GRAD_TOL})")
-            errs[name] = max(errs[name], err)
-            if case.startswith("training"):
-                outputs[name] = got
-            del got, want
+            for name, tile in _tiles_of(kernel):
+                got = fn(*args, causal, tile)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if g.shape != w.shape or not torch.isfinite(g).all():
+                        fail(f"{name} at {case}: shape {tuple(g.shape)} or "
+                             f"non-finite values")
+                err = max(_rel_err(g, w) for g, w in zip(got, want))
+                checks.append({"kernel": name, "case": case,
+                               "max_rel_err": err})
+                if not err <= GRAD_TOL:
+                    fail(f"{name} vs plain at {case}: {err} of max |ref| "
+                         f"(tol {GRAD_TOL})")
+                errs[name] = max(errs[name], err)
+                if case.startswith("training") and name == kernel:
+                    outputs[name] = got
+                del got
+            del want
     fused, split = outputs["flash_bwd_fused"], (
         *outputs["flash_dq"], *outputs["flash_dkv"])
     fused_vs_split = max(
@@ -390,51 +448,72 @@ def phase_kernels(resources: dict) -> list[dict]:
 
     targs = (tq, tk, tv, tdo, tlse, tdelta, True)
     # The split pair writes every output row from one CTA after a loop in
-    # a fixed order: two launches on the same inputs agree bitwise.
+    # a fixed order, at every tile: two launches on the same inputs agree
+    # bitwise.
     repeat = {}
-    for name in ("flash_dq", "flash_dkv"):
-        first, second = kernels[name][0](*targs), kernels[name][0](*targs)
-        torch.cuda.synchronize()
-        repeat[name] = all(torch.equal(a, b) for a, b in zip(first, second))
-        if not repeat[name]:
-            fail(f"two {name} launches on the training inputs differ")
-        del first, second
+    for kernel in ("flash_dq", "flash_dkv"):
+        for name, tile in _tiles_of(kernel):
+            first = kernels[kernel][0](*targs, tile)
+            second = kernels[kernel][0](*targs, tile)
+            torch.cuda.synchronize()
+            repeat[name] = all(torch.equal(x, y)
+                               for x, y in zip(first, second))
+            if not repeat[name]:
+                fail(f"two {name} launches on the training inputs differ")
+            del first, second
     library_ms = _sdpa_backward_ms(tq, tk, tv, tdo)
-    entries = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "nos_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "nos_tpu/ops/attention.py:171",
-        "launches": None, **_design("flash_fwd", resources),
-        "max_abs_err": max(c["o_max_abs_err"] for c in checks
-                           if c["kernel"] == "flash_fwd"),
-        "lse_max_abs_err": max(c["lse_max_abs_err"] for c in checks
-                               if c["kernel"] == "flash_fwd"),
-        **{key: serving[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shape": "serving B8 S512 H8 causal",
-        "train_shape": {key: train_fwd[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }]
-    for name, (fn, plain, replaces, source, mats, outs) in kernels.items():
-        bound = _bound(mats * bhs2d, (4 + outs) * act + 2 * stat, peaks)
+    serving_library_ms = _sdpa_backward_ms(sq, sk, sv, sdo)
+    sargs = (sq, sk, sv, sdo, slse, sdelta, True)
+    entries = []
+    for name, tile in fwd_tiles:
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"nos_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "launches": None,
-            **_design(name, resources),
-            "max_abs_err": errs[name],
-            "error_measure": "max |kernel - plain| / max |plain|",
-            "ms": time_ms(lambda: fn(*targs), inner=5, samples=10),
-            "plain_ms": time_ms(lambda: plain(*targs), inner=1, samples=3),
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": library_ms,
-            "library": "SDPA backward (dq, dk and dv), torch.autograd.grad "
-                       "on a retained graph",
-            "shape": "training B8 S2048 H8 causal"})
-    del tq, tk, tv, tdo, tlse, tdelta, targs
+            "source": "nos_tpu_torch/ops/csrc/flash_fwd.cu",
+            "replaces": "nos_tpu/ops/attention.py:171",
+            "tile": list(tile), "launches": None, **_design(name, resources),
+            "max_abs_err": max(c["o_max_abs_err"] for c in checks
+                               if c["kernel"] == name),
+            "lse_max_abs_err": max(c["lse_max_abs_err"] for c in checks
+                                   if c["kernel"] == name),
+            **serving[name], "shape": "serving B8 S512 H8 causal",
+            "train_shape": train_fwd[name]})
+    sb, ss, sh = sq.shape[0], sq.shape[1], sq.shape[2]
+    for kernel, (fn, plain, replaces, source, mats, outs) in kernels.items():
+        bound = _bound(mats * bhs2d, (4 + outs) * act + 2 * stat, peaks)
+        sbound = _bound(mats * sb * sh * ss * ss * d,
+                        (4 + outs) * sb * ss * sh * d * 2
+                        + 2 * sb * sh * ss * 4, peaks)
+        plain_ms = time_ms(lambda: plain(*targs), inner=1, samples=3)
+        serving_plain_ms = time_ms(lambda: plain(*sargs), inner=2, samples=5)
+        for name, tile in _tiles_of(kernel):
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"nos_tpu_torch/ops/csrc/{source}",
+                "replaces": replaces, "tile": list(tile), "launches": None,
+                **_design(name, resources),
+                "max_abs_err": errs[name],
+                "error_measure": "max |kernel - plain| / max |plain|",
+                "ms": time_ms(lambda t=tile: fn(*targs, t), inner=5,
+                              samples=10),
+                "plain_ms": plain_ms,
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": library_ms,
+                "library": "SDPA backward (dq, dk and dv), "
+                           "torch.autograd.grad on a retained graph",
+                "shape": "training B8 S2048 H8 causal",
+                "serving_shape": {
+                    "ms": time_ms(lambda t=tile: fn(*sargs, t), inner=5,
+                                  samples=10),
+                    "plain_ms": serving_plain_ms,
+                    "bound_ms": sbound["bound_ms"],
+                    "bound_by": sbound["bound_by"],
+                    "library_ms": serving_library_ms,
+                    "shape": "B8 S512 H8 causal"}})
+    del tq, tk, tv, tdo, tlse, tdelta, targs, sq, sk, sv, sdo, sargs
     long_rows = _long_context(gen, peaks, kernels)
-    for entry in entries[1:]:
-        entry["long_context"] = long_rows[entry["name"]]
+    for entry in entries:
+        if entry["name"] in long_rows:
+            entry["long_context"] = long_rows[entry["name"]]
     emit({"phase": "kernels", "checks": checks,
           "tolerance": {"o": O_TOL, "lse": LSE_TOL, "grad": GRAD_TOL,
                         "fused_vs_split": FUSED_SPLIT_TOL},
@@ -443,14 +522,18 @@ def phase_kernels(resources: dict) -> list[dict]:
           "serving_flash_fwd": serving, "train_flash_fwd": train_fwd,
           "train_backward": {e["name"]: {key: e[key] for key in (
               "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-              for e in entries[1:]}})
+              for e in entries if "serving_shape" in e},
+          "serving_backward": {e["name"]: e["serving_shape"]
+                               for e in entries if "serving_shape" in e}})
     return entries
 
 
 def _long_context(gen, peaks, kernels) -> dict[str, dict]:
-    """K2, K3 and K4 at LONG_SHAPE, causal: split against fused within
-    FUSED_SPLIT_TOL, then kernel and SDPA-backward times and each bound.
-    lse comes from K1 (the plain forward would need the fp32 scores)."""
+    """K2, K3 and K4 at LONG_SHAPE, causal, at every tile: split against
+    fused within FUSED_SPLIT_TOL at the default tiles and each tile's
+    outputs against the default's, then kernel and SDPA-backward times
+    and each bound.  lse comes from K1 (the plain forward would need the
+    fp32 scores)."""
     from nos_tpu_torch.ops import attention as A
 
     b, s, h = LONG_SHAPE
@@ -476,22 +559,136 @@ def _long_context(gen, peaks, kernels) -> dict[str, dict]:
     if not fused_vs_split <= FUSED_SPLIT_TOL:
         fail(f"fused vs split backward at B{b} S{s} H{h}: {fused_vs_split} "
              f"(tol {FUSED_SPLIT_TOL})")
-    del fused, split
+    default_out = {"flash_bwd_fused": fused, "flash_dq": split[:1],
+                   "flash_dkv": split[1:]}
     library_ms = _sdpa_backward_ms(q, k, v, do)
     bhs2d = b * h * s * s * d
     act, stat = b * s * h * d * 2, b * h * s * 4
-    rows = {}
-    for name, (fn, _plain, _rep, _src, mats, outs) in kernels.items():
+    rows, vs_default = {}, {}
+    for kernel, (fn, _plain, _rep, _src, mats, outs) in kernels.items():
         bound = _bound(mats * bhs2d, (4 + outs) * act + 2 * stat, peaks)
-        rows[name] = {
-            "ms": time_ms(lambda: fn(*args), inner=5, samples=10),
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": library_ms,
-            "shape": f"B{b} S{s} H{h} causal"}
+        for name, tile in _tiles_of(kernel):
+            if name != kernel:
+                got = fn(*args, tile)
+                torch.cuda.synchronize()
+                vs_default[name] = max(_rel_err(g, w) for g, w in zip(
+                    got, default_out[kernel]))
+                del got
+                if not vs_default[name] <= FUSED_SPLIT_TOL:
+                    fail(f"{name} against {kernel} at B{b} S{s} H{h}: "
+                         f"{vs_default[name]} (tol {FUSED_SPLIT_TOL})")
+            rows[name] = {
+                "ms": time_ms(lambda t=tile: fn(*args, t), inner=5,
+                              samples=10),
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": library_ms,
+                "shape": f"B{b} S{s} H{h} causal"}
+    del fused, split, default_out
     emit({"phase": "long_context", "shape": f"B{b} S{s} H{h} causal",
           "backward_impl": impl, "fused_vs_split_rel": fused_vs_split,
+          "variant_vs_default_rel": vs_default,
           "tolerance": FUSED_SPLIT_TOL, "kernels": rows})
     return rows
+
+
+# The autotune phase's shapes: serving and training, causal.
+AUTOTUNE_SHAPES = ((8, 512, 8), (8, 2048, 8))
+
+
+def _no_measured_cache(tmp: str) -> None:
+    """Point the autotune cache at a file that does not exist, so that
+    lookups see the committed PRETUNED table only."""
+    import os
+
+    from nos_tpu_torch.ops import autotune as T
+
+    os.environ[T._CACHE_ENV] = str(pathlib.Path(tmp) / "none.json")
+    T.reload_cache()
+    if T._load_cache():
+        fail("a measured autotune cache is visible to the run")
+
+
+def phase_autotune() -> dict:
+    """``tune_and_record`` at AUTOTUNE_SHAPES into a cache in a temporary
+    directory, with every candidate's ms; ``lookup`` must return the
+    recorded winners, in this process and from the file.  Then the split
+    backward's candidates searched at the training shape (not recorded),
+    and an explicit pair no kernel is compiled for, which must raise in
+    the op and be refused by the C entry point."""
+    import os
+
+    from nos_tpu_torch.ops import attention as A
+    from nos_tpu_torch.ops import autotune as T
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kind = torch.cuda.get_device_name(0)
+    results = {}
+    _zero_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="nos-autotune-") as tmp:
+        path = pathlib.Path(tmp) / "flash_autotune.json"
+        os.environ[T._CACHE_ENV] = str(path)
+        T.reload_cache()
+        for b, s, h in AUTOTUNE_SHAPES:
+            q, k, v = _qkv(gen, b, s, h)
+            res = T.tune_and_record(q, k, v, True)
+            for reload in (False, True):
+                if reload:
+                    T.reload_cache()
+                for pass_ in ("fwd", "bwd"):
+                    got = T.lookup(kind, pass_, s, 128, "bfloat16", True)
+                    if got is None or list(got) != res[pass_]:
+                        fail(f"autotune lookup {pass_} at S{s} gave {got}, "
+                             f"recorded {res[pass_]} (reloaded: {reload})")
+            for pass_ in ("fwd", "bwd"):
+                tile = A._tile_for(
+                    "flash_fwd" if pass_ == "fwd" else "flash_bwd_fused",
+                    q, k, True, None, None)
+                if list(tile) != res[pass_]:
+                    fail(f"the op resolves {tile} for {pass_} at S{s}, "
+                         f"the cache holds {res[pass_]}")
+            results[f"B{b} S{s} H{h} causal"] = res
+        entries = json.loads(path.read_text())["entries"]
+        prev = A.set_backward_impl("split")
+        try:
+            split_best, split_times = T.search("bwd", q, k, v, True)
+        finally:
+            A.set_backward_impl(prev)
+        refused = {}
+        for label, call in (
+                ("op forward (32, 32)",
+                 lambda: A.flash_attention(q, k, v, True, 32, 32)),
+                ("op backward (128, 128)",
+                 lambda: A.flash_attention(
+                     *(x.detach().requires_grad_() for x in (q, k, v)),
+                     True, 128, 128).sum().backward()),
+                ("C entry nos_flash_fwd (32, 32)",
+                 lambda: A._run("nos_flash_fwd", [
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     o.data_ptr(), lse.data_ptr()], q, k,
+                     A._strides(q, k, v, o), True, (32, 32)))):
+            o, lse = torch.empty_like(q), torch.empty(
+                b, h, s, device="cuda", dtype=torch.float32)
+            try:
+                call()
+            except (ValueError, RuntimeError) as e:
+                refused[label] = f"{type(e).__name__}: {e}"
+            else:
+                fail(f"{label}: an uncompiled tile ran")
+        # cudaErrorInvalidValue, not a launch at another tile
+        if not refused["C entry nos_flash_fwd (32, 32)"].endswith(
+                "CUDA error 1"):
+            fail(f"nos_flash_fwd at (32, 32): {refused}")
+        torch.cuda.synchronize()
+        del q, k, v
+    PATH_TILES["autotune"] = _tile_counts()
+    out = {"phase": "autotune", "device_class": T.device_class(kind),
+           "results": results, "cache_entries": entries,
+           "split_search_ms": {f"{bq}x{bk}": t * 1e3
+                               for (bq, bk), t in split_times.items()},
+           "split_best": list(split_best), "refused": refused,
+           "tile_launches": PATH_TILES["autotune"]}
+    emit(out)
+    return out
 
 
 def _noncausal_logits(dense, tokens: torch.Tensor) -> torch.Tensor:
@@ -523,6 +720,7 @@ def phase_serve() -> dict[str, int]:
     out = generate(model, prompt, STEPS)
     torch.cuda.synchronize()
     launches = _launch_counts()
+    PATH_TILES["serve"] = _tile_counts()
     _check_launches("the serve run", launches, {
         "flash_fwd": STEPS * cfg.num_layers, "flash_bwd_fused": 0,
         "flash_dq": 0, "flash_dkv": 0})
@@ -564,6 +762,7 @@ def phase_serve() -> dict[str, int]:
     emit({"phase": "serve", "model": "BENCH_350M", "layers": cfg.num_layers,
           "param_count": model.param_count(), "batch": SERVE_BATCH,
           "prompt_len": PROMPT_LEN, "steps": STEPS, "launches": launches,
+          "tile_launches": PATH_TILES["serve"],
           "ms_per_step": seconds / STEPS * 1e3,
           "tokens_per_s": SERVE_BATCH * STEPS / seconds,
           "peak_mem_bytes": peak,
@@ -618,6 +817,20 @@ def _zero_launch_counts() -> None:
 
     A.FLASH_FWD_LAUNCHES = A.FLASH_BWD_FUSED_LAUNCHES = 0
     A.FLASH_DQ_LAUNCHES = A.FLASH_DKV_LAUNCHES = 0
+    A.TILE_LAUNCHES.clear()
+
+
+def _tile_counts() -> dict[str, int]:
+    """Launches by compiled tile (the names of TILES)."""
+    from nos_tpu_torch.ops import attention as A
+
+    return {name: A.TILE_LAUNCHES[(kernel, tile)]
+            for name, (kernel, tile, _) in TILES.items()}
+
+
+# Each phase's launches by compiled tile, read where it reads its
+# launches: which tile each kernel ran on each path.
+PATH_TILES: dict[str, dict[str, int]] = {}
 
 
 def _step_counted(trainer, batch) -> tuple[float, dict[str, int]]:
@@ -695,6 +908,7 @@ def phase_train() -> tuple[dict[str, int], float]:
         A.set_backward_impl("fused")
     torch.cuda.synchronize()
     launches = _launch_counts()
+    PATH_TILES["train"] = _tile_counts()
     losses.append(split_loss)
     n_fused = TRAIN_UNTIMED + TRAIN_TIMED
     want = {k: n_fused * per_fused[k] + per_split[k] for k in per_fused}
@@ -770,7 +984,8 @@ def phase_train() -> tuple[dict[str, int], float]:
           "mfu": flops / seconds / peak_flops,
           "peak_mem_bytes": peak, "losses": losses,
           "expected_loss0": EXPECTED_LOSS0, "loss0_tol": LOSS0_TOL,
-          "launches": launches, "launches_per_fused_step": per_fused,
+          "launches": launches, "tile_launches": PATH_TILES["train"],
+          "launches_per_fused_step": per_fused,
           "launches_split_step": split_launches,
           "repeat": {**repeat, "grad_tol_fused": REPEAT_GRAD_TOL},
           "cut": {"layers": CUT_LAYERS, "loss_flash_fused": loss_f,
@@ -893,6 +1108,7 @@ def phase_train_main(trainer_loss0: float) -> dict[str, int]:
         A.set_backward_impl("fused")
     torch.cuda.synchronize()
     launches = _launch_counts()
+    PATH_TILES["train_main"] = _tile_counts()
     port_log.removeHandler(records)
     _release()
     split_steps = RESUME_STEPS + RESUME_AT + (RESUME_STEPS - RESUME_AT)
@@ -922,7 +1138,7 @@ def phase_train_main(trainer_loss0: float) -> dict[str, int]:
           "tokens_per_s": [r["tokens_per_s"] for r in steps],
           "mfu": mfu, "mfu_median": statistics.median(mfu[1:]),
           "peak_mem_bytes": peak, "launches_main_run": main_launches,
-          "launches": launches,
+          "launches": launches, "tile_launches": PATH_TILES["train_main"],
           "resume": {"backward": "split", "straight_loss": straight,
                      "first_loss": first, "resumed_loss": resumed,
                      "start_step": starts[0], "bitwise": True,
@@ -1155,6 +1371,7 @@ def phase_moe() -> dict[str, int]:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / MOE_TIMED * 1e3
     launches = _launch_counts()
+    PATH_TILES["moe"] = _tile_counts()
     peak = torch.cuda.max_memory_allocated()
     step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     losses += [x.item() for x in timed]
@@ -1224,7 +1441,8 @@ def phase_moe() -> dict[str, int]:
           "drop_rate_per_layer": drops0,
           "loss_mean_early_late": [early, late], "after_training": end,
           "capacity": capacity(cfg, TRAIN_BATCH * TRAIN_SEQ),
-          "launches": launches, "launches_per_step": per_step,
+          "launches": launches, "tile_launches": PATH_TILES["moe"],
+          "launches_per_step": per_step,
           "repeat_split": {"losses": [loss_a, loss_b], "bitwise": bitwise},
           "cut": cut})
     return launches
@@ -1237,20 +1455,36 @@ def main() -> int:
         fail("no CUDA device: the smoke runs on the card only")
     smi = phase_env()
     resources = phase_build()
-    entries = phase_kernels(resources)
-    serve = phase_serve()
-    train, loss0 = phase_train()
-    train_main = phase_train_main(loss0)
-    moe = phase_moe()
+    with tempfile.TemporaryDirectory(prefix="nos-no-cache-") as empty:
+        _no_measured_cache(empty)
+        entries = phase_kernels(resources)
+        phase_autotune()
+        # serve, train, train_main and moe see the committed PRETUNED only
+        _no_measured_cache(empty)
+        serve = phase_serve()
+        train, loss0 = phase_train()
+        train_main = phase_train_main(loss0)
+        moe = phase_moe()
+    paths = {"serve": serve, "train": train, "train_main": train_main,
+             "moe": moe}
     for entry in entries:
         name = entry["name"]
-        entry["launches_by_path"] = {"serve": serve[name],
-                                     "train": train[name],
-                                     "train_main": train_main[name],
-                                     "moe": moe[name]}
+        kernel = TILES[name][0]
+        entry["launches_by_path"] = {p: PATH_TILES[p][name] for p in paths}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if not entry["launches"] > 0:
-            fail(f"{name} was not launched on the main path")
+        entry["launches_autotune"] = PATH_TILES["autotune"][name]
+        # every kernel runs on the main path at one tile or another
+        if not sum(paths[p][kernel] for p in paths) > 0:
+            fail(f"{kernel} was not launched on the main path")
+        if not (entry["launches"] > 0 or entry["launches_autotune"] > 0):
+            fail(f"{name} was launched neither on the main path nor by "
+                 f"the autotune phase")
+    for p, counts in paths.items():
+        by_tile = {k: sum(PATH_TILES[p][n] for n, (kk, _, _) in
+                          TILES.items() if kk == k) for k in counts}
+        if by_tile != counts:
+            fail(f"the {p} phase's launches by tile {PATH_TILES[p]} do not "
+                 f"add up to its launches {counts}")
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,8 @@
 // ds never reach device memory.
 //
 // Design (warp-specialised, wgmma + TMA): flash_bwd_kernel<kDq = true,
-// kStages = 2> of flash_bwd_body.cuh, whose notes hold the design:
+// kStages = 2, kConsumers = 2> of flash_bwd_body.cuh, whose notes hold the
+// design:
 // 128 keys per CTA, two 64-key consumer warpgroups holding dk and dv in
 // registers, 64-row Q and dO tiles streamed by TMA, five wgmma products
 // per tile pair, dq added into the wrapper's zeroed fp32 buffer by TMA
@@ -35,13 +36,28 @@
 // tile per 128 keys and TMA reductions); a synchronous cp.async double
 // buffer with two __syncthreads per tile (now a TMA ring on mbarriers).
 //
-// ptxas (sm_90a, CUDA 12.9): 168 registers at entry (then 24 / 240 by
-// setmaxnreg), no spill.
+// Tiles.  nos_flash_bwd takes (block_q, block_k) = (q rows per tile,
+// keys per CTA):
+// - (64, 128) = flash_bwd_kernel<true, 2, 2>, the default above.
+// - (64, 64) = flash_bwd_kernel<true, 2, 1>: one 64-key consumer per CTA,
+//   K, V 16 KB each, 2 stages x (Q, dO 16 KB each + 512 B), dS^T 2 x 8
+//   KB, dQ 2 x 32 KB = 177 KB: still one CTA per SM (the dQ buffers do
+//   not shrink with the keys), so a CTA holds one consumer where the
+//   default holds two.  On an H100 SXM at 700 W
+//   (scripts/sweep_flash_torch.py, B8 H8) it lost at every length, by 8%
+//   at S512 causal up to 47% at S4096 full.
+// Any other tile returns cudaErrorInvalidValue.
+//
+// ptxas (sm_90a, CUDA 12.9): 168 registers at entry for (64, 128) (then
+// 24 / 240 by setmaxnreg), no spill; chip_smoke.py's build phase reports
+// both tiles.
 
 #include "flash_bwd_body.cuh"
 
 // See launch_flash_bwd (flash_bwd_body.cuh) for the arguments; dq_acc is
-// a zeroed contiguous fp32 [B, Sq, H, D].
+// a zeroed contiguous fp32 [B, Sq, H, D].  (block_q, block_k) picks the
+// compiled tile, (64, 128) or (64, 64); any other returns
+// cudaErrorInvalidValue.
 extern "C" int nos_flash_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq_acc, void* dk,
@@ -51,9 +67,17 @@ extern "C" int nos_flash_bwd(const void* q, const void* k, const void* v,
                              int64_t k_sh, int64_t v_sb, int64_t v_ss,
                              int64_t v_sh, int64_t o_sb, int64_t o_ss,
                              int64_t o_sh, float scale, int causal,
-                             void* stream) {
-  return nos_hopper::bwd::launch_flash_bwd<true, 2>(
-      q, k, v, dout, lse, delta, dq_acc, dk, dv, batch, heads, seq_q, seq_k,
-      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-      scale, causal, stream);
+                             int block_q, int block_k, void* stream) {
+  using nos_hopper::bwd::launch_flash_bwd;
+  if (block_q == 64 && block_k == 128)
+    return launch_flash_bwd<true, 2, 2>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, batch, heads, seq_q,
+        seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
+        o_ss, o_sh, scale, causal, stream);
+  if (block_q == 64 && block_k == 64)
+    return launch_flash_bwd<true, 2, 1>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, batch, heads, seq_q,
+        seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
+        o_ss, o_sh, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,13 @@
 // The body shared by the fused flash backward (K2, flash_bwd.cu) and the
 // split backward's dk/dv kernel (K4, flash_bwd_split.cu), for Hopper
-// (sm_90a): one CTA per 128 keys walks the q tiles and keeps dk and dv in
-// registers.  Template arguments: kDq adds K2's dq share (the dS^T tile,
-// the dQ product and the fp32 reduce-add); kStages is the depth of the
-// Q/dO ring.  Each source states its kernel's bound and design.
+// (sm_90a): one CTA per 64 x kConsumers keys walks the q tiles and keeps dk
+// and dv in registers.  Template arguments: kDq adds K2's dq share (the
+// dS^T tile, the dQ product and the fp32 reduce-add); kStages is the depth
+// of the Q/dO ring; kConsumers is the number of 64-key consumer
+// warpgroups, 2 (128 keys per CTA, the default tile) or 1 (64 keys per
+// CTA; hopper_common.cuh's CtaShape builds it for two CTAs an SM, which
+// the shared memory allows without kDq).  Each source states its
+// kernel's bound and design.
 //
 // The numerics are the TPU kernels': s = (q . k^T, fp32) * D^-1/2 with an
 // additive -1e30 causal mask; p = exp(s - lse) in fp32; dv += p^T . dO with
@@ -41,9 +45,15 @@
 //   run, so K2 is not guaranteed bitwise repeatable.  Without kDq nothing
 //   crosses CTAs: every dk and dv row is written by one CTA after a loop
 //   in a fixed order, so K4 is.
-// - setmaxnreg: producer 24 registers, consumers 240.
+// - setmaxnreg: producer 24 registers, consumers 240 (232 with one
+//   consumer; CtaShape).
 // - dk (times D^-1/2) and dv leave through the K and V tiles in shared
 //   memory by TMA store, which drops rows past Sk.
+// - With one consumer (64 keys per CTA, 256 threads) the same body runs
+//   over half the keys: grid (ceil(Sk/64), H, B), 64-key K/V boxes, a
+//   [64 keys x 64 q] dS^T tile, and the one consumer computes both D
+//   halves of dQ in turn, each reduced as soon as it is written.  Twice
+//   the CTAs stream Q and dO, so twice the L2 reads of them.
 
 #pragma once
 
@@ -53,23 +63,23 @@ namespace nos_hopper {
 namespace bwd {
 namespace {
 
-constexpr int kBlockN = 128;                  // keys per CTA
 constexpr int kBlockM = 64;                   // q rows per tile
-constexpr int kConsumers = 2;
-constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr uint32_t kKvBytes = kBlockN * kHeadDim * 2;
-constexpr uint32_t kKvHalf = kBlockN * 128;
 constexpr uint32_t kQBytes = kBlockM * kHeadDim * 2;
 constexpr uint32_t kQHalf = kBlockM * 128;
-constexpr uint32_t kDsBytes = kBlockN * kBlockM * 2;   // [key][q] bf16
 constexpr uint32_t kDqBytes = kBlockM * kHeadDim * 4;  // fp32 dQ tile
+constexpr uint32_t kDqHalfBytes = kDqBytes / 2;        // 64 D columns
 constexpr uint32_t kStatBytes = kBlockM * 4;
 constexpr uint32_t kStageTx = 2 * kQBytes;   // TMA bytes per stage
 
-// Shared-memory layout: K, V, the Q and dO rings, with kDq the dS^T and
-// dQ double buffers, the statistics' ring and the mbarriers.
-template <bool kDq, int kStages>
+// The tile's sizes and shared-memory layout: K, V, the Q and dO rings,
+// with kDq the dS^T and dQ double buffers, the statistics' ring and the
+// mbarriers.
+template <bool kDq, int kStages, int kConsumers>
 struct Smem {
+  static constexpr int kBlockN = 64 * kConsumers;       // keys per CTA
+  static constexpr uint32_t kKvBytes = kBlockN * kHeadDim * 2;
+  static constexpr uint32_t kKvHalf = kBlockN * 128;
+  static constexpr uint32_t kDsBytes = kBlockN * kBlockM * 2;  // [key][q]
   static constexpr uint32_t kKOff = 0;
   static constexpr uint32_t kVOff = kKOff + kKvBytes;
   static constexpr uint32_t kQOff = kVOff + kKvBytes;
@@ -110,8 +120,9 @@ __device__ __forceinline__ void p_tile(float (&sT)[32], const float* lse_c,
   }
 }
 
-template <bool kDq, int kStages>
-__global__ void __launch_bounds__(kThreads, 1)
+template <bool kDq, int kStages, int kConsumers>
+__global__ void __launch_bounds__(CtaShape<kConsumers>::kThreads,
+                                  CtaShape<kConsumers>::kMinBlocks)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
@@ -123,7 +134,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ delta,
                      int heads, int seq_q, int seq_k, float scale,
                      int causal) {
-  using L = Smem<kDq, kStages>;
+  using L = Smem<kDq, kStages, kConsumers>;
+  using Cta = CtaShape<kConsumers>;
+  constexpr int kBlockN = L::kBlockN;
+  constexpr uint32_t kKvBytes = L::kKvBytes;
+  constexpr uint32_t kKvHalf = L::kKvHalf;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -151,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == kConsumers) {
     // ---- producer ----
-    reg_dealloc<24>();
+    reg_dealloc<Cta::kProducerRegs>();
     // One warp: lane 0 starts the TMA loads, and the 32 lanes copy the
     // tile's 64 lse and delta values (a [B, H, S] row of any length has
     // no 16-byte aligned rows for TMA), then arrive on the stage's full
@@ -199,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns keys key0 + 64 wg .. + 63 ----
-    reg_alloc<240>();
+    reg_alloc<Cta::kConsumerRegs>();
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane >> 2;
@@ -292,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
 
       [[maybe_unused]] unsigned char* ds =
-          smem + L::kDsOff + (it & 1) * kDsBytes;
+          smem + L::kDsOff + (it & 1) * L::kDsBytes;
       if constexpr (kDq) {
         // dS^T (bf16, the values of da) into this WG's rows of the shared
         // [key][q] tile for the dQ product.
@@ -316,51 +331,59 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(&empty[st]);  // Q, dO, stats are read
 
       if constexpr (kDq) {
-        // Both consumers' dS^T rows are in place: dQ = dS K for D columns
-        // 64 wg .. 64 wg + 63 over the CTA's 128 keys.
+        // Every consumer's dS^T rows are in place: dQ = dS K over the
+        // CTA's keys, 64 D columns (one half) at a time; consumer wg takes
+        // the 2 / kConsumers halves from wg * 2 / kConsumers.
         named_barrier(1, kConsumers * 128);
-        float dq[32];
         const uint32_t ds_addr = smem_u32(ds);
-        wgmma_fence();
+        unsigned char* dq_tile = smem + L::kDqOff + (it & 1) * kDqBytes;
+        constexpr int kHalves = 2 / kConsumers;
 #pragma unroll
-        for (int kk = 0; kk < kBlockN / 16; ++kk)
-          wgmma_m64n64_ss<1, 1>(
-              dq, smem_desc(ds_addr + kk * 16 * 128, 0, 1024),
-              smem_desc(k_addr + wg * kKvHalf + kk * 16 * 128, 0, 1024),
-              kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
+        for (int j = 0; j < kHalves; ++j) {
+          const int dh = wg * kHalves + j;
+          float dq[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBlockN / 16; ++kk)
+            wgmma_m64n64_ss<1, 1>(
+                dq, smem_desc(ds_addr + kk * 16 * 128, 0, 1024),
+                smem_desc(k_addr + dh * kKvHalf + kk * 16 * 128, 0, 1024),
+                kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
 
-        // D^-1/2 * dQ into this WG's half of the fp32 tile buffer (two
-        // swizzled boxes of 64 rows x 32 columns), then one TMA reduce-add
-        // per box into dq_acc; rows past Sq are dropped by the map.  The
-        // buffer is double-buffered: before writing it, the reduction
-        // started two tiles ago must have read it.
-        unsigned char* dqb =
-            smem + L::kDqOff + (it & 1) * kDqBytes + wg * 16384;
-        if (tid == 0) bulk_wait_read<1>();
-        named_barrier(2 + wg, 128);
+          // D^-1/2 * dQ into this half of the fp32 tile buffer (two
+          // swizzled boxes of 64 rows x 32 columns), then one TMA
+          // reduce-add per box into dq_acc; rows past Sq are dropped by
+          // the map.  The buffer is double-buffered by q tile: before
+          // writing a half, the reduction that read it two tiles ago must
+          // be done, behind the kHalves - 1 halves of that tile and the
+          // kHalves of the last that this thread committed since.
+          unsigned char* dqb = dq_tile + dh * kDqHalfBytes;
+          if (tid == 0) bulk_wait_read<2 * kHalves - 1>();
+          named_barrier(2 + wg, 128);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int col = (8 * n + 2 * t) & 31;
-          const int r = 16 * warp + g;
-          const uint32_t box = (n >> 2) * 8192;
-          *reinterpret_cast<float2*>(
-              dqb + box + r * 128 + ((((col >> 2) ^ (r & 7))) << 4) +
-              (col & 3) * 4) = make_float2(dq[4 * n] * scale,
-                                           dq[4 * n + 1] * scale);
-          *reinterpret_cast<float2*>(
-              dqb + box + (r + 8) * 128 +
-              ((((col >> 2) ^ ((r + 8) & 7))) << 4) + (col & 3) * 4) =
-              make_float2(dq[4 * n + 2] * scale, dq[4 * n + 3] * scale);
-        }
-        fence_proxy_async();
-        named_barrier(2 + wg, 128);
-        if (tid == 0) {
-          tma_reduce_add_4d(&dq_map, dqb, 64 * wg, h, q0, b);
-          tma_reduce_add_4d(&dq_map, dqb + 8192, 64 * wg + 32, h, q0, b);
-          bulk_commit();
+          for (int n = 0; n < 8; ++n) {
+            const int col = (8 * n + 2 * t) & 31;
+            const int r = 16 * warp + g;
+            const uint32_t box = (n >> 2) * 8192;
+            *reinterpret_cast<float2*>(
+                dqb + box + r * 128 + ((((col >> 2) ^ (r & 7))) << 4) +
+                (col & 3) * 4) = make_float2(dq[4 * n] * scale,
+                                             dq[4 * n + 1] * scale);
+            *reinterpret_cast<float2*>(
+                dqb + box + (r + 8) * 128 +
+                ((((col >> 2) ^ ((r + 8) & 7))) << 4) + (col & 3) * 4) =
+                make_float2(dq[4 * n + 2] * scale, dq[4 * n + 3] * scale);
+          }
+          fence_proxy_async();
+          named_barrier(2 + wg, 128);
+          if (tid == 0) {
+            tma_reduce_add_4d(&dq_map, dqb, 64 * dh, h, q0, b);
+            tma_reduce_add_4d(&dq_map, dqb + 8192, 64 * dh + 32, h, q0, b);
+            bulk_commit();
+          }
         }
       }
     }
@@ -398,16 +421,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Encodes the maps and launches flash_bwd_kernel<kDq, kStages> on
-// `stream`.  Pointers are device pointers; q, k, v and dout are
-// [B, S, H, D] with unit stride over D (D must be 128, strides multiples
-// of 8 elements, 16-byte aligned starts), strides in elements.  lse and
+// Encodes the maps and launches flash_bwd_kernel<kDq, kStages,
+// kConsumers> on `stream`.  Pointers are device pointers; q, k, v and
+// dout are [B, S, H, D] with unit stride over D (D must be 128, strides
+// multiples of 8 elements, 16-byte aligned starts), strides in elements.
+// lse and
 // delta are contiguous fp32 [B, H, Sq]; dk and dv are contiguous bf16
 // [B, Sk, H, D]; with kDq, dq_acc is a zeroed contiguous fp32
 // [B, Sq, H, D] (without, it is not read).  Causal requires
 // seq_q == seq_k.  Returns cudaErrorInvalidValue if a tensor map is
 // refused, else cudaGetLastError() after the launch.
-template <bool kDq, int kStages>
+template <bool kDq, int kStages, int kConsumers>
 inline int launch_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq_acc, void* dk,
@@ -418,6 +442,8 @@ inline int launch_flash_bwd(const void* q, const void* k, const void* v,
                             int64_t v_sh, int64_t o_sb, int64_t o_ss,
                             int64_t o_sh, float scale, int causal,
                             void* stream) {
+  using L = Smem<kDq, kStages, kConsumers>;
+  constexpr int kBlockN = L::kBlockN;
   const int64_t row = static_cast<int64_t>(heads) * kHeadDim;
   CUtensorMap q_map, k_map, v_map, do_map, dk_map, dv_map, dq_map = {};
   if (!make_bshd_map(&q_map, q, batch, seq_q, heads, q_sb, q_ss, q_sh,
@@ -435,14 +461,14 @@ inline int launch_flash_bwd(const void* q, const void* k, const void* v,
       (kDq && !make_bshd_map(&dq_map, dq_acc, batch, seq_q, heads,
                              seq_q * row, row, kHeadDim, kBlockM, 4)))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kSmemBytes = Smem<kDq, kStages>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<kDq, kStages>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      flash_bwd_kernel<kDq, kStages, kConsumers>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq_k + kBlockN - 1) / kBlockN, heads, batch);
-  flash_bwd_kernel<kDq, kStages><<<grid, kThreads, kSmemBytes,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_kernel<kDq, kStages, kConsumers>
+      <<<grid, CtaShape<kConsumers>::kThreads, L::kBytes,
+         static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, do_map, dk_map, dv_map, dq_map,
       static_cast<const float*>(lse), static_cast<const float*>(delta), heads,
       seq_q, seq_k, scale, causal);

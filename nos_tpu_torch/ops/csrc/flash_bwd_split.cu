@@ -71,8 +71,27 @@
 // consumers' products); expf with its denormal path per score (now exp2
 // with the scale folded into one FFMA).
 //
-// ptxas (sm_90a): both kernels 168 registers at entry (then 24 / 240 by
-// setmaxnreg), no spill.
+// Tiles.  nos_flash_dq takes (block_q, block_k) = (q rows per CTA, keys
+// per tile), nos_flash_dkv (q rows per tile, keys per CTA):
+// - K3 (128, 64) = flash_dq_kernel<2, 4>, the default above;
+// - K3 (64, 64) = flash_dq_kernel<1, 2>: one consumer owning 64 q rows,
+//   Q, dO 16 KB each + 2 stages x (K, V 16 KB each) = 96 KB, two CTAs per
+//   SM (setmaxnreg 24 / 232); with one stage in flight per CTA, the other
+//   CTA on the SM covers the loads;
+// - K4 (64, 128) = flash_bwd_kernel<false, 4, 2>, the default above;
+// - K4 (64, 64) = flash_bwd_kernel<false, 2, 1>: one 64-key consumer,
+//   K, V 16 KB each + 2 stages x (Q, dO 16 KB each + 512 B) = 97 KB, two
+//   CTAs per SM.
+// On an H100 SXM at 700 W (scripts/sweep_flash_torch.py, B8 H8) K3's
+// (64, 64) lost at every length (2.4% at S512 causal to 20% at S4096
+// full); K4's won from S512 to S4096 causal (12.5% at S512, 9% at S2048)
+// and S512 to S2048 full, and lost by 0.6-3% at S4096 full and S8192.
+// Any other tile returns cudaErrorInvalidValue.  Every variant keeps the
+// fixed order of each output row's sums, so each repeats bitwise.
+//
+// ptxas (sm_90a): both default kernels 168 registers at entry (then 24 /
+// 240 by setmaxnreg), no spill; chip_smoke.py's build phase reports every
+// tile.
 
 #include "flash_bwd_body.cuh"
 
@@ -80,24 +99,27 @@ namespace {
 
 using namespace nos_hopper;
 
-constexpr int kRows = 128;                     // q rows per CTA
 constexpr int kKeys = 64;                      // keys per K/V tile
-constexpr int kStages = 4;
-constexpr int kConsumers = 2;
-constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr uint32_t kTileBytes = 64 * kHeadDim * 2;   // 64 rows x 128, bf16
 constexpr uint32_t kTileHalf = 64 * 128;             // bytes per half
-constexpr uint32_t kQOff = 0;                        // one tile per consumer
-constexpr uint32_t kdOOff = kQOff + kConsumers * kTileBytes;
-constexpr uint32_t kKOff = kdOOff + kConsumers * kTileBytes;
-constexpr uint32_t kVOff = kKOff + kStages * kTileBytes;
-constexpr uint32_t kBarOff = kVOff + kStages * kTileBytes;
-constexpr int kNumBars = 1 + 2 * kStages;
-constexpr int kSmemBytes = kBarOff + kNumBars * 8 + 1024;   // + alignment
 
-// K4's Q/dO ring depth: without the dq share K2's body has the shared
-// memory for 4 stages (194 KB).
+// K4's Q/dO ring depth at the default tile: without the dq share K2's
+// body has the shared memory for 4 stages (194 KB).
 constexpr int kDkvStages = 4;
+
+// K3's shared-memory layout: Q and dO (one 64-row tile per consumer), the
+// K and V ring, the mbarriers.
+template <int kConsumers, int kStages>
+struct DqSmem {
+  static constexpr int kRows = 64 * kConsumers;      // q rows per CTA
+  static constexpr uint32_t kQOff = 0;
+  static constexpr uint32_t kdOOff = kQOff + kConsumers * kTileBytes;
+  static constexpr uint32_t kKOff = kdOOff + kConsumers * kTileBytes;
+  static constexpr uint32_t kVOff = kKOff + kStages * kTileBytes;
+  static constexpr uint32_t kBarOff = kVOff + kStages * kTileBytes;
+  static constexpr int kNumBars = 1 + 2 * kStages;
+  static constexpr int kBytes = kBarOff + kNumBars * 8 + 1024;  // + align
+};
 
 // P = exp(S D^-1/2 - lse) for one tile, in place, in the accumulator
 // layout (rows row_a and row_a + 8 of this thread, 64 keys from key0),
@@ -126,7 +148,9 @@ __device__ __forceinline__ void p_tile(float (&s)[32],
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kConsumers, int kStages>
+__global__ void __launch_bounds__(CtaShape<kConsumers>::kThreads,
+                                  CtaShape<kConsumers>::kMinBlocks)
     flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
@@ -135,10 +159,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, int heads, int seq_q,
                     int seq_k, float scale, int causal, int tiles_outer) {
+  using L = DqSmem<kConsumers, kStages>;
+  using Cta = CtaShape<kConsumers>;
+  constexpr int kRows = L::kRows;
+  constexpr uint32_t kQOff = L::kQOff, kdOOff = L::kdOOff, kKOff = L::kKOff,
+                     kVOff = L::kVOff;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = full + kStages;
@@ -167,7 +196,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == kConsumers) {
     // ---- producer ----
-    reg_dealloc<24>();
+    reg_dealloc<Cta::kProducerRegs>();
     if (tid == 0) {
       mbar_expect_tx(q_full, 2 * kConsumers * kTileBytes);
       for (int w = 0; w < kConsumers; ++w)
@@ -191,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns q rows m0 + 64 wg .. + 63 ----
-    reg_alloc<240>();
+    reg_alloc<Cta::kConsumerRegs>();
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane >> 2;
@@ -335,23 +364,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-}  // namespace
-
-// Pointers are device pointers; q, k, v and dout are [B, S, H, D] with
-// unit stride over D (D must be 128, strides multiples of 8 elements,
-// 16-byte aligned starts), strides in elements.  lse and delta are
-// contiguous fp32 [B, H, Sq]; dq is a contiguous bf16 [B, Sq, H, D].
-// Causal requires seq_q == seq_k.  Returns cudaErrorInvalidValue if a
-// tensor map is refused, else cudaGetLastError() after the launch.
-extern "C" int nos_flash_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, int batch,
-                            int heads, int seq_q, int seq_k, int64_t q_sb,
-                            int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                            int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                            int64_t v_ss, int64_t v_sh, int64_t o_sb,
-                            int64_t o_ss, int64_t o_sh, float scale,
-                            int causal, void* stream) {
+template <int kConsumers, int kStages>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int batch,
+              int heads, int seq_q, int seq_k, int64_t q_sb, int64_t q_ss,
+              int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+              int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
+              int64_t o_ss, int64_t o_sh, float scale, int causal,
+              void* stream) {
+  using L = DqSmem<kConsumers, kStages>;
   const int64_t row = static_cast<int64_t>(heads) * kHeadDim;
   CUtensorMap q_map, k_map, v_map, do_map, dq_map;
   if (!make_bshd_map(&q_map, q, batch, seq_q, heads, q_sb, q_ss, q_sh, 64) ||
@@ -365,8 +386,8 @@ extern "C" int nos_flash_dq(const void* q, const void* k, const void* v,
                      kHeadDim, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_dq_kernel<kConsumers, kStages>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Launch order, K1's rule (flash_fwd.cu): when K and V fit in the L2
   // cache, every (b, h)'s heaviest q tiles go first; larger K/V keep each
@@ -376,21 +397,54 @@ extern "C" int nos_flash_dq(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (seq_q + kRows - 1) / kRows;
+  const int tiles = (seq_q + L::kRows - 1) / L::kRows;
   const double kv_bytes = 4.0 * batch * heads * seq_k * kHeadDim;
   const int tiles_outer = kv_bytes <= l2_bytes && tiles <= 65535;
   const dim3 grid = tiles_outer ? dim3(heads, batch, tiles)
                                 : dim3(tiles, heads, batch);
-  flash_dq_kernel<<<grid, kThreads, kSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), heads, seq_q, seq_k, scale, causal,
-      tiles_outer);
+  flash_dq_kernel<kConsumers, kStages>
+      <<<grid, CtaShape<kConsumers>::kThreads, L::kBytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          q_map, k_map, v_map, do_map, dq_map,
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          heads, seq_q, seq_k, scale, causal, tiles_outer);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Pointers are device pointers; q, k, v and dout are [B, S, H, D] with
+// unit stride over D (D must be 128, strides multiples of 8 elements,
+// 16-byte aligned starts), strides in elements.  lse and delta are
+// contiguous fp32 [B, H, Sq]; dq is a contiguous bf16 [B, Sq, H, D].
+// Causal requires seq_q == seq_k.  (block_q, block_k) picks the compiled
+// tile, (128, 64) or (64, 64); any other returns cudaErrorInvalidValue, as
+// does a refused tensor map; else cudaGetLastError() after the launch.
+extern "C" int nos_flash_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int batch,
+                            int heads, int seq_q, int seq_k, int64_t q_sb,
+                            int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                            int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                            int64_t v_ss, int64_t v_sh, int64_t o_sb,
+                            int64_t o_ss, int64_t o_sh, float scale,
+                            int causal, int block_q, int block_k,
+                            void* stream) {
+  if (block_q == 128 && block_k == 64)
+    return launch_dq<2, 4>(q, k, v, dout, lse, delta, dq, batch, heads,
+                           seq_q, seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal,
+                           stream);
+  if (block_q == 64 && block_k == 64)
+    return launch_dq<1, 2>(q, k, v, dout, lse, delta, dq, batch, heads,
+                           seq_q, seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal,
+                           stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // As nos_flash_dq's arguments, with dk and dv contiguous bf16 [B, Sk, H, D]
-// in place of dq.
+// in place of dq; (block_q, block_k) is (64, 128) or (64, 64).
 extern "C" int nos_flash_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv,
@@ -399,9 +453,17 @@ extern "C" int nos_flash_dkv(const void* q, const void* k, const void* v,
                              int64_t k_sb, int64_t k_ss, int64_t k_sh,
                              int64_t v_sb, int64_t v_ss, int64_t v_sh,
                              int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                             float scale, int causal, void* stream) {
-  return bwd::launch_flash_bwd<false, kDkvStages>(
-      q, k, v, dout, lse, delta, nullptr, dk, dv, batch, heads, seq_q, seq_k,
-      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-      scale, causal, stream);
+                             float scale, int causal, int block_q,
+                             int block_k, void* stream) {
+  if (block_q == 64 && block_k == 128)
+    return bwd::launch_flash_bwd<false, kDkvStages, 2>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, batch, heads, seq_q,
+        seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
+        o_ss, o_sh, scale, causal, stream);
+  if (block_q == 64 && block_k == 64)
+    return bwd::launch_flash_bwd<false, 2, 1>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, batch, heads, seq_q,
+        seq_k, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
+        o_ss, o_sh, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -52,6 +52,22 @@
 //   CTA per SM.  A third stage measured no faster; nor did taking turns
 //   between the consumers with named barriers (FA3's ping-pong).
 //
+// Tiles.  The body is flash_fwd_kernel<kConsumers, kBlockN>: 64 q rows per
+// consumer warpgroup, kBlockN keys per K/V tile.  Two are compiled, and
+// nos_flash_fwd takes the tile as (block_q, block_k) = (q rows per CTA,
+// keys per tile):
+// - (128, 128) = <2, 128>, the default above: 160 KB, one CTA per SM.
+// - (64, 64) = <1, 64>: one consumer, 64-key tiles, 2 stages: Q 16 KB +
+//   2 x (K 16 KB + V 16 KB) = 80 KB, two CTAs per SM (setmaxnreg 24 /
+//   232, hopper_common.cuh's CtaShape).  Twice the CTAs of the default,
+//   so twice the K/V reads from L2; a 64-row CTA with 128-key tiles
+//   would need 144 KB, one CTA per SM, and half the default's consumers
+//   an SM.  On an H100 SXM at 700 W (scripts/sweep_flash_torch.py, B8
+//   H8) it won causal at S512 (0.0225 against 0.0243 ms) and S1024
+//   (0.0605 against 0.0611) and lost everywhere else, by 2.6% at S2048
+//   causal up to 24% at S8192 full.
+// Any other tile returns cudaErrorInvalidValue.
+//
 // What held the previous (mma.sync) body back, and what this does about
 // it: mma.sync with an ldmatrix of every fragment per k-step (now wgmma
 // from swizzled shared tiles), 64-row q tiles re-streaming K/V per 64
@@ -59,8 +75,9 @@
 // __syncthreads per tile (now a TMA ring on mbarriers, loads overlapping
 // both consumers' math), and no producer/consumer split (now one).
 //
-// ptxas (sm_90a, CUDA 12.9): 168 registers at entry (then 24 / 240 by
-// setmaxnreg), no spill.
+// ptxas (sm_90a, CUDA 12.9): 168 registers at entry for (128, 128) (then
+// 24 / 240 by setmaxnreg), no spill; chip_smoke.py's build phase reports
+// both tiles.
 
 #include "hopper_common.cuh"
 
@@ -68,31 +85,34 @@ namespace {
 
 using namespace nos_hopper;
 
-constexpr int kBlockM = 128;                  // q rows per CTA
-constexpr int kBlockN = 128;                  // keys per K/V tile
 constexpr int kStages = 2;
-constexpr int kConsumers = 2;
-constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr uint32_t kQTileBytes = 64 * kHeadDim * 2;          // one WG's Q
-constexpr uint32_t kQHalf = 64 * 128;                         // bytes
-constexpr uint32_t kKvBytes = kBlockN * kHeadDim * 2;         // one tile
-constexpr uint32_t kKvHalf = kBlockN * 128;
-constexpr uint32_t kQOff = 0;
-constexpr uint32_t kKOff = kQOff + kConsumers * kQTileBytes;
-constexpr uint32_t kVOff = kKOff + kStages * kKvBytes;
-constexpr uint32_t kBarOff = kVOff + kStages * kKvBytes;
-constexpr int kNumBars = 1 + 4 * kStages;
-constexpr int kSmemBytes = kBarOff + kNumBars * 8 + 1024;   // + alignment
 
-// The online softmax of one S tile (64 rows x 128 keys per consumer, raw
-// scores q . k in the accumulator layout), in place: s becomes p.  m_run is
-// the running row max of the raw scores (the max of the scaled scores is
-// m_run * D^-1/2, since the scale is positive); p = exp(s D^-1/2 - m) is
-// computed as exp2(s c - m c) with c = D^-1/2 log2(e).  With kMasked,
-// keys above the diagonal (causal) or past Sk are set to -1e30 first.
-// alpha gets the factor that rescales O and l.
-template <bool kMasked>
-__device__ __forceinline__ void softmax_tile(float (&s)[64],
+// The tile's sizes and shared-memory layout: Q (one 64-row tile per
+// consumer), the K and V rings, the mbarriers.
+template <int kConsumers, int kBlockN>
+struct Smem {
+  static constexpr int kBlockM = 64 * kConsumers;        // q rows per CTA
+  static constexpr uint32_t kQTileBytes = 64 * kHeadDim * 2;  // one WG's Q
+  static constexpr uint32_t kQHalf = 64 * 128;                // bytes
+  static constexpr uint32_t kKvBytes = kBlockN * kHeadDim * 2;  // one tile
+  static constexpr uint32_t kKvHalf = kBlockN * 128;
+  static constexpr uint32_t kQOff = 0;
+  static constexpr uint32_t kKOff = kQOff + kConsumers * kQTileBytes;
+  static constexpr uint32_t kVOff = kKOff + kStages * kKvBytes;
+  static constexpr uint32_t kBarOff = kVOff + kStages * kKvBytes;
+  static constexpr int kNumBars = 1 + 4 * kStages;
+  static constexpr int kBytes = kBarOff + kNumBars * 8 + 1024;  // + align
+};
+
+// The online softmax of one S tile (64 rows x kBlockN keys per consumer,
+// raw scores q . k in the accumulator layout), in place: s becomes p.
+// m_run is the running row max of the raw scores (the max of the scaled
+// scores is m_run * D^-1/2, since the scale is positive); p = exp(s D^-1/2
+// - m) is computed as exp2(s c - m c) with c = D^-1/2 log2(e).  With
+// kMasked, keys above the diagonal (causal) or past Sk are set to -1e30
+// first.  alpha gets the factor that rescales O and l.
+template <bool kMasked, int kBlockN>
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockN / 2],
                                              float (&m_run)[2],
                                              float (&l_run)[2],
                                              float (&alpha)[2], float c,
@@ -131,17 +151,22 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64],
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kConsumers, int kBlockN>
+__global__ void __launch_bounds__(CtaShape<kConsumers>::kThreads,
+                                  CtaShape<kConsumers>::kMinBlocks)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const __grid_constant__ CUtensorMap o_map,
                      float* __restrict__ lse, int heads, int seq_q,
                      int seq_k, float scale, int causal, int tiles_outer) {
+  using L = Smem<kConsumers, kBlockN>;
+  using Cta = CtaShape<kConsumers>;
+  constexpr int kBlockM = L::kBlockM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = k_full + kStages;
@@ -174,36 +199,38 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (wg == kConsumers) {
     // ---- producer ----
-    reg_dealloc<24>();
+    reg_dealloc<Cta::kProducerRegs>();
     if (tid == 0) {
-      mbar_expect_tx(q_full, kConsumers * kQTileBytes);
+      mbar_expect_tx(q_full, kConsumers * L::kQTileBytes);
       for (int w = 0; w < kConsumers; ++w)
         for (int half = 0; half < 2; ++half)
-          tma_load_4d(smem + kQOff + w * kQTileBytes + half * kQHalf, &q_map,
-                      q_full, half * kHalfCols, h, m0 + 64 * w, b);
+          tma_load_4d(smem + L::kQOff + w * L::kQTileBytes + half * L::kQHalf,
+                      &q_map, q_full, half * kHalfCols, h, m0 + 64 * w, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(&k_empty[st], ((j / kStages) - 1) & 1);
-        mbar_expect_tx(&k_full[st], kKvBytes);
+        mbar_expect_tx(&k_full[st], L::kKvBytes);
         for (int half = 0; half < 2; ++half)
-          tma_load_4d(smem + kKOff + st * kKvBytes + half * kKvHalf, &k_map,
-                      &k_full[st], half * kHalfCols, h, j * kBlockN, b);
+          tma_load_4d(smem + L::kKOff + st * L::kKvBytes + half * L::kKvHalf,
+                      &k_map, &k_full[st], half * kHalfCols, h, j * kBlockN,
+                      b);
         if (j >= kStages) mbar_wait(&v_empty[st], ((j / kStages) - 1) & 1);
-        mbar_expect_tx(&v_full[st], kKvBytes);
+        mbar_expect_tx(&v_full[st], L::kKvBytes);
         for (int half = 0; half < 2; ++half)
-          tma_load_4d(smem + kVOff + st * kKvBytes + half * kKvHalf, &v_map,
-                      &v_full[st], half * kHalfCols, h, j * kBlockN, b);
+          tma_load_4d(smem + L::kVOff + st * L::kKvBytes + half * L::kKvHalf,
+                      &v_map, &v_full[st], half * kHalfCols, h, j * kBlockN,
+                      b);
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns q rows m0 + 64 wg .. + 63 ----
-    reg_alloc<240>();
+    reg_alloc<Cta::kConsumerRegs>();
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
     const int row_a = m0 + 64 * wg + 16 * warp + g;  // and row_a + 8
-    unsigned char* sq = smem + kQOff + wg * kQTileBytes;
+    unsigned char* sq = smem + L::kQOff + wg * L::kQTileBytes;
     const uint32_t q_addr = smem_u32(sq);
 
     float o[64];
@@ -213,43 +240,44 @@ __global__ void __launch_bounds__(kThreads, 1)
     float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
     mbar_wait(q_full, 0);
-    float s[64];
+    float s[kBlockN / 2];
     uint32_t pa[kBlockN / 16][4];
-    // S_j = Q K_j^T into s (64 rows x 128 keys per consumer).
+    // S_j = Q K_j^T into s (64 rows x kBlockN keys per consumer).
     auto start_s = [&](int j) {
       const int st = j % kStages;
-      const uint32_t k_addr = smem_u32(smem + kKOff + st * kKvBytes);
+      const uint32_t k_addr = smem_u32(smem + L::kKOff + st * L::kKvBytes);
       mbar_wait(&k_full[st], (j / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < kHeadDim / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_m64n128_ss<0, 0>(
-            s, smem_desc(q_addr + (kk / 4) * kQHalf + off, 0, 1024),
-            smem_desc(k_addr + (kk / 4) * kKvHalf + off, 0, 1024), kk > 0);
+        wgmma_m64nN_ss<kBlockN, 0, 0>(
+            s, smem_desc(q_addr + (kk / 4) * L::kQHalf + off, 0, 1024),
+            smem_desc(k_addr + (kk / 4) * L::kKvHalf + off, 0, 1024),
+            kk > 0);
       }
       wgmma_commit();
     };
     // O += P_j V_j, P from registers, V MN-major (16 keys per k-step).
     auto start_pv = [&](int j) {
       const int st = j % kStages;
-      const uint32_t v_addr = smem_u32(smem + kVOff + st * kKvBytes);
+      const uint32_t v_addr = smem_u32(smem + L::kVOff + st * L::kKvBytes);
       mbar_wait(&v_full[st], (j / kStages) & 1);
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk)
-        wgmma_m64n128_rs<1>(o, pa[kk],
-                            smem_desc(v_addr + kk * 16 * 128, kKvHalf, 1024),
-                            1);
+        wgmma_m64n128_rs<1>(
+            o, pa[kk], smem_desc(v_addr + kk * 16 * 128, L::kKvHalf, 1024),
+            1);
       wgmma_commit();
     };
     const float c = scale * kLog2e;
     float alpha[2];
     auto softmax = [&](int j) {
       if ((causal && j == n_tiles - 1) || (j + 1) * kBlockN > seq_k)
-        softmax_tile<true>(s, m_run, l_run, alpha, c, j * kBlockN, row_a, t,
-                           seq_k, causal);
+        softmax_tile<true, kBlockN>(s, m_run, l_run, alpha, c, j * kBlockN,
+                                    row_a, t, seq_k, causal);
       else
-        softmax_tile<false>(s, m_run, l_run, alpha, c, j * kBlockN, row_a, t,
-                            seq_k, causal);
+        softmax_tile<false, kBlockN>(s, m_run, l_run, alpha, c, j * kBlockN,
+                                     row_a, t, seq_k, causal);
     };
 
     // Tile 0, then per tile j: S_j and P_{j-1} V_{j-1} go to the tensor
@@ -312,38 +340,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int n = 0; n < kHeadDim / 8; ++n) {
       const int c = 8 * n + 2 * t;
-      *reinterpret_cast<uint32_t*>(sq + swizzled_offset(r, c, kQHalf)) =
+      *reinterpret_cast<uint32_t*>(sq + swizzled_offset(r, c, L::kQHalf)) =
           pack_bf16x2(o[4 * n] / l_fin[0], o[4 * n + 1] / l_fin[0]);
-      *reinterpret_cast<uint32_t*>(sq + swizzled_offset(r + 8, c, kQHalf)) =
+      *reinterpret_cast<uint32_t*>(sq + swizzled_offset(r + 8, c, L::kQHalf)) =
           pack_bf16x2(o[4 * n + 2] / l_fin[1], o[4 * n + 3] / l_fin[1]);
     }
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (tid == 0) {
       for (int half = 0; half < 2; ++half)
-        tma_store_4d(&o_map, sq + half * kQHalf, half * kHalfCols, h,
+        tma_store_4d(&o_map, sq + half * L::kQHalf, half * kHalfCols, h,
                      m0 + 64 * wg, b);
       tma_store_commit_and_wait();
     }
   }
 }
 
-}  // namespace
-
-// Launch on `stream`.  Pointers are device pointers in [B, S, H, D] layout
-// with unit stride over D (D must be 128, strides multiples of 8 elements,
-// 16-byte aligned starts); strides are in elements.  lse is a contiguous
-// fp32 [B, H, Sq].  Causal requires seq_q == seq_k.  Returns
-// cudaErrorInvalidValue if a tensor map is refused, else cudaGetLastError()
-// after the launch.
-extern "C" int nos_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int batch, int heads,
-                             int seq_q, int seq_k, int64_t q_sb, int64_t q_ss,
-                             int64_t q_sh, int64_t k_sb, int64_t k_ss,
-                             int64_t k_sh, int64_t v_sb, int64_t v_ss,
-                             int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                             int64_t o_sh, float scale, int causal,
-                             void* stream) {
+template <int kConsumers, int kBlockN>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int batch, int heads, int seq_q, int seq_k,
+               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+               int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+               int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+               float scale, int causal, void* stream) {
+  using L = Smem<kConsumers, kBlockN>;
+  constexpr int kThreads = CtaShape<kConsumers>::kThreads;
   CUtensorMap q_map, k_map, v_map, o_map;
   if (!make_bshd_map(&q_map, q, batch, seq_q, heads, q_sb, q_ss, q_sh, 64) ||
       !make_bshd_map(&k_map, k, batch, seq_k, heads, k_sb, k_ss, k_sh,
@@ -353,8 +374,8 @@ extern "C" int nos_flash_fwd(const void* q, const void* k, const void* v,
       !make_bshd_map(&o_map, o, batch, seq_q, heads, o_sb, o_ss, o_sh, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_fwd_kernel<kConsumers, kBlockN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Launch order: when K and V fit in the L2 cache, every (b, h)'s
   // heaviest q tiles go first, which shortens the causal tail; larger
@@ -364,14 +385,42 @@ extern "C" int nos_flash_fwd(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (seq_q + kBlockM - 1) / kBlockM;
+  const int tiles = (seq_q + L::kBlockM - 1) / L::kBlockM;
   const double kv_bytes = 4.0 * batch * heads * seq_k * kHeadDim;
   const int tiles_outer = kv_bytes <= l2_bytes && tiles <= 65535;
   const dim3 grid = tiles_outer ? dim3(heads, batch, tiles)
                                 : dim3(tiles, heads, batch);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, o_map, static_cast<float*>(lse), heads, seq_q,
-      seq_k, scale, causal, tiles_outer);
+  flash_fwd_kernel<kConsumers, kBlockN>
+      <<<grid, kThreads, L::kBytes, static_cast<cudaStream_t>(stream)>>>(
+          q_map, k_map, v_map, o_map, static_cast<float*>(lse), heads, seq_q,
+          seq_k, scale, causal, tiles_outer);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on `stream`.  Pointers are device pointers in [B, S, H, D] layout
+// with unit stride over D (D must be 128, strides multiples of 8 elements,
+// 16-byte aligned starts); strides are in elements.  lse is a contiguous
+// fp32 [B, H, Sq].  Causal requires seq_q == seq_k.  (block_q, block_k)
+// picks the compiled tile, (128, 128) or (64, 64); any other returns
+// cudaErrorInvalidValue, as does a refused tensor map; else
+// cudaGetLastError() after the launch.
+extern "C" int nos_flash_fwd(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int batch, int heads,
+                             int seq_q, int seq_k, int64_t q_sb, int64_t q_ss,
+                             int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                             int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                             int64_t v_sh, int64_t o_sb, int64_t o_ss,
+                             int64_t o_sh, float scale, int causal,
+                             int block_q, int block_k, void* stream) {
+  if (block_q == 128 && block_k == 128)
+    return launch_fwd<2, 128>(q, k, v, o, lse, batch, heads, seq_q, seq_k,
+                              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                              v_sh, o_sb, o_ss, o_sh, scale, causal, stream);
+  if (block_q == 64 && block_k == 64)
+    return launch_fwd<1, 64>(q, k, v, o, lse, batch, heads, seq_q, seq_k,
+                             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                             v_sh, o_sb, o_ss, o_sh, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

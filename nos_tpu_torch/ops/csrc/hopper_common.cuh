@@ -61,6 +61,22 @@ constexpr int kHeadDim = 128;
 constexpr int kHalfCols = 64;           // bf16 columns in one 128-byte row
 constexpr float kNegInf = -1e30f;
 
+// A warp-specialised CTA of kConsumers consumer warpgroups and one
+// producer warpgroup.  With two consumers (384 threads) one CTA fills an
+// SM: 168 registers a thread at entry, then 24 for the producer and 240
+// for the consumers by setmaxnreg.  With one (256 threads) the kernels are
+// built for two CTAs an SM, so a CTA has 32,768 registers: 128 a thread
+// at entry, then 24 for the producer and 232 for the consumer, which is
+// all the producer gives up ((128 - 24) * 128 = (232 - 128) * 128).
+template <int kConsumers>
+struct CtaShape {
+  static_assert(kConsumers == 1 || kConsumers == 2, "one or two consumers");
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kMinBlocks = kConsumers == 1 ? 2 : 1;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 1 ? 232 : 240;
+};
+
 // ---- host: tensor maps ---------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(
@@ -323,6 +339,18 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
       "}\n"
       : NOS_F64
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x N, fp32) = (accumulate ? d : 0) + A . B for N = 64 or 128, both
+// from shared memory.
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64nN_ss(float (&d)[N / 2], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_m64n128_ss<kTransA, kTransB>(d, da, db, accumulate);
+  else
+    wgmma_m64n64_ss<kTransA, kTransB>(d, da, db, accumulate);
 }
 
 // d (64 x 128, fp32) = (accumulate ? d : 0) + A . B with A (64 x 16 bf16)

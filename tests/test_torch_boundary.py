@@ -46,7 +46,8 @@ def _port_files():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_serve.py",
         ROOT / "scripts" / "profile_torch_train.py",
         ROOT / "scripts" / "profile_torch_moe.py",
-        ROOT / "scripts" / "ab_flash_kernel.py"]
+        ROOT / "scripts" / "ab_flash_kernel.py",
+        ROOT / "scripts" / "sweep_flash_torch.py"]
 
 
 _IMPORT_ALL = """
@@ -71,7 +72,7 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
     result = json.loads(out.strip().splitlines()[-1])
     for module in ("models.generate", "models.train", "models.data",
                    "models.checkpoint", "models.moe", "ops.attention",
-                   "ops.roofline", "parallel.mesh", "parallel.ring",
+                   "ops.autotune", "ops.roofline", "parallel.mesh", "parallel.ring",
                    "parallel.pipeline", "api.config", "exporter.metrics",
                    "cmd.train", "testing.ranks", "entry"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
