@@ -6,6 +6,14 @@ Phases, one JSON line each; any failure exits non-zero with no result:
 
 1. env: the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 is switched off for fp32 matmuls and convolutions.
+   device: in a fresh process with no CUDA context,
+   ``discover(allow_cuda=False)`` must read the card through NVML
+   (source "env", the model nvidia-h100-80gb-hbm3) and leave CUDA
+   unstarted; then, with CUDA started, the device rung must report the
+   same name, UUID and memory (within DEVICE_MEM_TOL).  The MIG mode is
+   printed; on a card in MIG mode NVML's GPU instance profiles and
+   possible placements are held against ``topology/known.py``.  Nothing
+   is created or destroyed and no MIG mode is changed.
 2. build: nvcc builds every kernel in nos_tpu_torch/ops/csrc/ (all
    sources at once) into nos_tpu_torch/_kernels/, and reports each
    compiled tile's ptxas registers and spill bytes.
@@ -77,6 +85,18 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    at a 2-layer cut on a 2 x 2048 batch, the index dispatch against the
    einsum reference (``moe_mlp_reference``) and flash against dense
    attention, loss and gradients.
+8. grant: the training main as a pod runs it, ``python -m
+   nos_tpu_torch.cmd.train``, in three fresh processes on train_main's
+   configuration (BENCH_350M_TRAIN, 8 x 2048, seed 0, 2 steps), each
+   reusing the built kernels (nvcc hidden from it, the kernel directory
+   unchanged): (a) the card's UUID and a 24 GB timeshare grant must exit
+   0 with the grant verified, train_main's step-0 loss, 24 K1 + 24 K2
+   a step and its peak under the installed cap; (b) an 8 GB grant, a cap
+   below that peak, must fail with the cap's OutOfMemoryError; (c) a
+   UUID of no device on the machine must stop with ConfinementError
+   before any step.  Each child's exit code, wall seconds, fraction, cap
+   and peak go on the phase's line; its launches stay off the kernels
+   line, which counts the in-process paths.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path; a tile no path ran must have run in the autotune
@@ -93,6 +113,7 @@ import json
 import logging
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1146,7 +1167,7 @@ def phase_train_main(trainer_loss0: float) -> dict[str, int]:
                      "restore_ms": [x * 1e3 for x in restores],
                      "checkpoint_bytes": ck_bytes}})
     dist.destroy_process_group()
-    return launches
+    return launches, losses[0]
 
 
 # The moe phase: untimed and timed steps; the cut's depth and batch rows.
@@ -1448,12 +1469,266 @@ def phase_moe() -> dict[str, int]:
     return launches
 
 
+
+# The device phase: NVML's total memory of the card against CUDA's.
+DEVICE_MEM_TOL = 1 << 20
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def device_probe() -> dict:
+    """The device phase's child, in a process with no CUDA context: NVML
+    first (``discover(allow_cuda=False)``, the runtime's topology, MIG
+    devices and, on a card in MIG mode, the profile table), then CUDA
+    started and the device rung read."""
+    from nos_tpu_torch.device import discovery, nvml
+
+    env = discovery.discover(allow_cuda=False)
+    out = {"env": dataclasses.asdict(env) | {"model": env.model.name},
+           "cuda_initialized_after_env": torch.cuda.is_initialized()}
+    runtime = nvml.NvmlGpuRuntime()
+    try:
+        out["topology"] = runtime.topology()
+        out["nvml_gpus"] = nvml.read_gpus(runtime.nvml)
+        out["mig_devices"] = runtime.list_devices().ids()
+        out["mig_tables"] = {}
+        for g in out["nvml_gpus"]:
+            if g["mig"]:
+                table = nvml.read_profile_table(
+                    runtime.nvml, runtime.nvml.handle(g["index"]),
+                    runtime.model)
+                out["mig_tables"][g["uuid"]] = {
+                    "observed": table, "mismatches":
+                        nvml.profile_table_mismatches(runtime.model, table)}
+    finally:
+        runtime.close()
+    out["cuda_initialized_after_runtime"] = torch.cuda.is_initialized()
+    torch.cuda.init()
+    dev = discovery.discover(allow_cuda=True)
+    out["device"] = dataclasses.asdict(dev) | {"model": dev.model.name}
+    out["sm_count"] = torch.cuda.get_device_properties(0).multi_processor_count
+    return out
+
+
+def _child_env(**grant: str) -> dict[str, str]:
+    """The environment of a child process: this one's without any grant
+    or CUDA visibility key, with ``grant`` added and the repo on the
+    path."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("NOS_TPU_VISIBLE_CHIPS")
+           and not k.startswith("NOS_TPU_TIMESHARE_GB")
+           and k not in ("NOS_TPU_SLICE_IDS", "NOS_TPU_TORCH_MEM_FRACTION",
+                         "CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER")}
+    env["PYTHONPATH"] = str(ROOT)
+    env.update(grant)
+    return env
+
+
+def phase_device() -> dict:
+    """Discovery on the card: NVML without a CUDA context, agreeing with
+    the CUDA rung; the MIG table checked where the card is in MIG mode.
+    Changes no MIG mode and creates or destroys nothing."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.device_probe()))"],
+        cwd=ROOT, env=_child_env(), capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        fail(f"the device probe exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    env, dev = got["env"], got["device"]
+    if env["source"] != "env":
+        fail(f"discover(allow_cuda=False) came from {env['source']!r}, "
+             f"not NVML ('env')")
+    if env["model"] != "nvidia-h100-80gb-hbm3":
+        fail(f"NVML discovered {env['model']!r} ({env['product_name']!r})")
+    if got["cuda_initialized_after_env"] \
+            or got["cuda_initialized_after_runtime"]:
+        fail("NVML discovery started CUDA")
+    if dev["source"] != "device":
+        fail(f"discover() with CUDA up came from {dev['source']!r}")
+    nvml_by_uuid = {u.lower(): (m, i) for i, (u, m) in enumerate(
+        zip(env["uuids"], env["memory_bytes"]))}
+    cuda_uuid = dev["uuids"][0].lower()
+    if cuda_uuid not in nvml_by_uuid:
+        fail(f"CUDA device 0 ({cuda_uuid}) is not among NVML's GPUs "
+             f"{env['uuids']}")
+    nvml_mem, index = nvml_by_uuid[cuda_uuid]
+    nvml_gpu = got["nvml_gpus"][index]
+    mem_diff = abs(dev["memory_bytes"][0] - nvml_mem)
+    if dev["product_name"] != env["product_name"] \
+            or mem_diff > DEVICE_MEM_TOL:
+        fail(f"NVML read {env['product_name']!r} with {nvml_mem} B, CUDA "
+             f"{dev['product_name']!r} with {dev['memory_bytes'][0]} B")
+    mig = env["mig_modes"][index]
+    mismatches = {u: t["mismatches"] for u, t in got["mig_tables"].items()}
+    if mig and not got["mig_tables"]:
+        fail("the card is in MIG mode but no profile table was read")
+    if any(mismatches.values()):
+        fail(f"NVML's MIG profiles disagree with topology/known.py: "
+             f"{mismatches}")
+    emit({"phase": "device", "seconds": time.perf_counter() - t0,
+          "source_nvml": env["source"], "source_cuda": dev["source"],
+          "model": env["model"], "product_name": env["product_name"],
+          "gpus_nvml": env["num_local_gpus"], "gpus_cuda":
+              dev["num_local_gpus"], "uuid": dev["uuids"][0],
+          "memory_bytes_nvml": nvml_mem,
+          "memory_total_nvml": nvml_gpu["memory_total"],
+          "memory_reserved_nvml": nvml_gpu["memory_reserved"],
+          "memory_bytes_cuda": dev["memory_bytes"][0],
+          "memory_diff_bytes": mem_diff, "sm_count": got["sm_count"],
+          "cuda_initialized_after_nvml": False,
+          "mig": "enabled" if mig else "disabled",
+          "mig_devices": got["mig_devices"],
+          "mig_table": got["mig_tables"] if mig else "not checked: MIG "
+                                                     "is disabled"})
+    return {"uuid": dev["uuids"][0], "memory_bytes": dev["memory_bytes"][0]}
+
+
+# The grant phase: three children of the training main on train_main's
+# configuration, two steps each.  (a) a 24 GB timeshare grant of the
+# card: a cap of 24 / 80 x 0.9 of its memory, above the run's peak;
+# (b) 8 GB, a cap below it, which must fail the step with torch's OOM;
+# (c) a well-formed UUID of no device here, which must stop the main
+# with ConfinementError before any step.
+GRANT_STEPS = 2
+GRANT_GB = {"a": 24, "b": 8}
+ABSENT_UUID = "GPU-deadbeef-0000-4000-8000-000000000000"
+_STEP_LINE = re.compile(r"step (\d+)/\d+ loss (\S+) \(([\d.]+) tokens/s")
+_PORT_FRAME = re.compile(r'File "[^"]*/(nos_tpu_torch/[^"]+)", line (\d+), '
+                         r'in (\S+)')
+
+
+def _run_grant_child(case: str, cfg_path: str, grant: dict,
+                     no_nvcc: str) -> dict:
+    import os
+
+    env = _child_env(**grant)
+    # the kernels are built: a child that starts nvcc finds none
+    env["CUDA_HOME"] = no_nvcc
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not pathlib.Path(d, "nvcc").exists())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nos_tpu_torch.cmd.train", "--config",
+         cfg_path], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    err = proc.stderr
+    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+             for m in _STEP_LINE.finditer(err)]
+    done = [ln for ln in err.splitlines() if "done: " in ln and " grant " in ln]
+    report = (json.loads(done[-1].split(" grant ", 1)[1]) if done else None)
+    frames = _PORT_FRAME.findall(err)
+    return {"case": case, "grant": grant, "rc": proc.returncode,
+            "wall_s": wall, "steps": steps, "report": report,
+            "last_port_frame": ":".join(frames[-1]) if frames else None,
+            "stderr": err}
+
+
+def phase_grant(main_loss0: float, device: dict) -> dict:
+    """The training main under three grants, each a fresh process that
+    reuses the built kernels (nvcc hidden from it, the kernel directory
+    unchanged): see GRANT_GB."""
+    from nos_tpu_torch.device.workload_env import CEILING, SAFETY
+    from nos_tpu_torch.entry import TRAIN_BATCH, TRAIN_SEQ
+    from nos_tpu_torch.models.llama import BENCH_350M_TRAIN
+    from nos_tpu_torch.ops import _build
+    from nos_tpu_torch.topology import H100_80GB
+
+    layers = BENCH_350M_TRAIN.num_layers
+    uuid, total = device["uuid"], device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    children = {}
+    with tempfile.TemporaryDirectory(prefix="nos-grant-") as tmp:
+        cfg_path = str(pathlib.Path(tmp) / "train.json")
+        pathlib.Path(cfg_path).write_text(json.dumps({
+            "model": "bench350m", "batch_size": TRAIN_BATCH,
+            "seq_len": TRAIN_SEQ, "steps": GRANT_STEPS, "data_seed": 0,
+            "log_every": 1}))
+        no_nvcc = str(pathlib.Path(tmp) / "no-cuda-home")
+        pathlib.Path(no_nvcc).mkdir()
+        for case, gb in GRANT_GB.items():
+            children[case] = _run_grant_child(
+                case, cfg_path, {"NOS_TPU_VISIBLE_CHIPS": uuid,
+                                 "NOS_TPU_TIMESHARE_GB": str(gb)}, no_nvcc)
+        children["c"] = _run_grant_child(
+            "c", cfg_path, {"NOS_TPU_VISIBLE_CHIPS": ABSENT_UUID}, no_nvcc)
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a grant child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    for case, gb in GRANT_GB.items():
+        fraction = round(min(gb / H100_80GB.memory_gb * SAFETY, CEILING), 3)
+        children[case]["fraction"] = fraction
+        children[case]["cap_bytes"] = int(fraction * total)
+
+    a = children["a"]
+    r = a["report"]
+    if a["rc"] != 0 or r is None:
+        fail(f"grant (a) exited {a['rc']}:\n{a['stderr'][-4000:]}")
+    if not (r["verified"] and r["devices"] == [uuid]
+            and r["fraction"] == a["fraction"]
+            and r["cap_bytes"] == a["cap_bytes"]):
+        fail(f"grant (a) verified {r}, expected {uuid} at fraction "
+             f"{a['fraction']}")
+    _check_launches("grant (a)", r["launches"], {
+        "flash_fwd": GRANT_STEPS * layers,
+        "flash_bwd_fused": GRANT_STEPS * layers})
+    if [s[0] for s in a["steps"]] != list(range(1, GRANT_STEPS + 1)) \
+            or not all(math.isfinite(s[1]) for s in a["steps"]):
+        fail(f"grant (a) logged steps {a['steps']}")
+    loss0_rel = abs(a["steps"][0][1] - main_loss0) / abs(main_loss0)
+    if not loss0_rel <= MAIN_LOSS0_RTOL:
+        fail(f"grant (a)'s step-0 loss {a['steps'][0][1]} against the "
+             f"train_main phase's {main_loss0}: {loss0_rel} relative (tol "
+             f"{MAIN_LOSS0_RTOL})")
+    a["peak_bytes"] = r["max_memory_allocated"]
+    a["peak_reserved_bytes"] = r["max_memory_reserved"]
+    if not (r["max_memory_allocated"] < a["cap_bytes"]
+            and r["max_memory_reserved"] <= a["cap_bytes"]):
+        fail(f"grant (a) peaked at {r['max_memory_allocated']} B allocated, "
+             f"{r['max_memory_reserved']} B reserved, over its cap "
+             f"{a['cap_bytes']} B")
+
+    b = children["b"]
+    # torch names the cap ("... allowed;") when the fraction refused it
+    if b["rc"] == 0 or "OutOfMemoryError" not in b["stderr"] \
+            or " allowed;" not in b["stderr"]:
+        fail(f"grant (b), a cap of {b['cap_bytes']} B below the run's peak, "
+             f"exited {b['rc']} without the cap's OutOfMemoryError: the cap "
+             f"did not bind\n{b['stderr'][-4000:]}")
+    if b["report"] is not None:
+        fail("grant (b) reached the end of the main")
+
+    c = children["c"]
+    if c["rc"] == 0 or "ConfinementError" not in c["stderr"] \
+            or c["steps"]:
+        fail(f"grant (c), a device not on the host, exited {c['rc']} "
+             f"after steps {c['steps']}:\n{c['stderr'][-4000:]}")
+    emit({"phase": "grant", "model": "BENCH_350M_TRAIN", "layers": layers,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": GRANT_STEPS,
+          "card_memory_bytes": total, "main_loss0": main_loss0,
+          "loss0_rel_diff": loss0_rel, "loss0_rtol": MAIN_LOSS0_RTOL,
+          "launches": r["launches"], "children": [
+              {k: v for k, v in ch.items() if k != "stderr"}
+              | {"oom_at_cap": " allowed;" in ch["stderr"]}
+              for ch in children.values()]})
+    return r["launches"]
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke runs on the card only")
     smi = phase_env()
+    device = phase_device()
     resources = phase_build()
     with tempfile.TemporaryDirectory(prefix="nos-no-cache-") as empty:
         _no_measured_cache(empty)
@@ -1463,8 +1738,10 @@ def main() -> int:
         _no_measured_cache(empty)
         serve = phase_serve()
         train, loss0 = phase_train()
-        train_main = phase_train_main(loss0)
+        train_main, main_loss0 = phase_train_main(loss0)
         moe = phase_moe()
+        # the grant children see the same PRETUNED-only cache
+        phase_grant(main_loss0, device)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe}
     for entry in entries:

@@ -16,18 +16,25 @@ This is the workload side of the framework: the control plane carves a
 slice and gang-schedules the pods; each pod runs this main.  The entry
 points run on the card unless ``device="cpu"`` is passed (the tests do).
 
+``main`` honors the pod's device grant as the JAX main does
+(``device/workload_env``): ``apply`` before the first CUDA call sets the
+granted visibility, and ``validate_confinement``, once CUDA is up and
+before the process group or any allocation, proves that CUDA shows
+exactly the granted devices and installs a timeshare grant's memory cap
+(a ConfinementError stops the run before any step).  At exit it logs the
+grant it verified, the cap, the peak memory and the flash launches.
+
 Not in the port yet: the pod hooks' kube client and the ``/healthz`` +
 ``/metrics`` server (``cmd/_runtime.Main``) are control-plane modules
 (ROADMAP.md item 32), so a ``kubeconfig``, ``health_probe_addr`` or
-``metrics_addr`` raises NotImplementedError instead of being ignored;
-``device/workload_env``'s ``apply`` and ``validate_confinement``, which
-the JAX main calls first, wait for item 21.
+``metrics_addr`` raises NotImplementedError instead of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import math
 import os
@@ -40,6 +47,7 @@ import torch.distributed as dist
 
 from nos_tpu_torch import resolve_device
 from nos_tpu_torch.api.config import ConfigError, ManagerConfig, load_config
+from nos_tpu_torch.device import workload_env
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.parallel.mesh import backend_for
 
@@ -53,9 +61,8 @@ REGISTRY.describe("nos_tpu_train_mfu",
                   "Model FLOPs utilization over the last log interval "
                   "(analytic fwd+bwd FLOPs vs the device bf16 peak)")
 
-_CONTROL_PLANE = ("the kube client and the health/metrics server are "
-                  "control-plane modules the port does not have yet "
-                  "(ROADMAP.md item 32)")
+_CONTROL_PLANE = ("the kube client and the health/metrics server are not "
+                  "in the port yet (ROADMAP.md item 32)")
 
 
 @dataclasses.dataclass
@@ -368,17 +375,49 @@ def main(argv=None) -> int:
         print(f"invalid config: {e}", file=sys.stderr)
         return 2
     _refuse_control_plane(cfg)
+    # honor the device grant BEFORE the first CUDA call: CUDA reads its
+    # visibility once, when it starts
+    workload_env.apply()
+    # ... and once CUDA is up, before the process group and any
+    # allocation, PROVE the grant took and install the memory cap: a
+    # ConfinementError stops the run before a step can use another
+    # workload's device or memory
+    verified = workload_env.validate_confinement()
     created = maybe_init_distributed("cuda")
     try:
         loss = train(cfg)
     finally:
         if created:
             dist.destroy_process_group()
-    if loss is None:
-        logger.info("done: already complete")
-    else:
-        logger.info("done: final loss %.4f", loss)
+    done = ("done: already complete" if loss is None
+            else f"done: final loss {loss:.4f}")
+    logger.info("%s grant %s", done, json.dumps(grant_report(verified)))
     return 0
+
+
+def grant_report(verified: bool, environ=None) -> dict:
+    """What the main's last line says of its grant: the devices and GB
+    granted, whether validate_confinement verified them, the memory cap
+    installed (fraction and bytes of device 0), the peak memory, and the
+    flash kernels' launches (K1, K2)."""
+    from nos_tpu_torch.ops import attention as A
+
+    env = environ if environ is not None else os.environ
+    report = {"verified": verified,
+              "devices": workload_env.granted_device_ids(env),
+              "timeshare_gb": workload_env.granted_timeshare_gb(env),
+              "fraction": workload_env.memory_fraction(env),
+              "cap_bytes": None, "max_memory_allocated": None,
+              "max_memory_reserved": None,
+              "launches": {"flash_fwd": A.FLASH_FWD_LAUNCHES,
+                           "flash_bwd_fused": A.FLASH_BWD_FUSED_LAUNCHES}}
+    if torch.cuda.is_initialized():
+        total = torch.cuda.get_device_properties(0).total_memory
+        if verified and report["fraction"] is not None:
+            report["cap_bytes"] = int(report["fraction"] * total)
+        report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        report["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+    return report
 
 
 if __name__ == "__main__":

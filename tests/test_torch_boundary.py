@@ -74,7 +74,10 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "models.checkpoint", "models.moe", "ops.attention",
                    "ops.autotune", "ops.roofline", "parallel.mesh", "parallel.ring",
                    "parallel.pipeline", "api.config", "exporter.metrics",
-                   "cmd.train", "testing.ranks", "entry"):
+                   "cmd.train", "testing.ranks", "entry", "topology.known",
+                   "topology.packing", "topology.profile", "device.fake",
+                   "device.nvml", "device.discovery", "device.workload_env",
+                   "testing.nvml"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad

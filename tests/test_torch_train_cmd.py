@@ -5,10 +5,15 @@ attention): the loop and its checkpoints, resume at the latest step, the
 "already complete" None, a fresh run into a used directory refused, the
 config checks; torchrun's environment failing fast; the exits at a
 checkpoint on a dp-resize or a migration; NotImplementedError for the
-control-plane settings; and dryrun_multigpu on 2, 4 and 6 ranks."""
+control-plane settings; the device grant's order in ``main`` (apply,
+then validate, then the process group); and dryrun_multigpu on 2, 4 and
+6 ranks."""
 
+import contextlib
 import json
+import logging
 import math
+import types
 
 import pytest
 import torch
@@ -224,3 +229,133 @@ def test_dryrun_multigpu_needs_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         dryrun_multigpu(2)
+
+
+class TestGrantInTheMain:
+    """``main`` applies the grant before any CUDA call, validates it once
+    CUDA is up and before the process group, and a ConfinementError stops
+    it before ``train`` (CUDA's calls recorded under a CPU-only
+    torch)."""
+
+    CUDA_CALLS = ("init", "_lazy_init", "is_available", "device_count",
+                  "get_device_properties", "get_device_name", "set_device",
+                  "current_device", "set_per_process_memory_fraction",
+                  "device")
+
+    @pytest.fixture
+    def order(self, monkeypatch, tmp_path):
+        from nos_tpu_torch.device import workload_env
+
+        calls = []
+        props = types.SimpleNamespace(
+            name="NVIDIA H100 80GB HBM3", total_memory=85_017_493_504,
+            uuid="5d7b5fb2-1c5c-4b3f-9a41-0c2e7d9f8e11")
+        fakes = {"device_count": lambda: 1,
+                 "get_device_properties": lambda i: props,
+                 "device": lambda i: contextlib.nullcontext()}
+        for name in self.CUDA_CALLS:
+            impl = fakes.get(name, lambda *a, **k: None)
+            monkeypatch.setattr(torch.cuda, name,
+                                lambda *a, _n=name, _f=impl, **k:
+                                calls.append(f"cuda.{_n}") or _f(*a, **k))
+        monkeypatch.setattr(torch.backends.cuda, "is_built", lambda: True)
+        for fn in ("apply", "validate_confinement"):
+            real = getattr(workload_env, fn)
+            monkeypatch.setattr(workload_env, fn,
+                                lambda *a, _n=fn, _r=real, **k:
+                                calls.append(_n) or _r(*a, **k))
+        monkeypatch.setattr(cmd, "maybe_init_distributed",
+                            lambda *a, **k: calls.append("init_distributed")
+                            or False)
+        monkeypatch.setattr(cmd, "train",
+                            lambda *a, **k: calls.append("train") or 1.0)
+        for key in ("CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
+                    workload_env.ENV_MEM_FRACTION):
+            monkeypatch.setenv(key, "unset")
+            monkeypatch.delenv(key)
+        path = tmp_path / "train.json"
+        path.write_text(json.dumps({"model": "tiny"}))
+        return calls, str(path)
+
+    def test_apply_before_cuda_then_validate_before_the_group(
+            self, order, monkeypatch):
+        calls, path = order
+        monkeypatch.setenv("NOS_TPU_VISIBLE_CHIPS",
+                           "GPU-5d7b5fb2-1c5c-4b3f-9a41-0c2e7d9f8e11")
+        monkeypatch.setenv("NOS_TPU_TIMESHARE_GB", "24")
+        assert cmd.main(["--config", path]) == 0
+        assert calls[0] == "apply"
+        assert calls[1] == "validate_confinement"
+        assert "cuda.set_per_process_memory_fraction" in calls
+        assert calls.index("cuda.set_per_process_memory_fraction") < \
+            calls.index("init_distributed") < calls.index("train")
+        import os
+
+        assert os.environ["CUDA_VISIBLE_DEVICES"] == \
+            "GPU-5d7b5fb2-1c5c-4b3f-9a41-0c2e7d9f8e11"
+        assert os.environ["CUDA_DEVICE_ORDER"] == "PCI_BUS_ID"
+
+    def test_confinement_error_stops_before_train(self, order, monkeypatch):
+        from nos_tpu_torch.device.workload_env import ConfinementError
+
+        calls, path = order
+        monkeypatch.setenv("NOS_TPU_VISIBLE_CHIPS",
+                           "GPU-00000000-1111-2222-3333-444444444444")
+        with pytest.raises(ConfinementError):
+            cmd.main(["--config", path])
+        assert "train" not in calls and "init_distributed" not in calls
+        assert "cuda.set_per_process_memory_fraction" not in calls
+
+    def test_zero_devices_is_a_confinement_error_not_no_cuda(
+            self, order, monkeypatch):
+        from nos_tpu_torch.device.workload_env import ConfinementError
+
+        calls, path = order
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+        monkeypatch.setenv("NOS_TPU_VISIBLE_CHIPS", "0")
+        with pytest.raises(ConfinementError, match="CUDA sees 0"):
+            cmd.main(["--config", path])
+        assert "init_distributed" not in calls
+
+    def test_cpu_path_installs_no_cap(self, order, monkeypatch):
+        calls, path = order
+        monkeypatch.setattr(torch.backends.cuda, "is_built", lambda: False)
+        monkeypatch.setenv("NOS_TPU_TIMESHARE_GB", "24")
+        assert cmd.main(["--config", path]) == 0
+        assert not [c for c in calls if c.startswith("cuda.")]
+
+    def test_the_last_line_reports_the_grant(self, order, monkeypatch,
+                                             caplog):
+        calls, path = order
+        monkeypatch.setenv("NOS_TPU_TIMESHARE_GB", "24")
+        with caplog.at_level(logging.INFO, logger="nos_tpu_torch.cmd.train"):
+            assert cmd.main(["--config", path]) == 0
+        done = [r.getMessage() for r in caplog.records
+                if r.getMessage().startswith("done: final loss 1.0000 grant ")]
+        assert len(done) == 1
+        report = json.loads(done[0].split(" grant ", 1)[1])
+        assert report["verified"] is True and report["fraction"] == 0.27
+        assert report["devices"] == [] and report["timeshare_gb"] == 24.0
+        assert set(report["launches"]) == {"flash_fwd", "flash_bwd_fused"}
+        # CUDA never started: no memory to read
+        assert report["max_memory_allocated"] is None
+
+    def test_grant_report_on_the_card(self, monkeypatch):
+        from nos_tpu_torch.ops import attention as A
+
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda i: types.SimpleNamespace(
+                                total_memory=85_017_493_504))
+        monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 7)
+        monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda: 8)
+        monkeypatch.setattr(A, "FLASH_FWD_LAUNCHES", 48)
+        monkeypatch.setattr(A, "FLASH_BWD_FUSED_LAUNCHES", 48)
+        env = {"NOS_TPU_TIMESHARE_GB": "24", "NOS_TPU_VISIBLE_CHIPS": "0",
+               "NOS_TPU_TORCH_MEM_FRACTION": "0.270"}
+        assert cmd.grant_report(True, env) == {
+            "verified": True, "devices": [0], "timeshare_gb": 24.0,
+            "fraction": 0.27, "cap_bytes": int(0.27 * 85_017_493_504),
+            "max_memory_allocated": 7, "max_memory_reserved": 8,
+            "launches": {"flash_fwd": 48, "flash_bwd_fused": 48}}
+        assert cmd.grant_report(False, env)["cap_bytes"] is None
