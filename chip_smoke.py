@@ -97,6 +97,27 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    before any step.  Each child's exit code, wall seconds, fraction, cap
    and peak go on the phase's line; its launches stay off the kernels
    line, which counts the in-process paths.
+9. partition: the MPS partitioning planner.  (a) ``GeometryPlanner.plan``
+   on ``testing/fleet.py``'s fleet (32 nodes x 8 H100 80GB, half full,
+   200 pending pods, seed 0) on the card machine's host, once untimed
+   and PLAN_TIMED times timed on fresh snapshots: the plans must be
+   identical, hold no GPU over 80 GB of shares, keep every used share,
+   and hash to the digest ``testing/fleet.py`` pins (the JAX package's
+   plan, held in the CPU tests).  (b) The card's own node (the model
+   and memory discovery found, GPU 0) planned for four 24 GB pods and
+   actuated through ``GeometryActuator`` and ``TimesharePartitioner``
+   onto an in-memory API server: the device plugin's ConfigMap must hold
+   one key for the node, giving GPU 0 three 24 GB replicas, and the
+   fourth pod must stay lacking.  Then, standing in for the timeshare
+   plugin's Allocate, one ``python -m nos_tpu_torch.cmd.train`` child
+   per replica, all three at once, each under the grant its replica
+   stands for (the card's UUID, 24 GB) with grant's configuration and
+   nvcc hidden: each as grant (a) must, and the three step windows
+   (first step's start to last step's log line, on the host's clock)
+   must intersect, so that the three ran their steps on the card at
+   once.  The three reserved peaks together stay under the card's
+   memory, which the per-child caps already imply.  The children's
+   launches go on the phase's line, as grant's do.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path; a tile no path ran must have run in the autotune
@@ -106,7 +127,9 @@ phase), the card's ``name, power.limit`` and, last,
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import datetime
 import functools
 import gc
 import json
@@ -1585,7 +1608,8 @@ def phase_device() -> dict:
           "mig_devices": got["mig_devices"],
           "mig_table": got["mig_tables"] if mig else "not checked: MIG "
                                                      "is disabled"})
-    return {"uuid": dev["uuids"][0], "memory_bytes": dev["memory_bytes"][0]}
+    return {"uuid": dev["uuids"][0], "memory_bytes": dev["memory_bytes"][0],
+            "model": env["model"]}
 
 
 # The grant phase: three children of the training main on train_main's
@@ -1598,6 +1622,9 @@ GRANT_STEPS = 2
 GRANT_GB = {"a": 24, "b": 8}
 ABSENT_UUID = "GPU-deadbeef-0000-4000-8000-000000000000"
 _STEP_LINE = re.compile(r"step (\d+)/\d+ loss (\S+) \(([\d.]+) tokens/s")
+# the training main's log format: "%(asctime)s %(levelname)s %(name)s: ..."
+_STEP_STAMP = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) \S+ \S+: "
+                         r"step (\d+)/\d+ loss \S+ \(([\d.]+) tokens/s", re.M)
 _PORT_FRAME = re.compile(r'File "[^"]*/(nos_tpu_torch/[^"]+)", line (\d+), '
                          r'in (\S+)')
 
@@ -1621,24 +1648,94 @@ def _run_grant_child(case: str, cfg_path: str, grant: dict,
     err = proc.stderr
     steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
              for m in _STEP_LINE.finditer(err)]
+    # (step, host wall-clock seconds of its log line, tokens/s)
+    stamps = [(int(m.group(2)), datetime.datetime.strptime(
+                   m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp(),
+               float(m.group(3))) for m in _STEP_STAMP.finditer(err)]
     done = [ln for ln in err.splitlines() if "done: " in ln and " grant " in ln]
     report = (json.loads(done[-1].split(" grant ", 1)[1]) if done else None)
     frames = _PORT_FRAME.findall(err)
     return {"case": case, "grant": grant, "rc": proc.returncode,
-            "wall_s": wall, "steps": steps, "report": report,
+            "wall_s": wall, "steps": steps, "stamps": stamps,
+            "report": report,
             "last_port_frame": ":".join(frames[-1]) if frames else None,
             "stderr": err}
+
+
+def _grant_workdir(tmp: str) -> tuple[str, str]:
+    """In ``tmp``: the children's training config (train_main's, GRANT_STEPS
+    steps) and an empty CUDA_HOME that holds no nvcc."""
+    from nos_tpu_torch.entry import TRAIN_BATCH, TRAIN_SEQ
+
+    cfg_path = str(pathlib.Path(tmp) / "train.json")
+    pathlib.Path(cfg_path).write_text(json.dumps({
+        "model": "bench350m", "batch_size": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "steps": GRANT_STEPS, "data_seed": 0,
+        "log_every": 1}))
+    no_nvcc = str(pathlib.Path(tmp) / "no-cuda-home")
+    pathlib.Path(no_nvcc).mkdir()
+    return cfg_path, no_nvcc
+
+
+def _grant_cap(gb: int, total: int) -> tuple[float, int]:
+    """The memory fraction and cap in bytes a ``gb`` GB timeshare grant
+    installs on a card of ``total`` bytes (``device/workload_env.py``)."""
+    from nos_tpu_torch.device.workload_env import CEILING, SAFETY
+    from nos_tpu_torch.topology import H100_80GB
+
+    fraction = round(min(gb / H100_80GB.memory_gb * SAFETY, CEILING), 3)
+    return fraction, int(fraction * total)
+
+
+def _check_granted_child(label: str, child: dict, uuid: str,
+                         main_loss0: float) -> dict:
+    """A training-main child that must pass under its timeshare grant:
+    exit 0, the grant verified on ``uuid`` at the child's fraction and
+    cap, GRANT_STEPS finite steps logged, 24 K1 + 24 K2 a step, the
+    train_main phase's step-0 loss within MAIN_LOSS0_RTOL, and its peak
+    under the cap.  Records the peaks and the loss's distance on
+    ``child``; returns the main's report."""
+    from nos_tpu_torch.models.llama import BENCH_350M_TRAIN
+
+    layers = BENCH_350M_TRAIN.num_layers
+    r = child["report"]
+    if child["rc"] != 0 or r is None:
+        fail(f"{label} exited {child['rc']}:\n{child['stderr'][-4000:]}")
+    if not (r["verified"] and r["devices"] == [uuid]
+            and r["fraction"] == child["fraction"]
+            and r["cap_bytes"] == child["cap_bytes"]):
+        fail(f"{label} verified {r}, expected {uuid} at fraction "
+             f"{child['fraction']}")
+    _check_launches(label, r["launches"], {
+        "flash_fwd": GRANT_STEPS * layers,
+        "flash_bwd_fused": GRANT_STEPS * layers})
+    steps = child["steps"]
+    if [s[0] for s in steps] != list(range(1, GRANT_STEPS + 1)) \
+            or not all(math.isfinite(s[1]) for s in steps):
+        fail(f"{label} logged steps {steps}")
+    loss0_rel = abs(steps[0][1] - main_loss0) / abs(main_loss0)
+    if not loss0_rel <= MAIN_LOSS0_RTOL:
+        fail(f"{label}'s step-0 loss {steps[0][1]} against the "
+             f"train_main phase's {main_loss0}: {loss0_rel} relative (tol "
+             f"{MAIN_LOSS0_RTOL})")
+    child["loss0_rel_diff"] = loss0_rel
+    child["peak_bytes"] = r["max_memory_allocated"]
+    child["peak_reserved_bytes"] = r["max_memory_reserved"]
+    if not (r["max_memory_allocated"] < child["cap_bytes"]
+            and r["max_memory_reserved"] <= child["cap_bytes"]):
+        fail(f"{label} peaked at {r['max_memory_allocated']} B allocated, "
+             f"{r['max_memory_reserved']} B reserved, over its cap "
+             f"{child['cap_bytes']} B")
+    return r
 
 
 def phase_grant(main_loss0: float, device: dict) -> dict:
     """The training main under three grants, each a fresh process that
     reuses the built kernels (nvcc hidden from it, the kernel directory
     unchanged): see GRANT_GB."""
-    from nos_tpu_torch.device.workload_env import CEILING, SAFETY
     from nos_tpu_torch.entry import TRAIN_BATCH, TRAIN_SEQ
     from nos_tpu_torch.models.llama import BENCH_350M_TRAIN
     from nos_tpu_torch.ops import _build
-    from nos_tpu_torch.topology import H100_80GB
 
     layers = BENCH_350M_TRAIN.num_layers
     uuid, total = device["uuid"], device["memory_bytes"]
@@ -1646,13 +1743,7 @@ def phase_grant(main_loss0: float, device: dict) -> dict:
     _release()
     children = {}
     with tempfile.TemporaryDirectory(prefix="nos-grant-") as tmp:
-        cfg_path = str(pathlib.Path(tmp) / "train.json")
-        pathlib.Path(cfg_path).write_text(json.dumps({
-            "model": "bench350m", "batch_size": TRAIN_BATCH,
-            "seq_len": TRAIN_SEQ, "steps": GRANT_STEPS, "data_seed": 0,
-            "log_every": 1}))
-        no_nvcc = str(pathlib.Path(tmp) / "no-cuda-home")
-        pathlib.Path(no_nvcc).mkdir()
+        cfg_path, no_nvcc = _grant_workdir(tmp)
         for case, gb in GRANT_GB.items():
             children[case] = _run_grant_child(
                 case, cfg_path, {"NOS_TPU_VISIBLE_CHIPS": uuid,
@@ -1664,37 +1755,11 @@ def phase_grant(main_loss0: float, device: dict) -> dict:
         fail(f"a grant child built kernels: {kernels_before} -> "
              f"{kernels_after}")
     for case, gb in GRANT_GB.items():
-        fraction = round(min(gb / H100_80GB.memory_gb * SAFETY, CEILING), 3)
-        children[case]["fraction"] = fraction
-        children[case]["cap_bytes"] = int(fraction * total)
+        children[case]["fraction"], children[case]["cap_bytes"] = \
+            _grant_cap(gb, total)
 
     a = children["a"]
-    r = a["report"]
-    if a["rc"] != 0 or r is None:
-        fail(f"grant (a) exited {a['rc']}:\n{a['stderr'][-4000:]}")
-    if not (r["verified"] and r["devices"] == [uuid]
-            and r["fraction"] == a["fraction"]
-            and r["cap_bytes"] == a["cap_bytes"]):
-        fail(f"grant (a) verified {r}, expected {uuid} at fraction "
-             f"{a['fraction']}")
-    _check_launches("grant (a)", r["launches"], {
-        "flash_fwd": GRANT_STEPS * layers,
-        "flash_bwd_fused": GRANT_STEPS * layers})
-    if [s[0] for s in a["steps"]] != list(range(1, GRANT_STEPS + 1)) \
-            or not all(math.isfinite(s[1]) for s in a["steps"]):
-        fail(f"grant (a) logged steps {a['steps']}")
-    loss0_rel = abs(a["steps"][0][1] - main_loss0) / abs(main_loss0)
-    if not loss0_rel <= MAIN_LOSS0_RTOL:
-        fail(f"grant (a)'s step-0 loss {a['steps'][0][1]} against the "
-             f"train_main phase's {main_loss0}: {loss0_rel} relative (tol "
-             f"{MAIN_LOSS0_RTOL})")
-    a["peak_bytes"] = r["max_memory_allocated"]
-    a["peak_reserved_bytes"] = r["max_memory_reserved"]
-    if not (r["max_memory_allocated"] < a["cap_bytes"]
-            and r["max_memory_reserved"] <= a["cap_bytes"]):
-        fail(f"grant (a) peaked at {r['max_memory_allocated']} B allocated, "
-             f"{r['max_memory_reserved']} B reserved, over its cap "
-             f"{a['cap_bytes']} B")
+    r = _check_granted_child("grant (a)", a, uuid, main_loss0)
 
     b = children["b"]
     # torch names the cap ("... allowed;") when the fraction refused it
@@ -1714,12 +1779,256 @@ def phase_grant(main_loss0: float, device: dict) -> dict:
     emit({"phase": "grant", "model": "BENCH_350M_TRAIN", "layers": layers,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": GRANT_STEPS,
           "card_memory_bytes": total, "main_loss0": main_loss0,
-          "loss0_rel_diff": loss0_rel, "loss0_rtol": MAIN_LOSS0_RTOL,
-          "launches": r["launches"], "children": [
-              {k: v for k, v in ch.items() if k != "stderr"}
+          "loss0_rel_diff": a["loss0_rel_diff"],
+          "loss0_rtol": MAIN_LOSS0_RTOL, "launches": r["launches"],
+          "children": [
+              {k: v for k, v in ch.items() if k not in ("stderr", "stamps")}
               | {"oom_at_cap": " allowed;" in ch["stderr"]}
               for ch in children.values()]})
     return r["launches"]
+
+# The partition phase.  (a) The MPS planner on testing/fleet.py's fleet
+# (32 nodes x 8 H100 80GB, 200 pending pods, seed 0): PLAN_TIMED timed
+# plans after one untimed, on fresh snapshots, on the card machine's
+# host.  (b) The card's own node, planned for CARD_PODS pods of
+# CARD_SHARE_GB and actuated, then shared by the children its config's
+# replicas stand for.
+PLAN_TIMED = 5
+CARD_PODS = 4
+CARD_SHARE_GB = 24
+CARD_NODE = "h100-node-0"
+
+
+def _fleet_plans() -> dict:
+    """The fleet plan, once untimed and PLAN_TIMED times timed, each on
+    a fresh snapshot; every run's summary must be the pinned one."""
+    from nos_tpu_torch.obs import trace
+    from nos_tpu_torch.partitioning.core import GeometryPlanner
+    from nos_tpu_torch.partitioning.timeshare import (
+        TimesharePartitionCalculator, TimeshareProfileCalculator,
+        TimeshareSnapshotTaker)
+    from nos_tpu_torch.scheduler.framework import Framework
+    from nos_tpu_torch.testing import fleet
+    from nos_tpu_torch.topology import H100_80GB
+
+    spec = fleet.fleet_spec(0)
+    bound = {b["name"] for n in spec["nodes"] for b in n["bound"]}
+    planner = GeometryPlanner(Framework(), TimeshareProfileCalculator(),
+                              TimesharePartitionCalculator())
+    runs = []
+    for _ in range(1 + PLAN_TIMED):
+        snap = TimeshareSnapshotTaker().take_snapshot(
+            fleet.build_cluster(spec))
+        pending = fleet.build_pending(spec)
+        before = {name: {u.index: (dict(u.used), u.geometry_names())
+                         for u in node.units}
+                  for name, node in snap.nodes().items()}
+        tracer = trace.Tracer()
+        prev = trace.set_tracer(tracer)
+        try:
+            t0 = time.perf_counter()
+            planner.plan(snap, pending)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            trace.set_tracer(prev)
+        (span,) = [sp for sp in tracer.ring.dump()
+                   if sp["name"] == "planner.plan"]
+        runs.append({"ms": ms, "counts": span["counts"], "before": before,
+                     "summary": fleet.plan_summary(snap, pending, bound)})
+    first = runs[0]
+    if any(r["summary"] != first["summary"] or r["counts"] != first["counts"]
+           for r in runs):
+        fail("the fleet's plans differ between runs")
+    digest = fleet.plan_digest(first["summary"])
+    if digest != fleet.FLEET_DIGEST:
+        fail(f"the fleet plan's digest {digest} is not the pinned "
+             f"{fleet.FLEET_DIGEST} (the JAX package's plan on the CPU)")
+    carved, shares = 0, {}
+    for name, gpus in first["summary"]["geometries"].items():
+        for index, geometry in gpus.items():
+            used, geometry_before = first["before"][name][int(index)]
+            gb = sum(int(p[:-2]) * q for p, q in geometry.items())
+            if gb > H100_80GB.memory_gb:
+                fail(f"{name} GPU {index} holds {gb} GB of shares: {geometry}")
+            lost = {f"{g}gb": c for g, c in used.items()
+                    if geometry.get(f"{g}gb", 0) < c}
+            if lost:
+                fail(f"{name} GPU {index}'s used shares {lost} are gone "
+                     f"from {geometry}")
+            carved += geometry != geometry_before
+            for p, q in geometry.items():
+                shares[p] = shares.get(p, 0) + q
+    timed = [r["ms"] for r in runs[1:]]
+    return {"nodes": len(spec["nodes"]), "gpus": sum(
+                n["gpus"] for n in spec["nodes"]),
+            "pending": len(spec["pending"]),
+            "plan_ms_median": statistics.median(timed),
+            "plan_ms_max": max(timed), "plan_ms_untimed": runs[0]["ms"],
+            "plan_ms": timed,
+            "forks": first["counts"].get("forks", 0),
+            "commits": first["counts"].get("commits", 0),
+            "reverts": first["counts"].get("reverts", 0),
+            "filter_runs": first["counts"].get("filter_runs", 0),
+            "pods_placed": sum(len(v) for v in
+                               first["summary"]["placed"].values()),
+            "gpus_carved": carved,
+            "shares_by_size": dict(sorted(
+                shares.items(), key=lambda kv: int(kv[0][:-2]))),
+            "lacking_after": first["summary"]["lacking"], "digest": digest}
+
+
+def _card_plan(device: dict) -> tuple[dict, list[dict]]:
+    """Plan the card's own node (the model and memory discovery found,
+    GPU 0) for CARD_PODS pending CARD_SHARE_GB pods and actuate it
+    through GeometryActuator and TimesharePartitioner onto an in-memory
+    APIServer; read the device plugin's ConfigMap back.  Returns the
+    phase's fields and the grant of each replica the config holds."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import APIServer, KIND_CONFIGMAP, KIND_NODE
+    from nos_tpu_torch.partitioning.core import (
+        GeometryActuator, GeometryPlanner, SliceTracker)
+    from nos_tpu_torch.partitioning.state import ClusterState
+    from nos_tpu_torch.partitioning.timeshare import (
+        DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE,
+        TimesharePartitionCalculator, TimesharePartitioner,
+        TimeshareProfileCalculator, TimeshareSnapshotTaker, config_key)
+    from nos_tpu_torch.scheduler.framework import Framework
+    from nos_tpu_torch.testing.factory import make_gpu_node, make_timeshare_pod
+    from nos_tpu_torch.topology import DEFAULT_REGISTRY
+
+    model = DEFAULT_REGISTRY.get(device["model"])
+    if model.memory_gb * 1e9 > device["memory_bytes"]:
+        fail(f"the card has {device['memory_bytes']} B, less than its "
+             f"model's {model.memory_gb} GB")
+    node = make_gpu_node(CARD_NODE, model=model, gpus=1)
+    state = ClusterState()
+    state.update_node(node, [])
+    api = APIServer()
+    api.create(KIND_NODE, node)
+    pods = [make_timeshare_pod(CARD_SHARE_GB, name=f"train-{i}")
+            for i in range(CARD_PODS)]
+    snap = TimeshareSnapshotTaker().take_snapshot(state)
+    planned = snap.clone()
+    desired = GeometryPlanner(
+        Framework(), TimeshareProfileCalculator(),
+        TimesharePartitionCalculator()).plan(planned, pods)
+    if not GeometryActuator(TimesharePartitioner(api),
+                            TimesharePartitionCalculator(),
+                            kind=C.MPS_KIND).apply(snap, desired):
+        fail("the actuator wrote nothing for the card's node")
+    placed = sorted(p.metadata.name
+                    for p in planned.get_node(CARD_NODE).node_info().pods)
+    left = [p for p in pods if p.metadata.name not in placed]
+    lacking = SliceTracker(planned, TimeshareProfileCalculator(), left).lacking
+    cm = api.get(KIND_CONFIGMAP, DEVICE_PLUGIN_CM_NAME,
+                 DEVICE_PLUGIN_CM_NAMESPACE)
+    plan_id = api.get(KIND_NODE, CARD_NODE).metadata.labels.get(
+        C.LABEL_DEVICE_PLUGIN_CONFIG, "")
+    if list(cm.data) != [config_key(CARD_NODE, plan_id)]:
+        fail(f"the ConfigMap holds {list(cm.data)}, not one key for "
+             f"{CARD_NODE} under the node's plan {plan_id!r}")
+    config = json.loads(cm.data[config_key(CARD_NODE, plan_id)])
+    resources = config["sharing"]["mps"]["resources"]
+    share = f"{C.RESOURCE_TIMESHARE_PREFIX}{CARD_SHARE_GB}gb"
+    if [(r["rename"], r["memoryGB"], r["replicas"], r["devices"])
+            for r in resources] != [(share, CARD_SHARE_GB, 3, ["0"])]:
+        fail(f"the config gives GPU 0 {resources}, not three "
+             f"{CARD_SHARE_GB} GB replicas")
+    if len(placed) != 3 or lacking != {f"{CARD_SHARE_GB}gb": 1}:
+        fail(f"placed {placed}, lacking {lacking}: the fourth "
+             f"{CARD_SHARE_GB} GB pod must stay lacking")
+    # one grant per replica: the device's UUID (GPU index 0 here) and
+    # the share's GB, as the timeshare plugin's Allocate would give it
+    grants = [{"NOS_TPU_VISIBLE_CHIPS": device["uuid"],
+               "NOS_TPU_TIMESHARE_GB": str(r["memoryGB"])}
+              for r in resources for _ in range(r["replicas"])]
+    return {"node": CARD_NODE, "model": model.name, "pods": CARD_PODS,
+            "share_gb": CARD_SHARE_GB, "placed": placed,
+            "lacking": lacking, "config_keys": len(cm.data),
+            "config": resources}, grants
+
+
+def _step_windows(children: list[dict]) -> tuple[list[list[float]], float]:
+    """Each child's window on the host's wall clock, from the start of
+    its first step to the log line of its last (the main logs a step
+    after its loss has come back from the card), relative to the
+    earliest start; and how long all the windows held at once.  The
+    first step's start is its log line less the step's tokens over its
+    logged tokens/s."""
+    from nos_tpu_torch.entry import TRAIN_BATCH, TRAIN_SEQ
+
+    spans = []
+    for ch in children:
+        (first, t_first, tokens_s), last = ch["stamps"][0], ch["stamps"][-1]
+        if first != 1 or last[0] != GRANT_STEPS:
+            fail(f"partition {ch['case']} logged step times {ch['stamps']}")
+        spans.append((t_first - TRAIN_BATCH * TRAIN_SEQ / tokens_s, last[1]))
+    origin = min(a for a, _ in spans)
+    overlap = min(b for _, b in spans) - max(a for a, _ in spans)
+    return [[a - origin, b - origin] for a, b in spans], overlap
+
+
+def phase_partition(main_loss0: float, device: dict) -> dict:
+    """The MPS planner: (a) the fleet plan on the host, five timed runs
+    against the pinned digest; (b) the card's own node planned and
+    actuated for four 24 GB pods, then the three replicas its config
+    gives GPU 0 run ``python -m nos_tpu_torch.cmd.train`` at the same
+    time, each under the grant its replica stands for.  The smoke
+    stands in for the timeshare device plugin's Allocate (ROADMAP item
+    24c), which would hand a pod that grant."""
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    fleet_line = _fleet_plans()
+    card, grants = _card_plan(device)
+    uuid, total = device["uuid"], device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    parent_reserved = torch.cuda.memory_reserved()
+    with tempfile.TemporaryDirectory(prefix="nos-partition-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(grants)) as pool:
+            children = list(pool.map(
+                lambda ig: _run_grant_child(f"replica-{ig[0]}", cfg_path,
+                                            ig[1], no_nvcc),
+                enumerate(grants)))
+        concurrent_s = time.perf_counter() - t1
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a partition child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    for child in children:
+        child["fraction"], child["cap_bytes"] = _grant_cap(
+            int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), total)
+        _check_granted_child(f"partition {child['case']}", child, uuid,
+                             main_loss0)
+    windows, overlap_s = _step_windows(children)
+    if not overlap_s > 0:
+        fail(f"the children's steps did not overlap: windows {windows} s "
+             f"from the first start")
+    for child, window in zip(children, windows):
+        child["step_window_s"] = window
+    # implied by the caps each child was held to (3 x 24 / 80 x 0.9 of
+    # the card): kept as the sum a reader of the line looks for
+    reserved = sum(ch["peak_reserved_bytes"] for ch in children)
+    if not reserved < total:
+        fail(f"the three children reserved {reserved} B at their peaks, "
+             f"not under the card's {total} B")
+    emit({"phase": "partition", "seconds": time.perf_counter() - t0,
+          "fleet": fleet_line, "card": card,
+          "card_memory_bytes": total, "parent_reserved_bytes":
+              parent_reserved, "main_loss0": main_loss0,
+          "loss0_rtol": MAIN_LOSS0_RTOL, "concurrent_wall_s": concurrent_s,
+          "steps_overlap_s": overlap_s,
+          "peak_reserved_sum_bytes": reserved,
+          "peak_allocated_sum_bytes": sum(ch["peak_bytes"]
+                                          for ch in children),
+          "children": [{k: v for k, v in ch.items()
+                        if k not in ("stderr", "report", "stamps")}
+                       | {"launches": ch["report"]["launches"]}
+                       for ch in children]})
+    return {ch["case"]: ch["report"]["launches"] for ch in children}
 
 
 def main() -> int:
@@ -1740,8 +2049,10 @@ def main() -> int:
         train, loss0 = phase_train()
         train_main, main_loss0 = phase_train_main(loss0)
         moe = phase_moe()
-        # the grant children see the same PRETUNED-only cache
+        # the grant and partition children see the same PRETUNED-only
+        # cache
         phase_grant(main_loss0, device)
+        phase_partition(main_loss0, device)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe}
     for entry in entries:

@@ -1,9 +1,12 @@
-"""In-process gauges, the gauge part of ``nos_tpu/exporter/metrics.py``'s
-``Registry``: ``describe`` a metric once, ``set`` it, read it back with
-``value``.  ``REGISTRY`` is the process's registry, which the train main
-sets under the JAX package's names (dashboards and SLO objectives read
-them).  Serving it at ``/metrics`` needs the control plane's health
-server, which the port does not have yet.
+"""In-process metrics, the part of ``nos_tpu/exporter/metrics.py``'s
+``Registry`` the port sets: ``describe`` a metric once; ``set`` a gauge,
+``inc`` a counter, ``observe`` a duration (count, sum and max per
+series); read them back with ``value`` and ``summary``.  ``REGISTRY`` is
+the process's registry, under the JAX package's names (dashboards and
+SLO objectives read them): the train main's gauges, the actuator's and
+the retry's counters, the tracer's span seconds.  Serving it at
+``/metrics`` needs the control plane's health server, which the port
+does not have yet.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ class Registry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._gauges: dict[tuple[str, tuple], float] = {}
+        self._counters: dict[tuple[str, tuple], float] = {}
+        # per series: [count, sum, max]
+        self._observed: dict[tuple[str, tuple], list[float]] = {}
         self._help: dict[str, str] = {}
 
     @staticmethod
@@ -37,10 +43,34 @@ class Registry:
         with self._lock:
             self._gauges[self._key(name, labels)] = value
 
-    def value(self, name: str, labels: dict | None = None) -> float | None:
-        """The gauge's last value, None if it was never set."""
+    def inc(self, name: str, amount: float = 1.0,
+            labels: dict | None = None) -> None:
+        key = self._key(name, labels)
         with self._lock:
-            return self._gauges.get(self._key(name, labels))
+            self._counters[key] = self._counters.get(key, 0.0) + amount
+
+    def observe(self, name: str, value: float,
+                labels: dict | None = None) -> None:
+        key = self._key(name, labels)
+        with self._lock:
+            s = self._observed.setdefault(key, [0, 0.0, value])
+            s[0] += 1
+            s[1] += value
+            s[2] = max(s[2], value)
+
+    def value(self, name: str, labels: dict | None = None) -> float | None:
+        """The gauge's last value or the counter's total, None if the
+        series was never written."""
+        key = self._key(name, labels)
+        with self._lock:
+            return self._gauges.get(key, self._counters.get(key))
+
+    def summary(self, name: str,
+                labels: dict | None = None) -> tuple[int, float, float] | None:
+        """(count, sum, max) of an observed series, None if never observed."""
+        with self._lock:
+            s = self._observed.get(self._key(name, labels))
+            return None if s is None else (int(s[0]), s[1], s[2])
 
 
 REGISTRY = Registry()

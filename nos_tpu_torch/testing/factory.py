@@ -1,0 +1,85 @@
+"""Object factories for tests and the smoke run,
+``nos_tpu/testing/factory.py`` for the port (reference
+pkg/test/factory/core_factory.go:27-229): GPU nodes and pods."""
+
+from __future__ import annotations
+
+import itertools
+from typing import Mapping
+
+from nos_tpu_torch.api import constants as C
+from nos_tpu_torch.kube.objects import (
+    Container, Node, NodeStatus, ObjectMeta, PENDING, Pod, PodSpec, PodStatus,
+)
+from nos_tpu_torch.topology.known import H100_80GB, GpuModel
+from nos_tpu_torch.topology.profile import (
+    slice_resource_name, timeshare_resource_name,
+)
+
+_name_counter = itertools.count(1)
+
+
+def make_node(name: str = "", labels: dict | None = None,
+              annotations: dict | None = None,
+              allocatable: dict | None = None) -> Node:
+    name = name or f"node-{next(_name_counter)}"
+    return Node(
+        metadata=ObjectMeta(name=name, labels=labels or {},
+                            annotations=annotations or {}),
+        status=NodeStatus(allocatable=dict(allocatable or {}),
+                          capacity=dict(allocatable or {})),
+    )
+
+
+def make_gpu_node(name: str = "", model: GpuModel = H100_80GB,
+                  gpus: int = 8, partitioning: str = C.MPS_KIND,
+                  status_geometry: Mapping[int, Mapping[str, Mapping[str, int]]]
+                  | None = None,
+                  extra_labels: dict | None = None) -> Node:
+    """A node of ``gpus`` cards of ``model``.  ``status_geometry`` is
+    {GPU index: {"free" | "used": {profile: qty}}}, rendered as the node
+    agent's status annotations and added to the allocatable."""
+    labels = {
+        C.LABEL_ACCELERATOR: model.name,
+        C.LABEL_PARTITIONING: partitioning,
+        C.LABEL_GPU_COUNT: str(gpus),
+    }
+    labels.update(extra_labels or {})
+    annotations: dict[str, str] = {}
+    allocatable: dict[str, float] = {
+        C.CPU: 64.0, C.MEMORY: 256 * 1024.0**3, C.RESOURCE_GPU: float(gpus),
+    }
+    for index, tables in (status_geometry or {}).items():
+        for status, table in tables.items():
+            for profile, qty in table.items():
+                annotations[f"{C.ANNOT_STATUS_PREFIX}{index}-{profile}-"
+                            f"{status}"] = str(qty)
+                if "." in profile:
+                    res = slice_resource_name(profile)
+                else:
+                    res = timeshare_resource_name(int(profile[:-2]))
+                allocatable[res] = allocatable.get(res, 0.0) + qty
+    return make_node(name, labels, annotations, allocatable)
+
+
+def make_pod(name: str = "", namespace: str = "default",
+             resources: dict | None = None, priority: int = 0,
+             node_name: str = "", phase: str = PENDING,
+             labels: dict | None = None, annotations: dict | None = None,
+             creation_timestamp: float = 0.0) -> Pod:
+    name = name or f"pod-{next(_name_counter)}"
+    return Pod(
+        metadata=ObjectMeta(name=name, namespace=namespace,
+                            labels=labels or {}, annotations=annotations or {},
+                            creation_timestamp=creation_timestamp),
+        spec=PodSpec(containers=[Container(resources=dict(resources or {}))],
+                     priority=priority, node_name=node_name),
+        status=PodStatus(phase=phase),
+    )
+
+
+def make_timeshare_pod(gb: int, qty: int = 1, **kw) -> Pod:
+    """A pod asking for ``qty`` shares of ``gb`` GB (``nvidia.com/gpu-<gb>gb``)
+    and one CPU."""
+    res = {timeshare_resource_name(gb): qty, C.CPU: 1.0}
+    return make_pod(resources=res, **kw)

@@ -77,7 +77,16 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "cmd.train", "testing.ranks", "entry", "topology.known",
                    "topology.packing", "topology.profile", "device.fake",
                    "device.nvml", "device.discovery", "device.workload_env",
-                   "testing.nvml"):
+                   "testing.nvml", "api.constants", "kube.client",
+                   "kube.objects", "kube.resources", "utils.guards",
+                   "utils.retry", "obs.trace", "obs.journal",
+                   "scheduler.framework", "topology.annotations",
+                   "topology.timeshare_unit", "topology.hybrid",
+                   "partitioning.state", "partitioning.core.snapshot",
+                   "partitioning.core.planner", "partitioning.core.actuator",
+                   "partitioning.timeshare.partitioner",
+                   "partitioning.timeshare.snapshot_taker",
+                   "testing.factory", "testing.fleet"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad
