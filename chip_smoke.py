@@ -97,27 +97,45 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    before any step.  Each child's exit code, wall seconds, fraction, cap
    and peak go on the phase's line; its launches stay off the kernels
    line, which counts the in-process paths.
-9. partition: the MPS partitioning planner.  (a) ``GeometryPlanner.plan``
-   on ``testing/fleet.py``'s fleet (32 nodes x 8 H100 80GB, half full,
-   200 pending pods, seed 0) on the card machine's host, once untimed
-   and PLAN_TIMED times timed on fresh snapshots: the plans must be
-   identical, hold no GPU over 80 GB of shares, keep every used share,
-   and hash to the digest ``testing/fleet.py`` pins (the JAX package's
-   plan, held in the CPU tests).  (b) The card's own node (the model
-   and memory discovery found, GPU 0) planned for four 24 GB pods and
-   actuated through ``GeometryActuator`` and ``TimesharePartitioner``
-   onto an in-memory API server: the device plugin's ConfigMap must hold
-   one key for the node, giving GPU 0 three 24 GB replicas, and the
-   fourth pod must stay lacking.  Then, standing in for the timeshare
-   plugin's Allocate, one ``python -m nos_tpu_torch.cmd.train`` child
-   per replica, all three at once, each under the grant its replica
-   stands for (the card's UUID, 24 GB) with grant's configuration and
-   nvcc hidden: each as grant (a) must, and the three step windows
-   (first step's start to last step's log line, on the host's clock)
-   must intersect, so that the three ran their steps on the card at
-   once.  The three reserved peaks together stay under the card's
-   memory, which the per-child caps already imply.  The children's
-   launches go on the phase's line, as grant's do.
+9. partition: the MPS partitioning planner and its loop.  (a)
+   ``GeometryPlanner.plan`` on ``testing/fleet.py``'s fleet (32 nodes x
+   8 H100 80GB, half full, 200 pending pods, seed 0) on the card
+   machine's host, once untimed and PLAN_TIMED times timed on fresh
+   snapshots: the plans must be identical, hold no GPU over 80 GB of
+   shares, keep every used share, and hash to the digest
+   ``testing/fleet.py`` pins (the JAX package's plan, held in the CPU
+   tests).  (b) The card's own node (the model and memory discovery
+   found, one GPU) in the MPS loop on an in-memory API server, on
+   ``time.monotonic`` with batch windows of 0.2 s idle and 2 s timeout:
+   the partitioner controller from its factory, the node's chip agent
+   (the timeshare plugin and the reporter) and ``testing/bind.py``'s
+   binder.  Four pending 24 GB pods are polled through bind, controller
+   and agent until three are bound and Running (30 s at most); exactly
+   one plan cycle must have run, the ConfigMap must hold one key for
+   the node giving GPU 0 three 24 GB replicas, the plugin must
+   advertise ``nvidia.com/gpu-24gb: 3``, the node's status plan id must
+   equal its spec plan id (the handshake closed), the reporter must show
+   GPU 0 ``24gb-used: 3``, and the fourth pod must stay pending and
+   Unschedulable.  One rescan interval later the controller's next
+   cycle runs on the fourth pod and must write nothing.  Each bound
+   pod's grant comes from the node side: the UUID, through discovery,
+   of a GPU of the applied config on which the reporter shows a used
+   share of the pod's size, and the GB of its request; the smoke hands
+   it over, standing in for the kubelet
+   plugin's Allocate (ROADMAP item 24b).  Then one ``python -m
+   nos_tpu_torch.cmd.train`` child per bound pod, all three at once,
+   under its grant with grant's configuration and nvcc hidden: each as
+   grant (a) must, and the three step windows (first step's start to
+   last step's log line, on the host's clock) must intersect, so that
+   the three ran their steps on the card at once.  The three reserved
+   peaks together stay under the card's memory, which the per-child
+   caps already imply.  Then the three pods are marked Succeeded: the
+   reporter must show GPU 0 ``24gb-free: 3``, and the binder must bind
+   the fourth pod onto a freed share with no new plan.  The phase's line
+   carries the card's ``name, power.limit``, the plan cycles' host ms
+   (``nos_tpu_plan_seconds``), the agent's host ms per tick,
+   ``nos_tpu_actuation_latency_seconds`` and each pod's wall ms from
+   creation to bound; the children's launches go on it, as grant's do.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path; a tile no path ran must have run in the autotune
@@ -1608,8 +1626,10 @@ def phase_device() -> dict:
           "mig_devices": got["mig_devices"],
           "mig_table": got["mig_tables"] if mig else "not checked: MIG "
                                                      "is disabled"})
-    return {"uuid": dev["uuids"][0], "memory_bytes": dev["memory_bytes"][0],
-            "model": env["model"]}
+    # "uuids": CUDA's devices in index order, which the partition phase
+    # maps a GPU index of the node's config through
+    return {"uuid": dev["uuids"][0], "uuids": dev["uuids"],
+            "memory_bytes": dev["memory_bytes"][0], "model": env["model"]}
 
 
 # The grant phase: three children of the training main on train_main's
@@ -1790,13 +1810,21 @@ def phase_grant(main_loss0: float, device: dict) -> dict:
 # The partition phase.  (a) The MPS planner on testing/fleet.py's fleet
 # (32 nodes x 8 H100 80GB, 200 pending pods, seed 0): PLAN_TIMED timed
 # plans after one untimed, on fresh snapshots, on the card machine's
-# host.  (b) The card's own node, planned for CARD_PODS pods of
-# CARD_SHARE_GB and actuated, then shared by the children its config's
-# replicas stand for.
+# host.  (b) The card's own node in the MPS loop (the partitioner
+# controller, its chip agent and the test binder, on time.monotonic with
+# the batch windows below and the default plan deadline, 3 x the
+# timeout): CARD_PODS pods of CARD_SHARE_GB, of which the card's config
+# holds three; the pods bound and Running within CARD_BIND_LIMIT_S,
+# polled every CARD_POLL_S; then shared by the children their grants
+# stand for.
 PLAN_TIMED = 5
 CARD_PODS = 4
 CARD_SHARE_GB = 24
 CARD_NODE = "h100-node-0"
+CARD_BATCH_IDLE_S = 0.2
+CARD_BATCH_TIMEOUT_S = 2.0
+CARD_BIND_LIMIT_S = 30.0
+CARD_POLL_S = 0.01
 
 
 def _fleet_plans() -> dict:
@@ -1877,75 +1905,302 @@ def _fleet_plans() -> dict:
             "lacking_after": first["summary"]["lacking"], "digest": digest}
 
 
-def _card_plan(device: dict) -> tuple[dict, list[dict]]:
-    """Plan the card's own node (the model and memory discovery found,
-    GPU 0) for CARD_PODS pending CARD_SHARE_GB pods and actuate it
-    through GeometryActuator and TimesharePartitioner onto an in-memory
-    APIServer; read the device plugin's ConfigMap back.  Returns the
-    phase's fields and the grant of each replica the config holds."""
-    from nos_tpu_torch.api import constants as C
-    from nos_tpu_torch.kube.client import APIServer, KIND_CONFIGMAP, KIND_NODE
-    from nos_tpu_torch.partitioning.core import (
-        GeometryActuator, GeometryPlanner, SliceTracker)
-    from nos_tpu_torch.partitioning.state import ClusterState
-    from nos_tpu_torch.partitioning.timeshare import (
-        DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE,
-        TimesharePartitionCalculator, TimesharePartitioner,
-        TimeshareProfileCalculator, TimeshareSnapshotTaker, config_key)
-    from nos_tpu_torch.scheduler.framework import Framework
-    from nos_tpu_torch.testing.factory import make_gpu_node, make_timeshare_pod
-    from nos_tpu_torch.topology import DEFAULT_REGISTRY
+class _CardLoop:
+    """The MPS loop on the card's node (the model and memory discovery
+    found, one GPU), on an in-memory API server: node and pod
+    controllers feeding a ClusterState, the partitioner controller from
+    its factory, the node's chip agent, and ``testing/bind.py``'s binder
+    standing in for the scheduler.  ``step`` is one pass of the loop:
+    bind, poll the controller, tick the agent (timed)."""
 
-    model = DEFAULT_REGISTRY.get(device["model"])
-    if model.memory_gb * 1e9 > device["memory_bytes"]:
-        fail(f"the card has {device['memory_bytes']} B, less than its "
-             f"model's {model.memory_gb} GB")
-    node = make_gpu_node(CARD_NODE, model=model, gpus=1)
-    state = ClusterState()
-    state.update_node(node, [])
-    api = APIServer()
-    api.create(KIND_NODE, node)
-    pods = [make_timeshare_pod(CARD_SHARE_GB, name=f"train-{i}")
-            for i in range(CARD_PODS)]
-    snap = TimeshareSnapshotTaker().take_snapshot(state)
-    planned = snap.clone()
-    desired = GeometryPlanner(
-        Framework(), TimeshareProfileCalculator(),
-        TimesharePartitionCalculator()).plan(planned, pods)
-    if not GeometryActuator(TimesharePartitioner(api),
-                            TimesharePartitionCalculator(),
-                            kind=C.MPS_KIND).apply(snap, desired):
-        fail("the actuator wrote nothing for the card's node")
-    placed = sorted(p.metadata.name
-                    for p in planned.get_node(CARD_NODE).node_info().pods)
-    left = [p for p in pods if p.metadata.name not in placed]
-    lacking = SliceTracker(planned, TimeshareProfileCalculator(), left).lacking
-    cm = api.get(KIND_CONFIGMAP, DEVICE_PLUGIN_CM_NAME,
-                 DEVICE_PLUGIN_CM_NAMESPACE)
-    plan_id = api.get(KIND_NODE, CARD_NODE).metadata.labels.get(
-        C.LABEL_DEVICE_PLUGIN_CONFIG, "")
-    if list(cm.data) != [config_key(CARD_NODE, plan_id)]:
+    def __init__(self, device: dict) -> None:
+        from nos_tpu_torch.controllers.chipagent import ChipAgent
+        from nos_tpu_torch.controllers.node_controller import NodeController
+        from nos_tpu_torch.controllers.pod_controller import PodController
+        from nos_tpu_torch.kube.client import APIServer, KIND_NODE
+        from nos_tpu_torch.partitioning.state import ClusterState
+        from nos_tpu_torch.partitioning.timeshare import (
+            new_timeshare_partitioner_controller)
+        from nos_tpu_torch.scheduler.framework import Framework
+        from nos_tpu_torch.testing.factory import make_gpu_node
+        from nos_tpu_torch.topology import DEFAULT_REGISTRY
+
+        self.model = DEFAULT_REGISTRY.get(device["model"])
+        if self.model.memory_gb * 1e9 > device["memory_bytes"]:
+            fail(f"the card has {device['memory_bytes']} B, less than its "
+                 f"model's {self.model.memory_gb} GB")
+        self.api = APIServer()
+        state = ClusterState()
+        NodeController(self.api, state).bind()
+        PodController(self.api, state).bind()
+        self.controller = new_timeshare_partitioner_controller(
+            self.api, state, batch_timeout_s=CARD_BATCH_TIMEOUT_S,
+            batch_idle_s=CARD_BATCH_IDLE_S)
+        self.controller.bind()
+        self.api.create(KIND_NODE, make_gpu_node(CARD_NODE, model=self.model,
+                                                 gpus=1))
+        self.agent = ChipAgent(self.api, CARD_NODE)
+        self.agent.start()
+        self.framework = Framework()
+        self.cycles = 0
+        self.tick_ms: list[float] = []
+        self.created: dict[str, float] = {}
+        self.bound_ms: dict[str, float] = {}
+
+    def create_pods(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.factory import make_timeshare_pod
+
+        for i in range(CARD_PODS):
+            name = f"train-{i}"
+            self.created[name] = time.perf_counter()
+            self.api.create(KIND_POD, make_timeshare_pod(CARD_SHARE_GB,
+                                                         name=name))
+
+    def bind(self) -> int:
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.bind import bind_pending
+
+        bound = bind_pending(self.api, self.framework)
+        now = time.perf_counter()
+        for pod in self.api.list(KIND_POD):
+            name = pod.metadata.name
+            if pod.spec.node_name and name not in self.bound_ms:
+                self.bound_ms[name] = (now - self.created[name]) * 1e3
+        return bound
+
+    def process(self) -> bool:
+        ran = self.controller.process_if_ready()
+        self.cycles += ran
+        return ran
+
+    def tick(self) -> None:
+        t0 = time.perf_counter()
+        self.agent.tick()
+        self.tick_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def step(self) -> None:
+        self.bind()
+        self.process()
+        self.tick()
+
+    def run_until(self, done, what: str) -> float:
+        """Step until ``done()``; fail after CARD_BIND_LIMIT_S.  Returns
+        the seconds it took."""
+        t0 = time.monotonic()
+        while not done():
+            if time.monotonic() - t0 > CARD_BIND_LIMIT_S:
+                fail(f"the MPS loop did not {what} within "
+                     f"{CARD_BIND_LIMIT_S} s")
+            self.step()
+            time.sleep(CARD_POLL_S)
+        return time.monotonic() - t0
+
+    # -- reading ----------------------------------------------------------
+    def node(self):
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        return self.api.get(KIND_NODE, CARD_NODE)
+
+    def pods(self) -> dict:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        return {p.metadata.name: p for p in self.api.list(KIND_POD)}
+
+    def configmap(self):
+        from nos_tpu_torch.kube.client import KIND_CONFIGMAP
+        from nos_tpu_torch.partitioning.timeshare import (
+            DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+        return self.api.get(KIND_CONFIGMAP, DEVICE_PLUGIN_CM_NAME,
+                            DEVICE_PLUGIN_CM_NAMESPACE)
+
+    def running(self) -> list[str]:
+        return sorted(n for n, p in self.pods().items()
+                      if p.spec.node_name == CARD_NODE
+                      and p.status.phase == "Running")
+
+    def status(self, index: int, share: str, what: str) -> str | None:
+        from nos_tpu_torch.api import constants as C
+
+        return self.node().metadata.annotations.get(
+            f"{C.ANNOT_STATUS_PREFIX}{index}-{share}-{what}")
+
+    def written(self) -> tuple:
+        """What a plan writes: the ConfigMap (data and version) and the
+        node's plan label and spec plan id."""
+        from nos_tpu_torch.api import constants as C
+
+        cm, node = self.configmap(), self.node()
+        return (dict(cm.data), cm.metadata.resource_version,
+                node.metadata.labels.get(C.LABEL_DEVICE_PLUGIN_CONFIG),
+                node.metadata.annotations.get(
+                    C.spec_plan_annotation(C.MPS_KIND)))
+
+
+def _plan_seconds() -> tuple[int, float]:
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.exporter.metrics import REGISTRY
+
+    got = REGISTRY.summary("nos_tpu_plan_seconds", {"kind": C.MPS_KIND})
+    return (0, 0.0) if got is None else got[:2]
+
+
+def _plans_total() -> float:
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.exporter.metrics import REGISTRY
+
+    return REGISTRY.value("nos_tpu_plans_total", {"kind": C.MPS_KIND}) or 0.0
+
+
+def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
+    """Phase 9 (b) up to the children: four pending 24 GB pods through
+    the MPS loop until three are bound and Running, the checks on what
+    the controller, the plugin and the reporter wrote, one more
+    (rescan) cycle that must write nothing, and each bound pod's grant
+    derived from the node side.  Returns the loop, the phase's fields
+    and the grants (the pod's name under "pod", its environment)."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.resources import pod_request
+    from nos_tpu_torch.partitioning.timeshare import config_key
+    from nos_tpu_torch.topology.profile import extract_timeshare_requests
+
+    share = f"{CARD_SHARE_GB}gb"
+    loop = _CardLoop(device)
+    plans0, (samples0, plan_s0) = _plans_total(), _plan_seconds()
+    landed0, latency_s0 = _actuation_latency()
+    loop.create_pods()
+    bind_s = loop.run_until(lambda: len(loop.running()) == 3,
+                            "bind three pods and run them")
+    (samples1, plan_s1) = _plan_seconds()
+    if loop.cycles != 1 or _plans_total() - plans0 != 1 \
+            or samples1 - samples0 != 1:
+        fail(f"{loop.cycles} plan cycles ran ({_plans_total() - plans0} "
+             f"counted), not one")
+    node = loop.node()
+    annots = node.metadata.annotations
+    spec = annots.get(C.spec_plan_annotation(C.MPS_KIND), "")
+    cm = loop.configmap()
+    if list(cm.data) != [config_key(CARD_NODE, spec)]:
         fail(f"the ConfigMap holds {list(cm.data)}, not one key for "
-             f"{CARD_NODE} under the node's plan {plan_id!r}")
-    config = json.loads(cm.data[config_key(CARD_NODE, plan_id)])
+             f"{CARD_NODE} under its plan {spec!r}")
+    config = json.loads(cm.data[config_key(CARD_NODE, spec)])
     resources = config["sharing"]["mps"]["resources"]
-    share = f"{C.RESOURCE_TIMESHARE_PREFIX}{CARD_SHARE_GB}gb"
+    res = f"{C.RESOURCE_TIMESHARE_PREFIX}{share}"
     if [(r["rename"], r["memoryGB"], r["replicas"], r["devices"])
-            for r in resources] != [(share, CARD_SHARE_GB, 3, ["0"])]:
+            for r in resources] != [(res, CARD_SHARE_GB, 3, ["0"])]:
         fail(f"the config gives GPU 0 {resources}, not three "
              f"{CARD_SHARE_GB} GB replicas")
-    if len(placed) != 3 or lacking != {f"{CARD_SHARE_GB}gb": 1}:
-        fail(f"placed {placed}, lacking {lacking}: the fourth "
-             f"{CARD_SHARE_GB} GB pod must stay lacking")
-    # one grant per replica: the device's UUID (GPU index 0 here) and
-    # the share's GB, as the timeshare plugin's Allocate would give it
-    grants = [{"NOS_TPU_VISIBLE_CHIPS": device["uuid"],
-               "NOS_TPU_TIMESHARE_GB": str(r["memoryGB"])}
-              for r in resources for _ in range(r["replicas"])]
-    return {"node": CARD_NODE, "model": model.name, "pods": CARD_PODS,
-            "share_gb": CARD_SHARE_GB, "placed": placed,
-            "lacking": lacking, "config_keys": len(cm.data),
-            "config": resources}, grants
+    advertised = {r: q for r, q in node.status.allocatable.items()
+                  if r.startswith(C.RESOURCE_TIMESHARE_PREFIX)}
+    if advertised != {res: 3.0}:
+        fail(f"the plugin advertises {advertised}, not {res}: 3")
+    status = annots.get(C.status_plan_annotation(C.MPS_KIND), "")
+    if not spec or status != spec:
+        fail(f"the handshake is open: status plan {status!r}, spec {spec!r}")
+    if loop.status(0, share, "used") != "3":
+        fail(f"the reporter shows GPU 0 {share}-used "
+             f"{loop.status(0, share, 'used')!r}, not 3")
+    pods = loop.pods()
+    (left,) = [n for n in pods if n not in loop.running()]
+    if pods[left].status.phase != "Pending" or pods[left].spec.node_name \
+            or not pods[left].is_unschedulable():
+        fail(f"{left} is {pods[left].status}, not pending and "
+             f"Unschedulable")
+    landed, latency_s = _actuation_latency()
+    if landed - landed0 != 1:
+        fail(f"{landed - landed0} nos_tpu_actuation_latency_seconds "
+             f"samples, not one")
+    actuation = (latency_s - latency_s0) * 1e3
+
+    # one rescan interval on: a cycle on the fourth pod that writes nothing
+    written = loop.written()
+    rescan_s = loop.run_until(lambda: loop.cycles == 2,
+                              "run its rescan cycle")
+    samples2, plan_s2 = _plan_seconds()
+    if loop.written() != written:
+        fail(f"the rescan cycle wrote: {written} -> {loop.written()}")
+    from nos_tpu_torch.exporter.metrics import REGISTRY
+    if REGISTRY.value("nos_tpu_plan_pending_pods",
+                      {"kind": C.MPS_KIND}) != 1.0:
+        fail("the rescan cycle did not plan for the fourth pod")
+
+    # each bound pod's grant: a GPU of the applied config on which the
+    # reporter shows a used share of the pod's size (one pod per used
+    # share), mapped to the card's UUID through discovery, and the GB of
+    # its request; the smoke stands in for the kubelet plugin's
+    # Allocate, which would hand the pod this grant
+    gpus = loop.agent.plugin.gpu_config(annots[C.ANNOT_PLUGIN_APPLIED_CONFIG])
+    used = {s: [i for i in sorted(gpus)
+                for _ in range(int(loop.status(i, s, "used") or 0))]
+            for t in gpus.values() for s in t}
+    grants = []
+    for name in loop.running():
+        (gb,) = extract_timeshare_requests(pod_request(pods[name]))
+        if not used.get(f"{gb}gb"):
+            fail(f"the reporter shows no used {gb}gb share for {name}")
+        index = used[f"{gb}gb"].pop(0)
+        grants.append({"pod": name, "gpu": index, "env": {
+            "NOS_TPU_VISIBLE_CHIPS": device["uuids"][index],
+            "NOS_TPU_TIMESHARE_GB": str(gb)}})
+    fields = {
+        "node": CARD_NODE, "model": loop.model.name, "pods": CARD_PODS,
+        "share_gb": CARD_SHARE_GB, "batch_idle_s": CARD_BATCH_IDLE_S,
+        "batch_timeout_s": CARD_BATCH_TIMEOUT_S,
+        "running": loop.running(), "unschedulable": left,
+        "config_keys": len(cm.data), "config": resources,
+        "advertised": advertised, "plan_cycles": loop.cycles,
+        "plan_cycle_ms": [(plan_s1 - plan_s0) * 1e3,
+                          (plan_s2 - plan_s1) * 1e3],
+        "actuation_latency_ms": actuation, "bind_s": bind_s,
+        "rescan_s": rescan_s,
+        "grants": [{"pod": g["pod"], "gpu": g["gpu"],
+                    "gb": int(g["env"]["NOS_TPU_TIMESHARE_GB"])}
+                   for g in grants]}
+    return loop, fields, grants
+
+
+def _actuation_latency() -> tuple[int, float]:
+    """The count and sum of nos_tpu_actuation_latency_seconds."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.exporter.metrics import REGISTRY
+
+    got = REGISTRY.summary("nos_tpu_actuation_latency_seconds",
+                           {"kind": C.MPS_KIND, "pool": "-"})
+    return (0, 0.0) if got is None else got[:2]
+
+
+def _card_release(loop: _CardLoop) -> dict:
+    """Phase 9 (b) after the children: their pods marked Succeeded (as
+    the kubelet would report them), the reporter must free the three
+    shares, and the binder must bind the fourth pod onto one with no new
+    plan."""
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    share = f"{CARD_SHARE_GB}gb"
+    done = loop.running()
+    for name in done:
+        loop.api.patch(KIND_POD, name, "default", mutate=lambda p:
+                       setattr(p.status, "phase", "Succeeded"))
+    loop.tick()
+    freed = (loop.status(0, share, "free"), loop.status(0, share, "used"))
+    if freed != ("3", None):
+        fail(f"after the children the reporter shows GPU 0 {share} "
+             f"(free, used) {freed}, not 3 free")
+    written, cycles, plans = loop.written(), loop.cycles, _plans_total()
+    if loop.bind() != 1:
+        fail("the binder did not bind the fourth pod onto a freed share")
+    loop.process()
+    loop.tick()
+    (last,) = loop.running()
+    if loop.written() != written or loop.cycles != cycles \
+            or _plans_total() != plans:
+        fail("binding the fourth pod took a new plan")
+    if loop.status(0, share, "used") != "1":
+        fail(f"the reporter shows GPU 0 {share}-used "
+             f"{loop.status(0, share, 'used')!r} after the fourth pod")
+    return {"succeeded": done, "rebound": last,
+            "free_used_after_children": freed}
 
 
 def _step_windows(children: list[dict]) -> tuple[list[list[float]], float]:
@@ -1968,20 +2223,22 @@ def _step_windows(children: list[dict]) -> tuple[list[list[float]], float]:
     return [[a - origin, b - origin] for a, b in spans], overlap
 
 
-def phase_partition(main_loss0: float, device: dict) -> dict:
-    """The MPS planner: (a) the fleet plan on the host, five timed runs
-    against the pinned digest; (b) the card's own node planned and
-    actuated for four 24 GB pods, then the three replicas its config
-    gives GPU 0 run ``python -m nos_tpu_torch.cmd.train`` at the same
-    time, each under the grant its replica stands for.  The smoke
-    stands in for the timeshare device plugin's Allocate (ROADMAP item
-    24c), which would hand a pod that grant."""
+def phase_partition(main_loss0: float, device: dict, smi: str) -> dict:
+    """The MPS planner and its loop: (a) the fleet plan on the host, five
+    timed runs against the pinned digest; (b) the card's node driven by
+    the partitioner controller, its chip agent (timeshare plugin and
+    reporter) and the test binder (``_card_loop``), then one
+    ``python -m nos_tpu_torch.cmd.train`` child per bound pod, all at
+    once, each under the grant derived from the applied config and the
+    pod's request, then the pods' release (``_card_release``).  The smoke
+    stands in for the kubelet plugin's Allocate (ROADMAP item 24b),
+    which would hand each pod its grant."""
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     fleet_line = _fleet_plans()
-    card, grants = _card_plan(device)
-    uuid, total = device["uuid"], device["memory_bytes"]
+    loop, card, grants = _card_loop(device)
+    total = device["memory_bytes"]
     kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
     _release()
     parent_reserved = torch.cuda.memory_reserved()
@@ -1990,9 +2247,8 @@ def phase_partition(main_loss0: float, device: dict) -> dict:
         t1 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(grants)) as pool:
             children = list(pool.map(
-                lambda ig: _run_grant_child(f"replica-{ig[0]}", cfg_path,
-                                            ig[1], no_nvcc),
-                enumerate(grants)))
+                lambda g: _run_grant_child(g["pod"], cfg_path, g["env"],
+                                           no_nvcc), grants))
         concurrent_s = time.perf_counter() - t1
     kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
     if kernels_after != kernels_before:
@@ -2001,7 +2257,8 @@ def phase_partition(main_loss0: float, device: dict) -> dict:
     for child in children:
         child["fraction"], child["cap_bytes"] = _grant_cap(
             int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), total)
-        _check_granted_child(f"partition {child['case']}", child, uuid,
+        _check_granted_child(f"partition {child['case']}", child,
+                             child["grant"]["NOS_TPU_VISIBLE_CHIPS"],
                              main_loss0)
     windows, overlap_s = _step_windows(children)
     if not overlap_s > 0:
@@ -2015,7 +2272,13 @@ def phase_partition(main_loss0: float, device: dict) -> dict:
     if not reserved < total:
         fail(f"the three children reserved {reserved} B at their peaks, "
              f"not under the card's {total} B")
-    emit({"phase": "partition", "seconds": time.perf_counter() - t0,
+    card["release"] = _card_release(loop)
+    card["tick_ms_median"] = statistics.median(loop.tick_ms)
+    card["tick_ms_max"] = max(loop.tick_ms)
+    card["ticks"] = len(loop.tick_ms)
+    card["bound_ms"] = dict(sorted(loop.bound_ms.items()))
+    emit({"phase": "partition", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0,
           "fleet": fleet_line, "card": card,
           "card_memory_bytes": total, "parent_reserved_bytes":
               parent_reserved, "main_loss0": main_loss0,
@@ -2052,7 +2315,7 @@ def main() -> int:
         # the grant and partition children see the same PRETUNED-only
         # cache
         phase_grant(main_loss0, device)
-        phase_partition(main_loss0, device)
+        phase_partition(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe}
     for entry in entries:

@@ -1,16 +1,15 @@
 """API contracts: labels, annotations, resource names,
 ``nos_tpu/api/constants.py`` for the port, the part its partitioning
-planner reads.
+planner, its controller and its MPS node side read.
 
 The JAX package names its TPU contracts under ``nos.tpu``; the port
 uses the reference ``nos``'s GPU vocabulary under ``nos.nebuly.com``
 (reference pkg/api/nos.nebuly.com/v1alpha1/{labels.go,annotations.go},
 pkg/constant/constants.go) and NVIDIA's own names where a GPU cluster
-has them (``nvidia.com/gpu``, the GPU operator's ``nvidia.com/gpu.count``,
-the device plugin's ``nvidia.com/device-plugin.config``).  Everything
-that crosses a process boundary is defined here, but for the resource
-names of the profiles, which live in ``topology/profile.py`` with their
-parsers.
+has them (``nvidia.com/gpu``, the GPU operator's
+``nvidia.com/gpu.count``).  Everything that crosses a process boundary
+is defined here, but for the resource names of the profiles, which live
+in ``topology/profile.py`` with their parsers.
 """
 
 from __future__ import annotations
@@ -41,10 +40,16 @@ HYBRID_KIND = "hybrid"
 LABEL_ACCELERATOR = f"{GROUP}/accelerator"
 LABEL_GPU_COUNT = "nvidia.com/gpu.count"
 
-# The device plugin's config selector: the plugin on the node reads the
-# ConfigMap key named by this label (reference
-# internal/partitioning/mps/partitioner.go:103-110).
-LABEL_DEVICE_PLUGIN_CONFIG = "nvidia.com/device-plugin.config"
+# The MPS plan a node's sharing config belongs to.  The value is the plan
+# id alone, as in the JAX package: a label value caps at 63 characters,
+# and the whole ConfigMap key ("<node>.<plan id>") would bound node
+# names.  Its reader is the port's timeshare plugin
+# (device/timeshare_plugin.py), which derives the key
+# ``config_key(node, plan id)`` from its own node name; NVIDIA's device
+# plugin, which reads the key itself from nvidia.com/device-plugin.config
+# (reference internal/partitioning/mps/partitioner.go:103-110), is not
+# its reader.
+LABEL_DEVICE_PLUGIN_CONFIG = f"{GROUP}/device-plugin.config"
 
 # Gang membership: pods with the same value are admitted all or nothing;
 # part of a pod's Filter equivalence class.
@@ -90,6 +95,26 @@ def spec_plan_annotation(family: str = MIG_KIND) -> str:
 
 def status_plan_annotation(family: str = MIG_KIND) -> str:
     return f"{ANNOT_STATUS_PLAN_PREFIX}.{family}"
+
+
+# The node agent's liveness heartbeat: its reporter stamps a per-process
+# counter with every report, so a dead or wedged agent (value frozen)
+# can be told from a healthy one whose geometry is not changing.  One
+# key per family, like the plan handshake: a hybrid node runs both
+# agents.
+ANNOT_AGENT_HEARTBEAT_PREFIX = f"{GROUP}/agent-heartbeat"
+
+
+def heartbeat_annotation(family: str = MIG_KIND) -> str:
+    return f"{ANNOT_AGENT_HEARTBEAT_PREFIX}.{family}"
+
+
+# The timeshare plugin's generation, bumped with every config it applies,
+# and the ConfigMap key it applied last: the readiness signal the MPS
+# node's reporter turns into status-partitioning-plan.mps, in place of
+# the reference's blind sleep (mps/partitioner.go:99-100).
+ANNOT_PLUGIN_GENERATION = f"{GROUP}/device-plugin-generation"
+ANNOT_PLUGIN_APPLIED_CONFIG = f"{GROUP}/device-plugin-applied-config"
 
 
 # ---------------------------------------------------------------------------

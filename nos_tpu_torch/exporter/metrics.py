@@ -1,17 +1,19 @@
 """In-process metrics, the part of ``nos_tpu/exporter/metrics.py``'s
 ``Registry`` the port sets: ``describe`` a metric once; ``set`` a gauge,
 ``inc`` a counter, ``observe`` a duration (count, sum and max per
-series); read them back with ``value`` and ``summary``.  ``REGISTRY`` is
-the process's registry, under the JAX package's names (dashboards and
-SLO objectives read them): the train main's gauges, the actuator's and
-the retry's counters, the tracer's span seconds.  Serving it at
-``/metrics`` needs the control plane's health server, which the port
-does not have yet.
+series) or time a block with ``time``; read them back with ``value``
+and ``summary``.  ``REGISTRY`` is the process's registry, under the JAX
+package's names (dashboards and SLO objectives read them): the train
+main's gauges, the actuator's, the quarantine's, the controller's and
+the retry's counters, the plan and actuation clocks, the tracer's span
+seconds.  Serving it at ``/metrics`` needs the control plane's health
+server, which the port does not have yet.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 
 class Registry:
@@ -58,6 +60,11 @@ class Registry:
             s[1] += value
             s[2] = max(s[2], value)
 
+    def time(self, name: str, labels: dict | None = None) -> "_Timer":
+        """``with REGISTRY.time("nos_tpu_plan_seconds"): ...`` observes
+        the block's seconds on the host's performance counter."""
+        return _Timer(self, name, labels)
+
     def value(self, name: str, labels: dict | None = None) -> float | None:
         """The gauge's last value or the counter's total, None if the
         series was never written."""
@@ -71,6 +78,20 @@ class Registry:
         with self._lock:
             s = self._observed.get(self._key(name, labels))
             return None if s is None else (int(s[0]), s[1], s[2])
+
+
+class _Timer:
+    def __init__(self, reg: Registry, name: str, labels: dict | None) -> None:
+        self._reg, self._name, self._labels = reg, name, labels
+
+    def __enter__(self) -> "_Timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._reg.observe(self._name, time.perf_counter() - self._t0,
+                          self._labels)
+        return False
 
 
 REGISTRY = Registry()

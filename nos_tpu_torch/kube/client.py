@@ -1,11 +1,14 @@
 """In-memory Kubernetes API substrate, ``nos_tpu/kube/client.py`` for the
-port: the durable store through which the planner and the node side
-exchange annotations and ConfigMaps.
+port: the durable store and watch bus through which the partitioner
+controller, the node agents and the binder exchange annotations, pods
+and ConfigMaps.
 
 Reads return deep copies (as a real API server serialises); every write
-bumps the resource version.  The watch bus, deletes, the pod views, the
-``Informer`` and the admission hooks wait for the controller slice,
-which is the first to call them.
+(create, update, patch, delete) bumps the resource version and fans out
+to the kind's watchers, synchronously and in store-commit order.  The
+``Informer`` comes with the scheduler's cache (ROADMAP item 7), the
+admission hooks and ``locked()`` with the MIG node side's kubelet
+simulator (item 5).
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from collections import defaultdict
 from typing import Any, Callable
 
 from .objects import ConfigMap, Node, Pod
+
+# (event type, object): "ADDED", "MODIFIED" or "DELETED"
+WatchFn = Callable[[str, Any], None]
 
 
 class NotFound(Exception):
@@ -38,18 +44,54 @@ class APIServer:
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self._stores: dict[str, dict[str, Any]] = defaultdict(dict)
+        # (callback, selector): selector None delivers everything
+        self._watchers: dict[str, list[
+            tuple[WatchFn, Callable[[Any], bool] | None]]] = defaultdict(list)
         self._rv = 0
+        self._event_queue: list[tuple[str, str, Any]] = []
+        self._delivering = False
 
     @staticmethod
     def _key(obj: Any) -> str:
         ns = getattr(obj.metadata, "namespace", "")
         return f"{ns}/{obj.metadata.name}" if ns else obj.metadata.name
 
-    def _write(self, kind: str, key: str, obj: Any) -> Any:
+    def _notify(self, kind: str, event: str, obj: Any) -> None:
+        """FIFO delivery.  A watcher that writes back re-enters here;
+        delivering its event at once would hand the watchers after it
+        the newer state before the event that caused it, so the nested
+        event is queued and the outermost call drains the queue in
+        order.  The queue always drains fully: a raising watcher does
+        not strand the events behind it, and the first error is raised
+        once the queue is empty."""
+        self._event_queue.append((kind, event, copy.deepcopy(obj)))
+        if self._delivering:
+            return
+        self._delivering = True
+        first_exc: BaseException | None = None
+        try:
+            while self._event_queue:
+                k, ev, o = self._event_queue.pop(0)
+                for fn, selector in list(self._watchers.get(k, [])):
+                    # the selector reads the queued copy, before the
+                    # per-watcher copy, and must not mutate it
+                    if selector is not None and not selector(o):
+                        continue
+                    try:
+                        fn(ev, copy.deepcopy(o))
+                    except BaseException as e:
+                        if first_exc is None:
+                            first_exc = e
+        finally:
+            self._delivering = False
+        if first_exc is not None:
+            raise first_exc
+
+    def _write(self, kind: str, key: str, obj: Any, event: str) -> None:
         self._rv += 1
         obj.metadata.resource_version = self._rv
         self._stores[kind][key] = copy.deepcopy(obj)
-        return copy.deepcopy(obj)
+        self._notify(kind, event, obj)
 
     # -- CRUD -------------------------------------------------------------
     def create(self, kind: str, obj: Any) -> Any:
@@ -57,7 +99,9 @@ class APIServer:
             key = self._key(obj)
             if key in self._stores[kind]:
                 raise Conflict(f"{kind} {key} already exists")
-            return self._write(kind, key, obj)
+            self._write(kind, key, obj, "ADDED")
+            # a watcher may have written back: return the stored state
+            return copy.deepcopy(self._stores[kind][key])
 
     def get(self, kind: str, name: str, namespace: str = "") -> Any:
         with self._lock:
@@ -87,7 +131,8 @@ class APIServer:
                 raise Conflict(
                     f"{kind} {key}: resourceVersion {sent_rv} != "
                     f"{current_rv}")
-            return self._write(kind, key, obj)
+            self._write(kind, key, obj, "MODIFIED")
+            return copy.deepcopy(store[key])
 
     def patch(self, kind: str, name: str, namespace: str = "",
               *, mutate: Callable[[Any], None]) -> Any:
@@ -100,7 +145,27 @@ class APIServer:
                 raise NotFound(f"{kind} {key}")
             obj = copy.deepcopy(store[key])
             mutate(obj)
-            return self._write(kind, key, obj)
+            self._write(kind, key, obj, "MODIFIED")
+            return copy.deepcopy(obj)
+
+    def delete(self, kind: str, name: str, namespace: str = "") -> None:
+        with self._lock:
+            key = f"{namespace}/{name}" if namespace else name
+            store = self._stores[kind]
+            if key not in store:
+                raise NotFound(f"{kind} {key}")
+            obj = store.pop(key)
+            # a delete is a mutation too: views memoised on the
+            # resource version must see it
+            self._rv += 1
+            self._notify(kind, "DELETED", obj)
+
+    @property
+    def resource_version(self) -> int:
+        """The store's mutation counter, bumped by every create, update,
+        patch and delete."""
+        with self._lock:
+            return self._rv
 
     def list(self, kind: str, namespace: str | None = None,
              label_selector: dict[str, str] | None = None,
@@ -120,12 +185,46 @@ class APIServer:
                 out.append(copy.deepcopy(obj))
             return out
 
+    def watch(self, kind: str, fn: WatchFn,
+              selector: Callable[[Any], bool] | None = None
+              ) -> Callable[[], None]:
+        """Register a watcher and return its unsubscribe function.  The
+        watcher first gets a synthetic ADDED event for every stored
+        object (an informer's sync).  ``selector`` is the field selector:
+        it runs before the per-watcher copy and must not mutate the
+        object.  An object that stops matching is simply no longer
+        delivered (no synthetic DELETED), so select only on fields that
+        do not change while the object matters, such as a pod's
+        ``spec.node_name``."""
+        entry = (fn, selector)
+        with self._lock:
+            self._watchers[kind].append(entry)
+            for obj in list(self._stores[kind].values()):
+                if selector is not None and not selector(obj):
+                    continue
+                fn("ADDED", copy.deepcopy(obj))
+
+        def unsubscribe() -> None:
+            with self._lock:
+                if entry in self._watchers[kind]:
+                    self._watchers[kind].remove(entry)
+
+        return unsubscribe
+
+    # -- field-index views (reference gpupartitioner.go:270-292) ---------
+    def pods_by_phase(self, phase: str) -> list[Pod]:
+        return self.list(KIND_POD, filter_fn=lambda p: p.status.phase == phase)
+
+    def pods_on_node(self, node_name: str) -> list[Pod]:
+        return self.list(KIND_POD,
+                         filter_fn=lambda p: p.spec.node_name == node_name)
+
 
 KIND_POD = "Pod"
 KIND_NODE = "Node"
 KIND_CONFIGMAP = "ConfigMap"
 
 __all__ = [
-    "APIServer", "NotFound", "Conflict", "TransientAPIError",
+    "APIServer", "NotFound", "Conflict", "TransientAPIError", "WatchFn",
     "KIND_POD", "KIND_NODE", "KIND_CONFIGMAP", "Node", "Pod", "ConfigMap",
 ]

@@ -58,6 +58,7 @@ class ObjectMeta(FastCopy):
     labels: dict[str, str] = field(default_factory=dict)
     annotations: dict[str, str] = field(default_factory=dict)
     creation_timestamp: float = 0.0
+    owner_kind: str = ""          # e.g. "DaemonSet", read by pod predicates
     resource_version: int = 0
 
 
@@ -76,6 +77,14 @@ class PodSpec(FastCopy):
     priority: int = 0
 
 
+@dataclass
+class PodCondition(FastCopy):
+    type: str
+    status: str
+    reason: str = ""
+    message: str = ""
+
+
 # Pod phases
 PENDING = "Pending"
 RUNNING = "Running"
@@ -86,6 +95,8 @@ FAILED = "Failed"
 @dataclass
 class PodStatus(FastCopy):
     phase: str = PENDING
+    conditions: list[PodCondition] = field(default_factory=list)
+    nominated_node_name: str = ""
 
 
 @dataclass
@@ -97,6 +108,17 @@ class Pod(FastCopy):
     @property
     def key(self) -> str:
         return f"{self.metadata.namespace}/{self.metadata.name}"
+
+    def is_unschedulable(self) -> bool:
+        """Marked unschedulable by the scheduler: the condition
+        PodScheduled=False with reason Unschedulable (reference
+        pkg/util/pod/pod.go:31-39).  A reason refined in place
+        ("Unschedulable/<class>") still counts."""
+        return any(
+            c.type == "PodScheduled" and c.status == "False"
+            and c.reason.split("/", 1)[0] == "Unschedulable"
+            for c in self.status.conditions
+        )
 
 
 @dataclass

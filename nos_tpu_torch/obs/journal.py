@@ -1,7 +1,9 @@
 """The decision journal, ``nos_tpu/obs/journal.py`` for the port: a
-bounded, append-only log of the planner's and the actuator's decisions
-(a node's geometry committed or reverted, a node actuated or failed),
-each with the ambient trace context so a record links back to its span.
+bounded, append-only log of the planner's, the actuator's and the
+partitioner controller's decisions (a node's geometry committed or
+reverted, a node actuated or failed, a plan cycle, a node quarantined or
+released, the handshake's lagging nodes), each with the ambient trace
+context so a record links back to its span.
 
 ``record()`` takes the journal lock for the append only and calls
 nothing under it; timestamps come from the journal's injectable clock.
@@ -24,11 +26,18 @@ REGISTRY.describe("nos_tpu_journal_records_total",
 REGISTRY.describe("nos_tpu_journal_dropped_total",
                   "Decision records evicted from the bounded journal")
 
-# -- the categories the planner and the actuator record --------------------
+# A record naming many nodes keeps at most this many of them.
+MAX_JOURNAL_NODES = 32
+
+# -- the categories the planner, the actuator and the controller record ---
 PLAN_NODE_COMMITTED = "plan-node-committed"
 PLAN_NODE_REVERTED = "plan-node-reverted"
 NODE_ACTUATED = "node-actuated"
 ACTUATION_FAILED = "actuation-failed"
+PLAN_CYCLE = "plan-cycle"
+QUARANTINED = "quarantined"
+QUARANTINE_RELEASED = "quarantine-released"
+HANDSHAKE_WAIT = "handshake-wait"
 
 
 class DecisionRecord:

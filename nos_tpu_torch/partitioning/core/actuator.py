@@ -6,9 +6,9 @@ Nothing is written when the desired state is empty or equals the
 current one; otherwise every changed node is applied under one fresh
 plan id.  A node whose ``apply_partitioning`` raises does not stop the
 others: it is counted (``nos_tpu_actuation_failures_total``), journaled
-and left for the next cycle.  The JAX actuator also feeds a failing
-node to the controller's quarantine breaker; that waits for the
-controller slice, and the actuator runs without it.
+and left for the next cycle.  The actuator feeds its kind's
+``QuarantineList``: a failing node's streak opens the breaker (the node
+drops out of planning), and an applied node's success clears it.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from nos_tpu_torch.obs.trace import detail_span, span as obs_span
 
 from ..state import PartitioningState
 from .interfaces import Actuator, PartitionCalculator, Partitioner
+from .quarantine import QuarantineList
 
 REGISTRY.describe("nos_tpu_actuation_failures_total",
                   "Per-node apply_partitioning failures (isolated)")
@@ -48,10 +49,11 @@ def compute_partitioning_state(
 class GeometryActuator(Actuator):
     def __init__(self, partitioner: Partitioner,
                  partition_calculator: PartitionCalculator,
-                 kind: str = "") -> None:
+                 quarantine: QuarantineList) -> None:
         self._partitioner = partitioner
         self._partition_calculator = partition_calculator
-        self._kind = kind
+        self._quarantine = quarantine
+        self._kind = quarantine.kind
 
     def current_state(self, snapshot) -> PartitioningState:
         return compute_partitioning_state(snapshot, self._partition_calculator)
@@ -92,13 +94,15 @@ class GeometryActuator(Actuator):
                 failed.append(node_name)
                 REGISTRY.inc("nos_tpu_actuation_failures_total",
                              labels={"kind": self._kind})
+                streak = self._quarantine.record_failure(node_name)
                 journal_record(J.ACTUATION_FAILED, node_name,
                                kind=self._kind, plan_id=plan_id,
-                               error=repr(e))
-                logger.warning("actuator: node %s apply failed: %s",
-                               node_name, e)
+                               error=repr(e), streak=streak)
+                logger.warning("actuator: node %s apply failed (streak "
+                               "%d): %s", node_name, streak, e)
                 continue
             changed = True
             journal_record(J.NODE_ACTUATED, node_name,
                            kind=self._kind, plan_id=plan_id)
+            self._quarantine.record_success(node_name)
         return changed, failed

@@ -1,7 +1,6 @@
 """The MPS partitioning strategy, ``nos_tpu/partitioning/timeshare`` for
-the port (reference internal/partitioning/mps/ and pkg/gpu/slicing/).
-``factory.py``, which wires the PartitionerController, waits for the
-controller slice."""
+the port (reference internal/partitioning/mps/ and pkg/gpu/slicing/),
+with ``factory.py``'s wiring of the partitioner controller."""
 
 from .calculators import (
     TimesharePartitionCalculator, TimeshareProfileCalculator,
@@ -13,6 +12,7 @@ from .partitioner import (
     config_key, key_belongs_to_node, plan_id_from_key, to_plugin_config,
 )
 from .snapshot_taker import TimeshareSnapshotTaker
+from .factory import new_timeshare_partitioner_controller
 
 __all__ = [
     "TimeshareNode", "gpu_count", "units_from_node",
@@ -21,5 +21,5 @@ __all__ = [
     "TimesharePartitioner", "TimeshareSnapshotTaker",
     "DEVICE_PLUGIN_CM_NAME", "DEVICE_PLUGIN_CM_NAMESPACE",
     "config_key", "key_belongs_to_node", "plan_id_from_key",
-    "to_plugin_config",
+    "to_plugin_config", "new_timeshare_partitioner_controller",
 ]

@@ -1,15 +1,18 @@
-"""MPS actuation: the device plugin's ConfigMap and the node's plan
+"""MPS actuation: the timeshare plugin's ConfigMap and the node's plan
 label, ``nos_tpu/partitioning/timeshare/partitioner.py`` for the port
 (reference internal/partitioning/mps/partitioner.go:61-157).
 
 ``TimesharePartitioner`` writes the node's sharing config under the key
-``<node>.<plan id>`` of the device plugin's ConfigMap (dropping the
-node's older keys), labels the node ``nvidia.com/device-plugin.config=
-<plan id>`` so its plugin loads that key, and stamps the node's
-``spec-partitioning-plan.mps`` annotation.  Where the reference then
-sleeps a fixed delay for the plugin, the JAX package waits for the node
-to report ``status-partitioning-plan.mps``; the controller slice that
-waits is later work, as is the plugin (``ROADMAP.md`` item 24c).
+``<node>.<plan id>`` of the plugin's ConfigMap (dropping the node's
+older keys), labels the node ``nos.nebuly.com/device-plugin.config=
+<plan id>`` and stamps its ``spec-partitioning-plan.mps`` annotation.
+The label holds the plan id alone, as the JAX package's does; the
+port's own timeshare plugin (``device/timeshare_plugin.py``) derives
+the key from its node name and is the label's reader, NVIDIA's device
+plugin is not.  Where the reference then sleeps a fixed delay for the
+plugin, the node's reporter stamps ``status-partitioning-plan.mps``
+once the plugin has applied the key, and the partitioner controller
+waits for that.
 """
 
 from __future__ import annotations

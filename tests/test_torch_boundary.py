@@ -86,7 +86,16 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "partitioning.core.planner", "partitioning.core.actuator",
                    "partitioning.timeshare.partitioner",
                    "partitioning.timeshare.snapshot_taker",
-                   "testing.factory", "testing.fleet"):
+                   "testing.factory", "testing.fleet", "utils.batcher",
+                   "utils.pod_util", "partitioning.core.quarantine",
+                   "controllers.pod_controller",
+                   "controllers.node_controller",
+                   "controllers.partitioner_controller",
+                   "partitioning.timeshare.factory", "controllers.kubelet",
+                   "device.timeshare_plugin",
+                   "controllers.chipagent.reporter",
+                   "controllers.chipagent.agent", "testing.chaos",
+                   "testing.bind"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad

@@ -502,3 +502,265 @@ class TestFramework:
             "NodeResourcesFit"
         assert spans["planner.plan"]["counts"] == {"filter_runs": 1}
         assert JAX_GEN.chips_per_host == 8
+
+
+# ---------------------------------------------------------------------------
+# The watch bus, deletes and the pod views
+# ---------------------------------------------------------------------------
+
+
+class _Boom(RuntimeError):
+    pass
+
+
+def _bus_log(api, objects):
+    """Three watchers on ConfigMaps: the first writes back (cm-b is
+    patched twice when cm-a is ADDED), the second raises on cm-c's
+    events, the third records.  Returns both recorders' logs and the
+    raised errors."""
+    first, third, raised = [], [], []
+
+    def writer(ev, cm):
+        first.append((ev, cm.metadata.name, dict(cm.data)))
+        if ev == "ADDED" and cm.metadata.name == "cm-a":
+            for v in ("a1", "a2"):
+                api.patch("ConfigMap", "cm-b", "ns", mutate=lambda c, v=v:
+                          c.data.__setitem__("from", v))
+
+    def raiser(ev, cm):
+        if cm.metadata.name == "cm-c":
+            raise _Boom(ev)
+
+    api.watch("ConfigMap", writer)
+    api.watch("ConfigMap", raiser)
+    api.watch("ConfigMap", lambda ev, cm: third.append(
+        (ev, cm.metadata.name, dict(cm.data), cm.metadata.resource_version)))
+    ops = [lambda: api.create("ConfigMap", _cm(objects, "cm-b")),
+           lambda: api.create("ConfigMap", _cm(objects, "cm-a")),
+           lambda: api.create("ConfigMap", _cm(objects, "cm-c")),
+           lambda: api.patch("ConfigMap", "cm-a", "ns", mutate=lambda c:
+                             c.data.__setitem__("k", "1")),
+           lambda: api.delete("ConfigMap", "cm-c", "ns"),
+           lambda: api.delete("ConfigMap", "cm-c", "ns")]
+    for op in ops:
+        try:
+            op()
+        except (_Boom, jax_client.NotFound, client.NotFound) as e:
+            raised.append(type(e).__name__)
+    return first, third, raised, api.resource_version
+
+
+class TestWatchBus:
+    def test_fifo_delivery_matches_jax(self):
+        """A watcher's write-back is delivered after the event that
+        caused it, to every watcher in the same order; a raising watcher
+        neither stops the others nor strands queued events."""
+        import nos_tpu.kube.objects as jo
+        import nos_tpu_torch.kube.objects as po
+
+        api, japi = _both_apis()
+        got, want = _bus_log(api, po), _bus_log(japi, jo)
+        assert got == want
+        first, third, raised, _ = got
+        assert [e[:3] for e in third] == [
+            ("ADDED", "cm-b", {}), ("ADDED", "cm-a", {}),
+            ("MODIFIED", "cm-b", {"from": "a1"}),
+            ("MODIFIED", "cm-b", {"from": "a2"}),
+            ("ADDED", "cm-c", {}), ("MODIFIED", "cm-a", {"k": "1"}),
+            ("DELETED", "cm-c", {})]
+        assert raised == ["_Boom", "_Boom", "NotFound"]
+        assert [e[:2] for e in first] == [e[:2] for e in third]
+
+    def test_watch_replays_selects_and_unsubscribes_as_jax(self):
+        runs = []
+        for api, mk in ((client.APIServer(), factory.make_pod),
+                        (jax_client.APIServer(), jax_factory.make_pod)):
+            for i, node in enumerate(("n1", "n2", "n1")):
+                api.create("Pod", mk(f"p{i}", node_name=node))
+            seen = []
+            stop = api.watch("Pod", lambda ev, p: seen.append(
+                (ev, p.metadata.name)),
+                selector=lambda p: p.spec.node_name == "n1")
+            api.create("Pod", mk("p3", node_name="n1"))
+            api.create("Pod", mk("p4", node_name="n2"))
+            api.delete("Pod", "p0", "default")
+            stop()
+            stop()                       # idempotent
+            api.create("Pod", mk("p5", node_name="n1"))
+            runs.append(seen)
+        assert runs[0] == runs[1] == [
+            ("ADDED", "p0"), ("ADDED", "p2"), ("ADDED", "p3"),
+            ("DELETED", "p0")]
+
+    @pytest.mark.parametrize("seed", range(3))
+    def test_delete_version_and_pod_views_match_jax(self, seed):
+        rng = np.random.default_rng(60 + seed)
+        apis = _both_apis()
+        mks = (factory.make_pod, jax_factory.make_pod)
+        for i in range(10):
+            kw = {"node_name": str(rng.choice(["", "n1", "n2"])),
+                  "phase": str(rng.choice(["Pending", "Running",
+                                           "Succeeded"]))}
+            for api, mk in zip(apis, mks):
+                api.create("Pod", mk(f"p{i}", **kw))
+        for name in rng.choice([f"p{i}" for i in range(12)], size=6):
+            outcomes = []
+            for api in apis:
+                try:
+                    api.delete("Pod", str(name), "default")
+                    outcomes.append("ok")
+                except (client.NotFound, jax_client.NotFound):
+                    outcomes.append("NotFound")
+            assert outcomes[0] == outcomes[1]
+            assert apis[0].resource_version == apis[1].resource_version
+        for view, args in (("pods_by_phase", ("Pending",)),
+                           ("pods_by_phase", ("Running",)),
+                           ("pods_on_node", ("n1",)),
+                           ("pods_on_node", ("",))):
+            got, want = (sorted(p.key for p in getattr(api, view)(*args))
+                         for api in apis)
+            assert got == want, view
+
+
+# ---------------------------------------------------------------------------
+# The batcher, the quarantine list and the pod predicate
+# ---------------------------------------------------------------------------
+
+
+class TestBatcher:
+    @pytest.mark.parametrize("seed", range(4))
+    def test_windows_match_jax(self, seed):
+        from nos_tpu.utils.batcher import Batcher as JaxBatcher
+
+        from nos_tpu_torch.utils.batcher import Batcher
+
+        rng = np.random.default_rng(80 + seed)
+        now = [0.0]
+        b = Batcher(timeout_s=60.0, idle_s=10.0, clock=lambda: now[0])
+        jb = JaxBatcher(timeout_s=60.0, idle_s=10.0, clock=lambda: now[0])
+        for _ in range(200):
+            op = rng.integers(0, 5)
+            if op == 0:
+                key = f"p{rng.integers(0, 5)}"
+                b.add(key, key)
+                jb.add(key, key)
+            elif op == 1:
+                now[0] += float(rng.choice([0.5, 4.0, 9.9, 10.0, 30.0, 61.0]))
+            elif op == 2:
+                assert b.drain() == jb.drain()
+            elif op == 3 and rng.random() < 0.2:
+                # the port drains where JAX resets: both empty the batch
+                b.drain()
+                jb.reset()
+            assert (b.ready(), len(b)) == (jb.ready(), len(jb))
+
+    def test_the_windows(self):
+        from nos_tpu_torch.utils import batcher
+
+        now = [0.0]
+        b = batcher.Batcher(timeout_s=60.0, idle_s=10.0, clock=lambda: now[0])
+        assert not b.ready()
+        for t in range(0, 60, 5):       # adds every 5 s hold the idle window
+            now[0] = float(t)
+            b.add("p", t)
+            assert not b.ready()
+        now[0] = 60.0                    # ... until the timeout
+        assert b.ready() and b.drain() == [55]
+        assert not b.ready() and len(b) == 0
+        b.add("q", 1)
+        now[0] += 10.0
+        assert b.ready()
+        assert guards.guarded_fields(batcher.Batcher) == {
+            "_items": "_lock", "_first_add": "_lock", "_last_add": "_lock"}
+
+
+class TestQuarantine:
+    @pytest.mark.parametrize("seed", range(4))
+    def test_state_machine_matches_jax(self, seed, monkeypatch):
+        import nos_tpu.obs.ledger as jax_ledger
+        import nos_tpu.partitioning.core.quarantine as jq
+
+        from nos_tpu_torch.partitioning.core import quarantine as pq
+
+        rng = np.random.default_rng(90 + seed)
+        now = [0.0]
+        # the JAX list stamps its holds in the process's ledger
+        monkeypatch.setattr(jax_ledger, "_ledger",
+                            jax_ledger.ChipSecondLedger(clock=lambda: now[0]))
+        q = pq.QuarantineList("mps", clock=lambda: now[0])
+        jql = jq.QuarantineList("mps", failure_threshold=3,
+                                clock=lambda: now[0])
+        assert pq.FAILURE_THRESHOLD == jql.failure_threshold == 3
+        reasons = (pq.REASON_PLAN_DEADLINE, pq.REASON_ACTUATION)
+        assert reasons == (jq.REASON_PLAN_DEADLINE, jq.REASON_ACTUATION)
+        for _ in range(300):
+            node = f"n{rng.integers(0, 3)}"
+            op = int(rng.integers(0, 6))
+            if op == 0:
+                reason = str(rng.choice(reasons))
+                assert q.quarantine(node, reason) == \
+                    jql.quarantine(node, reason)
+            elif op == 1:
+                assert q.unquarantine(node) == jql.unquarantine(node)
+            elif op == 2:
+                assert q.release_for_probe(node, 30.0) == \
+                    jql.release_for_probe(node, 30.0)
+            elif op == 3:
+                assert q.record_failure(node) == jql.record_failure(node)
+            elif op == 4:
+                q.record_success(node)
+                jql.record_success(node)
+            else:
+                now[0] += float(rng.choice([1.0, 29.0, 31.0]))
+            assert q.items() == jql.items()
+            assert q.names() == jql.names()
+            assert (q.items().get(node, ("",))[0], q.is_quarantined(node)) \
+                == (jql.reason(node), jql.is_quarantined(node))
+        assert REGISTRY.value("nos_tpu_quarantined_nodes",
+                              {"kind": "mps"}) == len(q.names())
+
+    def test_a_failed_probe_reopens_at_once(self):
+        from nos_tpu_torch.partitioning.core import quarantine as pq
+
+        now = [0.0]
+        q = pq.QuarantineList("mps", clock=lambda: now[0])
+        assert [q.record_failure("n") for _ in range(3)] == [1, 2, 3]
+        assert q.items()["n"][0] == pq.REASON_ACTUATION
+        assert q.release_for_probe("n", 10.0)
+        assert q.record_failure("n") == 3 and q.is_quarantined("n")
+        q.release_for_probe("n", 10.0)
+        now[0] = 20.0                    # past the window: a fresh streak
+        assert q.record_failure("n") == 1 and not q.is_quarantined("n")
+        q.record_success("n")
+        assert q.record_failure("n") == 1
+
+
+class TestPodPredicate:
+    @pytest.mark.parametrize("phase", ["Pending", "Running"])
+    @pytest.mark.parametrize("marked", [False, True])
+    @pytest.mark.parametrize("nominated", ["", "n1"])
+    @pytest.mark.parametrize("owner", ["", "DaemonSet", "Job"])
+    def test_extra_resources_could_help_matches_jax(self, phase, marked,
+                                                    nominated, owner):
+        import nos_tpu.kube.objects as jo
+        from nos_tpu.utils.pod_util import (
+            extra_resources_could_help_scheduling as jax_could_help)
+
+        import nos_tpu_torch.kube.objects as po
+        from nos_tpu_torch.utils.pod_util import (
+            extra_resources_could_help_scheduling)
+
+        verdicts = []
+        for objects, mk, fn in ((po, factory.make_pod,
+                                 extra_resources_could_help_scheduling),
+                                (jo, jax_factory.make_pod, jax_could_help)):
+            pod = mk("p", phase=phase)
+            pod.metadata.owner_kind = owner
+            pod.status.nominated_node_name = nominated
+            if marked:
+                pod.status.conditions.append(objects.PodCondition(
+                    "PodScheduled", "False", "Unschedulable", "no fit"))
+            verdicts.append((fn(pod), pod.is_unschedulable()))
+        assert verdicts[0] == verdicts[1]
+        assert verdicts[0][0] == (phase == "Pending" and marked
+                                  and not nominated and owner != "DaemonSet")

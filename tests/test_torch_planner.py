@@ -363,7 +363,7 @@ class TestActuatorParity:
         jsnap, _, jdesired, _, _, _ = jax_plan(spec, True)
         actuator = core.GeometryActuator(
             ts.TimesharePartitioner(api), ts.TimesharePartitionCalculator(),
-            kind=C.MPS_KIND)
+            core.QuarantineList(C.MPS_KIND))
         jactuator = jax_core.GeometryActuator(
             jax_ts.TimesharePartitioner(jax_api),
             jax_ts.TimesharePartitionCalculator(), kind="timeshare")
@@ -388,7 +388,7 @@ class TestActuatorParity:
                 for k, v in jnode.metadata.annotations.items()}
             assert {k: _mask(v, plan)
                     for k, v in node.metadata.labels.items()
-                    if k.startswith("nvidia.com/device-plugin")} == {
+                    if k == C.LABEL_DEVICE_PLUGIN_CONFIG} == {
                 port_key(k): _mask(v, jplan)
                 for k, v in jnode.metadata.labels.items()
                 if k.endswith("device-plugin.config")}
@@ -399,7 +399,8 @@ class TestActuatorParity:
         snap = ts.TimeshareSnapshotTaker().take_snapshot(
             fleet.build_cluster(spec))
         actuator = core.GeometryActuator(
-            ts.TimesharePartitioner(api), ts.TimesharePartitionCalculator())
+            ts.TimesharePartitioner(api), ts.TimesharePartitionCalculator(),
+            core.QuarantineList(C.MPS_KIND))
         assert not actuator.apply(snap, PartitioningState())
         assert not actuator.apply(snap, actuator.current_state(snap))
         assert api.list(KIND_CONFIGMAP) == []
@@ -419,7 +420,8 @@ class TestActuatorParity:
         try:
             actuator = core.GeometryActuator(
                 ts.TimesharePartitioner(api),
-                ts.TimesharePartitionCalculator(), kind=C.MPS_KIND)
+                ts.TimesharePartitionCalculator(),
+                core.QuarantineList(C.MPS_KIND))
             assert actuator.apply(snap, desired)
         finally:
             journal.set_journal(prev)
@@ -454,8 +456,8 @@ class TestCardNode:
         for node in state.nodes().values():
             api.create(KIND_NODE, node)
         assert core.GeometryActuator(
-            ts.TimesharePartitioner(api),
-            ts.TimesharePartitionCalculator()).apply(snap, desired)
+            ts.TimesharePartitioner(api), ts.TimesharePartitionCalculator(),
+            core.QuarantineList(C.MPS_KIND)).apply(snap, desired)
         (cm,) = api.list(KIND_CONFIGMAP)
         (key,) = cm.data
         assert port_config_table(json.loads(cm.data[key])) == \

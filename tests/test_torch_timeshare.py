@@ -596,6 +596,19 @@ class TestPartitioner:
         # one key per node: gpu-a's p1 went when p3 came
         assert sorted(cm.data) == ["gpu-a.p3", "gpu-b.p2"]
 
+    def test_the_plan_label_is_not_nvidias(self):
+        """The plan id goes under the port's own label, which the port's
+        timeshare plugin reads; NVIDIA's device plugin reads its label
+        as a ConfigMap key, so the port must not write that one."""
+        api = APIServer()
+        api.create(KIND_NODE, factory.make_gpu_node("gpu-a"))
+        port_np, _ = _random_partitionings(np.random.default_rng(3))
+        ts.TimesharePartitioner(api).apply_partitioning("gpu-a", "p1", port_np)
+        labels = api.get(KIND_NODE, "gpu-a").metadata.labels
+        assert C.LABEL_DEVICE_PLUGIN_CONFIG == "nos.nebuly.com/device-plugin.config"
+        assert labels[C.LABEL_DEVICE_PLUGIN_CONFIG] == "p1"
+        assert "nvidia.com/device-plugin.config" not in labels
+
 
 class TestNodeInfo:
     def test_add_remove_and_clone_match_jax(self):
