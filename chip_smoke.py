@@ -136,6 +136,33 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    (``nos_tpu_plan_seconds``), the agent's host ms per tick,
    ``nos_tpu_actuation_latency_seconds`` and each pod's wall ms from
    creation to bound; the children's launches go on it, as grant's do.
+10. mig: the MIG strategy and node side, on the host; no MIG instance is
+   created or destroyed on the card and no MIG mode changed.  (a)
+   ``testing/fleet.py``'s MIG fleet (32 nodes x 8 H100 80GB labelled
+   ``mig``, half full, 200 pending pods, seed 0) planned MIG_PLANS
+   times, each timed on a fresh snapshot: the plans must be identical,
+   hash to ``MIG_FLEET_DIGEST`` (the CPU tests' plan), give every GPU one
+   of the H100's maximal geometries (``enumerate_geometries``) within 7
+   compute slices and 8 memory slots, and keep every used instance.
+   (b) The MIG agent's reporter over ``NvmlGpuRuntime`` for the card's
+   node (its model from discovery), with a pod-resources view holding
+   no device: its status and placement annotations must be NVML's MIG
+   devices and placements, none with MIG off; the MIG mode NVML read
+   and the annotations go on the line.  (c) One H100 node through the
+   MIG loop on an in-memory API server (``_MigLoop``): node controller
+   with the virgin-node initializer, the MIG partitioner controller
+   from its factory (``time.monotonic``, batch idle 0.2 s, timeout 2
+   s), a ``SliceAgent`` with its kubelet simulator over
+   ``FakeGpuRuntime(H100_80GB, 1)`` (named on the line as the fake it
+   is) and the test binder.  The virgin node is carved to 7g.80gb; five
+   pods (3g.40gb, 2g.20gb, three 1g.10gb) take one re-carve, closed in
+   one plan cycle with four bound and Running and the fifth
+   Unschedulable; a rescan cycle writes nothing; a bound 1g.10gb pod is
+   deleted and the fifth binds onto its instance with no new plan.
+   Every distinct state the loop writes to the node and the pods must
+   equal ``MIG_LOOP_WRITES``.  The line carries the plan cycles' host
+   ms, the agent's host ms per tick, the actuation latency, each pod's
+   pending-to-bound ms and the fake's create and delete calls.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path; a tile no path ran must have run in the autotune
@@ -2038,19 +2065,18 @@ class _CardLoop:
                     C.spec_plan_annotation(C.MPS_KIND)))
 
 
-def _plan_seconds() -> tuple[int, float]:
-    from nos_tpu_torch.api import constants as C
+def _plan_seconds(kind: str = "mps") -> tuple[int, float]:
+    """The count and sum of nos_tpu_plan_seconds of a kind."""
     from nos_tpu_torch.exporter.metrics import REGISTRY
 
-    got = REGISTRY.summary("nos_tpu_plan_seconds", {"kind": C.MPS_KIND})
+    got = REGISTRY.summary("nos_tpu_plan_seconds", {"kind": kind})
     return (0, 0.0) if got is None else got[:2]
 
 
-def _plans_total() -> float:
-    from nos_tpu_torch.api import constants as C
+def _plans_total(kind: str = "mps") -> float:
     from nos_tpu_torch.exporter.metrics import REGISTRY
 
-    return REGISTRY.value("nos_tpu_plans_total", {"kind": C.MPS_KIND}) or 0.0
+    return REGISTRY.value("nos_tpu_plans_total", {"kind": kind}) or 0.0
 
 
 def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
@@ -2160,13 +2186,12 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
     return loop, fields, grants
 
 
-def _actuation_latency() -> tuple[int, float]:
-    """The count and sum of nos_tpu_actuation_latency_seconds."""
-    from nos_tpu_torch.api import constants as C
+def _actuation_latency(kind: str = "mps") -> tuple[int, float]:
+    """The count and sum of nos_tpu_actuation_latency_seconds of a kind."""
     from nos_tpu_torch.exporter.metrics import REGISTRY
 
     got = REGISTRY.summary("nos_tpu_actuation_latency_seconds",
-                           {"kind": C.MPS_KIND, "pool": "-"})
+                           {"kind": kind, "pool": "-"})
     return (0, 0.0) if got is None else got[:2]
 
 
@@ -2294,6 +2319,499 @@ def phase_partition(main_loss0: float, device: dict, smi: str) -> dict:
     return {ch["case"]: ch["report"]["launches"] for ch in children}
 
 
+# The mig phase: host-only.  (a) the MIG fleet plan; (b) the MIG
+# reporter over the card's NVML; (c) one H100 node through the MIG loop,
+# actuated on the fake runtime.
+MIG_PLANS = 5
+MIG_NODE = "h100-mig-node-0"
+MIG_PODS = ("3g.40gb", "2g.20gb", "1g.10gb", "1g.10gb", "1g.10gb")
+MIG_RELEASED = "mig-2"       # a bound 1g.10gb pod, deleted in step 5
+# What the MIG loop writes (_MigLoop._record), as its CPU test's run
+# recorded it (tests/test_torch_sliceagent.py).
+MIG_LOOP_WRITES = {
+    "h100-mig-node-0": [
+        [],
+        ["spec-gpu-0-7g.80gb=1", "spec-partitioning-plan.mig=<plan 0>"],
+        [
+            "device-plugin-generation=1",
+            "spec-gpu-0-7g.80gb=1",
+            "spec-partitioning-plan.mig=<plan 0>",
+            "mig-7g.80gb=1",
+        ],
+        [
+            "device-plugin-generation=1",
+            "spec-gpu-0-7g.80gb=1",
+            "spec-partitioning-plan.mig=<plan 0>",
+            "status-gpu-0-7g.80gb-free=1",
+            "status-gpu-placements-0=f|7g.80gb|0|8",
+            "status-partitioning-plan.mig=<plan 0>",
+            "mig-7g.80gb=1",
+        ],
+        [
+            "device-plugin-generation=1",
+            "spec-gpu-0-1g.10gb=2",
+            "spec-gpu-0-2g.20gb=1",
+            "spec-gpu-0-3g.40gb=1",
+            "spec-partitioning-plan.mig=<plan 1>",
+            "status-gpu-0-7g.80gb-free=1",
+            "status-gpu-placements-0=f|7g.80gb|0|8",
+            "status-partitioning-plan.mig=<plan 0>",
+            "mig-7g.80gb=1",
+        ],
+        [
+            "device-plugin-generation=2",
+            "spec-gpu-0-1g.10gb=2",
+            "spec-gpu-0-2g.20gb=1",
+            "spec-gpu-0-3g.40gb=1",
+            "spec-partitioning-plan.mig=<plan 1>",
+            "status-gpu-0-7g.80gb-free=1",
+            "status-gpu-placements-0=f|7g.80gb|0|8",
+            "status-partitioning-plan.mig=<plan 0>",
+            "mig-1g.10gb=2",
+            "mig-2g.20gb=1",
+            "mig-3g.40gb=1",
+        ],
+        [
+            "device-plugin-generation=2",
+            "spec-gpu-0-1g.10gb=2",
+            "spec-gpu-0-2g.20gb=1",
+            "spec-gpu-0-3g.40gb=1",
+            "spec-partitioning-plan.mig=<plan 1>",
+            "status-gpu-0-1g.10gb-free=2",
+            "status-gpu-0-2g.20gb-free=1",
+            "status-gpu-0-3g.40gb-free=1",
+            "status-gpu-placements-0=f|1g.10gb|2|1;f|1g.10gb|3|1;f|2g.20gb|0|2;f|3g.40gb|4|4",
+            "status-partitioning-plan.mig=<plan 1>",
+            "mig-1g.10gb=2",
+            "mig-2g.20gb=1",
+            "mig-3g.40gb=1",
+        ],
+        [
+            "device-plugin-generation=2",
+            "spec-gpu-0-1g.10gb=2",
+            "spec-gpu-0-2g.20gb=1",
+            "spec-gpu-0-3g.40gb=1",
+            "spec-partitioning-plan.mig=<plan 1>",
+            "status-gpu-0-1g.10gb-used=2",
+            "status-gpu-0-2g.20gb-used=1",
+            "status-gpu-0-3g.40gb-used=1",
+            "status-gpu-placements-0=u|1g.10gb|2|1;u|1g.10gb|3|1;u|2g.20gb|0|2;u|3g.40gb|4|4",
+            "status-partitioning-plan.mig=<plan 1>",
+            "mig-1g.10gb=2",
+            "mig-2g.20gb=1",
+            "mig-3g.40gb=1",
+        ],
+    ],
+    "mig-0": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-mig-node-0 Pending",
+        "h100-mig-node-0 Running",
+    ],
+    "mig-1": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-mig-node-0 Pending",
+        "h100-mig-node-0 Running",
+    ],
+    "mig-2": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-mig-node-0 Pending",
+        "h100-mig-node-0 Running",
+        "deleted",
+    ],
+    "mig-3": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-mig-node-0 Pending",
+        "h100-mig-node-0 Running",
+    ],
+    "mig-4": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-mig-node-0 Pending",
+        "h100-mig-node-0 Running",
+    ],
+}
+
+
+def _mig_fleet_plans() -> dict:
+    """``testing/fleet.py``'s MIG fleet planned MIG_PLANS times, each on
+    a fresh snapshot and timed: every plan must equal the pinned one,
+    give each GPU one of the H100's maximal geometries within its 7
+    compute slices and 8 memory slots, and keep every used instance."""
+    from nos_tpu_torch.obs import trace
+    from nos_tpu_torch.partitioning.core import GeometryPlanner
+    from nos_tpu_torch.partitioning.slicepart import (
+        SlicePartitionCalculator, SliceProfileCalculator, SliceSnapshotTaker)
+    from nos_tpu_torch.scheduler.framework import Framework
+    from nos_tpu_torch.testing import fleet
+    from nos_tpu_torch.topology import H100_80GB, enumerate_geometries
+
+    spec = fleet.mig_fleet_spec(0)
+    bound = {b["name"] for n in spec["nodes"] for b in n["bound"]}
+    calculator = SliceProfileCalculator()
+    planner = GeometryPlanner(Framework(), calculator,
+                              SlicePartitionCalculator())
+    runs = []
+    for _ in range(MIG_PLANS):
+        snap = SliceSnapshotTaker().take_snapshot(fleet.build_cluster(spec))
+        pending = fleet.build_pending(spec)
+        before = {name: {u.index: (dict(u.used), u.geometry_names())
+                         for u in node.units}
+                  for name, node in snap.nodes().items()}
+        tracer = trace.Tracer()
+        prev = trace.set_tracer(tracer)
+        try:
+            t0 = time.perf_counter()
+            planner.plan(snap, pending)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            trace.set_tracer(prev)
+        (span,) = [sp for sp in tracer.ring.dump()
+                   if sp["name"] == "planner.plan"]
+        runs.append({"ms": ms, "counts": span["counts"], "before": before,
+                     "summary": fleet.plan_summary(snap, pending, bound,
+                                                   calculator)})
+    first = runs[0]
+    if any(r["summary"] != first["summary"] or r["counts"] != first["counts"]
+           for r in runs):
+        fail("the MIG fleet's plans differ between runs")
+    digest = fleet.plan_digest(first["summary"])
+    if digest != fleet.MIG_FLEET_DIGEST:
+        fail(f"the MIG fleet plan's digest {digest} is not the pinned "
+             f"{fleet.MIG_FLEET_DIGEST} (the CPU tests' plan)")
+    allowed = {tuple(sorted(g)) for g in enumerate_geometries(H100_80GB)}
+    carved, instances = 0, {}
+    for name, gpus in first["summary"]["geometries"].items():
+        for index, geometry in gpus.items():
+            used, geometry_before = first["before"][name][int(index)]
+            rows = [(H100_80GB.profile(p), q) for p, q in geometry.items()]
+            compute = sum(r.compute_slices * q for r, q in rows)
+            memory = sum(r.memory_slices * q for r, q in rows)
+            if tuple(sorted(geometry.items())) not in allowed \
+                    or compute > H100_80GB.compute_slices \
+                    or memory > H100_80GB.memory_slices:
+                fail(f"{name} GPU {index} is carved {geometry}: not an "
+                     f"H100 geometry ({compute} compute slices, {memory} "
+                     f"memory slots)")
+            lost = {p: c for p, c in used.items()
+                    if geometry.get(p, 0) < c}
+            if lost:
+                fail(f"{name} GPU {index}'s used instances {lost} are gone "
+                     f"from {geometry}")
+            carved += geometry != geometry_before
+            for p, q in geometry.items():
+                instances[p] = instances.get(p, 0) + q
+    timed = [r["ms"] for r in runs]
+    return {"nodes": len(spec["nodes"]), "gpus": sum(
+                n["gpus"] for n in spec["nodes"]),
+            "pending": len(spec["pending"]),
+            "plan_ms_median": statistics.median(timed),
+            "plan_ms_max": max(timed), "plan_ms": timed,
+            "forks": first["counts"].get("forks", 0),
+            "commits": first["counts"].get("commits", 0),
+            "reverts": first["counts"].get("reverts", 0),
+            "filter_runs": first["counts"].get("filter_runs", 0),
+            "pods_placed": sum(len(v) for v in
+                               first["summary"]["placed"].values()),
+            "gpus_carved": carved,
+            "instances_by_profile": dict(sorted(instances.items())),
+            "lacking_after": first["summary"]["lacking"], "digest": digest}
+
+
+def _mig_reporter_on_card(device: dict) -> dict:
+    """The MIG agent's reporter over ``NvmlGpuRuntime`` on the card, for
+    the card's node (its model from discovery) on an in-memory API
+    server, with a pod-resources view that holds no device.  Its status
+    and placement annotations must be NVML's MIG devices and
+    placements; with MIG off, none.  Only the reporter runs: nothing
+    creates or deletes a MIG instance, and no startup cleanup runs."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.controllers.sliceagent import (
+        SharedState, SliceReporter)
+    from nos_tpu_torch.device.fake import FakePodResources
+    from nos_tpu_torch.device.gpuclient import SliceDeviceClient
+    from nos_tpu_torch.device.nvml import NvmlGpuRuntime
+    from nos_tpu_torch.kube.client import APIServer, KIND_NODE
+    from nos_tpu_torch.testing.factory import make_gpu_node
+    from nos_tpu_torch.topology import DEFAULT_REGISTRY
+    from nos_tpu_torch.topology.annotations import (
+        encode_placement_records, parse_placement_annotations,
+        parse_status_annotations)
+    from nos_tpu_torch.topology.profile import profile_from_resource
+
+    model = DEFAULT_REGISTRY.get(device["model"])
+    runtime = NvmlGpuRuntime(model)
+    try:
+        _, modes = runtime.topology()
+        devices = runtime.list_devices()
+        placements = runtime.placements()
+        api = APIServer()
+        api.create(KIND_NODE, make_gpu_node(
+            CARD_NODE, model=model, gpus=len(modes),
+            partitioning=C.MIG_KIND))
+        SliceReporter(api, CARD_NODE,
+                      SliceDeviceClient(runtime, FakePodResources()),
+                      SharedState()).reconcile()
+    finally:
+        runtime.close()
+    annots = api.get(KIND_NODE, CARD_NODE).metadata.annotations
+    want_counts: dict[tuple[int, str, str], int] = {}
+    want_records: dict[int, list] = {}
+    for d in devices:
+        key = (d.unit_index, profile_from_resource(d.resource_name), "free")
+        want_counts[key] = want_counts.get(key, 0) + 1
+        want_records.setdefault(d.unit_index, []).append(
+            ("f", placements[d.device_id]))
+    got_counts = {(a.index, a.profile, a.status): a.quantity
+                  for a in parse_status_annotations(annots)}
+    got_records = {i: encode_placement_records(r) for i, r in
+                   parse_placement_annotations(annots).items()}
+    if got_counts != want_counts or got_records != {
+            i: encode_placement_records(r) for i, r in want_records.items()}:
+        fail(f"the MIG reporter wrote {got_counts} and {got_records}; NVML "
+             f"lists {want_counts} and {want_records}")
+    if not any(modes) and (got_counts or got_records):
+        fail("MIG is off, yet the reporter wrote MIG status")
+    return {"mig_modes": ["enabled" if m else "disabled" for m in modes],
+            "mig_devices": len(devices),
+            "annotations": dict(sorted(annots.items()))}
+
+
+class _MigLoop:
+    """One H100 node through the MIG loop on an in-memory API server:
+    node controller with the virgin-node initializer, pod controller,
+    the MIG partitioner controller from its factory, the node's MIG
+    agent (``SliceAgent``: kubelet simulator, reporter, actuator, device
+    plugin) over ``FakeGpuRuntime(H100_80GB, 1)``, and
+    ``testing/bind.py``'s binder.  A watch records every distinct state
+    of the node (its annotations but the heartbeat, its MIG allocatable)
+    and of each pod (node, phase, Unschedulable mark), plan ids masked
+    in the order they appear: MIG_LOOP_WRITES pins them."""
+
+    def __init__(self, batch_timeout_s: float, batch_idle_s: float,
+                 clock=time.monotonic) -> None:
+        from nos_tpu_torch.controllers.node_controller import NodeController
+        from nos_tpu_torch.controllers.pod_controller import PodController
+        from nos_tpu_torch.controllers.sliceagent import SliceAgent
+        from nos_tpu_torch.device.fake import FakeGpuRuntime, FakePodResources
+        from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD
+        from nos_tpu_torch.partitioning.slicepart import (
+            new_slice_initializer, new_slice_partitioner_controller)
+        from nos_tpu_torch.partitioning.state import ClusterState
+        from nos_tpu_torch.scheduler.framework import Framework
+        from nos_tpu_torch.testing.factory import make_gpu_node
+        from nos_tpu_torch.topology import H100_80GB
+
+        self.api = APIServer()
+        self.plans: dict[str, str] = {}
+        self.writes: dict[str, list] = {}
+        self.api.watch(KIND_NODE, self._record)
+        self.api.watch(KIND_POD, self._record)
+        state = ClusterState()
+        NodeController(self.api, state, new_slice_initializer(self.api)).bind()
+        PodController(self.api, state).bind()
+        self.controller = new_slice_partitioner_controller(
+            self.api, state, batch_timeout_s=batch_timeout_s,
+            batch_idle_s=batch_idle_s, clock=clock)
+        self.controller.bind()
+        self.api.create(KIND_NODE, make_gpu_node(
+            MIG_NODE, model=H100_80GB, gpus=1, partitioning="mig"))
+        self.runtime = FakeGpuRuntime(H100_80GB, 1)
+        self.agent = SliceAgent(self.api, MIG_NODE, self.runtime,
+                                FakePodResources())
+        self.agent.start()
+        self.framework = Framework()
+        self.cycles = 0
+        self.tick_ms: list[float] = []
+        self.created: dict[str, float] = {}
+        self.bound_ms: dict[str, float] = {}
+
+    def _mask(self, value: str) -> str:
+        for plan_id, token in self.plans.items():
+            value = value.replace(plan_id, token)
+        return value
+
+    def _record(self, event: str, obj) -> None:
+        """A node's state as its "key=value" annotations (prefix off, no
+        heartbeat) and MIG allocatable; a pod's as "<node> <phase>",
+        with "Unschedulable" when marked; "deleted" at the end."""
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.topology.profile import is_slice_resource
+
+        annots = obj.metadata.annotations
+        for plan_id in (annots.get(C.spec_plan_annotation(C.MIG_KIND), ""),
+                        annots.get(C.status_plan_annotation(C.MIG_KIND), "")):
+            if plan_id and plan_id not in self.plans:
+                self.plans[plan_id] = f"<plan {len(self.plans)}>"
+        if event == "DELETED":
+            view = "deleted"
+        elif hasattr(obj.status, "allocatable"):
+            view = [f"{k.split('/', 1)[1]}={self._mask(v)}"
+                    for k, v in sorted(annots.items())
+                    if k != C.heartbeat_annotation(C.MIG_KIND)] + [
+                f"{r.split('/', 1)[1]}={q:g}"
+                for r, q in sorted(obj.status.allocatable.items())
+                if is_slice_resource(r)]
+        else:
+            view = f"{obj.spec.node_name or '-'} {obj.status.phase}" + (
+                " Unschedulable" if obj.is_unschedulable() else "")
+        seq = self.writes.setdefault(obj.metadata.name, [])
+        if not seq or seq[-1] != view:
+            seq.append(view)
+
+    def create_pods(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.factory import make_mig_pod
+
+        for i, profile in enumerate(MIG_PODS):
+            name = f"mig-{i}"
+            self.created[name] = time.perf_counter()
+            self.api.create(KIND_POD, make_mig_pod(profile, name=name))
+
+    def step(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.bind import bind_pending
+
+        bind_pending(self.api, self.framework)
+        now = time.perf_counter()
+        for pod in self.api.list(KIND_POD):
+            name = pod.metadata.name
+            if pod.spec.node_name and name not in self.bound_ms:
+                self.bound_ms[name] = (now - self.created[name]) * 1e3
+        self.cycles += self.controller.process_if_ready()
+        t0 = time.perf_counter()
+        self.agent.tick()
+        self.tick_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def run_until(self, done, what: str, limit_s: float = CARD_BIND_LIMIT_S,
+                  poll_s: float = CARD_POLL_S, advance=None) -> None:
+        """Step until ``done()``; fail after ``limit_s`` seconds of
+        steps.  ``advance`` moves an injected clock before each step."""
+        t0 = time.monotonic()
+        while not done():
+            if time.monotonic() - t0 > limit_s:
+                fail(f"the MIG loop did not {what} within {limit_s} s")
+            if advance is not None:
+                advance()
+            self.step()
+            time.sleep(poll_s)
+
+    def node(self):
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        return self.api.get(KIND_NODE, MIG_NODE)
+
+    def pods(self) -> dict:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        return {p.metadata.name: p for p in self.api.list(KIND_POD)}
+
+    def running(self) -> list[str]:
+        return sorted(n for n, p in self.pods().items()
+                      if p.spec.node_name == MIG_NODE
+                      and p.status.phase == "Running")
+
+    def handshake_closed(self) -> bool:
+        from nos_tpu_torch.api import constants as C
+
+        annots = self.node().metadata.annotations
+        spec = annots.get(C.spec_plan_annotation(C.MIG_KIND), "")
+        return bool(spec) and annots.get(
+            C.status_plan_annotation(C.MIG_KIND)) == spec
+
+
+def _mig_loop(batch_timeout_s: float = CARD_BATCH_TIMEOUT_S,
+              batch_idle_s: float = CARD_BATCH_IDLE_S,
+              clock=time.monotonic, advance=None, poll_s: float = CARD_POLL_S) -> tuple[dict, dict]:
+    """Phase 10 (c): the scenario through ``_MigLoop``.  (1) The virgin
+    node is initialised to 7g.80gb and the agent carves it; (2) five
+    pods (3g.40gb, 2g.20gb and three 1g.10gb) need one re-carve, which
+    closes in one plan cycle with four bound and Running; (3) the fifth
+    stays pending and Unschedulable; (4) one rescan interval later a
+    cycle on it writes nothing; (5) a bound 1g.10gb pod is deleted and
+    the fifth binds onto its instance with no new plan.  Returns the
+    phase's fields and the loop's writes.  ``clock`` and ``advance`` let
+    a test drive it on an injected clock."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    loop = _MigLoop(batch_timeout_s, batch_idle_s, clock=clock)
+    run = functools.partial(loop.run_until, poll_s=poll_s, advance=advance)
+    plans0 = _plans_total(C.MIG_KIND)
+    plan0, landed0 = (_plan_seconds(C.MIG_KIND),
+                      _actuation_latency(C.MIG_KIND))
+    run(loop.handshake_closed, "carve the virgin node")
+    if loop.runtime.create_calls != 1:
+        fail(f"the virgin node took {loop.runtime.create_calls} creates")
+    loop.create_pods()
+    run(lambda: len(loop.running()) == 4, "bind four pods and run them")
+    plan1 = _plan_seconds(C.MIG_KIND)
+    if loop.cycles != 1 or _plans_total(C.MIG_KIND) - plans0 != 1:
+        fail(f"{loop.cycles} MIG plan cycles ran, not one")
+    if not loop.handshake_closed():
+        fail("the MIG handshake is open after the plan cycle")
+    pods = loop.pods()
+    (left,) = [n for n in pods if n not in loop.running()]
+    if pods[left].status.phase != "Pending" or pods[left].spec.node_name \
+            or not pods[left].is_unschedulable():
+        fail(f"{left} is {pods[left].status}, not pending and "
+             f"Unschedulable")
+    landed = _actuation_latency(C.MIG_KIND)
+    if landed[0] - landed0[0] != 1:
+        fail(f"{landed[0] - landed0[0]} MIG actuation latency samples, "
+             f"not one")
+    node_writes = len(loop.writes[MIG_NODE])
+    run(lambda: loop.cycles == 2, "run its rescan cycle")
+    plan2 = _plan_seconds(C.MIG_KIND)
+    if len(loop.writes[MIG_NODE]) != node_writes:
+        fail(f"the MIG rescan cycle wrote: {loop.writes[MIG_NODE][-1]}")
+    loop.api.delete(KIND_POD, MIG_RELEASED, "default")
+    plans = _plans_total(C.MIG_KIND)
+    run(lambda: left in loop.running(), "bind the fifth pod")
+    if loop.cycles != 2 or _plans_total(C.MIG_KIND) != plans \
+            or len(loop.writes[MIG_NODE]) != node_writes:
+        fail("binding the fifth pod took a new plan")
+    fields = {
+        "node": MIG_NODE, "runtime": type(loop.runtime).__name__,
+        "pods": list(MIG_PODS), "batch_idle_s": batch_idle_s,
+        "batch_timeout_s": batch_timeout_s, "running": loop.running(),
+        "unschedulable_until_release": left, "released": MIG_RELEASED,
+        "plan_cycles": loop.cycles,
+        "plan_cycle_ms": [(plan1[1] - plan0[1]) * 1e3,
+                          (plan2[1] - plan1[1]) * 1e3],
+        "actuation_latency_ms": (landed[1] - landed0[1]) * 1e3,
+        "tick_ms_median": statistics.median(loop.tick_ms),
+        "tick_ms_max": max(loop.tick_ms), "ticks": len(loop.tick_ms),
+        "bound_ms": dict(sorted(loop.bound_ms.items())),
+        "fake_create_calls": loop.runtime.create_calls,
+        "fake_delete_calls": loop.runtime.delete_calls,
+        "geometry": {a: v for a, v in loop.node().metadata.annotations.items()
+                     if a.startswith(C.ANNOT_SPEC_PREFIX)}}
+    return fields, loop.writes
+
+
+def phase_mig(device: dict, smi: str) -> dict:
+    """The MIG strategy and node side, host-only: (a) the MIG fleet
+    plan, (b) the reporter over the card's NVML, (c) one node through
+    the MIG loop on the fake runtime, whose writes must equal
+    MIG_LOOP_WRITES (the CPU test's run)."""
+    t0 = time.perf_counter()
+    fleet_line = _mig_fleet_plans()
+    reporter = _mig_reporter_on_card(device)
+    loop, writes = _mig_loop()
+    if writes != MIG_LOOP_WRITES:
+        fail(f"the MIG loop's writes differ from the CPU test's: "
+             f"{json.dumps(writes)}")
+    line = {"phase": "mig", "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t0, "fleet": fleet_line,
+            "reporter": reporter, "loop": loop}
+    emit(line)
+    return line
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -2316,6 +2834,7 @@ def main() -> int:
         # cache
         phase_grant(main_loss0, device)
         phase_partition(main_loss0, device, smi)
+        phase_mig(device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe}
     for entry in entries:

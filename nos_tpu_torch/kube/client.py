@@ -7,8 +7,9 @@ Reads return deep copies (as a real API server serialises); every write
 (create, update, patch, delete) bumps the resource version and fans out
 to the kind's watchers, synchronously and in store-commit order.  The
 ``Informer`` comes with the scheduler's cache (ROADMAP item 7), the
-admission hooks and ``locked()`` with the MIG node side's kubelet
-simulator (item 5).
+validating admission hooks with their first caller (webhooks, quotas).
+``locked()`` lends the store's lock to the MIG node's kubelet
+simulator, which must take it before its own.
 """
 
 from __future__ import annotations
@@ -50,6 +51,13 @@ class APIServer:
         self._rv = 0
         self._event_queue: list[tuple[str, str, Any]] = []
         self._delivering = False
+
+    def locked(self):
+        """The store's reentrant lock, for a caller that must take it
+        before its own: watch callbacks run under it, so a component
+        taking (own, then store) on another thread would deadlock
+        against (store, then own) in a callback."""
+        return self._lock
 
     @staticmethod
     def _key(obj: Any) -> str:

@@ -4,8 +4,9 @@ planner and its pools, the defragmenter and the failure plane wait for
 ROADMAP item 6."""
 
 from .interfaces import (
-    Actuator, PartitionableNode, PartitionCalculator, Partitioner, Planner,
-    ProfileRequest, SliceCalculator, SliceFilter, SnapshotTaker, Sorter,
+    Actuator, NodeInitializer, PartitionableNode, PartitionCalculator,
+    Partitioner, Planner, ProfileRequest, SliceCalculator, SliceFilter,
+    SnapshotTaker, Sorter,
 )
 from .snapshot import ClusterSnapshot, SnapshotError
 from .tracker import SliceTracker
@@ -17,7 +18,8 @@ from .quarantine import (
 from .actuator import GeometryActuator, compute_partitioning_state, new_plan_id
 
 __all__ = [
-    "Actuator", "PartitionableNode", "PartitionCalculator", "Partitioner",
+    "Actuator", "NodeInitializer", "PartitionableNode",
+    "PartitionCalculator", "Partitioner",
     "Planner", "ProfileRequest", "SliceCalculator", "SliceFilter",
     "SnapshotTaker", "Sorter",
     "ClusterSnapshot", "SnapshotError", "SliceTracker", "ProfileAwareSorter",

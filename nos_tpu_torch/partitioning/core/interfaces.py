@@ -2,7 +2,7 @@
 ``nos_tpu/partitioning/core/interfaces.py`` for the port (reference
 internal/partitioning/core/interface.go:27-77).  Nothing in ``core/``
 imports a concrete strategy: the MPS strategy (``timeshare/``) plugs in
-here, and the MIG strategy of the next slice will plug in the same way.
+here, and so does the MIG strategy (``slicepart/``).
 """
 
 from __future__ import annotations
@@ -83,6 +83,14 @@ class Partitioner(ABC):
     @abstractmethod
     def apply_partitioning(self, node_name: str, plan_id: str,
                            partitioning: NodePartitioning) -> None: ...
+
+
+class NodeInitializer(ABC):
+    """Give a virgin node its first geometry (reference
+    mig/initializer.go:44-83)."""
+
+    @abstractmethod
+    def init_node_partitioning(self, node_name: str) -> None: ...
 
 
 class SnapshotTaker(ABC):

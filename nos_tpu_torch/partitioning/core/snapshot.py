@@ -39,16 +39,18 @@ class SnapshotError(Exception):
     pass
 
 
-def _gpu_equivalents(resource: str, qty: float) -> float:
-    """Free capacity in GPU-equivalents, the JAX package's chip
-    equivalents: a whole GPU and an MPS share each count 1 per unit (a
+def _gpu_sevenths(resource: str, qty: float) -> float:
+    """Free capacity in sevenths of a GPU, the JAX package's chip
+    equivalents: a whole GPU and an MPS share each count 7 per unit (a
     share is not weighed by its GB), a MIG instance its compute slices
-    over 7; any other resource 0."""
+    (g/7 of a GPU); any other resource 0.  Sevenths keep the sums
+    whole, so the order does not hang on float rounding, nor on the
+    order the node lists its resources in."""
     profile = profile_from_resource(resource)
     if profile is not None:
-        return int(PROFILE_RE.match(profile).group("g")) * qty / _COMPUTE_SLICES
+        return int(PROFILE_RE.match(profile).group("g")) * qty
     if resource == RESOURCE_GPU or is_timeshare_resource(resource):
-        return qty
+        return _COMPUTE_SLICES * qty
     return 0.0
 
 
@@ -161,16 +163,16 @@ class ClusterSnapshot:
             ni = node.node_info()
             req = ni.requested
             has_free = False
-            equivalents = 0.0
+            sevenths = 0.0
             for k, v in ni.allocatable.items():
                 qty = v - req.get(k, 0.0)
                 if qty <= 0:
                     continue
                 has_free = True
-                equivalents += _gpu_equivalents(k, qty)
+                sevenths += _gpu_sevenths(k, qty)
             if not has_free:
                 continue
-            out.append((equivalents, name, node))
+            out.append((sevenths, name, node))
         out.sort(key=lambda t: (t[0], t[1]))
         self._candidate_cache = (self._mutation_gen, [t[1] for t in out])
         return [t[2] for t in out]

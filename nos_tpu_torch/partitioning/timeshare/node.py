@@ -12,14 +12,13 @@ generation; a GPU node states its own (``nvidia.com/gpu.count``).
 from __future__ import annotations
 
 import re
-from typing import Mapping
 
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.kube.objects import Node, Pod
 from nos_tpu_torch.kube.resources import pod_request
 from nos_tpu_torch.scheduler.framework import NodeInfo
 from nos_tpu_torch.topology.annotations import parse_status_annotations
-from nos_tpu_torch.topology.hybrid import timeshare_gpus
+from nos_tpu_torch.topology.hybrid import gpu_count, timeshare_gpus
 from nos_tpu_torch.topology.known import DEFAULT_REGISTRY, GpuModelRegistry
 from nos_tpu_torch.topology.profile import (
     extract_timeshare_requests, is_timeshare_resource, timeshare_resource_name,
@@ -31,16 +30,6 @@ from ..core.usage import claim_bound_pod_usage
 
 # an MPS share's profile; a MIG profile ("1g.10gb") is the other family
 _SHARE_RE = re.compile(r"^(\d+)gb$")
-
-
-def gpu_count(labels: Mapping[str, str]) -> int | None:
-    """The node's GPU count from its label; None when absent or not a
-    positive integer."""
-    try:
-        n = int(labels.get(C.LABEL_GPU_COUNT, ""))
-    except ValueError:
-        return None
-    return n if n > 0 else None
 
 
 def units_from_node(node: Node,

@@ -18,13 +18,14 @@ import threading
 from dataclasses import dataclass, field
 from typing import Iterable, Protocol, runtime_checkable
 
-from nos_tpu_torch.api.constants import LABEL_POD_GROUP
+from nos_tpu_torch.api.constants import LABEL_ACCELERATOR, LABEL_POD_GROUP
 from nos_tpu_torch.kube.objects import Node, Pod
 from nos_tpu_torch.kube.resources import (
     ResourceList, fits, pod_request, subtract, sum_resources,
 )
 from nos_tpu_torch.obs.trace import (
     bump as obs_bump, get_tracer as obs_tracer, span as obs_span)
+from nos_tpu_torch.topology.known import DEFAULT_REGISTRY, GpuModel
 from nos_tpu_torch.topology.profile import PROFILE_RE, extract_slice_requests
 
 # ---------------------------------------------------------------------------
@@ -195,12 +196,20 @@ class SharedLister:
 # ---------------------------------------------------------------------------
 
 
-def _mig_slices(resources: ResourceList) -> int:
-    """Total MIG compute slices (the ``g`` of ``<g>g.<N>gb``) across the
-    MIG profile resources: a card's compute is 7 of them, as a TPU
-    host's is its chips (the JAX package's ``_slice_chips``)."""
-    return sum(int(PROFILE_RE.match(p).group("g")) * qty
-               for p, qty in extract_slice_requests(resources).items())
+def _mig_slots(resources: ResourceList,
+               model: GpuModel | None) -> tuple[int, int]:
+    """(compute slices, memory slots) held by the MIG profile resources:
+    the ``g`` of ``<g>g.<N>gb``, and the profile's ``memory_slices`` in
+    the node's model (0 for a profile its table lacks).  A card has 7
+    and 8 of them; the JAX package's ``_slice_chips`` counts TPU chips,
+    which are compute and memory at once."""
+    compute = memory = 0
+    for p, qty in extract_slice_requests(resources).items():
+        compute += int(PROFILE_RE.match(p).group("g")) * qty
+        prof = model.profile(p) if model is not None else None
+        if prof is not None:
+            memory += prof.memory_slices * qty
+    return compute, memory
 
 
 class NodeResourcesFit:
@@ -209,22 +218,33 @@ class NodeResourcesFit:
     For MIG resources the per-profile check alone is unsound while a
     repartition is in flight: a bound pod whose profile was re-carved
     away subtracts from no advertised profile.  The aggregate guard
-    keeps a node from being bound past its carved compute slices,
-    whatever the current geometry says per profile."""
+    keeps a node from being bound past its carved compute slices or
+    past its carved memory slots, whatever the current geometry says
+    per profile: three bound 1g.20gb pods hold 6 of a card's 8 memory
+    slots, so a card re-carved to 1g.10gb x 7 under them takes one more
+    1g.10gb pod, not four.  The memory slots are the node model's
+    (``nos.nebuly.com/accelerator`` in the default registry); a node of
+    no known model is held to its compute slices alone."""
 
     name = "NodeResourcesFit"
 
     def filter(self, state: CycleState, pod: Pod, node_info: NodeInfo) -> Status:
         req = pod_request(pod)
         if fits(req, node_info.free()):
-            pod_slices = _mig_slices(req)
-            if pod_slices:
-                cap = _mig_slices(node_info.allocatable)
-                used = _mig_slices(node_info.requested)
-                if used + pod_slices > cap:
+            model = DEFAULT_REGISTRY.models.get(
+                node_info.node.metadata.labels.get(LABEL_ACCELERATOR, ""))
+            pod_g, pod_m = _mig_slots(req, model)
+            if pod_g:
+                cap_g, cap_m = _mig_slots(node_info.allocatable, model)
+                used_g, used_m = _mig_slots(node_info.requested, model)
+                if used_g + pod_g > cap_g:
                     return Status.unschedulable(
-                        f"insufficient MIG compute slices ({used}+"
-                        f"{pod_slices} over {cap}; geometry in flux)")
+                        f"insufficient MIG compute slices ({used_g}+"
+                        f"{pod_g} over {cap_g}; geometry in flux)")
+                if used_m + pod_m > cap_m:
+                    return Status.unschedulable(
+                        f"insufficient MIG memory slots ({used_m}+"
+                        f"{pod_m} over {cap_m}; geometry in flux)")
             return Status.ok()
         missing = [
             k for k, v in req.items()

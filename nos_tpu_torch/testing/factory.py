@@ -83,3 +83,10 @@ def make_timeshare_pod(gb: int, qty: int = 1, **kw) -> Pod:
     and one CPU."""
     res = {timeshare_resource_name(gb): qty, C.CPU: 1.0}
     return make_pod(resources=res, **kw)
+
+
+def make_mig_pod(profile: str, qty: int = 1, **kw) -> Pod:
+    """A pod asking for ``qty`` MIG instances of ``profile``
+    (``nvidia.com/mig-<profile>``) and one CPU."""
+    res = {slice_resource_name(profile): qty, C.CPU: 1.0}
+    return make_pod(resources=res, **kw)

@@ -95,7 +95,17 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "device.timeshare_plugin",
                    "controllers.chipagent.reporter",
                    "controllers.chipagent.agent", "testing.chaos",
-                   "testing.bind"):
+                   "testing.bind", "topology.slice_unit",
+                   "partitioning.slicepart.calculators",
+                   "partitioning.slicepart.node",
+                   "partitioning.slicepart.snapshot_taker",
+                   "partitioning.slicepart.partitioner",
+                   "partitioning.slicepart.factory",
+                   "controllers.sliceagent.shared",
+                   "controllers.sliceagent.plan",
+                   "controllers.sliceagent.actuator",
+                   "controllers.sliceagent.reporter",
+                   "controllers.sliceagent.agent", "device.plugin"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad

@@ -29,6 +29,7 @@ from nos_tpu_torch.kube.objects import ConfigMap, ObjectMeta
 from nos_tpu_torch.obs import journal, trace
 from nos_tpu_torch.scheduler import framework as fw
 from nos_tpu_torch.testing import factory
+from nos_tpu_torch.topology import H100_80GB
 from nos_tpu_torch.utils import guards, retry
 
 from test_torch_timeshare import JAX_GEN, jax_resource, port_resource
@@ -422,8 +423,8 @@ class TestFramework:
                 "nvidia.com/mig-1g.10gb": 1}), ni)
         assert not st.is_success and "compute slices" in st.message
         assert st.plugin == "NodeResourcesFit"
-        assert fw._mig_slices({"nvidia.com/mig-3g.40gb": 2,
-                               "nvidia.com/gpu-24gb": 5}) == 6
+        assert fw._mig_slots({"nvidia.com/mig-3g.40gb": 2,
+                              "nvidia.com/gpu-24gb": 5}, H100_80GB) == (6, 8)
 
     def test_equivalence_key_matches_jax(self):
         pod = factory.make_timeshare_pod(24, 2, labels={
