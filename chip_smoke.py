@@ -108,9 +108,10 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    found, one GPU) in the MPS loop on an in-memory API server, on
    ``time.monotonic`` with batch windows of 0.2 s idle and 2 s timeout:
    the partitioner controller from its factory, the node's chip agent
-   (the timeshare plugin and the reporter) and ``testing/bind.py``'s
-   binder.  Four pending 24 GB pods are polled through bind, controller
-   and agent until three are bound and Running (30 s at most); exactly
+   (the timeshare plugin and the reporter) and the scheduler from
+   ``build_scheduler``.  Four pending 24 GB pods are polled through a
+   scheduler cycle, the controller and the agent until three are bound
+   and Running (30 s at most); exactly
    one plan cycle must have run, the ConfigMap must hold one key for
    the node giving GPU 0 three 24 GB replicas, the plugin must
    advertise ``nvidia.com/gpu-24gb: 3``, the node's status plan id must
@@ -130,8 +131,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    the three ran their steps on the card at once.  The three reserved
    peaks together stay under the card's memory, which the per-child
    caps already imply.  Then the three pods are marked Succeeded: the
-   reporter must show GPU 0 ``24gb-free: 3``, and the binder must bind
-   the fourth pod onto a freed share with no new plan.  The phase's line
+   reporter must show GPU 0 ``24gb-free: 3``, and the scheduler must
+   bind the fourth pod onto a freed share with no new plan.  The phase's line
    carries the card's ``name, power.limit``, the plan cycles' host ms
    (``nos_tpu_plan_seconds``), the agent's host ms per tick,
    ``nos_tpu_actuation_latency_seconds`` and each pod's wall ms from
@@ -154,7 +155,7 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    from its factory (``time.monotonic``, batch idle 0.2 s, timeout 2
    s), a ``SliceAgent`` with its kubelet simulator over
    ``FakeGpuRuntime(H100_80GB, 1)`` (named on the line as the fake it
-   is) and the test binder.  The virgin node is carved to 7g.80gb; five
+   is) and the scheduler.  The virgin node is carved to 7g.80gb; five
    pods (3g.40gb, 2g.20gb, three 1g.10gb) take one re-carve, closed in
    one plan cycle with four bound and Running and the fifth
    Unschedulable; a rescan cycle writes nothing; a bound 1g.10gb pod is
@@ -163,6 +164,41 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    equal ``MIG_LOOP_WRITES``.  The line carries the plan cycles' host
    ms, the agent's host ms per tick, the actuation latency, each pod's
    pending-to-bound ms and the fake's create and delete calls.
+11. quota: Elastic Resource Quotas and the scheduler's preemption.  (a)
+   On the host, ``testing/fleet.py``'s quota fleet (32 nodes x 8 H100
+   80GB carved alike, 20,480 GB; train-a, train-b and serve quotas and
+   the composite research, their mins summing to the fleet; wave 1
+   train-a borrowing with 128 pods of 80gb, wave 2 serve and research up
+   to their mins, research's 80gb pods fitting only by preemption; the
+   bench's gang jobs cut) run QUOTA_FLEET_RUNS times, each cycle followed
+   by the kubelet's admission and both reconcilers, until a cycle binds
+   and evicts nothing: every run must hash to ``QUOTA_FLEET_DIGEST``
+   (the JAX package's run in the CPU tests), every victim must carry the
+   over-quota label when chosen, no quota may hold more than its max,
+   and each quota's status.used must be its Running pods' GB.  The line
+   carries the host ms per cycle and per reconcile (median, max), the
+   binds, preemptions, victims by label and pods left pending.  (b) The
+   card's node in partition (b)'s MPS loop (``_QuotaLoop``) with the
+   quota webhooks and both reconcilers bound to their watches, team-a
+   holding min 40 and max 80 GB, team-b min 40: team-a's three 24 GB
+   pods are carved three shares and bound in one plan cycle, labelled
+   one in-quota and two over-quota (borrowing team-b's min), and one
+   child per pod trains under its grant; once each has logged a step,
+   team-b's 24 GB pod is created, and the next scheduler cycle must
+   evict ``QUOTA_VICTIM`` alone (the JAX package's choice on the CPU)
+   and bind team-b's pod on its share with no new plan, while all three
+   children still run.  The smoke, as the kubelet, sends the victim's
+   child SIGTERM: it must exit by the signal within QUOTA_STOP_LIMIT_S,
+   having logged, before any step, its grant verified on the card at
+   its fraction and cap.  Then team-b's child trains GRANT_STEPS steps
+   and the two survivors end their QUOTA_SURVIVOR_STEPS steps, each
+   under its grant as grant (a) must (exit 0, the grant verified,
+   train_main's step-0 loss, 24 K1 + 24 K2 a step, its peak under its
+   cap).  Every distinct state the loop writes to the node, the pods
+   and the quotas must equal ``QUOTA_LOOP_WRITES``.  The line carries
+   the scheduler's host ms per cycle, eviction to rebind and eviction to
+   child-stopped ms, each pod's creation-to-bound ms, the children's
+   walls and the launches of the children that ended.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path; a tile no path ran must have run in the autotune
@@ -184,8 +220,10 @@ import pathlib
 import re
 import statistics
 import subprocess
+import signal
 import sys
 import tempfile
+import threading
 import time
 from typing import NoReturn
 
@@ -1676,8 +1714,10 @@ _PORT_FRAME = re.compile(r'File "[^"]*/(nos_tpu_torch/[^"]+)", line (\d+), '
                          r'in (\S+)')
 
 
-def _run_grant_child(case: str, cfg_path: str, grant: dict,
-                     no_nvcc: str) -> dict:
+def _start_grant_child(case: str, cfg_path: str, grant: dict,
+                       no_nvcc: str) -> dict:
+    """Start ``python -m nos_tpu_torch.cmd.train`` under ``grant`` with
+    nvcc hidden; a thread gathers its stderr lines as they come."""
     import os
 
     env = _child_env(**grant)
@@ -1686,13 +1726,37 @@ def _run_grant_child(case: str, cfg_path: str, grant: dict,
     env["PATH"] = os.pathsep.join(
         d for d in env.get("PATH", "").split(os.pathsep)
         if d and not pathlib.Path(d, "nvcc").exists())
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "nos_tpu_torch.cmd.train", "--config",
-         cfg_path], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=600)
-    wall = time.perf_counter() - t0
-    err = proc.stderr
+         cfg_path], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    lines: list[str] = []
+
+    def gather() -> None:
+        for line in proc.stderr:
+            lines.append(line)
+
+    reader = threading.Thread(target=gather, daemon=True)
+    reader.start()
+    return {"case": case, "grant": grant, "proc": proc, "lines": lines,
+            "reader": reader, "t0": time.perf_counter()}
+
+
+def _finish_grant_child(child: dict, timeout: float = 600) -> dict:
+    """Wait for a started child and read its log: steps, their host
+    clock stamps, the main's grant reports (at confinement and at exit)
+    and its last frame in the port; the wall from its start to its
+    exit."""
+    proc = child.pop("proc")
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child.pop("reader").join()
+    wall = time.perf_counter() - child.pop("t0")
+    err = "".join(child.pop("lines"))
     steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
              for m in _STEP_LINE.finditer(err)]
     # (step, host wall-clock seconds of its log line, tokens/s)
@@ -1701,12 +1765,20 @@ def _run_grant_child(case: str, cfg_path: str, grant: dict,
                float(m.group(3))) for m in _STEP_STAMP.finditer(err)]
     done = [ln for ln in err.splitlines() if "done: " in ln and " grant " in ln]
     report = (json.loads(done[-1].split(" grant ", 1)[1]) if done else None)
+    confined = [ln for ln in err.splitlines() if "confined: grant " in ln]
+    confined = (json.loads(confined[0].split(" grant ", 1)[1]) if confined
+                else None)
     frames = _PORT_FRAME.findall(err)
-    return {"case": case, "grant": grant, "rc": proc.returncode,
-            "wall_s": wall, "steps": steps, "stamps": stamps,
-            "report": report,
-            "last_port_frame": ":".join(frames[-1]) if frames else None,
-            "stderr": err}
+    return child | {"rc": proc.returncode, "wall_s": wall, "steps": steps,
+                    "stamps": stamps, "report": report, "confined": confined,
+                    "last_port_frame": ":".join(frames[-1]) if frames
+                    else None, "stderr": err}
+
+
+def _run_grant_child(case: str, cfg_path: str, grant: dict,
+                     no_nvcc: str) -> dict:
+    return _finish_grant_child(_start_grant_child(case, cfg_path, grant,
+                                                  no_nvcc))
 
 
 def _grant_workdir(tmp: str) -> tuple[str, str]:
@@ -1735,10 +1807,11 @@ def _grant_cap(gb: int, total: int) -> tuple[float, int]:
 
 
 def _check_granted_child(label: str, child: dict, uuid: str,
-                         main_loss0: float) -> dict:
+                         main_loss0: float, n_steps: int = GRANT_STEPS
+                         ) -> dict:
     """A training-main child that must pass under its timeshare grant:
     exit 0, the grant verified on ``uuid`` at the child's fraction and
-    cap, GRANT_STEPS finite steps logged, 24 K1 + 24 K2 a step, the
+    cap, ``n_steps`` finite steps logged, 24 K1 + 24 K2 a step, the
     train_main phase's step-0 loss within MAIN_LOSS0_RTOL, and its peak
     under the cap.  Records the peaks and the loss's distance on
     ``child``; returns the main's report."""
@@ -1754,10 +1827,10 @@ def _check_granted_child(label: str, child: dict, uuid: str,
         fail(f"{label} verified {r}, expected {uuid} at fraction "
              f"{child['fraction']}")
     _check_launches(label, r["launches"], {
-        "flash_fwd": GRANT_STEPS * layers,
-        "flash_bwd_fused": GRANT_STEPS * layers})
+        "flash_fwd": n_steps * layers,
+        "flash_bwd_fused": n_steps * layers})
     steps = child["steps"]
-    if [s[0] for s in steps] != list(range(1, GRANT_STEPS + 1)) \
+    if [s[0] for s in steps] != list(range(1, n_steps + 1)) \
             or not all(math.isfinite(s[1]) for s in steps):
         fail(f"{label} logged steps {steps}")
     loss0_rel = abs(steps[0][1] - main_loss0) / abs(main_loss0)
@@ -1838,7 +1911,7 @@ def phase_grant(main_loss0: float, device: dict) -> dict:
 # (32 nodes x 8 H100 80GB, 200 pending pods, seed 0): PLAN_TIMED timed
 # plans after one untimed, on fresh snapshots, on the card machine's
 # host.  (b) The card's own node in the MPS loop (the partitioner
-# controller, its chip agent and the test binder, on time.monotonic with
+# controller, its chip agent and the scheduler, on time.monotonic with
 # the batch windows below and the default plan deadline, 3 x the
 # timeout): CARD_PODS pods of CARD_SHARE_GB, of which the card's config
 # holds three; the pods bound and Running within CARD_BIND_LIMIT_S,
@@ -1936,11 +2009,15 @@ class _CardLoop:
     """The MPS loop on the card's node (the model and memory discovery
     found, one GPU), on an in-memory API server: node and pod
     controllers feeding a ClusterState, the partitioner controller from
-    its factory, the node's chip agent, and ``testing/bind.py``'s binder
-    standing in for the scheduler.  ``step`` is one pass of the loop:
-    bind, poll the controller, tick the agent (timed)."""
+    its factory, the node's chip agent, and the scheduler from
+    ``build_scheduler``.  ``step`` is one pass of the loop: a scheduler
+    cycle, a controller poll, an agent tick (timed).  ``clock`` is the
+    controller's batch clock; ``wall`` the scheduler's, which stamps the
+    pods' creation times too, so schedule latency is one time domain."""
 
-    def __init__(self, device: dict) -> None:
+    def __init__(self, device: dict, clock=time.monotonic,
+                 wall=time.time) -> None:
+        from nos_tpu_torch.cmd.assembly import build_scheduler
         from nos_tpu_torch.controllers.chipagent import ChipAgent
         from nos_tpu_torch.controllers.node_controller import NodeController
         from nos_tpu_torch.controllers.pod_controller import PodController
@@ -1948,7 +2025,6 @@ class _CardLoop:
         from nos_tpu_torch.partitioning.state import ClusterState
         from nos_tpu_torch.partitioning.timeshare import (
             new_timeshare_partitioner_controller)
-        from nos_tpu_torch.scheduler.framework import Framework
         from nos_tpu_torch.testing.factory import make_gpu_node
         from nos_tpu_torch.topology import DEFAULT_REGISTRY
 
@@ -1962,34 +2038,41 @@ class _CardLoop:
         PodController(self.api, state).bind()
         self.controller = new_timeshare_partitioner_controller(
             self.api, state, batch_timeout_s=CARD_BATCH_TIMEOUT_S,
-            batch_idle_s=CARD_BATCH_IDLE_S)
+            batch_idle_s=CARD_BATCH_IDLE_S, clock=clock)
         self.controller.bind()
         self.api.create(KIND_NODE, make_gpu_node(CARD_NODE, model=self.model,
                                                  gpus=1))
         self.agent = ChipAgent(self.api, CARD_NODE)
         self.agent.start()
-        self.framework = Framework()
+        self.wall = wall
+        self.sched = build_scheduler(self.api, clock=wall)
+        self.cycle_ms: list[float] = []
         self.cycles = 0
         self.tick_ms: list[float] = []
         self.created: dict[str, float] = {}
         self.bound_ms: dict[str, float] = {}
 
-    def create_pods(self) -> None:
+    def create_pod(self, name: str, gb: int = CARD_SHARE_GB,
+                   namespace: str = "default") -> None:
         from nos_tpu_torch.kube.client import KIND_POD
         from nos_tpu_torch.testing.factory import make_timeshare_pod
 
+        self.created[name] = time.perf_counter()
+        self.api.create(KIND_POD, make_timeshare_pod(
+            gb, name=name, namespace=namespace,
+            creation_timestamp=self.wall()))
+
+    def create_pods(self) -> None:
         for i in range(CARD_PODS):
-            name = f"train-{i}"
-            self.created[name] = time.perf_counter()
-            self.api.create(KIND_POD, make_timeshare_pod(CARD_SHARE_GB,
-                                                         name=name))
+            self.create_pod(f"train-{i}")
 
     def bind(self) -> int:
         from nos_tpu_torch.kube.client import KIND_POD
-        from nos_tpu_torch.testing.bind import bind_pending
 
-        bound = bind_pending(self.api, self.framework)
+        t0 = time.perf_counter()
+        bound = self.sched.run_cycle()
         now = time.perf_counter()
+        self.cycle_ms.append((now - t0) * 1e3)
         for pod in self.api.list(KIND_POD):
             name = pod.metadata.name
             if pod.spec.node_name and name not in self.bound_ms:
@@ -2011,16 +2094,20 @@ class _CardLoop:
         self.process()
         self.tick()
 
-    def run_until(self, done, what: str) -> float:
+    def run_until(self, done, what: str, poll_s: float = CARD_POLL_S,
+                  advance=None) -> float:
         """Step until ``done()``; fail after CARD_BIND_LIMIT_S.  Returns
-        the seconds it took."""
+        the seconds it took.  ``advance`` moves an injected clock before
+        each step."""
         t0 = time.monotonic()
         while not done():
             if time.monotonic() - t0 > CARD_BIND_LIMIT_S:
                 fail(f"the MPS loop did not {what} within "
                      f"{CARD_BIND_LIMIT_S} s")
+            if advance is not None:
+                advance()
             self.step()
-            time.sleep(CARD_POLL_S)
+            time.sleep(poll_s)
         return time.monotonic() - t0
 
     # -- reading ----------------------------------------------------------
@@ -2087,9 +2174,7 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
     derived from the node side.  Returns the loop, the phase's fields
     and the grants (the pod's name under "pod", its environment)."""
     from nos_tpu_torch.api import constants as C
-    from nos_tpu_torch.kube.resources import pod_request
     from nos_tpu_torch.partitioning.timeshare import config_key
-    from nos_tpu_torch.topology.profile import extract_timeshare_requests
 
     share = f"{CARD_SHARE_GB}gb"
     loop = _CardLoop(device)
@@ -2151,24 +2236,7 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
                       {"kind": C.MPS_KIND}) != 1.0:
         fail("the rescan cycle did not plan for the fourth pod")
 
-    # each bound pod's grant: a GPU of the applied config on which the
-    # reporter shows a used share of the pod's size (one pod per used
-    # share), mapped to the card's UUID through discovery, and the GB of
-    # its request; the smoke stands in for the kubelet plugin's
-    # Allocate, which would hand the pod this grant
-    gpus = loop.agent.plugin.gpu_config(annots[C.ANNOT_PLUGIN_APPLIED_CONFIG])
-    used = {s: [i for i in sorted(gpus)
-                for _ in range(int(loop.status(i, s, "used") or 0))]
-            for t in gpus.values() for s in t}
-    grants = []
-    for name in loop.running():
-        (gb,) = extract_timeshare_requests(pod_request(pods[name]))
-        if not used.get(f"{gb}gb"):
-            fail(f"the reporter shows no used {gb}gb share for {name}")
-        index = used[f"{gb}gb"].pop(0)
-        grants.append({"pod": name, "gpu": index, "env": {
-            "NOS_TPU_VISIBLE_CHIPS": device["uuids"][index],
-            "NOS_TPU_TIMESHARE_GB": str(gb)}})
+    grants = _grants(loop, device, loop.running())
     fields = {
         "node": CARD_NODE, "model": loop.model.name, "pods": CARD_PODS,
         "share_gb": CARD_SHARE_GB, "batch_idle_s": CARD_BATCH_IDLE_S,
@@ -2186,6 +2254,34 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
     return loop, fields, grants
 
 
+def _grants(loop: _CardLoop, device: dict, names: list[str]) -> list[dict]:
+    """Each named bound pod's grant: a GPU of the applied config on which
+    the reporter shows a used share of the pod's size (one pod per used
+    share), mapped to the card's UUID through discovery, and the GB of
+    its request.  The smoke stands in for the kubelet plugin's Allocate,
+    which would hand the pod this grant (ROADMAP item 24b)."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.resources import pod_request
+    from nos_tpu_torch.topology.profile import extract_timeshare_requests
+
+    annots = loop.node().metadata.annotations
+    pods = loop.pods()
+    gpus = loop.agent.plugin.gpu_config(annots[C.ANNOT_PLUGIN_APPLIED_CONFIG])
+    used = {s: [i for i in sorted(gpus)
+                for _ in range(int(loop.status(i, s, "used") or 0))]
+            for t in gpus.values() for s in t}
+    grants = []
+    for name in names:
+        (gb,) = extract_timeshare_requests(pod_request(pods[name]))
+        if not used.get(f"{gb}gb"):
+            fail(f"the reporter shows no used {gb}gb share for {name}")
+        index = used[f"{gb}gb"].pop(0)
+        grants.append({"pod": name, "gpu": index, "env": {
+            "NOS_TPU_VISIBLE_CHIPS": device["uuids"][index],
+            "NOS_TPU_TIMESHARE_GB": str(gb)}})
+    return grants
+
+
 def _actuation_latency(kind: str = "mps") -> tuple[int, float]:
     """The count and sum of nos_tpu_actuation_latency_seconds of a kind."""
     from nos_tpu_torch.exporter.metrics import REGISTRY
@@ -2198,7 +2294,7 @@ def _actuation_latency(kind: str = "mps") -> tuple[int, float]:
 def _card_release(loop: _CardLoop) -> dict:
     """Phase 9 (b) after the children: their pods marked Succeeded (as
     the kubelet would report them), the reporter must free the three
-    shares, and the binder must bind the fourth pod onto one with no new
+    shares, and the scheduler must bind the fourth pod onto one with no new
     plan."""
     from nos_tpu_torch.kube.client import KIND_POD
 
@@ -2214,7 +2310,7 @@ def _card_release(loop: _CardLoop) -> dict:
              f"(free, used) {freed}, not 3 free")
     written, cycles, plans = loop.written(), loop.cycles, _plans_total()
     if loop.bind() != 1:
-        fail("the binder did not bind the fourth pod onto a freed share")
+        fail("the scheduler did not bind the fourth pod onto a freed share")
     loop.process()
     loop.tick()
     (last,) = loop.running()
@@ -2252,7 +2348,7 @@ def phase_partition(main_loss0: float, device: dict, smi: str) -> dict:
     """The MPS planner and its loop: (a) the fleet plan on the host, five
     timed runs against the pinned digest; (b) the card's node driven by
     the partitioner controller, its chip agent (timeshare plugin and
-    reporter) and the test binder (``_card_loop``), then one
+    reporter) and the scheduler (``_card_loop``), then one
     ``python -m nos_tpu_torch.cmd.train`` child per bound pod, all at
     once, each under the grant derived from the applied config and the
     pod's request, then the pods' release (``_card_release``).  The smoke
@@ -2580,19 +2676,72 @@ def _mig_reporter_on_card(device: dict) -> dict:
             "annotations": dict(sorted(annots.items()))}
 
 
+class _Recorder:
+    """A watch callback keeping each object's distinct states, plan ids
+    masked in the order they appear (``<plan N>``): a node as its
+    "key=value" annotations (group prefix off, no heartbeat) and the
+    family's resources in its allocatable; a pod as "<node> <phase>",
+    with "Unschedulable" when marked and its capacity label when it has
+    one; a quota as its status.used in GB; "deleted" at the end.  The
+    MIG and quota loops pin what it records."""
+
+    def __init__(self, family: str) -> None:
+        self.family = family
+        self.plans: dict[str, str] = {}
+        self.writes: dict[str, list] = {}
+
+    def mask(self, value: str) -> str:
+        for plan_id, token in self.plans.items():
+            value = value.replace(plan_id, token)
+        return value
+
+    def __call__(self, event: str, obj) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.topology.profile import (
+            is_slice_resource, is_timeshare_resource)
+
+        annots = obj.metadata.annotations
+        for plan_id in (
+                annots.get(C.spec_plan_annotation(self.family), ""),
+                annots.get(C.status_plan_annotation(self.family), "")):
+            if plan_id and plan_id not in self.plans:
+                self.plans[plan_id] = f"<plan {len(self.plans)}>"
+        ours = is_slice_resource if self.family == C.MIG_KIND \
+            else is_timeshare_resource
+        if event == "DELETED":
+            view = "deleted"
+        elif hasattr(obj.status, "allocatable"):
+            view = [f"{k.split('/', 1)[1]}={self.mask(v)}"
+                    for k, v in sorted(annots.items())
+                    if k != C.heartbeat_annotation(self.family)] + [
+                f"{r.split('/', 1)[1]}={q:g}"
+                for r, q in sorted(obj.status.allocatable.items())
+                if ours(r)]
+        elif hasattr(obj.status, "used"):
+            view = f"used={obj.status.used.get(C.RESOURCE_GPU_MEMORY, 0):g}"
+        else:
+            capacity = obj.metadata.labels.get(C.LABEL_CAPACITY)
+            view = f"{obj.spec.node_name or '-'} {obj.status.phase}" + (
+                " Unschedulable" if obj.is_unschedulable() else "") + (
+                f" {capacity}" if capacity else "")
+        seq = self.writes.setdefault(obj.metadata.name, [])
+        if not seq or seq[-1] != view:
+            seq.append(view)
+
+
 class _MigLoop:
     """One H100 node through the MIG loop on an in-memory API server:
     node controller with the virgin-node initializer, pod controller,
     the MIG partitioner controller from its factory, the node's MIG
     agent (``SliceAgent``: kubelet simulator, reporter, actuator, device
-    plugin) over ``FakeGpuRuntime(H100_80GB, 1)``, and
-    ``testing/bind.py``'s binder.  A watch records every distinct state
-    of the node (its annotations but the heartbeat, its MIG allocatable)
-    and of each pod (node, phase, Unschedulable mark), plan ids masked
-    in the order they appear: MIG_LOOP_WRITES pins them."""
+    plugin) over ``FakeGpuRuntime(H100_80GB, 1)``, and the scheduler
+    from ``build_scheduler``.  A ``_Recorder`` keeps every distinct
+    state of the node and the pods: MIG_LOOP_WRITES pins them."""
 
     def __init__(self, batch_timeout_s: float, batch_idle_s: float,
                  clock=time.monotonic) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.cmd.assembly import build_scheduler
         from nos_tpu_torch.controllers.node_controller import NodeController
         from nos_tpu_torch.controllers.pod_controller import PodController
         from nos_tpu_torch.controllers.sliceagent import SliceAgent
@@ -2601,15 +2750,14 @@ class _MigLoop:
         from nos_tpu_torch.partitioning.slicepart import (
             new_slice_initializer, new_slice_partitioner_controller)
         from nos_tpu_torch.partitioning.state import ClusterState
-        from nos_tpu_torch.scheduler.framework import Framework
         from nos_tpu_torch.testing.factory import make_gpu_node
         from nos_tpu_torch.topology import H100_80GB
 
         self.api = APIServer()
-        self.plans: dict[str, str] = {}
-        self.writes: dict[str, list] = {}
-        self.api.watch(KIND_NODE, self._record)
-        self.api.watch(KIND_POD, self._record)
+        self.recorder = _Recorder(C.MIG_KIND)
+        self.writes = self.recorder.writes
+        self.api.watch(KIND_NODE, self.recorder)
+        self.api.watch(KIND_POD, self.recorder)
         state = ClusterState()
         NodeController(self.api, state, new_slice_initializer(self.api)).bind()
         PodController(self.api, state).bind()
@@ -2623,44 +2771,11 @@ class _MigLoop:
         self.agent = SliceAgent(self.api, MIG_NODE, self.runtime,
                                 FakePodResources())
         self.agent.start()
-        self.framework = Framework()
+        self.sched = build_scheduler(self.api)
         self.cycles = 0
         self.tick_ms: list[float] = []
         self.created: dict[str, float] = {}
         self.bound_ms: dict[str, float] = {}
-
-    def _mask(self, value: str) -> str:
-        for plan_id, token in self.plans.items():
-            value = value.replace(plan_id, token)
-        return value
-
-    def _record(self, event: str, obj) -> None:
-        """A node's state as its "key=value" annotations (prefix off, no
-        heartbeat) and MIG allocatable; a pod's as "<node> <phase>",
-        with "Unschedulable" when marked; "deleted" at the end."""
-        from nos_tpu_torch.api import constants as C
-        from nos_tpu_torch.topology.profile import is_slice_resource
-
-        annots = obj.metadata.annotations
-        for plan_id in (annots.get(C.spec_plan_annotation(C.MIG_KIND), ""),
-                        annots.get(C.status_plan_annotation(C.MIG_KIND), "")):
-            if plan_id and plan_id not in self.plans:
-                self.plans[plan_id] = f"<plan {len(self.plans)}>"
-        if event == "DELETED":
-            view = "deleted"
-        elif hasattr(obj.status, "allocatable"):
-            view = [f"{k.split('/', 1)[1]}={self._mask(v)}"
-                    for k, v in sorted(annots.items())
-                    if k != C.heartbeat_annotation(C.MIG_KIND)] + [
-                f"{r.split('/', 1)[1]}={q:g}"
-                for r, q in sorted(obj.status.allocatable.items())
-                if is_slice_resource(r)]
-        else:
-            view = f"{obj.spec.node_name or '-'} {obj.status.phase}" + (
-                " Unschedulable" if obj.is_unschedulable() else "")
-        seq = self.writes.setdefault(obj.metadata.name, [])
-        if not seq or seq[-1] != view:
-            seq.append(view)
 
     def create_pods(self) -> None:
         from nos_tpu_torch.kube.client import KIND_POD
@@ -2673,9 +2788,8 @@ class _MigLoop:
 
     def step(self) -> None:
         from nos_tpu_torch.kube.client import KIND_POD
-        from nos_tpu_torch.testing.bind import bind_pending
 
-        bind_pending(self.api, self.framework)
+        self.sched.run_cycle()
         now = time.perf_counter()
         for pod in self.api.list(KIND_POD):
             name = pod.metadata.name
@@ -2812,6 +2926,429 @@ def phase_mig(device: dict, smi: str) -> dict:
     return line
 
 
+# The quota phase.  (a) Host only: testing/fleet.py's quota fleet (32
+# nodes x 8 H100 80GB, four quotas, two waves of single pods), run
+# QUOTA_FLEET_RUNS times to QUOTA_FLEET_DIGEST (the JAX package's run
+# of the same fleet on the CPU, tests/test_torch_scheduler.py).  (b)
+# The card's node in the MPS loop with the scheduler, both reconcilers
+# and the quota webhooks: team-a borrows team-b's unused min with three
+# pods, whose children train under their grants; team-b's pod then
+# preempts QUOTA_VICTIM (JAX's choice for the same objects) and binds
+# on its share with no new plan, and its child trains after the
+# victim's is stopped.
+QUOTA_FLEET_DIGEST = \
+    "6306bdbc486e698a37e0cb74b6b5abdf498b959bd50a2d2c38a12dda3ffa23c1"
+QUOTA_FLEET_RUNS = 5
+# (namespace, min GB, max GB; 0 = none), each quota in its namespace
+QUOTA_CARD_QUOTAS = (("team-a", 40.0, 80.0), ("team-b", 40.0, 0.0))
+QUOTA_TEAM_A = ("team-a-0", "team-a-1", "team-a-2")
+QUOTA_PREEMPTOR = "team-b-0"
+QUOTA_VICTIM = "team-a-2"
+QUOTA_LABELS = {"team-a-0": "in-quota", "team-a-1": "over-quota",
+                "team-a-2": "over-quota"}
+# the evicted pod's child must exit by its signal within this
+QUOTA_STOP_LIMIT_S = 30.0
+# team-a's two survivors train this many steps, through the preemption,
+# and must pass as grant (a) does; the victim is asked for more steps
+# than it can reach before it is stopped.  Each must log a step before
+# team-b's pod is created.
+QUOTA_SURVIVOR_STEPS = 40
+QUOTA_VICTIM_STEPS = 100_000
+QUOTA_FIRST_STEP_LIMIT_S = 300.0
+# What the card loop writes (_Recorder), as its CPU test's run recorded
+# it (tests/test_torch_scheduler.py, held against the JAX package's
+# loop on the same objects).
+QUOTA_LOOP_WRITES = {
+    "h100-node-0": [
+        [],
+        [
+            "spec-partitioning-plan.mps=<plan 0>"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-free=3",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-used=3",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ]
+    ],
+    "team-a": [
+        "used=0",
+        "used=24",
+        "used=48",
+        "used=72",
+        "used=48"
+    ],
+    "team-b": [
+        "used=0",
+        "used=24"
+    ],
+    "team-a-0": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota"
+    ],
+    "team-a-1": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running over-quota"
+    ],
+    "team-a-2": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running over-quota",
+        "deleted"
+    ],
+    "team-b-0": [
+        "- Pending",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota"
+    ]
+}
+
+
+def _quota_fleet_runs(runs: int = QUOTA_FLEET_RUNS) -> dict:
+    """The quota fleet ``runs`` times, each from nothing: every run's
+    summary must hash to QUOTA_FLEET_DIGEST, every victim must carry
+    the over-quota label when chosen, no quota may hold more than its
+    max, and each quota's status.used must be the GB its Running pods
+    hold."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.testing import fleet
+
+    spec = fleet.quota_fleet_spec(0)
+    outs = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fleet.run_quota_fleet(spec)
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3
+        outs.append(out)
+    for out in outs:
+        digest = fleet.plan_digest(out["summary"])
+        if digest != QUOTA_FLEET_DIGEST:
+            fail(f"the quota fleet's digest {digest} is not the pinned "
+                 f"{QUOTA_FLEET_DIGEST} (the JAX package's run on the CPU)")
+        if out["victims_in_quota"] or not out["victims_over_quota"]:
+            fail(f"the quota fleet preempted {out['victims_in_quota']} "
+                 f"pods not labelled over-quota")
+        used = {q: v.get(C.RESOURCE_GPU_MEMORY, 0.0)
+                for q, v in out["summary"]["used"].items()}
+        if used != out["held_gb"] or any(
+                out["held_gb"][q] > m for q, m in out["max_gb"].items()):
+            fail(f"quota status.used {used}, held {out['held_gb']}, max "
+                 f"{out['max_gb']}")
+    cycle_ms = [ms for o in outs for ms in o["cycle_ms"]]
+    reconcile_ms = [ms for o in outs for ms in o["reconcile_ms"]]
+    first = outs[0]
+    return {"nodes": len(spec["nodes"]), "gpus": sum(
+                n["gpus"] for n in spec["nodes"]),
+            "quotas": {q["name"]: [q["min"], q["max"]]
+                       for q in spec["quotas"]},
+            "pods": [len(w) for w in spec["waves"]],
+            "cut": "bench_utilization.py's gang jobs (single pods only)",
+            "runs": runs, "cycles_per_run": len(first["summary"]["cycles"]),
+            "cycle_ms_median": statistics.median(cycle_ms),
+            "cycle_ms_max": max(cycle_ms),
+            "reconcile_ms_median": statistics.median(reconcile_ms),
+            "reconcile_ms_max": max(reconcile_ms),
+            "run_ms": [o["run_ms"] for o in outs],
+            "binds": first["binds"], "preemptions": first["preemptions"],
+            "victims_by_label": {"over-quota": first["victims_over_quota"],
+                                 "other": first["victims_in_quota"]},
+            "pending_left": len(first["summary"]["pending"]),
+            "used_gb": first["held_gb"],
+            "digest": fleet.plan_digest(first["summary"])}
+
+
+class _QuotaLoop(_CardLoop):
+    """``_CardLoop`` with the quotas: the webhooks installed, both
+    reconcilers bound to their watches as the operator binds them,
+    team-a's and team-b's ElasticQuotas, and a ``_Recorder`` of the
+    node, the pods and the quotas (QUOTA_LOOP_WRITES pins it)."""
+
+    def __init__(self, device: dict, clock=time.monotonic,
+                 wall=time.time) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.api.elasticquota import (
+            ElasticQuota, ElasticQuotaSpec, install_quota_webhooks)
+        from nos_tpu_torch.controllers.elasticquota import (
+            CompositeElasticQuotaReconciler, ElasticQuotaReconciler)
+        from nos_tpu_torch.kube.client import (
+            KIND_ELASTIC_QUOTA, KIND_NODE, KIND_POD)
+        from nos_tpu_torch.kube.objects import ObjectMeta
+
+        super().__init__(device, clock, wall)
+        install_quota_webhooks(self.api)
+        ElasticQuotaReconciler(self.api).bind()
+        CompositeElasticQuotaReconciler(self.api).bind()
+        self.recorder = _Recorder(C.MPS_KIND)
+        self.writes = self.recorder.writes
+        for kind in (KIND_NODE, KIND_POD, KIND_ELASTIC_QUOTA):
+            self.api.watch(kind, self.recorder)
+        mem = C.RESOURCE_GPU_MEMORY
+        for ns, lo, hi in QUOTA_CARD_QUOTAS:
+            self.api.create(KIND_ELASTIC_QUOTA, ElasticQuota(
+                metadata=ObjectMeta(name=ns, namespace=ns),
+                spec=ElasticQuotaSpec(min={mem: lo},
+                                      max={mem: hi} if hi else {})))
+
+    def labels(self) -> dict:
+        from nos_tpu_torch.api import constants as C
+
+        return {n: p.metadata.labels.get(C.LABEL_CAPACITY)
+                for n, p in self.pods().items()}
+
+
+def _quota_loop(device: dict, clock=time.monotonic, wall=time.time,
+                advance=None, poll_s: float = CARD_POLL_S
+                ) -> tuple[_QuotaLoop, dict]:
+    """Phase (b) up to the children: team-a's three pods through the
+    loop until they are bound and Running in one plan cycle, and the
+    reconciler's labels on them (one in-quota, two borrowing over-quota).
+    ``clock``, ``wall`` and ``advance`` let a test drive it on an
+    injected clock."""
+    from nos_tpu_torch.kube.client import KIND_ELASTIC_QUOTA
+
+    loop = _QuotaLoop(device, clock, wall)
+    run = functools.partial(loop.run_until, poll_s=poll_s, advance=advance)
+    plans0 = _plans_total()
+    for name in QUOTA_TEAM_A:
+        loop.create_pod(name, namespace="team-a")
+    bind_s = run(lambda: loop.running() == list(QUOTA_TEAM_A),
+                 "bind team-a's pods and run them")
+    if loop.cycles != 1 or _plans_total() - plans0 != 1:
+        fail(f"{loop.cycles} plan cycles ran for team-a, not one")
+    labels = loop.labels()
+    if labels != QUOTA_LABELS:
+        fail(f"team-a's pods are labelled {labels}, not {QUOTA_LABELS}")
+    used = loop.api.get(KIND_ELASTIC_QUOTA, "team-a",
+                        "team-a").status.used
+    return loop, {"bind_s": bind_s, "labels": labels, "team_a_used": used}
+
+
+def _quota_preempt(loop: _QuotaLoop, advance=None,
+                   poll_s: float = CARD_POLL_S) -> dict:
+    """Phase (b)'s preemption: team-b's pod is created; the next
+    scheduler cycle must evict QUOTA_VICTIM alone and bind team-b's pod
+    on its share, with no new plan.  Returns the eviction's and the
+    rebind's times on the host's performance counter."""
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    seen: dict[str, float] = {}
+
+    def watch(event: str, pod) -> None:
+        if event == "DELETED":
+            seen.setdefault(f"deleted {pod.metadata.name}",
+                            time.perf_counter())
+        elif pod.spec.node_name:
+            seen.setdefault(f"bound {pod.metadata.name}",
+                            time.perf_counter())
+
+    unwatch = loop.api.watch(KIND_POD, watch)
+    written, cycles, plans = loop.written(), loop.cycles, _plans_total()
+    before = set(loop.pods())
+    loop.create_pod(QUOTA_PREEMPTOR, namespace="team-b")
+    if advance is not None:
+        advance()
+    loop.step()
+    unwatch()
+    gone = sorted(before - set(loop.pods()))
+    if gone != [QUOTA_VICTIM]:
+        fail(f"team-b's pod evicted {gone}, not {QUOTA_VICTIM} (the "
+             f"JAX package's choice)")
+    pod = loop.pods()[QUOTA_PREEMPTOR]
+    if pod.spec.node_name != CARD_NODE:
+        fail(f"team-b's pod is on {pod.spec.node_name!r} after the "
+             f"preemption")
+    loop.run_until(lambda: QUOTA_PREEMPTOR in loop.running(),
+                   "run team-b's pod", poll_s=poll_s, advance=advance)
+    if loop.written() != written or loop.cycles != cycles \
+            or _plans_total() != plans:
+        fail("binding team-b's pod took a new plan")
+    share = f"{CARD_SHARE_GB}gb"
+    if loop.status(0, share, "used") != "3":
+        fail(f"the reporter shows GPU 0 {share}-used "
+             f"{loop.status(0, share, 'used')!r} after the rebind")
+    return {"evicted": gone, "evicted_at": seen[f"deleted {QUOTA_VICTIM}"],
+            "rebound_at": seen[f"bound {QUOTA_PREEMPTOR}"],
+            "labels_after": loop.labels()}
+
+
+def _stop_child(child: dict) -> float:
+    """The kubelet's part for an evicted pod: SIGTERM its child; the
+    seconds until it exited.  Fails past QUOTA_STOP_LIMIT_S, killing it
+    then, or when it exited by anything but the signal."""
+    proc = child["proc"]
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=QUOTA_STOP_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{child['case']}'s child did not stop within "
+             f"{QUOTA_STOP_LIMIT_S} s of SIGTERM")
+    if proc.returncode != -signal.SIGTERM:
+        fail(f"{child['case']}'s child exited {proc.returncode}, not by "
+             f"SIGTERM")
+    return time.perf_counter() - t0
+
+
+def _check_stopped_child(label: str, child: dict, uuid: str,
+                         main_loss0: float) -> None:
+    """A child stopped by SIGTERM mid-run: exited by the signal, its
+    grant verified on ``uuid`` at the child's fraction and cap when it
+    started (the main's confinement line), and finite steps from step 1
+    at train_main's step-0 loss."""
+    r = child["confined"]
+    if child["rc"] != -signal.SIGTERM or r is None:
+        fail(f"{label} exited {child['rc']}, confinement report {r}:\n"
+             f"{child['stderr'][-4000:]}")
+    if not (r["verified"] and r["devices"] == [uuid]
+            and r["fraction"] == child["fraction"]
+            and r["cap_bytes"] == child["cap_bytes"]):
+        fail(f"{label} verified {r}, expected {uuid} at fraction "
+             f"{child['fraction']}")
+    steps = child["steps"]
+    if not steps or steps[0][0] != 1 \
+            or not all(math.isfinite(s[1]) for s in steps):
+        fail(f"{label} logged steps {steps[:4]}:\n"
+             f"{child['stderr'][-4000:]}")
+    rel = abs(steps[0][1] - main_loss0) / abs(main_loss0)
+    if not rel <= MAIN_LOSS0_RTOL:
+        fail(f"{label}'s step-0 loss {steps[0][1]} against train_main's "
+             f"{main_loss0}")
+    child["loss0_rel_diff"] = rel
+
+
+def phase_quota(main_loss0: float, device: dict, smi: str) -> dict:
+    """Elastic quotas: (a) the quota fleet on the host; (b) the card's
+    node: team-a borrows, its three children train under their grants,
+    team-b's pod preempts the over-quota victim JAX chooses, the victim's
+    child is stopped by SIGTERM, team-b's pod binds on its share with no
+    new plan and its child trains GRANT_STEPS steps under its grant; the
+    two survivors end their QUOTA_SURVIVOR_STEPS steps under theirs."""
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    fleet_line = _quota_fleet_runs()
+    loop, card = _quota_loop(device)
+    grants = _grants(loop, device, list(QUOTA_TEAM_A))
+    total = device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    with tempfile.TemporaryDirectory(prefix="nos-quota-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        cfgs = {}
+        for case, n in (("survivor", QUOTA_SURVIVOR_STEPS),
+                        ("victim", QUOTA_VICTIM_STEPS)):
+            cfgs[case] = str(pathlib.Path(tmp) / f"{case}.json")
+            pathlib.Path(cfgs[case]).write_text(json.dumps(
+                json.loads(pathlib.Path(cfg_path).read_text())
+                | {"steps": n}))
+        team_a = {g["pod"]: _start_grant_child(
+                      g["pod"], cfgs["victim" if g["pod"] == QUOTA_VICTIM
+                                     else "survivor"], g["env"], no_nvcc)
+                  for g in grants}
+        try:
+            t1 = time.monotonic()
+            while not all(_STEP_LINE.search("".join(c["lines"]))
+                          for c in team_a.values()):
+                if time.monotonic() - t1 > QUOTA_FIRST_STEP_LIMIT_S or any(
+                        c["proc"].poll() is not None
+                        for c in team_a.values()):
+                    fail("a team-a child exited or logged no step within "
+                         f"{QUOTA_FIRST_STEP_LIMIT_S} s")
+                time.sleep(0.1)
+            preempt = _quota_preempt(loop)
+            ended = [n for n, c in team_a.items()
+                     if c["proc"].poll() is not None]
+            if ended:
+                fail(f"team-a children {ended} ended before the "
+                     f"preemption")
+            stop_s = _stop_child(team_a[QUOTA_VICTIM])
+            stopped_at = time.perf_counter()
+            victim = _finish_grant_child(team_a.pop(QUOTA_VICTIM))
+            (grant_b,) = _grants(loop, device, [QUOTA_PREEMPTOR])
+            child_b = _run_grant_child(QUOTA_PREEMPTOR, cfg_path,
+                                       grant_b["env"], no_nvcc)
+            survivors = [_finish_grant_child(c) for c in team_a.values()]
+        finally:
+            for c in team_a.values():
+                if c.get("proc") is not None and c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a quota child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    for child in (*survivors, victim, child_b):
+        child["fraction"], child["cap_bytes"] = _grant_cap(
+            int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), total)
+    reports = [_check_granted_child(
+                   f"quota {c['case']}", c,
+                   c["grant"]["NOS_TPU_VISIBLE_CHIPS"], main_loss0,
+                   QUOTA_SURVIVOR_STEPS) for c in survivors]
+    _check_stopped_child(f"quota {QUOTA_VICTIM}", victim,
+                         victim["grant"]["NOS_TPU_VISIBLE_CHIPS"],
+                         main_loss0)
+    report = _check_granted_child(f"quota {QUOTA_PREEMPTOR}", child_b,
+                                  child_b["grant"]["NOS_TPU_VISIBLE_CHIPS"],
+                                  main_loss0)
+    if loop.writes != QUOTA_LOOP_WRITES:
+        fail(f"the quota loop's writes differ from the CPU test's: "
+             f"{json.dumps(loop.writes)}")
+    card |= {
+        "node": CARD_NODE, "quotas": [list(q) for q in QUOTA_CARD_QUOTAS],
+        "share_gb": CARD_SHARE_GB, "evicted": preempt["evicted"],
+        "labels_after": preempt["labels_after"],
+        "evict_to_rebind_ms": (preempt["rebound_at"]
+                               - preempt["evicted_at"]) * 1e3,
+        "evict_to_child_stopped_ms": (stopped_at
+                                      - preempt["evicted_at"]) * 1e3,
+        "sigterm_to_exit_s": stop_s, "victim_rc": victim["rc"],
+        "victim_steps": len(victim["steps"]),
+        "cycle_ms_median": statistics.median(loop.cycle_ms),
+        "cycle_ms_max": max(loop.cycle_ms), "cycles": len(loop.cycle_ms),
+        "bind_ms": dict(sorted(loop.bound_ms.items()))}
+    launches = {k: sum(r["launches"][k] for r in (*reports, report))
+                for k in report["launches"]}
+    emit({"phase": "quota", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "fleet": fleet_line,
+          "card": card, "main_loss0": main_loss0,
+          "loss0_rtol": MAIN_LOSS0_RTOL, "launches": launches,
+          "children": [{k: v for k, v in ch.items()
+                        if k not in ("stderr", "report", "confined",
+                                     "stamps", "steps")}
+                       | {"steps_logged": len(ch["steps"])}
+                       | ({"launches": ch["report"]["launches"]}
+                          if ch.get("report") else {})
+                       for ch in (*survivors, victim, child_b)]})
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -2835,6 +3372,7 @@ def main() -> int:
         phase_grant(main_loss0, device)
         phase_partition(main_loss0, device, smi)
         phase_mig(device, smi)
+        phase_quota(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe}
     for entry in entries:

@@ -1,6 +1,7 @@
 """API contracts: labels, annotations, resource names,
 ``nos_tpu/api/constants.py`` for the port, the part its partitioning
-planner, its controller and its MPS node side read.
+planner, its controller, its node sides, its scheduler and its quotas
+read.
 
 The JAX package names its TPU contracts under ``nos.tpu``; the port
 uses the reference ``nos``'s GPU vocabulary under ``nos.nebuly.com``
@@ -54,6 +55,27 @@ LABEL_DEVICE_PLUGIN_CONFIG = f"{GROUP}/device-plugin.config"
 # Gang membership: pods with the same value are admitted all or nothing;
 # part of a pod's Filter equivalence class.
 LABEL_POD_GROUP = f"{GROUP}/pod-group"
+
+# Quota standing of a running pod, stamped by the ElasticQuota
+# reconciler (reference nos.nebuly.com/capacity, labels.go:19-24): the
+# label the preemption walk keys on.
+LABEL_CAPACITY = f"{GROUP}/capacity"
+CAPACITY_IN_QUOTA = "in-quota"
+CAPACITY_OVER_QUOTA = "over-quota"
+
+# Machine-readable class of an Unschedulable verdict (e.g. "quota"),
+# stamped by the scheduler beside the PodScheduled condition, whose
+# reason stays the exact "Unschedulable" that external tooling matches.
+LABEL_UNSCHEDULABLE_CLASS = f"{GROUP}/unschedulable-class"
+
+# Workload tier: "serving" is scheduled first each cycle and is never a
+# victim while in quota; "batch" may borrow and be reclaimed;
+# "best-effort" is scheduled last and walked first.  Absent or unknown
+# reads as batch.
+LABEL_TIER = f"{GROUP}/tier"
+TIER_SERVING = "serving"
+TIER_BATCH = "batch"
+TIER_BEST_EFFORT = "best-effort"
 
 # ---------------------------------------------------------------------------
 # Annotations
@@ -109,6 +131,17 @@ def heartbeat_annotation(family: str = MIG_KIND) -> str:
     return f"{ANNOT_AGENT_HEARTBEAT_PREFIX}.{family}"
 
 
+# A workload displaced by node loss or a drain migration, as
+# "<cause>@<unix seconds>": it is admitted between serving and batch
+# until the stamp is older than the scheduler's age cap, and the bind
+# that places it consumes the stamp.
+ANNOT_DISPLACED = f"{GROUP}/displaced"
+
+# The workload's own progress fraction in [0, 1]: a displaced preemptor
+# walks equal victims least progress first.
+ANNOT_JOB_PROGRESS = f"{GROUP}/job-progress"
+
+
 # The timeshare plugin's generation, bumped with every config it applies,
 # and the ConfigMap key it applied last: the readiness signal the MPS
 # node's reporter turns into status-partitioning-plan.mps, in place of
@@ -127,3 +160,15 @@ RESOURCE_GPU = "nvidia.com/gpu"
 
 CPU = "cpu"
 MEMORY = "memory"
+
+# The quota currency: GB of GPU memory, derived from a pod's GPU, MIG
+# and MPS requests (reference pkg/gpu/util/resource.go:28-86).
+RESOURCE_GPU_MEMORY = f"{GROUP}/gpu-memory"
+
+# ---------------------------------------------------------------------------
+# Kinds
+# ---------------------------------------------------------------------------
+
+KIND_ELASTIC_QUOTA = "ElasticQuota"
+KIND_COMPOSITE_ELASTIC_QUOTA = "CompositeElasticQuota"
+KIND_POD_DISRUPTION_BUDGET = "PodDisruptionBudget"

@@ -1,0 +1,33 @@
+"""Component assembly, the part of ``nos_tpu/cmd/assembly.py`` the port
+has: ``build_scheduler``, the scheduler a main, the smoke run and the
+tests all wire the same way."""
+
+from __future__ import annotations
+
+from nos_tpu_torch.kube.client import APIServer
+from nos_tpu_torch.quota import GPUResourceCalculator
+from nos_tpu_torch.scheduler.capacityscheduling import CapacityScheduling
+from nos_tpu_torch.scheduler.framework import Framework, NodeResourcesFit
+from nos_tpu_torch.scheduler.scheduler import Scheduler
+
+
+def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,
+                    clock=None) -> Scheduler:
+    """The rebuilt kube-scheduler (reference cmd/scheduler/
+    scheduler.go:43-59): NodeResourcesFit, then CapacityScheduling with
+    its ledger attached to ``api``, quotas in ``gpu-memory`` GB at
+    ``gpu_memory_gb_per_gpu`` a whole GPU.
+
+    The JAX framework also runs SpareGuard and MigrationDrainGuard,
+    which come with the defrag and failure planes (ROADMAP item 6), and
+    the gangs' TopologyFilter (item 7's gang slice).  Each rejects only
+    what its own plane marks (a warm-spare label, a defrag-drain
+    annotation, a gang's pinned hosts) and the port writes none of
+    them, so for single pods this framework decides as the JAX one
+    does."""
+    plugin = CapacityScheduling(GPUResourceCalculator(gpu_memory_gb_per_gpu))
+    fw = Framework([NodeResourcesFit(), plugin])
+    plugin.set_framework(fw)
+    plugin.attach(api)
+    kwargs = {} if clock is None else {"clock": clock}
+    return Scheduler(api, fw, plugin, **kwargs)

@@ -21,8 +21,10 @@ points run on the card unless ``device="cpu"`` is passed (the tests do).
 granted visibility, and ``validate_confinement``, once CUDA is up and
 before the process group or any allocation, proves that CUDA shows
 exactly the granted devices and installs a timeshare grant's memory cap
-(a ConfinementError stops the run before any step).  At exit it logs the
-grant it verified, the cap, the peak memory and the flash launches.
+(a ConfinementError stops the run before any step).  It logs the grant
+it verified and the cap right then (``confined: grant {...}``) and again
+at exit with the peak memory and the flash launches (``done: ... grant
+{...}``).
 
 Not in the port yet: the pod hooks' kube client and the ``/healthz`` +
 ``/metrics`` server (``cmd/_runtime.Main``) are control-plane modules
@@ -383,6 +385,9 @@ def main(argv=None) -> int:
     # ConfinementError stops the run before a step can use another
     # workload's device or memory
     verified = workload_env.validate_confinement()
+    # the grant as verified, before any step: a run stopped by a signal
+    # never reaches the last line
+    logger.info("confined: grant %s", json.dumps(grant_report(verified)))
     created = maybe_init_distributed("cuda")
     try:
         loss = train(cfg)

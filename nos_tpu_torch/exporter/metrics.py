@@ -6,7 +6,8 @@ and ``summary``.  ``REGISTRY`` is the process's registry, under the JAX
 package's names (dashboards and SLO objectives read them): the train
 main's gauges, the actuator's, the quarantine's, the controller's and
 the retry's counters, the plan and actuation clocks, the tracer's span
-seconds.  Serving it at ``/metrics`` needs the control plane's health
+seconds, the scheduler's latency clocks and pending gauges, the capacity
+plugin's preemption counters.  Serving it at ``/metrics`` needs the control plane's health
 server, which the port does not have yet.
 """
 
@@ -71,6 +72,12 @@ class Registry:
         key = self._key(name, labels)
         with self._lock:
             return self._gauges.get(key, self._counters.get(key))
+
+    def gauge_label_values(self, name: str, label: str) -> list[str]:
+        """The values ``label`` takes across the gauge's series."""
+        with self._lock:
+            return sorted({dict(lbls)[label] for n, lbls in self._gauges
+                           if n == name and label in dict(lbls)})
 
     def summary(self, name: str,
                 labels: dict | None = None) -> tuple[int, float, float] | None:

@@ -1,15 +1,17 @@
 """In-memory Kubernetes API substrate, ``nos_tpu/kube/client.py`` for the
 port: the durable store and watch bus through which the partitioner
-controller, the node agents and the binder exchange annotations, pods
-and ConfigMaps.
+controller, the node agents, the scheduler and the quota reconcilers
+exchange annotations, pods, ConfigMaps and quotas.
 
 Reads return deep copies (as a real API server serialises); every write
 (create, update, patch, delete) bumps the resource version and fans out
-to the kind's watchers, synchronously and in store-commit order.  The
-``Informer`` comes with the scheduler's cache (ROADMAP item 7), the
-validating admission hooks with their first caller (webhooks, quotas).
-``locked()`` lends the store's lock to the MIG node's kubelet
-simulator, which must take it before its own.
+to the kind's watchers, synchronously and in store-commit order.  A
+validating admission hook registered for a kind (the quota webhooks)
+runs on every create, update and patch of it and denies the write by
+raising.  ``locked()`` lends the store's lock to the MIG node's kubelet
+simulator, which must take it before its own.  The JAX package's
+``Informer``, a watch-maintained store, is not ported: the scheduler
+cache indexes its watch events itself.
 """
 
 from __future__ import annotations
@@ -18,6 +20,11 @@ import copy
 import threading
 from collections import defaultdict
 from typing import Any, Callable
+
+from nos_tpu_torch.api.constants import (
+    KIND_COMPOSITE_ELASTIC_QUOTA, KIND_ELASTIC_QUOTA,
+    KIND_POD_DISRUPTION_BUDGET,
+)
 
 from .objects import ConfigMap, Node, Pod
 
@@ -48,9 +55,22 @@ class APIServer:
         # (callback, selector): selector None delivers everything
         self._watchers: dict[str, list[
             tuple[WatchFn, Callable[[Any], bool] | None]]] = defaultdict(list)
+        self._admission: dict[str, list[Callable[["APIServer", Any], None]]] \
+            = defaultdict(list)
         self._rv = 0
         self._event_queue: list[tuple[str, str, Any]] = []
         self._delivering = False
+
+    def register_admission(self, kind: str,
+                           fn: Callable[["APIServer", Any], None]) -> None:
+        """Register a validating webhook for ``kind``: ``fn(api, obj)``
+        raises to deny a create, update or patch (reference
+        elasticquota_webhook.go:48-97)."""
+        self._admission[kind].append(fn)
+
+    def _admit(self, kind: str, obj: Any) -> None:
+        for fn in self._admission.get(kind, ()):
+            fn(self, obj)
 
     def locked(self):
         """The store's reentrant lock, for a caller that must take it
@@ -107,6 +127,7 @@ class APIServer:
             key = self._key(obj)
             if key in self._stores[kind]:
                 raise Conflict(f"{kind} {key} already exists")
+            self._admit(kind, obj)
             self._write(kind, key, obj, "ADDED")
             # a watcher may have written back: return the stored state
             return copy.deepcopy(self._stores[kind][key])
@@ -139,6 +160,7 @@ class APIServer:
                 raise Conflict(
                     f"{kind} {key}: resourceVersion {sent_rv} != "
                     f"{current_rv}")
+            self._admit(kind, obj)
             self._write(kind, key, obj, "MODIFIED")
             return copy.deepcopy(store[key])
 
@@ -153,6 +175,7 @@ class APIServer:
                 raise NotFound(f"{kind} {key}")
             obj = copy.deepcopy(store[key])
             mutate(obj)
+            self._admit(kind, obj)
             self._write(kind, key, obj, "MODIFIED")
             return copy.deepcopy(obj)
 
@@ -233,6 +256,8 @@ KIND_NODE = "Node"
 KIND_CONFIGMAP = "ConfigMap"
 
 __all__ = [
-    "APIServer", "NotFound", "Conflict", "TransientAPIError", "WatchFn",
-    "KIND_POD", "KIND_NODE", "KIND_CONFIGMAP", "Node", "Pod", "ConfigMap",
+    "APIServer", "NotFound", "Conflict", "TransientAPIError",
+    "WatchFn", "KIND_POD", "KIND_NODE", "KIND_CONFIGMAP",
+    "KIND_ELASTIC_QUOTA", "KIND_COMPOSITE_ELASTIC_QUOTA",
+    "KIND_POD_DISRUPTION_BUDGET", "Node", "Pod", "ConfigMap",
 ]

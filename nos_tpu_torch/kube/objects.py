@@ -75,6 +75,8 @@ class PodSpec(FastCopy):
     overhead: ResourceList = field(default_factory=dict)
     node_name: str = ""
     priority: int = 0
+    preemption_policy: str = "PreemptLowerPriority"  # or "Never"
+    scheduler_name: str = "nos-tpu-scheduler"
 
 
 @dataclass
@@ -119,6 +121,30 @@ class Pod(FastCopy):
             and c.reason.split("/", 1)[0] == "Unschedulable"
             for c in self.status.conditions
         )
+
+    def unschedulable_class(self) -> str:
+        """The refinement of the Unschedulable verdict (e.g. "quota")
+        from the scheduler's label, "" when unclassified."""
+        from nos_tpu_torch.api.constants import LABEL_UNSCHEDULABLE_CLASS
+
+        return self.metadata.labels.get(LABEL_UNSCHEDULABLE_CLASS, "")
+
+    def mark_unschedulable(self, message: str = "",
+                           reason: str = "") -> None:
+        """Set PodScheduled=False with the exact reason "Unschedulable"
+        that external tooling matches; the class ``reason`` goes on the
+        unschedulable-class label instead of refining that string."""
+        from nos_tpu_torch.api.constants import LABEL_UNSCHEDULABLE_CLASS
+
+        self.status.conditions = [
+            c for c in self.status.conditions if c.type != "PodScheduled"
+        ]
+        self.status.conditions.append(
+            PodCondition("PodScheduled", "False", "Unschedulable", message))
+        if reason:
+            self.metadata.labels[LABEL_UNSCHEDULABLE_CLASS] = reason
+        else:
+            self.metadata.labels.pop(LABEL_UNSCHEDULABLE_CLASS, None)
 
 
 @dataclass

@@ -26,6 +26,12 @@ def subtract(a: Mapping[str, float], b: Mapping[str, float]) -> ResourceList:
     return out
 
 
+def subtract_non_negative(a: Mapping[str, float],
+                          b: Mapping[str, float]) -> ResourceList:
+    """a - b, negative values clamped to 0."""
+    return {k: max(0.0, v) for k, v in subtract(a, b).items()}
+
+
 def max_resources(a: Mapping[str, float], b: Mapping[str, float]) -> ResourceList:
     out = dict(a)
     for k, v in b.items():

@@ -38,6 +38,16 @@ PLAN_CYCLE = "plan-cycle"
 QUARANTINED = "quarantined"
 QUARANTINE_RELEASED = "quarantine-released"
 HANDSHAKE_WAIT = "handshake-wait"
+# -- the scheduler's, the capacity plugin's and the quota reconcilers' ---
+POD_REJECTED = "pod-rejected"
+POD_BOUND = "pod-bound"
+POD_NOMINATED = "pod-nominated"
+QUOTA_HOL_CLAIM = "quota-hol-claim"
+QUOTA_BORROW = "quota-borrow"
+QUOTA_RECLAIM = "quota-reclaim"
+PREEMPTION = "preemption"
+PREEMPTION_NONE = "preemption-none"
+JOB_REBOUND = "job-rebound"
 
 
 class DecisionRecord:

@@ -1,2 +1,3 @@
-"""The scheduler framework the planner simulates placements with,
-``nos_tpu/scheduler`` for the port."""
+"""The scheduler, ``nos_tpu/scheduler`` for the port: the framework the
+planner simulates placements with, the single-pod scheduler over a
+watch-driven cache, and the capacity plugin enforcing elastic quotas."""

@@ -7,9 +7,10 @@ internal/partitioning/core/planner.go:178-207, wired with a fake shared
 lister at cmd/gpupartitioner/gpupartitioner.go:294-318).  This module is
 that framework: the planner's what-if runs PreFilter and Filter of the
 same plugins a scheduler would.  The JAX package's warm-spare and
-migration-drain guards, and its native Filter prescreen
-(``scheduler/native_filter.py``), wait for the scheduler slice; the
-default framework is ``NodeResourcesFit`` alone, as there.
+migration-drain guards come with the defrag and failure planes, its
+native Filter prescreen (``scheduler/native_filter.py``) only if it
+pays (ROADMAP items 6 and 23); the default framework is
+``NodeResourcesFit`` alone, as there.
 """
 
 from __future__ import annotations

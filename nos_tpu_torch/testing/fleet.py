@@ -23,6 +23,21 @@ backlog is the same 200 pods over MIG_POD_MIX, a chip's share of the
 1g.10gb, 1x2 → 2g.20gb, 2x2 → 3g.40gb, two a card as two 2x2 a 2x4,
 2x4 → 7g.80gb), the multi-host 4x4 dropped.
 
+The quota fleet (``quota_fleet_spec``) is the same 32 nodes x 8 H100
+80GB on the MPS family, every node carved alike (GPUs 0-3 one 80gb
+share each, 4-5 two 40gb, 6 four 20gb, 7 eight 10gb: 640 GB a node,
+20,480 GB in all), under ``bench_utilization.py:155-162``'s quotas
+scaled to it, their mins summing to its memory: train-a 7,680 to
+15,360 GB, train-b 5,120 to 12,800, serve 3,840 to 7,680, and the
+composite research (res-a, res-b) 3,840 to 10,240.  Wave 1: train-a
+submits 128 pods of 80gb, past its min, borrowing.  Wave 2: serve and
+research submit up to their mins, in ``bench_utilization.py:172-188``'s
+single-pod mixes mapped as the MPS fleet's (serve 10gb:4, 40gb:2,
+20gb:2, the serving tier; res-a 40gb:3, 80gb:2; res-b 40gb:2); their
+80gb pods fit only where train-a's over-quota pods are preempted.  The
+bench's gang jobs are cut.  ``drive_quota_fleet`` runs it on either
+package through callables; ``run_quota_fleet`` is the port's run.
+
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
 plan to what both packages must agree on, and ``plan_digest`` hashes it;
@@ -32,7 +47,9 @@ plan to what both packages must agree on, and ``plan_digest`` hashes it;
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import time
 
 import numpy as np
 
@@ -45,7 +62,9 @@ from nos_tpu_torch.partitioning.timeshare import TimeshareProfileCalculator
 from nos_tpu_torch.topology.annotations import encode_placement_records
 from nos_tpu_torch.topology.known import H100_80GB, GpuModel
 from nos_tpu_torch.topology.packing import Placement
-from nos_tpu_torch.topology.profile import slice_resource_name
+from nos_tpu_torch.topology.profile import (
+    gb_from_resource, slice_resource_name,
+)
 
 from .factory import make_gpu_node, make_mig_pod, make_pod, make_timeshare_pod
 
@@ -185,3 +204,200 @@ def plan_summary(snapshot, pending: list[Pod], bound: set[str],
 def plan_digest(summary: dict) -> str:
     return hashlib.sha256(
         json.dumps(summary, sort_keys=True).encode()).hexdigest()
+
+
+# -- the quota fleet -------------------------------------------------------
+
+# per GPU index, the shares it is carved to
+QUOTA_FLEET_CARVING = {0: {"80gb": 1}, 1: {"80gb": 1}, 2: {"80gb": 1},
+                       3: {"80gb": 1}, 4: {"40gb": 2}, 5: {"40gb": 2},
+                       6: {"20gb": 4}, 7: {"10gb": 8}}
+# (name, namespace, the namespaces it covers, min GB, max GB)
+QUOTA_FLEET_QUOTAS = (
+    ("train-a", "train-a", ("train-a",), 7680.0, 15360.0),
+    ("train-b", "train-b", ("train-b",), 5120.0, 12800.0),
+    ("serve", "serve", ("serve",), 3840.0, 7680.0),
+    ("research", "research", ("res-a", "res-b"), 3840.0, 10240.0),
+)
+QUOTA_FLEET_TRAIN_PODS = 128
+SERVE_MIX = ((10, 4), (40, 2), (20, 2))          # (share GB, weight)
+RESEARCH_MIX = (("res-a", 40, 3), ("res-a", 80, 2), ("res-b", 40, 2))
+# the scheduler's clock in the fleet's runs: after every creation time
+QUOTA_FLEET_NOW = 7200.0
+QUOTA_FLEET_MAX_CYCLES = 64
+
+
+def quota_fleet_spec(seed: int = 0) -> dict:
+    """The quota fleet's spec: ``nodes`` as ``fleet_spec``'s, ``quotas``
+    {name, namespace, namespaces, min, max} and two ``waves`` of pods
+    {name, namespace, gb, priority, created, tier}; creation times are
+    distinct, drawn from ``seed`` (wave 1 in the first hour, wave 2 in
+    the second), priorities ``i % 3``."""
+    rng = np.random.default_rng(seed)
+    nodes = [{"name": f"gpu-node-{i}", "kind": C.MPS_KIND,
+              "gpus": GPUS_PER_NODE,
+              "status": {g: {"free": dict(t)}
+                         for g, t in QUOTA_FLEET_CARVING.items()},
+              "bound": []} for i in range(NODES)]
+    quotas = [{"name": n, "namespace": ns, "namespaces": list(cover),
+               "min": lo, "max": hi}
+              for n, ns, cover, lo, hi in QUOTA_FLEET_QUOTAS]
+    mins = {q["name"]: q["min"] for q in quotas}
+    wave1 = [("train-a", 80, "")] * QUOTA_FLEET_TRAIN_PODS
+    wave2 = []
+    for quota, mix, tier in (
+            ("serve", [("serve", gb, w) for gb, w in SERVE_MIX],
+             C.TIER_SERVING),
+            ("research", RESEARCH_MIX, "")):
+        rows = [(ns, gb) for ns, gb, w in mix for _ in range(w)]
+        total = 0.0
+        for i in itertools.count():
+            ns, gb = rows[i % len(rows)]
+            if total + gb > mins[quota]:
+                break
+            wave2.append((ns, gb, tier))
+            total += gb
+    waves = []
+    for w, rows, offset in ((0, wave1, 0.0), (1, wave2, 3600.0)):
+        times = rng.permutation(3600)[:len(rows)]
+        waves.append([{"name": f"{ns}-{w}-{i}", "namespace": ns, "gb": gb,
+                       "priority": i % 3,
+                       "created": offset + float(times[i]),
+                       "tier": tier}
+                      for i, (ns, gb, tier) in enumerate(rows)])
+    return {"nodes": nodes, "quotas": quotas, "waves": waves}
+
+
+def drive_quota_fleet(spec: dict, create, cycle, admit, reconcile, pods,
+                      quotas) -> dict:
+    """Submit each wave (``create(pod spec)``) and run ``cycle()``, then
+    ``admit()`` (the kubelet) and ``reconcile()``, until a cycle binds
+    and evicts nothing.  ``pods()`` gives (name, node, capacity label,
+    phase) rows, ``quotas()`` each quota's status.used.  Returns the
+    summary both packages must agree on ({"cycles": [wave, bound,
+    evicted] per cycle, the final "labels", "pending" and "used"}) and
+    each cycle's and reconcile's host ms."""
+    cycles, cycle_ms, reconcile_ms = [], [], []
+    for w, wave in enumerate(spec["waves"]):
+        for p in wave:
+            create(p)
+        prev = {name: node for name, node, _, _ in pods()}
+        while True:
+            if len(cycles) >= QUOTA_FLEET_MAX_CYCLES:
+                raise RuntimeError("the quota fleet did not settle in "
+                                   f"{QUOTA_FLEET_MAX_CYCLES} cycles")
+            t0 = time.perf_counter()
+            cycle()
+            cycle_ms.append((time.perf_counter() - t0) * 1e3)
+            admit()
+            t0 = time.perf_counter()
+            reconcile()
+            reconcile_ms.append((time.perf_counter() - t0) * 1e3)
+            now = {name: node for name, node, _, _ in pods()}
+            bound = sorted(n for n, node in now.items()
+                           if node and not prev.get(n))
+            evicted = sorted(set(prev) - set(now))
+            cycles.append([w, bound, evicted])
+            prev = now
+            if not bound and not evicted:
+                break
+    rows = pods()
+    summary = {"cycles": cycles,
+               "labels": {n: label for n, _, label, _ in sorted(rows)},
+               "pending": sorted(n for n, node, _, _ in rows if not node),
+               "used": quotas()}
+    return {"summary": summary, "cycle_ms": cycle_ms,
+            "reconcile_ms": reconcile_ms}
+
+
+def run_quota_fleet(spec: dict) -> dict:
+    """``drive_quota_fleet`` on the port: an API server with the quota
+    webhooks, ``build_scheduler`` (its clock QUOTA_FLEET_NOW), both
+    reconcilers.  Adds the preemptions, the victims by their capacity
+    label when chosen, binds, and per quota the GB its bound pods hold
+    against its status.used and max."""
+    from nos_tpu_torch.api.elasticquota import (
+        CompositeElasticQuota, CompositeElasticQuotaSpec, ElasticQuota,
+        ElasticQuotaSpec, install_quota_webhooks,
+    )
+    from nos_tpu_torch.cmd.assembly import build_scheduler
+    from nos_tpu_torch.controllers.elasticquota import (
+        CompositeElasticQuotaReconciler, ElasticQuotaReconciler,
+    )
+    from nos_tpu_torch.controllers.kubelet import admit_bound_pods
+    from nos_tpu_torch.kube.client import APIServer
+    from nos_tpu_torch.kube.objects import ObjectMeta, RUNNING
+
+    api = APIServer()
+    install_quota_webhooks(api)
+    sched = build_scheduler(api, clock=lambda: QUOTA_FLEET_NOW)
+    recs = (ElasticQuotaReconciler(api), CompositeElasticQuotaReconciler(api))
+    victims: list[tuple[str, str, str | None]] = []
+    sched._capacity.on_preempt = lambda pod, vs: victims.extend(
+        (pod.metadata.name, v.metadata.name,
+         v.metadata.labels.get(C.LABEL_CAPACITY)) for v in vs)
+    for q in spec["quotas"]:
+        mem = C.RESOURCE_GPU_MEMORY
+        meta = ObjectMeta(name=q["name"], namespace=q["namespace"])
+        lo, hi = {mem: q["min"]}, {mem: q["max"]}
+        if q["namespaces"] == [q["namespace"]]:
+            api.create(C.KIND_ELASTIC_QUOTA, ElasticQuota(
+                metadata=meta, spec=ElasticQuotaSpec(min=lo, max=hi)))
+        else:
+            api.create(C.KIND_COMPOSITE_ELASTIC_QUOTA, CompositeElasticQuota(
+                metadata=meta, spec=CompositeElasticQuotaSpec(
+                    namespaces=q["namespaces"], min=lo, max=hi)))
+    for n in spec["nodes"]:
+        api.create("Node", make_gpu_node(
+            n["name"], gpus=n["gpus"], partitioning=n["kind"],
+            status_geometry=n["status"]))
+
+    def create(p):
+        labels = {C.LABEL_TIER: p["tier"]} if p["tier"] else {}
+        api.create("Pod", make_timeshare_pod(
+            p["gb"], name=p["name"], namespace=p["namespace"],
+            priority=p["priority"], creation_timestamp=p["created"],
+            labels=labels))
+
+    def admit():
+        for n in spec["nodes"]:
+            admit_bound_pods(api, n["name"])
+
+    def reconcile():
+        for r in recs:
+            r.reconcile_all()
+
+    def pods():
+        return [(p.metadata.name, p.spec.node_name,
+                 p.metadata.labels.get(C.LABEL_CAPACITY), p.status.phase)
+                for p in api.list("Pod")]
+
+    def quotas():
+        return {q.metadata.name: dict(q.status.used)
+                for kind in (C.KIND_ELASTIC_QUOTA,
+                             C.KIND_COMPOSITE_ELASTIC_QUOTA)
+                for q in api.list(kind)}
+
+    out = drive_quota_fleet(spec, create, sched.run_cycle, admit, reconcile,
+                            pods, quotas)
+    held = {}
+    for q in spec["quotas"]:
+        held[q["name"]] = sum(
+            gb_from_resource(r) * v for p in api.list("Pod")
+            if p.metadata.namespace in q["namespaces"] and p.spec.node_name
+            and p.status.phase == RUNNING
+            for r, v in p.spec.containers[0].resources.items()
+            if gb_from_resource(r))
+    sched.close()
+    out.update({
+        "binds": sum(len(c[1]) for c in out["summary"]["cycles"]),
+        "preemptions": len({v[0] for v in victims}),
+        "victims": len(victims),
+        "victims_over_quota": sum(v[2] == C.CAPACITY_OVER_QUOTA
+                                  for v in victims),
+        "victims_in_quota": sum(v[2] != C.CAPACITY_OVER_QUOTA
+                                for v in victims),
+        "held_gb": held,
+        "max_gb": {q["name"]: q["max"] for q in spec["quotas"]},
+    })
+    return out

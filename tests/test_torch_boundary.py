@@ -95,7 +95,7 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "device.timeshare_plugin",
                    "controllers.chipagent.reporter",
                    "controllers.chipagent.agent", "testing.chaos",
-                   "testing.bind", "topology.slice_unit",
+                   "topology.slice_unit",
                    "partitioning.slicepart.calculators",
                    "partitioning.slicepart.node",
                    "partitioning.slicepart.snapshot_taker",
@@ -105,8 +105,14 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "controllers.sliceagent.plan",
                    "controllers.sliceagent.actuator",
                    "controllers.sliceagent.reporter",
-                   "controllers.sliceagent.agent", "device.plugin"):
+                   "controllers.sliceagent.agent", "device.plugin",
+                   "api.elasticquota", "api.pdb", "quota.calculator",
+                   "quota.info", "controllers.elasticquota.controller",
+                   "scheduler.cache", "scheduler.gang",
+                   "scheduler.capacityscheduling", "scheduler.scheduler",
+                   "cmd.assembly"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
+    assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad
 

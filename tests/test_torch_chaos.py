@@ -1,7 +1,7 @@
 """The port's chaos substrate (nos_tpu_torch/testing/chaos.py) against the
 JAX package's ``ChaosAPIServer``, and a seeded chaos soak of the port's
-MPS loop: the partitioner controller, the chip agents and the test
-binder over 2 to 4 nodes, with conflicts, transient write errors and
+MPS loop: the partitioner controller, the chip agents and the scheduler
+(``build_scheduler``) over 2 to 4 nodes, with conflicts, transient write errors and
 dropped watch events injected on every update and patch.  Each soak run
 must converge, with every pod bound and Running and every node's status
 plan id equal to its spec plan id, and no exception may escape a tick.
@@ -17,6 +17,7 @@ import nos_tpu.kube.objects as jax_objects
 from nos_tpu.testing.chaos import ChaosAPIServer as JaxChaosAPIServer
 
 from nos_tpu_torch.api import constants as C
+from nos_tpu_torch.cmd.assembly import build_scheduler
 from nos_tpu_torch.controllers.chipagent import ChipAgent
 from nos_tpu_torch.controllers.node_controller import NodeController
 from nos_tpu_torch.controllers.pod_controller import PodController
@@ -27,9 +28,7 @@ from nos_tpu_torch.partitioning.state import ClusterState
 from nos_tpu_torch.partitioning.timeshare import (
     new_timeshare_partitioner_controller,
 )
-from nos_tpu_torch.scheduler.framework import Framework
 from nos_tpu_torch.testing import factory
-from nos_tpu_torch.testing.bind import bind_pending
 from nos_tpu_torch.testing.chaos import ChaosAPIServer
 from nos_tpu_torch.topology.annotations import spec_plan_id, status_plan_id
 from nos_tpu_torch.utils import retry
@@ -140,7 +139,7 @@ def run_mps_soak(seed: int, nodes: int, shares: tuple[int, ...],
         agent = ChipAgent(api, f"gpu-{i}")
         tick(f"agent-{i}-start", agent.start)
         agents.append(agent)
-    framework = Framework()
+    sched = build_scheduler(api, clock=lambda: clock[0])
     for i, gb in enumerate(shares):
         api.create(KIND_POD, factory.make_timeshare_pod(gb, name=f"soak-{i}"))
 
@@ -156,7 +155,7 @@ def run_mps_soak(seed: int, nodes: int, shares: tuple[int, ...],
     done = False
     for round_no in range(max_rounds):
         clock[0] += BATCH_TIMEOUT_S + 1.0
-        tick("bind", lambda: bind_pending(api, framework))
+        tick("schedule", sched.run_cycle)
         tick("partitioner", partitioner.process_if_ready)
         for i, agent in enumerate(agents):
             tick(f"agent-{i}", agent.tick)

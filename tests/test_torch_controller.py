@@ -1,19 +1,19 @@
 """The port's partitioner controller and MPS node side
 (nos_tpu_torch/controllers/, partitioning/timeshare/factory.py,
-device/timeshare_plugin.py, testing/bind.py) against the JAX package's
+device/timeshare_plugin.py) and its scheduler against the JAX package's
 controller, chip agent and scheduler, driven through one event sequence
 under one injected clock and compared exactly after every step.
 
 Both sides run the loop of ``tests/test_e2e_timeshare.py``'s ``Harness``:
 node and pod controllers feeding a ``ClusterState``, the MPS (timeshare)
-partitioner controller from its factory, one chip agent per node, and a
-binder: ``Scheduler.run_cycle`` on the JAX side, ``bind_pending`` on the
-port's.  The JAX side runs on the 80 GB, 8-chip TPU generation that
+partitioner controller from its factory, one chip agent per node, and
+``Scheduler.run_cycle`` (the port's from ``build_scheduler``).  The JAX
+side runs on the 80 GB, 8-chip TPU generation that
 ``test_torch_timeshare.py`` builds (one chip stands for one GPU), its
 factory's snapshot taker given that generation's registry; ``nos_tpu/``
-is used as it is.  Every scenario keeps at most one node that fits each
-pod when it binds (asserted before each bind), so that the two binders
-cannot choose differently.
+is used as it is.  Two nodes may fit a pod: both schedulers take the
+least headroom, then the node's host index (JAX) or name (the port),
+the same order here.
 
 Compared after every step: ``process_if_ready``'s return, the node
 annotations and the labels the loop wrote (keys mapped, plan ids masked
@@ -49,6 +49,7 @@ from nos_tpu.scheduler.scheduler import Scheduler as JaxScheduler
 from nos_tpu.testing import factory as jax_factory
 
 from nos_tpu_torch.api import constants as C
+from nos_tpu_torch.cmd.assembly import build_scheduler
 from nos_tpu_torch.controllers.chipagent import ChipAgent
 from nos_tpu_torch.controllers.node_controller import NodeController
 from nos_tpu_torch.controllers.pod_controller import PodController
@@ -56,16 +57,15 @@ from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.kube.client import (
     APIServer, KIND_CONFIGMAP, KIND_NODE, KIND_POD,
 )
-from nos_tpu_torch.kube.objects import PENDING, RUNNING
+from nos_tpu_torch.kube.objects import RUNNING
 from nos_tpu_torch.obs import journal as port_journal
 from nos_tpu_torch.partitioning import timeshare as ts
 from nos_tpu_torch.partitioning.core import (
     REASON_ACTUATION, REASON_PLAN_DEADLINE,
 )
 from nos_tpu_torch.partitioning.state import ClusterState
-from nos_tpu_torch.scheduler.framework import CycleState, Framework
+from nos_tpu_torch.scheduler.framework import CycleState
 from nos_tpu_torch.testing import factory
-from nos_tpu_torch.testing.bind import _node_infos, bind_pending
 from nos_tpu_torch.topology.annotations import (
     parse_status_annotations, spec_plan_id, status_plan_id,
 )
@@ -167,8 +167,8 @@ class Twin:
             self.agents[name] = ChipAgent(self.api, name)
             self.jagents[name].start()
             self.agents[name].start()
-        self.jsched = JaxScheduler(self.japi, JaxFramework())
-        self.framework = Framework()
+        self.jsched = JaxScheduler(self.japi, JaxFramework(), clock=clock)
+        self.sched = build_scheduler(self.api, clock=clock)
         self.counters0 = {(n, j): _counter(n, j) for n in COUNTERS
                           for j in (True, False)}
         self.jmask, self.mask = PlanMask(), PlanMask()
@@ -186,9 +186,8 @@ class Twin:
         self.compare()
 
     def schedule(self) -> int:
-        self.assert_unique_fits()
         bound = self.jsched.run_cycle()
-        assert bind_pending(self.api, self.framework) == bound
+        assert self.sched.run_cycle() == bound
         self.compare()
         return bound
 
@@ -238,20 +237,6 @@ class Twin:
                               ts.DEVICE_PLUGIN_CM_NAMESPACE)
         return {} if cm is None else {k: json.loads(v)
                                       for k, v in cm.data.items()}
-
-    def assert_unique_fits(self) -> None:
-        """At most one node fits each pod as the binder reaches it (the
-        binder's own walk: name order, each bind booked)."""
-        nodes = _node_infos(self.api)
-        for pod in sorted((p for p in self.api.pods_by_phase(PENDING)
-                           if not p.spec.node_name),
-                          key=lambda p: p.metadata.name):
-            fits = [ni for ni in nodes if self.framework.run_filter_plugins(
-                CycleState(), pod, ni).is_success]
-            assert len(fits) <= 1, (pod.metadata.name,
-                                    [ni.name for ni in fits])
-            if fits:
-                fits[0].add_pod(pod)
 
     # -- the comparison ---------------------------------------------------
     def _view(self, jax: bool) -> dict:
@@ -375,6 +360,33 @@ class TestEndToEnd:
                                                      0) >= 1
 
 
+class TestTwoNodesFit:
+    def test_the_schedulers_choose_the_same_of_two_fitting_nodes(self, twin):
+        """Ten 80gb pods carve both nodes; with two freed, a new pod
+        fits either node and both schedulers take the same."""
+        t = twin(nodes=("host-0", "host-1"))
+        for i in range(10):
+            t.create(f"w{i}", 80)
+        t.schedule()
+        t.advance(BATCH_IDLE_S + 1.0)
+        assert t.process()
+        t.tick()
+        assert t.schedule() == 10
+        t.tick()
+        on = {t.pod(f"w{i}").spec.node_name: f"w{i}" for i in range(10)}
+        assert sorted(on) == ["host-0", "host-1"]
+        for name in on.values():
+            t.japi.delete("Pod", name, "default")
+            t.api.delete(KIND_POD, name, "default")
+        t.tick()
+        t.create("late", 80)
+        fits = [ni.name for ni in t.sched.snapshot().list()
+                if t.sched._framework.run_filter_plugins(
+                    CycleState(), t.pod("late"), ni).is_success]
+        assert fits == ["host-0", "host-1"]
+        assert t.schedule() == 1
+
+
 # ---------------------------------------------------------------------------
 # tests/test_chaos.py's handshake and rescan cases, on the MPS path
 # ---------------------------------------------------------------------------
@@ -493,8 +505,8 @@ class TestRescanBackstop:
 
     def test_a_repeated_no_fit_is_not_a_new_trigger(self, twin):
         """A pod already marked unschedulable is not marked again, so a
-        second binder pass writes nothing and the idle window runs from
-        the first mark."""
+        second scheduler cycle writes nothing and the idle window runs
+        from the first mark."""
         t = twin(nodes=("host-0",))
         t.demand("a", 24)
         t.advance(BATCH_IDLE_S - 1.0)

@@ -623,6 +623,72 @@ class TestWatchBus:
             assert got == want, view
 
 
+    @pytest.mark.parametrize("kind", ["Pod", "Node"])
+    def test_informer_matches_jax(self, kind):
+        """The scheduler cache's feed, the API server's watch, through a
+        replay, writes and a delete, and silent once unsubscribed,
+        against the hook of JAX's Informer (the JAX cache's feed) on
+        the same sequence."""
+        runs = []
+        for api, fac in ((client.APIServer(), factory),
+                         (jax_client.APIServer(), jax_factory)):
+            if kind == "Pod":
+                def mk(name, node=""):
+                    return fac.make_pod(name, node_name=node)
+
+                def move(o, node):
+                    o.spec.node_name = node
+
+                def seen(o):
+                    return o.spec.node_name
+            else:
+                def mk(name, node=""):
+                    return fac.make_node(name, labels={"zone": node})
+
+                def move(o, node):
+                    o.metadata.labels["zone"] = node
+
+                def seen(o):
+                    return o.metadata.labels.get("zone")
+            ns = "default" if kind == "Pod" else ""
+            api.create(kind, mk("o0", "n1"))
+            hooked = []
+
+            def hook(ev, o):
+                hooked.append((ev, o.metadata.name, seen(o)))
+
+            if fac is factory:
+                close = api.watch(kind, hook)
+            else:
+                close = jax_client.Informer(api, kind, on_event=hook,
+                                            store=False).close
+            api.create(kind, mk("o1"))
+            api.patch(kind, "o1", ns, mutate=lambda o: move(o, "n2"))
+            api.delete(kind, "o0", ns)
+            close()
+            api.create(kind, mk("o2"))
+            runs.append(hooked)
+        assert runs[0] == runs[1]
+        assert [h[:2] for h in runs[0]] == [
+            ("ADDED", "o0"), ("ADDED", "o1"), ("MODIFIED", "o1"),
+            ("DELETED", "o0")]
+
+    def test_mark_unschedulable_matches_jax(self):
+        pod = factory.make_pod("p")
+        jpod = jax_factory.make_pod("p")
+        for message, reason in (("no fit", ""), ("over max", "quota"),
+                                ("again", "quota-hol"), ("plain", "")):
+            pod.mark_unschedulable(message, reason)
+            jpod.mark_unschedulable(message, reason)
+            assert [(c.type, c.status, c.reason, c.message)
+                    for c in pod.status.conditions] == [
+                (c.type, c.status, c.reason, c.message)
+                for c in jpod.status.conditions]
+            assert pod.unschedulable_class() == jpod.unschedulable_class()
+            assert pod.is_unschedulable()
+            assert bool(pod.metadata.labels) == bool(jpod.metadata.labels)
+
+
 # ---------------------------------------------------------------------------
 # The batcher, the quarantine list and the pod predicate
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ name mapping are ``test_torch_timeshare``'s.
 
 from __future__ import annotations
 
+import fcntl
 import json
+import pathlib
+import tempfile
 
 import numpy as np
 import pytest
@@ -154,6 +157,31 @@ def assert_same_plan(spec):
     return summary, counts
 
 
+def build_jax_shim(monkeypatch) -> bool:
+    """Whether the JAX package's native shim is loaded, building it once
+    more when it is not.  At collection every xdist worker runs the
+    shim's ``make`` at once (``tests/test_native.py``'s skip marker), and
+    the Makefile has each compile to the same ``.tmp`` name and move it:
+    a worker whose file was moved away latches the shim as failed for
+    the rest of its run.  The latch is cleared here for this test only,
+    and the one retry builds under an exclusive lock on a file in the
+    temp directory."""
+    from nos_tpu.device import native
+
+    if native.fit_batch_available():
+        return True
+    monkeypatch.setattr(native, "_lib_failed", False)
+    monkeypatch.setattr(native, "_lib", None)
+    lock = pathlib.Path(tempfile.gettempdir(), "nos_tpu_shim_build.lock")
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            native.available()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    return native.fit_batch_available()
+
+
 class TestPlannerParity:
     @pytest.mark.parametrize("seed", range(10))
     def test_small_clusters(self, seed):
@@ -185,10 +213,8 @@ class TestPlannerParity:
         *_, jsummary, _ = jax_plan(spec, native_prescreen=False)
         assert fleet.plan_digest(jsummary) == fleet.FLEET_DIGEST
 
-    def test_the_native_prescreen_ran(self):
-        from nos_tpu.device import native
-
-        if not native.fit_batch_available():
+    def test_the_native_prescreen_ran(self, monkeypatch):
+        if not build_jax_shim(monkeypatch):
             pytest.fail("the JAX package's native shim did not build: the "
                         "prescreen half of the parity is vacuous")
         *_, jcounts, _, jplanner = jax_plan(fleet.fleet_spec(0), True)
@@ -552,3 +578,24 @@ class TestClusterState:
                         jax_state.PartitioningState(x=jb))
             assert PartitioningState(x=a).empty == \
                 jax_state.PartitioningState(x=ja).empty
+
+
+class TestShimRetry:
+    """``build_jax_shim``, the prescreen test's retry."""
+
+    def test_a_lost_build_race_is_built_again(self, monkeypatch):
+        from nos_tpu.device import native
+
+        # what a worker whose make lost the race holds: the latch set
+        monkeypatch.setattr(native, "_lib_failed", True)
+        monkeypatch.setattr(native, "_lib", None)
+        assert not native.fit_batch_available()
+        assert build_jax_shim(monkeypatch)
+
+    def test_a_shim_that_cannot_build_still_fails(self, monkeypatch):
+        from nos_tpu.device import native
+
+        monkeypatch.setattr(native, "_lib_failed", True)
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "build_shim", lambda force=False: None)
+        assert not build_jax_shim(monkeypatch)

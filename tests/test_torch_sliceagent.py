@@ -10,10 +10,9 @@ The loop comparison (``Twin``) runs ``tests/test_e2e_slice.py``'s
 ``Harness`` on both sides under one injected clock: node controller with
 the virgin-node initializer, pod controller, the MIG (slice) partitioner
 controller from its factory, a slice agent on each side's fake runtime
-(one GPU ↔ one host block) with the kubelet simulator, and a binder
-(``Scheduler.run_cycle`` on the JAX side, ``testing/bind.py``'s
-``bind_pending`` on the port's, one node so they cannot choose
-differently).  After every step it compares the node's annotations
+(one GPU ↔ one host block) with the kubelet simulator, and
+``Scheduler.run_cycle`` (the port's from ``build_scheduler``).  After
+every step it compares the node's annotations
 (keys and profiles mapped, placement records mapped, plan ids masked in
 order of appearance), its allocatable and capacity (a GPU ↔ the host's
 8 chips), the pods' phases and nodes, the fake runtimes' devices and
@@ -67,6 +66,7 @@ from nos_tpu.topology import (
 
 import chip_smoke
 from nos_tpu_torch.api import constants as C
+from nos_tpu_torch.cmd.assembly import build_scheduler
 from nos_tpu_torch.controllers.kubelet import KubeletSim
 from nos_tpu_torch.controllers.node_controller import NodeController
 from nos_tpu_torch.controllers.pod_controller import PodController
@@ -85,9 +85,7 @@ from nos_tpu_torch.obs import journal as port_journal
 from nos_tpu_torch.partitioning import slicepart as sp
 from nos_tpu_torch.partitioning.core import REASON_PLAN_DEADLINE
 from nos_tpu_torch.partitioning.state import ClusterState
-from nos_tpu_torch.scheduler.framework import Framework
 from nos_tpu_torch.testing import factory
-from nos_tpu_torch.testing.bind import bind_pending
 from nos_tpu_torch.testing.nvml import FakeGpu, FakeNvmlLibrary
 from nos_tpu_torch.topology import H100_80GB, Device, DeviceList
 from nos_tpu_torch.topology.annotations import (
@@ -400,8 +398,8 @@ class Twin:
                 self.api, name, self.runtimes[name], self.res[name])
             self.jagents[name].start()
             self.agents[name].start()
-        self.jsched = JaxScheduler(self.japi, JaxFramework())
-        self.framework = Framework()
+        self.jsched = JaxScheduler(self.japi, JaxFramework(), clock=clock)
+        self.sched = build_scheduler(self.api, clock=clock)
         self.counters0 = {(n, j): _counter(n, j) for n in COUNTERS
                           for j in (True, False)}
         self.jmask, self.mask = PlanMask(), PlanMask()
@@ -420,7 +418,7 @@ class Twin:
 
     def schedule(self) -> int:
         bound = self.jsched.run_cycle()
-        assert bind_pending(self.api, self.framework) == bound
+        assert self.sched.run_cycle() == bound
         self.compare()
         return bound
 

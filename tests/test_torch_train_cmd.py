@@ -340,6 +340,29 @@ class TestGrantInTheMain:
         # CUDA never started: no memory to read
         assert report["max_memory_allocated"] is None
 
+    def test_the_grant_is_reported_before_the_group_and_train(
+            self, order, monkeypatch, caplog):
+        """A run stopped by a signal never logs its last line: the grant
+        as verified is logged once confinement holds, before the process
+        group and any step, and says what the last line says of it."""
+        calls, path = order
+        monkeypatch.setenv("NOS_TPU_TIMESHARE_GB", "24")
+        logged = []
+        monkeypatch.setattr(cmd.logger, "info", lambda msg, *a:
+                            logged.append(msg % a) or calls.append("log"))
+        assert cmd.main(["--config", path]) == 0
+        confined = [m for m in logged if m.startswith("confined: grant ")]
+        done = [m for m in logged if m.startswith("done: ")]
+        assert len(confined) == 1 and len(done) == 1
+        assert calls.index("validate_confinement") < calls.index("log") \
+            < calls.index("init_distributed") < calls.index("train")
+        first = json.loads(confined[0].split(" grant ", 1)[1])
+        last = json.loads(done[0].split(" grant ", 1)[1])
+        keys = ("verified", "devices", "timeshare_gb", "fraction",
+                "cap_bytes")
+        assert first["verified"] is True and first["fraction"] == 0.27
+        assert {k: first[k] for k in keys} == {k: last[k] for k in keys}
+
     def test_grant_report_on_the_card(self, monkeypatch):
         from nos_tpu_torch.ops import attention as A
 
