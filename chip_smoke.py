@@ -199,10 +199,48 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    the scheduler's host ms per cycle, eviction to rebind and eviction to
    child-stopped ms, each pod's creation-to-bound ms, the children's
    walls and the launches of the children that ended.
+12. gang: gang scheduling, all or nothing inside one NVLink domain, and
+   gang preemption.  (a) On the host, ``testing/fleet.py``'s gang fleet
+   (the quota fleet's nodes and quotas, nodes 0-15 in NVLink domain
+   nvl-0, 16-27 in nvl-1, 28-31 unlabelled; after its two waves a
+   third of bench_utilization.py's gang jobs at priority 10, a gang
+   waiting for a member it never gets, and a gang whose 8x16 mesh only
+   nvl-0 holds) run GANG_FLEET_RUNS times: every run must hash to
+   ``GANG_FLEET_DIGEST`` (the JAX package's run in the CPU tests); at no
+   cycle's end may a gang be bound in part or over two domains; the
+   mesh gang must have been bound in nvl-0 alone and the waiting gang
+   never; every victim must have been over quota, or of the preemptor's
+   namespace with its quota over min, when chosen; no quota may hold
+   more than its max.  The line carries the host ms per cycle, per gang
+   admitted and per gang rejected, the gangs admitted and rejected, the
+   gang preemptions, the victims by label and what is left pending.
+   (b) The card's node in the MPS loop with the quota webhooks and both
+   reconcilers (team-a min 24 max 80 GB, team-b min 48): team-a's
+   PodGroup ``ga`` (two members) and its first 24 GB member go through
+   GANG_WAIT_CYCLES scheduler cycles, each leaving it unbound and marked
+   waiting for members (1/2); the second member arrives, one plan
+   carves the shares and both bind in one scheduler cycle; one child per
+   member trains under its grant; once both have logged a step,
+   team-b's gang ``gb`` (two 24 GB members, within its min) is created,
+   and the next cycle must evict ``ga`` whole (the JAX package's choice
+   on the CPU), bind no member of ``gb``, and leave ``ga``'s PodGroup
+   Pending 0; ``gb`` must bind whole on a later cycle.  The smoke, as
+   the kubelet, sends both of ``ga``'s children SIGTERM: each must exit
+   by the signal within QUOTA_STOP_LIMIT_S, having logged its grant
+   verified on the card at its fraction and cap.  Then ``gb``'s two
+   children train GRANT_STEPS steps at once, each under its grant as
+   grant (a) must.  Every distinct state the loop writes to the node,
+   the pods, the quotas and the PodGroups must equal
+   ``GANG_LOOP_WRITES``.  The line carries eviction to rebind and to
+   children-stopped ms, SIGTERM to exit s, the children's walls and
+   step windows, each pod's creation-to-bound ms, the scheduler's host
+   ms per cycle and ``gb``'s children's launches, which the kernels line
+   counts as the ``gang`` path.
 
 Then the kernel summary line (one entry per compiled tile, with its
-launches by path; a tile no path ran must have run in the autotune
-phase), the card's ``name, power.limit`` and, last,
+launches by path, the gang children's among them; a tile no path ran
+must have run in the autotune phase), the card's ``name, power.limit``
+and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -225,7 +263,7 @@ import sys
 import tempfile
 import threading
 import time
-from typing import NoReturn
+from typing import Callable, NoReturn
 
 import torch
 
@@ -2053,14 +2091,16 @@ class _CardLoop:
         self.bound_ms: dict[str, float] = {}
 
     def create_pod(self, name: str, gb: int = CARD_SHARE_GB,
-                   namespace: str = "default") -> None:
+                   namespace: str = "default", gang: str = "") -> None:
+        from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.kube.client import KIND_POD
         from nos_tpu_torch.testing.factory import make_timeshare_pod
 
         self.created[name] = time.perf_counter()
         self.api.create(KIND_POD, make_timeshare_pod(
             gb, name=name, namespace=namespace,
-            creation_timestamp=self.wall()))
+            creation_timestamp=self.wall(),
+            labels={C.LABEL_POD_GROUP: gang} if gang else None))
 
     def create_pods(self) -> None:
         for i in range(CARD_PODS):
@@ -2682,8 +2722,9 @@ class _Recorder:
     "key=value" annotations (group prefix off, no heartbeat) and the
     family's resources in its allocatable; a pod as "<node> <phase>",
     with "Unschedulable" when marked and its capacity label when it has
-    one; a quota as its status.used in GB; "deleted" at the end.  The
-    MIG and quota loops pin what it records."""
+    one; a quota as its status.used in GB; a PodGroup as "<phase>
+    <scheduled>"; "deleted" at the end.  The MIG, quota and gang loops
+    pin what it records."""
 
     def __init__(self, family: str) -> None:
         self.family = family
@@ -2719,6 +2760,8 @@ class _Recorder:
                 if ours(r)]
         elif hasattr(obj.status, "used"):
             view = f"used={obj.status.used.get(C.RESOURCE_GPU_MEMORY, 0):g}"
+        elif hasattr(obj.status, "scheduled"):
+            view = f"{obj.status.phase} {obj.status.scheduled}"
         else:
             capacity = obj.metadata.labels.get(C.LABEL_CAPACITY)
             view = f"{obj.spec.node_name or '-'} {obj.status.phase}" + (
@@ -3084,19 +3127,20 @@ def _quota_fleet_runs(runs: int = QUOTA_FLEET_RUNS) -> dict:
 
 class _QuotaLoop(_CardLoop):
     """``_CardLoop`` with the quotas: the webhooks installed, both
-    reconcilers bound to their watches as the operator binds them,
-    team-a's and team-b's ElasticQuotas, and a ``_Recorder`` of the
-    node, the pods and the quotas (QUOTA_LOOP_WRITES pins it)."""
+    reconcilers bound to their watches as the operator binds them, the
+    ElasticQuotas ``quotas`` (team-a's and team-b's), and a
+    ``_Recorder`` of the node, the pods, the quotas and the PodGroups
+    (QUOTA_LOOP_WRITES and GANG_LOOP_WRITES pin it)."""
 
     def __init__(self, device: dict, clock=time.monotonic,
-                 wall=time.time) -> None:
+                 wall=time.time, quotas=QUOTA_CARD_QUOTAS) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.api.elasticquota import (
             ElasticQuota, ElasticQuotaSpec, install_quota_webhooks)
         from nos_tpu_torch.controllers.elasticquota import (
             CompositeElasticQuotaReconciler, ElasticQuotaReconciler)
         from nos_tpu_torch.kube.client import (
-            KIND_ELASTIC_QUOTA, KIND_NODE, KIND_POD)
+            KIND_ELASTIC_QUOTA, KIND_NODE, KIND_POD, KIND_POD_GROUP)
         from nos_tpu_torch.kube.objects import ObjectMeta
 
         super().__init__(device, clock, wall)
@@ -3105,10 +3149,11 @@ class _QuotaLoop(_CardLoop):
         CompositeElasticQuotaReconciler(self.api).bind()
         self.recorder = _Recorder(C.MPS_KIND)
         self.writes = self.recorder.writes
-        for kind in (KIND_NODE, KIND_POD, KIND_ELASTIC_QUOTA):
+        for kind in (KIND_NODE, KIND_POD, KIND_ELASTIC_QUOTA,
+                     KIND_POD_GROUP):
             self.api.watch(kind, self.recorder)
         mem = C.RESOURCE_GPU_MEMORY
-        for ns, lo, hi in QUOTA_CARD_QUOTAS:
+        for ns, lo, hi in quotas:
             self.api.create(KIND_ELASTIC_QUOTA, ElasticQuota(
                 metadata=ObjectMeta(name=ns, namespace=ns),
                 spec=ElasticQuotaSpec(min={mem: lo},
@@ -3196,24 +3241,31 @@ def _quota_preempt(loop: _QuotaLoop, advance=None,
             "labels_after": loop.labels()}
 
 
-def _stop_child(child: dict) -> float:
-    """The kubelet's part for an evicted pod: SIGTERM its child; the
-    seconds until it exited.  Fails past QUOTA_STOP_LIMIT_S, killing it
-    then, or when it exited by anything but the signal."""
-    proc = child["proc"]
+def _stop_children(children: list[dict]) -> list[float]:
+    """The kubelet's part for evicted pods: SIGTERM every child at once;
+    the seconds until each exited (polled every 10 ms).  Fails past
+    QUOTA_STOP_LIMIT_S, killing them then, or when one exited by
+    anything but the signal."""
     t0 = time.perf_counter()
-    proc.send_signal(signal.SIGTERM)
-    try:
-        proc.wait(timeout=QUOTA_STOP_LIMIT_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        fail(f"{child['case']}'s child did not stop within "
-             f"{QUOTA_STOP_LIMIT_S} s of SIGTERM")
-    if proc.returncode != -signal.SIGTERM:
-        fail(f"{child['case']}'s child exited {proc.returncode}, not by "
-             f"SIGTERM")
-    return time.perf_counter() - t0
+    for child in children:
+        child["proc"].send_signal(signal.SIGTERM)
+    exited: dict[int, float] = {}
+    while len(exited) < len(children):
+        for i, child in enumerate(children):
+            if i not in exited and child["proc"].poll() is not None:
+                exited[i] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > QUOTA_STOP_LIMIT_S:
+            for child in children:
+                child["proc"].kill()
+                child["proc"].wait()
+            fail(f"{[c['case'] for c in children]}: a child did not stop "
+                 f"within {QUOTA_STOP_LIMIT_S} s of SIGTERM")
+        time.sleep(0.01)
+    for child in children:
+        if child["proc"].returncode != -signal.SIGTERM:
+            fail(f"{child['case']}'s child exited "
+                 f"{child['proc'].returncode}, not by SIGTERM")
+    return [exited[i] for i in range(len(children))]
 
 
 def _check_stopped_child(label: str, child: dict, uuid: str,
@@ -3288,7 +3340,7 @@ def phase_quota(main_loss0: float, device: dict, smi: str) -> dict:
             if ended:
                 fail(f"team-a children {ended} ended before the "
                      f"preemption")
-            stop_s = _stop_child(team_a[QUOTA_VICTIM])
+            (stop_s,) = _stop_children([team_a[QUOTA_VICTIM]])
             stopped_at = time.perf_counter()
             victim = _finish_grant_child(team_a.pop(QUOTA_VICTIM))
             (grant_b,) = _grants(loop, device, [QUOTA_PREEMPTOR])
@@ -3349,6 +3401,440 @@ def phase_quota(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The gang phase.  (a) testing/fleet.py's gang fleet (the quota fleet's
+# 32 x 8 H100 80GB in NVLink domains nvl-0 (nodes 0-15), nvl-1 (16-27)
+# and unlabelled (28-31), and a third wave of bench_utilization.py's
+# gang jobs) run GANG_FLEET_RUNS times to GANG_FLEET_DIGEST (the JAX
+# package's run on the CPU, tests/test_torch_gang.py).  (b) The card's
+# node in the MPS loop with quotas: team-a's two-member gang GANG_A
+# waits for its second member, then binds whole in one cycle and its
+# two children train at once; team-b's gang GANG_B (within its min)
+# evicts GANG_A whole, as the JAX package does on the same objects, and
+# binds on a later cycle, and its two children train after GANG_A's are
+# stopped.
+GANG_FLEET_DIGEST = \
+    "d2308c03d3f7832a95a01f9a9865deac28c28e4f8401b3b7cb53d3be6ff24177"
+GANG_FLEET_RUNS = 5
+# (namespace, min GB, max GB; 0 = none), each quota in its namespace
+GANG_CARD_QUOTAS = (("team-a", 24.0, 80.0), ("team-b", 48.0, 0.0))
+# (namespace, PodGroup, members), each member one CARD_SHARE_GB share
+GANG_A = ("team-a", "ga", ("ga-0", "ga-1"))
+GANG_B = ("team-b", "gb", ("gb-0", "gb-1"))
+GANG_WAITING = "pod group waiting for members (1/2)"
+# scheduler cycles GANG_A's first member waits alone, inside the
+# controller's batch window: the MPS planner takes each pending pod's
+# lack alone (the reference's tracker), so a share carved for the first
+# member would leave the pair lacking nothing while it cannot bind
+# (ROADMAP, watch list)
+GANG_WAIT_CYCLES = 3
+# What the gang loop writes (_Recorder), as its CPU test's run recorded
+# it (tests/test_torch_scheduler.py, held against the JAX package's
+# loop on the same objects).
+GANG_LOOP_WRITES = {
+    "h100-node-0": [
+        [],
+        [
+            "spec-partitioning-plan.mps=<plan 0>"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=2"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-free=2",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=2"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-used=2",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=2"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-free=2",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=2"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-used=2",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=2"
+        ]
+    ],
+    "team-a": [
+        "used=0",
+        "used=24",
+        "used=48",
+        "used=24",
+        "used=0"
+    ],
+    "team-b": [
+        "used=0",
+        "used=24",
+        "used=48"
+    ],
+    "ga": [
+        "Pending 0",
+        "Scheduled 2",
+        "Pending 0"
+    ],
+    "ga-0": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota",
+        "deleted"
+    ],
+    "ga-1": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running over-quota",
+        "h100-node-0 Running in-quota",
+        "deleted"
+    ],
+    "gb": [
+        "Pending 0",
+        "Scheduled 2"
+    ],
+    "gb-0": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota"
+    ],
+    "gb-1": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota"
+    ]
+}
+
+
+def _gang_fleet_runs(runs: int = GANG_FLEET_RUNS) -> dict:
+    """The gang fleet ``runs`` times, each from nothing: every run's
+    summary must hash to GANG_FLEET_DIGEST; at no cycle's end may a gang
+    be bound in part or over two domains; the mesh gang must have been
+    bound in nvl-0 alone (nvl-1 is smaller than its mesh), the waiting
+    gang never; every victim must have been over quota, or of the
+    preemptor's namespace with its quota over min, when chosen; no
+    quota may hold more than its max, and each quota's status.used must
+    be the GB its Running pods hold."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.testing import fleet
+
+    spec = fleet.gang_fleet_spec(0)
+    outs = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fleet.run_quota_fleet(spec)
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3
+        outs.append(out)
+    for out in outs:
+        digest = fleet.plan_digest(out["summary"])
+        if digest != GANG_FLEET_DIGEST:
+            fail(f"the gang fleet's digest {digest} is not the pinned "
+                 f"{GANG_FLEET_DIGEST} (the JAX package's run on the CPU)")
+        if out["partial"] or out["spanning"]:
+            fail(f"gangs bound in part {out['partial']} or over two "
+                 f"domains {out['spanning']} at a cycle's end")
+        if out["domains"].get("train-a-mesh") != ["nvl-0"]:
+            fail(f"the mesh gang was bound in "
+                 f"{out['domains'].get('train-a-mesh')}, not nvl-0 alone")
+        if "train-b-wait" in out["domains"]:
+            fail("the gang waiting for a member was bound")
+        if out["victims_other"]:
+            fail(f"the gang fleet preempted {out['victims_other']} pods "
+                 f"neither over quota nor of the preemptor's namespace "
+                 f"over its min")
+        used = {q: v.get(C.RESOURCE_GPU_MEMORY, 0.0)
+                for q, v in out["summary"]["used"].items()}
+        if used != out["held_gb"] or any(
+                out["held_gb"][q] > m for q, m in out["max_gb"].items()):
+            fail(f"quota status.used {used}, held {out['held_gb']}, max "
+                 f"{out['max_gb']}")
+    cycle_ms = [ms for o in outs for ms in o["cycle_ms"]]
+    admitted_ms = [ms for o in outs for ms, ok in o["gang_ms"] if ok]
+    rejected_ms = [ms for o in outs for ms, ok in o["gang_ms"] if not ok]
+    first = outs[0]
+    summary = first["summary"]
+    return {"nodes": len(spec["nodes"]),
+            "domains": {d: sum(n["domain"] == d for n in spec["nodes"])
+                        for d in ("nvl-0", "nvl-1", "")},
+            "pods": [len(w) for w in spec["waves"]],
+            "gangs": len(spec["groups"]), "runs": runs,
+            "cycles_per_run": len(summary["cycles"]),
+            "cycle_ms_median": statistics.median(cycle_ms),
+            "cycle_ms_max": max(cycle_ms),
+            "gang_admitted_ms_median": statistics.median(admitted_ms),
+            "gang_rejected_ms_median": statistics.median(rejected_ms),
+            "run_ms": [o["run_ms"] for o in outs],
+            "gangs_admitted": first["gangs_admitted"],
+            "gangs_rejected": first["gangs_rejected"],
+            "gang_preemptions": first["gang_preemptions"],
+            "victims_by_label": {
+                "over-quota": first["victims_over_quota"],
+                "own-namespace-over-min": first["victims_same_ns_over_min"],
+                "other": first["victims_other"]},
+            "gang_victims": first["gang_victims"],
+            "gang_domains": first["domains"],
+            "groups": summary["groups"],
+            "pending_left": len(summary["pending"]),
+            "used_gb": first["held_gb"],
+            "digest": fleet.plan_digest(summary)}
+
+
+def _gang_bound_cycles(loop: _QuotaLoop) -> tuple[dict, Callable]:
+    """A pod watch noting, per pod, the scheduler cycle that bound it
+    (its index in ``loop.cycle_ms``) and its deletion, each with the
+    host's performance counter; returns the notes and the unwatch."""
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    seen: dict[str, tuple[int, float]] = {}
+
+    def watch(event: str, pod) -> None:
+        name = pod.metadata.name
+        if event == "DELETED":
+            seen.setdefault(f"deleted {name}",
+                            (len(loop.cycle_ms), time.perf_counter()))
+        elif pod.spec.node_name:
+            seen.setdefault(f"bound {name}",
+                            (len(loop.cycle_ms), time.perf_counter()))
+
+    return seen, loop.api.watch(KIND_POD, watch)
+
+
+def _gang_loop(device: dict, clock=time.monotonic, wall=time.time,
+               advance=None, poll_s: float = CARD_POLL_S
+               ) -> tuple[_QuotaLoop, dict]:
+    """Phase (b) up to the children: GANG_A's PodGroup (min_member 2) and
+    its first member through GANG_WAIT_CYCLES scheduler cycles, each
+    leaving it unbound and marked GANG_WAITING; then the second member,
+    through the loop until both are bound (in one scheduler cycle, after
+    one plan) and Running.  ``clock``, ``wall`` and ``advance`` let a
+    test drive it on an injected clock."""
+    from nos_tpu_torch.kube.client import KIND_POD_GROUP
+    from nos_tpu_torch.testing.factory import make_pod_group
+
+    loop = _QuotaLoop(device, clock, wall, quotas=GANG_CARD_QUOTAS)
+    run = functools.partial(loop.run_until, poll_s=poll_s, advance=advance)
+    ns, group, (first, second) = GANG_A
+    seen, unwatch = _gang_bound_cycles(loop)
+    loop.api.create(KIND_POD_GROUP, make_pod_group(group, 2, namespace=ns))
+    loop.create_pod(first, namespace=ns, gang=group)
+    for _ in range(GANG_WAIT_CYCLES):
+        if advance is not None:
+            advance()
+        if loop.bind():
+            fail(f"a scheduler cycle bound {first} alone")
+    pod = loop.pods()[first]
+    conds = [c.message for c in pod.status.conditions]
+    if pod.spec.node_name or conds != [GANG_WAITING]:
+        fail(f"{first} alone is on {pod.spec.node_name!r} with "
+             f"{conds}, not unbound and {GANG_WAITING!r}")
+    plans0 = _plans_total()
+    loop.create_pod(second, namespace=ns, gang=group)
+    bind_s = run(lambda: loop.running() == [first, second],
+                 f"bind {group} whole and run it")
+    unwatch()
+    if loop.cycles != 1 or _plans_total() - plans0 != 1:
+        fail(f"{loop.cycles} plan cycles ran for {group}, not one")
+    cycles = {seen[f"bound {n}"][0] for n in (first, second)}
+    if len(cycles) != 1:
+        fail(f"{group}'s members were bound in cycles {sorted(cycles)}, "
+             f"not one")
+    pg = loop.api.get(KIND_POD_GROUP, group, ns)
+    if (pg.status.phase, pg.status.scheduled) != ("Scheduled", 2):
+        fail(f"{group}'s PodGroup reads {pg.status}, not Scheduled 2")
+    return loop, {"wait_cycles": GANG_WAIT_CYCLES, "bind_s": bind_s,
+                  "bound_in_cycle": cycles.pop(),
+                  "plan_cycles": loop.cycles, "labels": loop.labels()}
+
+
+def _gang_preempt(loop: _QuotaLoop, advance=None,
+                  poll_s: float = CARD_POLL_S) -> dict:
+    """Phase (b)'s gang preemption: GANG_B's PodGroup and both members
+    are created; the next scheduler cycle must evict GANG_A whole (the
+    JAX package's choice) and bind none of GANG_B, whose PodGroup
+    GANG_A's reset to Pending 0; GANG_B must then bind whole on a
+    later cycle and run.  Returns the eviction's and the rebind's
+    times on the host's performance counter."""
+    from nos_tpu_torch.kube.client import KIND_POD_GROUP
+    from nos_tpu_torch.testing.factory import make_pod_group
+
+    a_ns, a_group, a_pods = GANG_A
+    b_ns, b_group, b_pods = GANG_B
+    seen, unwatch = _gang_bound_cycles(loop)
+    before = set(loop.pods())
+    loop.api.create(KIND_POD_GROUP, make_pod_group(b_group, 2,
+                                                   namespace=b_ns))
+    for name in b_pods:
+        loop.create_pod(name, namespace=b_ns, gang=b_group)
+    if advance is not None:
+        advance()
+    loop.step()
+    gone = sorted(before - set(loop.pods()))
+    if gone != sorted(a_pods):
+        fail(f"{b_group} evicted {gone}, not {a_group} whole (the JAX "
+             f"package's choice)")
+    early = [n for n in b_pods if f"bound {n}" in seen]
+    if early:
+        fail(f"{early} of {b_group} bound in the cycle that evicted "
+             f"{a_group}")
+    pg = loop.api.get(KIND_POD_GROUP, a_group, a_ns)
+    if (pg.status.phase, pg.status.scheduled) != ("Pending", 0):
+        fail(f"{a_group}'s PodGroup reads {pg.status} after the eviction, "
+             f"not Pending 0")
+    loop.run_until(lambda: all(n in loop.running() for n in b_pods),
+                   f"bind {b_group} and run it", poll_s=poll_s,
+                   advance=advance)
+    unwatch()
+    evicted_at = max(seen[f"deleted {n}"][1] for n in a_pods)
+    evict_cycle = max(seen[f"deleted {n}"][0] for n in a_pods)
+    bound = [seen[f"bound {n}"] for n in b_pods]
+    if len({c for c, _ in bound}) != 1 or bound[0][0] <= evict_cycle:
+        fail(f"{b_group} bound in cycles {[c for c, _ in bound]}, not "
+             f"whole on a cycle after {evict_cycle}")
+    pg = loop.api.get(KIND_POD_GROUP, b_group, b_ns)
+    if (pg.status.phase, pg.status.scheduled) != ("Scheduled", 2):
+        fail(f"{b_group}'s PodGroup reads {pg.status}, not Scheduled 2")
+    return {"evicted": gone, "evicted_at": evicted_at,
+            "rebound_at": max(t for _, t in bound),
+            "evict_cycle": evict_cycle, "rebind_cycle": bound[0][0],
+            "labels_after": loop.labels()}
+
+
+def phase_gang(main_loss0: float, device: dict, smi: str) -> dict:
+    """Gangs: (a) the gang fleet on the host; (b) the card's node: GANG_A
+    waits for its second member, binds whole in one cycle, and its two
+    children train under their grants; GANG_B evicts it whole, both its
+    children are stopped by SIGTERM, and GANG_B binds whole on a later
+    cycle and its two children train GRANT_STEPS steps under theirs.
+    Returns the launches of GANG_B's children, by kernel and by tile."""
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    fleet_line = _gang_fleet_runs()
+    loop, card = _gang_loop(device)
+    a_pods, b_pods = list(GANG_A[2]), list(GANG_B[2])
+    grants = _grants(loop, device, a_pods)
+    total = device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    with tempfile.TemporaryDirectory(prefix="nos-gang-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        long_cfg = str(pathlib.Path(tmp) / "long.json")
+        pathlib.Path(long_cfg).write_text(json.dumps(
+            json.loads(pathlib.Path(cfg_path).read_text())
+            | {"steps": QUOTA_VICTIM_STEPS}))
+        team_a = {g["pod"]: _start_grant_child(g["pod"], long_cfg,
+                                               g["env"], no_nvcc)
+                  for g in grants}
+        try:
+            t1 = time.monotonic()
+            while not all(_STEP_LINE.search("".join(c["lines"]))
+                          for c in team_a.values()):
+                if time.monotonic() - t1 > QUOTA_FIRST_STEP_LIMIT_S or any(
+                        c["proc"].poll() is not None
+                        for c in team_a.values()):
+                    fail("a gang child exited or logged no step within "
+                         f"{QUOTA_FIRST_STEP_LIMIT_S} s")
+                time.sleep(0.1)
+            preempt = _gang_preempt(loop)
+            ended = [n for n, c in team_a.items()
+                     if c["proc"].poll() is not None]
+            if ended:
+                fail(f"{GANG_A[1]}'s children {ended} ended before the "
+                     f"eviction")
+            stop_s = dict(zip(team_a, _stop_children(
+                list(team_a.values()))))
+            stopped_at = time.perf_counter()
+            victims = [_finish_grant_child(team_a.pop(n)) for n in a_pods]
+            grants_b = _grants(loop, device, b_pods)
+            started = [_start_grant_child(g["pod"], cfg_path, g["env"],
+                                          no_nvcc) for g in grants_b]
+            children_b = [_finish_grant_child(c) for c in started]
+        finally:
+            for c in team_a.values():
+                if c.get("proc") is not None and c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a gang child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    for child in (*victims, *children_b):
+        child["fraction"], child["cap_bytes"] = _grant_cap(
+            int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), total)
+    for victim in victims:
+        _check_stopped_child(f"gang {victim['case']}", victim,
+                             victim["grant"]["NOS_TPU_VISIBLE_CHIPS"],
+                             main_loss0)
+    reports = [_check_granted_child(f"gang {c['case']}", c,
+                                    c["grant"]["NOS_TPU_VISIBLE_CHIPS"],
+                                    main_loss0) for c in children_b]
+    if loop.writes != GANG_LOOP_WRITES:
+        fail(f"the gang loop's writes differ from the CPU test's: "
+             f"{json.dumps(loop.writes)}")
+    windows, overlap = _step_windows(children_b)
+    card |= {
+        "node": CARD_NODE, "quotas": [list(q) for q in GANG_CARD_QUOTAS],
+        "share_gb": CARD_SHARE_GB, "gangs": [GANG_A[1], GANG_B[1]],
+        "evicted": preempt["evicted"],
+        "evict_cycle": preempt["evict_cycle"],
+        "rebind_cycle": preempt["rebind_cycle"],
+        "labels_after": preempt["labels_after"],
+        "evict_to_rebind_ms": (preempt["rebound_at"]
+                               - preempt["evicted_at"]) * 1e3,
+        "evict_to_children_stopped_ms": (stopped_at
+                                         - preempt["evicted_at"]) * 1e3,
+        "sigterm_to_exit_s": stop_s,
+        "victim_steps": {v["case"]: len(v["steps"]) for v in victims},
+        "gb_step_windows_s": windows, "gb_overlap_s": overlap,
+        "cycle_ms_median": statistics.median(loop.cycle_ms),
+        "cycle_ms_max": max(loop.cycle_ms), "cycles": len(loop.cycle_ms),
+        "bind_ms": dict(sorted(loop.bound_ms.items()))}
+    launches = {k: sum(r["launches"].get(k, 0) for r in reports)
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    tiles = {name: sum(r["tile_launches"].get(
+                 f"{kernel}:{tile[0]}x{tile[1]}", 0) for r in reports)
+             for name, (kernel, tile, _) in TILES.items()}
+    emit({"phase": "gang", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "fleet": fleet_line,
+          "card": card, "main_loss0": main_loss0,
+          "loss0_rtol": MAIN_LOSS0_RTOL, "launches": launches,
+          "tile_launches": tiles,
+          "children": [{k: v for k, v in ch.items()
+                        if k not in ("stderr", "report", "confined",
+                                     "stamps", "steps")}
+                       | {"steps_logged": len(ch["steps"])}
+                       | ({"launches": ch["report"]["launches"]}
+                          if ch.get("report") else {})
+                       for ch in (*victims, *children_b)]})
+    PATH_TILES["gang"] = tiles
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -3373,8 +3859,9 @@ def main() -> int:
         phase_partition(main_loss0, device, smi)
         phase_mig(device, smi)
         phase_quota(main_loss0, device, smi)
+        gang = phase_gang(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
-             "moe": moe}
+             "moe": moe, "gang": gang}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

@@ -56,6 +56,17 @@ LABEL_DEVICE_PLUGIN_CONFIG = f"{GROUP}/device-plugin.config"
 # part of a pod's Filter equivalence class.
 LABEL_POD_GROUP = f"{GROUP}/pod-group"
 
+# The node's NVLink domain, the counterpart of the JAX package's
+# nos.tpu/pod-id (a TPU pod's ICI domain): a gang's members all bind
+# inside one domain, so its collectives stay on NVLink.  An HGX H100
+# board is one domain per node; an NVLink Switch system (a DGX H100
+# SuperPOD: up to 32 nodes, 256 GPUs) is one domain over many nodes,
+# every node of it carrying the same value.  Unlabelled nodes form the
+# "" domain, a domain of their own: a gang pinned there takes only
+# unlabelled nodes.  A domain's GPUs are the sum of its nodes'
+# LABEL_GPU_COUNT.
+LABEL_NVLINK_DOMAIN = f"{GROUP}/nvlink-domain"
+
 # Quota standing of a running pod, stamped by the ElasticQuota
 # reconciler (reference nos.nebuly.com/capacity, labels.go:19-24): the
 # label the preemption walk keys on.
@@ -172,3 +183,4 @@ RESOURCE_GPU_MEMORY = f"{GROUP}/gpu-memory"
 KIND_ELASTIC_QUOTA = "ElasticQuota"
 KIND_COMPOSITE_ELASTIC_QUOTA = "CompositeElasticQuota"
 KIND_POD_DISRUPTION_BUDGET = "PodDisruptionBudget"
+KIND_POD_GROUP = "PodGroup"

@@ -8,25 +8,26 @@ from nos_tpu_torch.kube.client import APIServer
 from nos_tpu_torch.quota import GPUResourceCalculator
 from nos_tpu_torch.scheduler.capacityscheduling import CapacityScheduling
 from nos_tpu_torch.scheduler.framework import Framework, NodeResourcesFit
+from nos_tpu_torch.scheduler.gang import TopologyFilter
 from nos_tpu_torch.scheduler.scheduler import Scheduler
 
 
 def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,
                     clock=None) -> Scheduler:
     """The rebuilt kube-scheduler (reference cmd/scheduler/
-    scheduler.go:43-59): NodeResourcesFit, then CapacityScheduling with
-    its ledger attached to ``api``, quotas in ``gpu-memory`` GB at
-    ``gpu_memory_gb_per_gpu`` a whole GPU.
+    scheduler.go:43-59): NodeResourcesFit, the gangs' TopologyFilter,
+    then CapacityScheduling with its ledger attached to ``api``, quotas
+    in ``gpu-memory`` GB at ``gpu_memory_gb_per_gpu`` a whole GPU; the
+    JAX package's order.
 
-    The JAX framework also runs SpareGuard and MigrationDrainGuard,
-    which come with the defrag and failure planes (ROADMAP item 6), and
-    the gangs' TopologyFilter (item 7's gang slice).  Each rejects only
-    what its own plane marks (a warm-spare label, a defrag-drain
-    annotation, a gang's pinned hosts) and the port writes none of
-    them, so for single pods this framework decides as the JAX one
-    does."""
+    The JAX framework also runs SpareGuard and MigrationDrainGuard
+    between NodeResourcesFit and TopologyFilter; they come with the
+    defrag and failure planes (ROADMAP item 6).  Each rejects only what
+    its own plane marks (a warm-spare label, a defrag-drain annotation)
+    and the port writes neither, so this framework decides as the JAX
+    one does."""
     plugin = CapacityScheduling(GPUResourceCalculator(gpu_memory_gb_per_gpu))
-    fw = Framework([NodeResourcesFit(), plugin])
+    fw = Framework([NodeResourcesFit(), TopologyFilter(api), plugin])
     plugin.set_framework(fw)
     plugin.attach(api)
     kwargs = {} if clock is None else {"clock": clock}

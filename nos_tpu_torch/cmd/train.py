@@ -404,7 +404,8 @@ def grant_report(verified: bool, environ=None) -> dict:
     """What the main's last line says of its grant: the devices and GB
     granted, whether validate_confinement verified them, the memory cap
     installed (fraction and bytes of device 0), the peak memory, and the
-    flash kernels' launches (K1, K2)."""
+    flash kernels' launches (K1, K2), also by tile ("<kernel>:<block_q>x
+    <block_k>")."""
     from nos_tpu_torch.ops import attention as A
 
     env = environ if environ is not None else os.environ
@@ -415,7 +416,9 @@ def grant_report(verified: bool, environ=None) -> dict:
               "cap_bytes": None, "max_memory_allocated": None,
               "max_memory_reserved": None,
               "launches": {"flash_fwd": A.FLASH_FWD_LAUNCHES,
-                           "flash_bwd_fused": A.FLASH_BWD_FUSED_LAUNCHES}}
+                           "flash_bwd_fused": A.FLASH_BWD_FUSED_LAUNCHES},
+              "tile_launches": {f"{k}:{bq}x{bk}": n for (k, (bq, bk)), n
+                                in sorted(A.TILE_LAUNCHES.items())}}
     if torch.cuda.is_initialized():
         total = torch.cuda.get_device_properties(0).total_memory
         if verified and report["fraction"] is not None:

@@ -23,7 +23,7 @@ from typing import Any, Callable
 
 from nos_tpu_torch.api.constants import (
     KIND_COMPOSITE_ELASTIC_QUOTA, KIND_ELASTIC_QUOTA,
-    KIND_POD_DISRUPTION_BUDGET,
+    KIND_POD_DISRUPTION_BUDGET, KIND_POD_GROUP,
 )
 
 from .objects import ConfigMap, Node, Pod
@@ -259,5 +259,6 @@ __all__ = [
     "APIServer", "NotFound", "Conflict", "TransientAPIError",
     "WatchFn", "KIND_POD", "KIND_NODE", "KIND_CONFIGMAP",
     "KIND_ELASTIC_QUOTA", "KIND_COMPOSITE_ELASTIC_QUOTA",
-    "KIND_POD_DISRUPTION_BUDGET", "Node", "Pod", "ConfigMap",
+    "KIND_POD_DISRUPTION_BUDGET", "KIND_POD_GROUP", "Node", "Pod",
+    "ConfigMap",
 ]

@@ -42,6 +42,8 @@ HANDSHAKE_WAIT = "handshake-wait"
 POD_REJECTED = "pod-rejected"
 POD_BOUND = "pod-bound"
 POD_NOMINATED = "pod-nominated"
+GANG_ADMITTED = "gang-admitted"
+GANG_REJECTED = "gang-rejected"
 QUOTA_HOL_CLAIM = "quota-hol-claim"
 QUOTA_BORROW = "quota-borrow"
 QUOTA_RECLAIM = "quota-reclaim"

@@ -19,10 +19,14 @@ Its points (reference :92-95):
 
 As in the JAX package, the aggregates count a CompositeElasticQuota
 once, not once per namespace it spans (the reference's map range counts
-it N times, elasticquotainfo.go:154-174).  The JAX walk's cheapest rung,
+it N times, elasticquotainfo.go:154-174).  A gang member is only ever
+evicted with its whole gang (``gang.evict_gang``), and a gang preemptor
+reaches PostFilter through its stuck member with the placed mates
+booked in the cycle state (``Scheduler._gang_no_fit``), so victims are
+chosen against the whole gang's claim.  The JAX walk's cheapest rung,
 shrinking an elastic data-parallel gang by a replica
-(``scheduler/elastic.py``), comes with the gang slice: here a gang
-member is only ever evicted with its whole gang.
+(``scheduler/elastic.py``), waits for the elastic gangs (ROADMAP item
+32's resize signal).
 """
 
 from __future__ import annotations

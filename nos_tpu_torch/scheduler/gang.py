@@ -1,28 +1,146 @@
-"""Gang membership, the part of ``nos_tpu/scheduler/gang.py`` the
-single-pod path reads: a pod's gang, and whole-gang eviction for the
-capacity plugin's preemption.  Pods sharing a
-``nos.nebuly.com/pod-group`` label are one gang, all or nothing in
-death as in admission.  The gang path itself (``TopologyFilter``, the
-windows, pod groups, ``Scheduler.schedule_gang``) is ROADMAP item 7's
-next slice; until then ``Scheduler.run_cycle`` refuses a pending gang,
-and no PodGroup object exists for ``evict_gang`` to reset.
+"""Gang scheduling, ``nos_tpu/scheduler/gang.py`` for the port:
+all-or-nothing PodGroup admission inside one NVLink domain.
+
+A multi-GPU training job is useless placed in part, so the pods sharing
+a ``nos.nebuly.com/pod-group`` label are one gang: the scheduler
+(``Scheduler.schedule_gang``) places the whole gang on clones of its
+cycle view, each member taking capacity the next one sees, and binds
+only if every member fits; otherwise it marks every member
+unschedulable, which hands the partitioner the whole gang's demand at
+once.  A gang is all or nothing in death too: ``evict_gang`` takes
+every member and resets the PodGroup.
+
+The candidates are whole NVLink domains (``LABEL_NVLINK_DOMAIN``, the
+counterpart of the JAX package's TPU pod id), best fit first: the
+domain with the least free whole-GPU capacity that still holds the
+gang, so large domains stay whole for large gangs.  ``TopologyFilter``
+rejects nodes outside the domain pinned in cycle state, and every
+labelled domain with fewer GPUs than the PodGroup's ``mesh``.  The JAX
+package's aligned host windows and window lease serve a gang consuming
+one multi-host slice; no H100 resource spans nodes, so the port's gangs
+always take the whole-domain branch and those parts are not here.
 """
 
 from __future__ import annotations
 
+import logging
+from typing import Any
+
 from nos_tpu_torch.api import constants as C
-from nos_tpu_torch.kube.client import KIND_POD, NotFound
+from nos_tpu_torch.api.podgroup import PHASE_PENDING
+from nos_tpu_torch.kube.client import (
+    APIServer, KIND_POD, KIND_POD_GROUP, NotFound,
+)
 from nos_tpu_torch.kube.objects import Pod
+from nos_tpu_torch.scheduler.framework import (
+    CycleState, NodeInfo, SharedLister, Status,
+)
+from nos_tpu_torch.topology.shape import Shape
+from nos_tpu_torch.utils.retry import retry_on_conflict
+
+logger = logging.getLogger(__name__)
+
+# cycle state: the NVLink domain a gang attempt is pinned to
+GANG_DOMAIN_KEY = "gang-pinned-nvlink-domain"
+_MESH_GPUS_KEY = "topo-mesh-gpus"
+_DOMAIN_GPUS_KEY = "topo-domain-gpu-counts"
 
 
 def gang_name(pod: Pod) -> str:
     return pod.metadata.labels.get(C.LABEL_POD_GROUP, "")
 
 
-def evict_gang(api, victim: Pod) -> list[str]:
+def get_pod_group(api: APIServer, name: str, namespace: str) -> Any:
+    try:
+        return api.get(KIND_POD_GROUP, name, namespace)
+    except NotFound:
+        return None
+
+
+def set_pod_group_status(api: APIServer, pg: Any, phase: str,
+                         scheduled: int) -> None:
+    def mutate(o: Any) -> None:
+        o.status.phase = phase
+        o.status.scheduled = scheduled
+
+    try:
+        retry_on_conflict(api, KIND_POD_GROUP, pg.metadata.name, mutate,
+                          pg.metadata.namespace, component="gang")
+    except NotFound:
+        pass
+
+
+def requested_mesh_chips(pg: Any) -> int | None:
+    """The GPUs the PodGroup's mesh spans, if it names one."""
+    if pg is None or not pg.spec.mesh:
+        return None
+    try:
+        return Shape.parse(pg.spec.mesh).chips
+    except ValueError:
+        logger.warning("pod group %s has unparseable mesh %r",
+                       pg.metadata.name, pg.spec.mesh)
+        return None
+
+
+class TopologyFilter:
+    """Filter plugin: a gang member must sit in the gang's pinned NVLink
+    domain, and a labelled domain must hold the PodGroup's mesh.  The
+    mesh's GPUs and each domain's GPU total are read once in PreFilter
+    into cycle state: Filter runs per member x node and stays O(1)."""
+
+    name = "TopologyFilter"
+
+    def __init__(self, api: APIServer) -> None:
+        self._api = api
+
+    def pre_filter(self, state: CycleState, pod: Pod,
+                   nodes: SharedLister) -> Status:
+        gang = gang_name(pod)
+        if not gang:
+            return Status.ok()
+        if _MESH_GPUS_KEY not in state:
+            pg = get_pod_group(self._api, gang, pod.metadata.namespace)
+            state[_MESH_GPUS_KEY] = requested_mesh_chips(pg)
+        if _DOMAIN_GPUS_KEY not in state:
+            counts: dict[str, int] = {}
+            for ni in nodes.list():
+                labels = ni.node.metadata.labels
+                domain = labels.get(C.LABEL_NVLINK_DOMAIN, "")
+                if domain:
+                    counts[domain] = counts.get(domain, 0) + int(
+                        labels.get(C.LABEL_GPU_COUNT, "0"))
+            state[_DOMAIN_GPUS_KEY] = counts
+        return Status.ok()
+
+    def filter(self, state: CycleState, pod: Pod,
+               node_info: NodeInfo) -> Status:
+        gang = gang_name(pod)
+        if not gang:
+            return Status.ok()
+        domain = node_info.node.metadata.labels.get(C.LABEL_NVLINK_DOMAIN, "")
+        pinned = state.get(GANG_DOMAIN_KEY)
+        # "" pins to unlabelled nodes only: a gang never straddles a
+        # labelled domain and anything else
+        if pinned is not None and domain != pinned:
+            return Status.unschedulable(
+                f"gang {gang} pinned to NVLink domain "
+                f"{pinned or '(unlabeled)'}, node is in "
+                f"{domain or '(unlabeled)'}")
+        gpus = state.get(_MESH_GPUS_KEY)
+        if gpus is not None and domain:
+            total = state.get(_DOMAIN_GPUS_KEY, {}).get(domain, 0)
+            if total < gpus:
+                return Status.unschedulable(
+                    f"NVLink domain {domain} has {total} GPUs < mesh "
+                    f"requirement {gpus}")
+        return Status.ok()
+
+
+def evict_gang(api: APIServer, victim: Pod) -> list[str]:
     """Delete ``victim`` and, when it is a gang member, every pod of its
-    gang (a partial gang would hold its GPUs and never run).  Returns
-    the keys deleted; a pod already gone is skipped."""
+    gang (a partial gang would hold its GPUs and never run), and reset
+    its PodGroup to Pending/0.  Returns the keys deleted; a pod already
+    gone is skipped."""
     gang = gang_name(victim)
     doomed = [victim]
     if gang:
@@ -35,4 +153,8 @@ def evict_gang(api, victim: Pod) -> list[str]:
             deleted.append(p.key)
         except NotFound:
             pass
+    if gang:
+        pg = get_pod_group(api, gang, victim.metadata.namespace)
+        if pg is not None:
+            set_pod_group_status(api, pg, PHASE_PENDING, 0)
     return deleted

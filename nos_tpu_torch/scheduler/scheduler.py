@@ -1,5 +1,4 @@
-"""The scheduling loop, ``nos_tpu/scheduler/scheduler.py`` for the port:
-its single-pod path.
+"""The scheduling loop, ``nos_tpu/scheduler/scheduler.py`` for the port.
 
 The reference rebuilds the stock kube-scheduler with the
 CapacityScheduling plugin registered (cmd/scheduler/scheduler.go:43-59).
@@ -14,18 +13,21 @@ displaced, batch, best-effort; then priority, creation, key), defers the
 pods of a namespace waiting behind a higher-priority quota claim, and
 places the rest one by one on a cycle view the watch-driven cache keeps
 incremental (``scheduler/cache.py``): only nodes events touched are
-re-screened, per Filter equivalence class.  Preemption is budgeted per
-cycle; a preemptor that won room binds into it in the same cycle.
+re-screened, per Filter equivalence class.  Pods sharing a pod-group
+label are a gang, placed all or nothing inside one NVLink domain by
+``schedule_gang`` when the cycle reaches its first member
+(``scheduler/gang.py``).  Preemption is budgeted per cycle; a single
+preemptor that won room binds into it in the same cycle, a gang on a
+later one.
 
-Not here yet (ROADMAP item 7, the gang slice): ``schedule_gang`` and its
-windows and lease, drain preemption and duration-aware backfill, elastic
-grow; a pending pod with a pod-group label makes ``run_cycle`` and
-``schedule_one`` raise NotImplementedError rather than place a gang's
-members as singles.  The JAX scheduler's native prescreen and native
-choose (item 23) and its chip-second waste ledger (item 9) are not
-ported either: the score's lease, defrag-drain and window terms read
-zero without them, so the score is ``(headroom, name)``, the JAX key on
-nodes with no window labels.
+Not here (ROADMAP item 7): the gang windows and their lease, drain
+preemption and duration-aware backfill, which serve a gang consuming a
+multi-node slice (no H100 resource spans nodes), and elastic grow.  The
+JAX scheduler's native prescreen and native choose (item 23) and its
+chip-second waste ledger (item 9) are not ported either: the score's
+lease, defrag-drain and window terms read zero without them, so the
+score is ``(headroom, name)``, the JAX key on nodes with no window
+labels.
 """
 
 from __future__ import annotations
@@ -37,9 +39,10 @@ from typing import Any, Callable
 
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.exporter.metrics import REGISTRY
+from nos_tpu_torch.api.podgroup import PHASE_SCHEDULED
 from nos_tpu_torch.kube.client import APIServer, KIND_POD, NotFound
-from nos_tpu_torch.kube.objects import Pod
-from nos_tpu_torch.kube.resources import pod_request
+from nos_tpu_torch.kube.objects import PENDING, RUNNING, Pod
+from nos_tpu_torch.kube.resources import pod_request, sum_resources
 from nos_tpu_torch.obs import journal as J
 from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES
 from nos_tpu_torch.obs.trace import bump as obs_bump, span as obs_span
@@ -51,10 +54,13 @@ from nos_tpu_torch.scheduler.framework import (
     CycleState, Framework, NodeInfo, SharedLister, Status, UNSCHEDULABLE,
     filter_equivalence_key,
 )
-from nos_tpu_torch.scheduler.gang import gang_name
+from nos_tpu_torch.scheduler.gang import (
+    GANG_DOMAIN_KEY, gang_name, get_pod_group, set_pod_group_status,
+)
 from nos_tpu_torch.utils.guards import invalidated_by
 from nos_tpu_torch.utils.pod_util import (
-    admission_rank, displacement, workload_class, workload_tier,
+    admission_rank, displacement, is_over_quota, workload_class,
+    workload_tier,
 )
 from nos_tpu_torch.utils.retry import retry_on_conflict
 
@@ -69,9 +75,6 @@ REGISTRY.describe("nos_tpu_schedule_pending_age_seconds",
                   "Oldest still-pending pod's age per workload class")
 REGISTRY.describe("nos_tpu_schedule_pending_pods",
                   "Still-pending pods per workload class after a cycle")
-
-GANGS_NOT_PORTED = ("gang scheduling (pod-group pods) is ROADMAP item 7's "
-                    "gang slice, not ported yet")
 
 # The JAX Scheduler's defaults, the values every caller runs.  At most
 # PREEMPT_BUDGET_PER_CYCLE PostFilter searches a cycle: every pending pod
@@ -171,8 +174,6 @@ class Scheduler:
 
     def schedule_one(self, pod: Pod) -> str | None:
         """Try to place one pod; returns the node's name or None."""
-        if gang_name(pod):
-            raise NotImplementedError(f"{pod.key}: {GANGS_NOT_PORTED}")
         if not self._in_cycle:
             self._begin_cycle_view()
         return self._schedule_one(pod)
@@ -213,8 +214,9 @@ class Scheduler:
                     return placed
             self._mark_unschedulable(pod, status)
             return None
-        equiv = filter_equivalence_key(pod)
-        scan = self._class_scan_cache.get(equiv)
+        equiv = self._filter_equiv_key(pod)
+        scan = self._class_scan_cache.get(equiv) if equiv is not None \
+            else None
         if scan is None:
             feasible: dict[str, NodeInfo] = {}
             rejections: dict[str, str] = {}
@@ -226,7 +228,8 @@ class Scheduler:
                 else:
                     rejections[name] = why
             scan = [feasible, rejections, None, set()]
-            self._class_scan_cache[equiv] = scan
+            if equiv is not None:
+                self._class_scan_cache[equiv] = scan
         elif scan[3]:
             self._refresh_scan(scan, state, pod, equiv, lister)
         feasible, rejections = scan[0], scan[1]
@@ -253,22 +256,38 @@ class Scheduler:
             self._framework.run_unreserve_plugins(state, pod, chosen.name)
             return None
         self._assume_bound(pod, chosen.name)
-        self._observe_schedule_latency(pod)
-        self._observe_rebind(pod)
+        self._observe_schedule_latency([pod])
+        self._observe_rebind([pod])
         return chosen.name
 
+    @staticmethod
+    def _filter_equiv_key(pod: Pod) -> tuple | None:
+        """The pod's Filter equivalence class, or None for a gang member:
+        the pins in its cycle state change TopologyFilter's verdict, so
+        its verdicts are never memoised."""
+        if gang_name(pod):
+            return None
+        return filter_equivalence_key(pod)
+
     def _filter_passes(self, state: CycleState, pod: Pod, ni: NodeInfo,
-                       equiv: tuple, name: str) -> tuple[bool, str]:
-        """(verdict, why), memoised per node and class; ``why`` is
-        "plugin: message" on a rejection."""
+                       equiv: tuple | None, name: str) -> tuple[bool, str]:
+        """(verdict, why), memoised per node and class (not for a class
+        of None); ``why`` is "plugin: message" on a rejection."""
+        if equiv is None:
+            return self._filter_verdict(state, pod, ni)
         per_node = self._filter_cache.setdefault(name, {})
         verdict = per_node.get(equiv)
         if verdict is None:
-            st = self._framework.run_filter_plugins(state, pod, ni)
-            verdict = (True, "") if st.is_success else \
-                (False, f"{st.plugin or 'Filter'}: {st.message}")
+            verdict = self._filter_verdict(state, pod, ni)
             per_node[equiv] = verdict
         return verdict
+
+    def _filter_verdict(self, state: CycleState, pod: Pod,
+                        ni: NodeInfo) -> tuple[bool, str]:
+        st = self._framework.run_filter_plugins(state, pod, ni)
+        if st.is_success:
+            return True, ""
+        return False, f"{st.plugin or 'Filter'}: {st.message}"
 
     def _assume_bound(self, pod: Pod, node_name: str) -> None:
         """Book a just-bound pod into the cache and the cycle snapshot,
@@ -311,8 +330,8 @@ class Scheduler:
 
     def run_cycle(self) -> int:
         """Schedule every pending, unbound pod of this scheduler; returns
-        how many were bound.  Raises NotImplementedError, before any
-        decision, when one of them is a gang member."""
+        how many were bound.  Pods sharing a pod-group label are admitted
+        all or nothing."""
         self._in_cycle = True
         try:
             with obs_span("scheduler.run_cycle") as sp:
@@ -326,9 +345,6 @@ class Scheduler:
     def _run_cycle(self) -> int:
         pods = [p for p in self._pending_pods()
                 if p.spec.scheduler_name == self.name]
-        gang = next((p for p in pods if gang_name(p)), None)
-        if gang is not None:
-            raise NotImplementedError(f"{gang.key}: {GANGS_NOT_PORTED}")
         bound = 0
         self._preempt_budget = PREEMPT_BUDGET_PER_CYCLE
         self._quota_hol = {}
@@ -338,11 +354,26 @@ class Scheduler:
                                                 DISPLACED_AGE_CAP_S),
                                  -p.spec.priority,
                                  p.metadata.creation_timestamp, p.key))
+        gangs: dict[tuple[str, str], list[Pod]] = {}
+        for pod in pods:
+            g = gang_name(pod)
+            if g:
+                gangs.setdefault((pod.metadata.namespace, g), []).append(pod)
+        seen_gangs: set[tuple[str, str]] = set()
         for pod in pods:
             if self._quota_hol_defers(pod):
                 continue
-            if self._schedule_one(pod) is not None:
-                bound += 1
+            g = gang_name(pod)
+            if not g:
+                if self._schedule_one(pod) is not None:
+                    bound += 1
+                continue
+            # a gang is scheduled where its first member stands in the
+            # admission order
+            key = (pod.metadata.namespace, g)
+            if key not in seen_gangs:
+                seen_gangs.add(key)
+                bound += self.schedule_gang(gangs[key])
         self._publish_pending_gauges()
         return bound
 
@@ -352,13 +383,17 @@ class Scheduler:
     # must not bind into headroom that frees up, or small pods would eat
     # every freed piece before the claimant's whole request gathers.
 
-    def _record_quota_hol(self, pod: Pod) -> None:
+    def _record_quota_hol(self, pod: Pod,
+                          total_request: dict | None = None) -> None:
+        """``pod`` claims its namespace's freed headroom for the cycle;
+        a gang's claim is judged on ``total_request``, the whole gang's."""
         ns = pod.metadata.namespace
         cap = self._capacity
         # a claimant that alone passes its namespace's max or the
         # aggregate min can never schedule, and would block its
         # namespace forever: it claims nothing
-        req = cap.calculator.compute_pod_request(pod)
+        req = total_request if total_request is not None \
+            else cap.calculator.compute_pod_request(pod)
         info = cap.elastic_quota_infos.get(ns)
         over_own_max = (info is not None and info.max_enforced
                         and any(req.get(r, 0.0) > limit
@@ -394,6 +429,263 @@ class Scheduler:
         """The unbound Pending pods, from the cache's index (read-only:
         they are the cache's own copies)."""
         return self._cache.pending_pods()
+
+    # -- gangs --------------------------------------------------------------
+
+    def _gang_journal(self, members: list[Pod], admitted: bool,
+                      message: str, bound: int = 0) -> None:
+        first = members[0]
+        J.record(J.GANG_ADMITTED if admitted else J.GANG_REJECTED,
+                 f"{first.metadata.namespace}/{gang_name(first)}",
+                 message=message, bound=bound,
+                 members=[p.key for p in members[:MAX_JOURNAL_NODES]],
+                 members_total=len(members))
+
+    def schedule_gang(self, members: list[Pod]) -> int:
+        """Place a pod group all or nothing: every member simulated on
+        clones of the cycle view inside one NVLink domain, each taking
+        capacity the next sees; bound only if all fit, else every member
+        marked unschedulable, so the partitioner sees the whole gang's
+        demand.  Returns the members bound."""
+        if not self._in_cycle:
+            self._begin_cycle_view()
+        with obs_span("scheduler.schedule_gang",
+                      gang=f"{members[0].metadata.namespace}"
+                           f"/{gang_name(members[0])}",
+                      members=len(members)):
+            first = members[0]
+            gang = gang_name(first)
+            pg = get_pod_group(self._api, gang, first.metadata.namespace)
+            min_member = pg.spec.min_member if pg else len(members)
+            # every live member counts, Running mates too: a recreated
+            # worker of a running gang schedules instead of waiting for
+            # members forever
+            alive = len(self._api.list(
+                KIND_POD, namespace=first.metadata.namespace,
+                label_selector={C.LABEL_POD_GROUP: gang},
+                filter_fn=lambda p: p.status.phase in (PENDING, RUNNING)))
+            if alive < min_member:
+                msg = f"pod group waiting for members ({alive}/{min_member})"
+                self._gang_journal(members, False, msg)
+                for pod in members:
+                    self._mark_unschedulable(pod, Status.unschedulable(msg))
+                return 0
+            base = self._cycle_lister()
+            candidates = self._domains_best_fit(base)
+            placements: list[tuple[Pod, NodeInfo]] = []
+            state = CycleState()
+            for pins in candidates:
+                placements, state, _, _ = self._attempt_gang(pins, base,
+                                                             members)
+                if len(placements) == len(members):
+                    break
+            if len(placements) != len(members):
+                self._gang_no_fit(members, candidates, base)
+                return 0
+            return self._bind_gang(members, pg, alive, placements, state)
+
+    def _domains_best_fit(self, base: SharedLister) -> list[dict]:
+        """The candidate pins, one per NVLink domain, least free
+        whole-GPU capacity first (large domains stay whole for large
+        gangs), ties by name.  "" (the unlabelled nodes) is pinned too:
+        a gang trying them takes only unlabelled nodes."""
+        free: dict[str, float] = {}
+        for ni in base.list():
+            domain = ni.node.metadata.labels.get(C.LABEL_NVLINK_DOMAIN, "")
+            free[domain] = free.get(domain, 0.0) + max(
+                0.0, ni.free().get(C.RESOURCE_GPU, 0.0))
+        return [{GANG_DOMAIN_KEY: d}
+                for d in sorted(free, key=lambda d: (free[d], d))]
+
+    def _gang_no_fit(self, members: list[Pod], candidates: list[dict],
+                     base: SharedLister) -> None:
+        """No domain holds the gang.  A gang claiming its guaranteed min
+        must not starve behind over-quota borrowers, so it gets a
+        preemption, under the cycle's budget, on the first domain where
+        it would fit with every evictable pod gone: PostFilter for the
+        stuck member with its placed mates booked in cycle state, so the
+        victims are chosen against the whole gang's claim.  The victims'
+        gangs die whole (``evict_gang``); the gang binds on a later
+        cycle.  Then every member is marked unschedulable."""
+        preempted = False
+        if self._preempt_budget > 0:
+            pins = self._gang_feasible_after_evictions(members, candidates,
+                                                       base)
+            if pins is not None:
+                _, st, domain, stuck = self._attempt_gang(pins, base,
+                                                          members)
+                if stuck is not None:
+                    nominated, post = self._post_filter_budgeted(
+                        st, stuck, SharedLister(domain))
+                    # deliberately no nomination: a nominated member
+                    # stops looking lacking to the partitioner, which
+                    # would split the gang's demand
+                    preempted = post.is_success and bool(nominated)
+        msg = "gang does not fit as a whole"
+        if preempted:
+            msg += " (evicted over-quota victims, retrying)"
+        self._gang_journal(members, False, msg)
+        for pod in members:
+            self._mark_unschedulable(pod, Status.unschedulable(msg))
+
+    def _bind_gang(self, members: list[Pod], pg: Any, alive: int,
+                   placements: list[tuple[Pod, NodeInfo]],
+                   state: CycleState) -> int:
+        """Reserve every member, rolling the whole gang back if one
+        Reserve fails; then bind them, and set the PodGroup Scheduled."""
+        for pod, ni in placements:
+            st = self._framework.run_reserve_plugins(state, pod, ni.name)
+            if not st.is_success:
+                for p2, n2 in placements:
+                    self._framework.run_unreserve_plugins(state, p2, n2.name)
+                self._gang_journal(
+                    members, False,
+                    f"reserve failed for {pod.key}: {st.message}")
+                for p2 in members:
+                    self._mark_unschedulable(p2, st)
+                return 0
+        bound = 0
+        for pod, ni in placements:
+            if self._bind(pod, ni.name):
+                self._assume_bound(pod, ni.name)
+                bound += 1
+            else:
+                # a vanished member: its booking is released here
+                self._framework.run_unreserve_plugins(state, pod, ni.name)
+        if pg is not None:
+            # the live members less those that vanished mid-cycle
+            set_pod_group_status(self._api, pg, PHASE_SCHEDULED,
+                                 alive - (len(placements) - bound))
+        if bound == len(members):
+            self._observe_schedule_latency(members)
+            self._observe_rebind(members)
+        self._gang_journal(members, True, "gang admitted", bound=bound)
+        logger.info("gang %s: bound %d pods", gang_name(members[0]), bound)
+        return bound
+
+    def _attempt_gang(self, pins: dict, base: SharedLister,
+                      members: list[Pod]) -> tuple[
+                          list[tuple[Pod, NodeInfo]], CycleState,
+                          list[NodeInfo], Pod | None]:
+        """The whole gang placed in one pinned domain on clones of
+        ``base``.  Returns (placements, state, domain, stuck): the
+        placements are complete on success; ``stuck`` is the first member
+        that found no fit, with its placed mates' capacity taken on the
+        domain's clones and their quota booked in ``state``, the context
+        PostFilter needs."""
+        domain = [ni.clone() for ni in base.list()
+                  if self._pins_match(ni, pins)]
+        lister = SharedLister(domain)
+        state = CycleState(pins)
+        placements: list[tuple[Pod, NodeInfo]] = []
+        for pod in members:
+            status = self._framework.run_pre_filter_plugins(state, pod,
+                                                            lister)
+            feasible = []
+            if status.is_success:
+                feasible = [ni for ni in domain
+                            if self._framework.run_filter_plugins(
+                                state, pod, ni).is_success]
+            if not feasible:
+                if status.reason == "quota":
+                    # the gang waits on quota headroom: lower-priority
+                    # pods of its namespace defer, and the claim is
+                    # judged on the whole gang's request
+                    self._record_quota_hol(
+                        pod, total_request=self._gang_total_request(members))
+                return [], state, domain, pod
+            chosen = min(feasible, key=self._score_key(pod))
+            chosen.add_pod(pod)
+            self._framework.run_pre_filter_extension_add_pod(
+                state, pod, pod, chosen)
+            placements.append((pod, chosen))
+        return placements, state, domain, None
+
+    def _gang_total_request(self, members: list[Pod]) -> dict:
+        """The gang's whole request in the capacity plugin's currency."""
+        total: dict = {}
+        for m in members:
+            total = sum_resources(
+                total, self._capacity.calculator.compute_pod_request(m))
+        return total
+
+    @staticmethod
+    def _pins_match(ni: NodeInfo, pins: dict) -> bool:
+        domain = pins.get(GANG_DOMAIN_KEY)
+        return domain is None or \
+            ni.node.metadata.labels.get(C.LABEL_NVLINK_DOMAIN, "") == domain
+
+    def _gang_feasible_after_evictions(
+            self, members: list[Pod], candidates: list[dict],
+            base: SharedLister) -> dict | None:
+        """The first candidate domain that would hold the gang were every
+        evictable pod gone, or None: a gang that cannot fit even then
+        must not evict a victim every cycle to no effect.
+
+        Evictable follows the capacity plugin's victim rules: in-quota
+        serving pods never; a preemptor with no quota takes lower
+        priority pods that have none; one over its min (the whole gang's
+        request counted) takes lower-priority pods of its own namespace
+        and over-quota pods of others; one within its min takes
+        over-quota pods of others.  A gang mate of an evictable pod is
+        evictable too (it dies with its gang).  Quota PreFilters are
+        skipped, since evictions are what relaxes them: only the Filter
+        plugins gate here."""
+        first = members[0]
+        infos = self._capacity.elastic_quota_infos
+        preemptor_info = infos.get(first.metadata.namespace)
+        more_than_min = preemptor_info is not None and \
+            preemptor_info.used_over_min_with(
+                self._gang_total_request(members))
+
+        def directly_evictable(p: Pod) -> bool:
+            if workload_tier(p) == C.TIER_SERVING and not is_over_quota(p):
+                return False
+            if preemptor_info is None:
+                if infos.get(p.metadata.namespace) is not None:
+                    return False
+                return p.spec.priority < first.spec.priority
+            if p.metadata.namespace == first.metadata.namespace:
+                return more_than_min and p.spec.priority < first.spec.priority
+            return is_over_quota(p)
+
+        doomed = {(p.metadata.namespace, gang_name(p))
+                  for ni in base.list() for p in ni.pods
+                  if gang_name(p) and directly_evictable(p)}
+
+        def evictable(p: Pod) -> bool:
+            g = gang_name(p)
+            return directly_evictable(p) or (
+                bool(g) and (p.metadata.namespace, g) in doomed)
+
+        fw = Framework([p for p in self._framework.plugins
+                        if hasattr(p, "filter")])
+        for pins in candidates:
+            domain = []
+            for ni in base.list():
+                if not self._pins_match(ni, pins):
+                    continue
+                optimistic = NodeInfo(node=ni.node)
+                for p in ni.pods:
+                    if not evictable(p):
+                        optimistic.add_pod(p)
+                domain.append(optimistic)
+            lister = SharedLister(domain)
+            state = CycleState(pins)
+            placed = 0
+            for pod in members:
+                fw.run_pre_filter_plugins(state, pod, lister)
+                feasible = [ni for ni in domain
+                            if fw.run_filter_plugins(state, pod,
+                                                     ni).is_success]
+                if not feasible:
+                    break
+                chosen = min(feasible, key=self._score_key(pod))
+                chosen.add_pod(pod)
+                placed += 1
+            if placed == len(members):
+                return pins
+        return None
 
     def _post_filter_budgeted(self, state: CycleState, pod: Pod,
                               lister: SharedLister) -> tuple[str, Status]:
@@ -444,35 +736,42 @@ class Scheduler:
             return False
         return True
 
-    def _observe_schedule_latency(self, pod: Pod) -> None:
-        """Queue-admission to bind latency; a pod without a creation
-        time, or a clock behind it, observes nothing."""
-        ts = pod.metadata.creation_timestamp
+    def _observe_schedule_latency(self, pods: list[Pod]) -> None:
+        """Queue-admission to bind latency of one scheduling unit: a pod,
+        or a gang whose last member just bound, from its earliest
+        member's creation.  A unit without a creation time, or a clock
+        behind it, observes nothing."""
+        ts = min(p.metadata.creation_timestamp for p in pods)
         if ts <= 0.0:
             return
         latency = self._clock() - ts
         if latency < 0.0:
             return
         REGISTRY.observe("nos_tpu_schedule_latency_seconds", latency,
-                         labels={"class": workload_class(pod)})
+                         labels={"class": workload_class(pods[0])})
 
-    def _observe_rebind(self, pod: Pod) -> None:
-        """A displaced pod bound again: displacement stamp to bind
-        latency, and JOB_REBOUND journalled."""
-        disp = displacement(pod)
-        if disp is None:
+    def _observe_rebind(self, pods: list[Pod]) -> None:
+        """A displaced unit bound again: the earliest displacement stamp
+        among ``pods`` to bind latency, and JOB_REBOUND journalled (a
+        gang's subject is "namespace/gang")."""
+        stamps = [d for d in (displacement(p) for p in pods)
+                  if d is not None]
+        if not stamps:
             return
-        cause, ts = disp
+        cause, ts = min(stamps, key=lambda d: d[1])
         if ts <= 0.0:
             return
         latency = self._clock() - ts
         if latency < 0.0:
             return
+        first = pods[0]
         REGISTRY.observe("nos_tpu_rebind_latency_seconds", latency,
-                         labels={"class": workload_class(pod)})
-        J.record(J.JOB_REBOUND, pod.key, cause=cause,
-                 latency_s=round(latency, 3), members_total=1,
-                 **{"class": workload_class(pod)})
+                         labels={"class": workload_class(first)})
+        g = gang_name(first)
+        subject = f"{first.metadata.namespace}/{g}" if g else first.key
+        J.record(J.JOB_REBOUND, subject, cause=cause,
+                 latency_s=round(latency, 3), members_total=len(pods),
+                 **{"class": workload_class(first)})
 
     def _publish_pending_gauges(self) -> None:
         """Per class: the pods still pending after the cycle and the
@@ -565,8 +864,11 @@ class Scheduler:
             attrs["plugin"] = status.plugin
         if node_attrs:
             attrs.update(node_attrs)
+        g = gang_name(pod)
+        if g:
+            attrs["gang"] = f"{pod.metadata.namespace}/{g}"
         J.record(J.POD_REJECTED, pod.key, **attrs)
 
 
-__all__ = ["DISPLACED_AGE_CAP_S", "FULL_RESCAN_EVERY", "GANGS_NOT_PORTED",
+__all__ = ["DISPLACED_AGE_CAP_S", "FULL_RESCAN_EVERY",
            "PREEMPT_BUDGET_PER_CYCLE", "Scheduler"]

@@ -1,6 +1,7 @@
 """Object factories for tests and the smoke run,
 ``nos_tpu/testing/factory.py`` for the port (reference
-pkg/test/factory/core_factory.go:27-229): GPU nodes and pods."""
+pkg/test/factory/core_factory.go:27-229): GPU nodes, pods and pod
+groups."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import itertools
 from typing import Mapping
 
 from nos_tpu_torch.api import constants as C
+from nos_tpu_torch.api.podgroup import PodGroup, PodGroupSpec
 from nos_tpu_torch.kube.objects import (
     Container, Node, NodeStatus, ObjectMeta, PENDING, Pod, PodSpec, PodStatus,
 )
@@ -35,15 +37,18 @@ def make_gpu_node(name: str = "", model: GpuModel = H100_80GB,
                   gpus: int = 8, partitioning: str = C.MPS_KIND,
                   status_geometry: Mapping[int, Mapping[str, Mapping[str, int]]]
                   | None = None,
-                  extra_labels: dict | None = None) -> Node:
+                  extra_labels: dict | None = None, domain: str = "") -> Node:
     """A node of ``gpus`` cards of ``model``.  ``status_geometry`` is
     {GPU index: {"free" | "used": {profile: qty}}}, rendered as the node
-    agent's status annotations and added to the allocatable."""
+    agent's status annotations and added to the allocatable.  ``domain``
+    names its NVLink domain ("": unlabelled)."""
     labels = {
         C.LABEL_ACCELERATOR: model.name,
         C.LABEL_PARTITIONING: partitioning,
         C.LABEL_GPU_COUNT: str(gpus),
     }
+    if domain:
+        labels[C.LABEL_NVLINK_DOMAIN] = domain
     labels.update(extra_labels or {})
     annotations: dict[str, str] = {}
     allocatable: dict[str, float] = {
@@ -90,3 +95,11 @@ def make_mig_pod(profile: str, qty: int = 1, **kw) -> Pod:
     (``nvidia.com/mig-<profile>``) and one CPU."""
     res = {slice_resource_name(profile): qty, C.CPU: 1.0}
     return make_pod(resources=res, **kw)
+
+
+def make_pod_group(name: str, min_member: int, mesh: str = "",
+                   namespace: str = "default") -> PodGroup:
+    """A PodGroup: its members are the pods labelled
+    ``nos.nebuly.com/pod-group: <name>`` in ``namespace``."""
+    return PodGroup(metadata=ObjectMeta(name=name, namespace=namespace),
+                    spec=PodGroupSpec(min_member=min_member, mesh=mesh))

@@ -38,6 +38,20 @@ single-pod mixes mapped as the MPS fleet's (serve 10gb:4, 40gb:2,
 bench's gang jobs are cut.  ``drive_quota_fleet`` runs it on either
 package through callables; ``run_quota_fleet`` is the port's run.
 
+The gang fleet (``gang_fleet_spec``) is the quota fleet with the bench's
+NVLink layout and its gang jobs.  Nodes 0-15 are NVLink domain nvl-0
+and 16-27 nvl-1, ``bench_utilization.py:113``'s ``SLICE_DOMAINS``
+(pod-0: 16 hosts, pod-1: 12) node for node; nodes 28-31 are unlabelled,
+standing for its timeshare and hybrid hosts.  After wave 2 settles, a
+third wave submits the bench's gang jobs (``JOB_MIX``, :171-180) at its
+``GANG_PRIORITY`` 10 (:220), a host of a multi-host slice mapped to an
+80gb share as the fleets map a 2x4 host: train-a two 4x8 gangs (4
+members) and two 4x4 (2 members), train-b three 4x4, res-b one 4x4;
+besides, train-b's "train-b-wait", whose PodGroup wants three members
+and gets two (it waits), and train-a's "train-a-mesh" of four members
+with mesh 8x16 (128 GPUs: only nvl-0 holds it).  Nothing of the quota
+fleet is cut further; ``run_quota_fleet`` runs it too.
+
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
 plan to what both packages must agree on, and ``plan_digest`` hashes it;
@@ -226,6 +240,22 @@ RESEARCH_MIX = (("res-a", 40, 3), ("res-a", 80, 2), ("res-b", 40, 2))
 QUOTA_FLEET_NOW = 7200.0
 QUOTA_FLEET_MAX_CYCLES = 64
 
+# (NVLink domain, nodes) from node 0 on; the rest are unlabelled
+GANG_FLEET_DOMAINS = (("nvl-0", 16), ("nvl-1", 12))
+GANG_PRIORITY = 10
+# (namespace, gang name prefix, mesh, members, min_member, jobs); a
+# member is one 80gb share
+GANG_FLEET_JOBS = (
+    ("train-a", "train-a-4x8", "", 4, 4, 2),
+    ("train-a", "train-a-4x4", "", 2, 2, 2),
+    ("train-b", "train-b-4x4", "", 2, 2, 3),
+    ("res-b", "res-b-4x4", "", 2, 2, 1),
+    ("train-b", "train-b-wait", "", 2, 3, 1),
+    ("train-a", "train-a-mesh", "8x16", 16, 16, 1),
+)
+# after the third wave's creation times
+GANG_FLEET_NOW = 10800.0
+
 
 def quota_fleet_spec(seed: int = 0) -> dict:
     """The quota fleet's spec: ``nodes`` as ``fleet_spec``'s, ``quotas``
@@ -268,15 +298,45 @@ def quota_fleet_spec(seed: int = 0) -> dict:
     return {"nodes": nodes, "quotas": quotas, "waves": waves}
 
 
+def gang_fleet_spec(seed: int = 0) -> dict:
+    """The gang fleet's spec: ``quota_fleet_spec(seed)`` with each node's
+    ``domain`` (GANG_FLEET_DOMAINS, "" past them), the PodGroups
+    (``groups`` {name, namespace, min, mesh}), a third wave of gang
+    members {..., gang} at GANG_PRIORITY, created in the third hour in
+    an order drawn from ``seed``, and the scheduler's clock ``now``."""
+    spec = quota_fleet_spec(seed)
+    rng = np.random.default_rng(seed + 1)
+    domains = [d for d, n in GANG_FLEET_DOMAINS for _ in range(n)]
+    for i, node in enumerate(spec["nodes"]):
+        node["domain"] = domains[i] if i < len(domains) else ""
+    groups, rows = [], []
+    for ns, prefix, mesh, members, need, jobs in GANG_FLEET_JOBS:
+        for j in range(jobs):
+            name = f"{prefix}-{j}" if jobs > 1 else prefix
+            groups.append({"name": name, "namespace": ns, "min": need,
+                           "mesh": mesh})
+            rows.extend((ns, name, m) for m in range(members))
+    times = 7200.0 + rng.permutation(3600)[:len(rows)]
+    spec["waves"].append([
+        {"name": f"{gang}-{m}", "namespace": ns, "gb": 80,
+         "priority": GANG_PRIORITY, "created": float(t), "tier": "",
+         "gang": gang}
+        for (ns, gang, m), t in zip(rows, times)])
+    spec["groups"] = groups
+    spec["now"] = GANG_FLEET_NOW
+    return spec
+
+
 def drive_quota_fleet(spec: dict, create, cycle, admit, reconcile, pods,
-                      quotas) -> dict:
+                      quotas, groups=None) -> dict:
     """Submit each wave (``create(pod spec)``) and run ``cycle()``, then
     ``admit()`` (the kubelet) and ``reconcile()``, until a cycle binds
     and evicts nothing.  ``pods()`` gives (name, node, capacity label,
-    phase) rows, ``quotas()`` each quota's status.used.  Returns the
-    summary both packages must agree on ({"cycles": [wave, bound,
-    evicted] per cycle, the final "labels", "pending" and "used"}) and
-    each cycle's and reconcile's host ms."""
+    phase) rows, ``quotas()`` each quota's status.used, ``groups()``,
+    when given, each PodGroup's [phase, scheduled] by "namespace/name".
+    Returns the summary both packages must agree on ({"cycles": [wave,
+    bound, evicted] per cycle, the final "labels", "pending", "used" and
+    "groups"}) and each cycle's and reconcile's host ms."""
     cycles, cycle_ms, reconcile_ms = [], [], []
     for w, wave in enumerate(spec["waves"]):
         for p in wave:
@@ -306,16 +366,27 @@ def drive_quota_fleet(spec: dict, create, cycle, admit, reconcile, pods,
                "labels": {n: label for n, _, label, _ in sorted(rows)},
                "pending": sorted(n for n, node, _, _ in rows if not node),
                "used": quotas()}
+    if groups is not None:
+        summary["groups"] = groups()
     return {"summary": summary, "cycle_ms": cycle_ms,
             "reconcile_ms": reconcile_ms}
 
 
 def run_quota_fleet(spec: dict) -> dict:
     """``drive_quota_fleet`` on the port: an API server with the quota
-    webhooks, ``build_scheduler`` (its clock QUOTA_FLEET_NOW), both
-    reconcilers.  Adds the preemptions, the victims by their capacity
-    label when chosen, binds, and per quota the GB its bound pods hold
-    against its status.used and max."""
+    webhooks, ``build_scheduler`` (its clock the spec's ``now``, else
+    QUOTA_FLEET_NOW), both reconcilers, the spec's PodGroups created
+    first and its nodes in their NVLink domains (the gang fleet's).
+    Adds the binds, the preemptions, the victims by their capacity label
+    when chosen, and per quota the GB its bound pods hold against its
+    status.used and max; from a journal of the run's own, the gangs
+    admitted and rejected, and the host ms of each ``schedule_gang``
+    call; after every cycle, the gangs bound in part (``partial``) or
+    over more than one domain (``spanning``); the preemptions a gang
+    member made, the victims neither over-quota nor of the preemptor's
+    namespace with its quota over min with the preemptor's whole gang
+    (``victims_other``), and the domains each gang was bound in at any
+    cycle's end (``domains``)."""
     from nos_tpu_torch.api.elasticquota import (
         CompositeElasticQuota, CompositeElasticQuotaSpec, ElasticQuota,
         ElasticQuotaSpec, install_quota_webhooks,
@@ -325,17 +396,45 @@ def run_quota_fleet(spec: dict) -> dict:
         CompositeElasticQuotaReconciler, ElasticQuotaReconciler,
     )
     from nos_tpu_torch.controllers.kubelet import admit_bound_pods
-    from nos_tpu_torch.kube.client import APIServer
+    from nos_tpu_torch.kube.client import APIServer, KIND_POD_GROUP
     from nos_tpu_torch.kube.objects import ObjectMeta, RUNNING
+    from nos_tpu_torch.obs import journal as J
 
+    from .factory import make_pod_group
+
+    now = spec.get("now", QUOTA_FLEET_NOW)
     api = APIServer()
     install_quota_webhooks(api)
-    sched = build_scheduler(api, clock=lambda: QUOTA_FLEET_NOW)
+    sched = build_scheduler(api, clock=lambda: now)
     recs = (ElasticQuotaReconciler(api), CompositeElasticQuotaReconciler(api))
-    victims: list[tuple[str, str, str | None]] = []
-    sched._capacity.on_preempt = lambda pod, vs: victims.extend(
-        (pod.metadata.name, v.metadata.name,
-         v.metadata.labels.get(C.LABEL_CAPACITY)) for v in vs)
+    victims: list[tuple] = []
+
+    def gang_request(pod) -> dict:
+        from nos_tpu_torch.kube.resources import sum_resources
+
+        g = pod.metadata.labels.get(C.LABEL_POD_GROUP, "")
+        mates = api.list("Pod", namespace=pod.metadata.namespace,
+                         label_selector={C.LABEL_POD_GROUP: g}) if g \
+            else [pod]
+        total: dict = {}
+        for m in mates:
+            total = sum_resources(
+                total, sched._capacity.calculator.compute_pod_request(m))
+        return total
+
+    def on_preempt(pod, vs) -> None:
+        ns = pod.metadata.namespace
+        info = sched._capacity.elastic_quota_infos.get(ns)
+        over_min = info is not None and info.used_over_min_with(
+            gang_request(pod))
+        victims.extend(
+            (pod.metadata.name, v.metadata.name,
+             v.metadata.labels.get(C.LABEL_CAPACITY),
+             bool(pod.metadata.labels.get(C.LABEL_POD_GROUP)),
+             bool(v.metadata.labels.get(C.LABEL_POD_GROUP)),
+             v.metadata.namespace == ns and over_min) for v in vs)
+
+    sched._capacity.on_preempt = on_preempt
     for q in spec["quotas"]:
         mem = C.RESOURCE_GPU_MEMORY
         meta = ObjectMeta(name=q["name"], namespace=q["namespace"])
@@ -347,19 +446,43 @@ def run_quota_fleet(spec: dict) -> dict:
             api.create(C.KIND_COMPOSITE_ELASTIC_QUOTA, CompositeElasticQuota(
                 metadata=meta, spec=CompositeElasticQuotaSpec(
                     namespaces=q["namespaces"], min=lo, max=hi)))
+    for g in spec.get("groups", ()):
+        api.create(KIND_POD_GROUP, make_pod_group(
+            g["name"], g["min"], g["mesh"], g["namespace"]))
+    domain_of = {}
     for n in spec["nodes"]:
+        domain_of[n["name"]] = n.get("domain", "")
         api.create("Node", make_gpu_node(
             n["name"], gpus=n["gpus"], partitioning=n["kind"],
-            status_geometry=n["status"]))
+            status_geometry=n["status"], domain=n.get("domain", "")))
 
     def create(p):
         labels = {C.LABEL_TIER: p["tier"]} if p["tier"] else {}
+        if p.get("gang"):
+            labels[C.LABEL_POD_GROUP] = p["gang"]
         api.create("Pod", make_timeshare_pod(
             p["gb"], name=p["name"], namespace=p["namespace"],
             priority=p["priority"], creation_timestamp=p["created"],
             labels=labels))
 
+    partial: list[str] = []
+    spanning: list[str] = []
+    # gang -> every domain it was bound in at a cycle's end
+    placed: dict[str, set[str]] = {}
+
     def admit():
+        for g in spec.get("groups", ()):
+            members = api.list("Pod", namespace=g["namespace"],
+                               label_selector={C.LABEL_POD_GROUP: g["name"]})
+            on = {domain_of[m.spec.node_name] for m in members
+                  if m.spec.node_name}
+            bound = sum(bool(m.spec.node_name) for m in members)
+            if 0 < bound < len(members):
+                partial.append(g["name"])
+            if len(on) > 1:
+                spanning.append(g["name"])
+            if on:
+                placed.setdefault(g["name"], set()).update(on)
         for n in spec["nodes"]:
             admit_bound_pods(api, n["name"])
 
@@ -378,8 +501,29 @@ def run_quota_fleet(spec: dict) -> dict:
                              C.KIND_COMPOSITE_ELASTIC_QUOTA)
                 for q in api.list(kind)}
 
-    out = drive_quota_fleet(spec, create, sched.run_cycle, admit, reconcile,
-                            pods, quotas)
+    def groups():
+        return {f"{g.metadata.namespace}/{g.metadata.name}":
+                [g.status.phase, g.status.scheduled]
+                for g in api.list(KIND_POD_GROUP)}
+
+    gang_ms: list[tuple[float, bool]] = []
+    schedule_gang = sched.schedule_gang
+
+    def timed(members):
+        t0 = time.perf_counter()
+        bound = schedule_gang(members)
+        gang_ms.append(((time.perf_counter() - t0) * 1e3, bound > 0))
+        return bound
+
+    sched.schedule_gang = timed
+    journal = J.DecisionJournal(maxlen=1 << 16)
+    prev = J.set_journal(journal)
+    try:
+        out = drive_quota_fleet(spec, create, sched.run_cycle, admit,
+                                reconcile, pods, quotas,
+                                groups if "groups" in spec else None)
+    finally:
+        J.set_journal(prev)
     held = {}
     for q in spec["quotas"]:
         held[q["name"]] = sum(
@@ -399,5 +543,15 @@ def run_quota_fleet(spec: dict) -> dict:
                                 for v in victims),
         "held_gb": held,
         "max_gb": {q["name"]: q["max"] for q in spec["quotas"]},
+        "gangs_admitted": len(journal.events(J.GANG_ADMITTED)),
+        "gangs_rejected": len(journal.events(J.GANG_REJECTED)),
+        "gang_ms": gang_ms, "partial": partial, "spanning": spanning,
+        "gang_preemptions": len({v[0] for v in victims if v[3]}),
+        "gang_victims": sum(v[4] for v in victims),
+        "victims_same_ns_over_min": sum(
+            v[5] and v[2] != C.CAPACITY_OVER_QUOTA for v in victims),
+        "victims_other": sum(not v[5] and v[2] != C.CAPACITY_OVER_QUOTA
+                             for v in victims),
+        "domains": {g: sorted(d) for g, d in sorted(placed.items())},
     })
     return out

@@ -11,9 +11,11 @@ reference's rule written out here.  Creation times are distinct within
 a quota: on a tie of time and priority the reconciler's order falls to
 the sorted request, whose resource names differ between the packages.
 
-``QuotaTwin`` (also ``tests/test_torch_scheduler.py``'s harness) builds
-one cluster spec on both sides: nodes advertising shares, quotas, bound
-and pending pods, disruption budgets, each side's ``build_scheduler``
+``QuotaTwin`` (also ``tests/test_torch_scheduler.py``'s and
+``tests/test_torch_gang.py``'s harness) builds one cluster spec on both
+sides: nodes advertising shares or whole GPUs (JAX: chips), in NVLink
+domains (JAX: TPU pods), quotas, bound and pending pods, gangs and
+their PodGroups, disruption budgets, each side's ``build_scheduler``
 and both reconcilers, its journal fresh, on one injected clock.
 """
 
@@ -32,6 +34,9 @@ from nos_tpu.api.elasticquota import (
 )
 from nos_tpu.api.pdb import (
     PodDisruptionBudget as JaxPDB, PodDisruptionBudgetSpec as JaxPDBSpec,
+)
+from nos_tpu.api.podgroup import (
+    PodGroup as JaxPodGroup, PodGroupSpec as JaxPodGroupSpec,
 )
 from nos_tpu.cmd.assembly import build_scheduler as jax_build_scheduler
 from nos_tpu.controllers.elasticquota import (
@@ -60,7 +65,7 @@ from nos_tpu_torch.controllers.elasticquota import (
 from nos_tpu_torch.controllers.kubelet import admit_bound_pods
 from nos_tpu_torch.kube.client import (
     APIServer, KIND_COMPOSITE_ELASTIC_QUOTA, KIND_ELASTIC_QUOTA, KIND_NODE,
-    KIND_POD, KIND_POD_DISRUPTION_BUDGET,
+    KIND_POD, KIND_POD_DISRUPTION_BUDGET, KIND_POD_GROUP,
 )
 from nos_tpu_torch.kube.objects import ObjectMeta, RUNNING
 from nos_tpu_torch.obs import journal as port_journal
@@ -77,7 +82,8 @@ CALC = GPUResourceCalculator()
 SIZES = (8, 10, 16, 20, 24, 40, 80)
 # the journal categories of the scheduler, the plugin and the reconcilers
 JOURNALED = (port_journal.POD_REJECTED, port_journal.POD_BOUND,
-             port_journal.POD_NOMINATED, port_journal.QUOTA_HOL_CLAIM,
+             port_journal.POD_NOMINATED, port_journal.GANG_ADMITTED,
+             port_journal.GANG_REJECTED, port_journal.QUOTA_HOL_CLAIM,
              port_journal.QUOTA_BORROW, port_journal.QUOTA_RECLAIM,
              port_journal.PREEMPTION, port_journal.PREEMPTION_NONE,
              port_journal.JOB_REBOUND)
@@ -93,7 +99,10 @@ def to_port(name: str) -> str:
                       (JC.LABEL_CAPACITY, C.LABEL_CAPACITY),
                       (JC.LABEL_UNSCHEDULABLE_CLASS,
                        C.LABEL_UNSCHEDULABLE_CLASS),
-                      (JC.LABEL_TIER, C.LABEL_TIER)):
+                      (JC.LABEL_TIER, C.LABEL_TIER),
+                      (JC.LABEL_POD_GROUP, C.LABEL_POD_GROUP),
+                      (JC.LABEL_POD_ID, C.LABEL_NVLINK_DOMAIN),
+                      (JC.LABEL_CHIP_COUNT, C.LABEL_GPU_COUNT)):
         if name.startswith(jax):
             return port + name[len(jax):]
     return name
@@ -103,7 +112,8 @@ def mapped(value):
     """A JAX journal value with every resource name in it the port's."""
     if isinstance(value, str):
         return value.replace(JAX_MEM, MEM).replace(
-            JC.RESOURCE_TIMESHARE_PREFIX, C.RESOURCE_TIMESHARE_PREFIX)
+            JC.RESOURCE_TIMESHARE_PREFIX, C.RESOURCE_TIMESHARE_PREFIX
+        ).replace(JC.RESOURCE_TPU, C.RESOURCE_GPU)
     if isinstance(value, dict):
         return {mapped(k): mapped(v) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
@@ -218,6 +228,8 @@ class Side:
             self.create_quota(q)
         for n in spec["nodes"]:
             self.create_node(n)
+        for g in spec.get("groups", ()):
+            self.create_pod_group(g)
         for p in spec["bound"]:
             self.create_pod(p, phase=RUNNING)
         for b in spec.get("pdbs", ()):
@@ -256,21 +268,54 @@ class Side:
                            max=hi)))
             self.api.create(KIND_COMPOSITE_ELASTIC_QUOTA, obj)
 
+    def whole(self, gpus: int) -> dict:
+        """``gpus`` whole GPUs (JAX: chips) and one CPU."""
+        return {JC.RESOURCE_TPU if self.jax else C.RESOURCE_GPU: float(gpus),
+                "cpu": 1.0}
+
     def create_node(self, n: dict) -> None:
+        """A node advertising ``shares`` {gb: qty} and ``gpus`` whole
+        GPUs, in NVLink domain ``domain`` (JAX: TPU pod; none or "":
+        unlabelled) with its GPU count labelled."""
         alloc = {"cpu": 64.0}
-        for gb, qty in n["shares"].items():
+        for gb, qty in n.get("shares", {}).items():
             alloc |= {k: v for k, v in self.res(gb, qty).items()
                       if k != "cpu"}
+        labels = {}
+        if n.get("gpus"):
+            alloc |= {k: v for k, v in self.whole(n["gpus"]).items()
+                      if k != "cpu"}
+            labels[JC.LABEL_CHIP_COUNT if self.jax
+                   else C.LABEL_GPU_COUNT] = str(n["gpus"])
+        if n.get("domain"):
+            labels[JC.LABEL_POD_ID if self.jax
+                   else C.LABEL_NVLINK_DOMAIN] = n["domain"]
         mk = jax_factory.make_node if self.jax else factory.make_node
-        self.api.create(KIND_NODE, mk(n["name"], allocatable=alloc))
+        self.api.create(KIND_NODE, mk(n["name"], labels=labels,
+                                      allocatable=alloc))
+
+    def create_pod_group(self, g: dict) -> None:
+        meta = (JaxMeta if self.jax else ObjectMeta)(
+            name=g["name"], namespace=g["namespace"])
+        pg = (JaxPodGroup(metadata=meta, spec=JaxPodGroupSpec(
+                  min_member=g["min"], mesh=g.get("mesh", "")))
+              if self.jax else factory.make_pod_group(
+                  g["name"], g["min"], g.get("mesh", ""), g["namespace"]))
+        self.api.create(KIND_POD_GROUP, pg)
 
     def create_pod(self, p: dict, phase: str = "Pending") -> None:
+        """A pod of ``qty`` shares of ``gb`` GB, or of ``whole`` GPUs,
+        in gang ``gang`` when it names one."""
         labels = {"app": p["app"]}
         if p.get("tier"):
             labels[JC.LABEL_TIER if self.jax else C.LABEL_TIER] = p["tier"]
+        if p.get("gang"):
+            labels[JC.LABEL_POD_GROUP if self.jax
+                   else C.LABEL_POD_GROUP] = p["gang"]
         mk = jax_factory.make_pod if self.jax else factory.make_pod
         pod = mk(name=p["name"], namespace=p["namespace"],
-                 resources=self.res(p["gb"], p["qty"]),
+                 resources=(self.whole(p["whole"]) if p.get("whole")
+                            else self.res(p["gb"], p["qty"])),
                  priority=p["priority"], node_name=p.get("node", ""),
                  phase=phase, labels=labels,
                  creation_timestamp=p["created"])
@@ -328,8 +373,11 @@ class Side:
         ledger = {ns: (info.resource_name, port_resources(info.used),
                        sorted(info.pods))
                   for ns, info in self.capacity.elastic_quota_infos.items()}
+        groups = {(g.metadata.namespace, g.metadata.name):
+                  (g.status.phase, g.status.scheduled)
+                  for g in self.api.list(KIND_POD_GROUP)}
         return {"pods": pods, "quotas": quotas, "ledger": ledger,
-                "events": list(self.events)}
+                "groups": groups, "events": list(self.events)}
 
 
 class QuotaTwin:

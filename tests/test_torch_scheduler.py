@@ -16,7 +16,8 @@ against the JAX package's ``build_scheduler``, on the clusters
 - the JAX package's three end-to-end quota stories
   (``tests/test_elasticquota.py``'s ``TestEndToEndSchedulingWithQuota``),
   in whole GPUs at JAX's 16 GB a chip, every write compared;
-- a pending gang refused with NotImplementedError;
+- the smoke's gang loop (phase 12 (b)) on both packages, to
+  ``GANG_LOOP_WRITES``;
 - chip_smoke's quota fleet (32 x 8 H100 80GB, four quotas, two waves)
   run by both packages to the same summary, ``QUOTA_FLEET_DIGEST``.
 """
@@ -274,31 +275,6 @@ class TestQuotaStories:
 
 
 # ---------------------------------------------------------------------------
-# Gangs: refused until the gang slice
-# ---------------------------------------------------------------------------
-
-
-class TestGangsRefused:
-    def test_a_pending_gang_member_raises_before_any_decision(self):
-        api = APIServer()
-        api.create(KIND_NODE, factory.make_gpu_node(
-            "n", status_geometry={0: {"free": {"24gb": 2}}}))
-        sched = build_scheduler(api)
-        api.create(KIND_POD, factory.make_timeshare_pod(24, name="single"))
-        api.create(KIND_POD, factory.make_timeshare_pod(
-            24, name="member", labels={C.LABEL_POD_GROUP: "g"}))
-        with pytest.raises(NotImplementedError, match="gang"):
-            sched.run_cycle()
-        with pytest.raises(NotImplementedError, match="gang"):
-            sched.schedule_one(api.get(KIND_POD, "member", "default"))
-        # nothing was bound or marked
-        assert all(not p.spec.node_name and not p.status.conditions
-                   for p in api.list(KIND_POD))
-        api.delete(KIND_POD, "member", "default")
-        assert sched.run_cycle() == 1
-
-
-# ---------------------------------------------------------------------------
 # chip_smoke's quota fleet
 # ---------------------------------------------------------------------------
 
@@ -321,7 +297,8 @@ class TestQuotaFleet:
 
 
 def _jax_quota_fleet(spec: dict) -> dict:
-    """``fleet.run_quota_fleet`` on the JAX package."""
+    """``fleet.run_quota_fleet`` on the JAX package (the gang fleet's
+    domains and PodGroups too)."""
     from nos_tpu.api.elasticquota import (
         CompositeElasticQuota, CompositeElasticQuotaSpec, ElasticQuota,
         ElasticQuotaSpec,
@@ -335,10 +312,12 @@ def _jax_quota_fleet(spec: dict) -> dict:
     from nos_tpu.quota import TPUResourceCalculator
     from nos_tpu.testing import factory as jf
 
+    from nos_tpu.api.podgroup import PodGroup, PodGroupSpec
+
     api = JaxAPIServer()
     calc = TPUResourceCalculator(hbm_gb_per_chip=80)
-    sched = jbuild(api, tpu_memory_gb_per_chip=80,
-                   clock=lambda: fleet.QUOTA_FLEET_NOW)
+    now = spec.get("now", fleet.QUOTA_FLEET_NOW)
+    sched = jbuild(api, tpu_memory_gb_per_chip=80, clock=lambda: now)
     recs = (ElasticQuotaReconciler(api, calc),
             CompositeElasticQuotaReconciler(api, calc))
     for q in spec["quotas"]:
@@ -351,16 +330,31 @@ def _jax_quota_fleet(spec: dict) -> dict:
             api.create("CompositeElasticQuota", CompositeElasticQuota(
                 metadata=meta, spec=CompositeElasticQuotaSpec(
                     namespaces=q["namespaces"], min=lo, max=hi)))
+    for g in spec.get("groups", ()):
+        api.create("PodGroup", PodGroup(
+            metadata=ObjectMeta(name=g["name"], namespace=g["namespace"]),
+            spec=PodGroupSpec(min_member=g["min"], mesh=g["mesh"])))
     for n in spec["nodes"]:
         alloc = {"cpu": 64.0}
         for table in n["status"].values():
             for profile, qty in table["free"].items():
                 res = f"{JC.RESOURCE_TIMESHARE_PREFIX}{profile}"
                 alloc[res] = alloc.get(res, 0.0) + qty
-        api.create("Node", jf.make_node(n["name"], allocatable=alloc))
+        labels = {}
+        if "domain" in n:
+            # the gang fleet: the port's whole GPUs and GPU count as
+            # chips, its NVLink domain as a TPU pod
+            alloc[JC.RESOURCE_TPU] = float(n["gpus"])
+            labels[JC.LABEL_CHIP_COUNT] = str(n["gpus"])
+            if n["domain"]:
+                labels[JC.LABEL_POD_ID] = n["domain"]
+        api.create("Node", jf.make_node(n["name"], labels=labels,
+                                        allocatable=alloc))
 
     def create(p):
         labels = {JC.LABEL_TIER: p["tier"]} if p["tier"] else {}
+        if p.get("gang"):
+            labels[JC.LABEL_POD_GROUP] = p["gang"]
         api.create("Pod", jf.make_timeshare_pod(
             p["gb"], 1, name=p["name"], namespace=p["namespace"],
             priority=p["priority"], creation_timestamp=p["created"],
@@ -380,9 +374,15 @@ def _jax_quota_fleet(spec: dict) -> dict:
                 for kind in ("ElasticQuota", "CompositeElasticQuota")
                 for q in api.list(kind)}
 
+    def groups():
+        return {f"{g.metadata.namespace}/{g.metadata.name}":
+                [g.status.phase, g.status.scheduled]
+                for g in api.list("PodGroup")}
+
     return fleet.drive_quota_fleet(spec, create, sched.run_cycle,
                                    lambda: jf.admit_all(api), reconcile,
-                                   pods, quotas)
+                                   pods, quotas,
+                                   groups if "groups" in spec else None)
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +429,12 @@ def _as_port_object(obj):
             annotations={node_key(k): v for k, v in meta.annotations.items()},
             allocatable={port_resource(r): q
                          for r, q in obj.status.allocatable.items()})
+    if hasattr(obj.status, "scheduled"):
+        pg = factory.make_pod_group(meta.name, obj.spec.min_member,
+                                    obj.spec.mesh, meta.namespace)
+        pg.status.phase = obj.status.phase
+        pg.status.scheduled = obj.status.scheduled
+        return pg
     if hasattr(obj.status, "used"):
         return ElasticQuota(
             metadata=ObjectMeta(name=meta.name, namespace=meta.namespace),
@@ -445,103 +451,154 @@ def _as_port_object(obj):
     return pod
 
 
-def _jax_quota_loop(monkeypatch, clock, advance) -> tuple[dict, list]:
-    """The smoke's quota loop on the JAX package: the 80 GB stand-in
+class _JaxCardLoop:
+    """The smoke's card loop on the JAX package: the 80 GB stand-in
     generation cut to one chip a host (one GPU), its MPS (timeshare)
     controller, chip agent, build_scheduler, reconcilers bound to their
-    watches and webhooks, stepped as ``_CardLoop.step`` is, recorded through chip_smoke's
-    recorder.  Returns the writes and the pods team-b's pod evicted."""
-    import dataclasses
+    watches and webhooks, the ElasticQuotas ``quotas``, stepped as
+    ``_CardLoop.step`` is, recorded through chip_smoke's recorder."""
 
-    import nos_tpu.partitioning.timeshare as jax_ts
-    import nos_tpu.partitioning.timeshare.factory as jax_ts_factory
-    from nos_tpu.api.elasticquota import (
-        ElasticQuota, ElasticQuotaSpec, install_quota_webhooks,
-    )
-    from nos_tpu.cmd.assembly import build_scheduler as jbuild
-    from nos_tpu.controllers.chipagent import ChipAgent
-    from nos_tpu.controllers.elasticquota import (
-        CompositeElasticQuotaReconciler, ElasticQuotaReconciler,
-    )
-    from nos_tpu.controllers.node_controller import NodeController
-    from nos_tpu.controllers.pod_controller import PodController
-    from nos_tpu.kube.client import APIServer as JaxAPIServer
-    from nos_tpu.kube.objects import ObjectMeta
-    from nos_tpu.obs import journal as jax_journal, ledger as jax_ledger
-    from nos_tpu.partitioning.state import ClusterState
-    from nos_tpu.quota import TPUResourceCalculator
-    from nos_tpu.testing import factory as jf
-    from nos_tpu.topology import Shape
-    from nos_tpu.topology.known import TopologyRegistry
+    def __init__(self, monkeypatch, clock, advance, quotas) -> None:
+        import dataclasses
 
-    from test_torch_timeshare import JAX_GEN
+        import nos_tpu.partitioning.timeshare as jax_ts
+        import nos_tpu.partitioning.timeshare.factory as jax_ts_factory
+        from nos_tpu.api.elasticquota import (
+            ElasticQuota, ElasticQuotaSpec, install_quota_webhooks,
+        )
+        from nos_tpu.cmd.assembly import build_scheduler as jbuild
+        from nos_tpu.controllers.chipagent import ChipAgent
+        from nos_tpu.controllers.elasticquota import (
+            CompositeElasticQuotaReconciler, ElasticQuotaReconciler,
+        )
+        from nos_tpu.controllers.node_controller import NodeController
+        from nos_tpu.controllers.pod_controller import PodController
+        from nos_tpu.kube.client import APIServer as JaxAPIServer
+        from nos_tpu.kube.objects import ObjectMeta
+        from nos_tpu.obs import journal as jax_journal, ledger as jax_ledger
+        from nos_tpu.partitioning.state import ClusterState
+        from nos_tpu.quota import TPUResourceCalculator
+        from nos_tpu.testing import factory as jf
+        from nos_tpu.topology import Shape
+        from nos_tpu.topology.known import TopologyRegistry
 
-    gen = dataclasses.replace(JAX_GEN, name="h100-80gb-standin-1gpu",
-                              host_block=Shape.parse("1x1"))
-    monkeypatch.setattr(jax_ts_factory, "TimeshareSnapshotTaker",
-                        lambda: jax_ts.TimeshareSnapshotTaker(
-                            TopologyRegistry(generations={gen.name: gen})))
-    monkeypatch.setattr(jax_journal, "_journal",
-                        jax_journal.DecisionJournal(clock=clock))
-    monkeypatch.setattr(jax_ledger, "_ledger",
-                        jax_ledger.ChipSecondLedger(clock=clock))
-    api, state = JaxAPIServer(), ClusterState()
-    NodeController(api, state).bind()
-    PodController(api, state).bind()
-    controller = jax_ts.new_timeshare_partitioner_controller(
-        api, state, batch_timeout_s=chip_smoke.CARD_BATCH_TIMEOUT_S,
-        batch_idle_s=chip_smoke.CARD_BATCH_IDLE_S, clock=clock)
-    controller.bind()
-    api.create("Node", jf.make_tpu_node(chip_smoke.CARD_NODE,
-                                        generation=gen,
-                                        partitioning="timeshare"))
-    agent = ChipAgent(api, chip_smoke.CARD_NODE)
-    agent.start()
-    sched = jbuild(api, tpu_memory_gb_per_chip=80, clock=clock)
-    install_quota_webhooks(api)
-    calc = TPUResourceCalculator(hbm_gb_per_chip=80)
-    ElasticQuotaReconciler(api, calc).bind()
-    CompositeElasticQuotaReconciler(api, calc).bind()
-    recorder = chip_smoke._Recorder(C.MPS_KIND)
-    for kind in ("Node", "Pod", "ElasticQuota"):
-        api.watch(kind, lambda e, o: recorder(e, _as_port_object(o)))
-    for ns, lo, hi in chip_smoke.QUOTA_CARD_QUOTAS:
-        api.create("ElasticQuota", ElasticQuota(
-            metadata=ObjectMeta(name=ns, namespace=ns),
-            spec=ElasticQuotaSpec(min={JAX_MEM: lo},
-                                  max={JAX_MEM: hi} if hi else {})))
+        from test_torch_timeshare import JAX_GEN
 
-    def step():
-        advance()
-        sched.run_cycle()
-        controller.process_if_ready()
-        agent.tick()
+        gen = dataclasses.replace(JAX_GEN, name="h100-80gb-standin-1gpu",
+                                  host_block=Shape.parse("1x1"))
+        monkeypatch.setattr(jax_ts_factory, "TimeshareSnapshotTaker",
+                            lambda: jax_ts.TimeshareSnapshotTaker(
+                                TopologyRegistry(
+                                    generations={gen.name: gen})))
+        monkeypatch.setattr(jax_journal, "_journal",
+                            jax_journal.DecisionJournal(clock=clock))
+        monkeypatch.setattr(jax_ledger, "_ledger",
+                            jax_ledger.ChipSecondLedger(clock=clock))
+        self.clock, self.advance = clock, advance
+        self.jf = jf
+        api, state = JaxAPIServer(), ClusterState()
+        self.api = api
+        NodeController(api, state).bind()
+        PodController(api, state).bind()
+        self.controller = jax_ts.new_timeshare_partitioner_controller(
+            api, state, batch_timeout_s=chip_smoke.CARD_BATCH_TIMEOUT_S,
+            batch_idle_s=chip_smoke.CARD_BATCH_IDLE_S, clock=clock)
+        self.controller.bind()
+        api.create("Node", jf.make_tpu_node(chip_smoke.CARD_NODE,
+                                            generation=gen,
+                                            partitioning="timeshare"))
+        self.agent = ChipAgent(api, chip_smoke.CARD_NODE)
+        self.agent.start()
+        self.sched = jbuild(api, tpu_memory_gb_per_chip=80, clock=clock)
+        install_quota_webhooks(api)
+        calc = TPUResourceCalculator(hbm_gb_per_chip=80)
+        ElasticQuotaReconciler(api, calc).bind()
+        CompositeElasticQuotaReconciler(api, calc).bind()
+        recorder = chip_smoke._Recorder(C.MPS_KIND)
+        self.writes = recorder.writes
+        for kind in ("Node", "Pod", "ElasticQuota", "PodGroup"):
+            api.watch(kind, lambda e, o: recorder(e, _as_port_object(o)))
+        for ns, lo, hi in quotas:
+            api.create("ElasticQuota", ElasticQuota(
+                metadata=ObjectMeta(name=ns, namespace=ns),
+                spec=ElasticQuotaSpec(min={JAX_MEM: lo},
+                                      max={JAX_MEM: hi} if hi else {})))
 
-    def running():
-        return sorted(p.metadata.name for p in api.list("Pod")
+    def step(self) -> None:
+        self.advance()
+        self.sched.run_cycle()
+        self.controller.process_if_ready()
+        self.agent.tick()
+
+    def run_until(self, done) -> None:
+        for _ in range(200):
+            if done():
+                return
+            self.step()
+        raise AssertionError("the JAX loop did not get there")
+
+    def running(self) -> list[str]:
+        return sorted(p.metadata.name for p in self.api.list("Pod")
                       if p.status.phase == "Running")
 
-    def create(name, ns):
-        api.create("Pod", jf.make_timeshare_pod(
-            chip_smoke.CARD_SHARE_GB, name=name, namespace=ns,
-            creation_timestamp=clock()))
+    def names(self) -> set[str]:
+        return {p.metadata.name for p in self.api.list("Pod")}
 
+    def create(self, name: str, ns: str, gang: str = "") -> None:
+        labels = {JC.LABEL_POD_GROUP: gang} if gang else {}
+        self.api.create("Pod", self.jf.make_timeshare_pod(
+            chip_smoke.CARD_SHARE_GB, name=name, namespace=ns,
+            creation_timestamp=self.clock(), labels=labels))
+
+    def create_group(self, name: str, ns: str, min_member: int) -> None:
+        from nos_tpu.api.podgroup import PodGroup, PodGroupSpec
+        from nos_tpu.kube.objects import ObjectMeta
+
+        self.api.create("PodGroup", PodGroup(
+            metadata=ObjectMeta(name=name, namespace=ns),
+            spec=PodGroupSpec(min_member=min_member)))
+
+
+def _jax_quota_loop(monkeypatch, clock, advance) -> tuple[dict, list]:
+    """The smoke's quota loop on the JAX package, step for step.
+    Returns the writes and the pods team-b's pod evicted."""
+    loop = _JaxCardLoop(monkeypatch, clock, advance,
+                        chip_smoke.QUOTA_CARD_QUOTAS)
     for name in chip_smoke.QUOTA_TEAM_A:
-        create(name, "team-a")
-    for _ in range(200):
-        if running() == list(chip_smoke.QUOTA_TEAM_A):
-            break
-        step()
-    before = {p.metadata.name for p in api.list("Pod")}
-    create(chip_smoke.QUOTA_PREEMPTOR, "team-b")
-    step()
-    gone = sorted(before - {p.metadata.name for p in api.list("Pod")})
-    for _ in range(200):
-        if chip_smoke.QUOTA_PREEMPTOR in running():
-            break
-        step()
-    sched.close()
-    return recorder.writes, gone
+        loop.create(name, "team-a")
+    loop.run_until(lambda: loop.running() == list(chip_smoke.QUOTA_TEAM_A))
+    before = loop.names()
+    loop.create(chip_smoke.QUOTA_PREEMPTOR, "team-b")
+    loop.step()
+    gone = sorted(before - loop.names())
+    loop.run_until(lambda: chip_smoke.QUOTA_PREEMPTOR in loop.running())
+    loop.sched.close()
+    return loop.writes, gone
+
+
+def _jax_gang_loop(monkeypatch, clock, advance) -> tuple[dict, list]:
+    """The smoke's gang loop on the JAX package, step for step.  Returns
+    the writes and the pods GANG_B evicted."""
+    loop = _JaxCardLoop(monkeypatch, clock, advance,
+                        chip_smoke.GANG_CARD_QUOTAS)
+    a_ns, a_group, (first, second) = chip_smoke.GANG_A
+    b_ns, b_group, b_pods = chip_smoke.GANG_B
+    loop.create_group(a_group, a_ns, 2)
+    loop.create(first, a_ns, a_group)
+    for _ in range(chip_smoke.GANG_WAIT_CYCLES):
+        advance()
+        assert loop.sched.run_cycle() == 0
+    loop.create(second, a_ns, a_group)
+    loop.run_until(lambda: loop.running() == [first, second])
+    before = loop.names()
+    loop.create_group(b_group, b_ns, 2)
+    for name in b_pods:
+        loop.create(name, b_ns, b_group)
+    loop.step()
+    gone = sorted(before - loop.names())
+    loop.run_until(lambda: all(n in loop.running() for n in b_pods))
+    loop.sched.close()
+    return loop.writes, gone
 
 
 class TestSmokeQuota:
@@ -594,6 +651,61 @@ class TestSmokeQuota:
 # ---------------------------------------------------------------------------
 # The cache and the gauges
 # ---------------------------------------------------------------------------
+
+
+class TestSmokeGang:
+    def test_the_card_loop_writes_what_the_smoke_pins(self, monkeypatch):
+        """Phase (b)'s gang loop on real time.monotonic with the smoke's
+        windows, its children left out: GANG_A waits, binds whole in one
+        cycle, and is evicted whole by GANG_B, which binds whole on a
+        later cycle; every write pinned."""
+        _fresh_journal(monkeypatch)
+        loop, card = chip_smoke._gang_loop(SMOKE_DEVICE)
+        assert card["labels"] == {"ga-0": "in-quota", "ga-1": "over-quota"}
+        grants = chip_smoke._grants(loop, SMOKE_DEVICE,
+                                    list(chip_smoke.GANG_A[2]))
+        assert [g["env"] for g in grants] == [{
+            "NOS_TPU_VISIBLE_CHIPS": "GPU-0",
+            "NOS_TPU_TIMESHARE_GB": "24"}] * 2
+        preempt = chip_smoke._gang_preempt(loop)
+        assert preempt["evicted"] == list(chip_smoke.GANG_A[2])
+        assert preempt["rebind_cycle"] > preempt["evict_cycle"]
+        assert loop.writes == chip_smoke.GANG_LOOP_WRITES
+        loop.sched.close()
+
+    def test_the_loop_writes_the_same_on_an_injected_clock(self,
+                                                           monkeypatch):
+        _fresh_journal(monkeypatch)
+        clock, advance = _injected_clock()
+        loop, _ = chip_smoke._gang_loop(SMOKE_DEVICE, clock=clock,
+                                        wall=clock, advance=advance,
+                                        poll_s=0.0)
+        chip_smoke._gang_preempt(loop, advance=advance, poll_s=0.0)
+        assert loop.writes == chip_smoke.GANG_LOOP_WRITES
+
+    def test_the_jax_loop_writes_the_pinned_record(self, monkeypatch):
+        """The same loop on the JAX package, step for step: its writes
+        are the pinned record, and GANG_B evicts GANG_A whole."""
+        _fresh_journal(monkeypatch)
+        clock, advance = _injected_clock()
+        writes, gone = _jax_gang_loop(monkeypatch, clock, advance)
+        assert gone == sorted(chip_smoke.GANG_A[2])
+        assert writes == chip_smoke.GANG_LOOP_WRITES
+
+    def test_the_smoke_refuses_a_member_bound_alone(self, monkeypatch):
+        """A PodGroup asking for one member lets the first bind alone,
+        which the smoke must refuse."""
+        _fresh_journal(monkeypatch)
+        from nos_tpu_torch.testing import factory as f
+
+        monkeypatch.setattr(f, "make_pod_group",
+                            lambda name, min_member, mesh="",
+                            namespace="default": f.PodGroup(
+                                metadata=f.ObjectMeta(name=name,
+                                                      namespace=namespace),
+                                spec=f.PodGroupSpec(min_member=1)))
+        with pytest.raises(SystemExit):
+            chip_smoke._gang_loop(SMOKE_DEVICE)
 
 
 class TestSchedulerCache:

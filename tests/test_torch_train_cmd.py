@@ -9,6 +9,7 @@ control-plane settings; the device grant's order in ``main`` (apply,
 then validate, then the process group); and dryrun_multigpu on 2, 4 and
 6 ranks."""
 
+import collections
 import contextlib
 import json
 import logging
@@ -374,11 +375,16 @@ class TestGrantInTheMain:
         monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda: 8)
         monkeypatch.setattr(A, "FLASH_FWD_LAUNCHES", 48)
         monkeypatch.setattr(A, "FLASH_BWD_FUSED_LAUNCHES", 48)
+        monkeypatch.setattr(A, "TILE_LAUNCHES", collections.Counter({
+            ("flash_fwd", (128, 128)): 48,
+            ("flash_bwd_fused", (64, 128)): 48}))
         env = {"NOS_TPU_TIMESHARE_GB": "24", "NOS_TPU_VISIBLE_CHIPS": "0",
                "NOS_TPU_TORCH_MEM_FRACTION": "0.270"}
         assert cmd.grant_report(True, env) == {
             "verified": True, "devices": [0], "timeshare_gb": 24.0,
             "fraction": 0.27, "cap_bytes": int(0.27 * 85_017_493_504),
             "max_memory_allocated": 7, "max_memory_reserved": 8,
-            "launches": {"flash_fwd": 48, "flash_bwd_fused": 48}}
+            "launches": {"flash_fwd": 48, "flash_bwd_fused": 48},
+            "tile_launches": {"flash_bwd_fused:64x128": 48,
+                              "flash_fwd:128x128": 48}}
         assert cmd.grant_report(False, env)["cap_bytes"] is None
