@@ -237,10 +237,49 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    ms per cycle and ``gb``'s children's launches, which the kernels line
    counts as the ``gang`` path.
 
+13. recovery: fleet planning by pool and node-loss recovery.  (a) On
+   the host, partition (a)'s fleet with the gang fleet's NVLink domains
+   (nodes 0-15 nvl-0, 16-27 nvl-1, 28-31 unlabelled: three plan pools)
+   planned by ``ParallelGeometryPlanner`` (``plan_shard_min_hosts`` 0)
+   at each of PARALLEL_WORKERS workers, one untimed and PARALLEL_TIMED
+   timed plans on fresh snapshots: every plan's desired state and
+   journal must be the same at every worker count and hash to
+   ``PARALLEL_FLEET_DIGEST`` (the JAX package's parallel planner in the
+   CPU tests); the sequential planner on the same fleet is timed beside
+   it.  (b) ``testing/fleet.py``'s recovery fleet (bench_nodeloss.py's
+   trace on the gang fleet through the MPS loop on a virtual clock: a
+   warm spare a domain, three kills, a wedged agent that later dies)
+   once: its summary must hash to ``RECOVERY_FLEET_DIGEST`` (the JAX
+   package's run in the CPU tests), no displaced job may be left
+   unbound, and suspicion, promotion, migration and the straggler
+   eviction must each have happened.  (c) The card's node in the MPS
+   loop with heartbeat suspicion (RECOVERY_SUSPECT_AFTER_S) and a
+   migrate grace (RECOVERY_GRACE_S): ``rj`` (48 GB) binds and its child
+   trains under its grant, RECOVERY_STEPS steps of the split backward
+   with a checkpoint after each, beside a straight child of the same
+   steps; ``bq`` (48 GB) waits Unschedulable.  Once ``rj``'s child
+   landed a checkpoint the agent stops ticking: the detector must
+   quarantine the node as suspect, the node must get the migrate drain
+   and ``rj`` the migrate stamp and a JOB_DISPLACED record; after the
+   grace ``rj`` is evicted and the smoke, as the kubelet, sends its
+   child SIGTERM (it must exit by the signal, its grant verified) and
+   recreates ``rj`` with the displaced stamp; while the node is drained
+   MigrationDrainGuard must refuse both pods.  The agent resumes: the
+   node must be released and its drain healed, ``rj`` must bind before
+   the older ``bq`` with no new plan written, and its new child must
+   resume from the last checkpoint (start step > 0), train to the end
+   under its grant and end on the straight child's loss bitwise.  Every
+   distinct state the loop writes must equal ``RECOVERY_LOOP_WRITES``.
+   The line carries the plans' host ms per worker count, the fleet's
+   counts and host ms per controller poll, freeze to suspicion,
+   suspicion to stamp, stamp to eviction, SIGTERM to exit and release to
+   rebind, the children's walls and the resumed child's launches, which
+   the kernels line counts as the ``recovery`` path.
+
 Then the kernel summary line (one entry per compiled tile, with its
-launches by path, the gang children's among them; a tile no path ran
-must have run in the autotune phase), the card's ``name, power.limit``
-and, last,
+launches by path, the gang and recovery children's among them; a tile
+no path ran must have run in the autotune phase), the card's ``name,
+power.limit`` and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2054,7 +2093,7 @@ class _CardLoop:
     pods' creation times too, so schedule latency is one time domain."""
 
     def __init__(self, device: dict, clock=time.monotonic,
-                 wall=time.time) -> None:
+                 wall=time.time, **controller_kw) -> None:
         from nos_tpu_torch.cmd.assembly import build_scheduler
         from nos_tpu_torch.controllers.chipagent import ChipAgent
         from nos_tpu_torch.controllers.node_controller import NodeController
@@ -2076,7 +2115,7 @@ class _CardLoop:
         PodController(self.api, state).bind()
         self.controller = new_timeshare_partitioner_controller(
             self.api, state, batch_timeout_s=CARD_BATCH_TIMEOUT_S,
-            batch_idle_s=CARD_BATCH_IDLE_S, clock=clock)
+            batch_idle_s=CARD_BATCH_IDLE_S, clock=clock, **controller_kw)
         self.controller.bind()
         self.api.create(KIND_NODE, make_gpu_node(CARD_NODE, model=self.model,
                                                  gpus=1))
@@ -2091,7 +2130,8 @@ class _CardLoop:
         self.bound_ms: dict[str, float] = {}
 
     def create_pod(self, name: str, gb: int = CARD_SHARE_GB,
-                   namespace: str = "default", gang: str = "") -> None:
+                   namespace: str = "default", gang: str = "",
+                   annotations: dict | None = None) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.kube.client import KIND_POD
         from nos_tpu_torch.testing.factory import make_timeshare_pod
@@ -2100,7 +2140,8 @@ class _CardLoop:
         self.api.create(KIND_POD, make_timeshare_pod(
             gb, name=name, namespace=namespace,
             creation_timestamp=self.wall(),
-            labels={C.LABEL_POD_GROUP: gang} if gang else None))
+            labels={C.LABEL_POD_GROUP: gang} if gang else None,
+            annotations=annotations))
 
     def create_pods(self) -> None:
         for i in range(CARD_PODS):
@@ -2135,15 +2176,14 @@ class _CardLoop:
         self.tick()
 
     def run_until(self, done, what: str, poll_s: float = CARD_POLL_S,
-                  advance=None) -> float:
-        """Step until ``done()``; fail after CARD_BIND_LIMIT_S.  Returns
-        the seconds it took.  ``advance`` moves an injected clock before
-        each step."""
+                  advance=None, limit_s: float = CARD_BIND_LIMIT_S) -> float:
+        """Step until ``done()``; fail after ``limit_s``.  Returns the
+        seconds it took.  ``advance`` moves an injected clock before each
+        step."""
         t0 = time.monotonic()
         while not done():
-            if time.monotonic() - t0 > CARD_BIND_LIMIT_S:
-                fail(f"the MPS loop did not {what} within "
-                     f"{CARD_BIND_LIMIT_S} s")
+            if time.monotonic() - t0 > limit_s:
+                fail(f"the MPS loop did not {what} within {limit_s} s")
             if advance is not None:
                 advance()
             self.step()
@@ -2721,10 +2761,11 @@ class _Recorder:
     masked in the order they appear (``<plan N>``): a node as its
     "key=value" annotations (group prefix off, no heartbeat) and the
     family's resources in its allocatable; a pod as "<node> <phase>",
-    with "Unschedulable" when marked and its capacity label when it has
-    one; a quota as its status.used in GB; a PodGroup as "<phase>
-    <scheduled>"; "deleted" at the end.  The MIG, quota and gang loops
-    pin what it records."""
+    with "Unschedulable" when marked, its capacity label when it has
+    one and the recovery plane's ``migrate`` and ``displaced`` stamps
+    (the cause alone) when it carries them; a quota as its status.used
+    in GB; a PodGroup as "<phase> <scheduled>"; "deleted" at the end.
+    The MIG, quota, gang and recovery loops pin what it records."""
 
     def __init__(self, family: str) -> None:
         self.family = family
@@ -2766,7 +2807,10 @@ class _Recorder:
             capacity = obj.metadata.labels.get(C.LABEL_CAPACITY)
             view = f"{obj.spec.node_name or '-'} {obj.status.phase}" + (
                 " Unschedulable" if obj.is_unschedulable() else "") + (
-                f" {capacity}" if capacity else "")
+                f" {capacity}" if capacity else "") + "".join(
+                f" {k.split('/', 1)[1]}={annots[k].split('@')[0]}"
+                for k in (C.ANNOT_MIGRATE, C.ANNOT_DISPLACED)
+                if annots.get(k))
         seq = self.writes.setdefault(obj.metadata.name, [])
         if not seq or seq[-1] != view:
             seq.append(view)
@@ -3133,7 +3177,8 @@ class _QuotaLoop(_CardLoop):
     (QUOTA_LOOP_WRITES and GANG_LOOP_WRITES pin it)."""
 
     def __init__(self, device: dict, clock=time.monotonic,
-                 wall=time.time, quotas=QUOTA_CARD_QUOTAS) -> None:
+                 wall=time.time, quotas=QUOTA_CARD_QUOTAS,
+                 **controller_kw) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.api.elasticquota import (
             ElasticQuota, ElasticQuotaSpec, install_quota_webhooks)
@@ -3143,7 +3188,7 @@ class _QuotaLoop(_CardLoop):
             KIND_ELASTIC_QUOTA, KIND_NODE, KIND_POD, KIND_POD_GROUP)
         from nos_tpu_torch.kube.objects import ObjectMeta
 
-        super().__init__(device, clock, wall)
+        super().__init__(device, clock, wall, **controller_kw)
         install_quota_webhooks(self.api)
         ElasticQuotaReconciler(self.api).bind()
         CompositeElasticQuotaReconciler(self.api).bind()
@@ -3835,6 +3880,551 @@ def phase_gang(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The recovery phase.  (a) partition (a)'s MPS fleet in the gang fleet's
+# NVLink domains (three plan pools), planned by the parallel planner at
+# each of PARALLEL_WORKERS workers and by the sequential planner, one
+# untimed and PARALLEL_TIMED timed plans each on fresh snapshots.  (b)
+# The recovery fleet (testing/fleet.py) once.  (c) The card's node in
+# the MPS loop with heartbeat suspicion and drain-then-migrate on: a
+# checkpointing job moved off the node its agent stopped reporting.
+PARALLEL_FLEET_DIGEST = \
+    "f2cabc689da1a5b2ad8ff93fbe7922d149d0bfc323a48707512e9029a06ffa13"
+PARALLEL_WORKERS = (1, 2, 4)
+PARALLEL_TIMED = 5
+RECOVERY_FLEET_DIGEST = \
+    "51f9b46ca7c43325710402013eb2172f40cdc30cfcb3308b4d3ab306a821b4b6"
+# two pods of which the card holds one: the job and a batch pod
+RECOVERY_JOB, RECOVERY_BATCH, RECOVERY_GB = "rj", "bq", 48
+# the detector's and the grace's seconds: short, and each longer than a
+# pass of the loop (a scheduler cycle, a poll and an agent tick, every
+# CARD_POLL_S)
+RECOVERY_SUSPECT_AFTER_S = 0.5
+RECOVERY_GRACE_S = 1.0
+# the job's steps, a checkpoint after each: two more than a grant child
+RECOVERY_STEPS = GRANT_STEPS + 2
+RECOVERY_CHECKPOINT_LIMIT_S = 300.0
+RECOVERY_DRAINED = "node draining for migration"
+_CKPT_LINE = re.compile(r"checkpoint: saved step (\d+)")
+_RESUME_LINE = re.compile(r"resuming from checkpoint step (\d+)")
+_EXACT_LOSS = re.compile(r"final loss exact (\S+)")
+# What the recovery loop writes (_Recorder), as its CPU test's run
+# recorded it (tests/test_torch_recovery.py, held against the JAX
+# package's loop on the same objects).
+RECOVERY_LOOP_WRITES = {
+    "h100-node-0": [
+        [],
+        [
+            "spec-partitioning-plan.mps=<plan 0>"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-48gb-free=1",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-48gb-used=1",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ],
+        [
+            "defrag-drain=migrate:mps:node-suspect",
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-48gb-used=1",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ],
+        [
+            "defrag-drain=migrate:mps:node-suspect",
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-48gb-free=1",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-48gb-free=1",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-48gb-used=1",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-48gb=1"
+        ]
+    ],
+    "rj": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running migrate=node-suspect",
+        "deleted",
+        "- Pending displaced=drain-migrate",
+        "- Pending Unschedulable displaced=drain-migrate",
+        "h100-node-0 Pending",
+        "h100-node-0 Running"
+    ],
+    "bq": [
+        "- Pending",
+        "- Pending Unschedulable"
+    ]
+}
+
+
+def _parallel_fleet_plans() -> dict:
+    """Phase 13 (a): the fleet planned by the parallel planner at every
+    worker count (each plan's desired state and journal the same, at
+    PARALLEL_FLEET_DIGEST, the JAX package's) and by the sequential
+    planner on the same fleet, host ms per plan each."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.obs import journal as J
+    from nos_tpu_torch.partitioning.core import (
+        GeometryPlanner, ParallelGeometryPlanner)
+    from nos_tpu_torch.partitioning.timeshare import (
+        TimesharePartitionCalculator, TimeshareProfileCalculator,
+        TimeshareSnapshotTaker)
+    from nos_tpu_torch.scheduler.framework import Framework
+    from nos_tpu_torch.testing import fleet
+
+    spec = fleet.domain_fleet_spec(0)
+
+    def make() -> GeometryPlanner:
+        return GeometryPlanner(Framework(), TimeshareProfileCalculator(),
+                               TimesharePartitionCalculator())
+
+    def plans(planner) -> tuple[list[float], list[dict]]:
+        ms, summaries = [], []
+        for _ in range(1 + PARALLEL_TIMED):
+            snap = TimeshareSnapshotTaker().take_snapshot(
+                fleet.build_cluster(spec))
+            pending = fleet.build_pending(spec)
+            journal = J.DecisionJournal(maxlen=1 << 16)
+            prev = J.set_journal(journal)
+            try:
+                t0 = time.perf_counter()
+                desired = planner.plan(snap, pending)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                J.set_journal(prev)
+            summaries.append(fleet.parallel_plan_summary(desired, [
+                (r.category, r.subject, r.attrs) for r in journal.events()
+                if r.category in (J.PLAN_NODE_COMMITTED,
+                                  J.PLAN_NODE_REVERTED,
+                                  J.PLAN_SHARD_MERGED)]))
+        return ms, summaries
+
+    out: dict = {"nodes": len(spec["nodes"]),
+                 "pending": len(spec["pending"])}
+    first = None
+    for workers in PARALLEL_WORKERS:
+        planner = ParallelGeometryPlanner(
+            make, TimeshareProfileCalculator(), kind=C.MPS_KIND,
+            max_workers=workers, min_shard_hosts=0)
+        try:
+            ms, summaries = plans(planner)
+        finally:
+            planner.close()
+        first = first or summaries[0]
+        if any(sm != first for sm in summaries):
+            fail(f"the parallel plans at {workers} workers differ from "
+                 f"the first's (desired state or journal)")
+        merged = summaries[0]["journal"][-1]
+        out[f"workers_{workers}"] = {
+            "plan_ms_median": statistics.median(ms[1:]),
+            "plan_ms_max": max(ms[1:]), "plan_ms_untimed": ms[0],
+            "plan_ms": ms[1:],
+            "shard_ms": {k: v * 1e3 for k, v in
+                         planner.last_shard_seconds.items()}}
+    digest = fleet.plan_digest(first)
+    if digest != PARALLEL_FLEET_DIGEST:
+        fail(f"the parallel fleet plan's digest {digest} is not the pinned "
+             f"{PARALLEL_FLEET_DIGEST} (the JAX package's plan on the CPU)")
+    ms, summaries = plans(make())
+    out["sequential"] = {"plan_ms_median": statistics.median(ms[1:]),
+                         "plan_ms_max": max(ms[1:]),
+                         "plan_ms_untimed": ms[0], "plan_ms": ms[1:]}
+    out.update({"pools": merged[2]["pools"], "shards": merged[2]["shards"],
+                "nodes_carved": sum(r[0] == J.PLAN_NODE_COMMITTED
+                                    for r in first["journal"]),
+                "digest": digest})
+    return out
+
+
+def _recovery_fleet_run() -> dict:
+    """Phase 13 (b): the recovery fleet once, to RECOVERY_FLEET_DIGEST
+    (the JAX package's run), with no displaced job left unbound and the
+    detector, the spares and the migration all exercised."""
+    from nos_tpu_torch.testing import fleet
+
+    t0 = time.perf_counter()
+    out = fleet.run_recovery_fleet(fleet.recovery_fleet_spec(0))
+    run_ms = (time.perf_counter() - t0) * 1e3
+    digest = fleet.plan_digest(out["summary"])
+    if digest != RECOVERY_FLEET_DIGEST:
+        fail(f"the recovery fleet's digest {digest} is not the pinned "
+             f"{RECOVERY_FLEET_DIGEST} (the JAX package's run on the CPU)")
+    if out["never_rebound"]:
+        fail(f"{out['summary']['never_rebound']} displaced jobs were never "
+             f"rebound")
+    if not (out["suspicions"] and out["promotions"] and out["migrations"]
+            and out["straggler_evictions"]):
+        fail(f"the recovery fleet left a mechanism unexercised: {out}")
+    return {k: v for k, v in out.items() if k not in ("summary", "poll_ms")} | {
+        "poll_ms_median": statistics.median(out["poll_ms"]),
+        "poll_ms_max": max(out["poll_ms"]), "run_ms": run_ms,
+        "completed": out["summary"]["completed"], "digest": digest}
+
+
+class _RecoveryLoop(_QuotaLoop):
+    """``_QuotaLoop`` with no quota and the recovery plane on (heartbeat
+    suspicion after RECOVERY_SUSPECT_AFTER_S, a migrate grace of
+    RECOVERY_GRACE_S); while ``frozen`` the node's agent does not tick
+    (its reporter, heartbeat and admission stop) and the scheduler and
+    the controller go on."""
+
+    def __init__(self, device: dict, clock=time.monotonic,
+                 wall=time.time) -> None:
+        super().__init__(device, clock, wall, quotas=(),
+                         node_suspect_after_s=RECOVERY_SUSPECT_AFTER_S,
+                         migrate_grace_s=RECOVERY_GRACE_S)
+        self.frozen = False
+
+    def tick(self) -> None:
+        if not self.frozen:
+            super().tick()
+
+
+def _recovery_start(device: dict, clock=time.monotonic, wall=time.time,
+                    advance=None, poll_s: float = CARD_POLL_S
+                    ) -> tuple[_RecoveryLoop, dict]:
+    """Phase 13 (c) up to the job's child: RECOVERY_JOB through the loop
+    until it is bound and Running, then RECOVERY_BATCH, which the card
+    cannot hold beside it, until it is marked Unschedulable."""
+    loop = _RecoveryLoop(device, clock, wall)
+    loop.create_pod(RECOVERY_JOB, gb=RECOVERY_GB)
+    bind_s = loop.run_until(lambda: loop.running() == [RECOVERY_JOB],
+                            f"bind {RECOVERY_JOB} and run it",
+                            poll_s=poll_s, advance=advance)
+    loop.create_pod(RECOVERY_BATCH, gb=RECOVERY_GB)
+    loop.run_until(lambda: loop.pods()[RECOVERY_BATCH].is_unschedulable(),
+                   f"mark {RECOVERY_BATCH} Unschedulable", poll_s=poll_s,
+                   advance=advance)
+    return loop, {"bind_s": bind_s}
+
+
+def _recovery_migrate(loop: _RecoveryLoop, landed, on_evicted,
+                      advance=None, poll_s: float = CARD_POLL_S,
+                      landed_limit_s: float = RECOVERY_CHECKPOINT_LIMIT_S
+                      ) -> dict:
+    """Phase 13 (c)'s migration: the loop runs until ``landed()`` (the
+    job's child landed a checkpoint), then the agent freezes.  The
+    detector must quarantine the node as suspect, the node must get the
+    migrate drain and the job the ``migrate`` stamp and a JOB_DISPLACED
+    record; after the grace the job is evicted (``on_evicted()``: the
+    kubelet's SIGTERM) and recreated with the ``displaced`` stamp, as a
+    workload controller would; while the node is drained the scheduler
+    must reject both pods (MigrationDrainGuard).  The agent resumes: the
+    node must be released, its drain healed, and the job bound before
+    the older batch pod, with no new plan written.  Returns the stages'
+    times on the host's performance counter and the plan cycles that
+    ran meanwhile."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_NODE, KIND_POD
+    from nos_tpu_torch.obs import journal as J
+    from nos_tpu_torch.partitioning.core import REASON_SUSPECT
+    from nos_tpu_torch.utils.pod_util import displaced_value
+
+    seen: dict[str, float] = {}
+    # the batch pod is rejected every cycle while the job's child starts:
+    # room for every record of the move
+    journal = J.DecisionJournal(maxlen=1 << 20, clock=time.perf_counter)
+    prev = J.set_journal(journal)
+
+    def watch_pod(event: str, pod) -> None:
+        if pod.metadata.name != RECOVERY_JOB:
+            return
+        now = time.perf_counter()
+        if event == "DELETED" and "evicted" not in seen:
+            seen["evicted"] = now
+            on_evicted()
+        elif pod.metadata.annotations.get(C.ANNOT_MIGRATE):
+            seen.setdefault("stamped", now)
+        elif pod.spec.node_name and "evicted" in seen:
+            seen.setdefault("rebound", now)
+
+    def watch_node(event: str, node) -> None:
+        drained = C.is_migration_drain(node.metadata.annotations)
+        if drained:
+            seen.setdefault("drained", time.perf_counter())
+        elif "drained" in seen:
+            seen.setdefault("released", time.perf_counter())
+
+    unwatch = [loop.api.watch(KIND_POD, watch_pod),
+               loop.api.watch(KIND_NODE, watch_node)]
+    quarantine = loop.controller.quarantine
+    step = functools.partial(loop.run_until, poll_s=poll_s, advance=advance)
+    try:
+        waited_s = step(landed, f"see {RECOVERY_JOB} land a checkpoint",
+                        limit_s=landed_limit_s)
+        written, cycles = loop.written(), loop.cycles
+        loop.frozen = True
+        seen["frozen"] = time.perf_counter()
+        step(lambda: quarantine.reason(CARD_NODE) == REASON_SUSPECT,
+             "suspect the node")
+        annots = loop.node().metadata.annotations
+        if annots.get(C.ANNOT_DEFRAG_DRAIN) != C.migration_drain_value(
+                C.MPS_KIND, "node-suspect"):
+            fail(f"the suspect node carries the drain "
+                 f"{annots.get(C.ANNOT_DEFRAG_DRAIN)!r}")
+        job = loop.pods()[RECOVERY_JOB]
+        if job.metadata.annotations.get(C.ANNOT_MIGRATE) != "node-suspect":
+            fail(f"{RECOVERY_JOB} carries {job.metadata.annotations}, not "
+                 f"the migrate stamp")
+        (suspected,) = journal.events(J.QUARANTINED)
+        displaced = journal.events(J.JOB_DISPLACED)
+        if [(r.subject, r.attrs["cause"], r.attrs["node"])
+                for r in displaced] != [(f"default/{RECOVERY_JOB}",
+                                         "node-suspect", CARD_NODE)]:
+            fail(f"JOB_DISPLACED records {[r.to_dict() for r in displaced]}")
+        step(lambda: RECOVERY_JOB not in loop.pods(),
+             f"evict {RECOVERY_JOB} after the grace")
+        loop.create_pod(RECOVERY_JOB, gb=RECOVERY_GB, annotations={
+            C.ANNOT_DISPLACED: displaced_value(C.DISPLACED_DRAIN_MIGRATE,
+                                               loop.wall())})
+        if advance is not None:
+            advance()
+        seq0 = max((r.seq for r in journal.events()), default=0)
+        loop.step()
+        pods = loop.pods()
+        verdicts = {r.subject: r.attrs.get("nodes", {}).get(CARD_NODE, "")
+                    for r in journal.events(J.POD_REJECTED) if r.seq > seq0}
+        for name in (RECOVERY_JOB, RECOVERY_BATCH):
+            verdict = verdicts.get(f"default/{name}", "")
+            if pods[name].spec.node_name or RECOVERY_DRAINED not in verdict:
+                fail(f"{name} on the drained node: bound to "
+                     f"{pods[name].spec.node_name!r}, verdict {verdict!r}")
+        loop.frozen = False
+        seen["resumed"] = time.perf_counter()
+        step(lambda: not quarantine.is_quarantined(CARD_NODE)
+             and not C.is_migration_drain(loop.node().metadata.annotations),
+             "release the node")
+        step(lambda: bool(loop.pods()[RECOVERY_JOB].spec.node_name),
+             f"bind {RECOVERY_JOB} again")
+        if loop.pods()[RECOVERY_BATCH].spec.node_name:
+            fail(f"{RECOVERY_BATCH} was bound beside the displaced "
+                 f"{RECOVERY_JOB}")
+        step(lambda: RECOVERY_JOB in loop.running(), f"run {RECOVERY_JOB}")
+        if loop.pods()[RECOVERY_JOB].metadata.annotations.get(
+                C.ANNOT_DISPLACED):
+            fail(f"the bind left {RECOVERY_JOB}'s displaced stamp")
+        if loop.written() != written:
+            fail(f"moving the job wrote a new plan: {written} -> "
+                 f"{loop.written()}")
+    finally:
+        for u in unwatch:
+            u()
+        J.set_journal(prev)
+    return seen | {"landed_wait_s": waited_s, "suspected": suspected.ts,
+                   "plan_cycles": loop.cycles - cycles,
+                   "displaced_record": displaced[0].ts,
+                   "released_records": [r.ts for r in journal.events(
+                       J.QUARANTINE_RELEASED)]}
+
+
+def _check_recovery_child(label: str, child: dict, uuid: str,
+                          steps: list[int]) -> dict:
+    """A recovery child that must end: exit 0, its grant verified on
+    ``uuid`` at its fraction and cap, the ``steps`` logged with finite
+    losses, 24 K1 + 24 K3 + 24 K4 a step and no K2 (the split backward),
+    its peak under its cap.  Returns the launches by tile."""
+    from nos_tpu_torch.models.llama import BENCH_350M_TRAIN
+
+    layers = BENCH_350M_TRAIN.num_layers
+    r = child["report"]
+    if child["rc"] != 0 or r is None:
+        fail(f"{label} exited {child['rc']}:\n{child['stderr'][-4000:]}")
+    if not (r["verified"] and r["devices"] == [uuid]
+            and r["fraction"] == child["fraction"]
+            and r["cap_bytes"] == child["cap_bytes"]):
+        fail(f"{label} verified {r}, expected {uuid} at fraction "
+             f"{child['fraction']}")
+    if [s[0] for s in child["steps"]] != steps \
+            or not all(math.isfinite(s[1]) for s in child["steps"]):
+        fail(f"{label} logged steps {child['steps']}, not {steps}")
+    tiles = {name: r["tile_launches"].get(f"{kernel}:{tile[0]}x{tile[1]}", 0)
+             for name, (kernel, tile, _) in TILES.items()}
+    launches = {k: sum(n for name, n in tiles.items() if TILES[name][0] == k)
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    _check_launches(label, launches, {
+        "flash_fwd": len(steps) * layers, "flash_bwd_fused": 0,
+        "flash_dq": len(steps) * layers, "flash_dkv": len(steps) * layers})
+    if not (r["max_memory_allocated"] < child["cap_bytes"]
+            and r["max_memory_reserved"] <= child["cap_bytes"]):
+        fail(f"{label} peaked over its cap {child['cap_bytes']} B")
+    child["launches"] = launches
+    return tiles
+
+
+def phase_recovery(main_loss0: float, device: dict, smi: str) -> dict:
+    """Fleet planning by pool and node-loss recovery: (a) the pool-sharded
+    fleet plan at 1, 2 and 4 workers beside the sequential plan; (b) the
+    recovery fleet; (c) the card's node: RECOVERY_JOB trains under its
+    grant (the split backward, a checkpoint each step), the batch pod
+    waits, the agent freezes once a checkpoint landed, the job is
+    drained off, evicted after the grace and its child stopped by
+    SIGTERM, recreated displaced, bound again ahead of the batch pod
+    once the agent reports, and its new child resumes from the
+    checkpoint to end bitwise on a straight run's loss.  Returns the
+    resumed child's launches, by kernel and by tile."""
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    parallel = _parallel_fleet_plans()
+    fleet_line = _recovery_fleet_run()
+    loop, card = _recovery_start(device)
+    split = {"NOS_TPU_FLASH_BWD": "split"}
+    (grant,) = _grants(loop, device, [RECOVERY_JOB])
+    total = device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    stopped: dict[str, float] = {}
+    with tempfile.TemporaryDirectory(prefix="nos-recovery-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        base = json.loads(pathlib.Path(cfg_path).read_text())
+        job_cfg = str(pathlib.Path(tmp) / "job.json")
+        pathlib.Path(job_cfg).write_text(json.dumps(base | {
+            "steps": RECOVERY_STEPS, "checkpoint_every": 1,
+            "checkpoint_dir": str(pathlib.Path(tmp) / "ck")}))
+        straight_cfg = str(pathlib.Path(tmp) / "straight.json")
+        pathlib.Path(straight_cfg).write_text(json.dumps(
+            base | {"steps": RECOVERY_STEPS}))
+        first = _start_grant_child(RECOVERY_JOB, job_cfg,
+                                   grant["env"] | split, no_nvcc)
+        straight = _start_grant_child("straight", straight_cfg,
+                                      grant["env"] | split, no_nvcc)
+        started = [first, straight]
+        try:
+            def landed() -> bool:
+                if first["proc"].poll() is not None:
+                    fail(f"{RECOVERY_JOB}'s child exited "
+                         f"{first['proc'].returncode} before the move:\n"
+                         f"{''.join(first['lines'])[-4000:]}")
+                return bool(_CKPT_LINE.search("".join(first["lines"])))
+
+            def on_evicted() -> None:
+                proc = first["proc"]
+                stopped["sigterm"] = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+
+                def wait() -> None:
+                    proc.wait()
+                    stopped["exit"] = time.perf_counter()
+
+                threading.Thread(target=wait, daemon=True).start()
+
+            moved = _recovery_migrate(loop, landed, on_evicted)
+            victim = _finish_grant_child(first, timeout=QUOTA_STOP_LIMIT_S)
+            (grant2,) = _grants(loop, device, [RECOVERY_JOB])
+            resumed = _start_grant_child(f"{RECOVERY_JOB}-resumed", job_cfg,
+                                         grant2["env"] | split, no_nvcc)
+            started.append(resumed)
+            resumed = _finish_grant_child(resumed)
+            straight = _finish_grant_child(straight)
+        finally:
+            for c in started:
+                if c.get("proc") is not None and c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a recovery child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    for child in (victim, resumed, straight):
+        child["fraction"], child["cap_bytes"] = _grant_cap(RECOVERY_GB,
+                                                           total)
+    _check_stopped_child(f"recovery {RECOVERY_JOB}", victim,
+                         grant["env"]["NOS_TPU_VISIBLE_CHIPS"], main_loss0)
+    landed_steps = [int(m) for m in _CKPT_LINE.findall(victim["stderr"])]
+    starts = [int(m) for m in _RESUME_LINE.findall(resumed["stderr"])]
+    if len(starts) != 1 or not 0 < starts[0] <= max(landed_steps):
+        fail(f"the resumed child started at {starts}, the stopped one "
+             f"landed checkpoints {landed_steps}")
+    start = starts[0]
+    tiles = _check_recovery_child(
+        f"recovery {RECOVERY_JOB}-resumed", resumed,
+        grant2["env"]["NOS_TPU_VISIBLE_CHIPS"],
+        list(range(start + 1, RECOVERY_STEPS + 1)))
+    _check_recovery_child("recovery straight", straight,
+                          grant["env"]["NOS_TPU_VISIBLE_CHIPS"],
+                          list(range(1, RECOVERY_STEPS + 1)))
+    exact = [_EXACT_LOSS.findall(c["stderr"]) for c in (resumed, straight)]
+    if not all(len(e) == 1 for e in exact) or exact[0] != exact[1]:
+        fail(f"the resumed run ended on loss {exact[0]}, the straight run "
+             f"on {exact[1]}: not bitwise equal")
+    rel = abs(straight["steps"][0][1] - main_loss0) / abs(main_loss0)
+    if not rel <= MAIN_LOSS0_RTOL:
+        fail(f"the straight run's step-0 loss {straight['steps'][0][1]} "
+             f"against train_main's {main_loss0}")
+    if loop.writes != RECOVERY_LOOP_WRITES:
+        fail(f"the recovery loop's writes differ from the CPU test's: "
+             f"{json.dumps(loop.writes)}")
+    ms = lambda a, b: (moved[b] - moved[a]) * 1e3  # noqa: E731
+    card |= {
+        "node": CARD_NODE, "pods": [RECOVERY_JOB, RECOVERY_BATCH],
+        "gb": RECOVERY_GB, "suspect_after_s": RECOVERY_SUSPECT_AFTER_S,
+        "migrate_grace_s": RECOVERY_GRACE_S, "steps": RECOVERY_STEPS,
+        "checkpoint_landed_wait_s": moved["landed_wait_s"],
+        "freeze_to_suspect_ms": (moved["suspected"] - moved["frozen"]) * 1e3,
+        "suspect_to_stamp_ms": (moved["stamped"] - moved["suspected"]) * 1e3,
+        "stamp_to_evict_ms": ms("stamped", "evicted"),
+        "sigterm_to_exit_s": stopped["exit"] - stopped["sigterm"],
+        "resume_to_release_ms": ms("resumed", "released"),
+        "release_to_rebind_ms": ms("released", "rebound"),
+        "plan_cycles_during_move": moved["plan_cycles"],
+        "victim_steps": len(victim["steps"]),
+        "victim_checkpoints": landed_steps, "start_step": start,
+        "resumed_wall_s": resumed["wall_s"],
+        "straight_wall_s": straight["wall_s"],
+        "final_loss_exact": exact[0][0], "loss0_rel_diff": rel,
+        "cycle_ms_median": statistics.median(loop.cycle_ms),
+        "tick_ms_median": statistics.median(loop.tick_ms),
+        "cycles": len(loop.cycle_ms)}
+    launches = resumed["launches"]
+    emit({"phase": "recovery", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "parallel": parallel,
+          "fleet": fleet_line, "card": card, "main_loss0": main_loss0,
+          "launches": launches, "tile_launches": tiles,
+          "children": [{k: v for k, v in ch.items()
+                        if k not in ("stderr", "report", "confined",
+                                     "stamps", "steps")}
+                       | {"steps_logged": len(ch["steps"])}
+                       for ch in (victim, resumed, straight)]})
+    PATH_TILES["recovery"] = tiles
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -3860,8 +4450,9 @@ def main() -> int:
         phase_mig(device, smi)
         phase_quota(main_loss0, device, smi)
         gang = phase_gang(main_loss0, device, smi)
+        recovery = phase_recovery(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
-             "moe": moe, "gang": gang}
+             "moe": moe, "gang": gang, "recovery": recovery}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

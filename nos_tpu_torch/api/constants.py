@@ -67,6 +67,28 @@ LABEL_POD_GROUP = f"{GROUP}/pod-group"
 # LABEL_GPU_COUNT.
 LABEL_NVLINK_DOMAIN = f"{GROUP}/nvlink-domain"
 
+# The node's ordinal inside its NVLink domain (the JAX package's
+# nos.tpu/host-index): a domain's nodes are indexed contiguously from 0,
+# so a missing index is a vacancy, and a promoted warm spare takes over
+# the vanished node's index (partitioning/core/failure.py).
+LABEL_HOST_INDEX = f"{GROUP}/host-index"
+
+# Warm-spare hold: a node labelled ``nos.nebuly.com/spare: "warm"`` is a
+# pre-carved replacement kept out of scheduling (the SpareGuard filter
+# rejects every pod) and out of demand-driven planning (the partitioner
+# leaves it out of its snapshot).  Its geometry is already actuated, so
+# promoting it after a node loss is one label patch: the label comes off
+# and the vanished node's host index goes on (partitioning/core/
+# failure.py).
+LABEL_SPARE = f"{GROUP}/spare"
+SPARE_WARM = "warm"
+
+
+def is_warm_spare_labels(labels: dict) -> bool:
+    """The warm-spare predicate, shared by SpareGuard, the partitioner's
+    snapshot exclusion and the spare policy."""
+    return labels.get(LABEL_SPARE, "") == SPARE_WARM
+
 # Quota standing of a running pod, stamped by the ElasticQuota
 # reconciler (reference nos.nebuly.com/capacity, labels.go:19-24): the
 # label the preemption walk keys on.
@@ -148,9 +170,60 @@ def heartbeat_annotation(family: str = MIG_KIND) -> str:
 # that places it consumes the stamp.
 ANNOT_DISPLACED = f"{GROUP}/displaced"
 
+DISPLACED_NODE_LOSS = "node-loss"
+DISPLACED_DRAIN_MIGRATE = "drain-migrate"
+
 # The workload's own progress fraction in [0, 1]: a displaced preemptor
 # walks equal victims least progress first.
 ANNOT_JOB_PROGRESS = f"{GROUP}/job-progress"
+
+# Defragmentation drain: a host a defrag proposal is emptying (the value
+# is the proposal id).  The scheduler's score key avoids such hosts
+# whenever another fits, and the planner's candidate order visits them
+# last, so the freed room is not refilled by the pods just moved off it.
+ANNOT_DEFRAG_DRAIN = f"{GROUP}/defrag-drain"
+
+# Migration drains share the annotation with a "migrate:<kind>:<cause>"
+# value (partitioning/core/failure.py).  Unlike a defrag drain, soft
+# avoidance of a healthy host, a migration drain is a hard scheduling
+# rejection: the host is presumed dying.
+MIGRATION_DRAIN_PREFIX = "migrate:"
+
+
+def is_migration_drain(annotations: dict) -> bool:
+    """The migration-drain predicate, shared by MigrationDrainGuard, the
+    partitioner's snapshot exclusion and the recovery plane's heal."""
+    return annotations.get(ANNOT_DEFRAG_DRAIN, "").startswith(
+        MIGRATION_DRAIN_PREFIX)
+
+
+def migration_drain_value(kind: str, cause: str) -> str:
+    """``migrate:<kind>:<cause>``: the kind is the owning family, the
+    only one allowed to retract the drain (on a hybrid node both the MIG
+    and the MPS recovery planes may want it)."""
+    return f"{MIGRATION_DRAIN_PREFIX}{kind}:{cause}"
+
+
+def migration_drain_owner(annotations: dict) -> str:
+    """The family owning a node's migration drain, or "" when it carries
+    none (a defrag drain is not a migration drain)."""
+    raw = annotations.get(ANNOT_DEFRAG_DRAIN, "")
+    if not raw.startswith(MIGRATION_DRAIN_PREFIX):
+        return ""
+    kind, sep, _cause = raw[len(MIGRATION_DRAIN_PREFIX):].partition(":")
+    return kind if sep else ""
+
+
+# Migration request, stamped on a resident pod by drain-then-migrate
+# when its node is suspected of failing or marked for maintenance; the
+# value is the cause.  A workload that reads it exits cleanly at its
+# next checkpoint (the training main's signal checker, once it has a
+# kube client); one that does not is evicted after the migrate grace.
+ANNOT_MIGRATE = f"{GROUP}/migrate"
+
+# Maintenance signal: an operator stamps a node to ask for
+# drain-then-migrate ahead of planned work.  The value is free-form.
+ANNOT_MAINTENANCE = f"{GROUP}/maintenance"
 
 
 # The timeshare plugin's generation, bumped with every config it applies,

@@ -394,6 +394,9 @@ def main(argv=None) -> int:
     finally:
         if created:
             dist.destroy_process_group()
+    if loss is not None:
+        # every bit of it, for a restarted run held to a straight one
+        logger.info("final loss exact %s", float(loss).hex())
     done = ("done: already complete" if loss is None
             else f"done: final loss {loss:.4f}")
     logger.info("%s grant %s", done, json.dumps(grant_report(verified)))

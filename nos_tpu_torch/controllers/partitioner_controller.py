@@ -27,14 +27,20 @@ node's plan write starts an actuation clock, observed as
 ``nos_tpu_actuation_latency_seconds{kind,pool}`` when its status plan
 id catches up.
 
+The recovery plane (``partitioning/core/failure.py``: heartbeat
+suspicion, warm-spare promotion, drain-then-migrate), when the factory
+builds one, steps on every poll before the plan path, so a suspect node
+is out of the snapshot and a promoted spare in it by the next plan;
+without one, the migration drains a recovery-enabled predecessor left
+are healed once, at the first poll.  Warm spares and nodes under a
+migration drain are left out of the snapshot as quarantined nodes are.
+
 Left out, with the ROADMAP items that bring them: the background
-defragmenter and the self-healing recovery plane, with the sweep of
-stray migration drains (item 6); the exclusion of warm spares and of
-nodes under a migration drain from the snapshot (item 6; nothing in the
-port writes those labels); the actuation and quarantine holds of the
-chip-second ledger, ``obs/ledger.py`` (item 9).  The deadline, the
-rescan interval and the replan epoch are set by the JAX package's mains
-(ROADMAP item 8); until those come, they follow the batch's windows.
+defragmenter (item 6: it needs the windows, elastic gangs and the
+ledger); the actuation and quarantine holds of the chip-second ledger,
+``obs/ledger.py`` (item 9).  The deadline, the rescan interval and the
+replan epoch are set by the JAX package's mains (ROADMAP item 8); until
+those come, they follow the batch's windows.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES, record as journal_recor
 from nos_tpu_torch.obs.trace import span as obs_span
 from nos_tpu_torch.partitioning.core import (
     Actuator, Planner, QuarantineList, REASON_ACTUATION,
-    REASON_PLAN_DEADLINE, SnapshotTaker,
+    REASON_PLAN_DEADLINE, REASON_SUSPECT, SelfHealingPolicy, SnapshotTaker,
+    heal_stray_migration_drains,
 )
 from nos_tpu_torch.partitioning.state import ClusterState
 from nos_tpu_torch.topology.annotations import spec_plan_id, status_plan_id
@@ -83,6 +90,7 @@ class PartitionerController:
                  kind: str, planner: Planner, actuator: Actuator,
                  snapshot_taker: SnapshotTaker,
                  batcher: Batcher[Pod], quarantine: QuarantineList,
+                 recovery: SelfHealingPolicy | None = None,
                  clock: Callable[[], float] = time.monotonic) -> None:
         self._api = api
         self._state = cluster_state
@@ -99,6 +107,11 @@ class PartitionerController:
         # in the batcher and ride the next cycle.  The idle window as the
         # epoch keeps the batcher's own cadence.
         self._replan_epoch_s = batcher.idle_s
+        # the recovery plane, None when every recovery knob is off; a
+        # controller without it heals a predecessor's migration drains
+        # once (a clean cluster sees no write)
+        self._recovery = recovery
+        self._stray_migrations_healed = recovery is not None
         self._clock = clock
         self._last_scan = clock()
         # the first plan is never deferred: the epoch starts one period ago
@@ -134,6 +147,11 @@ class PartitionerController:
     def process_if_ready(self) -> bool:
         """Polled from the run loop; True if a plan cycle ran."""
         self._reconcile_quarantine()
+        if self._recovery is not None:
+            self._recovery.step(self._state.nodes())
+        elif not self._stray_migrations_healed:
+            self._stray_migrations_healed = True
+            heal_stray_migration_drains(self._api, self._kind)
         self._refresh_lagging_journal()
         self._observe_landed_actuations()
         if self._clock() - self._last_plan < self._replan_epoch_s:
@@ -183,8 +201,16 @@ class PartitionerController:
                 p for p in self._api.pods_by_phase(PENDING)
                 if extra_resources_could_help_scheduling(p)
             ]
+        # a warm spare joins no plan until it is promoted, and a node
+        # under a migration drain takes no pod (MigrationDrainGuard): both
+        # are left out with the quarantined nodes
+        exclude = set(self._quarantine.names())
+        for name, node in self._state.nodes().items():
+            if C.is_warm_spare_labels(node.metadata.labels) \
+                    or C.is_migration_drain(node.metadata.annotations):
+                exclude.add(name)
         snapshot = self._snapshot_taker.take_snapshot(
-            self._state, exclude=self._quarantine.names())
+            self._state, exclude=exclude)
         if not snapshot.nodes():
             return False
         with obs_span("partitioner.plan_cycle", kind=self._kind,
@@ -242,12 +268,13 @@ class PartitionerController:
                 continue
             if status_plan_id(annots, family=self._kind) == plan_id:
                 del self._actuation_started[name]
-                # the pool is the JAX package's TPU pod id; a GPU node
-                # has none until pools come (ROADMAP item 6)
+                # the pool is the node's NVLink domain, "-" unlabelled
+                pool = node.metadata.labels.get(
+                    C.LABEL_NVLINK_DOMAIN, "") or "-"
                 REGISTRY.observe(
                     "nos_tpu_actuation_latency_seconds",
                     max(0.0, now - t0),
-                    labels={"kind": self._kind, "pool": "-"})
+                    labels={"kind": self._kind, "pool": pool})
 
     def _rescan_due(self) -> list[Pod] | None:
         """The level-triggered backstop of the event-triggered batch
@@ -281,7 +308,9 @@ class PartitionerController:
         left the cluster or the kind; a deadline-quarantined node whose
         report caught up; an actuation-quarantined node after one
         deadline of cool-down, for a half-open probe (its spec equals
-        its status trivially, so only a fresh apply can prove it)."""
+        its status trivially, so only a fresh apply can prove it).  A
+        suspect is left to the failure detector: a wedged agent wrote
+        nothing new, so a caught-up report proves nothing."""
         items = self._quarantine.items()
         if not items:
             return
@@ -296,6 +325,8 @@ class PartitionerController:
                 if now - since >= self._plan_deadline_s:
                     self._quarantine.release_for_probe(
                         name, self._plan_deadline_s)
+            elif reason == REASON_SUSPECT:
+                pass
             elif self._node_reported(node):
                 self._lag_since.pop(name, None)
                 self._quarantine.unquarantine(name)

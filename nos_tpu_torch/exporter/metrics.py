@@ -5,9 +5,13 @@ series) or time a block with ``time``; read them back with ``value``
 and ``summary``.  ``REGISTRY`` is the process's registry, under the JAX
 package's names (dashboards and SLO objectives read them): the train
 main's gauges, the actuator's, the quarantine's, the controller's and
-the retry's counters, the plan and actuation clocks, the tracer's span
-seconds, the scheduler's latency clocks and pending gauges, the capacity
-plugin's preemption counters.  Serving it at ``/metrics`` needs the control plane's health
+the retry's counters, the plan and actuation clocks, the parallel
+planner's per-pool shard seconds and shard count
+(``partitioning/core/parallel.py``), the recovery plane's suspicions,
+warm spares held, promotions and drain-migration evictions
+(``partitioning/core/failure.py``), the tracer's span seconds, the
+scheduler's latency clocks and pending gauges, the capacity plugin's
+preemption counters.  Serving it at ``/metrics`` needs the control plane's health
 server, which the port does not have yet.
 """
 

@@ -7,13 +7,17 @@ context so a record links back to its span.
 
 ``record()`` takes the journal lock for the append only and calls
 nothing under it; timestamps come from the journal's injectable clock.
-The parallel planner's capture-and-replay waits for its slice.
+Under ``capture_records`` a context's records go to a ``JournalCapture``
+instead, which the parallel planner replays in pool-key order, so the
+journal is the same whatever the shards' thread timing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.utils.guards import guarded_by
@@ -35,6 +39,7 @@ PLAN_NODE_REVERTED = "plan-node-reverted"
 NODE_ACTUATED = "node-actuated"
 ACTUATION_FAILED = "actuation-failed"
 PLAN_CYCLE = "plan-cycle"
+PLAN_SHARD_MERGED = "plan-shard-merged"
 QUARANTINED = "quarantined"
 QUARANTINE_RELEASED = "quarantine-released"
 HANDSHAKE_WAIT = "handshake-wait"
@@ -50,6 +55,9 @@ QUOTA_RECLAIM = "quota-reclaim"
 PREEMPTION = "preemption"
 PREEMPTION_NONE = "preemption-none"
 JOB_REBOUND = "job-rebound"
+# -- the recovery plane's ------------------------------------------------
+JOB_DISPLACED = "job-displaced"
+SPARE_PROMOTED = "spare-promoted"
 
 
 class DecisionRecord:
@@ -126,6 +134,43 @@ class DecisionJournal(BoundedRing):
 
 _journal = DecisionJournal()
 
+# The capture of the running context, None to record straight to the
+# process journal (``capture_records``).
+_capture: "contextvars.ContextVar[JournalCapture | None]" = \
+    contextvars.ContextVar("nos_tpu_journal_capture", default=None)
+
+
+class JournalCapture:
+    """An ordered buffer of ``record()`` calls for a later replay.  It
+    stamps no sequence number or time and counts nothing: the replay
+    into the ambient journal does that once, so a captured decision
+    reads as one recorded inline."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple[str, str, dict]] = []
+
+    def record(self, category: str, subject: str,
+               **attrs: object) -> DecisionRecord:
+        self.calls.append((category, subject, attrs))
+        return DecisionRecord(0, 0.0, category, subject, attrs, "", "")
+
+    def replay(self) -> None:
+        """Record every captured decision, in capture order."""
+        for category, subject, attrs in self.calls:
+            record(category, subject, **attrs)
+
+
+@contextlib.contextmanager
+def capture_records(capture: JournalCapture) -> Iterator[JournalCapture]:
+    """Send this context's ``record()`` calls to ``capture`` (a context
+    variable, so a worker under ``contextvars.copy_context()`` captures
+    without touching its submitter's journal)."""
+    token = _capture.set(capture)
+    try:
+        yield capture
+    finally:
+        _capture.reset(token)
+
 
 def set_journal(journal: DecisionJournal) -> DecisionJournal:
     global _journal
@@ -135,5 +180,9 @@ def set_journal(journal: DecisionJournal) -> DecisionJournal:
 
 
 def record(category: str, subject: str, **attrs: object) -> DecisionRecord:
-    """Record a decision in the process journal."""
+    """Record a decision in the process journal, or in the running
+    context's capture."""
+    capture = _capture.get()
+    if capture is not None:
+        return capture.record(category, subject, **attrs)
     return _journal.record(category, subject, **attrs)

@@ -6,12 +6,17 @@ Without quarantine the plan handshake (one plan in flight per family)
 waits forever on a node whose ``status-partitioning-plan`` never
 catches up, and every later plan for every other node waits behind it.
 
-Two paths put a node here, both reversible:
+Three paths put a node here, all reversible:
 
 - **plan-deadline**: the node did not report a written plan within the
   controller's deadline (3 x the batch timeout);
 - **actuation-failures**: ``apply_partitioning`` failed on the node
-  ``FAILURE_THRESHOLD`` times in a row (the actuator's breaker).
+  ``FAILURE_THRESHOLD`` times in a row (the actuator's breaker);
+- **heartbeat-suspect**: the recovery plane's failure detector
+  (``failure.py``) saw the node agent's heartbeat frozen past its
+  threshold.  Only the detector releases it, once the heartbeat moves
+  again: a wedged agent wrote nothing new, so its spec equals its status
+  and a caught-up report proves nothing.
 
 A quarantined node is skipped by the handshake wait and left out of the
 next snapshot.  The controller releases it once its report catches up;
@@ -40,6 +45,7 @@ logger = logging.getLogger(__name__)
 
 REASON_PLAN_DEADLINE = "plan-deadline"
 REASON_ACTUATION = "actuation-failures"
+REASON_SUSPECT = "heartbeat-suspect"
 
 FAILURE_THRESHOLD = 3
 
@@ -117,6 +123,12 @@ class QuarantineList:
     def is_quarantined(self, node: str) -> bool:
         with self._lock:
             return node in self._quarantined
+
+    def reason(self, node: str) -> str:
+        """The node's quarantine reason, "" when it is not quarantined."""
+        with self._lock:
+            entry = self._quarantined.get(node)
+            return entry[0] if entry else ""
 
     def names(self) -> frozenset[str]:
         with self._lock:

@@ -13,14 +13,15 @@ Inside a fork, mutate only through ``get_node_for_write`` or
 ``add_pod``: ``get_node`` and ``nodes()`` are read views whose mutation
 ``revert()`` cannot undo.  Every node-object replacement bumps that
 node's generation, so ``shared_lister()`` re-reads exactly the changed
-NodeInfos.  The parallel planner's ``subset()`` waits for its slice.
+NodeInfos.  ``subset()`` gives the parallel planner's shards their own
+snapshots over disjoint node sets, sharing the node objects.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Iterable, Mapping
 
-from nos_tpu_torch.api.constants import RESOURCE_GPU
+from nos_tpu_torch.api.constants import ANNOT_DEFRAG_DRAIN, RESOURCE_GPU
 from nos_tpu_torch.kube.objects import Pod
 from nos_tpu_torch.kube.resources import negatives_only, pod_request, subtract
 from nos_tpu_torch.scheduler.framework import SharedLister
@@ -101,6 +102,23 @@ class ClusterSnapshot:
             {n: pn.clone() for n, pn in self._nodes.items()}, self._filter
         )
 
+    def subset(self, names: Iterable[str]) -> "ClusterSnapshot":
+        """A snapshot of ``names`` alone sharing the node objects (no
+        copy): a parallel planner's shard.  It keeps its own fork, dirty
+        set and generations, so a fork on it clones into its own map and
+        never writes through to this snapshot's entries; an in-place
+        mutation does write through, so concurrent subsets are safe when
+        their name sets are disjoint, as the pools are.  Refused while
+        forked, as ``clone`` is."""
+        if self._forked is not None:
+            raise SnapshotError("cannot subset a forked snapshot")
+        names = sorted(names)
+        missing = [n for n in names if n not in self._nodes]
+        if missing:
+            raise SnapshotError(f"unknown node(s) {missing}")
+        return ClusterSnapshot({n: self._nodes[n] for n in names},
+                               self._filter)
+
     # -- write access -------------------------------------------------------
     def _bump_node(self, name: str) -> None:
         self._node_gen[name] = self._node_gen.get(name, 0) + 1
@@ -151,9 +169,11 @@ class ClusterSnapshot:
         """Nodes with any free capacity, best fit first: fewest free
         GPU-equivalents, then name (the reference visits name order,
         snapshot.go:119-130; carving new demand into the fullest node
-        that fits keeps empty nodes whole).  Memoised on the mutation
-        epoch.  The JAX package also sends nodes under a gang-window
-        lease or a defrag drain last; neither is ported yet."""
+        that fits keeps empty nodes whole).  Nodes under a defrag drain
+        go last: the room a defrag move frees is for the demand it was
+        made for.  Memoised on the mutation epoch.  The JAX package
+        ranks nodes under a gang-window lease last as well; the lease
+        comes with the windows (ROADMAP item 7.2)."""
         cached = self._candidate_cache
         if cached is not None and cached[0] == self._mutation_gen:
             return [self._nodes[n] for n in cached[1]]
@@ -172,10 +192,12 @@ class ClusterSnapshot:
                 sevenths += _gpu_sevenths(k, qty)
             if not has_free:
                 continue
-            out.append((sevenths, name, node))
-        out.sort(key=lambda t: (t[0], t[1]))
-        self._candidate_cache = (self._mutation_gen, [t[1] for t in out])
-        return [t[2] for t in out]
+            drained = bool(ni.node.metadata.annotations.get(
+                ANNOT_DEFRAG_DRAIN))
+            out.append((drained, sevenths, name, node))
+        out.sort(key=lambda t: (t[0], t[1], t[2]))
+        self._candidate_cache = (self._mutation_gen, [t[2] for t in out])
+        return [t[3] for t in out]
 
     def get_lacking_slices(self, pod: Pod) -> dict[str, int]:
         """Cluster-wide (allocatable - requested) - request, negatives

@@ -3,11 +3,12 @@
 internal/partitioning/mig/factory.go:31-64).
 
 As ``timeshare/factory.py`` does, ``new_slice_partitioner_controller``
-builds the sequential ``GeometryPlanner`` on the default ``Framework``.
-The JAX factory wraps a ``MultiHostGeometryPlanner`` (``group.py``:
-multi-host carves, which no MIG instance needs) in a
-``ParallelGeometryPlanner``, and adds the defrag and recovery planes;
-the parallel planner and both planes come with ROADMAP queue 1 item 6.
+wraps the sequential ``GeometryPlanner`` in a ``ParallelGeometryPlanner``
+and builds the recovery plane when ``spare_hosts_per_pool`` or
+``node_suspect_after_s`` is set.  The JAX factory's planner is a
+``MultiHostGeometryPlanner`` (``group.py``: multi-host carves, which no
+MIG instance needs), and it adds the defrag plane, which waits for the
+windows, elastic gangs and the ledger (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ from nos_tpu_torch.kube.client import APIServer
 from nos_tpu_torch.scheduler.framework import Framework
 from nos_tpu_torch.utils.batcher import Batcher
 
-from ..core import GeometryActuator, GeometryPlanner, QuarantineList
+from ..core import (
+    PLAN_SHARD_MIN_HOSTS, GeometryActuator, GeometryPlanner,
+    ParallelGeometryPlanner, QuarantineList, SelfHealingPolicy,
+)
 from ..state import ClusterState
 from .calculators import SlicePartitionCalculator, SliceProfileCalculator
 from .partitioner import SliceNodeInitializer, SlicePartitioner
@@ -30,6 +34,11 @@ from .snapshot_taker import SliceSnapshotTaker
 def new_slice_partitioner_controller(
     api: APIServer, cluster_state: ClusterState,
     batch_timeout_s: float = 60.0, batch_idle_s: float = 10.0,
+    plan_shard_min_hosts: int = PLAN_SHARD_MIN_HOSTS,
+    plan_workers: int = 0,
+    spare_hosts_per_pool: int = 0,
+    node_suspect_after_s: float = 0.0,
+    migrate_grace_s: float = 5.0,
     clock: Callable[[], float] = time.monotonic,
 ):
     from nos_tpu_torch.controllers.partitioner_controller import (
@@ -37,18 +46,34 @@ def new_slice_partitioner_controller(
     )
 
     partition_calculator = SlicePartitionCalculator()
-    planner = GeometryPlanner(
-        framework=Framework(), calculator=SliceProfileCalculator(),
-        partition_calculator=partition_calculator)
+
+    def make_planner() -> GeometryPlanner:
+        # one framework per shard: its plugin lock must not serialise
+        # concurrent shards
+        return GeometryPlanner(
+            framework=Framework(), calculator=SliceProfileCalculator(),
+            partition_calculator=partition_calculator)
+
+    planner = ParallelGeometryPlanner(
+        make_planner, SliceProfileCalculator(), kind=C.MIG_KIND,
+        max_workers=plan_workers, min_shard_hosts=plan_shard_min_hosts,
+        clock=clock)
     quarantine = QuarantineList(kind=C.MIG_KIND, clock=clock)
     actuator = GeometryActuator(SlicePartitioner(api), partition_calculator,
                                 quarantine=quarantine)
     batcher = Batcher(batch_timeout_s, batch_idle_s, clock=clock)
+    recovery = None
+    if spare_hosts_per_pool > 0 or node_suspect_after_s > 0:
+        recovery = SelfHealingPolicy(
+            api, C.MIG_KIND, quarantine,
+            spare_hosts_per_pool=spare_hosts_per_pool,
+            suspect_after_s=node_suspect_after_s,
+            migrate_grace_s=migrate_grace_s, clock=clock)
     return PartitionerController(
         api=api, cluster_state=cluster_state, kind=C.MIG_KIND,
         planner=planner, actuator=actuator,
         snapshot_taker=SliceSnapshotTaker(), batcher=batcher,
-        quarantine=quarantine, clock=clock,
+        quarantine=quarantine, recovery=recovery, clock=clock,
     )
 
 

@@ -6,11 +6,12 @@ hypothetical node states inside its partitioning planner (reference
 internal/partitioning/core/planner.go:178-207, wired with a fake shared
 lister at cmd/gpupartitioner/gpupartitioner.go:294-318).  This module is
 that framework: the planner's what-if runs PreFilter and Filter of the
-same plugins a scheduler would.  The JAX package's warm-spare and
-migration-drain guards come with the defrag and failure planes, its
-native Filter prescreen (``scheduler/native_filter.py``) only if it
-pays (ROADMAP items 6 and 23); the default framework is
-``NodeResourcesFit`` alone, as there.
+same plugins a scheduler would.  ``SpareGuard`` and
+``MigrationDrainGuard`` hold the recovery plane's warm spares and
+migrating nodes out of every placement.  The JAX package's native Filter
+prescreen (``scheduler/native_filter.py``) comes only if it pays
+(ROADMAP item 23); the default framework is ``NodeResourcesFit`` alone,
+as there.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import threading
 from dataclasses import dataclass, field
 from typing import Iterable, Protocol, runtime_checkable
 
-from nos_tpu_torch.api.constants import LABEL_ACCELERATOR, LABEL_POD_GROUP
+from nos_tpu_torch.api.constants import (
+    LABEL_ACCELERATOR, LABEL_POD_GROUP, is_migration_drain,
+    is_warm_spare_labels,
+)
 from nos_tpu_torch.kube.objects import Node, Pod
 from nos_tpu_torch.kube.resources import (
     ResourceList, fits, pod_request, subtract, sum_resources,
@@ -254,6 +258,46 @@ class NodeResourcesFit:
         return Status.unschedulable(
             f"insufficient {', '.join(sorted(missing))}"
         )
+
+
+# ---------------------------------------------------------------------------
+# Built-in plugins: the recovery plane's holds
+# ---------------------------------------------------------------------------
+
+
+class SpareGuard:
+    """A node labelled ``spare: "warm"`` is a carved warm replacement
+    (``partitioning/core/failure.py``): it takes no pod until the spare
+    policy promotes it by taking the label off.  A plain Filter, so every
+    placement path (the cycle, gang what-ifs, preemption what-ifs)
+    respects the hold.  With no spare in the cluster it rejects
+    nothing."""
+
+    name = "SpareGuard"
+
+    def filter(self, state: CycleState, pod: Pod,
+               node_info: NodeInfo) -> Status:
+        if is_warm_spare_labels(node_info.node.metadata.labels):
+            return Status.unschedulable("node held as warm spare")
+        return Status.ok()
+
+
+class MigrationDrainGuard:
+    """A node being drain-migrated (``defrag-drain`` with a ``migrate:``
+    value, stamped by ``failure.py`` on a suspect or maintenance node)
+    takes no new pod: its agent is presumed dying, so a pod bound there
+    would be admitted by nobody and lost with the node.  Harder than a
+    defrag drain (same annotation, a proposal id), which stays a soft
+    avoidance in the score key.  With no migration drain it rejects
+    nothing."""
+
+    name = "MigrationDrainGuard"
+
+    def filter(self, state: CycleState, pod: Pod,
+               node_info: NodeInfo) -> Status:
+        if is_migration_drain(node_info.node.metadata.annotations):
+            return Status.unschedulable("node draining for migration")
+        return Status.ok()
 
 
 # ---------------------------------------------------------------------------

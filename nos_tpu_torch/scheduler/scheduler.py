@@ -716,11 +716,18 @@ class Scheduler:
 
     @staticmethod
     def _score_key(pod: Pod) -> Callable[[NodeInfo], tuple]:
+        """Nodes under a defrag drain last (the room a defrag move frees
+        is for the demand it was made for), then the least headroom on
+        the pod's own resources, then the name.  The JAX package also
+        avoids the hosts a stuck gang's window lease reserves; the lease
+        comes with the windows (ROADMAP item 7.2)."""
         req = pod_request(pod)
 
         def key(ni: NodeInfo) -> tuple:
             free = ni.free()
-            return (sum(free.get(r, 0.0) for r in req), ni.name)
+            drained = bool(ni.node.metadata.annotations.get(
+                C.ANNOT_DEFRAG_DRAIN))
+            return (drained, sum(free.get(r, 0.0) for r in req), ni.name)
 
         return key
 

@@ -37,11 +37,14 @@ def make_gpu_node(name: str = "", model: GpuModel = H100_80GB,
                   gpus: int = 8, partitioning: str = C.MPS_KIND,
                   status_geometry: Mapping[int, Mapping[str, Mapping[str, int]]]
                   | None = None,
-                  extra_labels: dict | None = None, domain: str = "") -> Node:
+                  extra_labels: dict | None = None, domain: str = "",
+                  host_index: int | None = None,
+                  spare: bool = False) -> Node:
     """A node of ``gpus`` cards of ``model``.  ``status_geometry`` is
     {GPU index: {"free" | "used": {profile: qty}}}, rendered as the node
     agent's status annotations and added to the allocatable.  ``domain``
-    names its NVLink domain ("": unlabelled)."""
+    names its NVLink domain ("": unlabelled), ``host_index`` its ordinal
+    there (None: unlabelled); ``spare`` holds it as a warm spare."""
     labels = {
         C.LABEL_ACCELERATOR: model.name,
         C.LABEL_PARTITIONING: partitioning,
@@ -49,6 +52,10 @@ def make_gpu_node(name: str = "", model: GpuModel = H100_80GB,
     }
     if domain:
         labels[C.LABEL_NVLINK_DOMAIN] = domain
+    if host_index is not None:
+        labels[C.LABEL_HOST_INDEX] = str(host_index)
+    if spare:
+        labels[C.LABEL_SPARE] = C.SPARE_WARM
     labels.update(extra_labels or {})
     annotations: dict[str, str] = {}
     allocatable: dict[str, float] = {

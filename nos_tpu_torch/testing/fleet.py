@@ -52,6 +52,16 @@ and gets two (it waits), and train-a's "train-a-mesh" of four members
 with mesh 8x16 (128 GPUs: only nvl-0 holds it).  Nothing of the quota
 fleet is cut further; ``run_quota_fleet`` runs it too.
 
+The recovery fleet (``recovery_fleet_spec``, ``run_recovery_fleet``) is
+``bench_nodeloss.py``'s trace on the gang fleet's layout through the MPS
+loop: the 32 nodes start virgin, each with its host index in its NVLink
+domain, and nvl-0 and nvl-1 hold a warm spare each; jobs of the bench's
+classes (2-member gangs and single pods of an 80gb share, small pods of
+a 40gb one) keep ~92% of the GPUs in flight; three kills alternate the
+domains, a wedged agent in nvl-0 dies later, and a fresh spare joins a
+domain 30 s after each kill.  The bench's 300 s on a 0.25 s tick are
+cut to 150 s on a 1 s tick, its waste ledger left out (ROADMAP item 9).
+
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
 plan to what both packages must agree on, and ``plan_digest`` hashes it;
@@ -107,6 +117,19 @@ def fleet_spec(seed: int = 0, nodes: int = NODES,
                  full_nodes, pending)
 
 
+def domain_fleet_spec(seed: int = 0) -> dict:
+    """``fleet_spec(seed)`` with the gang fleet's NVLink layout: each
+    node's ``domain`` and, in a domain, its ``host_index``.  The parallel
+    planner shards it into three plan pools (nvl-0, nvl-1 and the
+    unlabelled nodes)."""
+    spec = fleet_spec(seed)
+    for node, (domain, index) in zip(spec["nodes"], _domain_layout()):
+        node["domain"] = domain
+        if index is not None:
+            node["host_index"] = index
+    return spec
+
+
 def mig_fleet_spec(seed: int = 0, nodes: int = NODES,
                    full_nodes: int = FULL_NODES,
                    pending: int = PENDING_PODS) -> dict:
@@ -155,7 +178,9 @@ def build_cluster(spec: dict, model: GpuModel = H100_80GB) -> ClusterState:
     for n in spec["nodes"]:
         node = make_gpu_node(n["name"], model=model, gpus=n["gpus"],
                              partitioning=n["kind"],
-                             status_geometry=n["status"])
+                             status_geometry=n["status"],
+                             domain=n.get("domain", ""),
+                             host_index=n.get("host_index"))
         for index, records in n.get("placements", {}).items():
             node.metadata.annotations[f"{C.ANNOT_PLACEMENTS_PREFIX}{index}"] = \
                 encode_placement_records(
@@ -298,17 +323,28 @@ def quota_fleet_spec(seed: int = 0) -> dict:
     return {"nodes": nodes, "quotas": quotas, "waves": waves}
 
 
+def _domain_layout(nodes: int = NODES) -> list[tuple[str, int | None]]:
+    """(NVLink domain, host index) of each node from node 0: the
+    GANG_FLEET_DOMAINS in order, each indexed from 0, then unlabelled
+    nodes with no index."""
+    out: list[tuple[str, int | None]] = [
+        (d, i) for d, n in GANG_FLEET_DOMAINS for i in range(n)]
+    return (out + [("", None)] * nodes)[:nodes]
+
+
 def gang_fleet_spec(seed: int = 0) -> dict:
     """The gang fleet's spec: ``quota_fleet_spec(seed)`` with each node's
-    ``domain`` (GANG_FLEET_DOMAINS, "" past them), the PodGroups
+    ``domain`` (GANG_FLEET_DOMAINS, "" past them) and, in a domain, its
+    ``host_index`` there (no scheduler reads it), the PodGroups
     (``groups`` {name, namespace, min, mesh}), a third wave of gang
     members {..., gang} at GANG_PRIORITY, created in the third hour in
     an order drawn from ``seed``, and the scheduler's clock ``now``."""
     spec = quota_fleet_spec(seed)
     rng = np.random.default_rng(seed + 1)
-    domains = [d for d, n in GANG_FLEET_DOMAINS for _ in range(n)]
-    for i, node in enumerate(spec["nodes"]):
-        node["domain"] = domains[i] if i < len(domains) else ""
+    for node, (domain, index) in zip(spec["nodes"], _domain_layout()):
+        node["domain"] = domain
+        if index is not None:
+            node["host_index"] = index
     groups, rows = [], []
     for ns, prefix, mesh, members, need, jobs in GANG_FLEET_JOBS:
         for j in range(jobs):
@@ -454,7 +490,8 @@ def run_quota_fleet(spec: dict) -> dict:
         domain_of[n["name"]] = n.get("domain", "")
         api.create("Node", make_gpu_node(
             n["name"], gpus=n["gpus"], partitioning=n["kind"],
-            status_geometry=n["status"], domain=n.get("domain", "")))
+            status_geometry=n["status"], domain=n.get("domain", ""),
+            host_index=n.get("host_index")))
 
     def create(p):
         labels = {C.LABEL_TIER: p["tier"]} if p["tier"] else {}
@@ -555,3 +592,477 @@ def run_quota_fleet(spec: dict) -> dict:
         "domains": {g: sorted(d) for g, d in sorted(placed.items())},
     })
     return out
+
+
+# -- the recovery fleet ------------------------------------------------------
+
+# bench_nodeloss.py's trace on the gang fleet's layout, on a one-second
+# tick: three kills alternating nvl-0 and nvl-1, a wedged agent in nvl-0
+# that later dies, a fresh spare RECOVERY_REFILL_S after each kill
+RECOVERY_TICK_S = 1.0
+RECOVERY_TRACE_S = 150.0
+RECOVERY_SETTLE_S = 30.0
+RECOVERY_KILLS = ((50.0, "nvl-0"), (80.0, "nvl-1"), (110.0, "nvl-0"))
+RECOVERY_WEDGE = (65.0, "nvl-0")
+RECOVERY_WEDGE_DEATH_T = 95.0
+RECOVERY_REFILL_S = 30.0
+RECOVERY_SPARE_INDEX = 100
+RECOVERY_SUSPECT_AFTER_S = 5.0
+RECOVERY_GRACE_S = 3.0
+RECOVERY_BATCH_IDLE_S = 0.5
+RECOVERY_BATCH_TIMEOUT_S = 2.0
+RECOVERY_NAMESPACE = "work"
+# class -> (share GB, members, priority), a slice host mapped to an 80gb
+# share and a 2x2 to a 40gb one, as the fleets map them
+RECOVERY_CLASSES = {"gang": (80, 2, 5), "slice": (80, 1, 0),
+                    "small": (40, 1, 0)}
+RECOVERY_DURATION_S = {"gang": (50.0, 90.0), "slice": (30.0, 60.0),
+                       "small": (20.0, 40.0)}
+# GPUs in flight (pending and running) per class: 236 of the 256, the
+# bench's ~92% of its active chips
+RECOVERY_TARGETS = {"gang": 96.0, "slice": 80.0, "small": 60.0}
+# the journal's records the recovery fleet's summary keeps
+RECOVERY_RECORDS = ("quarantined", "quarantine-released", "spare-promoted",
+                    "job-displaced", "job-rebound")
+
+
+def recovery_fleet_spec(seed: int = 0) -> dict:
+    """The recovery fleet's spec: the gang fleet's 32 x 8 H100 80GB
+    nodes on the MPS family, virgin (the planner carves them for
+    demand), each with its NVLink domain and host index, and one warm
+    spare per labelled domain (``spares``, host index parked at
+    RECOVERY_SPARE_INDEX).  ``seed`` draws the jobs' durations."""
+    nodes = [{"name": f"gpu-node-{i}", "domain": d, "host_index": idx}
+             for i, (d, idx) in enumerate(_domain_layout())]
+    spares = [{"name": f"spare-{d}-0", "domain": d,
+               "host_index": RECOVERY_SPARE_INDEX, "spare": True}
+              for d, _ in GANG_FLEET_DOMAINS]
+    return {"seed": seed, "nodes": nodes, "spares": spares}
+
+
+def _percentile(xs: list[float], q: float) -> float | None:
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+class _RecoveryTrace:
+    """bench_nodeloss.py's ``Sim`` over an ``ops`` object: the workload
+    (jobs spawned up to each class's target, finished after their
+    duration), the kill and wedge schedule, and the workload controller
+    that recreates lost pods with the ``displaced`` stamp.  ``ops`` is
+    one package's loop; the trace decides only from what ``ops`` shows,
+    so two packages that decide alike run the same trace."""
+
+    def __init__(self, spec: dict, ops) -> None:
+        self.ops = ops
+        self.rng = np.random.default_rng(spec["seed"])
+        self.jobs: dict[str, dict] = {}
+        self.pod_job: dict[str, dict] = {}
+        self.pod_node: dict[str, str] = {}
+        self.killed: set[str] = set()
+        self.wedged: set[str] = set()
+        self.affected: set[str] = set()
+        self.displaced_at: dict[str, float] = {}
+        self.rebind_s: list[float] = []
+        self.episodes = 0
+        self.completed = 0
+        self.seq = 0
+        self.spare_seq = {d: 0 for d, _ in GANG_FLEET_DOMAINS}
+        self.ticks: list[list] = []
+        self.poll_ms: list[float] = []
+        self.prev: dict[str, str] = {}
+        for n in spec["nodes"] + spec["spares"]:
+            ops.add_node(n)
+
+    def now(self) -> float:
+        return self.ops.now[0]
+
+    # -- faults ---------------------------------------------------------
+    def busiest(self, domain: str, exclude=()) -> str | None:
+        """The active node of ``domain`` hosting the most distinct jobs
+        (ties: the most GPUs), first by name."""
+        residents: dict[str, list[str]] = {}
+        for name, node, _ in self.ops.pods():
+            if node:
+                residents.setdefault(node, []).append(name)
+        best, best_key = None, (-1, -1.0)
+        for name, (dom, _, spare) in sorted(self.ops.nodes().items()):
+            if dom != domain or spare or name in exclude:
+                continue
+            pods = residents.get(name, [])
+            jobs = {self.pod_job[p]["name"] for p in pods
+                    if p in self.pod_job}
+            key = (len(jobs), sum(self.pod_job[p]["gb"] / 80.0
+                                  for p in pods if p in self.pod_job))
+            if key > best_key:
+                best, best_key = name, key
+        return best
+
+    def kill(self, name: str) -> None:
+        for pod, node, _ in self.ops.pods():
+            if node == name:
+                self.killed.add(pod)
+        self.ops.kill(name)
+        self.wedged.discard(name)
+
+    def add_spare(self, domain: str) -> None:
+        self.spare_seq[domain] += 1
+        seq = self.spare_seq[domain]
+        self.ops.add_node({"name": f"spare-{domain}-{seq}",
+                           "domain": domain,
+                           "host_index": RECOVERY_SPARE_INDEX + seq,
+                           "spare": True})
+
+    def faults(self, t: float, refills: list) -> None:
+        for kt, domain in RECOVERY_KILLS:
+            if kt == t:
+                victim = self.busiest(domain)
+                if victim is not None:
+                    self.kill(victim)
+                    refills.append((t + RECOVERY_REFILL_S, domain))
+        if RECOVERY_WEDGE[0] == t:
+            victim = self.busiest(RECOVERY_WEDGE[1], exclude=self.wedged)
+            if victim is not None:
+                self.wedged.add(victim)     # its agent stops ticking
+        if RECOVERY_WEDGE_DEATH_T == t:
+            for name in sorted(self.wedged):
+                if name in self.ops.nodes():
+                    self.kill(name)
+        for due, domain in [r for r in refills if r[0] == t]:
+            refills.remove((due, domain))
+            self.add_spare(domain)
+
+    # -- the workload ---------------------------------------------------
+    def spawn(self) -> None:
+        footprint = {cls: 0.0 for cls in RECOVERY_TARGETS}
+        for name, _, _ in self.ops.pods():
+            job = self.pod_job.get(name)
+            if job is not None:
+                footprint[job["kind"]] += job["gb"] / 80.0
+        for cls, target in RECOVERY_TARGETS.items():
+            while footprint[cls] < target:
+                footprint[cls] += self.spawn_job(cls)
+
+    def spawn_job(self, cls: str) -> float:
+        gb, members, priority = RECOVERY_CLASSES[cls]
+        lo, hi = RECOVERY_DURATION_S[cls]
+        self.seq += 1
+        name = f"{cls}-{self.seq}"
+        # distinct creation times: the admission order never falls to a
+        # tie
+        job = {"name": name, "kind": cls, "gb": gb, "priority": priority,
+               "duration": float(self.rng.uniform(lo, hi)),
+               "created": self.now() + self.seq * 1e-4, "bound_at": None,
+               "pods": [f"{name}-{i}" for i in range(members)]}
+        if members > 1:
+            self.ops.create_group(name, members)
+        for pod in job["pods"]:
+            self.create(job, pod, "")
+            self.pod_job[pod] = job
+        self.jobs[name] = job
+        return members * gb / 80.0
+
+    def create(self, job: dict, pod: str, displaced: str) -> None:
+        self.ops.create_pod({
+            "name": pod, "gb": job["gb"], "priority": job["priority"],
+            "created": job["created"],
+            "gang": job["name"] if len(job["pods"]) > 1 else "",
+            "displaced": displaced})
+
+    def complete(self) -> None:
+        for job in list(self.jobs.values()):
+            if job["bound_at"] is None \
+                    or self.now() < job["bound_at"] + job["duration"]:
+                continue
+            for pod in job["pods"]:
+                self.ops.delete_pod(pod)
+                self.pod_job.pop(pod, None)
+            if len(job["pods"]) > 1:
+                self.ops.delete_group(job["name"])
+            del self.jobs[job["name"]]
+            self.affected.discard(job["name"])
+            self.displaced_at.pop(job["name"], None)
+            self.completed += 1
+
+    def requeue(self) -> None:
+        """The workload controller: a live job's missing pods come back,
+        with the displaced stamp (cause and time) when node loss or a
+        migration took them."""
+        from nos_tpu_torch.utils.pod_util import displaced_value
+
+        live = {name for name, _, _ in self.ops.pods()}
+        for job in self.jobs.values():
+            missing = [p for p in job["pods"] if p not in live]
+            if not missing:
+                continue
+            job["bound_at"] = None
+            for pod in missing:
+                cause = None
+                if pod in self.killed:
+                    self.killed.discard(pod)
+                    cause = C.DISPLACED_NODE_LOSS
+                elif self.pod_node.get(pod) in self.wedged:
+                    cause = C.DISPLACED_DRAIN_MIGRATE
+                stamp = ""
+                if cause is not None:
+                    if job["name"] not in self.affected:
+                        self.affected.add(job["name"])
+                        self.episodes += 1
+                        self.displaced_at[job["name"]] = self.now()
+                    stamp = displaced_value(
+                        cause, self.displaced_at[job["name"]])
+                self.pod_node.pop(pod, None)
+                self.create(job, pod, stamp)
+
+    def record_binds(self) -> None:
+        rows = self.ops.pods()
+        bound = {name: node for name, node, phase in rows
+                 if node and phase == "Running"}
+        self.pod_node.update(bound)
+        for job in self.jobs.values():
+            if job["bound_at"] is None and all(p in bound
+                                               for p in job["pods"]):
+                job["bound_at"] = self.now()
+                if job["name"] in self.affected:
+                    self.affected.discard(job["name"])
+                    self.rebind_s.append(
+                        self.now() - self.displaced_at.pop(job["name"]))
+        now = {name: node for name, node, _ in rows}
+        binds = sorted(n for n, node in now.items()
+                       if node and not self.prev.get(n))
+        gone = sorted(set(self.prev) - set(now))
+        if binds or gone:
+            self.ticks.append([self.now(), binds, gone])
+        self.prev = now
+
+    def tick(self, spawn: bool = True) -> None:
+        self.complete()
+        if spawn:
+            self.spawn()
+        self.ops.cycle()
+        self.requeue()
+        t0 = time.perf_counter()
+        self.ops.poll()
+        self.poll_ms.append((time.perf_counter() - t0) * 1e3)
+        self.ops.tick(sorted(n for n in self.ops.agents()
+                             if n not in self.wedged))
+        self.record_binds()
+
+    def run(self) -> dict:
+        refills: list[tuple[float, str]] = []
+        steps = int(round(RECOVERY_TRACE_S / RECOVERY_TICK_S))
+        for i in range(steps + 1):
+            t = i * RECOVERY_TICK_S
+            self.ops.now[0] = t
+            self.faults(t, refills)
+            self.tick()
+        # the tail: no kill and no new job; a job displaced just before
+        # the end gets its rebind before never_rebound is read
+        t = RECOVERY_TRACE_S
+        while self.affected and t < RECOVERY_TRACE_S + RECOVERY_SETTLE_S:
+            t += RECOVERY_TICK_S
+            self.ops.now[0] = t
+            self.tick(spawn=False)
+        records = self.ops.records()
+        summary = {
+            "ticks": self.ticks,
+            "nodes": {n: list(v) for n, v in sorted(self.ops.nodes().items())},
+            "records": records,
+            "episodes": self.episodes,
+            "rebound": len(self.rebind_s),
+            "never_rebound": sorted(self.affected),
+            "rebind_s": self.rebind_s,
+            "completed": self.completed,
+            "drain_migrations": self.ops.drain_migrations(),
+        }
+        return {
+            "summary": summary, "poll_ms": self.poll_ms,
+            "ticks": len(self.poll_ms),
+            "suspicions": sum(r[0] == "quarantined"
+                              and r[2].get("reason") == "heartbeat-suspect"
+                              for r in records),
+            "promotions": sum(r[0] == "spare-promoted" for r in records),
+            "migrations": len({r[2]["node"] for r in records
+                               if r[0] == "job-displaced"}),
+            "straggler_evictions": summary["drain_migrations"],
+            "displaced_episodes": self.episodes,
+            "never_rebound": len(self.affected),
+            "rebind_p50_s": _percentile(self.rebind_s, 0.5),
+            "rebind_p90_s": _percentile(self.rebind_s, 0.9),
+        }
+
+
+def drive_recovery_fleet(spec: dict, ops) -> dict:
+    """The recovery fleet's trace over one package's loop.  ``ops`` gives
+    ``now`` (a one-element list, the loop's clock), ``add_node(n)`` (a
+    node and its agent), ``kill(name)`` (its agent stopped, its pods and
+    the node deleted), ``create_group(name, members)``,
+    ``delete_group(name)``, ``create_pod(p)``, ``delete_pod(name)``,
+    ``cycle()`` (the scheduler), ``poll()`` (the controller),
+    ``agents()``, ``tick(names)``, ``pods()`` ((name, node, phase)
+    rows), ``nodes()`` (name -> (domain, host index label, spare)),
+    ``records()`` (the RECOVERY_RECORDS as (category, subject, attrs),
+    in the port's names) and ``drain_migrations()`` (the straggler
+    evictions).  Returns the summary both packages must agree on and the
+    run's figures."""
+    return _RecoveryTrace(spec, ops).run()
+
+
+class PortRecoveryOps:
+    """The port's loop for ``drive_recovery_fleet``: node and pod
+    controllers, the MPS partitioner controller from its factory with
+    the recovery plane on (one spare a domain; ``recovery`` False: every
+    recovery knob at 0), a ChipAgent a node and ``build_scheduler``, all
+    on one virtual clock."""
+
+    def __init__(self, recovery: bool = True) -> None:
+        from nos_tpu_torch.cmd.assembly import build_scheduler
+        from nos_tpu_torch.controllers.node_controller import NodeController
+        from nos_tpu_torch.controllers.pod_controller import PodController
+        from nos_tpu_torch.exporter.metrics import REGISTRY
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.obs import journal as J
+        from nos_tpu_torch.partitioning.timeshare import (
+            new_timeshare_partitioner_controller)
+
+        self.now = [0.0]
+        clock = lambda: self.now[0]  # noqa: E731
+        # the run's own journal: the caller installs it for the run
+        self.journal = J.DecisionJournal(maxlen=1 << 18, clock=clock)
+        self.drain0 = REGISTRY.value("nos_tpu_drain_migrations_total",
+                                     {"kind": C.MPS_KIND}) or 0.0
+        self.api = APIServer()
+        state = ClusterState()
+        NodeController(self.api, state).bind()
+        PodController(self.api, state).bind()
+        self.controller = new_timeshare_partitioner_controller(
+            self.api, state, batch_timeout_s=RECOVERY_BATCH_TIMEOUT_S,
+            batch_idle_s=RECOVERY_BATCH_IDLE_S,
+            spare_hosts_per_pool=1 if recovery else 0,
+            node_suspect_after_s=RECOVERY_SUSPECT_AFTER_S if recovery
+            else 0.0,
+            migrate_grace_s=RECOVERY_GRACE_S, clock=clock)
+        self.controller.bind()
+        self.sched = build_scheduler(self.api, clock=clock)
+        self._agents: dict = {}
+
+    def add_node(self, n: dict) -> None:
+        from nos_tpu_torch.controllers.chipagent import ChipAgent
+
+        self.api.create("Node", make_gpu_node(
+            n["name"], domain=n["domain"], host_index=n["host_index"],
+            spare=n.get("spare", False)))
+        agent = ChipAgent(self.api, n["name"])
+        agent.start()
+        self._agents[n["name"]] = agent
+
+    def kill(self, name: str) -> None:
+        from nos_tpu_torch.kube.client import NotFound
+
+        self._agents.pop(name, None)
+        for pod in self.api.pods_on_node(name):
+            try:
+                self.api.delete("Pod", pod.metadata.name,
+                                pod.metadata.namespace)
+            except NotFound:
+                pass
+        self.api.delete("Node", name)
+
+    def create_group(self, name: str, members: int) -> None:
+        from .factory import make_pod_group
+
+        self.api.create("PodGroup", make_pod_group(
+            name, members, namespace=RECOVERY_NAMESPACE))
+
+    def delete_group(self, name: str) -> None:
+        self.api.delete("PodGroup", name, RECOVERY_NAMESPACE)
+
+    def create_pod(self, p: dict) -> None:
+        labels = {C.LABEL_POD_GROUP: p["gang"]} if p["gang"] else None
+        annots = {C.ANNOT_DISPLACED: p["displaced"]} if p["displaced"] \
+            else None
+        self.api.create("Pod", make_timeshare_pod(
+            p["gb"], name=p["name"], namespace=RECOVERY_NAMESPACE,
+            priority=p["priority"], creation_timestamp=p["created"],
+            labels=labels, annotations=annots))
+
+    def delete_pod(self, name: str) -> None:
+        from nos_tpu_torch.kube.client import NotFound
+
+        try:
+            self.api.delete("Pod", name, RECOVERY_NAMESPACE)
+        except NotFound:
+            pass
+
+    def cycle(self) -> None:
+        self.sched.run_cycle()
+
+    def poll(self) -> None:
+        self.controller.process_if_ready()
+
+    def agents(self) -> list[str]:
+        return list(self._agents)
+
+    def tick(self, names: list[str]) -> None:
+        for name in names:
+            self._agents[name].tick()
+
+    def pods(self) -> list[tuple[str, str, str]]:
+        return sorted((p.metadata.name, p.spec.node_name, p.status.phase)
+                      for p in self.api.list("Pod"))
+
+    def nodes(self) -> dict[str, tuple[str, str, bool]]:
+        return {n.metadata.name: (
+                    n.metadata.labels.get(C.LABEL_NVLINK_DOMAIN, ""),
+                    n.metadata.labels.get(C.LABEL_HOST_INDEX, ""),
+                    C.is_warm_spare_labels(n.metadata.labels))
+                for n in self.api.list("Node")}
+
+    def records(self) -> list:
+        return [[r.category, r.subject, dict(sorted(r.attrs.items()))]
+                for r in self.journal.events()
+                if r.category in RECOVERY_RECORDS]
+
+    def drain_migrations(self) -> float:
+        from nos_tpu_torch.exporter.metrics import REGISTRY
+
+        return (REGISTRY.value("nos_tpu_drain_migrations_total",
+                               {"kind": C.MPS_KIND}) or 0.0) \
+            - self.drain0
+
+
+def run_recovery_fleet(spec: dict) -> dict:
+    """``drive_recovery_fleet`` on the port, with a journal of its own."""
+    from nos_tpu_torch.obs import journal as J
+
+    ops = PortRecoveryOps()
+    prev = J.set_journal(ops.journal)
+    try:
+        out = drive_recovery_fleet(spec, ops)
+    finally:
+        J.set_journal(prev)
+        ops.sched.close()
+    return out
+
+
+def parallel_plan_summary(desired, records) -> dict:
+    """What a parallel plan decided, as both packages must agree on it:
+    each node's desired shares per GPU (profile names, which the two
+    packages spell alike) and the planner's journal ((category, subject,
+    attrs) rows; the merge record without its wall time)."""
+    geometries = {}
+    for name in sorted(desired):
+        rows = {}
+        for u in desired[name].units:
+            table = rows.setdefault(str(u.index), {})
+            for res, qty in u.resources.items():
+                profile = res.rsplit("-", 1)[1]
+                table[profile] = table.get(profile, 0) + qty
+        geometries[name] = {i: dict(sorted(t.items()))
+                            for i, t in sorted(rows.items())}
+    return {"geometries": geometries,
+            "journal": [[c, s, {k: v for k, v in sorted(a.items())
+                                if k != "wall_ms"}]
+                        for c, s, a in records]}

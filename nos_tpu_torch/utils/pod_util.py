@@ -39,6 +39,13 @@ def tier_rank(pod: Pod) -> int:
             C.TIER_BEST_EFFORT: 2}[workload_tier(pod)]
 
 
+def displaced_value(cause: str, now: float) -> str:
+    """The ``displaced`` annotation's value for a workload displaced at
+    ``now``, a time of the scheduler's clock (its rebind latency is the
+    clock at bind less this stamp)."""
+    return f"{cause}@{now:.3f}"
+
+
 def displacement(pod: Pod) -> tuple[str, float] | None:
     """(cause, stamped at) of a displaced pod; None when it is not
     displaced or its stamp is malformed (a garbage stamp never grants

@@ -110,7 +110,9 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "quota.info", "controllers.elasticquota.controller",
                    "scheduler.cache", "scheduler.gang",
                    "scheduler.capacityscheduling", "scheduler.scheduler",
-                   "cmd.assembly", "api.podgroup", "topology.shape"):
+                   "cmd.assembly", "api.podgroup", "topology.shape",
+                   "partitioning.core.pools", "partitioning.core.parallel",
+                   "partitioning.core.failure"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]

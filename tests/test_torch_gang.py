@@ -773,10 +773,13 @@ class TestGangFleet:
         gspec, qspec = fleet.gang_fleet_spec(0), fleet.quota_fleet_spec(0)
         assert gspec["quotas"] == qspec["quotas"]
         assert gspec["waves"][:2] == qspec["waves"]
-        assert [{k: v for k, v in n.items() if k != "domain"}
+        assert [{k: v for k, v in n.items()
+                 if k not in ("domain", "host_index")}
                 for n in gspec["nodes"]] == qspec["nodes"]
         domains = [n.get("domain", "") for n in gspec["nodes"]]
         assert domains == ["nvl-0"] * 16 + ["nvl-1"] * 12 + [""] * 4
+        indices = [n.get("host_index") for n in gspec["nodes"]]
+        assert indices == list(range(16)) + list(range(12)) + [None] * 4
 
     def test_the_smoke_refuses_another_digest(self, monkeypatch):
         monkeypatch.setattr(chip_smoke, "GANG_FLEET_DIGEST", "0" * 64)
