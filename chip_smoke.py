@@ -253,28 +253,43 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    package's run in the CPU tests), no displaced job may be left
    unbound, and suspicion, promotion, migration and the straggler
    eviction must each have happened.  (c) The card's node in the MPS
-   loop with heartbeat suspicion (RECOVERY_SUSPECT_AFTER_S) and a
-   migrate grace (RECOVERY_GRACE_S): ``rj`` (48 GB) binds and its child
-   trains under its grant, RECOVERY_STEPS steps of the split backward
-   with a checkpoint after each, beside a straight child of the same
-   steps; ``bq`` (48 GB) waits Unschedulable.  Once ``rj``'s child
-   landed a checkpoint the agent stops ticking: the detector must
-   quarantine the node as suspect, the node must get the migrate drain
-   and ``rj`` the migrate stamp and a JOB_DISPLACED record; after the
-   grace ``rj`` is evicted and the smoke, as the kubelet, sends its
-   child SIGTERM (it must exit by the signal, its grant verified) and
-   recreates ``rj`` with the displaced stamp; while the node is drained
-   MigrationDrainGuard must refuse both pods.  The agent resumes: the
-   node must be released and its drain healed, ``rj`` must bind before
-   the older ``bq`` with no new plan written, and its new child must
-   resume from the last checkpoint (start step > 0), train to the end
-   under its grant and end on the straight child's loss bitwise.  Every
-   distinct state the loop writes must equal ``RECOVERY_LOOP_WRITES``.
-   The line carries the plans' host ms per worker count, the fleet's
-   counts and host ms per controller poll, freeze to suspicion,
-   suspicion to stamp, stamp to eviction, SIGTERM to exit and release to
-   rebind, the children's walls and the resumed child's launches, which
-   the kernels line counts as the ``recovery`` path.
+   loop over the REST substrate: ``tests/k8s_stub.py``'s
+   ``StubApiServer`` (stdlib only, loaded by path), the loop's node and
+   pod controllers, partitioner controller, chip agent and scheduler on
+   a ``kube/rest.py`` ``KubeClient`` against it (the stub's binding
+   moves a bound pod to Running, the kubelet's part), heartbeat
+   suspicion (RECOVERY_SUSPECT_AFTER_S) and a migrate grace
+   (RECOVERY_GRACE_S, longer than a step and a save): ``rj`` (48 GB)
+   binds and its child trains under its grant as a deployed pod runs
+   (``POD_NAME``/``POD_NAMESPACE``, a JSON kubeconfig naming the stub, a
+   health address), RECOVERY_STEPS steps of the split backward with a
+   checkpoint after each, beside a straight child of the same steps;
+   ``bq`` (48 GB) waits Unschedulable.  Once ``rj``'s child landed its
+   first checkpoint the smoke scrapes it once (``/healthz`` 200 ``ok``,
+   ``/metrics`` Prometheus text with ``nos_tpu_train_step`` >= 1, the
+   pod's ``job-progress`` 0.2500) and the agent stops ticking: the
+   detector must quarantine the node as suspect, the node must get the
+   migrate drain and ``rj`` the migrate stamp and a JOB_DISPLACED
+   record; ``rj``'s child must read the stamp at its next landed
+   checkpoint and exit 0 there, before the grace and with no signal
+   sent; the smoke marks the pod Succeeded (the kubelet's part),
+   deletes it and recreates it with the displaced stamp (the owning
+   controller's), and the recovery plane must have evicted no one;
+   while the node is drained MigrationDrainGuard must refuse both pods.
+   The agent resumes: the node must be released and its drain healed,
+   ``rj`` must bind before the older ``bq`` with no new plan written,
+   and its new child must resume at the step the first one left at (no
+   step lost), train to the end under its grant and end on the straight
+   child's loss bitwise.  Every distinct state the stub commits (its
+   commit log, ``_StubTap``) must equal ``RECOVERY_LOOP_WRITES``.  The
+   line carries the plans' host ms per worker count, the fleet's counts
+   and host ms per controller poll, freeze to suspicion, suspicion to
+   stamp, stamp to the child's own exit beside the grace, the child's
+   exit code and cause, the progress values written, the resumed
+   child's start step and the steps lost, release to rebind, the host
+   ms per loop pass over REST, the children's walls and the resumed
+   child's launches, which the kernels line counts as the ``recovery``
+   path.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path, the gang and recovery children's among them; a tile
@@ -2084,16 +2099,18 @@ def _fleet_plans() -> dict:
 
 class _CardLoop:
     """The MPS loop on the card's node (the model and memory discovery
-    found, one GPU), on an in-memory API server: node and pod
-    controllers feeding a ClusterState, the partitioner controller from
-    its factory, the node's chip agent, and the scheduler from
-    ``build_scheduler``.  ``step`` is one pass of the loop: a scheduler
-    cycle, a controller poll, an agent tick (timed).  ``clock`` is the
-    controller's batch clock; ``wall`` the scheduler's, which stamps the
-    pods' creation times too, so schedule latency is one time domain."""
+    found, one GPU), on an in-memory API server or the ``api`` given (a
+    REST client): node and pod controllers feeding a ClusterState, the
+    partitioner controller from its factory, the node's chip agent, and
+    the scheduler from ``build_scheduler``.  ``step`` is one pass of the
+    loop: a scheduler cycle, a controller poll, an agent tick (timed).
+    ``clock`` is the controller's batch clock; ``wall`` the scheduler's,
+    which stamps the pods' creation times too, so schedule latency is
+    one time domain."""
 
     def __init__(self, device: dict, clock=time.monotonic,
-                 wall=time.time, **controller_kw) -> None:
+                 wall=time.time, api=None, watch=None,
+                 **controller_kw) -> None:
         from nos_tpu_torch.cmd.assembly import build_scheduler
         from nos_tpu_torch.controllers.chipagent import ChipAgent
         from nos_tpu_torch.controllers.node_controller import NodeController
@@ -2109,7 +2126,10 @@ class _CardLoop:
         if self.model.memory_gb * 1e9 > device["memory_bytes"]:
             fail(f"the card has {device['memory_bytes']} B, less than its "
                  f"model's {self.model.memory_gb} GB")
-        self.api = APIServer()
+        self.api = APIServer() if api is None else api
+        # what records the loop's writes: the substrate's own watch, or
+        # a REST stub's commit log (_StubTap)
+        self.watch = self.api.watch if watch is None else watch
         state = ClusterState()
         NodeController(self.api, state).bind()
         PodController(self.api, state).bind()
@@ -2126,6 +2146,7 @@ class _CardLoop:
         self.cycle_ms: list[float] = []
         self.cycles = 0
         self.tick_ms: list[float] = []
+        self.step_ms: list[float] = []
         self.created: dict[str, float] = {}
         self.bound_ms: dict[str, float] = {}
 
@@ -2171,9 +2192,11 @@ class _CardLoop:
         self.tick_ms.append((time.perf_counter() - t0) * 1e3)
 
     def step(self) -> None:
+        t0 = time.perf_counter()
         self.bind()
         self.process()
         self.tick()
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
 
     def run_until(self, done, what: str, poll_s: float = CARD_POLL_S,
                   advance=None, limit_s: float = CARD_BIND_LIMIT_S) -> float:
@@ -3177,8 +3200,8 @@ class _QuotaLoop(_CardLoop):
     (QUOTA_LOOP_WRITES and GANG_LOOP_WRITES pin it)."""
 
     def __init__(self, device: dict, clock=time.monotonic,
-                 wall=time.time, quotas=QUOTA_CARD_QUOTAS,
-                 **controller_kw) -> None:
+                 wall=time.time, quotas=QUOTA_CARD_QUOTAS, api=None,
+                 watch=None, **controller_kw) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.api.elasticquota import (
             ElasticQuota, ElasticQuotaSpec, install_quota_webhooks)
@@ -3188,7 +3211,7 @@ class _QuotaLoop(_CardLoop):
             KIND_ELASTIC_QUOTA, KIND_NODE, KIND_POD, KIND_POD_GROUP)
         from nos_tpu_torch.kube.objects import ObjectMeta
 
-        super().__init__(device, clock, wall, **controller_kw)
+        super().__init__(device, clock, wall, api, watch, **controller_kw)
         install_quota_webhooks(self.api)
         ElasticQuotaReconciler(self.api).bind()
         CompositeElasticQuotaReconciler(self.api).bind()
@@ -3196,7 +3219,7 @@ class _QuotaLoop(_CardLoop):
         self.writes = self.recorder.writes
         for kind in (KIND_NODE, KIND_POD, KIND_ELASTIC_QUOTA,
                      KIND_POD_GROUP):
-            self.api.watch(kind, self.recorder)
+            self.watch(kind, self.recorder)
         mem = C.RESOURCE_GPU_MEMORY
         for ns, lo, hi in quotas:
             self.api.create(KIND_ELASTIC_QUOTA, ElasticQuota(
@@ -3458,7 +3481,7 @@ def phase_quota(main_loss0: float, device: dict, smi: str) -> dict:
 # binds on a later cycle, and its two children train after GANG_A's are
 # stopped.
 GANG_FLEET_DIGEST = \
-    "d2308c03d3f7832a95a01f9a9865deac28c28e4f8401b3b7cb53d3be6ff24177"
+    "a30a101fd2f5bf0224e32466d1df92ecd506e0d1153f2999947b12d244b13d46"
 GANG_FLEET_RUNS = 5
 # (namespace, min GB, max GB; 0 = none), each quota in its namespace
 GANG_CARD_QUOTAS = (("team-a", 24.0, 80.0), ("team-b", 48.0, 0.0))
@@ -3892,14 +3915,16 @@ PARALLEL_FLEET_DIGEST = \
 PARALLEL_WORKERS = (1, 2, 4)
 PARALLEL_TIMED = 5
 RECOVERY_FLEET_DIGEST = \
-    "51f9b46ca7c43325710402013eb2172f40cdc30cfcb3308b4d3ab306a821b4b6"
+    "a5f8cd66f4650fa2e59599b0d51e9c5491998b9d83b0b306645a5249187bb021"
 # two pods of which the card holds one: the job and a batch pod
 RECOVERY_JOB, RECOVERY_BATCH, RECOVERY_GB = "rj", "bq", 48
-# the detector's and the grace's seconds: short, and each longer than a
-# pass of the loop (a scheduler cycle, a poll and an agent tick, every
-# CARD_POLL_S)
+# the detector's seconds: short, and longer than a pass of the loop (a
+# scheduler cycle, a poll and an agent tick, every CARD_POLL_S).  The
+# grace is longer than a step and a save of the job's child (0.36-0.44 s
+# and 7-11 s on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md §5), so
+# the child leaves at its next checkpoint before the eviction
 RECOVERY_SUSPECT_AFTER_S = 0.5
-RECOVERY_GRACE_S = 1.0
+RECOVERY_GRACE_S = 30.0
 # the job's steps, a checkpoint after each: two more than a grant child
 RECOVERY_STEPS = GRANT_STEPS + 2
 RECOVERY_CHECKPOINT_LIMIT_S = 300.0
@@ -3907,13 +3932,21 @@ RECOVERY_DRAINED = "node draining for migration"
 _CKPT_LINE = re.compile(r"checkpoint: saved step (\d+)")
 _RESUME_LINE = re.compile(r"resuming from checkpoint step (\d+)")
 _EXACT_LOSS = re.compile(r"final loss exact (\S+)")
-# What the recovery loop writes (_Recorder), as its CPU test's run
-# recorded it (tests/test_torch_recovery.py, held against the JAX
-# package's loop on the same objects).
+_MIGRATE_LINE = re.compile(r"migration requested \((\S+)\): exiting at "
+                           r"checkpoint step (\d+)")
+# What the recovery loop over the REST stub commits (_Recorder through
+# _StubTap), as its CPU test's run recorded it
+# (tests/test_torch_recovery.py, held against the JAX package's loop over
+# its own REST client on the same stub).
 RECOVERY_LOOP_WRITES = {
     "h100-node-0": [
         [],
         [
+            "spec-partitioning-plan.mps=<plan 0>"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
             "spec-partitioning-plan.mps=<plan 0>"
         ],
         [
@@ -3976,13 +4009,15 @@ RECOVERY_LOOP_WRITES = {
     "rj": [
         "- Pending",
         "- Pending Unschedulable",
-        "h100-node-0 Pending",
+        "h100-node-0 Running Unschedulable",
         "h100-node-0 Running",
         "h100-node-0 Running migrate=node-suspect",
+        "h100-node-0 Succeeded migrate=node-suspect",
         "deleted",
         "- Pending displaced=drain-migrate",
         "- Pending Unschedulable displaced=drain-migrate",
-        "h100-node-0 Pending",
+        "h100-node-0 Running Unschedulable displaced=drain-migrate",
+        "h100-node-0 Running Unschedulable",
         "h100-node-0 Running"
     ],
     "bq": [
@@ -4104,8 +4139,9 @@ class _RecoveryLoop(_QuotaLoop):
     the controller go on."""
 
     def __init__(self, device: dict, clock=time.monotonic,
-                 wall=time.time) -> None:
-        super().__init__(device, clock, wall, quotas=(),
+                 wall=time.time, api=None, watch=None) -> None:
+        super().__init__(device, clock, wall, quotas=(), api=api,
+                         watch=watch,
                          node_suspect_after_s=RECOVERY_SUSPECT_AFTER_S,
                          migrate_grace_s=RECOVERY_GRACE_S)
         self.frozen = False
@@ -4115,13 +4151,76 @@ class _RecoveryLoop(_QuotaLoop):
             super().tick()
 
 
+def _load_stub():
+    """``tests/k8s_stub.py`` (a kube-apiserver-shaped HTTP stub, stdlib
+    only), loaded by its path in the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "k8s_stub", ROOT / "tests" / "k8s_stub.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _StubTap:
+    """The stub's commit log as a watch: every write the stub commits,
+    delivered synchronously in commit order and decoded by ``decode``
+    (the port's ``from_k8s`` unless another is given).  A REST client's
+    watch delivers on a stream thread and a relist collapses the states
+    it skipped, so the loop's recorder reads this instead.  A callback
+    runs under the stub's lock and must not call the stub; what it
+    raises is kept in ``errors``."""
+
+    def __init__(self, stub, decode=None) -> None:
+        from nos_tpu_torch.kube.k8s_codec import from_k8s
+
+        self._state = stub.state
+        self._decode = decode or from_k8s
+        self.errors: list[BaseException] = []
+
+    def watch(self, kind: str, fn) -> Callable[[], None]:
+        import copy
+
+        from nos_tpu_torch.kube.k8s_codec import KIND_REST
+
+        plural, decode, errors = KIND_REST[kind][1], self._decode, \
+            self.errors
+
+        def deliver(event: str, raw: dict) -> None:
+            try:
+                fn(event, decode(kind, copy.deepcopy(raw)))
+            except Exception as e:  # noqa: BLE001 — kept for the caller
+                errors.append(e)
+
+        class _Sink:
+            """What the stub's notify puts events into."""
+
+            def put(self, evt: dict) -> None:
+                if "type" in evt:   # not a fault-injection marker
+                    deliver(evt["type"], evt["object"])
+
+        sink = _Sink()
+        with self._state.lock:
+            for raw in list(self._state.store.get(plural, {}).values()):
+                deliver("ADDED", raw)
+            self._state.watchers.setdefault(plural, []).append(sink)
+
+        def unwatch() -> None:
+            with self._state.lock:
+                if sink in self._state.watchers.get(plural, []):
+                    self._state.watchers[plural].remove(sink)
+
+        return unwatch
+
+
 def _recovery_start(device: dict, clock=time.monotonic, wall=time.time,
-                    advance=None, poll_s: float = CARD_POLL_S
-                    ) -> tuple[_RecoveryLoop, dict]:
+                    advance=None, poll_s: float = CARD_POLL_S, api=None,
+                    watch=None) -> tuple[_RecoveryLoop, dict]:
     """Phase 13 (c) up to the job's child: RECOVERY_JOB through the loop
     until it is bound and Running, then RECOVERY_BATCH, which the card
     cannot hold beside it, until it is marked Unschedulable."""
-    loop = _RecoveryLoop(device, clock, wall)
+    loop = _RecoveryLoop(device, clock, wall, api=api, watch=watch)
     loop.create_pod(RECOVERY_JOB, gb=RECOVERY_GB)
     bind_s = loop.run_until(lambda: loop.running() == [RECOVERY_JOB],
                             f"bind {RECOVERY_JOB} and run it",
@@ -4133,24 +4232,37 @@ def _recovery_start(device: dict, clock=time.monotonic, wall=time.time,
     return loop, {"bind_s": bind_s}
 
 
-def _recovery_migrate(loop: _RecoveryLoop, landed, on_evicted,
-                      advance=None, poll_s: float = CARD_POLL_S,
+def _drain_migrations() -> float:
+    """The recovery plane's evictions of the MPS family so far."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.exporter.metrics import REGISTRY
+
+    return REGISTRY.value("nos_tpu_drain_migrations_total",
+                          {"kind": C.MPS_KIND}) or 0.0
+
+
+def _recovery_migrate(loop: _RecoveryLoop, landed, left, advance=None,
+                      poll_s: float = CARD_POLL_S,
                       landed_limit_s: float = RECOVERY_CHECKPOINT_LIMIT_S
                       ) -> dict:
     """Phase 13 (c)'s migration: the loop runs until ``landed()`` (the
     job's child landed a checkpoint), then the agent freezes.  The
     detector must quarantine the node as suspect, the node must get the
     migrate drain and the job the ``migrate`` stamp and a JOB_DISPLACED
-    record; after the grace the job is evicted (``on_evicted()``: the
-    kubelet's SIGTERM) and recreated with the ``displaced`` stamp, as a
-    workload controller would; while the node is drained the scheduler
-    must reject both pods (MigrationDrainGuard).  The agent resumes: the
-    node must be released, its drain healed, and the job bound before
-    the older batch pod, with no new plan written.  Returns the stages'
-    times on the host's performance counter and the plan cycles that
-    ran meanwhile."""
+    record.  The loop runs on until ``left()`` (the child read the stamp
+    at its next checkpoint and exited), which must come before the
+    grace's eviction; the smoke then marks the job Succeeded (the
+    kubelet's part), deletes it and recreates it with the ``displaced``
+    stamp (a workload controller's), and the recovery plane must have
+    evicted no one.  While the node is drained the scheduler must reject
+    both pods (MigrationDrainGuard).  The agent resumes: the node must be
+    released, its drain healed, and the job bound before the older batch
+    pod, with no new plan written.  Returns the stages' times on the
+    host's performance counter and the plan cycles that ran
+    meanwhile."""
     from nos_tpu_torch.api import constants as C
     from nos_tpu_torch.kube.client import KIND_NODE, KIND_POD
+    from nos_tpu_torch.kube.objects import SUCCEEDED
     from nos_tpu_torch.obs import journal as J
     from nos_tpu_torch.partitioning.core import REASON_SUSPECT
     from nos_tpu_torch.utils.pod_util import displaced_value
@@ -4165,12 +4277,11 @@ def _recovery_migrate(loop: _RecoveryLoop, landed, on_evicted,
         if pod.metadata.name != RECOVERY_JOB:
             return
         now = time.perf_counter()
-        if event == "DELETED" and "evicted" not in seen:
-            seen["evicted"] = now
-            on_evicted()
+        if event == "DELETED":
+            seen.setdefault("deleted", now)
         elif pod.metadata.annotations.get(C.ANNOT_MIGRATE):
             seen.setdefault("stamped", now)
-        elif pod.spec.node_name and "evicted" in seen:
+        elif pod.spec.node_name and "deleted" in seen:
             seen.setdefault("rebound", now)
 
     def watch_node(event: str, node) -> None:
@@ -4180,10 +4291,11 @@ def _recovery_migrate(loop: _RecoveryLoop, landed, on_evicted,
         elif "drained" in seen:
             seen.setdefault("released", time.perf_counter())
 
-    unwatch = [loop.api.watch(KIND_POD, watch_pod),
-               loop.api.watch(KIND_NODE, watch_node)]
+    unwatch = [loop.watch(KIND_POD, watch_pod),
+               loop.watch(KIND_NODE, watch_node)]
     quarantine = loop.controller.quarantine
     step = functools.partial(loop.run_until, poll_s=poll_s, advance=advance)
+    evictions0 = _drain_migrations()
     try:
         waited_s = step(landed, f"see {RECOVERY_JOB} land a checkpoint",
                         limit_s=landed_limit_s)
@@ -4207,20 +4319,29 @@ def _recovery_migrate(loop: _RecoveryLoop, landed, on_evicted,
                 for r in displaced] != [(f"default/{RECOVERY_JOB}",
                                          "node-suspect", CARD_NODE)]:
             fail(f"JOB_DISPLACED records {[r.to_dict() for r in displaced]}")
-        step(lambda: RECOVERY_JOB not in loop.pods(),
-             f"evict {RECOVERY_JOB} after the grace")
+        step(lambda: left() or RECOVERY_JOB not in loop.pods(),
+             f"see {RECOVERY_JOB}'s child leave at a checkpoint",
+             limit_s=RECOVERY_GRACE_S)
+        if RECOVERY_JOB not in loop.pods():
+            fail(f"{RECOVERY_JOB} was evicted before its child left at a "
+                 f"checkpoint")
+        seen["left"] = time.perf_counter()
+        loop.api.patch(KIND_POD, RECOVERY_JOB, "default", mutate=lambda p:
+                       setattr(p.status, "phase", SUCCEEDED))
+        loop.api.delete(KIND_POD, RECOVERY_JOB, "default")
         loop.create_pod(RECOVERY_JOB, gb=RECOVERY_GB, annotations={
             C.ANNOT_DISPLACED: displaced_value(C.DISPLACED_DRAIN_MIGRATE,
                                                loop.wall())})
-        if advance is not None:
-            advance()
         seq0 = max((r.seq for r in journal.events()), default=0)
-        loop.step()
-        pods = loop.pods()
-        verdicts = {r.subject: r.attrs.get("nodes", {}).get(CARD_NODE, "")
+
+        def verdicts() -> dict:
+            return {r.subject: r.attrs.get("nodes", {}).get(CARD_NODE, "")
                     for r in journal.events(J.POD_REJECTED) if r.seq > seq0}
+
+        step(lambda: len(verdicts()) == 2, "refuse both pods while drained")
+        pods, got = loop.pods(), verdicts()
         for name in (RECOVERY_JOB, RECOVERY_BATCH):
-            verdict = verdicts.get(f"default/{name}", "")
+            verdict = got.get(f"default/{name}", "")
             if pods[name].spec.node_name or RECOVERY_DRAINED not in verdict:
                 fail(f"{name} on the drained node: bound to "
                      f"{pods[name].spec.node_name!r}, verdict {verdict!r}")
@@ -4241,6 +4362,9 @@ def _recovery_migrate(loop: _RecoveryLoop, landed, on_evicted,
         if loop.written() != written:
             fail(f"moving the job wrote a new plan: {written} -> "
                  f"{loop.written()}")
+        if _drain_migrations() != evictions0:
+            fail(f"the recovery plane evicted "
+                 f"{_drain_migrations() - evictions0} pod(s)")
     finally:
         for u in unwatch:
             u()
@@ -4287,76 +4411,220 @@ def _check_recovery_child(label: str, child: dict, uuid: str,
     return tiles
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+_PROM_SAMPLE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
+
+
+def _prometheus(text: str) -> dict[str, float]:
+    """The unlabelled samples of a Prometheus text exposition; fails on a
+    line that is neither a comment nor a sample, on a value that is not
+    a number and on a sample whose metric has no TYPE line before it."""
+    typed: set[str] = set()
+    out: dict[str, float] = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            typed.add(line.split()[2])
+            continue
+        if line.startswith("#"):
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if m is None:
+            fail(f"/metrics line {line!r} is not Prometheus text")
+        name, labels, value = m.groups()
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        if name not in typed and base not in typed:
+            fail(f"/metrics sample {name} has no TYPE line")
+        try:
+            number = float(value)
+        except ValueError:
+            fail(f"/metrics sample {line!r} has no number")
+        if labels is None:
+            out[name] = number
+    return out
+
+
+def _scrape_child(addr: str, api) -> dict:
+    """The job's child once it landed its first checkpoint: ``/healthz``
+    200 ``ok``, ``/metrics`` Prometheus text with ``nos_tpu_train_step``
+    >= 1, and its pod's ``job-progress`` 1 of RECOVERY_STEPS as
+    ``%.4f`` (written right after the save, so polled for a moment)."""
+    import urllib.request
+
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://{addr}/healthz", timeout=10) as r:
+        health = (r.status, r.read().decode())
+    if health != (200, "ok"):
+        fail(f"{RECOVERY_JOB}'s child answered /healthz with {health}")
+    with urllib.request.urlopen(f"http://{addr}/metrics", timeout=10) as r:
+        code, text = r.status, r.read().decode()
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    samples = _prometheus(text)
+    step = samples.get("nos_tpu_train_step")
+    if code != 200 or step is None or step < 1:
+        fail(f"{RECOVERY_JOB}'s child's /metrics ({code}) shows "
+             f"nos_tpu_train_step {step}")
+    want = f"{1 / RECOVERY_STEPS:.4f}"
+    deadline = time.monotonic() + 30.0
+    while True:
+        progress = api.get(KIND_POD, RECOVERY_JOB, "default").metadata \
+            .annotations.get(C.ANNOT_JOB_PROGRESS)
+        if progress is not None or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if progress != want:
+        fail(f"{RECOVERY_JOB} carries job-progress {progress!r}, not "
+             f"{want}")
+    return {"healthz": health[1], "train_step": step,
+            "metrics_lines": len(text.splitlines()), "scrape_ms": scrape_ms,
+            "progress": progress}
+
+
 def phase_recovery(main_loss0: float, device: dict, smi: str) -> dict:
     """Fleet planning by pool and node-loss recovery: (a) the pool-sharded
     fleet plan at 1, 2 and 4 workers beside the sequential plan; (b) the
-    recovery fleet; (c) the card's node: RECOVERY_JOB trains under its
-    grant (the split backward, a checkpoint each step), the batch pod
+    recovery fleet; (c) the card's node over the REST stub: RECOVERY_JOB
+    trains under its grant as a deployed pod (the split backward, a
+    checkpoint each step, its health server scraped once), the batch pod
     waits, the agent freezes once a checkpoint landed, the job is
-    drained off, evicted after the grace and its child stopped by
-    SIGTERM, recreated displaced, bound again ahead of the batch pod
-    once the agent reports, and its new child resumes from the
-    checkpoint to end bitwise on a straight run's loss.  Returns the
+    drained and stamped, its child leaves at its next checkpoint on the
+    stamp, the job is recreated displaced, bound again ahead of the batch
+    pod once the agent reports, and its new child resumes where the
+    first left to end bitwise on a straight run's loss.  Returns the
     resumed child's launches, by kernel and by tile."""
-    from nos_tpu_torch.ops import _build
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_POD
+    from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
 
     t0 = time.perf_counter()
     parallel = _parallel_fleet_plans()
     fleet_line = _recovery_fleet_run()
-    loop, card = _recovery_start(device)
+    stub_mod = _load_stub()
+    with stub_mod.StubApiServer() as stub, \
+            tempfile.TemporaryDirectory(prefix="nos-recovery-") as tmp:
+        client = KubeClient(KubeConfig(server=stub.url))
+        tap = _StubTap(stub)
+        progress: list[str] = []
+
+        def watch_progress(event: str, pod) -> None:
+            value = pod.metadata.annotations.get(C.ANNOT_JOB_PROGRESS)
+            if pod.metadata.name == RECOVERY_JOB and value \
+                    and (not progress or progress[-1] != value):
+                progress.append(value)
+
+        tap.watch(KIND_POD, watch_progress)
+        loop = None
+        try:
+            loop, card = _recovery_start(device, api=client, watch=tap.watch)
+            out = _recovery_card(loop, client, stub.url, tmp, device,
+                                 main_loss0)
+        finally:
+            if loop is not None:
+                loop.sched.close()
+            client.close()
+        if tap.errors:
+            fail(f"the stub tap's callbacks raised: {tap.errors}")
+    card |= out.pop("card") | {"progress_written": progress}
+    if progress != [f"{s / RECOVERY_STEPS:.4f}"
+                    for s in range(1, RECOVERY_STEPS + 1)]:
+        fail(f"{RECOVERY_JOB}'s children wrote job-progress {progress}")
+    if loop.writes != RECOVERY_LOOP_WRITES:
+        fail(f"the recovery loop's writes differ from the CPU test's: "
+             f"{json.dumps(loop.writes)}")
+    launches = out["launches"]
+    emit({"phase": "recovery", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "parallel": parallel,
+          "fleet": fleet_line, "card": card, "main_loss0": main_loss0,
+          "launches": launches, "tile_launches": out["tiles"],
+          "children": out["children"]})
+    PATH_TILES["recovery"] = out["tiles"]
+    return launches
+
+
+def _recovery_card(loop: _RecoveryLoop, client, url: str, tmp: str,
+                   device: dict, main_loss0: float) -> dict:
+    """Phase 13 (c) from the job's grant on: the children, the move and
+    the checks on what each child did.  Returns the phase line's card
+    fields, the children's fields, and the resumed child's launches by
+    kernel and by tile."""
+    from nos_tpu_torch.ops import _build
+
     split = {"NOS_TPU_FLASH_BWD": "split"}
     (grant,) = _grants(loop, device, [RECOVERY_JOB])
     total = device["memory_bytes"]
     kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
     _release()
-    stopped: dict[str, float] = {}
-    with tempfile.TemporaryDirectory(prefix="nos-recovery-") as tmp:
-        cfg_path, no_nvcc = _grant_workdir(tmp)
-        base = json.loads(pathlib.Path(cfg_path).read_text())
-        job_cfg = str(pathlib.Path(tmp) / "job.json")
-        pathlib.Path(job_cfg).write_text(json.dumps(base | {
-            "steps": RECOVERY_STEPS, "checkpoint_every": 1,
-            "checkpoint_dir": str(pathlib.Path(tmp) / "ck")}))
-        straight_cfg = str(pathlib.Path(tmp) / "straight.json")
-        pathlib.Path(straight_cfg).write_text(json.dumps(
-            base | {"steps": RECOVERY_STEPS}))
-        first = _start_grant_child(RECOVERY_JOB, job_cfg,
-                                   grant["env"] | split, no_nvcc)
-        straight = _start_grant_child("straight", straight_cfg,
-                                      grant["env"] | split, no_nvcc)
-        started = [first, straight]
-        try:
-            def landed() -> bool:
-                if first["proc"].poll() is not None:
-                    fail(f"{RECOVERY_JOB}'s child exited "
-                         f"{first['proc'].returncode} before the move:\n"
-                         f"{''.join(first['lines'])[-4000:]}")
-                return bool(_CKPT_LINE.search("".join(first["lines"])))
+    exited: dict[str, float] = {}
+    scrape: dict = {}
+    cfg_path, no_nvcc = _grant_workdir(tmp)
+    base = json.loads(pathlib.Path(cfg_path).read_text())
+    kubeconfig = pathlib.Path(tmp) / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "current-context": "stub",
+        "contexts": [{"name": "stub", "context": {"cluster": "stub",
+                                                  "user": "smoke"}}],
+        "clusters": [{"name": "stub", "cluster": {"server": url}}],
+        "users": [{"name": "smoke", "user": {}}]}))
+    health = f"127.0.0.1:{_free_port()}"
+    job_cfg = str(pathlib.Path(tmp) / "job.json")
+    pathlib.Path(job_cfg).write_text(json.dumps(base | {
+        "steps": RECOVERY_STEPS, "checkpoint_every": 1,
+        "checkpoint_dir": str(pathlib.Path(tmp) / "ck"),
+        "kubeconfig": str(kubeconfig), "health_probe_addr": health}))
+    straight_cfg = str(pathlib.Path(tmp) / "straight.json")
+    pathlib.Path(straight_cfg).write_text(json.dumps(
+        base | {"steps": RECOVERY_STEPS}))
+    pod_env = {"POD_NAME": RECOVERY_JOB, "POD_NAMESPACE": "default"}
+    first = _start_grant_child(RECOVERY_JOB, job_cfg,
+                               grant["env"] | split | pod_env, no_nvcc)
+    straight = _start_grant_child("straight", straight_cfg,
+                                  grant["env"] | split, no_nvcc)
+    started = [first, straight]
 
-            def on_evicted() -> None:
-                proc = first["proc"]
-                stopped["sigterm"] = time.perf_counter()
-                proc.send_signal(signal.SIGTERM)
+    def wait_exit(proc) -> None:
+        proc.wait()
+        exited["first"] = time.perf_counter()
 
-                def wait() -> None:
-                    proc.wait()
-                    stopped["exit"] = time.perf_counter()
+    threading.Thread(target=wait_exit, args=(first["proc"],),
+                     daemon=True).start()
+    try:
+        def landed() -> bool:
+            if "first" in exited:
+                fail(f"{RECOVERY_JOB}'s child exited "
+                     f"{first['proc'].returncode} before the move:\n"
+                     f"{''.join(first['lines'])[-4000:]}")
+            if not _CKPT_LINE.search("".join(first["lines"])):
+                return False
+            if not scrape:
+                scrape.update(_scrape_child(health, client))
+            return True
 
-                threading.Thread(target=wait, daemon=True).start()
-
-            moved = _recovery_migrate(loop, landed, on_evicted)
-            victim = _finish_grant_child(first, timeout=QUOTA_STOP_LIMIT_S)
-            (grant2,) = _grants(loop, device, [RECOVERY_JOB])
-            resumed = _start_grant_child(f"{RECOVERY_JOB}-resumed", job_cfg,
-                                         grant2["env"] | split, no_nvcc)
-            started.append(resumed)
-            resumed = _finish_grant_child(resumed)
-            straight = _finish_grant_child(straight)
-        finally:
-            for c in started:
-                if c.get("proc") is not None and c["proc"].poll() is None:
-                    c["proc"].kill()
-                    c["proc"].wait()
+        moved = _recovery_migrate(loop, landed, lambda: "first" in exited)
+        victim = _finish_grant_child(first, timeout=QUOTA_STOP_LIMIT_S)
+        (grant2,) = _grants(loop, device, [RECOVERY_JOB])
+        resumed = _start_grant_child(f"{RECOVERY_JOB}-resumed", job_cfg,
+                                     grant2["env"] | split | pod_env,
+                                     no_nvcc)
+        started.append(resumed)
+        resumed = _finish_grant_child(resumed)
+        straight = _finish_grant_child(straight)
+    finally:
+        for c in started:
+            if c.get("proc") is not None and c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
     kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
     if kernels_after != kernels_before:
         fail(f"a recovery child built kernels: {kernels_before} -> "
@@ -4364,14 +4632,24 @@ def phase_recovery(main_loss0: float, device: dict, smi: str) -> dict:
     for child in (victim, resumed, straight):
         child["fraction"], child["cap_bytes"] = _grant_cap(RECOVERY_GB,
                                                            total)
-    _check_stopped_child(f"recovery {RECOVERY_JOB}", victim,
-                         grant["env"]["NOS_TPU_VISIBLE_CHIPS"], main_loss0)
     landed_steps = [int(m) for m in _CKPT_LINE.findall(victim["stderr"])]
+    left = _MIGRATE_LINE.findall(victim["stderr"])
+    if victim["rc"] != 0 or len(left) != 1 \
+            or left[0] != ("node-suspect", str(max(landed_steps))):
+        fail(f"{RECOVERY_JOB}'s child exited {victim['rc']} and logged "
+             f"{left} with checkpoints {landed_steps}, not a clean exit at "
+             f"its last checkpoint on the migrate stamp:\n"
+             f"{victim['stderr'][-4000:]}")
+    exit_step = max(landed_steps)
+    _check_recovery_child(f"recovery {RECOVERY_JOB}", victim,
+                          grant["env"]["NOS_TPU_VISIBLE_CHIPS"],
+                          list(range(1, exit_step + 1)))
     starts = [int(m) for m in _RESUME_LINE.findall(resumed["stderr"])]
-    if len(starts) != 1 or not 0 < starts[0] <= max(landed_steps):
-        fail(f"the resumed child started at {starts}, the stopped one "
-             f"landed checkpoints {landed_steps}")
+    if starts != [exit_step]:
+        fail(f"the resumed child started at {starts}, the first one left "
+             f"at checkpoint {exit_step}")
     start = starts[0]
+    steps_lost = max(s[0] for s in victim["steps"]) - start
     tiles = _check_recovery_child(
         f"recovery {RECOVERY_JOB}-resumed", resumed,
         grant2["env"]["NOS_TPU_VISIBLE_CHIPS"],
@@ -4383,46 +4661,56 @@ def phase_recovery(main_loss0: float, device: dict, smi: str) -> dict:
     if not all(len(e) == 1 for e in exact) or exact[0] != exact[1]:
         fail(f"the resumed run ended on loss {exact[0]}, the straight run "
              f"on {exact[1]}: not bitwise equal")
-    rel = abs(straight["steps"][0][1] - main_loss0) / abs(main_loss0)
-    if not rel <= MAIN_LOSS0_RTOL:
-        fail(f"the straight run's step-0 loss {straight['steps'][0][1]} "
-             f"against train_main's {main_loss0}")
-    if loop.writes != RECOVERY_LOOP_WRITES:
-        fail(f"the recovery loop's writes differ from the CPU test's: "
-             f"{json.dumps(loop.writes)}")
+    for label, child in (("first", victim), ("straight", straight)):
+        rel = abs(child["steps"][0][1] - main_loss0) / abs(main_loss0)
+        if not rel <= MAIN_LOSS0_RTOL:
+            fail(f"the {label} child's step-0 loss {child['steps'][0][1]} "
+                 f"against train_main's {main_loss0}")
+        child["loss0_rel_diff"] = rel
+    stamp_to_exit_s = exited["first"] - moved["stamped"]
+    if not 0 < stamp_to_exit_s < RECOVERY_GRACE_S:
+        fail(f"{RECOVERY_JOB}'s child left {stamp_to_exit_s} s after the "
+             f"stamp, not within the {RECOVERY_GRACE_S} s grace")
     ms = lambda a, b: (moved[b] - moved[a]) * 1e3  # noqa: E731
-    card |= {
+    card = {
+        "substrate": "rest (tests/k8s_stub.py)",
         "node": CARD_NODE, "pods": [RECOVERY_JOB, RECOVERY_BATCH],
         "gb": RECOVERY_GB, "suspect_after_s": RECOVERY_SUSPECT_AFTER_S,
         "migrate_grace_s": RECOVERY_GRACE_S, "steps": RECOVERY_STEPS,
         "checkpoint_landed_wait_s": moved["landed_wait_s"],
+        "scrape": scrape,
         "freeze_to_suspect_ms": (moved["suspected"] - moved["frozen"]) * 1e3,
         "suspect_to_stamp_ms": (moved["stamped"] - moved["suspected"]) * 1e3,
-        "stamp_to_evict_ms": ms("stamped", "evicted"),
-        "sigterm_to_exit_s": stopped["exit"] - stopped["sigterm"],
+        "stamp_to_exit_s": stamp_to_exit_s,
+        "child_exit": {"rc": victim["rc"], "cause": left[0][0],
+                       "at_step": exit_step},
+        "exit_to_delete_ms": (moved["deleted"] - exited["first"]) * 1e3,
         "resume_to_release_ms": ms("resumed", "released"),
         "release_to_rebind_ms": ms("released", "rebound"),
         "plan_cycles_during_move": moved["plan_cycles"],
         "victim_steps": len(victim["steps"]),
         "victim_checkpoints": landed_steps, "start_step": start,
+        "steps_lost": steps_lost,
         "resumed_wall_s": resumed["wall_s"],
         "straight_wall_s": straight["wall_s"],
-        "final_loss_exact": exact[0][0], "loss0_rel_diff": rel,
+        "final_loss_exact": exact[0][0],
+        "loss0_rel_diff": straight["loss0_rel_diff"],
+        "step_ms_median": statistics.median(loop.step_ms),
+        "step_ms_max": max(loop.step_ms),
         "cycle_ms_median": statistics.median(loop.cycle_ms),
         "tick_ms_median": statistics.median(loop.tick_ms),
-        "cycles": len(loop.cycle_ms)}
-    launches = resumed["launches"]
-    emit({"phase": "recovery", "nvidia_smi": smi,
-          "seconds": time.perf_counter() - t0, "parallel": parallel,
-          "fleet": fleet_line, "card": card, "main_loss0": main_loss0,
-          "launches": launches, "tile_launches": tiles,
-          "children": [{k: v for k, v in ch.items()
-                        if k not in ("stderr", "report", "confined",
-                                     "stamps", "steps")}
-                       | {"steps_logged": len(ch["steps"])}
-                       for ch in (victim, resumed, straight)]})
-    PATH_TILES["recovery"] = tiles
-    return launches
+        "cycles": len(loop.cycle_ms), "passes": len(loop.step_ms)}
+    if steps_lost != 0:
+        fail(f"the move lost {steps_lost} step(s): the first child logged "
+             f"{[s[0] for s in victim['steps']]}, the resumed one started "
+             f"at {start}")
+    children = [{k: v for k, v in ch.items()
+                 if k not in ("stderr", "report", "confined", "stamps",
+                              "steps")}
+                | {"steps_logged": len(ch["steps"])}
+                for ch in (victim, resumed, straight)]
+    return {"card": card, "children": children, "tiles": tiles,
+            "launches": resumed["launches"]}
 
 
 def main() -> int:

@@ -30,8 +30,8 @@ class ConfigError(ValueError):
 class ManagerConfig:
     """Shared manager knobs: health probe and metrics bind addresses,
     leader election, a kubeconfig and the SLO tick (the JAX package's
-    ``ManagerConfig``; the port's train main serves none of them yet and
-    refuses the addresses and the kubeconfig, ``cmd/train.py``)."""
+    ``ManagerConfig``; the port's train main serves the health address
+    and gives the kubeconfig to its pod hooks, ``cmd/train.py``)."""
 
     health_probe_addr: str = ""   # "host:port", "" = disabled
     metrics_addr: str = ""        # "host:port", "" = disabled

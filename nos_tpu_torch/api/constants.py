@@ -173,9 +173,17 @@ ANNOT_DISPLACED = f"{GROUP}/displaced"
 DISPLACED_NODE_LOSS = "node-loss"
 DISPLACED_DRAIN_MIGRATE = "drain-migrate"
 
-# The workload's own progress fraction in [0, 1]: a displaced preemptor
+# The workload's own progress fraction in [0, 1], written by the
+# training main after each landed checkpoint: a displaced preemptor
 # walks equal victims least progress first.
 ANNOT_JOB_PROGRESS = f"{GROUP}/job-progress"
+
+# Desired dp replica count after a resize, stamped on every surviving
+# member of a gang.  The training main reads it back at each landed
+# checkpoint, on the same pod read as ANNOT_MIGRATE, and exits there
+# when it differs from its boot-time world size, so the restart picks
+# up the new mesh.
+ANNOT_DP_RESIZE = f"{GROUP}/dp-resize"
 
 # Defragmentation drain: a host a defrag proposal is emptying (the value
 # is the proposal id).  The scheduler's score key avoids such hosts
@@ -217,8 +225,8 @@ def migration_drain_owner(annotations: dict) -> str:
 # Migration request, stamped on a resident pod by drain-then-migrate
 # when its node is suspected of failing or marked for maintenance; the
 # value is the cause.  A workload that reads it exits cleanly at its
-# next checkpoint (the training main's signal checker, once it has a
-# kube client); one that does not is evicted after the migrate grace.
+# next checkpoint (the training main's signal checker); one that does
+# not is evicted after the migrate grace.
 ANNOT_MIGRATE = f"{GROUP}/migrate"
 
 # Maintenance signal: an operator stamps a node to ask for

@@ -26,10 +26,16 @@ it verified and the cap right then (``confined: grant {...}``) and again
 at exit with the peak memory and the flash launches (``done: ... grant
 {...}``).
 
-Not in the port yet: the pod hooks' kube client and the ``/healthz`` +
-``/metrics`` server (``cmd/_runtime.Main``) are control-plane modules
-(ROADMAP.md item 32), so a ``kubeconfig``, ``health_probe_addr`` or
-``metrics_addr`` raises NotImplementedError instead of being ignored.
+The pod hooks, as in the JAX main: with the pod's identity from the
+downward API (``POD_NAME`` and ``POD_NAMESPACE``) and a ``kubeconfig``,
+each landed checkpoint writes the ``job-progress`` annotation on the
+pod, then reads the pod once for a ``dp-resize`` or ``migrate`` stamp
+and exits at that checkpoint when one asks it to.  The hooks are
+advisory: a failed read or write logs a warning and training goes on,
+and an unusable kubeconfig disables them.  A ``health_probe_addr``
+serves ``/healthz`` and ``/metrics`` (the ``nos_tpu_train_*`` gauges)
+while the loop runs (``cmd/_runtime.Main``); ``metrics_addr`` is
+validated and otherwise unused, as in the JAX main.
 """
 
 from __future__ import annotations
@@ -62,10 +68,6 @@ REGISTRY.describe("nos_tpu_train_tokens_per_s",
 REGISTRY.describe("nos_tpu_train_mfu",
                   "Model FLOPs utilization over the last log interval "
                   "(analytic fwd+bwd FLOPs vs the device bf16 peak)")
-
-_CONTROL_PLANE = ("the kube client and the health/metrics server are not "
-                  "in the port yet (ROADMAP.md item 32)")
-
 
 @dataclasses.dataclass
 class TrainConfig(ManagerConfig):
@@ -170,38 +172,132 @@ def boot_world_size(environ=None) -> int:
     return max(1, _env_int(env, "WORLD_SIZE", 1))
 
 
-def _refuse_control_plane(cfg: TrainConfig) -> None:
-    for field in ("kubeconfig", "health_probe_addr", "metrics_addr"):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{field} is set, but {_CONTROL_PLANE}")
+def report_job_progress(api, name: str, namespace: str,
+                        fraction: float) -> bool:
+    """Write the ``job-progress`` annotation (``%.4f`` of the fraction,
+    clamped to [0, 1]) on this workload's own pod: the progress the
+    scheduler's preemption reads.  Best effort: a failed write logs a
+    warning and returns False, and the step goes on."""
+    from nos_tpu_torch.api.constants import ANNOT_JOB_PROGRESS
+    from nos_tpu_torch.kube.client import KIND_POD
+    from nos_tpu_torch.utils.retry import retry_on_conflict
+
+    value = f"{max(0.0, min(1.0, fraction)):.4f}"
+
+    def mutate(p) -> None:
+        p.metadata.annotations[ANNOT_JOB_PROGRESS] = value
+
+    try:
+        retry_on_conflict(api, KIND_POD, name, mutate, namespace,
+                          component="train-progress")
+    except Exception:  # noqa: BLE001 — advisory: the scheduler sees a
+        # stale (lower) progress, which only spares this job less
+        logger.warning("job-progress annotation failed for %s/%s",
+                       namespace, name, exc_info=True)
+        return False
+    return True
+
+
+def _fetch_own_pod(api, name: str, namespace: str, what: str):
+    """This workload's own pod, or None when unreadable: a failed read
+    never stops a step."""
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    try:
+        return api.try_get(KIND_POD, name, namespace)
+    except Exception:  # noqa: BLE001 — advisory read
+        logger.warning("%s read failed for %s/%s",
+                       what, namespace, name, exc_info=True)
+        return None
+
+
+def _parse_resize(pod) -> int | None:
+    """The ``dp-resize`` stamp: the gang's new dp replica count, None
+    when absent, not an integer or below 1 (the job keeps training)."""
+    from nos_tpu_torch.api.constants import ANNOT_DP_RESIZE
+
+    if pod is None:
+        return None
+    raw = pod.metadata.annotations.get(ANNOT_DP_RESIZE, "")
+    try:
+        value = int(raw)
+    except ValueError:
+        return None
+    return value if value >= 1 else None
+
+
+def _parse_migrate(pod) -> str | None:
+    """The ``migrate`` stamp drain-then-migrate writes
+    (``partitioning/core/failure.py``): its cause, None when absent (the
+    eviction after the grace still comes)."""
+    from nos_tpu_torch.api.constants import ANNOT_MIGRATE
+
+    if pod is None:
+        return None
+    return pod.metadata.annotations.get(ANNOT_MIGRATE, "") or None
+
+
+def read_resize_signal(api, name: str, namespace: str) -> int | None:
+    return _parse_resize(_fetch_own_pod(api, name, namespace,
+                                        "dp-resize"))
+
+
+def read_migrate_signal(api, name: str, namespace: str) -> str | None:
+    return _parse_migrate(_fetch_own_pod(api, name, namespace,
+                                         "migrate-signal"))
 
 
 def _probe_identity(cfg: TrainConfig, environ, hook: str):
-    """Whether a per-checkpoint pod hook has what it needs: the pod's
-    identity from the downward API (``POD_NAME`` and ``POD_NAMESPACE``,
-    both or nothing) and a kubeconfig.  None, as in the JAX main, when
-    either is missing; NotImplementedError when both are there, since the
-    kube client is not ported."""
+    """(api, name, namespace) for a per-checkpoint pod hook, or None when
+    it must stay inert.  The identity comes from the downward API
+    (``POD_NAME`` and ``POD_NAMESPACE``), both or nothing: a pod name
+    without its namespace must not touch a same-named pod elsewhere,
+    which would inherit this job's progress.  The API comes from the
+    config's kubeconfig; an unusable one logs a warning and disables the
+    hook instead of stopping the job."""
     env = environ if environ is not None else os.environ
     name = env.get("POD_NAME", "")
     namespace = env.get("POD_NAMESPACE", "")
     if not name or not namespace or not cfg.kubeconfig:
         return None
-    raise NotImplementedError(f"{hook} for {namespace}/{name}: "
-                              f"{_CONTROL_PLANE}")
+    from nos_tpu_torch.cmd._runtime import build_api
+
+    try:
+        api = build_api(cfg)
+    except Exception:  # noqa: BLE001 — advisory hooks: the job loses
+        # the signal (resize and migrate fall to the eviction path)
+        logger.warning("%s disabled: kubeconfig %s unusable",
+                       hook, cfg.kubeconfig, exc_info=True)
+        return None
+    return api, name, namespace
 
 
 def signal_checker(cfg: TrainConfig, environ=None):
     """The per-checkpoint control-signal probe — () -> (desired dp
     replica count or None, migration cause or None) — or None when pod
-    identity or cluster access is unavailable."""
-    return _probe_identity(cfg, environ, "signal checker")
+    identity or cluster access is unavailable.  Both signals come from
+    one pod read per landed checkpoint, on one API client."""
+    ident = _probe_identity(cfg, environ, "signal checker")
+    if ident is None:
+        return None
+    api, name, namespace = ident
+
+    def probe() -> tuple[int | None, str | None]:
+        pod = _fetch_own_pod(api, name, namespace, "control-signal")
+        return _parse_resize(pod), _parse_migrate(pod)
+
+    return probe
 
 
 def progress_reporter(cfg: TrainConfig, environ=None):
     """The per-checkpoint progress callback, or None when pod identity or
-    cluster access is unavailable."""
-    return _probe_identity(cfg, environ, "progress reporter")
+    cluster access is unavailable (``_probe_identity``)."""
+    ident = _probe_identity(cfg, environ, "progress reporter")
+    if ident is None:
+        return None
+    api, name, namespace = ident
+    return lambda fraction: report_job_progress(api, name, namespace,
+                                                fraction)
 
 
 def build(cfg: TrainConfig, device: str | torch.device = "cuda"):
@@ -280,7 +376,6 @@ def train(cfg: TrainConfig, progress_cb=None, resize_cb=None,
     and is left unset on the CPU, which has no peak."""
     from nos_tpu_torch.ops.roofline import model_flops_per_step, peaks_for
 
-    _refuse_control_plane(cfg)
     if progress_cb is None:
         progress_cb = progress_reporter(cfg)
     if resize_cb is None and migrate_cb is None:
@@ -376,7 +471,6 @@ def main(argv=None) -> int:
     except ConfigError as e:
         print(f"invalid config: {e}", file=sys.stderr)
         return 2
-    _refuse_control_plane(cfg)
     # honor the device grant BEFORE the first CUDA call: CUDA reads its
     # visibility once, when it starts
     workload_env.apply()
@@ -389,9 +483,17 @@ def main(argv=None) -> int:
     # never reaches the last line
     logger.info("confined: grant %s", json.dumps(grant_report(verified)))
     created = maybe_init_distributed("cuda")
+    health = None
+    if cfg.health_probe_addr:
+        from nos_tpu_torch.cmd._runtime import Main
+
+        health = Main("nos-tpu-train", cfg.health_probe_addr)
+        health.start()  # /healthz and /metrics (the loss and step gauges)
     try:
         loss = train(cfg)
     finally:
+        if health is not None:
+            health.shutdown()
         if created:
             dist.destroy_process_group()
     if loss is not None:

@@ -9,9 +9,11 @@ to the kind's watchers, synchronously and in store-commit order.  A
 validating admission hook registered for a kind (the quota webhooks)
 runs on every create, update and patch of it and denies the write by
 raising.  ``locked()`` lends the store's lock to the MIG node's kubelet
-simulator, which must take it before its own.  The JAX package's
-``Informer``, a watch-maintained store, is not ported: the scheduler
-cache indexes its watch events itself.
+simulator, which must take it before its own.  ``kube/rest.py``'s
+``KubeClient`` offers the same surface over a kube-apiserver's REST API.
+The JAX package's ``Informer``, a watch-maintained store, is not ported
+yet (ROADMAP item 8 part 2): the scheduler cache indexes its watch
+events itself.
 """
 
 from __future__ import annotations
@@ -71,6 +73,12 @@ class APIServer:
     def _admit(self, kind: str, obj: Any) -> None:
         for fn in self._admission.get(kind, ()):
             fn(self, obj)
+
+    def kinds(self) -> list[str]:
+        """The kinds with at least one stored object (what a state dump
+        enumerates)."""
+        with self._lock:
+            return [k for k, s in self._stores.items() if s]
 
     def locked(self):
         """The store's reentrant lock, for a caller that must take it

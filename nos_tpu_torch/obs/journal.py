@@ -172,6 +172,10 @@ def capture_records(capture: JournalCapture) -> Iterator[JournalCapture]:
         _capture.reset(token)
 
 
+def get_journal() -> DecisionJournal:
+    return _journal
+
+
 def set_journal(journal: DecisionJournal) -> DecisionJournal:
     global _journal
     prev = _journal

@@ -294,18 +294,21 @@ class CapacityScheduling:
     def _nominated_pods(self) -> list[Pod]:
         """The pending pods nominated to a node, memoised on the API's
         resource version: PreFilter runs for every pod of every cycle
-        and nominations are rare."""
+        and nominations are rare.  A substrate without that counter
+        (the REST client) lists every time."""
         if self._api is None:
             return []
-        rv = self._api.resource_version
-        if rv == self._nominated_rv:
+        rv = getattr(self._api, "resource_version", None)
+        if rv is not None and rv == self._nominated_rv:
             return self._nominated_cache
-        self._nominated_cache = self._api.list(
+        pods = self._api.list(
             KIND_POD, filter_fn=lambda p: (p.status.nominated_node_name
                                            and not p.spec.node_name
                                            and p.status.phase == PENDING))
-        self._nominated_rv = rv
-        return self._nominated_cache
+        if rv is not None:
+            self._nominated_rv = rv
+            self._nominated_cache = pods
+        return pods
 
     # -- PreFilter extensions -----------------------------------------------
     def add_pod(self, state: CycleState, pod_to_schedule: Pod,

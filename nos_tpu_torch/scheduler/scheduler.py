@@ -708,7 +708,8 @@ class Scheduler:
     def _choose_node(self, pod: Pod,
                      feasible: dict[str, NodeInfo]) -> NodeInfo:
         """The feasible node with the least headroom on the pod's own
-        resources (packs shares tightly), ties by name."""
+        resources (packs shares tightly), ties by host index, then
+        name."""
         nis = list(feasible.values())
         if len(nis) == 1:
             return nis[0]
@@ -718,16 +719,26 @@ class Scheduler:
     def _score_key(pod: Pod) -> Callable[[NodeInfo], tuple]:
         """Nodes under a defrag drain last (the room a defrag move frees
         is for the demand it was made for), then the least headroom on
-        the pod's own resources, then the name.  The JAX package also
-        avoids the hosts a stuck gang's window lease reserves; the lease
-        comes with the windows (ROADMAP item 7.2)."""
+        the pod's own resources, then the numeric host index (an absent
+        or unparsable label counts as 0), then the name: hosts fill in
+        their physical order, where the name's order would put
+        gpu-node-10 before gpu-node-2.  The JAX package also avoids the
+        hosts a stuck gang's window lease reserves and prefers hosts
+        whose aligned windows are already broken; the lease and the
+        windows come with ROADMAP item 7.2."""
         req = pod_request(pod)
 
         def key(ni: NodeInfo) -> tuple:
             free = ni.free()
             drained = bool(ni.node.metadata.annotations.get(
                 C.ANNOT_DEFRAG_DRAIN))
-            return (drained, sum(free.get(r, 0.0) for r in req), ni.name)
+            try:
+                idx = int(ni.node.metadata.labels.get(
+                    C.LABEL_HOST_INDEX, "0"))
+            except ValueError:
+                idx = 0
+            return (drained, sum(free.get(r, 0.0) for r in req), idx,
+                    ni.name)
 
         return key
 

@@ -335,7 +335,7 @@ def _domain_layout(nodes: int = NODES) -> list[tuple[str, int | None]]:
 def gang_fleet_spec(seed: int = 0) -> dict:
     """The gang fleet's spec: ``quota_fleet_spec(seed)`` with each node's
     ``domain`` (GANG_FLEET_DOMAINS, "" past them) and, in a domain, its
-    ``host_index`` there (no scheduler reads it), the PodGroups
+    ``host_index`` there (a tie of headroom breaks on it), the PodGroups
     (``groups`` {name, namespace, min, mesh}), a third wave of gang
     members {..., gang} at GANG_PRIORITY, created in the third hour in
     an order drawn from ``seed``, and the scheduler's clock ``now``."""

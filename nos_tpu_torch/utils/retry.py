@@ -5,7 +5,8 @@ its patch sites, k8s.io/client-go/util/retry).
 ``mutate`` re-reads the object on every attempt (``api.patch`` re-fetches
 before calling it), so a retried patch is computed against the winner's
 state.  Transport errors (OSError) are retried too, so every mutate
-passed here must be idempotent against current state.
+passed here must be idempotent against current state.  ``Backoff`` paces
+the REST client's watch reconnects (``kube/rest.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,33 @@ def delay_s(attempt: int) -> float:
     to MAX_DELAY_S, jittered over [cap * (1 - JITTER), cap]."""
     cap = min(MAX_DELAY_S, BASE_DELAY_S * (2.0 ** attempt))
     return cap * (1.0 - JITTER * random.random())
+
+
+class Backoff:
+    """Capped exponential backoff with full jitter for a reconnect loop:
+    ``next_delay()`` grows ``base_s * factor^n`` up to ``cap_s``,
+    jittered over [cap * (1 - jitter), cap], so reconnecting watchers do
+    not all hit the apiserver at once; ``reset()`` after a success."""
+
+    def __init__(self, base_s: float = 0.2, cap_s: float = 30.0,
+                 factor: float = 2.0, jitter: float = 0.5,
+                 rng: random.Random | None = None) -> None:
+        self.base_s = base_s
+        self.cap_s = cap_s
+        self.factor = factor
+        self.jitter = jitter
+        self._rng = rng or random.Random()
+        self._n = 0
+
+    def next_delay(self) -> float:
+        raw = min(self.cap_s, self.base_s * (self.factor ** self._n))
+        self._n += 1
+        if not self.jitter:
+            return raw
+        return raw * (1.0 - self.jitter * self._rng.random())
+
+    def reset(self) -> None:
+        self._n = 0
 
 
 def retry_on_conflict(api, kind: str, name: str,

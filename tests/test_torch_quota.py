@@ -276,7 +276,8 @@ class Side:
     def create_node(self, n: dict) -> None:
         """A node advertising ``shares`` {gb: qty} and ``gpus`` whole
         GPUs, in NVLink domain ``domain`` (JAX: TPU pod; none or "":
-        unlabelled) with its GPU count labelled."""
+        unlabelled) with its GPU count labelled, and its ``host_index``
+        when the spec gives one."""
         alloc = {"cpu": 64.0}
         for gb, qty in n.get("shares", {}).items():
             alloc |= {k: v for k, v in self.res(gb, qty).items()
@@ -290,6 +291,9 @@ class Side:
         if n.get("domain"):
             labels[JC.LABEL_POD_ID if self.jax
                    else C.LABEL_NVLINK_DOMAIN] = n["domain"]
+        if "host_index" in n:
+            labels[JC.LABEL_HOST_INDEX if self.jax
+                   else C.LABEL_HOST_INDEX] = str(n["host_index"])
         mk = jax_factory.make_node if self.jax else factory.make_node
         self.api.create(KIND_NODE, mk(n["name"], labels=labels,
                                       allocatable=alloc))

@@ -7,12 +7,8 @@ JAX's side is its timeshare family on the 80 GB stand-in generation of
 ``tests/test_torch_timeshare.py``: ``nos.tpu/pod-id`` stands for the
 port's ``nos.nebuly.com/nvlink-domain``, ``nos.tpu/host-index`` for
 ``nos.nebuly.com/host-index``, ``nos.tpu/spare`` for
-``nos.nebuly.com/spare``, the "timeshare" kind for "mps".  JAX's
-scheduler breaks a tie of headroom by the host index and then the name,
-the port's by the name: where host indices are labelled, the twin hides
-them from JAX's score key (``nos_tpu.scheduler.scheduler``'s
-``C_LABEL_HOST_INDEX``), so both schedulers break ties by name, as they
-do on the unlabelled nodes of the other parity tests.
+``nos.nebuly.com/spare``, the "timeshare" kind for "mps".  Both
+schedulers break a tie of headroom by the host index and then the name.
 
 - counterparts of ``tests/test_recovery.py``'s TestHoldGuards,
   TestFailureDetector, TestSparePromotion and TestDrainMigrate, each
@@ -23,13 +19,17 @@ do on the unlabelled nodes of the other parity tests.
 - the recovery fleet (``testing/fleet.py``) on both, to
   ``chip_smoke.RECOVERY_FLEET_DIGEST``;
 - chip_smoke's card loop of phase 13 (c) against JAX's loop on the
-  one-GPU stand-in, for the MPS family, and the same story through the
-  MIG family on the MIG stand-in;
+  one-GPU stand-in, for the MPS family, in memory and over
+  ``tests/k8s_stub.py`` (each package on its own REST client, recorded
+  through the stub's commit log, to ``RECOVERY_LOOP_WRITES``), and the
+  same story through the MIG family on the MIG stand-in;
 - off means off: with the recovery knobs at 0 the factories build no
   policy and a cluster with a stray migration drain is healed once.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -37,7 +37,6 @@ import pytest
 import nos_tpu.api.constants as JC
 import nos_tpu.partitioning.timeshare as jax_ts
 import nos_tpu.partitioning.timeshare.factory as jax_ts_factory
-import nos_tpu.scheduler.scheduler as jax_scheduler_mod
 from nos_tpu.api.podgroup import PodGroup as JaxPodGroup
 from nos_tpu.api.podgroup import PodGroupSpec as JaxPodGroupSpec
 from nos_tpu.cmd.assembly import build_scheduler as jax_build_scheduler
@@ -134,14 +133,12 @@ def _counter(name: str, jax: bool) -> float:
 
 def jax_standin(monkeypatch, clock) -> None:
     """The JAX side's stand-in: the timeshare factory's snapshot taker
-    on the 80 GB generation's registry, a fresh ledger on ``clock``, and
-    the host index hidden from the scheduler's score key."""
+    on the 80 GB generation's registry and a fresh ledger on
+    ``clock``."""
     monkeypatch.setattr(jax_ts_factory, "TimeshareSnapshotTaker",
                         lambda: jax_ts.TimeshareSnapshotTaker(JAX_REG))
     monkeypatch.setattr(jax_ledger, "_ledger",
                         jax_ledger.ChipSecondLedger(clock=clock))
-    monkeypatch.setattr(jax_scheduler_mod, "C_LABEL_HOST_INDEX",
-                        "nos.tpu/host-index-hidden-from-the-score")
 
 
 def jax_node(name: str, domain: str = "", host_index=None,
@@ -1255,15 +1252,25 @@ def _recovery_port_object(orig):
     return convert
 
 
-def _jax_recovery_loop(monkeypatch, clock, advance) -> tuple[dict, dict]:
+def _jax_recovery_loop(monkeypatch, clock, advance,
+                       rest: bool = False) -> tuple[dict, dict]:
     """chip_smoke's _recovery_start and _recovery_migrate on the JAX
     package's loop (the one-GPU stand-in, the timeshare family with the
-    recovery plane at the smoke's knobs), step for step.  Returns the
-    writes and the rejections' verdicts while the node was drained."""
+    recovery plane at the smoke's knobs), step for step: in memory, or
+    (``rest``) on the JAX package's REST client over a stub of its own,
+    recorded through the stub's commit log as the smoke records.
+    Returns the writes and the rejections' verdicts while the node was
+    drained."""
+    import contextlib
     import functools
 
+    import nos_tpu.kube.k8s_codec as jcodec
     import test_torch_scheduler as tts
+    from nos_tpu.kube.rest import KubeClient as JaxKubeClient
+    from nos_tpu.kube.rest import KubeConfig as JaxKubeConfig
     from nos_tpu.utils.pod_util import displaced_value as jax_displaced
+
+    from k8s_stub import StubApiServer
 
     monkeypatch.setattr(tts, "_as_port_object",
                         _recovery_port_object(tts._as_port_object))
@@ -1272,7 +1279,25 @@ def _jax_recovery_loop(monkeypatch, clock, advance) -> tuple[dict, dict]:
             jax_ts.new_timeshare_partitioner_controller,
             node_suspect_after_s=chip_smoke.RECOVERY_SUSPECT_AFTER_S,
             migrate_grace_s=chip_smoke.RECOVERY_GRACE_S))
-    loop = tts._JaxCardLoop(monkeypatch, clock, advance, quotas=())
+    with contextlib.ExitStack() as stack:
+        api = watch = None
+        if rest:
+            stub = stack.enter_context(StubApiServer())
+            api = JaxKubeClient(JaxKubeConfig(server=stub.url))
+            stack.callback(api.close)
+            tap = chip_smoke._StubTap(stub, decode=jcodec.from_k8s)
+            watch = tap.watch
+        loop = tts._JaxCardLoop(monkeypatch, clock, advance, quotas=(),
+                                api=api, watch=watch)
+        stack.callback(loop.sched.close)
+        writes, verdicts = _jax_recovery_story(loop, clock, jax_displaced,
+                                               rest)
+        if rest:
+            assert not tap.errors
+    return writes, verdicts
+
+
+def _jax_recovery_story(loop, clock, jax_displaced, rest: bool):
     frozen = [False]
 
     def step() -> None:
@@ -1281,6 +1306,8 @@ def _jax_recovery_loop(monkeypatch, clock, advance) -> tuple[dict, dict]:
         loop.controller.process_if_ready()
         if not frozen[0]:
             loop.agent.tick()
+        if rest:
+            time.sleep(chip_smoke.CARD_POLL_S)
 
     def until(done) -> None:
         for _ in range(400):
@@ -1306,13 +1333,23 @@ def _jax_recovery_loop(monkeypatch, clock, advance) -> tuple[dict, dict]:
     until(lambda: pods()[batch].is_unschedulable())
     frozen[0] = True
     until(lambda: quarantine.reason(node) == "heartbeat-suspect")
-    until(lambda: job not in pods())
+    assert pods()[job].metadata.annotations[JC.ANNOT_MIGRATE] == \
+        "node-suspect"
+    # the job's child leaves at its checkpoint: the kubelet reports the
+    # pod Succeeded, its controller deletes it and makes it anew
+    loop.api.patch("Pod", job, "default", mutate=lambda p: setattr(
+        p.status, "phase", "Succeeded"))
+    loop.api.delete("Pod", job, "default")
     create(job, {JC.ANNOT_DISPLACED: jax_displaced(
         JC.DISPLACED_DRAIN_MIGRATE, clock())})
     n = len(jax_journal._journal.events("pod-rejected"))
-    step()
-    verdicts = {r.subject: r.attrs.get("nodes", {}).get(node, "")
+
+    def verdicts() -> dict:
+        return {r.subject: r.attrs.get("nodes", {}).get(node, "")
                 for r in jax_journal._journal.events("pod-rejected")[n:]}
+
+    until(lambda: len(verdicts()) == 2)
+    got = verdicts()
     frozen[0] = False
     until(lambda: not quarantine.is_quarantined(node)
           and not JC.is_migration_drain(
@@ -1320,62 +1357,104 @@ def _jax_recovery_loop(monkeypatch, clock, advance) -> tuple[dict, dict]:
     until(lambda: bool(pods()[job].spec.node_name))
     assert not pods()[batch].spec.node_name
     until(lambda: job in loop.running())
-    loop.sched.close()
-    return loop.writes, verdicts
+    return loop.writes, got
 
 
 class TestSmokeRecovery:
-    def _port(self, monkeypatch, injected: bool, polls: int = 0):
-        """The smoke's loop; the checkpoint lands after ``polls`` polls
-        of ``landed`` (a child's start takes thousands of loop passes
-        on the card)."""
+    def _port(self, monkeypatch, injected: bool, polls: int = 0,
+              rest: bool = False):
+        """The smoke's loop, in memory or over the REST stub as the smoke
+        runs it; the checkpoint lands after ``polls`` polls of ``landed``
+        (a child's start takes thousands of loop passes on the card) and
+        the child leaves at once."""
+        import contextlib
+
         from test_torch_scheduler import _fresh_journal, _injected_clock
 
+        from k8s_stub import StubApiServer
+        from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
+
         _fresh_journal(monkeypatch)
-        evicted = []
-        asked = [0]
+        asked, left = [0], []
 
         def landed() -> bool:
             asked[0] += 1
             return asked[0] > polls
 
-        if injected:
-            clock, advance = _injected_clock()
-            loop, card = chip_smoke._recovery_start(
-                SMOKE_DEVICE, clock=clock, wall=clock, advance=advance,
-                poll_s=0.0)
-            moved = chip_smoke._recovery_migrate(
-                loop, landed, lambda: evicted.append(1),
-                advance=advance, poll_s=0.0)
-        else:
-            loop, card = chip_smoke._recovery_start(SMOKE_DEVICE)
-            moved = chip_smoke._recovery_migrate(
-                loop, lambda: True, lambda: evicted.append(1))
-        loop.sched.close()
-        return loop, moved, evicted
+        def leave() -> bool:
+            left.append(1)
+            return True
+
+        with contextlib.ExitStack() as stack:
+            kw = {}
+            if rest:
+                stub = stack.enter_context(StubApiServer())
+                client = KubeClient(KubeConfig(server=stub.url))
+                stack.callback(client.close)
+                tap = chip_smoke._StubTap(stub)
+                kw = {"api": client, "watch": tap.watch}
+            if injected:
+                clock, advance = _injected_clock()
+                loop, card = chip_smoke._recovery_start(
+                    SMOKE_DEVICE, clock=clock, wall=clock, advance=advance,
+                    poll_s=0.0, **kw)
+                stack.callback(loop.sched.close)
+                moved = chip_smoke._recovery_migrate(
+                    loop, landed, leave, advance=advance, poll_s=0.0)
+            else:
+                loop, card = chip_smoke._recovery_start(SMOKE_DEVICE, **kw)
+                stack.callback(loop.sched.close)
+                moved = chip_smoke._recovery_migrate(loop, landed, leave)
+            if rest:
+                assert not tap.errors
+        return loop, moved, left
 
     @pytest.mark.parametrize("injected", [False, True],
                              ids=["monotonic", "injected"])
     def test_the_card_loop_writes_what_the_smoke_pins(self, monkeypatch,
                                                       injected):
-        """Phase 13 (c)'s loop with its children left out (the checkpoint
-        taken as landed): suspected, drained, the job evicted once and
-        recreated, both pods refused while drained, the node released and
-        the job bound before the batch pod; every write pinned."""
-        loop, moved, evicted = self._port(monkeypatch, injected,
-                                          polls=5000 if injected else 0)
-        assert evicted == [1]
+        """Phase 13 (c)'s loop in memory with its children left out (the
+        checkpoint taken as landed, the child leaving at once):
+        suspected, drained, the job stamped, left, deleted and
+        recreated, both pods refused while drained, the node released
+        and the job bound before the batch pod; every write as the JAX
+        package's loop writes them."""
+        from test_torch_scheduler import _fresh_journal, _injected_clock
+
+        loop, moved, left = self._port(monkeypatch, injected,
+                                       polls=5000 if injected else 0)
+        assert left
         assert moved["frozen"] <= moved["suspected"] <= moved["stamped"] \
-            <= moved["evicted"] <= moved["resumed"] <= moved["released"] \
-            <= moved["rebound"]
+            <= moved["left"] <= moved["deleted"] <= moved["resumed"] \
+            <= moved["released"] <= moved["rebound"]
+        _fresh_journal(monkeypatch)
+        clock, advance = _injected_clock()
+        writes, _ = _jax_recovery_loop(monkeypatch, clock, advance)
+        assert loop.writes == writes
+
+    @pytest.mark.parametrize("injected", [False, True],
+                             ids=["monotonic", "injected"])
+    def test_the_loop_over_rest_writes_what_the_smoke_pins(
+            self, monkeypatch, injected):
+        """The same story over the REST stub, as the card runs it: what
+        the stub commits is RECOVERY_LOOP_WRITES."""
+        loop, moved, left = self._port(monkeypatch, injected,
+                                       polls=50 if injected else 0,
+                                       rest=True)
+        assert left
+        assert moved["stamped"] <= moved["left"] <= moved["deleted"] \
+            <= moved["released"] <= moved["rebound"]
         assert loop.writes == chip_smoke.RECOVERY_LOOP_WRITES
 
     def test_the_jax_loop_writes_the_pinned_record(self, monkeypatch):
+        """The JAX package's loop on its own REST client over the stub
+        commits RECOVERY_LOOP_WRITES."""
         from test_torch_scheduler import _fresh_journal, _injected_clock
 
         _fresh_journal(monkeypatch)
         clock, advance = _injected_clock()
-        writes, verdicts = _jax_recovery_loop(monkeypatch, clock, advance)
+        writes, verdicts = _jax_recovery_loop(monkeypatch, clock, advance,
+                                              rest=True)
         assert writes == chip_smoke.RECOVERY_LOOP_WRITES
         assert all(chip_smoke.RECOVERY_DRAINED in v
                    for v in verdicts.values()) and len(verdicts) == 2
@@ -1390,6 +1469,30 @@ class TestSmokeRecovery:
                             assembly.NodeResourcesFit)
         with pytest.raises(SystemExit):
             self._port(monkeypatch, True)
+
+    def test_the_smoke_refuses_a_child_evicted_before_it_left(
+            self, monkeypatch):
+        """A child that never leaves is evicted after the grace: the
+        smoke must refuse that."""
+        from test_torch_scheduler import _fresh_journal, _injected_clock
+
+        _fresh_journal(monkeypatch)
+        clock, advance = _injected_clock()
+
+        def fast():                 # the grace passes in a few passes
+            for _ in range(100):
+                advance()
+
+        loop, _ = chip_smoke._recovery_start(
+            SMOKE_DEVICE, clock=clock, wall=clock, advance=advance,
+            poll_s=0.0)
+        try:
+            with pytest.raises(SystemExit):
+                chip_smoke._recovery_migrate(loop, lambda: True,
+                                             lambda: False, advance=fast,
+                                             poll_s=0.0)
+        finally:
+            loop.sched.close()
 
 
 class TestMigRecovery:

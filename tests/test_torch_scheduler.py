@@ -274,6 +274,34 @@ class TestQuotaStories:
             == ""
 
 
+class TestHostIndexTie:
+    @pytest.mark.parametrize("indices,chosen", [
+        ((2, 10), "gpu-node-2"),
+        ((None, None), "gpu-node-10"),
+        (("x", 10), "gpu-node-2"),
+    ], ids=["labelled", "unlabelled", "garbage"])
+    def test_a_headroom_tie_breaks_on_the_host_index(self, monkeypatch,
+                                                     indices, chosen):
+        """Two nodes with one free 24 GB share each: the tie of headroom
+        breaks on the numeric host index (an unparsable one counts as
+        0), then the name, on both packages; so gpu-node-2 goes before
+        gpu-node-10 where both are labelled."""
+        nodes = [{"name": name, "shares": {24: 1}}
+                 | ({} if idx is None else {"host_index": idx})
+                 for name, idx in zip(("gpu-node-10", "gpu-node-2"),
+                                      indices[::-1])]
+        spec = {"nodes": nodes, "quotas": [], "bound": [],
+                "waves": [[], []]}
+        twin = QuotaTwin(monkeypatch, spec)
+        twin.submit([{"name": "p", "namespace": "default", "gb": 24,
+                      "qty": 1, "priority": 0, "tier": "", "app": "job",
+                      "created": 1.0}])
+        assert twin.cycle() == 1
+        got = twin.both(lambda s: s.api.get(KIND_POD, "p", "default")
+                        .spec.node_name)
+        assert got == (chosen, chosen)
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke's quota fleet
 # ---------------------------------------------------------------------------
@@ -348,6 +376,8 @@ def _jax_quota_fleet(spec: dict) -> dict:
             labels[JC.LABEL_CHIP_COUNT] = str(n["gpus"])
             if n["domain"]:
                 labels[JC.LABEL_POD_ID] = n["domain"]
+            if "host_index" in n:
+                labels[JC.LABEL_HOST_INDEX] = str(n["host_index"])
         api.create("Node", jf.make_node(n["name"], labels=labels,
                                         allocatable=alloc))
 
@@ -456,9 +486,12 @@ class _JaxCardLoop:
     generation cut to one chip a host (one GPU), its MPS (timeshare)
     controller, chip agent, build_scheduler, reconcilers bound to their
     watches and webhooks, the ElasticQuotas ``quotas``, stepped as
-    ``_CardLoop.step`` is, recorded through chip_smoke's recorder."""
+    ``_CardLoop.step`` is, recorded through chip_smoke's recorder; on an
+    in-memory server, or on ``api`` (the JAX package's REST client) with
+    ``watch`` feeding the recorder."""
 
-    def __init__(self, monkeypatch, clock, advance, quotas) -> None:
+    def __init__(self, monkeypatch, clock, advance, quotas, api=None,
+                 watch=None) -> None:
         import dataclasses
 
         import nos_tpu.partitioning.timeshare as jax_ts
@@ -496,7 +529,8 @@ class _JaxCardLoop:
                             jax_ledger.ChipSecondLedger(clock=clock))
         self.clock, self.advance = clock, advance
         self.jf = jf
-        api, state = JaxAPIServer(), ClusterState()
+        api = JaxAPIServer() if api is None else api
+        state = ClusterState()
         self.api = api
         NodeController(api, state).bind()
         PodController(api, state).bind()
@@ -517,7 +551,8 @@ class _JaxCardLoop:
         recorder = chip_smoke._Recorder(C.MPS_KIND)
         self.writes = recorder.writes
         for kind in ("Node", "Pod", "ElasticQuota", "PodGroup"):
-            api.watch(kind, lambda e, o: recorder(e, _as_port_object(o)))
+            (watch or api.watch)(
+                kind, lambda e, o: recorder(e, _as_port_object(o)))
         for ns, lo, hi in quotas:
             api.create("ElasticQuota", ElasticQuota(
                 metadata=ObjectMeta(name=ns, namespace=ns),

@@ -4,10 +4,11 @@ gloo ranks over the same mesh (fsdp=2,tp=2,sp=2, TINY with ring
 attention): the loop and its checkpoints, resume at the latest step, the
 "already complete" None, a fresh run into a used directory refused, the
 config checks; torchrun's environment failing fast; the exits at a
-checkpoint on a dp-resize or a migration; NotImplementedError for the
-control-plane settings; the device grant's order in ``main`` (apply,
-then validate, then the process group); and dryrun_multigpu on 2, 4 and
-6 ranks."""
+checkpoint on a dp-resize or a migration; the pod hooks against the JAX
+main's on the same pod, in memory and over ``tests/k8s_stub.py``, and
+``train`` on one CPU rank against the stub as a deployed pod runs it;
+the device grant's order in ``main`` (apply, then validate, then the
+process group); and dryrun_multigpu on 2, 4 and 6 ranks."""
 
 import collections
 import contextlib
@@ -132,36 +133,206 @@ class TestExitsAtCheckpoint:
         assert runs["migrate"]["progress"] == [pytest.approx(2 / 6)]
 
 
-class TestControlPlaneRefused:
-    @pytest.mark.parametrize("field,value", [
-        ("health_probe_addr", "127.0.0.1:0"), ("metrics_addr", "0.0.0.0:9")])
-    def test_server_addresses_raise(self, field, value):
-        with pytest.raises(NotImplementedError, match="item 32"):
-            cmd.train(tiny_cfg(**{field: value}), device="cpu")
+def _pod_twins(api_kind: str, stack: contextlib.ExitStack):
+    """The same pod ("trainer" in "jobs") on each package's substrate:
+    in memory, or a KubeClient over a stub of its own."""
+    import nos_tpu.kube.client as jclient
+    import nos_tpu.kube.rest as jrest
+    from nos_tpu.testing.factory import make_pod as jax_make_pod
+    from nos_tpu_torch.kube.client import APIServer, KIND_POD
+    from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
+    from nos_tpu_torch.testing.factory import make_pod
 
-    def test_kubeconfig_raises(self, tmp_path):
-        kubeconfig = tmp_path / "kubeconfig"
-        kubeconfig.write_text("apiVersion: v1\n")
-        cfg = tiny_cfg(kubeconfig=str(kubeconfig))
-        with pytest.raises(NotImplementedError, match="kubeconfig"):
-            cmd.train(cfg, device="cpu")
-        env = {"POD_NAME": "t", "POD_NAMESPACE": "jobs"}
-        with pytest.raises(NotImplementedError, match="jobs/t"):
-            cmd.progress_reporter(cfg, environ=env)
-        with pytest.raises(NotImplementedError, match="jobs/t"):
-            cmd.signal_checker(cfg, environ=env)
-        assert not dist.is_initialized()
+    from k8s_stub import StubApiServer
+
+    if api_kind == "memory":
+        api, japi = APIServer(), jclient.APIServer()
+    else:
+        stubs = [stack.enter_context(StubApiServer()) for _ in range(2)]
+        api = KubeClient(KubeConfig(server=stubs[0].url))
+        japi = jrest.KubeClient(jrest.KubeConfig(server=stubs[1].url))
+        stack.callback(api.close)
+        stack.callback(japi.close)
+    api.create(KIND_POD, make_pod(name="trainer", namespace="jobs"))
+    japi.create("Pod", jax_make_pod(name="trainer", namespace="jobs"))
+    return api, japi
+
+
+def _stamp(api, key: str, value: str) -> None:
+    api.patch("Pod", "trainer", "jobs",
+              mutate=lambda p: p.metadata.annotations.update({key: value}))
+
+
+class TestPodHooks:
+    """The pod hooks against the JAX main's on the same pod, in memory
+    and over the stub (``tests/k8s_stub.py``)."""
+
+    @pytest.mark.parametrize("api_kind", ["memory", "rest"])
+    def test_progress_clamps_and_formats_as_jax(self, api_kind):
+        import nos_tpu.api.constants as JC
+        import nos_tpu.cmd.train as jcmd
+        from nos_tpu_torch.api import constants as C
+
+        fracs = (0.25, -0.5, 0.0, 1 / 3, 0.99999, 1.0, 7.3, 2 / 6)
+        with contextlib.ExitStack() as stack:
+            api, japi = _pod_twins(api_kind, stack)
+            for frac in fracs:
+                assert cmd.report_job_progress(api, "trainer", "jobs", frac)
+                assert jcmd.report_job_progress(japi, "trainer", "jobs",
+                                                frac)
+                got = api.get("Pod", "trainer", "jobs").metadata.annotations
+                want = japi.get("Pod", "trainer",
+                                "jobs").metadata.annotations
+                assert got[C.ANNOT_JOB_PROGRESS] == \
+                    want[JC.ANNOT_JOB_PROGRESS] == \
+                    f"{max(0.0, min(1.0, frac)):.4f}"
+            # a vanished pod: a warning and False, never a raise
+            assert not cmd.report_job_progress(api, "ghost", "jobs", 0.5)
+            assert not jcmd.report_job_progress(japi, "ghost", "jobs", 0.5)
+
+    @pytest.mark.parametrize("api_kind", ["memory", "rest"])
+    def test_signals_read_as_jax(self, api_kind):
+        """The resize stamp parsed (garbage, zero and negative are no
+        resize), the migrate stamp's cause, both on one read; a vanished
+        pod reads as no signal."""
+        import nos_tpu.api.constants as JC
+        import nos_tpu.cmd.train as jcmd
+        from nos_tpu_torch.api import constants as C
+
+        with contextlib.ExitStack() as stack:
+            api, japi = _pod_twins(api_kind, stack)
+
+            def both():
+                return ((cmd.read_resize_signal(api, "trainer", "jobs"),
+                         cmd.read_migrate_signal(api, "trainer", "jobs")),
+                        (jcmd.read_resize_signal(japi, "trainer", "jobs"),
+                         jcmd.read_migrate_signal(japi, "trainer", "jobs")))
+
+            got, want = both()
+            assert got == want == (None, None)
+            for raw in ("banana", "", "0", "-3", "2.5", "4", "1"):
+                _stamp(api, C.ANNOT_DP_RESIZE, raw)
+                _stamp(japi, JC.ANNOT_DP_RESIZE, raw)
+                got, want = both()
+                assert got == want
+            assert got == (1, None)
+            for cause in ("", "node-suspect", "maintenance"):
+                _stamp(api, C.ANNOT_MIGRATE, cause)
+                _stamp(japi, JC.ANNOT_MIGRATE, cause)
+                got, want = both()
+                assert got == want == (1, cause or None)
+            for fn in (cmd.read_resize_signal, cmd.read_migrate_signal):
+                assert fn(api, "ghost", "jobs") is None
 
     def test_hooks_inert_without_downward_api_identity(self, tmp_path):
+        import nos_tpu.cmd.train as jcmd
+
         kubeconfig = tmp_path / "kubeconfig"
-        kubeconfig.write_text("apiVersion: v1\n")
-        for cfg in (TrainConfig(), TrainConfig(kubeconfig=str(kubeconfig))):
+        kubeconfig.write_text(json.dumps(
+            {"clusters": [{"name": "c", "cluster": {
+                "server": "http://127.0.0.1:1"}}]}))
+        for kc in ("", str(kubeconfig)):
+            cfg, jcfg = TrainConfig(kubeconfig=kc), \
+                jcmd.TrainConfig(kubeconfig=kc)
             for env in ({}, {"POD_NAME": "t"}, {"POD_NAMESPACE": "jobs"}):
-                assert cmd.progress_reporter(cfg, environ=env) is None
-                assert cmd.signal_checker(cfg, environ=env) is None
+                for fn in ("progress_reporter", "signal_checker"):
+                    assert getattr(cmd, fn)(cfg, environ=env) is None
+                    assert getattr(jcmd, fn)(jcfg, environ=env) is None
         # identity present but no kubeconfig: nothing to annotate against
         env = {"POD_NAME": "t", "POD_NAMESPACE": "jobs"}
         assert cmd.progress_reporter(TrainConfig(), environ=env) is None
+        # both, and a kubeconfig: live hooks
+        cfg = TrainConfig(kubeconfig=str(kubeconfig))
+        assert callable(cmd.progress_reporter(cfg, environ=env))
+        assert callable(cmd.signal_checker(cfg, environ=env))
+
+    @pytest.mark.parametrize("text", ["banana: [unclosed", "{not json",
+                                      "[]"])
+    def test_a_malformed_kubeconfig_disables_the_hooks(self, tmp_path,
+                                                       caplog, text):
+        import nos_tpu.cmd.train as jcmd
+
+        bad = tmp_path / "kubeconfig"
+        bad.write_text(text)
+        env = {"POD_NAME": "t", "POD_NAMESPACE": "jobs"}
+        with caplog.at_level(logging.WARNING):
+            for fn in ("progress_reporter", "signal_checker"):
+                assert getattr(cmd, fn)(
+                    TrainConfig(kubeconfig=str(bad)), environ=env) is None
+                assert getattr(jcmd, fn)(
+                    jcmd.TrainConfig(kubeconfig=str(bad)),
+                    environ=env) is None
+        disabled = [r.getMessage() for r in caplog.records
+                    if r.name == "nos_tpu_torch.cmd.train"]
+        assert disabled == [
+            f"progress reporter disabled: kubeconfig {bad} unusable",
+            f"signal checker disabled: kubeconfig {bad} unusable"]
+
+
+class TestEndToEndOverTheStub:
+    """``train(cfg, device="cpu")`` as a deployed pod runs it: POD_NAME and
+    POD_NAMESPACE set, a JSON kubeconfig naming the stub, a health
+    address; each stamp set before checkpoint 1 makes the loop exit
+    there with the progress written."""
+
+    @pytest.mark.parametrize("stamp", ["migrate", "resize", "none"])
+    def test_a_stamp_exits_at_the_first_checkpoint(self, tmp_path,
+                                                   monkeypatch, caplog,
+                                                   stamp):
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
+        from nos_tpu_torch.models.checkpoint import TrainCheckpointer
+        from nos_tpu_torch.testing.factory import make_pod
+
+        from k8s_stub import StubApiServer
+
+        with StubApiServer() as stub:
+            api = KubeClient(KubeConfig(server=stub.url))
+            api.create("Pod", make_pod(name="trainer", namespace="jobs"))
+            key, value = {"migrate": (C.ANNOT_MIGRATE, "node-suspect"),
+                          "resize": (C.ANNOT_DP_RESIZE, "2"),
+                          "none": (C.ANNOT_DP_RESIZE, "1")}[stamp]
+            _stamp(api, key, value)
+            kubeconfig = tmp_path / "kubeconfig.json"
+            kubeconfig.write_text(json.dumps({
+                "current-context": "stub",
+                "contexts": [{"name": "stub", "context": {
+                    "cluster": "stub", "user": "u"}}],
+                "clusters": [{"name": "stub", "cluster": {
+                    "server": stub.url}}],
+                "users": [{"name": "u", "user": {}}]}))
+            monkeypatch.setenv("POD_NAME", "trainer")
+            monkeypatch.setenv("POD_NAMESPACE", "jobs")
+            monkeypatch.delenv("WORLD_SIZE", raising=False)
+            ck = str(tmp_path / "ck")
+            cfg = TrainConfig(model="tiny", batch_size=2, seq_len=32,
+                              steps=4, log_every=1, checkpoint_every=1,
+                              checkpoint_dir=ck, mesh="fsdp=1",
+                              kubeconfig=str(kubeconfig),
+                              health_probe_addr="127.0.0.1:0")
+            cfg.validate()
+            try:
+                with caplog.at_level(logging.INFO):
+                    loss = cmd.train(cfg, device="cpu")
+                latest = TrainCheckpointer(ck).latest_step()
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            progress = api.get("Pod", "trainer", "jobs").metadata \
+                .annotations[C.ANNOT_JOB_PROGRESS]
+            api.close()
+        assert math.isfinite(loss)
+        said = [r.getMessage() for r in caplog.records
+                if "requested" in r.getMessage()]
+        if stamp == "none":
+            assert (latest, progress, said) == (4, "1.0000", [])
+            return
+        assert (latest, progress) == (1, "0.2500")
+        assert said == [{
+            "migrate": "migration requested (node-suspect): exiting at "
+                       "checkpoint step 1 for reschedule",
+            "resize": "dp resize requested (1 -> 2 workers): exiting at "
+                      "checkpoint step 1 for re-mesh"}[stamp]]
 
 
 class TestConfigAndGauges:
