@@ -290,9 +290,50 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    ms per loop pass over REST, the children's walls and the resumed
    child's launches, which the kernels line counts as the ``recovery``
    path.
+14. mains: the control plane as the deployment runs it, each main a
+   process of its own (``python -m nos_tpu_torch.cmd.<main> --config``,
+   ``apiVersion`` nos.tpu/v1beta2, a JSON kubeconfig naming the REST
+   stub, a health address on a free port) against ``StubApiServer``,
+   where the smoke registered the card's node (MPS, the model discovery
+   found) and team-a's and team-b's ElasticQuotas: two partitioner
+   replicas (``mps``, leader election, the card phase's batch windows),
+   a scheduler, an operator (``webhook_port`` 0: it must warn that quota
+   admission is unenforced) and the chip agent (``--node``, ``model:
+   auto`` through NVML with no CUDA context, heartbeat, MAINS_REPORT_S
+   reports).  Each must answer ``/healthz`` and ``/readyz``, and exactly
+   one partitioner holds the lease and runs the partitioner loop.  Two
+   24 GB pods, one a team, are placed by the mains alone (one plan on
+   the leader's ``/metrics``, the plugin applied, both bound, the
+   stub's binding Running); the operator must write each quota's
+   ``status.used`` as 24 GB.  Each pod's grant is derived from the
+   stub's objects (the applied plugin config, the reporter's used
+   shares) and one ``cmd.train`` child per pod starts at once
+   (BENCH_350M_TRAIN at full width, GRANT_STEPS fused steps, a
+   checkpoint at the end, ``POD_NAME``/``POD_NAMESPACE`` and the
+   kubeconfig).  The leader gets SIGTERM: it must exit 0 and release
+   the lease (deadline 0), the standby must take it within its 2 s
+   retry and a step, and a third 24 GB pod, created after the handover,
+   must be planned by the new leader alone (a new plan id, one plan on
+   its ``/metrics``) and bound; the old leader writes the lease no more
+   (the stub's commit log, ``_StubTap``).  The children must pass as
+   grant (a)'s and write ``job-progress`` 1.0000; the smoke marks the
+   pods Succeeded and the quotas' use must return to 0.  The one-shot
+   exporter must exit 0 on a dump of the stub (``kube/serialize``) with
+   the MPS node and its GPU, and 1 on the new leader's ``/snapshot``
+   (501).  SIGTERM to every main: each exits 0 within MAINS_EXIT_LIMIT_S
+   and no lease is left held.  The final objects must equal
+   ``MAINS_LOOP_WRITES`` (the same topology as processes in the CPU
+   tests).  The line carries each main's start to ``/healthz``,
+   creation to bound per pod, the plan counts, SIGTERM to the new
+   holder, handover to the third pod's bind, the quota values seen, the
+   exporter's exit codes, each main's exit code and seconds to exit and
+   the children's walls; their launches are the kernels line's
+   ``mains`` path.  The MIG agent's main is not run on the card: its
+   NVML runtime cannot carve (ROADMAP 24a) and the card is not in MIG
+   mode.
 
 Then the kernel summary line (one entry per compiled tile, with its
-launches by path, the gang and recovery children's among them; a tile
+launches by path, the gang, recovery and mains children's among them; a tile
 no path ran must have run in the autotune phase), the card's ``name,
 power.limit`` and, last,
 ``{"ok": true, "device": {...}}``.
@@ -2364,14 +2405,26 @@ def _grants(loop: _CardLoop, device: dict, names: list[str]) -> list[dict]:
     its request.  The smoke stands in for the kubelet plugin's Allocate,
     which would hand the pod this grant (ROADMAP item 24b)."""
     from nos_tpu_torch.api import constants as C
+
+    annots = loop.node().metadata.annotations
+    gpus = loop.agent.plugin.gpu_config(annots[C.ANNOT_PLUGIN_APPLIED_CONFIG])
+    return _grants_of(loop.node(), loop.pods(), gpus, device, names)
+
+
+def _grants_of(node, pods: dict, gpus: dict, device: dict,
+               names: list[str]) -> list[dict]:
+    """``_grants`` from the objects: the node (its used-share status
+    annotations), the pods by name and the applied config's GPUs."""
+    from nos_tpu_torch.api import constants as C
     from nos_tpu_torch.kube.resources import pod_request
     from nos_tpu_torch.topology.profile import extract_timeshare_requests
 
-    annots = loop.node().metadata.annotations
-    pods = loop.pods()
-    gpus = loop.agent.plugin.gpu_config(annots[C.ANNOT_PLUGIN_APPLIED_CONFIG])
+    def status(i: int, s: str) -> str | None:
+        return node.metadata.annotations.get(
+            f"{C.ANNOT_STATUS_PREFIX}{i}-{s}-used")
+
     used = {s: [i for i in sorted(gpus)
-                for _ in range(int(loop.status(i, s, "used") or 0))]
+                for _ in range(int(status(i, s) or 0))]
             for t in gpus.values() for s in t}
     grants = []
     for name in names:
@@ -4713,6 +4766,675 @@ def _recovery_card(loop: _RecoveryLoop, client, url: str, tmp: str,
             "launches": resumed["launches"]}
 
 
+# The mains phase.  The control plane as the deployment runs it: each
+# main a process of its own (``python -m nos_tpu_torch.cmd.<main>
+# --config``), all against the REST stub through one kubeconfig: two
+# partitioner replicas under a lease, a scheduler, an operator and the
+# card's chip agent; the smoke stands in for the kubelet (the stub's
+# binding sets Running, the smoke marks Succeeded) and starts each
+# bound pod's child under its grant.
+MAINS = ("partitioner-0", "partitioner-1", "scheduler", "operator",
+         "chipagent")
+MAINS_PODS = (("team-a", "ma-0"), ("team-b", "mb-0"))
+MAINS_THIRD = ("default", "mc-0")
+MAINS_QUOTAS = QUOTA_CARD_QUOTAS
+MAINS_LEASE = ("nos-tpu-partitioner-leader", "nos-tpu-system")
+MAINS_REPORT_S = 0.1         # the chip agent's report interval
+MAINS_START_LIMIT_S = 120.0  # a main's start to /healthz and /readyz
+MAINS_LIMIT_S = 60.0         # each step the mains take on their own
+MAINS_EXIT_LIMIT_S = 5.0     # SIGTERM to a main's exit
+MAINS_RETRY_S = 2.0          # a standby's lease retry (LeaderElector's)
+_LABELLED = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)\{(.*)\} (\S+)$')
+
+# What the mains leave in the stub, pinned by
+# tests/test_torch_cmd.py::TestMainsAsProcesses (the same topology as
+# processes on the CPU, no children; the JAX package's mains on the same
+# story leave the same objects under its names): the node's annotations
+# and plan label, the plugin ConfigMap's data, each pod's node and
+# phase, each quota's status.used at its distinct values in commit
+# order, and the lease's last holder and deadline.  Plan ids read
+# plan-<n> in the order the stub first committed them, the heartbeat
+# <beat>, the standby's identity "standby".
+_MEM = "nos.nebuly.com/gpu-memory"
+MAINS_LOOP_WRITES = {
+    "node": {"annotations": {
+        "nos.nebuly.com/agent-heartbeat.mps": "<beat>",
+        "nos.nebuly.com/device-plugin-applied-config": "h100-node-0.plan-2",
+        "nos.nebuly.com/device-plugin-generation": "2",
+        "nos.nebuly.com/spec-partitioning-plan.mps": "plan-2",
+        "nos.nebuly.com/status-gpu-0-24gb-free": "3",
+        "nos.nebuly.com/status-partitioning-plan.mps": "plan-2"},
+        "plan_label": "plan-2"},
+    "configmap": {"h100-node-0.plan-2": json.dumps({
+        "version": "v1", "sharing": {"mps": {
+            "failRequestsGreaterThanOne": True, "resources": [{
+                "name": "nvidia.com/gpu", "rename": "nvidia.com/gpu-24gb",
+                "memoryGB": 24, "replicas": 3, "devices": ["0"]}]}}})},
+    "pods": {"ma-0": ["h100-node-0", "Succeeded"],
+             "mb-0": ["h100-node-0", "Succeeded"],
+             "mc-0": ["h100-node-0", "Succeeded"]},
+    "quotas": {ns: [{}, {_MEM: 0.0}, {_MEM: 24.0}, {_MEM: 0.0}]
+               for ns in ("team-a", "team-b")},
+    "lease": {"holder": "standby", "deadline": "0"},
+}
+
+
+class _Mains:
+    """Phase 14's cluster: the stub with the card's node registered as
+    the kubelet would (MPS, the model discovery found, one GPU), the
+    quotas, a JSON kubeconfig, and the mains as processes (their logs
+    under ``tmp``).  Every write the stub commits is recorded in commit
+    order with the parent's clock (``_StubTap``)."""
+
+    def __init__(self, stub, tmp: str, model: str, agent_model: str) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.api.elasticquota import (
+            ElasticQuota, ElasticQuotaSpec)
+        from nos_tpu_torch.kube.client import (
+            KIND_CONFIGMAP, KIND_ELASTIC_QUOTA, KIND_NODE, KIND_POD)
+        from nos_tpu_torch.kube.objects import ObjectMeta
+        from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
+        from nos_tpu_torch.testing.factory import make_gpu_node
+        from nos_tpu_torch.topology import DEFAULT_REGISTRY
+
+        self.tmp = pathlib.Path(tmp)
+        self.agent_model = agent_model
+        self.client = KubeClient(KubeConfig(server=stub.url))
+        self.tap = _StubTap(stub)
+        self.log: list[tuple[float, str, str, object]] = []
+        for kind in (KIND_NODE, KIND_POD, KIND_CONFIGMAP,
+                     KIND_ELASTIC_QUOTA):
+            self.tap.watch(kind, functools.partial(self._record, kind))
+        self.kubeconfig = str(self.tmp / "kubeconfig.json")
+        pathlib.Path(self.kubeconfig).write_text(json.dumps({
+            "current-context": "stub",
+            "contexts": [{"name": "stub", "context": {"cluster": "stub",
+                                                      "user": "smoke"}}],
+            "clusters": [{"name": "stub", "cluster": {"server": stub.url}}],
+            "users": [{"name": "smoke", "user": {}}]}))
+        self.client.create(KIND_NODE, make_gpu_node(
+            CARD_NODE, model=DEFAULT_REGISTRY.get(model), gpus=1))
+        mem = C.RESOURCE_GPU_MEMORY
+        for ns, lo, hi in MAINS_QUOTAS:
+            self.client.create(KIND_ELASTIC_QUOTA, ElasticQuota(
+                metadata=ObjectMeta(name=ns, namespace=ns),
+                spec=ElasticQuotaSpec(min={mem: lo},
+                                      max={mem: hi} if hi else {})))
+        self.procs: dict[str, dict] = {}
+        self.created: dict[str, float] = {}
+
+    def _record(self, kind: str, event: str, obj) -> None:
+        self.log.append((time.perf_counter(), kind, event, obj))
+
+    # -- the processes ------------------------------------------------------
+    def _config(self, name: str) -> tuple[str, dict, list[str]]:
+        base = {"apiVersion": "nos.tpu/v1beta2",
+                "kubeconfig": self.kubeconfig,
+                "health_probe_addr": f"127.0.0.1:{_free_port()}"}
+        if name.startswith("partitioner"):
+            return "partitioner", base | {
+                "kind": "mps", "leader_election": True,
+                "batch_idle_s": CARD_BATCH_IDLE_S,
+                "batch_timeout_s": CARD_BATCH_TIMEOUT_S}, []
+        if name == "operator":
+            return "operator", base | {"webhook_port": 0}, []
+        if name == "chipagent":
+            return "chipagent", base | {
+                "model": self.agent_model, "heartbeat": True,
+                "report_interval_s": MAINS_REPORT_S}, ["--node", CARD_NODE]
+        return name, base, []
+
+    def start(self) -> None:
+        for name in MAINS:
+            module, cfg, extra = self._config(name)
+            path = self.tmp / f"{name}.json"
+            path.write_text(json.dumps(cfg))
+            log = open(self.tmp / f"{name}.log", "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"nos_tpu_torch.cmd.{module}",
+                 "--config", str(path), *extra], cwd=ROOT, env=_child_env(),
+                stdout=subprocess.DEVNULL, stderr=log, text=True)
+            log.close()
+            self.procs[name] = {"proc": proc, "t0": time.perf_counter(),
+                                "addr": cfg["health_probe_addr"]}
+
+    def logs(self, name: str) -> str:
+        return (self.tmp / f"{name}.log").read_text()
+
+    def _get(self, name: str, path: str) -> tuple[int, str]:
+        import urllib.error
+        import urllib.request
+
+        url = f"http://{self.procs[name]['addr']}{path}"
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    def wait_healthy(self) -> dict[str, float]:
+        """Each main's start to /healthz 200 (then /readyz 200), s."""
+        healthy: dict[str, float] = {}
+        t0 = time.monotonic()
+        while len(healthy) < len(MAINS):
+            for name in MAINS:
+                if name in healthy:
+                    continue
+                p = self.procs[name]
+                if p["proc"].poll() is not None:
+                    fail(f"main {name} exited {p['proc'].returncode} at "
+                         f"start:\n{self.logs(name)[-4000:]}")
+                try:
+                    code, _ = self._get(name, "/healthz")
+                except OSError:
+                    continue
+                if code == 200:
+                    healthy[name] = time.perf_counter() - p["t0"]
+            if time.monotonic() - t0 > MAINS_START_LIMIT_S:
+                fail(f"mains {sorted(set(MAINS) - set(healthy))} gave no "
+                     f"/healthz within {MAINS_START_LIMIT_S} s")
+            time.sleep(0.05)
+        for name in MAINS:
+            code, body = self._get(name, "/readyz")
+            if (code, body) != (200, "ok"):
+                fail(f"main {name} answered /readyz with {code} {body!r}")
+        return healthy
+
+    def metric(self, name: str, metric: str, **labels: str) -> float:
+        """A labelled sample of a main's /metrics (0 when absent)."""
+        code, text = self._get(name, "/metrics")
+        if code != 200:
+            fail(f"main {name}'s /metrics answered {code}")
+        want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+        for line in text.splitlines():
+            m = _LABELLED.match(line)
+            if m and m.group(1) == metric and ",".join(
+                    sorted(m.group(2).split(","))) == want:
+                return float(m.group(3))
+        return 0.0
+
+    def identity(self, name: str) -> str | None:
+        """The lease identity a partitioner logged on taking the lease."""
+        m = re.search(r"leader election \S+: (\S+) (?:acquired|took over)",
+                      self.logs(name))
+        return m.group(1) if m else None
+
+    def lease(self) -> tuple[str, str]:
+        from nos_tpu_torch.kube.client import KIND_CONFIGMAP
+        from nos_tpu_torch.kube.leaderelection import ANN_DEADLINE, ANN_HOLDER
+
+        cm = self.client.try_get(KIND_CONFIGMAP, *MAINS_LEASE)
+        if cm is None:
+            return "", ""
+        a = cm.metadata.annotations
+        return a.get(ANN_HOLDER, ""), a.get(ANN_DEADLINE, "")
+
+    def stop(self, name: str) -> dict:
+        """SIGTERM a main; its exit code and seconds to exit."""
+        p = self.procs[name]
+        t0 = time.perf_counter()
+        p["proc"].send_signal(signal.SIGTERM)
+        try:
+            rc = p["proc"].wait(timeout=MAINS_EXIT_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"main {name} did not exit within {MAINS_EXIT_LIMIT_S} s "
+                 f"of SIGTERM:\n{self.logs(name)[-4000:]}")
+        p["exited"] = time.perf_counter()
+        out = {"rc": rc, "exit_s": p["exited"] - t0}
+        if rc != 0:
+            fail(f"main {name} exited {rc} on SIGTERM:\n"
+                 f"{self.logs(name)[-4000:]}")
+        return out
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p["proc"].poll() is None:
+                p["proc"].kill()
+                p["proc"].wait()
+        self.client.close()
+
+    # -- the cluster ----------------------------------------------------------
+    def create_pod(self, namespace: str, name: str) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.factory import make_timeshare_pod
+
+        self.created[name] = time.perf_counter()
+        self.client.create(KIND_POD, make_timeshare_pod(
+            CARD_SHARE_GB, name=name, namespace=namespace,
+            creation_timestamp=time.time()))
+
+    def pods(self) -> dict:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        return {p.metadata.name: p for p in self.client.list(KIND_POD)}
+
+    def node(self):
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        return self.client.get(KIND_NODE, CARD_NODE)
+
+    def mark(self, names, phase: str = "Succeeded") -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        pods = self.pods()
+        for name in names:
+            self.client.patch(KIND_POD, name, pods[name].metadata.namespace,
+                              mutate=lambda p: setattr(p.status, "phase",
+                                                       phase))
+
+    def until(self, done, what: str, limit_s: float = MAINS_LIMIT_S):
+        t0 = time.monotonic()
+        while not done():
+            if time.monotonic() - t0 > limit_s:
+                fail(f"the mains did not {what} within {limit_s} s")
+            for name, p in self.procs.items():
+                if "exited" not in p and p["proc"].poll() is not None:
+                    fail(f"main {name} exited {p['proc'].returncode}:\n"
+                         f"{self.logs(name)[-4000:]}")
+            time.sleep(CARD_POLL_S)
+        return time.monotonic() - t0
+
+    def bound_at(self, name: str) -> float | None:
+        """When the stub first committed ``name`` with a node."""
+        for t, kind, _, obj in self.log:
+            if kind == "Pod" and obj.metadata.name == name \
+                    and obj.spec.node_name:
+                return t
+        return None
+
+    def running(self, names) -> bool:
+        pods = self.pods()
+        return all(n in pods and pods[n].spec.node_name == CARD_NODE
+                   and pods[n].status.phase == "Running" for n in names)
+
+    def used(self) -> dict[str, list]:
+        """Each quota's status.used at its distinct values, in commit
+        order."""
+        out: dict[str, list] = {}
+        for _, kind, _, obj in self.log:
+            if kind == "ElasticQuota":
+                seq = out.setdefault(obj.metadata.namespace, [])
+                value = dict(sorted(obj.status.used.items()))
+                if not seq or seq[-1] != value:
+                    seq.append(value)
+        return out
+
+    def lease_writes(self) -> list[tuple[float, str, str]]:
+        from nos_tpu_torch.kube.leaderelection import ANN_DEADLINE, ANN_HOLDER
+
+        return [(t, o.metadata.annotations.get(ANN_HOLDER, ""),
+                 o.metadata.annotations.get(ANN_DEADLINE, ""))
+                for t, kind, _, o in self.log
+                if kind == "ConfigMap" and (o.metadata.name,
+                                            o.metadata.namespace)
+                == MAINS_LEASE]
+
+    def plan_writes(self) -> list[tuple[float, str]]:
+        """(commit time, spec plan id) of each new MPS plan on the node."""
+        from nos_tpu_torch.api import constants as C
+
+        out: list[tuple[float, str]] = []
+        for t, kind, _, o in self.log:
+            if kind == "Node":
+                plan = o.metadata.annotations.get(
+                    C.spec_plan_annotation(C.MPS_KIND), "")
+                if plan and (not out or out[-1][1] != plan):
+                    out.append((t, plan))
+        return out
+
+
+def _mains_grants(m: _Mains, device: dict, names: list[str]) -> list[dict]:
+    """Each pod's grant from the stub's objects alone: the plugin config
+    the node applied (its ConfigMap key, read by the timeshare plugin)
+    and the reporter's used shares."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.device.timeshare_plugin import TimeshareDevicePlugin
+    from nos_tpu_torch.partitioning.timeshare import (
+        DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+    node = m.node()
+    key = node.metadata.annotations.get(C.ANNOT_PLUGIN_APPLIED_CONFIG, "")
+    gpus = TimeshareDevicePlugin(m.client, CARD_NODE, DEVICE_PLUGIN_CM_NAME,
+                                 DEVICE_PLUGIN_CM_NAMESPACE).gpu_config(key)
+    if gpus is None:
+        fail(f"the node applied {key!r}, which the ConfigMap lacks")
+    return _grants_of(node, m.pods(), gpus, device, names)
+
+
+def _mains_start(m: _Mains) -> dict:
+    """The mains up: each healthy and ready; exactly one partitioner holds
+    the lease, and it alone runs the partitioner loop; the operator
+    warned that quota admission is unenforced."""
+    healthy = m.wait_healthy()
+    holders = {}
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < MAINS_LIMIT_S:
+        holders = {n: m.identity(n) for n in MAINS[:2]}
+        if any(holders.values()):
+            break
+        time.sleep(CARD_POLL_S)
+    leaders = [n for n, ident in holders.items() if ident]
+    if len(leaders) != 1:
+        fail(f"partitioners that took the lease: {holders}")
+    (leader,) = leaders
+    (standby,) = [n for n in MAINS[:2] if n != leader]
+    holder, deadline = m.lease()
+    if holder != holders[leader] or not float(deadline) > time.time():
+        fail(f"the lease reads {holder!r} until {deadline}, not "
+             f"{leader}'s {holders[leader]!r}")
+    m.until(lambda: m.metric(leader, "nos_tpu_runloop_tick_seconds_count",
+                             loop="partitioner-mps") > 0,
+            "run the leader's partitioner loop")
+    standby_ticks = m.metric(standby, "nos_tpu_runloop_tick_seconds_count",
+                             loop="partitioner-mps")
+    if standby_ticks:
+        fail(f"the standby {standby} ran the partitioner loop")
+    if "quota admission is UNENFORCED" not in m.logs("operator"):
+        fail("the operator did not warn that quota admission is "
+             "unenforced with webhook_port 0")
+    return {"start_to_healthz_s": healthy, "leader": leader,
+            "standby": standby, "standby_ticks_at_start": standby_ticks}
+
+
+def _mains_place(m: _Mains, leader: str) -> dict:
+    """The two pods through the mains alone: one plan by the leader, the
+    chip agent applies and reports, the scheduler binds both (the stub's
+    binding: Running), the operator writes each quota's use."""
+    from nos_tpu_torch.api import constants as C
+
+    names = [n for _, n in MAINS_PODS]
+    for ns, name in MAINS_PODS:
+        m.create_pod(ns, name)
+    bind_s = m.until(lambda: m.running(names), "bind both pods")
+    plans = m.metric(leader, "nos_tpu_plans_total", kind=C.MPS_KIND)
+    if plans != 1:
+        fail(f"the leader counted {plans} plans for the two pods, not one")
+    annots = m.node().metadata.annotations
+    spec = annots.get(C.spec_plan_annotation(C.MPS_KIND), "")
+    if not spec or annots.get(C.status_plan_annotation(C.MPS_KIND)) != spec:
+        fail(f"the handshake is open on {CARD_NODE}: {annots}")
+    want = {C.RESOURCE_GPU_MEMORY: float(CARD_SHARE_GB)}
+    m.until(lambda: all(m.used().get(ns, [{}])[-1] == want
+                        for ns, _ in MAINS_PODS),
+            "write each quota's status.used")
+    # the binding and the quotas can land before the agent's next report
+    m.until(lambda: sum(int(v) for k, v in m.node().metadata.annotations
+                        .items() if k.endswith("-used")) >= len(names),
+            "report both pods' shares used")
+    return {"bind_s": bind_s, "plans": plans,
+            "create_to_bound_ms": {n: (m.bound_at(n) - m.created[n]) * 1e3
+                                   for n in names}}
+
+
+def _mains_failover(m: _Mains, leader: str, standby: str) -> dict:
+    """SIGTERM to the leader: it exits 0 and releases the lease, the
+    standby takes it within its retry, and a third pod, created after
+    the handover, is planned by the new leader alone and bound."""
+    from nos_tpu_torch.api import constants as C
+
+    old = m.identity(leader)
+    first_plans = m.plan_writes()
+    if len(first_plans) != 1:
+        fail(f"plans written before the failover: {first_plans}")
+    t_term = time.perf_counter()
+    leader_exit = m.stop(leader)
+    m.until(lambda: m.identity(standby) is not None,
+            "hand the lease to the standby", limit_s=3 * MAINS_RETRY_S + 10)
+    new = m.identity(standby)
+    writes = m.lease_writes()
+    released = [t for t, h, d in writes if h == old and d == "0"]
+    taken = [t for t, h, _ in writes if h == new]
+    if not released or not taken or not released[0] < taken[0]:
+        fail(f"the lease's writes {writes}: no release by {old} before "
+             f"{new} took it")
+    if any(h == old for t, h, _ in writes if t > released[0]):
+        fail(f"{old} wrote the lease after releasing it: {writes}")
+    handover_ms = (taken[0] - t_term) * 1e3
+    if not handover_ms < (MAINS_RETRY_S + 1.0) * 1e3:
+        fail(f"the standby took the lease {handover_ms} ms after SIGTERM, "
+             f"over its {MAINS_RETRY_S} s retry and a step")
+    ns, third = MAINS_THIRD
+    m.create_pod(ns, third)
+    m.until(lambda: m.running([third]), f"bind {third}")
+    plans = m.plan_writes()
+    if len(plans) != 2 or plans[1][1] == plans[0][1] \
+            or not plans[1][0] > taken[0]:
+        fail(f"the node's plans {plans}: not one new plan after the "
+             f"handover at {taken[0]}")
+    new_plans = m.metric(standby, "nos_tpu_plans_total", kind=C.MPS_KIND)
+    if new_plans != 1:
+        fail(f"the new leader counted {new_plans} plans, not one")
+    return {"sigterm_to_new_holder_ms": handover_ms,
+            "handover_to_third_bound_ms": (m.bound_at(third) - taken[0])
+            * 1e3, "new_leader_plans": new_plans,
+            "release_to_take_ms": (taken[0] - released[0]) * 1e3,
+            "leader_exit": leader_exit}
+
+
+def _mains_exporter(m: _Mains, leader: str) -> dict:
+    """The one-shot exporter on a dump of the stub (exit 0, the MPS
+    node and its GPU) and on the leader's /snapshot (exit 1 on the
+    501)."""
+    from nos_tpu_torch.kube.serialize import dump_state
+
+    state = m.tmp / "state.json"
+    state.write_text(json.dumps(dump_state(m.client)))
+    out = m.tmp / "payload.json"
+    runs = {}
+    for what, source in (("file", str(state)),
+                         ("snapshot", f"http://{m.procs[leader]['addr']}")):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nos_tpu_torch.cmd.metricsexporter",
+             "--source", source, "--out", str(out)], cwd=ROOT,
+            env=_child_env(), capture_output=True, text=True, timeout=120)
+        runs[what] = {"rc": r.returncode, "s": time.perf_counter() - t0,
+                      "stderr": r.stderr}
+    if runs["file"]["rc"] != 0:
+        fail(f"the exporter on the state file exited {runs['file']['rc']}:"
+             f"\n{runs['file']['stderr'][-4000:]}")
+    payload = json.loads(out.read_text())
+    cluster = payload["cluster"]
+    if cluster["nodes_total"] != 1 or cluster["partitioning"] != {
+            "mps": {"nodes": 1, "gpus": 1.0}}:
+        fail(f"the exporter's payload describes {cluster}")
+    if runs["snapshot"]["rc"] != 1 or "501" not in runs["snapshot"]["stderr"]:
+        fail(f"the exporter on {leader}'s /snapshot exited "
+             f"{runs['snapshot']['rc']}:\n{runs['snapshot']['stderr']}")
+    return {"exit_codes": {k: v["rc"] for k, v in runs.items()},
+            "seconds": {k: v["s"] for k, v in runs.items()},
+            "payload_cluster": cluster}
+
+
+def _mains_shutdown(m: _Mains) -> dict:
+    """SIGTERM to every main still up: each exits 0 within
+    MAINS_EXIT_LIMIT_S, and no lease is left held."""
+    out = {n: m.stop(n) for n in MAINS if "exited" not in m.procs[n]}
+    holder, deadline = m.lease()
+    if deadline != "0":
+        fail(f"the lease is left held by {holder!r} until {deadline}")
+    return out
+
+
+def _mains_writes(m: _Mains, standby: str) -> dict:
+    """The final objects, masked as MAINS_LOOP_WRITES pins them."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_CONFIGMAP
+    from nos_tpu_torch.partitioning.timeshare import (
+        DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+    plans = [p for _, p in m.plan_writes()]
+
+    def mask(s: str) -> str:
+        for i, plan in enumerate(plans, 1):
+            s = s.replace(plan, f"plan-{i}")
+        return s
+
+    node = m.node()
+    beat = C.heartbeat_annotation(C.MPS_KIND)
+    annots = {mask(k): "<beat>" if k == beat else mask(v)
+              for k, v in sorted(node.metadata.annotations.items())}
+    cm = m.client.get(KIND_CONFIGMAP, DEVICE_PLUGIN_CM_NAME,
+                      DEVICE_PLUGIN_CM_NAMESPACE)
+    holder, deadline = m.lease()
+    return {
+        "node": {"annotations": annots, "plan_label": mask(
+            node.metadata.labels.get(C.LABEL_DEVICE_PLUGIN_CONFIG, ""))},
+        "configmap": {mask(k): mask(v) for k, v in sorted(cm.data.items())},
+        "pods": {n: [p.spec.node_name, p.status.phase]
+                 for n, p in sorted(m.pods().items())},
+        "quotas": m.used(),
+        "lease": {"holder": "standby" if holder == m.identity(standby)
+                  else holder, "deadline": deadline}}
+
+
+def _mains_host(stub, tmp: str, device: dict, agent_model: str,
+                children=None) -> tuple[dict, dict, dict]:
+    """Phase 14 on the host: the mains started, the two pods placed, the
+    leader failed over and the third pod placed, the pods released, the
+    exporter, the shutdown.  ``children(m, grants)`` starts the bound
+    pods' children after the placement, before the failover, and
+    returns a function that waits for them once the third pod is placed
+    and returns their fields.  Returns the phase's fields, the masked
+    final objects and the children's fields."""
+    from nos_tpu_torch.api import constants as C
+
+    m = _Mains(stub, tmp, device["model"], agent_model)
+    try:
+        m.start()
+        started = _mains_start(m)
+        leader, standby = started["leader"], started["standby"]
+        placed = _mains_place(m, leader)
+        names = [n for _, n in MAINS_PODS]
+        grants = _mains_grants(m, device, names)
+        running = children(m, grants) if children is not None else None
+        failover = _mains_failover(m, leader, standby)
+        m.mark([MAINS_THIRD[1]])
+        kids = running() if running is not None else {}
+        m.mark(names)
+        zero = {C.RESOURCE_GPU_MEMORY: 0.0}
+        m.until(lambda: all(m.used()[ns][-1] == zero
+                            for ns, _, _ in MAINS_QUOTAS),
+                "write each quota's status.used back to 0")
+        m.until(lambda: not any(k.endswith("-used")
+                                for k in m.node().metadata.annotations),
+                "report the released shares")
+        exporter = _mains_exporter(m, standby)
+        exits = _mains_shutdown(m)
+        writes = _mains_writes(m, standby)
+        if m.tap.errors:
+            fail(f"the stub tap's callbacks raised: {m.tap.errors}")
+    finally:
+        m.close()
+    exits[leader] = failover.pop("leader_exit")
+    fields = {"mains": list(MAINS), "node": CARD_NODE,
+              "share_gb": CARD_SHARE_GB,
+              "quotas": [list(q) for q in MAINS_QUOTAS],
+              "batch_idle_s": CARD_BATCH_IDLE_S,
+              "batch_timeout_s": CARD_BATCH_TIMEOUT_S,
+              "report_interval_s": MAINS_REPORT_S,
+              **started, **placed, **failover,
+              "grants": [{"pod": g["pod"], "gpu": g["gpu"],
+                          "gb": int(g["env"]["NOS_TPU_TIMESHARE_GB"])}
+                         for g in grants],
+              "quota_used_seen": writes["quotas"], "exporter": exporter,
+              "main_exits": exits}
+    return fields, writes, kids
+
+
+
+def phase_mains(main_loss0: float, device: dict, smi: str) -> dict:
+    """The mains as processes over the REST stub (``_mains_host``); the
+    two bound pods' children (train_main's BENCH_350M_TRAIN at full
+    width, GRANT_STEPS fused steps, a checkpoint at the end) start at
+    once under the grants derived from the stub's objects, as deployed
+    pods (``POD_NAME``, ``POD_NAMESPACE``, the kubeconfig), before the
+    leader's SIGTERM; each must pass as grant (a)'s child and write
+    ``job-progress`` 1.0000 to its pod.  Returns the children's
+    launches, by kernel and by tile."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    total = device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    stub_mod = _load_stub()
+    started: list[dict] = []
+    with stub_mod.StubApiServer() as stub, \
+            tempfile.TemporaryDirectory(prefix="nos-mains-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        base = json.loads(pathlib.Path(cfg_path).read_text())
+        namespaces = {name: ns for ns, name in MAINS_PODS}
+
+        def children(m: _Mains, grants: list[dict]):
+            for g in grants:
+                pod = g["pod"]
+                cfg = pathlib.Path(tmp) / f"{pod}.json"
+                cfg.write_text(json.dumps(base | {
+                    "kubeconfig": m.kubeconfig,
+                    "checkpoint_dir": str(pathlib.Path(tmp) / f"ck-{pod}")}))
+                started.append(_start_grant_child(
+                    pod, str(cfg), g["env"] | {
+                        "POD_NAME": pod, "POD_NAMESPACE": namespaces[pod]},
+                    no_nvcc))
+
+            def finish() -> dict:
+                done = [_finish_grant_child(c) for c in started]
+                pods = m.pods()
+                progress = {c["case"]: pods[c["case"]].metadata.annotations
+                            .get(C.ANNOT_JOB_PROGRESS) for c in done}
+                return {"children": done, "progress": progress}
+
+            return finish
+
+        try:
+            card, writes, kids = _mains_host(stub, tmp, device, "auto",
+                                             children)
+        finally:
+            for c in started:
+                if c.get("proc") is not None and c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a mains child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    done = kids["children"]
+    for child in done:
+        child["fraction"], child["cap_bytes"] = _grant_cap(
+            int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), total)
+    reports = [_check_granted_child(f"mains {c['case']}", c,
+                                    c["grant"]["NOS_TPU_VISIBLE_CHIPS"],
+                                    main_loss0) for c in done]
+    if kids["progress"] != {c["case"]: "1.0000" for c in done}:
+        fail(f"the mains children wrote job-progress {kids['progress']}")
+    if writes != MAINS_LOOP_WRITES:
+        fail(f"the mains' final objects differ from the CPU test's: "
+             f"{json.dumps(writes)}")
+    windows, overlap = _step_windows(done)
+    card |= {"progress": kids["progress"], "step_windows_s": windows,
+             "overlap_s": overlap}
+    launches = {k: sum(r["launches"].get(k, 0) for r in reports)
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    tiles = {name: sum(r["tile_launches"].get(
+                 f"{kernel}:{tile[0]}x{tile[1]}", 0) for r in reports)
+             for name, (kernel, tile, _) in TILES.items()}
+    emit({"phase": "mains", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "card": card,
+          "main_loss0": main_loss0, "loss0_rtol": MAIN_LOSS0_RTOL,
+          "launches": launches, "tile_launches": tiles,
+          "children": [{k: v for k, v in ch.items()
+                        if k not in ("stderr", "report", "confined",
+                                     "stamps", "steps")}
+                       | {"steps_logged": len(ch["steps"]),
+                          "launches": ch["report"]["launches"]}
+                       for ch in done]})
+    PATH_TILES["mains"] = tiles
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -4739,8 +5461,9 @@ def main() -> int:
         phase_quota(main_loss0, device, smi)
         gang = phase_gang(main_loss0, device, smi)
         recovery = phase_recovery(main_loss0, device, smi)
+        mains = phase_mains(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
-             "moe": moe, "gang": gang, "recovery": recovery}
+             "moe": moe, "gang": gang, "recovery": recovery, "mains": mains}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

@@ -131,6 +131,10 @@ class Main:
         self._server: http.server.ThreadingHTTPServer | None = None
         self._health_addr = health_addr
         self._elector = None
+        self._elector_thread: threading.Thread | None = None
+        # the elector's own stop, set by shutdown() once the loops are
+        # joined: the lease is released only after the last tick
+        self._elector_stop = threading.Event()
         self._leader_gate: threading.Event | None = None
         self._loops_lock = threading.Lock()
         self._started = False
@@ -159,11 +163,14 @@ class Main:
 
     def attach_leader_election(self, elector) -> None:
         """Gate every run loop (added before or after) on holding the
-        lease; the elector's loop (``elector.run(stop)``) starts with the
-        main.  Losing an acquired lease stops the main: watch-bound
-        controllers cannot be unbound, so a demoted process exits and
-        rejoins as a candidate.  ``elector`` is duck-typed: ``run``,
-        ``is_leader`` (an Event) and ``on_stopped_leading``."""
+        lease (``kube/leaderelection.py``); the elector's loop
+        (``elector.run(stop)``) starts with the main.  Losing an acquired
+        lease stops the main: watch-bound controllers cannot be unbound,
+        so a demoted process exits and rejoins as a candidate.
+        ``shutdown`` stops the elector after the run loops and waits for
+        it, so the lease is released before the process exits and after
+        its last tick (the JAX package's ``Main`` stops both at once and
+        does not wait)."""
         self._elector = elector
         self._leader_gate = elector.is_leader
         if elector.on_stopped_leading is None:
@@ -183,9 +190,10 @@ class Main:
             logger.info("%s: health/metrics on %s", self.name,
                         self.health_address)
         if self._elector is not None:
-            threading.Thread(
-                target=self._elector.run, args=(self.stop,),
-                name=f"{self.name}-leader-election", daemon=True).start()
+            self._elector_thread = threading.Thread(
+                target=self._elector.run, args=(self._elector_stop,),
+                name=f"{self.name}-leader-election", daemon=True)
+            self._elector_thread.start()
         with self._loops_lock:
             self._started = True
             for loop in self._loops:
@@ -206,8 +214,13 @@ class Main:
     def shutdown(self) -> None:
         self.stop.set()
         self.ready.clear()
-        for loop in self._loops:
+        with self._loops_lock:
+            loops = list(self._loops)
+        for loop in loops:
             loop.join(timeout=5.0)
+        self._elector_stop.set()
+        if self._elector_thread is not None:
+            self._elector_thread.join(timeout=5.0)
         for hook in self._shutdown_hooks:
             try:
                 hook()

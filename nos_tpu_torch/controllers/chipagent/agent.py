@@ -23,12 +23,14 @@ from .reporter import ChipReporter
 class ChipAgent:
     def __init__(self, api: APIServer, node_name: str,
                  cm_name: str = DEVICE_PLUGIN_CM_NAME,
-                 cm_namespace: str = DEVICE_PLUGIN_CM_NAMESPACE) -> None:
+                 cm_namespace: str = DEVICE_PLUGIN_CM_NAMESPACE,
+                 heartbeat: bool = True) -> None:
         self._api = api
         self._node_name = node_name
         self.plugin = TimeshareDevicePlugin(api, node_name, cm_name,
                                             cm_namespace)
-        self.reporter = ChipReporter(api, node_name, self.plugin)
+        self.reporter = ChipReporter(api, node_name, self.plugin,
+                                     heartbeat=heartbeat)
 
     def start(self) -> None:
         node = self._api.get(KIND_NODE, self._node_name)

@@ -4,7 +4,9 @@ for the port (reference internal/controllers/gpuagent/reporter.go:50-110).
 The MPS path has no node-side actuator: the timeshare plugin applies the
 ConfigMap itself.  The reporter renders each GPU's free and used shares
 as ``status-gpu-<i>-<N>gb-{free,used}`` annotations, from the applied
-config and the node's Running pods, stamps the agent's heartbeat, and
+config and the node's Running pods, stamps the agent's heartbeat (unless
+``heartbeat=False``: the partitioner's suspicion then has no signal for
+the node, and a report that changes nothing writes nothing), and
 stamps ``status-partitioning-plan.mps`` with the applied key's plan id:
 that closes the handshake the MPS partitioner opened.
 
@@ -33,12 +35,14 @@ logger = logging.getLogger(__name__)
 
 class ChipReporter:
     def __init__(self, api: APIServer, node_name: str,
-                 plugin: TimeshareDevicePlugin) -> None:
+                 plugin: TimeshareDevicePlugin,
+                 heartbeat: bool = True) -> None:
         self._api = api
         self._node_name = node_name
         self._plugin = plugin
         # stamped with every landed report: a node that never reported
         # carries none, and every report is a real write
+        self._heartbeat_enabled = heartbeat
         self._heartbeat = 0
 
     def reconcile(self) -> None:
@@ -73,15 +77,18 @@ class ChipReporter:
                         f"{C.ANNOT_STATUS_PREFIX}{idx}-{share}-free"] = str(free)
 
         plan_id = plan_id_from_key(self._node_name, applied)
-        self._heartbeat += 1
-        heartbeat = str(self._heartbeat)
+        heartbeat = ""
+        if self._heartbeat_enabled:
+            self._heartbeat += 1
+            heartbeat = str(self._heartbeat)
 
         def mutate(n: Node) -> None:
             strip_status_annotations(n.metadata.annotations,
                                      family=C.MPS_KIND)
             n.metadata.annotations.update(annotations)
-            n.metadata.annotations[C.heartbeat_annotation(C.MPS_KIND)] = \
-                heartbeat
+            if heartbeat:
+                n.metadata.annotations[
+                    C.heartbeat_annotation(C.MPS_KIND)] = heartbeat
             if plan_id:
                 n.metadata.annotations[
                     C.status_plan_annotation(C.MPS_KIND)] = plan_id

@@ -35,12 +35,16 @@ without one, the migration drains a recovery-enabled predecessor left
 are healed once, at the first poll.  Warm spares and nodes under a
 migration drain are left out of the snapshot as quarantined nodes are.
 
+The plan deadline, the rescan interval and the replan epoch are
+constructor arguments; None keeps the defaults above: three batch
+timeouts, one batch timeout and the batch's idle window.  The
+partitioner main sets the deadline and the epoch from its config
+(``cmd/assembly.py``), as JAX's does.
+
 Left out, with the ROADMAP items that bring them: the background
 defragmenter (item 6: it needs the windows, elastic gangs and the
 ledger); the actuation and quarantine holds of the chip-second ledger,
-``obs/ledger.py`` (item 9).  The deadline, the rescan interval and the
-replan epoch are set by the JAX package's mains (ROADMAP item 8); until
-those come, they follow the batch's windows.
+``obs/ledger.py`` (item 9).
 """
 
 from __future__ import annotations
@@ -90,6 +94,9 @@ class PartitionerController:
                  kind: str, planner: Planner, actuator: Actuator,
                  snapshot_taker: SnapshotTaker,
                  batcher: Batcher[Pod], quarantine: QuarantineList,
+                 plan_deadline_s: float | None = None,
+                 rescan_interval_s: float | None = None,
+                 replan_epoch_s: float | None = None,
                  recovery: SelfHealingPolicy | None = None,
                  clock: Callable[[], float] = time.monotonic) -> None:
         self._api = api
@@ -100,13 +107,18 @@ class PartitionerController:
         self._snapshot_taker = snapshot_taker
         self._batcher = batcher
         self._quarantine = quarantine
-        self._plan_deadline_s = PLAN_DEADLINE_FACTOR * batcher.timeout_s
-        self._rescan_interval_s = batcher.timeout_s
+        self._plan_deadline_s = (
+            plan_deadline_s if plan_deadline_s is not None
+            else PLAN_DEADLINE_FACTOR * batcher.timeout_s)
+        self._rescan_interval_s = (
+            rescan_interval_s if rescan_interval_s is not None
+            else batcher.timeout_s)
         # Plan cycles run at most once per epoch however fast triggers
         # come: pods marked unschedulable inside the running epoch gather
         # in the batcher and ride the next cycle.  The idle window as the
-        # epoch keeps the batcher's own cadence.
-        self._replan_epoch_s = batcher.idle_s
+        # default epoch keeps the batcher's own cadence.
+        self._replan_epoch_s = (replan_epoch_s if replan_epoch_s is not None
+                                else batcher.idle_s)
         # the recovery plane, None when every recovery knob is off; a
         # controller without it heals a predecessor's migration drains
         # once (a clean cluster sees no write)

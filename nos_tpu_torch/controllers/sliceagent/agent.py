@@ -26,7 +26,8 @@ from .shared import SharedState
 class SliceAgent:
     def __init__(self, api: APIServer, node_name: str,
                  runtime: GpuRuntimeClient,
-                 pod_resources: PodResourcesClient) -> None:
+                 pod_resources: PodResourcesClient,
+                 heartbeat: bool = True) -> None:
         self.api = api
         self.node_name = node_name
         self.runtime = runtime
@@ -34,7 +35,7 @@ class SliceAgent:
         self.shared = SharedState()
         self.plugin = DevicePluginClient(api, node_name, runtime)
         self.reporter = SliceReporter(api, node_name, self.client,
-                                      self.shared)
+                                      self.shared, heartbeat=heartbeat)
         self.actuator = SliceActuator(api, node_name, self.client,
                                       self.shared, self.plugin)
         # admission backed by the devices, so a bound pod's instances

@@ -6,7 +6,7 @@ Each pass reads the carved devices through the device client and
 writes them to the node: ``status-gpu-<i>-<profile>-{used,free}``
 counts, each GPU's placement records (``status-gpu-placements-<i>``,
 the pins that make the planner placement-aware), the agent's heartbeat
-and ``status-partitioning-plan.mig``, the last plan id the actuator
+(unless ``heartbeat=False``) and ``status-partitioning-plan.mig``, the last plan id the actuator
 parsed, which closes the plan handshake.
 """
 
@@ -32,13 +32,15 @@ logger = logging.getLogger(__name__)
 
 class SliceReporter:
     def __init__(self, api: APIServer, node_name: str,
-                 client: SliceDeviceClient, shared: SharedState) -> None:
+                 client: SliceDeviceClient, shared: SharedState,
+                 heartbeat: bool = True) -> None:
         self._api = api
         self._node_name = node_name
         self._client = client
         self._shared = shared
         # a per-process counter stamped with every report: a dead or
         # wedged agent's value freezes
+        self._heartbeat_enabled = heartbeat
         self._heartbeat = 0
 
     def reconcile(self) -> None:
@@ -64,15 +66,18 @@ class SliceReporter:
             annotations[f"{C.ANNOT_PLACEMENTS_PREFIX}{idx}"] = \
                 encode_placement_records(records)
         plan_id = self._shared.last_parsed_plan_id
-        self._heartbeat += 1
-        heartbeat = str(self._heartbeat)
+        heartbeat = ""
+        if self._heartbeat_enabled:
+            self._heartbeat += 1
+            heartbeat = str(self._heartbeat)
 
         def mutate(node: Node) -> None:
             strip_status_annotations(node.metadata.annotations,
                                      family=C.MIG_KIND)
             node.metadata.annotations.update(annotations)
-            node.metadata.annotations[C.heartbeat_annotation(C.MIG_KIND)] = \
-                heartbeat
+            if heartbeat:
+                node.metadata.annotations[
+                    C.heartbeat_annotation(C.MIG_KIND)] = heartbeat
             if plan_id:
                 node.metadata.annotations[
                     C.status_plan_annotation(C.MIG_KIND)] = plan_id

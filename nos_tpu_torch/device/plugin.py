@@ -21,6 +21,13 @@ from nos_tpu_torch.utils.retry import retry_on_conflict
 
 from .gpuclient import GpuRuntimeClient
 
+# Where a node's kubelet keeps its device-plugin sockets and its
+# pod-resources socket.  The node agents' mains look for them: the gRPC
+# plugin manager and the pod-resources client that serve them are not in
+# the port yet (ROADMAP tag 24b).
+PLUGINS_DIR = "/var/lib/kubelet/device-plugins"
+POD_RESOURCES_SOCKET = "/var/lib/kubelet/pod-resources/kubelet.sock"
+
 
 class DevicePluginClient:
     def __init__(self, api: APIServer, node_name: str,

@@ -11,9 +11,8 @@ runs on every create, update and patch of it and denies the write by
 raising.  ``locked()`` lends the store's lock to the MIG node's kubelet
 simulator, which must take it before its own.  ``kube/rest.py``'s
 ``KubeClient`` offers the same surface over a kube-apiserver's REST API.
-The JAX package's ``Informer``, a watch-maintained store, is not ported
-yet (ROADMAP item 8 part 2): the scheduler cache indexes its watch
-events itself.
+``Informer`` is a watch-maintained store of one kind over either
+substrate; the scheduler cache is fed by two, with no store.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from nos_tpu_torch.api.constants import (
     KIND_COMPOSITE_ELASTIC_QUOTA, KIND_ELASTIC_QUOTA,
     KIND_POD_DISRUPTION_BUDGET, KIND_POD_GROUP,
 )
+from nos_tpu_torch.utils.guards import guarded_by
 
 from .objects import ConfigMap, Node, Pod
 
@@ -259,12 +259,62 @@ class APIServer:
                          filter_fn=lambda p: p.spec.node_name == node_name)
 
 
+@guarded_by("_lock", "_store")
+class Informer:
+    """A watch-maintained store of one kind (client-go's shared informer
+    over the watch bus): the latest object per key ("namespace/name" or
+    "name"), filled by the watch's synthetic ADDED replay and kept by
+    every event, so a reader gets current objects without a ``list()``
+    copy per read.  ``on_event`` runs after the store update, in the
+    order the substrate delivers, with the event's own object.
+    ``store=False`` keeps no store, for a consumer that indexes the
+    events in ``on_event`` itself.  Works over any substrate with
+    ``watch``: the ``APIServer`` and ``kube/rest.py``'s ``KubeClient``.
+    """
+
+    def __init__(self, api, kind: str, on_event: WatchFn | None = None,
+                 store: bool = True) -> None:
+        self._lock = threading.Lock()
+        self._store: dict[str, Any] | None = {} if store else None
+        self._on_event = on_event
+        self._unsubscribe = api.watch(kind, self._handle)
+
+    def _handle(self, event: str, obj: Any) -> None:
+        if self._store is not None:
+            ns = getattr(obj.metadata, "namespace", "")
+            key = f"{ns}/{obj.metadata.name}" if ns else obj.metadata.name
+            with self._lock:
+                if event == "DELETED":
+                    self._store.pop(key, None)
+                else:
+                    self._store[key] = obj
+        if self._on_event is not None:
+            self._on_event(event, obj)
+
+    def items(self) -> dict[str, Any]:
+        """A point-in-time view: the dict is a copy, the objects are the
+        store's own (callers must not mutate them)."""
+        with self._lock:
+            return dict(self._store or {})
+
+    def get(self, key: str) -> Any | None:
+        with self._lock:
+            return (self._store or {}).get(key)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._store or {})
+
+    def close(self) -> None:
+        self._unsubscribe()
+
+
 KIND_POD = "Pod"
 KIND_NODE = "Node"
 KIND_CONFIGMAP = "ConfigMap"
 
 __all__ = [
-    "APIServer", "NotFound", "Conflict", "TransientAPIError",
+    "APIServer", "Informer", "NotFound", "Conflict", "TransientAPIError",
     "WatchFn", "KIND_POD", "KIND_NODE", "KIND_CONFIGMAP",
     "KIND_ELASTIC_QUOTA", "KIND_COMPOSITE_ELASTIC_QUOTA",
     "KIND_POD_DISRUPTION_BUDGET", "KIND_POD_GROUP", "Node", "Pod",

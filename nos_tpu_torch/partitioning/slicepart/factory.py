@@ -5,7 +5,8 @@ internal/partitioning/mig/factory.go:31-64).
 As ``timeshare/factory.py`` does, ``new_slice_partitioner_controller``
 wraps the sequential ``GeometryPlanner`` in a ``ParallelGeometryPlanner``
 and builds the recovery plane when ``spare_hosts_per_pool`` or
-``node_suspect_after_s`` is set.  The JAX factory's planner is a
+``node_suspect_after_s`` is set, and passes the plan deadline and the
+replan epoch to the controller.  The JAX factory's planner is a
 ``MultiHostGeometryPlanner`` (``group.py``: multi-host carves, which no
 MIG instance needs), and it adds the defrag plane, which waits for the
 windows, elastic gangs and the ledger (ROADMAP item 6).
@@ -34,6 +35,8 @@ from .snapshot_taker import SliceSnapshotTaker
 def new_slice_partitioner_controller(
     api: APIServer, cluster_state: ClusterState,
     batch_timeout_s: float = 60.0, batch_idle_s: float = 10.0,
+    plan_deadline_s: float | None = None,
+    replan_epoch_s: float | None = None,
     plan_shard_min_hosts: int = PLAN_SHARD_MIN_HOSTS,
     plan_workers: int = 0,
     spare_hosts_per_pool: int = 0,
@@ -73,7 +76,8 @@ def new_slice_partitioner_controller(
         api=api, cluster_state=cluster_state, kind=C.MIG_KIND,
         planner=planner, actuator=actuator,
         snapshot_taker=SliceSnapshotTaker(), batcher=batcher,
-        quarantine=quarantine, recovery=recovery, clock=clock,
+        quarantine=quarantine, plan_deadline_s=plan_deadline_s,
+        replan_epoch_s=replan_epoch_s, recovery=recovery, clock=clock,
     )
 
 

@@ -8,8 +8,8 @@ internal/partitioning/mps/factory.go).
 ``plan_shard_min_hosts`` nodes, is that sequential planner.  The
 recovery plane (``spare_hosts_per_pool``, ``node_suspect_after_s``,
 ``migrate_grace_s``) is built only when one of the first two knobs is
-set.  A framework of other plugins, the plan deadline and the replan
-epoch come with the mains that set them (ROADMAP item 8).
+set.  The plan deadline and the replan epoch go to the controller
+(None: its defaults); the partitioner main sets them.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ def new_timeshare_partitioner_controller(
     batch_timeout_s: float = 60.0, batch_idle_s: float = 10.0,
     cm_name: str = DEVICE_PLUGIN_CM_NAME,
     cm_namespace: str = DEVICE_PLUGIN_CM_NAMESPACE,
+    plan_deadline_s: float | None = None,
+    replan_epoch_s: float | None = None,
     plan_shard_min_hosts: int = PLAN_SHARD_MIN_HOSTS,
     plan_workers: int = 0,
     spare_hosts_per_pool: int = 0,
@@ -79,5 +81,6 @@ def new_timeshare_partitioner_controller(
         api=api, cluster_state=cluster_state, kind=C.MPS_KIND,
         planner=planner, actuator=actuator,
         snapshot_taker=TimeshareSnapshotTaker(), batcher=batcher,
-        quarantine=quarantine, recovery=recovery, clock=clock,
+        quarantine=quarantine, plan_deadline_s=plan_deadline_s,
+        replan_epoch_s=replan_epoch_s, recovery=recovery, clock=clock,
     )

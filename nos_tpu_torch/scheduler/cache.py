@@ -1,11 +1,12 @@
 """Watch-driven cluster view for the scheduler, the kube-scheduler
 cache: ``nos_tpu/scheduler/cache.py`` for the port.
 
-The cache watches Node and Pod events (the API server's watch replays
-the current objects first) and keeps, per node, its latest object and its bound active pods; every
-event touching a node bumps that node's generation, and ``snapshot()``
-rebuilds the NodeInfo of exactly the nodes whose generation moved.  On
-the same stream it keeps:
+The cache watches Node and Pod events through two ``Informer``s with
+no store of their own (the API server's watch replays the current
+objects first) and keeps, per node, its latest object and its bound
+active pods; every event touching a node bumps that node's generation,
+and ``snapshot()`` rebuilds the NodeInfo of exactly the nodes whose
+generation moved.  On the same stream it keeps:
 
 - the view epoch (``view_epoch()``), moved by every bump: while it
   stands still ``snapshot()`` hands back the same SharedLister, and the
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import threading
 
-from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD
+from nos_tpu_torch.kube.client import APIServer, Informer, KIND_NODE, KIND_POD
 from nos_tpu_torch.kube.objects import Node, PENDING, Pod, RUNNING
 from nos_tpu_torch.scheduler.framework import NodeInfo, SharedLister
 from nos_tpu_torch.utils.guards import guarded_by, invalidated_by
@@ -79,9 +80,12 @@ class SchedulerCache:
         # are private to it.
         self._pending: dict[str, Pod] = {}
         # hook order matters: the pod handler reads these indexes, so
-        # they exist before the watches replay their initial ADDEDs
-        self._unwatch = (api.watch(KIND_NODE, self._on_node),
-                         api.watch(KIND_POD, self._on_pod))
+        # they exist before the informers replay their initial ADDEDs;
+        # store=False: this cache is the store
+        self._nodes = Informer(api, KIND_NODE, on_event=self._on_node,
+                               store=False)
+        self._pods = Informer(api, KIND_POD, on_event=self._on_pod,
+                              store=False)
 
     # -- watch handlers (fire on the API server's synchronous bus) ----------
     # callers hold the cache lock
@@ -196,5 +200,5 @@ class SchedulerCache:
             return lister
 
     def close(self) -> None:
-        for unwatch in self._unwatch:
-            unwatch()
+        self._nodes.close()
+        self._pods.close()

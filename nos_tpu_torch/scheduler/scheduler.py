@@ -76,7 +76,8 @@ REGISTRY.describe("nos_tpu_schedule_pending_age_seconds",
 REGISTRY.describe("nos_tpu_schedule_pending_pods",
                   "Still-pending pods per workload class after a cycle")
 
-# The JAX Scheduler's defaults, the values every caller runs.  At most
+# The JAX Scheduler's defaults, the values a caller that passes none
+# runs (read when a Scheduler is built).  At most
 # PREEMPT_BUDGET_PER_CYCLE PostFilter searches a cycle: every pending pod
 # is tried each cycle, and unbudgeted searches multiply the cycle's cost
 # and let same-cycle preemptors fight over one space; the rest retry
@@ -97,6 +98,8 @@ class Scheduler:
 
     def __init__(self, api: APIServer, framework: Framework,
                  capacity: CapacityScheduling,
+                 preempt_budget_per_cycle: int | None = None,
+                 displaced_age_cap_s: float | None = None,
                  clock: Callable[[], float] = time.time) -> None:
         self._api = api
         self._framework = framework
@@ -106,7 +109,13 @@ class Scheduler:
         # schedule latency is clock() - creation_timestamp: the clock
         # shares the pods' time domain (wall clock in production)
         self._clock = clock
-        self._preempt_budget = PREEMPT_BUDGET_PER_CYCLE
+        self._preempt_budget_per_cycle = (
+            PREEMPT_BUDGET_PER_CYCLE if preempt_budget_per_cycle is None
+            else preempt_budget_per_cycle)
+        self._displaced_age_cap_s = (
+            DISPLACED_AGE_CAP_S if displaced_age_cap_s is None
+            else displaced_age_cap_s)
+        self._preempt_budget = self._preempt_budget_per_cycle
         # namespace -> the priority of its quota-rejected claimant, this
         # cycle (``_record_quota_hol``)
         self._quota_hol: dict[str, int] = {}
@@ -346,12 +355,12 @@ class Scheduler:
         pods = [p for p in self._pending_pods()
                 if p.spec.scheduler_name == self.name]
         bound = 0
-        self._preempt_budget = PREEMPT_BUDGET_PER_CYCLE
+        self._preempt_budget = self._preempt_budget_per_cycle
         self._quota_hol = {}
         self._begin_cycle_view()
         now = self._clock()
         pods.sort(key=lambda p: (admission_rank(p, now,
-                                                DISPLACED_AGE_CAP_S),
+                                                self._displaced_age_cap_s),
                                  -p.spec.priority,
                                  p.metadata.creation_timestamp, p.key))
         gangs: dict[tuple[str, str], list[Pod]] = {}
@@ -695,7 +704,8 @@ class Scheduler:
             return "", Status.unschedulable(
                 "preemption budget for this cycle spent")
         self._preempt_budget -= 1
-        state[DISPLACED_CONTEXT_KEY] = (self._clock(), DISPLACED_AGE_CAP_S)
+        state[DISPLACED_CONTEXT_KEY] = (self._clock(),
+                                        self._displaced_age_cap_s)
         if lister is self._cycle_lister_cache:
             state[VIEW_EPOCH_CONTEXT_KEY] = self._cache.view_epoch()
         nominated, status = self._framework.run_post_filter_plugins(

@@ -112,7 +112,11 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "scheduler.capacityscheduling", "scheduler.scheduler",
                    "cmd.assembly", "api.podgroup", "topology.shape",
                    "partitioning.core.pools", "partitioning.core.parallel",
-                   "partitioning.core.failure"):
+                   "partitioning.core.failure", "cmd.partitioner",
+                   "cmd.scheduler", "cmd.operator", "cmd.chipagent",
+                   "cmd.sliceagent", "cmd.metricsexporter",
+                   "kube.leaderelection", "kube.webhook", "exporter",
+                   "testing.lockcheck"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
