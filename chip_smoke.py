@@ -118,8 +118,10 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    equal its spec plan id (the handshake closed), the reporter must show
    GPU 0 ``24gb-used: 3``, and the fourth pod must stay pending and
    Unschedulable.  One rescan interval later the controller's next
-   cycle runs on the fourth pod and must write nothing.  Each bound
-   pod's grant comes from the node side: the UUID, through discovery,
+   cycle runs on the fourth pod and must write nothing.  The loop's
+   chip-second waste ledger must conserve and show the node's
+   ``actuation`` GPU-seconds between the plan and the status catching
+   up.  Each bound pod's grant comes from the node side: the UUID, through discovery,
    of a GPU of the applied config on which the reporter shows a used
    share of the pod's size, and the GB of its request; the smoke hands
    it over, standing in for the kubelet
@@ -173,11 +175,14 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    bench's gang jobs cut) run QUOTA_FLEET_RUNS times, each cycle followed
    by the kubelet's admission and both reconcilers, until a cycle binds
    and evicts nothing: every run must hash to ``QUOTA_FLEET_DIGEST``
-   (the JAX package's run in the CPU tests), every victim must carry the
-   over-quota label when chosen, no quota may hold more than its max,
-   and each quota's status.used must be its Running pods' GB.  The line
-   carries the host ms per cycle and per reconcile (median, max), the
-   binds, preemptions, victims by label and pods left pending.  (b) The
+   (the JAX package's run in the CPU tests) and its waste waterfall (a
+   ledger of its own, QUOTA_FLEET_CYCLE_S a cycle), which must
+   conserve, to ``QUOTA_FLEET_WASTE_DIGEST`` (JAX's ledger on the same
+   run), every victim must carry the over-quota label when chosen, no
+   quota may hold more than its max, and each quota's status.used must
+   be its Running pods' GB.  The line carries the host ms per cycle and
+   per reconcile (median, max), the binds, preemptions, victims by
+   label, pods left pending and the waterfall.  (b) The
    card's node in partition (b)'s MPS loop (``_QuotaLoop``) with the
    quota webhooks and both reconcilers bound to their watches, team-a
    holding min 40 and max 80 GB, team-b min 40: team-a's three 24 GB
@@ -206,7 +211,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    third of bench_utilization.py's gang jobs at priority 10, a gang
    waiting for a member it never gets, and a gang whose 8x16 mesh only
    nvl-0 holds) run GANG_FLEET_RUNS times: every run must hash to
-   ``GANG_FLEET_DIGEST`` (the JAX package's run in the CPU tests); at no
+   ``GANG_FLEET_DIGEST`` (the JAX package's run in the CPU tests) and
+   its conserved waterfall to ``GANG_FLEET_WASTE_DIGEST``; at no
    cycle's end may a gang be bound in part or over two domains; the
    mesh gang must have been bound in nvl-0 alone and the waiting gang
    never; every victim must have been over quota, or of the preemptor's
@@ -250,9 +256,15 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    trace on the gang fleet through the MPS loop on a virtual clock: a
    warm spare a domain, three kills, a wedged agent that later dies)
    once: its summary must hash to ``RECOVERY_FLEET_DIGEST`` (the JAX
-   package's run in the CPU tests), no displaced job may be left
+   package's run in the CPU tests) and its conserved waterfall to
+   ``RECOVERY_FLEET_WASTE_DIGEST``, no displaced job may be left
    unbound, and suspicion, promotion, migration and the straggler
-   eviction must each have happened.  (c) The card's node in the MPS
+   eviction must each have happened; the same kill schedule with every
+   recovery step off (bench_nodeloss.py's baseline) runs after it, and
+   the recovery run must lose at most ``fleet.RECOVERY_LOST_HALVING``
+   of the baseline's GPU-seconds.  The line names the slowest
+   controller poll (its ms, trace time and the journal categories it
+   wrote).  (c) The card's node in the MPS
    loop over the REST substrate: ``tests/k8s_stub.py``'s
    ``StubApiServer`` (stdlib only, loaded by path), the loop's node and
    pod controllers, partitioner controller, chip agent and scheduler on
@@ -317,16 +329,27 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    its ``/metrics``) and bound; the old leader writes the lease no more
    (the stub's commit log, ``_StubTap``).  The children must pass as
    grant (a)'s and write ``job-progress`` 1.0000; the smoke marks the
-   pods Succeeded and the quotas' use must return to 0.  The one-shot
-   exporter must exit 0 on a dump of the stub (``kube/serialize``) with
-   the MPS node and its GPU, and 1 on the new leader's ``/snapshot``
-   (501).  SIGTERM to every main: each exits 0 within MAINS_EXIT_LIMIT_S
+   pods Succeeded and the quotas' use must return to 0.  The scheduler
+   main's ``/snapshot`` must answer 200 with a conserved waste
+   waterfall of the node's one GPU, in which, between a read after both
+   pods were placed and one just before the third pod's creation,
+   productive must be 48/80 of the GPU-seconds within one scheduler
+   cycle at each edge (MAINS_CYCLE_S); its ``/debug/slo`` must answer
+   200 with a schedule-latency verdict for the pods' class.  The
+   one-shot exporter must exit 0 on a dump of the stub
+   (``kube/serialize``) and on the scheduler's ``/snapshot``, each
+   payload with the MPS node and its GPU, the latter with the
+   waterfall; ``python -m nos_tpu_torch.obs waste --url`` on the
+   scheduler must exit 0 with the waterfall's categories.  The actuation
+   holds live in the partitioners' processes, so the scheduler's
+   waterfall reads none.  SIGTERM to every main: each exits 0 within MAINS_EXIT_LIMIT_S
    and no lease is left held.  The final objects must equal
    ``MAINS_LOOP_WRITES`` (the same topology as processes in the CPU
    tests).  The line carries each main's start to ``/healthz``,
    creation to bound per pod, the plan counts, SIGTERM to the new
    holder, handover to the third pod's bind, the quota values seen, the
-   exporter's exit codes, each main's exit code and seconds to exit and
+   exporter's exit codes, the waterfall while both pods ran and at the
+   end, the SLO verdict, each main's exit code and seconds to exit and
    the children's walls; their launches are the kernels line's
    ``mains`` path.  The MIG agent's main is not run on the card: its
    NVML runtime cannot carve (ROADMAP 24a) and the card is not in MIG
@@ -2147,12 +2170,15 @@ class _CardLoop:
     loop: a scheduler cycle, a controller poll, an agent tick (timed).
     ``clock`` is the controller's batch clock; ``wall`` the scheduler's,
     which stamps the pods' creation times too, so schedule latency is
-    one time domain."""
+    one time domain.  The loop's chip-second waste ledger (``ledger``,
+    on ``clock``) is installed as the process's: the controller stamps
+    its holds there and the scheduler books its waterfall."""
 
     def __init__(self, device: dict, clock=time.monotonic,
                  wall=time.time, api=None, watch=None,
                  **controller_kw) -> None:
         from nos_tpu_torch.cmd.assembly import build_scheduler
+        from nos_tpu_torch.obs.ledger import ChipSecondLedger, set_ledger
         from nos_tpu_torch.controllers.chipagent import ChipAgent
         from nos_tpu_torch.controllers.node_controller import NodeController
         from nos_tpu_torch.controllers.pod_controller import PodController
@@ -2163,6 +2189,8 @@ class _CardLoop:
         from nos_tpu_torch.testing.factory import make_gpu_node
         from nos_tpu_torch.topology import DEFAULT_REGISTRY
 
+        self.ledger = ChipSecondLedger(clock=clock)
+        set_ledger(self.ledger)
         self.model = DEFAULT_REGISTRY.get(device["model"])
         if self.model.memory_gb * 1e9 > device["memory_bytes"]:
             fail(f"the card has {device['memory_bytes']} B, less than its "
@@ -2366,7 +2394,7 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
     if landed - landed0 != 1:
         fail(f"{landed - landed0} nos_tpu_actuation_latency_seconds "
              f"samples, not one")
-    actuation = (latency_s - latency_s0) * 1e3
+    actuation_ms = (latency_s - latency_s0) * 1e3
 
     # one rescan interval on: a cycle on the fourth pod that writes nothing
     written = loop.written()
@@ -2380,6 +2408,15 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
                       {"kind": C.MPS_KIND}) != 1.0:
         fail("the rescan cycle did not plan for the fourth pod")
 
+    # the waterfall: the card's node held as actuation from the plan to
+    # its status catching up, and conserved
+    waste = _check_conserves(loop.ledger.report(), "the MPS loop")
+    actuation = waste["pools"].get("-", {}).get("chip_seconds", {}).get(
+        "actuation", 0.0)
+    if not actuation > 0.0:
+        fail(f"the MPS loop's waterfall shows no actuation GPU-seconds: "
+             f"{waste['pools']}")
+
     grants = _grants(loop, device, loop.running())
     fields = {
         "node": CARD_NODE, "model": loop.model.name, "pods": CARD_PODS,
@@ -2390,12 +2427,34 @@ def _card_loop(device: dict) -> tuple[_CardLoop, dict, list[dict]]:
         "advertised": advertised, "plan_cycles": loop.cycles,
         "plan_cycle_ms": [(plan_s1 - plan_s0) * 1e3,
                           (plan_s2 - plan_s1) * 1e3],
-        "actuation_latency_ms": actuation, "bind_s": bind_s,
-        "rescan_s": rescan_s,
+        "actuation_latency_ms": actuation_ms, "bind_s": bind_s,
+        "rescan_s": rescan_s, "waste": _waste_line(waste),
         "grants": [{"pod": g["pod"], "gpu": g["gpu"],
                     "gb": int(g["env"]["NOS_TPU_TIMESHARE_GB"])}
                    for g in grants]}
     return loop, fields, grants
+
+
+def _check_conserves(report: dict, what: str) -> dict:
+    """``report`` when every pool's categories sum to its capacity's
+    integral within 1e-6 (the JAX package's ``conservation_ok``), else a
+    failure naming ``what`` and the deltas."""
+    from nos_tpu_torch.obs.ledger import check_conservation
+
+    try:
+        return check_conservation(report, what)
+    except RuntimeError as e:
+        fail(str(e))
+
+
+def _waste_line(report: dict) -> dict:
+    """A waste report for a phase's line: the fleet's GPU-seconds per
+    category, its capacity's, and each pool's conservation delta."""
+    return {"gpu_seconds": report["fleet"]["chip_seconds"],
+            "capacity_gpu_seconds":
+                report["fleet"]["capacity_chip_seconds"],
+            "conservation_delta": {p: v["conservation_delta"]
+                                   for p, v in report["pools"].items()}}
 
 
 def _grants(loop: _CardLoop, device: dict, names: list[str]) -> list[dict]:
@@ -3101,6 +3160,10 @@ def phase_mig(device: dict, smi: str) -> dict:
 # victim's is stopped.
 QUOTA_FLEET_DIGEST = \
     "6306bdbc486e698a37e0cb74b6b5abdf498b959bd50a2d2c38a12dda3ffa23c1"
+# fleet.waste_summary of its waste ledger's report, the JAX package's
+# ledger on the same run (tests/test_torch_scheduler.py)
+QUOTA_FLEET_WASTE_DIGEST = \
+    "b7acc984dc355fcfb0ee6590f9bb632affa117d034dba4896d3000c10d096a7d"
 QUOTA_FLEET_RUNS = 5
 # (namespace, min GB, max GB; 0 = none), each quota in its namespace
 QUOTA_CARD_QUOTAS = (("team-a", 40.0, 80.0), ("team-b", 40.0, 0.0))
@@ -3194,10 +3257,11 @@ QUOTA_LOOP_WRITES = {
 
 def _quota_fleet_runs(runs: int = QUOTA_FLEET_RUNS) -> dict:
     """The quota fleet ``runs`` times, each from nothing: every run's
-    summary must hash to QUOTA_FLEET_DIGEST, every victim must carry
-    the over-quota label when chosen, no quota may hold more than its
-    max, and each quota's status.used must be the GB its Running pods
-    hold."""
+    summary must hash to QUOTA_FLEET_DIGEST and its waste waterfall
+    (which conserves, or the run raises) to QUOTA_FLEET_WASTE_DIGEST,
+    every victim must carry the over-quota label when chosen, no quota
+    may hold more than its max, and each quota's status.used must be the
+    GB its Running pods hold."""
     from nos_tpu_torch.api import constants as C
     from nos_tpu_torch.testing import fleet
 
@@ -3213,6 +3277,8 @@ def _quota_fleet_runs(runs: int = QUOTA_FLEET_RUNS) -> dict:
         if digest != QUOTA_FLEET_DIGEST:
             fail(f"the quota fleet's digest {digest} is not the pinned "
                  f"{QUOTA_FLEET_DIGEST} (the JAX package's run on the CPU)")
+        _check_waste_digest(out["waste"], QUOTA_FLEET_WASTE_DIGEST,
+                            "the quota fleet")
         if out["victims_in_quota"] or not out["victims_over_quota"]:
             fail(f"the quota fleet preempted {out['victims_in_quota']} "
                  f"pods not labelled over-quota")
@@ -3242,7 +3308,20 @@ def _quota_fleet_runs(runs: int = QUOTA_FLEET_RUNS) -> dict:
                                  "other": first["victims_in_quota"]},
             "pending_left": len(first["summary"]["pending"]),
             "used_gb": first["held_gb"],
-            "digest": fleet.plan_digest(first["summary"])}
+            "digest": fleet.plan_digest(first["summary"]),
+            "waste": _waste_line(first["waste"])}
+
+
+def _check_waste_digest(report: dict, want: str, what: str) -> None:
+    """Fail unless ``report`` conserves GPU-seconds (within 1e-6) and its
+    ``fleet.waste_summary`` hashes to ``want``."""
+    from nos_tpu_torch.testing import fleet
+
+    _check_conserves(report, what)
+    digest = fleet.plan_digest(fleet.waste_summary(report))
+    if digest != want:
+        fail(f"{what}: the waste digest {digest} is not the pinned {want} "
+             f"(the JAX package's ledger on the CPU)")
 
 
 class _QuotaLoop(_CardLoop):
@@ -3535,6 +3614,10 @@ def phase_quota(main_loss0: float, device: dict, smi: str) -> dict:
 # stopped.
 GANG_FLEET_DIGEST = \
     "a30a101fd2f5bf0224e32466d1df92ecd506e0d1153f2999947b12d244b13d46"
+# fleet.waste_summary of its waste ledger's report (the JAX package's,
+# tests/test_torch_gang.py)
+GANG_FLEET_WASTE_DIGEST = \
+    "a7b35ac79215a5213b3d03395bf64695866211700b8dda230c6482f183e6e579"
 GANG_FLEET_RUNS = 5
 # (namespace, min GB, max GB; 0 = none), each quota in its namespace
 GANG_CARD_QUOTAS = (("team-a", 24.0, 80.0), ("team-b", 48.0, 0.0))
@@ -3653,7 +3736,8 @@ GANG_LOOP_WRITES = {
 
 def _gang_fleet_runs(runs: int = GANG_FLEET_RUNS) -> dict:
     """The gang fleet ``runs`` times, each from nothing: every run's
-    summary must hash to GANG_FLEET_DIGEST; at no cycle's end may a gang
+    summary must hash to GANG_FLEET_DIGEST and its waste waterfall to
+    GANG_FLEET_WASTE_DIGEST; at no cycle's end may a gang
     be bound in part or over two domains; the mesh gang must have been
     bound in nvl-0 alone (nvl-1 is smaller than its mesh), the waiting
     gang never; every victim must have been over quota, or of the
@@ -3675,6 +3759,8 @@ def _gang_fleet_runs(runs: int = GANG_FLEET_RUNS) -> dict:
         if digest != GANG_FLEET_DIGEST:
             fail(f"the gang fleet's digest {digest} is not the pinned "
                  f"{GANG_FLEET_DIGEST} (the JAX package's run on the CPU)")
+        _check_waste_digest(out["waste"], GANG_FLEET_WASTE_DIGEST,
+                            "the gang fleet")
         if out["partial"] or out["spanning"]:
             fail(f"gangs bound in part {out['partial']} or over two "
                  f"domains {out['spanning']} at a cycle's end")
@@ -3721,7 +3807,8 @@ def _gang_fleet_runs(runs: int = GANG_FLEET_RUNS) -> dict:
             "groups": summary["groups"],
             "pending_left": len(summary["pending"]),
             "used_gb": first["held_gb"],
-            "digest": fleet.plan_digest(summary)}
+            "digest": fleet.plan_digest(summary),
+            "waste": _waste_line(first["waste"])}
 
 
 def _gang_bound_cycles(loop: _QuotaLoop) -> tuple[dict, Callable]:
@@ -3969,6 +4056,10 @@ PARALLEL_WORKERS = (1, 2, 4)
 PARALLEL_TIMED = 5
 RECOVERY_FLEET_DIGEST = \
     "a5f8cd66f4650fa2e59599b0d51e9c5491998b9d83b0b306645a5249187bb021"
+# fleet.waste_summary of the recovery run's waste ledger (the JAX
+# package's ledger on the same run, tests/test_torch_recovery.py)
+RECOVERY_FLEET_WASTE_DIGEST = \
+    "cd71e87a5eeefa4613047d1db561af2b751250fa04ebe874f3afcf7c03b7c95e"
 # two pods of which the card holds one: the job and a batch pod
 RECOVERY_JOB, RECOVERY_BATCH, RECOVERY_GB = "rj", "bq", 48
 # the detector's seconds: short, and longer than a pass of the loop (a
@@ -4161,27 +4252,47 @@ def _parallel_fleet_plans() -> dict:
 
 def _recovery_fleet_run() -> dict:
     """Phase 13 (b): the recovery fleet once, to RECOVERY_FLEET_DIGEST
-    (the JAX package's run), with no displaced job left unbound and the
-    detector, the spares and the migration all exercised."""
+    (the JAX package's run) and its waste waterfall to
+    RECOVERY_FLEET_WASTE_DIGEST, with no displaced job left unbound, the
+    detector, the spares and the migration all exercised, and at most
+    RECOVERY_LOST_HALVING of its no-recovery baseline's GPU-seconds lost
+    (``run_recovery_fleet`` raises past it; both runs conserve).  The
+    line carries the slowest poll: its ms, its trace time and the
+    journal categories it wrote, which name its step."""
     from nos_tpu_torch.testing import fleet
 
     t0 = time.perf_counter()
-    out = fleet.run_recovery_fleet(fleet.recovery_fleet_spec(0))
+    try:
+        out = fleet.run_recovery_fleet(fleet.recovery_fleet_spec(0))
+    except RuntimeError as e:
+        fail(f"the recovery fleet: {e}")
     run_ms = (time.perf_counter() - t0) * 1e3
     digest = fleet.plan_digest(out["summary"])
     if digest != RECOVERY_FLEET_DIGEST:
         fail(f"the recovery fleet's digest {digest} is not the pinned "
              f"{RECOVERY_FLEET_DIGEST} (the JAX package's run on the CPU)")
+    _check_waste_digest(out["waste"], RECOVERY_FLEET_WASTE_DIGEST,
+                        "the recovery fleet")
+    if out["lost_ratio"] is None \
+            or out["lost_ratio"] > fleet.RECOVERY_LOST_HALVING:
+        fail(f"the recovery fleet lost {out['lost_gpu_seconds']} "
+             f"GPU-seconds against the baseline's "
+             f"{out['baseline']['lost_gpu_seconds']}")
     if out["never_rebound"]:
         fail(f"{out['summary']['never_rebound']} displaced jobs were never "
              f"rebound")
     if not (out["suspicions"] and out["promotions"] and out["migrations"]
             and out["straggler_evictions"]):
         fail(f"the recovery fleet left a mechanism unexercised: {out}")
-    return {k: v for k, v in out.items() if k not in ("summary", "poll_ms")} | {
+    return {k: v for k, v in out.items()
+            if k not in ("summary", "poll_ms", "waste", "baseline")} | {
         "poll_ms_median": statistics.median(out["poll_ms"]),
         "poll_ms_max": max(out["poll_ms"]), "run_ms": run_ms,
-        "completed": out["summary"]["completed"], "digest": digest}
+        "completed": out["summary"]["completed"], "digest": digest,
+        "waste": _waste_line(out["waste"]),
+        "baseline": {k: v for k, v in out["baseline"].items()
+                     if k != "waste"}
+        | {"waste": _waste_line(out["baseline"]["waste"])}}
 
 
 class _RecoveryLoop(_QuotaLoop):
@@ -4784,6 +4895,11 @@ MAINS_START_LIMIT_S = 120.0  # a main's start to /healthz and /readyz
 MAINS_LIMIT_S = 60.0         # each step the mains take on their own
 MAINS_EXIT_LIMIT_S = 5.0     # SIGTERM to a main's exit
 MAINS_RETRY_S = 2.0          # a standby's lease retry (LeaderElector's)
+# the scheduler main's cycle (SchedulerConfig's default): the waste
+# ledger books at cycle ends, so a waterfall read between two moments is
+# exact up to one cycle at each edge, of at most the node's one GPU
+MAINS_CYCLE_S = 0.05
+MAINS_POOL = "-"             # the card's node has no NVLink domain label
 _LABELLED = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)\{(.*)\} (\S+)$')
 
 # What the mains leave in the stub, pinned by
@@ -5166,10 +5282,48 @@ def _mains_place(m: _Mains, leader: str) -> dict:
                                    for n in names}}
 
 
-def _mains_failover(m: _Mains, leader: str, standby: str) -> dict:
+def _mains_snapshot(m: _Mains) -> dict:
+    """The scheduler main's /snapshot: 200, the cluster's state, the
+    metric series and the waste waterfall, which must conserve."""
+    code, body = m._get("scheduler", "/snapshot")
+    if code != 200:
+        fail(f"the scheduler main's /snapshot answered {code}: {body[:500]}")
+    payload = json.loads(body)
+    if not {"state", "metrics", "waste"} <= set(payload):
+        fail(f"the scheduler main's /snapshot carries {sorted(payload)}")
+    _check_conserves(payload["waste"], "the scheduler main")
+    return payload
+
+
+def _mains_productive(before: dict, after: dict, gpus: int) -> dict:
+    """The card node's waterfall between two /snapshot reads while both
+    pods hold their shares: productive must be ``gpus`` x
+    CARD_SHARE_GB / 80 of the GPU-seconds (48/80), within one scheduler
+    cycle of the whole GPU at each edge (2 x MAINS_CYCLE_S GPU-s)."""
+    a = before["waste"]["pools"].get(MAINS_POOL)
+    b = after["waste"]["pools"].get(MAINS_POOL)
+    if a is None or b is None or b["capacity_chips"] != 1.0:
+        fail(f"the scheduler's waterfall has no one-GPU pool "
+             f"{MAINS_POOL!r}: {after['waste']['pools']}")
+    d_cap = b["capacity_chip_seconds"] - a["capacity_chip_seconds"]
+    d_prod = b["chip_seconds"].get("productive", 0.0) \
+        - a["chip_seconds"].get("productive", 0.0)
+    share = gpus * CARD_SHARE_GB / 80.0
+    tolerance = 2 * MAINS_CYCLE_S * b["capacity_chips"]
+    if not d_cap > 0 or abs(d_prod - share * d_cap) > tolerance:
+        fail(f"productive {d_prod} of {d_cap} GPU-s while both pods ran, "
+             f"not {share} of it within {tolerance} GPU-s")
+    return {"window_gpu_seconds": d_cap, "productive_gpu_seconds": d_prod,
+            "productive_share": d_prod / d_cap, "want_share": share,
+            "tolerance_gpu_seconds": tolerance}
+
+
+def _mains_failover(m: _Mains, leader: str, standby: str,
+                    before_third=None) -> dict:
     """SIGTERM to the leader: it exits 0 and releases the lease, the
     standby takes it within its retry, and a third pod, created after
-    the handover, is planned by the new leader alone and bound."""
+    the handover (``before_third()`` runs just before), is planned by
+    the new leader alone and bound."""
     from nos_tpu_torch.api import constants as C
 
     old = m.identity(leader)
@@ -5194,6 +5348,8 @@ def _mains_failover(m: _Mains, leader: str, standby: str) -> dict:
         fail(f"the standby took the lease {handover_ms} ms after SIGTERM, "
              f"over its {MAINS_RETRY_S} s retry and a step")
     ns, third = MAINS_THIRD
+    if before_third is not None:
+        before_third()
     m.create_pod(ns, third)
     m.until(lambda: m.running([third]), f"bind {third}")
     plans = m.plan_writes()
@@ -5211,39 +5367,75 @@ def _mains_failover(m: _Mains, leader: str, standby: str) -> dict:
             "leader_exit": leader_exit}
 
 
-def _mains_exporter(m: _Mains, leader: str) -> dict:
-    """The one-shot exporter on a dump of the stub (exit 0, the MPS
-    node and its GPU) and on the leader's /snapshot (exit 1 on the
-    501)."""
+def _mains_exporter(m: _Mains) -> dict:
+    """The one-shot exporter on a dump of the stub and on the scheduler
+    main's /snapshot: each exits 0 with the MPS node and its GPU, and the
+    snapshot's payload carries the scheduler's conserved waterfall."""
     from nos_tpu_torch.kube.serialize import dump_state
 
     state = m.tmp / "state.json"
     state.write_text(json.dumps(dump_state(m.client)))
-    out = m.tmp / "payload.json"
-    runs = {}
+    runs, payloads = {}, {}
     for what, source in (("file", str(state)),
-                         ("snapshot", f"http://{m.procs[leader]['addr']}")):
+                         ("snapshot", f"http://{m.procs['scheduler']['addr']}")):
+        out = m.tmp / f"payload-{what}.json"
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "nos_tpu_torch.cmd.metricsexporter",
              "--source", source, "--out", str(out)], cwd=ROOT,
             env=_child_env(), capture_output=True, text=True, timeout=120)
-        runs[what] = {"rc": r.returncode, "s": time.perf_counter() - t0,
-                      "stderr": r.stderr}
-    if runs["file"]["rc"] != 0:
-        fail(f"the exporter on the state file exited {runs['file']['rc']}:"
-             f"\n{runs['file']['stderr'][-4000:]}")
-    payload = json.loads(out.read_text())
-    cluster = payload["cluster"]
-    if cluster["nodes_total"] != 1 or cluster["partitioning"] != {
-            "mps": {"nodes": 1, "gpus": 1.0}}:
-        fail(f"the exporter's payload describes {cluster}")
-    if runs["snapshot"]["rc"] != 1 or "501" not in runs["snapshot"]["stderr"]:
-        fail(f"the exporter on {leader}'s /snapshot exited "
-             f"{runs['snapshot']['rc']}:\n{runs['snapshot']['stderr']}")
+        runs[what] = {"rc": r.returncode, "s": time.perf_counter() - t0}
+        if r.returncode != 0:
+            fail(f"the exporter on the {what} exited {r.returncode}:\n"
+                 f"{r.stderr[-4000:]}")
+        payloads[what] = json.loads(out.read_text())
+        cluster = payloads[what]["cluster"]
+        if cluster["nodes_total"] != 1 or cluster["partitioning"] != {
+                "mps": {"nodes": 1, "gpus": 1.0}}:
+            fail(f"the exporter's payload from the {what} describes "
+                 f"{cluster}")
+    waste = payloads["snapshot"].get("waste")
+    if waste is None or MAINS_POOL not in waste["pools"]:
+        fail(f"the exporter's payload from the scheduler's /snapshot "
+             f"carries no waste waterfall: {sorted(payloads['snapshot'])}")
+    _check_conserves(waste, "the exporter's payload")
     return {"exit_codes": {k: v["rc"] for k, v in runs.items()},
             "seconds": {k: v["s"] for k, v in runs.items()},
-            "payload_cluster": cluster}
+            "payload_cluster": payloads["snapshot"]["cluster"],
+            "payload_waste_pools": sorted(waste["pools"])}
+
+
+def _mains_obs(m: _Mains) -> dict:
+    """The scheduler main's observability after the pods' release: its
+    /debug/slo answers 200 with a schedule-latency verdict for the pods'
+    class, and ``python -m nos_tpu_torch.obs waste --url`` exits 0 and
+    prints the conserved waterfall's categories."""
+    cls = f"ts-{CARD_SHARE_GB}"
+
+    def verdicts() -> list:
+        code, body = m._get("scheduler", "/debug/slo")
+        if code != 200:
+            fail(f"the scheduler main's /debug/slo answered {code}: {body}")
+        return [v for v in json.loads(body)["verdicts"]
+                if v["objective"] == "schedule-latency"
+                and v["class"] == cls]
+
+    m.until(lambda: bool(verdicts()),
+            f"judge the schedule latency of class {cls}")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "nos_tpu_torch.obs", "waste", "--url",
+         f"http://{m.procs['scheduler']['addr']}"], cwd=ROOT,
+        env=_child_env(), capture_output=True, text=True, timeout=120)
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0 or "(conservation: ok)" not in r.stdout \
+            or "productive" not in r.stdout:
+        fail(f"obs waste exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+             f"{r.stderr[-4000:]}")
+    return {"slo_verdict": verdicts()[0], "obs_waste_rc": r.returncode,
+            "obs_waste_s": cli_s,
+            "obs_waste_categories": re.findall(
+                r"^  ([a-z_]+) +[\d.]+ +[\d.]+%$", r.stdout, re.M)}
 
 
 def _mains_shutdown(m: _Mains) -> dict:
@@ -5308,7 +5500,13 @@ def _mains_host(stub, tmp: str, device: dict, agent_model: str,
         names = [n for _, n in MAINS_PODS]
         grants = _mains_grants(m, device, names)
         running = children(m, grants) if children is not None else None
-        failover = _mains_failover(m, leader, standby)
+        # the waterfall while both pods hold their shares: from here to
+        # the third pod's creation
+        reads = [_mains_snapshot(m)]
+        failover = _mains_failover(
+            m, leader, standby,
+            before_third=lambda: reads.append(_mains_snapshot(m)))
+        productive = _mains_productive(reads[0], reads[1], len(names))
         m.mark([MAINS_THIRD[1]])
         kids = running() if running is not None else {}
         m.mark(names)
@@ -5319,7 +5517,9 @@ def _mains_host(stub, tmp: str, device: dict, agent_model: str,
         m.until(lambda: not any(k.endswith("-used")
                                 for k in m.node().metadata.annotations),
                 "report the released shares")
-        exporter = _mains_exporter(m, standby)
+        exporter = _mains_exporter(m)
+        observed = _mains_obs(m)
+        waste = _mains_snapshot(m)["waste"]
         exits = _mains_shutdown(m)
         writes = _mains_writes(m, standby)
         if m.tap.errors:
@@ -5338,7 +5538,8 @@ def _mains_host(stub, tmp: str, device: dict, agent_model: str,
                           "gb": int(g["env"]["NOS_TPU_TIMESHARE_GB"])}
                          for g in grants],
               "quota_used_seen": writes["quotas"], "exporter": exporter,
-              "main_exits": exits}
+              "waste_while_both_ran": productive, **observed,
+              "waste": _waste_line(waste), "main_exits": exits}
     return fields, writes, kids
 
 

@@ -56,13 +56,11 @@ _DRAIN = (("drain_preempt_after_cycles", 0),
           ("drain_preempt_spare_progress", 0.75))
 _SHARD = (("shard_chips_per_host", 0),)
 _ELASTIC = (("elastic_grow_budget_per_cycle", 1),)
-_SLO = (("slo_interval_s", 1.0),)
 _PLANES = {
     "defrag": (_DEFRAG, "the defragmentation plane", "ROADMAP item 6"),
     "drain": (_DRAIN, "drain preemption", "ROADMAP item 7.2"),
     "shard": (_SHARD, "host-shard quota accounting", "ROADMAP item 7.2"),
     "elastic": (_ELASTIC, "elastic gang growth", "ROADMAP item 4"),
-    "slo": (_SLO, "the SLO engine", "ROADMAP item 9 part 1"),
 }
 
 
@@ -100,7 +98,7 @@ class ManagerConfig:
             knobs, what, item = _PLANES[plane]
             for name, default in knobs:
                 value = getattr(self, name)
-                if value != default and not (plane == "slo" and value == 0):
+                if value != default:
                     raise ConfigError(
                         f"{type(self).__name__}.{name} = {value!r}: "
                         f"{what} is not in the port yet ({item}); only "
@@ -113,8 +111,6 @@ def missing_planes(cfg: ManagerConfig) -> list[str]:
     out = []
     for plane in cfg._missing:
         knobs, what, item = _PLANES[plane]
-        if plane == "slo" and cfg.slo_interval_s == 0:
-            continue
         out.append(f"{', '.join(n for n, _ in knobs)} at the JAX "
                    f"package's defaults: {what} comes with {item}")
     return out
@@ -152,7 +148,7 @@ class PartitionerConfig(ManagerConfig):
     device_plugin_cm_name: str = "nos-device-plugin-configs"
     device_plugin_cm_namespace: str = "nebuly-nos"
 
-    _missing: ClassVar[tuple[str, ...]] = ("defrag", "slo")
+    _missing: ClassVar[tuple[str, ...]] = ("defrag",)
 
     def validate(self) -> None:
         super().validate()
@@ -217,8 +213,7 @@ class SchedulerConfig(ManagerConfig):
     # 0 = no expiry
     displaced_age_cap_s: float = 300.0
 
-    _missing: ClassVar[tuple[str, ...]] = ("drain", "shard", "elastic",
-                                           "slo")
+    _missing: ClassVar[tuple[str, ...]] = ("drain", "shard", "elastic")
 
     def validate(self) -> None:
         super().validate()

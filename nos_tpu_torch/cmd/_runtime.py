@@ -4,13 +4,11 @@ starts, cmd/gpupartitioner/gpupartitioner.go:72-268): named run loops on
 threads, graceful SIGINT/SIGTERM shutdown, and an HTTP endpoint serving
 ``/healthz`` and ``/readyz`` (operator.go:112-119), ``/metrics`` (the
 Prometheus text of ``exporter/metrics.py``'s registry) and
-``/debug/flightrecorder`` (``obs.flight_snapshot``).
-
-Two parts wait for the SLO engine and the chip-second ledger (ROADMAP
-item 9 part 1): ``Main.attach_slo`` raises NotImplementedError, and
-``/snapshot`` with an API attached answers 501, since its payload would
-lack the ledger's waste report.  ``/debug/slo`` answers 404, as the JAX
-package's does with no engine installed.
+``/debug/flightrecorder`` (``obs.flight_snapshot``), ``/debug/slo``
+(the SLO engine's report; 404 with none installed) and, with an API
+attached, ``/snapshot``: the cluster's state, the metric series, the
+chip-second ledger's waste report and, with an engine, its report.
+``Main.attach_slo`` installs an engine and samples it on a run loop.
 """
 
 from __future__ import annotations
@@ -31,8 +29,6 @@ REGISTRY.describe("nos_tpu_runloop_errors_total",
                   "Reconcile ticks that raised (survived, logged)")
 REGISTRY.describe("nos_tpu_runloop_tick_seconds",
                   "Run-loop tick duration (count/sum/max per loop)")
-
-_LEDGER_ITEM = "ROADMAP item 9 part 1 (obs/slo.py, obs/ledger.py)"
 
 
 class RunLoop(threading.Thread):
@@ -91,13 +87,32 @@ class _HealthHandler(http.server.BaseHTTPRequestHandler):
             self._respond(200, json.dumps(flight_snapshot()),
                           content_type="application/json")
         elif self.path == "/debug/slo":
-            self._respond(404, "no SLO engine installed (Main.attach_slo)")
+            from nos_tpu_torch.obs.slo import get_engine
+
+            engine = get_engine()
+            if engine is None:
+                self._respond(404, "no SLO engine installed "
+                                   "(Main.attach_slo)")
+                return
+            self._respond(200, json.dumps(engine.report()),
+                          content_type="application/json")
         elif self.path == "/snapshot":
+            # what the one-shot metrics exporter reads, and `obs top`
             if self.main is None or self.main.api is None:
                 self._respond(404, "no api server attached")
                 return
-            self._respond(501, "the snapshot's waste report needs the "
-                               f"chip-second ledger, {_LEDGER_ITEM}")
+            from nos_tpu_torch.kube.serialize import dump_state
+            from nos_tpu_torch.obs.ledger import get_ledger
+            from nos_tpu_torch.obs.slo import get_engine
+
+            payload = {"state": dump_state(self.main.api),
+                       "metrics": REGISTRY.snapshot(),
+                       "waste": get_ledger().report()}
+            engine = get_engine()
+            if engine is not None:
+                payload["slo"] = engine.report()
+            self._respond(200, json.dumps(payload),
+                          content_type="application/json")
         else:
             self._respond(404, "not found")
 
@@ -156,10 +171,19 @@ class Main:
                 loop.start()
 
     def attach_slo(self, engine=None, interval_s: float = 1.0) -> None:
-        """The JAX package installs an SLO engine here; the port has
-        none yet."""
-        raise NotImplementedError(
-            f"the SLO engine is not in the port yet: {_LEDGER_ITEM}")
+        """Install an SLO engine (``obs/slo.py``) as the process's and
+        add its tick as a run loop: every ``interval_s`` the sampler
+        takes the registry and the engine judges every objective.
+        Without ``engine``, one over the default objectives."""
+        from nos_tpu_torch.obs.slo import (
+            SLOEngine, default_objectives, set_engine,
+        )
+        from nos_tpu_torch.obs.timeseries import TimeSeriesSampler
+
+        if engine is None:
+            engine = SLOEngine(TimeSeriesSampler(), default_objectives())
+        set_engine(engine)
+        self.add_loop("slo-sampler", engine.tick, interval_s)
 
     def attach_leader_election(self, elector) -> None:
         """Gate every run loop (added before or after) on holding the

@@ -11,12 +11,12 @@ posts it to an endpoint and/or writes it to a file, and exits.
     python -m nos_tpu_torch.cmd.metricsexporter --endpoint http://host/ingest
 
 A state file is ``kube/serialize.dump_state``'s (or a full ``/snapshot``
-payload).  The port's mains answer ``/snapshot`` with 501 until the
-chip-second ledger lands (ROADMAP item 9 part 1): against them
-``--source http://...`` exits 1 and logs the 501, never an empty
-payload.  With no SLO engine in the port the payload has no ``slo`` key
-unless the source carried one.  Without ``--source`` the payload
-describes an empty cluster.
+payload).  The source's metric series, its chip-second waste report and
+its SLO report, when it carries them, ride in the payload as
+``metrics``, ``waste`` and ``slo``.  A source that cannot be read (an
+HTTP error, a payload that is not an object) exits 1, never with an
+empty payload.  Without ``--source`` the payload describes an empty
+cluster.
 """
 
 from __future__ import annotations
@@ -34,9 +34,10 @@ from nos_tpu_torch.kube.client import APIServer
 logger = logging.getLogger("nos_tpu_torch.cmd.metricsexporter")
 
 
-def load_source(source: str) -> tuple[APIServer, dict | None, dict | None]:
-    """(APIServer, metric series, SLO report) from a main's /snapshot URL
-    or a dumped state file."""
+def load_source(source: str) -> tuple[APIServer, dict]:
+    """(APIServer, the source's other blocks) from a main's /snapshot URL
+    or a dumped state file: ``metrics``, ``waste`` and ``slo``, each when
+    the source carries it."""
     from nos_tpu_torch.kube.serialize import load_state
 
     if source.startswith(("http://", "https://")):
@@ -48,8 +49,7 @@ def load_source(source: str) -> tuple[APIServer, dict | None, dict | None]:
         if not isinstance(data, dict):
             raise ValueError(f"snapshot payload is {type(data).__name__}, "
                              f"expected object")
-        return (load_state(data.get("state", {})), data.get("metrics"),
-                data.get("slo"))
+        return load_state(data.get("state", {})), _blocks(data)
     with open(source) as f:
         data = json.load(f)
     if not isinstance(data, dict):
@@ -57,7 +57,12 @@ def load_source(source: str) -> tuple[APIServer, dict | None, dict | None]:
                          f"expected object")
     # a bare dump_state file or a full /snapshot payload
     state = data.get("state", data)
-    return load_state(state), data.get("metrics"), data.get("slo")
+    return load_state(state), _blocks(data)
+
+
+def _blocks(data: dict) -> dict:
+    return {k: data[k] for k in ("metrics", "waste", "slo")
+            if data.get(k) is not None}
 
 
 def export(payload: dict, endpoint: str = "", out: str = "") -> int:
@@ -93,11 +98,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="write payload to this file")
     args = ap.parse_args(argv)
 
-    metrics_override = None
-    slo_report = None
+    blocks: dict = {}
     if args.source:
         try:
-            api, metrics_override, slo_report = load_source(args.source)
+            api, blocks = load_source(args.source)
         except urllib.error.HTTPError as e:
             body = e.read().decode(errors="replace")
             logger.error("cannot read --source %s: HTTP %d: %s",
@@ -113,11 +117,9 @@ def main(argv=None) -> int:
     payload = collect(api, components={
         "partitioner": True, "scheduler": True, "operator": True,
     })
-    if metrics_override is not None:
-        # the observed process's series, not this one-shot's registry
-        payload["metrics"] = metrics_override
-    if slo_report is not None:
-        payload["slo"] = slo_report
+    # the observed process's series, waterfall and SLO report, not this
+    # one-shot's
+    payload.update(blocks)
     return export(payload, endpoint=args.endpoint, out=args.out)
 
 

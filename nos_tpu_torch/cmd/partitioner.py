@@ -11,7 +11,9 @@ kube-apiserver, otherwise against an in-memory API that holds nothing
 until ``--sim N`` fills it: N one-GPU H100 nodes in MIG mode, each with
 a MIG node agent on a fake GPU runtime (a simulation asked for by the
 flag: ``default_gpu_runtime(device="cpu")``), a scheduler and a 3g.40gb
-pod a node; the main logs when every pod is bound and Running.
+pod a node; the main logs when every pod is bound and Running.  With
+``slo_interval_s`` above 0 (1 s by default) the main runs the SLO
+engine and serves it at ``/debug/slo``.
 """
 
 from __future__ import annotations
@@ -98,6 +100,8 @@ def main(argv=None) -> int:
     m, _ = build_partitioner_main(api, ClusterState(), cfg)
     if args.sim:
         add_sim(m, api, args.sim)
+    if cfg.slo_interval_s > 0:
+        m.attach_slo(interval_s=cfg.slo_interval_s)
     m.run_until_stopped()
     return 0
 

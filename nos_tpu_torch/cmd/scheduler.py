@@ -2,6 +2,9 @@
 (reference cmd/scheduler/scheduler.go:43-59, the kube-scheduler rebuilt
 with CapacityScheduling): the scheduling cycle as a run loop over the
 framework of ``cmd/assembly.build_scheduler``, under an optional lease.
+With ``slo_interval_s`` above 0 (1 s by default) the main runs the SLO
+engine and serves it at ``/debug/slo``; ``/snapshot`` carries the
+scheduler's waste waterfall.
 
     python -m nos_tpu_torch.cmd.scheduler --config scheduler.json
 """
@@ -51,7 +54,10 @@ def main(argv=None) -> int:
     except ConfigError as e:
         print(f"invalid config: {e}", file=sys.stderr)
         return 2
-    build_scheduler_main(build_api(cfg), cfg).run_until_stopped()
+    m = build_scheduler_main(build_api(cfg), cfg)
+    if cfg.slo_interval_s > 0:
+        m.attach_slo(interval_s=cfg.slo_interval_s)
+    m.run_until_stopped()
     return 0
 
 

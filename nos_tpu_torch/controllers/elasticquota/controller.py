@@ -10,9 +10,9 @@ time, priority, request, name), sums ``used``, and labels each pod
 min on every resource min names, ``over-quota`` after: the label the
 preemption walk keys on.  Resources min does not name are dropped from
 ``status.used``.  A composite quota's reconcile first deletes every
-plain ElasticQuota in its namespaces.  The chip-second ledger's borrow
-hint the JAX reconciler also feeds comes with ``obs/ledger.py``
-(ROADMAP item 9); the journal records are kept.
+plain ElasticQuota in its namespaces.  A label flip is journaled and
+noted in the chip-second ledger (``obs/ledger.py``) as the
+``quota_stranded`` hint: the team whose borrowing last moved.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from nos_tpu_torch.kube.client import (
 from nos_tpu_torch.kube.objects import RUNNING, Pod
 from nos_tpu_torch.kube.resources import ResourceList, sum_resources
 from nos_tpu_torch.obs import journal as J
+from nos_tpu_torch.obs.ledger import get_ledger
 from nos_tpu_torch.quota import GPUResourceCalculator
 from nos_tpu_torch.utils.retry import retry_on_conflict
 
@@ -125,9 +126,13 @@ class _PodsReconciler:
         # a borrow, back within min a reclaim; a first in-quota label is
         # neither
         if desired == C.CAPACITY_OVER_QUOTA:
+            get_ledger().note_quota_flip(
+                pod.key, pod.metadata.namespace, borrowed=True)
             J.record(J.QUOTA_BORROW, pod.key,
                      namespace=pod.metadata.namespace)
         elif prev is not None:
+            get_ledger().note_quota_flip(
+                pod.key, pod.metadata.namespace, borrowed=False)
             J.record(J.QUOTA_RECLAIM, pod.key,
                      namespace=pod.metadata.namespace)
 

@@ -25,7 +25,8 @@ is released for one half-open probe after one deadline of cool-down.
 The handshake journal records the lagging set's transitions only.  Each
 node's plan write starts an actuation clock, observed as
 ``nos_tpu_actuation_latency_seconds{kind,pool}`` when its status plan
-id catches up.
+id catches up; the same stamp holds the node's free GPUs as
+``actuation`` in the chip-second ledger (``obs/ledger.py``) until then.
 
 The recovery plane (``partitioning/core/failure.py``: heartbeat
 suspicion, warm-spare promotion, drain-then-migrate), when the factory
@@ -41,10 +42,8 @@ timeouts, one batch timeout and the batch's idle window.  The
 partitioner main sets the deadline and the epoch from its config
 (``cmd/assembly.py``), as JAX's does.
 
-Left out, with the ROADMAP items that bring them: the background
-defragmenter (item 6: it needs the windows, elastic gangs and the
-ledger); the actuation and quarantine holds of the chip-second ledger,
-``obs/ledger.py`` (item 9).
+Left out, with the ROADMAP item that brings it: the background
+defragmenter (item 6: it needs the windows and elastic gangs).
 """
 
 from __future__ import annotations
@@ -59,6 +58,7 @@ from nos_tpu_torch.kube.client import APIServer, KIND_POD
 from nos_tpu_torch.kube.objects import PENDING, Pod
 from nos_tpu_torch.obs import journal as J
 from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES, record as journal_record
+from nos_tpu_torch.obs.ledger import ACTUATION as LEDGER_ACTUATION, get_ledger
 from nos_tpu_torch.obs.trace import span as obs_span
 from nos_tpu_torch.partitioning.core import (
     Actuator, Planner, QuarantineList, REASON_ACTUATION,
@@ -243,9 +243,10 @@ class PartitionerController:
     # -- actuation-landed latency -------------------------------------------
     def _start_actuation_clocks(self) -> None:
         """After a plan cycle, stamp the clock of every node of the kind
-        whose spec plan id is ahead of its status.  A node replanned in
-        flight restarts its clock: the latency runs to the plan its
-        agent will report."""
+        whose spec plan id is ahead of its status, and hold its free GPUs
+        as actuation in the ledger.  A node replanned in flight restarts
+        its clock: the latency runs to the plan its agent will
+        report."""
         now = self._clock()
         for node in self._state.nodes().values():
             if not self._my_kind(node):
@@ -259,12 +260,16 @@ class PartitionerController:
             entry = self._actuation_started.get(name)
             if entry is None or entry[0] != spec_id:
                 self._actuation_started[name] = (spec_id, now)
+                get_ledger().set_hold(name, LEDGER_ACTUATION,
+                                      owner=self._kind, kind=self._kind,
+                                      plan_id=spec_id)
 
     def _observe_landed_actuations(self) -> None:
         """A node whose status plan id caught up with its stamped spec
         observes one ``nos_tpu_actuation_latency_seconds`` sample.  A
         node that left and a superseded plan drop their entry (the next
-        plan cycle stamps again)."""
+        plan cycle stamps again).  Each dropped entry clears its ledger
+        hold."""
         if not self._actuation_started:
             return
         now = self._clock()
@@ -273,13 +278,19 @@ class PartitionerController:
             node = nodes.get(name)
             if node is None or not self._my_kind(node):
                 del self._actuation_started[name]
+                get_ledger().clear_hold(name, LEDGER_ACTUATION,
+                                        owner=self._kind)
                 continue
             annots = node.metadata.annotations
             if spec_plan_id(annots, family=self._kind) != plan_id:
                 del self._actuation_started[name]     # superseded
+                get_ledger().clear_hold(name, LEDGER_ACTUATION,
+                                        owner=self._kind)
                 continue
             if status_plan_id(annots, family=self._kind) == plan_id:
                 del self._actuation_started[name]
+                get_ledger().clear_hold(name, LEDGER_ACTUATION,
+                                        owner=self._kind)
                 # the pool is the node's NVLink domain, "-" unlabelled
                 pool = node.metadata.labels.get(
                     C.LABEL_NVLINK_DOMAIN, "") or "-"

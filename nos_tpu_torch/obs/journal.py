@@ -58,6 +58,21 @@ JOB_REBOUND = "job-rebound"
 # -- the recovery plane's ------------------------------------------------
 JOB_DISPLACED = "job-displaced"
 SPARE_PROMOTED = "spare-promoted"
+# -- the SLO engine's verdict transitions ---------------------------------
+SLO_BREACH = "slo-breach"
+SLO_RECOVERED = "slo-recovered"
+# -- the planes the port has not yet (defrag: ROADMAP item 6; capacity and
+# requests: item 9 part 2): nothing in the port records these, but ``obs
+# waste`` and ``obs capacity`` join on them, as the JAX CLI does
+DEFRAG_PROPOSED = "defrag-proposed"
+DEFRAG_APPLIED = "defrag-applied"
+DEFRAG_REJECTED = "defrag-rejected"
+PROVISION_REQUESTED = "provision-requested"
+PROVISION_FAILED = "provision-failed"
+PROVISION_STOCKOUT = "provision-stockout"
+SPARE_BORROWED = "spare-borrowed"
+AUTOSCALE = "autoscale"
+REQUEST_SHED = "request-shed"
 
 
 class DecisionRecord:

@@ -33,8 +33,9 @@ three mechanisms driven from the partitioner controller's poll:
 
 Off means off: with ``spare_hosts_per_pool=0`` and ``suspect_after_s=0``
 the factories build no policy, and a policy with nothing to do writes
-nothing.  The JAX package also books a migrating node's free GPUs as
-DRAIN in its chip-second ledger; the ledger comes with ROADMAP item 9.
+nothing.  A migrating node's free GPUs are held as ``drain`` in the
+chip-second ledger (``obs/ledger.py``) from its drain stamp until the
+migration ends.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD, NotFound
 from nos_tpu_torch.kube.objects import Node, PENDING, Pod, RUNNING
 from nos_tpu_torch.obs import journal as J
 from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES, record as journal_record
+from nos_tpu_torch.obs.ledger import DRAIN as LEDGER_DRAIN, get_ledger
 from nos_tpu_torch.utils.guards import guarded_by
 from nos_tpu_torch.utils.retry import retry_on_conflict
 
@@ -112,7 +114,7 @@ def promote_spare(api: APIServer, spare: str, pool: str, idx: int, *,
     the spare label off, the vacated host index on.  False (the caller's
     next poll retries) when the spare vanished or the patch failed.  The
     JAX package's cross-pool borrow belongs to its capacity provisioner
-    (ROADMAP item 9)."""
+    (ROADMAP item 9 part 2)."""
     def mutate(n: Node) -> None:
         n.metadata.labels.pop(C.LABEL_SPARE, None)
         n.metadata.labels[C.LABEL_HOST_INDEX] = str(idx)
@@ -418,7 +420,8 @@ class SelfHealingPolicy:
             return
         if not stamped[0]:
             return
-        # the JAX package sets its ledger's DRAIN hold here (item 9)
+        get_ledger().set_hold(node, LEDGER_DRAIN,
+                              owner=f"{self._kind}-migrate", cause=cause)
         with self._lock:
             self._migrations[node] = (cause, now)
         subjects: set[str] = set()
@@ -493,7 +496,8 @@ class SelfHealingPolicy:
         with self._lock:
             self._migrations.pop(node, None)
             self._evicted.pop(node, None)
-        # the JAX package clears its ledger's DRAIN hold here (item 9)
+        get_ledger().clear_hold(node, LEDGER_DRAIN,
+                                owner=f"{self._kind}-migrate")
         if live_node is None:
             return
         if C.migration_drain_owner(
@@ -561,7 +565,7 @@ def heal_stray_migration_drains(api: APIServer, kind: str) -> int:
             logger.warning("drain-migrate[%s]: stray drain heal "
                            "failed for %s", kind, name)
             continue
-        # the JAX package clears its ledger's DRAIN hold here (item 9)
+        get_ledger().clear_hold(name, LEDGER_DRAIN, owner=f"{kind}-migrate")
         healed += 1
         logger.info("drain-migrate[%s]: healed stray migration drain "
                     "on %s (recovery plane disabled)", kind, name)

@@ -25,8 +25,8 @@ cannot prove itself by a report (its spec write failed, so spec equals
 status trivially), so the controller releases it for one probe after a
 cool-down: a half-open breaker.  The set lives in memory only: a
 restarted controller derives laggards again from the same annotations.
-The JAX package also stamps a quarantine hold in its chip-second ledger
-(``obs/ledger.py``); the ledger comes with ROADMAP item 9.
+A quarantined node's free GPUs are held as ``quarantine`` in the
+chip-second ledger (``obs/ledger.py``) while it stays in the set.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from typing import Callable
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.obs import journal as J
 from nos_tpu_torch.obs.journal import record as journal_record
+from nos_tpu_torch.obs.ledger import QUARANTINE as LEDGER_QUARANTINE, get_ledger
 from nos_tpu_torch.utils.guards import guarded_by
 
 logger = logging.getLogger(__name__)
@@ -81,6 +82,13 @@ class QuarantineList:
                 return False
             self._quarantined[node] = (reason, self._clock())
             self._set_gauge_locked()
+            # the hold mirrors the membership, so it is stamped under
+            # this lock: a quarantine and a release interleaved out of
+            # order would leave a stale hold.  The ledger's lock is a
+            # leaf, so the nesting orders nothing.
+            get_ledger().set_hold(node, LEDGER_QUARANTINE,
+                                  owner=self.kind, kind=self.kind,
+                                  reason=reason)
         journal_record(J.QUARANTINED, node, kind=self.kind, reason=reason)
         logger.warning("quarantine[%s]: node %s quarantined (%s)",
                        self.kind, node, reason)
@@ -94,6 +102,8 @@ class QuarantineList:
             self._streaks.pop(node, None)
             self._probe_until.pop(node, None)
             self._set_gauge_locked()
+            get_ledger().clear_hold(node, LEDGER_QUARANTINE,
+                                    owner=self.kind)
         journal_record(J.QUARANTINE_RELEASED, node, kind=self.kind,
                        was=entry[0])
         logger.info("quarantine[%s]: node %s released (was: %s)",
@@ -114,6 +124,8 @@ class QuarantineList:
             self._streaks.pop(node, None)
             self._probe_until[node] = self._clock() + window_s
             self._set_gauge_locked()
+            get_ledger().clear_hold(node, LEDGER_QUARANTINE,
+                                    owner=self.kind)
         journal_record(J.QUARANTINE_RELEASED, node, kind=self.kind,
                        was=entry[0], probe=True)
         logger.info("quarantine[%s]: node %s released for a half-open "

@@ -20,14 +20,23 @@ label are a gang, placed all or nothing inside one NVLink domain by
 preemptor that won room binds into it in the same cycle, a gang on a
 later one.
 
-Not here (ROADMAP item 7): the gang windows and their lease, drain
-preemption and duration-aware backfill, which serve a gang consuming a
-multi-node slice (no H100 resource spans nodes), and elastic grow.  The
-JAX scheduler's native prescreen and native choose (item 23) and its
-chip-second waste ledger (item 9) are not ported either: the score's
-lease, defrag-drain and window terms read zero without them, so the
-score is ``(headroom, name)``, the JAX key on nodes with no window
-labels.
+At each cycle's end, before the cycle's view drops, every GPU of the
+view is booked to one category of the chip-second waste ledger
+(``obs/ledger.py``, ``_observe_waste``): held GPUs as productive, free
+ones by the holds the owning subsystems stamped (quarantine, actuation,
+drain), then by the cycle's own verdicts: a node every pending class
+was rejected on is ``frag_stranded``, quota-blocked and stuck-gang
+demand take ``quota_stranded`` and ``gang_wait`` up to its own size,
+and the rest is ``idle_no_demand``.  Warm spares and nodes without a
+GPU count stay outside.
+
+Not here (ROADMAP item 7.2): the gang windows and their lease, drain
+preemption (with its ledger hold) and duration-aware backfill, which
+serve a gang consuming a multi-node slice (no H100 resource spans
+nodes); elastic grow (item 4).  The JAX scheduler's native prescreen
+and native choose (item 23) are not ported either.  The score's lease
+and window terms read zero without them, so the score is the JAX key on
+nodes with no window labels.
 """
 
 from __future__ import annotations
@@ -44,7 +53,9 @@ from nos_tpu_torch.kube.client import APIServer, KIND_POD, NotFound
 from nos_tpu_torch.kube.objects import PENDING, RUNNING, Pod
 from nos_tpu_torch.kube.resources import pod_request, sum_resources
 from nos_tpu_torch.obs import journal as J
+from nos_tpu_torch.obs import ledger as L
 from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES
+from nos_tpu_torch.obs.ledger import get_ledger, pod_chip_equiv
 from nos_tpu_torch.obs.trace import bump as obs_bump, span as obs_span
 from nos_tpu_torch.scheduler.cache import SchedulerCache
 from nos_tpu_torch.scheduler.capacityscheduling import (
@@ -89,6 +100,47 @@ DISPLACED_AGE_CAP_S = 300.0
 # every this many cycles the incremental view is dropped and rebuilt
 # whole, the backstop behind the watch-dirty set
 FULL_RESCAN_EVERY = 512
+
+
+def attribute_free_chips(
+        free: float, hold: dict | None, reserved: bool, demand: bool,
+        rejected: bool, quota_budget: float, gang_budget: float,
+) -> tuple[str, float, float, float]:
+    """Book one node's ``free`` GPUs to exactly one waterfall category:
+    the holds first (quarantine, actuation, drain, provisioning), then a
+    gang window's reservation (``reserved``; the port has no window
+    lease, ROADMAP item 7.2, so the scheduler passes False), then this
+    cycle's verdicts, the quota and gang budgets consumed in node order.
+    Returns (category, GPUs taken, quota budget left, gang budget left);
+    the caller books ``free - taken`` as idle_no_demand."""
+    take = free
+    if hold is not None and L.QUARANTINE in hold:
+        cat = L.QUARANTINE
+    elif hold is not None and L.ACTUATION in hold:
+        cat = L.ACTUATION
+    elif hold is not None and L.DRAIN in hold:
+        cat = L.DRAIN
+    elif hold is not None and L.PROVISIONING in hold:
+        cat = L.PROVISIONING
+    elif reserved:
+        cat = L.GANG_WAIT
+    elif not demand:
+        cat = L.IDLE_NO_DEMAND
+    elif rejected:
+        cat = L.FRAG_STRANDED
+    elif quota_budget > 0.0:
+        # demand the quota gates rejected before any node was screened:
+        # the GPUs it could use, capped at the demand itself
+        cat = L.QUOTA_STRANDED
+        take = min(free, quota_budget)
+        quota_budget -= take
+    elif gang_budget > 0.0:
+        cat = L.GANG_WAIT
+        take = min(free, gang_budget)
+        gang_budget -= take
+    else:
+        cat = L.IDLE_NO_DEMAND
+    return cat, take, quota_budget, gang_budget
 
 
 @invalidated_by("_invalidate_scans", "_cycle_lister_cache")
@@ -138,6 +190,31 @@ class Scheduler:
         # True while run_cycle drives the entry points: the snapshot is
         # shared by the cycle's pods
         self._in_cycle = False
+        # -- the waste waterfall's inputs, reset every cycle
+        # (``_observe_waste``).  The rejection maps of this cycle's
+        # no-fit verdicts, deduplicated by identity: they are the class
+        # scan cache's own dicts, so the same objects recur on clean
+        # incremental cycles, which the skeleton memo keys on.
+        self._waste_rejection_maps: list[dict[str, str]] = []
+        # (key, rejection maps, per-pool template) of the last waterfall,
+        # valid while the view epoch, holds, budgets and maps stand still
+        self._waste_skel: tuple | None = None
+        # pending class -> the nodes it was rejected on (the frag
+        # culprit's evidence), and its frag-blocked GPU demand
+        self._waste_frag_counts: dict[str, int] = {}
+        self._waste_frag_gpus: dict[str, float] = {}
+        # pending class -> GPU-seconds it has stayed frag-blocked, kept
+        # across cycles: several classes stranding one pool are ranked
+        # by it, not by whose rejection is newest
+        self._frag_class_gpu_seconds: dict[str, float] = {}
+        self._last_waste_t: float | None = None
+        # pending class -> GPU demand the quota gates blocked; the sum
+        # caps quota_stranded
+        self._waste_quota_blocked: dict[str, float] = {}
+        # stuck gang -> its members' GPU demand; the sum caps gang_wait
+        self._waste_pending_gangs: dict[str, float] = {}
+        # stranding class or stuck gang -> its displacement cause
+        self._waste_displaced: dict[str, str] = {}
 
     def close(self) -> None:
         """Detach the cache's watches (a replaced scheduler on a
@@ -215,6 +292,7 @@ class Scheduler:
                 return None
             if status.reason == "quota":
                 self._record_quota_hol(pod)
+                self._note_quota_blocked(pod)
             # a quota rejection is resolved by evicting over-quota
             # borrowers (reference capacity_scheduling.go:323-341)
             if status.code == UNSCHEDULABLE:
@@ -250,6 +328,7 @@ class Scheduler:
                 return placed
             if scan[2] is None:
                 scan[2] = self._node_reason_attrs(rejections)
+            self._note_no_fit(pod, rejections)
             self._mark_unschedulable(pod, Status.unschedulable("no fit"),
                                      node_attrs=scan[2])
             return None
@@ -358,6 +437,12 @@ class Scheduler:
         self._preempt_budget = self._preempt_budget_per_cycle
         self._quota_hol = {}
         self._begin_cycle_view()
+        self._waste_rejection_maps = []
+        self._waste_frag_counts = {}
+        self._waste_frag_gpus = {}
+        self._waste_quota_blocked = {}
+        self._waste_pending_gangs = {}
+        self._waste_displaced = {}
         now = self._clock()
         pods.sort(key=lambda p: (admission_rank(p, now,
                                                 self._displaced_age_cap_s),
@@ -383,7 +468,10 @@ class Scheduler:
             if key not in seen_gangs:
                 seen_gangs.add(key)
                 bound += self.schedule_gang(gangs[key])
-        self._publish_pending_gauges()
+        pending_counts = self._publish_pending_gauges()
+        # before the cycle's view drops: the waterfall reads the view
+        # after this cycle's binds and this cycle's verdicts
+        self._observe_waste(pending_counts)
         return bound
 
     # -- quota head-of-line -------------------------------------------------
@@ -429,6 +517,7 @@ class Scheduler:
             # the serving tier never queues behind a claim: one lacking
             # headroom is rejected by PreFilter itself
             return False
+        self._note_quota_blocked(pod)
         self._mark_unschedulable(pod, Status.unschedulable(
             f"waiting behind a higher-priority quota claim in namespace "
             f"{pod.metadata.namespace}", reason="quota-hol"))
@@ -475,6 +564,7 @@ class Scheduler:
                 filter_fn=lambda p: p.status.phase in (PENDING, RUNNING)))
             if alive < min_member:
                 msg = f"pod group waiting for members ({alive}/{min_member})"
+                self._note_stuck_gang(members)
                 self._gang_journal(members, False, msg)
                 for pod in members:
                     self._mark_unschedulable(pod, Status.unschedulable(msg))
@@ -533,6 +623,7 @@ class Scheduler:
         msg = "gang does not fit as a whole"
         if preempted:
             msg += " (evicted over-quota victims, retrying)"
+        self._note_stuck_gang(members)
         self._gang_journal(members, False, msg)
         for pod in members:
             self._mark_unschedulable(pod, Status.unschedulable(msg))
@@ -801,10 +892,11 @@ class Scheduler:
                  latency_s=round(latency, 3), members_total=len(pods),
                  **{"class": workload_class(first)})
 
-    def _publish_pending_gauges(self) -> None:
+    def _publish_pending_gauges(self) -> dict[str, int]:
         """Per class: the pods still pending after the cycle and the
         oldest one's age.  A class the registry has a series for and no
-        pending pod reads 0."""
+        pending pod reads 0.  Returns the pending count per class, the
+        waterfall's is-there-demand signal."""
         now = self._clock()
         count: dict[str, int] = {}
         oldest: dict[str, float] = {}
@@ -830,6 +922,200 @@ class Scheduler:
                          labels={"class": cls})
             REGISTRY.set("nos_tpu_schedule_pending_age_seconds",
                          oldest.get(cls, 0.0), labels={"class": cls})
+        return count
+
+    # -- the chip-second waste waterfall (obs/ledger.py) --------------------
+    def _gpu_demand(self, pod: Pod) -> float:
+        """The GPUs ``pod`` would hold (``pod_chip_equiv``; a MIG
+        instance lies on one GPU, so one GPU caps it)."""
+        return pod_chip_equiv(pod_request(pod), 1.0,
+                              float(self._capacity.calculator.gb_per_gpu))
+
+    def _note_quota_blocked(self, pod: Pod) -> None:
+        """The quota gates rejected ``pod`` (PreFilter or the head-of-line
+        rule): free GPUs its class could use read quota_stranded, up to
+        its demand."""
+        cls = workload_class(pod)
+        self._waste_quota_blocked[cls] = max(
+            self._waste_quota_blocked.get(cls, 0.0), self._gpu_demand(pod))
+
+    def _note_no_fit(self, pod: Pod, rejections: dict[str, str]) -> None:
+        """Filter rejected ``pod`` on every node: those verdicts are the
+        frag_stranded derivation (a node every pending class was
+        rejected on holds GPUs no pending demand can use).  Class-mates
+        hand in the same cached dict, so a class is noted once."""
+        maps = self._waste_rejection_maps
+        if not any(m is rejections for m in maps):
+            maps.append(rejections)
+        cls = workload_class(pod)
+        disp = displacement(pod)
+        if disp is not None:
+            # a displaced victim stranding capacity: the evidence names
+            # its cause
+            self._waste_displaced.setdefault(cls, disp[0])
+        self._waste_frag_counts[cls] = max(
+            self._waste_frag_counts.get(cls, 0), len(rejections))
+        self._waste_frag_gpus[cls] = max(
+            self._waste_frag_gpus.get(cls, 0.0), self._gpu_demand(pod))
+
+    def _note_stuck_gang(self, members: list[Pod]) -> None:
+        """A gang that failed admission this cycle, with its members'
+        GPU demand: the cap on its gang_wait."""
+        first = members[0]
+        key = f"{first.metadata.namespace}/{gang_name(first)}"
+        gpus = sum(self._gpu_demand(m) for m in members)
+        self._waste_pending_gangs[key] = max(
+            self._waste_pending_gangs.get(key, 0.0), gpus)
+        disp = next((d for d in (displacement(m) for m in members)
+                     if d is not None), None)
+        if disp is not None:
+            self._waste_displaced.setdefault(key, disp[0])
+
+    def _waste_evidence(self) -> tuple[dict | None, dict | None,
+                                       dict | None]:
+        """(frag, quota, gang) evidence of this cycle.  The frag culprit
+        is the class with the most frag-blocked GPU-seconds so far
+        (each class's demand accrues over the interval since the last
+        cycle), then the most rejections, then its name."""
+        now = self._clock()
+        dt = (max(0.0, now - self._last_waste_t)
+              if self._last_waste_t is not None else 0.0)
+        self._last_waste_t = now
+        for cls, gpus in self._waste_frag_gpus.items():
+            self._frag_class_gpu_seconds[cls] = \
+                self._frag_class_gpu_seconds.get(cls, 0.0) + gpus * dt
+        frag_ev: dict | None = None
+        if self._waste_frag_counts:
+            ranked = sorted(
+                self._waste_frag_counts,
+                key=lambda c: (-self._frag_class_gpu_seconds.get(c, 0.0),
+                               -self._waste_frag_counts[c], c))
+            top = ranked[0]
+            frag_ev = {
+                "class": top,
+                "rejected_nodes": self._waste_frag_counts[top],
+                "classes": [
+                    {"class": c,
+                     "stranded_chip_seconds": round(
+                         self._frag_class_gpu_seconds.get(c, 0.0), 1),
+                     "blocked_chips": round(
+                         self._waste_frag_gpus.get(c, 0.0), 2)}
+                    for c in ranked[:3]],
+            }
+            if top in self._waste_displaced:
+                frag_ev["displaced_cause"] = self._waste_displaced[top]
+        quota_ev: dict | None = None
+        if self._waste_quota_blocked:
+            top_q = max(self._waste_quota_blocked.items(),
+                        key=lambda kv: kv[1])
+            quota_ev = {"class": top_q[0],
+                        "blocked_chips": round(top_q[1], 2)}
+        gang_ev: dict | None = None
+        if self._waste_pending_gangs:
+            top_g = max(self._waste_pending_gangs.items(),
+                        key=lambda kv: kv[1])
+            gang_ev = {"gang": top_g[0]}
+            cause = self._waste_displaced.get(top_g[0])
+            if cause is not None:
+                gang_ev["displaced_cause"] = cause
+        return frag_ev, quota_ev, gang_ev
+
+    def _observe_waste(self, pending_by_class: dict[str, int]) -> None:
+        """Cycle end: book every GPU of the cycle's view to one category
+        and hand the per-pool waterfall to the ledger.  A node's held
+        GPUs are productive; its free GPUs go by ``attribute_free_chips``
+        (the holds, then this cycle's verdicts, the quota and gang
+        budgets each capped at the blocked demand's own size).  Each GPU
+        lands in exactly one bucket, so the waterfall conserves.
+
+        The per-node loop is a pure function of the view, the holds, the
+        demand flag, the budgets and the rejection maps.  While the view
+        epoch and the rest stand still (the maps by identity), the last
+        per-pool template is replayed with only the evidence
+        re-resolved, whose frag integral accrues every cycle."""
+        ledger = get_ledger()
+        lister = self._cycle_lister()
+        holds = ledger.holds()
+        demand = bool(pending_by_class) or bool(self._waste_pending_gangs)
+        quota_budget = sum(self._waste_quota_blocked.values())
+        gang_budget = sum(self._waste_pending_gangs.values())
+        frag_ev, quota_ev, gang_ev = self._waste_evidence()
+        shared = {L.GANG_WAIT: gang_ev, L.FRAG_STRANDED: frag_ev,
+                  L.QUOTA_STRANDED: quota_ev}
+
+        rej_maps = tuple(self._waste_rejection_maps)
+        skel_key = None
+        if lister is self._cycle_lister_cache:
+            skel_key = (self._cache.view_epoch(), demand, quota_budget,
+                        gang_budget, holds)
+            prev = self._waste_skel
+            if prev is not None and prev[0] == skel_key \
+                    and len(prev[1]) == len(rej_maps) \
+                    and all(a is b for a, b in zip(prev[1], rej_maps)):
+                replay: dict[str, dict[str, object]] = {}
+                for pool, (pcap, pcats, evcats) in prev[2].items():
+                    evidence = {}
+                    for cat, src in evcats.items():
+                        live = shared[cat] if src is None else src
+                        if live:
+                            evidence[cat] = dict(live)
+                    replay[pool] = {"capacity": pcap,
+                                    "categories": dict(pcats),
+                                    "evidence": evidence}
+                ledger.observe(replay)
+                return
+
+        gb_per_gpu = float(self._capacity.calculator.gb_per_gpu)
+        pools: dict[str, dict[str, Any]] = {}
+        for ni in lister.list():
+            labels = ni.node.metadata.labels
+            if C.is_warm_spare_labels(labels):
+                # a warm spare is reserve, not capacity, until promoted
+                continue
+            try:
+                cap = float(labels.get(C.LABEL_GPU_COUNT, "0") or 0.0)
+            except ValueError:
+                cap = 0.0
+            if cap <= 0.0:
+                continue        # no GPU count: outside the ledger
+            pool = labels.get(C.LABEL_NVLINK_DOMAIN, "") or "-"
+            entry = pools.setdefault(
+                pool, {"capacity": 0.0, "categories": {}, "evidence": {}})
+            entry["capacity"] += cap
+            cats = entry["categories"]
+            used = min(cap, pod_chip_equiv(ni.requested, cap, gb_per_gpu))
+            free = cap - used
+            if used > 0.0:
+                cats[L.PRODUCTIVE] = cats.get(L.PRODUCTIVE, 0.0) + used
+            if free <= 0.0:
+                continue
+            name = ni.name
+            hold = holds.get(name)
+            cat, take, quota_budget, gang_budget = attribute_free_chips(
+                free, hold, False, demand,
+                any(name in m for m in rej_maps), quota_budget,
+                gang_budget)
+            if cat in L.HOLD_PRECEDENCE:
+                evidence = {"node": name, **(hold or {})[cat]}
+            else:
+                evidence = shared.get(cat)
+            cats[cat] = cats.get(cat, 0.0) + take
+            if take < free:
+                cats[L.IDLE_NO_DEMAND] = \
+                    cats.get(L.IDLE_NO_DEMAND, 0.0) + (free - take)
+            if evidence:
+                entry["evidence"].setdefault(cat, dict(evidence))
+        if skel_key is not None:
+            # the shared evidence symbolically (None: re-resolved at
+            # replay), a hold's evidence as it is
+            self._waste_skel = (skel_key, rej_maps, {
+                pool: (entry["capacity"], dict(entry["categories"]),
+                       {cat: None if cat in shared else dict(ev)
+                        for cat, ev in entry["evidence"].items()})
+                for pool, entry in pools.items()})
+        else:
+            self._waste_skel = None
+        ledger.observe(pools)
 
     def _bind(self, pod: Pod, node_name: str) -> bool:
         """Bind only: Running is the node agent's claim.  False when the
@@ -899,4 +1185,4 @@ class Scheduler:
 
 
 __all__ = ["DISPLACED_AGE_CAP_S", "FULL_RESCAN_EVERY",
-           "PREEMPT_BUDGET_PER_CYCLE", "Scheduler"]
+           "PREEMPT_BUDGET_PER_CYCLE", "Scheduler", "attribute_free_chips"]

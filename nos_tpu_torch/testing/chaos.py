@@ -26,7 +26,7 @@ stay exact, so a test's assertions see the true state.  It subclasses
 kubelet's admission) walks through its gates.  The JAX substrate's
 injected latency and its per-kind fault filter have no caller in the
 port and are left out; the chaotic cloud API of the capacity plane
-comes with ``capacity/`` (ROADMAP item 9).
+comes with ``capacity/`` (ROADMAP item 9 part 2).
 """
 
 from __future__ import annotations

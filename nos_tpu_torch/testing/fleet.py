@@ -50,7 +50,11 @@ members) and two 4x4 (2 members), train-b three 4x4, res-b one 4x4;
 besides, train-b's "train-b-wait", whose PodGroup wants three members
 and gets two (it waits), and train-a's "train-a-mesh" of four members
 with mesh 8x16 (128 GPUs: only nvl-0 holds it).  Nothing of the quota
-fleet is cut further; ``run_quota_fleet`` runs it too.
+fleet is cut further; ``run_quota_fleet`` runs it too.  Both run under a
+chip-second waste ledger of their own (``obs/ledger.py``) whose clock
+moves QUOTA_FLEET_CYCLE_S a cycle, the scheduler's standing still at the
+spec's ``now``; ``waste_summary`` reduces its report to what both
+packages must agree on.
 
 The recovery fleet (``recovery_fleet_spec``, ``run_recovery_fleet``) is
 ``bench_nodeloss.py``'s trace on the gang fleet's layout through the MPS
@@ -60,7 +64,12 @@ classes (2-member gangs and single pods of an 80gb share, small pods of
 a 40gb one) keep ~92% of the GPUs in flight; three kills alternate the
 domains, a wedged agent in nvl-0 dies later, and a fresh spare joins a
 domain 30 s after each kill.  The bench's 300 s on a 0.25 s tick are
-cut to 150 s on a 1 s tick, its waste ledger left out (ROADMAP item 9).
+cut to 150 s on a 1 s tick.  As in the bench, the run keeps a waste
+ledger on its clock, and ``run_recovery_fleet`` runs the same kill
+schedule again with every recovery step off (no spare, no suspicion, no
+displaced stamp): the recovery run must lose at most
+RECOVERY_LOST_HALVING of the baseline's GPU-seconds (the non-spare
+nodes' GPUs short of the fleet's, integrated past RECOVERY_WARMUP_S).
 
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
@@ -79,6 +88,8 @@ import numpy as np
 
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.kube.objects import Pod
+from nos_tpu_torch.obs import scoped as obs_scoped
+from nos_tpu_torch.obs.ledger import ChipSecondLedger, check_conservation
 from nos_tpu_torch.partitioning.core import SliceTracker
 from nos_tpu_torch.partitioning.core.interfaces import SliceCalculator
 from nos_tpu_torch.partitioning.state import ClusterState
@@ -264,6 +275,8 @@ RESEARCH_MIX = (("res-a", 40, 3), ("res-a", 80, 2), ("res-b", 40, 2))
 # the scheduler's clock in the fleet's runs: after every creation time
 QUOTA_FLEET_NOW = 7200.0
 QUOTA_FLEET_MAX_CYCLES = 64
+# the waste ledger's seconds per fleet cycle
+QUOTA_FLEET_CYCLE_S = 1.0
 
 # (NVLink domain, nodes) from node 0 on; the rest are unlabelled
 GANG_FLEET_DOMAINS = (("nvl-0", 16), ("nvl-1", 12))
@@ -363,11 +376,21 @@ def gang_fleet_spec(seed: int = 0) -> dict:
     return spec
 
 
+def waste_summary(report: dict) -> dict:
+    """A waste report as both packages must agree on it: per pool its
+    capacity and its GPU-seconds per category, rounded to 1e-6."""
+    return {pool: {"capacity": p["capacity_chips"],
+                   "seconds": {c: round(v, 6) for c, v
+                               in sorted(p["chip_seconds"].items())}}
+            for pool, p in sorted(report["pools"].items())}
+
+
 def drive_quota_fleet(spec: dict, create, cycle, admit, reconcile, pods,
-                      quotas, groups=None) -> dict:
+                      quotas, groups=None, ledger_now=None) -> dict:
     """Submit each wave (``create(pod spec)``) and run ``cycle()``, then
     ``admit()`` (the kubelet) and ``reconcile()``, until a cycle binds
-    and evicts nothing.  ``pods()`` gives (name, node, capacity label,
+    and evicts nothing; ``ledger_now`` (a one-element list, the waste
+    ledger's clock) moves QUOTA_FLEET_CYCLE_S before each cycle.  ``pods()`` gives (name, node, capacity label,
     phase) rows, ``quotas()`` each quota's status.used, ``groups()``,
     when given, each PodGroup's [phase, scheduled] by "namespace/name".
     Returns the summary both packages must agree on ({"cycles": [wave,
@@ -382,6 +405,8 @@ def drive_quota_fleet(spec: dict, create, cycle, admit, reconcile, pods,
             if len(cycles) >= QUOTA_FLEET_MAX_CYCLES:
                 raise RuntimeError("the quota fleet did not settle in "
                                    f"{QUOTA_FLEET_MAX_CYCLES} cycles")
+            if ledger_now is not None:
+                ledger_now[0] += QUOTA_FLEET_CYCLE_S
             t0 = time.perf_counter()
             cycle()
             cycle_ms.append((time.perf_counter() - t0) * 1e3)
@@ -412,7 +437,9 @@ def run_quota_fleet(spec: dict) -> dict:
     """``drive_quota_fleet`` on the port: an API server with the quota
     webhooks, ``build_scheduler`` (its clock the spec's ``now``, else
     QUOTA_FLEET_NOW), both reconcilers, the spec's PodGroups created
-    first and its nodes in their NVLink domains (the gang fleet's).
+    first and its nodes in their NVLink domains (the gang fleet's), under
+    a waste ledger of the run's own (``waste``, its report; a report that
+    does not conserve raises).
     Adds the binds, the preemptions, the victims by their capacity label
     when chosen, and per quota the GB its bound pods hold against its
     status.used and max; from a journal of the run's own, the gangs
@@ -554,13 +581,14 @@ def run_quota_fleet(spec: dict) -> dict:
 
     sched.schedule_gang = timed
     journal = J.DecisionJournal(maxlen=1 << 16)
-    prev = J.set_journal(journal)
-    try:
+    ledger_now = [0.0]
+    ledger = ChipSecondLedger(clock=lambda: ledger_now[0])
+    with obs_scoped(journal=journal, ledger=ledger):
         out = drive_quota_fleet(spec, create, sched.run_cycle, admit,
                                 reconcile, pods, quotas,
-                                groups if "groups" in spec else None)
-    finally:
-        J.set_journal(prev)
+                                groups if "groups" in spec else None,
+                                ledger_now=ledger_now)
+    out["waste"] = check_conservation(ledger.report(), "the quota fleet")
     held = {}
     for q in spec["quotas"]:
         held[q["name"]] = sum(
@@ -612,6 +640,11 @@ RECOVERY_GRACE_S = 3.0
 RECOVERY_BATCH_IDLE_S = 0.5
 RECOVERY_BATCH_TIMEOUT_S = 2.0
 RECOVERY_NAMESPACE = "work"
+# bench_nodeloss.py's gate: the lost GPU-seconds (non-spare GPUs short of
+# the fleet's, integrated after the warm-up) of the recovery run at most
+# this share of the baseline's on the same kill schedule
+RECOVERY_WARMUP_S = 40.0
+RECOVERY_LOST_HALVING = 0.50
 # class -> (share GB, members, priority), a slice host mapped to an 80gb
 # share and a 2x2 to a 40gb one, as the fleets map them
 RECOVERY_CLASSES = {"gang": (80, 2, 5), "slice": (80, 1, 0),
@@ -655,8 +688,11 @@ class _RecoveryTrace:
     one package's loop; the trace decides only from what ``ops`` shows,
     so two packages that decide alike run the same trace."""
 
-    def __init__(self, spec: dict, ops) -> None:
+    def __init__(self, spec: dict, ops, recovery: bool = True) -> None:
         self.ops = ops
+        # off: the baseline, whose workload controller recreates lost
+        # pods with no displaced stamp
+        self.recovery = recovery
         self.rng = np.random.default_rng(spec["seed"])
         self.jobs: dict[str, dict] = {}
         self.pod_job: dict[str, dict] = {}
@@ -672,6 +708,10 @@ class _RecoveryTrace:
         self.spare_seq = {d: 0 for d, _ in GANG_FLEET_DOMAINS}
         self.ticks: list[list] = []
         self.poll_ms: list[float] = []
+        # the slowest poll: (ms, trace time, journal categories it wrote)
+        self.slowest_poll: tuple[float, float, list[str]] = (-1.0, 0.0, [])
+        self.active_gpus = len(spec["nodes"]) * GPUS_PER_NODE
+        self.lost_gpu_seconds = 0.0
         self.prev: dict[str, str] = {}
         for n in spec["nodes"] + spec["spares"]:
             ops.add_node(n)
@@ -811,8 +851,9 @@ class _RecoveryTrace:
                         self.affected.add(job["name"])
                         self.episodes += 1
                         self.displaced_at[job["name"]] = self.now()
-                    stamp = displaced_value(
-                        cause, self.displaced_at[job["name"]])
+                    if self.recovery:
+                        stamp = displaced_value(
+                            cause, self.displaced_at[job["name"]])
                 self.pod_node.pop(pod, None)
                 self.create(job, pod, stamp)
 
@@ -843,12 +884,24 @@ class _RecoveryTrace:
             self.spawn()
         self.ops.cycle()
         self.requeue()
+        seen = len(self.ops.journal)
         t0 = time.perf_counter()
         self.ops.poll()
-        self.poll_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.poll_ms.append(ms)
+        if ms > self.slowest_poll[0]:
+            wrote = self.ops.journal.events()[seen:] \
+                if len(self.ops.journal) > seen else []
+            self.slowest_poll = (ms, self.now(),
+                                 sorted({r.category for r in wrote}))
         self.ops.tick(sorted(n for n in self.ops.agents()
                              if n not in self.wedged))
         self.record_binds()
+        if self.now() >= RECOVERY_WARMUP_S:
+            live = GPUS_PER_NODE * sum(
+                not spare for _, _, spare in self.ops.nodes().values())
+            self.lost_gpu_seconds += max(0, self.active_gpus - live) \
+                * RECOVERY_TICK_S
 
     def run(self) -> dict:
         refills: list[tuple[float, str]] = []
@@ -891,10 +944,15 @@ class _RecoveryTrace:
             "never_rebound": len(self.affected),
             "rebind_p50_s": _percentile(self.rebind_s, 0.5),
             "rebind_p90_s": _percentile(self.rebind_s, 0.9),
+            "lost_gpu_seconds": self.lost_gpu_seconds,
+            "poll_max_ms": max(self.poll_ms),
+            "poll_p99_ms": _percentile(self.poll_ms, 0.99),
+            "poll_max_at_s": self.slowest_poll[1],
+            "poll_max_records": self.slowest_poll[2],
         }
 
 
-def drive_recovery_fleet(spec: dict, ops) -> dict:
+def drive_recovery_fleet(spec: dict, ops, recovery: bool = True) -> dict:
     """The recovery fleet's trace over one package's loop.  ``ops`` gives
     ``now`` (a one-element list, the loop's clock), ``add_node(n)`` (a
     node and its agent), ``kill(name)`` (its agent stopped, its pods and
@@ -904,10 +962,12 @@ def drive_recovery_fleet(spec: dict, ops) -> dict:
     ``agents()``, ``tick(names)``, ``pods()`` ((name, node, phase)
     rows), ``nodes()`` (name -> (domain, host index label, spare)),
     ``records()`` (the RECOVERY_RECORDS as (category, subject, attrs),
-    in the port's names) and ``drain_migrations()`` (the straggler
-    evictions).  Returns the summary both packages must agree on and the
-    run's figures."""
-    return _RecoveryTrace(spec, ops).run()
+    in the port's names), ``drain_migrations()`` (the straggler
+    evictions) and ``journal`` (the run's).  ``recovery`` False is the
+    baseline's trace (lost pods recreated with no displaced stamp), for
+    ops built with every recovery knob at 0.  Returns the summary both
+    packages must agree on and the run's figures."""
+    return _RecoveryTrace(spec, ops, recovery).run()
 
 
 class PortRecoveryOps:
@@ -1033,17 +1093,40 @@ class PortRecoveryOps:
             - self.drain0
 
 
-def run_recovery_fleet(spec: dict) -> dict:
-    """``drive_recovery_fleet`` on the port, with a journal of its own."""
-    from nos_tpu_torch.obs import journal as J
-
-    ops = PortRecoveryOps()
-    prev = J.set_journal(ops.journal)
+def _recovery_run(spec: dict, recovery: bool) -> dict:
+    """One ``drive_recovery_fleet`` on the port, under a journal and a
+    waste ledger of its own on the run's clock (``waste``, the ledger's
+    report; one that does not conserve raises)."""
+    ops = PortRecoveryOps(recovery)
+    ledger = ChipSecondLedger(clock=lambda: ops.now[0])
     try:
-        out = drive_recovery_fleet(spec, ops)
+        with obs_scoped(journal=ops.journal, ledger=ledger):
+            out = drive_recovery_fleet(spec, ops, recovery)
     finally:
-        J.set_journal(prev)
         ops.sched.close()
+    out["waste"] = check_conservation(
+        ledger.report(), "the recovery fleet" if recovery
+        else "the recovery fleet's baseline")
+    return out
+
+
+def run_recovery_fleet(spec: dict) -> dict:
+    """The recovery fleet on the port, then its baseline (``baseline``:
+    the same kill schedule with every recovery step off), each under a
+    journal and a waste ledger of its own.  ``lost_ratio`` is the
+    recovery run's lost GPU-seconds over the baseline's; over
+    RECOVERY_LOST_HALVING raises, as bench_nodeloss.py's gate fails."""
+    out = _recovery_run(spec, True)
+    base = _recovery_run(spec, False)
+    out["baseline"] = {k: base[k] for k in (
+        "lost_gpu_seconds", "never_rebound", "displaced_episodes",
+        "promotions", "suspicions", "waste")}
+    lost, base_lost = out["lost_gpu_seconds"], base["lost_gpu_seconds"]
+    out["lost_ratio"] = lost / base_lost if base_lost > 0 else None
+    if base_lost > 0 and lost > RECOVERY_LOST_HALVING * base_lost:
+        raise RuntimeError(
+            f"the recovery fleet lost {lost} GPU-seconds, over "
+            f"{RECOVERY_LOST_HALVING} x the baseline's {base_lost}")
     return out
 
 

@@ -133,3 +133,14 @@ def workload_class(pod: Pod) -> str:
 
 def is_over_quota(pod: Pod) -> bool:
     return pod.metadata.labels.get(C.LABEL_CAPACITY) == C.CAPACITY_OVER_QUOTA
+
+
+def class_tier(cls: str) -> str:
+    """The tier of a ``workload_class`` value (the scoreboard folds the
+    per-class series into per-tier rows): ``serving``, ``be-*``
+    best-effort, the rest batch."""
+    if cls == "serving":
+        return C.TIER_SERVING
+    if cls.startswith("be-"):
+        return C.TIER_BEST_EFFORT
+    return C.TIER_BATCH

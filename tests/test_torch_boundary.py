@@ -47,7 +47,8 @@ def _port_files():
         ROOT / "scripts" / "profile_torch_train.py",
         ROOT / "scripts" / "profile_torch_moe.py",
         ROOT / "scripts" / "ab_flash_kernel.py",
-        ROOT / "scripts" / "sweep_flash_torch.py"]
+        ROOT / "scripts" / "sweep_flash_torch.py",
+        ROOT / "scripts" / "time_waste_waterfall.py"]
 
 
 _IMPORT_ALL = """
@@ -116,7 +117,8 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "cmd.scheduler", "cmd.operator", "cmd.chipagent",
                    "cmd.sliceagent", "cmd.metricsexporter",
                    "kube.leaderelection", "kube.webhook", "exporter",
-                   "testing.lockcheck"):
+                   "testing.lockcheck", "obs.ledger", "obs.timeseries",
+                   "obs.slo", "obs.explain", "obs.__main__"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]

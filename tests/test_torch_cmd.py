@@ -246,6 +246,8 @@ class TestConfigParity:
 
 # One case per ROADMAP item whose plane the port lacks: the knob away from
 # JAX's default loads on JAX and is refused by the port naming the item.
+# An item of None is a plane the port has now (the SLO engine): the knob
+# away from the default loads on both, to JAX's value.
 REFUSED = [
     ("PartitionerConfig", "defrag_enabled: true\n", "6"),
     ("PartitionerConfig", "defrag_interval_s: 30\n", "6"),
@@ -253,8 +255,8 @@ REFUSED = [
     ("SchedulerConfig", "shard_chips_per_host: 8\n", "7.2"),
     ("OperatorConfig", "shard_chips_per_host: 8\n", "7.2"),
     ("SchedulerConfig", "elastic_grow_budget_per_cycle: 2\n", "4"),
-    ("PartitionerConfig", "slo_interval_s: 2.5\n", "9 part 1"),
-    ("SchedulerConfig", "slo_interval_s: 0.5\n", "9 part 1"),
+    ("PartitionerConfig", "slo_interval_s: 2.5\n", None),
+    ("SchedulerConfig", "slo_interval_s: 0.5\n", None),
 ]
 
 
@@ -266,7 +268,15 @@ class TestRefusedKnobs:
                                                   item, tmp_path):
         p = tmp_path / "c.yaml"
         p.write_text("apiVersion: nos.tpu/v1beta2\n" + text)
-        jconfig.load_config(p, getattr(jconfig, cls_name))
+        want = jconfig.load_config(p, getattr(jconfig, cls_name))
+        if item is None:
+            got = pconfig.load_config(p, getattr(pconfig, cls_name))
+            knob = text.split(":")[0]
+            assert getattr(got, knob) == getattr(want, knob) \
+                == float(text.split(":")[1])
+            assert not any("slo" in line
+                           for line in pconfig.missing_planes(got))
+            return
         with pytest.raises(pconfig.ConfigError,
                            match=f"ROADMAP item {item}"):
             pconfig.load_config(p, getattr(pconfig, cls_name))
@@ -301,11 +311,11 @@ class TestRefusedKnobs:
             if main == "partitioner":
                 assembly.build_partitioner_main(
                     api, ClusterState(), pconfig.PartitionerConfig())
-                want = ["ROADMAP item 6", "ROADMAP item 9 part 1"]
+                want = ["ROADMAP item 6"]
             elif main == "scheduler":
                 scheduler.build_scheduler_main(api, pconfig.SchedulerConfig())
                 want = ["ROADMAP item 7.2", "ROADMAP item 7.2",
-                        "ROADMAP item 4", "ROADMAP item 9 part 1"]
+                        "ROADMAP item 4"]
             else:
                 operator.build_operator_main(api, pconfig.OperatorConfig())
                 want = ["ROADMAP item 7.2"]
@@ -909,23 +919,39 @@ class TestExporter:
         assert "slo" not in payload
 
     def test_a_ports_snapshot_answers_501_and_the_exporter_exits_1(
-            self, caplog):
+            self, tmp_path, monkeypatch):
+        """A port main's live /snapshot: the exporter exits 0 and its
+        payload carries the cluster, the source's series and its waste
+        report (before the ledger the main answered 501 and the exporter
+        exited 1; the name keeps that history)."""
         from nos_tpu_torch.cmd import metricsexporter
         from nos_tpu_torch.cmd._runtime import Main
-        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.kube.client import APIServer, KIND_NODE
+        from nos_tpu_torch.obs import ledger as pledger
+        from nos_tpu_torch.testing.factory import make_gpu_node
 
-        main = Main("t", health_addr="127.0.0.1:0", api=APIServer())
+        ledger = pledger.ChipSecondLedger(clock=lambda: 5.0)
+        ledger.observe({"nvl-0": {"capacity": 1.0,
+                                  "categories": {"productive": 0.6}}})
+        monkeypatch.setattr(pledger, "_ledger", ledger)
+        api = APIServer()
+        api.create(KIND_NODE, make_gpu_node("n-0", gpus=1))
+        main = Main("t", health_addr="127.0.0.1:0", api=api)
         main.start()
+        out = tmp_path / "payload.json"
         try:
-            with caplog.at_level(logging.ERROR):
-                rc = metricsexporter.main(
-                    ["--source", f"http://{main.health_address}"])
+            rc = metricsexporter.main(
+                ["--source", f"http://{main.health_address}",
+                 "--out", str(out)])
         finally:
             main.shutdown()
-        assert rc == 1
-        assert any("HTTP 501" in r.getMessage()
-                   and "ROADMAP item 9 part 1" in r.getMessage()
-                   for r in caplog.records)
+        assert rc == 0
+        payload = json.loads(out.read_text())
+        assert payload["cluster"]["nodes_total"] == 1
+        assert payload["waste"] == json.loads(json.dumps(ledger.report()))
+        assert payload["waste"]["pools"]["nvl-0"]["capacity_chips"] == 1.0
+        assert "nos_tpu_chip_seconds_total" not in payload["metrics"] \
+            or isinstance(payload["metrics"], dict)
 
     @pytest.mark.parametrize("source,rc", [
         ('{"Lease": [{"metadata": {"name": "l0"}}], "Node": []}', 0),
@@ -1275,8 +1301,12 @@ class TestMainsAsProcesses:
         agent (an explicit model) as processes against the REST stub;
         the two pods bound through one plan, the leader's SIGTERM handed
         over, the third pod planned by the new leader, the pods marked
-        Succeeded, the exporter's exits, every main's exit 0 on SIGTERM;
-        the final objects are MAINS_LOOP_WRITES.  The whole run (the
+        Succeeded, the exporter's exits (0 on the scheduler's /snapshot,
+        where before the waste ledger it answered 501 and the exporter
+        exited 1), the scheduler's waterfall (48/80 productive while the
+        two pods held their shares, conserved), its /debug/slo verdict
+        for the pods' class and ``obs waste`` over it, every main's exit
+        0 on SIGTERM; the final objects are MAINS_LOOP_WRITES.  The whole run (the
         mains included, one process group) is killed at
         MAINS_TIMEOUT_S."""
         import os
@@ -1313,7 +1343,18 @@ class TestMainsAsProcesses:
         assert f["plans"] == 1 and f["new_leader_plans"] == 1
         assert {f["leader"], f["standby"]} == {"partitioner-0",
                                               "partitioner-1"}
-        assert f["exporter"]["exit_codes"] == {"file": 0, "snapshot": 1}
+        assert f["exporter"]["exit_codes"] == {"file": 0, "snapshot": 0}
+        assert f["exporter"]["payload_waste_pools"] == ["-"]
+        both = f["waste_while_both_ran"]
+        assert both["want_share"] == 48 / 80
+        assert abs(both["productive_gpu_seconds"] - 0.6
+                   * both["window_gpu_seconds"]) \
+            <= both["tolerance_gpu_seconds"]
+        assert f["slo_verdict"]["class"] == "ts-24"
+        assert f["obs_waste_rc"] == 0
+        assert "productive" in f["obs_waste_categories"]
+        assert all(abs(d) <= 1e-6
+                   for d in f["waste"]["conservation_delta"].values())
         assert sorted(f["main_exits"]) == sorted(chip_smoke.MAINS)
         assert all(e["rc"] == 0 and e["exit_s"] < 5.0
                    for e in f["main_exits"].values())

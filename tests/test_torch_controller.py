@@ -58,7 +58,7 @@ from nos_tpu_torch.kube.client import (
     APIServer, KIND_CONFIGMAP, KIND_NODE, KIND_POD,
 )
 from nos_tpu_torch.kube.objects import RUNNING
-from nos_tpu_torch.obs import journal as port_journal
+from nos_tpu_torch.obs import journal as port_journal, ledger as port_ledger
 from nos_tpu_torch.partitioning import timeshare as ts
 from nos_tpu_torch.partitioning.core import (
     REASON_ACTUATION, REASON_PLAN_DEADLINE,
@@ -114,6 +114,18 @@ class PlanMask:
         return value
 
 
+def ledger_holds(ledger, mask, kinds: dict) -> dict:
+    """A waste ledger's holds, node -> kind -> detail, with plan ids
+    masked and partitioning kinds renamed by ``kinds``."""
+    def value(v):
+        if isinstance(v, str):
+            return kinds.get(v, mask(v))
+        return v
+    return {node: {kind: {k: value(v) for k, v in detail.items()}
+                   for kind, detail in held.items()}
+            for node, held in ledger.holds().items()}
+
+
 def _counter(name: str, jax: bool) -> float:
     if jax:
         return JAX_REGISTRY.snapshot().get(name, {}).get(
@@ -133,9 +145,11 @@ class Twin:
         self.journal = port_journal.DecisionJournal(clock=clock)
         monkeypatch.setattr(jax_journal, "_journal", self.jax_journal)
         monkeypatch.setattr(port_journal, "_journal", self.journal)
-        # the JAX controller and quarantine stamp holds in the ledger
+        # the controllers and quarantines stamp holds in the ledgers
         monkeypatch.setattr(jax_ledger, "_ledger",
                             jax_ledger.ChipSecondLedger(clock=clock))
+        monkeypatch.setattr(port_ledger, "_ledger",
+                            port_ledger.ChipSecondLedger(clock=clock))
 
         self.japi, self.jstate = JaxAPIServer(), JaxClusterState()
         JaxNodeController(self.japi, self.jstate).bind()
@@ -280,6 +294,9 @@ class Twin:
                            .quarantine.items().items()},
             "counters": {name: _counter(name, jax)
                          - self.counters0[(name, jax)] for name in COUNTERS},
+            "holds": ledger_holds(
+                (jax_ledger if jax else port_ledger).get_ledger(), mask,
+                {kind: C.MPS_KIND}),
             "journal": [
                 (r.category, C.MPS_KIND if r.subject == kind else r.subject,
                  {a: (C.MPS_KIND if v == kind else v)
@@ -593,6 +610,8 @@ class TestSmokeLoop:
 
         monkeypatch.setattr(port_journal, "_journal",
                             port_journal.DecisionJournal())
+        # the loop installs a waste ledger of its own: restored after
+        monkeypatch.setattr(port_ledger, "_ledger", port_ledger.get_ledger())
         device = {"model": "nvidia-h100-80gb-hbm3",
                   "memory_bytes": 85_000_000_000, "uuid": "GPU-0",
                   "uuids": ["GPU-0"]}
@@ -605,6 +624,10 @@ class TestSmokeLoop:
             "NOS_TPU_VISIBLE_CHIPS": "GPU-0", "NOS_TPU_TIMESHARE_GB": "24"}}
             for i in range(3)]
         assert card["actuation_latency_ms"] >= 0
+        # the card's node held as actuation until its status caught up
+        assert card["waste"]["gpu_seconds"]["actuation"] > 0
+        (delta,) = card["waste"]["conservation_delta"].values()
+        assert abs(delta) <= 1e-6
         assert chip_smoke._card_release(loop) == {
             "succeeded": card["running"], "rebound": "train-3",
             "free_used_after_children": ("3", None)}

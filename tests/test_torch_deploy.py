@@ -1,0 +1,229 @@
+"""The port's helm chart, ``deploy/helm/nos-tpu-torch/``, rendered on the
+CPU by the JAX package's renderer (``nos_tpu.testing.helm.render_chart``,
+the template subset ``_helpers.tpl`` states): every manifest parses,
+every rendered config loads through the port's ``api/config.py``, every
+container runs a main under ``nos_tpu_torch/cmd/``, and the CRDs are the
+port's kinds in its API group.  The JAX chart beside it is not touched.
+"""
+
+from __future__ import annotations
+
+import copy
+import pathlib
+
+import pytest
+
+from nos_tpu.testing.helm import default_context, render_chart
+
+from nos_tpu_torch.api import config as pconfig
+from nos_tpu_torch.api.constants import GROUP
+from nos_tpu_torch.kube.k8s_codec import GROUP_VERSION, KIND_REST
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CHART = ROOT / "deploy/helm/nos-tpu-torch"
+MAINS = ("partitioner", "scheduler", "operator", "chipagent", "sliceagent",
+         "metricsexporter")
+# rendered ConfigMap -> the port's config class that loads it
+CONFIGS = {
+    "nos-tpu-torch-partitioner-config": pconfig.PartitionerConfig,
+    "nos-tpu-torch-scheduler-config": pconfig.SchedulerConfig,
+    "nos-tpu-torch-operator-config": pconfig.OperatorConfig,
+    "nos-tpu-torch-chipagent-config": pconfig.AgentConfig,
+    "nos-tpu-torch-sliceagent-config": pconfig.AgentConfig,
+}
+
+
+def context(**values) -> dict:
+    """``helm template``'s context from values.yaml, the chart's own
+    helpers, and ``values`` ("a.b" paths) set over the defaults."""
+    ctx = default_context(CHART)
+    ctx["Chart"]["Name"] = "nos-tpu-torch"
+    ctx["Chart"]["AppVersion"] = "0.1.0"
+    ctx["Release"] = {"Name": "nos-tpu-torch",
+                      "Namespace": ctx["Values"]["namespace"]}
+    ctx["__helpers__"] = {
+        "nos-tpu-torch.tag": "0.1.0",
+        "nos-tpu-torch.labels": ("app.kubernetes.io/part-of: nos-tpu-torch\n"
+                                 "app.kubernetes.io/managed-by: Helm"),
+    }
+    ctx["Values"] = copy.deepcopy(ctx["Values"])
+    for path, value in values.items():
+        cur = ctx["Values"]
+        *head, last = path.split(".")
+        for part in head:
+            cur = cur[part]
+        assert last in cur, path
+        cur[last] = value
+    return ctx
+
+
+def configs(docs: list[dict], tmp_path, validate: bool = True) -> dict:
+    """Each rendered config, loaded through the port's loader (an agent's
+    with the --node the DaemonSet passes)."""
+    out = {}
+    for doc in docs:
+        if doc["kind"] != "ConfigMap":
+            continue
+        name = doc["metadata"]["name"]
+        path = tmp_path / f"{name}.yaml"
+        path.write_text(doc["data"]["config.yaml"])
+        cls = CONFIGS[name]
+        if cls is pconfig.AgentConfig:
+            cfg = pconfig.load_config(path, cls, validate=False)
+            cfg.node_name = "gpu-node-0"
+            if validate:
+                cfg.validate()
+        else:
+            cfg = pconfig.load_config(path, cls, validate=validate)
+        out[name] = cfg
+    return out
+
+
+def containers(docs: list[dict]) -> dict[str, dict]:
+    out = {}
+    for doc in docs:
+        if doc["kind"] in ("Deployment", "DaemonSet", "Job"):
+            for c in doc["spec"]["template"]["spec"]["containers"]:
+                out[doc["metadata"]["name"]] = c
+    return out
+
+
+@pytest.fixture(scope="module")
+def docs():
+    return render_chart(CHART, context(**{"metricsexporter.enabled": True}))
+
+
+class TestRender:
+    def test_every_manifest_parses_with_its_kind(self, docs):
+        kinds = {}
+        for doc in docs:
+            assert doc["apiVersion"] and doc["metadata"]["name"]
+            kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
+        assert kinds["Deployment"] == 3 and kinds["DaemonSet"] == 2
+        assert kinds["ConfigMap"] == 5
+        assert kinds["ValidatingWebhookConfiguration"] == 1
+        assert kinds["Job"] == 3      # the exporter, certgen create/patch
+        assert "MutatingWebhookConfiguration" not in kinds
+
+    def test_every_config_loads_through_the_port(self, docs, tmp_path):
+        got = configs(docs, tmp_path)
+        assert set(got) == set(CONFIGS)
+        part = got["nos-tpu-torch-partitioner-config"]
+        assert part.kind == pconfig.HYBRID_KIND and part.slo_interval_s == 1.0
+        assert part.device_plugin_cm_namespace == "nebuly-nos"
+        sched = got["nos-tpu-torch-scheduler-config"]
+        assert sched.gpu_memory_gb_per_gpu == 80
+        op = got["nos-tpu-torch-operator-config"]
+        assert op.webhook_port == 9443 and op.gpu_memory_gb_per_gpu == 80
+        assert got["nos-tpu-torch-chipagent-config"].model == "auto"
+
+    def test_every_container_runs_a_port_main(self, docs):
+        seen = set()
+        for name, c in containers(docs).items():
+            if "certgen" in name:
+                continue
+            cmd = c["command"]
+            assert cmd[:2] == ["python", "-m"], name
+            module = cmd[2]
+            assert module.startswith("nos_tpu_torch.cmd."), name
+            main = module.rsplit(".", 1)[1]
+            assert (ROOT / "nos_tpu_torch/cmd" / f"{main}.py").is_file()
+            seen.add(main)
+            if main != "metricsexporter":
+                assert cmd[cmd.index("--config") + 1] == \
+                    "/etc/nos-tpu-torch/config.yaml"
+        assert seen == set(MAINS)
+
+    def test_the_agents_follow_their_partitioning_kind(self, docs):
+        for doc in docs:
+            if doc["kind"] != "DaemonSet":
+                continue
+            spec = doc["spec"]["template"]["spec"]
+            kind = spec["nodeSelector"]["nos.nebuly.com/gpu-partitioning"]
+            cmd = spec["containers"][0]["command"]
+            assert ("chipagent" in doc["metadata"]["name"]) == \
+                (kind == pconfig.MPS_KIND)
+            assert cmd[cmd.index("--node") + 1] == "$(NODE_NAME)"
+            if kind == pconfig.MIG_KIND:
+                assert cmd[cmd.index("--device") + 1] == "cuda"
+
+    def test_the_exporter_reads_the_scheduler_s_snapshot(self, docs):
+        cmd = containers(docs)["nos-tpu-torch-metricsexporter"]["command"]
+        src = cmd[cmd.index("--source") + 1]
+        assert src == "http://nos-tpu-torch-scheduler:8081"
+        services = {d["metadata"]["name"] for d in docs
+                    if d["kind"] == "Service"}
+        assert {"nos-tpu-torch-scheduler", "nos-tpu-torch-partitioner",
+                "nos-tpu-torch-operator-webhook"} <= services
+
+
+class TestValues:
+    @pytest.mark.parametrize("path,value,cfg,field", [
+        ("partitioner.kind", "mps", "partitioner", "kind"),
+        ("partitioner.spareHostsPerPool", 1, "partitioner",
+         "spare_hosts_per_pool"),
+        ("partitioner.nodeSuspectAfterSeconds", 5.0, "partitioner",
+         "node_suspect_after_s"),
+        ("scheduler.preemptBudgetPerCycle", 4, "scheduler",
+         "preempt_budget_per_cycle"),
+        ("scheduler.displacedAgeCapSeconds", 0, "scheduler",
+         "displaced_age_cap_s"),
+        ("gpuMemoryGBPerGPU", 40, "operator", "gpu_memory_gb_per_gpu"),
+        ("sloIntervalSeconds", 2.5, "scheduler", "slo_interval_s"),
+        ("chipagent.heartbeat", True, "chipagent", "heartbeat"),
+        ("sliceagent.model", "nvidia-h100-80gb-hbm3", "sliceagent",
+         "model"),
+    ])
+    def test_a_value_reaches_its_config_field(self, path, value, cfg,
+                                              field, tmp_path):
+        got = configs(render_chart(CHART, context(**{path: value})),
+                      tmp_path)
+        assert getattr(got[f"nos-tpu-torch-{cfg}-config"], field) == value
+
+    def test_the_webhook_off_renders_none(self, tmp_path):
+        docs = render_chart(CHART, context(**{
+            "operator.webhook.enabled": False}))
+        kinds = {d["kind"] for d in docs}
+        assert "ValidatingWebhookConfiguration" not in kinds
+        op = configs(docs, tmp_path)["nos-tpu-torch-operator-config"]
+        assert op.webhook_port == 0 and op.webhook_cert_dir == ""
+
+    def test_a_main_turned_off_renders_nothing_of_it(self):
+        docs = render_chart(CHART, context(**{"sliceagent.enabled": False}))
+        assert not [d for d in docs if "sliceagent" in d["metadata"]["name"]]
+
+    def test_a_kubeconfig_secret_reaches_every_main(self, tmp_path):
+        docs = render_chart(CHART, context(**{
+            "kubeconfig.secret": "nos-kubeconfig"}))
+        got = configs(docs, tmp_path, validate=False)
+        assert {c.kubeconfig for c in got.values()} == {
+            "/etc/nos-tpu-torch-kube/config"}
+        # the loader checks that the file exists: it is mounted at run
+        with pytest.raises(pconfig.ConfigError, match="does not exist"):
+            got["nos-tpu-torch-scheduler-config"].validate()
+        for doc in docs:
+            if doc["kind"] in ("Deployment", "DaemonSet"):
+                vols = doc["spec"]["template"]["spec"]["volumes"]
+                assert {"name": "kubeconfig", "secret": {
+                    "secretName": "nos-kubeconfig"}} in vols
+
+
+class TestCRDs:
+    def test_the_quota_and_gang_kinds_in_the_port_s_group(self):
+        import yaml
+
+        crds = {}
+        for path in sorted((CHART / "crds").glob("*.yaml")):
+            doc = yaml.safe_load(path.read_text())
+            assert doc["spec"]["group"] == GROUP
+            crds[doc["spec"]["names"]["kind"]] = doc
+        assert set(crds) == {"ElasticQuota", "CompositeElasticQuota",
+                             "PodGroup"}
+        for kind, doc in crds.items():
+            api_version, plural, namespaced = KIND_REST[kind]
+            assert api_version == GROUP_VERSION
+            assert doc["spec"]["names"]["plural"] == plural
+            assert doc["metadata"]["name"] == f"{plural}.{GROUP}"
+            assert (doc["spec"]["scope"] == "Namespaced") == namespaced
+            version = doc["spec"]["versions"][0]
+            assert f"{GROUP}/{version['name']}" == GROUP_VERSION

@@ -60,7 +60,7 @@ from nos_tpu_torch.testing import factory, fleet
 from nos_tpu_torch.topology.shape import Shape
 
 from test_torch_planner import build_jax_shim
-from test_torch_quota import QuotaTwin, cluster_spec
+from test_torch_quota import QuotaTwin, assert_same_waste, cluster_spec
 from test_torch_scheduler import _jax_quota_fleet
 
 PATHS = pytest.mark.parametrize("native", [True, False],
@@ -765,6 +765,9 @@ class TestGangFleet:
         assert port["summary"] == jax["summary"]
         assert fleet.plan_digest(jax["summary"]) == \
             chip_smoke.GANG_FLEET_DIGEST
+        assert_same_waste(port["waste"], jax["waste"])
+        assert fleet.plan_digest(fleet.waste_summary(jax["waste"])) == \
+            chip_smoke.GANG_FLEET_WASTE_DIGEST
         assert port["gangs_admitted"] > 0 and port["gangs_rejected"] > 0
         assert not port["partial"] and not port["spanning"]
         assert port["gang_preemptions"] > 0 and not port["victims_other"]

@@ -69,6 +69,7 @@ from nos_tpu_torch.kube.client import (
 )
 from nos_tpu_torch.kube.objects import ObjectMeta, RUNNING
 from nos_tpu_torch.obs import journal as port_journal
+from nos_tpu_torch.obs import ledger as port_ledger
 from nos_tpu_torch.quota import (
     ElasticQuotaInfo, ElasticQuotaInfos, GPUResourceCalculator,
 )
@@ -142,8 +143,11 @@ def cluster_spec(seed: int, pending: tuple[int, int] = (6, 16)) -> dict:
     for i in range(int(rng.integers(2, 5))):
         sizes = rng.choice(SIZES, size=int(rng.integers(1, 4)),
                            replace=False)
-        nodes.append({"name": f"node-{i}", "shares": {
-            int(gb): int(rng.integers(1, 7)) for gb in sorted(sizes)}})
+        shares = {int(gb): int(rng.integers(1, 7)) for gb in sorted(sizes)}
+        # the GPUs that carry the shares, labelled for the waste ledger
+        nodes.append({"name": f"node-{i}", "shares": shares,
+                      "count": -(-sum(g * q for g, q in shares.items())
+                                 // 80)})
     grid = [8 * k for k in range(2, 26)]
     quotas = []
     for ns in ("ns-a", "ns-b"):
@@ -276,8 +280,9 @@ class Side:
     def create_node(self, n: dict) -> None:
         """A node advertising ``shares`` {gb: qty} and ``gpus`` whole
         GPUs, in NVLink domain ``domain`` (JAX: TPU pod; none or "":
-        unlabelled) with its GPU count labelled, and its ``host_index``
-        when the spec gives one."""
+        unlabelled) with its GPU count labelled (``gpus``, else
+        ``count`` when given), and its ``host_index`` when the spec gives
+        one."""
         alloc = {"cpu": 64.0}
         for gb, qty in n.get("shares", {}).items():
             alloc |= {k: v for k, v in self.res(gb, qty).items()
@@ -288,6 +293,9 @@ class Side:
                       if k != "cpu"}
             labels[JC.LABEL_CHIP_COUNT if self.jax
                    else C.LABEL_GPU_COUNT] = str(n["gpus"])
+        elif n.get("count"):
+            labels[JC.LABEL_CHIP_COUNT if self.jax
+                   else C.LABEL_GPU_COUNT] = str(n["count"])
         if n.get("domain"):
             labels[JC.LABEL_POD_ID if self.jax
                    else C.LABEL_NVLINK_DOMAIN] = n["domain"]
@@ -384,9 +392,59 @@ class Side:
                 "groups": groups, "events": list(self.events)}
 
 
+# the JAX partitioning kinds' names in ledger evidence, as the port's
+KIND_NAMES = {"timeshare": C.MPS_KIND, "slice": C.MIG_KIND}
+
+
+def waste_pools(report: dict, evidence=None) -> dict:
+    """A waste report's pools as {pool: (capacity, elapsed, {category:
+    GPU-seconds}, evidence)}, each evidence dict passed through
+    ``evidence`` (the JAX side's names mapped) when given."""
+    out = {}
+    for pool, p in report["pools"].items():
+        ev = {cat: dict(e) for cat, e in p["evidence"].items()}
+        if evidence is not None:
+            ev = {cat: evidence(e) for cat, e in ev.items()}
+        out[pool] = (p["capacity_chips"], p["elapsed_s"],
+                     dict(p["chip_seconds"]), ev)
+    return out
+
+
+def jax_evidence(e: dict) -> dict:
+    """A JAX evidence dict in the port's names: its partitioning kind."""
+    return {k: KIND_NAMES.get(v, v) if k == "kind" else v
+            for k, v in e.items()}
+
+
+def without_plan_ids(e: dict) -> dict:
+    """Evidence with its plan id masked (the packages hash plans
+    differently)."""
+    return {k: "<plan>" if k == "plan_id" else v for k, v in e.items()}
+
+
+def assert_same_waste(report: dict, jreport: dict, evidence=jax_evidence,
+                      port_evidence=None) -> None:
+    """The port's waste report equals JAX's per pool and category within
+    1e-9 GPU-seconds, with equal evidence after the name mapping
+    (``evidence`` on JAX's, ``port_evidence`` on the port's), and both
+    conserve within 1e-6."""
+    pools = waste_pools(report, port_evidence)
+    jpools = waste_pools(jreport, evidence)
+    assert sorted(pools) == sorted(jpools)
+    for pool, (cap, elapsed, secs, ev) in pools.items():
+        jcap, jelapsed, jsecs, jev = jpools[pool]
+        assert cap == jcap and abs(elapsed - jelapsed) <= 1e-9, pool
+        assert sorted(secs) == sorted(jsecs), (pool, secs, jsecs)
+        for cat, v in secs.items():
+            assert abs(v - jsecs[cat]) <= 1e-9, (pool, cat, v, jsecs[cat])
+        assert ev == jev, pool
+    assert port_ledger.conservation_ok(report)
+    assert jax_ledger.conservation_ok(jreport)
+
+
 class QuotaTwin:
-    """A spec on both sides, on one clock; ``compare`` holds every write
-    and the journals equal."""
+    """A spec on both sides, on one clock; ``compare`` holds every write,
+    the journals and the waste ledgers' reports equal."""
 
     def __init__(self, monkeypatch, spec: dict, jax_native: bool = True,
                  webhooks: bool = True, side=Side, **sched_kw) -> None:
@@ -399,6 +457,8 @@ class QuotaTwin:
         monkeypatch.setattr(port_journal, "_journal", self.journal)
         monkeypatch.setattr(jax_ledger, "_ledger",
                             jax_ledger.ChipSecondLedger(clock=clock))
+        monkeypatch.setattr(port_ledger, "_ledger",
+                            port_ledger.ChipSecondLedger(clock=clock))
         for knob, value in sched_kw.items():
             if knob != "gb_per_gpu":
                 monkeypatch.setattr(port_scheduler, knob.upper(), value)
@@ -419,6 +479,8 @@ class QuotaTwin:
         assert self.side.view() == self.jside.view()
         jrows, rows = self.journals()
         assert rows == jrows
+        assert_same_waste(port_ledger.get_ledger().report(),
+                          jax_ledger.get_ledger().report())
 
     def both(self, fn) -> tuple:
         return fn(self.jside), fn(self.side)

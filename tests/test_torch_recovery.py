@@ -58,6 +58,10 @@ from nos_tpu.partitioning.state import ClusterState as JaxClusterState
 from nos_tpu.testing import factory as jax_factory
 
 import chip_smoke
+from test_torch_controller import ledger_holds
+from test_torch_quota import (
+    assert_same_waste, jax_evidence, mapped, without_plan_ids,
+)
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.cmd.assembly import build_scheduler
 from nos_tpu_torch.controllers.chipagent import ChipAgent
@@ -68,6 +72,7 @@ from nos_tpu_torch.kube.client import (
     APIServer, KIND_NODE, KIND_POD, NotFound,
 )
 from nos_tpu_torch.obs import journal as port_journal
+from nos_tpu_torch.obs import ledger as port_ledger
 from nos_tpu_torch.partitioning import timeshare as ts
 from nos_tpu_torch.partitioning.core import (
     REASON_SUSPECT, QuarantineList, SelfHealingPolicy,
@@ -264,11 +269,15 @@ class JaxRecoveryOps:
 
 
 def run_jax_recovery_fleet(monkeypatch, spec: dict) -> dict:
+    """The recovery run on the JAX package, with its ledger's report as
+    ``waste``."""
     ops = JaxRecoveryOps(monkeypatch)
     try:
-        return fleet.drive_recovery_fleet(spec, ops)
+        out = fleet.drive_recovery_fleet(spec, ops)
     finally:
         ops.sched.close()
+    out["waste"] = jax_ledger.get_ledger().report()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +316,8 @@ class PolicyTwin:
         monkeypatch.setattr(port_journal, "_journal", self.journal)
         monkeypatch.setattr(jax_ledger, "_ledger",
                             jax_ledger.ChipSecondLedger(clock=clock))
+        monkeypatch.setattr(port_ledger, "_ledger",
+                            port_ledger.ChipSecondLedger(clock=clock))
         self.japi, self.api = JaxAPIServer(), APIServer()
         self.jq = JaxQuarantineList(kind=kinds[0], clock=clock)
         self.q = QuarantineList(kind=kinds[1], clock=clock)
@@ -408,6 +419,9 @@ class PolicyTwin:
                            (self.jq if jax else self.q).items().items()},
             "records": (jax_records(self.jax_journal, RECORDS) if jax
                         else port_records(self.journal, RECORDS)),
+            "holds": ledger_holds(
+                (jax_ledger if jax else port_ledger).get_ledger(),
+                lambda v: v, KINDS if jax else {}),
         }
 
     def compare(self) -> None:
@@ -471,7 +485,7 @@ class SchedTwin:
         jrows = [r for r in jax_records(self.jjournal,
                                         (port_journal.POD_REJECTED,))]
         assert [r[2].get("nodes") for r in rows] == \
-            [r[2].get("nodes") for r in jrows]
+            [mapped(r[2].get("nodes")) for r in jrows]
         return got
 
     def relabel(self, name: str) -> None:
@@ -486,9 +500,32 @@ class SchedTwin:
 
 
 class TestHoldGuards:
-    """The guards in both schedulers, verdict messages compared.  The
-    JAX test's waste-waterfall case waits for the ledger (ROADMAP item
-    9): a spare's chips in no waterfall pool have no counterpart yet."""
+    """The guards in both schedulers, verdict messages compared, and the
+    warm spare outside both waste waterfalls."""
+
+    def test_spare_excluded_from_waste_waterfall(self, monkeypatch):
+        """A warm spare is reserve, not capacity: its GPUs are in no
+        waterfall pool, and its SpareGuard rejections strand nothing.
+        The live node's free GPUs, which the third pod's class was
+        rejected on, read frag_stranded; both packages agree."""
+        now = [0.0]
+        for mod in (jax_ledger, port_ledger):
+            monkeypatch.setattr(mod, "_ledger", mod.ChipSecondLedger(
+                clock=lambda: now[0]))
+        t = SchedTwin({"live": {"shares": 2},
+                       "spare": {"shares": 2, "spare": True}})
+        now[0] = 1.0
+        assert t.cycle(monkeypatch, "p", "q", "r") == {
+            "p": "live", "q": "live", "r": ""}
+        now[0] = 3.0
+        t.cycle(monkeypatch)
+        t.close()
+        report = port_ledger.get_ledger().report()
+        assert_same_waste(report, jax_ledger.get_ledger().report())
+        pool = report["pools"]["pod-0"]
+        assert pool["capacity_chips"] == 8.0
+        assert pool["chip_seconds"] == {"productive": 2 * 0.6,
+                                        "frag_stranded": 2 * 7.4}
 
     def test_pod_never_binds_to_warm_spare(self, monkeypatch):
         t = SchedTwin({"spare": {"shares": 2, "spare": True}})
@@ -932,6 +969,8 @@ class RecoveryTwin:
         ops = fleet.PortRecoveryOps(recovery)
         ops.now = jops.now
         monkeypatch.setattr(port_journal, "_journal", ops.journal)
+        monkeypatch.setattr(port_ledger, "_ledger", port_ledger.ChipSecondLedger(
+            clock=lambda: jops.now[0]))
         return ops, jops
 
     def __init__(self, monkeypatch, nodes: list[dict],
@@ -1018,10 +1057,26 @@ class RecoveryTwin:
                            o.controller.quarantine.items().items()},
             "journal": (jax_records(o.journal, LOOP_RECORDS) if jax
                         else port_records(o.journal, LOOP_RECORDS)),
+            "holds": ledger_holds(
+                (jax_ledger if jax else port_ledger).get_ledger(), mask,
+                KINDS if jax else {}),
         }
 
     def compare(self) -> None:
         assert self.view(False) == self.view(True)
+        # the waterfalls after every step, plan ids masked on both sides
+        reports = []
+        for jax in (False, True):
+            mask = self.masks[jax]
+            report = (jax_ledger if jax else port_ledger).get_ledger() \
+                .report()
+            for pool in report["pools"].values():
+                pool["evidence"] = {
+                    cat: {k: (KINDS.get(v, mask(v)) if isinstance(v, str)
+                              else v) for k, v in ev.items()}
+                    for cat, ev in pool["evidence"].items()}
+            reports.append(report)
+        assert_same_waste(*reports, evidence=None)
 
     def close(self) -> None:
         self.both(lambda o: o.sched.close())
@@ -1138,6 +1193,22 @@ class TestRecoveryFleet:
         assert out["summary"] == jout["summary"]
         assert fleet.plan_digest(out["summary"]) == \
             chip_smoke.RECOVERY_FLEET_DIGEST
+        # the waterfall: JAX's per pool and category, pinned for the card
+        assert_same_waste(
+            out["waste"], jout["waste"],
+            evidence=lambda e: without_plan_ids(jax_evidence(e)),
+            port_evidence=without_plan_ids)
+        assert fleet.plan_digest(fleet.waste_summary(jout["waste"])) == \
+            chip_smoke.RECOVERY_FLEET_WASTE_DIGEST
+        # bench_nodeloss.py's gate against the no-recovery baseline
+        base = out["baseline"]
+        assert base["promotions"] == base["suspicions"] == 0
+        assert 0 < out["lost_gpu_seconds"] <= \
+            fleet.RECOVERY_LOST_HALVING * base["lost_gpu_seconds"]
+        assert out["lost_ratio"] == \
+            out["lost_gpu_seconds"] / base["lost_gpu_seconds"]
+        assert base["displaced_episodes"] > 0
+        assert port_ledger.conservation_ok(base["waste"])
         assert out["never_rebound"] == 0 and out["displaced_episodes"] > 3
         assert out["suspicions"] >= 1 and out["promotions"] >= 3
         assert out["migrations"] >= 1 and out["straggler_evictions"] >= 1

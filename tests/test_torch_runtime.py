@@ -9,10 +9,10 @@ exporter/metrics.py, obs.flight_snapshot) against the JAX package's:
   counted and the loop goes on and stops, a slow tick does not stretch
   the period, and a gate holds the ticks back until it is set;
 - ``Main`` on ``127.0.0.1:0``: every endpoint's code and body against
-  JAX's Main on the same registry state, except ``/snapshot`` with an API
-  attached (501, naming ROADMAP item 9 part 1; JAX serves a waste
-  report the port cannot build yet) and ``attach_slo`` (raises);
-  leader election gating the loops, shutdown hooks, ``build_api``.
+  JAX's Main on the same registry state, the flight recorder with its
+  waste report, ``/snapshot`` with an API attached and ``/debug/slo``
+  after ``attach_slo`` against JAX's on the same state; leader election
+  gating the loops, shutdown hooks, ``build_api``.
 """
 
 from __future__ import annotations
@@ -255,15 +255,31 @@ def _get(addr: str, path: str) -> tuple[int, str]:
         return e.code, e.read().decode()
 
 
+def _fresh_obs(monkeypatch) -> None:
+    """Both packages' ledgers fresh and their SLO engines uninstalled,
+    for the test only."""
+    import nos_tpu.obs.ledger as jledger
+    import nos_tpu.obs.slo as jslo
+    import nos_tpu_torch.obs.ledger as pledger
+    import nos_tpu_torch.obs.slo as pslo
+
+    monkeypatch.setattr(pledger, "_ledger", pledger.ChipSecondLedger())
+    monkeypatch.setattr(jledger, "_ledger", jledger.ChipSecondLedger())
+    monkeypatch.setattr(pslo, "_engine", None)
+    monkeypatch.setattr(jslo, "_engine", None)
+
+
 @pytest.fixture
 def mains(monkeypatch):
     """A port Main and a JAX Main on 127.0.0.1:0, each over a fresh
-    registry driven by the same sequence, and the same (empty) span ring
-    and journal."""
+    registry driven by the same sequence, and the same (empty) span ring,
+    journal and waste ledger, no SLO engine installed."""
     import nos_tpu.obs.journal as jjournal
     import nos_tpu.obs.trace as jtrace
     import nos_tpu_torch.obs.journal as pjournal
     import nos_tpu_torch.obs.trace as ptrace
+
+    _fresh_obs(monkeypatch)
 
     reg, jreg = metrics.Registry(), jmetrics.Registry()
     _drive(reg, 0)
@@ -296,8 +312,8 @@ class TestHealthServer:
                           "/nope": 404}[path]
 
     def test_the_flight_recorder_is_jax_s_without_the_ledger(self, mains):
-        """Spans and journal as JAX serves them; JAX adds its chip-second
-        ledger's waste report, which the port does not have yet."""
+        """Spans, journal and the chip-second ledger's waste report as
+        JAX serves them (the name predates the port's ledger)."""
         import nos_tpu.obs.journal as jjournal
         import nos_tpu_torch.obs.journal as pjournal
 
@@ -308,8 +324,9 @@ class TestHealthServer:
         jcode, jbody = _get(jax.health_address, "/debug/flightrecorder")
         got, want = json.loads(body), json.loads(jbody)
         assert code == jcode == 200
-        assert "slo" not in want and "waste" in want
-        want.pop("waste")
+        assert "slo" not in want and "slo" not in got
+        assert got["waste"] == want["waste"]
+        assert got["waste"]["categories"] == want["waste"]["categories"]
         for rec in got["journal"] + want["journal"]:
             rec.pop("ts")
         assert got == want
@@ -326,20 +343,83 @@ class TestHealthServer:
         h.do_GET()
         assert sent == [(503, "not ready")]
 
-    def test_the_snapshot_needs_the_ledger(self):
-        """With an API attached JAX serves the cluster, the metrics and
-        the waste report; the port answers 501 and names the item."""
-        m = rt.Main("t", "127.0.0.1:0", api=APIServer())
-        m.start()
-        try:
-            code, body = _get(m.health_address, "/snapshot")
-        finally:
-            m.shutdown()
-        assert code == 501 and "ROADMAP item 9 part 1" in body
+    def test_the_snapshot_needs_the_ledger(self, monkeypatch):
+        """With an API attached both packages serve the cluster, the
+        metrics and the ledger's waste report (no ``slo`` without an
+        engine), with the same keys; the port's state loads back and its
+        waste report is the ledger's.  Before the ledger the port
+        answered 501."""
+        from nos_tpu.kube.client import APIServer as JaxAPIServer
+        from nos_tpu.testing import factory as jfactory
+        from nos_tpu_torch.kube.serialize import load_state
+        from nos_tpu_torch.obs.ledger import get_ledger
+        from nos_tpu_torch.testing.factory import make_gpu_node
 
-    def test_attach_slo_raises(self):
-        with pytest.raises(NotImplementedError, match="item 9 part 1"):
-            rt.Main("t").attach_slo()
+        _fresh_obs(monkeypatch)
+        api, japi = APIServer(), JaxAPIServer()
+        api.create("Node", make_gpu_node("n-0", gpus=1))
+        japi.create("Node", jfactory.make_node("n-0"))
+        got = []
+        for mod, a in ((rt, api), (jrt, japi)):
+            m = mod.Main("t", "127.0.0.1:0", api=a)
+            m.start()
+            try:
+                got.append(_get(m.health_address, "/snapshot"))
+            finally:
+                m.shutdown()
+        (code, body), (jcode, jbody) = got
+        assert code == jcode == 200
+        payload, jpayload = json.loads(body), json.loads(jbody)
+        assert sorted(payload) == sorted(jpayload) == \
+            ["metrics", "state", "waste"]
+        assert payload["waste"] == json.loads(json.dumps(
+            get_ledger().report())) == jpayload["waste"]
+        assert [n.metadata.name for n in
+                load_state(payload["state"]).list("Node")] == ["n-0"]
+
+    def test_attach_slo_raises(self, monkeypatch):
+        """``attach_slo`` installs the engine over JAX's three default
+        objectives and ticks it on the "slo-sampler" loop; /debug/slo
+        then answers 200 with the report JAX's Main serves on the same
+        state, timestamps aside (the name predates the port's engine,
+        when the call raised)."""
+        import nos_tpu.obs.slo as jslo
+        import nos_tpu.obs.timeseries as jts
+        import nos_tpu_torch.obs.slo as pslo
+        import nos_tpu_torch.obs.timeseries as pts
+
+        _fresh_obs(monkeypatch)
+        # the engines sample registries of their own, on the same state
+        for mod, reg in ((pts, metrics.Registry()),
+                         (jts, jmetrics.Registry())):
+            _drive(reg, 0)
+            reg.observe("nos_tpu_schedule_latency_seconds", 0.2,
+                        labels={"class": "ts-24"})
+            monkeypatch.setattr(mod, "REGISTRY", reg)
+        got = []
+        for mod, slo in ((rt, pslo), (jrt, jslo)):
+            m = mod.Main("t", "127.0.0.1:0")
+            m.attach_slo(interval_s=0.02)
+            assert slo.get_engine() is not None
+            assert [loop.name for loop in m._loops] == ["slo-sampler"]
+            m.start()
+            try:
+                deadline = time.monotonic() + 10.0
+                while not slo.get_engine().sampler.points() \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                code, body = _get(m.health_address, "/debug/slo")
+            finally:
+                m.shutdown()
+            report = json.loads(body)
+            report.pop("ts")
+            got.append((code, report))
+        assert got[0] == got[1]
+        assert got[0][0] == 200
+        assert [o["name"] for o in got[0][1]["objectives"]] == [
+            "schedule-latency", "actuation-latency", "request-latency"]
+        assert [(v["objective"], v["class"]) for v in
+                got[0][1]["verdicts"]] == [("schedule-latency", "ts-24")]
 
     def test_respond_swallows_a_client_disconnect(self):
         h = rt._HealthHandler.__new__(rt._HealthHandler)

@@ -40,7 +40,8 @@ from nos_tpu_torch.testing import factory, fleet
 
 from test_torch_planner import build_jax_shim
 from test_torch_quota import (
-    JAX_MEM, MEM, QuotaTwin, Side, cluster_spec, port_resources,
+    JAX_MEM, MEM, QuotaTwin, Side, assert_same_waste, cluster_spec,
+    port_resources,
 )
 
 SEEDS = range(12)
@@ -315,6 +316,11 @@ class TestQuotaFleet:
         assert port["summary"] == jax["summary"]
         assert fleet.plan_digest(jax["summary"]) == \
             chip_smoke.QUOTA_FLEET_DIGEST
+        # the waterfall: JAX's per pool and category, pinned for the card
+        assert_same_waste(port["waste"], jax["waste"])
+        assert fleet.plan_digest(fleet.waste_summary(jax["waste"])) == \
+            chip_smoke.QUOTA_FLEET_WASTE_DIGEST
+        assert port["waste"]["fleet"]["chip_seconds"]["productive"] > 0
         assert port["victims_over_quota"] and not port["victims_in_quota"]
         assert port["preemptions"] > 0 and port["binds"] > 0
 
@@ -368,12 +374,12 @@ def _jax_quota_fleet(spec: dict) -> dict:
             for profile, qty in table["free"].items():
                 res = f"{JC.RESOURCE_TIMESHARE_PREFIX}{profile}"
                 alloc[res] = alloc.get(res, 0.0) + qty
-        labels = {}
+        # the port's GPU count as chips: the waste ledger's capacity
+        labels = {JC.LABEL_CHIP_COUNT: str(n["gpus"])}
         if "domain" in n:
-            # the gang fleet: the port's whole GPUs and GPU count as
-            # chips, its NVLink domain as a TPU pod
+            # the gang fleet: the port's whole GPUs as chips, its NVLink
+            # domain as a TPU pod
             alloc[JC.RESOURCE_TPU] = float(n["gpus"])
-            labels[JC.LABEL_CHIP_COUNT] = str(n["gpus"])
             if n["domain"]:
                 labels[JC.LABEL_POD_ID] = n["domain"]
             if "host_index" in n:
@@ -409,10 +415,19 @@ def _jax_quota_fleet(spec: dict) -> dict:
                 [g.status.phase, g.status.scheduled]
                 for g in api.list("PodGroup")}
 
-    return fleet.drive_quota_fleet(spec, create, sched.run_cycle,
-                                   lambda: jf.admit_all(api), reconcile,
-                                   pods, quotas,
-                                   groups if "groups" in spec else None)
+    from nos_tpu.obs import scoped
+    from nos_tpu.obs.ledger import ChipSecondLedger
+
+    ledger_now = [0.0]
+    ledger = ChipSecondLedger(clock=lambda: ledger_now[0])
+    with scoped(ledger=ledger):
+        out = fleet.drive_quota_fleet(spec, create, sched.run_cycle,
+                                      lambda: jf.admit_all(api), reconcile,
+                                      pods, quotas,
+                                      groups if "groups" in spec else None,
+                                      ledger_now=ledger_now)
+    out["waste"] = ledger.report()
+    return out
 
 
 # ---------------------------------------------------------------------------
