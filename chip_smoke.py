@@ -355,11 +355,54 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    NVML runtime cannot carve (ROADMAP 24a) and the card is not in MIG
    mode.
 
+15. elastic: elastic gangs and the MIG defragmenter.  (a) On the host,
+   ``testing/fleet.py``'s defrag fleet (bench_defrag.py's trace on the
+   MIG stand-in: 24 one-GPU nodes, fillers, whole-GPU demand and a
+   burst, two elastic sponge gangs) through the MIG loop on the fake
+   runtime (no MIG instance on the card is touched), defrag and grow on
+   ELASTIC_FLEET_RUNS times, the baseline with both off and
+   propose-only once: every defrag-on run must hash to
+   ``DEFRAG_FLEET_DIGEST`` and its conserved waterfall to
+   ``DEFRAG_FLEET_WASTE_DIGEST`` (the JAX package's run in the CPU
+   tests); every move must be of a movable pod (no serving pod, none
+   past the spare progress, no rigid gang's member), no job moved more
+   than twice; the baseline and propose-only must decide alike; the
+   utilisation floor must reach the bench's 0.95, and the frag halving
+   is held only where the JAX package's runs meet it
+   (``DEFRAG_FRAG_HALVING_MET``).  A straight child of ELASTIC_STEPS
+   split steps trains beside it.  (b) The card's node in the MPS loop
+   over the REST stub with the quotas (team-a min 24 max 80 GB, team-b
+   min 48) and both reconcilers run each pass: team-a's elastic PodGroup
+   ``eg`` (min 2, max 3 replicas, two 24 GB members) and a plain 24 GB
+   pod bind after one plan, each child training under its grant (the
+   members: the split backward, a checkpoint each step,
+   ``POD_NAME``/``POD_NAMESPACE``, the stub's kubeconfig,
+   ``NOS_TPU_DP_REPLICAS`` the gang's count); the plain pod's child ends
+   and its pod is marked Succeeded: a cycle's grow pass must create
+   ``eg-e2`` and stamp dp-resize 3 on both members, and ``eg-e2`` bind
+   on the freed share with no new plan; each member's child must leave
+   at its next landed checkpoint and is restarted at 3 replicas (0
+   steps lost), ``eg-e2``'s starts; then team-b's 24 GB pod: a cycle
+   must delete ``ELASTIC_VICTIM`` alone (the JAX package's choice), the
+   PodGroup staying admitted, stamp dp-resize 2 on the survivors, and
+   bind team-b's pod with no new plan; the victim's child gets SIGTERM
+   and must exit by it within QUOTA_STOP_LIMIT_S; the survivors leave
+   at their checkpoints, restart at 2 and end on the straight child's
+   loss bitwise; team-b's child trains as grant (a)'s.  Every distinct
+   state the stub commits must equal ``ELASTIC_LOOP_WRITES``.  The line
+   carries the fleet's host ms per defrag step and plan cycle (on and
+   off), its proposals, moves, GPUs unlocked, grows, shrinks and
+   utilisation floor; each pod's creation to bound, release to the
+   grown pod's bind, each stamp to each child's exit, eviction to
+   rebind, SIGTERM to exit, the steps lost, the scheduler's host ms per
+   cycle and the children's walls; the members' runs' launches are the
+   kernels line's ``elastic`` path.
+
 Then the kernel summary line (one entry per compiled tile, with its
-launches by path, the gang, recovery and mains children's among them; a tile
-no path ran must have run in the autotune phase), the card's ``name,
-power.limit`` and, last,
-``{"ok": true, "device": {...}}``.
+launches by path, the gang, recovery, mains and elastic children's among
+them; a tile no path ran must have run in the autotune phase), the
+card's ``name, power.limit`` and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -2246,7 +2289,8 @@ class _CardLoop:
         self.cycle_ms.append((now - t0) * 1e3)
         for pod in self.api.list(KIND_POD):
             name = pod.metadata.name
-            if pod.spec.node_name and name not in self.bound_ms:
+            if pod.spec.node_name and name not in self.bound_ms \
+                    and name in self.created:
                 self.bound_ms[name] = (now - self.created[name]) * 1e3
         return bound
 
@@ -2897,10 +2941,11 @@ class _Recorder:
     "key=value" annotations (group prefix off, no heartbeat) and the
     family's resources in its allocatable; a pod as "<node> <phase>",
     with "Unschedulable" when marked, its capacity label when it has
-    one and the recovery plane's ``migrate`` and ``displaced`` stamps
-    (the cause alone) when it carries them; a quota as its status.used
-    in GB; a PodGroup as "<phase> <scheduled>"; "deleted" at the end.
-    The MIG, quota, gang and recovery loops pin what it records."""
+    one, the recovery plane's ``migrate`` and ``displaced`` stamps (the
+    cause alone) and the elastic gangs' ``dp-resize`` when it carries
+    them; a quota as its status.used in GB; a PodGroup as "<phase>
+    <scheduled>"; "deleted" at the end.  The MIG, quota, gang, recovery
+    and elastic loops pin what it records."""
 
     def __init__(self, family: str) -> None:
         self.family = family
@@ -2944,7 +2989,8 @@ class _Recorder:
                 " Unschedulable" if obj.is_unschedulable() else "") + (
                 f" {capacity}" if capacity else "") + "".join(
                 f" {k.split('/', 1)[1]}={annots[k].split('@')[0]}"
-                for k in (C.ANNOT_MIGRATE, C.ANNOT_DISPLACED)
+                for k in (C.ANNOT_MIGRATE, C.ANNOT_DISPLACED,
+                          C.ANNOT_DP_RESIZE)
                 if annots.get(k))
         seq = self.writes.setdefault(obj.metadata.name, [])
         if not seq or seq[-1] != view:
@@ -3326,14 +3372,18 @@ def _check_waste_digest(report: dict, want: str, what: str) -> None:
 
 class _QuotaLoop(_CardLoop):
     """``_CardLoop`` with the quotas: the webhooks installed, both
-    reconcilers bound to their watches as the operator binds them, the
-    ElasticQuotas ``quotas`` (team-a's and team-b's), and a
-    ``_Recorder`` of the node, the pods, the quotas and the PodGroups
-    (QUOTA_LOOP_WRITES and GANG_LOOP_WRITES pin it)."""
+    reconcilers bound to their watches as the operator binds them (with
+    ``resync``, run once a loop pass after the scheduler's cycle
+    instead, the operator's resync: over REST a watch's timing would
+    decide which states they write), the ElasticQuotas ``quotas``
+    (team-a's and team-b's), and a ``_Recorder`` of the node, the pods,
+    the quotas and the PodGroups (QUOTA_LOOP_WRITES, GANG_LOOP_WRITES
+    and ELASTIC_LOOP_WRITES pin it)."""
 
     def __init__(self, device: dict, clock=time.monotonic,
                  wall=time.time, quotas=QUOTA_CARD_QUOTAS, api=None,
-                 watch=None, **controller_kw) -> None:
+                 watch=None, resync: bool = False,
+                 **controller_kw) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.api.elasticquota import (
             ElasticQuota, ElasticQuotaSpec, install_quota_webhooks)
@@ -3345,8 +3395,12 @@ class _QuotaLoop(_CardLoop):
 
         super().__init__(device, clock, wall, api, watch, **controller_kw)
         install_quota_webhooks(self.api)
-        ElasticQuotaReconciler(self.api).bind()
-        CompositeElasticQuotaReconciler(self.api).bind()
+        self.reconcilers = (ElasticQuotaReconciler(self.api),
+                            CompositeElasticQuotaReconciler(self.api))
+        self.resync = resync
+        if not resync:
+            for r in self.reconcilers:
+                r.bind()
         self.recorder = _Recorder(C.MPS_KIND)
         self.writes = self.recorder.writes
         for kind in (KIND_NODE, KIND_POD, KIND_ELASTIC_QUOTA,
@@ -3358,6 +3412,13 @@ class _QuotaLoop(_CardLoop):
                 metadata=ObjectMeta(name=ns, namespace=ns),
                 spec=ElasticQuotaSpec(min={mem: lo},
                                       max={mem: hi} if hi else {})))
+
+    def bind(self) -> int:
+        bound = super().bind()
+        if self.resync:
+            for r in self.reconcilers:
+                r.reconcile_all()
+        return bound
 
     def labels(self) -> dict:
         from nos_tpu_torch.api import constants as C
@@ -5636,6 +5697,721 @@ def phase_mains(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The elastic phase.  (a) The defrag fleet (testing/fleet.py:
+# bench_defrag.py's trace on the MIG stand-in) on the host, defrag and
+# grow on, the baseline with both off and propose-only.  (b) The card's
+# node in the MPS loop over the REST stub with the quotas: an elastic
+# gang grows into a free share and gives back one replica.
+# fleet.plan_digest of the defrag fleet's summary and of its waste
+# ledger's waterfall, defrag and grow on: the JAX package's run of the
+# same trace (tests/test_torch_defrag.py)
+DEFRAG_FLEET_DIGEST = \
+    "db25ad0691996f3b3bf489c2bd532c8db3add9c8ad4169376729dfb28bd2a7d5"
+DEFRAG_FLEET_WASTE_DIGEST = \
+    "f153cdd24c9eff9aa665082abb54569959bd2f245f8b7624cc4fecb577f19ed0"
+# whether the JAX package's runs of the trace halve frag_stranded against
+# the baseline (bench_defrag.py's FRAG_HALVING_TARGET): the halving is
+# held only if they do (tests/test_torch_defrag.py)
+DEFRAG_FRAG_HALVING_MET = False
+# the defrag-on run this many times; the baseline and propose-only once
+ELASTIC_FLEET_RUNS = 2
+ELASTIC_CARD_QUOTAS = GANG_CARD_QUOTAS
+# (namespace, PodGroup, members), each member one CARD_SHARE_GB share,
+# min and max replicas; a plain pod of the namespace beside it
+ELASTIC_GANG = ("team-a", "eg", ("eg-0", "eg-1"))
+ELASTIC_BOUNDS = (2, 3)
+ELASTIC_SINGLE = "p0"
+ELASTIC_GROWN = "eg-e2"
+ELASTIC_PREEMPTOR = ("team-b", "tb-0")
+# the member the shrink rung takes: the JAX package's choice on the CPU
+# (tests/test_torch_elastic.py).  The stub stamps every object with one
+# creation time, so the over-quota members tie and the walk takes the one
+# the node listed first, an original member.
+ELASTIC_VICTIM = "eg-1"
+# the members' steps: a checkpoint each step, a restart at each resize
+ELASTIC_STEPS = GRANT_STEPS + 4
+_RESIZE_LINE = re.compile(r"dp resize requested \((\d+) -> (\d+) workers\): "
+                          r"exiting at checkpoint step (\d+)")
+# What the elastic loop writes (_Recorder over the stub's commit log), as
+# its CPU test's run recorded it (tests/test_torch_elastic.py, held
+# against the JAX package's loop on its own REST client).
+ELASTIC_LOOP_WRITES = {
+    "h100-node-0": [
+        [],
+        [
+            "spec-partitioning-plan.mps=<plan 0>"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-free=3",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-used=3",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-free=1",
+            "status-gpu-0-24gb-used=2",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ],
+        [
+            "device-plugin-applied-config=h100-node-0.<plan 0>",
+            "device-plugin-generation=1",
+            "spec-partitioning-plan.mps=<plan 0>",
+            "status-gpu-0-24gb-used=3",
+            "status-partitioning-plan.mps=<plan 0>",
+            "gpu-24gb=3"
+        ]
+    ],
+    "team-a": [
+        "used=0",
+        "used=72",
+        "used=48",
+        "used=72",
+        "used=48"
+    ],
+    "team-b": [
+        "used=0",
+        "used=24"
+    ],
+    "eg": [
+        "Pending 0",
+        "Scheduled 2",
+        "Scheduled 3"
+    ],
+    "eg-0": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Running Unschedulable",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota",
+        "h100-node-0 Running in-quota dp-resize=3",
+        "h100-node-0 Running in-quota dp-resize=2"
+    ],
+    "eg-1": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Running Unschedulable",
+        "h100-node-0 Running",
+        "h100-node-0 Running over-quota",
+        "h100-node-0 Running over-quota dp-resize=3",
+        "deleted"
+    ],
+    "p0": [
+        "- Pending",
+        "- Pending Unschedulable",
+        "h100-node-0 Running Unschedulable",
+        "h100-node-0 Running",
+        "h100-node-0 Running over-quota",
+        "h100-node-0 Succeeded over-quota"
+    ],
+    "eg-e2": [
+        "- Pending in-quota",
+        "h100-node-0 Running in-quota",
+        "h100-node-0 Running over-quota",
+        "h100-node-0 Running over-quota dp-resize=2"
+    ],
+    "tb-0": [
+        "- Pending",
+        "h100-node-0 Running",
+        "h100-node-0 Running in-quota"
+    ]
+}
+
+
+def _defrag_fleet_runs(runs: int = ELASTIC_FLEET_RUNS) -> dict:
+    """The defrag fleet: ``fleet.run_defrag_fleet`` (defrag and grow on,
+    the baseline, propose-only) once and the defrag-on run ``runs`` - 1
+    times more.  Every defrag-on run must hash to DEFRAG_FLEET_DIGEST and
+    its conserved waterfall to DEFRAG_FLEET_WASTE_DIGEST; every move must
+    be of a movable pod: a job's, none past the spare progress, no
+    elastic member (those shrink); the trace runs no serving pod and no
+    rigid gang, whose shields the CPU stories hold; no job moved more than
+    MAX_MIGRATIONS_PER_JOB times nor more than MAX_TOTAL_MIGRATIONS pods
+    in all; the baseline and propose-only runs must decide alike, the
+    defragmenter's own records aside; the utilisation floor must reach
+    the bench's UTILIZATION_MIN_TARGET, and the frag halving is held
+    when the JAX package's runs meet it (DEFRAG_FRAG_HALVING_MET)."""
+    from nos_tpu_torch.testing import fleet
+
+    spec = fleet.defrag_fleet_spec(0)
+    t0 = time.perf_counter()
+    first = fleet.run_defrag_fleet(spec)
+    first["run_ms"] = (time.perf_counter() - t0) * 1e3
+    outs = [first]
+    for _ in range(runs - 1):
+        t0 = time.perf_counter()
+        out = fleet._defrag_run(spec)
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3
+        outs.append(out)
+    for out in outs:
+        digest = fleet.plan_digest(out["summary"])
+        if digest != DEFRAG_FLEET_DIGEST:
+            fail(f"the defrag fleet's digest {digest} is not the pinned "
+                 f"{DEFRAG_FLEET_DIGEST} (the JAX package's run on the CPU)")
+        _check_waste_digest(out["waste"], DEFRAG_FLEET_WASTE_DIGEST,
+                            "the defrag fleet")
+        for name, progress, kind in out["evictions"]:
+            if kind in ("", "elastic") or progress >= 0.75:
+                fail(f"the defragmenter moved {name} ({kind or 'no job'}, "
+                     f"progress {progress})")
+        if out["migrations_by_job_max"] > fleet.MAX_MIGRATIONS_PER_JOB \
+                or out["migrated_pods"] > fleet.MAX_TOTAL_MIGRATIONS:
+            fail(f"the defrag fleet moved a job "
+                 f"{out['migrations_by_job_max']} times, "
+                 f"{out['migrated_pods']} pods in all")
+    if not first["identical"]:
+        fail("the defrag fleet's baseline and propose-only runs decided "
+             "differently")
+    frag = first["waste"]["fleet"]["chip_seconds"].get("frag_stranded", 0.0)
+    base = first["baseline"]["waste"]["fleet"]["chip_seconds"].get(
+        "frag_stranded", 0.0)
+    if DEFRAG_FRAG_HALVING_MET and frag > fleet.FRAG_HALVING_TARGET * base:
+        fail(f"frag_stranded {frag} GPU-s over "
+             f"{fleet.FRAG_HALVING_TARGET} x the baseline's {base}")
+    if first["utilization_min"] < fleet.UTILIZATION_MIN_TARGET:
+        fail(f"the defrag fleet's utilisation floor "
+             f"{first['utilization_min']} is under "
+             f"{fleet.UTILIZATION_MIN_TARGET}")
+
+    def stats(xs: list[float]) -> dict:
+        return {"median": statistics.median(xs), "max": max(xs),
+                "n": len(xs)}
+
+    return {"nodes": len(spec["nodes"]), "runs": runs,
+            "ticks_per_run": first["ticks"],
+            "run_ms": [o["run_ms"] for o in outs],
+            "defrag_step_ms": stats(
+                [ms for o in outs for ms in o["defrag_ms"]]),
+            "defrag_step_ms_propose_only": stats(
+                first["propose_only"]["defrag_ms"]),
+            "plan_cycle_ms_on": stats(
+                [ms for o in outs for ms in o["plan_ms"]]),
+            "plan_cycle_ms_off": stats(first["baseline"]["plan_ms"]),
+            "scheduler_cycle_ms_on": stats(
+                [ms for o in outs for ms in o["cycle_ms"]]),
+            "scheduler_cycle_ms_off": stats(first["baseline"]["cycle_ms"]),
+            "proposals": {"proposed": first["proposed"],
+                          "applied": first["applied"],
+                          "rejected": first["rejected"]},
+            "propose_only": {k: first["propose_only"][k]
+                             for k in ("proposed", "applied", "rejected")},
+            "migrated_pods": first["migrated_pods"],
+            "migrations_by_job_max": first["migrations_by_job_max"],
+            "gpus_unlocked": first["gpus_unlocked"],
+            "grows": first["grows"], "shrinks": first["shrinks"],
+            "utilization_min": first["utilization_min"],
+            "utilization_mean": first["utilization_mean"],
+            "utilization_min_baseline":
+                first["baseline"]["utilization_min"],
+            "frag_stranded_gpu_s": frag,
+            "frag_stranded_gpu_s_baseline": base,
+            "frag_ratio": first["frag_ratio"],
+            "frag_halving_held": DEFRAG_FRAG_HALVING_MET,
+            "journal_identical": first["identical"],
+            "decisions_compared": first["decisions"],
+            "jobs_completed": first["jobs_completed"],
+            "digest": fleet.plan_digest(first["summary"]),
+            "waste": _waste_line(first["waste"])}
+
+
+class _ElasticLoop(_QuotaLoop):
+    """``_QuotaLoop`` at the gang phase's quotas with both reconcilers
+    run once a loop pass (``resync``), on ``api`` (the REST stub's
+    client) with ``watch`` feeding the recorder."""
+
+    def __init__(self, device: dict, clock=time.monotonic,
+                 wall=time.time, api=None, watch=None) -> None:
+        super().__init__(device, clock, wall, quotas=ELASTIC_CARD_QUOTAS,
+                         api=api, watch=watch, resync=True)
+
+    def bind(self) -> int:
+        """A pass's scheduler cycle; a pod its grow pass created gets its
+        creation time here, at the end of the cycle that made it."""
+        bound = super().bind()
+        now = time.perf_counter()
+        for name in self.pods():
+            self.created.setdefault(name, now)
+        return bound
+
+    def create_member(self, name: str) -> None:
+        from nos_tpu_torch.api import constants as C
+
+        lo, hi = ELASTIC_BOUNDS
+        ns, group, _ = ELASTIC_GANG
+        self.create_pod(name, namespace=ns, gang=group, annotations={
+            C.ANNOT_ELASTIC: C.ELASTIC_DP,
+            C.ANNOT_MIN_REPLICAS: str(lo), C.ANNOT_MAX_REPLICAS: str(hi)})
+
+    def stamps(self) -> dict:
+        from nos_tpu_torch.api import constants as C
+
+        return {n: p.metadata.annotations.get(C.ANNOT_DP_RESIZE)
+                for n, p in self.pods().items()}
+
+    def group(self) -> tuple[str, int]:
+        from nos_tpu_torch.kube.client import KIND_POD_GROUP
+
+        ns, group, _ = ELASTIC_GANG
+        pg = self.api.get(KIND_POD_GROUP, group, ns)
+        return pg.status.phase, pg.status.scheduled
+
+
+def _elastic_events(loop: _ElasticLoop) -> tuple[dict, Callable]:
+    """A pod watch on the loop's recorder feed noting, per pod, the
+    scheduler cycle (its index in ``loop.cycle_ms``) and the host's
+    performance counter of its bind, its deletion and each dp-resize
+    stamp it gets; returns the notes and the unwatch."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_POD
+
+    seen: dict[str, tuple[int, float]] = {}
+
+    def watch(event: str, pod) -> None:
+        name = pod.metadata.name
+        at = (len(loop.cycle_ms), time.perf_counter())
+        if event == "DELETED":
+            seen.setdefault(f"deleted {name}", at)
+            return
+        if pod.spec.node_name:
+            seen.setdefault(f"bound {name}", at)
+        stamp = pod.metadata.annotations.get(C.ANNOT_DP_RESIZE)
+        if stamp:
+            seen.setdefault(f"stamped {name} {stamp}", at)
+
+    return seen, loop.watch(KIND_POD, watch)
+
+
+def _elastic_start(device: dict, clock=time.monotonic, wall=time.time,
+                   advance=None, poll_s: float = CARD_POLL_S, api=None,
+                   watch=None) -> tuple[_ElasticLoop, dict]:
+    """Phase (b) up to the children: team-a's elastic PodGroup (min 2,
+    max 3 replicas) with its two members and a plain pod beside them,
+    through the loop until the three are Running: one plan, the gang's
+    members bound in one scheduler cycle, the PodGroup Scheduled 2."""
+    from nos_tpu_torch.kube.client import KIND_POD_GROUP
+    from nos_tpu_torch.testing.factory import make_pod_group
+
+    loop = _ElasticLoop(device, clock, wall, api=api, watch=watch)
+    ns, group, members = ELASTIC_GANG
+    seen, unwatch = _elastic_events(loop)
+    plans0 = _plans_total()
+    loop.api.create(KIND_POD_GROUP, make_pod_group(group, ELASTIC_BOUNDS[0],
+                                                   namespace=ns))
+    for name in members:
+        loop.create_member(name)
+    loop.create_pod(ELASTIC_SINGLE, namespace=ns)
+    want = sorted([*members, ELASTIC_SINGLE])
+    bind_s = loop.run_until(lambda: loop.running() == want,
+                            f"bind {group} and {ELASTIC_SINGLE} and run them",
+                            poll_s=poll_s, advance=advance)
+    unwatch()
+    if loop.cycles != 1 or _plans_total() - plans0 != 1:
+        fail(f"{loop.cycles} plan cycles ran for {want}, not one")
+    cycles = {seen[f"bound {n}"][0] for n in members}
+    if len(cycles) != 1:
+        fail(f"{group}'s members were bound in cycles {sorted(cycles)}")
+    if loop.group() != ("Scheduled", 2):
+        fail(f"{group}'s PodGroup reads {loop.group()}, not Scheduled 2")
+    return loop, {"bind_s": bind_s, "bound_in_cycle": cycles.pop(),
+                  "plan_cycles": loop.cycles, "labels": loop.labels()}
+
+
+def _elastic_grow(loop: _ElasticLoop, advance=None,
+                  poll_s: float = CARD_POLL_S) -> dict:
+    """Phase (b)'s grow: the plain pod has ended (the kubelet reports it
+    Succeeded), its share left carved and free; a scheduler cycle's grow
+    pass must create ELASTIC_GROWN (a GANG_RESIZED grow record naming
+    it) and stamp dp-resize 3 on both members, and the clone must bind
+    on the freed share with no new plan, the PodGroup Scheduled 3.
+    Returns the release's, the stamps' and the bind's host times."""
+    from nos_tpu_torch.kube.client import KIND_POD
+    from nos_tpu_torch.obs import journal as J
+
+    ns, group, members = ELASTIC_GANG
+    seen, unwatch = _elastic_events(loop)
+    plans0 = _plans_total()
+    n0 = len(J.get_journal().events(J.GANG_RESIZED))
+    loop.api.patch(KIND_POD, ELASTIC_SINGLE, ns,
+                   mutate=lambda p: setattr(p.status, "phase", "Succeeded"))
+    released = time.perf_counter()
+    loop.run_until(lambda: ELASTIC_GROWN in loop.running(),
+                   f"grow {group} into the freed share", poll_s=poll_s,
+                   advance=advance)
+    unwatch()
+    grows = [r for r in J.get_journal().events(J.GANG_RESIZED)[n0:]]
+    if [(r.subject, r.attrs.get("direction"), r.attrs.get("member"))
+            for r in grows] != [(f"{ns}/{group}", "grow",
+                                 f"{ns}/{ELASTIC_GROWN}")]:
+        fail(f"the grow pass recorded {[r.attrs for r in grows]}, not one "
+             f"grow of {group} by {ELASTIC_GROWN}")
+    if _plans_total() != plans0:
+        fail(f"a plan ran for {ELASTIC_GROWN}")
+    stamps = loop.stamps()
+    if [stamps[n] for n in members] != ["3", "3"] or stamps[ELASTIC_GROWN]:
+        fail(f"the grow stamped {stamps}")
+    if loop.group() != ("Scheduled", 3):
+        fail(f"{group}'s PodGroup reads {loop.group()}, not Scheduled 3")
+    stamped = max(seen[f"stamped {n} 3"][1] for n in members)
+    bound = seen[f"bound {ELASTIC_GROWN}"]
+    if bound[0] <= seen[f"stamped {members[0]} 3"][0]:
+        fail(f"{ELASTIC_GROWN} bound in the cycle that grew it")
+    return {"released": released, "stamped": stamped, "bound": bound[1],
+            "grow_cycle": seen[f"stamped {members[0]} 3"][0],
+            "bind_cycle": bound[0]}
+
+
+def _elastic_shrink(loop: _ElasticLoop, advance=None,
+                    poll_s: float = CARD_POLL_S) -> dict:
+    """Phase (b)'s shrink: team-b's pod, within its min, arrives on a
+    full card; a cycle must delete ELASTIC_VICTIM alone (the JAX
+    package's choice), leave the PodGroup admitted and stamp dp-resize 2
+    on the two survivors, and team-b's pod must bind on the freed share
+    with no new plan.  Returns the survivors, the eviction's, the stamps'
+    and the rebind's host times."""
+    ns, group, members = ELASTIC_GANG
+    b_ns, b_name = ELASTIC_PREEMPTOR
+    seen, unwatch = _elastic_events(loop)
+    plans0 = _plans_total()
+    before = set(loop.pods())
+    loop.create_pod(b_name, namespace=b_ns)
+    loop.run_until(lambda: b_name in loop.running(),
+                   f"bind {b_name} and run it", poll_s=poll_s,
+                   advance=advance)
+    unwatch()
+    gone = sorted(before - set(loop.pods()))
+    if gone != [ELASTIC_VICTIM]:
+        fail(f"{b_name} evicted {gone}, not {ELASTIC_VICTIM} alone (the JAX "
+             f"package's choice)")
+    if _plans_total() != plans0:
+        fail(f"a plan ran for {b_name}")
+    survivors = [n for n in (*members, ELASTIC_GROWN) if n != ELASTIC_VICTIM]
+    stamps = loop.stamps()
+    if [stamps.get(n) for n in survivors] != ["2", "2"]:
+        fail(f"the shrink stamped {stamps}")
+    if loop.group()[0] != "Scheduled":
+        fail(f"{group}'s PodGroup reads {loop.group()} after the shrink")
+    return {"evicted": gone, "survivors": survivors,
+            "evicted_at": seen[f"deleted {ELASTIC_VICTIM}"][1],
+            "stamped": max(seen[f"stamped {n} 2"][1] for n in survivors),
+            "rebound_at": seen[f"bound {b_name}"][1],
+            "evict_cycle": seen[f"deleted {ELASTIC_VICTIM}"][0],
+            "rebind_cycle": seen[f"bound {b_name}"][0],
+            "group_after": list(loop.group()), "labels_after": loop.labels()}
+
+
+def _elastic_child_check(label: str, child: dict, uuid: str,
+                         start: int, resize: tuple[int, int] | None
+                         ) -> dict:
+    """A member's run that must end: exit 0, its grant verified, the
+    steps from ``start`` + 1 logged, resumed at ``start`` when above 0,
+    and (with ``resize`` (from, to)) left at its last landed checkpoint on
+    the dp-resize stamp, else run to ELASTIC_STEPS.  Returns the step it
+    left at and its launches by tile."""
+    resumed = [int(m) for m in _RESUME_LINE.findall(child["stderr"])]
+    if resumed != ([start] if start else []):
+        fail(f"{label} resumed at {resumed}, not at {start}")
+    left = _RESIZE_LINE.findall(child["stderr"])
+    landed = [int(m) for m in _CKPT_LINE.findall(child["stderr"])]
+    if resize is None:
+        if left:
+            fail(f"{label} left on a resize {left}")
+        end = ELASTIC_STEPS
+    else:
+        if len(left) != 1 or (int(left[0][0]), int(left[0][1])) != resize \
+                or not landed or int(left[0][2]) != max(landed):
+            fail(f"{label} logged {left} with checkpoints {landed}, not a "
+                 f"clean exit at its last checkpoint on the {resize} "
+                 f"resize:\n{child['stderr'][-4000:]}")
+        end = int(left[0][2])
+    tiles = _check_recovery_child(label, child, uuid,
+                                  list(range(start + 1, end + 1)))
+    return {"left_at": end, "tiles": tiles}
+
+
+def _elastic_stopped_check(label: str, child: dict, uuid: str,
+                           start: int) -> None:
+    """The shrink victim's run: stopped by SIGTERM, its grant verified on
+    ``uuid`` at its fraction and cap when it started, finite steps from
+    ``start`` + 1, resumed at ``start`` when above 0."""
+    r = child["confined"]
+    if child["rc"] != -signal.SIGTERM or r is None:
+        fail(f"{label} exited {child['rc']}, confinement report {r}:\n"
+             f"{child['stderr'][-4000:]}")
+    if not (r["verified"] and r["devices"] == [uuid]
+            and r["fraction"] == child["fraction"]
+            and r["cap_bytes"] == child["cap_bytes"]):
+        fail(f"{label} verified {r}, expected {uuid} at fraction "
+             f"{child['fraction']}")
+    resumed = [int(m) for m in _RESUME_LINE.findall(child["stderr"])]
+    steps = child["steps"]
+    if resumed != ([start] if start else []) or not steps \
+            or steps[0][0] != start + 1 \
+            or not all(math.isfinite(s[1]) for s in steps):
+        fail(f"{label} resumed at {resumed} and logged {steps[:4]}, not "
+             f"from step {start + 1}:\n{child['stderr'][-4000:]}")
+
+
+def phase_elastic(main_loss0: float, device: dict, smi: str) -> dict:
+    """Elastic gangs and the MIG defragmenter: (a) the defrag fleet on
+    the host, beside a straight child of ELASTIC_STEPS split steps; (b)
+    the card's node over the REST stub: an elastic gang grows into the
+    share a finished pod left and gives back one replica to team-b, each
+    member's child leaving at its checkpoint on a dp-resize stamp and
+    restarted at the new replica count with no step lost, the survivors
+    ending on the straight child's loss bitwise.  Returns the members'
+    children's launches, by kernel and by tile."""
+    from nos_tpu_torch.cmd.train import DP_REPLICAS_ENV
+    from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    split = {"NOS_TPU_FLASH_BWD": "split"}
+    uuid, total = device["uuid"], device["memory_bytes"]
+    ns, group, originals = ELASTIC_GANG
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    stub_mod = _load_stub()
+    started: list[dict] = []
+    # each member's runs, in order: [replicas, the child (started, then
+    # finished)]; each run's exit time on the host's counter
+    runs: dict[str, list[list]] = {}
+    exited: dict[str, float] = {}
+    waiters: list[threading.Thread] = []
+    with stub_mod.StubApiServer() as stub, \
+            tempfile.TemporaryDirectory(prefix="nos-elastic-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        base = json.loads(pathlib.Path(cfg_path).read_text())
+        straight_cfg = str(pathlib.Path(tmp) / "straight.json")
+        pathlib.Path(straight_cfg).write_text(json.dumps(
+            base | {"steps": ELASTIC_STEPS}))
+        straight = _start_grant_child(
+            "straight", straight_cfg,
+            {"NOS_TPU_VISIBLE_CHIPS": uuid,
+             "NOS_TPU_TIMESHARE_GB": str(CARD_SHARE_GB)} | split, no_nvcc)
+        started.append(straight)
+        fleet_line = _defrag_fleet_runs()
+        straight = _finish_grant_child(straight)
+        kubeconfig = pathlib.Path(tmp) / "kubeconfig.json"
+        kubeconfig.write_text(json.dumps({
+            "current-context": "stub",
+            "contexts": [{"name": "stub",
+                          "context": {"cluster": "stub", "user": "smoke"}}],
+            "clusters": [{"name": "stub",
+                          "cluster": {"server": stub.url}}],
+            "users": [{"name": "smoke", "user": {}}]}))
+        job_cfg = {}
+        for name in (*originals, ELASTIC_GROWN):
+            job_cfg[name] = str(pathlib.Path(tmp) / f"{name}.json")
+            pathlib.Path(job_cfg[name]).write_text(json.dumps(base | {
+                "steps": ELASTIC_STEPS, "checkpoint_every": 1,
+                "checkpoint_dir": str(pathlib.Path(tmp) / f"ck-{name}"),
+                "kubeconfig": str(kubeconfig)}))
+
+        def run(name: str, grant: dict, replicas: int) -> None:
+            """Start the member's next run at ``replicas``."""
+            seq = len(runs.setdefault(name, []))
+            child = _start_grant_child(
+                f"{name}-run{seq + 1}", job_cfg[name],
+                grant | split | {"POD_NAME": name, "POD_NAMESPACE": ns,
+                                 DP_REPLICAS_ENV: str(replicas)}, no_nvcc)
+            started.append(child)
+            runs[name].append([replicas, child])
+
+            def note_exit(proc=child["proc"], case=child["case"]) -> None:
+                proc.wait()
+                exited[case] = time.perf_counter()
+
+            waiters.append(threading.Thread(target=note_exit, daemon=True))
+            waiters[-1].start()
+
+        def finish(name: str) -> None:
+            runs[name][-1][1] = _finish_grant_child(runs[name][-1][1])
+
+        def current(name: str) -> dict:
+            return runs[name][-1][1]
+
+        client = KubeClient(KubeConfig(server=stub.url))
+        tap = _StubTap(stub)
+        loop = None
+        try:
+            loop, card = _elastic_start(device, api=client, watch=tap.watch)
+            grants = {g["pod"]: g["env"] for g in _grants(
+                loop, device, [*originals, ELASTIC_SINGLE])}
+            for name in originals:
+                run(name, grants[name], ELASTIC_BOUNDS[0])
+            single = _start_grant_child(ELASTIC_SINGLE, cfg_path,
+                                        grants[ELASTIC_SINGLE], no_nvcc)
+            started.append(single)
+            single = _finish_grant_child(single)
+            grow = _elastic_grow(loop)
+            (g,) = _grants(loop, device, [ELASTIC_GROWN])
+            grants[ELASTIC_GROWN] = g["env"]
+            run(ELASTIC_GROWN, grants[ELASTIC_GROWN], ELASTIC_BOUNDS[1])
+            for name in originals:
+                finish(name)
+                run(name, grants[name], ELASTIC_BOUNDS[1])
+            members = [*originals, ELASTIC_GROWN]
+            t1 = time.monotonic()
+            while not all(_STEP_LINE.search("".join(current(n)["lines"]))
+                          for n in members):
+                if time.monotonic() - t1 > QUOTA_FIRST_STEP_LIMIT_S or any(
+                        current(n)["proc"].poll() is not None
+                        for n in members):
+                    fail("an elastic child exited or logged no step within "
+                         f"{QUOTA_FIRST_STEP_LIMIT_S} s of its start")
+                time.sleep(0.1)
+            shrink = _elastic_shrink(loop)
+            (stop_s,) = _stop_children([current(ELASTIC_VICTIM)])
+            stopped_at = time.perf_counter()
+            finish(ELASTIC_VICTIM)
+            (b_grant,) = _grants(loop, device, [ELASTIC_PREEMPTOR[1]])
+            team_b = _start_grant_child(ELASTIC_PREEMPTOR[1], cfg_path,
+                                        b_grant["env"], no_nvcc)
+            started.append(team_b)
+            for name in shrink["survivors"]:
+                finish(name)
+                run(name, grants[name], ELASTIC_BOUNDS[0])
+            for name in shrink["survivors"]:
+                finish(name)
+            team_b = _finish_grant_child(team_b)
+            for w in waiters:
+                w.join()
+        finally:
+            if loop is not None:
+                loop.sched.close()
+            client.close()
+            for c in started:
+                if c.get("proc") is not None and c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+        if tap.errors:
+            fail(f"the stub tap's callbacks raised: {tap.errors}")
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"an elastic child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    children = [straight, single, team_b,
+                *[c for n in runs for _, c in runs[n]]]
+    for child in children:
+        child["fraction"], child["cap_bytes"] = _grant_cap(CARD_SHARE_GB,
+                                                           total)
+    _check_recovery_child("elastic straight", straight, uuid,
+                          list(range(1, ELASTIC_STEPS + 1)))
+    (want,) = _EXACT_LOSS.findall(straight["stderr"])
+    rel = abs(straight["steps"][0][1] - main_loss0) / abs(main_loss0)
+    if not rel <= MAIN_LOSS0_RTOL:
+        fail(f"the straight child's step-0 loss {straight['steps'][0][1]} "
+             f"against train_main's {main_loss0}")
+    _check_granted_child(f"elastic {ELASTIC_SINGLE}", single, uuid,
+                         main_loss0)
+    _check_granted_child(f"elastic {ELASTIC_PREEMPTOR[1]}", team_b, uuid,
+                         main_loss0)
+    tiles: dict[str, int] = {name: 0 for name in TILES}
+    members_line = {}
+    for name, chain in runs.items():
+        start, left, lost, stamp_to_exit = 0, [], [], []
+        stamps = [grow["stamped"], shrink["stamped"]]
+        for i, (replicas, child) in enumerate(chain):
+            label = f"elastic {child['case']}"
+            nxt = chain[i + 1][0] if i + 1 < len(chain) else None
+            if name == ELASTIC_VICTIM and i == len(chain) - 1:
+                _elastic_stopped_check(label, child, uuid, start)
+                continue
+            checked = _elastic_child_check(
+                label, child, uuid, start,
+                None if nxt is None else (replicas, nxt))
+            for tile, k in checked["tiles"].items():
+                tiles[tile] += k
+            if nxt is not None:
+                left.append(checked["left_at"])
+                lost.append(max(s[0] for s in child["steps"])
+                            - checked["left_at"])
+                stamp = stamps[0] if (replicas, nxt) == tuple(
+                    ELASTIC_BOUNDS) else stamps[1]
+                stamp_to_exit.append(exited[child["case"]] - stamp)
+            start = checked["left_at"]
+        if lost != [0] * len(lost):
+            fail(f"{name} lost {lost} steps at its restarts")
+        entry = {"runs": [[r, c["case"]] for r, c in chain],
+                 "left_at": left, "steps_lost": lost,
+                 "stamp_to_exit_s": stamp_to_exit,
+                 "walls_s": [c["wall_s"] for _, c in chain]}
+        if name != ELASTIC_VICTIM:
+            exact = _EXACT_LOSS.findall(chain[-1][1]["stderr"])
+            if exact != [want]:
+                fail(f"{name} ended on loss {exact}, the straight run on "
+                     f"{want}: not bitwise equal")
+            entry["final_loss_exact"] = exact[0]
+        members_line[name] = entry
+    if loop.writes != ELASTIC_LOOP_WRITES:
+        fail(f"the elastic loop's writes differ from the CPU test's: "
+             f"{json.dumps(loop.writes)}")
+    launches = {k: sum(n for name, n in tiles.items() if TILES[name][0] == k)
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    card |= {
+        "substrate": "rest (tests/k8s_stub.py)", "node": CARD_NODE,
+        "quotas": [list(q) for q in ELASTIC_CARD_QUOTAS],
+        "share_gb": CARD_SHARE_GB, "bounds": list(ELASTIC_BOUNDS),
+        "steps": ELASTIC_STEPS,
+        "bind_ms": dict(sorted(loop.bound_ms.items())),
+        "release_to_grown_bound_ms": (grow["bound"] - grow["released"])
+        * 1e3,
+        "grow_stamp_to_bound_ms": (grow["bound"] - grow["stamped"]) * 1e3,
+        "grow_cycle": grow["grow_cycle"],
+        "grown_bind_cycle": grow["bind_cycle"],
+        "evicted": shrink["evicted"], "survivors": shrink["survivors"],
+        "evict_cycle": shrink["evict_cycle"],
+        "rebind_cycle": shrink["rebind_cycle"],
+        "evict_to_rebind_ms": (shrink["rebound_at"] - shrink["evicted_at"])
+        * 1e3,
+        "evict_to_child_stopped_ms": (stopped_at - shrink["evicted_at"])
+        * 1e3,
+        "sigterm_to_exit_s": stop_s, "group_after": shrink["group_after"],
+        "labels_after": shrink["labels_after"], "members": members_line,
+        "straight_wall_s": straight["wall_s"], "final_loss_exact": want,
+        "loss0_rel_diff": rel,
+        "cycle_ms_median": statistics.median(loop.cycle_ms),
+        "cycle_ms_max": max(loop.cycle_ms), "cycles": len(loop.cycle_ms),
+        "step_ms_median": statistics.median(loop.step_ms),
+        "passes": len(loop.step_ms)}
+    emit({"phase": "elastic", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "fleet": fleet_line,
+          "card": card, "main_loss0": main_loss0, "launches": launches,
+          "tile_launches": tiles,
+          "children": [{k: v for k, v in ch.items()
+                        if k not in ("stderr", "report", "confined",
+                                     "stamps", "steps")}
+                       | {"steps_logged": len(ch["steps"])}
+                       for ch in children]})
+    PATH_TILES["elastic"] = tiles
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -5663,8 +6439,10 @@ def main() -> int:
         gang = phase_gang(main_loss0, device, smi)
         recovery = phase_recovery(main_loss0, device, smi)
         mains = phase_mains(main_loss0, device, smi)
+        elastic = phase_elastic(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
-             "moe": moe, "gang": gang, "recovery": recovery, "mains": mains}
+             "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
+             "elastic": elastic}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

@@ -49,18 +49,13 @@ class ConfigError(ValueError):
 
 
 # (fields, the JAX package's default of each, the plane, its ROADMAP item)
-_DEFRAG = (("defrag_enabled", False), ("defrag_payback_min", 1.5),
-           ("defrag_interval_s", 0.0), ("defrag_drain_timeout_s", 120.0))
 _DRAIN = (("drain_preempt_after_cycles", 0),
           ("drain_preempt_max_busy_fraction", 0.25),
           ("drain_preempt_spare_progress", 0.75))
 _SHARD = (("shard_chips_per_host", 0),)
-_ELASTIC = (("elastic_grow_budget_per_cycle", 1),)
 _PLANES = {
-    "defrag": (_DEFRAG, "the defragmentation plane", "ROADMAP item 6"),
     "drain": (_DRAIN, "drain preemption", "ROADMAP item 7.2"),
     "shard": (_SHARD, "host-shard quota accounting", "ROADMAP item 7.2"),
-    "elastic": (_ELASTIC, "elastic gang growth", "ROADMAP item 4"),
 }
 
 
@@ -148,8 +143,6 @@ class PartitionerConfig(ManagerConfig):
     device_plugin_cm_name: str = "nos-device-plugin-configs"
     device_plugin_cm_namespace: str = "nebuly-nos"
 
-    _missing: ClassVar[tuple[str, ...]] = ("defrag",)
-
     def validate(self) -> None:
         super().validate()
         if self.kind not in (MIG_KIND, MPS_KIND, HYBRID_KIND):
@@ -213,7 +206,7 @@ class SchedulerConfig(ManagerConfig):
     # 0 = no expiry
     displaced_age_cap_s: float = 300.0
 
-    _missing: ClassVar[tuple[str, ...]] = ("drain", "shard", "elastic")
+    _missing: ClassVar[tuple[str, ...]] = ("drain", "shard")
 
     def validate(self) -> None:
         super().validate()

@@ -178,6 +178,20 @@ DISPLACED_DRAIN_MIGRATE = "drain-migrate"
 # walks equal victims least progress first.
 ANNOT_JOB_PROGRESS = f"{GROUP}/job-progress"
 
+# The elasticity contract (malleable gangs, ``scheduler/elastic.py``):
+# a gang whose members carry ``nos.tpu/elastic: "dp"`` declares its data
+# parallel axis malleable.  The control plane may grow the gang by
+# creating extra replica pods (the scheduler's cycle-end pass, up to
+# max-replicas) when capacity frees up in its domain, and shrink it by
+# evicting single members (down to min-replicas) when a quota reclaim or
+# a higher-tier pod needs the room: a cheaper preemption rung than
+# killing a whole rigid gang.  The bounds ride on the same pods; absent
+# or garbage bounds read rigid, never unbounded.
+ANNOT_ELASTIC = f"{GROUP}/elastic"
+ELASTIC_DP = "dp"
+ANNOT_MIN_REPLICAS = f"{GROUP}/min-replicas"
+ANNOT_MAX_REPLICAS = f"{GROUP}/max-replicas"
+
 # Desired dp replica count after a resize, stamped on every surviving
 # member of a gang.  The training main reads it back at each landed
 # checkpoint, on the same pod read as ANNOT_MIGRATE, and exits there

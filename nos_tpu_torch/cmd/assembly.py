@@ -75,7 +75,12 @@ def build_partitioner_main(api: APIServer, state: ClusterState,
         NodeController(api, state, new_slice_initializer(api)).bind()
         PodController(api, state).bind()
         if cfg.kind in (MIG_KIND, HYBRID_KIND):
-            ctl = new_slice_partitioner_controller(api, state, **timing)
+            ctl = new_slice_partitioner_controller(
+                api, state, defrag_enabled=cfg.defrag_enabled,
+                defrag_payback_min=cfg.defrag_payback_min,
+                defrag_interval_s=cfg.defrag_interval_s or None,
+                defrag_drain_timeout_s=cfg.defrag_drain_timeout_s,
+                **timing)
             ctl.bind()
             controllers.append(ctl)
             main.add_loop("partitioner-mig", ctl.process_if_ready,
@@ -103,6 +108,7 @@ def build_partitioner_main(api: APIServer, state: ClusterState,
 def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,
                     preempt_budget_per_cycle: int | None = None,
                     displaced_age_cap_s: float | None = None,
+                    elastic_grow_budget_per_cycle: int = 1,
                     clock=None) -> Scheduler:
     """The rebuilt kube-scheduler (reference cmd/scheduler/
     scheduler.go:43-59): NodeResourcesFit, the recovery plane's
@@ -112,13 +118,17 @@ def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,
     package's order.  The guards reject only what the recovery plane
     marks (a warm-spare label, a migration drain), so with the plane off
     the framework decides as it would without them.  None for a knob
-    keeps the scheduler's default (``scheduler/scheduler.py``)."""
+    keeps the scheduler's default (``scheduler/scheduler.py``); the
+    elastic grow pass grows up to ``elastic_grow_budget_per_cycle``
+    gangs a cycle (0: off), 1 as in the JAX package."""
     plugin = CapacityScheduling(GPUResourceCalculator(gpu_memory_gb_per_gpu))
     fw = Framework([NodeResourcesFit(), SpareGuard(), MigrationDrainGuard(),
                     TopologyFilter(api), plugin])
     plugin.set_framework(fw)
     plugin.attach(api)
     kwargs = {} if clock is None else {"clock": clock}
-    return Scheduler(api, fw, plugin,
-                     preempt_budget_per_cycle=preempt_budget_per_cycle,
-                     displaced_age_cap_s=displaced_age_cap_s, **kwargs)
+    return Scheduler(
+        api, fw, plugin, preempt_budget_per_cycle=preempt_budget_per_cycle,
+        displaced_age_cap_s=displaced_age_cap_s,
+        elastic_grow_budget_per_cycle=elastic_grow_budget_per_cycle,
+        **kwargs)

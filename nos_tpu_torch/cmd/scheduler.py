@@ -29,7 +29,8 @@ def build_scheduler_main(api, cfg: SchedulerConfig,
     scheduler = build_scheduler(
         api, cfg.gpu_memory_gb_per_gpu,
         preempt_budget_per_cycle=cfg.preempt_budget_per_cycle,
-        displaced_age_cap_s=cfg.displaced_age_cap_s)
+        displaced_age_cap_s=cfg.displaced_age_cap_s,
+        elastic_grow_budget_per_cycle=cfg.elastic_grow_budget_per_cycle)
     main.scheduler = scheduler
     if cfg.leader_election:
         from nos_tpu_torch.kube.leaderelection import LeaderElector

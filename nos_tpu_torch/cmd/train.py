@@ -107,6 +107,9 @@ class TrainConfig(ManagerConfig):
 
 
 _MODELS = {"tiny": "TINY", "bench350m": "BENCH_350M", "llama3-8b": "LLAMA3_8B"}
+# the dp replicas of the gang a worker (re)starts in, set by the workload
+# controller where each replica is a process group of its own
+DP_REPLICAS_ENV = "NOS_TPU_DP_REPLICAS"
 
 
 def _env_int(env, name: str, default: int | None = None) -> int:
@@ -166,9 +169,14 @@ def maybe_init_distributed(device: str | torch.device = "cuda",
 
 
 def boot_world_size(environ=None) -> int:
-    """The worker count this process booted with (torchrun's
-    ``WORLD_SIZE``, from which the mesh was derived); 1 without it."""
+    """The dp replica count this process booted with, which a
+    ``dp-resize`` stamp is held against: ``NOS_TPU_DP_REPLICAS`` when the
+    workload controller sets it (a gang whose replicas each run a
+    process group of their own: each pod one replica), else torchrun's
+    ``WORLD_SIZE``, from which the mesh was derived; 1 without either."""
     env = environ if environ is not None else os.environ
+    if env.get(DP_REPLICAS_ENV):
+        return max(1, _env_int(env, DP_REPLICAS_ENV))
     return max(1, _env_int(env, "WORLD_SIZE", 1))
 
 

@@ -42,8 +42,11 @@ timeouts, one batch timeout and the batch's idle window.  The
 partitioner main sets the deadline and the epoch from its config
 (``cmd/assembly.py``), as JAX's does.
 
-Left out, with the ROADMAP item that brings it: the background
-defragmenter (item 6: it needs the windows and elastic gangs).
+The background defragmenter (``partitioning/core/defrag.py``), when the
+factory builds one (the MIG family's, with ``defrag_enabled``), steps
+after every plan on the plan's unmutated snapshot and its pending pods:
+demand still frag-blocked after the carve-only answer is what it may
+move pods for.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES, record as journal_recor
 from nos_tpu_torch.obs.ledger import ACTUATION as LEDGER_ACTUATION, get_ledger
 from nos_tpu_torch.obs.trace import span as obs_span
 from nos_tpu_torch.partitioning.core import (
-    Actuator, Planner, QuarantineList, REASON_ACTUATION,
+    Actuator, DefragProposer, Planner, QuarantineList, REASON_ACTUATION,
     REASON_PLAN_DEADLINE, REASON_SUSPECT, SelfHealingPolicy, SnapshotTaker,
     heal_stray_migration_drains,
 )
@@ -97,6 +100,7 @@ class PartitionerController:
                  plan_deadline_s: float | None = None,
                  rescan_interval_s: float | None = None,
                  replan_epoch_s: float | None = None,
+                 defrag: DefragProposer | None = None,
                  recovery: SelfHealingPolicy | None = None,
                  clock: Callable[[], float] = time.monotonic) -> None:
         self._api = api
@@ -123,6 +127,8 @@ class PartitionerController:
         # controller without it heals a predecessor's migration drains
         # once (a clean cluster sees no write)
         self._recovery = recovery
+        # the background defragmenter, None unless the factory built one
+        self._defrag = defrag
         self._stray_migrations_healed = recovery is not None
         self._clock = clock
         self._last_scan = clock()
@@ -238,6 +244,10 @@ class PartitionerController:
         REGISTRY.set("nos_tpu_plan_pending_pods",
                      float(len(pods)), labels={"kind": self._kind})
         self._start_actuation_clocks()
+        if self._defrag is not None:
+            # the plan above is the carve-only answer; the snapshot is the
+            # cycle's unmutated state (the planner ran on a clone)
+            self._defrag.step(snapshot, pods)
         return True
 
     # -- actuation-landed latency -------------------------------------------

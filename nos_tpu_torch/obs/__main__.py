@@ -445,8 +445,9 @@ def _waste_culprit(journal: list[dict], category: str,
                 f"{attrs.get('unlocked_chips', '?')} GPUs unlocked, "
                 f"payback {attrs.get('payback', attrs.get('reason', '?'))}")
         else:
-            lines.append("defrag: no proposal on record — the port's "
-                         "defragmenter comes with ROADMAP item 6")
+            lines.append("defrag: no proposal on record — enable "
+                         "defrag_enabled (PartitionerConfig) to reclaim "
+                         "this automatically")
     elif category in ("gang_wait", "drain") and evidence.get("gang"):
         gang = str(evidence["gang"])
         verb = ("assembly stalled" if category == "gang_wait"

@@ -61,12 +61,18 @@ SPARE_PROMOTED = "spare-promoted"
 # -- the SLO engine's verdict transitions ---------------------------------
 SLO_BREACH = "slo-breach"
 SLO_RECOVERED = "slo-recovered"
-# -- the planes the port has not yet (defrag: ROADMAP item 6; capacity and
-# requests: item 9 part 2): nothing in the port records these, but ``obs
-# waste`` and ``obs capacity`` join on them, as the JAX CLI does
+# -- the defragmentation plane's (``partitioning/core/defrag.py``): a
+# proposal is PROPOSED when the what-if fork proves every victim
+# relocatable, APPLIED when it clears the payback threshold and its
+# evictions fire, REJECTED on payback, PDB allowance or a drain past its
+# deadline; GANG_RESIZED records an elastic gang's dp grow or shrink
 DEFRAG_PROPOSED = "defrag-proposed"
 DEFRAG_APPLIED = "defrag-applied"
 DEFRAG_REJECTED = "defrag-rejected"
+GANG_RESIZED = "gang-resized"
+# -- the planes the port has not yet (capacity and requests: ROADMAP item
+# 9 part 2): nothing in the port records these, but ``obs capacity``
+# joins on them, as the JAX CLI does
 PROVISION_REQUESTED = "provision-requested"
 PROVISION_FAILED = "provision-failed"
 PROVISION_STOCKOUT = "provision-stockout"

@@ -1,8 +1,7 @@
 """Device-agnostic partitioning engine core, ``nos_tpu/partitioning/core``
 for the port (reference internal/partitioning/core/): the planner, the
-parallel planner and its pools, the actuator, the quarantine and the
-recovery plane.  The defragmenter waits for ROADMAP item 6's windows and
-elastic gangs."""
+parallel planner and its pools, the actuator, the quarantine, the
+recovery plane and the background defragmenter."""
 
 from .interfaces import (
     Actuator, NodeInitializer, PartitionableNode, PartitionCalculator,
@@ -18,6 +17,7 @@ from .quarantine import (
 )
 from .actuator import GeometryActuator, compute_partitioning_state, new_plan_id
 from .pools import PlanPool, partition_pools, split_pods
+from .defrag import DefragProposer
 from .parallel import PLAN_SHARD_MIN_HOSTS, ParallelGeometryPlanner
 from .failure import (
     SelfHealingPolicy, heal_stray_migration_drains, healthy_spares_by_pool,
@@ -33,7 +33,7 @@ __all__ = [
     "GeometryPlanner", "GeometryActuator", "compute_partitioning_state",
     "new_plan_id", "QuarantineList", "REASON_ACTUATION",
     "REASON_PLAN_DEADLINE", "REASON_SUSPECT",
-    "PlanPool", "partition_pools", "split_pods",
+    "PlanPool", "partition_pools", "split_pods", "DefragProposer",
     "PLAN_SHARD_MIN_HOSTS", "ParallelGeometryPlanner",
     "SelfHealingPolicy", "heal_stray_migration_drains",
     "healthy_spares_by_pool", "host_index_vacancies", "is_warm_spare",

@@ -6,10 +6,15 @@ As ``timeshare/factory.py`` does, ``new_slice_partitioner_controller``
 wraps the sequential ``GeometryPlanner`` in a ``ParallelGeometryPlanner``
 and builds the recovery plane when ``spare_hosts_per_pool`` or
 ``node_suspect_after_s`` is set, and passes the plan deadline and the
-replan epoch to the controller.  The JAX factory's planner is a
+replan epoch to the controller.  With ``defrag_enabled`` it builds the
+background defragmenter (``core/defrag.py``), stepping at most every
+``defrag_interval_s`` (None: the replan epoch, else the batch's idle
+window); disabled, it is never built.  ``registry`` is the MIG tables
+the snapshot and the defragmenter read (a restricted table, as the
+fleets' stand-in has it); None is the default registry.  The JAX factory's planner is a
 ``MultiHostGeometryPlanner`` (``group.py``: multi-host carves, which no
-MIG instance needs), and it adds the defrag plane, which waits for the
-windows, elastic gangs and the ledger (ROADMAP item 6).
+MIG instance needs).  The MPS family has no defragmenter, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,10 +25,11 @@ from typing import Callable
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.kube.client import APIServer
 from nos_tpu_torch.scheduler.framework import Framework
+from nos_tpu_torch.topology.known import DEFAULT_REGISTRY, GpuModelRegistry
 from nos_tpu_torch.utils.batcher import Batcher
 
 from ..core import (
-    PLAN_SHARD_MIN_HOSTS, GeometryActuator, GeometryPlanner,
+    PLAN_SHARD_MIN_HOSTS, DefragProposer, GeometryActuator, GeometryPlanner,
     ParallelGeometryPlanner, QuarantineList, SelfHealingPolicy,
 )
 from ..state import ClusterState
@@ -39,9 +45,15 @@ def new_slice_partitioner_controller(
     replan_epoch_s: float | None = None,
     plan_shard_min_hosts: int = PLAN_SHARD_MIN_HOSTS,
     plan_workers: int = 0,
+    defrag_enabled: bool = False,
+    defrag_payback_min: float = 1.5,
+    defrag_interval_s: float | None = None,
+    defrag_drain_timeout_s: float = 120.0,
+    defrag_progress_fn: Callable | None = None,
     spare_hosts_per_pool: int = 0,
     node_suspect_after_s: float = 0.0,
     migrate_grace_s: float = 5.0,
+    registry: GpuModelRegistry | None = None,
     clock: Callable[[], float] = time.monotonic,
 ):
     from nos_tpu_torch.controllers.partitioner_controller import (
@@ -65,6 +77,16 @@ def new_slice_partitioner_controller(
     actuator = GeometryActuator(SlicePartitioner(api), partition_calculator,
                                 quarantine=quarantine)
     batcher = Batcher(batch_timeout_s, batch_idle_s, clock=clock)
+    defrag = None
+    if defrag_enabled:
+        defrag = DefragProposer(
+            api, C.MIG_KIND, SliceProfileCalculator(),
+            payback_min=defrag_payback_min,
+            interval_s=(defrag_interval_s if defrag_interval_s is not None
+                        else (replan_epoch_s or batch_idle_s)),
+            drain_timeout_s=defrag_drain_timeout_s,
+            progress_fn=defrag_progress_fn,
+            registry=registry or DEFAULT_REGISTRY, clock=clock)
     recovery = None
     if spare_hosts_per_pool > 0 or node_suspect_after_s > 0:
         recovery = SelfHealingPolicy(
@@ -75,9 +97,12 @@ def new_slice_partitioner_controller(
     return PartitionerController(
         api=api, cluster_state=cluster_state, kind=C.MIG_KIND,
         planner=planner, actuator=actuator,
-        snapshot_taker=SliceSnapshotTaker(), batcher=batcher,
+        snapshot_taker=(SliceSnapshotTaker() if registry is None
+                        else SliceSnapshotTaker(registry)),
+        batcher=batcher,
         quarantine=quarantine, plan_deadline_s=plan_deadline_s,
-        replan_epoch_s=replan_epoch_s, recovery=recovery, clock=clock,
+        replan_epoch_s=replan_epoch_s, defrag=defrag, recovery=recovery,
+        clock=clock,
     )
 
 

@@ -15,7 +15,9 @@ generation moved.  On the same stream it keeps:
   ``None`` meaning all of them (the first drain, and after
   ``invalidate_all()``), which the scheduler turns into a full rescan;
 - the pending-pod index (``pending_pods()``), the cycle's work list
-  without a store scan.
+  without a store scan;
+- whether any live pod carries a pod-group label (``has_gang_pods()``),
+  the elastic grow pass's gate.
 
 The scheduler books a pod it just bound into a cycle snapshot in place
 (``Scheduler._assume_bound``); the bind's own event has already bumped
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import threading
 
+from nos_tpu_torch.api.constants import LABEL_POD_GROUP
 from nos_tpu_torch.kube.client import APIServer, Informer, KIND_NODE, KIND_POD
 from nos_tpu_torch.kube.objects import Node, PENDING, Pod, RUNNING
 from nos_tpu_torch.scheduler.framework import NodeInfo, SharedLister
@@ -36,7 +39,7 @@ from nos_tpu_torch.utils.guards import guarded_by, invalidated_by
 
 @guarded_by("_lock", "_node_objs", "_pods_by_node", "_pod_node",
             "_gen", "_built", "_epoch", "_dirty", "_snap",
-            "_pending")
+            "_pending", "_gang_keys")
 @invalidated_by("_bump_locked", "_node_objs", "_pods_by_node", "_pod_node")
 class SchedulerCache:
     """Every index is written on watch delivery and read by the
@@ -79,6 +82,8 @@ class SchedulerCache:
         # hands this cache its own deep copies, so the stored objects
         # are private to it.
         self._pending: dict[str, Pod] = {}
+        # keys of the live pods carrying a pod-group label
+        self._gang_keys: set[str] = set()
         # hook order matters: the pod handler reads these indexes, so
         # they exist before the informers replay their initial ADDEDs;
         # store=False: this cache is the store
@@ -111,11 +116,17 @@ class SchedulerCache:
                    and pod.status.phase in (PENDING, RUNNING))
         pending = (event != "DELETED" and not pod.spec.node_name
                    and pod.status.phase == PENDING)
+        gang = (event != "DELETED"
+                and bool(pod.metadata.labels.get(LABEL_POD_GROUP)))
         with self._lock:
             if pending:
                 self._pending[key] = pod
             else:
                 self._pending.pop(key, None)
+            if gang:
+                self._gang_keys.add(key)
+            else:
+                self._gang_keys.discard(key)
             prev = self._pod_node.get(key)
             if prev is not None and (not tracked
                                      or prev != pod.spec.node_name):
@@ -172,6 +183,12 @@ class SchedulerCache:
         read-only (they are this cache's private watch copies)."""
         with self._lock:
             return list(self._pending.values())
+
+    def has_gang_pods(self) -> bool:
+        """Whether any live pod carries the pod-group label: the elastic
+        grow pass's gate."""
+        with self._lock:
+            return bool(self._gang_keys)
 
     # -- the per-cycle snapshot ---------------------------------------------
     def snapshot(self) -> SharedLister:

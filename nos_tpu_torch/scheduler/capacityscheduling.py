@@ -23,10 +23,10 @@ it N times, elasticquotainfo.go:154-174).  A gang member is only ever
 evicted with its whole gang (``gang.evict_gang``), and a gang preemptor
 reaches PostFilter through its stuck member with the placed mates
 booked in the cycle state (``Scheduler._gang_no_fit``), so victims are
-chosen against the whole gang's claim.  The JAX walk's cheapest rung,
-shrinking an elastic data-parallel gang by a replica
-(``scheduler/elastic.py``), waits for the elastic gangs (ROADMAP item
-32's resize signal).
+chosen against the whole gang's claim.  The walk's cheapest rung is a
+shrink (``scheduler/elastic.py``): a member of an elastic data-parallel
+gang above its min is walked first, dies alone, and its gang's
+survivors get the dp-resize stamp.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from nos_tpu_torch.api.pdb import list_pdbs
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.kube.client import (
     APIServer, KIND_COMPOSITE_ELASTIC_QUOTA, KIND_ELASTIC_QUOTA, KIND_POD,
+    NotFound,
 )
 from nos_tpu_torch.kube.objects import PENDING, RUNNING, Pod
 from nos_tpu_torch.kube.resources import (
@@ -52,11 +53,12 @@ from nos_tpu_torch.quota import (
 from nos_tpu_torch.scheduler.framework import (
     CycleState, Framework, NodeInfo, SharedLister, Status, _mig_slots,
 )
+from nos_tpu_torch.scheduler.elastic import record_shrink, shrink_headroom
 from nos_tpu_torch.scheduler.gang import evict_gang, gang_name
 from nos_tpu_torch.topology.known import DEFAULT_REGISTRY
 from nos_tpu_torch.utils.pod_util import (
-    is_displaced_fresh, is_over_quota, job_progress, tier_rank,
-    workload_tier,
+    elastic_replica_bounds, is_displaced_fresh, is_over_quota, job_progress,
+    tier_rank, workload_tier,
 )
 
 logger = logging.getLogger(__name__)
@@ -362,26 +364,30 @@ class CapacityScheduling:
         pdbs = list_pdbs(self._api) if self._api is not None else []
         # a gang's members, listed once per PostFilter
         gang_cache: dict[tuple[str, str], list[Pod]] = {}
-        candidates: list[tuple[str, list[Pod], int]] = []
+        candidates: list[tuple[str, list[Pod], int, set[str]]] = []
         for ni in nodes.list():
             if mask is not None and ni.name not in mask:
                 continue
+            shrink_uids: set[str] = set()
             victims, num_violating, st = self._select_victims_on_node(
-                state, pod, ni, pdbs, gang_cache)
+                state, pod, ni, pdbs, gang_cache, shrink_out=shrink_uids)
             if st.is_success and victims:
                 # scored and counted on the whole eviction set: a gang
-                # dies together, wherever its members run
+                # dies together, wherever its members run, but a shrink
+                # victim dies alone
                 candidates.append((ni.name,
-                                   self._expand_eviction(victims, gang_cache),
-                                   num_violating))
+                                   self._expand_eviction(victims, gang_cache,
+                                                         shrink_uids),
+                                   num_violating, shrink_uids))
         if not candidates:
             J.record(J.PREEMPTION_NONE, pod.key,
                      message="preemption found no candidates")
             return "", Status.unschedulable("preemption found no candidates")
-        node_name, victims, _ = min(candidates, key=self._candidate_key)
+        node_name, victims, _, shrink_uids = min(
+            candidates, key=lambda c: self._candidate_key(c[:3]))
         if self.on_preempt is not None:
             self.on_preempt(pod, victims)
-        self._evict_all(victims)
+        self._evict_all(victims, shrink_uids)
         REGISTRY.inc("nos_tpu_preemptions_total")
         REGISTRY.inc("nos_tpu_preemption_victims_total", len(victims))
         J.record(J.PREEMPTION, pod.key, node=node_name,
@@ -412,12 +418,14 @@ class CapacityScheduling:
         return mask
 
     def _expand_eviction(self, victims: list[Pod],
-                         gang_cache: dict | None = None) -> list[Pod]:
-        """The victims with every gang mate of each, once each."""
+                         gang_cache: dict | None = None,
+                         shrink_uids: set[str] | None = None) -> list[Pod]:
+        """The victims with every gang mate of each, once each; a shrink
+        victim without its mates."""
         out: list[Pod] = []
         seen: set[str] = set()
         for v in victims:
-            for m in self._eviction_set(v, gang_cache):
+            for m in self._eviction_set(v, gang_cache, shrink_uids):
                 if m.metadata.uid not in seen:
                     seen.add(m.metadata.uid)
                     out.append(m)
@@ -434,27 +442,53 @@ class CapacityScheduling:
         return (num_violating, max(priorities), sum(priorities),
                 len(victims), name)
 
-    def _evict_all(self, victims: list[Pod]) -> None:
+    def _evict_all(self, victims: list[Pod],
+                   shrink_uids: set[str] | None = None) -> None:
         """Evict each gang once (the list is already gang-expanded, and
-        ``evict_gang`` deletes every member)."""
+        ``evict_gang`` deletes every member).  A shrink victim, an
+        elastic member above its gang's min, is deleted alone, and its
+        gang's survivors get the dp-resize stamp: the job loses one
+        replica, not its run."""
         if self._api is None:
             return
         evicted_gangs: set[tuple[str, str]] = set()
+        shrunk: dict[tuple[str, str], int] = {}
         for v in victims:
             gang = gang_name(v)
+            if shrink_uids and v.metadata.uid in shrink_uids and gang:
+                key = (v.metadata.namespace, gang)
+                try:
+                    self._api.delete(KIND_POD, v.metadata.name,
+                                     v.metadata.namespace)
+                except NotFound:
+                    pass
+                shrunk[key] = shrunk.get(key, 0) + 1
+                continue
             if gang:
                 key = (v.metadata.namespace, gang)
                 if key in evicted_gangs:
                     continue
                 evicted_gangs.add(key)
             evict_gang(self._api, v)
+        for (ns, gang), n in sorted(shrunk.items()):
+            # a gang both shrunk and evicted whole in one walk died whole,
+            # and record_shrink records nothing for it
+            record_shrink(self._api, ns, gang, n)
 
     def _select_victims_on_node(
             self, state: CycleState, pod: Pod, node_info: NodeInfo,
-            pdbs: list | None = None, gang_cache: dict | None = None
+            pdbs: list | None = None, gang_cache: dict | None = None,
+            shrink_out: set[str] | None = None
     ) -> tuple[list[Pod], int, Status]:
         """Reference SelectVictimsOnNode (capacity_scheduling.go:468-675),
-        on clones, so a node that fails leaves no trace."""
+        on clones, so a node that fails leaves no trace.
+
+        Shrink before evict: members of an elastic gang above its min are
+        walked first and their eviction takes no mate; at most (live
+        members - min) of one gang shrink in a walk, the rest are evicted
+        with their gang.  The shrink victims' uids go to ``shrink_out``.
+        Which pods are eligible does not change, so the victim
+        prescreen's superset contract holds."""
         base_snapshot: ElasticQuotaInfos = state[ELASTIC_QUOTA_SNAPSHOT_KEY]
         pfs: PreFilterState = state[PRE_FILTER_STATE_KEY]
         if not any(victim_prescreen(pod, pv, base_snapshot)
@@ -488,18 +522,40 @@ class CapacityScheduling:
         def restart_cost(p: Pod) -> float:
             return job_progress(p) if displaced_preemptor else 0.0
 
+        # each elastic gang's shrink budget left in this walk
+        shrink_left: dict[tuple[str, str], int] = {}
+
+        def headroom(pv: Pod) -> int:
+            g = gang_name(pv)
+            if not g or elastic_replica_bounds(pv) is None:
+                return 0
+            key = (pv.metadata.namespace, g)
+            if key not in shrink_left:
+                shrink_left[key] = shrink_headroom(
+                    [m for m in self._eviction_set(pv, gang_cache)
+                     if m.status.phase in (PENDING, RUNNING)])
+            return shrink_left[key]
+
         # In-quota serving pods are never victims; an over-quota one is
-        # reclaimable like any borrower.  The walk takes best-effort
-        # before batch before serving, then lowest priority first
-        # (reference :516), then the newest.
+        # reclaimable like any borrower.  The walk takes shrinkable
+        # elastic members first, then best-effort before batch before
+        # serving, then lowest priority first (reference :516), then the
+        # newest.
         node_pods = sorted(
             (p for p in ni.pods
              if workload_tier(p) != C.TIER_SERVING or is_over_quota(p)),
-            key=lambda p: (-tier_rank(p), p.spec.priority, restart_cost(p),
+            key=lambda p: (0 if headroom(p) > 0 else 1, -tier_rank(p),
+                           p.spec.priority, restart_cost(p),
                            -p.metadata.creation_timestamp))
         potential: list[Pod] = []
 
         def select(pv: Pod) -> None:
+            # a victim takes one unit of its gang's shrink budget while
+            # there is one left: it then dies alone
+            if headroom(pv) > 0:
+                shrink_left[(pv.metadata.namespace, gang_name(pv))] -= 1
+                if shrink_out is not None:
+                    shrink_out.add(pv.metadata.uid)
             potential.append(pv)
             remove(pv)
 
@@ -563,7 +619,7 @@ class CapacityScheduling:
         # first, while capacity is freest; those that stay despite a
         # budget count for the node choice.
         violating, non_violating = self._split_pdb_violation(
-            potential, pdbs, gang_cache)
+            potential, pdbs, gang_cache, shrink_out)
         victims: list[Pod] = []
         num_violating = 0
 
@@ -580,9 +636,12 @@ class CapacityScheduling:
             return True
 
         # the walk's order inverted: the most protected tier, highest
-        # priority and most progress get their room back first, so the
-        # reprieve does not undo the walk's order
-        by_prio = lambda p: (tier_rank(p), -p.spec.priority,  # noqa: E731
+        # priority and most progress get their room back first, shrink
+        # victims (the cheapest rung) last, so the reprieve does not undo
+        # the walk's order
+        shrunk = shrink_out or set()
+        by_prio = lambda p: (p.metadata.uid in shrunk,  # noqa: E731
+                             tier_rank(p), -p.spec.priority,
                              -restart_cost(p), p.metadata.creation_timestamp)
         for pv in sorted(violating, key=by_prio):
             if not reprieve(pv):
@@ -591,9 +650,11 @@ class CapacityScheduling:
             reprieve(pv)
 
         # a reprieved pod whose gang mate stayed a victim dies with it:
-        # fold it back, so the counts are the true eviction's
+        # fold it back, so the counts are the true eviction's.  A shrink
+        # victim dooms no mate.
         doomed_gangs = {(v.metadata.namespace, gang_name(v))
-                        for v in victims if gang_name(v)}
+                        for v in victims
+                        if gang_name(v) and v.metadata.uid not in shrunk}
         if doomed_gangs:
             victim_uids = {v.metadata.uid for v in victims}
             violating_uids = {p.metadata.uid for p in violating}
@@ -609,12 +670,15 @@ class CapacityScheduling:
                         num_violating += 1
         return victims, num_violating, Status.ok()
 
-    def _eviction_set(self, victim: Pod,
-                      cache: dict | None = None) -> list[Pod]:
+    def _eviction_set(self, victim: Pod, cache: dict | None = None,
+                      shrink_uids: set[str] | None = None) -> list[Pod]:
         """What evicting ``victim`` takes: its whole gang, wherever the
-        members run.  ``cache`` memoises each gang's members."""
+        members run, unless it is a shrink victim, which goes alone.
+        ``cache`` memoises each gang's members."""
         g = gang_name(victim)
-        if not g or self._api is None:
+        if not g or self._api is None or (
+                shrink_uids is not None
+                and victim.metadata.uid in shrink_uids):
             return [victim]
         key = (victim.metadata.namespace, g)
         members = cache.get(key) if cache is not None else None
@@ -630,7 +694,8 @@ class CapacityScheduling:
 
     def _split_pdb_violation(
             self, pods: list[Pod], pdbs: list | None,
-            gang_cache: dict | None = None
+            gang_cache: dict | None = None,
+            shrink_uids: set[str] | None = None
     ) -> tuple[list[Pod], list[Pod]]:
         """filterPodsWithPDBViolation, gang-aware: a candidate violates
         when a budget it matches lacks room for every Running pod of its
@@ -646,7 +711,7 @@ class CapacityScheduling:
         non_violating: list[Pod] = []
         for pod in pods:
             needed: dict[int, list[str]] = {}
-            for m in self._eviction_set(pod, gang_cache):
+            for m in self._eviction_set(pod, gang_cache, shrink_uids):
                 if m.status.phase != RUNNING:
                     continue
                 for i, pdb in enumerate(pdbs):

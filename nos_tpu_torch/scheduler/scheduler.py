@@ -30,10 +30,15 @@ demand take ``quota_stranded`` and ``gang_wait`` up to its own size,
 and the rest is ``idle_no_demand``.  Warm spares and nodes without a
 GPU count stay outside.
 
+After the waterfall, the elastic grow pass (``scheduler/elastic.py``)
+clones one more member of an elastic gang whose NVLink domain still
+holds one, up to ``elastic_grow_budget_per_cycle`` gangs a cycle; the
+clones are the next cycle's demand.
+
 Not here (ROADMAP item 7.2): the gang windows and their lease, drain
 preemption (with its ledger hold) and duration-aware backfill, which
 serve a gang consuming a multi-node slice (no H100 resource spans
-nodes); elastic grow (item 4).  The JAX scheduler's native prescreen
+nodes).  The JAX scheduler's native prescreen
 and native choose (item 23) are not ported either.  The score's lease
 and window terms read zero without them, so the score is the JAX key on
 nodes with no window labels.
@@ -58,6 +63,7 @@ from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES
 from nos_tpu_torch.obs.ledger import get_ledger, pod_chip_equiv
 from nos_tpu_torch.obs.trace import bump as obs_bump, span as obs_span
 from nos_tpu_torch.scheduler.cache import SchedulerCache
+from nos_tpu_torch.scheduler.elastic import maybe_grow
 from nos_tpu_torch.scheduler.capacityscheduling import (
     DISPLACED_CONTEXT_KEY, VIEW_EPOCH_CONTEXT_KEY, CapacityScheduling,
 )
@@ -152,6 +158,7 @@ class Scheduler:
                  capacity: CapacityScheduling,
                  preempt_budget_per_cycle: int | None = None,
                  displaced_age_cap_s: float | None = None,
+                 elastic_grow_budget_per_cycle: int = 1,
                  clock: Callable[[], float] = time.time) -> None:
         self._api = api
         self._framework = framework
@@ -168,6 +175,8 @@ class Scheduler:
             DISPLACED_AGE_CAP_S if displaced_age_cap_s is None
             else displaced_age_cap_s)
         self._preempt_budget = self._preempt_budget_per_cycle
+        # elastic gangs the cycle-end grow pass may grow (0 = off)
+        self._elastic_grow_budget = elastic_grow_budget_per_cycle
         # namespace -> the priority of its quota-rejected claimant, this
         # cycle (``_record_quota_hol``)
         self._quota_hol: dict[str, int] = {}
@@ -472,6 +481,12 @@ class Scheduler:
         # before the cycle's view drops: the waterfall reads the view
         # after this cycle's binds and this cycle's verdicts
         self._observe_waste(pending_counts)
+        # the grow pass last: its clones are the next cycle's demand and
+        # must not move this cycle's waterfall or gauges.  A fleet with no
+        # gang pod (the cache's index) skips the pass's scan of every pod.
+        if self._elastic_grow_budget > 0 and self._cache.has_gang_pods():
+            maybe_grow(self._api, self._framework, self._cycle_lister(),
+                       budget=self._elastic_grow_budget, clock=self._clock)
         return bound
 
     # -- quota head-of-line -------------------------------------------------

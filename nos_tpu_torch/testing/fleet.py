@@ -71,6 +71,26 @@ displaced stamp): the recovery run must lose at most
 RECOVERY_LOST_HALVING of the baseline's GPU-seconds (the non-spare
 nodes' GPUs short of the fleet's, integrated past RECOVERY_WARMUP_S).
 
+The defrag fleet (``defrag_fleet_spec``, ``run_defrag_fleet``) is
+``bench_defrag.py``'s trace on the MIG stand-in (the H100 restricted to
+{7g.80gb, 3g.40gb}, ``defrag_standin``, on which the JAX package's v5e
+restricted to {2x4, 2x2} decides alike), through the MIG loop: 24 virgin
+one-GPU nodes in one NVLink domain (one JAX host block a GPU), a
+SliceAgent over ``FakeGpuRuntime`` on each, the MIG partitioner
+controller with the defragmenter at the bench's knobs, and the
+scheduler with its grow pass.  The bench's classes map as the stand-in
+allows: its 1x2 filler and burst are 3g.40gb (a 2x2: the stand-in has
+no 1x2), its 2x4 big a 7g.80gb; two elastic sponge gangs of 3g.40gb
+members (min 2, max 60) run the whole trace.  Its phases, in-flight
+targets (in the bench's chip equivalents: a 3g.40gb 4, a GPU 8) and
+durations are the bench's.  Cut: the 2-host gang class, drain
+preemption and ``shard_chips_per_host`` (ROADMAP item 7.2), and the
+bench's 0.25 s tick, which is 1 s here (its 300 s trace kept), so the
+CPU test that holds it to JAX stays under a minute.  As in the bench it
+runs three times: defrag and grow on; the baseline with both off; and
+propose-only (an infinite payback threshold, grow off), whose decisions
+must equal the baseline's.
+
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
 plan to what both packages must agree on, and ``plan_digest`` hashes it;
@@ -1149,3 +1169,516 @@ def parallel_plan_summary(desired, records) -> dict:
             "journal": [[c, s, {k: v for k, v in sorted(a.items())
                                 if k != "wall_ms"}]
                         for c, s, a in records]}
+
+
+# -- the defrag fleet --------------------------------------------------------
+
+# bench_defrag.py's trace on the MIG stand-in (24 one-GPU nodes, one a JAX
+# host block) on a one-second tick; its knobs as the bench sets them
+DEFRAG_NODES = 24
+DEFRAG_TICK_S = 1.0
+DEFRAG_TRACE_S = 300.0
+DEFRAG_WARMUP_S = 60.0
+DEFRAG_BATCH_IDLE_S = 0.5
+DEFRAG_BATCH_TIMEOUT_S = 2.0
+DEFRAG_INTERVAL_S = 6.0
+DEFRAG_PAYBACK_MIN = 1.2
+DEFRAG_DRAIN_TIMEOUT_S = 30.0
+DEFRAG_NAMESPACE = "work"
+DEFRAG_DOMAIN = "nvl-0"
+# the bench's gates: the frag halving, the churn bounds and the floor
+FRAG_HALVING_TARGET = 0.50
+MAX_MIGRATIONS_PER_JOB = 2
+MAX_TOTAL_MIGRATIONS = 40
+UTILIZATION_MIN_TARGET = 0.95
+# the bench's 3 s of samples for the utilisation floor's rolling mean
+DEFRAG_UTIL_WINDOW_S = 5.0
+# the elastic sponge gangs: 3g.40gb members, min 2, max sized to the pod
+DEFRAG_ELASTIC_MIN, DEFRAG_ELASTIC_MAX = 2, 60
+DEFRAG_SPONGES = ("sponge-a", "sponge-b")
+DEFRAG_WHOLE, DEFRAG_HALF = "7g.80gb", "3g.40gb"
+# class -> (profile, priority, duration range s): the bench's 1x2 filler
+# and burst are 3g.40gb (the stand-in has no 1x2), its 2x4 big 7g.80gb
+DEFRAG_CLASSES = {"filler": (DEFRAG_HALF, 0, (120.0, 240.0)),
+                  "big": (DEFRAG_WHOLE, 5, (50.0, 90.0)),
+                  "burst": (DEFRAG_HALF, 10, (10.0, 20.0))}
+# phase start -> {class: in-flight target}, the bench's, in its chip
+# equivalents (DEFRAG_UNITS); its 2-host gang class is cut
+DEFRAG_PHASES = ((0.0, {"filler": 150.0, "big": 0.0, "burst": 0.0}),
+                 (40.0, {"filler": 0.0, "big": 56.0, "burst": 0.0}),
+                 (190.0, {"filler": 0.0, "big": 40.0, "burst": 12.0}))
+# the trace's unit, the bench's chip: a GPU (a host block) 8, a 3g.40gb
+# 4 (a 2x2); the targets and the utilisation are counted in it
+DEFRAG_UNITS = {DEFRAG_WHOLE: 8.0, DEFRAG_HALF: 4.0}
+# the journal's records the defrag fleet's summary keeps, and the
+# weighted figures it leaves out (each package weighs in its own unit)
+DEFRAG_RECORDS = ("defrag-proposed", "defrag-applied", "defrag-rejected",
+                  "gang-resized")
+DEFRAG_WEIGHED = ("unlocked_chips", "cost_chips")
+
+
+def defrag_standin() -> GpuModel:
+    """The H100 80GB restricted to {7g.80gb, 3g.40gb}, the MIG stand-in on
+    which the JAX package's v5e restricted to {2x4, 2x2} decides alike."""
+    import dataclasses
+
+    return dataclasses.replace(H100_80GB, mig_profiles=tuple(
+        p for p in H100_80GB.mig_profiles
+        if p.name in (DEFRAG_WHOLE, DEFRAG_HALF)))
+
+
+def defrag_fleet_spec(seed: int = 0) -> dict:
+    """The defrag fleet's spec: DEFRAG_NODES virgin one-GPU nodes in one
+    NVLink domain, each with its host index; ``seed`` draws the jobs'
+    durations."""
+    return {"seed": seed,
+            "nodes": [{"name": f"host-{i}", "host_index": i}
+                      for i in range(DEFRAG_NODES)]}
+
+
+class _DefragTrace:
+    """bench_defrag.py's ``Sim`` over an ``ops`` object: the sponge
+    gangs, the phases' in-flight targets, completions, the workload
+    controller (a moved job comes back with its creation time; a sponge
+    is held at its min) and the utilisation samples.  The trace decides
+    only from what ``ops`` shows, so two packages that decide alike run
+    the same trace."""
+
+    def __init__(self, spec: dict, ops) -> None:
+        self.ops = ops
+        self.rng = np.random.default_rng(spec["seed"])
+        self.jobs: dict[str, dict] = {}
+        self.pod_job: dict[str, dict] = {}
+        self.seq = 0
+        self.completed = 0
+        self.latencies: list[float] = []
+        self.util_raw: list[float] = []
+        self.util: list[float] = []
+        self.total = DEFRAG_UNITS[DEFRAG_WHOLE] * len(spec["nodes"])
+        self.window = max(1, int(round(DEFRAG_UTIL_WINDOW_S
+                                       / DEFRAG_TICK_S)))
+        self.ticks: list[list] = []
+        self.prev: dict[str, str] = {}
+        self.seen_records = 0
+        # every pod a defrag proposal moved: (pod, its job's progress
+        # then, its job's class)
+        self.evictions: list[tuple[str, float, str]] = []
+        self.cycle_ms: list[float] = []
+        self.poll_ms: list[float] = []
+        for n in spec["nodes"]:
+            ops.add_node(n)
+        for name in DEFRAG_SPONGES:
+            ops.create_group(name, DEFRAG_ELASTIC_MIN)
+            job = {"name": name, "kind": "elastic", "pods": [],
+                   "duration": 2 * DEFRAG_TRACE_S, "created": 0.0,
+                   "profile": DEFRAG_HALF, "priority": 0, "bound_at": None}
+            for i in range(DEFRAG_ELASTIC_MIN):
+                pod = f"{name}-{i}"
+                self.create(job, pod)
+                job["pods"].append(pod)
+                self.pod_job[pod] = job
+            self.jobs[name] = job
+
+    def now(self) -> float:
+        return self.ops.now[0]
+
+    def create(self, job: dict, pod: str) -> None:
+        elastic = job["kind"] == "elastic"
+        self.ops.create_pod({
+            "name": pod, "profile": job["profile"],
+            "priority": job["priority"], "created": job["created"],
+            "gang": job["name"] if elastic else "",
+            "elastic": (DEFRAG_ELASTIC_MIN, DEFRAG_ELASTIC_MAX)
+            if elastic else None})
+
+    def progress(self, name: str) -> float:
+        """The defragmenter's restart-cost signal, the bench's: the
+        fraction of its job's duration since it bound."""
+        job = self.pod_job.get(name)
+        if job is None or job["bound_at"] is None or job["duration"] <= 0:
+            return 0.0
+        return min(1.0, max(0.0, (self.now() - job["bound_at"])
+                            / job["duration"]))
+
+    def targets(self) -> dict[str, float]:
+        current = DEFRAG_PHASES[0][1]
+        for start, targets in DEFRAG_PHASES:
+            if self.now() >= start:
+                current = targets
+        return current
+
+    def spawn(self) -> None:
+        targets = self.targets()
+        footprint = {cls: 0.0 for cls in targets}
+        for name, _, _, _ in self.ops.pods():
+            job = self.pod_job.get(name)
+            if job is not None and job["kind"] in footprint:
+                footprint[job["kind"]] += DEFRAG_UNITS[job["profile"]]
+        for cls, target in targets.items():
+            while footprint[cls] < target:
+                footprint[cls] += self.spawn_job(cls)
+
+    def spawn_job(self, cls: str) -> float:
+        profile, priority, (lo, hi) = DEFRAG_CLASSES[cls]
+        self.seq += 1
+        name = f"{cls}-{self.seq}"
+        job = {"name": name, "kind": cls, "pods": [f"{name}-0"],
+               "duration": float(self.rng.uniform(lo, hi)),
+               "created": self.now(), "profile": profile,
+               "priority": priority, "bound_at": None}
+        self.create(job, job["pods"][0])
+        self.pod_job[job["pods"][0]] = job
+        self.jobs[name] = job
+        return DEFRAG_UNITS[profile]
+
+    def complete(self) -> None:
+        for job in list(self.jobs.values()):
+            if job["bound_at"] is None \
+                    or self.now() < job["bound_at"] + job["duration"]:
+                continue
+            doomed = set(job["pods"]) | {
+                name for name, _, _, gang in self.ops.pods()
+                if gang == job["name"]}
+            for name in sorted(doomed):
+                self.ops.delete_pod(name)
+                self.pod_job.pop(name, None)
+            if job["kind"] == "elastic":
+                self.ops.delete_group(job["name"])
+            del self.jobs[job["name"]]
+            self.completed += 1
+
+    def requeue(self) -> None:
+        """The workload controller: a moved or preempted job comes back
+        with its creation time and loses its progress; a sponge is only
+        kept at its min (losing a member is the shrink contract)."""
+        rows = self.ops.pods()
+        live = {name for name, _, _, _ in rows}
+        for job in self.jobs.values():
+            if job["kind"] == "elastic":
+                alive = sum(gang == job["name"] for _, _, _, gang in rows)
+                for name in job["pods"]:
+                    if alive >= DEFRAG_ELASTIC_MIN:
+                        break
+                    if name not in live:
+                        self.create(job, name)
+                        self.pod_job[name] = job
+                        alive += 1
+                        job["bound_at"] = None
+                continue
+            missing = [n for n in job["pods"] if n not in live]
+            if not missing:
+                continue
+            job["bound_at"] = None
+            for name in missing:
+                self.create(job, name)
+                self.pod_job[name] = job
+
+    def record_binds(self) -> None:
+        rows = self.ops.pods()
+        bound = {name for name, node, phase, _ in rows
+                 if node and phase == "Running"}
+        for job in self.jobs.values():
+            if job["bound_at"] is None and all(n in bound
+                                               for n in job["pods"]):
+                job["bound_at"] = self.now()
+                if job["kind"] != "elastic":
+                    self.latencies.append(self.now() - job["created"])
+        now = {name: node for name, node, _, _ in rows}
+        binds = sorted(n for n, node in now.items()
+                       if node and not self.prev.get(n))
+        gone = sorted(set(self.prev) - set(now))
+        if binds or gone:
+            self.ticks.append([self.now(), binds, gone])
+        self.prev = now
+        # a pod outside the job table is a grown sponge member: a half
+        used = sum(DEFRAG_UNITS[self.pod_job[n]["profile"]]
+                   if n in self.pod_job else DEFRAG_UNITS[DEFRAG_HALF]
+                   for n in bound)
+        self.util_raw.append(min(1.0, used / self.total))
+        if self.now() >= DEFRAG_WARMUP_S:
+            window = self.util_raw[-self.window:]
+            self.util.append(sum(window) / len(window))
+
+    def note_evictions(self) -> None:
+        """Each defrag record the poll wrote; a move's victim with its
+        job's progress at that moment (the spare-progress screen)."""
+        records = self.ops.records()
+        for category, _, attrs in records[self.seen_records:]:
+            if category != "defrag-applied":
+                continue
+            for key in attrs.get("moved", []):
+                name = key.split("/", 1)[1]
+                job = self.pod_job.get(name)
+                self.evictions.append((name, self.progress(name),
+                                       job["kind"] if job else ""))
+        self.seen_records = len(records)
+
+    def tick(self) -> None:
+        self.complete()
+        self.spawn()
+        t0 = time.perf_counter()
+        self.ops.cycle()
+        self.cycle_ms.append((time.perf_counter() - t0) * 1e3)
+        self.requeue()
+        t0 = time.perf_counter()
+        self.ops.poll()
+        self.poll_ms.append((time.perf_counter() - t0) * 1e3)
+        self.note_evictions()
+        self.ops.tick()
+        self.record_binds()
+
+    def run(self) -> dict:
+        while self.now() < DEFRAG_TRACE_S:
+            self.ops.now[0] += DEFRAG_TICK_S
+            self.tick()
+        records = self.ops.records()
+        by_job: dict[str, int] = {}
+        moved = 0
+        for category, _, attrs in records:
+            if category != "defrag-applied":
+                continue
+            for key in attrs.get("moved", []):
+                moved += 1
+                job = key.split("/", 1)[1].rsplit("-", 1)[0]
+                by_job[job] = by_job.get(job, 0) + 1
+        resizes = [a for c, _, a in records if c == "gang-resized"]
+        count = {c: sum(r[0] == c for r in records) for c in DEFRAG_RECORDS}
+        summary = {
+            "ticks": self.ticks,
+            "records": [[c, s, {k: v for k, v in sorted(a.items())
+                                if k not in DEFRAG_WEIGHED}]
+                        for c, s, a in records],
+            "completed": self.completed,
+            "latencies": self.latencies,
+            "utilization": self.util,
+        }
+        return {
+            "summary": summary,
+            "proposed": count["defrag-proposed"],
+            "applied": count["defrag-applied"],
+            "rejected": count["defrag-rejected"],
+            "migrated_pods": moved,
+            "migrations_by_job_max": max(by_job.values(), default=0),
+            "gpus_unlocked": sum(a.get("unlocked_chips", 0.0)
+                                 for c, _, a in records
+                                 if c == "defrag-applied"),
+            "grows": sum(a.get("direction") == "grow" for a in resizes),
+            "shrinks": sum(a.get("direction") == "shrink" for a in resizes),
+            "evictions": self.evictions,
+            "utilization_min": min(self.util) if self.util else 0.0,
+            "utilization_mean": (sum(self.util) / len(self.util)
+                                 if self.util else 0.0),
+            "jobs_completed": self.completed,
+            "jobs_bound": len(self.latencies),
+            "cycle_ms": self.cycle_ms, "poll_ms": self.poll_ms,
+            "ticks": len(self.poll_ms),
+        }
+
+
+def drive_defrag_fleet(spec: dict, ops) -> dict:
+    """The defrag fleet's trace over one package's loop.  ``ops`` gives
+    ``now`` (a one-element list, the loop's clock), ``add_node(n)`` (a
+    virgin node and its agent), ``create_group(name, min_member)``,
+    ``delete_group(name)``, ``create_pod(p)`` (``p``: name, profile,
+    priority, created, gang, elastic (min, max) or None),
+    ``delete_pod(name)``, ``cycle()`` (the scheduler), ``poll()`` (the
+    controller, the defragmenter inside it), ``tick()`` (every agent),
+    ``pods()`` ((name, node, phase, gang) rows) and ``records()`` (the
+    DEFRAG_RECORDS as (category, subject, attrs), in the port's names).
+    ``ops`` is built with ``progress`` (pod name -> the trace's restart
+    cost signal) as its defragmenter's progress function.  Returns the
+    summary both packages must agree on and the run's figures."""
+    return _DefragTrace(spec, ops).run()
+
+
+class PortDefragOps:
+    """The port's loop for ``drive_defrag_fleet``: node controller with
+    the virgin-node initializer, pod controller, the MIG partitioner
+    controller from its factory on the stand-in (the defragmenter on
+    with ``defrag``, at ``payback_min``, or never built), a SliceAgent
+    over ``FakeGpuRuntime`` on each node, and ``build_scheduler`` (its
+    grow pass on with ``grow``), all on one virtual clock.  It times each
+    plan cycle (``plan_ms``, the controller's plan and actuation, the
+    defragmenter's step left out) and each defragmenter step
+    (``defrag_ms``) on the host's counter."""
+
+    def __init__(self, progress, defrag: bool = True,
+                 payback_min: float = DEFRAG_PAYBACK_MIN,
+                 grow: bool = True) -> None:
+        from nos_tpu_torch.cmd.assembly import build_scheduler
+        from nos_tpu_torch.controllers.node_controller import NodeController
+        from nos_tpu_torch.controllers.pod_controller import PodController
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.obs import journal as J
+        from nos_tpu_torch.partitioning.slicepart import (
+            SliceNodeInitializer, new_slice_partitioner_controller)
+        from nos_tpu_torch.topology.known import GpuModelRegistry
+
+        self.model = defrag_standin()
+        registry = GpuModelRegistry(models={self.model.name: self.model})
+        self.now = [0.0]
+        clock = lambda: self.now[0]  # noqa: E731
+        self.journal = J.DecisionJournal(maxlen=1 << 19, clock=clock)
+        self.api = APIServer()
+        state = ClusterState()
+        NodeController(self.api, state,
+                       SliceNodeInitializer(self.api, registry)).bind()
+        PodController(self.api, state).bind()
+        self.controller = new_slice_partitioner_controller(
+            self.api, state, batch_timeout_s=DEFRAG_BATCH_TIMEOUT_S,
+            batch_idle_s=DEFRAG_BATCH_IDLE_S, defrag_enabled=defrag,
+            defrag_payback_min=payback_min,
+            defrag_interval_s=DEFRAG_INTERVAL_S,
+            defrag_drain_timeout_s=DEFRAG_DRAIN_TIMEOUT_S,
+            defrag_progress_fn=lambda pod: progress(pod.metadata.name),
+            registry=registry, clock=clock)
+        self.controller.bind()
+        self.sched = build_scheduler(
+            self.api, elastic_grow_budget_per_cycle=1 if grow else 0,
+            clock=clock)
+        self._agents: dict = {}
+        self.plan_ms: list[float] = []
+        self.defrag_ms: list[float] = []
+        proposer = self.controller._defrag
+        if proposer is not None:
+            step = proposer.step
+
+            def timed_step(snapshot, pending):
+                t0 = time.perf_counter()
+                try:
+                    return step(snapshot, pending)
+                finally:
+                    self.defrag_ms.append((time.perf_counter() - t0) * 1e3)
+
+            proposer.step = timed_step
+        plan = self.controller.process_pending_pods
+
+        def timed_plan(pods=None):
+            t0, n = time.perf_counter(), len(self.defrag_ms)
+            try:
+                return plan(pods)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                self.plan_ms.append(ms - sum(self.defrag_ms[n:]))
+
+        self.controller.process_pending_pods = timed_plan
+
+    def add_node(self, n: dict) -> None:
+        from nos_tpu_torch.controllers.sliceagent import SliceAgent
+        from nos_tpu_torch.device.fake import FakeGpuRuntime, FakePodResources
+
+        self.api.create("Node", make_gpu_node(
+            n["name"], model=self.model, gpus=1, partitioning=C.MIG_KIND,
+            domain=DEFRAG_DOMAIN, host_index=n["host_index"]))
+        agent = SliceAgent(self.api, n["name"],
+                           FakeGpuRuntime(self.model, 1), FakePodResources())
+        agent.start()
+        self._agents[n["name"]] = agent
+
+    def create_group(self, name: str, min_member: int) -> None:
+        from .factory import make_pod_group
+
+        self.api.create("PodGroup", make_pod_group(
+            name, min_member, namespace=DEFRAG_NAMESPACE))
+
+    def delete_group(self, name: str) -> None:
+        from nos_tpu_torch.kube.client import NotFound
+
+        try:
+            self.api.delete("PodGroup", name, DEFRAG_NAMESPACE)
+        except NotFound:
+            pass
+
+    def create_pod(self, p: dict) -> None:
+        labels = {C.LABEL_POD_GROUP: p["gang"]} if p["gang"] else None
+        annots = None
+        if p["elastic"]:
+            lo, hi = p["elastic"]
+            annots = {C.ANNOT_ELASTIC: C.ELASTIC_DP,
+                      C.ANNOT_MIN_REPLICAS: str(lo),
+                      C.ANNOT_MAX_REPLICAS: str(hi)}
+        self.api.create("Pod", make_mig_pod(
+            p["profile"], name=p["name"], namespace=DEFRAG_NAMESPACE,
+            priority=p["priority"], creation_timestamp=p["created"],
+            labels=labels, annotations=annots))
+
+    def delete_pod(self, name: str) -> None:
+        from nos_tpu_torch.kube.client import NotFound
+
+        try:
+            self.api.delete("Pod", name, DEFRAG_NAMESPACE)
+        except NotFound:
+            pass
+
+    def cycle(self) -> None:
+        self.sched.run_cycle()
+
+    def poll(self) -> None:
+        self.controller.process_if_ready()
+
+    def tick(self) -> None:
+        for name in sorted(self._agents):
+            self._agents[name].tick()
+
+    def pods(self) -> list[tuple[str, str, str, str]]:
+        return sorted((p.metadata.name, p.spec.node_name, p.status.phase,
+                       p.metadata.labels.get(C.LABEL_POD_GROUP, ""))
+                      for p in self.api.list("Pod"))
+
+    def records(self) -> list:
+        return [[r.category, r.subject, dict(sorted(r.attrs.items()))]
+                for r in self.journal.events()
+                if r.category in DEFRAG_RECORDS]
+
+
+def _defrag_run(spec: dict, defrag: bool = True,
+                payback_min: float = DEFRAG_PAYBACK_MIN,
+                grow: bool = True) -> dict:
+    """One ``drive_defrag_fleet`` on the port under a journal and a waste
+    ledger of its own on the run's clock (``waste``, the ledger's
+    report; one that does not conserve raises), with the journal's
+    decisions (``decisions``: every record but the defragmenter's, plan
+    ids out) for the identity of the baseline and the propose-only run."""
+    trace = {}
+    ops = PortDefragOps(lambda name: trace["t"].progress(name), defrag,
+                        payback_min, grow)
+    ledger = ChipSecondLedger(clock=lambda: ops.now[0])
+    try:
+        with obs_scoped(journal=ops.journal, ledger=ledger):
+            trace["t"] = _DefragTrace(spec, ops)
+            out = trace["t"].run()
+    finally:
+        ops.sched.close()
+    out["waste"] = check_conservation(ledger.report(), "the defrag fleet")
+    out["plan_ms"], out["defrag_ms"] = ops.plan_ms, ops.defrag_ms
+    out["decisions"] = [
+        [r.category, r.subject, sorted((k, str(v)) for k, v in r.attrs.items()
+                                       if k != "plan_id")]
+        for r in ops.journal.events()
+        if r.category not in DEFRAG_RECORDS[:3]]
+    return out
+
+
+def run_defrag_fleet(spec: dict) -> dict:
+    """The defrag fleet on the port three times, as bench_defrag.py runs
+    it: defrag and grow on; the baseline (``baseline``) with both off;
+    and propose-only (``propose_only``: defrag on at an infinite payback
+    threshold, grow off), whose decisions must equal the baseline's.
+    ``frag_ratio`` is the defrag run's frag_stranded GPU-seconds over
+    the baseline's."""
+    out = _defrag_run(spec)
+    base = _defrag_run(spec, defrag=False, grow=False)
+    only = _defrag_run(spec, payback_min=float("inf"), grow=False)
+    frag = out["waste"]["fleet"]["chip_seconds"].get("frag_stranded", 0.0)
+    base_frag = base["waste"]["fleet"]["chip_seconds"].get(
+        "frag_stranded", 0.0)
+    out["baseline"] = {k: base[k] for k in (
+        "waste", "utilization_min", "utilization_mean", "jobs_completed",
+        "jobs_bound", "cycle_ms", "poll_ms", "plan_ms")}
+    out["propose_only"] = {k: only[k] for k in (
+        "proposed", "applied", "rejected", "cycle_ms", "poll_ms", "plan_ms",
+        "defrag_ms")}
+    out["identical"] = base["decisions"] == only["decisions"]
+    out["decisions"] = len(base["decisions"])
+    out["frag_ratio"] = frag / base_frag if base_frag > 0 else None
+    return out

@@ -131,6 +131,34 @@ def workload_class(pod: Pod) -> str:
     return base
 
 
+def is_elastic_dp(pod: Pod) -> bool:
+    """True when the pod takes part in the malleable-gang contract
+    (``nos.tpu/elastic: "dp"`` and a pod-group label): the control plane
+    may grow or shrink its gang's dp axis within the replica bounds.  An
+    elastic annotation without a gang reads rigid."""
+    return (pod.metadata.annotations.get(C.ANNOT_ELASTIC, "")
+            == C.ELASTIC_DP
+            and bool(pod.metadata.labels.get(C.LABEL_POD_GROUP, "")))
+
+
+def elastic_replica_bounds(pod: Pod) -> tuple[int, int] | None:
+    """(min_replicas, max_replicas) of an elastic dp member, or None when
+    the pod is not elastic or its bounds are absent, not integers or
+    inverted: a malformed contract degrades to rigid, never to
+    unbounded."""
+    if not is_elastic_dp(pod):
+        return None
+    annots = pod.metadata.annotations
+    try:
+        lo = int(annots.get(C.ANNOT_MIN_REPLICAS, ""))
+        hi = int(annots.get(C.ANNOT_MAX_REPLICAS, ""))
+    except ValueError:
+        return None
+    if lo < 1 or hi < lo:
+        return None
+    return lo, hi
+
+
 def is_over_quota(pod: Pod) -> bool:
     return pod.metadata.labels.get(C.LABEL_CAPACITY) == C.CAPACITY_OVER_QUOTA
 

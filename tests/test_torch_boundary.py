@@ -118,7 +118,9 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "cmd.sliceagent", "cmd.metricsexporter",
                    "kube.leaderelection", "kube.webhook", "exporter",
                    "testing.lockcheck", "obs.ledger", "obs.timeseries",
-                   "obs.slo", "obs.explain", "obs.__main__"):
+                   "obs.slo", "obs.explain", "obs.__main__",
+                   "scheduler.elastic", "topology.windows",
+                   "partitioning.core.defrag"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]

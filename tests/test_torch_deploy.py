@@ -170,6 +170,16 @@ class TestValues:
          "displaced_age_cap_s"),
         ("gpuMemoryGBPerGPU", 40, "operator", "gpu_memory_gb_per_gpu"),
         ("sloIntervalSeconds", 2.5, "scheduler", "slo_interval_s"),
+        ("partitioner.defrag.enabled", True, "partitioner",
+         "defrag_enabled"),
+        ("partitioner.defrag.paybackMin", 1.2, "partitioner",
+         "defrag_payback_min"),
+        ("partitioner.defrag.intervalSeconds", 6.0, "partitioner",
+         "defrag_interval_s"),
+        ("partitioner.defrag.drainTimeoutSeconds", 30.0, "partitioner",
+         "defrag_drain_timeout_s"),
+        ("scheduler.elasticGrowBudgetPerCycle", 2, "scheduler",
+         "elastic_grow_budget_per_cycle"),
         ("chipagent.heartbeat", True, "chipagent", "heartbeat"),
         ("sliceagent.model", "nvidia-h100-80gb-hbm3", "sliceagent",
          "model"),
@@ -179,6 +189,29 @@ class TestValues:
         got = configs(render_chart(CHART, context(**{path: value})),
                       tmp_path)
         assert getattr(got[f"nos-tpu-torch-{cfg}-config"], field) == value
+
+    def test_the_defragmenter_and_the_grow_budget_load(self, tmp_path):
+        """defrag_enabled true and a grow budget of 2 load in the port
+        and build the planes: the MIG partitioner's defragmenter (the MPS
+        family has none) and the scheduler's budget."""
+        from nos_tpu_torch.cmd import assembly, scheduler
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.partitioning.state import ClusterState
+
+        got = configs(render_chart(CHART, context(**{
+            "partitioner.defrag.enabled": True,
+            "scheduler.elasticGrowBudgetPerCycle": 2})), tmp_path)
+        part = got["nos-tpu-torch-partitioner-config"]
+        sched = got["nos-tpu-torch-scheduler-config"]
+        assert part.defrag_enabled and sched.elastic_grow_budget_per_cycle \
+            == 2
+        part.leader_election = False
+        _, controllers = assembly.build_partitioner_main(
+            APIServer(), ClusterState(), part)
+        assert [c._defrag is not None for c in controllers] == [True, False]
+        main = scheduler.build_scheduler_main(APIServer(), sched)
+        assert main.scheduler._elastic_grow_budget == 2
+        main.scheduler.close()
 
     def test_the_webhook_off_renders_none(self, tmp_path):
         docs = render_chart(CHART, context(**{
