@@ -398,11 +398,53 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    cycle and the children's walls; the members' runs' launches are the
    kernels line's ``elastic`` path.
 
+16. serving: the serving tier.  (a) On the host, ``testing/fleet.py``'s
+   serving fleets (bench_serving.py's run mapped onto H100 nodes: 24
+   one-GPU MIG nodes of the stand-in {1g.20gb, 3g.40gb, 7g.80gb} and two
+   two-GPU MPS nodes, its quotas, batch and best-effort fillers and the
+   ``chat`` and ``embed`` services on the replica autoscaler; 30 s of
+   its trace at its 0.04 s tick), router off once and router on at 0 and
+   4 router workers (bench_requests.py's run: chat disaggregated,
+   embed aggregated): every run must hash to ``SERVING_FLEET_DIGEST`` or
+   ``REQUEST_FLEET_DIGEST`` (the JAX package's runs of the mapped trace
+   in the CPU tests), conserve its waste waterfall and meet every bench
+   invariant the JAX runs meet (``SERVING_FLEET_MET``,
+   ``REQUEST_FLEET_MET``); the router-on journals must be byte-identical
+   at both worker counts.  (b) The card's node over the REST stub: the
+   mains of phase 14 (one partitioner) and ``python -m
+   nos_tpu_torch.cmd.autoscaler`` (chat: 24 GB shares, 1 to 2 replicas,
+   target 0.4) as processes, namespace serve (min 48 GB) and a
+   best-effort namespace filler (min 32 GB); the autoscaler creates
+   ``chat-r0`` and the smoke two 24 GB fillers, one plan carves three
+   shares and the three bind; each replica's child serves BENCH_350M at
+   full width through ``generate`` under its grant until SIGTERM, each
+   filler's child trains as grant (a)'s.  The request router, a process
+   of its own over ``KubeClient`` on a virtual clock the smoke advances
+   one publish at a time (``serving_story``), takes a seeded burst sized
+   by Little's law on the cost model (BENCH_350M's widths, the card's
+   name, 24 GB): the published load must pass twice the target, the
+   autoscaler create ``chat-r1``, the next scheduler cycle evict
+   ``SERVING_FILLER_VICTIM`` (over quota: serving outranks best-effort)
+   and bind ``chat-r1`` with no new plan; the evicted filler's child
+   exits by SIGTERM; the two replicas' serving windows must overlap; the
+   drain publishes the drained replica's sessions as 0 and the
+   autoscaler must delete ``SERVING_VICTIM`` alone, whose child exits by
+   SIGTERM.  Every distinct state the loop writes must equal
+   ``SERVING_LOOP_WRITES`` (the same story on the JAX package's mains,
+   autoscaler and router in the CPU tests), and every main and the
+   router exit 0.  The line carries the fleets' host ms per router tick,
+   reconcile and scheduler cycle, their requests, scale events, phase
+   p50 and p99 and utilisation floor; creation to bound per pod, load
+   stamp to scale-up to bound, SIGTERM to exit, each child's ms per
+   forward and launches beside the cost model's prefill and decode step
+   at the card's kind; the replicas' children's launches are the kernels
+   line's ``serving`` path.
+
 Then the kernel summary line (one entry per compiled tile, with its
-launches by path, the gang, recovery, mains and elastic children's among
-them; a tile no path ran must have run in the autotune phase), the
-card's ``name, power.limit`` and, last, ``{"ok": true, "device":
-{...}}``.
+launches by path, the gang, recovery, mains, elastic and serving
+children's among them; a tile no path ran must have run in the autotune
+phase), the card's ``name, power.limit`` and, last, ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5003,7 +5045,9 @@ class _Mains:
     under ``tmp``).  Every write the stub commits is recorded in commit
     order with the parent's clock (``_StubTap``)."""
 
-    def __init__(self, stub, tmp: str, model: str, agent_model: str) -> None:
+    def __init__(self, stub, tmp: str, model: str, agent_model: str,
+                 mains: tuple[str, ...] = MAINS,
+                 quotas: tuple = MAINS_QUOTAS) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.api.elasticquota import (
             ElasticQuota, ElasticQuotaSpec)
@@ -5016,6 +5060,7 @@ class _Mains:
 
         self.tmp = pathlib.Path(tmp)
         self.agent_model = agent_model
+        self.mains = mains
         self.client = KubeClient(KubeConfig(server=stub.url))
         self.tap = _StubTap(stub)
         self.log: list[tuple[float, str, str, object]] = []
@@ -5032,7 +5077,7 @@ class _Mains:
         self.client.create(KIND_NODE, make_gpu_node(
             CARD_NODE, model=DEFAULT_REGISTRY.get(model), gpus=1))
         mem = C.RESOURCE_GPU_MEMORY
-        for ns, lo, hi in MAINS_QUOTAS:
+        for ns, lo, hi in quotas:
             self.client.create(KIND_ELASTIC_QUOTA, ElasticQuota(
                 metadata=ObjectMeta(name=ns, namespace=ns),
                 spec=ElasticQuotaSpec(min={mem: lo},
@@ -5061,8 +5106,8 @@ class _Mains:
                 "report_interval_s": MAINS_REPORT_S}, ["--node", CARD_NODE]
         return name, base, []
 
-    def start(self) -> None:
-        for name in MAINS:
+    def start(self, names: tuple[str, ...] | None = None) -> None:
+        for name in self.mains if names is None else names:
             module, cfg, extra = self._config(name)
             path = self.tmp / f"{name}.json"
             path.write_text(json.dumps(cfg))
@@ -5089,12 +5134,14 @@ class _Mains:
         except urllib.error.HTTPError as e:
             return e.code, e.read().decode()
 
-    def wait_healthy(self) -> dict[str, float]:
+    def wait_healthy(self, names: tuple[str, ...] | None = None
+                     ) -> dict[str, float]:
         """Each main's start to /healthz 200 (then /readyz 200), s."""
+        names = self.mains if names is None else names
         healthy: dict[str, float] = {}
         t0 = time.monotonic()
-        while len(healthy) < len(MAINS):
-            for name in MAINS:
+        while len(healthy) < len(names):
+            for name in names:
                 if name in healthy:
                     continue
                 p = self.procs[name]
@@ -5108,10 +5155,10 @@ class _Mains:
                 if code == 200:
                     healthy[name] = time.perf_counter() - p["t0"]
             if time.monotonic() - t0 > MAINS_START_LIMIT_S:
-                fail(f"mains {sorted(set(MAINS) - set(healthy))} gave no "
+                fail(f"mains {sorted(set(names) - set(healthy))} gave no "
                      f"/healthz within {MAINS_START_LIMIT_S} s")
             time.sleep(0.05)
-        for name in MAINS:
+        for name in names:
             code, body = self._get(name, "/readyz")
             if (code, body) != (200, "ok"):
                 fail(f"main {name} answered /readyz with {code} {body!r}")
@@ -6412,6 +6459,1204 @@ def phase_elastic(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The serving phase.  (a) The serving fleets (testing/fleet.py:
+# bench_serving.py's run mapped onto H100 nodes, with the request router
+# off and on) on the host.  (b) The card's node over the REST stub with
+# the mains as processes and the replica autoscaler's main: the request
+# router, a process of its own on a virtual clock, scales the serving
+# replicas by their KV pressure, and each replica's child serves
+# BENCH_350M through ``generate`` under its grant.
+# fleet.plan_digest of each fleet's summary: the JAX package's runs of
+# the mapped trace (tests/test_torch_serving.py, test_torch_requests.py)
+SERVING_FLEET_DIGEST = \
+    "193a87846c9a1b61e5348f6b31f53b98f401e47691168f6f00fa936fa1e9cf65"
+REQUEST_FLEET_DIGEST = \
+    "777d8d9b188c7f8fbd1f5cea72baf6f51387798d3795634f18554f9bb6f01f2f"
+# the benches' invariants the JAX package's runs of the mapped trace
+# meet (the CPU tests hold these to JAX's runs): the smoke holds every
+# one met and reports the others
+SERVING_FLEET_MET = {"no_serving_victim": True,
+                     "replicas_track_within_one": True,
+                     "serving_schedule_p99_under_100ms": True}
+REQUEST_FLEET_MET = SERVING_FLEET_MET | {
+    "request_p99_under_10s": True, "decode_occupancy_under_ceiling": True}
+SERVING_FLEET_RUNS = 2
+SERVING_ROUTER_WORKERS = (0, 4)
+
+
+def serving_invariants(out: dict) -> dict[str, bool]:
+    """bench_serving.py's and bench_requests.py's invariants on one
+    serving fleet run, in virtual time: no serving pod a preemption
+    victim; every service's replicas within one of clamp(ceil(load /
+    target)) in SERVING_TRACK_WITHIN of the samples past the warm-up; the
+    serving binds' schedule latency p99 under SERVING_P99_TARGET_S; with
+    the router, every service's request p99 (phase total) under
+    REQUEST_P99_TARGET_S and chat's mean decode occupancy under
+    SERVING_OCC_CEILING in SERVING_OCC_WITHIN of the samples.  A figure
+    with no sample misses its invariant."""
+    from nos_tpu_torch.testing import fleet
+
+    serving = out["serving"]
+    met = {
+        "no_serving_victim": serving["preempted"] == 0,
+        "replicas_track_within_one": all(
+            t["within_one"] is not None
+            and t["within_one"] >= fleet.SERVING_TRACK_WITHIN
+            for t in serving["tracking"].values()),
+        "serving_schedule_p99_under_100ms": serving["p99_ms"] is not None
+        and serving["p99_ms"] < fleet.SERVING_P99_TARGET_S * 1e3}
+    if "requests" in out:
+        rows = out["requests"]
+        met["request_p99_under_10s"] = all(
+            r["p99_s"] is not None and r["p99_s"] < fleet.REQUEST_P99_TARGET_S
+            for r in rows.values())
+        occ = rows["serve/chat"]["occupancy_under_ceiling"]
+        met["decode_occupancy_under_ceiling"] = occ is not None \
+            and occ >= fleet.SERVING_OCC_WITHIN
+    return met
+
+
+def _serving_fleet_runs(router: bool, runs: int = SERVING_FLEET_RUNS,
+                        workers: tuple[int, ...] = SERVING_ROUTER_WORKERS
+                        ) -> dict:
+    """One serving fleet ``runs`` times on the port (``router``: at each
+    of SERVING_ROUTER_WORKERS router workers, one run each): every run
+    must hash to its pinned digest (the JAX package's run of the mapped
+    trace), conserve its waste waterfall and meet every invariant the
+    JAX run meets; with the router, the journals must be byte-identical
+    across the worker counts.  The line: host ms per router tick (at each
+    worker count), autoscaler reconcile and scheduler cycle (median,
+    max); requests completed and shed, scale events by direction, the
+    phases' p50 and p99 and the utilisation floor."""
+    from nos_tpu_torch.testing import fleet
+
+    want = REQUEST_FLEET_DIGEST if router else SERVING_FLEET_DIGEST
+    met_want = REQUEST_FLEET_MET if router else SERVING_FLEET_MET
+    name = "request" if router else "serving"
+    spec = fleet.serving_fleet_spec(0, router=router)
+    workers = workers[:runs] if router else (0,) * runs
+    outs = []
+    for w in workers:
+        t0 = time.perf_counter()
+        out = fleet.run_serving_fleet(spec, workers=w)
+        out["run_ms"] = (time.perf_counter() - t0) * 1e3
+        out["workers"] = w
+        outs.append(out)
+    for out in outs:
+        digest = fleet.plan_digest(out["summary"])
+        if digest != want:
+            fail(f"the {name} fleet at {out['workers']} router workers "
+                 f"hashes to {digest}, not the pinned {want} (the JAX "
+                 f"package's run on the CPU)")
+        met = serving_invariants(out)
+        missed = [k for k, ok in met.items() if met_want.get(k) and not ok]
+        if missed:
+            fail(f"the {name} fleet missed {missed}, which the JAX "
+                 f"package's run meets: {met}")
+    if len({json.dumps(o["journal"]) for o in outs}) != 1:
+        fail(f"the {name} fleet's journals differ across router workers "
+             f"{[o['workers'] for o in outs]}")
+
+    def stats(xs: list[float]) -> dict:
+        return {"median": statistics.median(xs), "max": max(xs),
+                "n": len(xs)} if xs else None
+
+    first = outs[0]
+    line = {"router": router, "runs": len(outs),
+            "ticks_per_run": first["ticks"],
+            "run_ms": [o["run_ms"] for o in outs],
+            "autoscaler_reconcile_ms": stats(
+                [ms for o in outs for ms in o["reconcile_ms"]]),
+            "scheduler_cycle_ms": stats(
+                [ms for o in outs for ms in o["cycle_ms"]]),
+            "scale_events": first["scale_events"],
+            "serving_binds": first["serving"]["binds"],
+            "serving_schedule_p50_ms": first["serving"]["p50_ms"],
+            "serving_schedule_p99_ms": first["serving"]["p99_ms"],
+            "tracking": first["serving"]["tracking"],
+            "preemptions": first["batch"]["preemptions"],
+            "jobs_completed": first["batch"]["jobs_completed"],
+            "utilization_pct": first["utilization_pct"],
+            "utilization_min": first["utilization_min"],
+            "invariants": serving_invariants(first),
+            "invariants_held": sorted(k for k, v in met_want.items() if v),
+            "journal_records": len(first["journal"]),
+            "journal_digest": fleet.plan_digest(first["journal"]),
+            "digest": fleet.plan_digest(first["summary"]),
+            "waste": _waste_line(first["waste"])}
+    if router:
+        line["router_tick_ms"] = {str(o["workers"]): stats(o["router_ms"])
+                                  for o in outs}
+        line["journal_identical_across_workers"] = True
+        line["requests"] = first["requests"]
+    return line
+
+
+# (b): the card's node over the REST stub.  The mains of phase 14 (one
+# partitioner) and the replica autoscaler's main as processes; the
+# request router a process of its own on a virtual clock the smoke
+# advances one publish period at a time; the replicas' children serve
+# BENCH_350M through ``generate`` under their grants.
+SERVING_MAINS = ("partitioner-0", "scheduler", "operator", "chipagent")
+SERVING_AUTOSCALER = "autoscaler"
+# the mins sum to the card's 80 GB (the benches' rule: borrowing spends
+# real headroom); serve's holds two replicas, filler's one of its two
+# pods, so the second borrows and is reclaimable
+SERVING_CARD_QUOTAS = (("serve", 48.0, 0.0), ("filler", 32.0, 0.0))
+# two best-effort fillers beside the first replica: the one plan that
+# carves the card for the three pending pods cuts three 24 GB shares,
+# and the scale-up finds none free
+SERVING_FILLERS = ("filler-0", "filler-1")
+# the partitioner's batch window: the first replica and both fillers,
+# created within a few ms, land in one plan
+SERVING_BATCH_IDLE_S = 1.0
+SERVING_SERVICE = {"name": "chat", "namespace": "serve",
+                   "timeshare_gb": CARD_SHARE_GB, "min_replicas": 1,
+                   "max_replicas": 2, "target_load_per_replica": 0.4,
+                   "scale_up_cooldown_s": 0.5, "scale_down_cooldown_s": 3.0,
+                   "down_hysteresis": 0.2}
+# the autoscaler main's reconcile interval: the router publishes right
+# after a reconcile ends, well inside the interval, so no reconcile reads
+# a publish half written
+SERVING_RECONCILE_S = 0.25
+SERVING_TICK_S = 0.05
+SERVING_PUBLISH_TICKS = 5
+# the burst's requests: the serve phase's prompt, 512 tokens out, each a
+# session of its own.  Little's law on the cost model: the streams whose
+# reserved KV is twice the autoscaler's target, their service time (the
+# decode step at their resident KV), and the rate that keeps them in
+# flight; at that occupancy the replica decodes near its bandwidth, so
+# its queue fills slowly at that rate, and the burst offers
+# SERVING_BURST_FACTOR times it for one service time
+SERVING_PROMPT, SERVING_OUTPUT = 448, 512
+SERVING_BURST_FACTOR = 2.0
+SERVING_SESSION_IDLE_S = 1.0
+SERVING_SEED = 0
+SERVING_PERIODS_MAX = 200
+SERVING_STEP_LIMIT_S = 30.0
+SERVING_ROUTER_TIMEOUT_S = 60.0
+# the JAX package's choices on the same story (tests/test_torch_cmd.py):
+# the filler the scale-up evicts, the replica the scale-down deletes
+SERVING_FILLER_VICTIM = "filler-1"
+SERVING_VICTIM = "chat-r1"
+# each replica child's batches: the serve phase's 8 x 448 prompts and
+# SERVING_GENERATE_STEPS greedy steps a batch
+SERVING_GENERATE_STEPS = 16
+SERVING_FIRST_BATCH_LIMIT_S = 300.0
+_BATCH_LINE = re.compile(r"^serve batch (\{.*\})$", re.M)
+# What phase 16 (b)'s loop writes (``serving_writes``), pinned by
+# tests/test_torch_cmd.py: the port's processes on the CPU and the JAX
+# package's mains, autoscaler and router on its stand-in over the stub,
+# names mapped, write the same.
+SERVING_LOOP_WRITES = {
+    "configmap": {"h100-node-0.plan-1": json.dumps({
+        "version": "v1", "sharing": {"mps": {
+            "failRequestsGreaterThanOne": True, "resources": [{
+                "name": "nvidia.com/gpu", "rename": "nvidia.com/gpu-24gb",
+                "memoryGB": 24, "replicas": 3, "devices": ["0"]}]}}})},
+    "node": {"annotations": {
+        "nos.nebuly.com/agent-heartbeat.mps": "<beat>",
+        "nos.nebuly.com/device-plugin-applied-config": "h100-node-0.plan-1",
+        "nos.nebuly.com/device-plugin-generation": "1",
+        "nos.nebuly.com/spec-partitioning-plan.mps": "plan-1",
+        "nos.nebuly.com/status-gpu-0-24gb-free": "1",
+        "nos.nebuly.com/status-gpu-0-24gb-used": "2",
+        "nos.nebuly.com/status-partitioning-plan.mps": "plan-1"},
+        "plan_label": "plan-1"},
+    'pods': {'chat-r0': {'deleted': False,
+                         'node': ['', 'h100-node-0'],
+                         'phase': ['Pending', 'Running'],
+                         'load': ['0', '0.000', '0.021', '0.139', '0.259',
+                                  '0.394', '0.490', '0.589', '0.619', '0.601',
+                                  '0.573', '0.518', '0.488', '0.501', '0.479',
+                                  '0.295', '0.205', '0.197', '0.000'],
+                         'sessions': [None, '0', '11', '74', '152', '221',
+                                      '292', '306', '241', '173', '91', '29',
+                                      '32', '79', '108', '105', '78', '30',
+                                      '14', '0'],
+                         'capacity': [None, 'in-quota'],
+                         'tier': ['serving'],
+                         'service': ['chat']},
+             'chat-r1': {'deleted': True,
+                         'node': ['', 'h100-node-0'],
+                         'phase': ['Pending', 'Running'],
+                         'load': ['0', '0.000', '0.150', '0.257', '0.359',
+                                  '0.473', '0.509', '0.535', '0.509', '0.456',
+                                  '0.420', '0.327', '0.135'],
+                         'sessions': [None, '1', '80', '137', '207', '268',
+                                      '255', '228', '176', '99', '48', '18',
+                                      '0'],
+                         'capacity': [None, 'in-quota'],
+                         'tier': ['serving'],
+                         'service': ['chat']},
+             'filler-0': {'deleted': False,
+                          'node': ['', 'h100-node-0'],
+                          'phase': ['Pending', 'Running'],
+                          'load': [None],
+                          'sessions': [None],
+                          'capacity': [None, 'in-quota'],
+                          'tier': ['best-effort'],
+                          'service': [None]},
+             'filler-1': {'deleted': True,
+                          'node': ['', 'h100-node-0'],
+                          'phase': ['Pending', 'Running'],
+                          'load': [None],
+                          'sessions': [None],
+                          'capacity': [None, 'over-quota'],
+                          'tier': ['best-effort'],
+                          'service': [None]}},
+    'quotas': {'filler': {'nos.nebuly.com/gpu-memory': 24.0},
+               'serve': {'nos.nebuly.com/gpu-memory': 24.0}},
+    'status': [{'serve/chat': {'desired': 1.0,
+                               'load': 0,
+                               'replicas': 0.0,
+                               'scaled': 1.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.0,
+                               'replicas': 1.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.021,
+                               'replicas': 1.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.139,
+                               'replicas': 1.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.259,
+                               'replicas': 1.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.394,
+                               'replicas': 1.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.49,
+                               'replicas': 1.0,
+                               'scaled': 1.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.49,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.589,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.769,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.858,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.932,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.991,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.997,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 1.036,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.988,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.751,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.625,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 2.0,
+                               'load': 0.524,
+                               'replicas': 2.0,
+                               'scaled': 0.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.135,
+                               'replicas': 2.0,
+                               'scaled': -1.0}},
+               {'serve/chat': {'desired': 1.0,
+                               'load': 0.0,
+                               'replicas': 1.0,
+                               'scaled': 0.0}}]}
+
+
+def _bench350m_weights_gb() -> float:
+    """BENCH_350M's parameters in bf16, GB (2**30 bytes), as the cost
+    model counts weights."""
+    from nos_tpu_torch.models.llama import BENCH_350M, Llama
+
+    model = Llama(dataclasses.replace(BENCH_350M, param_dtype=torch.bfloat16),
+                  device=torch.device("meta"))
+    return sum(p.numel() for p in model.parameters()) * 2 / 2**30
+
+
+def serving_router_service(card: str, weights_gb: float) -> dict:
+    """The router's service (a RouterService mapping): chat aggregated,
+    priced honestly: BENCH_350M's widths and bf16 weights, the card's
+    name, a 24 GB MPS share."""
+    from nos_tpu_torch.models.llama import BENCH_350M as B
+
+    return {"name": "chat", "namespace": "serve",
+            "model": {"name": "bench-350m", "num_layers": B.num_layers,
+                      "num_heads": B.num_heads, "num_kv_heads": B.num_kv_heads,
+                      "head_dim": B.head_dim,
+                      "intermediate_size": B.intermediate_size,
+                      "vocab_size": B.vocab_size, "weights_gb": weights_gb},
+            "prefill": {"device_kind": card, "hbm_gb": float(CARD_SHARE_GB)},
+            "session_idle_s": SERVING_SESSION_IDLE_S}
+
+
+def serving_burst(costs) -> dict:
+    """The burst from the cost model: the concurrent streams whose
+    reserved KV (each reserves its prompt and output ahead) is twice the
+    autoscaler's target of one replica's, their service time (the
+    prompt's prefill and SERVING_OUTPUT decode steps at half their output
+    resident: Little's law on ``decode_step_seconds``), the rate that
+    keeps them in flight, and the burst: SERVING_BURST_FACTOR times that
+    rate for one service time."""
+    tokens = SERVING_PROMPT + SERVING_OUTPUT
+    load = 2 * SERVING_SERVICE["target_load_per_replica"]
+    streams = math.ceil(load * costs.kv_capacity_tokens() / tokens)
+    resident = streams * (SERVING_PROMPT + SERVING_OUTPUT // 2)
+    service_s = (costs.prefill_seconds(SERVING_PROMPT) + SERVING_OUTPUT
+                 * costs.decode_step_seconds(resident))
+    little = streams / service_s
+    return {"streams": streams, "service_s": service_s,
+            "little_rate": little, "rate": SERVING_BURST_FACTOR * little,
+            "duration_s": service_s}
+
+
+class _RouterDriver:
+    """Phase 16 (b)'s request router on one package (``R`` its
+    ``requests``, ``sim`` its ``sim``, ``api`` its client): the
+    ServingRouter on a SimEngine's clock, ticked every SERVING_TICK_S of
+    virtual time; ``advance`` runs exactly SERVING_PUBLISH_TICKS ticks
+    (one publish), ``burst`` installs the seeded arrivals."""
+
+    def __init__(self, R, sim, api, service: dict, workers: int = 0) -> None:
+        self.R, self.sim, self.api = R, sim, api
+        self.eng = sim.SimEngine()
+        svc = R.RouterService.from_mapping(service)
+        self.key = svc.key
+        self.costs = svc.prefill_costs
+        self.router = R.ServingRouter(
+            api, [svc], clock=self.eng.now, workers=workers,
+            publish_every_ticks=SERVING_PUBLISH_TICKS)
+        self.ticks = 0
+        self.rid = 0
+        self.burst_end = None
+        self.eng.tick_loop(SERVING_TICK_S, self._tick, until=1e9,
+                           label="router-tick")
+
+    def _tick(self) -> None:
+        self.ticks += 1
+        self.router.tick(SERVING_TICK_S)
+
+    def _arrive(self, t: float) -> None:
+        self.rid += 1
+        self.router.submit(self.key, self.R.Request(
+            "chat", f"chat-q{self.rid}", f"chat-s{self.rid}", SERVING_PROMPT,
+            SERVING_OUTPUT, t))
+
+    def burst(self) -> dict:
+        plan = serving_burst(self.costs)
+        start = self.eng.now()
+        self.burst_end = start + plan["duration_s"]
+        rate = plan["rate"]
+        self.sim.ArrivalSource(
+            SERVING_SEED, lambda t: rate, self._arrive, peak_rate=rate,
+            until=self.burst_end, label="burst").install(self.eng)
+        return plan | {"start": start, "end": self.burst_end}
+
+    def advance(self) -> dict:
+        target = self.ticks + SERVING_PUBLISH_TICKS
+        while self.ticks < target:
+            self.eng.step()
+        return self.report()
+
+    def report(self) -> dict:
+        occ = self.router.kv_occupancies(self.key)
+        state = self.router._states[self.key]
+        replicas = {}
+        for name in sorted(state.prefill.replicas):
+            r = state.prefill.replicas[name]
+            replicas[name] = {"occupancy": occ[name],
+                              "in_flight": r.in_flight()}
+        return {"t": self.eng.now(), "ticks": self.ticks,
+                "replicas": replicas,
+                "sessions": self.router.session_count(self.key),
+                "stats": self.router.stats()[self.key],
+                "burst_over": self.burst_end is not None
+                and self.eng.now() >= self.burst_end}
+
+
+def _router_child() -> None:
+    """The router process: ``python -c "import chip_smoke;
+    chip_smoke._router_child()" KUBECONFIG SERVICE_JSON``; one JSON line
+    on stdout per command read from stdin (``burst``, ``advance``,
+    ``quit``)."""
+    from nos_tpu_torch import requests as R, sim
+    from nos_tpu_torch.kube.rest import KubeClient
+
+    api = KubeClient.from_kubeconfig(sys.argv[1])
+    service = json.loads(pathlib.Path(sys.argv[2]).read_text())
+    driver = _RouterDriver(R, sim, api, service)
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "quit":
+            break
+        out = driver.burst() if cmd == "burst" else driver.advance()
+        print(json.dumps(out), flush=True)
+    api.close()
+
+
+def _serve_child() -> None:
+    """A replica's child: the grant applied before CUDA starts and
+    verified once it is up (the training main's sequence), BENCH_350M at
+    full width with flash attention, then ``generate`` on the serve
+    phase's 8 x 448 prompts, SERVING_GENERATE_STEPS steps a batch, until
+    SIGTERM; after each batch a ``serve batch {json}`` line: its host
+    clock window, ms per forward and the launches so far."""
+    from nos_tpu_torch.cmd.train import grant_report
+    from nos_tpu_torch.device import workload_env
+    from nos_tpu_torch.entry import bench_model, serve_prompt
+    from nos_tpu_torch.models.generate import generate
+
+    logging.basicConfig(
+        level=logging.INFO, stream=sys.stderr,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    log = logging.getLogger("serve-child")
+    workload_env.apply()
+    verified = workload_env.validate_confinement()
+    log.info("confined: grant %s", json.dumps(grant_report(verified)))
+    model = bench_model(device="cuda")
+    prompt = serve_prompt("cuda")
+    batch = 0
+    while True:
+        batch += 1
+        t0 = time.time()
+        out = generate(model, prompt, SERVING_GENERATE_STEPS)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        if not ((out >= 0) & (out < model.cfg.vocab_size)).all():
+            log.error("tokens outside the vocabulary")
+            sys.exit(1)
+        report = grant_report(verified)
+        print("serve batch " + json.dumps({
+            "batch": batch, "t0": t0, "t1": t1,
+            "ms_per_forward": (t1 - t0) * 1e3 / SERVING_GENERATE_STEPS,
+            "launches": report["launches"],
+            "tile_launches": report["tile_launches"],
+            "max_memory_allocated": report["max_memory_allocated"]}),
+            file=sys.stderr, flush=True)
+
+
+def serving_record(kind: str, event: str, obj, C) -> tuple | None:
+    """A stub commit as phase 16's recorder keeps it, under the names of
+    the package whose constants ``C`` are: (kind, event, key, fields)."""
+    meta = obj.metadata
+    if kind == "Pod":
+        a, lab = meta.annotations, meta.labels
+        return ("Pod", event, meta.name, {
+            "node": obj.spec.node_name, "phase": obj.status.phase,
+            "load": a.get(C.ANNOT_SERVING_LOAD),
+            "sessions": a.get(C.ANNOT_SERVING_SESSIONS),
+            "capacity": lab.get(C.LABEL_CAPACITY),
+            "tier": lab.get(C.LABEL_TIER),
+            "service": lab.get(C.LABEL_SERVICE)})
+    if kind == "ConfigMap":
+        return ("ConfigMap", event, f"{meta.namespace}/{meta.name}",
+                dict(obj.data))
+    if kind == "ElasticQuota":
+        return ("ElasticQuota", event, meta.namespace,
+                dict(sorted(obj.status.used.items())))
+    return ("Node", event, meta.name, {
+        "annotations": dict(meta.annotations),
+        "labels": dict(meta.labels)})
+
+
+def serving_writes(records: list[tuple], plans: list[str], beat: str,
+                   plugin_cm: str, status_cm: str) -> dict:
+    """What phase 16 (b)'s loop wrote, from its recorder's commits in
+    the port's names: the node's final annotations and plan label and the
+    plugin ConfigMap's final data (plan ids read plan-<n> in order of
+    appearance, the heartbeat <beat>); for each pod, each field's
+    distinct values in commit order (its node, phase, load and session
+    annotations, capacity, tier and service labels) and whether it was
+    deleted; each quota's final status.used; the autoscaler's status
+    ConfigMap's distinct data in commit order."""
+    def mask(s: str) -> str:
+        for i, plan in enumerate(plans, 1):
+            s = s.replace(plan, f"plan-{i}")
+        return s
+
+    pods: dict[str, dict] = {}
+    node: dict = {}
+    cms: dict[str, dict] = {}
+    status: list[dict] = []
+    quotas: dict[str, dict] = {}
+    for kind, event, key, fields in records:
+        if kind == "Pod":
+            row = pods.setdefault(key, {"deleted": False})
+            if event == "DELETED":
+                row["deleted"] = True
+                continue
+            for field, value in fields.items():
+                seq = row.setdefault(field, [])
+                if not seq or seq[-1] != value:
+                    seq.append(value)
+        elif kind == "Node":
+            node = fields
+        elif kind == "ConfigMap":
+            if key == status_cm:
+                data = {k: json.loads(v) for k, v in sorted(fields.items())}
+                if not status or status[-1] != data:
+                    status.append(data)
+            else:
+                cms[key] = fields
+        elif kind == "ElasticQuota":
+            quotas[key] = fields
+    annots = {mask(k): "<beat>" if k == beat else mask(v)
+              for k, v in sorted(node.get("annotations", {}).items())}
+    return {"node": {"annotations": annots,
+                     "plan_label": mask(node.get("labels", {}).get(
+                         "nos.nebuly.com/device-plugin.config", ""))},
+            "configmap": {mask(k): mask(v) if isinstance(v, str) else v
+                          for k, v in sorted(cms.get(plugin_cm, {}).items())},
+            "pods": dict(sorted(pods.items())),
+            "quotas": dict(sorted(quotas.items())),
+            "status": status}
+
+
+def serving_story(cl) -> dict:
+    """Phase 16 (b)'s story on a cluster ``cl`` (the port's processes on
+    the card, or either package on the CPU: ``_ServingCluster``, the CPU
+    tests' JAX cluster).  The mains up; the autoscaler's main creates
+    chat's first replica and the smoke the two best-effort fillers at
+    once: one plan, the three bound; the router's first publish; the
+    burst, advanced one publish at a time, each publish made right after
+    an autoscaler reconcile and followed by one that read it and by the
+    decision it took landing (a scale-up bound, a scale-down deleted);
+    the drain until every stream ended and every session expired; a
+    last publish.  ``cl``'s hooks start and stop the children.  Returns
+    the story's fields (virtual times, published loads, the scale events
+    in order) and ``cl``'s wall clock marks."""
+    fields: dict = {"steps": []}
+    cl.start_mains()
+    cl.start_autoscaler()
+    cl.until(lambda: "chat-r0" in cl.pods(), "create chat's first replica")
+    for name in SERVING_FILLERS:
+        cl.create_filler(name)
+    first = ["chat-r0", *SERVING_FILLERS]
+    cl.until(lambda: cl.running(first), "bind the replica and the fillers")
+    cl.on_running(first)
+    cl.start_router()
+    events: list[list] = []
+    live_before = ["chat-r0"]
+
+    def step(cmd: str = "advance") -> dict:
+        before = cl.stamps()
+        if len(before) > 1:
+            # two stamps a publish: made right after a reconcile, so the
+            # next reads both or neither
+            cl.wait_reconcile(1)
+        report = cl.router(cmd)
+        if cl.stamps() != before:
+            # a reconcile that read the stamps, and its decision landed
+            cl.wait_reconcile(2)
+            expected = _serving_expected(cl)
+            cl.until(lambda: _serving_settled(cl, expected),
+                     f"settle on {expected} replicas", SERVING_STEP_LIMIT_S)
+        nonlocal live_before
+        live = _serving_live(cl)
+        gone = sorted(set(live_before) - set(live))
+        new = sorted(set(live) - set(live_before))
+        for name in gone:
+            events.append(["down", name, report.get("t")])
+            cl.on_deleted(name)
+        fillers = [n for n in SERVING_FILLERS if n not in cl.pods()]
+        for name in fillers:
+            if not any(e[1] == name for e in events):
+                events.append(["evicted", name, report.get("t")])
+                cl.on_deleted(name)
+        for name in new:
+            events.append(["up", name, report.get("t")])
+            cl.on_running([name])
+        live_before = live
+        fields["steps"].append({"t": report.get("t"), "stamps": cl.stamps(),
+                                "sessions": report.get("sessions")})
+        return report
+
+    step()
+    fields["burst"] = cl.router("burst")
+    for _ in range(SERVING_PERIODS_MAX):
+        report = step()
+        done = report["burst_over"] and report["sessions"] == 0 and all(
+            r["in_flight"] == 0 for r in report["replicas"].values())
+        if done and any(e[0] == "down" for e in events):
+            break
+    else:
+        fail(f"the serving story did not drain within "
+             f"{SERVING_PERIODS_MAX} publishes: {events}")
+    fields["final"] = step()
+    cl.stop_router()
+    fields["events"] = events
+    fields["max_published_load"] = max(
+        sum(float(v[0]) for v in s["stamps"].values() if v[0] is not None)
+        for s in fields["steps"])
+    return fields
+
+
+def _serving_live(cl) -> list[str]:
+    """chat's live replicas (Pending or Running), by name."""
+    return sorted(n for n, p in cl.pods().items() if n.startswith("chat-")
+                  and p["phase"] in ("Pending", "Running"))
+
+
+def _serving_expected(cl) -> int:
+    """The replicas the autoscaler must leave after reading the current
+    stamps: its clamp of ceil(load / target), a scale-down only with the
+    hysteresis' headroom (the cooldowns have passed by then)."""
+    svc = SERVING_SERVICE
+    live = _serving_live(cl)
+    load = 0.0
+    for name in live:
+        value = cl.pods()[name]["load"]
+        try:
+            load += max(0.0, float(value)) if value else 0.0
+        except ValueError:
+            pass
+    desired = min(svc["max_replicas"], max(
+        svc["min_replicas"], math.ceil(load / svc["target_load_per_replica"])))
+    if desired > len(live):
+        return desired
+    if desired < len(live) and load <= desired * svc[
+            "target_load_per_replica"] * (1.0 - svc["down_hysteresis"]):
+        return desired
+    return len(live)
+
+
+def _serving_settled(cl, expected: int) -> bool:
+    pods = cl.pods()
+    live = _serving_live(cl)
+    return len(live) == expected and all(
+        pods[n]["phase"] == "Running" and pods[n]["node"] for n in live)
+
+
+class _ServingCluster(_Mains):
+    """Phase 16 (b)'s cluster on the port: ``_Mains`` with SERVING_MAINS
+    and the quotas SERVING_CARD_QUOTAS (the partitioner at
+    SERVING_BATCH_IDLE_S), the autoscaler's main (SERVING_SERVICE,
+    reconciling every SERVING_RECONCILE_S) started after them, and the
+    router as a process (``_router_child``).  ``children`` (the card's)
+    gets the hooks: ``on_running(cluster, names)`` and
+    ``on_deleted(cluster, name)``; without it the story runs on the host
+    alone."""
+
+    def __init__(self, stub, tmp: str, model: str, agent_model: str,
+                 card: str, children=None) -> None:
+        # the tap replays the stub's objects as it is registered
+        self.records: list[tuple[float, tuple]] = []
+        super().__init__(stub, tmp, model, agent_model,
+                         mains=SERVING_MAINS + (SERVING_AUTOSCALER,),
+                         quotas=SERVING_CARD_QUOTAS)
+        self.card = card
+        self.children = children
+        self.marks: dict[str, float] = {}
+        self.router_proc = None
+        self.router_log = []
+
+    def _record(self, kind: str, event: str, obj) -> None:
+        from nos_tpu_torch.api import constants as C
+
+        super()._record(kind, event, obj)
+        self.records.append((time.perf_counter(),
+                             serving_record(kind, event, obj, C)))
+
+    def _config(self, name: str) -> tuple[str, dict, list[str]]:
+        module, cfg, extra = super()._config(name)
+        if name.startswith("partitioner"):
+            cfg["batch_idle_s"] = SERVING_BATCH_IDLE_S
+        if name == SERVING_AUTOSCALER:
+            cfg |= {"reconcile_interval_s": SERVING_RECONCILE_S,
+                    "services": [SERVING_SERVICE], "slo_interval_s": 0.0}
+        return module, cfg, extra
+
+    # -- the story's surface ----------------------------------------------
+    def start_mains(self) -> None:
+        self.start(SERVING_MAINS)
+        self.marks["healthy_s"] = self.wait_healthy(SERVING_MAINS)
+
+    def start_autoscaler(self) -> None:
+        self.start((SERVING_AUTOSCALER,))
+        self.marks["autoscaler_healthy_s"] = self.wait_healthy(
+            (SERVING_AUTOSCALER,))[SERVING_AUTOSCALER]
+
+    def create_filler(self, name: str) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.factory import make_timeshare_pod
+
+        self.created[name] = time.perf_counter()
+        self.client.create(KIND_POD, make_timeshare_pod(
+            CARD_SHARE_GB, name=name, namespace="filler",
+            labels={C.LABEL_TIER: C.TIER_BEST_EFFORT},
+            creation_timestamp=time.time()))
+
+    def pods(self) -> dict:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        return {p.metadata.name: serving_record("Pod", "", p, C)[3]
+                for p in self.client.list(KIND_POD)}
+
+    def raw_pods(self) -> dict:
+        return super().pods()
+
+    def running(self, names) -> bool:
+        pods = self.pods()
+        return all(n in pods and pods[n]["node"] == CARD_NODE
+                   and pods[n]["phase"] == "Running" for n in names)
+
+    def stamps(self) -> dict:
+        return {n: [p["load"], p["sessions"]] for n, p in self.pods().items()
+                if n.startswith("chat-") and p["phase"] == "Running"}
+
+    def wait_reconcile(self, n: int) -> None:
+        """Until the autoscaler's loop ended ``n`` more reconciles."""
+        def count() -> float:
+            return self.metric(SERVING_AUTOSCALER,
+                               "nos_tpu_runloop_tick_seconds_count",
+                               loop="autoscaler")
+
+        want = count() + n
+        self.until(lambda: count() >= want, f"reconcile {n} more times",
+                   SERVING_STEP_LIMIT_S)
+
+    def start_router(self) -> None:
+        service = serving_router_service(self.card, _bench350m_weights_gb())
+        path = self.tmp / "router-service.json"
+        path.write_text(json.dumps(service))
+        self.router_err = open(self.tmp / "router.log", "w")
+        self.router_proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke._router_child()",
+             self.kubeconfig, str(path)], cwd=ROOT, env=_child_env(),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.router_err, text=True)
+
+    def router(self, cmd: str) -> dict:
+        proc = self.router_proc
+        proc.stdin.write(cmd + "\n")
+        proc.stdin.flush()
+        result: list[str] = []
+        reader = threading.Thread(
+            target=lambda: result.append(proc.stdout.readline()),
+            daemon=True)
+        reader.start()
+        reader.join(SERVING_ROUTER_TIMEOUT_S)
+        if not result or not result[0]:
+            fail(f"the router gave no answer to {cmd!r} (exit "
+                 f"{proc.poll()}):\n"
+                 f"{(self.tmp / 'router.log').read_text()[-4000:]}")
+        out = json.loads(result[0])
+        self.router_log.append((time.perf_counter(), cmd, out))
+        return out
+
+    def stop_router(self) -> None:
+        proc = self.router_proc
+        proc.stdin.write("quit\n")
+        proc.stdin.flush()
+        try:
+            rc = proc.wait(timeout=MAINS_EXIT_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            fail("the router did not exit on quit")
+        self.router_err.close()
+        if rc != 0:
+            fail(f"the router exited {rc}:\n"
+                 f"{(self.tmp / 'router.log').read_text()[-4000:]}")
+
+    def on_running(self, names: list[str]) -> None:
+        if self.children is not None:
+            self.children.on_running(self, names)
+
+    def on_deleted(self, name: str) -> None:
+        if self.children is not None:
+            self.children.on_deleted(self, name)
+
+    def close(self) -> None:
+        if self.router_proc is not None and self.router_proc.poll() is None:
+            self.router_proc.kill()
+            self.router_proc.wait()
+        super().close()
+
+    # -- what it wrote ----------------------------------------------------
+    def committed_at(self, name: str, test) -> float | None:
+        """When the stub first committed pod ``name`` with ``test(fields)``."""
+        for t, (kind, event, key, fields) in self.records:
+            if kind == "Pod" and key == name and event != "DELETED" \
+                    and test(fields):
+                return t
+        return None
+
+    def writes(self) -> dict:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.partitioning.timeshare import (
+            DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+        return serving_writes(
+            [r for _, r in self.records], [p for _, p in self.plan_writes()],
+            C.heartbeat_annotation(C.MPS_KIND),
+            f"{DEVICE_PLUGIN_CM_NAMESPACE}/{DEVICE_PLUGIN_CM_NAME}",
+            "nos-tpu-system/nos-tpu-autoscaler-status")
+
+
+def _serving_host(stub, tmp: str, device: dict, card: str,
+                  children=None, agent_model: str = "auto"
+                  ) -> tuple[dict, dict]:
+    """Phase 16 (b) on the host: the story (``serving_story``) on
+    ``_ServingCluster``, then SIGTERM to every main (each exits 0) and
+    the writes; ``children`` gets the hooks and its ``finish(cluster)``
+    runs after the story, before the mains stop.  Returns the phase's
+    fields and the writes."""
+    cl = _ServingCluster(stub, tmp, device["model"], agent_model, card,
+                         children)
+    try:
+        story = serving_story(cl)
+        kids = children.finish(cl) if children is not None else {}
+        exits = {n: cl.stop(n) for n in cl.mains}
+        writes = cl.writes()
+        if cl.tap.errors:
+            fail(f"the stub tap's callbacks raised: {cl.tap.errors}")
+        plans = len(cl.plan_writes())
+        if plans != 1:
+            fail(f"the serving story wrote {plans} plans, not one")
+
+        def at(name, test):
+            return cl.committed_at(name, test)
+
+        bound = {n: at(n, lambda f: bool(f["node"]))
+                 for n in ["chat-r0", "chat-r1", *SERVING_FILLERS]}
+        created = {n: at(n, lambda f: True) for n in bound}
+        ups = [e for e in story["events"] if e[0] == "up"]
+        downs = [e for e in story["events"] if e[0] == "down"]
+        evicted = [e for e in story["events"] if e[0] == "evicted"]
+        crossed = next((t for t, cmd, out in cl.router_log
+                        if cmd == "advance" and sum(
+                            r["occupancy"] for r in out["replicas"].values())
+                        > SERVING_SERVICE["target_load_per_replica"]), None)
+        fields = {"node": CARD_NODE, "share_gb": CARD_SHARE_GB,
+                  "quotas": [list(q) for q in SERVING_CARD_QUOTAS],
+                  "service": SERVING_SERVICE,
+                  "mains_start_to_healthz_s": cl.marks["healthy_s"],
+                  "autoscaler_start_to_healthz_s":
+                      cl.marks["autoscaler_healthy_s"],
+                  "plans": plans,
+                  "creation_to_bound_ms": {
+                      n: (bound[n] - created[n]) * 1e3 for n in bound
+                      if bound[n] is not None and created[n] is not None},
+                  "load_stamp_to_scale_up_ms": (
+                      (created["chat-r1"] - crossed) * 1e3
+                      if crossed and created["chat-r1"] else None),
+                  "load_stamp_to_bound_ms": (
+                      (bound["chat-r1"] - crossed) * 1e3
+                      if crossed and bound["chat-r1"] else None),
+                  "events": story["events"], "scale_ups": len(ups),
+                  "scale_downs": len(downs), "evicted": evicted,
+                  "burst": story["burst"],
+                  "max_published_load": story["max_published_load"],
+                  "publishes": len(story["steps"]),
+                  "router_stats": story["final"]["stats"],
+                  "main_exits": exits, **kids}
+        return fields, writes
+    finally:
+        cl.close()
+
+
+def _serving_grants(cl: _ServingCluster, device: dict,
+                    names: list[str]) -> list[dict]:
+    """Each pod's grant from the stub's objects (``_mains_grants``)."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.device.timeshare_plugin import TimeshareDevicePlugin
+    from nos_tpu_torch.partitioning.timeshare import (
+        DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+    node = cl.node()
+    key = node.metadata.annotations.get(C.ANNOT_PLUGIN_APPLIED_CONFIG, "")
+    gpus = TimeshareDevicePlugin(cl.client, CARD_NODE, DEVICE_PLUGIN_CM_NAME,
+                                 DEVICE_PLUGIN_CM_NAMESPACE).gpu_config(key)
+    if gpus is None:
+        fail(f"the node applied {key!r}, which the ConfigMap lacks")
+    return _grants_of(node, cl.raw_pods(), gpus, device, names)
+
+
+def _start_serve_child(case: str, grant: dict, no_nvcc: str) -> dict:
+    """Start a replica's child (``_serve_child``) under ``grant`` with
+    nvcc hidden; a thread gathers its stderr lines."""
+    import os
+
+    env = _child_env(**grant)
+    env["CUDA_HOME"] = no_nvcc
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not pathlib.Path(d, "nvcc").exists())
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke._serve_child()"],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    lines: list[str] = []
+
+    def gather() -> None:
+        for line in proc.stderr:
+            lines.append(line)
+
+    reader = threading.Thread(target=gather, daemon=True)
+    reader.start()
+    return {"case": case, "grant": grant, "proc": proc, "lines": lines,
+            "reader": reader, "t0": time.perf_counter()}
+
+
+def _serve_batches(child: dict) -> list[dict]:
+    return [json.loads(m.group(1))
+            for m in _BATCH_LINE.finditer("".join(child["lines"]))]
+
+
+class _ServingChildren:
+    """The card's part of phase 16 (b), as the kubelet's: a replica's
+    child (``_serve_child``) when it binds, waited for until its first
+    batch served; a filler's training child under its grant (the one the
+    scale-up evicts, SERVING_FILLER_VICTIM, asked for QUOTA_VICTIM_STEPS,
+    the other for GRANT_STEPS); SIGTERM to a deleted pod's child, which
+    must exit by it within QUOTA_STOP_LIMIT_S."""
+
+    def __init__(self, device: dict, cfg_path: str, long_cfg: str,
+                 no_nvcc: str) -> None:
+        self.device = device
+        self.cfg_path, self.long_cfg, self.no_nvcc = cfg_path, long_cfg, \
+            no_nvcc
+        self.children: dict[str, dict] = {}
+        self.stopped: dict[str, float] = {}
+        self.first_batch_s: dict[str, float] = {}
+
+    def on_running(self, cl: _ServingCluster, names: list[str]) -> None:
+        from nos_tpu_torch.api import constants as C
+
+        key = f"{C.ANNOT_STATUS_PREFIX}0-{CARD_SHARE_GB}gb-used"
+        want = sum(1 for p in cl.pods().values()
+                   if p["node"] and p["phase"] == "Running")
+        # the chip agent reports the bound pods' shares used before a
+        # grant is derived from them (its report interval behind a bind)
+        cl.until(lambda: int(cl.node().metadata.annotations.get(key, 0))
+                 == want, f"report {want} used shares")
+        grants = {g["pod"]: g for g in _serving_grants(cl, self.device,
+                                                       names)}
+        for name in names:
+            env = grants[name]["env"]
+            if name.startswith("chat-"):
+                self.children[name] = _start_serve_child(name, env,
+                                                         self.no_nvcc)
+            else:
+                cfg = self.long_cfg if name == SERVING_FILLER_VICTIM \
+                    else self.cfg_path
+                self.children[name] = _start_grant_child(name, cfg, env,
+                                                         self.no_nvcc)
+        for name in names:
+            if name.startswith("chat-"):
+                child = self.children[name]
+                t0 = time.monotonic()
+                while not _serve_batches(child):
+                    if child["proc"].poll() is not None:
+                        fail(f"{name}'s child exited "
+                             f"{child['proc'].returncode}:\n"
+                             f"{''.join(child['lines'])[-4000:]}")
+                    if time.monotonic() - t0 > SERVING_FIRST_BATCH_LIMIT_S:
+                        fail(f"{name}'s child served no batch within "
+                             f"{SERVING_FIRST_BATCH_LIMIT_S} s")
+                    time.sleep(0.05)
+                self.first_batch_s[name] = time.perf_counter() \
+                    - child["t0"]
+
+    def on_deleted(self, cl: _ServingCluster, name: str) -> None:
+        (self.stopped[name],) = _stop_children([self.children[name]])
+
+    def finish(self, cl: _ServingCluster) -> dict:
+        """SIGTERM to the replicas' children still serving; the surviving
+        filler's child to its end.  Each child's fields."""
+        live = [c for n, c in self.children.items()
+                if n.startswith("chat-") and n not in self.stopped]
+        for child, s in zip(live, _stop_children(live)):
+            self.stopped[child["case"]] = s
+        out = {}
+        for name, child in self.children.items():
+            if name.startswith("chat-"):
+                child["proc"].wait()
+                child["reader"].join()
+                out[name] = {"rc": child["proc"].returncode,
+                             "wall_s": time.perf_counter() - child["t0"],
+                             "batches": _serve_batches(child),
+                             "stderr": "".join(child["lines"]),
+                             "grant": child["grant"]}
+            else:
+                out[name] = _finish_grant_child(child)
+        return {"children": out, "sigterm_to_exit_s": dict(self.stopped),
+                "first_batch_s": dict(self.first_batch_s)}
+
+
+def _check_serve_child(name: str, child: dict, uuid: str,
+                       layers: int) -> dict:
+    """A replica's child: stopped by SIGTERM, its grant verified on
+    ``uuid`` at its fraction when it started, at least one batch, each
+    batch's K1 launches SERVING_GENERATE_STEPS x the layers and no other
+    kernel's.  Its serving window, ms per forward and launches."""
+    confined = [ln for ln in child["stderr"].splitlines()
+                if "confined: grant " in ln]
+    r = json.loads(confined[0].split(" grant ", 1)[1]) if confined else None
+    if child["rc"] != -signal.SIGTERM or r is None or not r["verified"] \
+            or r["devices"] != [uuid]:
+        fail(f"{name}'s child exited {child['rc']}, confinement {r}:\n"
+             f"{child['stderr'][-4000:]}")
+    batches = child["batches"]
+    if not batches:
+        fail(f"{name}'s child served no batch")
+    last = batches[-1]
+    want = len(batches) * SERVING_GENERATE_STEPS * layers
+    _check_launches(f"{name}'s child", last["launches"], {
+        "flash_fwd": want, "flash_bwd_fused": 0})
+    if sum(last["tile_launches"].values()) != want:
+        fail(f"{name}'s child's launches by tile {last['tile_launches']} "
+             f"do not add up to {want}")
+    ms = [b["ms_per_forward"] for b in batches]
+    return {"window": [batches[0]["t0"], last["t1"]], "batches": len(batches),
+            "ms_per_forward_median": statistics.median(ms),
+            "ms_per_forward_min": min(ms), "launches": last["launches"],
+            "tile_launches": last["tile_launches"],
+            "peak_bytes": last["max_memory_allocated"],
+            "fraction": r["fraction"], "cap_bytes": r["cap_bytes"]}
+
+
+def phase_serving(main_loss0: float, device: dict, smi: str) -> dict:
+    """Phase 16: (a) the serving fleets twice each (``_serving_fleet_runs``:
+    router off at 0 workers, router on at 0 and 4); (b) the card's node
+    (``_serving_host`` with ``_ServingChildren``): the writes must equal
+    SERVING_LOOP_WRITES, the scale-up must evict SERVING_FILLER_VICTIM
+    alone and bind the second replica with no new plan, the scale-down
+    delete SERVING_VICTIM alone, the replicas' serving windows overlap,
+    every main and the router exit 0, the evicted filler's child exit by
+    SIGTERM having verified its grant, the other filler's pass as grant
+    (a)'s.  Returns the replicas' children's launches, by kernel."""
+    from nos_tpu_torch.models.llama import BENCH_350M
+    from nos_tpu_torch.ops import _build
+    from nos_tpu_torch.requests import RouterService
+
+    t0 = time.perf_counter()
+    fleets = {"serving": _serving_fleet_runs(router=False),
+              "request": _serving_fleet_runs(router=True)}
+    fleets_s = time.perf_counter() - t0
+    card = torch.cuda.get_device_name(0)
+    total = device["memory_bytes"]
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    stub_mod = _load_stub()
+    with stub_mod.StubApiServer() as stub, \
+            tempfile.TemporaryDirectory(prefix="nos-serving-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        base = json.loads(pathlib.Path(cfg_path).read_text())
+        long_cfg = str(pathlib.Path(tmp) / "long.json")
+        pathlib.Path(long_cfg).write_text(json.dumps(
+            base | {"steps": QUOTA_VICTIM_STEPS}))
+        kids = _ServingChildren(device, cfg_path, long_cfg, no_nvcc)
+        try:
+            host, writes = _serving_host(stub, tmp, device, card, kids)
+        finally:
+            for child in kids.children.values():
+                proc = child.get("proc")
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a serving child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    if writes != SERVING_LOOP_WRITES:
+        fail(f"the serving loop's writes differ from the CPU test's: "
+             f"{json.dumps(writes)}")
+    events = host["events"]
+    if [e[1] for e in events if e[0] == "evicted"] != [SERVING_FILLER_VICTIM] \
+            or [e[1] for e in events if e[0] == "up"] != ["chat-r1"] \
+            or [e[1] for e in events if e[0] == "down"] != [SERVING_VICTIM]:
+        fail(f"the serving story's events {events}: the scale-up must "
+             f"evict {SERVING_FILLER_VICTIM} and bind chat-r1, the "
+             f"scale-down delete {SERVING_VICTIM}")
+    if host["max_published_load"] < 2 * SERVING_SERVICE[
+            "target_load_per_replica"]:
+        fail(f"the burst's published load peaked at "
+             f"{host['max_published_load']}, under twice the target")
+    children = host.pop("children")
+    uuid = device["uuid"]
+    layers = BENCH_350M.num_layers
+    replicas = {n: _check_serve_child(n, c, uuid, layers)
+                for n, c in children.items() if n.startswith("chat-")}
+    windows = [r["window"] for r in replicas.values()]
+    overlap = min(w[1] for w in windows) - max(w[0] for w in windows)
+    if len(windows) != 2 or overlap <= 0:
+        fail(f"the replicas' serving windows {windows} do not overlap")
+    for name, s in host["sigterm_to_exit_s"].items():
+        if s > QUOTA_STOP_LIMIT_S:
+            fail(f"{name}'s child took {s} s to exit on SIGTERM")
+    fillers = {}
+    for name in SERVING_FILLERS:
+        child = children[name]
+        child["fraction"], child["cap_bytes"] = _grant_cap(
+            int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), total)
+        if name == SERVING_FILLER_VICTIM:
+            _check_stopped_child(f"serving {name}", child, uuid, main_loss0)
+        else:
+            _check_granted_child(f"serving {name}", child, uuid, main_loss0)
+        fillers[name] = {"rc": child["rc"], "wall_s": child["wall_s"],
+                         "steps_logged": len(child["steps"]),
+                         "launches": (child["report"] or {}).get("launches")}
+    launches = {k: sum(r["launches"].get(k, 0) for r in replicas.values())
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    tiles = {name: sum(r["tile_launches"].get(
+                 f"{kernel}:{tile[0]}x{tile[1]}", 0)
+                 for r in replicas.values())
+             for name, (kernel, tile, _) in TILES.items()}
+    costs = RouterService.from_mapping(serving_router_service(
+        card, _bench350m_weights_gb())).prefill_costs
+    burst = host["burst"]
+    emit({"phase": "serving", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "fleets_seconds": fleets_s,
+          "fleets": fleets, "card": host, "replicas": replicas,
+          "serving_overlap_s": overlap, "fillers": fillers,
+          "cost_model": {
+              "device_kind": card, "hbm_gb": costs.hbm_gb,
+              "mfu": costs.mfu, "hbm_efficiency": costs.hbm_efficiency,
+              "prefill_seconds_448": costs.prefill_seconds(SERVING_PROMPT),
+              "decode_step_seconds_empty": costs.decode_step_seconds(0),
+              "decode_step_seconds_burst": costs.decode_step_seconds(
+                  burst["streams"] * (SERVING_PROMPT
+                                      + SERVING_OUTPUT // 2)),
+              "note": "printed, not held: the model assumes mfu 0.4 and "
+                      "a KV cache; generate recomputes the sequence"},
+          "launches": launches, "tile_launches": tiles})
+    PATH_TILES["serving"] = tiles
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -6440,9 +7685,10 @@ def main() -> int:
         recovery = phase_recovery(main_loss0, device, smi)
         mains = phase_mains(main_loss0, device, smi)
         elastic = phase_elastic(main_loss0, device, smi)
+        serving = phase_serving(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
-             "elastic": elastic}
+             "elastic": elastic, "serving": serving}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

@@ -287,6 +287,77 @@ class AgentConfig(ManagerConfig):
             raise ConfigError("report_interval_s must be positive")
 
 
+
+def _check_services(services, build) -> None:
+    """Each service mapping through the class that runs it, so a chart
+    and the code cannot drift: a typo or a value with no meaning on the
+    card fails the load."""
+    if not isinstance(services, list):
+        raise ConfigError("services must be a list of mappings")
+    for i, raw in enumerate(services):
+        if not isinstance(raw, dict):
+            raise ConfigError(f"services[{i}] must be a mapping")
+        try:
+            build(raw)
+        except (TypeError, ValueError) as e:
+            raise ConfigError(f"services[{i}]: {e}") from e
+
+
+@dataclasses.dataclass
+class AutoscalerConfig(ManagerConfig):
+    """The serving replica autoscaler main's config (``serving/``).
+    ``services`` holds one mapping per autoscaled service (the
+    ``ServingService`` fields: name, namespace, slice_shape (a MIG
+    profile) or timeshare_gb, min/max_replicas, target_load_per_replica,
+    the cooldowns, down_hysteresis, priority, scheduler_name), each
+    validated through ``ServingService`` itself."""
+
+    reconcile_interval_s: float = 0.5
+    status_configmap: str = "nos-tpu-autoscaler-status"
+    status_namespace: str = "nos-tpu-system"
+    services: list = dataclasses.field(default_factory=list)
+
+    def validate(self) -> None:
+        super().validate()
+        if self.reconcile_interval_s <= 0:
+            raise ConfigError("reconcile_interval_s must be positive")
+        if not self.status_configmap:
+            raise ConfigError("status_configmap is required")
+        from nos_tpu_torch.serving.autoscaler import ServingService
+
+        _check_services(self.services, ServingService.from_mapping)
+
+
+@dataclasses.dataclass
+class RouterConfig(ManagerConfig):
+    """The request router's config (``requests/``).  ``services`` holds
+    one mapping per routed service (the ``RouterService`` fields with
+    nested ``model:``, ``prefill:`` and ``decode:`` cost blocks), each
+    validated through ``RouterService`` itself.  Off by default: with
+    ``enabled`` false no router is built and replicas' loads are
+    whatever the workloads self-report.  As in the JAX package no main
+    runs it; the router is built in-process (``requests/router.py``)."""
+
+    enabled: bool = False
+    tick_interval_s: float = 0.05
+    publish_every_ticks: int = 5
+    # replica-stepping worker threads, 0 or 1 in line: the journal is
+    # byte-identical at any count
+    workers: int = 0
+    services: list = dataclasses.field(default_factory=list)
+
+    def validate(self) -> None:
+        super().validate()
+        if self.tick_interval_s <= 0:
+            raise ConfigError("tick_interval_s must be positive")
+        if self.publish_every_ticks < 1:
+            raise ConfigError("publish_every_ticks must be >= 1")
+        if self.workers < 0:
+            raise ConfigError("workers must be >= 0")
+        from nos_tpu_torch.requests.router import RouterService
+
+        _check_services(self.services, RouterService.from_mapping)
+
 # -- version conversion and the canonical decode ---------------------------
 
 _DRAIN_FLAT_TO_NESTED = (

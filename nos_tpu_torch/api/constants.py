@@ -110,6 +110,12 @@ TIER_SERVING = "serving"
 TIER_BATCH = "batch"
 TIER_BEST_EFFORT = "best-effort"
 
+# The serving service a replica pod belongs to (``serving/autoscaler.py``
+# creates and counts the pods of a ``ServingService`` by it; the request
+# router, ``requests/router.py``, keeps a replica model per live pod of
+# it).  The JAX package's nos.tpu/service.
+LABEL_SERVICE = f"{GROUP}/service"
+
 # ---------------------------------------------------------------------------
 # Annotations
 # ---------------------------------------------------------------------------
@@ -198,6 +204,21 @@ ANNOT_MAX_REPLICAS = f"{GROUP}/max-replicas"
 # when it differs from its boot-time world size, so the restart picks
 # up the new mesh.
 ANNOT_DP_RESIZE = f"{GROUP}/dp-resize"
+
+# A serving replica's load signal, on its own pod: the request router
+# publishes the replica's reserved KV fraction (a prefill-only replica's
+# queue saturation), or, routerless, the workload self-reports its
+# requests in flight (the downward-API pattern of ANNOT_JOB_PROGRESS).
+# The replica autoscaler sums it over a service's live replicas and
+# scales toward ``target_load_per_replica``.  Absent or garbage reads 0.
+ANNOT_SERVING_LOAD = f"{GROUP}/serving-load"
+
+# A serving replica's live sessions, published by the router beside the
+# load: the autoscaler's scale-down takes drained (zero-session) replicas
+# before the least loaded, so scale-in cuts no live stream while an idle
+# replica exists.  Absent or garbage reads 0, which keeps a routerless
+# deployment's pending-first, least-loaded order.
+ANNOT_SERVING_SESSIONS = f"{GROUP}/serving-sessions"
 
 # Defragmentation drain: a host a defrag proposal is emptying (the value
 # is the proposal id).  The scheduler's score key avoids such hosts

@@ -23,6 +23,8 @@ loops only while it holds a ConfigMap lease (``kube/leaderelection.py``):
   --out m.json`` (one shot)
 - ``python -m nos_tpu_torch.cmd.train --config t.json`` (the training
   main)
+- ``python -m nos_tpu_torch.cmd.autoscaler --config a.json`` (the serving
+  replica autoscaler)
 
-The provisioner and autoscaler mains come with ROADMAP item 9 part 2.
+The provisioner main comes with the capacity plane (ROADMAP).
 """

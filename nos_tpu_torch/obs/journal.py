@@ -70,15 +70,22 @@ DEFRAG_PROPOSED = "defrag-proposed"
 DEFRAG_APPLIED = "defrag-applied"
 DEFRAG_REJECTED = "defrag-rejected"
 GANG_RESIZED = "gang-resized"
-# -- the planes the port has not yet (capacity and requests: ROADMAP item
-# 9 part 2): nothing in the port records these, but ``obs capacity``
-# joins on them, as the JAX CLI does
+# -- the capacity plane's, which the port has not yet (ROADMAP): nothing
+# in the port records these, but ``obs capacity`` joins on them, as the
+# JAX CLI does
 PROVISION_REQUESTED = "provision-requested"
 PROVISION_FAILED = "provision-failed"
 PROVISION_STOCKOUT = "provision-stockout"
 SPARE_BORROWED = "spare-borrowed"
+# -- the serving tier's: AUTOSCALE is an executed replica scale (service
+# key; direction, count: ``serving/autoscaler.py``); REQUEST_SHED a
+# request dropped after the router's retry budget (service key; rid,
+# session, retries, phase); SESSION_MIGRATED a live session re-homed
+# because its replica vanished (service key; session, from_replica,
+# was_affine: ``requests/router.py``)
 AUTOSCALE = "autoscale"
 REQUEST_SHED = "request-shed"
+SESSION_MIGRATED = "session-migrated"
 
 
 class DecisionRecord:

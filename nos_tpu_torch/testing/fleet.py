@@ -1682,3 +1682,800 @@ def run_defrag_fleet(spec: dict) -> dict:
     out["decisions"] = len(base["decisions"])
     out["frag_ratio"] = frag / base_frag if base_frag > 0 else None
     return out
+
+
+# -- the serving fleets ----------------------------------------------------
+
+# The mapped cluster (module docstring): the trace's "chip" is a fourth of
+# an H100 (20 GB), which is the JAX stand-in's chip and the bench's unit.
+SERVING_MIG_NODES = 24
+SERVING_MPS_NODES = 2
+SERVING_MPS_GPUS = 2
+SERVING_CHIP_GB = 20
+SERVING_DOMAIN = "pod-0"
+SERVING_DECODE, SERVING_HALF, SERVING_WHOLE = "1g.20gb", "3g.40gb", "7g.80gb"
+SERVING_PROFILES = (SERVING_DECODE, SERVING_HALF, SERVING_WHOLE)
+# the trace's units of each profile (memory slots over 2: the stand-in's
+# chips) and of an MPS share (GB over SERVING_CHIP_GB)
+SERVING_UNITS = {SERVING_DECODE: 1, SERVING_HALF: 2, SERVING_WHOLE: 4}
+SERVING_TOTAL_UNITS = (SERVING_MIG_NODES * 4 + SERVING_MPS_NODES
+                       * SERVING_MPS_GPUS * 80 // SERVING_CHIP_GB)
+# bench_serving.py's clock, cut: its 0.04 s tick kept, its 240 s trace
+# and 40 s warm-up cut to SERVING_TRACE_S and SERVING_WARMUP_S
+SERVING_TICK_S = 0.04
+SERVING_TRACE_S = 30.0
+SERVING_WARMUP_S = 10.0
+SERVING_BATCH_IDLE_S = 0.5
+SERVING_BATCH_TIMEOUT_S = 2.0
+SERVING_STAMP_EVERY_TICKS = 5
+SERVING_PREEMPT_BUDGET = 4
+SERVING_P99_TARGET_S = 0.1
+REQUEST_P99_TARGET_S = 10.0
+SERVING_OCC_CEILING = 0.9
+SERVING_OCC_WITHIN = 0.9
+SERVING_TRACK_WITHIN = 0.9
+# the bench's quotas in its chips (a chip 16 GB there), here at
+# SERVING_CHIP_GB a chip: the mins still sum to the cluster's GB
+SERVING_QUOTAS = (("serve", 40, 56), ("batch", 48, 64),
+                  ("besteffort", 24, 112))
+# bench_serving.py's mixes in the trace's units: batch 2x4 -> 7g.80gb,
+# 2x2 -> 3g.40gb; the best-effort fillers sized like the serving units
+SERVING_BATCH_MIX = ((SERVING_WHOLE, 2.0), (SERVING_HALF, 2.0))
+SERVING_BE_MIX = ((SERVING_DECODE, 1.0),)
+SERVING_BE_TS_MIX = ((8, 1.0),)
+SERVING_BATCH_TARGET = 20.0
+SERVING_BE_TARGET = 28.0
+SERVING_BE_TS_TARGET = 8.0
+SERVING_DURATION_S = {"batch": (20.0, 45.0), "besteffort": (8.0, 20.0)}
+SERVING_TS_DURATION_S = (12.0, 30.0)
+# bench_serving.py's SERVICES: chat on the decode unit, embed on 8 GB
+# MPS shares
+SERVING_SERVICES = (
+    {"name": "chat", "namespace": "serve", "slice_shape": SERVING_DECODE,
+     "min_replicas": 2, "max_replicas": 12, "target_load_per_replica": 8.0,
+     "scale_up_cooldown_s": 0.2, "scale_down_cooldown_s": 10.0,
+     "down_hysteresis": 0.2},
+    {"name": "embed", "namespace": "serve", "timeshare_gb": 8,
+     "min_replicas": 1, "max_replicas": 8, "target_load_per_replica": 16.0,
+     "scale_up_cooldown_s": 0.2, "scale_down_cooldown_s": 12.0,
+     "down_hysteresis": 0.2},
+)
+# bench_requests.py's ROUTER_AUTOSCALED: chat-prefill on 3g.40gb (the
+# bench's 1x2, more compute), chat-decode on 1g.20gb (its 1x1)
+REQUEST_AUTOSCALED = (
+    {"name": "chat-prefill", "namespace": "serve",
+     "slice_shape": SERVING_HALF, "min_replicas": 1, "max_replicas": 3,
+     "target_load_per_replica": 0.5, "scale_up_cooldown_s": 0.2,
+     "scale_down_cooldown_s": 10.0, "down_hysteresis": 0.2},
+    {"name": "chat-decode", "namespace": "serve",
+     "slice_shape": SERVING_DECODE, "min_replicas": 2, "max_replicas": 12,
+     "target_load_per_replica": 0.55, "scale_up_cooldown_s": 0.2,
+     "scale_down_cooldown_s": 10.0, "down_hysteresis": 0.2},
+    {"name": "embed", "namespace": "serve", "timeshare_gb": 8,
+     "min_replicas": 1, "max_replicas": 8, "target_load_per_replica": 0.55,
+     "scale_up_cooldown_s": 0.2, "scale_down_cooldown_s": 12.0,
+     "down_hysteresis": 0.2},
+)
+SERVING_CARD = "NVIDIA H100 80GB HBM3"
+# bench_requests.py's models: chat KV-heavy (full MHA, 12 GB of weights,
+# which a 1g.20gb holds with 8 GB of KV beside), embed a small encoder
+CHAT_MODEL = {"name": "chat-7b-mha", "num_layers": 32, "num_heads": 32,
+              "num_kv_heads": 32, "head_dim": 128,
+              "intermediate_size": 14336, "weights_gb": 12.0}
+EMBED_MODEL = {"name": "embed-1b", "num_layers": 12, "num_heads": 16,
+               "num_kv_heads": 16, "head_dim": 64,
+               "intermediate_size": 4096, "weights_gb": 2.0}
+# bench_requests.py's ROUTER_SERVICES, each cost block on its replica's
+# unit: the prefill pool's 3g.40gb, the decode pool's 1g.20gb, embed's
+# 8 GB MPS share (the whole GPU time-shared)
+REQUEST_ROUTED = (
+    {"name": "chat", "namespace": "serve", "prefill_service": "chat-prefill",
+     "decode_service": "chat-decode", "model": CHAT_MODEL,
+     "prefill": {"device_kind": SERVING_CARD, "hbm_gb": 40.0,
+                 "mig_profile": SERVING_HALF, "mfu": 0.4},
+     "decode": {"device_kind": SERVING_CARD, "hbm_gb": 20.0,
+                "mig_profile": SERVING_DECODE},
+     "max_queue_per_replica": 16, "max_retries": 5, "retry_backoff_s": 0.3,
+     "session_idle_s": 30.0},
+    {"name": "embed", "namespace": "serve", "model": EMBED_MODEL,
+     "prefill": {"device_kind": SERVING_CARD, "hbm_gb": 8.0, "mfu": 0.2,
+                 "hbm_efficiency": 0.4},
+     "max_queue_per_replica": 32, "max_retries": 3, "retry_backoff_s": 0.25,
+     "session_idle_s": 20.0},
+)
+REQUEST_CHAT_PROMPT = (64, 512)
+REQUEST_CHAT_OUTPUT = (16, 96)
+REQUEST_CHAT_SESSIONS = 600
+REQUEST_EMBED_PROMPT = (32, 256)
+REQUEST_SERVICE_TIME_S = {"chat": 0.5, "embed": 1.0}
+# the journal's records the serving fleets' summary keeps
+SERVING_RECORDS = ("autoscale", "request-shed", "session-migrated")
+
+
+def serving_standin() -> GpuModel:
+    """The H100 80GB restricted to {1g.20gb, 3g.40gb, 7g.80gb}: a GPU's
+    memory slots in pairs, each pair the JAX stand-in's chip (a 1x4 host
+    of 20 GB chips: 1x1, 1x2 and 1x4 at its aligned offsets), on which
+    the two packages' MIG planners decide alike."""
+    import dataclasses
+
+    return dataclasses.replace(H100_80GB, mig_profiles=tuple(
+        p for p in H100_80GB.mig_profiles if p.name in SERVING_PROFILES))
+
+
+def serving_fleet_spec(seed: int = 0, router: bool = False) -> dict:
+    """The serving fleet's spec: SERVING_MIG_NODES one-GPU MIG nodes of
+    the stand-in in one NVLink domain, each at its host index, and
+    SERVING_MPS_NODES MPS nodes of SERVING_MPS_GPUS GPUs; the quotas in
+    GB; the autoscaled services (``router``: bench_requests.py's per-role
+    ones and its routed services).  ``seed`` draws the jobs, the load
+    curves and the requests."""
+    return {
+        "seed": seed, "router": router,
+        "mig_nodes": [{"name": f"host-{i}", "host_index": i}
+                      for i in range(SERVING_MIG_NODES)],
+        "mps_nodes": [{"name": f"ts-{i}", "host_index": i}
+                      for i in range(SERVING_MPS_NODES)],
+        "quotas": [{"namespace": ns, "min_gb": float(lo * SERVING_CHIP_GB),
+                    "max_gb": float(hi * SERVING_CHIP_GB)}
+                   for ns, lo, hi in SERVING_QUOTAS],
+        "autoscaled": list(REQUEST_AUTOSCALED if router
+                           else SERVING_SERVICES),
+        "routed": list(REQUEST_ROUTED) if router else [],
+    }
+
+
+def serving_traces(seed: int, router: bool) -> dict[str, dict]:
+    """Each service's DiurnalTrace knobs, bench_serving.py's
+    ``make_traces`` (router off: requests in flight) or
+    bench_requests.py's ``request_traces`` (router on: the arrival
+    rate's curve)."""
+    if router:
+        return {
+            "serve/chat": dict(
+                seed=seed * 11 + 3, period_s=120.0, base_users=150_000.0,
+                peak_users=900_000.0, requests_per_user_per_s=2e-5,
+                service_time_s=0.5, burst_rate_per_s=1.0 / 40.0,
+                burst_multiplier=3.0, burst_duration_s=8.0),
+            "serve/embed": dict(
+                seed=seed * 11 + 4, period_s=150.0, phase_s=60.0,
+                base_users=800_000.0, peak_users=4_800_000.0,
+                requests_per_user_per_s=1e-5, service_time_s=1.0,
+                burst_rate_per_s=1.0 / 55.0, burst_multiplier=2.5,
+                burst_duration_s=10.0)}
+    return {
+        "serve/chat": dict(
+            seed=seed * 7 + 1, period_s=120.0, base_users=400_000.0,
+            peak_users=3_200_000.0, requests_per_user_per_s=2e-5,
+            service_time_s=0.5, burst_rate_per_s=1.0 / 40.0,
+            burst_multiplier=3.0, burst_duration_s=8.0),
+        "serve/embed": dict(
+            seed=seed * 7 + 2, period_s=150.0, phase_s=60.0,
+            base_users=800_000.0, peak_users=4_800_000.0,
+            requests_per_user_per_s=1e-5, service_time_s=1.0,
+            burst_rate_per_s=1.0 / 55.0, burst_multiplier=2.5,
+            burst_duration_s=10.0)}
+
+
+def serving_units(p: dict) -> float:
+    """A pod's size in the trace's units (a fourth of a GPU)."""
+    if p.get("profile"):
+        return float(SERVING_UNITS[p["profile"]])
+    return p["gb"] / SERVING_CHIP_GB
+
+
+def _read_pods(api, read) -> list:
+    """``read(pod)`` of every stored pod, without the copies ``list``
+    makes: ``read`` runs as the listing's filter, on the stored object,
+    and must not change it."""
+    out: list = []
+    api.list("Pod", filter_fn=lambda p: out.append(read(p)))
+    return out
+
+
+def _rounded_percentile(xs: list[float], q: float, digits: int):
+    """``_percentile`` rounded as the serving benches round it."""
+    value = _percentile(xs, q)
+    return None if value is None else round(value, digits)
+
+
+class _ServingTrace:
+    """bench_serving.py's ``Sim`` (and, with the router, bench_requests.py's
+    overlay) over an ``ops`` object: the batch and best-effort backlogs,
+    completions, the workload controller's requeue of evicted jobs, the
+    load stamps (router off) or the routed arrivals (router on), and the
+    samples.  It decides only from what ``ops`` shows, so two packages
+    that decide alike run the same trace."""
+
+    def __init__(self, spec: dict, ops) -> None:
+        import random
+
+        self.spec = spec
+        self.ops = ops
+        self.router = spec["router"]
+        self.seed = spec["seed"]
+        self.rng = random.Random(self.seed)
+        self.traces = {key: ops.trace(**kw) for key, kw in
+                       serving_traces(self.seed, self.router).items()}
+        for n in spec["mig_nodes"]:
+            ops.add_mig_node(n)
+        for n in spec["mps_nodes"]:
+            ops.add_mps_node(n)
+        for q in spec["quotas"]:
+            ops.create_quota(q)
+        ops.build(spec)
+        self.jobs: dict[str, dict] = {}
+        self.job_seq = 0
+        self.completed = 0
+        self.serving_latencies: list[float] = []
+        self.serving_seen: set[str] = set()
+        self.batch_latencies: list[float] = []
+        self.replica_series = {f"{s['namespace']}/{s['name']}": []
+                               for s in spec["autoscaled"]}
+        self.occ_series = {f"{s['namespace']}/{s['name']}": []
+                           for s in spec["routed"]}
+        self.ticks: list[list] = []
+        self.prev: dict[str, str] = {}
+        self.util_area = self.batch_util_area = self.util_time = 0.0
+        self.util: list[float] = []
+        self.cycle_ms: list[float] = []
+        self.reconcile_ms: list[float] = []
+        self.router_ms: list[float] = []
+        self.tick_no = 0
+        self.rid = 0
+        self.req_rng = {s["name"]: random.Random(self.seed * 1000 + i * 7)
+                        for i, s in enumerate(spec["routed"])}
+
+    def now(self) -> float:
+        return self.ops.now()
+
+    # -- batch and best effort --------------------------------------------
+    def spawn_job(self, ns: str, unit: dict, lo: float, hi: float,
+                  tier: str = "") -> float:
+        self.job_seq += 1
+        name = f"{ns}-j{self.job_seq}"
+        p = {"name": name, "namespace": ns, "tier": tier,
+             "created": self.now(), **unit}
+        self.ops.create_pod(p)
+        self.jobs[name] = {"pod": p, "duration": self.rng.uniform(lo, hi),
+                           "bound_at": None}
+        return serving_units(p)
+
+    def spawn(self, rows: list[dict]) -> None:
+        backlog = {"batch": 0.0, "besteffort": 0.0, "besteffort-ts": 0.0}
+        for r in rows:
+            if r["node"] or r["namespace"] not in ("batch", "besteffort"):
+                continue
+            key = r["namespace"]
+            if key == "besteffort" and not r.get("profile"):
+                key = "besteffort-ts"
+            backlog[key] += serving_units(r)
+        lo, hi = SERVING_DURATION_S["batch"]
+        while backlog["batch"] < SERVING_BATCH_TARGET:
+            shape = self.rng.choices([m[0] for m in SERVING_BATCH_MIX],
+                                     [m[1] for m in SERVING_BATCH_MIX])[0]
+            backlog["batch"] += self.spawn_job("batch", {"profile": shape},
+                                               lo, hi)
+        lo, hi = SERVING_DURATION_S["besteffort"]
+        while backlog["besteffort"] < SERVING_BE_TARGET:
+            shape = self.rng.choices([m[0] for m in SERVING_BE_MIX],
+                                     [m[1] for m in SERVING_BE_MIX])[0]
+            backlog["besteffort"] += self.spawn_job(
+                "besteffort", {"profile": shape}, lo, hi,
+                tier=C.TIER_BEST_EFFORT)
+        lo, hi = SERVING_TS_DURATION_S
+        while backlog["besteffort-ts"] < SERVING_BE_TS_TARGET:
+            gb = self.rng.choices([m[0] for m in SERVING_BE_TS_MIX],
+                                  [m[1] for m in SERVING_BE_TS_MIX])[0]
+            backlog["besteffort-ts"] += self.spawn_job(
+                "besteffort", {"gb": gb}, lo, hi, tier=C.TIER_BEST_EFFORT)
+
+    def complete_finished(self) -> None:
+        for name, job in list(self.jobs.items()):
+            if job["bound_at"] is None \
+                    or self.now() < job["bound_at"] + job["duration"]:
+                continue
+            self.ops.delete_pod(name, job["pod"]["namespace"])
+            del self.jobs[name]
+            self.completed += 1
+
+    def requeue_evicted(self) -> None:
+        """Evicted jobs come back with their original creation time."""
+        live = self.ops.pod_names()
+        for name, job in self.jobs.items():
+            if name in live:
+                continue
+            job["bound_at"] = None
+            self.ops.create_pod(job["pod"])
+
+    # -- serving ---------------------------------------------------------
+    def stamp_loads(self) -> None:
+        for s in self.spec["autoscaled"]:
+            key = f"{s['namespace']}/{s['name']}"
+            self.ops.stamp(s, self.traces[key].load_at(self.now()))
+
+    def record_binds(self, rows: list[dict]) -> None:
+        services = {s["name"] for s in self.spec["autoscaled"]}
+        for r in rows:
+            if r["service"] not in services or not r["node"] \
+                    or r["name"] in self.serving_seen:
+                continue
+            self.serving_seen.add(r["name"])
+            if self.now() < SERVING_WARMUP_S:
+                continue
+            self.serving_latencies.append(self.now() - r["created"])
+        bound = {r["name"] for r in rows
+                 if r["node"] and r["phase"] == "Running"}
+        for name, job in self.jobs.items():
+            if job["bound_at"] is None and name in bound:
+                job["bound_at"] = self.now()
+                self.batch_latencies.append(self.now()
+                                            - job["pod"]["created"])
+        now = {r["name"]: r["node"] for r in rows}
+        binds = sorted([n, node] for n, node in now.items()
+                       if node and not self.prev.get(n))
+        gone = sorted(set(self.prev) - set(now))
+        if binds or gone:
+            self.ticks.append([self.now(), binds, gone])
+        self.prev = now
+
+    def track_replicas(self, rows: list[dict]) -> None:
+        import math
+
+        for s in self.spec["autoscaled"]:
+            key = f"{s['namespace']}/{s['name']}"
+            live = [r for r in rows if r["service"] == s["name"]
+                    and r["phase"] in ("Pending", "Running")]
+            if self.router:
+                load = sum(r["load"] for r in live)
+            else:
+                load = self.traces[key].load_at(self.now())
+            desired = min(s["max_replicas"], max(
+                s["min_replicas"],
+                math.ceil(load / s["target_load_per_replica"])))
+            self.replica_series[key].append(
+                [round(self.now(), 2), round(load, 2), len(live), desired])
+        for s in self.spec["routed"]:
+            key = f"{s['namespace']}/{s['name']}"
+            occs = self.ops.router.pool_occupancies(key)
+            pool = occs.get("decode") or occs.get("prefill") or []
+            if pool:
+                self.occ_series[key].append(
+                    [round(self.now(), 2), round(sum(pool) / len(pool), 4)])
+
+    def sample_utilization(self, rows: list[dict]) -> None:
+        used = serving_used = 0.0
+        for r in rows:
+            if r["node"] and r["phase"] == "Running":
+                units = serving_units(r)
+                used += units
+                if r["namespace"] == "serve":
+                    serving_used += units
+        utilization = min(1.0, used / SERVING_TOTAL_UNITS)
+        if self.now() < SERVING_WARMUP_S:
+            return
+        self.util.append(utilization)
+        self.util_area += utilization * SERVING_TICK_S
+        self.batch_util_area += min(
+            1.0, (used - serving_used) / SERVING_TOTAL_UNITS) * SERVING_TICK_S
+        self.util_time += SERVING_TICK_S
+
+    # -- requests --------------------------------------------------------
+    def arrive(self, svc: dict, t: float) -> None:
+        rng = self.req_rng[svc["name"]]
+        self.rid += 1
+        if svc["name"] == "chat":
+            req = ("chat", f"chat-r{self.rid}",
+                   f"chat-s{rng.randrange(REQUEST_CHAT_SESSIONS)}",
+                   rng.randrange(*REQUEST_CHAT_PROMPT),
+                   rng.randrange(*REQUEST_CHAT_OUTPUT), t)
+        else:
+            req = ("embed", f"embed-r{self.rid}", f"embed-r{self.rid}",
+                   rng.randrange(*REQUEST_EMBED_PROMPT), 1, t)
+        self.ops.router.submit(f"{svc['namespace']}/{svc['name']}",
+                               self.ops.request(*req))
+
+    def arrival_sources(self) -> list:
+        out = []
+        for svc in self.spec["routed"]:
+            trace = self.traces[f"{svc['namespace']}/{svc['name']}"]
+            scale = 1.0 / REQUEST_SERVICE_TIME_S[svc["name"]]
+
+            def rate(t: float, trace=trace, scale=scale) -> float:
+                return trace.load_at(t) * scale
+
+            peak = max(rate(i * 0.5) for i in
+                       range(int(SERVING_TRACE_S * 2) + 2)) * 1.05
+            out.append(self.ops.sim.ArrivalSource(
+                seed=self.seed * 31 + len(out), rate_fn=rate,
+                fn=(lambda t, svc=svc: self.arrive(svc, t)),
+                peak_rate=peak, until=SERVING_TRACE_S,
+                label=f"req-{svc['name']}"))
+        return out
+
+    # -- the tick --------------------------------------------------------
+    def tick(self) -> None:
+        self.tick_no += 1
+        self.complete_finished()
+        self.spawn(self.ops.pods())
+        if self.router:
+            t0 = time.perf_counter()
+            self.ops.router.tick(SERVING_TICK_S)
+            self.router_ms.append((time.perf_counter() - t0) * 1e3)
+        elif self.tick_no % SERVING_STAMP_EVERY_TICKS == 1:
+            self.stamp_loads()
+        t0 = time.perf_counter()
+        self.ops.reconcile_autoscaler()
+        self.reconcile_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        self.ops.cycle()
+        self.cycle_ms.append((time.perf_counter() - t0) * 1e3)
+        self.requeue_evicted()
+        self.ops.poll()
+        self.ops.tick_agents()
+        self.ops.reconcile_quotas()
+        rows = self.ops.pods()
+        self.record_binds(rows)
+        if self.tick_no % SERVING_STAMP_EVERY_TICKS == 0:
+            self.track_replicas(rows)
+        self.sample_utilization(rows)
+
+    def tracking(self) -> dict:
+        out = {}
+        for key, series in self.replica_series.items():
+            rows = [r for r in series if r[0] >= SERVING_WARMUP_S]
+            within = sum(1 for _, _, live, desired in rows
+                         if live >= desired - 1)
+            out[key] = {"samples": len(rows),
+                        "within_one": within / len(rows) if rows else None,
+                        "replicas_min": min((r[2] for r in rows), default=0),
+                        "replicas_max": max((r[2] for r in rows), default=0)}
+        return out
+
+    def request_stats(self) -> dict:
+        out = {}
+        stats = self.ops.router.stats()
+        for svc in self.spec["routed"]:
+            key = f"{svc['namespace']}/{svc['name']}"
+            reqs = [r for r in self.ops.router.completed_requests(key)
+                    if r.finished is not None
+                    and r.created >= SERVING_WARMUP_S]
+            total = [r.finished - r.created for r in reqs]
+            ttft = [r.prefill_done - r.created for r in reqs
+                    if r.prefill_done is not None]
+            decode = [r.finished - r.prefill_done for r in reqs
+                      if r.prefill_done is not None]
+            occ = [o for t, o in self.occ_series[key]
+                   if t >= SERVING_WARMUP_S]
+            # bench_requests.py's row (``obs top`` reads it), the
+            # phases' percentiles beside it
+            pct = _rounded_percentile
+            out[key] = {
+                **stats[key], "completed_post_warmup": len(reqs),
+                "p50_s": pct(total, 0.5, 3), "p99_s": pct(total, 0.99, 3),
+                "ttft_p99_s": pct(ttft, 0.99, 3),
+                "p50_s_by_phase": {"total": pct(total, 0.5, 6),
+                                   "prefill": pct(ttft, 0.5, 6),
+                                   "decode": pct(decode, 0.5, 6)},
+                "p99_s_by_phase": {"total": pct(total, 0.99, 6),
+                                   "prefill": pct(ttft, 0.99, 6),
+                                   "decode": pct(decode, 0.99, 6)},
+                "occupancy_mean_max": max(occ) if occ else None,
+                "occupancy_under_ceiling": (
+                    sum(1 for o in occ if o <= SERVING_OCC_CEILING)
+                    / len(occ) if occ else None)}
+        return out
+
+    def run(self) -> dict:
+        eng = self.ops.eng
+        if self.router:
+            for src in self.arrival_sources():
+                src.install(eng)
+        eng.tick_loop(SERVING_TICK_S, self.tick, until=SERVING_TRACE_S,
+                      label="ctl-tick")
+        eng.run()
+        records = self.ops.records()
+        preemptions = self.ops.preemptions
+        summary = {
+            "ticks": self.ticks, "records": records,
+            "preemptions": preemptions,
+            "replicas": self.replica_series,
+            "serving_latencies": self.serving_latencies,
+            "batch_latencies": self.batch_latencies,
+            "completed": self.completed, "utilization": self.util,
+        }
+        lat_ms = [x * 1e3 for x in self.serving_latencies]
+        out = {
+            "summary": summary,
+            "utilization_pct": (self.util_area / self.util_time
+                                if self.util_time else 0.0),
+            "utilization_min": min(self.util) if self.util else 0.0,
+            "batch_utilization_pct": (self.batch_util_area / self.util_time
+                                      if self.util_time else 0.0),
+            "serving": {
+                "binds": len(lat_ms),
+                "p50_ms": _rounded_percentile(lat_ms, 0.5, 3),
+                "p99_ms": _rounded_percentile(lat_ms, 0.99, 3),
+                "max_ms": max(lat_ms) if lat_ms else None,
+                "preempted": sum(1 for _, _, v in preemptions
+                                 for _, tier in v
+                                 if tier == C.TIER_SERVING),
+                "tracking": self.tracking()},
+            "batch": {"jobs_completed": self.completed,
+                      "p50_schedule_latency_s": _rounded_percentile(
+                          self.batch_latencies, 0.5, 3),
+                      "preemptions": len(preemptions),
+                      "preempted_pods": sum(len(v) for _, _, v
+                                            in preemptions)},
+            "scale_events": {d: sum(1 for r in records if r[0] == "autoscale"
+                                    and r[2]["direction"] == d)
+                             for d in ("up", "down")},
+            "cycle_ms": self.cycle_ms, "reconcile_ms": self.reconcile_ms,
+            "router_ms": self.router_ms, "ticks": self.tick_no,
+        }
+        if self.router:
+            out["requests"] = summary["requests"] = self.request_stats()
+            summary["occupancy"] = self.occ_series
+        return out
+
+
+def drive_serving_fleet(spec: dict, ops) -> dict:
+    """The serving fleet's trace over one package's loop.  ``ops`` gives
+    ``eng`` (its package's SimEngine, whose clock ``now()`` is the loop's),
+    ``sim`` (its package's ``sim`` module), ``trace(**kw)`` (its
+    DiurnalTrace), ``request(...)`` (its Request), ``add_mig_node(n)``,
+    ``add_mps_node(n)``, ``create_quota(q)``, ``build(spec)`` (the
+    controllers, the scheduler, the autoscaler on ``spec["autoscaled"]``
+    and, with ``spec["routed"]``, ``router``), ``create_pod(p)`` (``p``:
+    name, namespace, tier, created and a port ``profile`` or an MPS
+    ``gb``), ``delete_pod(name, ns)``, ``stamp(service, load)`` (the
+    service's load split over its live replicas), ``reconcile_autoscaler
+    ()``, ``cycle()``, ``poll()`` (both partitioner controllers),
+    ``tick_agents()``, ``reconcile_quotas()``, ``pods()`` (rows: name,
+    namespace, node, phase, created, service, load, profile, gb),
+    ``preemptions`` ([time, preemptor, [[victim, tier]...]]) and
+    ``records()`` (SERVING_RECORDS as [category, subject, attrs])."""
+    return _ServingTrace(spec, ops).run()
+
+
+class PortServingOps:
+    """The port's loop for ``drive_serving_fleet``: node controller with
+    the virgin-node initializer on the stand-in, pod controller, the MIG
+    and MPS partitioner controllers from their factories, a SliceAgent
+    over ``FakeGpuRuntime`` on each MIG node and a ChipAgent on each MPS
+    node, the ElasticQuota reconciler, ``build_scheduler`` (preemption
+    budget SERVING_PREEMPT_BUDGET), the replica autoscaler and, for a
+    routed spec, the ServingRouter (``workers`` threads), all on one
+    virtual clock (the SimEngine's)."""
+
+    def __init__(self, workers: int = 0) -> None:
+        from nos_tpu_torch import sim
+        from nos_tpu_torch.api.elasticquota import install_quota_webhooks
+        from nos_tpu_torch.controllers.node_controller import NodeController
+        from nos_tpu_torch.controllers.pod_controller import PodController
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.obs import journal as J
+        from nos_tpu_torch.partitioning.slicepart import SliceNodeInitializer
+        from nos_tpu_torch.topology.known import GpuModelRegistry
+
+        self.sim = sim
+        self.eng = sim.SimEngine()
+        self.now = self.eng.now
+        self.workers = workers
+        self.model = serving_standin()
+        self.registry = GpuModelRegistry(models={self.model.name: self.model})
+        self.journal = J.DecisionJournal(maxlen=1 << 20, clock=self.now)
+        self.api = APIServer()
+        install_quota_webhooks(self.api)
+        self.state = ClusterState()
+        NodeController(self.api, self.state,
+                       SliceNodeInitializer(self.api, self.registry)).bind()
+        PodController(self.api, self.state).bind()
+        self._agents: dict = {}
+        self.preemptions: list = []
+        self.router = None
+
+    # -- the cluster -----------------------------------------------------
+    def add_mig_node(self, n: dict) -> None:
+        from nos_tpu_torch.controllers.sliceagent import SliceAgent
+        from nos_tpu_torch.device.fake import FakeGpuRuntime, FakePodResources
+
+        self.api.create("Node", make_gpu_node(
+            n["name"], model=self.model, gpus=1, partitioning=C.MIG_KIND,
+            domain=SERVING_DOMAIN, host_index=n["host_index"]))
+        agent = SliceAgent(self.api, n["name"], FakeGpuRuntime(self.model, 1),
+                           FakePodResources())
+        agent.start()
+        self._agents[n["name"]] = agent
+
+    def add_mps_node(self, n: dict) -> None:
+        from nos_tpu_torch.controllers.chipagent import ChipAgent
+
+        self.api.create("Node", make_gpu_node(
+            n["name"], gpus=SERVING_MPS_GPUS, partitioning=C.MPS_KIND,
+            host_index=n["host_index"]))
+        agent = ChipAgent(self.api, n["name"])
+        agent.start()
+        self._agents[n["name"]] = agent
+
+    def create_quota(self, q: dict) -> None:
+        from nos_tpu_torch.api.elasticquota import (
+            ElasticQuota, ElasticQuotaSpec)
+        from nos_tpu_torch.kube.objects import ObjectMeta
+
+        mem = C.RESOURCE_GPU_MEMORY
+        self.api.create("ElasticQuota", ElasticQuota(
+            metadata=ObjectMeta(name=q["namespace"],
+                                namespace=q["namespace"]),
+            spec=ElasticQuotaSpec(min={mem: q["min_gb"]},
+                                  max={mem: q["max_gb"]})))
+
+    def build(self, spec: dict) -> None:
+        from nos_tpu_torch.cmd.assembly import build_scheduler
+        from nos_tpu_torch.controllers.elasticquota.controller import (
+            ElasticQuotaReconciler)
+        from nos_tpu_torch.partitioning.slicepart import (
+            new_slice_partitioner_controller)
+        from nos_tpu_torch.partitioning.timeshare.factory import (
+            new_timeshare_partitioner_controller)
+        from nos_tpu_torch.quota import GPUResourceCalculator
+        from nos_tpu_torch.requests import RouterService, ServingRouter
+        from nos_tpu_torch.scheduler.capacityscheduling import (
+            CapacityScheduling)
+        from nos_tpu_torch.serving import ReplicaAutoscaler, ServingService
+        from nos_tpu_torch.utils.pod_util import workload_tier
+
+        self.slice_ctl = new_slice_partitioner_controller(
+            self.api, self.state, batch_timeout_s=SERVING_BATCH_TIMEOUT_S,
+            batch_idle_s=SERVING_BATCH_IDLE_S, registry=self.registry,
+            clock=self.now)
+        self.slice_ctl.bind()
+        self.ts_ctl = new_timeshare_partitioner_controller(
+            self.api, self.state, batch_timeout_s=SERVING_BATCH_TIMEOUT_S,
+            batch_idle_s=SERVING_BATCH_IDLE_S, clock=self.now)
+        self.ts_ctl.bind()
+        self.eq = ElasticQuotaReconciler(self.api, GPUResourceCalculator())
+        self.sched = build_scheduler(
+            self.api, preempt_budget_per_cycle=SERVING_PREEMPT_BUDGET,
+            clock=self.now)
+        capacity = next(p for p in self.sched._framework.plugins
+                        if isinstance(p, CapacityScheduling))
+
+        def on_preempt(preemptor, victims) -> None:
+            self.preemptions.append([self.now(), preemptor.key, sorted(
+                [v.key, workload_tier(v)] for v in victims)])
+
+        capacity.on_preempt = on_preempt
+        self.autoscaler = ReplicaAutoscaler(
+            self.api, [ServingService.from_mapping(s)
+                       for s in spec["autoscaled"]], clock=self.now)
+        if spec["routed"]:
+            self.router = ServingRouter(
+                self.api, [RouterService.from_mapping(s)
+                           for s in spec["routed"]],
+                clock=self.now, workers=self.workers,
+                publish_every_ticks=SERVING_STAMP_EVERY_TICKS,
+                keep_completed=True)
+
+    def trace(self, **kw):
+        from nos_tpu_torch.serving import DiurnalTrace
+
+        return DiurnalTrace(**kw)
+
+    def request(self, *args):
+        from nos_tpu_torch.requests import Request
+
+        return Request(*args)
+
+    # -- the pods --------------------------------------------------------
+    def create_pod(self, p: dict) -> None:
+        labels = {C.LABEL_TIER: p["tier"]} if p["tier"] else None
+        kw = dict(name=p["name"], namespace=p["namespace"], labels=labels,
+                  creation_timestamp=p["created"])
+        if p.get("profile"):
+            pod = make_mig_pod(p["profile"], **kw)
+        else:
+            pod = make_timeshare_pod(p["gb"], **kw)
+        self.api.create("Pod", pod)
+
+    def delete_pod(self, name: str, namespace: str) -> None:
+        from nos_tpu_torch.kube.client import NotFound
+
+        try:
+            self.api.delete("Pod", name, namespace)
+        except NotFound:
+            pass
+
+    def stamp(self, svc: dict, demand: float) -> None:
+        from nos_tpu_torch.kube.client import NotFound
+        from nos_tpu_torch.utils.retry import retry_on_conflict
+
+        replicas = self.api.list(
+            "Pod", namespace=svc["namespace"],
+            label_selector={C.LABEL_SERVICE: svc["name"]},
+            filter_fn=lambda p: p.status.phase in ("Pending", "Running"))
+        if not replicas:
+            return
+        share = demand / len(replicas)
+
+        def mutate(p) -> None:
+            p.metadata.annotations[C.ANNOT_SERVING_LOAD] = f"{share:.3f}"
+
+        for p in replicas:
+            try:
+                retry_on_conflict(self.api, "Pod", p.metadata.name, mutate,
+                                  p.metadata.namespace,
+                                  component="serving-load")
+            except NotFound:
+                pass
+
+    def pod_names(self) -> set[str]:
+        return set(_read_pods(self.api, lambda p: p.metadata.name))
+
+    def pods(self) -> list[dict]:
+        from nos_tpu_torch.kube.resources import pod_request
+        from nos_tpu_torch.serving import replica_load
+        from nos_tpu_torch.topology.profile import (
+            extract_slice_requests, extract_timeshare_requests)
+
+        def row(p) -> dict:
+            req = pod_request(p)
+            return {
+                "name": p.metadata.name, "namespace": p.metadata.namespace,
+                "node": p.spec.node_name, "phase": p.status.phase,
+                "created": p.metadata.creation_timestamp,
+                "service": p.metadata.labels.get(C.LABEL_SERVICE, ""),
+                "load": replica_load(p),
+                "profile": next(iter(sorted(extract_slice_requests(req))),
+                                ""),
+                "gb": next(iter(sorted(extract_timeshare_requests(req))),
+                           0)}
+
+        return sorted(_read_pods(self.api, row),
+                      key=lambda r: (r["namespace"], r["name"]))
+
+    # -- the loop --------------------------------------------------------
+    def reconcile_autoscaler(self) -> None:
+        self.autoscaler.reconcile()
+
+    def cycle(self) -> None:
+        self.sched.run_cycle()
+
+    def poll(self) -> None:
+        self.slice_ctl.process_if_ready()
+        self.ts_ctl.process_if_ready()
+
+    def tick_agents(self) -> None:
+        for agent in self._agents.values():
+            agent.tick()
+
+    def reconcile_quotas(self) -> None:
+        self.eq.reconcile_all()
+
+    def records(self) -> list:
+        return [[r.category, r.subject,
+                 {k: str(v) for k, v in sorted(r.attrs.items())}]
+                for r in self.journal.events()
+                if r.category in SERVING_RECORDS]
+
+    def close(self) -> None:
+        self.sched.close()
+
+
+def run_serving_fleet(spec: dict, workers: int = 0) -> dict:
+    """One ``drive_serving_fleet`` on the port under a journal and a waste
+    ledger of its own on the trace's clock (``waste``, the ledger's
+    report, which must conserve)."""
+    ops = PortServingOps(workers)
+    ledger = ChipSecondLedger(clock=ops.now)
+    try:
+        with obs_scoped(journal=ops.journal, ledger=ledger):
+            out = drive_serving_fleet(spec, ops)
+    finally:
+        ops.close()
+    out["waste"] = check_conservation(ledger.report(), "the serving fleet")
+    out["journal"] = [
+        [r.category, r.subject, sorted((k, str(v)) for k, v in r.attrs.items()
+                                       if k != "plan_id")]
+        for r in ops.journal.events()]
+    return out

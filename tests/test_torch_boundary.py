@@ -120,7 +120,11 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "testing.lockcheck", "obs.ledger", "obs.timeseries",
                    "obs.slo", "obs.explain", "obs.__main__",
                    "scheduler.elastic", "topology.windows",
-                   "partitioning.core.defrag"):
+                   "partitioning.core.defrag", "sim", "sim.engine",
+                   "sim.trace", "requests", "requests.costs",
+                   "requests.replica", "requests.router", "serving",
+                   "serving.autoscaler", "serving.trace",
+                   "cmd.autoscaler"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]

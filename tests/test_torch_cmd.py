@@ -1594,3 +1594,509 @@ def _jax_mains(monkeypatch) -> dict:
             "lease": {"holder": "standby"
                       if holder == mains[standby]._elector.identity
                       else holder, "deadline": deadline}}
+
+
+# ---------------------------------------------------------------------------
+# The serving replica autoscaler's main
+# ---------------------------------------------------------------------------
+
+AUTOSCALED = {"name": "chat", "namespace": "serve", "timeshare_gb": 24,
+              "min_replicas": 2, "max_replicas": 4,
+              "target_load_per_replica": 10.0, "scale_up_cooldown_s": 0.0,
+              "scale_down_cooldown_s": 0.0}
+
+
+def _wait(done, what: str, limit_s: float = 10.0) -> None:
+    t0 = time.monotonic()
+    while not done():
+        assert time.monotonic() - t0 < limit_s, what
+        time.sleep(0.01)
+
+
+class TestAutoscalerMain:
+    @pytest.mark.parametrize("jax", [True, False], ids=["jax", "port"])
+    def test_the_main_reconciles_without_leader_election(self, jax):
+        """``build_autoscaler_main`` on each package's in-memory API: the
+        loop binds at once, creates the min floor of replicas and writes
+        the status ConfigMap; the same objects on both."""
+        if jax:
+            from nos_tpu.cmd.autoscaler import build_autoscaler_main
+            from nos_tpu.kube.client import APIServer
+            cfg = jconfig.AutoscalerConfig(
+                services=[AUTOSCALED], reconcile_interval_s=0.02,
+                slo_interval_s=0)
+        else:
+            from nos_tpu_torch.cmd.autoscaler import build_autoscaler_main
+            from nos_tpu_torch.kube.client import APIServer
+            cfg = pconfig.AutoscalerConfig(
+                services=[AUTOSCALED], reconcile_interval_s=0.02,
+                slo_interval_s=0)
+        api = APIServer()
+        main = build_autoscaler_main(api, cfg)
+        main.start()
+        try:
+            _wait(lambda: len(api.list("Pod", namespace="serve")) == 2,
+                  "create the min floor")
+            _wait(lambda: api.try_get("ConfigMap", cfg.status_configmap,
+                                      cfg.status_namespace) is not None,
+                  "write the status")
+        finally:
+            main.shutdown()
+        pods = sorted(p.metadata.name for p in api.list("Pod"))
+        assert pods == ["chat-r0", "chat-r1"]
+        assert [s.key for s in main.autoscaler.services()] == ["serve/chat"]
+
+    @pytest.mark.parametrize("raw,ok", [
+        ({"services": [AUTOSCALED]}, True),
+        ({"services": [AUTOSCALED], "reconcile_interval_s": 0}, False),
+        ({"services": [{"name": "chat"}]}, False),
+        ({"services": [AUTOSCALED | {"colldown": 1}]}, False),
+    ])
+    def test_the_config_file_loads_as_jax_s(self, raw, ok, tmp_path):
+        path = tmp_path / "a.json"
+        path.write_text(json.dumps({"apiVersion": "nos.tpu/v1beta2", **raw}))
+        for mod in (jconfig, pconfig):
+            if ok:
+                cfg = mod.load_config(path, mod.AutoscalerConfig)
+                assert cfg.services == raw["services"]
+            else:
+                with pytest.raises(mod.ConfigError):
+                    mod.load_config(path, mod.AutoscalerConfig)
+
+    def test_an_invalid_config_exits_2(self, tmp_path, capsys):
+        from nos_tpu_torch.cmd.autoscaler import main
+
+        path = tmp_path / "a.json"
+        path.write_text(json.dumps({"apiVersion": "nos.tpu/v1beta2",
+                                    "services": [{"name": "chat",
+                                                  "slice_shape": "1x1"}]}))
+        assert main(["--config", str(path)]) == 2
+        assert "not a MIG profile" in capsys.readouterr().err
+
+    def test_the_main_as_a_process_serves_health_and_exits_0(self, tmp_path):
+        """``python -m nos_tpu_torch.cmd.autoscaler --config`` on the
+        in-memory API: /healthz and /readyz answer, the loop runs
+        (/metrics counts its ticks), SIGTERM exits 0."""
+        import os
+        import signal
+        import subprocess
+        import sys
+        import urllib.request
+
+        import chip_smoke
+
+        addr = f"127.0.0.1:{chip_smoke._free_port()}"
+        path = tmp_path / "a.json"
+        path.write_text(json.dumps({
+            "apiVersion": "nos.tpu/v1beta2", "health_probe_addr": addr,
+            "services": [AUTOSCALED], "reconcile_interval_s": 0.05,
+            "slo_interval_s": 0}))
+        env = dict(os.environ, PYTHONPATH=str(chip_smoke.ROOT))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nos_tpu_torch.cmd.autoscaler",
+             "--config", str(path)], cwd=chip_smoke.ROOT, env=env,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            def get(p: str) -> tuple[int, str]:
+                try:
+                    with urllib.request.urlopen(f"http://{addr}{p}",
+                                                timeout=2) as r:
+                        return r.status, r.read().decode()
+                except OSError:
+                    return 0, ""
+
+            _wait(lambda: get("/healthz")[0] == 200, "answer /healthz", 60)
+            assert get("/readyz") == (200, "ok")
+            _wait(lambda: 'loop="autoscaler"' in get("/metrics")[1],
+                  "run the loop")
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=10) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+class TestAutoscalerLeaderHandoff:
+    @pytest.mark.parametrize("jax", [True, False], ids=["jax", "port"])
+    def test_the_standby_takes_over_the_reconcile_loop(self, jax):
+        """``tests/test_autoscaler.py``'s handoff on each package: two
+        autoscaler mains on one API with fast lease timings; the standby
+        does not scale while the leader holds the lease, and scales once
+        the leader's shutdown released it."""
+        if jax:
+            from nos_tpu.cmd._runtime import Main
+            from nos_tpu.kube.client import APIServer
+            from nos_tpu.kube.leaderelection import LeaderElector
+            from nos_tpu.serving import ReplicaAutoscaler, ServingService
+            from nos_tpu.api import constants as PC
+        else:
+            from nos_tpu_torch.cmd._runtime import Main
+            from nos_tpu_torch.kube.client import APIServer
+            from nos_tpu_torch.kube.leaderelection import LeaderElector
+            from nos_tpu_torch.serving import ReplicaAutoscaler, ServingService
+            PC = C
+        api = APIServer()
+        svc = ServingService.from_mapping(AUTOSCALED)
+        mains = []
+        for ident in ("a", "b"):
+            m = Main(f"autoscaler-{ident}")
+            m.attach_leader_election(LeaderElector(
+                api, "nos-tpu-autoscaler-leader", identity=ident,
+                lease_duration_s=0.6, renew_s=0.05, retry_s=0.05))
+            m.add_loop("autoscaler", ReplicaAutoscaler(api, [svc]).reconcile,
+                       0.02)
+            mains.append(m)
+
+        def replicas() -> int:
+            return len(api.list("Pod", namespace="serve"))
+
+        try:
+            mains[0].start()
+            _wait(lambda: replicas() == 2, "the leader's min floor")
+            mains[1].start()
+            time.sleep(0.2)
+            assert not mains[1]._elector.is_leader.is_set()
+            mains[0].shutdown()
+            _wait(lambda: mains[1]._elector.is_leader.is_set(),
+                  "the standby takes the released lease")
+            for p in api.list("Pod", namespace="serve"):
+                api.patch("Pod", p.metadata.name, "serve",
+                          mutate=lambda q: q.metadata.annotations.
+                          __setitem__(PC.ANNOT_SERVING_LOAD, "20"))
+            _wait(lambda: replicas() == 4, "the new leader scales up")
+        finally:
+            for m in mains:
+                m.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phase 16 (b) on the host: the port's processes, JAX's mains
+# ---------------------------------------------------------------------------
+
+_SERVING_SCRIPT = """
+import json, sys, tempfile
+sys.path[:0] = [{root!r}, {tests!r}]
+import chip_smoke
+from k8s_stub import StubApiServer
+
+device = {{"model": "nvidia-h100-80gb-hbm3", "memory_bytes": 85_000_000_000,
+           "uuids": ["GPU-0"]}}
+with StubApiServer() as stub, tempfile.TemporaryDirectory() as tmp:
+    fields, writes = chip_smoke._serving_host(
+        stub, tmp, device, "NVIDIA H100 80GB HBM3",
+        agent_model="nvidia-h100-80gb-hbm3")
+print(json.dumps({{"fields": fields, "writes": writes}}))
+"""
+SERVING_TIMEOUT_S = 120.0
+
+
+class TestServingAsProcesses:
+    def test_the_story_writes_what_the_smoke_pins(self):
+        """chip_smoke.py's phase 16 (b) without its children: a
+        partitioner, a scheduler, an operator, a chip agent and the
+        replica autoscaler's main as processes against the REST stub, the
+        router a process on its virtual clock.  One plan carves three 24
+        GB shares for the first replica and the two fillers; the burst's
+        published load passes twice the target; the scale-up evicts
+        SERVING_FILLER_VICTIM and binds chat-r1 with no new plan; the
+        drained replica (its sessions published as 0) is the one the
+        scale-down deletes, SERVING_VICTIM; every main and the router
+        exit 0; the writes are SERVING_LOOP_WRITES.  The run (one process
+        group) is killed at SERVING_TIMEOUT_S."""
+        import os
+        import pathlib
+        import signal
+        import subprocess
+        import sys
+
+        import chip_smoke
+
+        root = pathlib.Path(chip_smoke.__file__).resolve().parent
+        script = _SERVING_SCRIPT.format(root=str(root),
+                                        tests=str(root / "tests"))
+        proc = subprocess.Popen([sys.executable, "-c", script], cwd=root,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=SERVING_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+            pytest.fail(f"the serving story took over {SERVING_TIMEOUT_S} "
+                        f"s:\n{err[-4000:]}")
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        assert proc.returncode == 0, err[-4000:]
+        result = json.loads(out.strip().splitlines()[-1])
+        assert result["writes"] == chip_smoke.SERVING_LOOP_WRITES
+        f = result["fields"]
+        assert f["plans"] == 1
+        assert [e[:2] for e in f["events"]] == [
+            ["evicted", chip_smoke.SERVING_FILLER_VICTIM], ["up", "chat-r1"],
+            ["down", chip_smoke.SERVING_VICTIM]]
+        assert f["max_published_load"] >= 2 * chip_smoke.SERVING_SERVICE[
+            "target_load_per_replica"]
+        assert all(e["rc"] == 0 for e in f["main_exits"].values())
+        assert f["router_stats"]["completed"] == \
+            f["router_stats"]["submitted"] - f["router_stats"]["shed"]
+
+    def test_the_jax_package_s_loop_writes_the_same(self, monkeypatch):
+        """The same story on the JAX package (``_jax_serving``): its mains,
+        its autoscaler main and its router (``chip_smoke._RouterDriver``
+        on the JAX modules, priced as the port by
+        ``jax_prices_as_the_port``) in one process over a stub of their
+        own; its writes under the port's names are SERVING_LOOP_WRITES
+        (the plugin config compared as its GPU table), and it takes the
+        same scale events."""
+        import chip_smoke
+
+        from test_torch_timeshare import port_config_table
+
+        writes, fields = _jax_serving(monkeypatch)
+        want = dict(chip_smoke.SERVING_LOOP_WRITES)
+        want["configmap"] = {k: port_config_table(json.loads(v))
+                             for k, v in want["configmap"].items()}
+        assert writes == want
+        assert [e[:2] for e in fields["events"]] == [
+            ["evicted", chip_smoke.SERVING_FILLER_VICTIM], ["up", "chat-r1"],
+            ["down", chip_smoke.SERVING_VICTIM]]
+
+
+class _JaxServingCluster:
+    """``chip_smoke._ServingCluster``'s surface on the JAX package, in one
+    process over ``stub``: the partitioner (timeshare, a lease), the
+    scheduler's cycle loop, the operator and the chip agent (the 80 GB
+    stand-in generation cut to one chip a host) as in ``_jax_mains``, the
+    autoscaler's main (``build_autoscaler_main``) and the router, each on
+    a REST client of its own.  Its recorder maps every commit to the
+    port's names."""
+
+    def __init__(self, monkeypatch, stub, stack) -> None:
+        import nos_tpu.kube.k8s_codec as jcodec
+        from nos_tpu.api import constants as JC
+        from nos_tpu.api.elasticquota import ElasticQuota, ElasticQuotaSpec
+        from nos_tpu.kube.objects import ObjectMeta
+        from nos_tpu.kube.rest import KubeClient, KubeConfig
+        from nos_tpu.obs import journal as jax_journal, ledger as jax_ledger
+        from nos_tpu.testing import factory as jf
+        from nos_tpu.topology import DEFAULT_REGISTRY, Shape
+
+        import chip_smoke
+        from test_torch_quota import JAX_MEM
+        from test_torch_timeshare import JAX_GEN
+
+        self.JC, self.cs = JC, chip_smoke
+        self.stub, self.stack = stub, stack
+        self.gen = dataclasses.replace(
+            JAX_GEN, name="h100-80gb-standin-1gpu",
+            host_block=Shape.parse("1x1"))
+        monkeypatch.setattr(DEFAULT_REGISTRY, "generations",
+                            dict(DEFAULT_REGISTRY.generations)
+                            | {self.gen.name: self.gen})
+        monkeypatch.setattr(jax_journal, "_journal",
+                            jax_journal.DecisionJournal())
+        monkeypatch.setattr(jax_ledger, "_ledger",
+                            jax_ledger.ChipSecondLedger())
+        self.records: list[tuple] = []
+        self.tap = chip_smoke._StubTap(stub, decode=jcodec.from_k8s)
+        for kind in ("Node", "Pod", "ConfigMap", "ElasticQuota"):
+            self.tap.watch(kind, lambda e, o, kind=kind: self.records.append(
+                self.port_record(kind, e, o)))
+        self.clients: dict = {}
+        self.mains: dict = {}
+        self.smoke = self.client("smoke")
+        self.smoke.create("Node", jf.make_tpu_node(
+            chip_smoke.CARD_NODE, generation=self.gen,
+            partitioning="timeshare"))
+        for ns, lo, hi in chip_smoke.SERVING_CARD_QUOTAS:
+            self.smoke.create("ElasticQuota", ElasticQuota(
+                metadata=ObjectMeta(name=ns, namespace=ns),
+                spec=ElasticQuotaSpec(min={JAX_MEM: lo},
+                                      max={JAX_MEM: hi} if hi else {})))
+        self.KubeClient, self.KubeConfig = KubeClient, KubeConfig
+        self.driver = None
+
+    def client(self, name: str):
+        from nos_tpu.kube.rest import KubeClient, KubeConfig
+
+        c = self.clients[name] = KubeClient(KubeConfig(server=self.stub.url))
+        self.stack.callback(c.close)
+        return c
+
+    def port_record(self, kind: str, event: str, obj) -> tuple:
+        from test_torch_controller import node_key
+        from test_torch_quota import port_resources
+        from test_torch_timeshare import jax_config_table
+
+        rec = self.cs.serving_record(kind, event, obj, self.JC)
+        if kind == "Node":
+            fields = rec[3]
+            return ("Node", event, rec[2], {
+                "annotations": {node_key(k): v for k, v in
+                                fields["annotations"].items()},
+                "labels": {node_key(k): v for k, v in
+                           fields["labels"].items()}})
+        if kind == "ElasticQuota":
+            return ("ElasticQuota", event, rec[2], dict(sorted(
+                port_resources(rec[3]).items())))
+        if kind == "ConfigMap" and obj.metadata.name == \
+                "nos-tpu-device-plugin-config":
+            from nos_tpu_torch.partitioning.timeshare import (
+                DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+            return ("ConfigMap", event,
+                    f"{DEVICE_PLUGIN_CM_NAMESPACE}/{DEVICE_PLUGIN_CM_NAME}",
+                    {k: jax_config_table(json.loads(v))
+                     for k, v in rec[3].items()})
+        return rec
+
+    # -- the story's surface ----------------------------------------------
+    def start_mains(self) -> None:
+        from nos_tpu.cmd._runtime import Main as JaxMain
+        from nos_tpu.cmd.assembly import build_partitioner_main, build_scheduler
+        from nos_tpu.cmd.chipagent import build_chipagent_main
+        from nos_tpu.cmd.operator import build_operator_main
+        from nos_tpu.partitioning.state import ClusterState
+
+        cs = self.cs
+        self.mains["partitioner-0"], _ = build_partitioner_main(
+            self.client("partitioner-0"), ClusterState(),
+            jconfig.PartitionerConfig(
+                kind="timeshare", leader_election=True,
+                batch_idle_s=cs.SERVING_BATCH_IDLE_S,
+                batch_timeout_s=cs.CARD_BATCH_TIMEOUT_S,
+                health_probe_addr=""))
+        api = self.client("scheduler")
+        sched = build_scheduler(api, 80)
+        self.stack.callback(sched.close)
+        self.mains["scheduler"] = JaxMain("nos-tpu-scheduler", "", api=api)
+        self.mains["scheduler"].add_loop(
+            "scheduler", sched.run_cycle,
+            jconfig.SchedulerConfig().cycle_interval_s)
+        self.mains["operator"] = build_operator_main(
+            self.client("operator"), jconfig.OperatorConfig(
+                tpu_memory_gb_per_chip=80, webhook_port=0,
+                health_probe_addr=""))
+        self.mains["chipagent"] = build_chipagent_main(
+            self.client("chipagent"), jconfig.AgentConfig(
+                node_name=cs.CARD_NODE, generation=self.gen.name,
+                heartbeat=True, report_interval_s=cs.MAINS_REPORT_S,
+                health_probe_addr=""))
+        for m in self.mains.values():
+            self.stack.callback(m.shutdown)
+            m.start()
+
+    def start_autoscaler(self) -> None:
+        from nos_tpu.cmd.autoscaler import build_autoscaler_main
+
+        m = self.mains["autoscaler"] = build_autoscaler_main(
+            self.client("autoscaler"), jconfig.AutoscalerConfig(
+                reconcile_interval_s=self.cs.SERVING_RECONCILE_S,
+                services=[self.cs.SERVING_SERVICE], slo_interval_s=0,
+                health_probe_addr=""))
+        self.stack.callback(m.shutdown)
+        m.start()
+
+    def create_filler(self, name: str) -> None:
+        from nos_tpu.testing import factory as jf
+
+        self.smoke.create("Pod", jf.make_timeshare_pod(
+            self.cs.CARD_SHARE_GB, name=name, namespace="filler",
+            labels={self.JC.LABEL_TIER: self.JC.TIER_BEST_EFFORT},
+            creation_timestamp=time.time()))
+
+    def pods(self) -> dict:
+        return {p.metadata.name: self.cs.serving_record(
+                    "Pod", "", p, self.JC)[3]
+                for p in self.smoke.list("Pod")}
+
+    def running(self, names) -> bool:
+        pods = self.pods()
+        return all(n in pods and pods[n]["node"] == self.cs.CARD_NODE
+                   and pods[n]["phase"] == "Running" for n in names)
+
+    def stamps(self) -> dict:
+        return {n: [p["load"], p["sessions"]] for n, p in self.pods().items()
+                if n.startswith("chat-") and p["phase"] == "Running"}
+
+    def until(self, done, what: str, limit_s: float = 60.0) -> None:
+        _wait(done, f"the JAX serving loop: {what}", limit_s)
+
+    def wait_reconcile(self, n: int) -> None:
+        from nos_tpu.exporter.metrics import REGISTRY as JAX_REGISTRY
+
+        def count() -> float:
+            return JAX_REGISTRY.snapshot().get(
+                "nos_tpu_runloop_tick_seconds_count", {}).get(
+                "loop=autoscaler", 0.0)
+
+        want = count() + n
+        self.until(lambda: count() >= want, f"reconcile {n} more times")
+
+    def start_router(self) -> None:
+        from nos_tpu import requests as JR, sim as jsim
+        from test_torch_requests import jax_cost_kwargs
+
+        service = self.cs.serving_router_service(
+            "NVIDIA H100 80GB HBM3", self.cs._bench350m_weights_gb())
+        service["prefill"] = jax_cost_kwargs(service["prefill"])
+        self.driver = self.cs._RouterDriver(JR, jsim, self.client("router"),
+                                            service)
+
+    def router(self, cmd: str) -> dict:
+        return self.driver.burst() if cmd == "burst" \
+            else self.driver.advance()
+
+    def stop_router(self) -> None:
+        pass
+
+    def on_running(self, names) -> None:
+        pass
+
+    def on_deleted(self, name: str) -> None:
+        pass
+
+    def writes(self) -> dict:
+        from test_torch_controller import node_key
+
+        spec = self.JC.spec_plan_annotation("timeshare")
+        plans: list[str] = []
+        for kind, _, _, fields in self.records:
+            plan = (fields["annotations"].get(node_key(spec), "")
+                    if kind == "Node" else "")
+            if plan and (not plans or plans[-1] != plan):
+                plans.append(plan)
+        from nos_tpu_torch.partitioning.timeshare import (
+            DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+        return self.cs.serving_writes(
+            self.records, plans, C.heartbeat_annotation(C.MPS_KIND),
+            f"{DEVICE_PLUGIN_CM_NAMESPACE}/{DEVICE_PLUGIN_CM_NAME}",
+            "nos-tpu-system/nos-tpu-autoscaler-status")
+
+
+def _jax_serving(monkeypatch) -> tuple[dict, dict]:
+    """chip_smoke.py's phase 16 (b) story on the JAX package
+    (``_JaxServingCluster``): its writes under the port's names (the plugin
+    config as its GPU table) and the story's fields."""
+    import contextlib
+
+    import chip_smoke
+    from k8s_stub import StubApiServer
+    from test_torch_requests import jax_prices_as_the_port
+
+    jax_prices_as_the_port(monkeypatch)
+    with contextlib.ExitStack() as stack:
+        stub = stack.enter_context(StubApiServer())
+        cl = _JaxServingCluster(monkeypatch, stub, stack)
+        fields = chip_smoke.serving_story(cl)
+        for name in list(cl.mains):
+            cl.mains[name].shutdown()
+        assert not cl.tap.errors, cl.tap.errors
+        writes = cl.writes()
+    return writes, fields

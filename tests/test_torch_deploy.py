@@ -22,7 +22,7 @@ from nos_tpu_torch.kube.k8s_codec import GROUP_VERSION, KIND_REST
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHART = ROOT / "deploy/helm/nos-tpu-torch"
 MAINS = ("partitioner", "scheduler", "operator", "chipagent", "sliceagent",
-         "metricsexporter")
+         "metricsexporter", "autoscaler")
 # rendered ConfigMap -> the port's config class that loads it
 CONFIGS = {
     "nos-tpu-torch-partitioner-config": pconfig.PartitionerConfig,
@@ -30,6 +30,7 @@ CONFIGS = {
     "nos-tpu-torch-operator-config": pconfig.OperatorConfig,
     "nos-tpu-torch-chipagent-config": pconfig.AgentConfig,
     "nos-tpu-torch-sliceagent-config": pconfig.AgentConfig,
+    "nos-tpu-torch-autoscaler-config": pconfig.AutoscalerConfig,
 }
 
 
@@ -99,8 +100,8 @@ class TestRender:
         for doc in docs:
             assert doc["apiVersion"] and doc["metadata"]["name"]
             kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
-        assert kinds["Deployment"] == 3 and kinds["DaemonSet"] == 2
-        assert kinds["ConfigMap"] == 5
+        assert kinds["Deployment"] == 4 and kinds["DaemonSet"] == 2
+        assert kinds["ConfigMap"] == 6
         assert kinds["ValidatingWebhookConfiguration"] == 1
         assert kinds["Job"] == 3      # the exporter, certgen create/patch
         assert "MutatingWebhookConfiguration" not in kinds
@@ -183,6 +184,13 @@ class TestValues:
         ("chipagent.heartbeat", True, "chipagent", "heartbeat"),
         ("sliceagent.model", "nvidia-h100-80gb-hbm3", "sliceagent",
          "model"),
+        ("autoscaler.reconcileIntervalSeconds", 0.25, "autoscaler",
+         "reconcile_interval_s"),
+        ("autoscaler.statusConfigMap", "serving-status", "autoscaler",
+         "status_configmap"),
+        ("autoscaler.leaderElection.enabled", False, "autoscaler",
+         "leader_election"),
+        ("sloIntervalSeconds", 2.5, "autoscaler", "slo_interval_s"),
     ])
     def test_a_value_reaches_its_config_field(self, path, value, cfg,
                                               field, tmp_path):
@@ -240,6 +248,64 @@ class TestValues:
                 assert {"name": "kubeconfig", "secret": {
                     "secretName": "nos-kubeconfig"}} in vols
 
+
+class TestAutoscalerChart:
+    """The autoscaler's templates (the JAX chart's
+    ``templates/autoscaler/``, ported): rendered, loaded through the
+    port's AutoscalerConfig, and built into a main."""
+
+    def test_the_rendered_config_builds_the_main(self, docs, tmp_path):
+        from nos_tpu_torch.cmd.autoscaler import build_autoscaler_main
+        from nos_tpu_torch.kube.client import APIServer
+
+        cfg = configs(docs, tmp_path)["nos-tpu-torch-autoscaler-config"]
+        assert cfg.status_namespace == "nos-tpu-torch-system"
+        assert cfg.leader_election and cfg.services == []
+        cfg.leader_election = False
+        main = build_autoscaler_main(APIServer(), cfg)
+        assert main.autoscaler.services() == []
+        assert main.autoscaler.reconcile() == {}
+
+    def test_its_role_creates_and_deletes_replica_pods(self, docs):
+        role = next(d for d in docs if d["kind"] == "ClusterRole"
+                    and d["metadata"]["name"] == "nos-tpu-torch-autoscaler")
+        verbs = {r["resources"][0]: set(r["verbs"]) for r in role["rules"]}
+        assert {"create", "delete", "list"} <= verbs["pods"]
+        assert {"create", "patch"} <= verbs["configmaps"]
+        dep = containers(docs)["nos-tpu-torch-autoscaler"]
+        assert dep["command"][:3] == ["python", "-m",
+                                      "nos_tpu_torch.cmd.autoscaler"]
+
+    @pytest.mark.parametrize("service,ok", [
+        ({"name": "chat", "namespace": "serve", "slice_shape": "1g.20gb",
+          "min_replicas": 2, "max_replicas": 12}, True),
+        ({"name": "embed", "timeshare_gb": 8}, True),
+        ({"name": "chat", "slice_shape": "1x1"}, False),
+        ({"name": "chat", "timeshare_gb": 8, "max_replica": 3}, False),
+    ])
+    def test_a_service_in_the_rendered_config_is_checked(
+            self, docs, tmp_path, service, ok):
+        """A service added to the rendered ``services:`` loads when its
+        fields mean something on an H100 and fails the load otherwise (a
+        TPU slice shape, a typoed key)."""
+        import json
+
+        doc = next(d for d in docs if d["kind"] == "ConfigMap" and
+                   d["metadata"]["name"] == "nos-tpu-torch-autoscaler-config")
+        text = doc["data"]["config.yaml"].replace(
+            "services: []", f"services: [{json.dumps(service)}]")
+        path = tmp_path / "autoscaler.yaml"
+        path.write_text(text)
+        if ok:
+            cfg = pconfig.load_config(path, pconfig.AutoscalerConfig)
+            assert cfg.services == [service]
+        else:
+            with pytest.raises(pconfig.ConfigError, match="services\\[0\\]"):
+                pconfig.load_config(path, pconfig.AutoscalerConfig)
+
+    def test_off_renders_nothing_of_it(self):
+        docs = render_chart(CHART, context(**{"autoscaler.enabled": False}))
+        assert not [d for d in docs if "autoscaler" in d["metadata"]["name"]]
 
 class TestCRDs:
     def test_the_quota_and_gang_kinds_in_the_port_s_group(self):
