@@ -440,11 +440,52 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    at the card's kind; the replicas' children's launches are the kernels
    line's ``serving`` path.
 
+17. capacity: the capacity plane.  (a) On the host,
+   ``testing/fleet.py``'s capacity fleets (bench_capacity.py's runs on
+   8-GPU H100 nodes in MIG mode, a job eight 7g.80gb: the swing, 4
+   nodes' demand doubling and halving back; the storm, two NVLink
+   domains of 3 nodes and two warm spares, a zonal stockout as demand
+   steps up; the quiescent run armed, and with the plane off), each
+   CAPACITY_FLEET_RUNS times: every armed run must hash to
+   ``CAPACITY_FLEET_DIGESTS`` (the JAX package's runs of the same traces
+   in the CPU tests), repeated runs alike, conserve its waste waterfall,
+   and hold the bench's gates (swing utilisation >= 0.95, >= 4 nodes
+   landed and >= 3 released, the pool within one node of its base,
+   ``provisioning`` GPU-seconds booked; the storm's breaker opened, 2
+   borrows, no job left unbound, no cloud operation left); the armed
+   quiescent journal must be the plane-off one byte for byte.  The
+   provisioner's host ms per reconcile (median, max) go on the line.
+   (b) The card's node provisioned on demand, over the REST stub: a
+   partitioner (``mps``), a scheduler, an operator and ``python -m
+   nos_tpu_torch.cmd.provisioner`` (enabled, its in-memory stand-in
+   cloud, CAPACITY_KNOBS) as processes; NVLink domain nvl-card holds
+   index 0, a one-GPU H100 stand-in (no agent) whose GPU a bound,
+   Running 80 GB filler holds, and ``obs capacity`` must render the
+   pool 1/1.  A pending 40 GB pod makes the deficit: the provisioner
+   must journal PROVISION_REQUESTED for nvl-card-h1; once the stand-in
+   cloud's operation is DONE (its flight block), the smoke plays the new
+   VM's kubelet: the Node with the create's labels, then the chip agent
+   main for it on the card (``model: auto``).  The agent's report lands
+   it (PROVISION_LANDED), the pod binds there, ``obs capacity`` renders
+   2/2, and the pod's child (``cmd.train`` under the grant derived from
+   the stub's objects, train_main's configuration for GRANT_STEPS
+   steps) must pass as grant (a)'s.  The pod completes and is deleted:
+   the provisioner must release the empty node (its cloud delete, the
+   Node's deletion committed before the size record returns to 1) and
+   journal SCALE_DOWN; ``obs capacity`` renders 1/1, no breaker is open,
+   ``/metrics`` counts one request, one landing and one scale-down, and
+   every main exits 0 on SIGTERM.  The line carries pending to
+   requested, requested to joined and landed, landed to bound, bound to
+   the child's first step and deleted to SCALE_DOWN, and each main's
+   ``provisioning`` GPU-seconds (the holds live in the provisioner's
+   process); the child's launches are the kernels line's ``capacity``
+   path.
+
 Then the kernel summary line (one entry per compiled tile, with its
-launches by path, the gang, recovery, mains, elastic and serving
-children's among them; a tile no path ran must have run in the autotune
-phase), the card's ``name, power.limit`` and, last, ``{"ok": true,
-"device": {...}}``.
+launches by path, the gang, recovery, mains, elastic, serving and
+capacity children's among them; a tile no path ran must have run in the
+autotune phase), the card's ``name, power.limit`` and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5047,7 +5088,8 @@ class _Mains:
 
     def __init__(self, stub, tmp: str, model: str, agent_model: str,
                  mains: tuple[str, ...] = MAINS,
-                 quotas: tuple = MAINS_QUOTAS) -> None:
+                 quotas: tuple = MAINS_QUOTAS,
+                 card_node: bool = True) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.api.elasticquota import (
             ElasticQuota, ElasticQuotaSpec)
@@ -5074,8 +5116,9 @@ class _Mains:
                                                       "user": "smoke"}}],
             "clusters": [{"name": "stub", "cluster": {"server": stub.url}}],
             "users": [{"name": "smoke", "user": {}}]}))
-        self.client.create(KIND_NODE, make_gpu_node(
-            CARD_NODE, model=DEFAULT_REGISTRY.get(model), gpus=1))
+        if card_node:
+            self.client.create(KIND_NODE, make_gpu_node(
+                CARD_NODE, model=DEFAULT_REGISTRY.get(model), gpus=1))
         mem = C.RESOURCE_GPU_MEMORY
         for ns, lo, hi in quotas:
             self.client.create(KIND_ELASTIC_QUOTA, ElasticQuota(
@@ -7657,6 +7700,458 @@ def phase_serving(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The capacity phase.  (a) testing/fleet.py's capacity fleets
+# (bench_capacity.py's swing, storm and quiescent runs on H100 nodes) on
+# the host.  (b) The card's node provisioned on demand: the provisioner
+# main over the REST stub requests it from its stand-in cloud, the smoke
+# joins it as its kubelet would, a pod trains on it, and it is released.
+# fleet.plan_digest of each capacity fleet's summary: the JAX package's
+# bench_capacity.py run of the same trace and seed
+# (tests/test_torch_capacity.py)
+CAPACITY_FLEET_DIGESTS = {
+    "swing": "6ac1cf3c5fd501d776c6db911723d49d5de48d9b5887cfb9c33e1aad35ee9164",
+    "storm": "e448cd27035f66abdeb3cf3425ecc8d007ae74d16e792a8b16a741f28415753c",
+    "quiet": "6bf78ffae19b77e42d709910a9a9d26a6ab41a5adc2147e4092be7fbe7f69a18",
+}
+CAPACITY_FLEET_RUNS = 2
+CAPACITY_POOL = "nvl-card"
+CAPACITY_BASE_NODE = f"{CAPACITY_POOL}-h0"   # a stand-in, no agent
+CAPACITY_NODE = f"{CAPACITY_POOL}-h1"        # the card's, provisioned
+CAPACITY_FILLER = ("default", "cap-filler")  # holds the stand-in's GPU
+CAPACITY_POD = ("default", "cap-0")
+CAPACITY_SHARE_GB = 40
+CAPACITY_MAINS = ("partitioner-0", "scheduler", "operator", "provisioner")
+CAPACITY_AGENT = "chipagent"
+# the provisioner main's knobs: a 0.5 s poll, a deficit of a quarter GPU
+# sustained 1 s, 3 s of stand-in provisioning, release after 5 s idle;
+# the deadline covers the chip agent main's start (8 to 11 s of import
+# torch on the card's host) and a plan
+CAPACITY_KNOBS = {"poll_interval_s": 0.5, "scale_up_deficit_chips": 0.25,
+                  "scale_up_after_s": 1.0, "scale_up_cooldown_s": 1.0,
+                  "provision_delay_s": 3.0, "scale_down_idle_s": 5.0,
+                  "scale_down_cooldown_s": 0.0, "provision_deadline_s": 120.0,
+                  "join_grace_s": 10.0, "slo_interval_s": 0.0}
+CAPACITY_LIMIT_S = 60.0       # each step the mains take on their own
+_POOL_LINE = re.compile(r"^pool (\S+): (\d+)/(\d+) hosts", re.M)
+
+
+def _capacity_fleet_runs(runs: int = CAPACITY_FLEET_RUNS) -> dict:
+    """Phase 17 (a): swing, storm and the quiescent armed run against the
+    plane off, ``runs`` times each.  Every run must reach its digest (so
+    repeated runs journal alike), conserve (``CapacityFleet.run``
+    raises), and hold bench_capacity.py's gates; the armed quiescent
+    journal must be the plane-off one byte for byte."""
+    from nos_tpu_torch.testing import fleet
+
+    out: dict = {}
+    journals: dict[str, list] = {}
+    for scenario, plane in (("swing", True), ("storm", True),
+                            ("quiet", True), ("quiet", False)):
+        key = scenario if plane else "quiet_off"
+        secs, ms, digests = [], [], []
+        for _ in range(runs):
+            run = fleet.run_capacity_fleet(scenario, plane=plane)
+            digests.append(fleet.plan_digest(run["summary"]))
+            secs.append(run["seconds"])
+            ms += run["reconcile_ms"]
+            journals[key] = run["summary"]["journal"]
+            result = run["summary"]["result"]
+        if plane and set(digests) != {CAPACITY_FLEET_DIGESTS[scenario]}:
+            fail(f"the {scenario} capacity fleet hashed to {digests}, not "
+                 f"{CAPACITY_FLEET_DIGESTS[scenario]}")
+        if len(set(digests)) != 1:
+            fail(f"the {key} capacity fleet's runs differ: {digests}")
+        out[key] = {"result": result, "seconds": secs,
+                    "records": len(journals[key]),
+                    "reconcile_ms_median": statistics.median(ms)
+                    if ms else None,
+                    "reconcile_ms_max": max(ms) if ms else None,
+                    "reconciles": len(ms)}
+    gates = fleet.capacity_gates(out["swing"]["result"],
+                                 out["storm"]["result"])
+    if gates:
+        fail(f"the capacity fleets miss bench_capacity.py's gates: {gates}")
+    if json.dumps(journals["quiet"]) != json.dumps(journals["quiet_off"]):
+        fail("the armed quiescent capacity fleet journals otherwise than "
+             "the plane off")
+    if out["quiet"]["result"]["provision_landed"] or \
+            out["quiet"]["result"]["scale_downs"]:
+        fail(f"the armed plane acted on the quiet trace: "
+             f"{out['quiet']['result']}")
+    return out
+
+
+class _CapacityCluster(_Mains):
+    """Phase 17 (b)'s cluster: the stub with pool CAPACITY_POOL's index 0
+    registered (a one-GPU H100 stand-in whose GPU the bound, Running 80 GB
+    filler holds; no agent runs for it), the mains CAPACITY_MAINS as
+    processes, the provisioner main at CAPACITY_KNOBS on its in-memory
+    stand-in cloud, and the chip agent main started for CAPACITY_NODE
+    when the smoke joins it."""
+
+    def __init__(self, stub, tmp: str, model: str, agent_model: str
+                 ) -> None:
+        from nos_tpu_torch.kube.client import KIND_NODE, KIND_POD
+        from nos_tpu_torch.testing.factory import (
+            make_gpu_node, make_timeshare_pod)
+        from nos_tpu_torch.topology import DEFAULT_REGISTRY
+
+        super().__init__(stub, tmp, model, agent_model,
+                         mains=CAPACITY_MAINS + (CAPACITY_AGENT,),
+                         quotas=(), card_node=False)
+        self.model = DEFAULT_REGISTRY.get(model)
+        self.client.create(KIND_NODE, make_gpu_node(
+            CAPACITY_BASE_NODE, model=self.model, gpus=1,
+            status_geometry={0: {"used": {"80gb": 1}}},
+            domain=CAPACITY_POOL, host_index=0))
+        ns, name = CAPACITY_FILLER
+        self.client.create(KIND_POD, make_timeshare_pod(
+            80, name=name, namespace=ns, node_name=CAPACITY_BASE_NODE,
+            phase="Running", creation_timestamp=time.time()))
+        # the provisioner's journal stamps time.monotonic(); the tap and
+        # the marks time.perf_counter()
+        self.mono_to_perf = time.perf_counter() - time.monotonic()
+        self.marks: dict[str, float] = {}
+
+    def _config(self, name: str) -> tuple[str, dict, list[str]]:
+        module, cfg, extra = super()._config(name)
+        if name == "provisioner":
+            cfg |= {"enabled": True, **CAPACITY_KNOBS}
+        if name == CAPACITY_AGENT:
+            extra = ["--node", CAPACITY_NODE]
+        return module, cfg, extra
+
+    # -- the provisioner main's surfaces ------------------------------------
+    def flight(self) -> dict:
+        code, body = self._get("provisioner", "/debug/flightrecorder")
+        if code != 200:
+            fail(f"the provisioner's /debug/flightrecorder answered {code}")
+        payload = json.loads(body)
+        if "capacity" not in payload:
+            fail("the provisioner's flight snapshot has no capacity block")
+        return payload
+
+    def pool(self) -> tuple[int, int] | None:
+        row = self.flight()["capacity"]["pools"].get(CAPACITY_POOL)
+        return None if row is None else (row["active"],
+                                         row["recorded_size"])
+
+    def record(self, category: str) -> dict | None:
+        for r in self.flight()["journal"]:
+            if r["category"] == category:
+                return r
+        return None
+
+    def at(self, record: dict) -> float:
+        """A provisioner record's time on the smoke's perf_counter."""
+        return record["ts"] + self.mono_to_perf
+
+    def obs_capacity(self) -> dict:
+        """``python -m nos_tpu_torch.obs capacity --url`` on the
+        provisioner: exit 0; the pools' hosts as it renders them."""
+        addr = self.procs["provisioner"]["addr"]
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "nos_tpu_torch.obs", "capacity", "--url",
+             f"http://{addr}"], cwd=ROOT, env=_child_env(),
+            capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            fail(f"obs capacity exited {r.returncode}:\n{r.stdout[-4000:]}"
+                 f"\n{r.stderr[-4000:]}")
+        return {"pools": {m.group(1): f"{m.group(2)}/{m.group(3)}"
+                          for m in _POOL_LINE.finditer(r.stdout)},
+                "breakers_open": "stockout breakers:" in r.stdout
+                and ": open " in r.stdout,
+                "s": time.perf_counter() - t0, "text": r.stdout}
+
+    # -- the cluster ----------------------------------------------------------
+    def create_pod(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.factory import make_timeshare_pod
+
+        ns, name = CAPACITY_POD
+        self.created[name] = time.perf_counter()
+        self.client.create(KIND_POD, make_timeshare_pod(
+            CAPACITY_SHARE_GB, name=name, namespace=ns,
+            creation_timestamp=time.time()))
+
+    def join(self, row: dict) -> None:
+        """The new VM's kubelet: the Node with the create's labels (its
+        pool, host index, class and GPUs, as ``CapacityProvisioner._create``
+        labels it), then the chip agent main for it on the card."""
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.kube.client import KIND_NODE
+        from nos_tpu_torch.testing.factory import make_gpu_node
+
+        if row["machine_class"] != self.model.name:
+            fail(f"the provisioner asked for {row['machine_class']}, not "
+                 f"{self.model.name}")
+        node = make_gpu_node(
+            row["name"], model=self.model, gpus=1, domain=row["pool"],
+            host_index=int(row["name"].rsplit("-h", 1)[1]),
+            extra_labels={C.LABEL_ZONE: row["zone"]})
+        self.marks["joined"] = time.perf_counter()
+        self.client.create(KIND_NODE, node)
+        self.start((CAPACITY_AGENT,))
+
+    def node(self):
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        return self.client.get(KIND_NODE, CAPACITY_NODE)
+
+    def running(self, names) -> bool:
+        pods = self.pods()
+        return all(n in pods and pods[n].spec.node_name == CAPACITY_NODE
+                   and pods[n].status.phase == "Running" for n in names)
+
+    def release_order(self) -> list[tuple[float, str]]:
+        """(commit time, event) of the release as the stub committed it:
+        the Node's deletion and the size record's writes."""
+        out = []
+        for t, kind, event, obj in self.log:
+            if kind == "Node" and event == "DELETED" \
+                    and obj.metadata.name == CAPACITY_NODE:
+                out.append((t, "node-deleted"))
+            if kind == "ConfigMap" \
+                    and obj.metadata.name == "nos-tpu-capacity-inventory":
+                out.append((t, f"size {obj.data.get('pools', '')}"))
+        return out
+
+
+def _capacity_host(stub, tmp: str, device: dict, agent_model: str,
+                   children=None) -> dict:
+    """Phase 17 (b) on the host: the mains up, the pool at 1/1; the
+    pending 40 GB pod makes the deficit and the provisioner requests
+    CAPACITY_NODE; once the stand-in cloud's operation is done the smoke
+    joins it (the Node, the chip agent main), the agent's report lands
+    it and the pod binds on it; ``children`` (the card's) gets
+    ``on_running(cluster)``, which starts the pod's child, and
+    ``finish(cluster)``, which waits for it; the pod completes and is
+    deleted, the node is released (cloud, Node, size record) with
+    SCALE_DOWN; SIGTERM to every main.  Returns the phase's fields."""
+    from nos_tpu_torch.kube.client import KIND_POD
+    from nos_tpu_torch.obs import journal as J
+
+    cl = _CapacityCluster(stub, tmp, device["model"], agent_model)
+    ns, pod = CAPACITY_POD
+    try:
+        cl.start(CAPACITY_MAINS)
+        healthy = cl.wait_healthy(CAPACITY_MAINS)
+        cl.until(lambda: cl.pool() == (1, 1), "publish the pool at 1/1",
+                 CAPACITY_LIMIT_S)
+        before = cl.obs_capacity()
+        cl.create_pod()
+        cl.until(lambda: cl.record(J.PROVISION_REQUESTED) is not None,
+                 "request a node", CAPACITY_LIMIT_S)
+        requested = cl.record(J.PROVISION_REQUESTED)
+        if (requested["subject"], requested["attrs"]["pool"],
+                requested["attrs"]["host_index"]) != (CAPACITY_NODE,
+                                                      CAPACITY_POOL, 1):
+            fail(f"the provisioner requested {requested}")
+
+        def done_row() -> dict | None:
+            return next((r for r in cl.flight()["capacity"]
+                         ["pending_creates"] if r["name"] == CAPACITY_NODE
+                         and r["status"] == "DONE"), None)
+
+        cl.until(lambda: done_row() is not None,
+                 "land the create in the stand-in cloud", CAPACITY_LIMIT_S)
+        cl.join(done_row())
+        cl.until(lambda: cl.record(J.PROVISION_LANDED) is not None,
+                 "land the node on the agent's report", 2 * CAPACITY_LIMIT_S)
+        landed = cl.record(J.PROVISION_LANDED)
+        cl.until(lambda: cl.running([pod]), "bind the pod on the new node",
+                 CAPACITY_LIMIT_S)
+        cl.until(lambda: cl.pool() == (2, 2), "publish the pool at 2/2",
+                 CAPACITY_LIMIT_S)
+        during = cl.obs_capacity()
+        sched_during = _mains_snapshot(cl)["waste"]
+        if children is not None:
+            children.on_running(cl)
+            kids = children.finish(cl)
+        else:
+            kids = {}
+        cl.mark([pod])
+        cl.marks["deleted"] = time.perf_counter()
+        cl.client.delete(KIND_POD, pod, ns)
+        cl.until(lambda: cl.record(J.SCALE_DOWN) is not None,
+                 "release the empty node", CAPACITY_LIMIT_S)
+        scale_down = cl.record(J.SCALE_DOWN)
+        cl.until(lambda: cl.pool() == (1, 1)
+                 and not [n for n in cl.client.list("Node")
+                          if n.metadata.name == CAPACITY_NODE],
+                 "publish the pool at 1/1 again", CAPACITY_LIMIT_S)
+        after = cl.obs_capacity()
+        flight = cl.flight()
+        metrics = {m: cl.metric("provisioner", m, pool=CAPACITY_POOL)
+                   for m in ("nos_tpu_provision_requests_total",
+                             "nos_tpu_provision_landed_total",
+                             "nos_tpu_capacity_scale_downs_total")}
+        sched_after = _mains_snapshot(cl)["waste"]
+        exits = {n: cl.stop(n) for n in cl.mains}
+        release = cl.release_order()
+        if cl.tap.errors:
+            fail(f"the stub tap's callbacks raised: {cl.tap.errors}")
+        bound = cl.bound_at(pod)
+    finally:
+        cl.close()
+    views = {"before": before["pools"], "during": during["pools"],
+             "after": after["pools"]}
+    if views != {"before": {CAPACITY_POOL: "1/1"},
+                 "during": {CAPACITY_POOL: "2/2"},
+                 "after": {CAPACITY_POOL: "1/1"}}:
+        fail(f"obs capacity rendered the pool {views}, not 1/1, 2/2, 1/1")
+    if any(v["breakers_open"] for v in (before, during, after)) or any(
+            b["state"] != "closed"
+            for b in flight["capacity"]["breakers"].values()):
+        fail(f"a stockout breaker is not closed: "
+             f"{flight['capacity']['breakers']}")
+    if list(metrics.values()) != [1.0, 1.0, 1.0]:
+        fail(f"the provisioner's /metrics show {metrics}, not one request, "
+             f"one landing and one scale-down")
+    if scale_down["subject"] != CAPACITY_NODE:
+        fail(f"the provisioner released {scale_down}")
+    events = [e for _, e in release]
+    if events != ["size {\"nvl-card\": 1}", "size {\"nvl-card\": 2}",
+                  "node-deleted", "size {\"nvl-card\": 1}"]:
+        fail(f"the release's commits {events}: the Node must go before "
+             f"the size record returns to 1")
+    created = cl.created[pod]
+
+    def provisioning(report: dict) -> float:
+        return report["fleet"]["chip_seconds"].get("provisioning", 0.0)
+
+    stamps = kids.get("child", {}).get("stamps") or []
+    wall_of = time.time() - time.perf_counter()
+    fields = {"pool": CAPACITY_POOL, "node": CAPACITY_NODE,
+              "share_gb": CAPACITY_SHARE_GB, "knobs": CAPACITY_KNOBS,
+              "mains_start_to_healthz_s": healthy,
+              "pending_to_requested_ms":
+                  (cl.at(requested) - created) * 1e3,
+              "requested_to_landed_ms":
+                  (cl.at(landed) - cl.at(requested)) * 1e3,
+              "requested_to_joined_ms":
+                  (cl.marks["joined"] - cl.at(requested)) * 1e3,
+              "joined_to_landed_ms":
+                  (cl.at(landed) - cl.marks["joined"]) * 1e3,
+              "landed_to_bound_ms": (bound - cl.at(landed)) * 1e3
+              if bound is not None else None,
+              "bound_to_first_step_s": stamps[0][1] - (bound + wall_of)
+              if stamps and bound is not None else None,
+              "deleted_to_scale_down_ms":
+                  (cl.at(scale_down) - cl.marks["deleted"]) * 1e3,
+              "landed_latency_s": landed["attrs"]["latency_s"],
+              "scale_down_idle_s": scale_down["attrs"]["idle_s"],
+              "obs_capacity": views,
+              "obs_capacity_s": [v["s"] for v in (before, during, after)],
+              "metrics": metrics,
+              "counters": flight["capacity"]["counters"],
+              "provisioning_gpu_seconds": {
+                  "scheduler_while_running": provisioning(sched_during),
+                  "scheduler_at_end": provisioning(sched_after),
+                  "provisioner": provisioning(flight["waste"])},
+              "release_commits": events, "main_exits": exits, **kids}
+    return fields
+
+
+class _CapacityChild:
+    """The card's part of phase 17 (b): the bound pod's training child
+    under the grant derived from the stub's objects (the plugin config
+    the new node applied, the reporter's used share), train_main's
+    configuration for GRANT_STEPS steps, nvcc hidden."""
+
+    def __init__(self, device: dict, cfg_path: str, no_nvcc: str) -> None:
+        self.device, self.cfg_path, self.no_nvcc = device, cfg_path, no_nvcc
+        self.child: dict | None = None
+
+    def on_running(self, cl: _CapacityCluster) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.device.timeshare_plugin import (
+            TimeshareDevicePlugin)
+        from nos_tpu_torch.partitioning.timeshare import (
+            DEVICE_PLUGIN_CM_NAME, DEVICE_PLUGIN_CM_NAMESPACE)
+
+        key = f"{C.ANNOT_STATUS_PREFIX}0-{CAPACITY_SHARE_GB}gb-used"
+        cl.until(lambda: cl.node().metadata.annotations.get(key) == "1",
+                 "report the pod's share used")
+        node = cl.node()
+        applied = node.metadata.annotations.get(
+            C.ANNOT_PLUGIN_APPLIED_CONFIG, "")
+        gpus = TimeshareDevicePlugin(
+            cl.client, CAPACITY_NODE, DEVICE_PLUGIN_CM_NAME,
+            DEVICE_PLUGIN_CM_NAMESPACE).gpu_config(applied)
+        if gpus is None:
+            fail(f"the new node applied {applied!r}, which the ConfigMap "
+                 f"lacks")
+        (grant,) = _grants_of(node, cl.pods(), gpus, self.device,
+                              [CAPACITY_POD[1]])
+        self.child = _start_grant_child(CAPACITY_POD[1], self.cfg_path,
+                                        grant["env"], self.no_nvcc)
+
+    def finish(self, cl: _CapacityCluster) -> dict:
+        return {"child": _finish_grant_child(self.child)}
+
+
+def phase_capacity(main_loss0: float, device: dict, smi: str) -> dict:
+    """Phase 17: (a) the capacity fleets on the host
+    (``_capacity_fleet_runs``); (b) the card's node provisioned on
+    demand (``_capacity_host`` with ``_CapacityChild``): requested,
+    landed on the chip agent's report, the pod's child trains under its
+    grant as grant (a)'s must (exit 0, train_main's step-0 loss, 24 K1 +
+    24 K2 a step), then the node is released with SCALE_DOWN and ``obs
+    capacity`` renders 1/1, 2/2, 1/1.  Returns the child's launches, by
+    kernel."""
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    fleets = _capacity_fleet_runs()
+    fleets_s = time.perf_counter() - t0
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    stub_mod = _load_stub()
+    with stub_mod.StubApiServer() as stub, \
+            tempfile.TemporaryDirectory(prefix="nos-capacity-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        kid = _CapacityChild(device, cfg_path, no_nvcc)
+        try:
+            card = _capacity_host(stub, tmp, device, "auto", kid)
+        finally:
+            proc = (kid.child or {}).get("proc")
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"the capacity child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    child = card.pop("child")
+    child["fraction"], child["cap_bytes"] = _grant_cap(
+        int(child["grant"]["NOS_TPU_TIMESHARE_GB"]), device["memory_bytes"])
+    report = _check_granted_child("capacity child", child,
+                                  child["grant"]["NOS_TPU_VISIBLE_CHIPS"],
+                                  main_loss0)
+    launches = {k: report["launches"].get(k, 0)
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    tiles = {name: report["tile_launches"].get(
+                 f"{kernel}:{tile[0]}x{tile[1]}", 0)
+             for name, (kernel, tile, _) in TILES.items()}
+    emit({"phase": "capacity", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "fleets_seconds": fleets_s,
+          "fleets": fleets, "card": card,
+          "child": {"rc": child["rc"], "wall_s": child["wall_s"],
+                    "steps": child["steps"],
+                    "loss0_rel_diff": child["loss0_rel_diff"],
+                    "peak_bytes": child["peak_bytes"],
+                    "fraction": child["fraction"],
+                    "cap_bytes": child["cap_bytes"],
+                    "launches": report["launches"]},
+          "main_loss0": main_loss0, "launches": launches,
+          "tile_launches": tiles})
+    PATH_TILES["capacity"] = tiles
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -7686,9 +8181,10 @@ def main() -> int:
         mains = phase_mains(main_loss0, device, smi)
         elastic = phase_elastic(main_loss0, device, smi)
         serving = phase_serving(main_loss0, device, smi)
+        capacity = phase_capacity(main_loss0, device, smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
-             "elastic": elastic, "serving": serving}
+             "elastic": elastic, "serving": serving, "capacity": capacity}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

@@ -358,6 +358,84 @@ class RouterConfig(ManagerConfig):
 
         _check_services(self.services, RouterService.from_mapping)
 
+@dataclasses.dataclass
+class ProvisionerConfig(ManagerConfig):
+    """The capacity provisioner main's config (``capacity/``).  Off by
+    default: with ``enabled`` false the main exits without constructing
+    the plane, and the decision journal is byte-identical to a build
+    without it.  The JAX package's knob names are kept, so each
+    ``*_chips`` knob counts GPUs (``capacity/provisioner.py``), and the
+    defaults are an H100 node's: 80 GB a GPU, 8 GPUs a node, and a
+    scale-up deficit of one whole node."""
+
+    enabled: bool = False
+    poll_interval_s: float = 2.0
+    # scale-up: a GPU deficit (pending demand less free less arriving
+    # capacity) sustained this long before a pool grows
+    scale_up_deficit_chips: float = 8.0
+    scale_up_after_s: float = 6.0
+    scale_up_cooldown_s: float = 15.0
+    max_pending_creates: int = 4
+    # scale-down: the highest-index node only, after the surplus lasted
+    # this long; a busy candidate is cordoned (a capacity-owned
+    # migration drain) and released once its residents finish
+    scale_down_idle_s: float = 120.0
+    scale_down_cooldown_s: float = 60.0
+    min_hosts_per_pool: int = 1
+    # a create not landed and joined by the deadline is reaped (zombie or
+    # stuck pending); join_grace_s covers agentless nodes
+    provision_deadline_s: float = 120.0
+    join_grace_s: float = 10.0
+    vacancy_grace_s: float = 4.0
+    # the stockout breaker, per (machine class, zone)
+    breaker_threshold: int = 3
+    breaker_open_s: float = 60.0
+    spare_target_per_pool: int = 0
+    inventory_configmap: str = "nos-tpu-capacity-inventory"
+    inventory_namespace: str = "nos-tpu-system"
+    chips_per_host_cap: float = 8.0
+    hbm_gb_per_chip: float = 80.0
+    cloud_attempts: int = 4
+    # the stand-in provider's knobs (the in-memory CloudGPUAPI the main
+    # builds when no provider endpoint is configured)
+    provision_delay_s: float = 30.0
+    quota_nodes: int = 0
+
+    def validate(self) -> None:
+        super().validate()
+        if self.poll_interval_s <= 0:
+            raise ConfigError("poll_interval_s must be positive")
+        if self.scale_up_deficit_chips <= 0:
+            raise ConfigError("scale_up_deficit_chips must be positive")
+        for name in ("scale_up_after_s", "scale_up_cooldown_s",
+                     "scale_down_idle_s", "scale_down_cooldown_s",
+                     "join_grace_s", "vacancy_grace_s", "breaker_open_s",
+                     "provision_delay_s"):
+            if getattr(self, name) < 0:
+                raise ConfigError(f"{name} must be non-negative")
+        if self.max_pending_creates < 1:
+            raise ConfigError("max_pending_creates must be >= 1")
+        if self.min_hosts_per_pool < 0:
+            raise ConfigError("min_hosts_per_pool must be non-negative")
+        if self.provision_deadline_s <= 0:
+            raise ConfigError("provision_deadline_s must be positive")
+        if self.breaker_threshold < 1:
+            raise ConfigError("breaker_threshold must be >= 1")
+        if self.spare_target_per_pool < 0:
+            raise ConfigError("spare_target_per_pool must be "
+                              "non-negative")
+        if not self.inventory_configmap:
+            raise ConfigError("inventory_configmap is required")
+        if self.chips_per_host_cap <= 0:
+            raise ConfigError("chips_per_host_cap must be positive")
+        if self.hbm_gb_per_chip <= 0:
+            raise ConfigError("hbm_gb_per_chip must be positive")
+        if self.cloud_attempts < 1:
+            raise ConfigError("cloud_attempts must be >= 1")
+        if self.quota_nodes < 0:
+            raise ConfigError("quota_nodes must be non-negative")
+
+
 # -- version conversion and the canonical decode ---------------------------
 
 _DRAIN_FLAT_TO_NESTED = (

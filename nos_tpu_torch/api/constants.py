@@ -89,6 +89,12 @@ def is_warm_spare_labels(labels: dict) -> bool:
     snapshot exclusion and the spare policy."""
     return labels.get(LABEL_SPARE, "") == SPARE_WARM
 
+# The cloud zone a node was provisioned in (``capacity/``): the stockout
+# breaker keys on (machine class, zone), so a stockout of one zone stops
+# no create for the same class elsewhere.  Absent reads "-" (one unnamed
+# zone), so a cluster from before the capacity plane needs no relabel.
+LABEL_ZONE = f"{GROUP}/zone"
+
 # Quota standing of a running pod, stamped by the ElasticQuota
 # reconciler (reference nos.nebuly.com/capacity, labels.go:19-24): the
 # label the preemption walk keys on.

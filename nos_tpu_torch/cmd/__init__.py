@@ -25,6 +25,7 @@ loops only while it holds a ConfigMap lease (``kube/leaderelection.py``):
   main)
 - ``python -m nos_tpu_torch.cmd.autoscaler --config a.json`` (the serving
   replica autoscaler)
-
-The provisioner main comes with the capacity plane (ROADMAP).
+- ``python -m nos_tpu_torch.cmd.provisioner --config c.json`` (the capacity
+  provisioner; with ``enabled: false``, the default, it exits 0 and
+  constructs nothing)
 """

@@ -2,9 +2,6 @@
 ``nos_tpu/cmd/assembly.py`` for the port: the construction the reference
 spreads over its mains (cmd/gpupartitioner/gpupartitioner.go:72-380 et
 al.), factored so that a main and a test wire the same control plane.
-
-``build_provisioner_main`` waits for the capacity plane (ROADMAP item 9
-part 2).
 """
 
 from __future__ import annotations
@@ -12,7 +9,8 @@ from __future__ import annotations
 import logging
 
 from nos_tpu_torch.api.config import (
-    HYBRID_KIND, MIG_KIND, MPS_KIND, PartitionerConfig, missing_planes,
+    HYBRID_KIND, MIG_KIND, MPS_KIND, PartitionerConfig, ProvisionerConfig,
+    missing_planes,
 )
 from nos_tpu_torch.cmd._runtime import Main
 from nos_tpu_torch.kube.client import APIServer
@@ -103,6 +101,76 @@ def build_partitioner_main(api: APIServer, state: ClusterState,
     else:
         bind_controllers()
     return main, controllers
+
+
+def build_provisioner_main(api: APIServer, cfg: ProvisionerConfig,
+                           cloud=None, main: Main | None = None,
+                           clock=None) -> Main:
+    """The capacity provisioner as a leader-gated run loop; returns the
+    Main (``main.provisioner`` is the reconciler, for tests and the
+    smoke run).
+
+    Off means off: only for ``cfg.enabled`` true; the disabled path
+    (``cmd/provisioner.py``, the fleets' plane-off runs) never constructs
+    the plane, so its decision journal is byte-identical to a build
+    without it.  ``cloud`` defaults to an in-memory ``CloudGPUAPI``
+    (tests pass a ``ChaosCloudGPUAPI``).  The report is the ``capacity``
+    block of the flight snapshot (``obs capacity``)."""
+    from nos_tpu_torch.capacity import CapacityProvisioner, CloudGPUAPI
+    from nos_tpu_torch.obs import set_flight_block
+
+    if not cfg.enabled:
+        raise ValueError("build_provisioner_main requires enabled=true "
+                         "(off means off: the disabled path never "
+                         "constructs the capacity plane)")
+    main = main or Main("nos-tpu-provisioner", cfg.health_probe_addr,
+                        api=api)
+    kwargs = {} if clock is None else {"clock": clock}
+    if cloud is None:
+        cloud = CloudGPUAPI(provision_delay_s=cfg.provision_delay_s,
+                            quota_nodes=cfg.quota_nodes, **kwargs)
+    provisioner = CapacityProvisioner(
+        api, cloud,
+        scale_up_deficit_chips=cfg.scale_up_deficit_chips,
+        scale_up_after_s=cfg.scale_up_after_s,
+        scale_up_cooldown_s=cfg.scale_up_cooldown_s,
+        max_pending_creates=cfg.max_pending_creates,
+        scale_down_idle_s=cfg.scale_down_idle_s,
+        scale_down_cooldown_s=cfg.scale_down_cooldown_s,
+        min_hosts_per_pool=cfg.min_hosts_per_pool,
+        provision_deadline_s=cfg.provision_deadline_s,
+        join_grace_s=cfg.join_grace_s,
+        vacancy_grace_s=cfg.vacancy_grace_s,
+        breaker_threshold=cfg.breaker_threshold,
+        breaker_open_s=cfg.breaker_open_s,
+        spare_target_per_pool=cfg.spare_target_per_pool,
+        inventory_configmap=cfg.inventory_configmap,
+        inventory_namespace=cfg.inventory_namespace,
+        chips_per_host_cap=cfg.chips_per_host_cap,
+        hbm_gb_per_chip=cfg.hbm_gb_per_chip,
+        cloud_attempts=cfg.cloud_attempts,
+        **kwargs)
+    main.provisioner = provisioner
+    set_flight_block("capacity", provisioner.report)
+
+    def bind() -> None:
+        """The reconcile writes (cloud creates and deletes, Node
+        deletes, the inventory ConfigMap), so under leader election it
+        binds only on gaining the lease: a standby must not
+        provision."""
+        main.add_loop("provisioner", provisioner.reconcile,
+                      cfg.poll_interval_s)
+
+    if cfg.leader_election:
+        from nos_tpu_torch.kube.leaderelection import LeaderElector
+
+        main.attach_leader_election(LeaderElector(
+            api, "nos-tpu-provisioner-leader", on_started_leading=bind))
+    else:
+        bind()
+    if cfg.slo_interval_s > 0:
+        main.attach_slo(interval_s=cfg.slo_interval_s)
+    return main
 
 
 def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,

@@ -40,12 +40,13 @@ from nos_tpu_torch.utils.retry import retry_on_conflict
 logger = logging.getLogger(__name__)
 
 
-def admit_bound_pods(api, node_name: str) -> int:
+def admit_bound_pods(api, node_name: str, *, mig_pods: bool = False) -> int:
     """Move the Pending pods bound to ``node_name`` to Running; returns
     how many were admitted.  Pods that ask for MIG devices are left to
     the MIG node's admission, which admits one only once each device it
     asks for is free (the JAX package's ``skip_slice_pods=True``, the
-    MPS node agent's call)."""
+    MPS node agent's call), unless ``mig_pods`` (an agentless rig's
+    admission, ``testing/factory.admit_all``)."""
     if not isinstance(api, APIServer):
         return 0
     admitted = 0
@@ -53,7 +54,7 @@ def admit_bound_pods(api, node_name: str) -> int:
             KIND_POD,
             filter_fn=lambda p: (p.spec.node_name == node_name
                                  and p.status.phase == PENDING)):
-        if extract_slice_requests(pod_request(pod)):
+        if not mig_pods and extract_slice_requests(pod_request(pod)):
             continue
 
         def mutate(p):

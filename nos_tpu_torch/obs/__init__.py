@@ -43,9 +43,9 @@ __all__ = [
     "set_journal", "set_ledger", "set_tracer", "span",
 ]
 
-# Named blocks a component adds to the flight snapshot (the JAX
-# package's capacity plane registers its report here): a provider is a
-# callable with no arguments returning a JSON-ready dict.
+# Named blocks a component adds to the flight snapshot (the capacity
+# provisioner registers its report here): a provider is a callable with
+# no arguments returning a JSON-ready dict.
 _flight_blocks: dict[str, Callable[[], dict]] = {}
 
 

@@ -14,9 +14,10 @@ the recorder, or self-test the subsystem.
 A snapshot comes from ``--snapshot FILE`` (a saved
 /debug/flightrecorder, /snapshot or /debug/slo payload; ``-`` is stdin)
 or ``--url ADDR``, a main's health server: /snapshot for ``top``,
-/debug/flightrecorder for the rest.  ``capacity`` and ``top``'s request
-rows render blocks of planes the port has not yet (ROADMAP item 9 part
-2): they answer as the JAX CLI does when the block is absent.
+/debug/flightrecorder for the rest.  ``capacity`` renders the provisioner
+main's ``capacity`` block (``capacity/provisioner.py``) and ``top``'s
+request rows a ``requests`` block; each answers as the JAX CLI does when
+its block is absent.
 ``--selftest`` checks spans, the journal, explain, the sampler, the SLO
 engine and the ledger in process, with no cluster.
 """

@@ -70,13 +70,20 @@ DEFRAG_PROPOSED = "defrag-proposed"
 DEFRAG_APPLIED = "defrag-applied"
 DEFRAG_REJECTED = "defrag-rejected"
 GANG_RESIZED = "gang-resized"
-# -- the capacity plane's, which the port has not yet (ROADMAP): nothing
-# in the port records these, but ``obs capacity`` joins on them, as the
-# JAX CLI does
+# -- the capacity plane's (``capacity/provisioner.py``): a create is
+# REQUESTED when the provisioner asks the cloud for a node, LANDED when
+# the node joined and became usable (latency from the request), FAILED
+# when it was abandoned (stockout, quota, zombie reap, deadline; reason
+# recorded); STOCKOUT records a (machine class, zone) breaker transition
+# (state: open, half-open, closed); SPARE_BORROWED a sibling pool's warm
+# spare promoted into a vacancy under a stockout; SCALE_DOWN an empty
+# top-index node released back to the cloud
 PROVISION_REQUESTED = "provision-requested"
+PROVISION_LANDED = "provision-landed"
 PROVISION_FAILED = "provision-failed"
 PROVISION_STOCKOUT = "provision-stockout"
 SPARE_BORROWED = "spare-borrowed"
+SCALE_DOWN = "scale-down"
 # -- the serving tier's: AUTOSCALE is an executed replica scale (service
 # key; direction, count: ``serving/autoscaler.py``); REQUEST_SHED a
 # request dropped after the router's retry budget (service key; rid,

@@ -28,7 +28,7 @@ Categories (``CATEGORIES``):
   quotas forbid, capped at that demand;
 - ``drain``: free GPUs on a node a migration drains;
 - ``provisioning``: free GPUs on a node the capacity plane is still
-  landing (nothing stamps it until ROADMAP item 9 part 2);
+  landing (the provisioner's hold, ``capacity/provisioner.py``);
 - ``idle_no_demand``: the rest.
 
 Per pool, the sum over categories equals the integral of capacity:

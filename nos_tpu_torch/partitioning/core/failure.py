@@ -109,15 +109,21 @@ def healthy_spares_by_pool(
 
 
 def promote_spare(api: APIServer, spare: str, pool: str, idx: int, *,
-                  kind: str = "", dead: str = "") -> bool:
+                  kind: str = "", dead: str = "",
+                  cross_pool: bool = False) -> bool:
     """One label patch turns a warm spare into a vacancy's replacement:
-    the spare label off, the vacated host index on.  False (the caller's
-    next poll retries) when the spare vanished or the patch failed.  The
-    JAX package's cross-pool borrow belongs to its capacity provisioner
-    (ROADMAP item 9 part 2)."""
+    the spare label off, the vacated host index on and, for a cross-pool
+    borrow (the capacity plane's stockout degradation,
+    ``capacity/provisioner.py``), the target NVLink domain too, in the
+    same patch.  Its geometry is carved and reported already, so a
+    displaced workload rebinds on the scheduler's next snapshot.  False
+    (the caller's next poll retries) when the spare vanished or the patch
+    failed."""
     def mutate(n: Node) -> None:
         n.metadata.labels.pop(C.LABEL_SPARE, None)
         n.metadata.labels[C.LABEL_HOST_INDEX] = str(idx)
+        if cross_pool:
+            n.metadata.labels[C.LABEL_NVLINK_DOMAIN] = pool
 
     try:
         retry_on_conflict(api, KIND_NODE, spare, mutate,
@@ -129,10 +135,11 @@ def promote_spare(api: APIServer, spare: str, pool: str, idx: int, *,
                        "(kind=%s pool=%s)", spare, kind, pool)
         return False
     REGISTRY.inc("nos_tpu_spare_promotions_total", labels={"pool": pool})
-    journal_record(J.SPARE_PROMOTED, spare, kind=kind, pool=pool,
-                   host_index=idx, replaced=dead)
-    logger.info("spare promotion[%s]: %s into %s index %d (replacing %s)",
-                kind, spare, pool, idx, dead)
+    journal_record(J.SPARE_BORROWED if cross_pool else J.SPARE_PROMOTED,
+                   spare, kind=kind, pool=pool, host_index=idx, replaced=dead)
+    logger.info("spare promotion[%s]: %s into %s index %d (replacing %s%s)",
+                kind, spare, pool, idx, dead,
+                ", cross-pool borrow" if cross_pool else "")
     return True
 
 

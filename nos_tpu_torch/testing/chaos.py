@@ -25,8 +25,12 @@ stay exact, so a test's assertions see the true state.  It subclasses
 ``APIServer`` so that code gated on the in-memory substrate (the
 kubelet's admission) walks through its gates.  The JAX substrate's
 injected latency and its per-kind fault filter have no caller in the
-port and are left out; the chaotic cloud API of the capacity plane
-comes with ``capacity/`` (ROADMAP item 9 part 2).
+port and are left out.
+
+``ChaosCloudGPUAPI`` does the same for the capacity plane's stand-in
+cloud (``capacity/cloudapi.py``): seeded stockouts, quota, 429s, slow
+creates, zombies and failed deletes, the JAX package's
+``ChaosCloudTPUAPI`` with the same draws in the same order.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ import random
 import threading
 from typing import Any, Callable
 
+from nos_tpu_torch.capacity.cloudapi import (
+    CloudGPUAPI, DeleteFailedError, RateLimitedError, StockoutError,
+)
 from nos_tpu_torch.kube.client import APIServer, Conflict, WatchFn
 
 
@@ -151,3 +158,107 @@ class ChaosAPIServer(APIServer):
         # the selector runs before the drop, so a replayed event had
         # passed it
         return super().watch(kind, chaotic, selector=selector)
+
+
+class ChaosCloudGPUAPI(CloudGPUAPI):
+    """CloudGPUAPI injecting seed-deterministic provider faults.
+
+    Same philosophy as ChaosAPIServer: a subclass (the provisioner must
+    walk through the real create/settle/join machinery, not a mock of
+    it), one `random.Random(seed)` behind its own lock, stats for the
+    soak's assertions.  Fault classes, mirroring what a real cloud's
+    node-pool API does on a bad day:
+
+    - **stockout windows** — a create draw can open a per-(machine
+      class, zone) window of `stockout_window_s` during which EVERY
+      create for that key raises StockoutError (stockouts are a state
+      of the warehouse, not a per-call coin flip).  `inject_stockout`
+      opens one explicitly for storm scenarios.
+    - **429 rate limits** — RateLimitedError before the call executes
+      (retryable; the provisioner's backoff path must absorb it).
+    - **slow provisioning** — extra landing delay on a create.
+    - **zombies** — the create lands in the cloud but the node never
+      joins: only the provisioner's deadline reaping clears it.
+    - **failed deletes** — DeleteFailedError (transient; the
+      level-triggered reconcile retries next poll).
+    """
+
+    def __init__(self, seed: int = 0, *,
+                 stockout_rate: float = 0.0,
+                 stockout_window_s: float = 30.0,
+                 rate_limit_rate: float = 0.0,
+                 slow_rate: float = 0.0,
+                 slow_extra_s: float = 10.0,
+                 zombie_rate: float = 0.0,
+                 delete_fail_rate: float = 0.0,
+                 **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.seed = seed
+        self._chaos_rng = random.Random(seed)
+        self._stockout_rate = stockout_rate
+        self._stockout_window_s = stockout_window_s
+        self._rate_limit_rate = rate_limit_rate
+        self._slow_rate = slow_rate
+        self._slow_extra_s = slow_extra_s
+        self._zombie_rate = zombie_rate
+        self._delete_fail_rate = delete_fail_rate
+        self._cloud_chaos_lock = threading.Lock()
+        self._stockout_until: dict[tuple[str, str], float] = {}
+        self.cloud_stats = {"stockouts": 0, "rate_limited": 0, "slow": 0,
+                            "zombies": 0, "delete_failures": 0}
+
+    # -- explicit scenario control ------------------------------------------
+    def inject_stockout(self, machine_class: str, zone: str = "-",
+                        duration_s: float | None = None) -> None:
+        """Open a stockout window now (storm scenarios pin the outage
+        instead of waiting for the draw)."""
+        until = self._clock() + (duration_s if duration_s is not None
+                                 else self._stockout_window_s)
+        with self._cloud_chaos_lock:
+            self._stockout_until[(machine_class, zone)] = until
+
+    def clear_stockout(self, machine_class: str, zone: str = "-") -> None:
+        with self._cloud_chaos_lock:
+            self._stockout_until.pop((machine_class, zone), None)
+
+    # -- fault seam overrides -----------------------------------------------
+    def _pre_call(self, verb: str) -> None:
+        with self._cloud_chaos_lock:
+            limited = self._chaos_rng.random() < self._rate_limit_rate
+            if limited:
+                self.cloud_stats["rate_limited"] += 1
+        if limited:
+            raise RateLimitedError(
+                f"chaos(seed={self.seed}): injected 429 on {verb}")
+
+    def _draw_create_fault(self, machine_class: str,
+                           zone: str) -> tuple[float, bool]:
+        now = self._clock()
+        key = (machine_class, zone)
+        with self._cloud_chaos_lock:
+            until = self._stockout_until.get(key, 0.0)
+            if now < until:
+                self.cloud_stats["stockouts"] += 1
+                raise StockoutError(machine_class, zone)
+            if self._chaos_rng.random() < self._stockout_rate:
+                self._stockout_until[key] = now + self._stockout_window_s
+                self.cloud_stats["stockouts"] += 1
+                raise StockoutError(machine_class, zone)
+            extra = 0.0
+            if self._chaos_rng.random() < self._slow_rate:
+                extra = self._chaos_rng.random() * self._slow_extra_s
+                self.cloud_stats["slow"] += 1
+            zombie = self._chaos_rng.random() < self._zombie_rate
+            if zombie:
+                self.cloud_stats["zombies"] += 1
+            return extra, zombie
+
+    def _draw_delete_fault(self, name: str) -> None:
+        with self._cloud_chaos_lock:
+            failed = self._chaos_rng.random() < self._delete_fail_rate
+            if failed:
+                self.cloud_stats["delete_failures"] += 1
+        if failed:
+            raise DeleteFailedError(
+                f"chaos(seed={self.seed}): injected delete failure "
+                f"for {name}")

@@ -110,3 +110,17 @@ def make_pod_group(name: str, min_member: int, mesh: str = "",
     ``nos.nebuly.com/pod-group: <name>`` in ``namespace``."""
     return PodGroup(metadata=ObjectMeta(name=name, namespace=namespace),
                     spec=PodGroupSpec(min_member=min_member, mesh=mesh))
+
+
+
+
+def admit_all(api) -> int:
+    """The kubelet's admission for agentless tests and fleets: every
+    bound Pending pod on every node moves to Running, MIG pods too (no
+    agent holds their devices back), as the JAX package's ``admit_all``
+    does."""
+    from nos_tpu_torch.controllers.kubelet import admit_bound_pods
+    from nos_tpu_torch.kube.client import KIND_NODE
+
+    return sum(admit_bound_pods(api, node.metadata.name, mig_pods=True)
+               for node in api.list(KIND_NODE))

@@ -2479,3 +2479,443 @@ def run_serving_fleet(spec: dict, workers: int = 0) -> dict:
                                        if k != "plan_id")]
         for r in ops.journal.events()]
     return out
+
+
+# -- the capacity fleets ---------------------------------------------------
+
+# bench_capacity.py's runs on H100 nodes: a JAX host is a v5e host of 8
+# chips whose one 2x4 a job takes whole; here a node is 8 H100 80GB in
+# MIG mode, each GPU one free 7g.80gb (the MIG stand-in's whole-host
+# profile, as the 2x4 has been throughout), and a job asks for 8 of
+# them: ``pod_chip_equiv`` 8 GPUs, one whole node.  MIG and not eight
+# 80 GB MPS shares because the JAX job is a slice, the kind the port
+# maps to MIG.  Every other figure is the bench's.
+CAPACITY_PROFILE = "7g.80gb"
+CAPACITY_GPUS = 8
+CAPACITY_TICK_S = 0.5
+CAPACITY_WARMUP_S = 30.0
+CAPACITY_SETTLE_S = 90.0
+CAPACITY_JOIN_LAG_S = 6.0
+CAPACITY_PROVISION_DELAY_S = 8.0
+CAPACITY_SWING_TRACE_S = 600.0
+CAPACITY_SWING_SHIFTS = (200.0, 400.0)
+CAPACITY_SWING_ADAPT_S = 90.0
+CAPACITY_BASE_HOSTS = 4
+CAPACITY_UTIL_TARGET = 0.95
+CAPACITY_STORM_TRACE_S = 420.0
+CAPACITY_STORM_START = 120.0
+CAPACITY_STORM_DURATION_S = 160.0
+CAPACITY_STORM_ADAPT_S = 40.0
+CAPACITY_STORM_POOL_HOSTS = 3
+CAPACITY_STORM_SPARES = 2
+CAPACITY_QUIET_TRACE_S = 120.0
+CAPACITY_DURATION_S = (15.0, 25.0)
+CAPACITY_POOLS = ("nvl-0", "nvl-1")
+CAPACITY_ZONES = ("us-a", "us-b")
+CAPACITY_NAMESPACE = "work"
+# bench_capacity.py's PROV_KNOBS
+CAPACITY_KNOBS = dict(
+    scale_up_deficit_chips=8.0, scale_up_after_s=4.0,
+    scale_up_cooldown_s=6.0, max_pending_creates=4,
+    scale_down_idle_s=15.0, scale_down_cooldown_s=8.0,
+    min_hosts_per_pool=1, provision_deadline_s=60.0,
+    join_grace_s=CAPACITY_JOIN_LAG_S + 4.0, vacancy_grace_s=2.0,
+    breaker_threshold=2, breaker_open_s=40.0, spare_target_per_pool=0,
+)
+CAPACITY_SCENARIOS = ("swing", "storm", "quiet")
+
+
+class _CapacityJob:
+    __slots__ = ("name", "duration", "created", "bound_at")
+
+    def __init__(self, name: str, duration: float, created: float) -> None:
+        self.name = name
+        self.duration = duration
+        self.created = created
+        self.bound_at: float | None = None
+
+
+class CapacityFleet:
+    """One of ``bench_capacity.py``'s trace runs (its ``Sim``) on the port:
+    an in-memory API server, ``build_scheduler``, a waste ledger and a
+    journal on the SimEngine's clock and, with ``plane``, the
+    provisioner at CAPACITY_KNOBS over ``CloudGPUAPI`` (the storm:
+    ``ChaosCloudGPUAPI`` with every random rate 0, its one fault the
+    injected stockout).  The plane-off run never constructs the plane.
+    ``scenario``: swing (4 nodes' demand, then 8, then 4 again, one
+    pool), storm (two pools of 3 and two warm spares in nvl-1, a zonal
+    stockout of nvl-0's zone as demand steps up by two nodes) or quiet
+    (capacity equal to steady demand)."""
+
+    def __init__(self, seed: int = 0, plane: bool = True,
+                 scenario: str = "swing") -> None:
+        import random
+
+        from nos_tpu_torch.capacity import CapacityProvisioner, CloudGPUAPI
+        from nos_tpu_torch.cmd.assembly import build_scheduler
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.obs.journal import DecisionJournal
+        from nos_tpu_torch.sim import SimEngine
+        from nos_tpu_torch.testing.chaos import ChaosCloudGPUAPI
+
+        if scenario not in CAPACITY_SCENARIOS:
+            raise ValueError(f"scenario must be one of {CAPACITY_SCENARIOS}")
+        self.seed = seed
+        self.plane = plane
+        self.scenario = scenario
+        self.rng = random.Random(seed)
+        self.eng = SimEngine()
+        clock = self.eng.now
+        self.api = APIServer()
+        self.scheduler = build_scheduler(self.api, clock=clock)
+        self.ledger = ChipSecondLedger(clock=clock)
+        self.journal = DecisionJournal(maxlen=200_000, clock=clock)
+        self.trace_s = {"swing": CAPACITY_SWING_TRACE_S,
+                        "storm": CAPACITY_STORM_TRACE_S,
+                        "quiet": CAPACITY_QUIET_TRACE_S}[scenario]
+        self._join_queue: list[tuple[float, str]] = []
+        self.cloud = None
+        self.prov = None
+        self.reconcile_ms: list[float] = []
+        if plane:
+            if scenario == "storm":
+                self.cloud = ChaosCloudGPUAPI(
+                    seed, clock=clock,
+                    provision_delay_s=CAPACITY_PROVISION_DELAY_S)
+            else:
+                self.cloud = CloudGPUAPI(
+                    clock=clock, provision_delay_s=CAPACITY_PROVISION_DELAY_S)
+            self.cloud.set_joiner(self._cloud_join)
+            self.prov = CapacityProvisioner(self.api, self.cloud,
+                                            clock=clock, **CAPACITY_KNOBS)
+        pool0, pool1 = CAPACITY_POOLS
+        if scenario == "storm":
+            for h in range(CAPACITY_STORM_POOL_HOSTS):
+                self._add_node(pool0, h, CAPACITY_ZONES[0])
+                self._add_node(pool1, h, CAPACITY_ZONES[1])
+            for s in range(CAPACITY_STORM_SPARES):
+                self._add_node(pool1, 100 + s, CAPACITY_ZONES[1], spare=True)
+        else:
+            for h in range(CAPACITY_BASE_HOSTS):
+                self._add_node(pool0, h, CAPACITY_ZONES[0])
+        self.jobs: dict[str, _CapacityJob] = {}
+        self._job_seq = 0
+        self.completed = 0
+        self.waits: list[float] = []
+        self._util_area = 0.0
+        self._util_time = 0.0
+        self._util_min = 1.0
+
+    # -- the cluster ---------------------------------------------------------
+    def _serving_geometry(self) -> dict:
+        return {g: {"free": {CAPACITY_PROFILE: 1}}
+                for g in range(CAPACITY_GPUS)}
+
+    def _add_node(self, pool: str, host_index: int, zone: str,
+                  spare: bool = False) -> None:
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        from .factory import make_gpu_node
+
+        name = f"{pool}-spare{host_index}" if spare else f"{pool}-h{host_index}"
+        self.api.create(KIND_NODE, make_gpu_node(
+            name, gpus=CAPACITY_GPUS, partitioning=C.MIG_KIND,
+            status_geometry=self._serving_geometry(), domain=pool,
+            host_index=host_index, spare=spare,
+            extra_labels={C.LABEL_ZONE: zone}))
+
+    def _cloud_join(self, cloud_node) -> None:
+        """The kubelet's join: the Node appears bare (the create's labels,
+        no geometry: its agent is still starting) and serves
+        CAPACITY_JOIN_LAG_S later; until then its GPUs are booked as
+        ``provisioning`` (the provisioner's hold), not idle."""
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        from .factory import make_gpu_node
+
+        labels = dict(cloud_node.labels)
+        pool = labels.pop(C.LABEL_NVLINK_DOMAIN, CAPACITY_POOLS[0])
+        idx = int(labels.pop(C.LABEL_HOST_INDEX, "0"))
+        for managed in (C.LABEL_ACCELERATOR, C.LABEL_PARTITIONING,
+                        C.LABEL_GPU_COUNT):
+            labels.pop(managed, None)
+        self.api.create(KIND_NODE, make_gpu_node(
+            cloud_node.name, gpus=CAPACITY_GPUS, partitioning=C.MIG_KIND,
+            domain=pool, host_index=idx, extra_labels=labels))
+        self._join_queue.append((self.eng.now() + CAPACITY_JOIN_LAG_S,
+                                 cloud_node.name))
+
+    def _land_joins(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_NODE, NotFound
+        from nos_tpu_torch.utils.retry import retry_on_conflict
+
+        res = slice_resource_name(CAPACITY_PROFILE)
+        for due, name in [e for e in self._join_queue
+                          if e[0] <= self.eng.now()]:
+            self._join_queue.remove((due, name))
+
+            def mutate(node) -> None:
+                for g in range(CAPACITY_GPUS):
+                    node.metadata.annotations[
+                        f"{C.ANNOT_STATUS_PREFIX}{g}-{CAPACITY_PROFILE}"
+                        f"-free"] = "1"
+                node.status.allocatable[res] = float(CAPACITY_GPUS)
+                node.status.capacity[res] = float(CAPACITY_GPUS)
+
+            try:
+                retry_on_conflict(self.api, KIND_NODE, name, mutate,
+                                  component="fleet-join")
+            except NotFound:
+                pass        # released or reaped before it ever served
+
+    # -- demand --------------------------------------------------------------
+    def _target_gpus(self) -> float:
+        t = self.eng.now()
+        if self.scenario == "swing":
+            lo, hi = CAPACITY_SWING_SHIFTS
+            base = CAPACITY_BASE_HOSTS * CAPACITY_GPUS
+            return float(2 * base if lo <= t < hi else base)
+        if self.scenario == "storm":
+            base = 2 * CAPACITY_STORM_POOL_HOSTS * CAPACITY_GPUS
+            return float(base + CAPACITY_STORM_SPARES * CAPACITY_GPUS
+                         if t >= CAPACITY_STORM_START else base)
+        return float(CAPACITY_BASE_HOSTS * CAPACITY_GPUS)
+
+    def _install_faults(self) -> None:
+        """The storm at CAPACITY_STORM_START as a fault event, which fires
+        before the control tick of the same instant."""
+        if self.scenario == "storm" and self.cloud is not None:
+            self.eng.at(
+                CAPACITY_STORM_START,
+                lambda: self.cloud.inject_stockout(
+                    H100_80GB.name, CAPACITY_ZONES[0],
+                    duration_s=CAPACITY_STORM_DURATION_S),
+                label="stockout-storm")
+
+    def _in_adaptation(self) -> bool:
+        t = self.eng.now()
+        if t < CAPACITY_WARMUP_S:
+            return True
+        if self.scenario == "swing":
+            return any(s <= t < s + CAPACITY_SWING_ADAPT_S
+                       for s in CAPACITY_SWING_SHIFTS)
+        if self.scenario == "storm":
+            return (CAPACITY_STORM_START <= t
+                    < CAPACITY_STORM_START + CAPACITY_STORM_ADAPT_S)
+        return False
+
+    def _spawn(self, target: float | None = None) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        from .factory import make_mig_pod
+
+        target = self._target_gpus() if target is None else target
+        inflight = len(self.jobs) * float(CAPACITY_GPUS)
+        while inflight < target:
+            self._job_seq += 1
+            name = f"job-{self._job_seq}"
+            self.jobs[name] = _CapacityJob(
+                name, self.rng.uniform(*CAPACITY_DURATION_S), self.eng.now())
+            self.api.create(KIND_POD, make_mig_pod(
+                CAPACITY_PROFILE, CAPACITY_GPUS, name=name,
+                namespace=CAPACITY_NAMESPACE,
+                creation_timestamp=self.eng.now()))
+            inflight += CAPACITY_GPUS
+
+    def _complete_finished(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD, NotFound
+
+        for job in list(self.jobs.values()):
+            if job.bound_at is None \
+                    or self.eng.now() < job.bound_at + job.duration:
+                continue
+            try:
+                self.api.delete(KIND_POD, job.name, CAPACITY_NAMESPACE)
+            except NotFound:
+                pass
+            del self.jobs[job.name]
+            self.completed += 1
+
+    def _record_binds(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        for p in self.api.list(KIND_POD):
+            if not p.spec.node_name:
+                continue
+            job = self.jobs.get(p.metadata.name)
+            if job is not None and job.bound_at is None:
+                job.bound_at = self.eng.now()
+                self.waits.append(self.eng.now() - job.created)
+
+    # -- measurement ---------------------------------------------------------
+    def _serving_gpus(self) -> float:
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        gpus = 0.0
+        for node in self.api.list(KIND_NODE):
+            labels = node.metadata.labels
+            if C.is_warm_spare_labels(labels):
+                continue
+            if not any(k.startswith(C.ANNOT_STATUS_PREFIX)
+                       for k in node.metadata.annotations):
+                continue        # joined, not serving yet
+            gpus += float(labels.get(C.LABEL_GPU_COUNT, "0") or 0.0)
+        return gpus
+
+    def _sample_utilization(self) -> None:
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        if self._in_adaptation():
+            return
+        live = self._serving_gpus()
+        if live <= 0:
+            return
+        used = sum(CAPACITY_GPUS for p in self.api.list(KIND_POD)
+                   if p.spec.node_name)
+        util = min(1.0, used / live)
+        self._util_area += util * CAPACITY_TICK_S
+        self._util_time += CAPACITY_TICK_S
+        self._util_min = min(self._util_min, util)
+
+    def _active_hosts(self) -> int:
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        return sum(1 for n in self.api.list(KIND_NODE)
+                   if not C.is_warm_spare_labels(n.metadata.labels))
+
+    # -- the loop ------------------------------------------------------------
+    def _tick(self, spawn_target: float | None = None) -> None:
+        from .factory import admit_all
+
+        self._complete_finished()
+        self._land_joins()
+        self._spawn(target=spawn_target)
+        self.scheduler.run_cycle()
+        if self.prov is not None:
+            t0 = time.perf_counter()
+            self.prov.reconcile()
+            self.reconcile_ms.append((time.perf_counter() - t0) * 1e3)
+        admit_all(self.api)
+        self._record_binds()
+        self._sample_utilization()
+
+    def run(self) -> dict:
+        """The trace, then the settle (demand stops; the backlog must
+        drain before the never-bound verdict).  Cloud 429 retries back
+        off through ``utils.retry.sleep``, which the run replaces: virtual
+        time must not sleep.  Raises if the ledger does not conserve."""
+        from nos_tpu_torch.obs import journal as J
+        from nos_tpu_torch.obs import ledger as L
+        from nos_tpu_torch.utils import retry as retry_mod
+
+        real_sleep, retry_mod.sleep = retry_mod.sleep, lambda s: None
+        try:
+            with obs_scoped(journal=self.journal, ledger=self.ledger):
+                self._install_faults()
+                self.eng.tick_loop(CAPACITY_TICK_S, self._tick,
+                                   until=self.trace_s, label="ctl-tick")
+                self.eng.run(until=self.trace_s)
+                self.eng.tick_loop(
+                    CAPACITY_TICK_S, lambda: self._tick(spawn_target=0.0),
+                    until=self.eng.now() + CAPACITY_SETTLE_S,
+                    while_fn=lambda: any(j.bound_at is None
+                                         for j in self.jobs.values()),
+                    label="settle-tick")
+                self.eng.run()
+        finally:
+            retry_mod.sleep = real_sleep
+            self.scheduler.close()
+        waste = check_conservation(self.ledger.report(),
+                                   f"the capacity fleet ({self.scenario})")
+        never_bound = sorted(j.name for j in self.jobs.values()
+                             if j.bound_at is None)
+        counters = dict(self.prov.report().get("counters", {})) \
+            if self.prov is not None else {}
+        outstanding = (list(self.cloud.list_operations())
+                       if self.cloud is not None else [])
+        breaker_opens = len([
+            r for r in self.journal.events(category=J.PROVISION_STOCKOUT)
+            if r.attrs.get("state") == "open"])
+        return {
+            "utilization_pct": round(
+                self._util_area / self._util_time, 4)
+            if self._util_time else 0.0,
+            "utilization_min": round(self._util_min, 4),
+            "jobs_completed": self.completed,
+            "never_bound": len(never_bound),
+            "never_bound_jobs": never_bound,
+            "bind_wait_p50_s": _rounded_percentile(self.waits, 0.5, 2),
+            "bind_wait_p90_s": _rounded_percentile(self.waits, 0.9, 2),
+            "hosts_final": self._active_hosts(),
+            "provision_landed": counters.get("landed", 0),
+            "scale_downs": counters.get("scale_downs", 0),
+            "borrows": counters.get("borrows", 0),
+            "breaker_opens": breaker_opens,
+            "outstanding_ops": len(outstanding),
+            "provisioning_chip_seconds": round(
+                waste["fleet"]["chip_seconds"].get(L.PROVISIONING, 0.0), 1),
+        }
+
+    def decision_trace(self) -> list[list]:
+        """[category, subject, [[key, str(value)], ...]] for every record
+        (plan ids dropped): the byte-identity basis and the summary's
+        journal."""
+        return [[r.category, r.subject,
+                 [[k, str(v)] for k, v in sorted(r.attrs.items())
+                  if k != "plan_id"]]
+                for r in self.journal.events()]
+
+
+def capacity_summary(result: dict, trace: list) -> dict:
+    """What both packages must agree on for one capacity run: its figures
+    and its whole decision journal."""
+    return {"result": result, "journal": trace}
+
+
+def run_capacity_fleet(scenario: str, seed: int = 0,
+                       plane: bool = True) -> dict:
+    """One ``CapacityFleet`` run: ``summary`` (``capacity_summary``),
+    ``reconcile_ms`` (the provisioner's host ms per reconcile) and the
+    wall seconds."""
+    t0 = time.perf_counter()
+    fleet = CapacityFleet(seed, plane, scenario)
+    result = fleet.run()
+    return {"summary": capacity_summary(result, fleet.decision_trace()),
+            "reconcile_ms": fleet.reconcile_ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def capacity_gates(swing: dict, storm: dict) -> list[str]:
+    """``bench_capacity.py``'s gates (its ``assert_gates``) on the two
+    runs' results; each failure as a line."""
+    base = CAPACITY_BASE_HOSTS
+    out = []
+    if swing["utilization_pct"] < CAPACITY_UTIL_TARGET:
+        out.append(f"swing utilization {swing['utilization_pct']} < "
+                   f"{CAPACITY_UTIL_TARGET}")
+    if swing["provision_landed"] < base:
+        out.append(f"swing landed {swing['provision_landed']} (< {base})")
+    if swing["scale_downs"] < base - 1:
+        out.append(f"swing released {swing['scale_downs']} (< {base - 1})")
+    if swing["hosts_final"] > base + 1:
+        out.append(f"swing ended on {swing['hosts_final']} nodes (ratchet)")
+    if swing["never_bound"] != 0:
+        out.append(f"swing never bound {swing['never_bound_jobs']}")
+    if swing["provisioning_chip_seconds"] <= 0.0:
+        out.append("swing booked no provisioning GPU-seconds")
+    if swing["outstanding_ops"] != 0:
+        out.append(f"swing left {swing['outstanding_ops']} cloud operations")
+    if storm["breaker_opens"] < 1:
+        out.append("the storm never opened the breaker")
+    if storm["borrows"] != CAPACITY_STORM_SPARES:
+        out.append(f"the storm borrowed {storm['borrows']} spares, not "
+                   f"{CAPACITY_STORM_SPARES}")
+    if storm["never_bound"] != 0:
+        out.append(f"the storm never bound {storm['never_bound_jobs']}")
+    if storm["outstanding_ops"] != 0:
+        out.append(f"the storm left {storm['outstanding_ops']} cloud "
+                   f"operations")
+    if storm["utilization_pct"] < CAPACITY_UTIL_TARGET:
+        out.append(f"storm utilization {storm['utilization_pct']} < "
+                   f"{CAPACITY_UTIL_TARGET}")
+    return out

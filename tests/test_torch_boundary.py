@@ -124,7 +124,9 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "sim.trace", "requests", "requests.costs",
                    "requests.replica", "requests.router", "serving",
                    "serving.autoscaler", "serving.trace",
-                   "cmd.autoscaler"):
+                   "cmd.autoscaler", "capacity", "capacity.cloudapi",
+                   "capacity.provisioner", "cmd.provisioner",
+                   "sim.injectors"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]

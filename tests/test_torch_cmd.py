@@ -1717,6 +1717,145 @@ class TestAutoscalerMain:
                 proc.wait()
 
 
+class TestProvisionerMain:
+    """``cmd/provisioner.py`` and ``build_provisioner_main``: off means
+    off, the main serves its health and its ``capacity`` flight block,
+    and a TPU machine class is refused."""
+
+    def test_disabled_exits_0_and_constructs_nothing(self, tmp_path,
+                                                     monkeypatch):
+        import nos_tpu_torch.capacity as cap
+        from nos_tpu_torch.cmd.provisioner import main
+        from nos_tpu_torch.obs import _flight_blocks
+
+        built = []
+        for name in ("CapacityProvisioner", "CloudGPUAPI"):
+            monkeypatch.setattr(cap, name, lambda *a, name=name, **k:
+                                built.append(name))
+        before = dict(_flight_blocks)
+        path = tmp_path / "p.json"
+        path.write_text(json.dumps({"apiVersion": "nos.tpu/v1beta2",
+                                    "enabled": False}))
+        assert main(["--config", str(path)]) == 0
+        assert main([]) == 0            # the defaults: off
+        assert built == [] and dict(_flight_blocks) == before
+
+    @pytest.mark.parametrize("raw,ok", [
+        ({"enabled": True, "poll_interval_s": 0.5}, True),
+        ({"enabled": True, "scale_up_deficit_chips": 0.25,
+          "provision_deadline_s": 45.0}, True),
+        ({"enabled": True, "poll_interval_s": 0}, False),
+        ({"enabled": True, "breaker_threshold": 0}, False),
+        ({"enabled": True, "scale_up_deficit_chip": 1.0}, False),
+    ])
+    def test_the_config_file_loads_as_jax_s(self, raw, ok, tmp_path):
+        path = tmp_path / "p.json"
+        path.write_text(json.dumps({"apiVersion": "nos.tpu/v1beta2", **raw}))
+        for mod in (jconfig, pconfig):
+            if ok:
+                cfg = mod.load_config(path, mod.ProvisionerConfig)
+                assert all(getattr(cfg, k) == v for k, v in raw.items())
+            else:
+                with pytest.raises(mod.ConfigError):
+                    mod.load_config(path, mod.ProvisionerConfig)
+
+    def test_an_invalid_config_exits_2(self, tmp_path, capsys):
+        from nos_tpu_torch.cmd.provisioner import main
+
+        path = tmp_path / "p.json"
+        path.write_text(json.dumps({"apiVersion": "nos.tpu/v1beta2",
+                                    "enabled": True, "cloud_attempts": 0}))
+        assert main(["--config", str(path)]) == 2
+        assert "cloud_attempts" in capsys.readouterr().err
+
+    def test_a_tpu_machine_class_is_refused(self, caplog):
+        """A node labelled with a TPU class is in no pool: pending demand
+        on it creates nothing, and the refusal is logged once."""
+        from nos_tpu_torch.cmd.assembly import build_provisioner_main
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.obs import set_flight_block
+        from nos_tpu_torch.testing import factory
+
+        api = APIServer()
+        node = factory.make_gpu_node("tpu-host-0", domain="pod-0",
+                                     host_index=0)
+        node.metadata.labels[C.LABEL_ACCELERATOR] = "tpu-v5e"
+        api.create("Node", node)
+        api.create("Pod", factory.make_timeshare_pod(80, 8, name="p0"))
+        cfg = pconfig.ProvisionerConfig(enabled=True, scale_up_after_s=0.0,
+                                        scale_up_deficit_chips=0.25,
+                                        slo_interval_s=0)
+        prev = set_flight_block("capacity")
+        try:
+            main = build_provisioner_main(api, cfg)
+            with caplog.at_level(logging.WARNING):
+                for _ in range(3):
+                    main.provisioner.reconcile()
+        finally:
+            set_flight_block("capacity", prev)
+        report = main.provisioner.report()
+        assert report["pools"] == {} and report["pending_demand_chips"] == 8.0
+        assert report["counters"]["requested"] == 0
+        refusals = [r for r in caplog.records if "TPU machine class"
+                    in r.getMessage()]
+        assert len(refusals) == 1 and "tpu-host-0" in refusals[0].getMessage()
+
+    def test_the_main_as_a_process_serves_health_and_its_block(
+            self, tmp_path):
+        """``python -m nos_tpu_torch.cmd.provisioner --config`` enabled on
+        the in-memory API: /healthz and /readyz answer, the loop runs,
+        /debug/flightrecorder carries the ``capacity`` block, ``obs
+        capacity`` renders it (exit 0), SIGTERM exits 0."""
+        import os
+        import signal
+        import subprocess
+        import sys
+        import urllib.request
+
+        import chip_smoke
+
+        addr = f"127.0.0.1:{chip_smoke._free_port()}"
+        path = tmp_path / "p.json"
+        path.write_text(json.dumps({
+            "apiVersion": "nos.tpu/v1beta2", "enabled": True,
+            "health_probe_addr": addr, "poll_interval_s": 0.05,
+            "slo_interval_s": 0}))
+        env = dict(os.environ, PYTHONPATH=str(chip_smoke.ROOT))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nos_tpu_torch.cmd.provisioner",
+             "--config", str(path)], cwd=chip_smoke.ROOT, env=env,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            def get(p: str) -> tuple[int, str]:
+                try:
+                    with urllib.request.urlopen(f"http://{addr}{p}",
+                                                timeout=2) as r:
+                        return r.status, r.read().decode()
+                except OSError:
+                    return 0, ""
+
+            _wait(lambda: get("/healthz")[0] == 200, "answer /healthz", 60)
+            assert get("/readyz") == (200, "ok")
+            _wait(lambda: 'loop="provisioner"' in get("/metrics")[1],
+                  "run the loop")
+            code, body = get("/debug/flightrecorder")
+            block = json.loads(body)["capacity"]
+            assert code == 200 and block["pools"] == {}
+            assert block["counters"]["requested"] == 0
+            out = subprocess.run(
+                [sys.executable, "-m", "nos_tpu_torch.obs", "capacity",
+                 "--url", f"http://{addr}"], cwd=tmp_path, env=env,
+                capture_output=True, text=True, timeout=60)
+            assert out.returncode == 0, out.stderr
+            assert out.stdout.startswith("capacity plane:")
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=10) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 class TestAutoscalerLeaderHandoff:
     @pytest.mark.parametrize("jax", [True, False], ids=["jax", "port"])
     def test_the_standby_takes_over_the_reconcile_loop(self, jax):

@@ -31,6 +31,7 @@ CONFIGS = {
     "nos-tpu-torch-chipagent-config": pconfig.AgentConfig,
     "nos-tpu-torch-sliceagent-config": pconfig.AgentConfig,
     "nos-tpu-torch-autoscaler-config": pconfig.AutoscalerConfig,
+    "nos-tpu-torch-provisioner-config": pconfig.ProvisionerConfig,
 }
 
 
@@ -108,7 +109,8 @@ class TestRender:
 
     def test_every_config_loads_through_the_port(self, docs, tmp_path):
         got = configs(docs, tmp_path)
-        assert set(got) == set(CONFIGS)
+        assert set(got) == set(CONFIGS) - {
+            "nos-tpu-torch-provisioner-config"}
         part = got["nos-tpu-torch-partitioner-config"]
         assert part.kind == pconfig.HYBRID_KIND and part.slo_interval_s == 1.0
         assert part.device_plugin_cm_namespace == "nebuly-nos"
@@ -306,6 +308,66 @@ class TestAutoscalerChart:
     def test_off_renders_nothing_of_it(self):
         docs = render_chart(CHART, context(**{"autoscaler.enabled": False}))
         assert not [d for d in docs if "autoscaler" in d["metadata"]["name"]]
+
+class TestProvisionerChart:
+    """The provisioner's templates (the JAX chart's
+    ``templates/provisioner/``, ported): off by default, and when on
+    rendered, loaded through the port's ProvisionerConfig and built into
+    a main."""
+
+    @pytest.fixture(scope="class")
+    def on(self):
+        return render_chart(CHART, context(**{"provisioner.enabled": True}))
+
+    def test_off_by_default_renders_nothing_of_it(self, docs):
+        assert not [d for d in docs
+                    if "provisioner" in d["metadata"]["name"]]
+
+    def test_the_rendered_config_builds_the_main(self, on, tmp_path):
+        from nos_tpu_torch.cmd.assembly import build_provisioner_main
+        from nos_tpu_torch.kube.client import APIServer
+        from nos_tpu_torch.obs import set_flight_block
+
+        cfg = configs(on, tmp_path)["nos-tpu-torch-provisioner-config"]
+        assert cfg.enabled and cfg.leader_election
+        assert cfg.inventory_namespace == "nos-tpu-torch-system"
+        assert (cfg.scale_up_deficit_chips, cfg.hbm_gb_per_chip,
+                cfg.chips_per_host_cap) == (8.0, 80.0, 8.0)
+        cfg.leader_election = False
+        prev = set_flight_block("capacity")
+        try:
+            main = build_provisioner_main(APIServer(), cfg)
+            main.provisioner.reconcile()
+            assert main.provisioner.report()["pools"] == {}
+        finally:
+            set_flight_block("capacity", prev)
+
+    def test_its_role_and_its_container(self, on):
+        role = next(d for d in on if d["kind"] == "ClusterRole"
+                    and d["metadata"]["name"] == "nos-tpu-torch-provisioner")
+        verbs = {r["resources"][0]: set(r["verbs"]) for r in role["rules"]}
+        assert "delete" in verbs["nodes"] and "patch" in verbs["nodes"]
+        assert {"create", "patch"} <= verbs["configmaps"]
+        dep = containers(on)["nos-tpu-torch-provisioner"]
+        assert dep["command"] == ["python", "-m",
+                                  "nos_tpu_torch.cmd.provisioner",
+                                  "--config",
+                                  "/etc/nos-tpu-torch/config.yaml"]
+
+    @pytest.mark.parametrize("path,value,field", [
+        ("provisioner.pollIntervalSeconds", 0.5, "poll_interval_s"),
+        ("provisioner.scaleUpDeficitChips", 0.25, "scale_up_deficit_chips"),
+        ("provisioner.scaleDownIdleSeconds", 5.0, "scale_down_idle_s"),
+        ("provisioner.breakerThreshold", 2, "breaker_threshold"),
+        ("provisioner.leaderElection.enabled", False, "leader_election"),
+    ])
+    def test_a_value_reaches_its_config_field(self, path, value, field,
+                                              tmp_path):
+        got = configs(render_chart(CHART, context(**{
+            "provisioner.enabled": True, path: value})), tmp_path)
+        assert getattr(got["nos-tpu-torch-provisioner-config"], field) \
+            == value
+
 
 class TestCRDs:
     def test_the_quota_and_gang_kinds_in_the_port_s_group(self):

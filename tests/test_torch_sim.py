@@ -226,3 +226,61 @@ class TestArrivals:
         assert any(e[0] == "kill" for e in log)
         assert [e[1] for e in log if e[0] == "load"] == \
             [1.5 * i for i in range(1, 9)]
+
+
+class TestInjectors:
+    def test_two_injectors_compose_on_one_run(self):
+        """``tests/test_sim.py``'s case on both packages: an API chaos
+        window and two stockout windows on one engine, probed at the same
+        instants."""
+        import nos_tpu.sim.injectors as jax_injectors
+        import nos_tpu.testing.chaos as jax_chaos
+
+        import nos_tpu_torch.sim.injectors as port_injectors
+        import nos_tpu_torch.testing.chaos as port_chaos
+
+        sides = {"jax": (jax_chaos, jax_injectors, "ChaosCloudTPUAPI",
+                         "tpu-v5e"),
+                 "port": (port_chaos, port_injectors, "ChaosCloudGPUAPI",
+                          "nvidia-h100-80gb-hbm3")}
+
+        def story(E, _T, chaos_mod, inj, cloud_cls, mc):
+            api = chaos_mod.ChaosAPIServer(seed=5)
+            eng = E.SimEngine()
+            cloud = getattr(chaos_mod, cloud_cls)(5, clock=eng.now)
+            api_chaos = inj.APIChaosInjector(
+                api, [(2.0, 3.0)], conflict_rate=0.5, transient_rate=0.25)
+            cloud_chaos = inj.CloudChaosInjector(
+                cloud, [(2.0, 4.0), (8.0, 1.0)], machine_class=mc,
+                zone="z0")
+            inj.install_all(eng, [api_chaos, cloud_chaos])
+            probes = {}
+
+            def probe(t):
+                probes[t] = (api._conflict_rate, api._transient_rate,
+                             cloud._stockout_until.get((mc, "z0"), 0.0)
+                             > eng.now())
+
+            for t in (1.0, 2.5, 3.5, 4.5, 5.5, 8.5, 9.5):
+                eng.at(t, (lambda when=t: probe(when)),
+                       priority=E.PRIO_SAMPLE, label="probe")
+            eng.run()
+            return (probes, cloud_chaos.opened, cloud_chaos.closed,
+                    api.stats, eng.events_fired)
+
+        out = {name: story(*PACKAGES[name], *sides[name])
+               for name in ("jax", "port")}
+        assert out["jax"] == out["port"]
+        probes, opened, closed, _, _ = out["port"]
+        assert probes[1.0] == (0.0, 0.0, False)
+        assert probes[2.5] == (0.5, 0.25, True)
+        assert probes[3.5] == (0.5, 0.25, True)
+        assert probes[4.5] == (0.5, 0.25, True)
+        assert probes[5.5] == (0.0, 0.0, True)
+        assert probes[8.5] == (0.0, 0.0, True)
+        assert probes[9.5] == (0.0, 0.0, False)
+        assert (opened, closed) == (2, 2)
+
+    def test_the_injectors_are_exported(self):
+        assert {"APIChaosInjector", "CloudChaosInjector",
+                "install_all"} <= set(port_sim.__all__)
