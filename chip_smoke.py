@@ -125,7 +125,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    of a GPU of the applied config on which the reporter shows a used
    share of the pod's size, and the GB of its request; the smoke hands
    it over, standing in for the kubelet
-   plugin's Allocate (ROADMAP item 24b).  Then one ``python -m
+   plugin's Allocate (``device/deviceplugin``, which needs grpcio, absent
+   from the card's machine).  Then one ``python -m
    nos_tpu_torch.cmd.train`` child per bound pod, all three at once,
    under its grant with grant's configuration and nvcc hidden: each as
    grant (a) must, and the three step windows (first step's start to
@@ -480,6 +481,21 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    ``provisioning`` GPU-seconds (the holds live in the provisioner's
    process); the child's launches are the kernels line's ``capacity``
    path.
+18. sim: the simulator on the host, touching no GPU.  (a) ``python -m
+   nos_tpu_torch.sim --smoke`` twice, with ``--seed 1`` and with
+   ``--what-if hosts=+120`` (one day, 480 nodes of 8 GPUs), four child
+   processes at once; (b) then the default week, 10,000 nodes of 8 GPUs
+   over 7 days.  Each child must print one JSON line whose report, less
+   its wall time, hashes to ``SIM_DIGESTS`` (the JAX package's report of
+   the same arguments) with a conserving ledger, and exit as JAX's run
+   does (``SIM_RUNS``: seed 1's day fails the gate in both, two breaches
+   unexplained).  (c) In process, ``assemble_control_plane`` on JAX's
+   small scenario in the port's names (two 8-GPU H100 MIG nodes, a
+   quota, two pods of eight 7g.80gb; a node killed at 4 s),
+   event-styled and tick-styled: equal journals at
+   ``SIM_HARNESS_DIGEST``, both pods Running; the host ms of each tick
+   go on the line.  The kubelet device plugins are not run: the card's
+   machine has no grpcio.
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path, the gang, recovery, mains, elastic, serving and
@@ -2588,8 +2604,9 @@ def _grants(loop: _CardLoop, device: dict, names: list[str]) -> list[dict]:
     """Each named bound pod's grant: a GPU of the applied config on which
     the reporter shows a used share of the pod's size (one pod per used
     share), mapped to the card's UUID through discovery, and the GB of
-    its request.  The smoke stands in for the kubelet plugin's Allocate,
-    which would hand the pod this grant (ROADMAP item 24b)."""
+    its request.  The smoke stands in for the kubelet plugin's Allocate
+    (``device/deviceplugin``, which needs grpcio, absent from the card's
+    machine), which would hand the pod this grant."""
     from nos_tpu_torch.api import constants as C
 
     annots = loop.node().metadata.annotations
@@ -2694,8 +2711,9 @@ def phase_partition(main_loss0: float, device: dict, smi: str) -> dict:
     ``python -m nos_tpu_torch.cmd.train`` child per bound pod, all at
     once, each under the grant derived from the applied config and the
     pod's request, then the pods' release (``_card_release``).  The smoke
-    stands in for the kubelet plugin's Allocate (ROADMAP item 24b),
-    which would hand each pod its grant."""
+    stands in for the kubelet plugin's Allocate (``device/deviceplugin``,
+    which needs grpcio, absent from the card's machine), which would hand
+    each pod its grant."""
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -8152,6 +8170,187 @@ def phase_capacity(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The sim phase.  (a) and (b): ``python -m nos_tpu_torch.sim`` as child
+# processes (``WorstWeek.run`` resets the process's metrics registry,
+# which the earlier phases' counters live in, and the child's one JSON
+# line stays off this stdout).  Each report, less its wall time, must
+# hash (fleet.plan_digest) to the JAX package's report of the same
+# arguments on the CPU (tests/test_torch_sim.py), and exit as JAX's
+# does: seed 1's smoke day has 2 breaches that no injected fault
+# explains, so its gate fails in both packages.
+SIM_RUNS = {
+    "smoke": (["--smoke"], 0),
+    "smoke_again": (["--smoke"], 0),
+    "smoke_seed1": (["--smoke", "--seed", "1"], 1),
+    "smoke_what_if": (["--smoke", "--what-if", "hosts=+120"], 0),
+    "week": ([], 0),
+}
+SIM_DIGESTS = {
+    "smoke": "711273235e1fbb70d81ff9bd0dbc91d6714efe1c0d80a06eb9ae564df87c9b07",
+    "smoke_again":
+        "711273235e1fbb70d81ff9bd0dbc91d6714efe1c0d80a06eb9ae564df87c9b07",
+    "smoke_seed1":
+        "c86b21c3defedeb5e42ed9301b85981863fcd4ad389051c90d970440aefea42d",
+    "smoke_what_if":
+        "0643b0e378fa219fcafe5b3730a0241b599de670249e5b1d5630ba3b55a79eb4",
+    "week": "216bb211afae6d52ec126798c2b8a612cf71d01668fabcddb64b8a35653bfe7f",
+}
+SIM_TIMEOUT_S = 300
+# (c): the scenario harness in process (it leaves the registry alone) on
+# the JAX test's small story (tests/test_sim.py _small_scenario): two
+# 8-GPU H100 MIG nodes of one pool and a quota, two pods of eight
+# 7g.80gb each (a JAX 2x4 slice, its GB x 5), node pod-0-h1 killed at
+# 4 s; event-styled and tick-styled.  fleet.plan_digest of its journal
+# (under the plane's own journal) and pods: JAX's run, names mapped
+SIM_HARNESS_DIGEST = \
+    "3b5a39501a1765cdef3c4e6846024b037921acf9275093f8a427bba43fcd39d9"
+SIM_HARNESS_HORIZON_S = 8.0
+SIM_HARNESS_KILL_S = 4.0
+
+
+def sim_report_digest(report: dict) -> str:
+    """A worst-week report's digest, less its wall time."""
+    from nos_tpu_torch.testing.fleet import plan_digest
+
+    return plan_digest({k: v for k, v in report.items()
+                        if k not in ("wall_s", "sim_speedup")})
+
+
+def _sim_child(name: str) -> dict:
+    argv, want_rc = SIM_RUNS[name]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nos_tpu_torch.sim", *argv], cwd=ROOT,
+        env=_child_env(), capture_output=True, text=True,
+        timeout=SIM_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != want_rc:
+        fail(f"sim {name} ({' '.join(argv) or 'the default week'}) exited "
+             f"{proc.returncode}, JAX's exits {want_rc}:\n"
+             f"{proc.stderr[-4000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        fail(f"sim {name} printed {len(lines)} lines on stdout, not one")
+    report = json.loads(lines[0])
+    digest = sim_report_digest(report)
+    if digest != SIM_DIGESTS[name]:
+        fail(f"sim {name}: report digest {digest}, JAX's "
+             f"{SIM_DIGESTS[name]}")
+    if not report["ledger"]["conservation_ok"]:
+        fail(f"sim {name}: the ledger does not conserve")
+    return {"rc": proc.returncode, "process_s": wall,
+            "wall_s": report["wall_s"], "events": report["events"],
+            "events_per_wall_s": report["events"] / report["wall_s"],
+            "jobs": report["jobs"], "kills": report["kills"],
+            "utilization": report["utilization"],
+            "conservation_delta": report["ledger"]["conservation_delta"],
+            "breaches": len(report["breaches"]),
+            "unexplained_breaches": report["unexplained_breaches"],
+            "hosts": report["hosts"], "pools": report["pools"],
+            "what_if_delta": report.get("what_if", {}).get("delta")}
+
+
+def _sim_harness(style: str) -> dict:
+    """Phase 18 (c), one styling: ``event`` installs the plane's tick
+    source and the kill as a PRIO_FAULT one-shot; ``tick`` hides the kill
+    inside the tick body (the old idiom).  Returns the journal records
+    (plan ids left out), the pods' (name, phase, node) and the host ms of
+    each ``tick``."""
+    from nos_tpu_torch.kube.client import KIND_POD
+    from nos_tpu_torch.obs import scoped
+    from nos_tpu_torch.sim import (
+        PRIO_FAULT, PoolSpec, QuotaSpec, Scenario, SimEngine,
+        assemble_control_plane, compose)
+    from nos_tpu_torch.testing.factory import make_mig_pod
+
+    eng = SimEngine()
+    plane = assemble_control_plane(Scenario(
+        name=style, horizon_s=SIM_HARNESS_HORIZON_S, tick_s=0.25, seed=3,
+        pools=(PoolSpec("pod-0", hosts=2),),
+        quotas=(QuotaSpec("work", min_gb=1280.0, max_gb=5120.0),)), eng)
+    tick_ms: list[float] = []
+    plane_tick = plane.tick
+
+    def timed_tick() -> None:
+        t0 = time.perf_counter()
+        plane_tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+
+    plane.tick = timed_tick
+    with scoped(journal=plane.journal, ledger=plane.ledger):
+        for i in range(2):
+            plane.api.create(KIND_POD, make_mig_pod(
+                "7g.80gb", 8, name=f"job-{i}", namespace="work"))
+        if style == "event":
+            compose(*plane.sources()).install(eng)
+            eng.at(SIM_HARNESS_KILL_S, lambda: plane.kill_host("pod-0-h1"),
+                   priority=PRIO_FAULT, label="node-kill")
+        else:
+            killed = [False]
+
+            def tick_with_fault_check() -> None:
+                if not killed[0] and eng.now() >= SIM_HARNESS_KILL_S:
+                    killed[0] = True
+                    plane.kill_host("pod-0-h1")
+                timed_tick()
+
+            eng.tick_loop(0.25, tick_with_fault_check,
+                          until=SIM_HARNESS_HORIZON_S, label="ctl-tick")
+        eng.run(until=SIM_HARNESS_HORIZON_S)
+    journal = [[r.category, r.subject,
+                sorted([k, str(v)] for k, v in r.attrs.items()
+                       if k != "plan_id")]
+               for r in plane.journal.events()]
+    pods = sorted([p.metadata.name, p.status.phase, p.spec.node_name or ""]
+                  for p in plane.api.list(KIND_POD))
+    return {"journal": journal, "pods": pods, "tick_ms": tick_ms}
+
+
+def sim_harness_digest(run: dict) -> str:
+    from nos_tpu_torch.testing.fleet import plan_digest
+
+    return plan_digest({"journal": run["journal"], "pods": run["pods"]})
+
+
+def phase_sim(smi: str) -> None:
+    """Phase 18: the simulator on the card's host (no GPU is touched).
+    (a) the smoke day twice, at seed 1 and with ``--what-if hosts=+120``,
+    four children at once; (b) then the default week, 10,000 nodes x 8
+    GPUs over 7 days; each a ``python -m nos_tpu_torch.sim`` child at
+    JAX's digest and exit code.
+    (c) the scenario harness event-styled and tick-styled in process:
+    equal journals at JAX's digest, both pods Running.  There is no
+    check of the kubelet device plugins here: they need grpcio, which
+    the card's machine lacks."""
+    t0 = time.perf_counter()
+    # the smoke days at once (each child's start is mostly import torch),
+    # then the week alone
+    smokes = [name for name in SIM_RUNS if name != "week"]
+    with concurrent.futures.ThreadPoolExecutor(len(smokes)) as pool:
+        runs = dict(zip(smokes, pool.map(_sim_child, smokes)))
+    runs["week"] = _sim_child("week")
+    harness = {style: _sim_harness(style) for style in ("event", "tick")}
+    ev, tk = harness["event"], harness["tick"]
+    if (ev["journal"], ev["pods"]) != (tk["journal"], tk["pods"]):
+        fail("the harness's event- and tick-styled runs differ:\n"
+             f"{ev['journal']}\n{tk['journal']}")
+    digest = sim_harness_digest(ev)
+    if digest != SIM_HARNESS_DIGEST:
+        fail(f"the harness's journal digest {digest}, JAX's "
+             f"{SIM_HARNESS_DIGEST}: {ev['journal']} {ev['pods']}")
+    if [p[1] for p in ev["pods"]] != ["Running", "Running"]:
+        fail(f"the harness's pods are not Running: {ev['pods']}")
+    ticks = ev["tick_ms"] + tk["tick_ms"]
+    emit({"phase": "sim", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "runs": runs,
+          "harness": {"journal_records": len(ev["journal"]),
+                      "pods": ev["pods"], "digest": digest,
+                      "ticks": len(ticks),
+                      "tick_ms_median": statistics.median(ticks),
+                      "tick_ms_max": max(ticks)},
+          "kubelet_plugins": "not run: the card's machine has no grpcio"})
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -8182,6 +8381,7 @@ def main() -> int:
         elastic = phase_elastic(main_loss0, device, smi)
         serving = phase_serving(main_loss0, device, smi)
         capacity = phase_capacity(main_loss0, device, smi)
+        phase_sim(smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
              "elastic": elastic, "serving": serving, "capacity": capacity}

@@ -12,11 +12,14 @@ that is not ``mps`` or ``hybrid`` as gpuagent refuses a MIG node
 card memory beside the workloads.  On the in-memory API the agent
 registers its own node, with the GPUs it observed; over a kubeconfig a
 missing node is a ``ConfigError`` (the kubelet has not registered it,
-or ``--node`` is wrong).  The kubelet device plugins that would
-advertise the shares to the kubelet are not in the port yet (ROADMAP
-tag 24b): with a kubeconfig and the kubelet's device-plugin directory
-missing the agent warns, as the JAX main does; with the directory
-present it refuses to start.
+or ``--node`` is wrong).  Over a kubeconfig, where the kubelet's
+device-plugin directory exists, the main also runs a
+``TimesharePluginManager`` (``device/deviceplugin``) on the report
+interval: one gRPC device plugin per MPS share size, whose replicas
+follow the node's allocatable and whose Allocate hands a pod its memory
+grant; a shutdown hook stops them.  Where the directory is missing the
+agent warns and runs without them, as the JAX main does.  The plugins
+need ``grpcio`` and ``protobuf``, which are imported only then.
 """
 
 from __future__ import annotations
@@ -64,21 +67,31 @@ def build_chipagent_main(api: APIServer, cfg: AgentConfig,
         kw = {} if gpus is None else {"gpus": gpus}
         api.create(KIND_NODE, make_gpu_node(
             cfg.node_name, model=model, partitioning=MPS_KIND, **kw))
-    if cfg.kubeconfig:
-        if os.path.isdir(plugin.PLUGINS_DIR):
-            raise NotImplementedError(
-                f"the kubelet device-plugins dir {plugin.PLUGINS_DIR} "
-                f"exists, but the timeshare device plugins that would "
-                f"serve it are not in the port yet (ROADMAP tag 24b)")
-        logger.warning(
-            "kubelet device-plugins dir %s missing: timeshare profiles "
-            "will not be advertised", plugin.PLUGINS_DIR)
     main = main or Main(f"nos-tpu-chipagent-{cfg.node_name}",
                         cfg.health_probe_addr, api=api)
     agent = ChipAgent(api, cfg.node_name, heartbeat=cfg.heartbeat)
     agent.start()  # raises on a MIG node (the gpuagent guard)
     main.agent = agent
     main.add_loop("chipagent", agent.tick, cfg.report_interval_s)
+    if cfg.kubeconfig:
+        # on a node: advertise the MPS shares to the kubelet as device
+        # plugin replicas whose Allocate hands each pod its memory grant
+        # (device/workload_env.py enforces it)
+        if os.path.isdir(plugin.PLUGINS_DIR):
+            from nos_tpu_torch.device.deviceplugin import (
+                TimesharePluginManager)
+
+            manager = TimesharePluginManager(
+                api, cfg.node_name, plugins_dir=plugin.PLUGINS_DIR,
+                kubelet_socket=os.path.join(plugin.PLUGINS_DIR,
+                                            "kubelet.sock"))
+            main.add_loop("timeshare-plugins", manager.sync,
+                          cfg.report_interval_s)
+            main.add_shutdown_hook(manager.stop)
+        else:
+            logger.warning(
+                "kubelet device-plugins dir %s missing: timeshare "
+                "profiles will not be advertised", plugin.PLUGINS_DIR)
     return main
 
 

@@ -12,11 +12,16 @@ reads MIG devices but cannot create or destroy them until ROADMAP tag
 24a), ``cpu`` the stateful fake (``FakeGpuRuntime``).  ``model: auto``
 takes the model and the GPU count from that runtime.  On the in-memory
 API the agent registers its own node; over a kubeconfig a missing node
-is a ``ConfigError``.  Over a kubeconfig the used devices would come
-from the kubelet's pod-resources socket: without the socket the agent
-refuses to start (an empty used set would make the startup cleanup
-delete instances that back running pods), and with it too, since the
-pod-resources client is not in the port yet (ROADMAP tag 24b).
+is a ``ConfigError``.  Over a kubeconfig the used devices come from
+the kubelet's pod-resources socket (``KubeletPodResourcesClient``,
+``device/podresources``): without the socket the agent refuses to start
+(an empty used set would make the startup cleanup delete instances that
+back running pods).  Where the kubelet's device-plugin directory exists
+a ``DevicePluginManager`` (``device/deviceplugin``) advertises the
+carved MIG devices to the kubelet, synced on every actuation's refresh,
+and a shutdown hook stops it; where it is missing the agent warns and
+runs without it.  Both need ``grpcio`` and ``protobuf``, which are
+imported only then.
 """
 
 from __future__ import annotations
@@ -67,20 +72,37 @@ def build_agent_main(api: APIServer, cfg: AgentConfig,
             cfg.node_name, model=model, partitioning=MIG_KIND, **kw))
     # the used devices follow the same switch as the API (kubeconfig):
     # the kubelet's pod-resources socket on a cluster, the fake in memory
+    plugin_manager = None
     if cfg.kubeconfig:
         if not os.path.exists(plugin.POD_RESOURCES_SOCKET):
             raise ConfigError(
                 f"kubeconfig is set but the kubelet pod-resources socket "
                 f"{plugin.POD_RESOURCES_SOCKET} does not exist — mount "
                 f"/var/lib/kubelet/pod-resources into the agent pod")
-        raise NotImplementedError(
-            f"the kubelet pod-resources socket "
-            f"{plugin.POD_RESOURCES_SOCKET} exists, but the client that "
-            f"reads it is not in the port yet (ROADMAP tag 24b)")
+        from nos_tpu_torch.device.podresources import (
+            KubeletPodResourcesClient)
+
+        pod_resources = KubeletPodResourcesClient(plugin.POD_RESOURCES_SOCKET)
+        if os.path.isdir(plugin.PLUGINS_DIR):
+            from nos_tpu_torch.device.deviceplugin import DevicePluginManager
+
+            plugin_manager = DevicePluginManager(
+                runtime, plugins_dir=plugin.PLUGINS_DIR,
+                kubelet_socket=os.path.join(plugin.PLUGINS_DIR,
+                                            "kubelet.sock"))
+        else:
+            logger.warning(
+                "kubelet device-plugins dir %s missing: MIG devices will "
+                "not be advertised to the kubelet", plugin.PLUGINS_DIR)
+    else:
+        pod_resources = FakePodResources()
     main = main or Main(f"nos-tpu-sliceagent-{cfg.node_name}",
                         cfg.health_probe_addr, api=api)
-    agent = SliceAgent(api, cfg.node_name, runtime, FakePodResources(),
+    agent = SliceAgent(api, cfg.node_name, runtime, pod_resources,
+                       plugin_manager=plugin_manager,
                        heartbeat=cfg.heartbeat)
+    if plugin_manager is not None:
+        main.add_shutdown_hook(plugin_manager.stop)
     agent.start()  # startup cleanup and a first report (migagent.go:190-199)
     main.agent = agent
     main.add_loop("sliceagent", agent.tick, cfg.report_interval_s)

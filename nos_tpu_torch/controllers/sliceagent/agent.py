@@ -27,13 +27,16 @@ class SliceAgent:
     def __init__(self, api: APIServer, node_name: str,
                  runtime: GpuRuntimeClient,
                  pod_resources: PodResourcesClient,
-                 heartbeat: bool = True) -> None:
+                 plugin_manager=None, heartbeat: bool = True) -> None:
         self.api = api
         self.node_name = node_name
         self.runtime = runtime
         self.client = SliceDeviceClient(runtime, pod_resources)
         self.shared = SharedState()
-        self.plugin = DevicePluginClient(api, node_name, runtime)
+        # plugin_manager: the kubelet-facing gRPC plugins on a real node
+        # (device/deviceplugin.DevicePluginManager), synced on refresh
+        self.plugin = DevicePluginClient(api, node_name, runtime,
+                                         manager=plugin_manager)
         self.reporter = SliceReporter(api, node_name, self.client,
                                       self.shared, heartbeat=heartbeat)
         self.actuator = SliceActuator(api, node_name, self.client,

@@ -6,9 +6,10 @@ pod and waiting for its recreation (pkg/gpu/client.go:37-135).  Here
 ``refresh`` recomputes the node's ``nvidia.com/mig-<profile>``
 allocatable and capacity straight from the runtime's device list and
 stamps a generation annotation, a readiness signal in place of the
-reference's blind sleep.  The kubelet-facing gRPC plugin manager that
-the JAX client can also sync is left out with the device plugins
-(ROADMAP tag 24b).
+reference's blind sleep.  On a real node the same refresh first syncs
+the kubelet-facing gRPC plugins (``device/deviceplugin``'s
+``DevicePluginManager``), so the kubelet and the node object see one
+inventory.
 """
 
 from __future__ import annotations
@@ -22,23 +23,28 @@ from nos_tpu_torch.utils.retry import retry_on_conflict
 from .gpuclient import GpuRuntimeClient
 
 # Where a node's kubelet keeps its device-plugin sockets and its
-# pod-resources socket.  The node agents' mains look for them: the gRPC
-# plugin manager and the pod-resources client that serve them are not in
-# the port yet (ROADMAP tag 24b).
+# pod-resources socket, the paths of ``device/deviceplugin`` and
+# ``device/podresources``, kept here so a main can look for them without
+# importing grpc.
 PLUGINS_DIR = "/var/lib/kubelet/device-plugins"
 POD_RESOURCES_SOCKET = "/var/lib/kubelet/pod-resources/kubelet.sock"
 
 
 class DevicePluginClient:
     def __init__(self, api: APIServer, node_name: str,
-                 runtime: GpuRuntimeClient) -> None:
+                 runtime: GpuRuntimeClient, manager=None) -> None:
         self._api = api
         self._node_name = node_name
         self._runtime = runtime
+        # the kubelet-facing gRPC plugin manager
+        # (device/deviceplugin.DevicePluginManager) on a real node
+        self._manager = manager
 
     def refresh(self) -> int:
         """Re-advertise the MIG resources from the carved devices;
         returns the new plugin generation."""
+        if self._manager is not None:
+            self._manager.sync()
         counts: dict[str, float] = {}
         for d in self._runtime.list_devices():
             counts[d.resource_name] = counts.get(d.resource_name, 0.0) + 1.0

@@ -11,7 +11,7 @@ config's ``nvidia.com/gpu-<N>gb`` totals as the node's allocatable and
 capacity, and stamps the applied key and a generation counter: the
 readiness signal that takes the place of the reference's blind
 propagation sleep.  The kubelet-facing half, which hands a pod its share
-at Allocate, comes with the device plugins (ROADMAP item 24b).
+at Allocate, is ``device/deviceplugin``'s ``TimeshareReplicaPlugin``.
 """
 
 from __future__ import annotations

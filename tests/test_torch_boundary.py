@@ -126,11 +126,25 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "serving.autoscaler", "serving.trace",
                    "cmd.autoscaler", "capacity", "capacity.cloudapi",
                    "capacity.provisioner", "cmd.provisioner",
-                   "sim.injectors"):
+                   "sim.injectors", "sim.report", "sim.scenario",
+                   "sim.worstweek", "sim.__main__", "device.deviceplugin",
+                   "device.deviceplugin.deviceplugin_pb2",
+                   "device.podresources",
+                   "device.podresources.podresources_pb2"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.proto")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_proto_imports_nothing(path):
+    # the kubelet's wire packages, self-contained: no proto of the JAX
+    # package (or any other) is imported
+    text = path.read_text()
+    assert not re.search(r"^\s*import\b", text, re.M), path
+    assert re.search(r"^package (v1beta1|v1);$", text, re.M), path
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -14,8 +14,10 @@
 - each main's assembly beside JAX's on twin in-memory clusters: the
   controllers bound and the knobs passed per partitioning kind, binding
   only on gaining the lease, the operator's resync, the agents' node
-  rules, the 24b and pod-resources refusals, ``collect``'s payload and
-  the exporter's exits;
+  rules, the kubelet paths over a kubeconfig (the device-plugin
+  managers where the plugin directory exists, a warning where it does
+  not, the pod-resources client or JAX's refusal without its socket),
+  ``collect``'s payload and the exporter's exits;
 - ``tests/test_cmd.py``'s TestProcessModelEndToEnd: the threaded control
   plane converges for ``mps`` and ``mig`` under this module's
   ``lock_discipline`` (the port's ``LockGraph``), and the ``--sim`` demo
@@ -29,9 +31,11 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
+import tempfile
 import threading
 import time
 
@@ -423,6 +427,40 @@ def _controller_view(ctl) -> dict:
             "recovery": ctl._recovery is not None}
 
 
+@contextlib.contextmanager
+def _pod_resources_stub():
+    """A kubelet PodResourcesLister stub on a unix socket in a short
+    temporary directory (a socket's path is capped at 107 bytes): one
+    pod holding one MIG device."""
+    import concurrent.futures
+
+    import grpc
+
+    from nos_tpu_torch.device.podresources import podresources_pb2 as pb
+
+    resp = pb.ListPodResourcesResponse(pod_resources=[pb.PodResources(
+        name="w", namespace="default", containers=[pb.ContainerResources(
+            name="c", devices=[pb.ContainerDevices(
+                resource_name="nvidia.com/mig-3g.40gb",
+                device_ids=["MIG-aaaaaaaa-0000-4000-8000-000000000001"])])])])
+    server = grpc.server(concurrent.futures.ThreadPoolExecutor(max_workers=2))
+    server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
+        "v1.PodResourcesLister",
+        {"List": grpc.unary_unary_rpc_method_handler(
+            lambda req, ctx: resp,
+            request_deserializer=pb.ListPodResourcesRequest.FromString,
+            response_serializer=pb.ListPodResourcesResponse
+            .SerializeToString)}),))
+    with tempfile.TemporaryDirectory(prefix="pr") as d:
+        sock = f"{d}/kubelet.sock"
+        server.add_insecure_port(f"unix://{sock}")
+        server.start()
+        try:
+            yield sock
+        finally:
+            server.stop(0)
+
+
 def _loops(main) -> list:
     return sorted((loop.name, loop._interval) for loop in main._loops)
 
@@ -795,9 +833,11 @@ class TestAgentMains:
     def test_chipagent_device_plugins_dir(self, plugins_dir, stub_client,
                                           tmp_path, monkeypatch, caplog):
         """With a kubeconfig: a missing device-plugins dir warns as JAX
-        does and the agent runs; a present one is refused, naming 24b."""
+        does and the agent runs; a present one adds the timeshare plugin
+        manager's sync loop and its shutdown hook, as JAX's main does."""
         from nos_tpu_torch.cmd import chipagent
         from nos_tpu_torch.device import plugin
+        from nos_tpu_torch.device.deviceplugin import TimesharePluginManager
 
         stub, client = stub_client
         self._rest_node(client, C.MPS_KIND)
@@ -807,41 +847,96 @@ class TestAgentMains:
         monkeypatch.setattr(plugin, "PLUGINS_DIR", str(path))
         cfg = pconfig.AgentConfig(node_name="n-0",
                                   kubeconfig=self._kubeconfig(stub, tmp_path))
-        if plugins_dir:
-            with pytest.raises(NotImplementedError, match="24b"):
-                chipagent.build_chipagent_main(client, cfg)
-            return
         with caplog.at_level(logging.WARNING):
             main = chipagent.build_chipagent_main(client, cfg)
-        assert any("device-plugins dir" in r.getMessage()
-                   and "will not be advertised" in r.getMessage()
-                   for r in caplog.records)
-        assert _loops(main) == [("chipagent", 10.0)]
+        warned = any("device-plugins dir" in r.getMessage()
+                     and "will not be advertised" in r.getMessage()
+                     for r in caplog.records)
+        if not plugins_dir:
+            assert warned
+            assert _loops(main) == [("chipagent", 10.0)]
+            assert main._shutdown_hooks == []
+            return
+        assert not warned
+        assert _loops(main) == [("chipagent", 10.0),
+                                ("timeshare-plugins", 10.0)]
+        (hook,) = main._shutdown_hooks
+        manager = hook.__self__
+        assert isinstance(manager, TimesharePluginManager)
+        assert manager._plugins_dir == str(path)
+        assert manager._kubelet_socket == str(path / "kubelet.sock")
 
     @pytest.mark.parametrize("socket", [False, True],
                              ids=["missing", "present"])
     def test_sliceagent_pod_resources_socket(self, socket, stub_client,
                                              tmp_path, monkeypatch):
         """With a kubeconfig: no pod-resources socket is JAX's
-        ConfigError; a socket is refused, naming 24b."""
+        ConfigError; a socket is read through the kubelet client, whose
+        used devices the startup cleanup keeps."""
         from nos_tpu_torch.cmd import sliceagent
         from nos_tpu_torch.device import plugin
+        from nos_tpu_torch.device.podresources import (
+            KubeletPodResourcesClient)
 
         stub, client = stub_client
         self._rest_node(client, C.MIG_KIND)
-        path = tmp_path / "kubelet.sock"
-        if socket:
-            path.write_text("")
-        monkeypatch.setattr(plugin, "POD_RESOURCES_SOCKET", str(path))
+        monkeypatch.setattr(plugin, "PLUGINS_DIR", str(tmp_path / "none"))
         cfg = pconfig.AgentConfig(node_name="n-0",
                                   kubeconfig=self._kubeconfig(stub, tmp_path))
-        if socket:
-            with pytest.raises(NotImplementedError, match="24b"):
-                sliceagent.build_agent_main(client, cfg, device="cpu")
-        else:
+        if not socket:
+            monkeypatch.setattr(plugin, "POD_RESOURCES_SOCKET",
+                                str(tmp_path / "kubelet.sock"))
             with pytest.raises(pconfig.ConfigError,
                                match="pod-resources socket"):
                 sliceagent.build_agent_main(client, cfg, device="cpu")
+            return
+        with _pod_resources_stub() as sock:
+            monkeypatch.setattr(plugin, "POD_RESOURCES_SOCKET", sock)
+            main = sliceagent.build_agent_main(client, cfg, device="cpu")
+            assert isinstance(main.agent.client.pod_resources,
+                              KubeletPodResourcesClient)
+            assert main.agent.client.pod_resources.used_device_ids() == {
+                "MIG-aaaaaaaa-0000-4000-8000-000000000001"}
+            main.agent.client.pod_resources.close()
+        assert _loops(main) == [("sliceagent", 10.0)]
+
+    @pytest.mark.parametrize("plugins_dir", [False, True],
+                             ids=["missing", "present"])
+    def test_sliceagent_device_plugins_dir(self, plugins_dir, stub_client,
+                                           tmp_path, monkeypatch, caplog):
+        """With a kubeconfig and the pod-resources socket: a missing
+        device-plugins dir warns and the agent runs without the kubelet
+        plugins; a present one gives its refresh a DevicePluginManager
+        and the main a shutdown hook that stops it."""
+        from nos_tpu_torch.cmd import sliceagent
+        from nos_tpu_torch.device import plugin
+        from nos_tpu_torch.device.deviceplugin import DevicePluginManager
+
+        stub, client = stub_client
+        self._rest_node(client, C.MIG_KIND)
+        path = tmp_path / "device-plugins"
+        if plugins_dir:
+            path.mkdir()
+        monkeypatch.setattr(plugin, "PLUGINS_DIR", str(path))
+        cfg = pconfig.AgentConfig(node_name="n-0",
+                                  kubeconfig=self._kubeconfig(stub, tmp_path))
+        with _pod_resources_stub() as sock, \
+                caplog.at_level(logging.WARNING):
+            monkeypatch.setattr(plugin, "POD_RESOURCES_SOCKET", sock)
+            main = sliceagent.build_agent_main(client, cfg, device="cpu")
+            main.agent.client.pod_resources.close()
+        warned = any("device-plugins dir" in r.getMessage()
+                     and "not be advertised" in r.getMessage()
+                     for r in caplog.records)
+        manager = main.agent.plugin._manager
+        if not plugins_dir:
+            assert warned and manager is None
+            assert main._shutdown_hooks == []
+            return
+        assert not warned and isinstance(manager, DevicePluginManager)
+        assert main._shutdown_hooks == [manager.stop]
+        assert manager._plugins_dir == str(path)
+        assert manager._kubelet_socket == str(path / "kubelet.sock")
 
     def test_jax_refuses_a_missing_socket_too(self, tmp_path, monkeypatch):
         from nos_tpu.cmd.sliceagent import build_agent_main as jbuild

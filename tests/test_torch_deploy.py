@@ -251,6 +251,47 @@ class TestValues:
                     "secretName": "nos-kubeconfig"}} in vols
 
 
+class TestKubeletMounts:
+    """On a cluster the agents reach the kubelet's sockets: the chip
+    agent its device-plugin directory, the MIG agent that and its
+    pod-resources socket, each mounted from the node at the path the
+    mains look for (``device/plugin.py``)."""
+
+    WANT = {"nos-tpu-torch-chipagent": ("device-plugins",),
+            "nos-tpu-torch-sliceagent": ("device-plugins", "pod-resources")}
+
+    @staticmethod
+    def _mounts(docs) -> dict:
+        out = {}
+        for doc in docs:
+            if doc["kind"] != "DaemonSet":
+                continue
+            spec = doc["spec"]["template"]["spec"]
+            (c,) = spec["containers"]
+            host = {v["name"]: v["hostPath"] for v in spec["volumes"]
+                    if "hostPath" in v}
+            out[doc["metadata"]["name"]] = {
+                m["name"]: (m["mountPath"], host[m["name"]])
+                for m in c["volumeMounts"] if m["name"] in host}
+        return out
+
+    def test_mounted_with_a_kubeconfig(self):
+        from nos_tpu_torch.device import plugin
+
+        docs = render_chart(CHART, context(**{
+            "kubeconfig.secret": "nos-kubeconfig"}))
+        paths = {"device-plugins": plugin.PLUGINS_DIR,
+                 "pod-resources": str(pathlib.PurePosixPath(
+                     plugin.POD_RESOURCES_SOCKET).parent)}
+        assert self._mounts(docs) == {
+            name: {v: (paths[v], {"path": paths[v], "type": "Directory"})
+                   for v in volumes}
+            for name, volumes in self.WANT.items()}
+
+    def test_not_mounted_in_memory(self, docs):
+        assert self._mounts(docs) == {name: {} for name in self.WANT}
+
+
 class TestAutoscalerChart:
     """The autoscaler's templates (the JAX chart's
     ``templates/autoscaler/``, ported): rendered, loaded through the
