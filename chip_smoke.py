@@ -8351,6 +8351,230 @@ def phase_sim(smi: str) -> None:
           "kubelet_plugins": "not run: the card's machine has no grpcio"})
 
 
+# -- phase 19: fleet (host only) ---------------------------------------------
+
+# the digest of phase 19 (a)'s plan at full size (fleet.plan_digest of
+# its desired state and journal), from the same plan on the CPU
+FLEET_PLAN_DIGEST = \
+    "2cd17e30ebda0677260d158c9fd2796785b03b86c62f5b1eac81dfae5f4efe09"
+FLEET_PLAN_WORKERS = (1, 4)
+FLEET_PLAN_TIMED = 3
+FLEET_CYCLE_WARMUP = 5           # the first of them cold
+FLEET_CYCLE_STEADY = 200
+FLEET_HANDSHAKE_S = 30.0
+
+
+def _scale_fleet_plans(domains: int | None = None,
+                       hosts: int | None = None,
+                       timed: int = FLEET_PLAN_TIMED,
+                       ways: tuple[bool, ...] = (True, False)) -> dict:
+    """Phase 19 (a): ``fleet.scale_plan_spec`` planned by the parallel
+    planner at each of FLEET_PLAN_WORKERS, with the native fit screen and
+    without it (``native_prescreen=False``): one untimed plan and
+    ``timed`` timed each, host ms.  Every plan's desired state and
+    journal must be the first's, and the screen must have failed classes
+    where it ran (``prescreen_fails``, summed over the shards' spans).
+    ``ways`` orders the runs with the screen (True) and without."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.obs import journal as J
+    from nos_tpu_torch.obs import trace
+    from nos_tpu_torch.partitioning.core import (
+        GeometryPlanner, ParallelGeometryPlanner)
+    from nos_tpu_torch.partitioning.slicepart import (
+        SlicePartitionCalculator, SliceProfileCalculator, SliceSnapshotTaker)
+    from nos_tpu_torch.scheduler.framework import Framework
+    from nos_tpu_torch.testing import fleet
+
+    spec = fleet.scale_plan_spec(
+        fleet.SCALE_DOMAINS if domains is None else domains,
+        fleet.SCALE_HOSTS_PER_DOMAIN if hosts is None else hosts)
+    state = fleet.build_cluster(spec)
+    pending = fleet.build_pending(spec)
+    out: dict = {"nodes": len(spec["nodes"]), "pending": len(pending)}
+    first = None
+    for native in ways:
+        for workers in FLEET_PLAN_WORKERS:
+            planner = ParallelGeometryPlanner(
+                lambda: GeometryPlanner(
+                    Framework(), SliceProfileCalculator(),
+                    SlicePartitionCalculator(), native_prescreen=native),
+                SliceProfileCalculator(), kind=C.MIG_KIND,
+                max_workers=workers, min_shard_hosts=0)
+            ms, fails = [], []
+            try:
+                for _ in range(1 + timed):
+                    snap = SliceSnapshotTaker().take_snapshot(state)
+                    journal = J.DecisionJournal(maxlen=1 << 16)
+                    tracer = trace.Tracer()
+                    prev_j = J.set_journal(journal)
+                    prev_t = trace.set_tracer(tracer)
+                    try:
+                        t0 = time.perf_counter()
+                        desired = planner.plan(snap, pending)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        trace.set_tracer(prev_t)
+                        J.set_journal(prev_j)
+                    fails.append(sum(sp["counts"].get("prescreen_fails", 0)
+                                     for sp in tracer.ring.dump()))
+                    summary = fleet.parallel_plan_summary(desired, [
+                        (r.category, r.subject, r.attrs)
+                        for r in journal.events()
+                        if r.category in (J.PLAN_NODE_COMMITTED,
+                                          J.PLAN_NODE_REVERTED,
+                                          J.PLAN_SHARD_MERGED)])
+                    first = first or summary
+                    if summary != first:
+                        fail(f"the fleet's plan at {workers} workers, "
+                             f"screen {'on' if native else 'off'}, differs "
+                             f"from the first plan")
+            finally:
+                planner.close()
+            if native and not min(fails) > 0:
+                fail(f"the native screen failed no class at {workers} "
+                     f"workers: prescreen_fails {fails}")
+            if not native and any(fails):
+                fail(f"the screen ran with native_prescreen=False: {fails}")
+            out[f"{'on' if native else 'off'}_workers_{workers}"] = {
+                "plan_ms_median": statistics.median(ms[1:]),
+                "plan_ms_max": max(ms[1:]), "plan_ms_untimed": ms[0],
+                "plan_ms": ms[1:], "prescreen_fails": fails[0]}
+    out["digest"] = fleet.plan_digest(first)
+    out["nodes_carved"] = sum(r[0] == J.PLAN_NODE_COMMITTED
+                              for r in first["journal"])
+    return out
+
+
+def _fleet_cycle_run(native: bool, nodes: int, bound: int,
+                     steady: int) -> dict:
+    """One run of phase 19 (b): ``build_scheduler`` over
+    ``fleet.scale_cycle_api``, a full collection (the fleet's build
+    leaves garbage a later cycle would pay for), FLEET_CYCLE_WARMUP
+    cycles (the first cold), ``steady`` timed cycles (the collector
+    frozen, as bench_fleet.py does), then ``invalidate_all()`` and one
+    backstop cycle.  Without ``native`` the scheduler's screen is dropped and its
+    choose bound to the Python argmin, as a caller turns them off."""
+    import gc
+
+    from nos_tpu_torch.cmd.assembly import build_scheduler
+    from nos_tpu_torch.kube.client import KIND_POD
+    from nos_tpu_torch.obs import journal as J
+    from nos_tpu_torch.obs import trace
+    from nos_tpu_torch.testing import fleet
+
+    api = fleet.scale_cycle_api(nodes, bound)
+    sched = build_scheduler(api)
+    if not native:
+        sched._prescreen = None
+        sched._native_choose = lambda pod, nis: None
+    journal = J.DecisionJournal(maxlen=1 << 16)
+    tracer = trace.Tracer()
+    prev_j = J.set_journal(journal)
+    prev_t = trace.set_tracer(tracer)
+
+    def cycle() -> float:
+        t0 = time.perf_counter()
+        sched.run_cycle()
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        gc.collect()
+        warm = [cycle() for _ in range(FLEET_CYCLE_WARMUP)]
+        gc.collect()
+        gc.freeze()
+        try:
+            times = [cycle() for _ in range(steady)]
+        finally:
+            gc.unfreeze()
+        sched._cache.invalidate_all()
+        backstop = cycle()
+    finally:
+        trace.set_tracer(prev_t)
+        J.set_journal(prev_j)
+        sched.close()
+    fails = sum(sp["counts"].get("prescreen_fails", 0)
+                for sp in tracer.ring.dump()
+                if sp["name"] == "scheduler.run_cycle")
+    pods = sorted((p.key, p.spec.node_name, p.status.phase)
+                  for p in api.list(KIND_POD))
+    times.sort()
+    return {"cold_ms": warm[0], "warm_ms": warm[1:],
+            "steady_p50_ms": statistics.median(times),
+            "steady_p99_ms": times[min(len(times) - 1,
+                                       int(0.99 * len(times)))],
+            "steady_max_ms": times[-1], "backstop_ms": backstop,
+            "prescreen_fails": fails,
+            "pods": pods,
+            "journal": [(r.category, r.subject, r.attrs)
+                        for r in journal.events()]}
+
+
+def _fleet_cycles(nodes: int | None = None, bound: int | None = None,
+                  steady: int = FLEET_CYCLE_STEADY) -> dict:
+    """Phase 19 (b): the scale tier's cycle with the native screen and
+    choose and without them; the pods' bindings and the journal must be
+    equal, and the screen must have failed the residents somewhere."""
+    from nos_tpu_torch.testing import fleet
+
+    nodes = fleet.SCALE_DOMAINS * fleet.SCALE_HOSTS_PER_DOMAIN \
+        if nodes is None else nodes
+    bound = fleet.SCALE_BOUND if bound is None else bound
+    # one domain's worth first, both ways, untimed: the process's first
+    # scheduler cycle pays first-use costs (imports inside functions,
+    # first calls) that would land on whichever run went first
+    for native in (True, False):
+        _fleet_cycle_run(native, fleet.SCALE_HOSTS_PER_DOMAIN,
+                         fleet.SCALE_HOSTS_PER_DOMAIN * 8, 1)
+    runs = {"on": _fleet_cycle_run(True, nodes, bound, steady),
+            "off": _fleet_cycle_run(False, nodes, bound, steady)}
+    on, off = runs["on"], runs["off"]
+    if on["pods"] != off["pods"]:
+        fail("the scale fleet's bindings differ with the screen and without")
+    if on["journal"] != off["journal"]:
+        fail("the scale fleet's journal differs with the screen and without")
+    if not on["journal"]:
+        fail("the scale fleet journaled nothing")
+    out: dict = {"nodes": nodes, "bound": bound,
+                 "residents": sum(c for _, c in fleet.SCALE_RESIDENTS),
+                 "journal_records": len(on["journal"])}
+    for name, run in runs.items():
+        out[name] = {k: v for k, v in run.items()
+                     if k not in ("pods", "journal")}
+    return out
+
+
+def phase_fleet(smi: str) -> dict:
+    """Phase 19: the native scheduling shim on the card's host (no GPU
+    is touched): the library's build (``native/gpu_shim.cc``, g++ at
+    first use) and the GIL handshake from two threads, then (a) the
+    1024-node plan and (b) the 1024-node scheduler cycle, each with the
+    native paths and without them, to the same decisions."""
+    from nos_tpu_torch.device import native
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    report = native.build_report()      # built at first use
+    handshake = native.gil_handshake(FLEET_HANDSHAKE_S)
+    if handshake != [1, 1]:
+        fail(f"the GIL handshake gave {handshake}: the binding holds the "
+             f"GIL")
+    plans = _scale_fleet_plans()
+    if plans["digest"] != FLEET_PLAN_DIGEST:
+        fail(f"the fleet plan's digest {plans['digest']} is not the pinned "
+             f"{FLEET_PLAN_DIGEST}")
+    cycles = _fleet_cycles()
+    line = {"phase": "fleet", "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t0,
+            "shim": {"compiler": _build.host_compiler_version(),
+                     "cached": report["cached"],
+                     "build_s": report["seconds"],
+                     "library": str(report["path"].relative_to(ROOT)),
+                     "handshake": handshake},
+            "plan": plans, "cycle": cycles}
+    emit(line)
+    return line
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -8382,6 +8606,7 @@ def main() -> int:
         serving = phase_serving(main_loss0, device, smi)
         capacity = phase_capacity(main_loss0, device, smi)
         phase_sim(smi)
+        phase_fleet(smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
              "elastic": elastic, "serving": serving, "capacity": capacity}

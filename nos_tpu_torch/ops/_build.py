@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host C++ shim.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Nothing is
@@ -7,6 +7,10 @@ compiles what is missing.  Libraries go to ``nos_tpu_torch/_kernels/``
 under a name that carries a hash of the sources and flags, so an edited
 source is never served by a stale library.  An exclusive ``flock`` on
 ``_kernels/build.lock`` keeps two processes from building at once.
+
+``build_host(name)`` compiles ``nos_tpu_torch/native/<name>.cc``, host
+code with no device part, with the host compiler (``$CXX``, else
+``g++``) the same way: hashed name, same directory, same lock.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent.parent / "native"
 KERNEL_DIR = Path(__file__).resolve().parent.parent / "_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -40,12 +46,12 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _digest(paths) -> str:
+def _digest(paths, flags=NVCC_FLAGS) -> str:
     h = hashlib.sha256()
     for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
@@ -180,3 +186,52 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++``."""
+    return os.environ.get("CXX") or "g++"
+
+
+def host_library_path(name: str) -> Path:
+    src = NATIVE / f"{name}.cc"
+    if not src.is_file():
+        raise FileNotFoundError(f"no host source {src}")
+    return KERNEL_DIR / f"lib{name}-{_digest([src], HOST_FLAGS)}.so"
+
+
+def build_host(name: str) -> dict:
+    """Compile ``native/<name>.cc`` with the host compiler unless its
+    library exists.  Returns whether it came from the cache, the wall
+    seconds of the build and the library's path.  Raises RuntimeError
+    with the compiler's output if the build fails or the compiler is
+    missing."""
+    out = host_library_path(name)
+    KERNEL_DIR.mkdir(parents=True, exist_ok=True)
+    with open(KERNEL_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return {"cached": True, "seconds": 0.0, "path": out}
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+               str(NATIVE / f"{name}.cc")]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cmd[0]} failed for {name}.cc: {e}") from None
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"{cmd[0]} failed for {name}.cc (exit {proc.returncode}):\n"
+                f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, out)
+        return {"cached": False, "seconds": time.perf_counter() - t0,
+                "path": out}
+
+
+def host_compiler_version() -> str:
+    """The first line of the host compiler's ``--version``."""
+    proc = subprocess.run([host_compiler(), "--version"],
+                          capture_output=True, text=True, check=True)
+    return proc.stdout.splitlines()[0].strip()

@@ -26,9 +26,11 @@ without conflicts).
   order, so the journal is a function of the inputs, never of thread
   timing: it is the same at every ``plan_workers``.
 
-Python threads hold the GIL while they plan, and the port has no native
-prescreen, so shards run one at a time in effect; ``chip_smoke.py``'s
-recovery phase (a) measures what sharding costs on the card's host.
+Python threads hold the GIL while they plan, so shards overlap only
+inside the native fit screen's calls (``scheduler/native_filter.py``:
+ctypes releases the GIL for each), one a candidate node;
+``chip_smoke.py``'s recovery phase (a) and fleet phase (a) measure what
+sharding costs on the card's host.
 """
 
 from __future__ import annotations

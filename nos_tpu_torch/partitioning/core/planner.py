@@ -11,9 +11,12 @@ simulation, ``nos_tpu/partitioning/core/planner.py`` for the port
    revert.
 4. Return the desired PartitioningState of every node.
 
-The JAX planner can seed its per-fork memo from a native batch fit
-screen (``scheduler/native_filter.py``); its decisions are the same with
-and without it, and the port has none (``ROADMAP.md`` item 23).
+Before a fork's pods are tried, the native batch fit screen
+(``scheduler/native_filter.py``) seeds the fork's failed-class memo with
+every class NodeResourcesFit rejects on the re-carved node, in one call
+(``prescreen_fails`` counts them); the classes are marshalled once a
+plan.  A native fail is a pipeline fail, so the decisions are the same
+with and without it (``native_prescreen=False``).
 """
 
 from __future__ import annotations
@@ -21,12 +24,14 @@ from __future__ import annotations
 import logging
 
 from nos_tpu_torch.kube.objects import Pod
+from nos_tpu_torch.kube.resources import pod_request
 from nos_tpu_torch.obs import journal as J
 from nos_tpu_torch.obs.journal import record as journal_record
 from nos_tpu_torch.obs.trace import bump as obs_bump, span as obs_span
 from nos_tpu_torch.scheduler.framework import (
     CycleState, Framework, SharedLister, filter_equivalence_key,
 )
+from nos_tpu_torch.scheduler.native_filter import FitPrescreen
 
 from ..state import PartitioningState
 from .actuator import compute_partitioning_state
@@ -43,11 +48,17 @@ logger = logging.getLogger(__name__)
 class GeometryPlanner(Planner):
     def __init__(self, framework: Framework, calculator: SliceCalculator,
                  partition_calculator: PartitionCalculator,
-                 sorter: Sorter | None = None) -> None:
+                 sorter: Sorter | None = None,
+                 native_prescreen: bool = True) -> None:
         self._framework = framework
         self._calculator = calculator
         self._partition_calculator = partition_calculator
         self._sorter = sorter or ProfileAwareSorter(calculator)
+        # the native screen, where a native fail is sure to be the
+        # pipeline's (NodeResourcesFit in the chain)
+        prescreen = FitPrescreen(framework) if native_prescreen else None
+        self._prescreen = (prescreen if prescreen is not None
+                           and prescreen.verdict_sound else None)
 
     def plan(self, snapshot: ClusterSnapshot,
              pending_pods: list[Pod]) -> PartitioningState:
@@ -69,6 +80,16 @@ class GeometryPlanner(Planner):
         # (pod, key, equivalence class) hoisted for the whole plan: the
         # candidate loop touches every pod per candidate
         entries = [(p, p.key, filter_equivalence_key(p)) for p in pods]
+        # the plan's classes marshalled once for the native screen
+        class_order: list = []
+        compiled = None
+        if self._prescreen is not None:
+            requests: dict = {}
+            for p, _, ekey in entries:
+                if ekey not in requests:
+                    requests[ekey] = pod_request(p)
+            class_order = list(requests)
+            compiled = self._prescreen.compile_classes(list(requests.values()))
         # iterate by NAME and re-fetch after fork/revert: revert() swaps
         # the snapshot's node objects
         candidate_names = [n.name for n in snapshot.get_candidate_nodes()]
@@ -86,6 +107,15 @@ class GeometryPlanner(Planner):
             # pod of the same class.  Without it the loop runs the
             # pipeline once per pod per candidate.
             failed: set = set()
+            if compiled is not None:
+                # the classes NodeResourcesFit rejects on the re-carved
+                # node, in one call; a class placed earlier is never
+                # looked up again
+                verdicts = self._prescreen.screen_compiled(
+                    node.node_info(), compiled)
+                failed.update(k for k, ok in zip(class_order, verdicts)
+                              if not ok)
+                obs_bump("prescreen_fails", len(failed))
             for pod, pkey, ekey in entries:
                 if tracker.empty:
                     break

@@ -36,6 +36,7 @@ from typing import Any
 
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.api.pdb import list_pdbs
+from nos_tpu_torch.device import native
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.kube.client import (
     APIServer, KIND_COMPOSITE_ELASTIC_QUOTA, KIND_ELASTIC_QUOTA, KIND_POD,
@@ -55,6 +56,7 @@ from nos_tpu_torch.scheduler.framework import (
 )
 from nos_tpu_torch.scheduler.elastic import record_shrink, shrink_headroom
 from nos_tpu_torch.scheduler.gang import evict_gang, gang_name
+from nos_tpu_torch.scheduler.native_filter import node_model
 from nos_tpu_torch.topology.known import DEFAULT_REGISTRY
 from nos_tpu_torch.utils.pod_util import (
     elastic_replica_bounds, is_displaced_fresh, is_over_quota, job_progress,
@@ -399,7 +401,8 @@ class CapacityScheduling:
 
     def _victim_screen(self, state: CycleState, pod: Pod,
                        nodes: SharedLister) -> frozenset[str] | None:
-        """The nodes ``pod`` fits when empty, cached per request
+        """The nodes ``pod`` fits when empty (``_fits_empty``, through
+        the native ``victim_prescreen`` in one call), cached per request
         signature under the view epoch the scheduler put in the state;
         None (screen nothing) without an epoch."""
         epoch = state.get(VIEW_EPOCH_CONTEXT_KEY)
@@ -410,8 +413,28 @@ class CapacityScheduling:
         cached = self._victim_mask_cache.get(sig)
         if cached is not None and cached[0] == epoch:
             return cached[1]
-        mask = frozenset(ni.name for ni in nodes.list()
-                         if _fits_empty(req, ni))
+        nis = nodes.list()
+        pod_g = _mig_slots(req, None)[0]
+        # one call per GPU model: the request's memory slots are the
+        # model's; the slots are read only where the request holds MIG
+        # profiles (the profile parse is the costly part)
+        groups: dict = {}
+        for i, ni in enumerate(nis):
+            groups.setdefault(node_model(ni) if pod_g else None,
+                              []).append(i)
+        passing = [False] * len(nis)
+        for model, idxs in groups.items():
+            slots = [_mig_slots(nis[i].allocatable, model) if pod_g
+                     else (0, 0) for i in idxs]
+            verdicts = native.victim_prescreen(
+                [[nis[i].allocatable.get(k, 0.0) for k, _ in sig]
+                 for i in idxs],
+                [v for _, v in sig], [g for g, _ in slots],
+                [m for _, m in slots], pod_g,
+                _mig_slots(req, model)[1] if pod_g else 0)
+            for i, ok in zip(idxs, verdicts):
+                passing[i] = ok
+        mask = frozenset(ni.name for ni, ok in zip(nis, passing) if ok)
         if len(self._victim_mask_cache) > 512:
             self._victim_mask_cache.clear()
         self._victim_mask_cache[sig] = (epoch, mask)

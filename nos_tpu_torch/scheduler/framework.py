@@ -8,10 +8,11 @@ lister at cmd/gpupartitioner/gpupartitioner.go:294-318).  This module is
 that framework: the planner's what-if runs PreFilter and Filter of the
 same plugins a scheduler would.  ``SpareGuard`` and
 ``MigrationDrainGuard`` hold the recovery plane's warm spares and
-migrating nodes out of every placement.  The JAX package's native Filter
-prescreen (``scheduler/native_filter.py``) comes only if it pays
-(ROADMAP item 23); the default framework is ``NodeResourcesFit`` alone,
-as there.
+migrating nodes out of every placement.  The default framework is
+``NodeResourcesFit`` alone, as in the JAX package.  The scheduler and the
+planner put the native batch fit screen (``scheduler/native_filter.py``)
+in front of this pipeline: it replays ``NodeResourcesFit`` and runs only
+where NodeResourcesFit is in the chain, so the verdicts stand.
 """
 
 from __future__ import annotations

@@ -35,23 +35,30 @@ clones one more member of an elastic gang whose NVLink domain still
 holds one, up to ``elastic_grow_budget_per_cycle`` gangs a cycle; the
 clones are the next cycle's demand.
 
+Two host-C++ paths (``native/gpu_shim.cc``) stand in for Python loops
+and decide the same: before a class's scan, the native batch fit screen
+(``scheduler/native_filter.py``) seeds the Filter memo with the nodes
+NodeResourcesFit rejects, with its messages byte for byte
+(``prescreen_fails`` counts them); the score's argmin over the feasible
+nodes is one ``nos_score_batch`` call, ``_score_key`` the reference.
+
 Not here (ROADMAP item 7.2): the gang windows and their lease, drain
 preemption (with its ledger hold) and duration-aware backfill, which
 serve a gang consuming a multi-node slice (no H100 resource spans
-nodes).  The JAX scheduler's native prescreen
-and native choose (item 23) are not ported either.  The score's lease
-and window terms read zero without them, so the score is the JAX key on
-nodes with no window labels.
+nodes).  The score's lease and window terms read zero without them, so
+the score is the JAX key on nodes with no window labels.
 """
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import time
 from collections import Counter
 from typing import Any, Callable
 
 from nos_tpu_torch.api import constants as C
+from nos_tpu_torch.device import native
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.api.podgroup import PHASE_SCHEDULED
 from nos_tpu_torch.kube.client import APIServer, KIND_POD, NotFound
@@ -74,6 +81,7 @@ from nos_tpu_torch.scheduler.framework import (
 from nos_tpu_torch.scheduler.gang import (
     GANG_DOMAIN_KEY, gang_name, get_pod_group, set_pod_group_status,
 )
+from nos_tpu_torch.scheduler.native_filter import FitPrescreen
 from nos_tpu_torch.utils.guards import invalidated_by
 from nos_tpu_torch.utils.pod_util import (
     admission_rank, displacement, is_over_quota, workload_class,
@@ -191,6 +199,18 @@ class Scheduler:
         self._cycles_since_rescan = 0
         # node -> equivalence class -> (verdict, why): the Filter memo
         self._filter_cache: dict[str, dict] = {}
+        # The native batch fit screen seeds that memo with a class's
+        # NodeResourcesFit fails over every unseen node in one call; only
+        # where NodeResourcesFit runs first, since the memo keeps its
+        # messages.  Set to None to run the pipeline on every node.
+        screen = FitPrescreen(framework)
+        self._prescreen = screen if screen.message_exact else None
+        # node -> (cap_g, used_g, cap_m, used_m) for the screen's guards,
+        # dropped with the node's Filter memo
+        self._guard_cache: dict[str, tuple[int, int, int, int]] = {}
+        # the classes screened against the current view: a later pod of
+        # one skips even the look for unseen nodes
+        self._screened_classes: set = set()
         # equivalence class -> [feasible NodeInfos by name, rejections by
         # node, their journal attrs (memo), stale node names]: one scan
         # per class and state, not per pod; moved nodes are marked stale
@@ -238,6 +258,8 @@ class Scheduler:
         if self._cycle_lister_cache is None:
             self._cycle_lister_cache = self.snapshot()
             self._filter_cache = {}
+            self._guard_cache = {}
+            self._screened_classes = set()
             self._class_scan_cache = {}
         return self._cycle_lister_cache
 
@@ -258,14 +280,47 @@ class Scheduler:
             obs_bump("sched_full_rescans")
             self._drop_cycle_snapshot()
             return
-        for name in sorted(dirty):
-            self._invalidate_scans(name)
+        if dirty:
+            for name in sorted(dirty):
+                self._invalidate_scans(name)
+            # the dirtied nodes are unseen again by every class
+            self._screened_classes = set()
         self._cycle_lister_cache = self.snapshot()
 
     def _drop_cycle_snapshot(self) -> None:
         self._cycle_lister_cache = None
         self._filter_cache = {}
+        self._guard_cache = {}
+        self._screened_classes = set()
         self._class_scan_cache = {}
+
+    def _seed_filter_memo_native(self, pod: Pod, equiv: tuple,
+                                 lister: SharedLister) -> None:
+        """Seed the Filter memo with the native screen's fails for the
+        pod's class on the nodes it has no verdict for yet: a native fail
+        is NodeResourcesFit's, with its message, and NodeResourcesFit
+        runs first.  Native passes decide nothing; the pipeline runs
+        there."""
+        prescreen = self._prescreen
+        if prescreen is None or equiv in self._screened_classes:
+            return
+        self._screened_classes.add(equiv)
+        unseen = [ni for ni in lister.list()
+                  if equiv not in self._filter_cache.get(ni.name, ())]
+        if not unseen:
+            return
+        msgs = prescreen.screen_nodes(unseen, pod_request(pod),
+                                      guard_cache=self._guard_cache)
+        if msgs is None:
+            return
+        seeded = 0
+        for ni, why in zip(unseen, msgs):
+            if why is not None:
+                self._filter_cache.setdefault(ni.name, {})[equiv] = \
+                    (False, why)
+                seeded += 1
+        if seeded:
+            obs_bump("prescreen_fails", seeded)
 
     def schedule_one(self, pod: Pod) -> str | None:
         """Try to place one pod; returns the node's name or None."""
@@ -311,6 +366,8 @@ class Scheduler:
             self._mark_unschedulable(pod, status)
             return None
         equiv = self._filter_equiv_key(pod)
+        if equiv is not None and self._prescreen is not None:
+            self._seed_filter_memo_native(pod, equiv, lister)
         scan = self._class_scan_cache.get(equiv) if equiv is not None \
             else None
         if scan is None:
@@ -422,6 +479,7 @@ class Scheduler:
         """A node's capacity moved: its Filter memo dies and it goes
         stale in every class index."""
         self._filter_cache.pop(node_name, None)
+        self._guard_cache.pop(node_name, None)
         for scan in self._class_scan_cache.values():
             scan[3].add(node_name)
 
@@ -825,11 +883,53 @@ class Scheduler:
                      feasible: dict[str, NodeInfo]) -> NodeInfo:
         """The feasible node with the least headroom on the pod's own
         resources (packs shares tightly), ties by host index, then
-        name."""
+        name: ``_score_key``'s argmin in one native call, in Python
+        where ``_native_choose`` declines."""
         nis = list(feasible.values())
         if len(nis) == 1:
             return nis[0]
+        chosen = self._native_choose(pod, nis)
+        if chosen is not None:
+            return chosen
         return min(nis, key=self._score_key(pod))
+
+    def _native_choose(self, pod: Pod,
+                       nis: list[NodeInfo]) -> NodeInfo | None:
+        """``_score_key``'s argmin through ``nos_score_batch``: the drain
+        avoidance, the headroom (the same Python sum), the host index and
+        the rank of the name, compared in that order; no window term
+        (every group -1, an empty table) until ROADMAP item 7.2.  None
+        where a host index is negative or past 64 bits, which the Python
+        argmin takes (JAX's guard)."""
+        req = pod_request(pod)
+        n = len(nis)
+        avoided = (ctypes.c_uint8 * n)()
+        headroom = (ctypes.c_double * n)()
+        hidx = (ctypes.c_longlong * n)()
+        rank = (ctypes.c_longlong * n)()
+        rank_of = {name: r
+                   for r, name in enumerate(sorted(ni.name for ni in nis))}
+        for i, ni in enumerate(nis):
+            meta = ni.node.metadata
+            try:
+                idx = int(meta.labels.get(C.LABEL_HOST_INDEX, "0"))
+            except ValueError:
+                idx = 0
+            if not 0 <= idx < 1 << 63:
+                return None
+            free = ni.free()
+            headroom[i] = sum(free.get(r, 0.0) for r in req)
+            hidx[i] = idx
+            avoided[i] = 1 if meta.annotations.get(C.ANNOT_DEFRAG_DRAIN) \
+                else 0
+            rank[i] = rank_of[ni.name]
+        gids = (ctypes.c_longlong * n)(*([-1] * n))
+        none = (ctypes.c_longlong * 1)()
+        out = native.score_batch(
+            avoided, headroom, gids, (ctypes.c_longlong * n)(), hidx, rank,
+            none, (ctypes.c_longlong * (n + 1))(), none, none,
+            (ctypes.c_uint8 * 1)(), n, 0)
+        return nis[out]
 
     @staticmethod
     def _score_key(pod: Pod) -> Callable[[NodeInfo], tuple]:

@@ -91,6 +91,18 @@ runs three times: defrag and grow on; the baseline with both off; and
 propose-only (an infinite payback threshold, grow off), whose decisions
 must equal the baseline's.
 
+The scale fleets are ``bench_fleet.py``'s 1024 hosts in MIG profiles,
+JAX's three TPU generations cut to the one H100 model the port knows and
+its multi-host rows to one-node 7g.80gb pods (no MIG instance spans
+nodes, ROADMAP item 7.2).  ``scale_plan_spec``: 16 NVLink domains of 64
+8-GPU nodes at host indices 0-63; in each, nodes 0-31 full (every GPU a
+used 7g.80gb, a filler pod holding the node's allocatable) and 32-63
+virgin (every GPU a free 7g.80gb); 40 pending pods per 64 nodes over
+``BATCH_MIX["v5e"]``'s weights (SCALE_MIX), priority ``i % 3``.
+``scale_cycle_api``: the scale tier's converged fleet, every GPU carved
+to 1g.10gb x 7, SCALE_BOUND 1g.10gb pods bound round-robin and Running,
+and SCALE_RESIDENTS pending pods that never fit.
+
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
 plan to what both packages must agree on, and ``plan_digest`` hashes it;
@@ -1169,6 +1181,88 @@ def parallel_plan_summary(desired, records) -> dict:
             "journal": [[c, s, {k: v for k, v in sorted(a.items())
                                 if k != "wall_ms"}]
                         for c, s, a in records]}
+
+
+# -- the scale fleets --------------------------------------------------------
+
+SCALE_DOMAINS = 16
+SCALE_HOSTS_PER_DOMAIN = 64
+SCALE_PODS_PER_64_HOSTS = 40
+SCALE_MIX = (("1g.10gb", 8), ("2g.20gb", 6), ("3g.40gb", 4),
+             ("4g.40gb", 2), ("7g.80gb", 2))     # (profile, weight)
+SCALE_BOUND = 8192
+SCALE_RESIDENTS = (("7g.80gb", 8), ("4g.40gb", 8), ("3g.40gb", 8))
+SCALE_SLICE = "1g.10gb"
+
+
+def scale_plan_spec(domains: int = SCALE_DOMAINS,
+                    hosts: int = SCALE_HOSTS_PER_DOMAIN) -> dict:
+    """``bench_fleet.py``'s plan fleet (``make_fleet_state``,
+    ``make_fleet_batch``) as a MIG spec in ``fleet_spec``'s format."""
+    nodes = []
+    for d in range(domains):
+        for h in range(hosts):
+            full = h < hosts // 2
+            name = f"nvl-{d}-h{h}"
+            nodes.append({
+                "name": name, "kind": C.MIG_KIND, "gpus": GPUS_PER_NODE,
+                "status": {g: {"used" if full else "free": {"7g.80gb": 1}}
+                           for g in range(GPUS_PER_NODE)},
+                "bound": [{"name": f"filler-{name}", "shares": {},
+                           "filler": True}] if full else [],
+                "domain": f"nvl-{d}", "host_index": h})
+    want = SCALE_PODS_PER_64_HOSTS * domains * hosts // 64
+    pods = []
+    while len(pods) < want:
+        for profile, weight in SCALE_MIX:
+            for _ in range(weight):
+                if len(pods) < want:
+                    i = len(pods)
+                    pods.append({"name": f"fleet-{i}", "profile": profile,
+                                 "qty": 1, "priority": i % 3,
+                                 "created": 0.0})
+    return {"nodes": nodes, "pending": pods}
+
+
+def scale_cycle_api(nodes: int = SCALE_DOMAINS * SCALE_HOSTS_PER_DOMAIN,
+                    bound: int = SCALE_BOUND,
+                    residents=SCALE_RESIDENTS):
+    """``bench_fleet.py``'s scale tier (``build_scale_api``) on an
+    APIServer: ``nodes`` MIG nodes of 8 GPUs in NVLink domains of
+    SCALE_HOSTS_PER_DOMAIN, each GPU carved to 1g.10gb x 7, ``bound``
+    1g.10gb pods bound round-robin over the nodes (and over each node's
+    GPUs) and Running, then ``residents`` ((profile, count)) pending pods
+    no node advertises."""
+    from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD
+    from nos_tpu_torch.kube.objects import RUNNING
+
+    api = APIServer()
+    for i in range(nodes):
+        name = f"gpu-node-{i}"
+        held = bound // nodes + (1 if i < bound % nodes else 0)
+        status = {}
+        for g in range(GPUS_PER_NODE):
+            used = held // GPUS_PER_NODE + (1 if g < held % GPUS_PER_NODE
+                                           else 0)
+            if used > 7:
+                raise ValueError(f"{bound} pods do not fit {nodes} nodes")
+            status[g] = {"free": {SCALE_SLICE: 7 - used}}
+            if used:
+                status[g]["used"] = {SCALE_SLICE: used}
+        api.create(KIND_NODE, make_gpu_node(
+            name, gpus=GPUS_PER_NODE, partitioning=C.MIG_KIND,
+            status_geometry=status,
+            domain=f"nvl-{i // SCALE_HOSTS_PER_DOMAIN}",
+            host_index=i % SCALE_HOSTS_PER_DOMAIN))
+        for k in range(held):
+            api.create(KIND_POD, make_mig_pod(
+                SCALE_SLICE, 1, name=f"sf-{name}-{k}", node_name=name,
+                phase=RUNNING))
+    for profile, count in residents:
+        for k in range(count):
+            api.create(KIND_POD, make_mig_pod(
+                profile, 1, name=f"resident-{profile}-{k}"))
+    return api
 
 
 # -- the defrag fleet --------------------------------------------------------

@@ -48,7 +48,8 @@ def _port_files():
         ROOT / "scripts" / "profile_torch_moe.py",
         ROOT / "scripts" / "ab_flash_kernel.py",
         ROOT / "scripts" / "sweep_flash_torch.py",
-        ROOT / "scripts" / "time_waste_waterfall.py"]
+        ROOT / "scripts" / "time_waste_waterfall.py",
+        ROOT / "scripts" / "time_native_fleet.py"]
 
 
 _IMPORT_ALL = """
@@ -130,7 +131,9 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
                    "sim.worstweek", "sim.__main__", "device.deviceplugin",
                    "device.deviceplugin.deviceplugin_pb2",
                    "device.podresources",
-                   "device.podresources.podresources_pb2"):
+                   "device.podresources.podresources_pb2",
+                   "device.native", "scheduler.native_filter",
+                   "testing.interleave", "testing.helm"):
         assert f"nos_tpu_torch.{module}" in result["imported"]
     assert "nos_tpu_torch.testing.bind" not in result["imported"]
     bad = [m for m in result["new"] if _forbidden(m)]
@@ -159,6 +162,21 @@ def test_source_imports_no_jax_or_nos_tpu(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_top_level_function_or_class_is_defined_twice(path):
+    # a second def of one name replaces the first at import, and every
+    # caller of the first then runs the second without a word
+    seen: dict[str, int] = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            assert node.name not in seen, (
+                f"{path.name}: {node.name} defined at lines "
+                f"{seen[node.name]} and {node.lineno}")
+            seen[node.name] = node.lineno
 
 
 class TestNoQuietCPU:
@@ -282,6 +300,20 @@ class TestBuild:
             text = _with_includes(_build.CSRC / f"{source}.cu")
             assert "wgmma.mma_async" in text, source
             assert "mma.sync.aligned" not in text, source
+
+    def test_the_host_shim_is_built_apart_from_the_kernels(self):
+        # native/gpu_shim.cc is host C++: g++ builds it, nvcc never sees
+        # it, and it includes no CUDA or PyTorch header
+        assert _build.NATIVE == PORT / "native"
+        assert sorted(p.name for p in _build.NATIVE.iterdir()) == \
+            ["gpu_shim.cc"]
+        text = (_build.NATIVE / "gpu_shim.cc").read_text()
+        includes = re.findall(r"^#include\s+<([^>]+)>", text, re.M)
+        assert includes and not any(
+            "cuda" in h or "torch" in h or "/" in h for h in includes)
+        assert "__global__" not in text
+        assert _build.host_library_path("gpu_shim").parent == \
+            _build.KERNEL_DIR
 
     def test_kernel_dir_is_ignored_by_git(self):
         ignored = (ROOT / ".gitignore").read_text().splitlines()

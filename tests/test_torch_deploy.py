@@ -1,6 +1,7 @@
 """The port's helm chart, ``deploy/helm/nos-tpu-torch/``, rendered on the
-CPU by the JAX package's renderer (``nos_tpu.testing.helm.render_chart``,
-the template subset ``_helpers.tpl`` states): every manifest parses,
+CPU by the port's renderer (``nos_tpu_torch.testing.helm.render_chart``,
+the template subset ``_helpers.tpl`` states; it renders both charts as
+the JAX package's does): every manifest parses,
 every rendered config loads through the port's ``api/config.py``, every
 container runs a main under ``nos_tpu_torch/cmd/``, and the CRDs are the
 port's kinds in its API group.  The JAX chart beside it is not touched.
@@ -8,16 +9,15 @@ port's kinds in its API group.  The JAX chart beside it is not touched.
 
 from __future__ import annotations
 
-import copy
 import pathlib
 
 import pytest
 
-from nos_tpu.testing.helm import default_context, render_chart
-
 from nos_tpu_torch.api import config as pconfig
 from nos_tpu_torch.api.constants import GROUP
 from nos_tpu_torch.kube.k8s_codec import GROUP_VERSION, KIND_REST
+from nos_tpu_torch.testing import helm
+from nos_tpu_torch.testing.helm import default_context, render_chart
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHART = ROOT / "deploy/helm/nos-tpu-torch"
@@ -39,16 +39,6 @@ def context(**values) -> dict:
     """``helm template``'s context from values.yaml, the chart's own
     helpers, and ``values`` ("a.b" paths) set over the defaults."""
     ctx = default_context(CHART)
-    ctx["Chart"]["Name"] = "nos-tpu-torch"
-    ctx["Chart"]["AppVersion"] = "0.1.0"
-    ctx["Release"] = {"Name": "nos-tpu-torch",
-                      "Namespace": ctx["Values"]["namespace"]}
-    ctx["__helpers__"] = {
-        "nos-tpu-torch.tag": "0.1.0",
-        "nos-tpu-torch.labels": ("app.kubernetes.io/part-of: nos-tpu-torch\n"
-                                 "app.kubernetes.io/managed-by: Helm"),
-    }
-    ctx["Values"] = copy.deepcopy(ctx["Values"])
     for path, value in values.items():
         cur = ctx["Values"]
         *head, last = path.split(".")
@@ -158,6 +148,35 @@ class TestRender:
                     if d["kind"] == "Service"}
         assert {"nos-tpu-torch-scheduler", "nos-tpu-torch-partitioner",
                 "nos-tpu-torch-operator-webhook"} <= services
+
+
+    def test_every_config_validates_through_the_renderer(self, docs):
+        # the renderer's own table names every rendered config's class
+        assert set(helm.CONFIG_KINDS) == set(CONFIGS)
+        assert helm.validate_configmaps(docs) == 6
+        stray = {"kind": "ConfigMap", "metadata": {"name": "stray-config"},
+                 "data": {"config.yaml": "{}"}}
+        with pytest.raises(AssertionError, match="CONFIG_KINDS"):
+            helm.validate_configmaps(docs + [stray])
+
+    def test_both_renderers_render_both_charts_alike(self):
+        # the port's renderer is the JAX package's subset, unchanged: on
+        # every template of both charts the two give the same text
+        from nos_tpu.testing import helm as jax_helm
+
+        charts = {ROOT / "deploy/helm/nos-tpu": jax_helm.default_context,
+                  CHART: default_context}
+        templates = 0
+        for chart, make_context in charts.items():
+            ctx = make_context(chart)
+            for path in sorted(chart.glob("templates/**/*.yaml")):
+                text = path.read_text()
+                assert helm.render(text, ctx) == jax_helm.render(text, ctx), \
+                    path
+                templates += 1
+            assert render_chart(chart, ctx) == jax_helm.render_chart(chart,
+                                                                     ctx)
+        assert templates > 40
 
 
 class TestValues:

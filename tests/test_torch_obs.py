@@ -7,7 +7,7 @@ the JAX package's:
 - ``explain_plan`` over both packages' spans and journals of the MPS
   loop's plan cycle (``tests/test_torch_controller.py``'s twin, tracers
   on its virtual clock) gives the same lines, kinds and plan ids mapped,
-  but for the counter of JAX's native prescreen, which the port lacks;
+  both native screens' fail counters among them;
 - the CLI over a live ``Main``: ``--selftest`` as a process, ``dump``
   round-tripped through ``--snapshot``, ``explain pod`` naming the
   rejecting plugin per node, ``waste``, ``slo``, ``top`` and
@@ -33,6 +33,7 @@ from nos_tpu_torch.obs import slo as pslo, trace as ptrace
 from nos_tpu_torch.obs.__main__ import main as obs_main
 
 from test_torch_controller import PlanMask, Twin as LoopTwin
+from test_torch_planner import build_jax_shim
 from test_torch_gang import gang_cluster_spec
 from test_torch_quota import QuotaTwin, mapped
 
@@ -67,8 +68,10 @@ class TestExplainParity:
 
     def test_explain_plan_lines_are_jax_s(self, monkeypatch):
         """The MPS loop's plan cycle on both packages, each traced on the
-        twin's clock: the span tree, its counters and the cycle's
-        decisions read alike."""
+        twin's clock: the span tree, its counters (both native screens'
+        fails among them) and the cycle's decisions read alike."""
+        assert build_jax_shim(monkeypatch), \
+            "the JAX package's native shim did not build"
         tracers = {}
 
         def install(t):
@@ -93,11 +96,8 @@ class TestExplainParity:
         for m, j in ((mask, t.journal), (jmask, t.jax_journal)):
             for r in j.events():
                 m.learn(str(r.attrs.get("plan_id", "")))
-        # JAX's planner counts its native prescreen's misses; the port
-        # has no prescreen (ROADMAP item [23])
         want = [jmask(ln).replace("timeshare", "mps")
-                for ln in jobs.explain_plan(jsnap)
-                if "prescreen_fails" not in ln]
+                for ln in jobs.explain_plan(jsnap)]
         assert [mask(ln) for ln in got] == want
         assert got[0].startswith("partitioner.plan_cycle")
         assert any("node-actuated ts-0" in ln for ln in got)

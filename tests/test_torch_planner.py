@@ -5,8 +5,9 @@ same cluster and backlog, compared exactly: each node's and GPU's
 geometry, the PartitioningState, which pods were placed where, what the
 unplaced pods still lack, the rendered device-plugin config (plan id
 masked), the node annotations the actuator writes, and the planner's
-fork, commit and revert counts.  The JAX planner runs both without and
-with its native Filter prescreen; both must equal the port.
+fork, commit and revert counts.  Both planners run without and with
+their native Filter screens, each against the other's same mode, with
+the same pipeline runs and screen fails as well.
 
 Clusters come from specs in ``nos_tpu_torch/testing/fleet.py``'s format:
 small random ones from numpy generators seeded 0-9 (2-4 nodes of 8 GPUs,
@@ -103,7 +104,7 @@ def _counts(ring) -> dict:
     return span["counts"]
 
 
-def port_plan(spec):
+def port_plan(spec, native_prescreen: bool = True):
     """Take the snapshot, plan a clone of it (as the controller does),
     and return (snapshot, planned clone, desired state, span counts,
     summary)."""
@@ -111,7 +112,7 @@ def port_plan(spec):
     pending = fleet.build_pending(spec)
     planner = core.GeometryPlanner(
         Framework(), ts.TimeshareProfileCalculator(),
-        ts.TimesharePartitionCalculator())
+        ts.TimesharePartitionCalculator(), native_prescreen=native_prescreen)
     tracer = trace.Tracer()
     prev = trace.set_tracer(tracer)
     try:
@@ -143,17 +144,20 @@ def jax_plan(spec, native_prescreen: bool):
 
 
 def assert_same_plan(spec):
-    _, _, desired, counts, summary = port_plan(spec)
+    """The port's plan with and without its native screen against JAX's
+    with and without its own: the same decisions, and the same pipeline
+    runs and screen fails (an MPS share holds no MIG slice and no TPU
+    chip, so both screens fail a class on its shares alone)."""
     for native in (False, True):
+        _, _, desired, counts, summary = port_plan(spec, native)
         _, _, jdesired, jcounts, jsummary, jplanner = jax_plan(spec, native)
+        assert (jplanner._prescreen is not None) == native
         assert summary == jsummary, native
         assert partitioning_rows(desired) == partitioning_rows(jdesired)
-        assert {k: counts.get(k, 0) for k in SPAN_COUNTS} == \
-            {k: jcounts.get(k, 0) for k in SPAN_COUNTS}, native
-        if not native:
-            # the same pipeline runs: the per-fork memo is kept
-            assert counts["filter_runs"] == jcounts["filter_runs"]
-            assert counts["prefilter_runs"] == jcounts["prefilter_runs"]
+        keys = SPAN_COUNTS + ("filter_runs", "prefilter_runs",
+                              "prescreen_fails")
+        assert {k: counts.get(k, 0) for k in keys} == \
+            {k: jcounts.get(k, 0) for k in keys}, native
     return summary, counts
 
 
@@ -183,6 +187,12 @@ def build_jax_shim(monkeypatch) -> bool:
 
 
 class TestPlannerParity:
+    @pytest.fixture(autouse=True)
+    def jax_shim(self, monkeypatch):
+        # JAX's screen must run for its half of the parity to count
+        assert build_jax_shim(monkeypatch), \
+            "the JAX package's native shim did not build"
+
     @pytest.mark.parametrize("seed", range(10))
     def test_small_clusters(self, seed):
         spec = small_spec(seed)
