@@ -16,7 +16,9 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    is created or destroyed and no MIG mode is changed.
 2. build: nvcc builds every kernel in nos_tpu_torch/ops/csrc/ (all
    sources at once) into nos_tpu_torch/_kernels/, and reports each
-   compiled tile's ptxas registers and spill bytes.
+   compiled tile's ptxas registers and spill bytes; then g++ builds the
+   native scheduling shim (``native/gpu_shim.cc``) there, so that no
+   later phase adds a library to the directory.
 3. kernels: each kernel's wrapper at every tile it is compiled for
    (``ops.attention.KERNEL_TILES``; TILES below) against its plain
    PyTorch version on the card, with the stated tolerances: the forward
@@ -86,9 +88,9 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    einsum reference (``moe_mlp_reference``) and flash against dense
    attention, loss and gradients.
 8. grant: the training main as a pod runs it, ``python -m
-   nos_tpu_torch.cmd.train``, in three fresh processes on train_main's
-   configuration (BENCH_350M_TRAIN, 8 x 2048, seed 0, 2 steps), each
-   reusing the built kernels (nvcc hidden from it, the kernel directory
+   nos_tpu_torch.cmd.train``, in three fresh processes at once on
+   train_main's configuration (BENCH_350M_TRAIN, 8 x 2048, seed 0, 2
+   steps), each reusing the built kernels (nvcc hidden from it, the kernel directory
    unchanged): (a) the card's UUID and a 24 GB timeshare grant must exit
    0 with the grant verified, train_main's step-0 loss, 24 K1 + 24 K2
    a step and its peak under the installed cap; (b) an 8 GB grant, a cap
@@ -496,6 +498,34 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    ``SIM_HARNESS_DIGEST``, both pods Running; the host ms of each tick
    go on the line.  The kubelet device plugins are not run: the card's
    machine has no grpcio.
+19. fleet: the native scheduling shim on the host, touching no GPU: its
+   build report (phase 2 built it) and GIL handshake, then (a) the 1024-node MIG plan at 1
+   and 4 plan workers and (b) the 1024-node scheduler cycle, each with
+   the native paths and without them, to the same decisions.
+20. determinism: the port's analyzer and its dual-run harness on the
+   host, touching no GPU.  (a) ``nos_tpu_torch.analysis.run`` with
+   ``default_rules()`` (N001-N012) over ``nos_tpu_torch/``: any
+   violation fails.  (b) The harness's 12-cell matrix
+   (``PYTHONHASHSEED`` 0, 1, random x plan workers 1, 4 x the watch-fed
+   scheduler cache or a full rescan each cycle), 2 scheduler cycles: one
+   ``python -m nos_tpu_torch.analysis --determinism-child`` per cell,
+   DETERMINISM_CHILDREN at a time on the card's host, each reusing the
+   shim phase 2 built (none imports torch).  Every journal must be
+   byte-identical to the first cell's and longer than
+   DETERMINISM_MIN_RECORDS records; a child's non-zero exit or timeout
+   fails.  (a) runs in this process while (b)'s children run.  The
+   line carries the files, violations, suppressed findings and seconds
+   of (a), and of (b) each child's wall and trace seconds and its
+   records.
+
+The host-only work, (a) of phases 11 to 17 and phases 18 to 20 whole,
+runs in one background process started after phase 7 (HOST_JOBS, at
+nice HOST_NICE, in the order the phases read it) while this process
+drives the card phases: a phase waits for its part where it reads it,
+and a check that fails there fails the smoke with its message.  The
+lines come out in the phases' order.  Their host ms are taken beside
+the card phases, on a shared host, and are not for comparison between
+runs (``scripts/time_native_fleet.py`` is phase 19's A/B).
 
 Then the kernel summary line (one entry per compiled tile, with its
 launches by path, the gang, recovery, mains, elastic, serving and
@@ -617,13 +647,17 @@ TILES = {
 
 
 def phase_build() -> dict[str, dict]:
-    """Build every source; per compiled tile of KERNELS, ptxas's
-    registers (at entry) and spill bytes (None where the library came
-    from the cache)."""
+    """Build every source, and the native scheduling shim after them
+    (so that no later phase, nor the host work beside the card phases,
+    adds a library to the directory); per compiled tile of KERNELS,
+    ptxas's registers (at entry) and spill bytes (None where the library
+    came from the cache)."""
+    from nos_tpu_torch.device import native
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build()
+    shim = native.build_report()
     resources = {}
     for name, (source, function, _) in KERNELS.items():
         entry = function + TILES[name][2]
@@ -632,7 +666,9 @@ def phase_build() -> dict[str, dict]:
         resources[name] = found[0] if len(found) == 1 else {
             "registers": None, "spill_stores": None, "spill_loads": None}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": report, "resources": resources})
+          "kernels": report, "resources": resources,
+          "shim": {"cached": shim["cached"], "seconds": shim["seconds"],
+                   "library": str(shim["path"].relative_to(ROOT))}})
     return resources
 
 
@@ -2162,12 +2198,15 @@ def phase_grant(main_loss0: float, device: dict) -> dict:
     children = {}
     with tempfile.TemporaryDirectory(prefix="nos-grant-") as tmp:
         cfg_path, no_nvcc = _grant_workdir(tmp)
+        # the three at once: each cap binds its own process alone
         for case, gb in GRANT_GB.items():
-            children[case] = _run_grant_child(
+            children[case] = _start_grant_child(
                 case, cfg_path, {"NOS_TPU_VISIBLE_CHIPS": uuid,
                                  "NOS_TPU_TIMESHARE_GB": str(gb)}, no_nvcc)
-        children["c"] = _run_grant_child(
+        children["c"] = _start_grant_child(
             "c", cfg_path, {"NOS_TPU_VISIBLE_CHIPS": ABSENT_UUID}, no_nvcc)
+        children = {case: _finish_grant_child(child)
+                    for case, child in children.items()}
     kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
     if kernels_after != kernels_before:
         fail(f"a grant child built kernels: {kernels_before} -> "
@@ -3667,7 +3706,7 @@ def phase_quota(main_loss0: float, device: dict, smi: str) -> dict:
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    fleet_line = _quota_fleet_runs()
+    fleet_line, _ = _host_result("quota", "_quota_fleet_runs")
     loop, card = _quota_loop(device)
     grants = _grants(loop, device, list(QUOTA_TEAM_A))
     total = device["memory_bytes"]
@@ -4103,7 +4142,7 @@ def phase_gang(main_loss0: float, device: dict, smi: str) -> dict:
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    fleet_line = _gang_fleet_runs()
+    fleet_line, _ = _host_result("gang", "_gang_fleet_runs")
     loop, card = _gang_loop(device)
     a_pods, b_pods = list(GANG_A[2]), list(GANG_B[2])
     grants = _grants(loop, device, a_pods)
@@ -4835,8 +4874,8 @@ def phase_recovery(main_loss0: float, device: dict, smi: str) -> dict:
     from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
 
     t0 = time.perf_counter()
-    parallel = _parallel_fleet_plans()
-    fleet_line = _recovery_fleet_run()
+    parallel, _ = _host_result("parallel", "_parallel_fleet_plans")
+    fleet_line, _ = _host_result("recovery", "_recovery_fleet_run")
     stub_mod = _load_stub()
     with stub_mod.StubApiServer() as stub, \
             tempfile.TemporaryDirectory(prefix="nos-recovery-") as tmp:
@@ -6321,7 +6360,7 @@ def phase_elastic(main_loss0: float, device: dict, smi: str) -> dict:
             {"NOS_TPU_VISIBLE_CHIPS": uuid,
              "NOS_TPU_TIMESHARE_GB": str(CARD_SHARE_GB)} | split, no_nvcc)
         started.append(straight)
-        fleet_line = _defrag_fleet_runs()
+        fleet_line, _ = _host_result("defrag", "_defrag_fleet_runs")
         straight = _finish_grant_child(straight)
         kubeconfig = pathlib.Path(tmp) / "kubeconfig.json"
         kubeconfig.write_text(json.dumps({
@@ -6651,6 +6690,12 @@ def _serving_fleet_runs(router: bool, runs: int = SERVING_FLEET_RUNS,
         line["journal_identical_across_workers"] = True
         line["requests"] = first["requests"]
     return line
+
+
+def _serving_fleets() -> dict:
+    """(a) whole: the router off, then on."""
+    return {"serving": _serving_fleet_runs(router=False),
+            "request": _serving_fleet_runs(router=True)}
 
 
 # (b): the card's node over the REST stub.  The mains of phase 14 (one
@@ -7623,9 +7668,7 @@ def phase_serving(main_loss0: float, device: dict, smi: str) -> dict:
     from nos_tpu_torch.requests import RouterService
 
     t0 = time.perf_counter()
-    fleets = {"serving": _serving_fleet_runs(router=False),
-              "request": _serving_fleet_runs(router=True)}
-    fleets_s = time.perf_counter() - t0
+    fleets, fleets_s = _host_result("serving", "_serving_fleets")
     card = torch.cuda.get_device_name(0)
     total = device["memory_bytes"]
     kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
@@ -8122,8 +8165,7 @@ def phase_capacity(main_loss0: float, device: dict, smi: str) -> dict:
     from nos_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    fleets = _capacity_fleet_runs()
-    fleets_s = time.perf_counter() - t0
+    fleets, fleets_s = _host_result("capacity", "_capacity_fleet_runs")
     kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
     _release()
     stub_mod = _load_stub()
@@ -8312,8 +8354,8 @@ def sim_harness_digest(run: dict) -> str:
     return plan_digest({"journal": run["journal"], "pods": run["pods"]})
 
 
-def phase_sim(smi: str) -> None:
-    """Phase 18: the simulator on the card's host (no GPU is touched).
+def _sim_line(smi: str) -> dict:
+    """Phase 18's line: the simulator on the card's host (no GPU is touched).
     (a) the smoke day twice, at seed 1 and with ``--what-if hosts=+120``,
     four children at once; (b) then the default week, 10,000 nodes x 8
     GPUs over 7 days; each a ``python -m nos_tpu_torch.sim`` child at
@@ -8323,8 +8365,7 @@ def phase_sim(smi: str) -> None:
     check of the kubelet device plugins here: they need grpcio, which
     the card's machine lacks."""
     t0 = time.perf_counter()
-    # the smoke days at once (each child's start is mostly import torch),
-    # then the week alone
+    # the smoke days at once, then the week alone
     smokes = [name for name in SIM_RUNS if name != "week"]
     with concurrent.futures.ThreadPoolExecutor(len(smokes)) as pool:
         runs = dict(zip(smokes, pool.map(_sim_child, smokes)))
@@ -8341,14 +8382,14 @@ def phase_sim(smi: str) -> None:
     if [p[1] for p in ev["pods"]] != ["Running", "Running"]:
         fail(f"the harness's pods are not Running: {ev['pods']}")
     ticks = ev["tick_ms"] + tk["tick_ms"]
-    emit({"phase": "sim", "nvidia_smi": smi,
-          "seconds": time.perf_counter() - t0, "runs": runs,
-          "harness": {"journal_records": len(ev["journal"]),
-                      "pods": ev["pods"], "digest": digest,
-                      "ticks": len(ticks),
-                      "tick_ms_median": statistics.median(ticks),
-                      "tick_ms_max": max(ticks)},
-          "kubelet_plugins": "not run: the card's machine has no grpcio"})
+    return {"phase": "sim", "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t0, "runs": runs,
+            "harness": {"journal_records": len(ev["journal"]),
+                        "pods": ev["pods"], "digest": digest,
+                        "ticks": len(ticks),
+                        "tick_ms_median": statistics.median(ticks),
+                        "tick_ms_max": max(ticks)},
+            "kubelet_plugins": "not run: the card's machine has no grpcio"}
 
 
 # -- phase 19: fleet (host only) ---------------------------------------------
@@ -8543,10 +8584,10 @@ def _fleet_cycles(nodes: int | None = None, bound: int | None = None,
     return out
 
 
-def phase_fleet(smi: str) -> dict:
-    """Phase 19: the native scheduling shim on the card's host (no GPU
-    is touched): the library's build (``native/gpu_shim.cc``, g++ at
-    first use) and the GIL handshake from two threads, then (a) the
+def _fleet_line(smi: str) -> dict:
+    """Phase 19's line: the native scheduling shim on the card's host (no
+    GPU is touched): the library's build report (``native/gpu_shim.cc``,
+    built in phase 2) and the GIL handshake from two threads, then (a) the
     1024-node plan and (b) the 1024-node scheduler cycle, each with the
     native paths and without them, to the same decisions."""
     from nos_tpu_torch.device import native
@@ -8563,7 +8604,7 @@ def phase_fleet(smi: str) -> dict:
         fail(f"the fleet plan's digest {plans['digest']} is not the pinned "
              f"{FLEET_PLAN_DIGEST}")
     cycles = _fleet_cycles()
-    line = {"phase": "fleet", "nvidia_smi": smi,
+    return {"phase": "fleet", "nvidia_smi": smi,
             "seconds": time.perf_counter() - t0,
             "shim": {"compiler": _build.host_compiler_version(),
                      "cached": report["cached"],
@@ -8571,11 +8612,181 @@ def phase_fleet(smi: str) -> dict:
                      "library": str(report["path"].relative_to(ROOT)),
                      "handshake": handshake},
             "plan": plans, "cycle": cycles}
-    emit(line)
-    return line
+
+
+# -- phase 20: determinism (host only) ---------------------------------------
+
+DETERMINISM_CHILDREN = 4          # children at once (8 cores on the host)
+DETERMINISM_MIN_RECORDS = 50
+
+
+def _determinism_lint() -> dict:
+    """Phase 20 (a): the port's analyzer over its own tree."""
+    from nos_tpu_torch.analysis import default_rules, run
+
+    t0 = time.perf_counter()
+    report = run(default_rules(), [str(ROOT / "nos_tpu_torch")],
+                 root=str(ROOT))
+    seconds = time.perf_counter() - t0
+    if report.violations:
+        fail("noslint over nos_tpu_torch/:\n" + "\n".join(
+            v.render() for v in report.violations))
+    return {"files": report.files, "violations": 0,
+            "suppressed": [v.render() for v in report.suppressed],
+            "seconds": seconds}
+
+
+def _determinism_matrix(cycles: int | None = None,
+                        children: int = DETERMINISM_CHILDREN) -> dict:
+    """Phase 20 (b): every cell of the harness's matrix in its own child,
+    ``children`` at a time; the journals judged as ``run_matrix`` judges
+    them."""
+    from nos_tpu_torch.analysis import determinism as D
+
+    cycles = D.DEFAULT_CYCLES if cycles is None else cycles
+    cells = D.matrix_cells()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(children) as pool:
+        results = list(pool.map(lambda c: D.run_cell(*c, cycles=cycles),
+                                cells))
+    seconds = time.perf_counter() - t0
+    report = D.judge(results, verbose=False)
+    if not report.ok:
+        fail("the determinism matrix:\n" + "\n".join(report.failures))
+    if report.records <= DETERMINISM_MIN_RECORDS:
+        fail(f"the determinism journals hold {report.records} records, "
+             f"not more than {DETERMINISM_MIN_RECORDS}")
+    return {"cells": len(report.cells), "cycles": cycles,
+            "children_at_once": children, "seconds": seconds,
+            "records": report.records,
+            "children": [{"cell": c.label, "wall_s": c.wall_s,
+                          "trace_s": c.trace_s,
+                          "records": len(c.output.splitlines())}
+                         for c in report.cells]}
+
+
+def _determinism_line(smi: str) -> dict:
+    """Phase 20's line: noslint over the port's tree while the dual-run
+    determinism matrix's children run (the lint holds one core, the
+    children four of the host's eight; no GPU is touched)."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as background:
+        pending = background.submit(_determinism_matrix)
+        lint = _determinism_lint()
+        matrix = pending.result()
+    return {"phase": "determinism", "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t0, "lint": lint,
+            "matrix": matrix}
+
+
+# -- host work beside the card phases ----------------------------------------
+
+# The host-only work, in the order the card phases read it: (a) of phases
+# 11 to 17, then phases 18 to 20 whole (HOST_LINES: each function takes
+# the card's nvidia-smi line and returns its phase's line), as (key,
+# function).  One background process runs it while this one drives the
+# card phases.
+HOST_JOBS = (("quota", "_quota_fleet_runs"), ("gang", "_gang_fleet_runs"),
+             ("parallel", "_parallel_fleet_plans"),
+             ("recovery", "_recovery_fleet_run"),
+             ("defrag", "_defrag_fleet_runs"), ("serving", "_serving_fleets"),
+             ("capacity", "_capacity_fleet_runs"), ("sim", "_sim_line"),
+             ("fleet", "_fleet_line"), ("determinism", "_determinism_line"))
+HOST_LINES = ("sim", "fleet", "determinism")
+HOST_NICE = 10      # the card phases' processes go first on the host
+
+
+def _host_worker(out_dir: str) -> None:
+    """The background process: each job of ``out_dir``/jobs.json in turn,
+    its result and seconds pickled to ``<key>.pkl``; a job that raises
+    (a failed check among them) leaves ``<key>.err`` and ends the
+    process.  It kills its own session, its children with it, once the
+    smoke that started it is gone."""
+    import os
+    import pickle
+    import traceback
+
+    os.nice(HOST_NICE)
+    parent = os.getppid()
+
+    def orphaned() -> None:
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    out = pathlib.Path(out_dir)
+    for key, fn, kwargs in json.loads((out / "jobs.json").read_text()):
+        t0 = time.perf_counter()
+        try:
+            value = globals()[fn](**kwargs)
+        except BaseException as e:
+            (out / f"{key}.err").write_text(
+                f"{e}\n{traceback.format_exc()}")
+            raise
+        part = out / f"{key}.part"
+        part.write_bytes(pickle.dumps((value, time.perf_counter() - t0)))
+        part.rename(out / f"{key}.pkl")
+
+
+class _HostWork:
+    """The background process of HOST_JOBS, in a session of its own so
+    that ``close`` stops it and every process it started."""
+
+    def __init__(self, jobs) -> None:
+        self.dir = pathlib.Path(tempfile.mkdtemp(prefix="nos-host-"))
+        (self.dir / "jobs.json").write_text(json.dumps(
+            [list(job) for job in jobs]))
+        self.keys = {key for key, _, _ in jobs}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke._host_worker({str(self.dir)!r})"],
+            cwd=ROOT, env=_child_env(), stdout=sys.stderr,
+            start_new_session=True)
+
+    def result(self, key: str):
+        """The job's (result, seconds), once the process has it."""
+        import pickle
+
+        self.keys.remove(key)
+        done, err = self.dir / f"{key}.pkl", self.dir / f"{key}.err"
+        while not done.exists():
+            if err.exists():
+                fail(f"the host work's {key}: {err.read_text()[-4000:]}")
+            if self.proc.poll() is not None and not done.exists():
+                fail(f"the host work's process exited {self.proc.returncode}"
+                     f" before {key}")
+            time.sleep(0.05)
+        return pickle.loads(done.read_bytes())
+
+    def close(self) -> None:
+        import os
+        import shutil
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+_HOST: _HostWork | None = None
+
+
+def _host_result(key: str, fn: str):
+    """``fn()`` and its seconds: from the background process where main()
+    queued the job, else computed here and now."""
+    if _HOST is not None and key in _HOST.keys:
+        return _HOST.result(key)
+    t0 = time.perf_counter()
+    value = globals()[fn]()
+    return value, time.perf_counter() - t0
 
 
 def main() -> int:
+    global _HOST
+
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
     if not torch.cuda.is_available():
@@ -8593,20 +8804,27 @@ def main() -> int:
         train, loss0 = phase_train()
         train_main, main_loss0 = phase_train_main(loss0)
         moe = phase_moe()
-        # the grant and partition children see the same PRETUNED-only
-        # cache
-        phase_grant(main_loss0, device)
-        phase_partition(main_loss0, device, smi)
-        phase_mig(device, smi)
-        phase_quota(main_loss0, device, smi)
-        gang = phase_gang(main_loss0, device, smi)
-        recovery = phase_recovery(main_loss0, device, smi)
-        mains = phase_mains(main_loss0, device, smi)
-        elastic = phase_elastic(main_loss0, device, smi)
-        serving = phase_serving(main_loss0, device, smi)
-        capacity = phase_capacity(main_loss0, device, smi)
-        phase_sim(smi)
-        phase_fleet(smi)
+        # from here on the host-only work runs beside the card phases
+        _HOST = _HostWork([(key, fn, {"smi": smi} if key in HOST_LINES
+                            else {}) for key, fn in HOST_JOBS])
+        try:
+            # the grant and partition children see the same PRETUNED-only
+            # cache
+            phase_grant(main_loss0, device)
+            phase_partition(main_loss0, device, smi)
+            phase_mig(device, smi)
+            phase_quota(main_loss0, device, smi)
+            gang = phase_gang(main_loss0, device, smi)
+            recovery = phase_recovery(main_loss0, device, smi)
+            mains = phase_mains(main_loss0, device, smi)
+            elastic = phase_elastic(main_loss0, device, smi)
+            serving = phase_serving(main_loss0, device, smi)
+            capacity = phase_capacity(main_loss0, device, smi)
+            for key in HOST_LINES:
+                emit(_HOST.result(key)[0])
+        finally:
+            _HOST.close()
+            _HOST = None
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
              "elastic": elastic, "serving": serving, "capacity": capacity}

@@ -13,12 +13,21 @@ running on the CPU.
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` when none is given.
-    Raises RuntimeError when CUDA is asked for and no card is present."""
+    Raises RuntimeError when CUDA is asked for and no card is present.
+
+    torch is imported here and not with the package, so that the control
+    plane's processes (the mains, the CLIs, the simulator), which use no
+    tensor, start without it."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

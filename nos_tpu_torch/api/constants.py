@@ -18,7 +18,7 @@ from __future__ import annotations
 import re
 
 # the MPS share prefix, nvidia.com/gpu-<N>gb: defined beside its parser
-from nos_tpu_torch.topology.profile import RESOURCE_TIMESHARE_PREFIX  # noqa: F401
+from nos_tpu_torch.topology.profile import RESOURCE_TIMESHARE_PREFIX  # noqa: F401  # noslint: N006 — re-export: readers of the contracts (testing/fleet.py's C.RESOURCE_TIMESHARE_PREFIX) get the share prefix here
 
 GROUP = "nos.nebuly.com"
 

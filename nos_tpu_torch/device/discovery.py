@@ -12,7 +12,8 @@ ones):
    count of each device this process sees, after its grant confined it.
    Tried only when allowed and CUDA is already initialised, as the JAX
    package tries PJRT only once jax is loaded: discovery never starts a
-   CUDA context itself.
+   CUDA context itself, nor imports torch: a process that has not
+   imported it has no CUDA context, and a control-plane process does not.
 2. **Driver metadata through NVML** (``SOURCE_ENV``): every GPU of the
    host, its name, UUID, memory and MIG mode, read without a CUDA context
    (``device/nvml.py``).  Control-plane callers and ``workload_env.apply``,
@@ -29,11 +30,14 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 from dataclasses import dataclass
-
-import torch
+from typing import TYPE_CHECKING
 
 from nos_tpu_torch.topology import DEFAULT_REGISTRY, H100_80GB, GpuModel
+
+if TYPE_CHECKING:
+    import torch
 
 logger = logging.getLogger(__name__)
 
@@ -77,6 +81,8 @@ class DiscoveredTopology:
         index in ``uuids``) is in this process: the proof that a granted
         GPU names a real device.  Raises LookupError when CUDA does not
         show it (not granted to this process, or not on this host)."""
+        import torch
+
         if isinstance(uuid_or_index, int):
             if not 0 <= uuid_or_index < len(self.uuids):
                 raise LookupError(f"no discovered GPU {uuid_or_index}")
@@ -109,6 +115,8 @@ def _match(name: str) -> GpuModel | None:
 
 def _discover_from_device(environ) -> DiscoveredTopology | None:
     """The CUDA devices this process sees; needs CUDA up already."""
+    import torch
+
     n = torch.cuda.device_count()
     if n == 0:
         return None
@@ -156,7 +164,8 @@ def discover(configured: GpuModel | None = None, allow_cuda: bool = True,
     ``workload_env.apply`` before the first CUDA call) read NVML and the
     configured model only.  ``nvml_lib`` injects NVML's function table
     (``device/nvml.py``)."""
-    if allow_cuda and torch.cuda.is_initialized():
+    torch = sys.modules.get("torch")
+    if allow_cuda and torch is not None and torch.cuda.is_initialized():
         try:
             found = _discover_from_device(environ)
         except RuntimeError as e:

@@ -107,6 +107,7 @@ class LeaderElector:
             anns[ANN_DEADLINE] = str(deadline)
             # the update carries the version read: a Conflict means
             # another candidate won, and is not retried
+            # noslint: N001 — retrying the lost CAS would steal the winner's lease
             self._api.update(KIND_CONFIGMAP, cm)
             if holder != self.identity:
                 logger.info("leader election %s: %s took over from %s",
@@ -165,7 +166,7 @@ class LeaderElector:
                 if anns.get(ANN_HOLDER) == self.identity:
                     anns[ANN_DEADLINE] = "0"
 
-            # best effort on exit, never retried against a successor
+            # noslint: N001 — best-effort lease drop on exit; must not retry against a successor
             self._api.patch(KIND_CONFIGMAP, self._name, self._ns,
                             mutate=mutate)
         except (Conflict, NotFound, OSError):

@@ -125,7 +125,8 @@ class _SpanHandle:
 
 
 class _NoopHandle:
-    """Shared do-nothing handle of a detail span that is a counter bump."""
+    """Shared do-nothing handle: a detail span that is a counter bump, or
+    any span of a disabled tracer."""
 
     __slots__ = ()
 
@@ -142,20 +143,25 @@ _NOOP = _NoopHandle()
 class Tracer:
     """Span factory with an injectable clock and a bounded ring.
     ``detailed=True`` makes ``detail_span`` a real child span (tests,
-    post-mortem captures); otherwise it is a counter bump."""
+    post-mortem captures); otherwise it is a counter bump.
+    ``enabled=False`` makes every span the do-nothing handle (its
+    ``with`` binds None), so journal records carry empty trace ids."""
 
     def __init__(self, clock: Callable[[], float] = time.monotonic,
                  ring: RingExporter | None = None,
-                 detailed: bool = False) -> None:
+                 enabled: bool = True, detailed: bool = False) -> None:
         self.clock = clock
         # `is not None`: an empty ring is falsy (__len__)
         self.ring = ring if ring is not None else RingExporter()
+        self.enabled = enabled
         self.detailed = detailed
         # per tracer: a fresh tracer gives the same ids on every run
         self._ids = itertools.count(1)
 
-    def span(self, name: str, **attrs: object) -> _SpanHandle:
+    def span(self, name: str, **attrs: object) -> "_SpanHandle | _NoopHandle":
         """Open a span as the child of the ambient span (if any)."""
+        if not self.enabled:
+            return _NOOP
         parent = _current.get()
         if parent is None:
             trace_id = f"t{next(self._ids)}"
@@ -171,7 +177,7 @@ class Tracer:
                     **attrs: object) -> "_SpanHandle | _NoopHandle":
         """A real child span in detailed mode; one counter bump on the
         enclosing span otherwise."""
-        if self.detailed:
+        if self.detailed and self.enabled:
             return self.span(name, **attrs)
         parent = _current.get()
         if parent is not None:
@@ -194,7 +200,7 @@ def set_tracer(tracer: Tracer) -> Tracer:
     return prev
 
 
-def span(name: str, **attrs: object) -> _SpanHandle:
+def span(name: str, **attrs: object) -> "_SpanHandle | _NoopHandle":
     return _tracer.span(name, **attrs)
 
 

@@ -140,6 +140,41 @@ def test_importing_every_module_loads_no_jax_or_nos_tpu():
     assert not bad, bad
 
 
+# The control plane's processes (the mains, the CLIs, the simulator, the
+# analyzer and its determinism children) use no tensor, and start without
+# torch, whose import takes seconds a process on the card's machine.
+_TORCH_FREE = ("cmd.scheduler", "cmd.partitioner", "cmd.operator",
+               "cmd.chipagent", "cmd.sliceagent", "cmd.metricsexporter",
+               "cmd.autoscaler", "cmd.provisioner", "obs.__main__",
+               "sim.__main__", "analysis.__main__", "analysis.determinism")
+
+
+@pytest.mark.parametrize("module", _TORCH_FREE)
+def test_control_plane_process_starts_without_torch(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    code = (f"import importlib, sys; importlib.import_module("
+            f"'nos_tpu_torch.{module}'); print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "False"
+
+
+def test_discovery_without_torch_reads_no_cuda_and_imports_none():
+    """A process that has not imported torch has no CUDA context: the
+    CUDA rung is passed over and torch stays unloaded."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    code = ("import sys; from nos_tpu_torch.device import discovery; "
+            "found = discovery.discover(allow_cuda=True); "
+            "print(found.source != 'device', 'torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.split() == ["True", "False"]
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.proto")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_proto_imports_nothing(path):
