@@ -25,7 +25,9 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    (K1) at the serving shape, and the fused backward (K2), the dq kernel
    (K3) and the dk/dv kernel (K4) at the training shape, at S 1, 63, 64,
    65, 127, 128, 129 and 200 causal and not (the edges of the 64- and
-   128-row tiles), and on strided views; two launches of each tile of K3
+   128-row tiles), on strided views, and all four at the MFU sweep's
+   B16 S2048 H8 causal with grouped K/V (4 heads repeated to 8, as the
+   model's ``repeat_kv`` gives them); two launches of each tile of K3
    and K4 at the training shape must agree bitwise.  Kernel, plain and
    library times (CUDA events, median of several samples of
    back-to-back launches) of every tile at the serving and the training
@@ -517,6 +519,33 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    line carries the files, violations, suppressed findings and seconds
    of (a), and of (b) each child's wall and trace seconds and its
    records.
+21. demo: the GPU sharing demo (``demos/gpu-sharing-comparison/run.py``),
+   its own functions at its full sizes: seven client processes started
+   at once, each under a timeshare grant of the card (its UUID, GRANT_GB
+   = 10 GB, through ``workload_env``), each building BENCH_350M (flash
+   attention, no remat, fp32 parameters from one seed) and warming it;
+   the rows at 1, 2, 4 and 7 clients release the first N at one
+   instant, each client a warm request and 6 timed requests of the
+   8 x 2048 forward's last-position logits summed and fetched.  It fails
+   unless every row holds clients x 6 requests, every client launched
+   24 K1 a request (warm ones included) and no other kernel, all the
+   clients' scalars and last logits are bitwise equal, those logits are
+   within LOGITS_TOL of the same forward with dense attention (computed
+   in this process once), the dense model with non-causal attention
+   moves those logits past LOGITS_TOL (the limit can see a wrong K1 at
+   this shape), and no client's peak reserved memory reached its cap.  The rows and the summary (the dedicated mean and the
+   degradation ratios) come on lines before the phase's; the isolated
+   row is skipped on a one-card host.  No speed limit is set.
+22. mfu: the MFU sweep (``scripts/mfu_explore_torch.py``), its quick
+   variants (batch 8 unfused, 8 fused, 16 fused; "mats" remat; seq
+   2048) through ``ShardedTrainer`` on a one-rank mesh in this process,
+   the launch counts zeroed just before and read just after: each row a
+   band of ms per step over 3 repeats of 4 steps (CUDA events), tokens/s
+   and MFU over ``peaks_for``, peak memory and the launches per step.
+   It fails on an ``error`` row, a first warm-up loss off
+   EXPECTED_LOSS0 by more than LOSS0_TOL, a non-finite loss, an MFU
+   outside (0, 1], or a row whose steps launched no K1 or none of the
+   backward kernels the trainer routes to.
 
 The host-only work, (a) of phases 11 to 17 and phases 18 to 20 whole,
 runs in one background process started after phase 7 (HOST_JOBS, at
@@ -527,10 +556,11 @@ lines come out in the phases' order.  Their host ms are taken beside
 the card phases, on a shared host, and are not for comparison between
 runs (``scripts/time_native_fleet.py`` is phase 19's A/B).
 
-Then the kernel summary line (one entry per compiled tile, with its
-launches by path, the gang, recovery, mains, elastic, serving and
-capacity children's among them; a tile no path ran must have run in the
-autotune phase), the card's ``name, power.limit`` and, last,
+Phases 21 and 22 run after the host lines.  Then the kernel summary
+line (one entry per compiled tile, with its launches by path, the gang,
+recovery, mains, elastic, serving, capacity and demo children's among
+them; a tile no path ran must have run in the autotune phase), the
+card's ``name, power.limit`` and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -672,9 +702,15 @@ def phase_build() -> dict[str, dict]:
     return resources
 
 
-def _qkv(gen, b, s, h, d=128):
-    return [torch.randn(b, s, h, d, generator=gen, device="cuda",
-                        dtype=torch.bfloat16) for _ in range(3)]
+def _qkv(gen, b, s, h, d=128, kv_heads=None):
+    """q, k, v [b, s, h, d]; with ``kv_heads``, k and v are drawn at that
+    many heads and repeated to h as the model's ``repeat_kv`` does."""
+    from nos_tpu_torch.ops.attention import repeat_kv
+
+    kv = h if kv_heads is None else kv_heads
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for n in (h, kv, kv))
+    return [q, repeat_kv(k, h // kv), repeat_kv(v, h // kv)]
 
 
 def _errors(q, k, v, causal, tile=None, ref=None):
@@ -710,10 +746,11 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
             / want.float().abs().max().clamp_min(1e-3)).item()
 
 
-def _bwd_inputs(gen, b, s, h, causal, views=False):
-    """q, k, v, dO (views into one wider tensor when ``views``) and the
-    plain forward's lse and delta, so kernel and plain version see the
-    same inputs."""
+def _bwd_inputs(gen, b, s, h, causal, views=False, kv_heads=None):
+    """q, k, v, dO (views into one wider tensor when ``views``; k and v
+    grouped as ``_qkv`` makes them with ``kv_heads``) and the plain
+    forward's lse and delta, so kernel and plain version see the same
+    inputs."""
     from nos_tpu_torch.ops import attention as A
 
     if views:
@@ -721,7 +758,7 @@ def _bwd_inputs(gen, b, s, h, causal, views=False):
                            dtype=torch.bfloat16)
         q, k, v, do = (wide[..., i * 128:(i + 1) * 128] for i in range(4))
     else:
-        q, k, v = _qkv(gen, b, s, h)
+        q, k, v = _qkv(gen, b, s, h, kv_heads=kv_heads)
         do = torch.randn(b, s, h, 128, generator=gen, device="cuda",
                          dtype=torch.bfloat16)
     o, lse = A.flash_attention_fwd_reference(q, k, v, causal)
@@ -768,6 +805,12 @@ def _sdpa_backward_ms(q, k, v, do) -> float:
                    inner=5, samples=10)
 
 
+# The MFU sweep's largest quick batch (phase 22): BENCH_350M's 8 heads
+# over 4 K/V heads.
+SWEEP_CASE, SWEEP_SHAPE, SWEEP_KV_HEADS = (
+    "sweep B16 S2048 H8 kv4 causal", (16, 2048, 8), 4)
+
+
 # Sequence lengths around the tile edges (K1: 128 or 64 q rows and 128 or
 # 64 keys; K2 and K4: 128 or 64 keys and 64 q rows; K3: 128 or 64 q rows
 # and 64 keys), and one ragged length.
@@ -801,7 +844,7 @@ def phase_kernels(resources: dict) -> list[dict]:
     fwd_tiles = _tiles_of("flash_fwd")
 
     # K1, the forward, at every tile: the serving shape, ragged and
-    # strided cases.
+    # strided cases, and the MFU sweep's grouped B16 shape.
     checks = []
     b, s, h, d = 8, 512, 8, 128          # the serving shape
     q, k, v = _qkv(gen, b, s, h, d)
@@ -815,6 +858,8 @@ def phase_kernels(resources: dict) -> list[dict]:
                        dtype=torch.bfloat16)
     cases.append(("strided B2 S130 H4 causal=True",
                   (wide[..., :128], wide[..., 128:], wide[..., 64:192]), True))
+    cases.append((SWEEP_CASE, tuple(_qkv(gen, *SWEEP_SHAPE,
+                                         kv_heads=SWEEP_KV_HEADS)), True))
     for case, (cq, ck, cv), causal in cases:
         ref = A.flash_attention_fwd_reference(cq, ck, cv, causal)
         for name, tile in fwd_tiles:
@@ -873,6 +918,8 @@ def phase_kernels(resources: dict) -> list[dict]:
                               _bwd_inputs(gen, 2, seq, 4, causal), causal))
     bwd_cases.append(("strided B2 S130 H3 causal=True",
                       _bwd_inputs(gen, 2, 130, 3, True, views=True), True))
+    bwd_cases.append((SWEEP_CASE, _bwd_inputs(
+        gen, *SWEEP_SHAPE, True, kv_heads=SWEEP_KV_HEADS), True))
     kernels = _bwd_kernels()
     errs = {name: 0.0 for name in TILES}
     outputs = {}
@@ -905,7 +952,7 @@ def phase_kernels(resources: dict) -> list[dict]:
     if not fused_vs_split <= FUSED_SPLIT_TOL:
         fail(f"fused vs split backward at the training shape: "
              f"{fused_vs_split} (tol {FUSED_SPLIT_TOL})")
-    del outputs, fused, split
+    del outputs, fused, split, cases, bwd_cases
 
     targs = (tq, tk, tv, tdo, tlse, tdelta, True)
     # The split pair writes every output row from one CTA after a loop in
@@ -4519,13 +4566,7 @@ class _RecoveryLoop(_QuotaLoop):
 def _load_stub():
     """``tests/k8s_stub.py`` (a kube-apiserver-shaped HTTP stub, stdlib
     only), loaded by its path in the checkout."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "k8s_stub", ROOT / "tests" / "k8s_stub.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return _load_path("k8s_stub", "tests", "k8s_stub.py")
 
 
 class _StubTap:
@@ -8212,6 +8253,195 @@ def phase_capacity(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The demo phase: ``demos/gpu-sharing-comparison/run.py``'s own functions
+# at its full sizes.  Its seven clients are processes under 10 GB
+# timeshare grants of the card; each builds BENCH_350M (flash, no remat,
+# fp32 parameters from one seed) and serves 8 x 2048 forwards.  The
+# clients' scalars are sums of 8 x 32000 last-position logits, so the
+# serve phase's limit holds each of those logits against the dense
+# forward's (a sum of 256,000 roundings is no single logit's error).
+
+
+def _load_path(name: str, *parts: str):
+    """The module at ``parts`` under the checkout, loaded by its path
+    (scripts and demos are not packages)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT.joinpath(*parts))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _demo_module():
+    return _load_path("gpu_sharing_demo", "demos", "gpu-sharing-comparison",
+                      "run.py")
+
+
+def _mfu_module():
+    return _load_path("mfu_explore_torch", "scripts", "mfu_explore_torch.py")
+
+
+def check_demo(demo, rows: list[dict], reports: list[dict],
+               dense: torch.Tensor, noncausal: torch.Tensor,
+               layers: int) -> dict:
+    """Phase 21's checks on the demo's rows, its clients' reports and
+    the last logits of the dense forward and of the dense model made
+    non-causal: every row holds clients x 6 requests, every client
+    launched K1 ``layers`` times a request (warm ones included) and no
+    other kernel, every scalar and every client's last logits are
+    bitwise equal, those logits are finite, of the request's shape and
+    within LOGITS_TOL of ``dense``, ``noncausal`` is not (the limit sees
+    a wrong attention), and no client's peak reached its cap.  Returns
+    the clients' launches by tile, the scalar and the distances of the
+    clients' and the non-causal logits from the dense ones."""
+    for r in rows:
+        if r["requests"] != r["clients"] * demo.REQUESTS_PER_CLIENT:
+            fail(f"the demo's row {r} does not hold clients x "
+                 f"{demo.REQUESTS_PER_CLIENT} requests")
+    want_requests = [1 + (1 + demo.REQUESTS_PER_CLIENT) * sum(
+        1 for n in demo.CLIENT_COUNTS if n > i) for i in range(len(reports))]
+    tiles = {name: 0 for name in TILES}
+    for i, (r, want) in enumerate(zip(reports, want_requests)):
+        if r["requests"] != want or r["k1_launches"] != layers * want:
+            fail(f"demo client {i} made {r['requests']} requests and "
+                 f"{r['k1_launches']} K1 launches, expected {want} and "
+                 f"{layers * want}")
+        got = {name: r["tile_launches"].get(name, 0) for name in TILES}
+        if sum(got.values()) != sum(r["tile_launches"].values()) \
+                or sum(got.values()) != r["k1_launches"] or any(
+                    n for name, n in got.items()
+                    if TILES[name][0] != "flash_fwd"):
+            fail(f"demo client {i} launched {r['tile_launches']}, not K1 "
+                 f"alone")
+        tiles = {name: tiles[name] + got[name] for name in TILES}
+        if not r["peak_reserved_bytes"] < r["cap_bytes"]:
+            fail(f"demo client {i} reserved {r['peak_reserved_bytes']} B, "
+                 f"at its cap {r['cap_bytes']} B")
+    scalars = {s for r in reports for s in r["scalars"]}
+    if len(scalars) != 1 or not all(math.isfinite(s) for s in scalars):
+        fail(f"the demo clients' scalars differ or are not finite: "
+             f"{sorted(scalars)}")
+    logits = [demo.logits_of(r) for r in reports]
+    if not all(torch.equal(x, logits[0]) for x in logits):
+        fail("the demo clients' last logits differ")
+    if logits[0].shape != dense.shape or not torch.isfinite(logits[0]).all():
+        fail(f"the demo's logits: shape {tuple(logits[0].shape)} against "
+             f"{tuple(dense.shape)}, finite "
+             f"{bool(torch.isfinite(logits[0]).all())}")
+    diff = (logits[0] - dense).abs().max().item()
+    if not diff <= LOGITS_TOL:
+        fail(f"the demo's logits differ from the dense forward's by {diff} "
+             f"(tol {LOGITS_TOL})")
+    wrong_diff = (noncausal - dense).abs().max().item()
+    if not wrong_diff > LOGITS_TOL:
+        fail(f"a non-causal attention moves the demo's logits by only "
+             f"{wrong_diff}, within the limit {LOGITS_TOL}: the check "
+             f"cannot see it")
+    (scalar,) = scalars
+    return {"tiles": tiles, "scalar": scalar, "logits_diff": diff,
+            "noncausal_diff": wrong_diff}
+
+
+def phase_demo(device: dict, smi: str) -> dict[str, int]:
+    """Phase 21: the GPU sharing demo's rows at 1, 2, 4 and 7 clients
+    from one set of seven client processes under GRANT_GB grants of the
+    card (``run_timeshare``), held by ``check_demo`` against the same
+    forward with dense attention, computed here once.  Returns the
+    clients' launches, by kernel."""
+    from nos_tpu_torch.ops import _build
+
+    demo = _demo_module()
+    t0 = time.perf_counter()
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    rows, reports = demo.run_timeshare("cuda", device["uuid"])
+    demo_s = time.perf_counter() - t0
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"a demo client built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    _release()
+    request = demo.build_model("cuda", demo.demo_config(attn_impl="dense"))
+    dense = request.last.float().cpu()
+    noncausal = _noncausal_logits(
+        request.model, request.tokens)[:, -1, :].float().cpu()
+    del request
+    _release()
+    layers = demo.demo_config().num_layers
+    checked = check_demo(demo, rows, reports, dense, noncausal, layers)
+    launches = {"flash_fwd": sum(r["k1_launches"] for r in reports),
+                "flash_bwd_fused": 0, "flash_dq": 0, "flash_dkv": 0}
+    summary = demo.summary(rows, smi)
+    for r in rows:
+        emit({"demo_row": r})
+    emit({"demo_summary": summary})
+    emit({"phase": "demo", "nvidia_smi": smi, "seconds":
+          time.perf_counter() - t0, "demo_seconds": demo_s,
+          "model": "BENCH_350M", "layers": layers, "batch": demo.BATCH,
+          "seq": demo.SEQ, "grant": {"NOS_TPU_VISIBLE_CHIPS": device["uuid"],
+                                     "NOS_TPU_TIMESHARE_GB": demo.GRANT_GB},
+          "rows": rows, "degradation": summary["degradation"],
+          "clients": [{k: r[k] for k in (
+              "requests", "k1_launches", "peak_allocated_bytes",
+              "peak_reserved_bytes", "cap_bytes")} for r in reports],
+          "scalar": checked["scalar"], "scalar_dense": dense.sum().item(),
+          "logits_max_abs_diff_vs_dense": checked["logits_diff"],
+          "logits_max_abs_diff_noncausal": checked["noncausal_diff"],
+          "logits_tol": LOGITS_TOL, "isolated": demo.run_isolated("cuda"),
+          "launches": launches, "tile_launches": checked["tiles"]})
+    PATH_TILES["demo"] = checked["tiles"]
+    return launches
+
+
+def check_mfu(rows: list[dict]) -> None:
+    """Phase 22's checks on the sweep's rows: no ``error`` row, a first
+    warm-up loss within LOSS0_TOL of EXPECTED_LOSS0 (the train and moe
+    phases' check of the loss at initialisation), a finite loss, an MFU
+    in (0, 1], and steps that launched K1 and the backward kernels the
+    trainer routes to (K2, or K3 and K4)."""
+    for r in rows:
+        if "error" in r:
+            fail(f"the MFU sweep's variant failed: {r}")
+        per_step = r["launches_per_step"]
+        if not (abs(r["loss0"] - EXPECTED_LOSS0) <= LOSS0_TOL
+                and math.isfinite(r["loss"]) and 0 < r["mfu"] <= 1
+                and per_step["flash_fwd"] > 0
+                and (per_step["flash_bwd_fused"] > 0
+                     or (per_step["flash_dq"] > 0
+                         and per_step["flash_dkv"] > 0))):
+            fail(f"the MFU sweep's row {r}")
+
+
+def phase_mfu(smi: str) -> dict[str, int]:
+    """Phase 22: ``scripts/mfu_explore_torch.py``'s quick variants in
+    this process, the launch counts zeroed just before and read just
+    after, the rows held by ``check_mfu``.  Returns the sweep's
+    launches."""
+    import contextlib
+
+    from nos_tpu_torch.ops.roofline import peaks_for
+
+    mfu = _mfu_module()
+    t0 = time.perf_counter()
+    _release()
+    peak = peaks_for(torch.cuda.get_device_name(0))[0]
+    _zero_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = mfu.sweep(mfu.VARIANTS[:mfu.QUICK], peak, "cuda")
+    launches = _launch_counts()
+    PATH_TILES["mfu"] = _tile_counts()
+    _release()
+    check_mfu(rows)
+    emit({"phase": "mfu", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "seq": mfu.SEQ,
+          "warmup": mfu.WARMUP, "steps": mfu.STEPS, "repeats": mfu.REPEATS,
+          "peak_flops": peak, "expected_loss0": EXPECTED_LOSS0,
+          "loss0_tol": LOSS0_TOL, "rows": rows, "launches": launches,
+          "tile_launches": PATH_TILES["mfu"]})
+    return launches
+
+
 # The sim phase.  (a) and (b): ``python -m nos_tpu_torch.sim`` as child
 # processes (``WorstWeek.run`` resets the process's metrics registry,
 # which the earlier phases' counters live in, and the child's one JSON
@@ -8825,9 +9055,12 @@ def main() -> int:
         finally:
             _HOST.close()
             _HOST = None
+        demo = phase_demo(device, smi)
+        mfu = phase_mfu(smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
              "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
-             "elastic": elastic, "serving": serving, "capacity": capacity}
+             "elastic": elastic, "serving": serving, "capacity": capacity,
+             "demo": demo, "mfu": mfu}
     for entry in entries:
         name = entry["name"]
         kernel = TILES[name][0]

@@ -43,7 +43,8 @@ when the fused kernel's dq partials would exceed
 
 ``FLASH_FWD_LAUNCHES``, ``FLASH_BWD_FUSED_LAUNCHES``,
 ``FLASH_DQ_LAUNCHES`` and ``FLASH_DKV_LAUNCHES`` count kernel launches,
-and ``TILE_LAUNCHES`` counts them by (kernel, tile).
+and ``TILE_LAUNCHES`` counts them by (kernel, tile); ``tile_name``
+names a compiled tile.
 """
 
 from __future__ import annotations
@@ -80,6 +81,16 @@ KERNEL_TILES: dict[str, tuple[tuple[int, int], ...]] = {
     "flash_dq": ((128, 64), (64, 64)),
     "flash_dkv": ((64, 128), (64, 64)),
 }
+
+
+def tile_name(kernel: str, tile: tuple[int, int]) -> str:
+    """A compiled tile's name: the kernel's own for its default tile, else
+    ``<kernel>_<block_q>x<block_k>``."""
+    if tuple(tile) == KERNEL_TILES[kernel][0]:
+        return kernel
+    return f"{kernel}_{tile[0]}x{tile[1]}"
+
+
 # The kernels of each pass, by backward implementation.
 PASS_KERNELS = {"fwd": ("flash_fwd",), "fused": ("flash_bwd_fused",),
                 "split": ("flash_dq", "flash_dkv")}

@@ -5,10 +5,13 @@ analytic model FLOPs of a train step (``nos_tpu/ops/roofline.py``'s
 Peaks are NVIDIA's data-sheet figures for dense bf16 tensor-core work
 and HBM bandwidth, matched by substring against
 ``torch.cuda.get_device_name()``; the SXM, PCIe and NVL parts of the H100
-differ.  They assume the card's full power limit.
+differ.  They assume the card's full power limit, which ``card_line``
+reports beside a measurement.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 # (needle, bf16 FLOP/s, HBM bytes/s); more specific needles first.
 _PEAKS = (
@@ -27,6 +30,20 @@ def peaks_for(device_name: str) -> tuple[float, float]:
         if needle in name:
             return flops, bandwidth
     raise ValueError(f"no published peaks for {device_name!r}")
+
+
+def card_line(device) -> str:
+    """The card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (its
+    first card), or "cpu" for a CPU ``device``."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def model_flops_per_step(cfg, batch: int, seq: int) -> float:

@@ -49,7 +49,9 @@ def _port_files():
         ROOT / "scripts" / "ab_flash_kernel.py",
         ROOT / "scripts" / "sweep_flash_torch.py",
         ROOT / "scripts" / "time_waste_waterfall.py",
-        ROOT / "scripts" / "time_native_fleet.py"]
+        ROOT / "scripts" / "time_native_fleet.py",
+        ROOT / "scripts" / "mfu_explore_torch.py",
+        ROOT / "demos" / "gpu-sharing-comparison" / "run.py"]
 
 
 _IMPORT_ALL = """

@@ -448,3 +448,147 @@ class TestCRDs:
             assert (doc["spec"]["scope"] == "Namespaced") == namespaced
             version = doc["spec"]["versions"][0]
             assert f"{GROUP}/{version['name']}" == GROUP_VERSION
+
+
+# -- the image ----------------------------------------------------------------
+
+DOCKERFILE = ROOT / "deploy/image/Dockerfile"
+
+
+def dockerfile_stages(path: pathlib.Path = DOCKERFILE) -> dict[str, dict]:
+    """The Dockerfile's stages by name, in order: each its base image (the
+    global ARGs' defaults substituted) and its instructions as (keyword,
+    text) with continuation lines joined."""
+    lines, cur = [], ""
+    for raw in path.read_text().splitlines():
+        line = raw.strip()
+        if not cur and (not line or line.startswith("#")):
+            continue
+        if line.endswith("\\"):
+            cur += line[:-1] + " "
+            continue
+        lines.append(cur + line)
+        cur = ""
+    args: dict[str, str] = {}
+    stages: dict[str, dict] = {}
+    stage = None
+    for line in lines:
+        keyword, _, text = line.partition(" ")
+        keyword, text = keyword.upper(), text.strip()
+        if keyword == "ARG" and stage is None:
+            name, _, default = text.partition("=")
+            args[name] = default
+        elif keyword == "FROM":
+            words = text.split()
+            base = words[0]
+            for name, value in args.items():
+                base = base.replace("${" + name + "}", value)
+            name = words[2] if len(words) == 3 and words[1].upper() == "AS" \
+                else str(len(stages))
+            stage = stages[name] = {"base": base, "steps": []}
+        else:
+            stage["steps"].append((keyword, text))
+    return stages
+
+
+def copied(stages: dict, name: str) -> set[str]:
+    """The build context's paths stage ``name`` holds through its COPYs,
+    through ``--from`` stages too."""
+    out = set()
+    for keyword, text in stages[name]["steps"]:
+        if keyword != "COPY":
+            continue
+        words = text.split()
+        source = words[-2]
+        if words[0].startswith("--from="):
+            stage = words[0].split("=", 1)[1]
+            out |= {p for p in copied(stages, stage)
+                    if p == pathlib.PurePosixPath(source).name}
+        else:
+            out.add(source.rstrip("/"))
+    return out
+
+
+def _has_main(module: str) -> bool:
+    import ast
+
+    tree = ast.parse((ROOT / (module.replace(".", "/") + ".py")).read_text())
+    return any(isinstance(n, ast.FunctionDef) and n.name == "main"
+               for n in tree.body)
+
+
+class TestImage:
+    """``deploy/image/Dockerfile``, checked statically (no docker here):
+    the chart's mains run from its control-plane stage, the default
+    target; nothing of the JAX package is copied; the native shim and the
+    kernels are built at image build time."""
+
+    @pytest.fixture(scope="class")
+    def stages(self):
+        return dockerfile_stages()
+
+    def test_the_stages(self, stages):
+        assert list(stages) == ["shim", "workload", "control-plane"]
+        assert stages["control-plane"]["base"] == "python:3.12-slim"
+
+    def test_every_chart_main_is_a_module_the_control_plane_copies(
+            self, stages):
+        docs = render_chart(CHART, context(**{
+            "metricsexporter.enabled": True, "provisioner.enabled": True,
+            "autoscaler.enabled": True}))
+        modules = set()
+        for name, c in containers(docs).items():
+            if "certgen" not in name:
+                assert c["command"][:2] == ["python", "-m"], name
+                modules.add(c["command"][2])
+        assert {m.rsplit(".", 1)[1] for m in modules} == \
+            set(MAINS) | {"provisioner"}
+        assert copied(stages, "control-plane") == {"nos_tpu_torch"}
+        for module in modules:
+            assert module.split(".")[0] == "nos_tpu_torch", module
+            assert _has_main(module), module
+
+    def test_no_stage_copies_the_jax_package(self, stages):
+        for name, stage in stages.items():
+            for keyword, text in stage["steps"]:
+                if keyword in ("COPY", "ADD"):
+                    sources = [w for w in text.split()[:-1]
+                               if not w.startswith("--")]
+                    assert not any(
+                        pathlib.PurePosixPath(s).parts[0] == "nos_tpu"
+                        for s in sources), (name, text)
+
+    def test_the_control_plane_installs_no_torch(self, stages):
+        steps = stages["control-plane"]["steps"]
+        installs = " ".join(t for k, t in steps if k == "RUN")
+        assert "pip install" in installs
+        for package in ("pyyaml", "grpcio", "protobuf"):
+            assert package in installs.split()
+        assert "torch" not in installs
+        assert "torch" not in stages["control-plane"]["base"]
+
+    def test_the_shim_is_built_by_native_load(self, stages):
+        runs = [t for k, t in stages["shim"]["steps"] if k == "RUN"]
+        assert any("from nos_tpu_torch.device import native; native.load()"
+                   in t for t in runs)
+        assert any("g++" in t for t in runs)
+        assert copied(stages, "shim") == {"nos_tpu_torch"}
+
+    def test_the_workload_builds_the_kernels_and_runs_the_train_main(
+            self, stages):
+        steps = stages["workload"]["steps"]
+        runs = [t for k, t in steps if k == "RUN"]
+        assert any("from nos_tpu_torch.ops import _build; _build.build()"
+                   in t for t in runs)
+        assert any("torch==" in t for t in runs)
+        assert "cuda" in stages["workload"]["base"] \
+            and "devel" in stages["workload"]["base"]
+        entry = [t for k, t in steps if k == "ENTRYPOINT"]
+        assert entry == ['["python", "-m", "nos_tpu_torch.cmd.train"]']
+        assert _has_main("nos_tpu_torch.cmd.train")
+
+    def test_the_chart_names_the_image_s_dockerfile(self):
+        values = (CHART / "values.yaml").read_text()
+        assert "deploy/image/Dockerfile" in values
+        assert context()["Values"]["image"]["repository"] == \
+            "ghcr.io/nos-tpu/nos-tpu-torch"
