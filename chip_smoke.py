@@ -519,6 +519,16 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    line carries the files, violations, suppressed findings and seconds
    of (a), and of (b) each child's wall and trace seconds and its
    records.
+onramp: the deploy on-ramp on the host, touching no GPU:
+   ``hack/render-chart-torch.py`` as a process (exit 0; its manifest,
+   kind, ConfigMap and CRD counts and the manifests it writes equal to
+   the port's renderer's in this process), the two workers of
+   ``hack/kind/cluster-torch.yaml`` built with the model the host's
+   discovery reads through NVML (one MIG node, one MPS node), and the
+   example pods of ``deploy/config-torch/`` planned and bound over them
+   by the port's partitioners, node agents (the MIG agent on the fake
+   runtime) and scheduler in memory: the training pod on the MIG node,
+   the serving replica on the MPS node.
 21. demo: the GPU sharing demo (``demos/gpu-sharing-comparison/run.py``),
    its own functions at its full sizes: seven client processes started
    at once, each under a timeshare grant of the card (its UUID, GRANT_GB
@@ -547,7 +557,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    outside (0, 1], or a row whose steps launched no K1 or none of the
    backward kernels the trainer routes to.
 
-The host-only work, (a) of phases 11 to 17 and phases 18 to 20 whole,
+The host-only work, (a) of phases 11 to 17, phases 18 to 20 and the
+on-ramp whole,
 runs in one background process started after phase 7 (HOST_JOBS, at
 nice HOST_NICE, in the order the phases read it) while this process
 drives the card phases: a phase waits for its part where it reads it,
@@ -567,6 +578,7 @@ card's ``name, power.limit`` and, last,
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -632,13 +644,11 @@ def time_ms(fn, inner: int = 10, samples: int = 25) -> float:
 
 
 def phase_env() -> str:
+    from nos_tpu_torch.ops.roofline import card_line
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line("cuda")
     emit({"phase": "env", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -5277,32 +5287,45 @@ class _Mains:
 
     def wait_healthy(self, names: tuple[str, ...] | None = None
                      ) -> dict[str, float]:
-        """Each main's start to /healthz 200 (then /readyz 200), s."""
+        """Each main's start to /healthz 200, s; then each main polled
+        until /readyz answers 200 "ok", all within MAINS_START_LIMIT_S.
+        A main is live before it is ready (``Main.start`` sets ready
+        last, as the JAX package's does), so one read of /readyz right
+        after /healthz may find it starting."""
         names = self.mains if names is None else names
         healthy: dict[str, float] = {}
+        ready: set[str] = set()
+        last: dict[str, tuple[int, str]] = {}
         t0 = time.monotonic()
-        while len(healthy) < len(names):
+        while len(ready) < len(names):
             for name in names:
-                if name in healthy:
+                if name in ready:
                     continue
                 p = self.procs[name]
                 if p["proc"].poll() is not None:
                     fail(f"main {name} exited {p['proc'].returncode} at "
                          f"start:\n{self.logs(name)[-4000:]}")
+                path = "/readyz" if name in healthy else "/healthz"
                 try:
-                    code, _ = self._get(name, "/healthz")
+                    code, body = self._get(name, path)
                 except OSError:
                     continue
-                if code == 200:
-                    healthy[name] = time.perf_counter() - p["t0"]
+                if path == "/healthz":
+                    if code == 200:
+                        healthy[name] = time.perf_counter() - p["t0"]
+                elif (code, body) == (200, "ok"):
+                    ready.add(name)
+                else:
+                    last[name] = (code, body)
             if time.monotonic() - t0 > MAINS_START_LIMIT_S:
-                fail(f"mains {sorted(set(names) - set(healthy))} gave no "
-                     f"/healthz within {MAINS_START_LIMIT_S} s")
+                if len(healthy) < len(names):
+                    fail(f"mains {sorted(set(names) - set(healthy))} gave "
+                         f"no /healthz within {MAINS_START_LIMIT_S} s")
+                answers = {n: last.get(n) for n in sorted(set(names) - ready)}
+                fail(f"mains {sorted(answers)} gave no /readyz 200 'ok' "
+                     f"within {MAINS_START_LIMIT_S} s; last answers "
+                     f"{answers}")
             time.sleep(0.05)
-        for name in names:
-            code, body = self._get(name, "/readyz")
-            if (code, body) != (200, "ok"):
-                fail(f"main {name} answered /readyz with {code} {body!r}")
         return healthy
 
     def metric(self, name: str, metric: str, **labels: str) -> float:
@@ -6762,10 +6785,12 @@ SERVING_SERVICE = {"name": "chat", "namespace": "serve",
                    "max_replicas": 2, "target_load_per_replica": 0.4,
                    "scale_up_cooldown_s": 0.5, "scale_down_cooldown_s": 3.0,
                    "down_hysteresis": 0.2}
-# the autoscaler main's reconcile interval: the router publishes right
-# after a reconcile ends, well inside the interval, so no reconcile reads
-# a publish half written
+# the autoscaler main's reconcile interval; the story holds the main's
+# lists at the stub while the router publishes (``_ClientGate``, which
+# tells its requests apart by this bearer token), so no reconcile reads a
+# publish half written
 SERVING_RECONCILE_S = 0.25
+SERVING_AUTOSCALER_TOKEN = "serving-autoscaler"
 SERVING_TICK_S = 0.05
 SERVING_PUBLISH_TICKS = 5
 # the burst's requests: the serve phase's prompt, 512 tokens out, each a
@@ -7188,25 +7213,99 @@ def serving_writes(records: list[tuple], plans: list[str], beat: str,
             "status": status}
 
 
+class _ClientGate:
+    """Holds one client's requests of one HTTP method at the REST stub,
+    those bearing ``token`` (watches pass), while ``held``: a request
+    already being served ends first, later ones wait, parked, until the
+    hold ends.  It wraps the handler class of this one stub.  The serving
+    story holds the autoscaler's lists while the router publishes (two
+    patches a publish, one list a reconcile: no reconcile reads one stamp
+    of the two), and its create of the first replica until the fillers
+    exist (the three reach the partitioner within one batch window, so in
+    one plan, however slow the host)."""
+
+    def __init__(self, stub, token: str, method: str) -> None:
+        self._cv = threading.Condition()
+        self._closed = False
+        self._serving = 0
+        self.parked: list[str] = []
+        header = f"Bearer {token}"
+        base = stub.httpd.RequestHandlerClass
+        serve = getattr(base, f"do_{method}")
+
+        def handle(handler) -> None:
+            if handler.headers.get("Authorization") != header \
+                    or "watch=" in handler.path:
+                serve(handler)
+                return
+            with self._cv:
+                if self._closed:
+                    self.parked.append(handler.path)
+                    self._cv.notify_all()
+                    while self._closed:
+                        self._cv.wait()
+                    self.parked.remove(handler.path)
+                self._serving += 1
+            try:
+                serve(handler)
+            finally:
+                with self._cv:
+                    self._serving -= 1
+                    self._cv.notify_all()
+
+        stub.httpd.RequestHandlerClass = type(
+            "GatedHandler", (base,), {f"do_{method}": handle})
+
+    @contextlib.contextmanager
+    def held(self):
+        with self._cv:
+            self._closed = True
+            while self._serving:
+                self._cv.wait()
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._closed = False
+                self._cv.notify_all()
+
+    def wait_parked(self, part: str, limit_s: float) -> None:
+        """Until a held request whose path holds ``part`` waits."""
+        deadline = time.monotonic() + limit_s
+        with self._cv:
+            while not any(part in path for path in self.parked):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    fail(f"no held request to {part} reached the stub "
+                         f"within {limit_s} s")
+                self._cv.wait(left)
+
+
 def serving_story(cl) -> dict:
     """Phase 16 (b)'s story on a cluster ``cl`` (the port's processes on
     the card, or either package on the CPU: ``_ServingCluster``, the CPU
     tests' JAX cluster).  The mains up; the autoscaler's main creates
-    chat's first replica and the smoke the two best-effort fillers at
-    once: one plan, the three bound; the router's first publish; the
-    burst, advanced one publish at a time, each publish made right after
-    an autoscaler reconcile and followed by one that read it and by the
-    decision it took landing (a scale-up bound, a scale-down deleted);
+    chat's first replica, its create held at the stub (``cl.creates``, a
+    ``_ClientGate``) until the smoke has created the two best-effort
+    fillers: one plan, the three bound; the router's first publish; the
+    burst, advanced one publish at a time, each publish made while the
+    autoscaler's lists are held (``cl.lists``) and followed by a
+    reconcile that read it and by the decision it took landing (a
+    scale-up bound, a scale-down deleted);
     the drain until every stream ended and every session expired; a
     last publish.  ``cl``'s hooks start and stop the children.  Returns
     the story's fields (virtual times, published loads, the scale events
     in order) and ``cl``'s wall clock marks."""
     fields: dict = {"steps": []}
     cl.start_mains()
-    cl.start_autoscaler()
+    # the three pods reach the partitioner within one batch window: the
+    # first replica's create waits at the stub while the fillers are made
+    with cl.creates.held():
+        cl.start_autoscaler()
+        cl.creates.wait_parked("/pods", SERVING_STEP_LIMIT_S)
+        for name in SERVING_FILLERS:
+            cl.create_filler(name)
     cl.until(lambda: "chat-r0" in cl.pods(), "create chat's first replica")
-    for name in SERVING_FILLERS:
-        cl.create_filler(name)
     first = ["chat-r0", *SERVING_FILLERS]
     cl.until(lambda: cl.running(first), "bind the replica and the fillers")
     cl.on_running(first)
@@ -7216,11 +7315,10 @@ def serving_story(cl) -> dict:
 
     def step(cmd: str = "advance") -> dict:
         before = cl.stamps()
-        if len(before) > 1:
-            # two stamps a publish: made right after a reconcile, so the
-            # next reads both or neither
-            cl.wait_reconcile(1)
-        report = cl.router(cmd)
+        # two stamps a publish: no list of the autoscaler is served while
+        # the router publishes, so a reconcile reads both or neither
+        with cl.lists.held():
+            report = cl.router(cmd)
         if cl.stamps() != before:
             # a reconcile that read the stamps, and its decision landed
             cl.wait_reconcile(2)
@@ -7320,6 +7418,8 @@ class _ServingCluster(_Mains):
         super().__init__(stub, tmp, model, agent_model,
                          mains=SERVING_MAINS + (SERVING_AUTOSCALER,),
                          quotas=SERVING_CARD_QUOTAS)
+        self.lists = _ClientGate(stub, SERVING_AUTOSCALER_TOKEN, "GET")
+        self.creates = _ClientGate(stub, SERVING_AUTOSCALER_TOKEN, "POST")
         self.card = card
         self.children = children
         self.marks: dict[str, float] = {}
@@ -7339,8 +7439,19 @@ class _ServingCluster(_Mains):
             cfg["batch_idle_s"] = SERVING_BATCH_IDLE_S
         if name == SERVING_AUTOSCALER:
             cfg |= {"reconcile_interval_s": SERVING_RECONCILE_S,
-                    "services": [SERVING_SERVICE], "slo_interval_s": 0.0}
+                    "services": [SERVING_SERVICE], "slo_interval_s": 0.0,
+                    "kubeconfig": self._autoscaler_kubeconfig()}
         return module, cfg, extra
+
+    def _autoscaler_kubeconfig(self) -> str:
+        """The stub's kubeconfig with SERVING_AUTOSCALER_TOKEN as the
+        user's bearer token: the gates hold the requests that carry it."""
+        path = self.tmp / "kubeconfig-autoscaler.json"
+        config = json.loads(pathlib.Path(self.kubeconfig).read_text())
+        config["users"] = [{"name": "smoke",
+                            "user": {"token": SERVING_AUTOSCALER_TOKEN}}]
+        path.write_text(json.dumps(config))
+        return str(path)
 
     # -- the story's surface ----------------------------------------------
     def start_mains(self) -> None:
@@ -8909,20 +9020,102 @@ def _determinism_line(smi: str) -> dict:
             "matrix": matrix}
 
 
+# -- the deploy on-ramp (host only) ------------------------------------------
+
+ONRAMP_RENDER_LIMIT_S = 120.0
+_RENDERED = re.compile(r"^rendered (\d+) manifests from (\S+): (.*)$", re.M)
+_VALIDATED = re.compile(
+    r"^validated (\d+) ConfigMaps through the typed loaders; (\d+) CRDs "
+    r"parsed$", re.M)
+
+
+def _onramp_line(smi: str) -> dict:
+    """The deploy on-ramp's line: ``hack/render-chart-torch.py`` as a
+    process (its exit code, and its counts against the renderer's in this
+    process); ``hack/kind/cluster-torch.yaml``'s two workers built with
+    the model this host's discovery reads through NVML (no CUDA
+    context); the example pods of ``deploy/config-torch/`` planned and
+    bound over them by the port's partitioners and scheduler in memory
+    (``testing/devcluster.py``).  No GPU is touched."""
+    import yaml
+
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.device import discovery
+    from nos_tpu_torch.testing import devcluster, helm
+
+    found = discovery.discover(allow_cuda=False)
+    model = found.model.name
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nos-onramp-") as out:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "hack/render-chart-torch.py"),
+             "--out", out], cwd=out, env=_child_env(), capture_output=True,
+            text=True, timeout=ONRAMP_RENDER_LIMIT_S)
+        render_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"hack/render-chart-torch.py exited {proc.returncode}:\n"
+                 f"{proc.stderr[-4000:]}")
+        written = list(yaml.safe_load_all(
+            pathlib.Path(out, "nos-tpu-torch.yaml").read_text()))
+    rendered, validated = (_RENDERED.search(proc.stdout),
+                           _VALIDATED.search(proc.stdout))
+    if rendered is None or validated is None:
+        fail(f"hack/render-chart-torch.py printed no summary:\n"
+             f"{proc.stdout[-4000:]}")
+    docs = helm.render_chart(ROOT / "deploy/helm/nos-tpu-torch")
+    kinds: dict[str, int] = {}
+    for doc in docs:
+        kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
+    printed = dict((k, int(n)) for k, _, n in (
+        part.rpartition(" x") for part in rendered.group(3).split(", ")))
+    crds = len(list((ROOT / "deploy/helm/nos-tpu-torch/crds").glob("*.yaml")))
+    got = (int(rendered.group(1)), printed, int(validated.group(1)),
+           int(validated.group(2)), written)
+    want = (len(docs), kinds, helm.validate_configmaps(docs), crds, docs)
+    if got != want:
+        fail(f"hack/render-chart-torch.py's counts {got[:4]} are not the "
+             f"renderer's {want[:4]}, or its manifests differ")
+    nodes = devcluster.kind_nodes(model=model)
+    kinds_of = {n.metadata.name: n.metadata.labels[C.LABEL_PARTITIONING]
+                for n in nodes}
+    if sorted(kinds_of.values()) != [C.MIG_KIND, C.MPS_KIND]:
+        fail(f"the kind config's workers are {kinds_of}, not one MIG and "
+             f"one MPS node")
+    t1 = time.perf_counter()
+    placed = devcluster.plan_and_bind(nodes, devcluster.example_pods())
+    plan_bind_ms = (time.perf_counter() - t1) * 1e3
+    by_kind = {v: k for k, v in kinds_of.items()}
+    want_bound = {"train-example": by_kind[C.MIG_KIND],
+                  "chat-replica-example": by_kind[C.MPS_KIND]}
+    if placed["bound"] != want_bound:
+        fail(f"the example pods were bound {placed['bound']} after "
+             f"{placed['ticks']} ticks, not {want_bound}")
+    return {"phase": "onramp", "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t0, "render_s": render_s,
+            "manifests": len(docs), "kinds": kinds,
+            "configmaps": want[2], "crds": crds, "model": model,
+            "discovery": found.source,
+            "nodes": kinds_of, "bound": placed["bound"],
+            "ticks": placed["ticks"], "plan_bind_ms": plan_bind_ms,
+            "geometry": placed["geometry"]}
+
+
 # -- host work beside the card phases ----------------------------------------
 
 # The host-only work, in the order the card phases read it: (a) of phases
-# 11 to 17, then phases 18 to 20 whole (HOST_LINES: each function takes
-# the card's nvidia-smi line and returns its phase's line), as (key,
-# function).  One background process runs it while this one drives the
-# card phases.
+# 11 to 17, then phases 18 to 20 and the on-ramp whole (HOST_LINES: each
+# function takes the card's nvidia-smi line and returns its phase's
+# line), as (key, function).  One background process runs it while this
+# one drives the card phases.
 HOST_JOBS = (("quota", "_quota_fleet_runs"), ("gang", "_gang_fleet_runs"),
              ("parallel", "_parallel_fleet_plans"),
              ("recovery", "_recovery_fleet_run"),
              ("defrag", "_defrag_fleet_runs"), ("serving", "_serving_fleets"),
              ("capacity", "_capacity_fleet_runs"), ("sim", "_sim_line"),
-             ("fleet", "_fleet_line"), ("determinism", "_determinism_line"))
-HOST_LINES = ("sim", "fleet", "determinism")
+             ("fleet", "_fleet_line"), ("determinism", "_determinism_line"),
+             ("onramp", "_onramp_line"))
+HOST_LINES = ("sim", "fleet", "determinism", "onramp")
 HOST_NICE = 10      # the card phases' processes go first on the host
 
 

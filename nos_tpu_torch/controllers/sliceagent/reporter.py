@@ -20,7 +20,7 @@ from nos_tpu_torch.kube.client import APIServer, KIND_NODE
 from nos_tpu_torch.kube.objects import Node
 from nos_tpu_torch.topology import USED
 from nos_tpu_torch.topology.annotations import (
-    encode_placement_records, strip_status_annotations,
+    StatusAnnotation, encode_placement_records, strip_status_annotations,
 )
 from nos_tpu_torch.topology.profile import profile_from_resource
 from nos_tpu_torch.utils.retry import retry_on_conflict
@@ -60,7 +60,7 @@ class SliceReporter:
             if pl is not None:
                 placed.setdefault(d.unit_index, []).append((status[0], pl))
         for (idx, profile, status), qty in counts.items():
-            annotations[f"{C.ANNOT_STATUS_PREFIX}{idx}-{profile}-{status}"] = \
+            annotations[StatusAnnotation(idx, profile, status, qty).key] = \
                 str(qty)
         for idx, records in placed.items():
             annotations[f"{C.ANNOT_PLACEMENTS_PREFIX}{idx}"] = \

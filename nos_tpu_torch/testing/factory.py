@@ -13,6 +13,7 @@ from nos_tpu_torch.api.podgroup import PodGroup, PodGroupSpec
 from nos_tpu_torch.kube.objects import (
     Container, Node, NodeStatus, ObjectMeta, PENDING, Pod, PodSpec, PodStatus,
 )
+from nos_tpu_torch.topology.annotations import StatusAnnotation
 from nos_tpu_torch.topology.known import H100_80GB, GpuModel
 from nos_tpu_torch.topology.profile import (
     slice_resource_name, timeshare_resource_name,
@@ -64,8 +65,8 @@ def make_gpu_node(name: str = "", model: GpuModel = H100_80GB,
     for index, tables in (status_geometry or {}).items():
         for status, table in tables.items():
             for profile, qty in table.items():
-                annotations[f"{C.ANNOT_STATUS_PREFIX}{index}-{profile}-"
-                            f"{status}"] = str(qty)
+                annotations[StatusAnnotation(index, profile, status,
+                                             qty).key] = str(qty)
                 if "." in profile:
                     res = slice_resource_name(profile)
                 else:

@@ -107,10 +107,13 @@ CONFIG_KINDS = {
 }
 
 
-def validate_configmaps(docs: list[dict]) -> int:
+def validate_configmaps(docs: list[dict],
+                        mounted_kubeconfig: str = "") -> int:
     """Round-trip every rendered config.yaml ConfigMap through its typed
     loader; returns the number validated.  Unknown config ConfigMaps and
-    loader rejections raise."""
+    loader rejections raise.  ``mounted_kubeconfig`` is the path where
+    the cluster mounts the kubeconfig Secret when a pod starts: a config
+    naming it is checked in everything but that file's presence."""
     import tempfile
 
     from nos_tpu_torch.api import config as cfg_mod
@@ -132,8 +135,12 @@ def validate_configmaps(docs: list[dict]) -> int:
         with tempfile.NamedTemporaryFile("w", suffix=".yaml") as f:
             f.write(doc["data"]["config.yaml"])
             f.flush()
-            # agent configs validate node_name at runtime (--node)
-            load_config(f.name, cls, validate=cls_name != "AgentConfig")
+            cfg = load_config(f.name, cls, validate=False)
+        # agent configs validate node_name at runtime (--node)
+        if cls_name != "AgentConfig":
+            if mounted_kubeconfig and cfg.kubeconfig == mounted_kubeconfig:
+                cfg.kubeconfig = ""
+            cfg.validate()
         checked += 1
     return checked
 

@@ -8,7 +8,8 @@ a plan id; the node side reports *observed* state as
 last applied plan id (reference pkg/gpu/annotation.go:29-224,
 pkg/api/nos.nebuly.com/v1alpha1/annotations.go:21-58).  ``<profile>`` is
 a MIG profile ("1g.10gb", the MIG family) or a memory share ("24gb", the
-MPS family); both families share the codec.
+MPS family); both families share the codec.  A key spells a profile as
+``profile.profile_key`` does ("1g.10gb+me" as "1g.10gb.me").
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Iterable, Mapping
 from nos_tpu_torch.api import constants as C
 
 from .packing import Placement
-from .profile import PROFILE_RE
+from .profile import PROFILE_RE, profile_from_key, profile_key
 
 
 @dataclass(frozen=True)
@@ -30,7 +31,7 @@ class SpecAnnotation:
 
     @property
     def key(self) -> str:
-        return f"{C.ANNOT_SPEC_PREFIX}{self.index}-{self.profile}"
+        return f"{C.ANNOT_SPEC_PREFIX}{self.index}-{profile_key(self.profile)}"
 
 
 @dataclass(frozen=True)
@@ -42,7 +43,8 @@ class StatusAnnotation:
 
     @property
     def key(self) -> str:
-        return f"{C.ANNOT_STATUS_PREFIX}{self.index}-{self.profile}-{self.status}"
+        return (f"{C.ANNOT_STATUS_PREFIX}{self.index}-"
+                f"{profile_key(self.profile)}-{self.status}")
 
 
 def _parse_qty(v: str) -> int | None:
@@ -60,7 +62,9 @@ def parse_spec_annotations(annotations: Mapping[str, str]) -> list[SpecAnnotatio
         m = C.SPEC_ANNOT_RE.match(k)
         qty = _parse_qty(v) if m else None
         if m and qty is not None:
-            out.append(SpecAnnotation(int(m.group("index")), m.group("profile"), qty))
+            out.append(SpecAnnotation(int(m.group("index")),
+                                      profile_from_key(m.group("profile")),
+                                      qty))
     return sorted(out, key=lambda a: (a.index, a.profile))
 
 
@@ -71,8 +75,8 @@ def parse_status_annotations(annotations: Mapping[str, str]) -> list[StatusAnnot
         qty = _parse_qty(v) if m else None
         if m and qty is not None:
             out.append(StatusAnnotation(
-                int(m.group("index")), m.group("profile"), m.group("status"), qty
-            ))
+                int(m.group("index")), profile_from_key(m.group("profile")),
+                m.group("status"), qty))
     return sorted(out, key=lambda a: (a.index, a.profile, a.status))
 
 
@@ -168,7 +172,8 @@ def strip_spec_annotations(annotations: dict[str, str],
     for k in list(annotations):
         m = C.SPEC_ANNOT_RE.match(k)
         if m and (family is None
-                  or profile_family(m.group("profile")) == family):
+                  or profile_family(profile_from_key(m.group("profile")))
+                  == family):
             del annotations[k]
 
 
@@ -177,7 +182,8 @@ def strip_status_annotations(annotations: dict[str, str],
     for k in list(annotations):
         m = C.STATUS_ANNOT_RE.match(k)
         if m and (family is None
-                  or profile_family(m.group("profile")) == family):
+                  or profile_family(profile_from_key(m.group("profile")))
+                  == family):
             del annotations[k]
         elif family in (None, C.MIG_KIND) and C.PLACEMENT_ANNOT_RE.match(k):
             # placement records describe MIG devices only

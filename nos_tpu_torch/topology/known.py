@@ -73,8 +73,11 @@ def _profiles(*rows) -> tuple[MigProfile, ...]:
 
 # The H100 80GB (SXM5, HBM3) table from the NVIDIA MIG User Guide: name,
 # compute slices, memory slots (the placement's size), GB, the most
-# instances, the allowed start slots, NVML's profile id.  The "+me"
-# media-extension profiles are left out.
+# instances, the allowed start slots, NVML's profile id.  1g.10gb+me is
+# 1g.10gb with the card's media engines: the guide's H100 table gives it
+# one instance (the card has one OFA engine, and the profile takes it)
+# and 1g.10gb's placements; its id is NVML_GPU_INSTANCE_PROFILE_1_SLICE_REV1
+# in nvml.h.
 H100_80GB = GpuModel(
     name="nvidia-h100-80gb-hbm3",
     product_patterns=(r"\bH100\b.*\b80\s*GB\b.*\bHBM3\b",),
@@ -84,6 +87,7 @@ H100_80GB = GpuModel(
     memory_slices=8,
     mig_profiles=_profiles(
         ("1g.10gb", 1, 1, 10, 7, range(7), 0),
+        ("1g.10gb+me", 1, 1, 10, 1, range(7), 7),
         ("1g.20gb", 1, 2, 20, 4, (0, 2, 4, 6), 9),
         ("2g.20gb", 2, 2, 20, 3, (0, 2, 4), 1),
         ("3g.40gb", 3, 4, 40, 2, (0, 4), 2),

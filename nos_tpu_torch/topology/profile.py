@@ -7,6 +7,12 @@ Two families, the reference ``nos``'s own resource names:
   ("3g.40gb"); extended resource ``nvidia.com/mig-3g.40gb``
   (reference pkg/gpu/mig/profile.go:29-47, util.go:36-66).  The JAX
   package's slices are TPU sub-meshes; here a slice is a MIG instance.
+  A profile with media extensions ends in ``+me`` ("1g.10gb+me": the
+  instance also holds the card's video decoders, JPEG and OFA engines).
+  ``+`` is legal in neither a resource name nor an annotation key, so
+  NVIDIA's device plugin publishes such a profile with ``.`` in its
+  place (``nvidia.com/mig-1g.10gb.me``); ``profile_key`` and
+  ``profile_from_key`` are the one mapping between the two spellings.
 - **Timeshare profiles** are memory shares of one card under MPS-style
   time sharing, named ``<N>gb``; extended resource ``nvidia.com/gpu-24gb``
   (reference pkg/gpu/slicing/profile.go:29-64).
@@ -22,9 +28,11 @@ from typing import Mapping
 
 RESOURCE_SLICE_PREFIX = "nvidia.com/mig-"
 RESOURCE_TIMESHARE_PREFIX = "nvidia.com/gpu-"
-PROFILE_RE = re.compile(r"^(?P<g>\d+)g\.(?P<gb>\d+)gb$")
+MEDIA_SUFFIX = "+me"
+_MEDIA_KEY_SUFFIX = ".me"
+PROFILE_RE = re.compile(r"^(?P<g>\d+)g\.(?P<gb>\d+)gb(?P<me>\+me)?$")
 SLICE_RESOURCE_RE = re.compile(
-    rf"^{re.escape(RESOURCE_SLICE_PREFIX)}(?P<profile>\d+g\.\d+gb)$")
+    rf"^{re.escape(RESOURCE_SLICE_PREFIX)}(?P<key>\d+g\.\d+gb(?:\.me)?)$")
 TIMESHARE_RESOURCE_RE = re.compile(
     rf"^{re.escape(RESOURCE_TIMESHARE_PREFIX)}(?P<gb>\d+)gb$")
 
@@ -33,17 +41,37 @@ TIMESHARE_RESOURCE_RE = re.compile(
 # ---------------------------------------------------------------------------
 
 
+def is_media_profile(profile: str) -> bool:
+    return profile.endswith(MEDIA_SUFFIX)
+
+
+def profile_key(profile: str) -> str:
+    """A profile as it stands in a resource name or an annotation key:
+    "1g.10gb+me" -> "1g.10gb.me"; every other profile (MIG or MPS) as
+    it is."""
+    if is_media_profile(profile):
+        return profile[:-len(MEDIA_SUFFIX)] + _MEDIA_KEY_SUFFIX
+    return profile
+
+
+def profile_from_key(key: str) -> str:
+    """``profile_key``'s inverse: "1g.10gb.me" -> "1g.10gb+me"."""
+    if key.endswith(_MEDIA_KEY_SUFFIX):
+        return key[:-len(_MEDIA_KEY_SUFFIX)] + MEDIA_SUFFIX
+    return key
+
+
 @lru_cache(maxsize=4096)
 def slice_resource_name(profile: str) -> str:
     if not PROFILE_RE.match(profile):
         raise ValueError(f"not a MIG profile: {profile!r}")
-    return f"{RESOURCE_SLICE_PREFIX}{profile}"
+    return f"{RESOURCE_SLICE_PREFIX}{profile_key(profile)}"
 
 
 @lru_cache(maxsize=4096)
 def profile_from_resource(resource: str) -> str | None:
     m = SLICE_RESOURCE_RE.match(resource)
-    return m.group("profile") if m else None
+    return profile_from_key(m.group("key")) if m else None
 
 
 def is_slice_resource(resource: str) -> bool:

@@ -22,11 +22,18 @@ from .errors import InvalidGeometryError
 from .geometry import Geometry, fewest_slices_geometry
 from .known import GpuModel
 from .packing import Placement, enumerate_geometries, extend
+from .profile import is_media_profile
 
 
 @lru_cache(maxsize=None)
 def _geometry_keys(model: GpuModel) -> frozenset:
     return frozenset(enumerate_geometries(model))
+
+
+@lru_cache(maxsize=None)
+def _media_profiles(model: GpuModel) -> frozenset:
+    return frozenset(p.name for p in model.mig_profiles
+                     if is_media_profile(p.name))
 
 
 def _canon(geometry: Mapping[str, int]) -> dict[str, int]:
@@ -171,15 +178,20 @@ class SliceUnit:
 
     def _search_recarve(self,
                         lacking: Mapping[str, int]) -> dict[str, int] | None:
-        """Score every allowed geometry; None keeps the current one."""
+        """Score every allowed geometry; None keeps the current one.  A
+        geometry holding a media-extension profile ("+me") that no
+        lacking pod asks for and no pod uses here is skipped: such a
+        profile is carved only for a pod that asks for it."""
 
         def score(free: Mapping[str, int]) -> int:
             return sum(min(free.get(p, 0), n) for p, n in lacking.items())
 
+        unasked = _media_profiles(self.model) - set(lacking) - {
+            p for p, c in self.used.items() if c > 0}
         best_geo: dict[str, int] | None = None
         best = score(self.free)
         for geo in self.allowed_geometries():
-            if not self.can_apply_geometry(geo):
+            if unasked.intersection(geo) or not self.can_apply_geometry(geo):
                 continue
             sc = score({p: geo[p] - self.used.get(p, 0) for p in geo})
             if sc > best or (sc == best and best_geo is not None

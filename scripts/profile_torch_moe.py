@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -26,6 +25,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from nos_tpu_torch.entry import bench_moe_trainer, train_loader  # noqa: E402
+from nos_tpu_torch.ops.roofline import card_line  # noqa: E402
 from scripts.profile_torch_train import STEPS, _profile  # noqa: E402
 
 
@@ -34,10 +34,7 @@ def main() -> int:
         raise SystemExit("profile_torch_moe: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line("cuda")
 
     import torch.distributed as dist
 

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -29,6 +28,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from nos_tpu_torch.entry import STEPS, bench_model, serve_prompt  # noqa: E402
+from nos_tpu_torch.ops.roofline import card_line  # noqa: E402
 
 FORWARDS = 3
 _MATMUL_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
@@ -89,10 +89,7 @@ def main() -> int:
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line("cuda")
     n = FORWARDS
     print(json.dumps({
         "nvidia_smi": smi, "layers": model.cfg.num_layers,

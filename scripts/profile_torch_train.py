@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -39,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from nos_tpu_torch.cmd.train import TrainConfig, build  # noqa: E402
 from nos_tpu_torch.entry import bench_trainer, train_loader  # noqa: E402
+from nos_tpu_torch.ops.roofline import card_line  # noqa: E402
 
 STEPS = 4
 _MATMUL_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
@@ -145,10 +145,7 @@ def main() -> int:
         raise SystemExit("profile_torch_train: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line("cuda")
 
     trainer = bench_trainer("cuda")
     loader = train_loader()

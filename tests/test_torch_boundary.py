@@ -51,7 +51,8 @@ def _port_files():
         ROOT / "scripts" / "time_waste_waterfall.py",
         ROOT / "scripts" / "time_native_fleet.py",
         ROOT / "scripts" / "mfu_explore_torch.py",
-        ROOT / "demos" / "gpu-sharing-comparison" / "run.py"]
+        ROOT / "demos" / "gpu-sharing-comparison" / "run.py",
+        ROOT / "hack" / "render-chart-torch.py"]
 
 
 _IMPORT_ALL = """

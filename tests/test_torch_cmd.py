@@ -1708,6 +1708,122 @@ def _wait(done, what: str, limit_s: float = 10.0) -> None:
         time.sleep(0.01)
 
 
+def _wait_ready(get, main: str, limit_s: float = 60.0) -> None:
+    """A main's /healthz 200, then its /readyz polled until 200 "ok",
+    both within one start limit: a main is live before it is ready
+    (``Main.start`` sets ready last, as the JAX package's does), so one
+    read of /readyz right after /healthz may find it starting."""
+    deadline = time.monotonic() + limit_s
+    _wait(lambda: get("/healthz")[0] == 200, f"{main}: answer /healthz",
+          limit_s)
+    _wait(lambda: get("/readyz") == (200, "ok"),
+          f"{main}: answer /readyz 200 'ok'",
+          max(0.0, deadline - time.monotonic()))
+
+
+class _StubHealth:
+    """A health server that answers /healthz 200 and /readyz 503
+    ``not_ready`` times before 200 "ok" (None: 503 forever)."""
+
+    def __init__(self, not_ready: int | None) -> None:
+        import http.server
+
+        self.readyz = 0
+        stub = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self) -> None:
+                code, body = 200, b"ok"
+                if self.path == "/readyz":
+                    stub.readyz += 1
+                    if not_ready is None or stub.readyz <= not_ready:
+                        code, body = 503, b"starting"
+                self.send_response(code)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args) -> None:
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.addr = "127.0.0.1:%d" % self.server.server_address[1]
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def get(self, path: str) -> tuple[int, str]:
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(f"http://{self.addr}{path}",
+                                        timeout=2) as r:
+                return r.status, r.read().decode()
+        except OSError:
+            return 0, ""
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class _Alive:
+    returncode = None
+
+    def poll(self):
+        return None
+
+
+class TestReadyPolling:
+    """(f1): the process checks poll /readyz until 200 "ok" within their
+    start limit, and still fail, naming the main, when it never comes:
+    ``chip_smoke._Mains.wait_healthy`` and the tests' ``_wait_ready``,
+    each against a stub health server."""
+
+    @staticmethod
+    def _smoke_check(stub, tmp_path, monkeypatch, limit_s: float) -> None:
+        import chip_smoke
+
+        monkeypatch.setattr(chip_smoke, "MAINS_START_LIMIT_S", limit_s)
+        mains = chip_smoke._Mains.__new__(chip_smoke._Mains)
+        mains.tmp, mains.mains = tmp_path, ("stub-main",)
+        mains.procs = {"stub-main": {"proc": _Alive(), "addr": stub.addr,
+                                     "t0": time.perf_counter()}}
+        healthy = mains.wait_healthy()
+        assert set(healthy) == {"stub-main"}
+
+    @pytest.mark.parametrize("check", ["smoke", "tests"])
+    def test_a_late_ready_passes(self, check, tmp_path, monkeypatch):
+        stub = _StubHealth(not_ready=2)
+        try:
+            if check == "smoke":
+                self._smoke_check(stub, tmp_path, monkeypatch, 60.0)
+            else:
+                _wait_ready(stub.get, "stub-main")
+        finally:
+            stub.close()
+        assert stub.readyz == 3
+
+    @pytest.mark.parametrize("check", ["smoke", "tests"])
+    def test_a_main_never_ready_fails_with_its_name(self, check, tmp_path,
+                                                    monkeypatch):
+        stub = _StubHealth(not_ready=None)
+        try:
+            if check == "smoke":
+                with pytest.raises(SystemExit, match=(
+                        r"\['stub-main'\] gave no /readyz 200 'ok' within "
+                        r"1\.0 s; last answers \{'stub-main': "
+                        r"\(503, 'starting'\)\}")):
+                    self._smoke_check(stub, tmp_path, monkeypatch, 1.0)
+            else:
+                with pytest.raises(AssertionError,
+                                   match="stub-main: answer /readyz"):
+                    _wait_ready(stub.get, "stub-main", limit_s=1.0)
+        finally:
+            stub.close()
+        assert stub.readyz > 2
+
+
 class TestAutoscalerMain:
     @pytest.mark.parametrize("jax", [True, False], ids=["jax", "port"])
     def test_the_main_reconciles_without_leader_election(self, jax):
@@ -1800,8 +1916,7 @@ class TestAutoscalerMain:
                 except OSError:
                     return 0, ""
 
-            _wait(lambda: get("/healthz")[0] == 200, "answer /healthz", 60)
-            assert get("/readyz") == (200, "ok")
+            _wait_ready(get, "the autoscaler's main")
             _wait(lambda: 'loop="autoscaler"' in get("/metrics")[1],
                   "run the loop")
             proc.send_signal(signal.SIGTERM)
@@ -1929,8 +2044,7 @@ class TestProvisionerMain:
                 except OSError:
                     return 0, ""
 
-            _wait(lambda: get("/healthz")[0] == 200, "answer /healthz", 60)
-            assert get("/readyz") == (200, "ok")
+            _wait_ready(get, "the provisioner's main")
             _wait(lambda: 'loop="provisioner"' in get("/metrics")[1],
                   "run the loop")
             code, body = get("/debug/flightrecorder")
@@ -2101,6 +2215,69 @@ class TestServingAsProcesses:
             ["down", chip_smoke.SERVING_VICTIM]]
 
 
+class TestClientGate:
+    """``chip_smoke._ClientGate``: one client's requests of one method,
+    told apart by their bearer token, wait at the REST stub while held,
+    in order; every other request passes."""
+
+    @staticmethod
+    def _client(stub, token: str = ""):
+        from nos_tpu_torch.kube.rest import KubeClient, KubeConfig
+
+        return KubeClient(KubeConfig(server=stub.url, token=token))
+
+    def test_a_held_list_waits_and_other_clients_pass(self):
+        import chip_smoke
+        from k8s_stub import StubApiServer
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        with StubApiServer() as stub:
+            gate = chip_smoke._ClientGate(stub, "held-one", "GET")
+            done = threading.Event()
+            with gate.held():
+                t = threading.Thread(target=lambda: (self._client(
+                    stub, "held-one").list(KIND_POD), done.set()))
+                t.start()
+                gate.wait_parked("/pods", 10.0)
+                assert self._client(stub).list(KIND_POD) == []
+                assert self._client(stub, "other").list(KIND_POD) == []
+                assert not done.wait(0.2)
+            t.join(10.0)
+            assert done.is_set() and gate.parked == []
+
+    def test_a_held_create_lands_after_the_release(self):
+        import chip_smoke
+        from k8s_stub import StubApiServer
+        from nos_tpu_torch.kube.client import KIND_POD
+        from nos_tpu_torch.testing.factory import make_pod
+
+        with StubApiServer() as stub:
+            gate = chip_smoke._ClientGate(stub, "held-one", "POST")
+            smoke = self._client(stub)
+            with gate.held():
+                t = threading.Thread(target=lambda: self._client(
+                    stub, "held-one").create(KIND_POD, make_pod("late")))
+                t.start()
+                gate.wait_parked("/pods", 10.0)
+                smoke.create(KIND_POD, make_pod("early"))
+                assert [p.metadata.name for p in smoke.list(KIND_POD)] \
+                    == ["early"]
+            t.join(10.0)
+            pods = {p.metadata.name: int(p.metadata.resource_version)
+                    for p in smoke.list(KIND_POD)}
+        assert pods["early"] < pods["late"]
+
+    def test_nothing_parked_within_the_limit_fails(self):
+        import chip_smoke
+        from k8s_stub import StubApiServer
+
+        with StubApiServer() as stub:
+            gate = chip_smoke._ClientGate(stub, "held-one", "POST")
+            with gate.held(), pytest.raises(
+                    SystemExit, match="no held request to /pods"):
+                gate.wait_parked("/pods", 0.2)
+
+
 class _JaxServingCluster:
     """``chip_smoke._ServingCluster``'s surface on the JAX package, in one
     process over ``stub``: the partitioner (timeshare, a lease), the
@@ -2143,6 +2320,9 @@ class _JaxServingCluster:
                 self.port_record(kind, e, o)))
         self.clients: dict = {}
         self.mains: dict = {}
+        token = chip_smoke.SERVING_AUTOSCALER_TOKEN
+        self.lists = chip_smoke._ClientGate(stub, token, "GET")
+        self.creates = chip_smoke._ClientGate(stub, token, "POST")
         self.smoke = self.client("smoke")
         self.smoke.create("Node", jf.make_tpu_node(
             chip_smoke.CARD_NODE, generation=self.gen,
@@ -2155,10 +2335,11 @@ class _JaxServingCluster:
         self.KubeClient, self.KubeConfig = KubeClient, KubeConfig
         self.driver = None
 
-    def client(self, name: str):
+    def client(self, name: str, token: str = ""):
         from nos_tpu.kube.rest import KubeClient, KubeConfig
 
-        c = self.clients[name] = KubeClient(KubeConfig(server=self.stub.url))
+        c = self.clients[name] = KubeClient(KubeConfig(server=self.stub.url,
+                                                       token=token))
         self.stack.callback(c.close)
         return c
 
@@ -2229,7 +2410,8 @@ class _JaxServingCluster:
         from nos_tpu.cmd.autoscaler import build_autoscaler_main
 
         m = self.mains["autoscaler"] = build_autoscaler_main(
-            self.client("autoscaler"), jconfig.AutoscalerConfig(
+            self.client("autoscaler", self.cs.SERVING_AUTOSCALER_TOKEN),
+            jconfig.AutoscalerConfig(
                 reconcile_interval_s=self.cs.SERVING_RECONCILE_S,
                 services=[self.cs.SERVING_SERVICE], slo_interval_s=0,
                 health_probe_addr=""))

@@ -9,11 +9,15 @@ port's kinds in its API group.  The JAX chart beside it is not touched.
 
 from __future__ import annotations
 
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
 from nos_tpu_torch.api import config as pconfig
+from nos_tpu_torch.api import constants as pconst
 from nos_tpu_torch.api.constants import GROUP
 from nos_tpu_torch.kube.k8s_codec import GROUP_VERSION, KIND_REST
 from nos_tpu_torch.testing import helm
@@ -592,3 +596,305 @@ class TestImage:
         assert "deploy/image/Dockerfile" in values
         assert context()["Values"]["image"]["repository"] == \
             "ghcr.io/nos-tpu/nos-tpu-torch"
+
+
+# -- the deploy on-ramp -------------------------------------------------------
+# hack/render-chart-torch.py, deploy/config-torch/, hack/kind/
+# cluster-torch.yaml and hack/dev-cluster-torch.sh: the port's
+# counterparts of the JAX package's hack/render-chart.py,
+# deploy/config/, hack/kind/cluster.yaml and hack/dev-cluster.sh.
+
+RENDER_CLI = ROOT / "hack/render-chart-torch.py"
+DEV_CLUSTER = ROOT / "hack/dev-cluster-torch.sh"
+CONFIG_TORCH = ROOT / "deploy/config-torch"
+# the overrides dev-cluster-torch.sh's `up` renders with (a kind worker
+# has no GPU)
+KIND_SETS = ("kubeconfig.secret=nos-tpu-torch-kube", "sliceagent.device=cpu",
+             "sliceagent.model=nvidia-h100-80gb-hbm3",
+             "chipagent.model=nvidia-h100-80gb-hbm3")
+
+
+def _cli(*args: str, cwd) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(RENDER_CLI), *args],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def _kinds_line(docs: list[dict]) -> str:
+    kinds: dict[str, int] = {}
+    for doc in docs:
+        kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
+    return ", ".join(f"{k} x{v}" for k, v in sorted(kinds.items()))
+
+
+class TestRenderCLI:
+    def test_it_writes_what_the_renderer_renders(self, tmp_path):
+        import yaml
+
+        out = _cli("--out", str(tmp_path / "out"), cwd=tmp_path)
+        assert out.returncode == 0, out.stderr
+        want = render_chart(CHART)
+        written = list(yaml.safe_load_all(
+            (tmp_path / "out/nos-tpu-torch.yaml").read_text()))
+        assert written == want
+        crds = list(yaml.safe_load_all(
+            (tmp_path / "out/crds.yaml").read_text()))
+        assert [c["spec"]["names"]["kind"] for c in crds] == \
+            ["CompositeElasticQuota", "ElasticQuota", "PodGroup"]
+        lines = out.stdout.splitlines()
+        assert lines[-2] == (f"rendered {len(want)} manifests from "
+                             f"nos-tpu-torch: {_kinds_line(want)}")
+        assert lines[-1] == (
+            f"validated {helm.validate_configmaps(want)} ConfigMaps "
+            f"through the typed loaders; 3 CRDs parsed")
+
+    def test_the_kind_overrides_reach_the_agents(self, tmp_path):
+        import yaml
+
+        args = [a for s in KIND_SETS for a in ("--set", s)]
+        out = _cli(*args, "--out", str(tmp_path), cwd=tmp_path)
+        assert out.returncode == 0, out.stderr
+        docs = list(yaml.safe_load_all(
+            (tmp_path / "nos-tpu-torch.yaml").read_text()))
+        # validated by the CLI but for the kubeconfig, mounted at run
+        got = configs(docs, tmp_path, validate=False)
+        assert got["nos-tpu-torch-sliceagent-config"].model == \
+            "nvidia-h100-80gb-hbm3"
+        command = containers(docs)["nos-tpu-torch-sliceagent"]["command"]
+        assert command[command.index("--device") + 1] == "cpu"
+        assert got["nos-tpu-torch-chipagent-config"].model == \
+            "nvidia-h100-80gb-hbm3"
+        assert all(cfg.kubeconfig for cfg in got.values())
+        assert "--set" in DEV_CLUSTER.read_text()
+        for s in KIND_SETS:
+            assert s.split("=")[0] in DEV_CLUSTER.read_text()
+
+    @pytest.mark.parametrize("value, why", [
+        ("partitioner.kind=banana",
+         "ConfigError: kind must be mig|mps|hybrid, got 'banana'"),
+        ("scheduler.cycleIntervalSeconds=0",
+         "ConfigError: cycle_interval_s must be positive"),
+        ("partitioner.nosuchknob=1",
+         "ValueError: --set partitioner.nosuchknob: the chart has no such "
+         "value")], ids=["bad-kind", "bad-interval", "unknown-value"])
+    def test_a_refused_config_fails_the_render(self, value, why, tmp_path):
+        out = _cli("--set", value, "--out", str(tmp_path / "out"),
+                   cwd=tmp_path)
+        assert out.returncode == 1
+        assert why in out.stderr
+        assert "rendered" not in out.stdout
+        assert not (tmp_path / "out").exists()
+
+    def test_it_imports_neither_torch_nor_the_jax_package(self, tmp_path):
+        probe = (
+            "import runpy, sys\n"
+            f"sys.argv = [{str(RENDER_CLI)!r}]\n"
+            "try:\n"
+            f"    runpy.run_path({str(RENDER_CLI)!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('torch', 'jax', 'flax', 'nos_tpu'))\n"
+            "print('IMPORTED', bad)\n")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        out = subprocess.run([sys.executable, "-c", probe], cwd=tmp_path,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.splitlines()[-1] == "IMPORTED []"
+
+
+class TestKustomizeBase:
+    def test_it_lists_exactly_the_port_s_crds(self):
+        import yaml
+
+        top = yaml.safe_load((CONFIG_TORCH / "kustomization.yaml").read_text())
+        assert top["kind"] == "Kustomization" and top["resources"] == ["crd"]
+        crd_dir = CONFIG_TORCH / "crd"
+        base = yaml.safe_load((crd_dir / "kustomization.yaml").read_text())
+        listed = sorted((crd_dir / r).resolve() for r in base["resources"])
+        assert listed == sorted(p.resolve()
+                                for p in (CHART / "crds").glob("*.yaml"))
+        for path in listed:
+            assert yaml.safe_load(path.read_text())["kind"] == \
+                "CustomResourceDefinition"
+
+
+def _example(name: str) -> dict:
+    import yaml
+
+    return yaml.safe_load((CONFIG_TORCH / name).read_text())
+
+
+class TestExamplePods:
+    @pytest.mark.parametrize("name", ["train-pod-example.yaml",
+                                      "serving-pod-example.yaml"])
+    def test_it_names_the_port_and_one_h100_resource(self, name):
+        from nos_tpu_torch.scheduler.scheduler import Scheduler
+        from nos_tpu_torch.topology.profile import (
+            gb_from_resource, profile_from_resource)
+
+        text = (CONFIG_TORCH / name).read_text()
+        assert "nos_tpu_torch" in text
+        assert "nos.tpu/" not in text and "nos_tpu.cmd" not in text
+        doc = _example(name)
+        assert (doc["apiVersion"], doc["kind"]) == ("v1", "Pod")
+        assert doc["spec"]["schedulerName"] == Scheduler.name
+        (container,) = doc["spec"]["containers"]
+        gpu = {r: q for r, q in container["resources"]["limits"].items()
+               if r.startswith("nvidia.com/")}
+        assert len(gpu) == 1 and list(gpu.values()) == [1]
+        (res,) = gpu
+        assert (profile_from_resource(res) is not None) != \
+            (gb_from_resource(res) is not None)
+
+    def test_the_train_pod_runs_the_port_s_main_with_its_hooks(self):
+        doc = _example("train-pod-example.yaml")
+        (container,) = doc["spec"]["containers"]
+        assert container["command"][:4] == \
+            ["python", "-m", "nos_tpu_torch.cmd.train", "--config"]
+        assert _has_main("nos_tpu_torch.cmd.train")
+        env = {e["name"]: e["valueFrom"]["fieldRef"]["fieldPath"]
+               for e in container["env"]}
+        assert env == {"POD_NAME": "metadata.name",
+                       "POD_NAMESPACE": "metadata.namespace"}
+        assert doc["metadata"]["labels"] == {
+            pconst.LABEL_POD_GROUP: "train-example-gang"}
+        assert list(container["resources"]["limits"]) == \
+            ["nvidia.com/mig-3g.40gb"]
+
+    def test_the_serving_pod_carries_the_tier_contract(self):
+        doc = _example("serving-pod-example.yaml")
+        meta = doc["metadata"]
+        assert meta["labels"] == {pconst.LABEL_TIER: pconst.TIER_SERVING,
+                                  pconst.LABEL_SERVICE: "chat"}
+        assert meta["annotations"] == {pconst.ANNOT_SERVING_LOAD: "0"}
+        (container,) = doc["spec"]["containers"]
+        assert "nvidia.com/gpu-10gb" in container["resources"]["limits"]
+
+    def test_both_are_planned_and_bound_over_the_kind_nodes(self):
+        from nos_tpu_torch.testing import devcluster
+
+        nodes = devcluster.kind_nodes()
+        pods = devcluster.example_pods()
+        assert [p.metadata.name for p in pods] == \
+            ["train-example", "chat-replica-example"]
+        got = devcluster.plan_and_bind(nodes, pods)
+        mig, mps = (n.metadata.name for n in nodes)
+        assert got["bound"] == {"train-example": mig,
+                                "chat-replica-example": mps}
+        assert got["geometry"][mig].get("nvidia.com/mig-3g.40gb", 0) >= 1
+        assert got["geometry"][mps] == {"nvidia.com/gpu-10gb": 1.0}
+
+
+class TestKindConfig:
+    def test_the_workers_carry_make_gpu_node_s_labels(self):
+        import yaml
+
+        from nos_tpu_torch.testing import devcluster
+        from nos_tpu_torch.testing.factory import make_gpu_node
+        from nos_tpu_torch.topology import DEFAULT_REGISTRY
+
+        config = yaml.safe_load(devcluster.KIND_CONFIG.read_text())
+        assert [n["role"] for n in config["nodes"]] == \
+            ["control-plane", "worker", "worker"]
+        workers = devcluster.kind_worker_labels()
+        assert [w[pconst.LABEL_PARTITIONING] for w in workers] == \
+            [pconst.MIG_KIND, pconst.MPS_KIND]
+        for labels in workers:
+            assert pconst.LABEL_GPU_COUNT in labels
+            built = make_gpu_node(
+                "w", model=DEFAULT_REGISTRY.get(
+                    labels[pconst.LABEL_ACCELERATOR]),
+                gpus=int(labels[pconst.LABEL_GPU_COUNT]),
+                partitioning=labels[pconst.LABEL_PARTITIONING],
+                domain=labels[pconst.LABEL_NVLINK_DOMAIN],
+                host_index=int(labels[pconst.LABEL_HOST_INDEX]))
+            assert built.metadata.labels == labels
+
+    def test_a_discovered_model_replaces_the_label_s(self):
+        from dataclasses import replace
+
+        from nos_tpu_torch.testing import devcluster
+        from nos_tpu_torch.topology import DEFAULT_REGISTRY, H100_80GB
+
+        twin = replace(H100_80GB, name="nvidia-h100-80gb-hbm3-twin")
+        reg = dict(DEFAULT_REGISTRY.models)
+        try:
+            DEFAULT_REGISTRY.models[twin.name] = twin
+            nodes = devcluster.kind_nodes(model=twin.name)
+        finally:
+            DEFAULT_REGISTRY.models.clear()
+            DEFAULT_REGISTRY.models.update(reg)
+        assert {n.metadata.labels[pconst.LABEL_ACCELERATOR]
+                for n in nodes} == {twin.name}
+
+
+class TestDevClusterScript:
+    def _run(self, mode: str, tmp_path, path: str | None = None):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["OUT"] = str(tmp_path / "rendered")
+        if path is not None:
+            env["PATH"] = path
+        import shutil
+
+        return subprocess.run([shutil.which("bash"), str(DEV_CLUSTER), mode],
+                              cwd=tmp_path,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+
+    def test_render_runs_with_python_alone(self, tmp_path):
+        out = self._run("render", tmp_path)
+        assert out.returncode == 0, out.stderr
+        assert (tmp_path / "rendered/nos-tpu-torch.yaml").exists()
+        assert (tmp_path / "rendered/crds.yaml").exists()
+        assert "validated" in out.stdout
+
+    def test_up_stops_before_anything_without_kind(self, tmp_path):
+        import shutil
+
+        # a PATH that holds the script's own needs and no cluster tools
+        bin_dir = tmp_path / "bin"
+        bin_dir.mkdir()
+        for tool, target in (("dirname", shutil.which("dirname")),
+                             ("python3", sys.executable)):
+            (bin_dir / tool).symlink_to(target)
+        out = self._run("up", tmp_path, path=str(bin_dir))
+        assert out.returncode == 1
+        assert "kind not found" in out.stderr
+        assert not (tmp_path / "rendered").exists()
+
+    def test_an_unknown_mode_is_a_usage_error(self, tmp_path):
+        out = self._run("sideways", tmp_path)
+        assert out.returncode == 2 and "usage:" in out.stderr
+
+
+class TestSmokeOnramp:
+    """chip_smoke.py's on-ramp line, run here as the card's host runs it
+    beside the card phases (it touches no GPU)."""
+
+    def test_the_line_renders_plans_and_binds(self):
+        import chip_smoke
+
+        assert ("onramp", "_onramp_line") in chip_smoke.HOST_JOBS
+        assert "onramp" in chip_smoke.HOST_LINES
+        line = chip_smoke._onramp_line("cpu")
+        docs = render_chart(CHART)
+        assert (line["phase"], line["manifests"], line["configmaps"],
+                line["crds"]) == ("onramp", len(docs), 6, 3)
+        assert sorted(line["nodes"].values()) == ["mig", "mps"]
+        assert line["bound"] == {
+            "train-example": "nos-tpu-torch-dev-worker",
+            "chat-replica-example": "nos-tpu-torch-dev-worker2"}
+        # no NVML here: discovery falls to the configured H100
+        assert (line["model"], line["discovery"]) == \
+            ("nvidia-h100-80gb-hbm3", "configured")
+
+    def test_a_refused_render_fails_the_smoke(self, monkeypatch):
+        import chip_smoke
+
+        monkeypatch.setattr(chip_smoke, "ROOT", ROOT / "no-such-checkout")
+        with pytest.raises(SystemExit,
+                           match="render-chart-torch.py exited 2"):
+            chip_smoke._onramp_line("cpu")

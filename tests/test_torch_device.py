@@ -173,11 +173,23 @@ class TestNvmlRuntime:
 
     def test_an_instance_outside_the_table_raises(self):
         lib = FakeNvmlLibrary([FakeGpu(mig=True, instances=[
-            (MIG_A, 7, 0, 1)])])          # 1g.10gb+me
+            (MIG_A, 6, 0, 8)])])          # 6 slices: no H100 profile
         rt = nvml.NvmlGpuRuntime(lib=lib)
-        with pytest.raises(LookupError, match="profile 7"):
+        with pytest.raises(LookupError, match="profile 6"):
             rt.list_devices()
         rt.close()
+
+    def test_a_media_instance_reads_under_its_resource_name(self):
+        lib = FakeNvmlLibrary([FakeGpu(mig=True, instances=[
+            (MIG_A, 7, 3, 1)])])          # NVML's 1_SLICE_REV1
+        rt = nvml.NvmlGpuRuntime(lib=lib)
+        try:
+            assert [(d.resource_name, d.device_id) for d in
+                    rt.list_devices()] == [("nvidia.com/mig-1g.10gb.me",
+                                            MIG_A)]
+            assert rt.placements() == {MIG_A: Placement("1g.10gb+me", 3, 1)}
+        finally:
+            rt.close()
 
 
 class TestDiscovery:

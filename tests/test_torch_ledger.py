@@ -259,13 +259,14 @@ class TestSharedStrandedDefinition:
         """g/7 of a GPU, the weight snapshot.py's ``_gpu_sevenths``
         gives a MIG instance (JAX's slice at its chips)."""
         from nos_tpu_torch.partitioning.core.snapshot import _gpu_sevenths
+        from nos_tpu_torch.topology.profile import slice_resource_name
 
         for qty in (1, 2):
             pod = factory.make_mig_pod(row.name, qty)
             req = pod_request(pod)
             got = L.pod_chip_equiv(req, 8.0, 80.0)
             assert got == pytest.approx(
-                _gpu_sevenths(f"nvidia.com/mig-{row.name}", qty) / 7.0)
+                _gpu_sevenths(slice_resource_name(row.name), qty) / 7.0)
             assert got == pytest.approx(row.compute_slices * qty / 7.0)
 
     @pytest.mark.parametrize("gb", [5, 8, 10, 16, 20, 24, 40, 80])

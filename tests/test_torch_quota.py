@@ -550,7 +550,8 @@ class TestCalculator:
         (GetMemoryGB); H100 80GB's table gives the same, so the two
         rules agree on every profile of the card."""
         for row in H100_80GB.mig_profiles:
-            want = int(row.name.split(".")[1][:-2])
+            # "<g>g.<N>gb", a media-extension profile with "+me" after
+            want = int(row.name.split(".")[1].split("gb")[0])
             assert CALC.profile_gb(row.name) == row.memory_gb == want
             pod = factory.make_mig_pod(row.name, 2)
             assert CALC.compute_pod_request(pod)[MEM] == 2 * want

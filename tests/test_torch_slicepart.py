@@ -446,9 +446,11 @@ class TestSliceUnitParity:
 
 # NVIDIA MIG User Guide, H100 80GB (SXM5): GPU instance profile, compute
 # slices, memory slots it spans, the most instances, the start slots.
-# The "+me" profiles are left out, as topology/known.py leaves them.
+# 1g.10gb+me is carved only for a pod that asks for it (or where one
+# is used): ``oracle_update`` skips geometries holding it otherwise.
 NVIDIA_H100_80GB = {
     "1g.10gb": (1, 1, 7, (0, 1, 2, 3, 4, 5, 6)),
+    "1g.10gb+me": (1, 1, 1, (0, 1, 2, 3, 4, 5, 6)),
     "1g.20gb": (1, 2, 4, (0, 2, 4, 6)),
     "2g.20gb": (2, 2, 3, (0, 2, 4)),
     "3g.40gb": (3, 4, 2, (0, 4)),
@@ -523,10 +525,12 @@ def oracle_update(used: dict, free: dict, lacking: dict,
         return sum(min(table.get(p, 0), n) for p, n in lacking.items()
                    if n > 0)
 
+    asked = {p for p, n in lacking.items() if n > 0} | set(used)
     best, best_geo = score(free), None
     for key in ORACLE_MAXIMAL:
         geo = dict(key)
-        if not applicable(geo):
+        if any(p.endswith("+me") and p not in asked for p in geo) \
+                or not applicable(geo):
             continue
         sc = score({p: c - used.get(p, 0) for p, c in geo.items()})
         if sc > best or (sc == best and best_geo is not None

@@ -1,5 +1,6 @@
 """chip_smoke.py's host work: the one background process that runs the
-host-only jobs (the fleets of phases 11 to 17, phases 18 to 20) beside
+host-only jobs (the fleets of phases 11 to 17, phases 18 to 20, the
+deploy on-ramp) beside
 the card phases, hands each result back, fails the smoke on a failed
 check, and is stopped with every process it started."""
 
@@ -32,8 +33,9 @@ def test_the_phases_read_the_jobs_in_their_order():
           for key, fn in chip_smoke.HOST_JOBS
           if key not in chip_smoke.HOST_LINES]
     assert at == sorted(at)
-    assert [key for key, _ in chip_smoke.HOST_JOBS][-3:] == list(
-        chip_smoke.HOST_LINES)
+    lines = chip_smoke.HOST_LINES
+    assert [key for key, _ in chip_smoke.HOST_JOBS][-len(lines):] == \
+        list(lines)
 
 
 def test_a_queued_job_comes_from_the_process(monkeypatch):

@@ -8,6 +8,7 @@ User Guide's H100 80GB table and a brute force over the 8 memory slots."""
 
 import itertools
 import json
+import re
 
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ from nos_tpu_torch.topology import (
 )
 from nos_tpu_torch.topology import errors, profile
 
-PROFILES = ("1g.10gb", "1g.20gb", "2g.20gb", "3g.40gb", "4g.40gb", "7g.80gb")
+PROFILES = ("1g.10gb", "1g.10gb+me", "1g.20gb", "2g.20gb", "3g.40gb",
+            "4g.40gb", "7g.80gb")
 
 
 def _random_geometries(seed: int, n: int) -> list[dict]:
@@ -92,6 +94,7 @@ class TestMigTable:
         # (the placement's size), GB, max count, allowed starts
         want = {
             "1g.10gb": (1, 1, 10, 7, (0, 1, 2, 3, 4, 5, 6)),
+            "1g.10gb+me": (1, 1, 10, 1, (0, 1, 2, 3, 4, 5, 6)),
             "1g.20gb": (1, 2, 20, 4, (0, 2, 4, 6)),
             "2g.20gb": (2, 2, 20, 3, (0, 2, 4)),
             "3g.40gb": (3, 4, 40, 2, (0, 4)),
@@ -104,9 +107,12 @@ class TestMigTable:
         assert (H100_80GB.name, H100_80GB.memory_gb, H100_80GB.sm_count,
                 H100_80GB.compute_slices, H100_80GB.memory_slices) == \
             ("nvidia-h100-80gb-hbm3", 80, 132, 7, 8)
-        # NVML_GPU_INSTANCE_PROFILE_{1_SLICE, 1_SLICE_REV2, 2_SLICE,
-        # 3_SLICE, 4_SLICE, 7_SLICE}
-        assert [p.nvml_id for p in H100_80GB.mig_profiles] == [0, 9, 1, 2, 3, 4]
+        # NVML_GPU_INSTANCE_PROFILE_{1_SLICE, 1_SLICE_REV1, 1_SLICE_REV2,
+        # 2_SLICE, 3_SLICE, 4_SLICE, 7_SLICE}
+        assert [p.nvml_id for p in H100_80GB.mig_profiles] == \
+            [0, 7, 9, 1, 2, 3, 4]
+        assert [p.name for p in H100_80GB.mig_profiles
+                if profile.is_media_profile(p.name)] == ["1g.10gb+me"]
 
     def test_models_compare_by_identity(self):
         from dataclasses import replace
@@ -161,7 +167,11 @@ def _check_placements(counts, placements, fixed=()):
 
 
 def _brute_force(counts, fixed=()) -> bool:
-    """Every assignment of allowed starts to every instance."""
+    """Every assignment of allowed starts to every instance, each profile
+    within its most instances."""
+    if any(c > H100_80GB.profile(name).max_count
+           for name, c in counts.items()):
+        return False
     rows = [H100_80GB.profile(name) for name, c in counts.items()
             for _ in range(c)]
     occupied = 0
@@ -350,6 +360,103 @@ class TestProfiles:
         assert sorted(names, key=profile.profile_sort_key) == [
             "8gb", "1g.10gb", "1g.20gb", "2g.20gb", "24gb", "7g.80gb",
             "weird"]
+
+
+# A Kubernetes extended-resource name (a qualified name) and an
+# annotation key: DNS-subdomain prefix, then a name of alphanumerics,
+# "-", "_" and "." (k8s.io/apimachinery validation.IsQualifiedName)
+QUALIFIED_NAME = re.compile(
+    r"^[a-z0-9]([-a-z0-9.]*[a-z0-9])?/[A-Za-z0-9]([-A-Za-z0-9_.]*"
+    r"[A-Za-z0-9])?$")
+
+
+class TestMediaProfiles:
+    """24d: ``1g.10gb+me``, the H100's media-extension profile, parses,
+    is spelled without "+" wherever Kubernetes names it, and is planned
+    only for a pod that asks for it."""
+
+    def test_the_profile_parses(self):
+        m = profile.PROFILE_RE.match("1g.10gb+me")
+        assert (m.group("g"), m.group("gb"), m.group("me")) == \
+            ("1", "10", "+me")
+        assert profile.is_media_profile("1g.10gb+me")
+        assert not profile.is_media_profile("1g.10gb")
+        for bad in ("1g.10gb+", "1g.10gb+gfx", "1g.10gb.me", "1g.10gbme"):
+            assert profile.PROFILE_RE.match(bad) is None
+        assert profile.profile_sort_key("1g.10gb+me") == (10, "1g.10gb+me")
+
+    @pytest.mark.parametrize("name", [p.name for p in H100_80GB.mig_profiles])
+    def test_profile_to_resource_name_is_legal(self, name):
+        res = profile.slice_resource_name(name)
+        assert QUALIFIED_NAME.match(res), res
+        assert "+" not in res
+        assert profile.profile_from_resource(res) == name
+
+    def test_resource_name_to_profile(self):
+        assert profile.profile_from_resource("nvidia.com/mig-1g.10gb.me") == \
+            "1g.10gb+me"
+        assert profile.slice_resource_name("1g.10gb+me") == \
+            "nvidia.com/mig-1g.10gb.me"
+        assert profile.extract_slice_requests(
+            {"nvidia.com/mig-1g.10gb.me": 1, "nvidia.com/mig-1g.10gb": 2}) \
+            == {"1g.10gb+me": 1, "1g.10gb": 2}
+        for key in ("1g.10gb", "3g.40gb", "24gb"):
+            assert profile.profile_key(key) == key
+            assert profile.profile_from_key(key) == key
+        assert profile.profile_key("1g.10gb+me") == "1g.10gb.me"
+        assert profile.profile_from_key("1g.10gb.me") == "1g.10gb+me"
+
+    def test_annotation_keys_are_legal_and_round_trip(self):
+        from nos_tpu_torch.topology import annotations as A
+
+        spec = A.spec_from_geometries({0: {"1g.10gb+me": 1, "1g.10gb": 6}})
+        status = A.status_from_units([type("U", (), {
+            "index": 0, "used_names": lambda self: {"1g.10gb+me": 1},
+            "free_names": lambda self: {"1g.10gb": 6}})()])
+        for key in {**spec, **status}:
+            assert QUALIFIED_NAME.match(key), key
+        assert [(a.index, a.profile, a.quantity)
+                for a in A.parse_spec_annotations(spec)] == \
+            [(0, "1g.10gb", 6), (0, "1g.10gb+me", 1)]
+        assert [(a.profile, a.status) for a in
+                A.parse_status_annotations(status)] == \
+            [("1g.10gb", "free"), ("1g.10gb+me", "used")]
+        annots = {**spec, **status}
+        assert A.spec_matches_status(annots, family="mig")
+        A.strip_spec_annotations(annots, family="mps")
+        assert len(annots) == 4
+        A.strip_spec_annotations(annots, family="mig")
+        A.strip_status_annotations(annots, family="mig")
+        assert annots == {}
+
+    def test_planned_only_for_a_pod_that_asks(self):
+        from nos_tpu_torch.topology.slice_unit import SliceUnit
+
+        unit = SliceUnit(model=H100_80GB)
+        unit.init_geometry()
+        assert unit.geometry_names() == {"7g.80gb": 1}
+        assert unit.update_geometry_for({"1g.10gb": 3})
+        assert "1g.10gb+me" not in unit.geometry_names()
+        asked = SliceUnit(model=H100_80GB)
+        asked.init_geometry()
+        assert asked.update_geometry_for({"1g.10gb+me": 1})
+        assert asked.free_names().get("1g.10gb+me") == 1
+        # a used media instance stays where the re-carve serves others
+        asked.allocate("1g.10gb+me")
+        assert asked.update_geometry_for({"3g.40gb": 1})
+        assert asked.used_names() == {"1g.10gb+me": 1}
+        assert asked.free_names().get("3g.40gb") == 1
+
+    def test_a_media_pod_is_planned_and_bound_on_a_mig_node(self):
+        from nos_tpu_torch.testing import devcluster
+        from nos_tpu_torch.testing.factory import make_pod
+
+        nodes = devcluster.kind_nodes()
+        pod = make_pod("video", resources={"nvidia.com/mig-1g.10gb.me": 1})
+        got = devcluster.plan_and_bind(nodes, [pod])
+        mig = nodes[0].metadata.name
+        assert got["bound"] == {"video": mig}
+        assert got["geometry"][mig].get("nvidia.com/mig-1g.10gb.me") == 1.0
 
 
 def test_errors():
