@@ -247,6 +247,24 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    step windows, each pod's creation-to-bound ms, the scheduler's host
    ms per cycle and ``gb``'s children's launches, which the kernels line
    counts as the ``gang`` path.
+   (c) block: an NVLink block gang (ROADMAP item 7.2) over one domain of
+   four one-GPU MIG nodes, the card's at index 0 and three stubs, each
+   agent on the fake runtime (MIG actuation on the card waits on 24a).
+   A single under the spare progress holds index 1, a nearly done one
+   index 2.  The operator main's hook rewrites the gang's two members,
+   ``nvidia.com/gpu: 2`` with the mesh 2x1, into
+   ``nvlink-block-2x1: 1`` each.  The first cycle must lease the window
+   [0, 1] (the annotation on both nodes); drain preemption
+   (BLOCK_DRAIN_AFTER cycles, BLOCK_DRAIN_FRACTION) must evict the
+   straggler alone in cycle BLOCK_DRAIN_AFTER + 2; the group pass must
+   carve both nodes as shards and both members bind in one cycle on the
+   window, and the lease go the cycle after.  The card member's child
+   trains GRANT_STEPS steps of BENCH_350M_TRAIN under the grant the
+   device plugin's ``block_allocate_envs`` gives, the card whole by its
+   UUID (verified, no memory cap), with no kernel built; the stub
+   member's bind is checked through the API only.  The line carries the
+   lease, the eviction and bind cycles, the child's steps and its
+   launches, which the kernels line counts as the ``block`` path.
 
 13. recovery: fleet planning by pool and node-loss recovery.  (a) On
    the host, partition (a)'s fleet with the gang fleet's NVLink domains
@@ -4301,6 +4319,323 @@ def phase_gang(main_loss0: float, device: dict, smi: str) -> dict:
     return launches
 
 
+# The block phase, the gang phase's part (c): an NVLink block gang
+# (ROADMAP item 7.2) over the card's node and three stub neighbours of
+# one NVLink domain, every node a MIG node of one GPU whose agent runs
+# on the fake runtime (MIG actuation on the card waits on 24a; the fake
+# records the block's shards).  Index 0 is the card's node; a long
+# single holds index 1, so the window [0, 1] is the one to drain; the
+# window [2, 3] holds a nearly done single on index 2.  The gang's two
+# members ask for generic GPUs with a mesh, which the operator main's
+# hook rewrites into one member of the block each.
+BLOCK_DOMAIN = "nvl-block"
+BLOCK_NODES = ("h100-block-0", "h100-block-1", "h100-block-2",
+               "h100-block-3")
+BLOCK_MESH = "2x1"
+BLOCK_PROFILE = "2x1"
+BLOCK_RESOURCE = "nos.nebuly.com/nvlink-block-2x1"
+BLOCK_GANG = ("default", "blk", ("blk-0", "blk-1"))
+# (pod, node index, job progress): the window's straggler, under the
+# spare threshold, and the other window's nearly done single
+BLOCK_STRAGGLER = ("straggler", 1, "0.1")
+BLOCK_BUSY = ("busy", 2, "0.9")
+# drain preemption on for the phase: two cycles under the lease, and the
+# straggler's one GPU of the window's two is the final stretch
+BLOCK_DRAIN_AFTER = 2
+BLOCK_DRAIN_FRACTION = 0.5
+BLOCK_BATCH_IDLE_S = 0.05
+BLOCK_BATCH_TIMEOUT_S = 0.2
+BLOCK_REPLAN_EPOCH_S = 0.05
+BLOCK_LIMIT_S = 30.0
+BLOCK_POLL_S = 0.01
+
+
+class _BlockLoop:
+    """The block phase's control plane on an in-memory API server: the
+    operator main (quota webhooks and mesh normalization), the node and
+    pod controllers, the MIG partitioner (the group pass in front), one
+    MIG agent per node on the fake runtime, the card's with the card's
+    UUID, and the scheduler with drain preemption on.  ``step`` is a
+    scheduler cycle, a controller poll and every agent's tick.  ``clock``
+    is the controller's and the scheduler's."""
+
+    def __init__(self, device: dict, clock=time.monotonic) -> None:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.api.config import OperatorConfig
+        from nos_tpu_torch.cmd.assembly import build_scheduler
+        from nos_tpu_torch.cmd.operator import build_operator_main
+        from nos_tpu_torch.controllers.node_controller import NodeController
+        from nos_tpu_torch.controllers.pod_controller import PodController
+        from nos_tpu_torch.controllers.sliceagent.agent import SliceAgent
+        from nos_tpu_torch.device.fake import (
+            FakeGpuRuntime, FakePodResources,
+        )
+        from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD
+        from nos_tpu_torch.obs.ledger import ChipSecondLedger, set_ledger
+        from nos_tpu_torch.partitioning import slicepart as sp
+        from nos_tpu_torch.partitioning.state import ClusterState
+        from nos_tpu_torch.testing.factory import make_gpu_node
+        from nos_tpu_torch.topology import DEFAULT_REGISTRY
+
+        self.ledger = ChipSecondLedger(clock=clock)
+        set_ledger(self.ledger)
+        model = DEFAULT_REGISTRY.get(device["model"])
+        self.api = APIServer()
+        build_operator_main(self.api, OperatorConfig())
+        state = ClusterState()
+        NodeController(self.api, state,
+                       sp.SliceNodeInitializer(self.api)).bind()
+        PodController(self.api, state).bind()
+        self.controller = sp.new_slice_partitioner_controller(
+            self.api, state, batch_timeout_s=BLOCK_BATCH_TIMEOUT_S,
+            batch_idle_s=BLOCK_BATCH_IDLE_S,
+            replan_epoch_s=BLOCK_REPLAN_EPOCH_S, clock=clock)
+        self.controller.bind()
+        self.agents = {}
+        for i, name in enumerate(BLOCK_NODES):
+            self.api.create(KIND_NODE, make_gpu_node(
+                name, model=model, gpus=1, partitioning=C.MIG_KIND,
+                domain=BLOCK_DOMAIN, host_index=i))
+            runtime = FakeGpuRuntime(model, 1, gpu_uuids=(
+                [device["uuid"]] if i == 0 else None))
+            agent = SliceAgent(self.api, name, runtime, FakePodResources())
+            agent.start()
+            self.agents[name] = agent
+        self.sched = build_scheduler(
+            self.api, clock=clock,
+            drain_preempt_after_cycles=BLOCK_DRAIN_AFTER,
+            drain_preempt_max_busy_fraction=BLOCK_DRAIN_FRACTION)
+        self.cycle = 0
+        self.cycle_ms: list[float] = []
+        # per cycle: (cycle, the pods bound in it, the pods gone in it)
+        self.events: list[tuple[int, list[str], list[str]]] = []
+        self.leases: list[dict[str, str]] = []
+        self._kind_pod = KIND_POD
+
+    def pods(self) -> dict:
+        return {p.metadata.name: p for p in self.api.list(self._kind_pod)}
+
+    def lease(self) -> dict[str, str]:
+        from nos_tpu_torch.api import constants as C
+        from nos_tpu_torch.kube.client import KIND_NODE
+
+        return {n.metadata.name: n.metadata.annotations.get(
+                    C.ANNOT_GANG_LEASE, "")
+                for n in self.api.list(KIND_NODE)}
+
+    def step(self) -> None:
+        before = {n: p.spec.node_name for n, p in self.pods().items()}
+        t0 = time.perf_counter()
+        self.sched.run_cycle()
+        self.cycle_ms.append((time.perf_counter() - t0) * 1e3)
+        self.cycle += 1
+        after = {n: p.spec.node_name for n, p in self.pods().items()}
+        self.events.append((
+            self.cycle,
+            sorted(n for n, node in after.items()
+                   if node and not before.get(n)),
+            sorted(n for n in before if n not in after)))
+        self.leases.append(self.lease())
+        self.controller.process_if_ready()
+        for agent in self.agents.values():
+            agent.tick()
+
+    def settle(self) -> None:
+        """Controllers and agents only, until nothing moves: the
+        virgin nodes initialized and carved."""
+        for _ in range(4):
+            self.controller.process_if_ready()
+            for agent in self.agents.values():
+                agent.tick()
+
+    def run_until(self, done, what: str, advance=None,
+                  poll_s: float = BLOCK_POLL_S) -> float:
+        t0 = time.monotonic()
+        while not done():
+            if time.monotonic() - t0 > BLOCK_LIMIT_S:
+                fail(f"the block loop did not {what} within "
+                     f"{BLOCK_LIMIT_S} s")
+            if advance is not None:
+                advance()
+            self.step()
+            time.sleep(poll_s)
+        return time.monotonic() - t0
+
+
+def _block_loop(device: dict, clock=time.monotonic,
+                advance=None) -> tuple[_BlockLoop, dict]:
+    """The phase up to the child: the straggler and the busy single on
+    their nodes, the gang normalized at create, the lease on the window
+    [0, 1] from the first cycle, the straggler evicted by drain
+    preemption after BLOCK_DRAIN_AFTER cycles under the lease, then one
+    plan carving the block's shards and both members bound in one cycle
+    and Running.  ``clock`` and ``advance`` let a test drive it on an
+    injected clock."""
+    from nos_tpu_torch.api import constants as C
+    from nos_tpu_torch.kube.client import KIND_POD, KIND_POD_GROUP
+    from nos_tpu_torch.kube.resources import pod_request
+    from nos_tpu_torch.testing.factory import make_pod, make_pod_group
+    from nos_tpu_torch.topology.annotations import parse_spec_annotations
+
+    loop = _BlockLoop(device, clock)
+    loop.settle()
+    for pod, index, progress in (BLOCK_STRAGGLER, BLOCK_BUSY):
+        loop.api.create(KIND_POD, make_pod(
+            name=pod, resources={"nvidia.com/mig-7g.80gb": 1, C.CPU: 1.0},
+            node_name=BLOCK_NODES[index],
+            annotations={C.ANNOT_JOB_PROGRESS: progress}))
+    loop.settle()
+    running = [n for n, p in loop.pods().items()
+               if p.status.phase == "Running"]
+    if sorted(running) != sorted((BLOCK_STRAGGLER[0], BLOCK_BUSY[0])):
+        fail(f"the block fleet's singles run {running}, not the straggler "
+             f"and the busy single")
+    ns, group, members = BLOCK_GANG
+    loop.api.create(KIND_POD_GROUP, make_pod_group(group, 2, namespace=ns))
+    for name in members:
+        loop.api.create(KIND_POD, make_pod(
+            name=name, namespace=ns,
+            resources={C.RESOURCE_GPU: 2, C.CPU: 1.0},
+            labels={C.LABEL_POD_GROUP: group},
+            annotations={C.ANNOT_MESH: BLOCK_MESH}))
+    asked = {n: pod_request(loop.pods()[n]) for n in members}
+    if any(r != {BLOCK_RESOURCE: 1.0, C.CPU: 1.0} for r in asked.values()):
+        fail(f"the operator's mesh hook left the gang asking {asked}")
+    t0 = time.perf_counter()
+    loop.run_until(lambda: all(loop.pods().get(n) is not None
+                               and loop.pods()[n].status.phase == "Running"
+                               for n in members),
+                   f"bind {group} whole and run it", advance=advance)
+    bind_s = time.perf_counter() - t0
+    window = {BLOCK_NODES[0]: f"{ns}/{group}",
+              BLOCK_NODES[1]: f"{ns}/{group}",
+              BLOCK_NODES[2]: "", BLOCK_NODES[3]: ""}
+    if loop.leases[0] != window:
+        fail(f"the first cycle's lease is {loop.leases[0]}, not {window}")
+    gone = [(c, g) for c, _, g in loop.events if g]
+    if gone != [(gone[0][0], [BLOCK_STRAGGLER[0]])] \
+            or BLOCK_BUSY[0] not in loop.pods():
+        fail(f"drain preemption evicted {gone}, not the straggler alone")
+    evict_cycle = gone[0][0]
+    # one cycle adopts the lease, BLOCK_DRAIN_AFTER more count it
+    if evict_cycle != BLOCK_DRAIN_AFTER + 2:
+        fail(f"the straggler was evicted in cycle {evict_cycle}, not "
+             f"{BLOCK_DRAIN_AFTER + 2}")
+    bound = [(c, b) for c, b, _ in loop.events if b]
+    if len(bound) != 1 or bound[0][1] != sorted(members):
+        fail(f"{group}'s members were bound in cycles {bound}, not both "
+             f"in one")
+    nodes = {n: loop.pods()[n].spec.node_name for n in members}
+    if sorted(nodes.values()) != sorted(BLOCK_NODES[:2]):
+        fail(f"{group} bound on {nodes}, not the leased window")
+    shards = {}
+    for name in BLOCK_NODES[:2]:
+        node = loop.api.get("Node", name)
+        shards[name] = {(a.index, a.profile): a.quantity for a in
+                        parse_spec_annotations(node.metadata.annotations)}
+        if shards[name] != {(0, BLOCK_PROFILE): 1} \
+                or node.status.allocatable.get(BLOCK_RESOURCE) != 1.0:
+            fail(f"{name} is no shard of the block: {shards[name]}, "
+                 f"{node.status.allocatable}")
+    # the next cycle finds the gang no longer waiting: the lease goes
+    loop.step()
+    if any(loop.lease().values()):
+        fail(f"the lease outlived the gang's bind: {loop.lease()}")
+    return loop, {
+        "lease_first_cycle": {n: v for n, v in loop.leases[0].items()
+                              if v},
+        "evicted": BLOCK_STRAGGLER[0], "evict_cycle": evict_cycle,
+        "drain_after_cycles": BLOCK_DRAIN_AFTER,
+        "bind_cycle": bound[0][0], "bound": nodes, "shards": sorted(shards),
+        "bind_s": bind_s, "cycles": loop.cycle,
+        "cycle_ms_median": statistics.median(loop.cycle_ms),
+        "cycle_ms_max": max(loop.cycle_ms)}
+
+
+def _block_grant(loop: _BlockLoop, member: str) -> dict:
+    """The card member's grant as the device plugin's Allocate would hand
+    it (``device/deviceplugin.block_allocate_envs``): its shard's device
+    and the node's GPUs whole, by GPU UUID.  The smoke stands in for the
+    kubelet plugin, which needs grpcio."""
+    from nos_tpu_torch.device.deviceplugin import block_allocate_envs
+
+    node = loop.pods()[member].spec.node_name
+    runtime = loop.agents[node].runtime
+    ids = [d.device_id for d in runtime.list_devices()
+           if d.resource_name == BLOCK_RESOURCE]
+    envs = block_allocate_envs(BLOCK_RESOURCE, ids, runtime.gpu_uuids())
+    key = "NOS_TPU_VISIBLE_CHIPS_nvlink_block_2x1"
+    if len(ids) != 1 or key not in envs:
+        fail(f"{member}'s grant on {node} is {envs}, naming no GPU")
+    return envs
+
+
+def phase_block(main_loss0: float, device: dict, smi: str) -> dict:
+    """The gang phase's part (c), the NVLink block gang (see above): the
+    control plane on the host, then the card member's training child,
+    GRANT_STEPS steps of BENCH_350M_TRAIN under a grant naming the card
+    whole, reusing the built kernels.  The stub member's bind is checked
+    through the API alone.  Returns the child's launches."""
+    from nos_tpu_torch.models.llama import BENCH_350M_TRAIN
+    from nos_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    loop, card = _block_loop(device)
+    member = next(n for n in BLOCK_GANG[2]
+                  if loop.pods()[n].spec.node_name == BLOCK_NODES[0])
+    stub = next(n for n in BLOCK_GANG[2] if n != member)
+    grant = _block_grant(loop, member)
+    kernels_before = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    _release()
+    with tempfile.TemporaryDirectory(prefix="nos-block-") as tmp:
+        cfg_path, no_nvcc = _grant_workdir(tmp)
+        child = _run_grant_child(member, cfg_path, grant, no_nvcc)
+    kernels_after = sorted(p.name for p in _build.KERNEL_DIR.iterdir())
+    if kernels_after != kernels_before:
+        fail(f"the block child built kernels: {kernels_before} -> "
+             f"{kernels_after}")
+    layers = BENCH_350M_TRAIN.num_layers
+    r = child["report"]
+    if child["rc"] != 0 or r is None:
+        fail(f"block child exited {child['rc']}:\n"
+             f"{child['stderr'][-4000:]}")
+    if not (r["verified"] and r["devices"] == [device["uuid"]]
+            and r["fraction"] is None and r["cap_bytes"] is None):
+        fail(f"block child verified {r}, not the card {device['uuid']} "
+             f"whole")
+    _check_launches("block child", r["launches"], {
+        "flash_fwd": GRANT_STEPS * layers,
+        "flash_bwd_fused": GRANT_STEPS * layers})
+    steps = child["steps"]
+    if [s[0] for s in steps] != list(range(1, GRANT_STEPS + 1)) \
+            or not all(math.isfinite(s[1]) for s in steps):
+        fail(f"block child logged steps {steps}")
+    loss0_rel = abs(steps[0][1] - main_loss0) / abs(main_loss0)
+    if not loss0_rel <= MAIN_LOSS0_RTOL:
+        fail(f"block child's step-0 loss {steps[0][1]} against "
+             f"train_main's {main_loss0}: {loss0_rel} relative")
+    launches = {k: r["launches"].get(k, 0)
+                for k in ("flash_fwd", "flash_bwd_fused", "flash_dq",
+                          "flash_dkv")}
+    tiles = {name: r["tile_launches"].get(f"{kernel}:{tile[0]}x{tile[1]}",
+                                          0)
+             for name, (kernel, tile, _) in TILES.items()}
+    stamps = [t for _, t, _ in child["stamps"]]
+    emit({"phase": "block", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0, "card": card,
+          "member": member, "stub_member": stub,
+          "stub_checked": "through the API only (a stub node, no child)",
+          "grant": grant, "grant_verified": r["devices"],
+          "child_wall_s": child["wall_s"],
+          "steps": [{"step": s, "loss": loss, "tokens_per_s": tps}
+                    for s, loss, tps in steps],
+          "step_gaps_s": [b - a for a, b in zip(stamps, stamps[1:])],
+          "loss0_rel_diff": loss0_rel, "main_loss0": main_loss0,
+          "launches": launches, "tile_launches": tiles})
+    PATH_TILES["block"] = tiles
+    return launches
+
+
 # The recovery phase.  (a) partition (a)'s MPS fleet in the gang fleet's
 # NVLink domains (three plan pools), planned by the parallel planner at
 # each of PARALLEL_WORKERS workers and by the sequential planner, one
@@ -7922,8 +8257,8 @@ def phase_serving(main_loss0: float, device: dict, smi: str) -> dict:
 # bench_capacity.py run of the same trace and seed
 # (tests/test_torch_capacity.py)
 CAPACITY_FLEET_DIGESTS = {
-    "swing": "6ac1cf3c5fd501d776c6db911723d49d5de48d9b5887cfb9c33e1aad35ee9164",
-    "storm": "e448cd27035f66abdeb3cf3425ecc8d007ae74d16e792a8b16a741f28415753c",
+    "swing": "092842080c7c0f412004ad01a8d380f009ffe696e6d16ca9f23b9ba3c0966f12",
+    "storm": "4dd2a77916ec039ebcc0ccc1071cd5e42bfe695f21d48723865237ef6da9efa6",
     "quiet": "6bf78ffae19b77e42d709910a9a9d26a6ab41a5adc2147e4092be7fbe7f69a18",
 }
 CAPACITY_FLEET_RUNS = 2
@@ -9238,6 +9573,7 @@ def main() -> int:
             phase_mig(device, smi)
             phase_quota(main_loss0, device, smi)
             gang = phase_gang(main_loss0, device, smi)
+            block = phase_block(main_loss0, device, smi)
             recovery = phase_recovery(main_loss0, device, smi)
             mains = phase_mains(main_loss0, device, smi)
             elastic = phase_elastic(main_loss0, device, smi)
@@ -9251,7 +9587,8 @@ def main() -> int:
         demo = phase_demo(device, smi)
         mfu = phase_mfu(smi)
     paths = {"serve": serve, "train": train, "train_main": train_main,
-             "moe": moe, "gang": gang, "recovery": recovery, "mains": mains,
+             "moe": moe, "gang": gang, "block": block,
+             "recovery": recovery, "mains": mains,
              "elastic": elastic, "serving": serving, "capacity": capacity,
              "demo": demo, "mfu": mfu}
     for entry in entries:

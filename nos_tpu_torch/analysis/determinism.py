@@ -109,11 +109,12 @@ def run_trace(plan_workers: int, cycles: int = DEFAULT_CYCLES,
     from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD
     from nos_tpu_torch.obs.journal import DecisionJournal, set_journal
     from nos_tpu_torch.obs.trace import Tracer, set_tracer
-    from nos_tpu_torch.partitioning.core import (
-        GeometryPlanner, ParallelGeometryPlanner,
-    )
+    from nos_tpu_torch.partitioning.core import ParallelGeometryPlanner
     from nos_tpu_torch.partitioning.slicepart import (
         SlicePartitionCalculator, SliceProfileCalculator, SliceSnapshotTaker,
+    )
+    from nos_tpu_torch.partitioning.slicepart.group import (
+        MultiHostGeometryPlanner,
     )
     from nos_tpu_torch.scheduler.framework import Framework
     from nos_tpu_torch.testing import fleet
@@ -126,10 +127,12 @@ def run_trace(plan_workers: int, cycles: int = DEFAULT_CYCLES,
     try:
         spec = trace_spec()
 
-        # -- plan leg: the sharded parallel planner over the MIG fleet
+        # -- plan leg: the sharded parallel planner over the MIG fleet,
+        # the NVLink block pass in front as in the partitioner's factory
         planner = ParallelGeometryPlanner(
-            lambda: GeometryPlanner(Framework(), SliceProfileCalculator(),
-                                    SlicePartitionCalculator()),
+            lambda: MultiHostGeometryPlanner(
+                Framework(), SliceProfileCalculator(),
+                SlicePartitionCalculator()),
             SliceProfileCalculator(), kind=C.MIG_KIND,
             max_workers=plan_workers, min_shard_hosts=0,
             clock=lambda: 0.0)

@@ -32,9 +32,9 @@ would make that anchor flap:
   ``__post_init__`` and the event method itself.  This extends N008
   (single watched-attribute writes on live API objects) to the full
   index protocol: the watch-maintained SchedulerCache indexes, the
-  scheduler's per-cycle lister feeding the class-scan caches (the
-  window-busy map waits on the multi-node gang windows), and the
-  planner snapshot's epoch-memoised views.  A REQUIRED registry keeps
+  scheduler's per-cycle lister feeding the class-scan caches and its
+  window-busy map (``_busy_map_cache``, whose in-place flips ride
+  ``_mark_busy``), and the planner snapshot's epoch-memoised views.  A REQUIRED registry keeps
   the certification live across renames (the N009 pattern): the named
   cache classes must carry the declaration at all.
 
@@ -378,7 +378,9 @@ class InvalidationProtocol(Rule):
         ("nos_tpu_torch.scheduler.cache", "SchedulerCache",
          "the watch-maintained node/pod indexes behind snapshot()"),
         ("nos_tpu_torch.scheduler.scheduler", "Scheduler",
-         "the cycle lister feeding the class-scan caches"),
+         "the cycle lister feeding the class-scan caches, and the "
+         "window-busy map (_busy_map_cache) whose mutations must ride "
+         "_mark_busy"),
         ("nos_tpu_torch.partitioning.core.snapshot", "ClusterSnapshot",
          "the node map behind the epoch-memoised planner views"),
     )

@@ -16,11 +16,11 @@ The JAX package's TPU names take the port's: ``gpu_memory_gb_per_gpu``
 kinds ``mig``, ``mps`` and ``hybrid`` for ``slice``, ``timeshare`` and
 ``hybrid``.
 
-Knobs of planes the port does not have yet are parsed and checked as
-the JAX package checks them.  At the JAX package's default a knob is
-accepted, and ``missing_planes`` names the ROADMAP item that brings its
-plane, for the main to log once; any other value raises ``ConfigError``
-naming that item.  So no knob is ignored quietly.
+Every knob of the JAX package's configs is one the port acts on, under
+the JAX key name and at its default: the scheduler's drain preemption
+(``drain_preempt_*``, off at 0) and host-shard quota accounting
+(``shard_chips_per_host``, a block unit charged one node's GPUs; off at
+0) included.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import dataclasses
 import json
 import logging
 import pathlib
-from typing import Any, ClassVar, TypeVar
+from typing import Any, TypeVar
 
 logger = logging.getLogger(__name__)
 
@@ -48,17 +48,6 @@ class ConfigError(ValueError):
     pass
 
 
-# (fields, the JAX package's default of each, the plane, its ROADMAP item)
-_DRAIN = (("drain_preempt_after_cycles", 0),
-          ("drain_preempt_max_busy_fraction", 0.25),
-          ("drain_preempt_spare_progress", 0.75))
-_SHARD = (("shard_chips_per_host", 0),)
-_PLANES = {
-    "drain": (_DRAIN, "drain preemption", "ROADMAP item 7.2"),
-    "shard": (_SHARD, "host-shard quota accounting", "ROADMAP item 7.2"),
-}
-
-
 @dataclasses.dataclass
 class ManagerConfig:
     """Shared manager knobs: health probe and metrics bind addresses,
@@ -72,9 +61,6 @@ class ManagerConfig:
     kubeconfig: str = ""
     slo_interval_s: float = 1.0
 
-    # the planes whose knobs this config carries and the port lacks
-    _missing: ClassVar[tuple[str, ...]] = ()
-
     def validate(self) -> None:
         for field in ("health_probe_addr", "metrics_addr"):
             addr = getattr(self, field)
@@ -85,30 +71,6 @@ class ManagerConfig:
                 f"kubeconfig {self.kubeconfig!r} does not exist")
         if self.slo_interval_s < 0:
             raise ConfigError("slo_interval_s must be >= 0")
-
-    def _refuse_missing(self) -> None:
-        """After the JAX package's checks: a knob of a plane the port
-        lacks, away from the JAX default, is an error."""
-        for plane in self._missing:
-            knobs, what, item = _PLANES[plane]
-            for name, default in knobs:
-                value = getattr(self, name)
-                if value != default:
-                    raise ConfigError(
-                        f"{type(self).__name__}.{name} = {value!r}: "
-                        f"{what} is not in the port yet ({item}); only "
-                        f"{default!r} is accepted")
-
-
-def missing_planes(cfg: ManagerConfig) -> list[str]:
-    """One line per plane this config's knobs belong to and the port
-    lacks, for a main to log once at start."""
-    out = []
-    for plane in cfg._missing:
-        knobs, what, item = _PLANES[plane]
-        out.append(f"{', '.join(n for n, _ in knobs)} at the JAX "
-                   f"package's defaults: {what} comes with {item}")
-    return out
 
 
 @dataclasses.dataclass
@@ -183,7 +145,6 @@ class PartitionerConfig(ManagerConfig):
             raise ConfigError(
                 f"known_geometries_file {self.known_geometries_file!r} "
                 f"does not exist")
-        self._refuse_missing()
 
 
 @dataclasses.dataclass
@@ -194,8 +155,15 @@ class SchedulerConfig(ManagerConfig):
     ``gpu_memory_gb_per_gpu``; the operator's value must match."""
 
     gpu_memory_gb_per_gpu: int = 80
+    # host-shard quota accounting: one unit of an NVLink block is charged
+    # this many GPUs (the nodes' GPU count), not the block's (0 = off);
+    # must match the operator's
     shard_chips_per_host: int = 0
     cycle_interval_s: float = 0.05
+    # drain preemption (0 = off): after a gang has held its window lease
+    # this many cycles, evict the stragglers off the window when they
+    # hold at most max_busy_fraction of its GPUs, sparing those past
+    # spare_progress
     drain_preempt_after_cycles: int = 0
     drain_preempt_max_busy_fraction: float = 0.25
     drain_preempt_spare_progress: float = 0.75
@@ -205,8 +173,6 @@ class SchedulerConfig(ManagerConfig):
     # a displaced pod ranks above batch until its stamp is this old;
     # 0 = no expiry
     displaced_age_cap_s: float = 300.0
-
-    _missing: ClassVar[tuple[str, ...]] = ("drain", "shard")
 
     def validate(self) -> None:
         super().validate()
@@ -231,7 +197,6 @@ class SchedulerConfig(ManagerConfig):
         if self.elastic_grow_budget_per_cycle < 0:
             raise ConfigError(
                 "elastic_grow_budget_per_cycle must be >= 0")
-        self._refuse_missing()
 
 
 @dataclasses.dataclass
@@ -239,14 +204,13 @@ class OperatorConfig(ManagerConfig):
     """The operator main's config (OperatorConfig analog)."""
 
     gpu_memory_gb_per_gpu: int = 80
+    # host-shard quota accounting; must match the scheduler's
     shard_chips_per_host: int = 0
     resync_interval_s: float = 5.0
     # the HTTPS AdmissionReview endpoint (kube/webhook.py): 0 disables;
     # tls.crt and tls.key are read from webhook_cert_dir
     webhook_port: int = 0
     webhook_cert_dir: str = ""
-
-    _missing: ClassVar[tuple[str, ...]] = ("shard",)
 
     def validate(self) -> None:
         super().validate()
@@ -264,7 +228,6 @@ class OperatorConfig(ManagerConfig):
                 "mounts tls.crt/tls.key there)")
         if self.shard_chips_per_host < 0:
             raise ConfigError("shard_chips_per_host must be >= 0")
-        self._refuse_missing()
 
 
 @dataclasses.dataclass

@@ -232,6 +232,19 @@ ANNOT_SERVING_SESSIONS = f"{GROUP}/serving-sessions"
 # last, so the freed room is not refilled by the pods just moved off it.
 ANNOT_DEFRAG_DRAIN = f"{GROUP}/defrag-drain"
 
+# Gang window lease: stamped by the scheduler on every node of the
+# aligned window a stuck block gang is draining toward (value
+# "<namespace>/<gang>").  The partitioner reads it: the per-node loop
+# re-carves leased nodes last and the group pass carves the leased window
+# first, so both planes drain the same window.
+ANNOT_GANG_LEASE = f"{GROUP}/gang-window-lease"
+
+# The mesh a workload pod will build, "<nodes>x<GPUs per node>": a pod
+# asking for ``nvidia.com/gpu: N*G`` with ``mesh: NxG`` (N >= 2) is
+# rewritten at admission into one NVLink block member
+# (``nos.nebuly.com/nvlink-block-NxG: 1``, ``api/mesh.py``).
+ANNOT_MESH = f"{GROUP}/mesh"
+
 # Migration drains share the annotation with a "migrate:<kind>:<cause>"
 # value (partitioning/core/failure.py).  Unlike a defrag drain, soft
 # avoidance of a healthy host, a migration drain is a hard scheduling

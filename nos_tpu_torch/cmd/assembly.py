@@ -10,7 +10,6 @@ import logging
 
 from nos_tpu_torch.api.config import (
     HYBRID_KIND, MIG_KIND, MPS_KIND, PartitionerConfig, ProvisionerConfig,
-    missing_planes,
 )
 from nos_tpu_torch.cmd._runtime import Main
 from nos_tpu_torch.kube.client import APIServer
@@ -24,13 +23,6 @@ from nos_tpu_torch.scheduler.gang import TopologyFilter
 from nos_tpu_torch.scheduler.scheduler import Scheduler
 
 logger = logging.getLogger(__name__)
-
-
-def log_missing_planes(name: str, cfg) -> None:
-    """Name, once, the ROADMAP item of each plane whose knobs the config
-    carries at the JAX package's defaults."""
-    for line in missing_planes(cfg):
-        logger.info("%s: %s", name, line)
 
 
 def build_partitioner_main(api: APIServer, state: ClusterState,
@@ -54,7 +46,6 @@ def build_partitioner_main(api: APIServer, state: ClusterState,
         DEFAULT_REGISTRY.load_overrides(cfg.known_geometries_file)
     main = main or Main("nos-tpu-partitioner", cfg.health_probe_addr,
                         api=api)
-    log_missing_planes(main.name, cfg)
     controllers = []
     timing = {"batch_timeout_s": cfg.batch_timeout_s,
               "batch_idle_s": cfg.batch_idle_s,
@@ -177,7 +168,13 @@ def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,
                     preempt_budget_per_cycle: int | None = None,
                     displaced_age_cap_s: float | None = None,
                     elastic_grow_budget_per_cycle: int = 1,
-                    clock=None) -> Scheduler:
+                    clock=None,
+                    drain_preempt_after_cycles: int = 0,
+                    drain_preempt_max_busy_fraction: float = 0.25,
+                    drain_preempt_spare_progress: float = 0.75,
+                    drain_preempt_progress_fn=None,
+                    shard_chips_per_host: int = 0,
+                    registry=None) -> Scheduler:
     """The rebuilt kube-scheduler (reference cmd/scheduler/
     scheduler.go:43-59): NodeResourcesFit, the recovery plane's
     SpareGuard and MigrationDrainGuard, the gangs' TopologyFilter, then
@@ -188,15 +185,27 @@ def build_scheduler(api: APIServer, gpu_memory_gb_per_gpu: int = 80,
     the framework decides as it would without them.  None for a knob
     keeps the scheduler's default (``scheduler/scheduler.py``); the
     elastic grow pass grows up to ``elastic_grow_budget_per_cycle``
-    gangs a cycle (0: off), 1 as in the JAX package."""
-    plugin = CapacityScheduling(GPUResourceCalculator(gpu_memory_gb_per_gpu))
+    gangs a cycle (0: off), 1 as in the JAX package.  Drain preemption
+    runs with ``drain_preempt_after_cycles`` above 0 (0: off, as in the
+    JAX package's config), and ``shard_chips_per_host`` above 0 charges
+    one unit of an NVLink block that many GPUs of quota.  ``registry``
+    (None: the default) is the GPU models whose blocks the score's window
+    term reads."""
+    plugin = CapacityScheduling(GPUResourceCalculator(
+        gpu_memory_gb_per_gpu, shard_chips_per_host))
     fw = Framework([NodeResourcesFit(), SpareGuard(), MigrationDrainGuard(),
                     TopologyFilter(api), plugin])
     plugin.set_framework(fw)
     plugin.attach(api)
     kwargs = {} if clock is None else {"clock": clock}
+    if registry is not None:
+        kwargs["registry"] = registry
     return Scheduler(
         api, fw, plugin, preempt_budget_per_cycle=preempt_budget_per_cycle,
         displaced_age_cap_s=displaced_age_cap_s,
         elastic_grow_budget_per_cycle=elastic_grow_budget_per_cycle,
+        drain_preempt_after_cycles=drain_preempt_after_cycles or None,
+        drain_preempt_max_busy_fraction=drain_preempt_max_busy_fraction,
+        drain_preempt_spare_progress=drain_preempt_spare_progress,
+        drain_preempt_progress_fn=drain_preempt_progress_fn,
         **kwargs)

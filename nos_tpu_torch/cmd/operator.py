@@ -2,13 +2,14 @@
 cmd/operator/operator.go:50-126): the ElasticQuota and
 CompositeElasticQuota reconcilers, watch-driven plus a periodic resync,
 with their validating webhooks registered and, when ``webhook_port`` is
-set, served over HTTPS (``kube/webhook.WebhookServer``).
+set, served over HTTPS (``kube/webhook.WebhookServer``).  Mesh
+normalization (``api/mesh.py``: ``nvidia.com/gpu: N*G`` with a mesh
+"NxG" becomes one NVLink block member) runs as an in-process hook on the
+in-memory substrate and as the mutating webhook's pod mutator on the
+REST substrate.  Quotas count a block unit as one node's GPUs where
+``shard_chips_per_host`` is set.
 
     python -m nos_tpu_torch.cmd.operator --config operator.json
-
-Left out: the JAX operator's mesh normalization (``api/mesh.py``, its
-in-process hook and its mutating webhook), which rewrites TPU chip
-counts into ICI slice shapes; it comes with ROADMAP item 7.2.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import sys
 from nos_tpu_torch.api.config import ConfigError, OperatorConfig, load_config
 from nos_tpu_torch.api.elasticquota import install_quota_webhooks
 from nos_tpu_torch.cmd._runtime import Main, build_api
-from nos_tpu_torch.cmd.assembly import log_missing_planes
 from nos_tpu_torch.controllers.elasticquota import (
     CompositeElasticQuotaReconciler, ElasticQuotaReconciler,
 )
@@ -67,8 +67,18 @@ def _serve_admission_webhook(api, cfg: OperatorConfig):
 def build_operator_main(api: APIServer, cfg: OperatorConfig,
                         main: Main | None = None) -> Main:
     main = main or Main("nos-tpu-operator", cfg.health_probe_addr, api=api)
-    log_missing_planes(main.name, cfg)
     install_quota_webhooks(api)
+    # mesh normalization: the raw-JSON mutator behind the webhook on the
+    # REST substrate (the kube-apiserver applies the JSONPatch), the
+    # object hook in process otherwise
+    from nos_tpu_torch.api.mesh import (
+        install_mesh_normalization, mesh_patch_ops,
+    )
+
+    if hasattr(api, "admission"):
+        api.admission.register_mutating("Pod", mesh_patch_ops)
+    else:
+        install_mesh_normalization(api)
     if cfg.webhook_port > 0:
         main.webhook = _serve_admission_webhook(api, cfg)
         main.add_shutdown_hook(main.webhook.stop)
@@ -83,7 +93,8 @@ def build_operator_main(api: APIServer, cfg: OperatorConfig,
             "webhook_port and webhook_cert_dir, and install the chart's "
             "ValidatingWebhookConfiguration)",
             api.admission.kinds)
-    calc = GPUResourceCalculator(cfg.gpu_memory_gb_per_gpu)
+    calc = GPUResourceCalculator(cfg.gpu_memory_gb_per_gpu,
+                                 cfg.shard_chips_per_host)
 
     def bind_reconcilers() -> None:
         """The reconcilers write (quota status, overlap deletion), so

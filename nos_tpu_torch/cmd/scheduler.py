@@ -17,7 +17,7 @@ import sys
 
 from nos_tpu_torch.api.config import ConfigError, SchedulerConfig, load_config
 from nos_tpu_torch.cmd._runtime import Main, build_api
-from nos_tpu_torch.cmd.assembly import build_scheduler, log_missing_planes
+from nos_tpu_torch.cmd.assembly import build_scheduler
 
 
 def build_scheduler_main(api, cfg: SchedulerConfig,
@@ -25,12 +25,15 @@ def build_scheduler_main(api, cfg: SchedulerConfig,
     """The scheduler's cycle as a run loop on ``main``; with leader
     election the loop runs only while this replica holds the lease."""
     main = main or Main("nos-tpu-scheduler", cfg.health_probe_addr, api=api)
-    log_missing_planes(main.name, cfg)
     scheduler = build_scheduler(
         api, cfg.gpu_memory_gb_per_gpu,
         preempt_budget_per_cycle=cfg.preempt_budget_per_cycle,
         displaced_age_cap_s=cfg.displaced_age_cap_s,
-        elastic_grow_budget_per_cycle=cfg.elastic_grow_budget_per_cycle)
+        elastic_grow_budget_per_cycle=cfg.elastic_grow_budget_per_cycle,
+        drain_preempt_after_cycles=cfg.drain_preempt_after_cycles,
+        drain_preempt_max_busy_fraction=cfg.drain_preempt_max_busy_fraction,
+        drain_preempt_spare_progress=cfg.drain_preempt_spare_progress,
+        shard_chips_per_host=cfg.shard_chips_per_host)
     main.scheduler = scheduler
     if cfg.leader_election:
         from nos_tpu_torch.kube.leaderelection import LeaderElector

@@ -15,7 +15,11 @@ DevicePlugin endpoint per advertised resource name:
 - answer Allocate with the device ids (``NOS_TPU_SLICE_IDS``) and, for
   one MIG device named by its ``MIG-…`` UUID, the visibility grant
   ``NOS_TPU_VISIBLE_CHIPS_<suffix>``, which ``device/workload_env.py``
-  turns into ``CUDA_VISIBLE_DEVICES``.
+  turns into ``CUDA_VISIBLE_DEVICES``.  A member of an NVLink block
+  (``nos.nebuly.com/nvlink-block-NxG``) owns its whole node: its grant
+  names every GPU of the node by its ``GPU-…`` UUID
+  (``block_allocate_envs``), never as MIG devices, since a CUDA process
+  sees one MIG device only.
 
 The H100 translation of the JAX module: a grant names the MIG device's
 UUID, where JAX names local chip ids and the host block
@@ -42,6 +46,7 @@ import threading
 from typing import Callable
 
 from nos_tpu_torch.device.plugin import PLUGINS_DIR
+from nos_tpu_torch.topology.profile import is_block_resource
 from nos_tpu_torch.device.workload_env import (
     ENV_SLICE_IDS, ENV_TIMESHARE_GB, ENV_VISIBLE_CHIPS, granted_device_ids,
 )
@@ -51,6 +56,25 @@ logger = logging.getLogger(__name__)
 KUBELET_SOCKET = os.path.join(PLUGINS_DIR, "kubelet.sock")
 API_VERSION = "v1beta1"
 ENV_DEVICE_IDS = ENV_SLICE_IDS
+
+
+def block_allocate_envs(resource: str, ids: list[str],
+                        gpu_uuids: list[str]) -> dict:
+    """The Allocate envs of an NVLink block member: its shard's device id
+    and the visibility grant of every GPU of its node, by ``GPU-…``
+    UUID.  Ids only where a UUID is missing or malformed (never a grant
+    that cannot be backed)."""
+    envs = {ENV_DEVICE_IDS: ",".join(ids)}
+    grant = granted_device_ids({ENV_VISIBLE_CHIPS: ",".join(gpu_uuids)}) \
+        if gpu_uuids else None
+    if not grant or len(grant) != len(gpu_uuids) \
+            or not all(str(g).startswith("GPU-") for g in grant):
+        logger.warning("allocate %s: the node's GPUs are not named by "
+                       "GPU UUIDs (%s); ids-only", resource, gpu_uuids)
+        return envs
+    envs[f"{ENV_VISIBLE_CHIPS}_{_env_suffix(resource)}"] = \
+        ",".join(gpu_uuids)
+    return envs
 
 
 def _env_suffix(resource: str) -> str:
@@ -255,6 +279,9 @@ class DevicePluginManager:
         names by its UUID, the visibility grant.  Falls back to ids only
         where that cannot be derived: never claim visibility we cannot
         back."""
+        if is_block_resource(resource):
+            return block_allocate_envs(resource, ids,
+                                       self._runtime.gpu_uuids())
         envs = {ENV_DEVICE_IDS: ",".join(ids)}
         if len(ids) != 1:
             # CUDA enumerates only one MIG device a process

@@ -5,7 +5,10 @@ The analog of the mockery-generated nvml/mig/resource mocks (reference
 pkg/test/mocks/**), but stateful: FakeGpuRuntime keeps MIG devices with
 their placements on each fake GPU's memory slots and carves them through
 the exact packer, so agent tests meet the same placement rules NVML
-enforces on the card.
+enforces on the card.  An NVLink block shard (profile "NxG",
+``partitioning/slicepart/group.py``) is recorded as one device that
+takes its whole GPU: it is created only on a GPU with no device, alone,
+and it has no MIG placement.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from nos_tpu_torch.topology import (
 )
 from nos_tpu_torch.topology.errors import (DeviceNotFoundError,
                                            PlacementInfeasibleError)
-from nos_tpu_torch.topology.profile import slice_resource_name
+from nos_tpu_torch.topology.profile import (
+    is_block_profile, slice_resource_name,
+)
 
 from .gpuclient import GpuRuntimeClient, PodResourcesClient
 
@@ -38,9 +43,14 @@ class FakeGpuRuntime(GpuRuntimeClient):
 
     def __init__(self, model: GpuModel = H100_80GB, num_gpus: int = 1,
                  fail_creates: bool = False,
-                 fail_after: int | None = None) -> None:
+                 fail_after: int | None = None,
+                 gpu_uuids: list[str] | None = None) -> None:
         self._model = model
         self._num_gpus = num_gpus
+        # each fake GPU's UUID (a caller standing a fake in for a real
+        # card gives the card's); well-formed, of no device, by default
+        self._gpu_uuids = list(gpu_uuids) if gpu_uuids is not None else [
+            f"GPU-00000000-0000-4000-8000-{i:012x}" for i in range(num_gpus)]
         self._lock = threading.RLock()
         self._devices: dict[str, tuple[int, Placement]] = {}
         self._ids = itertools.count(1)
@@ -53,6 +63,9 @@ class FakeGpuRuntime(GpuRuntimeClient):
     def topology(self) -> tuple[str, tuple[bool, ...]]:
         return self._model.name, (True,) * self._num_gpus
 
+    def gpu_uuids(self) -> list[str]:
+        return list(self._gpu_uuids)
+
     def list_devices(self) -> DeviceList:
         with self._lock:
             out = DeviceList()
@@ -63,7 +76,8 @@ class FakeGpuRuntime(GpuRuntimeClient):
 
     def placements(self) -> dict[str, Placement]:
         with self._lock:
-            return {did: pl for did, (_, pl) in self._devices.items()}
+            return {did: pl for did, (_, pl) in self._devices.items()
+                    if not is_block_profile(pl.profile)}
 
     def create_slices(self, unit_index: int, profiles: list[str]) -> list[str]:
         with self._lock:
@@ -74,6 +88,17 @@ class FakeGpuRuntime(GpuRuntimeClient):
                 raise DeviceNotFoundError(f"no GPU {unit_index}")
             fixed = [pl for u, pl in self._devices.values()
                      if u == unit_index]
+            if any(is_block_profile(p) for p in profiles):
+                # a block shard is the whole card
+                if len(profiles) != 1 or fixed:
+                    raise PlacementInfeasibleError(
+                        f"a block shard takes GPU {unit_index} whole: "
+                        f"{profiles} beside {len(fixed)} existing devices")
+                did = make_device_id(unit_index, profiles[0],
+                                     next(self._ids))
+                self._devices[did] = (unit_index, Placement(
+                    profiles[0], 0, self._model.memory_slices))
+                return [did]
             counts: dict[str, int] = {}
             for p in profiles:
                 counts[p] = counts.get(p, 0) + 1

@@ -47,6 +47,12 @@ class GpuRuntimeClient(ABC):
     def delete_all_except(self, device_ids: set[str]) -> list[str]:
         """Startup cleanup (reference cmd/migagent/migagent.go:190-199)."""
 
+    def gpu_uuids(self) -> list[str]:
+        """Each GPU's ``GPU-…`` UUID in index order, which an NVLink block
+        member's grant names (the whole node); [] where the runtime
+        cannot tell."""
+        return []
+
 
 class PodResourcesClient(ABC):
     """Which device ids are allocated to running pods (kubelet

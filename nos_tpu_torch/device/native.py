@@ -3,7 +3,8 @@ for the port.
 
 ``native/gpu_shim.cc`` is host C++ with a plain C interface: the batch
 Filter screen (``nos_fit_batch``), the Score argmin
-(``nos_score_batch``), the preemption walk's empty-node screen
+(``nos_score_batch``) with its sorted window-busy table
+(``nos_window_busy``), the preemption walk's empty-node screen
 (``nos_victim_prescreen``) and a GIL handshake.  It is compiled with the
 host compiler at the first ``load()`` into ``nos_tpu_torch/_kernels/``
 (``ops/_build.py`` ``build_host``) and bound with ``ctypes.CDLL``, which
@@ -56,6 +57,8 @@ def _bind(path) -> ctypes.CDLL:
         dbl, dbl, dbl, dbl, dbl, dbl, dbl, dbl,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         u8, ctypes.POINTER(ctypes.c_uint64)]
+    lib.nos_window_busy.restype = ctypes.c_int
+    lib.nos_window_busy.argtypes = [ll, ll, u8, ctypes.c_longlong]
     lib.nos_score_batch.restype = ctypes.c_int
     lib.nos_score_batch.argtypes = [
         u8, dbl, ll, ll, ll, ll, ll, ll, ll, ll, u8,
@@ -153,6 +156,16 @@ def fit_batch(free_flat, req_flat, cap_g, used_g, cap_m, used_m,
                   n_res, out, miss)
     return bytes(out[:cells]), (list(miss[:cells])
                                 if miss is not None else None)
+
+
+def window_busy_sort(gid_arr, idx_arr, val_arr, n: int) -> None:
+    """Sort the n (group id, host index, busy) triples of the window-busy
+    table in place, lexicographically: ``sorted()`` of them, in one
+    call."""
+    if n > 0:
+        _sized("nos_window_busy", (gid_arr, idx_arr, val_arr), n)
+    _check(load().nos_window_busy(gid_arr, idx_arr, val_arr, n),
+           "nos_window_busy")
 
 
 def score_batch(avoided, headroom, gids, widx, hidx, rank, wsizes, woff,

@@ -12,6 +12,8 @@
 // tests hold it against:
 //   nos_fit_batch        NodeResourcesFit.filter (scheduler/framework.py)
 //   nos_score_batch      Scheduler._score_key's argmin
+//   nos_window_busy      the sorted window-busy table the argmin reads
+//                        (Scheduler._busy_score_arrays)
 //   nos_victim_prescreen capacityscheduling._fits_empty
 //   nos_gil_handshake    proves the binding drops the GIL
 //
@@ -23,15 +25,14 @@
 //                    to 64 chips; a GPU's MIG search covers its 8 memory
 //                    slots and is memoised in Python
 //                    (topology/packing.py).
-//   nos_window_busy  sorts the multi-host window table, whose only user
-//                    is the gang window score; windows come with
-//                    ROADMAP item 7.2 (no H100 resource spans nodes), so
-//                    the port passes an empty table to nos_score_batch.
 
+#include <algorithm>
+#include <array>
 #include <chrono>
 #include <cstddef>
 #include <cstdint>
 #include <thread>
+#include <vector>
 
 extern "C" {
 
@@ -89,8 +90,8 @@ int nos_fit_batch(const double* free_m, const double* req_m,
 // wsizes[woff[i]..woff[i+1]), each size whose aligned window
 // [(widx/size)*size, +size) stands wholly in the sorted (busy_gid,
 // busy_idx, busy_val) table with every slot idle (val == 0).
-// gid[i] < 0 or m == 0 gives penalty 0; the port passes both until
-// ROADMAP item 7.2.  Window indexes must be non-negative: C's division
+// gid[i] < 0 or m == 0 gives penalty 0 (a node with no window, or an
+// empty table).  Window indexes must be non-negative: C's division
 // truncates where Python's floors.  Returns 0, or -3 on bad arguments
 // (a non-positive window size among them).  Stateless.
 int nos_score_batch(const uint8_t* avoided, const double* headroom,
@@ -170,6 +171,26 @@ int nos_score_batch(const uint8_t* avoided, const double* headroom,
 // and, where pod_g > 0, pod_g <= cap_g[i] and pod_m <= cap_m[i]:
 // NodeResourcesFit at zero occupancy (_fits_empty).  Returns 0, or -3
 // on bad arguments.  Stateless.
+// The window-busy table of the score's window terms, sorted in place:
+// n (group id, host index, busy) triples in lexicographic order, so
+// nos_score_batch can binary-search a window's members.  The triples'
+// keys are unique (a dict's), so the sort is Python's sorted() over
+// them.  -3 on a null array with n > 0 or a negative n.
+int nos_window_busy(long long* gid, long long* idx, uint8_t* val,
+                    long long n) {
+  if (n < 0 || (n > 0 && (!gid || !idx || !val))) return -3;
+  std::vector<std::array<long long, 3>> triples((size_t)n);
+  for (long long i = 0; i < n; ++i)
+    triples[(size_t)i] = {gid[i], idx[i], (long long)val[i]};
+  std::sort(triples.begin(), triples.end());
+  for (long long i = 0; i < n; ++i) {
+    gid[i] = triples[(size_t)i][0];
+    idx[i] = triples[(size_t)i][1];
+    val[i] = (uint8_t)triples[(size_t)i][2];
+  }
+  return 0;
+}
+
 int nos_victim_prescreen(const double* alloc, const double* req,
                          const long long* cap_g, const long long* cap_m,
                          long long pod_g, long long pod_m,

@@ -104,18 +104,24 @@ def pod_chip_equiv(request: Mapping[str, float], gpus_per_host: float,
                    gb_per_gpu: float) -> float:
     """The GPUs one request occupies on its node: a MIG instance its
     compute slices (g/7 of a GPU, each capped at ``gpus_per_host``, as
-    the JAX package caps a slice at the host shard), an MPS share its GB
-    over ``gb_per_gpu``.  A whole ``nvidia.com/gpu`` counts nothing, as
+    the JAX package caps a slice at the host shard), an NVLink block
+    member its node's G GPUs (a member asks for the whole NxG block but
+    owns one node of it), an MPS share its GB over ``gb_per_gpu``.  A whole ``nvidia.com/gpu`` counts nothing, as
     the JAX package's ``google.com/tpu`` does: its rule reads slice and
     timeshare resources only.  The scheduler's productive accounting and
     the fleets share this currency."""
     from nos_tpu_torch.topology.profile import (
-        PROFILE_RE, extract_slice_requests, extract_timeshare_requests,
+        PROFILE_RE, block_dims, extract_slice_requests,
+        extract_timeshare_requests,
     )
 
     gpus = 0.0
     for profile, qty in extract_slice_requests(request).items():
-        g = int(PROFILE_RE.match(profile).group("g"))
+        m = PROFILE_RE.match(profile)
+        if m is None:
+            gpus += float(block_dims(profile)[1]) * qty
+            continue
+        g = int(m.group("g"))
         gpus += min(g / _COMPUTE_SLICES, gpus_per_host) * qty
     gb = sum(float(g) * q
              for g, q in extract_timeshare_requests(request).items())

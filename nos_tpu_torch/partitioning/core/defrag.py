@@ -45,10 +45,11 @@ aborted and its annotations and holds cleared.  Disabled (the factory's
 default) the proposer is never built, and every decision is the one a
 build without it makes.
 
-**The H100 translation.**  No MIG instance spans nodes, so a window is
-one node (``_hosts_needed`` is 1 for every profile of the
-``GpuModelRegistry``) and the multi-node branch of ``_propose`` is not
-taken; it is kept for the multi-node windows of ROADMAP item 7.2.  The
+**The H100 translation.**  A MIG instance lies on one node, so its
+window is one node (``_hosts_needed`` is 1 for every MIG profile of the
+``GpuModelRegistry``); an NVLink block ``NxG`` needs an aligned window of
+N nodes, its node count, which takes the multi-node branch of
+``_propose``.  The
 currency is the planner's sevenths of a GPU (``snapshot._gpu_sevenths``:
 a MIG instance is its g compute slices, a whole GPU 7), where the JAX
 package counts chips.  Sevenths keep every capacity sum a whole number,
@@ -60,9 +61,10 @@ a chip as a quarter of a GPU (a chip is a GPU throughout the port).  A
 host, so a payback differs from JAX's on the MIG stand-in, and a window
 of two free 3g.40gb does not cover a 7g.80gb where two 2x2 cover a 2x4.
 
-The JAX package's gang-window lease (``ANNOT_GANG_LEASE``) is left out:
-the lease is ROADMAP item 7.2's and nothing in the port writes it.  Its
-migration drains (``C.is_migration_drain``) are never healed here.
+Nodes under the scheduler's gang-window lease (``ANNOT_GANG_LEASE``)
+are already draining toward a stuck block gang: no window takes them,
+and no relocation lands on them, as in the JAX package.  Migration
+drains (``C.is_migration_drain``) are never healed here.
 """
 
 from __future__ import annotations
@@ -83,7 +85,8 @@ from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES
 from nos_tpu_torch.obs.ledger import DRAIN as LEDGER_DRAIN, get_ledger
 from nos_tpu_torch.topology.known import DEFAULT_REGISTRY, GpuModelRegistry
 from nos_tpu_torch.topology.profile import (
-    PROFILE_RE, extract_slice_requests, profile_from_resource,
+    PROFILE_RE, block_dims, block_gpus, extract_slice_requests,
+    profile_from_resource,
 )
 from nos_tpu_torch.topology.windows import aligned_index_windows
 from nos_tpu_torch.utils.pod_util import (
@@ -113,7 +116,12 @@ MOVE_OVERHEAD_SEVENTHS = 0.25 * SEVENTHS
 
 
 def _profile_sevenths(profile: str) -> float:
-    return float(PROFILE_RE.match(profile).group("g"))
+    """A MIG instance's compute slices; an NVLink block shard every GPU
+    of its block (the JAX package's ``shape.chips``)."""
+    m = PROFILE_RE.match(profile)
+    if m is None:
+        return float(SEVENTHS * block_gpus(profile))
+    return float(m.group("g"))
 
 
 def _annotation_progress(pod: Pod) -> float:
@@ -376,18 +384,24 @@ class DefragProposer:
 
     @staticmethod
     def _shard_sevenths(pod: Pod) -> float:
-        """The pod's MIG demand in sevenths (an instance lies on one GPU,
-        so no share of it is capped)."""
-        return sum(min(_profile_sevenths(p), float(SEVENTHS)) * q
-                   for p, q in extract_slice_requests(
-                       pod_request(pod)).items())
+        """The pod's demand in sevenths: a MIG instance its compute
+        slices (it lies on one GPU), a block member one node's shard,
+        its G GPUs (the JAX package caps a slice at the host's chips)."""
+        total = 0.0
+        for p, q in extract_slice_requests(pod_request(pod)).items():
+            dims = block_dims(p)
+            if dims is not None:
+                total += float(SEVENTHS * dims[1]) * q
+            else:
+                total += min(_profile_sevenths(p), float(SEVENTHS)) * q
+        return total
 
     def _hosts_needed(self, snapshot: ClusterSnapshot,
                       pods: list[Pod]) -> int:
         """The window size (nodes) the unit's largest profile spans on
-        the snapshot's GPU models: 1 wherever a model carves every
-        profile (no MIG instance spans nodes); 0 when no model present
-        carves them (migration cannot invent a geometry)."""
+        the snapshot's GPU models: 1 for MIG profiles, N for a block
+        "NxG" the model offers; 0 when no model present carves them all
+        (migration cannot invent a geometry)."""
         profiles: set[str] = set()
         for pod in pods:
             profiles.update(extract_slice_requests(pod_request(pod)))
@@ -400,9 +414,10 @@ class DefragProposer:
                 labels.get(C.LABEL_ACCELERATOR, ""))
             if model is None:
                 continue
-            if any(model.profile(p) is None for p in profiles):
+            if any(model.profile(p) is None and not model.offers_block(p)
+                   for p in profiles):
                 continue        # a profile this model does not carve
-            needed = 1
+            needed = max(max(model.hosts_for(p) for p in profiles), 1)
             best = needed if best == 0 else min(best, needed)
         return best
 
@@ -425,7 +440,9 @@ class DefragProposer:
         for name, pn in nodes.items():
             ni = pn.node_info()
             labels = ni.node.metadata.labels
-            if ni.node.metadata.annotations.get(C.ANNOT_DEFRAG_DRAIN):
+            annots = ni.node.metadata.annotations
+            if annots.get(C.ANNOT_GANG_LEASE) \
+                    or annots.get(C.ANNOT_DEFRAG_DRAIN):
                 immovable.add(name)     # already draining toward something
             pool = labels.get(C.LABEL_NVLINK_DOMAIN, "")
             try:
@@ -584,7 +601,8 @@ class DefragProposer:
         profiles = self._calculator.requested_profiles(pod)
         for cand in sub.get_candidate_nodes():
             annots = cand.node_info().node.metadata.annotations
-            if annots.get(C.ANNOT_DEFRAG_DRAIN):
+            if annots.get(C.ANNOT_GANG_LEASE) \
+                    or annots.get(C.ANNOT_DEFRAG_DRAIN):
                 continue        # never refill a draining window
             node = sub.get_node_for_write(cand.name)
             if node.add_pod(pod):

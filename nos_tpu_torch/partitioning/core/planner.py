@@ -66,8 +66,10 @@ class GeometryPlanner(Planner):
             return self._plan(snapshot, pending_pods)
 
     def _plan(self, snapshot: ClusterSnapshot,
-              pending_pods: list[Pod]) -> PartitioningState:
-        tracker = SliceTracker(snapshot, self._calculator, pending_pods)
+              pending_pods: list[Pod],
+              tracker: SliceTracker | None = None) -> PartitioningState:
+        if tracker is None:
+            tracker = SliceTracker(snapshot, self._calculator, pending_pods)
         if tracker.empty:
             return compute_partitioning_state(snapshot, self._partition_calculator)
 

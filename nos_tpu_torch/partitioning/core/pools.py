@@ -9,7 +9,8 @@ the JAX package's TPU pod id).  Pools are the planner's natural shards:
   can only offer profiles of its own model: a lacking profile its model
   cannot carve scores zero against every candidate geometry, so another
   pool's entries in the lacking table cannot change a carve;
-- no MIG instance or MPS share spans nodes, so no carve crosses a pool.
+- a MIG instance or an MPS share lies on one node, and an NVLink block
+  on an aligned window of one domain, so no carve crosses a pool.
 
 Pending pods are split by the pools their request can land on.  A MIG
 profile is eligible on a pool whose model's MIG table lists it; an MPS
@@ -37,7 +38,8 @@ from nos_tpu_torch.topology.known import (
     DEFAULT_REGISTRY, GpuModel, GpuModelRegistry,
 )
 from nos_tpu_torch.topology.profile import (
-    PROFILE_RE, is_timeshare_resource, profile_from_resource,
+    PROFILE_RE, block_dims, block_gpus, is_block_profile,
+    is_timeshare_resource, profile_from_resource,
 )
 
 from .interfaces import SliceCalculator
@@ -78,7 +80,7 @@ def _free_sevenths(node) -> tuple[float, float]:
             continue
         profile = profile_from_resource(res)
         if profile is not None:
-            s = int(PROFILE_RE.match(profile).group("g")) * qty
+            s = _profile_sevenths(profile, qty)
             total += s
             slices += s
         elif res == C.RESOURCE_GPU or is_timeshare_resource(res):
@@ -111,10 +113,13 @@ def partition_pools(snapshot: ClusterSnapshot) -> list[PlanPool]:
 
 def _profile_sevenths(profile: str, qty: int) -> float:
     """Sevenths of ``qty`` units of a profile: a MIG profile its compute
-    slices, a share (or an unknown spelling) a whole GPU's."""
+    slices, an NVLink block every GPU of the block, a share (or an
+    unknown spelling) a whole GPU's."""
     m = PROFILE_RE.match(profile)
     if m is not None:
         return float(int(m.group("g")) * qty)
+    if is_block_profile(profile):
+        return float(_GPU_SEVENTHS * block_gpus(profile) * qty)
     return float(_GPU_SEVENTHS * qty)
 
 
@@ -127,6 +132,9 @@ def _profiles_eligible(profiles: tuple[str, ...], model: GpuModel) -> bool:
     for profile in profiles:
         if PROFILE_RE.match(profile) is not None:
             if model.profile(profile) is None:
+                return False
+        elif is_block_profile(profile):
+            if not model.offers_block(profile):
                 return False
         elif profile.endswith("gb"):
             try:
@@ -156,11 +164,21 @@ def _capacity_ok(profiles: tuple[str, ...], pool: PlanPool,
     to demote hopeless pools in the split, so a pod is not starved on a
     fragmented pool while a capable one sits idle; with no capable pool
     the caller keeps the whole eligible set (a heuristic, never a
-    verdict of infeasibility).  No profile spans nodes, so the JAX
-    package's multi-host rule has no counterpart here."""
+    verdict of infeasibility).  An NVLink block "NxG" needs N members
+    each wholly free (G GPUs' sevenths in free instances): the group
+    pass dedicates only clean nodes as shards, the JAX package's
+    multi-host rule.  Alignment is not checked: a necessary screen, not
+    a proof."""
     if registry.models.get(pool.accelerator) is None:
         return True
     for profile in profiles:
+        dims = block_dims(profile)
+        if dims is not None:
+            whole = _GPU_SEVENTHS * dims[1]
+            if sum(1 for f in pool.node_slice_free if f >= whole) \
+                    < dims[0]:
+                return False
+            continue
         m = PROFILE_RE.match(profile)
         if m is None:
             continue            # shares: screened by _eligible

@@ -21,12 +21,14 @@ from __future__ import annotations
 
 from typing import Iterable, Mapping
 
-from nos_tpu_torch.api.constants import ANNOT_DEFRAG_DRAIN, RESOURCE_GPU
+from nos_tpu_torch.api.constants import (
+    ANNOT_DEFRAG_DRAIN, ANNOT_GANG_LEASE, RESOURCE_GPU,
+)
 from nos_tpu_torch.kube.objects import Pod
 from nos_tpu_torch.kube.resources import negatives_only, pod_request, subtract
 from nos_tpu_torch.scheduler.framework import SharedLister
 from nos_tpu_torch.topology.profile import (
-    PROFILE_RE, is_timeshare_resource, profile_from_resource,
+    PROFILE_RE, block_gpus, is_timeshare_resource, profile_from_resource,
 )
 from nos_tpu_torch.utils.guards import invalidated_by
 
@@ -49,7 +51,12 @@ def _gpu_sevenths(resource: str, qty: float) -> float:
     order the node lists its resources in."""
     profile = profile_from_resource(resource)
     if profile is not None:
-        return int(PROFILE_RE.match(profile).group("g")) * qty
+        m = PROFILE_RE.match(profile)
+        if m is None:
+            # an NVLink block shard: every GPU of the block, as the JAX
+            # package counts a multi-host shard at its shape's chips
+            return _COMPUTE_SLICES * block_gpus(profile) * qty
+        return int(m.group("g")) * qty
     if resource == RESOURCE_GPU or is_timeshare_resource(resource):
         return _COMPUTE_SLICES * qty
     return 0.0
@@ -169,11 +176,12 @@ class ClusterSnapshot:
         """Nodes with any free capacity, best fit first: fewest free
         GPU-equivalents, then name (the reference visits name order,
         snapshot.go:119-130; carving new demand into the fullest node
-        that fits keeps empty nodes whole).  Nodes under a defrag drain
-        go last: the room a defrag move frees is for the demand it was
-        made for.  Memoised on the mutation epoch.  The JAX package
-        ranks nodes under a gang-window lease last as well; the lease
-        comes with the windows (ROADMAP item 7.2)."""
+        that fits keeps empty nodes whole).  Nodes under the scheduler's
+        gang-window lease (ANNOT_GANG_LEASE) go last: they are draining
+        toward a stuck block gang, and re-carving them for other demand
+        would fragment the window again.  Nodes under a defrag drain
+        rank the same way: the room a defrag move frees is for the
+        demand it was made for.  Memoised on the mutation epoch."""
         cached = self._candidate_cache
         if cached is not None and cached[0] == self._mutation_gen:
             return [self._nodes[n] for n in cached[1]]
@@ -192,9 +200,10 @@ class ClusterSnapshot:
                 sevenths += _gpu_sevenths(k, qty)
             if not has_free:
                 continue
-            drained = bool(ni.node.metadata.annotations.get(
-                ANNOT_DEFRAG_DRAIN))
-            out.append((drained, sevenths, name, node))
+            annots = ni.node.metadata.annotations
+            leased = bool(annots.get(ANNOT_GANG_LEASE)) \
+                or bool(annots.get(ANNOT_DEFRAG_DRAIN))
+            out.append((leased, sevenths, name, node))
         out.sort(key=lambda t: (t[0], t[1], t[2]))
         self._candidate_cache = (self._mutation_gen, [t[2] for t in out])
         return [t[3] for t in out]

@@ -11,10 +11,10 @@ background defragmenter (``core/defrag.py``), stepping at most every
 ``defrag_interval_s`` (None: the replan epoch, else the batch's idle
 window); disabled, it is never built.  ``registry`` is the MIG tables
 the snapshot and the defragmenter read (a restricted table, as the
-fleets' stand-in has it); None is the default registry.  The JAX factory's planner is a
-``MultiHostGeometryPlanner`` (``group.py``: multi-host carves, which no
-MIG instance needs).  The MPS family has no defragmenter, as in the JAX
-package.
+fleets' stand-in has it); None is the default registry.  The planner is
+a ``MultiHostGeometryPlanner``, as in the JAX factory: the per-node
+planner with ``group.py``'s NVLink block pass in front.  The MPS family
+has no defragmenter, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,11 +29,12 @@ from nos_tpu_torch.topology.known import DEFAULT_REGISTRY, GpuModelRegistry
 from nos_tpu_torch.utils.batcher import Batcher
 
 from ..core import (
-    PLAN_SHARD_MIN_HOSTS, DefragProposer, GeometryActuator, GeometryPlanner,
+    PLAN_SHARD_MIN_HOSTS, DefragProposer, GeometryActuator,
     ParallelGeometryPlanner, QuarantineList, SelfHealingPolicy,
 )
 from ..state import ClusterState
 from .calculators import SlicePartitionCalculator, SliceProfileCalculator
+from .group import MultiHostGeometryPlanner
 from .partitioner import SliceNodeInitializer, SlicePartitioner
 from .snapshot_taker import SliceSnapshotTaker
 
@@ -62,10 +63,10 @@ def new_slice_partitioner_controller(
 
     partition_calculator = SlicePartitionCalculator()
 
-    def make_planner() -> GeometryPlanner:
+    def make_planner() -> MultiHostGeometryPlanner:
         # one framework per shard: its plugin lock must not serialise
         # concurrent shards
-        return GeometryPlanner(
+        return MultiHostGeometryPlanner(
             framework=Framework(), calculator=SliceProfileCalculator(),
             partition_calculator=partition_calculator)
 

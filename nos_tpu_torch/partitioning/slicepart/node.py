@@ -11,6 +11,14 @@ the node agent's status annotations and placement records, bound
 pods' usage is claimed, and the node's allocatable follows the
 (possibly hypothetical) geometry so the scheduler simulation sees it
 (node.go:171-195).
+
+A node may instead be a shard of an NVLink block "NxG" (N nodes of G
+GPUs in one aligned window of its domain, ``group.py``): GPU 0 carries
+the block's profile at quantity 1 and the others nothing, so the node
+advertises ``nos.nebuly.com/nvlink-block-NxG: 1`` and the whole node is
+the shard, as the JAX package's host is the shard of a multi-host slice.
+Only the group pass makes or breaks shards; the per-node re-carve leaves
+a member alone.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from nos_tpu_torch.topology.known import (
     DEFAULT_REGISTRY, GpuModel, GpuModelRegistry,
 )
 from nos_tpu_torch.topology.profile import (
-    PROFILE_RE, extract_slice_requests, is_slice_resource,
+    PROFILE_RE, extract_slice_requests, is_block_profile, is_slice_resource,
     slice_resource_name,
 )
 from nos_tpu_torch.topology.slice_unit import SliceUnit
@@ -54,7 +62,8 @@ def units_from_node(node: Node,
     units = {i: SliceUnit(model=model, index=i)
              for i in mig_gpus(labels, count)}
     for a in parse_status_annotations(node.metadata.annotations):
-        if not PROFILE_RE.match(a.profile):
+        if not PROFILE_RE.match(a.profile) \
+                and not is_block_profile(a.profile):
             continue  # an MPS share on a hybrid node
         unit = units.get(a.index)
         if unit is None:
@@ -83,6 +92,14 @@ class SliceNode(PartitionableNode):
         self._name = node.metadata.name
         self._node_info = node_info
         self.units = units_from_node(node, registry)
+        labels = node.metadata.labels
+        self.model = registry.get(labels.get(C.LABEL_ACCELERATOR, ""))
+        self.gpus = gpu_count(labels) or 0
+        self._domain = labels.get(C.LABEL_NVLINK_DOMAIN, "")
+        try:
+            self._host_index = int(labels.get(C.LABEL_HOST_INDEX, "0"))
+        except ValueError:
+            self._host_index = 0
         self._claim_bound_pod_usage()
         self._sync_allocatable()
 
@@ -91,10 +108,48 @@ class SliceNode(PartitionableNode):
     def name(self) -> str:
         return self._name
 
+    @property
+    def domain(self) -> str:
+        """The node's NVLink domain ("" when unlabelled)."""
+        return self._domain
+
+    @property
+    def host_index(self) -> int:
+        return self._host_index
+
     def node_info(self) -> NodeInfo:
         return self._node_info
 
+    def has_used_slices(self) -> bool:
+        return any(c > 0 for u in self.units for c in u.used.values())
+
+    def is_block_member(self) -> bool:
+        """Some GPU of the node is a shard of an NVLink block."""
+        return any(u.is_block_shard() for u in self.units)
+
+    def make_member_of(self, profile: str) -> None:
+        """Dedicate the node as one shard of the block ``profile``: GPU 0
+        carries it, the other GPUs go empty (the whole node belongs to
+        the block)."""
+        for u in self.units[1:]:
+            if any(c > 0 for c in u.used.values()):
+                raise ValueError(
+                    f"node {self._name} has used instances on GPU {u.index}")
+            u.free = {}
+            u.drop_placement_data()
+        self.units[0].make_member_of(profile)
+        self._sync_allocatable()
+
+    def reset_virgin(self) -> None:
+        for u in self.units:
+            u.reset_virgin()
+        self._sync_allocatable()
+
     def update_geometry_for(self, lacking: ProfileRequest) -> bool:
+        if self.is_block_member():
+            # shards are carved and broken only by the group pass: a
+            # re-carve here would orphan the partner nodes' shards
+            return False
         remaining = {p: q for p, q in lacking.items()
                      if q > 0 and PROFILE_RE.match(p)}
         changed = False
@@ -139,6 +194,10 @@ class SliceNode(PartitionableNode):
         c._node_info = self._node_info.clone()
         # direct unit copies: clone() is the unit of a fork's cost
         c.units = [u.__deepcopy__(None) for u in self.units]
+        c.model = self.model
+        c.gpus = self.gpus
+        c._domain = self._domain
+        c._host_index = self._host_index
         return c
 
     # -- internals ----------------------------------------------------------

@@ -9,11 +9,19 @@ and shared GPUs in one fungible unit (pkg/gpu/util/resource.go:28-86):
 - MIG profiles (``nvidia.com/mig-<g>g.<N>gb``): the profile's memory in
   the H100 80GB table (``topology/known.py``; 3g.40gb -> 40), the N of
   its name for a profile the table lacks;
-- MPS shares (``nvidia.com/gpu-<N>gb``): N.
+- MPS shares (``nvidia.com/gpu-<N>gb``): N;
+- NVLink block members (``nos.nebuly.com/nvlink-block-<N>x<G>``): the
+  block's GPUs x ``gb_per_gpu``, or, with host-shard accounting on, one
+  node's share of them.
 
-The JAX package's host-shard accounting (``chips_per_host``, one unit
-of a multi-host slice charged its host's share) has no GPU counterpart:
-no MIG instance or MPS share spans nodes, so every unit is charged whole.
+Host-shard accounting (``gpus_per_host`` > 0, the JAX package's
+``chips_per_host``): one unit of a block is one node's shard of it (the
+partitioner advertises a unit per member node, and each gang member
+binds one), so a member is charged the GPUs it owns, not the whole
+block.  With 0 each member of an N-node gang books the block N times,
+which overstates a gang-heavy namespace's usage N-fold.  Set it to the
+nodes' GPU count (8 on an HGX H100) unless node sizes are mixed; as in
+the JAX package it applies only where it divides the block's GPUs.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.kube.resources import ResourceList, pod_request
 from nos_tpu_torch.topology.known import H100_80GB
 from nos_tpu_torch.topology.profile import (
-    PROFILE_RE, gb_from_resource, profile_from_resource,
+    PROFILE_RE, block_gpus, gb_from_resource, is_block_profile,
+    profile_from_resource,
 )
 
 
@@ -31,8 +40,17 @@ class GPUResourceCalculator:
     ``gb_per_gpu`` is the reference operator's
     ``nvidiaGpuResourceMemoryGB`` (80 here, an H100 80GB)."""
 
-    def __init__(self, gb_per_gpu: int = 80) -> None:
+    def __init__(self, gb_per_gpu: int = 80, gpus_per_host: int = 0) -> None:
         self.gb_per_gpu = gb_per_gpu
+        self.gpus_per_host = gpus_per_host
+
+    def _unit_gpus(self, profile: str) -> int:
+        """The GPUs charged for one unit of a block profile."""
+        gpus = block_gpus(profile)
+        if 0 < self.gpus_per_host < gpus \
+                and gpus % self.gpus_per_host == 0:
+            return self.gpus_per_host
+        return gpus
 
     def compute_pod_request(self, pod) -> ResourceList:
         req = pod_request(pod)
@@ -58,6 +76,8 @@ class GPUResourceCalculator:
         return total
 
     def profile_gb(self, profile: str) -> int:
+        if is_block_profile(profile):
+            return self._unit_gpus(profile) * self.gb_per_gpu
         row = H100_80GB.profile(profile)
         if row is not None:
             return row.memory_gb

@@ -211,7 +211,10 @@ def _mig_slots(resources: ResourceList,
     which are compute and memory at once."""
     compute = memory = 0
     for p, qty in extract_slice_requests(resources).items():
-        compute += int(PROFILE_RE.match(p).group("g")) * qty
+        m = PROFILE_RE.match(p)
+        if m is None:
+            continue    # an NVLink block member: whole GPUs, no MIG slots
+        compute += int(m.group("g")) * qty
         prof = model.profile(p) if model is not None else None
         if prof is not None:
             memory += prof.memory_slices * qty

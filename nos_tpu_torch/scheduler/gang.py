@@ -15,10 +15,15 @@ counterpart of the JAX package's TPU pod id), best fit first: the
 domain with the least free whole-GPU capacity that still holds the
 gang, so large domains stay whole for large gangs.  ``TopologyFilter``
 rejects nodes outside the domain pinned in cycle state, and every
-labelled domain with fewer GPUs than the PodGroup's ``mesh``.  The JAX
-package's aligned host windows and window lease serve a gang consuming
-one multi-host slice; no H100 resource spans nodes, so the port's gangs
-always take the whole-domain branch and those parts are not here.
+labelled domain with fewer GPUs than the PodGroup's ``mesh``.
+
+A gang consuming one NVLink block ``NxG`` (``topology/profile.py``: N
+whole nodes of G GPUs, the JAX package's multi-host slice) is placed in
+an aligned window of its domain instead, the same windows the
+partitioner's group pass carves (``partitioning/slicepart/group.py``):
+``gang_slice_windows`` lists them, and ``TopologyFilter`` rejects nodes
+outside the window pinned in cycle state.  Every other gang takes the
+whole-domain branch.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Any
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.api.podgroup import PHASE_PENDING
 from nos_tpu_torch.kube.client import (
-    APIServer, KIND_POD, KIND_POD_GROUP, NotFound,
+    APIServer, KIND_NODE, KIND_POD, KIND_POD_GROUP, NotFound,
 )
 from nos_tpu_torch.kube.objects import Pod
 from nos_tpu_torch.scheduler.framework import (
@@ -40,8 +45,10 @@ from nos_tpu_torch.utils.retry import retry_on_conflict
 
 logger = logging.getLogger(__name__)
 
-# cycle state: the NVLink domain a gang attempt is pinned to
+# cycle state: the NVLink domain a gang attempt is pinned to, and the
+# window's node names when it is pinned to a block window
 GANG_DOMAIN_KEY = "gang-pinned-nvlink-domain"
+GANG_HOST_SET_KEY = "gang-allowed-hosts"
 _MESH_GPUS_KEY = "topo-mesh-gpus"
 _DOMAIN_GPUS_KEY = "topo-domain-gpu-counts"
 
@@ -82,9 +89,77 @@ def requested_mesh_chips(pg: Any) -> int | None:
         return None
 
 
+def gang_slice_windows(api: APIServer, members: list[Pod]
+                       ) -> list[tuple[str, frozenset[str]]]:
+    """The placement candidates of a gang consuming one NVLink block:
+    the host-index-aligned windows of the partitioner's shard convention
+    (``partitioning/slicepart/group.py``), as (domain, the window's node
+    names), domains in name order.  A domain offers the block "NxG" only
+    where its model offers N-node blocks and every node has G GPUs; a
+    domain whose nodes disagree is skipped with a warning (the JAX
+    package's domain spanning generations).  [] when the gang asks for
+    no block (or for more than one profile), or no domain offers it:
+    the best-fit domain fallback takes it then."""
+    from nos_tpu_torch.kube.resources import pod_request
+    from nos_tpu_torch.topology.hybrid import gpu_count
+    from nos_tpu_torch.topology.known import DEFAULT_REGISTRY
+    from nos_tpu_torch.topology.profile import (
+        block_dims, extract_slice_requests,
+    )
+    from nos_tpu_torch.topology.windows import aligned_index_windows
+
+    profiles: set[str] = set()
+    for pod in members:
+        profiles.update(extract_slice_requests(pod_request(pod)))
+    if len(profiles) != 1:
+        return []
+    profile = min(profiles)     # the only one
+    dims = block_dims(profile)
+    if dims is None:
+        return []       # a MIG instance lies on one node: no window
+    hosts_needed, gpus = dims
+
+    by_domain: dict[str, dict[int, str]] = {}
+    needed_by_domain: dict[str, int | None] = {}   # None: not offered
+    mixed: set[str] = set()     # poisoned for good, not just popped
+    for node in api.list(KIND_NODE):
+        labels = node.metadata.labels
+        domain = labels.get(C.LABEL_NVLINK_DOMAIN, "")
+        accel = labels.get(C.LABEL_ACCELERATOR, "")
+        if not domain or domain in mixed \
+                or accel not in DEFAULT_REGISTRY.models:
+            continue
+        model = DEFAULT_REGISTRY.get(accel)
+        needed = (hosts_needed if model.offers_block(profile)
+                  and gpu_count(labels) == gpus else None)
+        if domain in needed_by_domain \
+                and needed_by_domain[domain] != needed:
+            logger.warning("NVLink domain %s spans GPU models or node "
+                           "sizes; skipping", domain)
+            mixed.add(domain)
+            by_domain.pop(domain, None)
+            continue
+        needed_by_domain[domain] = needed
+        try:
+            idx = int(labels.get(C.LABEL_HOST_INDEX, "0"))
+        except ValueError:
+            continue
+        by_domain.setdefault(domain, {})[idx] = node.metadata.name
+    out: list[tuple[str, frozenset[str]]] = []
+    for domain in sorted(by_domain):
+        needed = needed_by_domain.get(domain)
+        if needed is None:
+            continue
+        hosts = by_domain[domain]
+        for window in aligned_index_windows(hosts, needed):
+            out.append((domain, frozenset(hosts[i] for i in window)))
+    return out
+
+
 class TopologyFilter:
     """Filter plugin: a gang member must sit in the gang's pinned NVLink
-    domain, and a labelled domain must hold the PodGroup's mesh.  The
+    domain (and block window, where one is pinned), and a labelled
+    domain must hold the PodGroup's mesh.  The
     mesh's GPUs and each domain's GPU total are read once in PreFilter
     into cycle state: Filter runs per member x node and stays O(1)."""
 
@@ -126,6 +201,11 @@ class TopologyFilter:
                 f"gang {gang} pinned to NVLink domain "
                 f"{pinned or '(unlabeled)'}, node is in "
                 f"{domain or '(unlabeled)'}")
+        allowed_hosts = state.get(GANG_HOST_SET_KEY)
+        if allowed_hosts is not None and node_info.name not in allowed_hosts:
+            return Status.unschedulable(
+                f"gang {gang} pinned to block nodes "
+                f"{sorted(allowed_hosts)}, node {node_info.name} is outside")
         gpus = state.get(_MESH_GPUS_KEY)
         if gpus is not None and domain:
             total = state.get(_DOMAIN_GPUS_KEY, {}).get(domain, 0)

@@ -20,6 +20,26 @@ label are a gang, placed all or nothing inside one NVLink domain by
 preemptor that won room binds into it in the same cycle, a gang on a
 later one.
 
+A gang consuming one NVLink block ``NxG`` (N whole nodes of G GPUs, the
+JAX package's multi-host slice) is placed in one host-index-aligned
+window of a domain (``gang.gang_slice_windows``); every other gang tries
+whole domains, best fit first.  A block gang that does not fit leases
+its most drained window (``_reserve_gang_window``): one lease for the
+fleet, the oldest stuck gang's, re-picked every cycle, published on the
+window's nodes (``ANNOT_GANG_LEASE``) so the partitioner drains the same
+window.  Singles avoid the leased nodes whenever another node fits (the
+score's first term), and while they tie on headroom prefer nodes whose
+aligned windows are already broken (the score's window term, over the
+cycle's window-busy map).  Two opt-in levers act on the lease: drain
+preemption evicts the last stragglers off a window held
+``drain_preempt_after_cycles`` cycles (at most
+``drain_preempt_max_busy_fraction`` of its GPUs, least progress first,
+sparing those past ``drain_preempt_spare_progress``, whole gangs,
+within disruption budgets; the freed GPUs carry the ledger's ``drain``
+hold until the lease resolves), and duration-aware backfill lets a
+single onto the window only if its expected duration fits inside the
+window's drain ETA (``backfill_remaining_fn``, ``backfill_duration_fn``).
+
 At each cycle's end, before the cycle's view drops, every GPU of the
 view is booked to one category of the chip-second waste ledger
 (``obs/ledger.py``, ``_observe_waste``): held GPUs as productive, free
@@ -40,18 +60,14 @@ and decide the same: before a class's scan, the native batch fit screen
 (``scheduler/native_filter.py``) seeds the Filter memo with the nodes
 NodeResourcesFit rejects, with its messages byte for byte
 (``prescreen_fails`` counts them); the score's argmin over the feasible
-nodes is one ``nos_score_batch`` call, ``_score_key`` the reference.
-
-Not here (ROADMAP item 7.2): the gang windows and their lease, drain
-preemption (with its ledger hold) and duration-aware backfill, which
-serve a gang consuming a multi-node slice (no H100 resource spans
-nodes).  The score's lease and window terms read zero without them, so
-the score is the JAX key on nodes with no window labels.
+nodes is one ``nos_score_batch`` call, ``_score_key`` the reference,
+with the window-busy table sorted by ``nos_window_busy``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import logging
 import time
 from collections import Counter
@@ -61,7 +77,8 @@ from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.device import native
 from nos_tpu_torch.exporter.metrics import REGISTRY
 from nos_tpu_torch.api.podgroup import PHASE_SCHEDULED
-from nos_tpu_torch.kube.client import APIServer, KIND_POD, NotFound
+from nos_tpu_torch.api.pdb import list_pdbs, refresh_pdb_status
+from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD, NotFound
 from nos_tpu_torch.kube.objects import PENDING, RUNNING, Pod
 from nos_tpu_torch.kube.resources import pod_request, sum_resources
 from nos_tpu_torch.obs import journal as J
@@ -70,7 +87,7 @@ from nos_tpu_torch.obs.journal import MAX_JOURNAL_NODES
 from nos_tpu_torch.obs.ledger import get_ledger, pod_chip_equiv
 from nos_tpu_torch.obs.trace import bump as obs_bump, span as obs_span
 from nos_tpu_torch.scheduler.cache import SchedulerCache
-from nos_tpu_torch.scheduler.elastic import maybe_grow
+from nos_tpu_torch.scheduler.elastic import maybe_grow, record_shrink
 from nos_tpu_torch.scheduler.capacityscheduling import (
     DISPLACED_CONTEXT_KEY, VIEW_EPOCH_CONTEXT_KEY, CapacityScheduling,
 )
@@ -79,18 +96,27 @@ from nos_tpu_torch.scheduler.framework import (
     filter_equivalence_key,
 )
 from nos_tpu_torch.scheduler.gang import (
-    GANG_DOMAIN_KEY, gang_name, get_pod_group, set_pod_group_status,
+    GANG_DOMAIN_KEY, GANG_HOST_SET_KEY, evict_gang, gang_name,
+    gang_slice_windows, get_pod_group, set_pod_group_status,
+)
+from nos_tpu_torch.topology.known import (
+    DEFAULT_REGISTRY, GpuModel, GpuModelRegistry,
+)
+from nos_tpu_torch.topology.profile import (
+    PROFILE_RE, block_gpus, is_timeshare_resource, profile_from_resource,
 )
 from nos_tpu_torch.scheduler.native_filter import FitPrescreen
 from nos_tpu_torch.utils.guards import invalidated_by
 from nos_tpu_torch.utils.pod_util import (
-    admission_rank, displacement, is_over_quota, workload_class,
-    workload_tier,
+    admission_rank, displacement, elastic_replica_bounds, is_over_quota,
+    job_progress, workload_class, workload_tier,
 )
 from nos_tpu_torch.utils.retry import retry_on_conflict
 
 logger = logging.getLogger(__name__)
 
+REGISTRY.describe("nos_tpu_drain_preemptions_total",
+                  "Straggler pods evicted to complete a window drain")
 REGISTRY.describe("nos_tpu_schedule_latency_seconds",
                   "Queue-admission to bind latency per workload class")
 REGISTRY.describe("nos_tpu_rebind_latency_seconds",
@@ -114,6 +140,53 @@ DISPLACED_AGE_CAP_S = 300.0
 # every this many cycles the incremental view is dropped and rebuilt
 # whole, the backstop behind the watch-dirty set
 FULL_RESCAN_EVERY = 512
+# drain preemption's defaults: evict when the stragglers hold at most
+# this share of the window's GPUs, and never one past this progress
+DRAIN_PREEMPT_MAX_BUSY_FRACTION = 0.25
+DRAIN_PREEMPT_SPARE_PROGRESS = 0.75
+# a GPU's compute slices: the lease's and the drain's currency is
+# sevenths of a GPU, as the planner's is
+_SEVENTHS = 7
+# the journal's reason for a single backfill keeps off a leased node
+BACKFILL_REJECTION = "Backfill: job would outlive the drain window"
+
+
+def _gen_window_sizes(accel: str, registry: GpuModelRegistry =
+                      DEFAULT_REGISTRY) -> tuple[int, ...]:
+    """The block window sizes (nodes) of the node's GPU model; () for a
+    model the registry does not know."""
+    model = registry.models.get(accel)
+    if model is None:
+        return ()
+    # memoised on the frozen model itself: an override (load_overrides)
+    # installs a new model, whose sizes are computed afresh
+    return _window_sizes_of(model)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_sizes_of(model: GpuModel) -> tuple[int, ...]:
+    return tuple(sorted(set(model.block_node_counts)))
+
+
+def gpu_sevenths(resources) -> float:
+    """Capacity in sevenths of a GPU (the JAX package's chip
+    equivalents, ``free_chip_equivalents``): a MIG instance its compute
+    slices, an NVLink block every GPU of the block, a whole GPU and an
+    MPS share 7 each; non-positive quantities and every other resource
+    (cpu, memory) ignored.  The lease's drained-window choice and the
+    drain's busy share read it."""
+    total = 0.0
+    for res, qty in resources.items():
+        if qty <= 0:
+            continue
+        profile = profile_from_resource(res)
+        if profile is not None:
+            m = PROFILE_RE.match(profile)
+            total += (int(m.group("g")) if m is not None
+                      else _SEVENTHS * block_gpus(profile)) * qty
+        elif res == C.RESOURCE_GPU or is_timeshare_resource(res):
+            total += _SEVENTHS * qty
+    return total
 
 
 def attribute_free_chips(
@@ -121,9 +194,8 @@ def attribute_free_chips(
         rejected: bool, quota_budget: float, gang_budget: float,
 ) -> tuple[str, float, float, float]:
     """Book one node's ``free`` GPUs to exactly one waterfall category:
-    the holds first (quarantine, actuation, drain, provisioning), then a
-    gang window's reservation (``reserved``; the port has no window
-    lease, ROADMAP item 7.2, so the scheduler passes False), then this
+    the holds first (quarantine, actuation, drain, provisioning), then
+    the gang window lease (``reserved``: the node is under it), then this
     cycle's verdicts, the quota and gang budgets consumed in node order.
     Returns (category, GPUs taken, quota budget left, gang budget left);
     the caller books ``free - taken`` as idle_no_demand."""
@@ -157,7 +229,11 @@ def attribute_free_chips(
     return cat, take, quota_budget, gang_budget
 
 
+# The window-busy map rides its own event: _mark_busy is both its
+# invalidation and its only in-place writer (a node flips busy after a
+# bind), so noslint N012 holds it like the cycle view's indexes.
 @invalidated_by("_invalidate_scans", "_cycle_lister_cache")
+@invalidated_by("_mark_busy", "_busy_map_cache")
 class Scheduler:
     # the pods' default spec.scheduler_name: the pods this one schedules
     name = "nos-tpu-scheduler"
@@ -167,8 +243,23 @@ class Scheduler:
                  preempt_budget_per_cycle: int | None = None,
                  displaced_age_cap_s: float | None = None,
                  elastic_grow_budget_per_cycle: int = 1,
-                 clock: Callable[[], float] = time.time) -> None:
+                 clock: Callable[[], float] = time.time,
+                 drain_preempt_after_cycles: int | None = None,
+                 drain_preempt_max_busy_fraction: float =
+                 DRAIN_PREEMPT_MAX_BUSY_FRACTION,
+                 drain_preempt_spare_progress: float =
+                 DRAIN_PREEMPT_SPARE_PROGRESS,
+                 drain_preempt_progress_fn: Callable[
+                     [Pod], float] | None = None,
+                 backfill_remaining_fn: Callable[
+                     [Pod], float | None] | None = None,
+                 backfill_duration_fn: Callable[
+                     [Pod], float | None] | None = None,
+                 registry: GpuModelRegistry = DEFAULT_REGISTRY) -> None:
         self._api = api
+        # the GPU models whose NVLink blocks the score's window term reads
+        # (a fleet on a restricted stand-in passes its own)
+        self._registry = registry
         self._framework = framework
         # the framework's capacity plugin: the quota head-of-line rule
         # reads its ledger and calculator
@@ -244,6 +335,47 @@ class Scheduler:
         self._waste_pending_gangs: dict[str, float] = {}
         # stranding class or stuck gang -> its displacement cause
         self._waste_displaced: dict[str, str] = {}
+        # -- the gang window lease.  Each cycle the oldest stuck block
+        # gang leases its most drained candidate window (re-picked every
+        # cycle: whichever window is closest to empty wins), published on
+        # the window's nodes; singles avoid the leased nodes whenever
+        # another fits.  (gang key, nodes) or None.
+        self._lease: tuple[tuple[str, str], frozenset[str]] | None = None
+        self._reserved_hosts: frozenset[str] = frozenset()
+        # the first cycle clears leases a predecessor left on the nodes
+        self._lease_healed = False
+        # Drain preemption (opt-in, None = off: evicting healthy pods is
+        # the operator's policy choice): once a gang has held the lease
+        # this many cycles, the last stragglers on the window (at most
+        # the busy fraction of its GPUs) are evicted, least progress
+        # first; one whose progress reached the spare threshold is
+        # never evicted (it frees the window by finishing).  Progress is
+        # ANNOT_JOB_PROGRESS, or drain_preempt_progress_fn(pod) where a
+        # simulator injects its job table.
+        self._drain_after = drain_preempt_after_cycles
+        self._drain_fraction = drain_preempt_max_busy_fraction
+        self._drain_spare_progress = drain_preempt_spare_progress
+        self._progress_fn = drain_preempt_progress_fn or job_progress
+        self._drain_cycles = 0
+        self._drain_gang: tuple[str, str] | None = None
+        # the nodes whose free GPUs drain preemption bought this lease
+        # period (the ledger's DRAIN holds, cleared when it resolves)
+        self._drain_hold_hosts: frozenset[str] = frozenset()
+        # Duration-aware backfill (opt-in, both functions): a single may
+        # bind onto a leased node only if its expected duration
+        # (backfill_duration_fn; None = unknown, which excludes it) fits
+        # inside the window's drain ETA, the most remaining seconds of
+        # the pods already there (backfill_remaining_fn; None = unknown,
+        # which makes the ETA infinite).  The ETA is cached per cycle.
+        self._backfill_remaining_fn = backfill_remaining_fn
+        self._backfill_duration_fn = backfill_duration_fn
+        self._window_eta: float | None = None
+        # (domain, host index) -> the node has pods: the score's window
+        # term, built once per cycle view; _mark_busy flips a bound node
+        # in place.  Its marshalled form for the native argmin is keyed
+        # on the map's identity and dropped on every flip.
+        self._busy_map_cache: dict[tuple[str, int], bool] | None = None
+        self._busy_arrays_cache: tuple | None = None
 
     def close(self) -> None:
         """Detach the cache's watches (a replaced scheduler on a
@@ -261,6 +393,8 @@ class Scheduler:
             self._guard_cache = {}
             self._screened_classes = set()
             self._class_scan_cache = {}
+            self._busy_map_cache = None
+            self._busy_arrays_cache = None
         return self._cycle_lister_cache
 
     def _begin_cycle_view(self) -> None:
@@ -281,6 +415,11 @@ class Scheduler:
             self._drop_cycle_snapshot()
             return
         if dirty:
+            # the busy map first: a dirtied node may have just emptied,
+            # so the map is rebuilt from the view rather than flipped
+            # busy by _invalidate_scans
+            self._busy_map_cache = None
+            self._busy_arrays_cache = None
             for name in sorted(dirty):
                 self._invalidate_scans(name)
             # the dirtied nodes are unseen again by every class
@@ -289,6 +428,8 @@ class Scheduler:
 
     def _drop_cycle_snapshot(self) -> None:
         self._cycle_lister_cache = None
+        self._busy_map_cache = None
+        self._busy_arrays_cache = None
         self._filter_cache = {}
         self._guard_cache = {}
         self._screened_classes = set()
@@ -368,20 +509,26 @@ class Scheduler:
         equiv = self._filter_equiv_key(pod)
         if equiv is not None and self._prescreen is not None:
             self._seed_filter_memo_native(pod, equiv, lister)
-        scan = self._class_scan_cache.get(equiv) if equiv is not None \
-            else None
+        # backfill's verdicts are the pod's own, not its class's: no
+        # class index while it judges a leased window
+        cacheable = equiv is not None and (
+            self._backfill_duration_fn is None or not self._reserved_hosts)
+        scan = self._class_scan_cache.get(equiv) if cacheable else None
         if scan is None:
             feasible: dict[str, NodeInfo] = {}
             rejections: dict[str, str] = {}
             for ni in lister.list():
                 name = ni.name
+                if not self._backfill_allows(pod, name):
+                    rejections[name] = BACKFILL_REJECTION
+                    continue
                 ok, why = self._filter_passes(state, pod, ni, equiv, name)
                 if ok:
                     feasible[name] = ni
                 else:
                     rejections[name] = why
             scan = [feasible, rejections, None, set()]
-            if equiv is not None:
+            if cacheable:
                 self._class_scan_cache[equiv] = scan
         elif scan[3]:
             self._refresh_scan(scan, state, pod, equiv, lister)
@@ -467,6 +614,9 @@ class Scheduler:
             ni = lister.get(name)
             if ni is None:
                 continue
+            if not self._backfill_allows(pod, name):
+                rejections[name] = BACKFILL_REJECTION
+                continue
             ok, why = self._filter_passes(state, pod, ni, equiv, name)
             if ok:
                 feasible[name] = ni
@@ -476,12 +626,42 @@ class Scheduler:
         scan[2] = None
 
     def _invalidate_scans(self, node_name: str) -> None:
-        """A node's capacity moved: its Filter memo dies and it goes
-        stale in every class index."""
+        """A node's capacity moved: its Filter memo dies, it goes stale
+        in every class index, and its window-busy entry flips busy."""
         self._filter_cache.pop(node_name, None)
         self._guard_cache.pop(node_name, None)
         for scan in self._class_scan_cache.values():
             scan[3].add(node_name)
+        self._mark_busy(node_name)
+
+    @staticmethod
+    def _window_key(labels: dict) -> tuple[str, int] | None:
+        """(NVLink domain, host index) of a node's labels, or None with no
+        domain or an unparsable index: one parsing for the busy map, the
+        in-place flip and the score's window term."""
+        domain = labels.get(C.LABEL_NVLINK_DOMAIN, "")
+        if not domain:
+            return None
+        try:
+            return domain, int(labels.get(C.LABEL_HOST_INDEX, "0"))
+        except ValueError:
+            return None
+
+    def _mark_busy(self, node_name: str) -> None:
+        """Keep the cycle's window-busy map true after a bind: the node
+        now has a pod, so the whole-free-window terms involving it stop
+        this cycle."""
+        if self._busy_map_cache is None or self._cycle_lister_cache is None:
+            return
+        ni = self._cycle_lister_cache.get(node_name)
+        if ni is None:
+            return
+        key = self._window_key(ni.node.metadata.labels)
+        if key is not None:
+            self._busy_map_cache[key] = True
+            # the marshalled form is keyed on the dict's identity: an
+            # in-place flip drops it
+            self._busy_arrays_cache = None
 
     def run_cycle(self) -> int:
         """Schedule every pending, unbound pod of this scheduler; returns
@@ -502,6 +682,7 @@ class Scheduler:
                 if p.spec.scheduler_name == self.name]
         bound = 0
         self._preempt_budget = self._preempt_budget_per_cycle
+        self._window_eta = None
         self._quota_hol = {}
         self._begin_cycle_view()
         self._waste_rejection_maps = []
@@ -515,6 +696,23 @@ class Scheduler:
                                                 self._displaced_age_cap_s),
                                  -p.spec.priority,
                                  p.metadata.creation_timestamp, p.key))
+        # the lease goes once its gang no longer waits; a gang still
+        # stuck earns it (and may move it) again this cycle
+        pending_gangs = {(p.metadata.namespace, gang_name(p))
+                         for p in pods if gang_name(p)}
+        if self._lease is not None and self._lease[0] not in pending_gangs:
+            self._lease = None
+            self._sync_lease_annotations(frozenset())
+            self._clear_drain_holds()
+        elif not self._lease_healed and self._lease is None:
+            # a predecessor may have died holding a lease, whose
+            # annotations would skew the partitioner for good
+            self._sync_lease_annotations(frozenset())
+        self._lease_healed = True
+        self._reserved_hosts = (self._lease[1] if self._lease is not None
+                                else frozenset())
+        self._window_eta = None     # follows _reserved_hosts
+        self._maybe_drain_preempt()
         gangs: dict[tuple[str, str], list[Pod]] = {}
         for pod in pods:
             g = gang_name(pod)
@@ -642,8 +840,19 @@ class Scheduler:
                 for pod in members:
                     self._mark_unschedulable(pod, Status.unschedulable(msg))
                 return 0
+            # a block gang's candidates are the aligned windows of the
+            # partitioner's shard convention, those clear of the lease
+            # and of defrag drains first; every other gang's are whole
+            # domains, best fit first
+            windows = gang_slice_windows(self._api, members)
             base = self._cycle_lister()
-            candidates = self._domains_best_fit(base)
+            if windows:
+                candidates = [{GANG_DOMAIN_KEY: domain,
+                               GANG_HOST_SET_KEY: hosts}
+                              for domain, hosts
+                              in self._order_gang_windows(windows)]
+            else:
+                candidates = self._domains_best_fit(base)
             placements: list[tuple[Pod, NodeInfo]] = []
             state = CycleState()
             for pins in candidates:
@@ -652,7 +861,14 @@ class Scheduler:
                 if len(placements) == len(members):
                     break
             if len(placements) != len(members):
-                self._gang_no_fit(members, candidates, base)
+                msg = self._gang_no_fit(members, candidates, base)
+                # the lease's node patches come before the members'
+                # marks, as in the JAX package
+                self._reserve_gang_window(
+                    (first.metadata.namespace, gang), windows, base)
+                for pod in members:
+                    self._mark_unschedulable(pod,
+                                             Status.unschedulable(msg))
                 return 0
             return self._bind_gang(members, pg, alive, placements, state)
 
@@ -670,15 +886,16 @@ class Scheduler:
                 for d in sorted(free, key=lambda d: (free[d], d))]
 
     def _gang_no_fit(self, members: list[Pod], candidates: list[dict],
-                     base: SharedLister) -> None:
-        """No domain holds the gang.  A gang claiming its guaranteed min
-        must not starve behind over-quota borrowers, so it gets a
-        preemption, under the cycle's budget, on the first domain where
-        it would fit with every evictable pod gone: PostFilter for the
-        stuck member with its placed mates booked in cycle state, so the
-        victims are chosen against the whole gang's claim.  The victims'
-        gangs die whole (``evict_gang``); the gang binds on a later
-        cycle.  Then every member is marked unschedulable."""
+                     base: SharedLister) -> str:
+        """No candidate holds the gang.  A gang claiming its guaranteed
+        min must not starve behind over-quota borrowers, so it gets a
+        preemption, under the cycle's budget, on the first candidate
+        where it would fit with every evictable pod gone: PostFilter for
+        the stuck member with its placed mates booked in cycle state, so
+        the victims are chosen against the whole gang's claim.  The
+        victims' gangs die whole (``evict_gang``); the gang binds on a
+        later cycle.  Returns the members' message; the caller marks
+        them."""
         preempted = False
         if self._preempt_budget > 0:
             pins = self._gang_feasible_after_evictions(members, candidates,
@@ -698,8 +915,7 @@ class Scheduler:
             msg += " (evicted over-quota victims, retrying)"
         self._note_stuck_gang(members)
         self._gang_journal(members, False, msg)
-        for pod in members:
-            self._mark_unschedulable(pod, Status.unschedulable(msg))
+        return msg
 
     def _bind_gang(self, members: list[Pod], pg: Any, alive: int,
                    placements: list[tuple[Pod, NodeInfo]],
@@ -785,8 +1001,12 @@ class Scheduler:
     @staticmethod
     def _pins_match(ni: NodeInfo, pins: dict) -> bool:
         domain = pins.get(GANG_DOMAIN_KEY)
-        return domain is None or \
-            ni.node.metadata.labels.get(C.LABEL_NVLINK_DOMAIN, "") == domain
+        if domain is not None and \
+                ni.node.metadata.labels.get(C.LABEL_NVLINK_DOMAIN, "") \
+                != domain:
+            return False
+        hosts = pins.get(GANG_HOST_SET_KEY)
+        return hosts is None or ni.name in hosts
 
     def _gang_feasible_after_evictions(
             self, members: list[Pod], candidates: list[dict],
@@ -877,36 +1097,337 @@ class Scheduler:
         if status.is_success:
             # victims were evicted: the snapshot is stale
             self._cycle_lister_cache = None
+            self._busy_map_cache = None
+            self._busy_arrays_cache = None
         return nominated, status
+
+    # -- duration-aware backfill ---------------------------------------------
+    def _backfill_allows(self, pod: Pod, name: str) -> bool:
+        """True off the leased nodes, or with backfill off; on them, the
+        pod's expected duration must fit the window's drain ETA (an
+        unknown duration never gambles the window)."""
+        if name not in self._reserved_hosts \
+                or self._backfill_duration_fn is None \
+                or self._backfill_remaining_fn is None:
+            return True
+        duration = self._backfill_duration_fn(pod)
+        if duration is None:
+            return False
+        return duration <= self._window_drain_eta()
+
+    def _window_drain_eta(self) -> float:
+        """The most remaining seconds among the pods on the leased nodes
+        (cached per cycle); an unknown remainder makes it infinite: the
+        window will not drain by itself soon, and drain preemption is
+        the lever there."""
+        if self._window_eta is not None:
+            return self._window_eta
+        eta = 0.0
+        for p in self._api.list(KIND_POD):
+            if p.spec.node_name in self._reserved_hosts \
+                    and p.status.phase in (PENDING, RUNNING):
+                rem = self._backfill_remaining_fn(p)
+                if rem is None:
+                    eta = float("inf")
+                    break
+                eta = max(eta, rem)
+        self._window_eta = eta
+        return eta
+
+    # -- drain preemption ---------------------------------------------------
+    def _maybe_drain_preempt(self) -> None:
+        """Evict the last stragglers off a long-held lease window (see
+        __init__).  Once per lease period: after an attempt the counter
+        restarts, so survivors (spared or within a disruption budget's
+        reprieve) get another full ``drain_preempt_after_cycles``."""
+        if self._drain_after is None:
+            return
+        gang = self._lease[0] if self._lease is not None else None
+        if gang != self._drain_gang:
+            self._drain_gang, self._drain_cycles = gang, 0
+            return
+        if gang is None:
+            return
+        self._drain_cycles += 1
+        if self._drain_cycles < self._drain_after:
+            return
+        hosts = self._reserved_hosts
+        # a serving pod is never drain-evicted: no mechanism preempts the
+        # serving tier for batch progress
+        stragglers = [
+            p for p in self._api.list(KIND_POD)
+            if p.spec.node_name in hosts
+            and p.status.phase in (PENDING, RUNNING)
+            and (p.metadata.namespace, gang_name(p)) != gang
+            and workload_tier(p) != C.TIER_SERVING]
+        if not stragglers:
+            return
+        capacity = 0.0
+        for node in self._api.list(KIND_NODE):
+            if node.metadata.name in hosts:
+                try:
+                    capacity += _SEVENTHS * float(node.metadata.labels.get(
+                        C.LABEL_GPU_COUNT, "0"))
+                except ValueError:
+                    pass
+        busy = sum(gpu_sevenths(pod_request(p)) for p in stragglers)
+        if capacity <= 0 or busy > self._drain_fraction * capacity:
+            return      # not the final stretch: keep waiting
+        # disruption budgets: each candidate's whole eviction set is
+        # charged (evict_gang takes every gang mate)
+        pdbs = [refresh_pdb_status(self._api, pdb)
+                for pdb in list_pdbs(self._api)]
+        allowed = [pdb.status.disruptions_allowed for pdb in pdbs]
+        evicted = 0
+        doomed_keys: set[str] = set()
+        # progress is the gang's (the most of its members): eviction
+        # takes the whole gang, so an unannotated member must not take
+        # its nearly done gang past the spare rule
+        prog_cache: dict[tuple[str, str], float] = {}
+
+        def progress(p: Pod) -> float:
+            g = gang_name(p)
+            if not g:
+                return self._progress_fn(p)
+            key = (p.metadata.namespace, g)
+            if key not in prog_cache:
+                mates = self._api.list(
+                    KIND_POD, namespace=p.metadata.namespace,
+                    label_selector={C.LABEL_POD_GROUP: g})
+                prog_cache[key] = max(
+                    [self._progress_fn(m) for m in mates] or [0.0])
+            return prog_cache[key]
+
+        stragglers = sorted(
+            (p for p in stragglers
+             if progress(p) < self._drain_spare_progress),
+            key=progress)
+        shrunk_gangs: dict[tuple[str, str], int] = {}
+        for pod in stragglers:
+            if pod.key in doomed_keys:
+                continue
+            g = gang_name(pod)
+            members = [pod] if not g else self._api.list(
+                KIND_POD, namespace=pod.metadata.namespace,
+                label_selector={C.LABEL_POD_GROUP: g})
+            # an elastic dp straggler shrinks first: it loses only its
+            # members on the window, within the gang's min
+            shrink = False
+            if g:
+                bounds = elastic_replica_bounds(pod)
+                if bounds is not None:
+                    live = [m for m in members
+                            if m.status.phase in (PENDING, RUNNING)]
+                    headroom = max(0, len(live) - bounds[0])
+                    on_window = [m for m in live
+                                 if m.spec.node_name in hosts
+                                 and m.key not in doomed_keys]
+                    members = on_window[:headroom]
+                    if not members:
+                        continue    # at its min: nothing to shrink
+                    shrink = True
+            needed: dict[int, int] = {}
+            for m in members:
+                if m.status.phase != RUNNING or m.key in doomed_keys:
+                    continue
+                for i, pdb in enumerate(pdbs):
+                    if pdb.matches(m):
+                        needed[i] = needed.get(i, 0) + 1
+            if any(allowed[i] < n for i, n in needed.items()):
+                continue        # a budget lacks allowance: reprieve
+            for i, n in needed.items():
+                allowed[i] -= n
+            doomed_keys.update(m.key for m in members)
+            if shrink:
+                for m in members:
+                    try:
+                        self._api.delete(KIND_POD, m.metadata.name,
+                                         m.metadata.namespace)
+                        evicted += 1
+                    except NotFound:
+                        pass
+                key = (pod.metadata.namespace, g)
+                shrunk_gangs[key] = shrunk_gangs.get(key, 0) + len(members)
+            else:
+                evicted += len(evict_gang(self._api, pod))
+        for (ns, g), n in sorted(shrunk_gangs.items()):
+            record_shrink(self._api, ns, g, n)
+        if evicted:
+            # the freed GPUs were bought by eviction: until the lease
+            # resolves, their idle time is the ledger's drain, not gang
+            # assembly's wait
+            ledger = get_ledger()
+            for host in hosts:
+                ledger.set_hold(host, L.DRAIN, owner=self.name,
+                                gang=f"{gang[0]}/{gang[1]}",
+                                evicted=evicted)
+            self._drain_hold_hosts = frozenset(hosts)
+            REGISTRY.inc("nos_tpu_drain_preemptions_total",
+                         labels={"gang": f"{gang[0]}/{gang[1]}"},
+                         value=evicted)
+            logger.info(
+                "drain preemption for gang %s/%s: evicted %d straggler "
+                "pod(s) off %s after %d cycles", gang[0], gang[1],
+                evicted, sorted(hosts), self._drain_cycles)
+        self._drain_cycles = 0
+
+    def _clear_drain_holds(self) -> None:
+        if not self._drain_hold_hosts:
+            return
+        ledger = get_ledger()
+        for host in self._drain_hold_hosts:
+            ledger.clear_hold(host, L.DRAIN, owner=self.name)
+        self._drain_hold_hosts = frozenset()
+
+    # -- the gang window lease ----------------------------------------------
+    def _order_gang_windows(self, windows: list) -> list:
+        """Windows clear of the lease and of defrag drains first (a
+        smaller gang binding into either would reset the larger drain's
+        clock, or refill the nodes a defrag move just emptied), in
+        adjacency order otherwise."""
+        avoid = set(self._reserved_hosts)
+        lister = self._cycle_lister_cache
+        if lister is not None:
+            for ni in lister.list():
+                if ni.node.metadata.annotations.get(C.ANNOT_DEFRAG_DRAIN):
+                    avoid.add(ni.name)
+        return sorted(windows, key=lambda item: len(item[1] & avoid))
+
+    def _reserve_gang_window(self, gang_key: tuple[str, str],
+                             windows: list, base: SharedLister) -> None:
+        """A stuck block gang leases its most drained candidate window
+        (the most free GPU sevenths: the least left to wait for),
+        re-picked every cycle.  One lease for the fleet, the oldest stuck
+        gang's (the admission order).  Advisory: singles leave the leased
+        nodes whenever another fits, so it costs nothing with room."""
+        if self._lease is not None and self._lease[0] != gang_key:
+            return          # an older gang holds this cycle's lease
+        if not windows:
+            return
+        free_by_name = {ni.name: gpu_sevenths(ni.free())
+                        for ni in base.list()}
+        best: tuple[float, frozenset[str]] | None = None
+        for _, hosts in windows:
+            if not hosts:
+                continue
+            drained = sum(free_by_name.get(h, 0.0) for h in hosts)
+            if best is None or drained > best[0]:
+                best = (drained, frozenset(hosts))
+        if best is None:
+            return
+        if best[1] != self._reserved_hosts:
+            # the lease moved: the drain holds belong to the old window
+            self._clear_drain_holds()
+        self._lease = (gang_key, best[1])
+        self._reserved_hosts = best[1]
+        self._window_eta = None
+        self._sync_lease_annotations(best[1], gang_key)
+        logger.debug("gang %s leased window %s", gang_key, sorted(best[1]))
+
+    def _sync_lease_annotations(self, hosts: frozenset[str],
+                                gang_key: tuple[str, str] | None = None
+                                ) -> None:
+        """Publish the lease on its nodes (ANNOT_GANG_LEASE, the value
+        "<namespace>/<gang>") and clear it everywhere else.  Every node is
+        visited, which also heals leases a restarted scheduler left."""
+        value = f"{gang_key[0]}/{gang_key[1]}" if gang_key else ""
+        for node in self._api.list(KIND_NODE):
+            has = node.metadata.annotations.get(C.ANNOT_GANG_LEASE, "")
+            want = value if node.metadata.name in hosts else ""
+            if has == want:
+                continue
+
+            def mutate(n: Any, want: str = want) -> None:
+                if want:
+                    n.metadata.annotations[C.ANNOT_GANG_LEASE] = want
+                else:
+                    n.metadata.annotations.pop(C.ANNOT_GANG_LEASE, None)
+            try:
+                retry_on_conflict(self._api, KIND_NODE, node.metadata.name,
+                                  mutate, component="scheduler-gang-lease")
+            except Exception:  # noqa: BLE001 — advisory: the next cycle's full sweep heals a half-synced lease, so no failure here may abort the cycle
+                logger.debug("lease annotation patch failed for %s",
+                             node.metadata.name)
+
+    # -- the score's window terms -------------------------------------------
+    def _cycle_busy_map(self, lister: SharedLister) -> dict:
+        """The window-busy map, kept for the cycle when ``lister`` is the
+        cycle view (flips ride _mark_busy); built afresh for any other."""
+        if lister is not self._cycle_lister_cache:
+            return self._window_busy_map(lister)
+        if self._busy_map_cache is None:
+            self._busy_map_cache = self._window_busy_map(lister)
+        return self._busy_map_cache
+
+    def _window_busy_map(self, lister: SharedLister) -> dict:
+        """(domain, host index) -> the node has pods."""
+        busy: dict[tuple[str, int], bool] = {}
+        for ni in lister.list():
+            key = self._window_key(ni.node.metadata.labels)
+            if key is None:
+                continue
+            busy[key] = busy.get(key, False) or bool(ni.pods)
+        return busy
+
+    def _busy_score_arrays(self, busy: dict) -> tuple:
+        """The busy map marshalled for ``nos_score_batch``: domain ->
+        dense group id (in sorted domain order), and the (group id, host
+        index, busy) triples sorted by ``nos_window_busy`` so the argmin
+        can binary-search a window's members.  Cached on the map's
+        identity: _mark_busy's flip drops it, and a new map misses."""
+        cached = self._busy_arrays_cache
+        if cached is not None and cached[0] is busy:
+            return cached[1]
+        domains = sorted({d for d, _ in busy})
+        gid_of = {d: g for g, d in enumerate(domains)}
+        n = len(busy)
+        gid_a = (ctypes.c_longlong * max(1, n))()
+        idx_a = (ctypes.c_longlong * max(1, n))()
+        val_a = (ctypes.c_uint8 * max(1, n))()
+        for i, ((d, idx), val) in enumerate(busy.items()):
+            gid_a[i] = gid_of[d]
+            idx_a[i] = idx
+            val_a[i] = 1 if val else 0
+        native.window_busy_sort(gid_a, idx_a, val_a, n)
+        arrays = (gid_of, gid_a, idx_a, val_a, n)
+        self._busy_arrays_cache = (busy, arrays)
+        return arrays
 
     def _choose_node(self, pod: Pod,
                      feasible: dict[str, NodeInfo]) -> NodeInfo:
-        """The feasible node with the least headroom on the pod's own
-        resources (packs shares tightly), ties by host index, then
-        name: ``_score_key``'s argmin in one native call, in Python
-        where ``_native_choose`` declines."""
+        """``_score_key``'s argmin over the feasible nodes, with the
+        window terms over the cycle view's busy map: in one native call,
+        in Python where ``_native_choose`` declines."""
         nis = list(feasible.values())
         if len(nis) == 1:
             return nis[0]
         chosen = self._native_choose(pod, nis)
         if chosen is not None:
             return chosen
-        return min(nis, key=self._score_key(pod))
+        return min(nis, key=self._score_key(pod, self._cycle_lister_cache))
 
     def _native_choose(self, pod: Pod,
                        nis: list[NodeInfo]) -> NodeInfo | None:
-        """``_score_key``'s argmin through ``nos_score_batch``: the drain
-        avoidance, the headroom (the same Python sum), the host index and
-        the rank of the name, compared in that order; no window term
-        (every group -1, an empty table) until ROADMAP item 7.2.  None
-        where a host index is negative or past 64 bits, which the Python
-        argmin takes (JAX's guard)."""
+        """``_score_key``'s argmin through ``nos_score_batch``: the
+        avoidance, the headroom (the same Python sum), the window term
+        over the cycle view's sorted busy table, the host index and the
+        rank of the name, compared in that order.  None where a host
+        index is negative or past 64 bits, which the Python argmin takes
+        (JAX's guard: C's division truncates where Python's floors)."""
+        lister = self._cycle_lister_cache
+        busy = self._cycle_busy_map(lister) if lister is not None else {}
+        gid_of, busy_gid, busy_idx, busy_val, m = \
+            self._busy_score_arrays(busy)
         req = pod_request(pod)
         n = len(nis)
         avoided = (ctypes.c_uint8 * n)()
         headroom = (ctypes.c_double * n)()
+        gids = (ctypes.c_longlong * n)()
+        widx = (ctypes.c_longlong * n)()
         hidx = (ctypes.c_longlong * n)()
         rank = (ctypes.c_longlong * n)()
+        wsizes: list[int] = []
+        woff = (ctypes.c_longlong * (n + 1))()
         rank_of = {name: r
                    for r, name in enumerate(sorted(ni.name for ni in nis))}
         for i, ni in enumerate(nis):
@@ -920,41 +1441,80 @@ class Scheduler:
             free = ni.free()
             headroom[i] = sum(free.get(r, 0.0) for r in req)
             hidx[i] = idx
-            avoided[i] = 1 if meta.annotations.get(C.ANNOT_DEFRAG_DRAIN) \
-                else 0
+            avoided[i] = 1 if (
+                ni.name in self._reserved_hosts
+                or meta.annotations.get(C.ANNOT_DEFRAG_DRAIN)) else 0
             rank[i] = rank_of[ni.name]
-        gids = (ctypes.c_longlong * n)(*([-1] * n))
-        none = (ctypes.c_longlong * 1)()
-        out = native.score_batch(
-            avoided, headroom, gids, (ctypes.c_longlong * n)(), hidx, rank,
-            none, (ctypes.c_longlong * (n + 1))(), none, none,
-            (ctypes.c_uint8 * 1)(), n, 0)
+            gids[i] = -1
+            wkey = self._window_key(meta.labels) if m else None
+            if wkey is not None:
+                # a domain missing from the busy map fails every
+                # membership test, so its term is 0: the group stays -1
+                g = gid_of.get(wkey[0])
+                if g is not None:
+                    gids[i] = g
+                    widx[i] = wkey[1]
+                    wsizes.extend(self._window_sizes(ni))
+            woff[i + 1] = len(wsizes)
+        ws_arr = (ctypes.c_longlong * max(1, len(wsizes)))(*wsizes)
+        out = native.score_batch(avoided, headroom, gids, widx, hidx, rank,
+                                 ws_arr, woff, busy_gid, busy_idx, busy_val,
+                                 n, m)
         return nis[out]
 
-    @staticmethod
-    def _score_key(pod: Pod) -> Callable[[NodeInfo], tuple]:
-        """Nodes under a defrag drain last (the room a defrag move frees
-        is for the demand it was made for), then the least headroom on
-        the pod's own resources, then the numeric host index (an absent
-        or unparsable label counts as 0), then the name: hosts fill in
-        their physical order, where the name's order would put
-        gpu-node-10 before gpu-node-2.  The JAX package also avoids the
-        hosts a stuck gang's window lease reserves and prefers hosts
-        whose aligned windows are already broken; the lease and the
-        windows come with ROADMAP item 7.2."""
+    def _window_sizes(self, ni: NodeInfo) -> tuple[int, ...]:
+        """The block window sizes (nodes) of the node's GPU model, on a
+        node a block can take: one of the MIG family (the group pass
+        carves blocks over MIG nodes only, so an MPS or hybrid node
+        breaks no window a block gang could use)."""
+        labels = ni.node.metadata.labels
+        if labels.get(C.LABEL_PARTITIONING) != C.MIG_KIND:
+            return ()
+        return _gen_window_sizes(labels.get(C.LABEL_ACCELERATOR, ""),
+                                 self._registry)
+
+    def _score_key(self, pod: Pod, lister: SharedLister | None = None
+                   ) -> Callable[[NodeInfo], tuple]:
+        """Nodes under the gang lease or a defrag drain last (the leased
+        window must drain, and the room a defrag move frees is for the
+        demand it was made for), then the least headroom on the pod's
+        own resources (packs tightly), then the window term, then the
+        numeric host index (absent or unparsable: 0), then the name:
+        nodes fill in their physical order, where the name's order would
+        put gpu-node-10 before gpu-node-2.  The window term, with
+        ``lister`` given, sums the sizes of the node's aligned block
+        windows that are wholly free in the busy map: a single placed
+        there would break a window a block gang could use."""
         req = pod_request(pod)
+        busy = self._cycle_busy_map(lister) if lister is not None else {}
+
+        def window_penalty(ni: NodeInfo) -> int:
+            if not busy:
+                return 0
+            wkey = self._window_key(ni.node.metadata.labels)
+            if wkey is None:
+                return 0
+            domain, idx = wkey
+            pen = 0
+            for size in self._window_sizes(ni):
+                start = (idx // size) * size
+                if all(busy.get((domain, i)) is False
+                       for i in range(start, start + size)):
+                    pen += size
+            return pen
 
         def key(ni: NodeInfo) -> tuple:
             free = ni.free()
-            drained = bool(ni.node.metadata.annotations.get(
-                C.ANNOT_DEFRAG_DRAIN))
+            avoided = (ni.name in self._reserved_hosts
+                       or bool(ni.node.metadata.annotations.get(
+                           C.ANNOT_DEFRAG_DRAIN)))
             try:
                 idx = int(ni.node.metadata.labels.get(
                     C.LABEL_HOST_INDEX, "0"))
             except ValueError:
                 idx = 0
-            return (drained, sum(free.get(r, 0.0) for r in req), idx,
-                    ni.name)
+            return (avoided, sum(free.get(r, 0.0) for r in req),
+                    window_penalty(ni), idx, ni.name)
 
         return key
 
@@ -1126,11 +1686,14 @@ class Scheduler:
             quota_ev = {"class": top_q[0],
                         "blocked_chips": round(top_q[1], 2)}
         gang_ev: dict | None = None
-        if self._waste_pending_gangs:
+        if self._lease is not None:
+            gang_ev = {"gang": f"{self._lease[0][0]}/{self._lease[0][1]}"}
+        elif self._waste_pending_gangs:
             top_g = max(self._waste_pending_gangs.items(),
                         key=lambda kv: kv[1])
             gang_ev = {"gang": top_g[0]}
-            cause = self._waste_displaced.get(top_g[0])
+        if gang_ev is not None:
+            cause = self._waste_displaced.get(str(gang_ev["gang"]))
             if cause is not None:
                 gang_ev["displaced_cause"] = cause
         return frag_ev, quota_ev, gang_ev
@@ -1162,7 +1725,7 @@ class Scheduler:
         skel_key = None
         if lister is self._cycle_lister_cache:
             skel_key = (self._cache.view_epoch(), demand, quota_budget,
-                        gang_budget, holds)
+                        gang_budget, self._reserved_hosts, holds)
             prev = self._waste_skel
             if prev is not None and prev[0] == skel_key \
                     and len(prev[1]) == len(rej_maps) \
@@ -1207,7 +1770,7 @@ class Scheduler:
             name = ni.name
             hold = holds.get(name)
             cat, take, quota_budget, gang_budget = attribute_free_chips(
-                free, hold, False, demand,
+                free, hold, name in self._reserved_hosts, demand,
                 any(name in m for m in rej_maps), quota_budget,
                 gang_budget)
             if cat in L.HOLD_PRECEDENCE:
@@ -1299,5 +1862,7 @@ class Scheduler:
         J.record(J.POD_REJECTED, pod.key, **attrs)
 
 
-__all__ = ["DISPLACED_AGE_CAP_S", "FULL_RESCAN_EVERY",
-           "PREEMPT_BUDGET_PER_CYCLE", "Scheduler", "attribute_free_chips"]
+__all__ = ["DISPLACED_AGE_CAP_S", "DRAIN_PREEMPT_MAX_BUSY_FRACTION",
+           "DRAIN_PREEMPT_SPARE_PROGRESS", "FULL_RESCAN_EVERY",
+           "PREEMPT_BUDGET_PER_CYCLE", "Scheduler", "attribute_free_chips",
+           "gpu_sevenths"]

@@ -26,9 +26,9 @@ The H100 translation of the JAX harness:
   (default 80); ``chips_per_host`` means GPUs a node (default 8).
   Quotas are in ``nos.nebuly.com/gpu-memory`` through
   ``GPUResourceCalculator``;
-- ``build_scheduler`` takes the GB of one GPU and the clock: the port's
-  scheduler has no ``shard_chips_per_host`` (JAX's sharded-pool knob),
-  so it is left out;
+- ``build_scheduler`` takes the GB of one GPU, the clock and
+  ``shard_chips_per_host=chips_per_host``, as in JAX: a unit of an
+  NVLink block is charged one node's GPUs of quota;
 - a MIG node's agent runs on ``FakeGpuRuntime`` of the pool's model,
   always: a simulated node is not the card, and the port's
   ``default_gpu_runtime`` would bind every simulated node to the one
@@ -200,7 +200,8 @@ class ControlPlane:
                 self.add_host(pool, pool.hosts + s, spare=True)
 
         self.scheduler = build_scheduler(
-            self.api, scenario.hbm_gb_per_chip, clock=clock,
+            self.api, scenario.hbm_gb_per_chip,
+            shard_chips_per_host=scenario.chips_per_host, clock=clock,
             **dict(scenario.scheduler_kwargs))
         self.autoscaler = (
             ReplicaAutoscaler(self.api, scenario.services, clock=clock)

@@ -84,8 +84,10 @@ no 1x2), its 2x4 big a 7g.80gb; two elastic sponge gangs of 3g.40gb
 members (min 2, max 60) run the whole trace.  Its phases, in-flight
 targets (in the bench's chip equivalents: a 3g.40gb 4, a GPU 8) and
 durations are the bench's.  Cut: the 2-host gang class, drain
-preemption and ``shard_chips_per_host`` (ROADMAP item 7.2), and the
-bench's 0.25 s tick, which is 1 s here (its 300 s trace kept), so the
+preemption and ``shard_chips_per_host`` (the stand-in's one-GPU nodes
+hold the bench's 2-host class as no block the pinned JAX run could
+match; the block path's own parity cases are
+``tests/test_torch_multihost.py``'s), and the bench's 0.25 s tick, which is 1 s here (its 300 s trace kept), so the
 CPU test that holds it to JAX stays under a minute.  As in the bench it
 runs three times: defrag and grow on; the baseline with both off; and
 propose-only (an infinite payback threshold, grow off), whose decisions
@@ -93,8 +95,8 @@ must equal the baseline's.
 
 The scale fleets are ``bench_fleet.py``'s 1024 hosts in MIG profiles,
 JAX's three TPU generations cut to the one H100 model the port knows and
-its multi-host rows to one-node 7g.80gb pods (no MIG instance spans
-nodes, ROADMAP item 7.2).  ``scale_plan_spec``: 16 NVLink domains of 64
+its multi-host rows to one-node 7g.80gb pods (their digests pinned
+so; the 2x8 and 8x8 block rows are not restored, see PERF.md §4).  ``scale_plan_spec``: 16 NVLink domains of 64
 8-GPU nodes at host indices 0-63; in each, nodes 0-31 full (every GPU a
 used 7g.80gb, a filler pod holding the node's allocatable) and 32-63
 virgin (every GPU a free 7g.80gb); 40 pending pods per 64 nodes over
@@ -1890,11 +1892,14 @@ def serving_standin() -> GpuModel:
     """The H100 80GB restricted to {1g.20gb, 3g.40gb, 7g.80gb}: a GPU's
     memory slots in pairs, each pair the JAX stand-in's chip (a 1x4 host
     of 20 GB chips: 1x1, 1x2 and 1x4 at its aligned offsets), on which
-    the two packages' MIG planners decide alike."""
+    the two packages' MIG planners decide alike.  It offers no NVLink
+    block, as the JAX stand-in's largest pod is one host: the scheduler
+    reading it (``registry``) scores no window term."""
     import dataclasses
 
     return dataclasses.replace(H100_80GB, mig_profiles=tuple(
-        p for p in H100_80GB.mig_profiles if p.name in SERVING_PROFILES))
+        p for p in H100_80GB.mig_profiles if p.name in SERVING_PROFILES),
+        block_node_counts=())
 
 
 def serving_fleet_spec(seed: int = 0, router: bool = False) -> dict:
@@ -2431,7 +2436,7 @@ class PortServingOps:
         self.eq = ElasticQuotaReconciler(self.api, GPUResourceCalculator())
         self.sched = build_scheduler(
             self.api, preempt_budget_per_cycle=SERVING_PREEMPT_BUDGET,
-            clock=self.now)
+            clock=self.now, registry=self.registry)
         capacity = next(p for p in self.sched._framework.plugins
                         if isinstance(p, CapacityScheduling))
 

@@ -20,7 +20,9 @@ from typing import Iterable, Mapping
 from nos_tpu_torch.api import constants as C
 
 from .packing import Placement
-from .profile import PROFILE_RE, profile_from_key, profile_key
+from .profile import (
+    PROFILE_RE, is_block_profile, profile_from_key, profile_key,
+)
 
 
 @dataclass(frozen=True)
@@ -139,8 +141,10 @@ def parse_placement_annotations(
 
 
 def profile_family(profile: str) -> str:
-    """"mig" for a MIG profile ("3g.40gb"), "mps" for a memory share."""
-    return C.MIG_KIND if PROFILE_RE.match(profile) else C.MPS_KIND
+    """"mig" for a MIG profile ("3g.40gb") and an NVLink block ("2x8",
+    carved over MIG-family nodes), "mps" for a memory share."""
+    return C.MIG_KIND if PROFILE_RE.match(profile) \
+        or is_block_profile(profile) else C.MPS_KIND
 
 
 def spec_matches_status(annotations: Mapping[str, str],

@@ -12,6 +12,14 @@ from the profile table by the exact packer (``topology.packing``) and
 cached.  An operator can restrict the table, or add a card, from JSON
 (``GpuModelRegistry.load_overrides``, the SetKnownGeometries analog,
 known_configs.go:144-150).
+
+A model also carries the NVLink block sizes it offers
+(``block_node_counts``): a block ``NxG`` takes N whole nodes of G GPUs
+in one aligned window of an NVLink domain, the counterpart of the JAX
+package's ``Generation.multihost_shapes()``.  The H100's are 2, 4, 8, 16
+and 32 nodes (a DGX H100 SuperPOD's NVLink Switch system spans up to 32
+nodes), the same window sizes as v5e's 4x4, 4x8, 8x8, 8x16 and 16x16.
+``load_overrides`` may restrict them.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ from __future__ import annotations
 import json
 import re
 from dataclasses import dataclass, field, replace
+
+from .profile import block_dims
 
 
 @dataclass(frozen=True)
@@ -51,6 +61,8 @@ class GpuModel:
     compute_slices: int = 7
     memory_slices: int = 8
     mig_profiles: tuple[MigProfile, ...] = ()
+    # the node counts of the NVLink blocks the model offers (N of "NxG")
+    block_node_counts: tuple[int, ...] = (2, 4, 8, 16, 32)
 
     def profile(self, name: str) -> MigProfile | None:
         for p in self.mig_profiles:
@@ -60,6 +72,18 @@ class GpuModel:
 
     def profile_names(self) -> list[str]:
         return [p.name for p in self.mig_profiles]
+
+    def offers_block(self, profile: str) -> bool:
+        """A block profile whose node count the model offers."""
+        dims = block_dims(profile)
+        return dims is not None and dims[0] in self.block_node_counts
+
+    @staticmethod
+    def hosts_for(profile: str) -> int:
+        """The nodes one instance of ``profile`` spans: N for a block
+        "NxG", 1 for a MIG profile (the JAX ``hosts_for``)."""
+        dims = block_dims(profile)
+        return dims[0] if dims is not None else 1
 
     def matches(self, product_name: str) -> bool:
         return any(re.search(pat, product_name, re.IGNORECASE)
@@ -133,7 +157,8 @@ class GpuModelRegistry:
     def load_overrides(self, path: str) -> None:
         """JSON, one object per model name.  For a known model,
         ``mig_profiles`` lists the profile names to keep: restricting the
-        table restricts the derived geometries.  A new card (H100 NVL,
+        table restricts the derived geometries; ``block_node_counts``, where
+        given, the NVLink block sizes to keep.  A new card (H100 NVL,
         H200, A100) gives every field, its profile rows as objects:
 
             {"nvidia-h100-80gb-hbm3": {"mig_profiles": ["1g.10gb", "7g.80gb"]},
@@ -146,13 +171,20 @@ class GpuModelRegistry:
         for name, spec in data.items():
             if name in self.models:
                 base = self.models[name]
-                keep = spec["mig_profiles"]
+                keep = spec.get("mig_profiles", base.profile_names())
                 unknown = set(keep) - set(base.profile_names())
                 if unknown:
                     raise ValueError(f"{name}: unknown MIG profiles "
                                      f"{sorted(unknown)}")
+                blocks = tuple(int(n) for n in spec.get(
+                    "block_node_counts", base.block_node_counts))
+                unknown_blocks = set(blocks) - set(base.block_node_counts)
+                if unknown_blocks:
+                    raise ValueError(f"{name}: unknown block node counts "
+                                     f"{sorted(unknown_blocks)}")
                 self.models[name] = replace(base, mig_profiles=tuple(
-                    p for p in base.mig_profiles if p.name in keep))
+                    p for p in base.mig_profiles if p.name in keep),
+                    block_node_counts=blocks)
             else:
                 self.models[name] = GpuModel(
                     name=name,
@@ -162,7 +194,9 @@ class GpuModelRegistry:
                     compute_slices=int(spec.get("compute_slices", 7)),
                     memory_slices=int(spec.get("memory_slices", 8)),
                     mig_profiles=tuple(_profile_from_json(r)
-                                       for r in spec["mig_profiles"]))
+                                       for r in spec["mig_profiles"]),
+                    block_node_counts=tuple(int(n) for n in spec.get(
+                        "block_node_counts", ())))
 
 
 DEFAULT_REGISTRY = GpuModelRegistry()

@@ -17,6 +17,17 @@ Two families, the reference ``nos``'s own resource names:
   time sharing, named ``<N>gb``; extended resource ``nvidia.com/gpu-24gb``
   (reference pkg/gpu/slicing/profile.go:29-64).
 
+A third spelling belongs to the slice family: a **block profile**
+``<N>x<G>``, N whole nodes of G GPUs each in one NVLink domain (N >= 2),
+extended resource ``nos.nebuly.com/nvlink-block-2x8``.  It is the JAX
+package's multi-host slice shape ("4x4" on v5e's 8-chip hosts is the
+port's "2x8" on 8-GPU nodes): the partitioner carves it as whole-node
+shards (``partitioning/slicepart/group.py``), each member node
+advertising one unit, and a gang of one pod per node consumes it.  The
+slice helpers below (``slice_resource_name``, ``profile_from_resource``,
+``extract_slice_requests``) take both spellings; ``is_block_profile``
+tells them apart.
+
 Requests are plain ``{resource name: quantity}`` dicts.
 """
 
@@ -27,6 +38,7 @@ from functools import lru_cache
 from typing import Mapping
 
 RESOURCE_SLICE_PREFIX = "nvidia.com/mig-"
+RESOURCE_BLOCK_PREFIX = "nos.nebuly.com/nvlink-block-"
 RESOURCE_TIMESHARE_PREFIX = "nvidia.com/gpu-"
 MEDIA_SUFFIX = "+me"
 _MEDIA_KEY_SUFFIX = ".me"
@@ -35,6 +47,9 @@ SLICE_RESOURCE_RE = re.compile(
     rf"^{re.escape(RESOURCE_SLICE_PREFIX)}(?P<key>\d+g\.\d+gb(?:\.me)?)$")
 TIMESHARE_RESOURCE_RE = re.compile(
     rf"^{re.escape(RESOURCE_TIMESHARE_PREFIX)}(?P<gb>\d+)gb$")
+BLOCK_PROFILE_RE = re.compile(r"^(?P<n>\d+)x(?P<g>\d+)$")
+BLOCK_RESOURCE_RE = re.compile(
+    rf"^{re.escape(RESOURCE_BLOCK_PREFIX)}(?P<key>\d+x\d+)$")
 
 # ---------------------------------------------------------------------------
 # Slice (MIG) profiles
@@ -62,20 +77,56 @@ def profile_from_key(key: str) -> str:
 
 
 @lru_cache(maxsize=4096)
+def block_dims(profile: str) -> tuple[int, int] | None:
+    """(nodes, GPUs per node) of a block profile "NxG" (N >= 2, G >= 1),
+    or None for any other spelling."""
+    m = BLOCK_PROFILE_RE.match(profile)
+    if m is None:
+        return None
+    n, g = int(m.group("n")), int(m.group("g"))
+    if n < 2 or g < 1:
+        return None
+    return n, g
+
+
+def is_block_profile(profile: str) -> bool:
+    return block_dims(profile) is not None
+
+
+def block_gpus(profile: str) -> int:
+    """Every GPU of the block, N x G (the JAX package's ``shape.chips``
+    of a multi-host slice)."""
+    n, g = block_dims(profile)
+    return n * g
+
+
+@lru_cache(maxsize=4096)
 def slice_resource_name(profile: str) -> str:
-    if not PROFILE_RE.match(profile):
-        raise ValueError(f"not a MIG profile: {profile!r}")
-    return f"{RESOURCE_SLICE_PREFIX}{profile_key(profile)}"
+    if PROFILE_RE.match(profile):
+        return f"{RESOURCE_SLICE_PREFIX}{profile_key(profile)}"
+    if is_block_profile(profile):
+        return f"{RESOURCE_BLOCK_PREFIX}{profile}"
+    raise ValueError(f"not a MIG or block profile: {profile!r}")
 
 
 @lru_cache(maxsize=4096)
 def profile_from_resource(resource: str) -> str | None:
     m = SLICE_RESOURCE_RE.match(resource)
-    return profile_from_key(m.group("key")) if m else None
+    if m:
+        return profile_from_key(m.group("key"))
+    m = BLOCK_RESOURCE_RE.match(resource)
+    if m and is_block_profile(m.group("key")):
+        return m.group("key")
+    return None
 
 
 def is_slice_resource(resource: str) -> bool:
-    return SLICE_RESOURCE_RE.match(resource) is not None
+    return profile_from_resource(resource) is not None
+
+
+def is_block_resource(resource: str) -> bool:
+    profile = profile_from_resource(resource)
+    return profile is not None and is_block_profile(profile)
 
 
 def extract_slice_requests(request: Mapping[str, int]) -> dict[str, int]:
@@ -123,6 +174,9 @@ def profile_sort_key(profile: str) -> tuple[int, str]:
     m = PROFILE_RE.match(profile)
     if m:
         return (int(m.group("gb")), profile)
+    if is_block_profile(profile):
+        # a whole node's memory per member: after every MIG profile
+        return (block_gpus(profile) * 1000, profile)
     m = re.match(r"^(\d+)gb$", profile)
     if m:
         return (int(m.group(1)), profile)

@@ -8,8 +8,12 @@ exact tilings of a TPU host block; here a geometry is valid when it is
 one of the card's maximal geometries, which the exact packer derives
 from the model's MIG table (``packing.enumerate_geometries``: placements
 on 8 memory slots, at most 7 compute slices).  So 1g.10gb x 7 is valid
-although it leaves a memory slot empty.  No MIG instance spans GPUs, so
-the JAX unit's multi-host membership has no counterpart here.
+although it leaves a memory slot empty.
+
+A GPU may instead be a shard of an NVLink block (``is_block_shard``): the
+whole card belongs to a block "NxG" spanning N nodes, the JAX unit's
+multi-host membership.  Only the partitioner's group pass makes or
+breaks a shard (``make_member_of``, ``reset_virgin``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from .errors import InvalidGeometryError
 from .geometry import Geometry, fewest_slices_geometry
 from .known import GpuModel
 from .packing import Placement, enumerate_geometries, extend
-from .profile import is_media_profile
+from .profile import is_block_profile, is_media_profile
 
 
 @lru_cache(maxsize=None)
@@ -198,6 +202,37 @@ class SliceUnit:
                              and sum(geo.values()) < sum(best_geo.values())):
                 best, best_geo = sc, geo
         return best_geo
+
+    # -- NVLink block membership -------------------------------------------
+    def is_block_shard(self) -> bool:
+        """The GPU is (part of) a block spanning nodes."""
+        for src in (self.used, self.free):
+            for p, c in src.items():
+                if c > 0 and is_block_profile(p):
+                    return True
+        return False
+
+    def make_member_of(self, profile: str) -> None:
+        """Dedicate the whole GPU as one shard of a block: it advertises
+        the block's profile, quantity 1.  Only on a GPU with no used
+        instance."""
+        if any(c > 0 for c in self.used.values()):
+            raise InvalidGeometryError(
+                f"GPU {self.index} has used instances; cannot join "
+                f"block {profile}")
+        self.free = {profile: 1}
+        self.drop_placement_data()
+
+    def reset_virgin(self) -> None:
+        """Back to the fewest-slices geometry (breaking up a free
+        shard)."""
+        if any(c > 0 for c in self.used.values()):
+            raise InvalidGeometryError(
+                f"GPU {self.index} has used instances; cannot reset")
+        self.used = {}
+        self.free = {}
+        self.drop_placement_data()
+        self.init_geometry()
 
     # -- allocation --------------------------------------------------------
     def allocate(self, profile: str) -> bool:

@@ -1,10 +1,11 @@
 """The host-window convention, ``nos_tpu/topology/windows.py`` for the
-port: the member hosts of one multi-host instance are a consecutive
-window of host indices inside one domain, aligned to its size (window
-[i, i + size) with i % size == 0).  The defragmenter's candidate windows
-come from it, and so will the multi-node gang windows (ROADMAP item
-7.2), so carving and placement would change together.  No MIG instance
-spans nodes, so on an H100 every window the port asks for is one node.
+port: the member nodes of one NVLink block are a consecutive window of
+host indices inside one domain, aligned to its size (window [i, i +
+size) with i % size == 0).  The partitioner's group pass carves blocks
+over these windows (``partitioning/slicepart/group.py``), the gang
+scheduler places block gangs in them (``scheduler/gang.py``) and the
+defragmenter proposes them, so carving and placement change together.
+A MIG instance's window is one node.
 """
 
 from __future__ import annotations

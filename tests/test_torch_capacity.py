@@ -11,9 +11,9 @@ for eight.  Pools keep the JAX names ("pod-0" is an NVLink domain on the
 port).  After each story the journal, the provisioner's report and
 counters, the cloud's operations and nodes and the nodes' labels are
 compared with the JAX machine class (``tpu-v5e`` <->
-``nvidia-h100-80gb-hbm3``), label keys and resource names mapped.  The
-JAX scheduler gets the port's score (no multi-host window penalty: the
-port has no windows, ROADMAP item 7.2) where one runs.
+``nvidia-h100-80gb-hbm3``), label keys and resource names mapped.  Both
+schedulers score with their window terms (the aligned block windows of
+a domain's MIG nodes, the JAX package's multi-host windows).
 
 Then the capacity fleets (``testing/fleet.py``: bench_capacity.py's
 swing, storm and quiescent runs on H100 nodes) against a JAX
@@ -98,14 +98,6 @@ def fast_retry(monkeypatch):
     """Cloud 429s and conflicts retry at once on both sides."""
     monkeypatch.setattr(jax_retry, "sleep", lambda s: None)
     monkeypatch.setattr(retry, "sleep", lambda s: None)
-
-
-@pytest.fixture(autouse=True)
-def jax_scores_as_the_port(monkeypatch):
-    """The JAX scheduler without its multi-host window penalty, which the
-    port lacks (ROADMAP item 7.2): the two then place alike."""
-    monkeypatch.setattr(jax_scheduler.Scheduler, "_window_sizes",
-                        staticmethod(lambda ni: ()))
 
 
 class Side:

@@ -651,6 +651,50 @@ class TestWindows:
             snap, [factory.make_timeshare_pod(24)]) == 0
 
 
+    def test_a_block_s_window_is_its_node_count(self):
+        """An NVLink block "NxG" spans N nodes: its unit's window is N
+        nodes (JAX's multi-host slice on v5e: 4x4 over 2 hosts, 4x8 over
+        4), and a block the model does not offer is no window."""
+        from nos_tpu.topology import V5E, Shape
+
+        h = Harness(PORT)
+        proposer = h.proposer()
+        snap = h.snapshot()
+        for jax_shape, block in (("4x4", "2x8"), ("4x8", "4x8"),
+                                 ("8x8", "8x8"), ("16x16", "32x8")):
+            pod = factory.make_pod(resources={
+                f"nos.nebuly.com/nvlink-block-{block}": 1})
+            assert proposer._hosts_needed(snap, [pod]) == \
+                V5E.hosts_for(Shape.parse(jax_shape))
+        assert proposer._hosts_needed(snap, [factory.make_pod(
+            resources={"nos.nebuly.com/nvlink-block-3x8": 1})]) == 0
+
+    def test_a_block_member_s_demand_is_its_node(self):
+        """A block member's demand is one node's GPUs (the JAX package
+        caps a slice at the host's chips), in sevenths."""
+        proposer = Harness(PORT).proposer()
+        pod = factory.make_pod(resources={
+            "nos.nebuly.com/nvlink-block-2x8": 1})
+        assert proposer._shard_sevenths(pod) == 8 * 7
+
+    @pytest.mark.parametrize("leased", ["h0", "h1", "all"])
+    def test_a_leased_node_is_never_a_window_or_a_target(self, leased):
+        """Nodes under the scheduler's gang-window lease are draining
+        toward a stuck block gang: the defragmenter neither empties them
+        nor moves pods onto them, on either package."""
+        def story(h):
+            key = h.pk.C.ANNOT_GANG_LEASE
+            for node, _ in h.nodes_with_pods:
+                if leased in ("all", node.metadata.name):
+                    node.metadata.annotations[key] = "default/big"
+            out = h.run(h.proposer())
+            return {"applied": out, **h.view()}
+
+        view = both(story)
+        if leased == "all":
+            assert view["applied"] == [] and not any(view["drains"].values())
+
+
 class TestRelocatableReverts:
     """The what-if forks a subset of the snapshot and reverts it on every
     path: a feasible window, an infeasible one, and one whose placement

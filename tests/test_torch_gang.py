@@ -788,3 +788,62 @@ class TestGangFleet:
         monkeypatch.setattr(chip_smoke, "GANG_FLEET_DIGEST", "0" * 64)
         with pytest.raises(SystemExit):
             chip_smoke._gang_fleet_runs(runs=1)
+
+
+# ---------------------------------------------------------------------------
+# Block gangs (the JAX package's multi-host slice path; the full stories
+# are in tests/test_torch_multihost.py)
+# ---------------------------------------------------------------------------
+
+
+class TestBlockGangs:
+    @pytest.mark.parametrize("request_", [
+        {C.RESOURCE_GPU: 8}, {"nvidia.com/mig-3g.40gb": 1},
+        {"nvidia.com/gpu-24gb": 1}], ids=["whole", "mig", "mps"])
+    def test_a_gang_with_no_block_takes_the_domain_branch(self, request_):
+        api = APIServer()
+        for i in range(4):
+            api.create(KIND_NODE, factory.make_gpu_node(
+                f"n{i}", partitioning=C.MIG_KIND, domain="d",
+                host_index=i))
+        members = [factory.make_pod(name=f"m{i}", resources=request_)
+                   for i in range(2)]
+        assert gang.gang_slice_windows(api, members) == []
+
+    def test_two_block_profiles_are_no_window(self):
+        api = APIServer()
+        api.create(KIND_NODE, factory.make_gpu_node(
+            "n0", partitioning=C.MIG_KIND, domain="d", host_index=0))
+        members = [factory.make_pod(name="a", resources={
+                       "nos.nebuly.com/nvlink-block-2x8": 1}),
+                   factory.make_pod(name="b", resources={
+                       "nos.nebuly.com/nvlink-block-4x8": 1})]
+        assert gang.gang_slice_windows(api, members) == []
+
+    def test_a_stale_lease_is_cleared_at_startup(self):
+        """A predecessor's lease left on a node is swept by the first
+        cycle, on both packages."""
+        from nos_tpu.scheduler.framework import Framework as JaxFramework
+        from nos_tpu.scheduler.scheduler import Scheduler as JaxScheduler
+        from nos_tpu_torch.quota import GPUResourceCalculator
+        from nos_tpu_torch.scheduler.capacityscheduling import (
+            CapacityScheduling,
+        )
+        from nos_tpu_torch.scheduler.framework import Framework
+        from nos_tpu_torch.scheduler.scheduler import Scheduler
+
+        japi, api = JaxAPIServer(), APIServer()
+        jn = jax_factory.make_tpu_node("n0", pod_id="d", host_index=0)
+        jn.metadata.annotations[JC.ANNOT_GANG_LEASE] = "default/gone"
+        pn = factory.make_gpu_node("n0", partitioning=C.MIG_KIND,
+                                   domain="d", host_index=0)
+        pn.metadata.annotations[C.ANNOT_GANG_LEASE] = "default/gone"
+        japi.create("Node", jn)
+        api.create(KIND_NODE, pn)
+        JaxScheduler(japi, JaxFramework([])).run_cycle()
+        Scheduler(api, Framework([]),
+                  CapacityScheduling(GPUResourceCalculator())).run_cycle()
+        assert JC.ANNOT_GANG_LEASE not in japi.get(
+            "Node", "n0").metadata.annotations
+        assert C.ANNOT_GANG_LEASE not in api.get(
+            KIND_NODE, "n0").metadata.annotations

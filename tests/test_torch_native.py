@@ -136,6 +136,56 @@ class TestAgainstJaxShim:
                 (ctypes.c_uint8 * max(1, m))(*vals[:m]), n, m]
         assert native.score_batch(*args) == jax_shim.score_batch(*args)
 
+    @pytest.mark.parametrize("seed", range(6))
+    def test_window_busy_sort_matches_python_sort(self, seed, jax_shim):
+        """nos_window_busy against the JAX shim's and against sorted():
+        unique (group, host index) keys, as the busy dict has them."""
+        rng = np.random.default_rng(300 + seed)
+        keys = list({(int(rng.integers(6)), int(rng.integers(16)))
+                     for _ in range(int(rng.integers(0, 40)))})
+        rng.shuffle(keys)
+        triples = [(g, i, int(rng.integers(2))) for g, i in keys]
+        n = len(triples)
+        out = []
+        for sort in (native.window_busy_sort, jax_shim.window_busy_sort):
+            gid = (ctypes.c_longlong * max(1, n))(*[t[0] for t in triples])
+            idx = (ctypes.c_longlong * max(1, n))(*[t[1] for t in triples])
+            val = (ctypes.c_uint8 * max(1, n))(*[t[2] for t in triples])
+            sort(gid, idx, val, n)
+            out.append([(gid[i], idx[i], val[i]) for i in range(n)])
+        assert out[0] == out[1] == sorted(triples)
+
+    def test_window_busy_sort_refuses_a_short_array(self):
+        arr = (ctypes.c_longlong * 1)()
+        with pytest.raises(ValueError, match="nos_window_busy"):
+            native.window_busy_sort(arr, arr, (ctypes.c_uint8 * 1)(), 3)
+
+    def test_multihost_shard(self, jax_shim):
+        """A block shard takes its GPU whole, as JAX's runtime makes a
+        4x4 shard take its host: one device, and no instance beside it
+        (the port's NVML create waits on 24a, so its fake stands in)."""
+        from nos_tpu.topology import V5E, Shape
+        from nos_tpu.topology.errors import (
+            PlacementInfeasibleError as JaxInfeasible,
+        )
+        from nos_tpu_torch.device.fake import FakeGpuRuntime
+        from nos_tpu_torch.topology.errors import PlacementInfeasibleError
+
+        jrt = jax_shim.NativeTpuRuntime(V5E)
+        assert len(jrt.create_slices(0, [Shape.parse("4x4")])) == 1
+        with pytest.raises(JaxInfeasible):
+            jrt.create_slices(0, [Shape.parse("1x1")])
+        rt = FakeGpuRuntime(num_gpus=2)
+        assert len(rt.create_slices(0, ["2x8"])) == 1
+        (dev,) = rt.list_devices()
+        assert (dev.resource_name, dev.unit_index) == \
+            ("nos.nebuly.com/nvlink-block-2x8", 0)
+        assert rt.placements() == {}
+        with pytest.raises(PlacementInfeasibleError):
+            rt.create_slices(0, ["1g.10gb"])
+        with pytest.raises(PlacementInfeasibleError):
+            rt.create_slices(1, ["2x8", "1g.10gb"])
+
     @pytest.mark.parametrize("seed", range(4))
     def test_victim_prescreen_with_an_open_memory_cap(self, seed, jax_shim):
         rng = np.random.default_rng(200 + seed)

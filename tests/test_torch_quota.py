@@ -874,3 +874,55 @@ class TestReconcilers:
                   for p in api.list(KIND_POD)]
         assert labels.count(C.CAPACITY_IN_QUOTA) == 1
         assert labels.count(C.CAPACITY_OVER_QUOTA) == n - 1
+
+
+# ---------------------------------------------------------------------------
+# Host-shard accounting (tests/test_elasticquota.py::
+# test_multihost_shard_accounting): a JAX multi-host slice S on v5e's
+# 8-chip hosts is the port's NVLink block "(S.chips / 8)x8", a chip a
+# GPU; quotas at 80 GB a chip and a GPU
+# ---------------------------------------------------------------------------
+
+SHARD_CASES = [("4x8", "4x8", 1), ("4x4", "2x8", 1), ("8x8", "8x8", 2),
+               ("2x2", "4", 1), ("2x4", "8", 3)]
+
+
+class TestHostShardAccounting:
+    @pytest.mark.parametrize("per_host", [0, 8, 3, 32],
+                             ids=["off", "8", "not-dividing", "whole"])
+    @pytest.mark.parametrize("jax_shape,port,qty", SHARD_CASES,
+                             ids=[c[0] for c in SHARD_CASES])
+    def test_charges_as_jax(self, jax_shape, port, qty, per_host):
+        """One unit of a block is charged one node's share with the knob
+        set (the chips the member owns), the whole block without it; a
+        sub-host request (MIG 7g.80gb instances, one GPU each) is never
+        touched.  In GB, the port's gpu-memory equals JAX's tpu-memory."""
+        from nos_tpu.testing.factory import make_pod as jax_make_pod
+        from nos_tpu_torch.topology.profile import slice_resource_name
+
+        jcalc = TPUResourceCalculator(hbm_gb_per_chip=80,
+                                      chips_per_host=per_host)
+        pcalc = GPUResourceCalculator(gb_per_gpu=80, gpus_per_host=per_host)
+        jpod = jax_make_pod(resources={
+            f"{JC.RESOURCE_SLICE_PREFIX}{jax_shape}": qty})
+        if "x" in port:
+            res = {slice_resource_name(port): qty}
+        else:
+            res = {slice_resource_name("7g.80gb"): int(port) * qty}
+        ppod = factory.make_pod(resources=res)
+        want = jcalc.compute_pod_request(jpod)[JC.RESOURCE_TPU_MEMORY]
+        got = pcalc.compute_pod_request(ppod)[C.RESOURCE_GPU_MEMORY]
+        assert got == want
+
+    def test_the_scheduler_main_passes_the_knob(self):
+        from nos_tpu_torch.api.config import SchedulerConfig
+        from nos_tpu_torch.cmd.scheduler import build_scheduler_main
+
+        main = build_scheduler_main(APIServer(), SchedulerConfig(
+            shard_chips_per_host=8))
+        calc = main.scheduler._capacity.calculator
+        assert calc.gpus_per_host == 8
+        pod = factory.make_pod(resources={
+            "nos.nebuly.com/nvlink-block-4x8": 1})
+        assert calc.compute_pod_request(pod)[C.RESOURCE_GPU_MEMORY] \
+            == 8 * 80

@@ -14,7 +14,7 @@ import json
 
 import pytest
 
-from test_torch_analysis import ANALYZERS, JAX, PKGS, PORT, rules_of
+from test_torch_analysis import ANALYZERS, PKGS, rules_of
 
 pytestmark = pytest.mark.analysis
 
@@ -201,11 +201,10 @@ class TestN012:
             == "_mutation_gen"
         assert invalidated_fields(Scheduler)["_cycle_lister_cache"] \
             == "_invalidate_scans"
-        # JAX's window-busy map rides its own event: every in-place flip
-        # routes through _mark_busy.  The port's scheduler has no such
-        # map until the multi-node gang windows come.
+        # the window-busy map rides its own event in both packages:
+        # every in-place flip routes through _mark_busy
         busy = invalidated_fields(Scheduler).get("_busy_map_cache")
-        assert busy == {JAX: "_mark_busy", PORT: None}[an.pkg]
+        assert busy == "_mark_busy"
 
     def test_busy_map_mutation_off_the_event_convicted(self, an):
         # Conviction fixture mirroring Scheduler's stacked declaration:

@@ -330,8 +330,12 @@ class TestProfiles:
                     "nos.tpu/slice-2x2", "nvidia.com/mig-1g.10gb+me"):
             assert profile.profile_from_resource(bad) is None
             assert not profile.is_slice_resource(bad)
+        # "2x2" names an NVLink block (2 nodes of 2 GPUs); a one-node
+        # "block" names nothing
+        assert profile.slice_resource_name("2x2") == \
+            "nos.nebuly.com/nvlink-block-2x2"
         with pytest.raises(ValueError):
-            profile.slice_resource_name("2x2")
+            profile.slice_resource_name("1x2")
         for name in PROFILES:
             assert profile.profile_from_resource(
                 profile.slice_resource_name(name)) == name

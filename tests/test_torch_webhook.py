@@ -239,5 +239,291 @@ class TestOperatorServesWebhook:
                 client.close()
         assert any("quota admission is UNENFORCED" in r.getMessage()
                    for r in caplog.records)
+        # the quota validators and, as JAX's operator registers it, the
+        # pods' mesh mutator
         assert client.admission.kinds == sorted(
-            [C.KIND_COMPOSITE_ELASTIC_QUOTA, C.KIND_ELASTIC_QUOTA])
+            [C.KIND_COMPOSITE_ELASTIC_QUOTA, C.KIND_ELASTIC_QUOTA, "Pod"])
+
+
+# ---------------------------------------------------------------------------
+# Mesh normalization (tests/test_mesh_normalization.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_pods(n: int, mesh: str | None, name: str = "p", **kw):
+    """The same generic request on both packages: (JAX pod, port pod)."""
+    from nos_tpu.api import constants as JC
+    from nos_tpu.testing import factory as jf
+    from nos_tpu_torch.testing import factory as pf
+
+    jpod = jf.make_pod(name=name, resources={JC.RESOURCE_TPU: n, "cpu": 1.0},
+                       annotations={JC.ANNOT_MESH: mesh} if mesh else {},
+                       **kw)
+    ppod = pf.make_pod(name=name, resources={C.RESOURCE_GPU: n, "cpu": 1.0},
+                       annotations={C.ANNOT_MESH: mesh} if mesh else {},
+                       **kw)
+    return jpod, ppod
+
+
+def _mapped_res(res: dict) -> dict:
+    """JAX's resource names as the port's."""
+    out = {}
+    for k, v in res.items():
+        if k.startswith("nos.tpu/slice-"):
+            k = "nos.nebuly.com/nvlink-block-" + k[len("nos.tpu/slice-"):]
+        elif k == "google.com/tpu":
+            k = C.RESOURCE_GPU
+        out[k] = v
+    return out
+
+
+def _raw(pkg: str, n=8, mesh="2x4", sections=("limits", "requests")):
+    res_name = C.RESOURCE_GPU if pkg == "port" else "google.com/tpu"
+    key = C.ANNOT_MESH if pkg == "port" else "nos.tpu/mesh"
+    res = {s: {res_name: str(n), "cpu": "1"} for s in sections}
+    return {"metadata": {"name": "p", "namespace": "default",
+                         "annotations": {key: mesh}},
+            "spec": {"containers": [
+                {"name": "main", "resources": res,
+                 "volumeMounts": [{"name": "x", "mountPath": "/x"}]}],
+                "nodeSelector": {"pool": "gpu"}}}
+
+
+def _apply_ops(ops, doc):
+    """A minimal RFC 6902 evaluator for the op shapes emitted."""
+    doc = json.loads(json.dumps(doc))
+    for op in ops:
+        parts = [p.replace("~1", "/").replace("~0", "~")
+                 for p in op["path"].split("/")[1:]]
+        cur = doc
+        for p in parts[:-1]:
+            cur = cur[int(p)] if isinstance(cur, list) else cur[p]
+        if op["op"] == "remove":
+            del cur[parts[-1]]
+        elif op["op"] == "add":
+            cur[parts[-1]] = op["value"]
+    return doc
+
+
+def _mapped_ops(ops):
+    if ops is None:
+        return None
+    return [{**o, "path": o["path"].replace(
+        "nos.tpu~1slice-", "nos.nebuly.com~1nvlink-block-").replace(
+        "google.com~1tpu", "nvidia.com~1gpu")} for o in ops]
+
+
+class TestMeshNormalizeObject:
+    def test_rewrites_matching_mesh(self):
+        from nos_tpu.api.mesh import normalize_mesh_request as jax_norm
+        from nos_tpu_torch.api.mesh import normalize_mesh_request
+
+        jpod, ppod = _mesh_pods(8, "2x4")
+        assert jax_norm(jpod) and normalize_mesh_request(ppod)
+        res = ppod.spec.containers[0].resources
+        assert res == _mapped_res(jpod.spec.containers[0].resources)
+        assert res["nos.nebuly.com/nvlink-block-2x4"] == 1
+        assert C.RESOURCE_GPU not in res
+
+    def test_the_order_is_nodes_then_gpus(self):
+        """JAX sorts an ICI shape ("4x2" -> 2x4); the port keeps the
+        mesh's order: 4 nodes of 2 GPUs."""
+        from nos_tpu.api.mesh import normalize_mesh_request as jax_norm
+        from nos_tpu_torch.api.mesh import normalize_mesh_request
+
+        jpod, ppod = _mesh_pods(8, "4x2")
+        assert jax_norm(jpod) and normalize_mesh_request(ppod)
+        assert "nos.tpu/slice-2x4" in jpod.spec.containers[0].resources
+        assert "nos.nebuly.com/nvlink-block-4x2" in \
+            ppod.spec.containers[0].resources
+
+    @pytest.mark.parametrize("mesh,n", [
+        ("2x4", 4),        # GPU count mismatch
+        ("banana", 8),     # unparseable
+        (None, 8),         # no annotation
+    ])
+    def test_ineligible_left_alone(self, mesh, n):
+        from nos_tpu.api.mesh import normalize_mesh_request as jax_norm
+        from nos_tpu_torch.api.mesh import normalize_mesh_request
+
+        jpod, ppod = _mesh_pods(n, mesh)
+        assert not jax_norm(jpod) and not normalize_mesh_request(ppod)
+        assert ppod.spec.containers[0].resources[C.RESOURCE_GPU] == n
+
+    @pytest.mark.parametrize("mesh,n", [("1x8", 8), ("2x2x2", 8),
+                                        ("2x0", 0)])
+    def test_only_a_block_of_whole_nodes_is_carved(self, mesh, n):
+        """The port's rule: two dims, at least two nodes (a one-node
+        request is the per-node planner's, and a mesh of three dims names
+        no nodes)."""
+        from nos_tpu_torch.api.mesh import (
+            mesh_patch_ops, normalize_mesh_request,
+        )
+
+        _, ppod = _mesh_pods(n, mesh)
+        assert not normalize_mesh_request(ppod)
+        assert mesh_patch_ops(_raw("port", n=n, mesh=mesh)) is None
+
+    def test_explicit_request_wins(self):
+        from nos_tpu.api.mesh import normalize_mesh_request as jax_norm
+        from nos_tpu.testing import factory as jf
+        from nos_tpu_torch.api.mesh import normalize_mesh_request
+        from nos_tpu_torch.testing import factory as pf
+
+        jpod = jf.make_slice_pod("2x2", 1, name="explicit",
+                                 annotations={"nos.tpu/mesh": "2x2"})
+        assert not jax_norm(jpod)
+        for ppod in (pf.make_mig_pod("3g.40gb", 1, name="explicit",
+                                     annotations={C.ANNOT_MESH: "2x2"}),
+                     pf.make_pod(name="explicit", resources={
+                         "nos.nebuly.com/nvlink-block-2x2": 1,
+                         C.RESOURCE_GPU: 4},
+                         annotations={C.ANNOT_MESH: "2x2"})):
+            assert not normalize_mesh_request(ppod)
+
+    def test_admission_hook_applies_on_create(self):
+        from nos_tpu.api.mesh import (
+            install_mesh_normalization as jax_install,
+        )
+        from nos_tpu.kube.client import APIServer as JaxAPIServer
+        from nos_tpu_torch.api.mesh import install_mesh_normalization
+
+        japi, api = JaxAPIServer(), pclient.APIServer()
+        jax_install(japi)
+        install_mesh_normalization(api)
+        jpod, ppod = _mesh_pods(8, "2x4")
+        japi.create("Pod", jpod)
+        api.create(pclient.KIND_POD, ppod)
+        got = api.get(pclient.KIND_POD, "p", "default")
+        want = japi.get("Pod", "p", "default")
+        assert got.spec.containers[0].resources == \
+            _mapped_res(want.spec.containers[0].resources)
+
+    def test_the_operator_main_installs_it(self):
+        from nos_tpu_torch.api.config import OperatorConfig
+        from nos_tpu_torch.cmd.operator import build_operator_main
+
+        api = pclient.APIServer()
+        build_operator_main(api, OperatorConfig())
+        api.create(pclient.KIND_POD, _mesh_pods(16, "2x8")[1])
+        assert api.get(pclient.KIND_POD, "p", "default").spec.containers[
+            0].resources == {"nos.nebuly.com/nvlink-block-2x8": 1,
+                             "cpu": 1.0}
+
+
+class TestMeshPatchOps:
+    def test_ops_rewrite_both_sections_only(self):
+        from nos_tpu.api.mesh import mesh_patch_ops as jax_ops
+        from nos_tpu_torch.api.mesh import mesh_patch_ops
+
+        raw = _raw("port")
+        ops = mesh_patch_ops(raw)
+        assert ops == _mapped_ops(jax_ops(_raw("jax")))
+        assert len(ops) == 4
+        out = _apply_ops(ops, raw)
+        for section in ("limits", "requests"):
+            sec = out["spec"]["containers"][0]["resources"][section]
+            assert C.RESOURCE_GPU not in sec
+            assert sec["nos.nebuly.com/nvlink-block-2x4"] == "1"
+            assert sec["cpu"] == "1"
+        assert out["spec"]["nodeSelector"] == {"pool": "gpu"}
+        assert out["spec"]["containers"][0]["volumeMounts"]
+
+    def test_limits_only_pod(self):
+        from nos_tpu.api.mesh import mesh_patch_ops as jax_ops
+        from nos_tpu_torch.api.mesh import mesh_patch_ops
+
+        ops = mesh_patch_ops(_raw("port", sections=("limits",)))
+        assert ops == _mapped_ops(jax_ops(_raw("jax", sections=("limits",))))
+        assert len(ops) == 2
+
+    def test_mismatch_returns_none(self):
+        from nos_tpu.api.mesh import mesh_patch_ops as jax_ops
+        from nos_tpu_torch.api.mesh import mesh_patch_ops
+
+        for kw in ({"n": 4}, {"mesh": "3x3"}):
+            assert mesh_patch_ops(_raw("port", **kw)) is None
+            assert jax_ops(_raw("jax", **kw)) is None
+        raw, jraw = _raw("port"), _raw("jax")
+        raw["spec"]["containers"][0]["resources"]["limits"][
+            "nvidia.com/mig-1g.10gb"] = "1"
+        jraw["spec"]["containers"][0]["resources"]["limits"][
+            "nos.tpu/slice-1x1"] = "1"
+        assert mesh_patch_ops(raw) is None and jax_ops(jraw) is None
+
+    def test_webhook_returns_jsonpatch(self):
+        import base64
+
+        from nos_tpu_torch.api.mesh import mesh_patch_ops
+
+        h = pwebhook.AdmissionHandler(pclient.APIServer())
+        h.register_mutating("Pod", mesh_patch_ops)
+        resp = h.handle(json.dumps({
+            "request": {"uid": "u1", "operation": "CREATE",
+                        "kind": {"kind": "Pod"}, "object": _raw("port")},
+        }).encode())["response"]
+        assert resp["allowed"] is True
+        assert resp["patchType"] == "JSONPatch"
+        ops = json.loads(base64.b64decode(resp["patch"]))
+        assert ops == mesh_patch_ops(_raw("port"))
+
+    def test_init_container_gpu_disqualifies(self):
+        from nos_tpu.api.mesh import mesh_patch_ops as jax_ops
+        from nos_tpu_torch.api.mesh import mesh_patch_ops
+
+        raw, jraw = _raw("port"), _raw("jax")
+        raw["spec"]["initContainers"] = [
+            {"name": "warm", "resources": {"limits": {C.RESOURCE_GPU: "8"}}}]
+        jraw["spec"]["initContainers"] = [
+            {"name": "warm", "resources": {"limits": {"google.com/tpu": "8"}}}]
+        assert mesh_patch_ops(raw) is None and jax_ops(jraw) is None
+
+    def test_undecodable_pod_passes_mutate_only_path(self):
+        from nos_tpu_torch.api.mesh import mesh_patch_ops
+
+        raw = _raw("port")
+        raw["spec"]["containers"][0]["resources"]["limits"]["memory"] = "1Pi"
+        h = pwebhook.AdmissionHandler(pclient.APIServer())
+        h.register_mutating("Pod", mesh_patch_ops)
+        resp = h.handle(json.dumps({
+            "request": {"uid": "u", "kind": {"kind": "Pod"},
+                        "object": raw}}).encode())["response"]
+        assert resp["allowed"] is True
+
+    def test_broken_mutator_does_not_block_the_write(self):
+        h = pwebhook.AdmissionHandler(pclient.APIServer())
+        h.register_mutating("Pod", lambda raw: 1 / 0)
+        resp = h.handle(json.dumps({
+            "request": {"uid": "u", "kind": {"kind": "Pod"},
+                        "object": _raw("port")}}).encode())["response"]
+        assert resp["allowed"] is True
+        assert "patch" not in resp
+
+
+class TestMeshEndToEnd:
+    def test_mesh_gang_is_carved_and_binds(self, monkeypatch):
+        """A two-member gang asking for generic GPUs with a mesh is
+        normalized at create on both packages, the partitioner carves
+        the block (JAX's 4x4 over two v5e hosts, the port's 2x8 over two
+        8-GPU nodes), and both members bind to the same nodes."""
+        from nos_tpu.api.mesh import (
+            install_mesh_normalization as jax_install,
+        )
+        from nos_tpu_torch.api.mesh import install_mesh_normalization
+
+        from test_torch_multihost import Twin
+
+        t = Twin(monkeypatch, 2, loop=True)
+        jax_install(t.japi)
+        install_mesh_normalization(t.api)
+        t.group("job", 2)
+        for i in range(2):
+            jpod, _ = _mesh_pods(16, "4x4", name=f"job-{i}",
+                                 labels={"nos.tpu/pod-group": "job"})
+            _, ppod = _mesh_pods(16, "2x8", name=f"job-{i}",
+                                 labels={C.LABEL_POD_GROUP: "job"})
+            t.japi.create("Pod", jpod)
+            t.api.create(pclient.KIND_POD, ppod)
+        assert t.converge() == 2
+        assert sorted(t.node_of(f"job-{i}") for i in range(2)) == \
+            ["host-0", "host-1"]
+        assert t.members(False) == {"host-0": "2x8", "host-1": "2x8"}
