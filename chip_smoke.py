@@ -144,8 +144,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    (``nos_tpu_plan_seconds``), the agent's host ms per tick,
    ``nos_tpu_actuation_latency_seconds`` and each pod's wall ms from
    creation to bound; the children's launches go on it, as grant's do.
-10. mig: the MIG strategy and node side, on the host; no MIG instance is
-   created or destroyed on the card and no MIG mode changed.  (a)
+10. mig: the MIG strategy and node side; no MIG instance is created or
+   destroyed on the card and no MIG mode changed.  (a)
    ``testing/fleet.py``'s MIG fleet (32 nodes x 8 H100 80GB labelled
    ``mig``, half full, 200 pending pods, seed 0) planned MIG_PLANS
    times, each timed on a fresh snapshot: the plans must be identical,
@@ -170,7 +170,29 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    Every distinct state the loop writes to the node and the pods must
    equal ``MIG_LOOP_WRITES``.  The line carries the plan cycles' host
    ms, the agent's host ms per tick, the actuation latency, each pod's
-   pending-to-bound ms and the fake's create and delete calls.
+   pending-to-bound ms and the runtime's create and delete calls.
+   (d) The loop of (c) again with the agent on ``NvmlGpuRuntime`` over
+   the fake NVML library (``testing/nvml.py``, one H100 in MIG mode):
+   its writes must equal ``MIG_LOOP_WRITES`` too; the line carries the
+   library's create and destroy calls.  (e) ``NvmlGpuRuntime`` on the
+   card's NVML through a proxy that counts every create and destroy
+   call and passes none to the driver: every lifecycle symbol resolves;
+   with MIG off, ``create_slices(0, ["1g.10gb"])`` raises
+   ``MigModeDisabled``; a block shard (BLOCK_PROFILE) is created on GPU
+   0, listed, left out of ``placements()`` and deleted, ``gpu_uuids()``
+   naming the card; a second shard is all that ``delete_all_except``
+   deletes; the proxy must count no create or destroy.  On a card in
+   MIG mode only the symbols and the shard's refusal are checked.  (f)
+   ``device/nvml_layout.cc``, compiled with the host compiler against
+   the toolkit's ``nvml.h`` into the kernels' build directory, prints
+   each bound struct's size and member offsets and each NVML constant
+   the module uses: all must equal the ctypes declarations.  (g)
+   ``python -m nos_tpu_torch.cmd.sliceagent --device cuda`` for the
+   card's node on the in-memory API: its /healthz answers 200, its
+   startup cleanup deletes nothing, and it exits 0 on SIGTERM.  (g)
+   runs only where NVML reads every GPU's MIG mode as disabled (on a
+   shared card in MIG mode a startup cleanup would destroy instances it
+   does not own); otherwise the line says why it was skipped.
 11. quota: Elastic Resource Quotas and the scheduler's preemption.  (a)
    On the host, ``testing/fleet.py``'s quota fleet (32 nodes x 8 H100
    80GB carved alike, 20,480 GB; train-a, train-b and serve quotas and
@@ -249,7 +271,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    counts as the ``gang`` path.
    (c) block: an NVLink block gang (ROADMAP item 7.2) over one domain of
    four one-GPU MIG nodes, the card's at index 0 and three stubs, each
-   agent on the fake runtime (MIG actuation on the card waits on 24a).
+   agent on the fake runtime (the card is not in MIG mode; the NVML
+   runtime's block shard on the card is the mig phase's part (e)).
    A single under the spare progress holds index 1, a nearly done one
    index 2.  The operator main's hook rewrites the gang's two members,
    ``nvidia.com/gpu: 2`` with the mesh 2x1, into
@@ -374,9 +397,8 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    exporter's exit codes, the waterfall while both pods ran and at the
    end, the SLO verdict, each main's exit code and seconds to exit and
    the children's walls; their launches are the kernels line's
-   ``mains`` path.  The MIG agent's main is not run on the card: its
-   NVML runtime cannot carve (ROADMAP 24a) and the card is not in MIG
-   mode.
+   ``mains`` path.  These mains run the card's node as an MPS node; the
+   MIG agent's main runs on the card in the mig phase's part (g).
 
 15. elastic: elastic gangs and the MIG defragmenter.  (a) On the host,
    ``testing/fleet.py``'s defrag fleet (bench_defrag.py's trace on the
@@ -2897,7 +2919,10 @@ MIG_NODE = "h100-mig-node-0"
 MIG_PODS = ("3g.40gb", "2g.20gb", "1g.10gb", "1g.10gb", "1g.10gb")
 MIG_RELEASED = "mig-2"       # a bound 1g.10gb pod, deleted in step 5
 # What the MIG loop writes (_MigLoop._record), as its CPU test's run
-# recorded it (tests/test_torch_sliceagent.py).
+# recorded it (tests/test_torch_sliceagent.py), on the fake runtime (c)
+# and on NVML over the fake library (d) alike.  No write names a device
+# id (the fake's ids and NVML's MIG UUIDs differ): a device appears only
+# through its placement ("status-gpu-placements-0") and counts.
 MIG_LOOP_WRITES = {
     "h100-mig-node-0": [
         [],
@@ -3212,17 +3237,38 @@ class _Recorder:
             seq.append(view)
 
 
+class _Counted:
+    """A GPU runtime whose ``create_slices`` and ``delete_slice`` calls
+    are counted, as ``FakeGpuRuntime`` counts its own."""
+
+    def __init__(self, runtime) -> None:
+        self.runtime = runtime
+        self.create_calls = self.delete_calls = 0
+
+    def __getattr__(self, name: str):
+        return getattr(self.runtime, name)
+
+    def create_slices(self, unit_index: int, profiles: list[str]) -> list[str]:
+        self.create_calls += 1
+        return self.runtime.create_slices(unit_index, profiles)
+
+    def delete_slice(self, device_id: str) -> None:
+        self.delete_calls += 1
+        self.runtime.delete_slice(device_id)
+
+
 class _MigLoop:
     """One H100 node through the MIG loop on an in-memory API server:
     node controller with the virgin-node initializer, pod controller,
     the MIG partitioner controller from its factory, the node's MIG
     agent (``SliceAgent``: kubelet simulator, reporter, actuator, device
-    plugin) over ``FakeGpuRuntime(H100_80GB, 1)``, and the scheduler
-    from ``build_scheduler``.  A ``_Recorder`` keeps every distinct
-    state of the node and the pods: MIG_LOOP_WRITES pins them."""
+    plugin) over ``FakeGpuRuntime(H100_80GB, 1)`` or the ``runtime``
+    given, and the scheduler from ``build_scheduler``.  A ``_Recorder``
+    keeps every distinct state of the node and the pods:
+    MIG_LOOP_WRITES pins them."""
 
     def __init__(self, batch_timeout_s: float, batch_idle_s: float,
-                 clock=time.monotonic) -> None:
+                 clock=time.monotonic, runtime=None) -> None:
         from nos_tpu_torch.api import constants as C
         from nos_tpu_torch.cmd.assembly import build_scheduler
         from nos_tpu_torch.controllers.node_controller import NodeController
@@ -3250,7 +3296,8 @@ class _MigLoop:
         self.controller.bind()
         self.api.create(KIND_NODE, make_gpu_node(
             MIG_NODE, model=H100_80GB, gpus=1, partitioning="mig"))
-        self.runtime = FakeGpuRuntime(H100_80GB, 1)
+        self.runtime = FakeGpuRuntime(H100_80GB, 1) if runtime is None \
+            else _Counted(runtime)
         self.agent = SliceAgent(self.api, MIG_NODE, self.runtime,
                                 FakePodResources())
         self.agent.start()
@@ -3322,7 +3369,8 @@ class _MigLoop:
 
 def _mig_loop(batch_timeout_s: float = CARD_BATCH_TIMEOUT_S,
               batch_idle_s: float = CARD_BATCH_IDLE_S,
-              clock=time.monotonic, advance=None, poll_s: float = CARD_POLL_S) -> tuple[dict, dict]:
+              clock=time.monotonic, advance=None, poll_s: float = CARD_POLL_S,
+              runtime=None) -> tuple[dict, dict]:
     """Phase 10 (c): the scenario through ``_MigLoop``.  (1) The virgin
     node is initialised to 7g.80gb and the agent carves it; (2) five
     pods (3g.40gb, 2g.20gb and three 1g.10gb) need one re-carve, which
@@ -3331,11 +3379,13 @@ def _mig_loop(batch_timeout_s: float = CARD_BATCH_TIMEOUT_S,
     cycle on it writes nothing; (5) a bound 1g.10gb pod is deleted and
     the fifth binds onto its instance with no new plan.  Returns the
     phase's fields and the loop's writes.  ``clock`` and ``advance`` let
-    a test drive it on an injected clock."""
+    a test drive it on an injected clock; ``runtime`` replaces the fake
+    runtime under the agent (part (d))."""
     from nos_tpu_torch.api import constants as C
     from nos_tpu_torch.kube.client import KIND_POD
 
-    loop = _MigLoop(batch_timeout_s, batch_idle_s, clock=clock)
+    loop = _MigLoop(batch_timeout_s, batch_idle_s, clock=clock,
+                    runtime=runtime)
     run = functools.partial(loop.run_until, poll_s=poll_s, advance=advance)
     plans0 = _plans_total(C.MIG_KIND)
     plan0, landed0 = (_plan_seconds(C.MIG_KIND),
@@ -3372,7 +3422,9 @@ def _mig_loop(batch_timeout_s: float = CARD_BATCH_TIMEOUT_S,
             or len(loop.writes[MIG_NODE]) != node_writes:
         fail("binding the fifth pod took a new plan")
     fields = {
-        "node": MIG_NODE, "runtime": type(loop.runtime).__name__,
+        "node": MIG_NODE,
+        "runtime": type(getattr(loop.runtime, "runtime",
+                                loop.runtime)).__name__,
         "pods": list(MIG_PODS), "batch_idle_s": batch_idle_s,
         "batch_timeout_s": batch_timeout_s, "running": loop.running(),
         "unschedulable_until_release": left, "released": MIG_RELEASED,
@@ -3383,18 +3435,236 @@ def _mig_loop(batch_timeout_s: float = CARD_BATCH_TIMEOUT_S,
         "tick_ms_median": statistics.median(loop.tick_ms),
         "tick_ms_max": max(loop.tick_ms), "ticks": len(loop.tick_ms),
         "bound_ms": dict(sorted(loop.bound_ms.items())),
-        "fake_create_calls": loop.runtime.create_calls,
-        "fake_delete_calls": loop.runtime.delete_calls,
+        "create_calls": loop.runtime.create_calls,
+        "delete_calls": loop.runtime.delete_calls,
         "geometry": {a: v for a, v in loop.node().metadata.annotations.items()
                      if a.startswith(C.ANNOT_SPEC_PREFIX)}}
     return fields, loop.writes
 
 
+def _mig_loop_on_nvml() -> dict:
+    """Part (d): the loop of (c) with the agent on ``NvmlGpuRuntime``
+    over the fake NVML library, one H100 in MIG mode.  Its writes must
+    equal MIG_LOOP_WRITES; the fake library's GPU instances at the end
+    must be the placements the node reports."""
+    from nos_tpu_torch.device import nvml
+    from nos_tpu_torch.testing.nvml import FakeGpu, FakeNvmlLibrary
+    from nos_tpu_torch.topology import H100_80GB
+
+    lib = FakeNvmlLibrary([FakeGpu(mig=True)])
+    runtime = nvml.NvmlGpuRuntime(H100_80GB, lib=lib)
+    try:
+        fields, writes = _mig_loop(runtime=runtime)
+        placements = sorted((pl.profile, pl.start)
+                            for pl in runtime.placements().values())
+    finally:
+        runtime.close()
+    if writes != MIG_LOOP_WRITES:
+        fail(f"the MIG loop on NVML over the fake library wrote "
+             f"{json.dumps(writes)}")
+    held = sorted((next(p.name for p in H100_80GB.mig_profiles
+                        if p.nvml_id == gi.profile), gi.start)
+                  for gi in lib.gpus[0].gis.values())
+    if held != placements:
+        fail(f"the fake NVML holds {held}, the runtime reads {placements}")
+    return fields | {"nvml_writes": {c: lib.calls.count(c)
+                                     for c in nvml.WRITE_CALLS},
+                     "gpu_instances": held}
+
+
+class _NoWrites:
+    """The loaded NVML with every create and destroy call counted and
+    refused (NVML_ERROR_NO_PERMISSION) before it reaches the driver."""
+
+    def __init__(self, lib) -> None:
+        self._lib = lib
+        self.refused: list[str] = []
+        self.reads = 0
+
+    def __getattr__(self, name: str):
+        from nos_tpu_torch.device import nvml
+
+        fn = getattr(self._lib, name)
+        if "Create" in name or "Destroy" in name:
+            def refused(*args):
+                self.refused.append(name)
+                return nvml.NVML_ERROR_NO_PERMISSION
+            return refused
+
+        def read(*args):
+            self.reads += 1
+            return fn(*args)
+        return read
+
+
+def _mig_nvml_on_card(device: dict) -> dict:
+    """Part (e): ``NvmlGpuRuntime`` on the card's NVML through
+    ``_NoWrites``.  With MIG off on GPU 0: the MIG create is refused
+    with ``MigModeDisabled`` and no create call, a block shard is taken,
+    listed, named through ``gpu_uuids()`` and deleted, and
+    ``delete_all_except`` deletes a second shard and nothing else.  In
+    MIG mode the shard must be refused.  No create or destroy call may
+    reach the proxy."""
+    from nos_tpu_torch.device import nvml
+    from nos_tpu_torch.topology import DEFAULT_REGISTRY
+    from nos_tpu_torch.topology.errors import PlacementInfeasibleError
+    from nos_tpu_torch.topology.profile import slice_resource_name
+
+    try:
+        lib = nvml.load_library()      # binds every call in SIGNATURES
+    except nvml.NvmlUnavailable as e:
+        fail(f"the card's NVML: {e}")
+    proxy = _NoWrites(lib)
+    runtime = nvml.NvmlGpuRuntime(DEFAULT_REGISTRY.get(device["model"]),
+                                  lib=proxy)
+    out: dict = {"symbols": list(nvml.LIFECYCLE_CALLS)}
+    try:
+        _, modes = runtime.topology()
+        out["mig_modes"] = ["enabled" if m else "disabled" for m in modes]
+        before = sorted(runtime.list_devices().ids())
+        if modes[0]:
+            try:
+                runtime.create_slices(0, [BLOCK_PROFILE])
+                fail("GPU 0 in MIG mode took a block shard")
+            except PlacementInfeasibleError as e:
+                out["shard_refused"] = str(e)
+            out["skipped"] = ("MIG mode on: the create refusal and the "
+                              "cleanup are not exercised")
+        else:
+            try:
+                runtime.create_slices(0, ["1g.10gb"])
+                fail("a MIG create on GPU 0 with MIG off was not refused")
+            except nvml.MigModeDisabled as e:
+                out["mig_refused"] = str(e)
+            if proxy.refused:
+                fail(f"the refused MIG create called {proxy.refused}")
+            (shard,) = runtime.create_slices(0, [BLOCK_PROFILE])
+            listed = [(d.resource_name, d.unit_index)
+                      for d in runtime.list_devices() if d.device_id == shard]
+            if listed != [(slice_resource_name(BLOCK_PROFILE), 0)]:
+                fail(f"the block shard {shard} is listed as {listed}")
+            if shard in runtime.placements():
+                fail("the block shard has a MIG placement")
+            uuids = runtime.gpu_uuids()
+            if uuids[0].lower() != device["uuid"].lower():
+                fail(f"gpu_uuids() names GPU 0 {uuids[0]}, not the card "
+                     f"{device['uuid']}")
+            runtime.delete_slice(shard)
+            if shard in runtime.list_devices().ids():
+                fail("the deleted block shard is still listed")
+            second = runtime.create_slices(0, [BLOCK_PROFILE])
+            if not any(modes):
+                doomed = runtime.delete_all_except(set())
+                if doomed != second:
+                    fail(f"delete_all_except deleted {doomed}, not the "
+                         f"shard {second}")
+                out["cleanup_deleted"] = len(doomed)
+            else:
+                runtime.delete_slice(second[0])
+            out["shard"] = {"profile": BLOCK_PROFILE, "gpu": 0,
+                            "gpu_uuid": uuids[0]}
+        after = sorted(runtime.list_devices().ids())
+        if after != before:
+            fail(f"the card's devices changed: {before} -> {after}")
+    finally:
+        runtime.close()
+    if proxy.refused:
+        fail(f"NvmlGpuRuntime called {proxy.refused} on the card")
+    return out | {"create_destroy_calls": len(proxy.refused),
+                  "nvml_reads": proxy.reads}
+
+
+def _mig_header() -> dict:
+    """Part (f): the ctypes structs and NVML constants against the
+    toolkit's nvml.h (``nvml.header_layout``)."""
+    from nos_tpu_torch.device import nvml
+
+    t0 = time.perf_counter()
+    try:
+        text = nvml.header_layout()
+    except RuntimeError as e:
+        fail(str(e))
+    bad = nvml.layout_mismatches(text)
+    if bad:
+        fail(f"the NVML bindings disagree with nvml.h: {bad}")
+    return {"structs": sorted(nvml.STRUCTS),
+            "constants": len(nvml.header_constants()),
+            "seconds": time.perf_counter() - t0}
+
+
+MIG_AGENT_LIMIT_S = 60.0     # the MIG agent main's start to /healthz
+
+
+def _mig_agent_main(device: dict, modes: list[str]) -> dict:
+    """Part (g): the MIG agent's main on NVML for the card's node on the
+    in-memory API, as a process: /healthz 200, a startup cleanup that
+    deletes nothing, exit 0 on SIGTERM.  Skipped where a GPU is in MIG
+    mode: its startup cleanup would destroy instances it does not
+    own."""
+    import urllib.request
+
+    if any(m != "disabled" for m in modes):
+        return {"skipped": "MIG mode on", "mig_modes": modes}
+    with tempfile.TemporaryDirectory(prefix="nos-migagent-") as tmp:
+        addr = f"127.0.0.1:{_free_port()}"
+        cfg = pathlib.Path(tmp) / "sliceagent.json"
+        cfg.write_text(json.dumps({"health_probe_addr": addr,
+                                   "model": device["model"]}))
+        log_path = pathlib.Path(tmp) / "sliceagent.log"
+        with open(log_path, "w") as log:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "nos_tpu_torch.cmd.sliceagent",
+                 "--device", "cuda", "--node", CARD_NODE, "--config",
+                 str(cfg)], cwd=ROOT, env=_child_env(),
+                stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            healthy = None
+            while healthy is None:
+                if proc.poll() is not None:
+                    fail(f"the MIG agent main exited {proc.returncode} at "
+                         f"start:\n{log_path.read_text()[-4000:]}")
+                if time.perf_counter() - t0 > MIG_AGENT_LIMIT_S:
+                    fail(f"the MIG agent main gave no /healthz within "
+                         f"{MIG_AGENT_LIMIT_S} s")
+                try:
+                    with urllib.request.urlopen(f"http://{addr}/healthz",
+                                                timeout=5) as r:
+                        if r.status == 200:
+                            healthy = time.perf_counter() - t0
+                except OSError:
+                    time.sleep(0.05)
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=MAINS_EXIT_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"the MIG agent main did not exit within "
+                     f"{MAINS_EXIT_LIMIT_S} s of SIGTERM")
+            exit_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log = log_path.read_text()
+    if rc != 0:
+        fail(f"the MIG agent main exited {rc} on SIGTERM:\n{log[-4000:]}")
+    cleanup = re.search(r"startup cleanup deleted (\d+) devices", log)
+    if cleanup is None or cleanup.group(1) != "0":
+        fail(f"the MIG agent main's startup cleanup: "
+             f"{cleanup.group(0) if cleanup else 'not logged'}")
+    return {"node": CARD_NODE, "healthz_s": healthy, "exit_s": exit_s,
+            "rc": rc, "cleanup_deleted": 0}
+
+
 def phase_mig(device: dict, smi: str) -> dict:
-    """The MIG strategy and node side, host-only: (a) the MIG fleet
-    plan, (b) the reporter over the card's NVML, (c) one node through
-    the MIG loop on the fake runtime, whose writes must equal
-    MIG_LOOP_WRITES (the CPU test's run)."""
+    """The MIG strategy and node side: (a) the MIG fleet plan, (b) the
+    reporter over the card's NVML, (c) one node through the MIG loop on
+    the fake runtime, whose writes must equal MIG_LOOP_WRITES (the CPU
+    test's run), (d) the same loop on NVML over the fake library, (e)
+    the NVML runtime on the card with no create or destroy reaching it,
+    (f) the bindings against nvml.h, (g) the MIG agent's main on the
+    card."""
     t0 = time.perf_counter()
     fleet_line = _mig_fleet_plans()
     reporter = _mig_reporter_on_card(device)
@@ -3402,9 +3672,16 @@ def phase_mig(device: dict, smi: str) -> dict:
     if writes != MIG_LOOP_WRITES:
         fail(f"the MIG loop's writes differ from the CPU test's: "
              f"{json.dumps(writes)}")
+    t1 = time.perf_counter()
+    nvml_loop = _mig_loop_on_nvml()
+    card = _mig_nvml_on_card(device)
+    header = _mig_header()
+    agent = _mig_agent_main(device, card["mig_modes"])
     line = {"phase": "mig", "nvidia_smi": smi,
-            "seconds": time.perf_counter() - t0, "fleet": fleet_line,
-            "reporter": reporter, "loop": loop}
+            "seconds": time.perf_counter() - t0,
+            "seconds_d_to_g": time.perf_counter() - t1, "fleet": fleet_line,
+            "reporter": reporter, "loop": loop, "nvml_loop": nvml_loop,
+            "nvml_card": card, "nvml_header": header, "agent_main": agent}
     emit(line)
     return line
 
@@ -4322,7 +4599,7 @@ def phase_gang(main_loss0: float, device: dict, smi: str) -> dict:
 # The block phase, the gang phase's part (c): an NVLink block gang
 # (ROADMAP item 7.2) over the card's node and three stub neighbours of
 # one NVLink domain, every node a MIG node of one GPU whose agent runs
-# on the fake runtime (MIG actuation on the card waits on 24a; the fake
+# on the fake runtime (the card is not in MIG mode; the fake
 # records the block's shards).  Index 0 is the card's node; a long
 # single holds index 1, so the window [0, 1] is the one to drain; the
 # window [2, 3] holds a nearly done single on index 2.  The gang's two

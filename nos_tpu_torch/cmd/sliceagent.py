@@ -8,8 +8,9 @@ actuator on a report-interval run loop.
 
 ``--device`` picks the GPU runtime, as the port's entry points do:
 ``cuda`` (the default) is NVML on the card (``NvmlGpuRuntime``, which
-reads MIG devices but cannot create or destroy them until ROADMAP tag
-24a), ``cpu`` the stateful fake (``FakeGpuRuntime``).  ``model: auto``
+creates MIG devices only on a GPU in MIG mode and keeps NVLink block
+shards of GPUs with MIG mode off in memory), ``cpu`` the stateful fake
+(``FakeGpuRuntime``).  ``model: auto``
 takes the model and the GPU count from that runtime.  On the in-memory
 API the agent registers its own node; over a kubeconfig a missing node
 is a ``ConfigError``.  Over a kubeconfig the used devices come from
@@ -103,7 +104,10 @@ def build_agent_main(api: APIServer, cfg: AgentConfig,
                        heartbeat=cfg.heartbeat)
     if plugin_manager is not None:
         main.add_shutdown_hook(plugin_manager.stop)
-    agent.start()  # startup cleanup and a first report (migagent.go:190-199)
+    # startup cleanup and a first report (migagent.go:190-199)
+    doomed = agent.start()
+    logger.info("startup cleanup deleted %d devices: %s", len(doomed),
+                sorted(doomed))
     main.agent = agent
     main.add_loop("sliceagent", agent.tick, cfg.report_interval_s)
     return main

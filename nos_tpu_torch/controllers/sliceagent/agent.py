@@ -45,10 +45,13 @@ class SliceAgent:
         # read as used when the actuator plans
         self.kubelet = KubeletSim(api, node_name, self.client, pod_resources)
 
-    def start(self) -> None:
-        self.actuator.startup_cleanup()
+    def start(self) -> list[str]:
+        """Startup cleanup, then the first report; the ids the cleanup
+        deleted."""
+        doomed = self.actuator.startup_cleanup()
         self.kubelet.bind()
         self.reporter.reconcile()
+        return doomed
 
     def stop(self) -> None:
         """Detach from the API's watch: a replaced in-process agent's

@@ -146,11 +146,14 @@ class TestNvmlRuntime:
                 ("nvidia.com/mig-1g.10gb", MIG_B, FREE, 0)]
             assert rt.placements() == {MIG_A: Placement("3g.40gb", 4, 4),
                                        MIG_B: Placement("1g.10gb", 1, 1)}
-            for call in (lambda: rt.create_slices(0, ["1g.10gb"]),
-                         lambda: rt.delete_slice(MIG_A),
-                         lambda: rt.delete_all_except(set())):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    call()
+            # reading changes nothing; the runtime's writes are
+            # tests/test_torch_nvml_runtime.py's
+            assert not [c for c in lib.calls if c in nvml.WRITE_CALLS]
+            (new,) = rt.create_slices(0, ["1g.10gb"])
+            assert rt.placements()[new] == Placement("1g.10gb", 0, 1)
+            rt.delete_slice(MIG_A)
+            assert sorted(rt.delete_all_except(set())) == sorted([MIG_B, new])
+            assert rt.list_devices() == []
         finally:
             rt.close()
         assert lib.open == 0
@@ -172,8 +175,11 @@ class TestNvmlRuntime:
         nvml.NvmlGpuRuntime(model=H100_80GB, lib=lib).close()
 
     def test_an_instance_outside_the_table_raises(self):
+        rows = profile_rows()             # NVML_GPU_INSTANCE_PROFILE_6_SLICE:
+        rows[6] = {"id": 6, "slices": 6, "count": 1, "mb": 80_000,
+                   "placements": [(0, 8)]}        # no H100 profile
         lib = FakeNvmlLibrary([FakeGpu(mig=True, instances=[
-            (MIG_A, 6, 0, 8)])])          # 6 slices: no H100 profile
+            (MIG_A, 6, 0, 8)])], profiles=rows)
         rt = nvml.NvmlGpuRuntime(lib=lib)
         with pytest.raises(LookupError, match="profile 6"):
             rt.list_devices()

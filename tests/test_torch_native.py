@@ -163,7 +163,8 @@ class TestAgainstJaxShim:
     def test_multihost_shard(self, jax_shim):
         """A block shard takes its GPU whole, as JAX's runtime makes a
         4x4 shard take its host: one device, and no instance beside it
-        (the port's NVML create waits on 24a, so its fake stands in)."""
+        (the fake runtime here; tests/test_torch_nvml_runtime.py holds
+        the NVML runtime's shards to it)."""
         from nos_tpu.topology import V5E, Shape
         from nos_tpu.topology.errors import (
             PlacementInfeasibleError as JaxInfeasible,

@@ -86,7 +86,8 @@ from nos_tpu_torch.partitioning import slicepart as sp
 from nos_tpu_torch.partitioning.core import REASON_PLAN_DEADLINE
 from nos_tpu_torch.partitioning.state import ClusterState
 from nos_tpu_torch.testing import factory
-from nos_tpu_torch.testing.nvml import FakeGpu, FakeNvmlLibrary
+from nos_tpu_torch.testing.nvml import (UNKNOWN, FakeGpu, FakeNvmlLibrary,
+                                        profile_rows)
 from nos_tpu_torch.topology import H100_80GB, Device, DeviceList
 from nos_tpu_torch.topology.annotations import (
     parse_status_annotations, spec_matches_status, spec_plan_id,
@@ -348,7 +349,8 @@ class TestKubeletSim:
 class Twin:
     """tests/test_e2e_slice.py's Harness on both sides, one clock."""
 
-    def __init__(self, monkeypatch, nodes=("host-0",)) -> None:
+    def __init__(self, monkeypatch, nodes=("host-0",),
+                 runtime=lambda: FakeGpuRuntime(STANDIN, 1)) -> None:
         self.now = [0.0]
         clock = lambda: self.now[0]  # noqa: E731
         monkeypatch.setattr(jax_sp_factory, "SliceSnapshotTaker",
@@ -389,7 +391,7 @@ class Twin:
             self.api.create(KIND_NODE, factory.make_gpu_node(
                 name, model=STANDIN, gpus=1, partitioning=C.MIG_KIND))
             self.jruntimes[name] = FakeTpuRuntime(JAX_GEN)
-            self.runtimes[name] = FakeGpuRuntime(STANDIN, 1)
+            self.runtimes[name] = runtime()
             self.jres[name] = JaxFakePodResources()
             self.res[name] = FakePodResources()
             self.jagents[name] = JaxSliceAgent(
@@ -614,6 +616,40 @@ class TestEndToEnd:
         assert t.pod("want-half").status.phase == RUNNING
 
 
+class _NvmlOverFake(chip_smoke._Counted):
+    """``NvmlGpuRuntime`` over the fake NVML library (one stand-in GPU in
+    MIG mode), counted as the fake runtime counts; ``fail_creates``
+    makes the library refuse every GPU instance create."""
+
+    def __init__(self) -> None:
+        self.lib = FakeNvmlLibrary([FakeGpu(mig=True)],
+                                   profiles=profile_rows(STANDIN))
+        super().__init__(port_nvml.NvmlGpuRuntime(STANDIN, lib=self.lib))
+
+    @property
+    def fail_creates(self) -> bool:
+        return self.CREATE in self.lib.fail
+
+    @fail_creates.setter
+    def fail_creates(self, value: bool) -> None:
+        if value:
+            self.lib.fail[self.CREATE] = UNKNOWN
+        else:
+            self.lib.fail.pop(self.CREATE, None)
+
+    CREATE = "nvmlDeviceCreateGpuInstanceWithPlacement"
+
+
+class TestEndToEndOnNvml(TestEndToEnd):
+    """TestEndToEnd with the port's agent on ``NvmlGpuRuntime`` over the
+    fake NVML library, beside the JAX loop on its fake runtime: the same
+    writes, devices and create and delete calls after every step."""
+
+    @pytest.fixture
+    def twin(self, monkeypatch):
+        return lambda **kw: Twin(monkeypatch, runtime=_NvmlOverFake, **kw)
+
+
 class TestHandshakeDeadline:
     def test_dead_agent_is_quarantined_and_survivors_replan(self, twin):
         t = twin(nodes=("host-0", "host-1"))
@@ -820,8 +856,8 @@ class TestSmokeMig:
         assert fields["plan_cycles"] == 2
         assert fields["running"] == ["mig-0", "mig-1", "mig-3", "mig-4"]
         assert fields["unschedulable_until_release"] == "mig-4"
-        assert (fields["fake_create_calls"],
-                fields["fake_delete_calls"]) == (2, 1)
+        assert (fields["create_calls"],
+                fields["delete_calls"]) == (2, 1)
         assert set(fields["bound_ms"]) == {f"mig-{i}" for i in range(5)}
 
     def test_the_loop_writes_the_same_on_an_injected_clock(self, monkeypatch):
