@@ -146,12 +146,18 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    creation to bound; the children's launches go on it, as grant's do.
 10. mig: the MIG strategy and node side; no MIG instance is created or
    destroyed on the card and no MIG mode changed.  (a)
-   ``testing/fleet.py``'s MIG fleet (32 nodes x 8 H100 80GB labelled
-   ``mig``, half full, 200 pending pods, seed 0) planned MIG_PLANS
-   times, each timed on a fresh snapshot: the plans must be identical,
-   hash to ``MIG_FLEET_DIGEST`` (the CPU tests' plan), give every GPU one
-   of the H100's maximal geometries (``enumerate_geometries``) within 7
-   compute slices and 8 memory slots, and keep every used instance.
+   ``testing/fleet.py``'s MIG fleet (bench_plan.py's 64 hosts as 64
+   nodes x 8 H100 80GB labelled ``mig`` in four NVLink domains of 16,
+   half full, 200 pending pods with its 4x4 row as 2x8 block gangs,
+   seed 0) planned by the group pass in front of the per-node planner
+   MIG_PLANS times, each timed on a fresh snapshot: the plans must be
+   identical, hash to ``MIG_FLEET_DIGEST`` (the CPU tests' plan), carve
+   every block over an aligned window of one domain with no gang left
+   lacking beside a clean window (``fleet.block_plan_problems``),
+   re-carve GPUs outside the blocks for sub-host pods it places, give
+   every GPU outside a block one of the H100's maximal geometries
+   (``enumerate_geometries``) within 7 compute slices and 8 memory
+   slots, and keep every used instance.
    (b) The MIG agent's reporter over ``NvmlGpuRuntime`` for the card's
    node (its model from discovery), with a pod-resources view holding
    no device: its status and placement annotations must be NVML's MIG
@@ -402,9 +408,10 @@ Phases, one JSON line each; any failure exits non-zero with no result:
 
 15. elastic: elastic gangs and the MIG defragmenter.  (a) On the host,
    ``testing/fleet.py``'s defrag fleet (bench_defrag.py's trace on the
-   MIG stand-in: 24 one-GPU nodes, fillers, whole-GPU demand and a
-   burst, two elastic sponge gangs) through the MIG loop on the fake
-   runtime (no MIG instance on the card is touched), defrag and grow on
+   MIG stand-in: 24 one-GPU nodes, fillers, whole-GPU demand, a burst
+   and 2x1 block gangs under drain preemption, two elastic sponge gangs)
+   through the MIG loop on the fake runtime (no MIG instance on the card
+   is touched), defrag and grow on
    ELASTIC_FLEET_RUNS times, the baseline with both off and
    propose-only once: every defrag-on run must hash to
    ``DEFRAG_FLEET_DIGEST`` and its conserved waterfall to
@@ -412,10 +419,13 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    tests); every move must be of a movable pod (no serving pod, none
    past the spare progress, no rigid gang's member), no job moved more
    than twice; the baseline and propose-only must decide alike; the
-   utilisation floor must reach the bench's 0.95, and the frag halving
-   is held only where the JAX package's runs meet it
-   (``DEFRAG_FRAG_HALVING_MET``).  A straight child of ELASTIC_STEPS
-   split steps trains beside it.  (b) The card's node in the MPS loop
+   utilisation floor is held at 0.95, or at the JAX package's own floor
+   where its run of the trace falls under 0.95
+   (``DEFRAG_UTILIZATION_FLOOR``), and the frag halving where the JAX
+   package's runs meet it (``DEFRAG_FRAG_HALVING_MET``); a gang held the
+   lease, the drain reached the ledger, and the baseline bound a gang
+   whole on its leased aligned window.  A straight child of
+   ELASTIC_STEPS split steps trains beside it.  (b) The card's node in the MPS loop
    over the REST stub with the quotas (team-a min 24 max 80 GB, team-b
    min 48) and both reconcilers run each pass: team-a's elastic PodGroup
    ``eg`` (min 2, max 3 replicas, two 24 GB members) and a plain 24 GB
@@ -541,9 +551,11 @@ Phases, one JSON line each; any failure exits non-zero with no result:
    go on the line.  The kubelet device plugins are not run: the card's
    machine has no grpcio.
 19. fleet: the native scheduling shim on the host, touching no GPU: its
-   build report (phase 2 built it) and GIL handshake, then (a) the 1024-node MIG plan at 1
-   and 4 plan workers and (b) the 1024-node scheduler cycle, each with
-   the native paths and without them, to the same decisions.
+   build report (phase 2 built it) and GIL handshake, then (a) the
+   1024-node MIG plan (bench_fleet.py's 4x4 row as 2x8 block gangs, the
+   group pass in front) at 1 and 4 plan workers and (b) the 1024-node
+   scheduler cycle (its 8x8 residents as 8x8 blocks), each with the
+   native paths and without them, to the same decisions.
 20. determinism: the port's analyzer and its dual-run harness on the
    host, touching no GPU.  (a) ``nos_tpu_torch.analysis.run`` with
    ``default_rules()`` (N001-N012) over ``nos_tpu_torch/``: any
@@ -3032,23 +3044,29 @@ MIG_LOOP_WRITES = {
 
 
 def _mig_fleet_plans() -> dict:
-    """``testing/fleet.py``'s MIG fleet planned MIG_PLANS times, each on
-    a fresh snapshot and timed: every plan must equal the pinned one,
-    give each GPU one of the H100's maximal geometries within its 7
-    compute slices and 8 memory slots, and keep every used instance."""
+    """``testing/fleet.py``'s MIG fleet planned MIG_PLANS times by the
+    MIG factory's planner (the NVLink block group pass in front), each
+    on a fresh snapshot and timed: every plan must equal the pinned one,
+    carve its blocks over aligned windows (``fleet.block_plan_problems``),
+    give each GPU outside a block one of the H100's maximal geometries
+    within its 7 compute slices and 8 memory slots, and keep every used
+    instance."""
+    from nos_tpu_torch.obs import journal as J
     from nos_tpu_torch.obs import trace
-    from nos_tpu_torch.partitioning.core import GeometryPlanner
     from nos_tpu_torch.partitioning.slicepart import (
         SlicePartitionCalculator, SliceProfileCalculator, SliceSnapshotTaker)
+    from nos_tpu_torch.partitioning.slicepart.group import (
+        MultiHostGeometryPlanner)
     from nos_tpu_torch.scheduler.framework import Framework
     from nos_tpu_torch.testing import fleet
     from nos_tpu_torch.topology import H100_80GB, enumerate_geometries
+    from nos_tpu_torch.topology.profile import is_block_profile
 
     spec = fleet.mig_fleet_spec(0)
     bound = {b["name"] for n in spec["nodes"] for b in n["bound"]}
     calculator = SliceProfileCalculator()
-    planner = GeometryPlanner(Framework(), calculator,
-                              SlicePartitionCalculator())
+    planner = MultiHostGeometryPlanner(Framework(), calculator,
+                                       SlicePartitionCalculator())
     runs = []
     for _ in range(MIG_PLANS):
         snap = SliceSnapshotTaker().take_snapshot(fleet.build_cluster(spec))
@@ -3057,29 +3075,44 @@ def _mig_fleet_plans() -> dict:
                          for u in node.units}
                   for name, node in snap.nodes().items()}
         tracer = trace.Tracer()
+        journal = J.DecisionJournal(maxlen=1 << 16)
         prev = trace.set_tracer(tracer)
+        prev_j = J.set_journal(journal)
         try:
             t0 = time.perf_counter()
             planner.plan(snap, pending)
             ms = (time.perf_counter() - t0) * 1e3
         finally:
+            J.set_journal(prev_j)
             trace.set_tracer(prev)
         (span,) = [sp for sp in tracer.ring.dump()
                    if sp["name"] == "planner.plan"]
         runs.append({"ms": ms, "counts": span["counts"], "before": before,
+                     "windows": fleet.block_windows(
+                         (r.category, r.subject, r.attrs)
+                         for r in journal.events()),
                      "summary": fleet.plan_summary(snap, pending, bound,
                                                    calculator)})
     first = runs[0]
     if any(r["summary"] != first["summary"] or r["counts"] != first["counts"]
-           for r in runs):
+           or r["windows"] != first["windows"] for r in runs):
         fail("the MIG fleet's plans differ between runs")
     digest = fleet.plan_digest(first["summary"])
     if digest != fleet.MIG_FLEET_DIGEST:
         fail(f"the MIG fleet plan's digest {digest} is not the pinned "
              f"{fleet.MIG_FLEET_DIGEST} (the CPU tests' plan)")
+    summary = first["summary"]
+    problems = fleet.block_plan_problems(
+        spec, first["windows"], summary["geometries"], summary["placed"],
+        summary["lacking"])
+    if problems or not first["windows"]:
+        fail(f"the MIG fleet's blocks: {problems or 'none carved'}")
+    members = {n for _, _, names in first["windows"] for n in names}
     allowed = {tuple(sorted(g)) for g in enumerate_geometries(H100_80GB)}
     carved, instances = 0, {}
-    for name, gpus in first["summary"]["geometries"].items():
+    for name, gpus in summary["geometries"].items():
+        if name in members:
+            continue
         for index, geometry in gpus.items():
             used, geometry_before = first["before"][name][int(index)]
             rows = [(H100_80GB.profile(p), q) for p, q in geometry.items()]
@@ -3099,6 +3132,14 @@ def _mig_fleet_plans() -> dict:
             carved += geometry != geometry_before
             for p, q in geometry.items():
                 instances[p] = instances.get(p, 0) + q
+    sub_host = [p["name"] for p in spec["pending"]
+                if not is_block_profile(p["profile"])
+                and any(p["name"] in v for v in summary["placed"].values())]
+    if not carved or not sub_host or not first["counts"].get("forks"):
+        fail(f"the MIG fleet's plan re-carved {carved} GPUs outside the "
+             f"blocks for {len(sub_host)} sub-host pods in "
+             f"{first['counts'].get('forks', 0)} forks: the per-node pass "
+             f"did not run")
     timed = [r["ms"] for r in runs]
     return {"nodes": len(spec["nodes"]), "gpus": sum(
                 n["gpus"] for n in spec["nodes"]),
@@ -3112,8 +3153,13 @@ def _mig_fleet_plans() -> dict:
             "pods_placed": sum(len(v) for v in
                                first["summary"]["placed"].values()),
             "gpus_carved": carved,
+            "sub_host_pods_placed": len(sub_host),
             "instances_by_profile": dict(sorted(instances.items())),
-            "lacking_after": first["summary"]["lacking"], "digest": digest}
+            "blocks_carved": len(first["windows"]),
+            "block_pods_placed": sum(
+                is_block_profile(p["profile"]) for p in spec["pending"]
+                if any(p["name"] in v for v in summary["placed"].values())),
+            "lacking_after": summary["lacking"], "digest": digest}
 
 
 def _mig_reporter_on_card(device: dict) -> dict:
@@ -6529,13 +6575,20 @@ def phase_mains(main_loss0: float, device: dict, smi: str) -> dict:
 # ledger's waterfall, defrag and grow on: the JAX package's run of the
 # same trace (tests/test_torch_defrag.py)
 DEFRAG_FLEET_DIGEST = \
-    "db25ad0691996f3b3bf489c2bd532c8db3add9c8ad4169376729dfb28bd2a7d5"
+    "f34474ccd6f2cf00ce6c9103fc02b1a4c04e4bf80468842c32f2acceaab3e544"
 DEFRAG_FLEET_WASTE_DIGEST = \
-    "f153cdd24c9eff9aa665082abb54569959bd2f245f8b7624cc4fecb577f19ed0"
+    "fe505e87747c15f71635cbfc17ca7ab4f7d31eb0fa3cf0e0f79d45af08c5014c"
 # whether the JAX package's runs of the trace halve frag_stranded against
-# the baseline (bench_defrag.py's FRAG_HALVING_TARGET): the halving is
-# held only if they do (tests/test_torch_defrag.py)
+# the baseline (bench_defrag.py's FRAG_HALVING_TARGET): held only if they
+# do (tests/test_torch_defrag.py)
 DEFRAG_FRAG_HALVING_MET = False
+# the defrag-on run's utilisation floor: bench_defrag.py's
+# UTILIZATION_MIN_TARGET (0.95) or, where the JAX package's run of the
+# same trace stays under it, that run's own floor, so a drop below JAX's
+# run fails (tests/test_torch_defrag.py).  With the 2x1 gang class in
+# the trace at its 1 s tick both packages' runs fall to this; the bench at
+# its own 0.25 s tick holds 0.9734 (scripts/jax_defrag_gangs.py).
+DEFRAG_UTILIZATION_FLOOR = 0.9208333333333334
 # the defrag-on run this many times; the baseline and propose-only once
 ELASTIC_FLEET_RUNS = 2
 ELASTIC_CARD_QUOTAS = GANG_CARD_QUOTAS
@@ -6671,13 +6724,15 @@ def _defrag_fleet_runs(runs: int = ELASTIC_FLEET_RUNS) -> dict:
     times more.  Every defrag-on run must hash to DEFRAG_FLEET_DIGEST and
     its conserved waterfall to DEFRAG_FLEET_WASTE_DIGEST; every move must
     be of a movable pod: a job's, none past the spare progress, no
-    elastic member (those shrink); the trace runs no serving pod and no
-    rigid gang, whose shields the CPU stories hold; no job moved more than
+    elastic member (those shrink), no rigid gang's member (the 2x1 block
+    gangs); the trace runs no serving pod, whose shield the CPU stories
+    hold; no job moved more than
     MAX_MIGRATIONS_PER_JOB times nor more than MAX_TOTAL_MIGRATIONS pods
     in all; the baseline and propose-only runs must decide alike, the
-    defragmenter's own records aside; the utilisation floor must reach
-    the bench's UTILIZATION_MIN_TARGET, and the frag halving is held
-    when the JAX package's runs meet it (DEFRAG_FRAG_HALVING_MET)."""
+    defragmenter's own records aside; the utilisation floor is held at
+    DEFRAG_UTILIZATION_FLOOR and the frag halving when the JAX package's
+    runs meet it (DEFRAG_FRAG_HALVING_MET).  The 2x1 block gang class
+    must have run (``_defrag_gang_gate``)."""
     from nos_tpu_torch.testing import fleet
 
     spec = fleet.defrag_fleet_spec(0)
@@ -6698,7 +6753,7 @@ def _defrag_fleet_runs(runs: int = ELASTIC_FLEET_RUNS) -> dict:
         _check_waste_digest(out["waste"], DEFRAG_FLEET_WASTE_DIGEST,
                             "the defrag fleet")
         for name, progress, kind in out["evictions"]:
-            if kind in ("", "elastic") or progress >= 0.75:
+            if kind in ("", "elastic", "gang") or progress >= 0.75:
                 fail(f"the defragmenter moved {name} ({kind or 'no job'}, "
                      f"progress {progress})")
         if out["migrations_by_job_max"] > fleet.MAX_MIGRATIONS_PER_JOB \
@@ -6715,10 +6770,11 @@ def _defrag_fleet_runs(runs: int = ELASTIC_FLEET_RUNS) -> dict:
     if DEFRAG_FRAG_HALVING_MET and frag > fleet.FRAG_HALVING_TARGET * base:
         fail(f"frag_stranded {frag} GPU-s over "
              f"{fleet.FRAG_HALVING_TARGET} x the baseline's {base}")
-    if first["utilization_min"] < fleet.UTILIZATION_MIN_TARGET:
+    if first["utilization_min"] < DEFRAG_UTILIZATION_FLOOR:
         fail(f"the defrag fleet's utilisation floor "
              f"{first['utilization_min']} is under "
-             f"{fleet.UTILIZATION_MIN_TARGET}")
+             f"{DEFRAG_UTILIZATION_FLOOR}")
+    gangs = _defrag_gang_gate(spec, first)
 
     def stats(xs: list[float]) -> dict:
         return {"median": statistics.median(xs), "max": max(xs),
@@ -6754,11 +6810,40 @@ def _defrag_fleet_runs(runs: int = ELASTIC_FLEET_RUNS) -> dict:
             "frag_stranded_gpu_s_baseline": base,
             "frag_ratio": first["frag_ratio"],
             "frag_halving_held": DEFRAG_FRAG_HALVING_MET,
+            "utilization_floor": DEFRAG_UTILIZATION_FLOOR,
+            "gang_class": gangs,
             "journal_identical": first["identical"],
             "decisions_compared": first["decisions"],
             "jobs_completed": first["jobs_completed"],
             "digest": fleet.plan_digest(first["summary"]),
             "waste": _waste_line(first["waste"])}
+
+
+def _defrag_gang_gate(spec: dict, out: dict) -> dict:
+    """The defrag fleet's 2x1 block gang class ran: one of its gangs held
+    the lease in the defrag-on run, its drain preemption reached the
+    waste ledger's ``drain`` category there, and the baseline bound at
+    least one gang whole on an aligned two-node window of the domain,
+    every member on a node its lease had held a tick before.  Returns
+    the figures for the phase's line."""
+    from nos_tpu_torch.testing import fleet
+
+    index = {n["name"]: n["host_index"] for n in spec["nodes"]}
+    holder = f"{fleet.DEFRAG_NAMESPACE}/gang-"
+    leased = sum(any(h.startswith(holder) for h in holders)
+                 for _, holders, _ in out["lease_log"])
+    drain = out["waste"]["fleet"]["chip_seconds"].get("drain", 0.0)
+    base = out["baseline"]["gangs_bound"]
+    whole = [g for g in base
+             if all(g[3]) and len(g[2]) == 2
+             and sorted(index[n] for n in g[2]) in (
+                 [i, i + 1] for i in range(0, len(index), 2))]
+    if not leased or drain <= 0.0 or not whole:
+        fail(f"the defrag fleet's gang class did not run: {leased} lease "
+             f"changes to a gang, drain {drain} GPU-s, baseline gangs "
+             f"bound {base}")
+    return {"lease_changes_to_a_gang": leased, "drain_gpu_s": drain,
+            "bound": out["gangs_bound"], "bound_baseline": base}
 
 
 class _ElasticLoop(_QuotaLoop):
@@ -9350,7 +9435,7 @@ def _sim_line(smi: str) -> dict:
 # the digest of phase 19 (a)'s plan at full size (fleet.plan_digest of
 # its desired state and journal), from the same plan on the CPU
 FLEET_PLAN_DIGEST = \
-    "2cd17e30ebda0677260d158c9fd2796785b03b86c62f5b1eac81dfae5f4efe09"
+    "e8607c82e824f2e6bd6f48af9a335e00a5be3dabfe8e0ac22d9c461948556b42"
 FLEET_PLAN_WORKERS = (1, 4)
 FLEET_PLAN_TIMED = 3
 FLEET_CYCLE_WARMUP = 5           # the first of them cold
@@ -9363,19 +9448,24 @@ def _scale_fleet_plans(domains: int | None = None,
                        timed: int = FLEET_PLAN_TIMED,
                        ways: tuple[bool, ...] = (True, False)) -> dict:
     """Phase 19 (a): ``fleet.scale_plan_spec`` planned by the parallel
-    planner at each of FLEET_PLAN_WORKERS, with the native fit screen and
-    without it (``native_prescreen=False``): one untimed plan and
-    ``timed`` timed each, host ms.  Every plan's desired state and
-    journal must be the first's, and the screen must have failed classes
-    where it ran (``prescreen_fails``, summed over the shards' spans).
-    ``ways`` orders the runs with the screen (True) and without."""
+    planner at each of FLEET_PLAN_WORKERS over the MIG factory's planner
+    (the NVLink block group pass in front, as ``bench_fleet.py``'s
+    ``make_planner``), with the native fit screen and without it
+    (``native_prescreen=False``): one untimed plan and ``timed`` timed
+    each, host ms.  Every plan's desired state and journal must be the
+    first's, every block carved over an aligned window of one domain
+    (``fleet.block_plan_problems``) and every block gang given a shard,
+    and the screen must have failed classes where it ran
+    (``prescreen_fails``, summed over the shards' spans).  ``ways``
+    orders the runs with the screen (True) and without."""
     from nos_tpu_torch.api import constants as C
     from nos_tpu_torch.obs import journal as J
     from nos_tpu_torch.obs import trace
-    from nos_tpu_torch.partitioning.core import (
-        GeometryPlanner, ParallelGeometryPlanner)
+    from nos_tpu_torch.partitioning.core import ParallelGeometryPlanner
     from nos_tpu_torch.partitioning.slicepart import (
         SlicePartitionCalculator, SliceProfileCalculator, SliceSnapshotTaker)
+    from nos_tpu_torch.partitioning.slicepart.group import (
+        MultiHostGeometryPlanner)
     from nos_tpu_torch.scheduler.framework import Framework
     from nos_tpu_torch.testing import fleet
 
@@ -9389,7 +9479,7 @@ def _scale_fleet_plans(domains: int | None = None,
     for native in ways:
         for workers in FLEET_PLAN_WORKERS:
             planner = ParallelGeometryPlanner(
-                lambda: GeometryPlanner(
+                lambda: MultiHostGeometryPlanner(
                     Framework(), SliceProfileCalculator(),
                     SlicePartitionCalculator(), native_prescreen=native),
                 SliceProfileCalculator(), kind=C.MIG_KIND,
@@ -9416,7 +9506,9 @@ def _scale_fleet_plans(domains: int | None = None,
                         for r in journal.events()
                         if r.category in (J.PLAN_NODE_COMMITTED,
                                           J.PLAN_NODE_REVERTED,
-                                          J.PLAN_SHARD_MERGED)])
+                                          J.PLAN_SHARD_MERGED,
+                                          J.PLAN_BLOCK_CARVED,
+                                          J.PLAN_BLOCK_RECLAIMED)])
                     first = first or summary
                     if summary != first:
                         fail(f"the fleet's plan at {workers} workers, "
@@ -9436,6 +9528,15 @@ def _scale_fleet_plans(domains: int | None = None,
     out["digest"] = fleet.plan_digest(first)
     out["nodes_carved"] = sum(r[0] == J.PLAN_NODE_COMMITTED
                               for r in first["journal"])
+    windows = fleet.block_windows(first["journal"])
+    gangs = sum(1 for p in spec["pending"] if p.get("gang"))
+    problems = fleet.block_plan_problems(spec, windows,
+                                         first["geometries"])
+    shards = sum(len(names) for _, _, names in windows)
+    if problems or shards < gangs:
+        fail(f"the fleet plan's blocks: {problems}; {shards} shards "
+             f"carved for {gangs} block gangs")
+    out["blocks_carved"], out["block_gangs"] = len(windows), gangs
     return out
 
 
@@ -9529,7 +9630,7 @@ def _fleet_cycles(nodes: int | None = None, bound: int | None = None,
     if not on["journal"]:
         fail("the scale fleet journaled nothing")
     out: dict = {"nodes": nodes, "bound": bound,
-                 "residents": sum(c for _, c in fleet.SCALE_RESIDENTS),
+                 "residents": sum(c for _, _, c in fleet.SCALE_RESIDENTS),
                  "journal_records": len(on["journal"])}
     for name, run in runs.items():
         out[name] = {k: v for k, v in run.items()

@@ -65,13 +65,12 @@ DEFAULT_CYCLES = 2
 # work), so 120 s is deep headroom even on a loaded host.
 CHILD_TIMEOUT_S = 120
 
-# The trace: testing/fleet.py's MIG fleet at 64 nodes, 32 of them full
-# with a filler pod, labelled in NVLink domains of 16 nodes at host
-# indices 0-15; 200 pending pods of MIG_POD_MIX.
-TRACE_NODES = 64
-TRACE_FULL_NODES = 32
-TRACE_DOMAINS = 4
-TRACE_PENDING = 200
+# The trace: testing/fleet.py's MIG fleet, bench_plan.py's layout (64
+# nodes, 32 of them full with a filler pod, in 4 NVLink domains of 16
+# nodes at host indices 0-15) and 200 pending pods of MIG_POD_MIX, its
+# 2x8 block pods (bench_plan.py's 4x4 row) among them, so the group
+# pass carves blocks in the plan leg and the scheduler's gang path
+# rejects them in the schedule leg.
 
 # the child's timing line on stderr: {"trace_s": ...}
 _TIMING_PREFIX = "nosdiff-child: "
@@ -86,14 +85,7 @@ def trace_spec() -> dict:
     """The trace's cluster as a ``testing.fleet`` spec."""
     from nos_tpu_torch.testing import fleet
 
-    spec = fleet.mig_fleet_spec(0, nodes=TRACE_NODES,
-                                full_nodes=TRACE_FULL_NODES,
-                                pending=TRACE_PENDING)
-    per_domain = TRACE_NODES // TRACE_DOMAINS
-    for i, node in enumerate(spec["nodes"]):
-        node["domain"] = f"nvl-{i // per_domain}"
-        node["host_index"] = i % per_domain
-    return spec
+    return fleet.mig_fleet_spec(0)
 
 
 # -- child: one trace run, journal to stdout --------------------------------

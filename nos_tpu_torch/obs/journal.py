@@ -40,6 +40,12 @@ NODE_ACTUATED = "node-actuated"
 ACTUATION_FAILED = "actuation-failed"
 PLAN_CYCLE = "plan-cycle"
 PLAN_SHARD_MERGED = "plan-shard-merged"
+# the NVLink block group pass's (``partitioning/slicepart/group.py``): a
+# block carved over an aligned window of clean nodes, or a free block
+# given back to the per-node loop (subject the block profile; domain,
+# nodes), the JAX package's "group pass" log lines
+PLAN_BLOCK_CARVED = "plan-block-carved"
+PLAN_BLOCK_RECLAIMED = "plan-block-reclaimed"
 QUARANTINED = "quarantined"
 QUARANTINE_RELEASED = "quarantine-released"
 HANDSHAKE_WAIT = "handshake-wait"

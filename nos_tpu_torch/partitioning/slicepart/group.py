@@ -26,6 +26,11 @@ The pass runs before the per-node planning loop:
    ``NxG`` only where its model offers N-node blocks and every node has
    G GPUs; windows under the scheduler's gang lease are carved first.
 
+Each carve and reclaim is journaled (``plan-block-carved``,
+``plan-block-reclaimed``: the profile, the domain, the window's nodes)
+where the JAX package only logs it, so a plan's journal shows what the
+pass decided.
+
 Only nodes whose every GPU belongs to the MIG family become shards: a
 hybrid node's MPS half is not the planner's to give away.
 """
@@ -37,6 +42,8 @@ from collections import defaultdict
 
 from nos_tpu_torch.api import constants as C
 from nos_tpu_torch.kube.objects import Pod
+from nos_tpu_torch.obs import journal as J
+from nos_tpu_torch.obs.journal import record as journal_record
 from nos_tpu_torch.obs.trace import span as obs_span
 from nos_tpu_torch.topology.profile import (
     PROFILE_RE, block_dims, block_gpus, is_block_profile,
@@ -159,6 +166,9 @@ class MultiHostGeometryPlanner(GeometryPlanner):
                     remaining[profile] -= hosts
                     logger.info("group pass: carved %s across %s",
                                 profile, [w.name for w in window])
+                    journal_record(J.PLAN_BLOCK_CARVED, profile,
+                                   domain=domain,
+                                   nodes=[w.name for w in window])
                 if carved:
                     clean_by_domain[domain] = [
                         m for m in clean if m.name not in carved]
@@ -215,4 +225,7 @@ class MultiHostGeometryPlanner(GeometryPlanner):
                     deficit -= _SEVENTHS * block_gpus(profile)
                     logger.info("group pass: reclaimed free %s at %s",
                                 profile, [w.name for w in window])
+                    journal_record(J.PLAN_BLOCK_RECLAIMED, profile,
+                                   domain=domain,
+                                   nodes=[w.name for w in window])
         return mutated

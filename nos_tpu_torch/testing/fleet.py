@@ -15,13 +15,20 @@ chips, half of them full, 200 pending pods), as 32 nodes × 8 H100 80GB.
   multi-host 4x4 is dropped, since no MPS share spans cards.  The seed
   draws each pod's creation time (whole seconds in the last hour).
 
-The MIG fleet (``mig_fleet_spec``) is the same bench in MIG instances:
-32 nodes × 8 H100 80GB labelled ``mig``; nodes 0-15 hold a used
-7g.80gb on each GPU (a filler pod), nodes 16-31 a free one; the
-backlog is the same 200 pods over MIG_POD_MIX, a chip's share of the
-8-chip host mapped to the profile with the same count per card (1x1 →
-1g.10gb, 1x2 → 2g.20gb, 2x2 → 3g.40gb, two a card as two 2x2 a 2x4,
-2x4 → 7g.80gb), the multi-host 4x4 dropped.
+The MIG fleet (``mig_fleet_spec``) is the bench in MIG instances at its
+own size: 64 nodes × 8 H100 80GB labelled ``mig`` (a v5e host an 8-GPU
+node), in the bench's 4 NVLink domains of 16 hosts (node i in
+``nvl-<i // 16>`` at host index ``i % 16``); nodes 0-31 hold a used
+7g.80gb on each GPU (a filler pod), nodes 32-63 a free one; the backlog
+is the same 200 pods over MIG_POD_MIX, a chip's share of the 8-chip
+host mapped to the profile with the same count per card (1x1 → 1g.10gb,
+1x2 → 2g.20gb, 2x2 → 3g.40gb, two a card as two 2x2 a 2x4, 2x4 →
+7g.80gb), and the multi-host 4x4 (two v5e hosts) the NVLink block 2x8
+(two 8-GPU nodes), each such pod in a pod group of its own as the bench
+labels it.  The group pass carves the 18 block gangs' 9 windows over
+the virgin domain nvl-2 and the first window of nvl-3, and the per-node
+pass re-carves nvl-3's other virgin nodes for the sub-host demand.  The
+MPS fleet above stays at its 32 nodes.
 
 The quota fleet (``quota_fleet_spec``) is the same 32 nodes x 8 H100
 80GB on the MPS family, every node carved alike (GPUs 0-3 one 80gb
@@ -73,37 +80,41 @@ nodes' GPUs short of the fleet's, integrated past RECOVERY_WARMUP_S).
 
 The defrag fleet (``defrag_fleet_spec``, ``run_defrag_fleet``) is
 ``bench_defrag.py``'s trace on the MIG stand-in (the H100 restricted to
-{7g.80gb, 3g.40gb}, ``defrag_standin``, on which the JAX package's v5e
-restricted to {2x4, 2x2} decides alike), through the MIG loop: 24 virgin
-one-GPU nodes in one NVLink domain (one JAX host block a GPU), a
-SliceAgent over ``FakeGpuRuntime`` on each, the MIG partitioner
-controller with the defragmenter at the bench's knobs, and the
-scheduler with its grow pass.  The bench's classes map as the stand-in
-allows: its 1x2 filler and burst are 3g.40gb (a 2x2: the stand-in has
-no 1x2), its 2x4 big a 7g.80gb; two elastic sponge gangs of 3g.40gb
-members (min 2, max 60) run the whole trace.  Its phases, in-flight
-targets (in the bench's chip equivalents: a 3g.40gb 4, a GPU 8) and
-durations are the bench's.  Cut: the 2-host gang class, drain
-preemption and ``shard_chips_per_host`` (the stand-in's one-GPU nodes
-hold the bench's 2-host class as no block the pinned JAX run could
-match; the block path's own parity cases are
-``tests/test_torch_multihost.py``'s), and the bench's 0.25 s tick, which is 1 s here (its 300 s trace kept), so the
-CPU test that holds it to JAX stays under a minute.  As in the bench it
-runs three times: defrag and grow on; the baseline with both off; and
-propose-only (an infinite payback threshold, grow off), whose decisions
-must equal the baseline's.
+{7g.80gb, 3g.40gb} and to two-node blocks, ``defrag_standin``, on which
+the JAX package's v5e restricted to {2x4, 2x2, 4x4} decides alike),
+through the MIG loop: 24 virgin one-GPU nodes in one NVLink domain (one
+JAX host block a GPU), a SliceAgent over ``FakeGpuRuntime`` on each, the
+MIG partitioner controller with the defragmenter at the bench's knobs,
+and the scheduler with its grow pass, drain preemption after the
+bench's 40 cycles of one lease (the trace's progress its progress
+function) and a block shard charged the node's one GPU of quota (the
+bench's ``shard_chips_per_host``: a host's 8 chips).  The bench's
+classes map as the stand-in allows: its 1x2 filler and burst are
+3g.40gb (a 2x2: the stand-in has no 1x2), its 2x4 big a 7g.80gb, its
+2-host 4x4 gang of two members a 2x1 block gang (two one-GPU nodes of
+an aligned window); two elastic sponge gangs of 3g.40gb members (min 2,
+max 60) run the whole trace.  Its phases, in-flight targets (in the
+bench's chip equivalents: a 3g.40gb 4, a GPU 8, a block member its
+node's 8) and durations are the bench's.  Cut: the bench's 0.25 s
+tick, which is 1 s here (its 300 s trace kept, the drain's 40 cycles
+40 s), so the CPU test that holds it to JAX stays under a minute.  As
+in the bench it runs three times: defrag and grow on; the baseline with
+both off; and propose-only (an infinite payback threshold, grow off),
+whose decisions must equal the baseline's.
 
 The scale fleets are ``bench_fleet.py``'s 1024 hosts in MIG profiles,
-JAX's three TPU generations cut to the one H100 model the port knows and
-its multi-host rows to one-node 7g.80gb pods (their digests pinned
-so; the 2x8 and 8x8 block rows are not restored, see PERF.md §4).  ``scale_plan_spec``: 16 NVLink domains of 64
-8-GPU nodes at host indices 0-63; in each, nodes 0-31 full (every GPU a
-used 7g.80gb, a filler pod holding the node's allocatable) and 32-63
-virgin (every GPU a free 7g.80gb); 40 pending pods per 64 nodes over
-``BATCH_MIX["v5e"]``'s weights (SCALE_MIX), priority ``i % 3``.
+JAX's three TPU generations cut to the one H100 model the port knows
+and a v5e host an 8-GPU node, so its multi-host rows are NVLink blocks:
+the 4x4 a 2x8, the 8x8 an 8x8.  ``scale_plan_spec``: 16 NVLink domains
+of 64 8-GPU nodes at host indices 0-63; in each, nodes 0-31 full (every
+GPU a used 7g.80gb, a filler pod holding the node's allocatable) and
+32-63 virgin (every GPU a free 7g.80gb); 40 pending pods per 64 nodes
+over ``BATCH_MIX["v5e"]``'s weights (SCALE_MIX, the 4x4 row 2x8 block
+pods in pod groups of their own), priority ``i % 3``.
 ``scale_cycle_api``: the scale tier's converged fleet, every GPU carved
 to 1g.10gb x 7, SCALE_BOUND 1g.10gb pods bound round-robin and Running,
-and SCALE_RESIDENTS pending pods that never fit.
+and SCALE_RESIDENTS pending pods that never fit (bench_fleet.py's 8x8
+residents as 8x8 blocks).
 
 A cluster is described by a plain spec (``fleet_spec``), so a test can
 build the same cluster for the JAX package.  ``plan_summary`` reduces a
@@ -143,12 +154,19 @@ FULL_NODES = 16
 PENDING_PODS = 200
 POD_MIX = ((10, 8), (20, 6), (40, 4), (80, 2))   # (share GB, weight)
 MIG_POD_MIX = (("1g.10gb", 8), ("2g.20gb", 6), ("3g.40gb", 4),
-               ("7g.80gb", 2))                   # (profile, weight)
+               ("7g.80gb", 2), ("2x8", 2))       # (profile, weight)
+# bench_plan.py's 4x4 row: a pod of one 2x8 block shard, a gang of its own
+MIG_BLOCK = "2x8"
+# bench_plan.py's hosts, its full hosts and its ICI domains: 16 hosts
+# each, host indices 0-15
+MIG_NODES = 64
+MIG_FULL_NODES = 32
+MIG_HOSTS_PER_DOMAIN = 16
 
 # plan_digest(plan_summary(...)) of seed 0's fleet plan
 FLEET_DIGEST = "616e0e1d35e1feb696e6d51d9d41ad8c0edf68b6c7e05b9cd963f1ed97980bd2"
 # plan_digest(plan_summary(...)) of seed 0's MIG fleet plan
-MIG_FLEET_DIGEST = "980eab5231ae4a40855784e10b6053d44c6ab1323f418878854de910795d560b"
+MIG_FLEET_DIGEST = "1a5ddff9c84eb1fc854c63efc83d9c6fd51964f20324edba2eb2d6f09cf37778"
 
 
 def fleet_spec(seed: int = 0, nodes: int = NODES,
@@ -175,14 +193,25 @@ def domain_fleet_spec(seed: int = 0) -> dict:
     return spec
 
 
-def mig_fleet_spec(seed: int = 0, nodes: int = NODES,
-                   full_nodes: int = FULL_NODES,
+def mig_fleet_spec(seed: int = 0, nodes: int = MIG_NODES,
+                   full_nodes: int = MIG_FULL_NODES,
                    pending: int = PENDING_PODS) -> dict:
-    """The MIG fleet's spec: as ``fleet_spec``, each GPU holding one
-    7g.80gb, the ``pending`` entries {name, profile, qty, priority,
-    created}."""
-    return _spec(seed, C.MIG_KIND, "7g.80gb", "profile", MIG_POD_MIX, nodes,
+    """The MIG fleet's spec: as ``fleet_spec`` at ``bench_plan.py``'s
+    64 hosts, 32 of them full, each GPU holding one 7g.80gb, each node in
+    NVLink domain ``nvl-<i // 16>`` at host index ``i % 16`` (its
+    domains of 16 hosts), the ``pending``
+    entries {name, profile, qty, priority, created}; a MIG_BLOCK pod
+    carries ``gang`` ``gang-<i>``, a pod group of its own, as
+    ``bench_plan.py:183-184`` labels its 4x4 pods."""
+    spec = _spec(seed, C.MIG_KIND, "7g.80gb", "profile", MIG_POD_MIX, nodes,
                  full_nodes, pending)
+    for i, node in enumerate(spec["nodes"]):
+        node["domain"] = f"nvl-{i // MIG_HOSTS_PER_DOMAIN}"
+        node["host_index"] = i % MIG_HOSTS_PER_DOMAIN
+    for p in spec["pending"]:
+        if p["profile"] == MIG_BLOCK:
+            p["gang"] = f"gang-{p['name'].rsplit('-', 1)[1]}"
+    return spec
 
 
 def _spec(seed: int, kind: str, whole: str, key: str, mix, nodes: int,
@@ -247,12 +276,15 @@ def build_cluster(spec: dict, model: GpuModel = H100_80GB) -> ClusterState:
 
 
 def build_pending(spec: dict) -> list[Pod]:
-    """The pending pods: MPS shares (``gb``) or MIG instances
-    (``profile``)."""
+    """The pending pods: MPS shares (``gb``) or MIG instances or block
+    shards (``profile``), each in its pod group ``gang`` where one is
+    given."""
     out = []
     for p in spec["pending"]:
         kw = {"name": p["name"], "priority": p["priority"],
               "creation_timestamp": p["created"]}
+        if p.get("gang"):
+            kw["labels"] = {C.LABEL_POD_GROUP: p["gang"]}
         if "profile" in p:
             out.append(make_mig_pod(p["profile"], p["qty"], **kw))
         else:
@@ -288,6 +320,78 @@ def plan_summary(snapshot, pending: list[Pod], bound: set[str],
 def plan_digest(summary: dict) -> str:
     return hashlib.sha256(
         json.dumps(summary, sort_keys=True).encode()).hexdigest()
+
+
+def block_windows(records) -> list[list]:
+    """The group pass's carves in a plan's journal, from its (category,
+    subject, attrs) rows: [profile, domain, nodes] each."""
+    from nos_tpu_torch.obs import journal as J
+
+    return [[s, a["domain"], list(a["nodes"])] for c, s, a in records
+            if c == J.PLAN_BLOCK_CARVED]
+
+
+def block_plan_problems(spec: dict, windows: list, geometries: dict,
+                        placed: dict | None = None,
+                        lacking: dict | None = None) -> list[str]:
+    """What is wrong with a plan's NVLink blocks, independent of its
+    digest: each carved window (``block_windows``) lies in one domain at
+    host indices [i, i + N) with i % N == 0, no node is in two windows,
+    and the nodes whose planned ``geometries`` hold a block on GPU 0 are
+    exactly the windows' nodes.  With ``placed`` (node -> pod names) no
+    node holds two block pods (each of the fleets' block pods is a gang
+    of its own) and a block pod lies on a window's node; with ``lacking``
+    no block is lacking while a clean aligned window is left, a clean
+    node being one the spec left virgin, outside every window, with
+    nothing placed on it."""
+    from nos_tpu_torch.topology.profile import block_dims, is_block_profile
+    from nos_tpu_torch.topology.windows import aligned_index_windows
+
+    nodes = {n["name"]: n for n in spec["nodes"]}
+    block_pods = {p["name"]: p["profile"] for p in spec["pending"]
+                  if is_block_profile(p.get("profile", ""))}
+    problems: list[str] = []
+    members: dict[str, str] = {}
+    for profile, domain, names in windows:
+        hosts = block_dims(profile)[0]
+        index = [nodes[n].get("host_index") for n in names]
+        aligned = (len(names) == hosts and None not in index
+                   and index[0] % hosts == 0
+                   and index == list(range(index[0], index[0] + hosts)))
+        if not aligned or any(nodes[n].get("domain") != domain
+                              for n in names):
+            problems.append(f"{profile} over {names} is not an aligned "
+                            f"window of {domain}")
+        for n in names:
+            if n in members:
+                problems.append(f"{n} is in two windows")
+            members[n] = profile
+    carved = {name for name, gpus in geometries.items()
+              if any(is_block_profile(p) for g in gpus.values() for p in g)}
+    if carved != set(members):
+        problems.append(f"block members {sorted(carved ^ set(members))} "
+                        f"are not the carved windows'")
+    if placed is not None:
+        for name, pods in placed.items():
+            held = [p for p in pods if p in block_pods]
+            if len(held) > 1:
+                problems.append(f"{name} holds the gangs of {held}")
+            if held and name not in members:
+                problems.append(f"{held} lies on {name}, outside a window")
+    if placed is not None and lacking is not None:
+        for profile in sorted(p for p in lacking if is_block_profile(p)):
+            hosts = block_dims(profile)[0]
+            clean: dict[str, list[int]] = {}
+            for name, n in nodes.items():
+                if n.get("domain") and not n["bound"] \
+                        and name not in members and not placed.get(name):
+                    clean.setdefault(n["domain"], []).append(n["host_index"])
+            left = {d: w for d, ix in sorted(clean.items())
+                    if (w := aligned_index_windows(ix, hosts))}
+            if left:
+                problems.append(f"{lacking[profile]} {profile} lacking while "
+                                f"aligned windows are clean: {left}")
+    return problems
 
 
 # -- the quota fleet -------------------------------------------------------
@@ -1191,16 +1295,23 @@ SCALE_DOMAINS = 16
 SCALE_HOSTS_PER_DOMAIN = 64
 SCALE_PODS_PER_64_HOSTS = 40
 SCALE_MIX = (("1g.10gb", 8), ("2g.20gb", 6), ("3g.40gb", 4),
-             ("4g.40gb", 2), ("7g.80gb", 2))     # (profile, weight)
+             ("4g.40gb", 2), ("2x8", 2))         # (profile, weight)
 SCALE_BOUND = 8192
-SCALE_RESIDENTS = (("7g.80gb", 8), ("4g.40gb", 8), ("3g.40gb", 8))
+# (bench_fleet.py's generation, profile, count): its RESIDENT_PENDING,
+# eight a generation; v5e's and v6e's 8x8 (eight 8-chip hosts) an 8x8
+# block, v5p's 4x4x4 (sixteen 4-chip hosts, which no 8-GPU node's block
+# reproduces host for host) the 4g.40gb it was mapped to before blocks
+SCALE_RESIDENTS = (("v5e", "8x8", 8), ("v5p", "4g.40gb", 8),
+                   ("v6e", "8x8", 8))
 SCALE_SLICE = "1g.10gb"
 
 
 def scale_plan_spec(domains: int = SCALE_DOMAINS,
                     hosts: int = SCALE_HOSTS_PER_DOMAIN) -> dict:
     """``bench_fleet.py``'s plan fleet (``make_fleet_state``,
-    ``make_fleet_batch``) as a MIG spec in ``fleet_spec``'s format."""
+    ``make_fleet_batch``) as a MIG spec in ``fleet_spec``'s format; a
+    block pod (its 4x4 row) carries ``gang`` ``fleet-gang-<i>``, a pod
+    group of its own, as ``bench_fleet.py:166-170`` labels it."""
     nodes = []
     for d in range(domains):
         for h in range(hosts):
@@ -1223,6 +1334,8 @@ def scale_plan_spec(domains: int = SCALE_DOMAINS,
                     pods.append({"name": f"fleet-{i}", "profile": profile,
                                  "qty": 1, "priority": i % 3,
                                  "created": 0.0})
+                    if profile == MIG_BLOCK:
+                        pods[-1]["gang"] = f"fleet-gang-{i}"
     return {"nodes": nodes, "pending": pods}
 
 
@@ -1233,8 +1346,10 @@ def scale_cycle_api(nodes: int = SCALE_DOMAINS * SCALE_HOSTS_PER_DOMAIN,
     APIServer: ``nodes`` MIG nodes of 8 GPUs in NVLink domains of
     SCALE_HOSTS_PER_DOMAIN, each GPU carved to 1g.10gb x 7, ``bound``
     1g.10gb pods bound round-robin over the nodes (and over each node's
-    GPUs) and Running, then ``residents`` ((profile, count)) pending pods
-    no node advertises."""
+    GPUs) and Running, then ``residents`` ((generation, profile, count))
+    pending pods ``resident-<generation>-<k>`` no node advertises, with
+    no pod group (``bench_fleet.py:403-408``: so in both packages they
+    take the single-pod path)."""
     from nos_tpu_torch.kube.client import APIServer, KIND_NODE, KIND_POD
     from nos_tpu_torch.kube.objects import RUNNING
 
@@ -1260,10 +1375,10 @@ def scale_cycle_api(nodes: int = SCALE_DOMAINS * SCALE_HOSTS_PER_DOMAIN,
             api.create(KIND_POD, make_mig_pod(
                 SCALE_SLICE, 1, name=f"sf-{name}-{k}", node_name=name,
                 phase=RUNNING))
-    for profile, count in residents:
+    for gen, profile, count in residents:
         for k in range(count):
             api.create(KIND_POD, make_mig_pod(
-                profile, 1, name=f"resident-{profile}-{k}"))
+                profile, 1, name=f"resident-{gen}-{k}"))
     return api
 
 
@@ -1282,6 +1397,12 @@ DEFRAG_PAYBACK_MIN = 1.2
 DEFRAG_DRAIN_TIMEOUT_S = 30.0
 DEFRAG_NAMESPACE = "work"
 DEFRAG_DOMAIN = "nvl-0"
+# the scheduler's drain preemption after this many cycles of one lease,
+# sparing a job past DEFRAG_SPARE_PROGRESS, and a block shard charged the
+# stand-in node's GPUs (bench_defrag.py: 40, and its 8 chips a host)
+DEFRAG_DRAIN_AFTER_CYCLES = 40
+DEFRAG_SPARE_PROGRESS = 0.75
+DEFRAG_SHARD_GPUS = 1
 # the bench's gates: the frag halving, the churn bounds and the floor
 FRAG_HALVING_TARGET = 0.50
 MAX_MIGRATIONS_PER_JOB = 2
@@ -1293,19 +1414,29 @@ DEFRAG_UTIL_WINDOW_S = 5.0
 DEFRAG_ELASTIC_MIN, DEFRAG_ELASTIC_MAX = 2, 60
 DEFRAG_SPONGES = ("sponge-a", "sponge-b")
 DEFRAG_WHOLE, DEFRAG_HALF = "7g.80gb", "3g.40gb"
-# class -> (profile, priority, duration range s): the bench's 1x2 filler
-# and burst are 3g.40gb (the stand-in has no 1x2), its 2x4 big 7g.80gb
-DEFRAG_CLASSES = {"filler": (DEFRAG_HALF, 0, (120.0, 240.0)),
-                  "big": (DEFRAG_WHOLE, 5, (50.0, 90.0)),
-                  "burst": (DEFRAG_HALF, 10, (10.0, 20.0))}
+# the bench's 4x4 over two 8-chip hosts: an NVLink block of two one-GPU
+# nodes
+DEFRAG_BLOCK = "2x1"
+# class -> (profile, members, priority, duration range s), the bench's
+# CLASS_SPECS: its 1x2 filler and burst are 3g.40gb (the stand-in has no
+# 1x2), its 2x4 big 7g.80gb, its 2-host 4x4 gang a 2x1 block gang of two
+DEFRAG_CLASSES = {"filler": (DEFRAG_HALF, 1, 0, (120.0, 240.0)),
+                  "big": (DEFRAG_WHOLE, 1, 5, (50.0, 90.0)),
+                  "burst": (DEFRAG_HALF, 1, 10, (10.0, 20.0)),
+                  "gang": (DEFRAG_BLOCK, 2, 10, (60.0, 100.0))}
 # phase start -> {class: in-flight target}, the bench's, in its chip
-# equivalents (DEFRAG_UNITS); its 2-host gang class is cut
-DEFRAG_PHASES = ((0.0, {"filler": 150.0, "big": 0.0, "burst": 0.0}),
-                 (40.0, {"filler": 0.0, "big": 56.0, "burst": 0.0}),
-                 (190.0, {"filler": 0.0, "big": 40.0, "burst": 12.0}))
+# equivalents (DEFRAG_UNITS)
+DEFRAG_PHASES = ((0.0, {"filler": 150.0, "big": 0.0, "burst": 0.0,
+                        "gang": 0.0}),
+                 (40.0, {"filler": 0.0, "big": 56.0, "burst": 0.0,
+                         "gang": 0.0}),
+                 (190.0, {"filler": 0.0, "big": 40.0, "burst": 12.0,
+                          "gang": 16.0}))
 # the trace's unit, the bench's chip: a GPU (a host block) 8, a 3g.40gb
-# 4 (a 2x2); the targets and the utilisation are counted in it
-DEFRAG_UNITS = {DEFRAG_WHOLE: 8.0, DEFRAG_HALF: 4.0}
+# 4 (a 2x2), a block member its node's GPU, 8 (the bench's member owns
+# its host's 8 chips of the 4x4); the targets and the utilisation are
+# counted in it
+DEFRAG_UNITS = {DEFRAG_WHOLE: 8.0, DEFRAG_HALF: 4.0, DEFRAG_BLOCK: 8.0}
 # the journal's records the defrag fleet's summary keeps, and the
 # weighted figures it leaves out (each package weighs in its own unit)
 DEFRAG_RECORDS = ("defrag-proposed", "defrag-applied", "defrag-rejected",
@@ -1314,13 +1445,14 @@ DEFRAG_WEIGHED = ("unlocked_chips", "cost_chips")
 
 
 def defrag_standin() -> GpuModel:
-    """The H100 80GB restricted to {7g.80gb, 3g.40gb}, the MIG stand-in on
-    which the JAX package's v5e restricted to {2x4, 2x2} decides alike."""
+    """The H100 80GB restricted to {7g.80gb, 3g.40gb} and to blocks of two
+    nodes, the MIG stand-in on which the JAX package's v5e restricted to
+    {2x4, 2x2, 4x4} decides alike."""
     import dataclasses
 
     return dataclasses.replace(H100_80GB, mig_profiles=tuple(
         p for p in H100_80GB.mig_profiles
-        if p.name in (DEFRAG_WHOLE, DEFRAG_HALF)))
+        if p.name in (DEFRAG_WHOLE, DEFRAG_HALF)), block_node_counts=(2,))
 
 
 def defrag_fleet_spec(seed: int = 0) -> dict:
@@ -1359,6 +1491,12 @@ class _DefragTrace:
         # every pod a defrag proposal moved: (pod, its job's progress
         # then, its job's class)
         self.evictions: list[tuple[str, float, str]] = []
+        # every block gang bound: [job, time, its nodes, whether each of
+        # them was under the gang's lease a tick before]; every change of
+        # the gang lease: [time, its holders, its nodes]
+        self.gangs: list[list] = []
+        self.leases: dict[str, str] = {}
+        self.lease_log: list[list] = []
         self.cycle_ms: list[float] = []
         self.poll_ms: list[float] = []
         for n in spec["nodes"]:
@@ -1367,7 +1505,8 @@ class _DefragTrace:
             ops.create_group(name, DEFRAG_ELASTIC_MIN)
             job = {"name": name, "kind": "elastic", "pods": [],
                    "duration": 2 * DEFRAG_TRACE_S, "created": 0.0,
-                   "profile": DEFRAG_HALF, "priority": 0, "bound_at": None}
+                   "profile": DEFRAG_HALF, "members": DEFRAG_ELASTIC_MIN,
+                   "priority": 0, "bound_at": None}
             for i in range(DEFRAG_ELASTIC_MIN):
                 pod = f"{name}-{i}"
                 self.create(job, pod)
@@ -1383,7 +1522,7 @@ class _DefragTrace:
         self.ops.create_pod({
             "name": pod, "profile": job["profile"],
             "priority": job["priority"], "created": job["created"],
-            "gang": job["name"] if elastic else "",
+            "gang": job["name"] if job["members"] > 1 else "",
             "elastic": (DEFRAG_ELASTIC_MIN, DEFRAG_ELASTIC_MAX)
             if elastic else None})
 
@@ -1415,17 +1554,23 @@ class _DefragTrace:
                 footprint[cls] += self.spawn_job(cls)
 
     def spawn_job(self, cls: str) -> float:
-        profile, priority, (lo, hi) = DEFRAG_CLASSES[cls]
+        """One job of ``cls``: a gang's PodGroup first, then its members,
+        as the bench spawns them."""
+        profile, members, priority, (lo, hi) = DEFRAG_CLASSES[cls]
         self.seq += 1
         name = f"{cls}-{self.seq}"
-        job = {"name": name, "kind": cls, "pods": [f"{name}-0"],
+        job = {"name": name, "kind": cls,
+               "pods": [f"{name}-{i}" for i in range(members)],
                "duration": float(self.rng.uniform(lo, hi)),
                "created": self.now(), "profile": profile,
-               "priority": priority, "bound_at": None}
-        self.create(job, job["pods"][0])
-        self.pod_job[job["pods"][0]] = job
+               "members": members, "priority": priority, "bound_at": None}
+        if members > 1:
+            self.ops.create_group(name, members)
+        for pod in job["pods"]:
+            self.create(job, pod)
+            self.pod_job[pod] = job
         self.jobs[name] = job
-        return DEFRAG_UNITS[profile]
+        return DEFRAG_UNITS[profile] * members
 
     def complete(self) -> None:
         for job in list(self.jobs.values()):
@@ -1438,7 +1583,7 @@ class _DefragTrace:
             for name in sorted(doomed):
                 self.ops.delete_pod(name)
                 self.pod_job.pop(name, None)
-            if job["kind"] == "elastic":
+            if job["members"] > 1:
                 self.ops.delete_group(job["name"])
             del self.jobs[job["name"]]
             self.completed += 1
@@ -1473,13 +1618,24 @@ class _DefragTrace:
         rows = self.ops.pods()
         bound = {name for name, node, phase, _ in rows
                  if node and phase == "Running"}
+        now = {name: node for name, node, _, _ in rows}
         for job in self.jobs.values():
             if job["bound_at"] is None and all(n in bound
                                                for n in job["pods"]):
                 job["bound_at"] = self.now()
                 if job["kind"] != "elastic":
                     self.latencies.append(self.now() - job["created"])
-        now = {name: node for name, node, _, _ in rows}
+                if job["kind"] != "elastic" and job["members"] > 1:
+                    nodes = sorted(now[n] for n in job["pods"])
+                    lease = f"{DEFRAG_NAMESPACE}/{job['name']}"
+                    self.gangs.append([
+                        job["name"], self.now(), nodes,
+                        [self.leases.get(n) == lease for n in nodes]])
+        leases = self.ops.leases()
+        if leases != self.leases:
+            self.lease_log.append([self.now(), sorted(set(leases.values())),
+                                   sorted(leases)])
+        self.leases = leases
         binds = sorted(n for n, node in now.items()
                        if node and not self.prev.get(n))
         gone = sorted(set(self.prev) - set(now))
@@ -1547,6 +1703,8 @@ class _DefragTrace:
             "completed": self.completed,
             "latencies": self.latencies,
             "utilization": self.util,
+            "gangs": self.gangs,
+            "leases": self.lease_log,
         }
         return {
             "summary": summary,
@@ -1566,6 +1724,8 @@ class _DefragTrace:
                                  if self.util else 0.0),
             "jobs_completed": self.completed,
             "jobs_bound": len(self.latencies),
+            "gangs_bound": self.gangs,
+            "lease_log": self.lease_log,
             "cycle_ms": self.cycle_ms, "poll_ms": self.poll_ms,
             "ticks": len(self.poll_ms),
         }
@@ -1579,11 +1739,13 @@ def drive_defrag_fleet(spec: dict, ops) -> dict:
     priority, created, gang, elastic (min, max) or None),
     ``delete_pod(name)``, ``cycle()`` (the scheduler), ``poll()`` (the
     controller, the defragmenter inside it), ``tick()`` (every agent),
-    ``pods()`` ((name, node, phase, gang) rows) and ``records()`` (the
-    DEFRAG_RECORDS as (category, subject, attrs), in the port's names).
-    ``ops`` is built with ``progress`` (pod name -> the trace's restart
-    cost signal) as its defragmenter's progress function.  Returns the
-    summary both packages must agree on and the run's figures."""
+    ``pods()`` ((name, node, phase, gang) rows), ``leases()`` (node ->
+    its gang lease, "<namespace>/<gang>", where one is set) and
+    ``records()`` (the DEFRAG_RECORDS as (category, subject, attrs), in
+    the port's names).  ``ops`` is built with ``progress`` (pod name ->
+    the trace's restart cost signal) as its defragmenter's and its drain
+    preemption's progress function.  Returns the summary both packages
+    must agree on and the run's figures."""
     return _DefragTrace(spec, ops).run()
 
 
@@ -1596,7 +1758,9 @@ class PortDefragOps:
     grow pass on with ``grow``), all on one virtual clock.  It times each
     plan cycle (``plan_ms``, the controller's plan and actuation, the
     defragmenter's step left out) and each defragmenter step
-    (``defrag_ms``) on the host's counter."""
+    (``defrag_ms``) on the host's counter.  The scheduler drains a
+    leased window after DEFRAG_DRAIN_AFTER_CYCLES with the trace's
+    ``progress`` and charges a block shard DEFRAG_SHARD_GPUS."""
 
     def __init__(self, progress, defrag: bool = True,
                  payback_min: float = DEFRAG_PAYBACK_MIN,
@@ -1631,7 +1795,12 @@ class PortDefragOps:
         self.controller.bind()
         self.sched = build_scheduler(
             self.api, elastic_grow_budget_per_cycle=1 if grow else 0,
-            clock=clock)
+            clock=clock,
+            drain_preempt_after_cycles=DEFRAG_DRAIN_AFTER_CYCLES,
+            drain_preempt_spare_progress=DEFRAG_SPARE_PROGRESS,
+            drain_preempt_progress_fn=lambda pod: progress(
+                pod.metadata.name),
+            shard_chips_per_host=DEFRAG_SHARD_GPUS)
         self._agents: dict = {}
         self.plan_ms: list[float] = []
         self.defrag_ms: list[float] = []
@@ -1721,6 +1890,11 @@ class PortDefragOps:
                        p.metadata.labels.get(C.LABEL_POD_GROUP, ""))
                       for p in self.api.list("Pod"))
 
+    def leases(self) -> dict[str, str]:
+        return {n.metadata.name: n.metadata.annotations[C.ANNOT_GANG_LEASE]
+                for n in self.api.list("Node")
+                if n.metadata.annotations.get(C.ANNOT_GANG_LEASE)}
+
     def records(self) -> list:
         return [[r.category, r.subject, dict(sorted(r.attrs.items()))]
                 for r in self.journal.events()
@@ -1770,7 +1944,8 @@ def run_defrag_fleet(spec: dict) -> dict:
         "frag_stranded", 0.0)
     out["baseline"] = {k: base[k] for k in (
         "waste", "utilization_min", "utilization_mean", "jobs_completed",
-        "jobs_bound", "cycle_ms", "poll_ms", "plan_ms")}
+        "jobs_bound", "gangs_bound", "lease_log", "cycle_ms", "poll_ms",
+        "plan_ms")}
     out["propose_only"] = {k: only[k] for k in (
         "proposed", "applied", "rejected", "cycle_ms", "poll_ms", "plan_ms",
         "defrag_ms")}

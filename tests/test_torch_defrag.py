@@ -23,8 +23,11 @@ weighting only there (``jax_weighs_as_the_port``).
 - ``aligned_index_windows`` against JAX's on hypothesis-drawn index
   sets and sizes, and the snapshot fork the what-if takes, reverted on
   every path;
-- the defrag fleet (``testing/fleet.py``) on both packages to
-  ``DEFRAG_FLEET_DIGEST`` and ``DEFRAG_FLEET_WASTE_DIGEST``.
+- the defrag fleet (``testing/fleet.py``), bench_defrag.py's 2-host
+  gang class in it as 2x1 block gangs under drain preemption, on both
+  packages to ``DEFRAG_FLEET_DIGEST`` and ``DEFRAG_FLEET_WASTE_DIGEST``:
+  the JAX side on the stand-in with the 4x4 (``JAX_FLEET_REG``), weighed
+  as the port throughout (``jax_fleet_weighs_as_the_port``).
 """
 
 from __future__ import annotations
@@ -66,6 +69,9 @@ from test_torch_slicepart import (
     HALF, JAX_GEN, JAX_REG, PORT_REG, STANDIN, TO_JAX, WHOLE,
 )
 
+# the stand-in's shapes in the port's sevenths of a GPU: a 2x4 a GPU, a
+# 2x2 a 3g.40gb, a 4x4 the defrag fleet's 2x1 block of two one-GPU nodes
+FLEET_SEVENTHS = {"2x4": 7, "2x2": 3, "4x4": 14}
 DEFRAG_RECORDS = (port_journal.DEFRAG_PROPOSED, port_journal.DEFRAG_APPLIED,
                   port_journal.DEFRAG_REJECTED, port_journal.GANG_RESIZED)
 # the capacity figures each package gives in its own weighting
@@ -118,7 +124,7 @@ def _subject(pk, value):
     if value.startswith(f"dfrg-{pk.kind}-"):
         return f"dfrg-{C.MIG_KIND}-" + value.rsplit("-", 1)[1]
     if pk.jax:
-        for shape, profile in (("2x4", WHOLE), ("2x2", HALF)):
+        for shape, profile in (("2x4", WHOLE), ("2x2", HALF), ("4x4", "2x1")):
             value = value.replace(shape, profile)
     return value
 
@@ -372,7 +378,7 @@ class _Weighted:
 
     def __init__(self, shape) -> None:
         self.shape = shape
-        self.chips = {"2x4": 7, "2x2": 3}[shape.name]
+        self.chips = FLEET_SEVENTHS[shape.name]
 
     def __hash__(self) -> int:
         return hash(self.shape)
@@ -397,11 +403,23 @@ def jax_weighs_as_the_port(monkeypatch) -> None:
         shape = shape_from_resource(resource)
         return None if shape is None else _Weighted(shape)
 
+    # a window's hosts come from the shape's own chips, not its weight:
+    # _hosts_needed once more, over the module's names with the
+    # unweighted requests in them
+    hosts_needed = jax_defrag.DefragProposer._hosts_needed
+    unweighed_hosts_needed = types.FunctionType(
+        hosts_needed.__code__,
+        vars(jax_defrag) | {"extract_slice_requests": extract_slice_requests},
+        hosts_needed.__name__, hosts_needed.__defaults__,
+        hosts_needed.__closure__)
+
     monkeypatch.setattr(jax_defrag, "extract_slice_requests",
                         weighed_requests)
     monkeypatch.setattr(jax_defrag, "_shape_of", weighed_shape)
     monkeypatch.setattr(jax_defrag, "MOVE_OVERHEAD_CHIPS",
                         port_defrag.MOVE_OVERHEAD_SEVENTHS)
+    monkeypatch.setattr(jax_defrag.DefragProposer, "_hosts_needed",
+                        unweighed_hosts_needed)
 
 
 class TestWeighting:
@@ -739,38 +757,125 @@ class TestRelocatableReverts:
 # ---------------------------------------------------------------------------
 
 
+def _fleet_registry():
+    """The JAX stand-in of the defrag fleet: v5e restricted to {2x2, 2x4}
+    and the 4x4 over two hosts, whose block the port's stand-in offers
+    as 2x1 (``fleet.defrag_standin``)."""
+    import json
+    import tempfile
+
+    from nos_tpu.topology.known import TopologyRegistry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/jax.json"
+        with open(path, "w") as f:
+            json.dump({"tpu-v5e": {"slice_shapes": ["2x2", "2x4", "4x4"]}},
+                      f)
+        reg = TopologyRegistry()
+        reg.load_overrides(path)
+    return reg
+
+
+JAX_FLEET_REG = _fleet_registry()
+JAX_FLEET_GEN = JAX_FLEET_REG.get("tpu-v5e")
+# the fleet's profiles as the JAX stand-in's shapes
+FLEET_TO_JAX = {**TO_JAX, "2x1": "4x4"}
+# a host block's chips on the JAX side, which the chip-count label (the
+# port's GPU count, 1) does not carry
+JAX_CHIPS_PER_HOST = 8
+
+
+def _port_fleet_resource(resource: str) -> str:
+    """A JAX resource of the defrag fleet under the port's name."""
+    from nos_tpu.topology.profile import shape_from_resource
+
+    from nos_tpu_torch.topology.profile import slice_resource_name
+
+    shape = shape_from_resource(resource)
+    if shape is not None:
+        return slice_resource_name(
+            {v: k for k, v in FLEET_TO_JAX.items()}[shape.name])
+    if resource == JC.RESOURCE_TPU:
+        return C.RESOURCE_GPU
+    return resource
+
+
 def _jax_weighed_chip_equiv(request, chips_per_host, hbm_gb_per_chip):
     """JAX's ledger currency as the port's: a slice shape its profile's
-    g/7 of a GPU (the port's ``pod_chip_equiv`` on the mapped request)."""
-    from test_torch_slicepart import port_resource
-
+    g/7 of a GPU, a 4x4 member its node's GPU (the port's
+    ``pod_chip_equiv`` on the mapped request)."""
     return port_ledger.pod_chip_equiv(
-        {port_resource(r): q for r, q in request.items()},
+        {_port_fleet_resource(r): q for r, q in request.items()},
         chips_per_host, 0.0)
+
+
+def _jax_fleet_sevenths(resources) -> float:
+    """JAX's ``free_chip_equivalents`` as the port's ``gpu_sevenths``: a
+    shape its profile's sevenths, a host block's 8 chips one GPU."""
+    from nos_tpu.topology.profile import shape_from_resource
+
+    total = 0.0
+    for res, qty in resources.items():
+        if qty <= 0:
+            continue
+        shape = shape_from_resource(res)
+        if shape is not None:
+            total += FLEET_SEVENTHS[shape.name] * qty
+        elif res == JC.RESOURCE_TPU:
+            total += 7 * qty / JAX_CHIPS_PER_HOST
+    return total
+
+
+def _jax_pool_sevenths(self) -> tuple[float, float, bool]:
+    """JAX SliceNode.pool_free with the port's weighting, the fleet's
+    4x4 block too (``_jax_fleet_sevenths``)."""
+    ni = self.node_info()
+    free = {res: aq - ni.requested.get(res, 0.0)
+            for res, aq in ni.allocatable.items()}
+    has_free = any(q > 0 for q in free.values())
+    return _jax_fleet_sevenths(free), 0.0, has_free
 
 
 def jax_fleet_weighs_as_the_port(monkeypatch) -> None:
     """The JAX package's loop weighed as the port's throughout the fleet:
-    the defragmenter (``jax_weighs_as_the_port``), the planner's
-    candidate order (``_jax_sevenths``) and the waste ledger's currency
-    (a node one GPU, a shape its profile's GPUs)."""
+    the defragmenter (``jax_weighs_as_the_port``, a host's cap 7
+    sevenths, one GPU), the planner's candidate order (``pool_free``),
+    the scheduler's lease choice and drain busy share
+    (``free_chip_equivalents``) and the waste ledger's currency (a node
+    one GPU, a shape its profile's GPUs)."""
     import nos_tpu.partitioning.slicepart.node as jax_sp_node
-
-    from test_torch_slicepart import _jax_sevenths
+    import nos_tpu.topology.profile as jax_profile
 
     jax_weighs_as_the_port(monkeypatch)
-    monkeypatch.setattr(jax_sp_node.SliceNode, "pool_free", _jax_sevenths)
+    monkeypatch.setattr(jax_defrag.DefragProposer, "_chips_per_host",
+                        lambda self, labels: float(port_defrag.SEVENTHS))
+    monkeypatch.setattr(jax_defrag.DefragProposer, "_max_chips_per_host",
+                        float(port_defrag.SEVENTHS))
+    monkeypatch.setattr(jax_sp_node.SliceNode, "pool_free",
+                        _jax_pool_sevenths)
+    monkeypatch.setattr(jax_profile, "free_chip_equivalents",
+                        _jax_fleet_sevenths)
     monkeypatch.setattr(jax_ledger, "pod_chip_equiv",
                         _jax_weighed_chip_equiv)
 
 
 class JaxDefragOps:
     """``fleet.PortDefragOps`` on the JAX package: the stand-in v5e
-    (its snapshot taker and initializer on ``JAX_REG``), the slice
-    partitioner controller from its factory, a SliceAgent over
-    ``FakeTpuRuntime`` a node and ``build_scheduler``; each node in TPU
-    pod ``nvl-0`` at its host index with a chip count of 1 (the port's
-    GPU count, which the ledger reads)."""
+    (its snapshot taker, initializer and fake runtime on
+    ``JAX_FLEET_REG``), the slice partitioner controller from its
+    factory, a SliceAgent over ``FakeTpuRuntime`` a node and
+    ``build_scheduler`` at the port's knobs; each node in TPU pod
+    ``nvl-0`` at its host index with a chip count of 1 (the port's GPU
+    count, which the ledger and the drain's capacity read).
+
+    The drain's busy share: JAX sums the stragglers'
+    ``free_chip_equivalents`` (here the port's sevenths) against the
+    chip-count labels (1 a node), the port sums sevenths against 7 a
+    GPU, so JAX's fraction is the port's times 7 and the same stragglers
+    pass.  A block shard's quota charge: JAX's ``shard_chips_per_host``
+    counts the host block's 8 chips, the port's its node's one GPU
+    (``fleet.DEFRAG_SHARD_GPUS``); the fleet has no quota, so neither
+    decides anything here."""
 
     def __init__(self, monkeypatch, progress, defrag=True,
                  payback_min=None, grow=True) -> None:
@@ -782,7 +887,7 @@ class JaxDefragOps:
         from nos_tpu_torch.testing import fleet
 
         monkeypatch.setattr(jax_sp_factory, "SliceSnapshotTaker",
-                            lambda: jax_sp.SliceSnapshotTaker(JAX_REG))
+                            lambda: jax_sp.SliceSnapshotTaker(JAX_FLEET_REG))
         self.now = [0.0]
         clock = lambda: self.now[0]  # noqa: E731
         self.journal = jax_journal.DecisionJournal(maxlen=1 << 19,
@@ -790,7 +895,7 @@ class JaxDefragOps:
         self.api = JaxAPIServer()
         state = JaxClusterState()
         NodeController(self.api, state, jax_sp.SliceNodeInitializer(
-            self.api, JAX_REG)).bind()
+            self.api, JAX_FLEET_REG)).bind()
         PodController(self.api, state).bind()
         self.controller = jax_sp_factory.new_slice_partitioner_controller(
             self.api, state, batch_timeout_s=fleet.DEFRAG_BATCH_TIMEOUT_S,
@@ -802,9 +907,15 @@ class JaxDefragOps:
             defrag_progress_fn=lambda pod: progress(pod.metadata.name),
             clock=clock)
         self.controller.bind()
-        self.sched = jbuild(self.api,
-                            elastic_grow_budget_per_cycle=1 if grow else 0,
-                            clock=clock)
+        self.sched = jbuild(
+            self.api, elastic_grow_budget_per_cycle=1 if grow else 0,
+            clock=clock,
+            drain_preempt_after_cycles=fleet.DEFRAG_DRAIN_AFTER_CYCLES,
+            drain_preempt_max_busy_fraction=0.25 * port_defrag.SEVENTHS,
+            drain_preempt_spare_progress=fleet.DEFRAG_SPARE_PROGRESS,
+            drain_preempt_progress_fn=lambda pod: progress(
+                pod.metadata.name),
+            shard_chips_per_host=JAX_CHIPS_PER_HOST)
         self._agents: dict = {}
 
     def add_node(self, n: dict) -> None:
@@ -812,11 +923,11 @@ class JaxDefragOps:
         from nos_tpu.device.fake import FakePodResources, FakeTpuRuntime
 
         self.api.create("Node", jax_factory.make_tpu_node(
-            n["name"], generation=JAX_GEN, pod_id="nvl-0",
+            n["name"], generation=JAX_FLEET_GEN, pod_id="nvl-0",
             host_index=n["host_index"],
             extra_labels={JC.LABEL_CHIP_COUNT: "1"}))
-        agent = SliceAgent(self.api, n["name"], FakeTpuRuntime(JAX_GEN),
-                           FakePodResources())
+        agent = SliceAgent(self.api, n["name"],
+                           FakeTpuRuntime(JAX_FLEET_GEN), FakePodResources())
         agent.start()
         self._agents[n["name"]] = agent
 
@@ -845,7 +956,7 @@ class JaxDefragOps:
                       JC.ANNOT_MIN_REPLICAS: str(lo),
                       JC.ANNOT_MAX_REPLICAS: str(hi)}
         self.api.create("Pod", jax_factory.make_slice_pod(
-            TO_JAX[p["profile"]], 1, name=p["name"], namespace="work",
+            FLEET_TO_JAX[p["profile"]], 1, name=p["name"], namespace="work",
             priority=p["priority"], creation_timestamp=p["created"],
             labels=labels, annotations=annots))
 
@@ -871,6 +982,11 @@ class JaxDefragOps:
         return sorted((p.metadata.name, p.spec.node_name, p.status.phase,
                        p.metadata.labels.get(JC.LABEL_POD_GROUP, ""))
                       for p in self.api.list("Pod"))
+
+    def leases(self) -> dict:
+        return {n.metadata.name: n.metadata.annotations[JC.ANNOT_GANG_LEASE]
+                for n in self.api.list("Node")
+                if n.metadata.annotations.get(JC.ANNOT_GANG_LEASE)}
 
     def records(self) -> list:
         from nos_tpu_torch.testing import fleet
@@ -900,68 +1016,128 @@ def jax_defrag_run(monkeypatch, spec, **kw) -> dict:
     return out
 
 
+@pytest.fixture(scope="module")
+def fleet_runs():
+    """The smoke's defrag fleet line on the port (defrag and grow on, the
+    baseline and propose-only, with every gate the smoke holds), the
+    port's baseline run, and the JAX package's runs of the same trace
+    with defrag on and off, weighed as the port."""
+    import chip_smoke
+
+    from nos_tpu_torch.testing import fleet
+
+    spec = fleet.defrag_fleet_spec(0)
+    out = {"spec": spec, "line": chip_smoke._defrag_fleet_runs(runs=1),
+           "base": fleet._defrag_run(spec, defrag=False, grow=False)}
+    with pytest.MonkeyPatch.context() as mp:
+        out["on"] = jax_defrag_run(mp, spec)
+    with pytest.MonkeyPatch.context() as mp:
+        out["off"] = jax_defrag_run(mp, spec, defrag=False, grow=False)
+    return out
+
+
 class TestDefragFleet:
-    def test_the_fleet_runs_as_jax_to_the_pinned_digests(self, monkeypatch):
-        """The smoke's fleet line on the port (defrag and grow on, the
-        baseline and propose-only, with every gate the smoke holds)
-        against the JAX package's runs of the same trace, weighed as the
-        port: the same summary and waterfall with defrag on and off, both
-        pinned; the halving gate held as JAX's runs meet it or not."""
+    """The defrag fleet on both packages, bench_defrag.py's 2-host gang
+    class in it as 2x1 block gangs under drain preemption: the same
+    summary and waterfall with defrag on and off, both pinned."""
+
+    def test_the_port_runs_to_the_pinned_digests(self, fleet_runs):
         import chip_smoke
 
-        from nos_tpu_torch.testing import fleet
-
-        spec = fleet.defrag_fleet_spec(0)
-        line = chip_smoke._defrag_fleet_runs(runs=1)
+        line = fleet_runs["line"]
         assert line["digest"] == chip_smoke.DEFRAG_FLEET_DIGEST
         assert line["journal_identical"]
         assert line["proposals"]["applied"] >= 1
         assert line["grows"] >= 1 and line["shrinks"] >= 1
-        on = jax_defrag_run(monkeypatch, spec)
+
+    def test_the_fleet_runs_as_jax_to_the_pinned_digests(self, fleet_runs):
+        import chip_smoke
+
+        from nos_tpu_torch.testing import fleet
+
+        on = fleet_runs["on"]
         assert fleet.plan_digest(on["summary"]) == \
             chip_smoke.DEFRAG_FLEET_DIGEST
         assert fleet.plan_digest(fleet.waste_summary(on["waste"])) == \
             chip_smoke.DEFRAG_FLEET_WASTE_DIGEST
         assert jax_ledger.conservation_ok(on["waste"])
-        off = jax_defrag_run(monkeypatch, spec, defrag=False, grow=False)
-        base = fleet._defrag_run(spec, defrag=False, grow=False)
+
+    def test_the_baseline_is_jax_s(self, fleet_runs):
+        from nos_tpu_torch.testing import fleet
+
+        off, base = fleet_runs["off"], fleet_runs["base"]
         assert off["summary"] == base["summary"]
         assert fleet.waste_summary(off["waste"]) == \
             fleet.waste_summary(base["waste"])
+
+    def test_the_gates_are_held_as_jax_meets_them(self, fleet_runs):
+        """The frag halving, pinned as JAX's runs meet it, and the
+        utilisation floor, at 0.95 or JAX's own floor under it; the
+        smoke's figures are JAX's."""
+        import chip_smoke
+
+        from nos_tpu_torch.testing import fleet
+
+        on, off, line = fleet_runs["on"], fleet_runs["off"], \
+            fleet_runs["line"]
         frag = on["waste"]["fleet"]["chip_seconds"]["frag_stranded"]
         base_frag = off["waste"]["fleet"]["chip_seconds"]["frag_stranded"]
         assert (frag <= fleet.FRAG_HALVING_TARGET * base_frag) == \
             chip_smoke.DEFRAG_FRAG_HALVING_MET
+        assert chip_smoke.DEFRAG_UTILIZATION_FLOOR == min(
+            fleet.UTILIZATION_MIN_TARGET, on["utilization_min"])
         assert line["frag_stranded_gpu_s"] == frag
         assert line["frag_stranded_gpu_s_baseline"] == base_frag
+        assert line["utilization_min"] == on["utilization_min"]
+
+    def test_the_gang_class_runs_alike(self, fleet_runs):
+        """Both packages lease windows for the same gangs at the same
+        ticks, drain the same GPU-seconds, and bind the same gangs: none
+        with defrag and grow on (the grow pass refills each window the
+        drain and the defragmenter empty before a plan can carve it, in
+        the JAX package's own bench too), and in the baseline a gang
+        whole on the aligned window it held the lease on."""
+        on, off, line = fleet_runs["on"], fleet_runs["off"], \
+            fleet_runs["line"]
+        gangs = line["gang_class"]
+        assert gangs["bound"] == on["gangs_bound"] == []
+        assert gangs["bound_baseline"] == off["gangs_bound"]
+        assert gangs["drain_gpu_s"] == \
+            on["waste"]["fleet"]["chip_seconds"]["drain"] > 0.0
+        assert gangs["lease_changes_to_a_gang"] == sum(
+            any(h.startswith("work/gang-") for h in holders)
+            for _, holders, _ in on["lease_log"]) > 0
+        first = off["gangs_bound"][0]
+        assert first[2] == ["host-12", "host-13"] and first[3] == [True,
+                                                                   True]
 
     def test_the_spec_keeps_the_bench_s_mix(self):
         """24 one-GPU nodes of the stand-in in one domain; the bench's
-        phases, targets and durations; its 2-host gang class cut."""
+        phases, targets and durations, its classes all four: the 4x4
+        gang of two members a 2x1 block gang, weighing its member's 8
+        chips; the scheduler at its drain and shard knobs."""
         from nos_tpu_torch.testing import fleet
 
         import bench_defrag
 
         spec = fleet.defrag_fleet_spec(0)
         assert len(spec["nodes"]) == bench_defrag.HOSTS
-        assert [t for t, _ in fleet.DEFRAG_PHASES] == \
-            [t for t, _ in bench_defrag.PHASES]
-        for (_, ours), (_, theirs) in zip(fleet.DEFRAG_PHASES,
-                                          bench_defrag.PHASES):
-            assert ours == {k: v for k, v in theirs.items() if k != "gang"}
+        assert list(fleet.DEFRAG_PHASES) == [
+            (t, dict(targets)) for t, targets in bench_defrag.PHASES]
         # the bench's 1x2 is a 2x2 on the stand-in: a 3g.40gb, 4 chips
-        mapped = {"1x2": fleet.DEFRAG_HALF, "2x4": fleet.DEFRAG_WHOLE}
-        for cls, (profile, priority, durations) in \
+        mapped = {"1x2": fleet.DEFRAG_HALF, "2x4": fleet.DEFRAG_WHOLE,
+                  "4x4": fleet.DEFRAG_BLOCK}
+        assert set(fleet.DEFRAG_CLASSES) == set(bench_defrag.CLASS_SPECS)
+        for cls, (profile, members, priority, durations) in \
                 fleet.DEFRAG_CLASSES.items():
-            shapes, members, jpriority, jdurations = \
+            shapes, jmembers, jpriority, jdurations = \
                 bench_defrag.CLASS_SPECS[cls]
-            assert members == 1 and priority == jpriority
-            assert durations == jdurations
+            assert (members, priority, durations) == \
+                (jmembers, jpriority, jdurations)
             assert profile == mapped[shapes[0]]
-        assert set(bench_defrag.CLASS_SPECS) - set(fleet.DEFRAG_CLASSES) \
-            == {"gang"}
         assert fleet.DEFRAG_UNITS == {fleet.DEFRAG_WHOLE: 8.0,
-                                      fleet.DEFRAG_HALF: 4.0}
+                                      fleet.DEFRAG_HALF: 4.0,
+                                      fleet.DEFRAG_BLOCK: 8.0}
         assert (fleet.DEFRAG_ELASTIC_MIN, fleet.DEFRAG_ELASTIC_MAX) == \
             (bench_defrag.ELASTIC_MIN, bench_defrag.ELASTIC_MAX)
         assert fleet.DEFRAG_SPONGES == bench_defrag.SPONGES
@@ -971,6 +1147,88 @@ class TestDefragFleet:
             bench_defrag.DEFRAG_DRAIN_TIMEOUT_S)
         assert fleet.defrag_standin().profile_names() == ["3g.40gb",
                                                           "7g.80gb"]
+        assert fleet.defrag_standin().block_node_counts == (2,)
+        assert fleet.DEFRAG_DRAIN_AFTER_CYCLES == 40
+
+    def test_the_stand_ins_offer_one_block_alike(self):
+        """The JAX stand-in's one multi-host shape, 4x4 over two 8-chip
+        hosts, is the port stand-in's one block, two one-GPU nodes."""
+        from nos_tpu_torch.testing import fleet
+
+        standin = fleet.defrag_standin()
+        assert [s.name for s in JAX_FLEET_GEN.multihost_shapes()] == ["4x4"]
+        assert [JAX_FLEET_GEN.hosts_for(s)
+                for s in JAX_FLEET_GEN.multihost_shapes()] == \
+            list(standin.block_node_counts)
+        assert standin.offers_block(fleet.DEFRAG_BLOCK)
+        assert FLEET_TO_JAX[fleet.DEFRAG_BLOCK] == "4x4"
+
+    def test_the_smoke_refuses_a_gang_class_that_did_not_run(self):
+        import chip_smoke
+
+        from nos_tpu_torch.testing import fleet
+
+        spec = fleet.defrag_fleet_spec(0)
+        out = {"lease_log": [[191.0, ["work/gang-54"], ["host-0", "host-1"]]],
+               "waste": {"fleet": {"chip_seconds": {"drain": 1.0}}},
+               "gangs_bound": [],
+               "baseline": {"gangs_bound": [
+                   ["gang-54", 206.0, ["host-12", "host-13"], [True, True]]]}}
+        assert chip_smoke._defrag_gang_gate(spec, out)["drain_gpu_s"] == 1.0
+        # a gang bound on a misaligned window, or off its lease, is not
+        # the class's
+        for bad in ([["gang-54", 206.0, ["host-13", "host-14"],
+                      [True, True]]],
+                    [["gang-54", 206.0, ["host-12", "host-13"],
+                      [True, False]]], []):
+            out["baseline"]["gangs_bound"] = bad
+            with pytest.raises(SystemExit, match="gang class did not run"):
+                chip_smoke._defrag_gang_gate(spec, out)
+
+    @staticmethod
+    def _pinned_run(monkeypatch, **fields):
+        """The smoke's defrag fleet on a stand-in run that meets the
+        digests, with ``fields`` over a run that passes every gate up to
+        the gang class's."""
+        import chip_smoke
+
+        from nos_tpu_torch.testing import fleet
+
+        waste = {"fleet": {"chip_seconds": {"frag_stranded": 1.0}}}
+        out = {"summary": {}, "waste": waste, "evictions": [],
+               "migrations_by_job_max": 0, "migrated_pods": 0,
+               "identical": True,
+               "utilization_min": chip_smoke.DEFRAG_UTILIZATION_FLOOR,
+               "baseline": {"waste": waste}} | fields
+        monkeypatch.setattr(fleet, "run_defrag_fleet", lambda spec: out)
+        monkeypatch.setattr(fleet, "plan_digest",
+                            lambda s: chip_smoke.DEFRAG_FLEET_DIGEST)
+        monkeypatch.setattr(chip_smoke, "_check_waste_digest",
+                            lambda *a: None)
+
+        def gate(spec, run):
+            raise AssertionError("past the gates")
+
+        monkeypatch.setattr(chip_smoke, "_defrag_gang_gate", gate)
+
+    def test_the_smoke_refuses_a_moved_gang_member(self, monkeypatch):
+        import chip_smoke
+
+        self._pinned_run(monkeypatch, evictions=[("gang-54-0", 0.1, "gang")])
+        with pytest.raises(SystemExit, match=r"moved gang-54-0 \(gang"):
+            chip_smoke._defrag_fleet_runs(runs=1)
+
+    def test_the_smoke_refuses_a_floor_under_jax_s(self, monkeypatch):
+        import chip_smoke
+
+        floor = chip_smoke.DEFRAG_UTILIZATION_FLOOR
+        self._pinned_run(monkeypatch, utilization_min=floor - 1e-6)
+        with pytest.raises(SystemExit, match="utilisation floor"):
+            chip_smoke._defrag_fleet_runs(runs=1)
+        # at JAX's floor the run passes on to the gang class's gate
+        self._pinned_run(monkeypatch, utilization_min=floor)
+        with pytest.raises(AssertionError, match="past the gates"):
+            chip_smoke._defrag_fleet_runs(runs=1)
 
     def test_the_smoke_refuses_another_digest(self, monkeypatch):
         import chip_smoke

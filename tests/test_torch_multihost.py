@@ -802,3 +802,269 @@ class TestBlockGrant:
             {"NOS_TPU_SLICE_IDS": "d"}
         assert block_allocate_envs(res, ["d"], ["MIG-x"]) == \
             {"NOS_TPU_SLICE_IDS": "d"}
+
+
+# ---------------------------------------------------------------------------
+# The group pass at fleet size: bench_plan's and bench_fleet's 4x4 rows
+# ---------------------------------------------------------------------------
+
+
+def _bench_layout(kind: str):
+    """The layout of a JAX bench's multi-host rows, under this file's
+    mapping: (node, domain, host index, full) rows, half of each domain's
+    hosts full and half virgin, and (pod, pod group, priority) for each
+    of the bench's 4x4 pods, named and labelled as the bench names and
+    labels them.  ``plan``: bench_plan.py's 64 hosts in 4 domains of 16
+    and its 200-pod mix; ``fleet``: bench_fleet.py's v5e pools (8 of 64
+    hosts, the v5e share of its 1024) and their part of its batch."""
+    import bench_fleet
+    import bench_plan
+
+    if kind == "plan":
+        per = bench_plan.HOSTS // bench_plan.DOMAINS
+        nodes = [(f"host-{i}", f"pod-{i // per}", i % per,
+                  i < bench_plan.FULL_HOSTS)
+                 for i in range(bench_plan.HOSTS)]
+        mix, want, name, group = (bench_plan.POD_MIX,
+                                  bench_plan.PENDING_PODS,
+                                  "pending-{}", "gang-{}")
+    else:
+        pools = dict((g, n) for _, g, n in bench_fleet.FLEET)["v5e"]
+        per = 1024 // bench_fleet.POOLS
+        nodes = [(f"v5e-{p}-h{h}", f"v5e-pod-{p}", h, h < per // 2)
+                 for p in range(pools) for h in range(per)]
+        mix, want, name, group = (bench_fleet.BATCH_MIX["v5e"],
+                                  40 * per * pools // 64,
+                                  "fleet-v5e-{}", "fleet-gang-{}")
+    rows = [s for s, w in mix for _ in range(w)]
+    pods = [(name.format(i), group.format(i), i % 3) for i in range(want)
+            if rows[i % len(rows)] == "4x4"]
+    return nodes, pods
+
+
+def _bench_nodes(kind: str):
+    """Each layout node on both packages with its filler where full:
+    (JAX node, JAX filler or None, port node, port filler or None)."""
+    from nos_tpu.kube.objects import RUNNING as JAX_RUNNING
+
+    out = []
+    for name, domain, index, full in _bench_layout(kind)[0]:
+        table = {"used" if full else "free": {"2x4": 1}}
+        jnode = jax_factory.make_tpu_node(name, pod_id=domain,
+                                          host_index=index,
+                                          status_geometry=table)
+        node = factory.make_gpu_node(name, gpus=8, partitioning=C.MIG_KIND,
+                                     domain=domain, host_index=index,
+                                     status_geometry=port_status(table))
+        jfill = fill = None
+        if full:
+            jfill = jax_factory.make_pod(
+                name=f"filler-{name}", node_name=name, phase=JAX_RUNNING,
+                resources=dict(jnode.status.allocatable))
+            fill = factory.make_pod(
+                name=f"filler-{name}", node_name=name, phase=RUNNING,
+                resources=dict(node.status.allocatable))
+        out.append((jnode, jfill, node, fill))
+    return out
+
+
+class _CarveLog:
+    """JAX's group pass logs its carves ("group pass: carved S across
+    [nodes]") where the port journals them: the log lines, as the
+    port's (block, nodes) rows."""
+
+    def __init__(self) -> None:
+        import logging
+
+        self.rows: list = []
+        self._logger = logging.getLogger(jax_group.__name__)
+        self._handler = logging.Handler()
+        self._handler.emit = self._emit
+        self._level = self._logger.level
+
+    def _emit(self, record) -> None:
+        if record.msg.startswith("group pass: carved"):
+            shape, nodes = record.args
+            self.rows.append((BLOCKS[shape], list(nodes)))
+
+    def __enter__(self) -> "_CarveLog":
+        import logging
+
+        self._logger.addHandler(self._handler)
+        self._logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+
+def _plan_both(kind: str, workers: int) -> dict:
+    """The layout's 4x4 rows planned by both packages' parallel planner
+    over the MultiHostGeometryPlanner at ``workers``: per package the
+    block windows carved ((block, nodes), sorted), the block members of
+    the desired state (node -> block), the committed nodes and the merge
+    record."""
+    import nos_tpu.partitioning.core as jax_core
+
+    from nos_tpu_torch.partitioning.core import ParallelGeometryPlanner
+
+    jstate, state = JaxClusterState(), ClusterState()
+    for jnode, jfill, node, fill in _bench_nodes(kind):
+        jstate.update_node(jnode, [jfill] if jfill else [])
+        state.update_node(node, [fill] if fill else [])
+    rows = _bench_layout(kind)[1]
+    jpods = [jax_factory.make_slice_pod(
+        "4x4", 1, name=n, labels={JC.LABEL_POD_GROUP: g}, priority=pr)
+        for n, g, pr in rows]
+    pods = [factory.make_pod(
+        name=n, resources=port_resources("4x4"),
+        labels={C.LABEL_POD_GROUP: g}, priority=pr) for n, g, pr in rows]
+    jplanner = jax_core.ParallelGeometryPlanner(
+        lambda: jax_group.MultiHostGeometryPlanner(
+            JaxFramework(), jax_sp.SliceProfileCalculator(),
+            jax_sp.SlicePartitionCalculator()),
+        jax_sp.SliceProfileCalculator(), kind="slice",
+        max_workers=workers, min_shard_hosts=0, clock=lambda: 0.0)
+    planner = ParallelGeometryPlanner(
+        lambda: group.MultiHostGeometryPlanner(
+            Framework(), sp.SliceProfileCalculator(),
+            sp.SlicePartitionCalculator()),
+        sp.SliceProfileCalculator(), kind=C.MIG_KIND, max_workers=workers,
+        min_shard_hosts=0, clock=lambda: 0.0)
+    jj = jax_journal.DecisionJournal(maxlen=1 << 16)
+    pj = journal.DecisionJournal(maxlen=1 << 16)
+    prev_j, prev_p = jax_journal.set_journal(jj), journal.set_journal(pj)
+    try:
+        with _CarveLog() as log:
+            jdesired = jplanner.plan(
+                jax_sp.SliceSnapshotTaker().take_snapshot(jstate), jpods)
+        desired = planner.plan(
+            sp.SliceSnapshotTaker().take_snapshot(state), pods)
+    finally:
+        jax_journal.set_journal(prev_j)
+        journal.set_journal(prev_p)
+        jplanner.close()
+        planner.close()
+
+    def members(state, jax: bool) -> dict:
+        out = {}
+        for name, np_ in state.items():
+            for u in np_.units:
+                for res in u.resources:
+                    key = res.rsplit("-", 1)[1]
+                    if jax and key in BLOCKS:
+                        out[name] = BLOCKS[key]
+                    elif not jax and P.is_block_profile(key):
+                        out[name] = key
+        return dict(sorted(out.items()))
+
+    def merged(records) -> list:
+        return [{k: v for k, v in r.attrs.items()
+                 if k not in ("wall_ms", "pools")}
+                for r in records if r.category == journal.PLAN_SHARD_MERGED]
+
+    carved = [(r.subject, list(r.attrs["nodes"])) for r in pj.events()
+              if r.category == journal.PLAN_BLOCK_CARVED]
+    return {
+        "jax": {"windows": sorted(log.rows),
+                "members": members(jdesired, True),
+                "committed": sorted(r.subject for r in jj.events()
+                                    if r.category == "plan-node-committed"),
+                "merged": merged(jj.events())},
+        "port": {"windows": sorted(carved),
+                 "members": members(desired, False),
+                 "committed": sorted(r.subject for r in pj.events()
+                                     if r.category == "plan-node-committed"),
+                 "merged": merged(pj.events())},
+        "domains": {r.subject + ":" + ",".join(r.attrs["nodes"]):
+                    r.attrs["domain"] for r in pj.events()
+                    if r.category == journal.PLAN_BLOCK_CARVED},
+        "pods": len(rows)}
+
+
+def _jax_text(value):
+    """A JAX string in the port's names: a slice resource of a multi-host
+    shape its block resource."""
+    if isinstance(value, dict):
+        return {_jax_text(k): _jax_text(v) for k, v in value.items()}
+    if not isinstance(value, str):
+        return value
+    for shape, block in BLOCKS.items():
+        value = value.replace(f"{JC.RESOURCE_SLICE_PREFIX}{shape}",
+                              P.slice_resource_name(block))
+    return value
+
+
+class TestGroupPassAtFleetSize:
+    """bench_plan.py's and bench_fleet.py's 4x4 rows alone on their
+    layouts, planned by both packages' group pass at 1 and 4 workers,
+    then a few scheduler cycles with bench_fleet.py's 8x8 residents."""
+
+    @pytest.mark.parametrize("workers", [1, 4])
+    @pytest.mark.parametrize("kind", ["plan", "fleet"])
+    def test_the_same_windows_members_and_records(self, kind, workers):
+        got = _plan_both(kind, workers)
+        assert got["port"] == got["jax"]
+        windows = got["port"]["windows"]
+        # every 4x4 pod is its own gang of one shard: a window a pair
+        assert 2 * len(windows) >= got["pods"] > 0
+        nodes = {n: (d, i) for n, d, i, _ in _bench_layout(kind)[0]}
+        for block, names in windows:
+            assert block == "2x8"
+            (domain,) = {nodes[n][0] for n in names}
+            index = [nodes[n][1] for n in names]
+            assert index[0] % 2 == 0 and index == [index[0], index[0] + 1]
+            assert got["domains"][f"{block}:{','.join(names)}"] == domain
+
+    @pytest.mark.parametrize("kind", ["plan", "fleet"])
+    def test_one_and_four_workers_carve_alike(self, kind):
+        assert _plan_both(kind, 1)["port"] == _plan_both(kind, 4)["port"]
+
+    def test_the_residents_are_rejected_as_jax(self):
+        """bench_fleet.py's eight v5e 8x8 residents (no pod group, as it
+        makes them) through three cycles of both schedulers over its
+        layout: every record the same, the rejections node class by
+        node class (full nodes lack cpu and the block, virgin ones the
+        block)."""
+        kind = "fleet"
+        from nos_tpu.cmd.assembly import build_scheduler as jax_build
+
+        from nos_tpu_torch.cmd.assembly import build_scheduler
+
+        japi, api = JaxAPIServer(), APIServer()
+        for jnode, jfill, node, fill in _bench_nodes(kind):
+            japi.create("Node", jnode)
+            api.create(KIND_NODE, node)
+            if fill:
+                japi.create("Pod", jfill)
+                api.create(KIND_POD, fill)
+        for k in range(8):
+            japi.create("Pod", jax_factory.make_slice_pod(
+                "8x8", 1, name=f"resident-v5e-{k}"))
+            api.create(KIND_POD, factory.make_pod(
+                name=f"resident-v5e-{k}", resources=port_resources("8x8")))
+        jj = jax_journal.DecisionJournal(maxlen=1 << 16)
+        pj = journal.DecisionJournal(maxlen=1 << 16)
+        prev_j, prev_p = jax_journal.set_journal(jj), journal.set_journal(pj)
+        jsched = jax_build(japi, clock=lambda: 0.0)
+        sched = build_scheduler(api, clock=lambda: 0.0)
+        try:
+            for _ in range(3):
+                assert sched.run_cycle() == jsched.run_cycle() == 0
+        finally:
+            jax_journal.set_journal(prev_j)
+            journal.set_journal(prev_p)
+            jsched.close()
+            sched.close()
+        want = [(r.category, r.subject, _jax_text(r.attrs))
+                for r in jj.events()]
+        got = [(r.category, r.subject, r.attrs) for r in pj.events()]
+        assert got == want
+        rejected = [a for c, _, a in got if c == journal.POD_REJECTED]
+        assert len(rejected) == 3 * 8
+        res = P.slice_resource_name("8x8")
+        full = sum(f for *_, f in _bench_layout(kind)[0])
+        assert rejected[0]["reason_counts"] == {
+            f"NodeResourcesFit: insufficient cpu, {res}": full,
+            f"NodeResourcesFit: insufficient {res}": full}

@@ -630,7 +630,13 @@ class TestDecisionsDoNotChange:
             spec = fleet.fleet_spec(0)
             parts = (TimeshareSnapshotTaker, TimeshareProfileCalculator,
                      TimesharePartitionCalculator, fleet.FLEET_DIGEST)
+            planner = GeometryPlanner
         else:
+            # the MIG factory's planner: the NVLink block group pass in
+            # front of the per-node planner
+            from nos_tpu_torch.partitioning.slicepart.group import (
+                MultiHostGeometryPlanner as planner)
+
             spec = fleet.mig_fleet_spec(0)
             parts = (SliceSnapshotTaker, SliceProfileCalculator,
                      SlicePartitionCalculator, fleet.MIG_FLEET_DIGEST)
@@ -642,8 +648,7 @@ class TestDecisionsDoNotChange:
             try:
                 snap = taker().take_snapshot(fleet.build_cluster(spec))
                 pending = fleet.build_pending(spec)
-                GeometryPlanner(Framework(), calc(), part()).plan(
-                    snap, pending)
+                planner(Framework(), calc(), part()).plan(snap, pending)
             finally:
                 J.set_journal(prev)
             bound = {b["name"] for n in spec["nodes"] for b in n["bound"]}
@@ -697,6 +702,16 @@ class TestSmokeFleet:
             assert out[f"on_workers_{workers}"]["prescreen_fails"] > 0
             assert out[f"off_workers_{workers}"]["prescreen_fails"] == 0
         assert out["nodes_carved"] > 0
+        # bench_fleet.py's 4x4 rows: 2x8 gangs of one pod, each given a
+        # shard of a window the group pass carved
+        assert out["block_gangs"] == 6
+        assert 2 * out["blocks_carved"] >= out["block_gangs"]
+
+    def test_a_misplaced_block_fails_the_phase(self, monkeypatch):
+        monkeypatch.setattr(fleet, "block_plan_problems",
+                            lambda *a, **kw: ["a window out of line"])
+        with pytest.raises(SystemExit, match="a window out of line"):
+            chip_smoke._scale_fleet_plans(domains=2, hosts=64, timed=1)
 
     def test_the_cycles_agree_with_the_screen_and_without(self):
         out = chip_smoke._fleet_cycles(nodes=64, bound=512, steady=5)
@@ -722,6 +737,12 @@ class TestSmokeFleet:
             chip_smoke._scale_fleet_plans(domains=2, hosts=64, timed=1)
 
     def test_the_scale_specs_are_bench_fleet_s(self):
+        """bench_fleet.py's v5e mix row for row, its 4x4 a 2x8 block pod
+        labelled ``fleet-gang-<i>`` (one pod a group, as the bench labels
+        it); its residents eight a generation, v5e's and v6e's 8x8 an
+        8x8 block with no pod group, v5p's 4x4x4 the 4g.40gb."""
+        import bench_fleet
+
         spec = fleet.scale_plan_spec()
         assert len(spec["nodes"]) == 1024 and len(spec["pending"]) == 640
         assert sum(1 for n in spec["nodes"] if n["bound"]) == 512
@@ -729,9 +750,33 @@ class TestSmokeFleet:
         for p in spec["pending"][:22]:
             counts[p["profile"]] = counts.get(p["profile"], 0) + 1
         assert counts == dict(fleet.SCALE_MIX)
+        assert [w for _, w in fleet.SCALE_MIX] == \
+            [w for _, w in bench_fleet.BATCH_MIX["v5e"]]
         assert [p["priority"] for p in spec["pending"][:4]] == [0, 1, 2, 0]
+        gangs = [(p["name"], p.get("gang")) for p in spec["pending"]
+                 if p["profile"] == "2x8"]
+        assert len(gangs) == 58 and gangs[0] == ("fleet-20", "fleet-gang-20")
+        assert all(g == f"fleet-gang-{n.split('-')[1]}" for n, g in gangs)
+        assert [(g, c) for g, _, c in fleet.SCALE_RESIDENTS] == [
+            (g, bench_fleet.SCALE_RESIDENTS_PER_GEN)
+            for _, g, _ in bench_fleet.FLEET]
+        assert {g: p for g, p, _ in fleet.SCALE_RESIDENTS} == {
+            "v5e": "8x8", "v5p": "4g.40gb", "v6e": "8x8"}
         with pytest.raises(ValueError):
             fleet.scale_cycle_api(nodes=1, bound=57)
+
+    def test_the_residents_are_blocks_in_no_pod_group(self):
+        from nos_tpu_torch.kube.client import KIND_POD
+
+        api = fleet.scale_cycle_api(nodes=2, bound=16)
+        residents = {p.metadata.name: p for p in api.list(KIND_POD)
+                     if p.metadata.name.startswith("resident-")}
+        assert len(residents) == 24
+        pod = residents["resident-v6e-7"]
+        assert pod.spec.containers[0].resources == {
+            "nos.nebuly.com/nvlink-block-8x8": 1, "cpu": 1.0}
+        assert not any(C.LABEL_POD_GROUP in p.metadata.labels
+                       for p in residents.values())
 
 
 def _ab_script():

@@ -347,10 +347,14 @@ class TestNosdiff:
         assert trace.get_tracer() is tracer
         cats = {r["category"] for r in first}
         assert {"plan-node-committed", "plan-shard-merged",
-                "pod-bound", "pod-rejected"} <= cats
+                "plan-block-carved", "pod-bound", "pod-rejected",
+                "gang-rejected"} <= cats
         assert {r["trace_id"] for r in first} == {""}   # tracer off
 
     def test_trace_is_the_mig_fleet_in_four_domains(self):
+        """bench_plan.py's layout and mix: 4 domains of 16, half full,
+        its 4x4 row as 2x8 block pods pending, each in a pod group of its
+        own."""
         from nos_tpu_torch.analysis import determinism as D
         from nos_tpu_torch.testing import fleet
 
@@ -361,6 +365,30 @@ class TestNosdiff:
             (f"nvl-{i // 16}", i % 16) for i in range(64)]
         assert {p["profile"] for p in spec["pending"]} == \
             {p for p, _ in fleet.MIG_POD_MIX}
+        blocks = [p for p in spec["pending"]
+                  if p["profile"] == fleet.MIG_BLOCK]
+        assert len(blocks) == 18
+        assert len({p["gang"] for p in blocks}) == 18
+
+    def test_the_trace_carves_blocks_and_rejects_their_gangs(self):
+        """The plan leg's group pass carves aligned windows in the two
+        virgin domains, journaled; the schedule leg's gang path rejects
+        every block gang each cycle (no block is actuated there)."""
+        from nos_tpu_torch.analysis.determinism import run_trace
+        from nos_tpu_torch.testing import fleet
+
+        from nos_tpu_torch.analysis import determinism as D
+
+        records = run_trace(plan_workers=4, cycles=2)
+        rows = [(r["category"], r["subject"], r["attrs"]) for r in records]
+        windows = fleet.block_windows(rows)
+        assert {d for _, d, _ in windows} == {"nvl-2", "nvl-3"}
+        members = {n: {"0": {b: 1}} for b, _, names in windows
+                   for n in names}
+        assert fleet.block_plan_problems(D.trace_spec(), windows,
+                                         members) == []
+        rejected = [s for c, s, _ in rows if c == "gang-rejected"]
+        assert len(rejected) == 2 * 18
 
     def test_golden_matrix_corner_byte_identical(self):
         # tier-1 corner of the full 12-cell matrix: 2 seeds x sharded

@@ -845,6 +845,35 @@ class TestAgentFaults:
 
 
 class TestSmokeMig:
+    def test_the_fleet_plan_carves_blocks_and_sub_host_pods(
+            self, monkeypatch):
+        """Part (a) on the CPU, one plan: the group pass's 9 windows and
+        the per-node pass's re-carves beside them."""
+        monkeypatch.setattr(chip_smoke, "MIG_PLANS", 1)
+        got = chip_smoke._mig_fleet_plans()
+        assert (got["nodes"], got["pending"]) == (64, 200)
+        assert got["blocks_carved"] == 9 and got["forks"] >= 1
+        assert got["gpus_carved"] > 0 and got["sub_host_pods_placed"] > 0
+        assert got["block_pods_placed"] == 0 and not got["lacking_after"]
+
+    def test_a_plan_with_no_sub_host_carve_fails(self, monkeypatch):
+        from nos_tpu_torch.testing import fleet
+
+        monkeypatch.setattr(chip_smoke, "MIG_PLANS", 1)
+        real = fleet.mig_fleet_spec
+
+        def only_blocks(seed=0):
+            spec = real(seed)
+            spec["pending"] = [p for p in spec["pending"]
+                               if p["profile"] == fleet.MIG_BLOCK]
+            return spec
+
+        monkeypatch.setattr(fleet, "mig_fleet_spec", only_blocks)
+        monkeypatch.setattr(fleet, "MIG_FLEET_DIGEST", None)
+        monkeypatch.setattr(fleet, "plan_digest", lambda summary: None)
+        with pytest.raises(SystemExit, match="did not run"):
+            chip_smoke._mig_fleet_plans()
+
     def test_the_loop_writes_what_the_smoke_pins(self, monkeypatch):
         """Part (c) on real time.monotonic with the smoke's windows
         (about 2.5 s): every write must be MIG_LOOP_WRITES."""

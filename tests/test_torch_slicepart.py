@@ -234,7 +234,8 @@ def standin_fleet_spec(seed: int = 0) -> dict:
     """``fleet.mig_fleet_spec`` on the stand-in: 32 nodes x 8 GPUs, half
     full, 200 pending pods of the bench's mix restricted to the
     stand-in's profiles (2x2:4, 2x4:2 ↔ 3g.40gb:4, 7g.80gb:2)."""
-    spec = fleet.mig_fleet_spec(seed)
+    spec = fleet.mig_fleet_spec(seed, nodes=fleet.NODES,
+                                full_nodes=fleet.FULL_NODES)
     rng = np.random.default_rng(seed)
     pods, i = [], 0
     while len(pods) < fleet.PENDING_PODS:
@@ -629,20 +630,32 @@ def _span_counts(ring) -> dict:
 
 
 def port_plan(spec, build=port_cluster, taker=None,
-              native_prescreen: bool = True):
+              native_prescreen: bool = True, planner_cls=None,
+              records: list | None = None):
+    """``spec`` planned on the port by ``planner_cls`` (the sequential
+    GeometryPlanner, JAX's twin here, unless given); the plan's journal
+    rows go to ``records`` where one is given."""
+    from nos_tpu_torch.obs import journal as port_journal
+
     taker = taker or sp.SliceSnapshotTaker(PORT_REG)
     snap = taker.take_snapshot(build(spec))
     pending = fleet.build_pending(spec)
-    planner = core.GeometryPlanner(fw.Framework(), sp.SliceProfileCalculator(),
-                                   sp.SlicePartitionCalculator(),
-                                   native_prescreen=native_prescreen)
+    planner = (planner_cls or core.GeometryPlanner)(
+        fw.Framework(), sp.SliceProfileCalculator(),
+        sp.SlicePartitionCalculator(), native_prescreen=native_prescreen)
     tracer = trace.Tracer()
+    journal = port_journal.DecisionJournal(maxlen=1 << 16)
     prev = trace.set_tracer(tracer)
+    prev_j = port_journal.set_journal(journal)
     try:
         planned = snap.clone()
         desired = planner.plan(planned, pending)
     finally:
+        port_journal.set_journal(prev_j)
         trace.set_tracer(prev)
+    if records is not None:
+        records.extend((r.category, r.subject, r.attrs)
+                       for r in journal.events())
     summary = fleet.plan_summary(planned, pending, _bound_names(spec),
                                  sp.SliceProfileCalculator())
     return snap, planned, desired, _span_counts(tracer.ring), summary
@@ -773,18 +786,46 @@ STANDIN_FLEET_DIGEST = \
 
 
 class TestMigFleet:
-    def test_the_mig_fleet_plan(self):
+    """The MIG fleet (bench_plan.py's 64 hosts and mix, its 4x4 row as
+    2x8 block gangs, in four NVLink domains of 16 nodes) planned by the MIG
+    factory's planner, the group pass in front, held by checks that do
+    not read the digest: the oracle on every GPU outside a block, the
+    blocks' windows, the pass's journal records, no gang lacking beside
+    a clean window."""
+
+    @staticmethod
+    def _plan():
+        from nos_tpu_torch.partitioning.slicepart.group import (
+            MultiHostGeometryPlanner)
+
         spec = fleet.mig_fleet_spec(0)
-        assert len(spec["nodes"]) == 32 and len(spec["pending"]) == 200
+        records: list = []
+        got = port_plan(spec, build=fleet.build_cluster,
+                        taker=sp.SliceSnapshotTaker(),
+                        planner_cls=MultiHostGeometryPlanner,
+                        records=records)
+        return spec, records, got
+
+    def test_the_mig_fleet_plan(self):
+        spec, records, (snap, planned, _, counts, summary) = self._plan()
+        assert len(spec["nodes"]) == 64 and len(spec["pending"]) == 200
         assert {n["kind"] for n in spec["nodes"]} == {C.MIG_KIND}
-        snap, planned, _, counts, summary = port_plan(
-            spec, build=fleet.build_cluster, taker=sp.SliceSnapshotTaker())
         assert fleet.plan_digest(summary) == fleet.MIG_FLEET_DIGEST
         assert counts["forks"] >= 1 and not summary["lacking"]
-        # every GPU's geometry, against the independent oracle: a maximal
-        # H100 geometry, holding its used instances
+        windows = fleet.block_windows(records)
+        members = {n for _, _, names in windows for n in names}
+        assert fleet.block_plan_problems(
+            spec, windows, summary["geometries"], summary["placed"],
+            summary["lacking"]) == []
+        # every GPU outside a block, against the independent oracle: a
+        # maximal H100 geometry, holding its used instances; the sub-host
+        # demand re-carves some of them
+        recarved = 0
         for name, gpus in summary["geometries"].items():
+            if name in members:
+                continue
             before = {u.index: u.used for u in snap.get_node(name).units}
+            recarved += any(g != {WHOLE: 1} for g in gpus.values())
             for index, geometry in gpus.items():
                 key = tuple(sorted(geometry.items()))
                 assert key in ORACLE_MAXIMAL, (name, index, geometry)
@@ -793,19 +834,85 @@ class TestMigFleet:
                 assert g <= 7 and m <= 8
                 assert all(geometry.get(p, 0) >= c
                            for p, c in before[int(index)].items())
+        assert recarved >= 1
+
+    def test_the_group_pass_takes_the_virgin_domain(self):
+        """bench_plan.py's 18 block gangs want 9 windows: the pass carves
+        all 8 of the virgin domain nvl-2 and the first of nvl-3 (each
+        logged and journaled), one shard a gang, and the per-node pass
+        re-carves nvl-3's next virgin nodes for the sub-host demand; no
+        gang and no profile is left lacking."""
+        spec, records, (_, _, _, _, summary) = self._plan()
+        windows = fleet.block_windows(records)
+        assert [w[1] for w in windows] == ["nvl-2"] * 8 + ["nvl-3"]
+        assert [w[2] for w in windows] == [
+            [f"gpu-node-{i}", f"gpu-node-{i + 1}"] for i in range(32, 50, 2)]
+        gangs = {p["name"] for p in spec["pending"] if p.get("gang")}
+        assert 2 * len(windows) == len(gangs) == 18
+        placed = {p for pods in summary["placed"].values() for p in pods}
+        # the carved shards hold the gangs, so only sub-host pods still
+        # lacked room after the pass, and they are placed beside it
+        assert placed and not placed & gangs
+        assert {n for n, pods in summary["placed"].items()} <= {
+            f"gpu-node-{i}" for i in range(50, 64)}
+        assert not summary["lacking"]
+
+    def test_a_gang_beside_a_clean_window_is_a_problem(self):
+        """``block_plan_problems`` reads a lacking gang beside a clean
+        aligned window, a misaligned window and a member the journal
+        does not name."""
+        spec, records, (_, _, _, _, summary) = self._plan()
+        windows = fleet.block_windows(records)
+        geometries = summary["geometries"]
+        # drop the last carve: its nodes are clean, its 2 gangs lack
+        cut = windows[:-1]
+        clean = {n: {g: {} for g in range(8)} for n in windows[-1][2]}
+        problems = fleet.block_plan_problems(
+            spec, cut, {**geometries, **clean},
+            {n: p for n, p in summary["placed"].items()
+             if n not in windows[-1][2]},
+            {**summary["lacking"], fleet.MIG_BLOCK: 2})
+        assert len(problems) == 1 and "aligned windows are clean" in \
+            problems[0]
+        # host indices 1 and 2 of nvl-1
+        misaligned = [["2x8", "nvl-1", ["gpu-node-17", "gpu-node-18"]]]
+        assert any("not an aligned window" in p for p in
+                   fleet.block_plan_problems(spec, misaligned, {}))
+        assert any("are not the carved windows'" in p for p in
+                   fleet.block_plan_problems(spec, [], geometries))
 
     def test_the_fleet_spec_maps_the_bench_mix(self):
+        """bench_plan.py's mix row for row, its 4x4 a 2x8 block pod in a
+        pod group of its own (``gang-<i>``), the nodes in its domains of
+        16 hosts."""
+        import bench_plan
+
         spec = fleet.mig_fleet_spec(0)
         counts: dict[str, int] = {}
         for p in spec["pending"]:
             counts[p["profile"]] = counts.get(p["profile"], 0) + 1
-        assert counts == {"1g.10gb": 80, "2g.20gb": 60, "3g.40gb": 40,
-                          "7g.80gb": 20}
+        assert counts == {"1g.10gb": 74, "2g.20gb": 54, "3g.40gb": 36,
+                          "7g.80gb": 18, "2x8": 18}
+        assert [w for _, w in fleet.MIG_POD_MIX] == \
+            [w for _, w in bench_plan.POD_MIX]
         assert [p["priority"] for p in spec["pending"][:4]] == [0, 1, 2, 0]
+        assert all(p.get("gang") == f"gang-{p['name'].split('-')[1]}"
+                   for p in spec["pending"] if p["profile"] == "2x8")
+        assert not any(p.get("gang") for p in spec["pending"]
+                       if p["profile"] != "2x8")
+        assert [(n["domain"], n["host_index"]) for n in spec["nodes"]] == [
+            (f"nvl-{i // 16}", i % 16) for i in range(64)]
+        assert (len(spec["nodes"]), bench_plan.DOMAINS) == \
+            (bench_plan.HOSTS, 4)
         full = [n for n in spec["nodes"] if n["bound"]]
-        assert len(full) == 16 and all(
+        assert len(full) == bench_plan.FULL_HOSTS == 32 and all(
             n["status"][g] == {"used": {WHOLE: 1}}
             for n in full for g in range(8))
+        (pod,) = [p for p in fleet.build_pending(spec)
+                  if p.metadata.name == "pending-20"]
+        assert pod.metadata.labels[C.LABEL_POD_GROUP] == "gang-20"
+        assert pod.spec.containers[0].resources == {
+            "nos.nebuly.com/nvlink-block-2x8": 1, C.CPU: 1.0}
 
 
 # ---------------------------------------------------------------------------
